@@ -1,0 +1,99 @@
+"""Profile one round of the PyTorch port on a CUDA card (torch.profiler).
+
+    python3 scripts/profile_port.py [--out chiprun_out/profile_port.json]
+
+One profiled ASFL round of the paper's case study on the topk_int8 wire
+(resnet18, 4 vehicles, batch 16, adam; ``local_steps=2`` to keep the trace
+small) after one warm-up round: wall time, device busy share (summed kernel
+time / wall), and the kernels that take the most device time, by name.
+The codec kernels' own times are measured by ``chip_smoke.py``.
+
+Needs a CUDA card and nvcc; imports neither jax nor repro.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(os.path.dirname(HERE), "src"))
+
+
+def _device_us(evt) -> float:
+    return float(evt.self_device_time_total)
+
+
+def _is_device_kernel(evt) -> bool:
+    import torch
+    return evt.device_type == torch.autograd.DeviceType.CUDA
+
+
+def round_profile(top: int = 12):
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import api, kernels
+    spec = api.ExperimentSpec(train=api.TrainConfig(
+        rounds=1, local_steps=2, wire="topk_int8", eval_every=0))
+    sim = api.build_engine(spec)
+    sim.run()                                  # warm-up round
+    sim.reset()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    steps0 = sim.engine.batch_steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        (m,) = sim.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev = [e for e in prof.key_averages() if _is_device_kernel(e)]
+    busy_us = sum(_device_us(e) for e in dev)
+    dev.sort(key=_device_us, reverse=True)
+    rows = [{"kernel": e.key[:120], "count": e.count,
+             "device_ms": _device_us(e) / 1e3} for e in dev[:top]]
+    steps = sim.engine.batch_steps - steps0
+    res = {"wall_s": wall, "device_busy_s": busy_us / 1e6,
+           "device_busy_share": busy_us / 1e6 / wall,
+           "cuts": m.cuts, "client_batch_steps": steps,
+           "codec_launches": kernels.launch_counts(),
+           "n_device_kernels": sum(e.count for e in dev), "top": rows}
+    print(f"round wall_s={wall:.6f} device_busy_s={busy_us / 1e6:.6f} "
+          f"busy_share={res['device_busy_share']:.4f} cuts={m.cuts} "
+          f"client_batch_steps={steps} "
+          f"device_kernels={res['n_device_kernels']}", flush=True)
+    for r in rows:
+        print(f"round top count={r['count']:6d} "
+              f"device_ms={r['device_ms']:.3f} {r['kernel']}", flush=True)
+    return res
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default="chiprun_out/profile_port.json")
+    args = ap.parse_args()
+    import subprocess
+
+    import torch
+    if not torch.cuda.is_available():
+        print("profile_port: no CUDA device available", file=sys.stderr)
+        return 2
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True, timeout=60).stdout.strip()
+    print(card, flush=True)
+    from repro_torch.device import set_float32_precision
+    set_float32_precision()
+    result = {"card": card, "round": round_profile()}
+    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+    with open(args.out, "w") as f:
+        json.dump(result, f, indent=1)
+    print(f"wrote {args.out}", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,17 @@
+"""``repro_torch`` — the PyTorch / CUDA port of :mod:`repro` for NVIDIA H100.
+
+The JAX package ``repro`` stays the reference; this package grows beside it
+one slice at a time, with the same subpackage and module names so every
+module has an obvious twin (``core/``, ``kernels/``, ``models/``, ``optim/``,
+``data/``, ``api/``).  It imports ``torch`` and numpy only — never ``jax``
+and nothing of ``repro``.
+
+The slice ported so far is the paper's ASFL case study on the single-RSU
+engine: ``repro_torch.api.run(ExperimentSpec())`` -> ``FederationSim`` ->
+``CohortEngine.split_round``, with the cut-boundary codec (``int8`` and
+``topk_int8`` wires) carried by four hand-written CUDA kernels
+(``kernels/csrc/codec.cu``).
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
+without a card they raise (:mod:`repro_torch.device`).
+"""

@@ -1,0 +1,105 @@
+"""String-keyed registries of the port's front door (twin of
+``repro.api.registry``, holding what is ported so far).
+
+Models ``resnet18`` and ``mlp9``; scenario ``single_rsu``; every cut
+strategy and wire scheme of the reference as metadata (which engine may
+run it).  Server schedules other than ``sequential`` are refused by
+``SimConfig`` ("not ported yet").  A name the reference knows but the port does
+not is refused with "not ported yet".
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, Optional, Tuple
+
+from repro_torch.core.fedsim import (FEDERATION_STRATEGIES,
+                                     SCENARIO_STRATEGIES, WIRE_SCHEMES)
+
+FEDERATION = "federation"   # single-RSU FederationSim / CohortEngine
+SCENARIO = "scenario"       # multi-RSU ScenarioEngine (not ported yet)
+SINGLE_RSU = "single_rsu"   # the scenario key that routes to FederationSim
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelEntry:
+    """A federated model: ``UnitModel`` builder + its fleet-data builder
+    ``make_data(n_vehicles, per_vehicle, n_test, seed)``."""
+    name: str
+    build: Callable[..., Any]
+    make_data: Callable[[int, int, int, int], Tuple[list, dict]]
+    n_units: int
+    description: str = ""
+
+
+def _build_resnet(**kw):
+    from repro_torch.core.fedsim import ResNetModel
+    return ResNetModel(**kw)
+
+
+def _resnet_data(n_vehicles, per_vehicle, n_test, seed):
+    from repro_torch.data.pipeline import make_federated_data
+    return make_federated_data(seed, n_train=per_vehicle * n_vehicles,
+                               n_test=n_test, n_clients=n_vehicles)
+
+
+def _build_mlp9(**kw):
+    from repro_torch.models.mlp_unit import MLPUnitModel
+    return MLPUnitModel(**kw)
+
+
+def _mlp9_data(n_vehicles, per_vehicle, n_test, seed):
+    from repro_torch.models.mlp_unit import make_mlp_fleet_data
+    return make_mlp_fleet_data(n_vehicles, per_vehicle, seed=seed,
+                               n_test=n_test)
+
+
+MODELS: Dict[str, ModelEntry] = {
+    "resnet18": ModelEntry(
+        "resnet18", _build_resnet, _resnet_data, n_units=9,
+        description="the paper's ResNet18 over 32x32x3 (9 split points)"),
+    "mlp9": ModelEntry(
+        "mlp9", _build_mlp9, _mlp9_data, n_units=9,
+        description="9-unit split MLP (models/mlp_unit.py)"),
+}
+
+
+def model_entry(name: str) -> ModelEntry:
+    if name not in MODELS:
+        raise ValueError(f"model {name!r} is unknown or not ported yet; "
+                         f"ported models: {' | '.join(sorted(MODELS))}")
+    return MODELS[name]
+
+
+# the single-RSU entry is None: the router dispatches it to FederationSim
+SCENARIOS: Dict[str, Optional[Callable[..., Any]]] = {SINGLE_RSU: None}
+
+
+def scenario_names() -> str:
+    return " | ".join(sorted(SCENARIOS))
+
+
+@dataclasses.dataclass(frozen=True)
+class StrategyEntry:
+    name: str
+    engines: Tuple[str, ...]
+
+
+@dataclasses.dataclass(frozen=True)
+class WireEntry:
+    name: str
+    engines: Tuple[str, ...]
+
+
+STRATEGIES: Dict[str, StrategyEntry] = {
+    name: StrategyEntry(name, tuple(
+        kind for kind, names in ((FEDERATION, FEDERATION_STRATEGIES),
+                                 (SCENARIO, SCENARIO_STRATEGIES))
+        if name in names))
+    for name in sorted(set(FEDERATION_STRATEGIES) | set(SCENARIO_STRATEGIES))
+}
+WIRES: Dict[str, WireEntry] = {
+    name: WireEntry(name, (FEDERATION, SCENARIO)) for name in WIRE_SCHEMES}
+
+
+def wire_names() -> str:
+    return " | ".join(sorted(WIRES))

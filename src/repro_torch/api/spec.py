@@ -1,0 +1,266 @@
+"""Declarative experiment specs (twin of ``repro.api.spec``).
+
+Same groups, field names, defaults and JSON as the reference, so a spec
+saved by ``repro.api`` loads here.  The device is deliberately *not* a spec
+field (it is a keyword of ``run`` / ``build_engine``), so the JSON stays
+identical to the reference's.
+
+Validation covers what the port can run: the single-RSU engine with the
+ported models.  A multi-RSU scenario, a non-default value of a plane that is
+not ported yet, or a multi-process topology raises.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+from typing import Any, Dict, Optional, Tuple, Union
+
+from repro_torch.api import registry
+from repro_torch.core.fedsim import SimConfig
+
+__all__ = [
+    "TrainConfig", "AdaptiveConfig", "FleetConfig", "RuntimeConfig",
+    "FaultsConfig", "StreamConfig", "ExperimentSpec",
+    "SIM_CONFIG_FIELD_MAP",
+]
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """The learning loop (paper defaults: batch 16, 5 local epochs,
+    lr 1e-4)."""
+    scheme: str = "asfl"
+    batch_size: int = 16
+    local_epochs: int = 5
+    local_steps: Optional[int] = None
+    lr: float = 1e-4
+    rounds: int = 10
+    optimizer: str = "adam"
+    eval_every: int = 1
+    compress_smashed: bool = False
+    server_schedule: str = "sequential"
+    wire: str = "none"
+    wire_k: float = 0.25
+
+
+@dataclasses.dataclass(frozen=True)
+class AdaptiveConfig:
+    """Cut-layer selection — the 'adaptive' in ASFL."""
+    strategy: str = "paper"
+    cut: int = 4
+
+
+@dataclasses.dataclass(frozen=True)
+class FleetConfig:
+    """The fleet and where it drives (``single_rsu`` / None only, so far)."""
+    n_vehicles: int = 4
+    scenario: Optional[str] = registry.SINGLE_RSU
+    scenario_kwargs: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    cloud_sync_every: int = 1
+    round_interval_s: float = 5.0
+    mobility_dropout: bool = False
+    server_flops: float = 2e12
+    per_vehicle_samples: int = 64
+    test_samples: int = 256
+    data_seed: int = 0
+    memory_budget_bytes: Optional[Union[float, Tuple[float, float]]] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class RuntimeConfig:
+    """Execution knobs (the reference's XLA ones; only defaults run here)."""
+    seed: int = 0
+    cohort_parallel: str = "auto"
+    superstep: int = 1
+    slot_capacity: str = "pow2"
+    superstep_layout: str = "ragged"
+    precompile: bool = True
+    compilation_cache_dir: Optional[str] = None
+    mesh_devices: Union[int, str] = 1
+    fleet_axis: str = "auto"
+    mesh_shape: str = "auto"
+    page_slots: int = 0
+    coordinator_address: Optional[str] = None
+    num_processes: int = 1
+    process_id: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class FaultsConfig:
+    """The fault plane (not ported yet: defaults only)."""
+    coverage: bool = False
+    dropout_rate: float = 0.0
+    upload_loss_rate: float = 0.0
+    straggler_factor: float = 0.0
+    rsu_outage_rate: float = 0.0
+    staleness_discount: float = 0.5
+    seed: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamConfig:
+    """The streaming plane (not ported yet: defaults only)."""
+    buffer_size: int = 4
+    churn_rate: float = 0.0
+    kernel: str = "constant"
+    alpha: float = 0.5
+    seed: int = 0
+    churn_source: str = "markov"
+
+
+# SimConfig field -> (spec group, group field), as in the reference
+SIM_CONFIG_FIELD_MAP: Dict[str, Tuple[str, str]] = {
+    "scheme": ("train", "scheme"),
+    "batch_size": ("train", "batch_size"),
+    "local_epochs": ("train", "local_epochs"),
+    "local_steps": ("train", "local_steps"),
+    "lr": ("train", "lr"),
+    "rounds": ("train", "rounds"),
+    "optimizer": ("train", "optimizer"),
+    "eval_every": ("train", "eval_every"),
+    "compress_smashed": ("train", "compress_smashed"),
+    "server_schedule": ("train", "server_schedule"),
+    "wire": ("train", "wire"),
+    "wire_k": ("train", "wire_k"),
+    "adaptive_strategy": ("adaptive", "strategy"),
+    "cut": ("adaptive", "cut"),
+    "n_clients": ("fleet", "n_vehicles"),
+    "round_interval_s": ("fleet", "round_interval_s"),
+    "mobility_dropout": ("fleet", "mobility_dropout"),
+    "server_flops": ("fleet", "server_flops"),
+    "fault_coverage": ("faults", "coverage"),
+    "fault_dropout": ("faults", "dropout_rate"),
+    "fault_upload_loss": ("faults", "upload_loss_rate"),
+    "fault_straggler": ("faults", "straggler_factor"),
+    "fault_rsu_outage": ("faults", "rsu_outage_rate"),
+    "fault_staleness_discount": ("faults", "staleness_discount"),
+    "fault_seed": ("faults", "seed"),
+    "stream_buffer_size": ("stream", "buffer_size"),
+    "stream_churn_rate": ("stream", "churn_rate"),
+    "stream_kernel": ("stream", "kernel"),
+    "stream_alpha": ("stream", "alpha"),
+    "stream_seed": ("stream", "seed"),
+    "stream_churn_source": ("stream", "churn_source"),
+    "seed": ("runtime", "seed"),
+    "cohort_parallel": ("runtime", "cohort_parallel"),
+    "superstep": ("runtime", "superstep"),
+    "slot_capacity": ("runtime", "slot_capacity"),
+    "superstep_layout": ("runtime", "superstep_layout"),
+    "compilation_cache_dir": ("runtime", "compilation_cache_dir"),
+    "mesh_devices": ("runtime", "mesh_devices"),
+    "fleet_axis": ("runtime", "fleet_axis"),
+    "mesh_shape": ("runtime", "mesh_shape"),
+    "page_slots": ("runtime", "page_slots"),
+}
+
+_GROUP_TYPES = {"train": TrainConfig, "adaptive": AdaptiveConfig,
+                "fleet": FleetConfig, "runtime": RuntimeConfig,
+                "faults": FaultsConfig, "stream": StreamConfig}
+
+
+@dataclasses.dataclass(frozen=True)
+class ExperimentSpec:
+    """One experiment: model x scenario x strategy x schedule plus the
+    nested config groups.  ``repro_torch.api.run(spec)`` runs it."""
+    model: str = "resnet18"
+    train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
+    adaptive: AdaptiveConfig = dataclasses.field(
+        default_factory=AdaptiveConfig)
+    fleet: FleetConfig = dataclasses.field(default_factory=FleetConfig)
+    runtime: RuntimeConfig = dataclasses.field(default_factory=RuntimeConfig)
+    faults: FaultsConfig = dataclasses.field(default_factory=FaultsConfig)
+    stream: StreamConfig = dataclasses.field(default_factory=StreamConfig)
+    model_kwargs: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+    @property
+    def engine_kind(self) -> str:
+        sc = self.fleet.scenario
+        return (registry.FEDERATION
+                if sc in (None, registry.SINGLE_RSU) else registry.SCENARIO)
+
+    def __post_init__(self):
+        if self.engine_kind != registry.FEDERATION:
+            raise NotImplementedError(
+                f"fleet.scenario={self.fleet.scenario!r}: the multi-RSU "
+                f"scenario engine is not ported yet; scenarios: "
+                f"{registry.scenario_names()} (None == single_rsu)")
+        self.to_sim_config()        # field validity + not-ported planes
+        entry = registry.model_entry(self.model)
+        engine = registry.FEDERATION
+
+        strat = registry.STRATEGIES.get(self.adaptive.strategy)
+        if strat is None:
+            raise ValueError(
+                f"unknown adaptive strategy {self.adaptive.strategy!r}; "
+                f"registered: {' | '.join(sorted(registry.STRATEGIES))}")
+        if self.train.scheme == "asfl" and engine not in strat.engines:
+            ok = sorted(n for n, s in registry.STRATEGIES.items()
+                        if engine in s.engines)
+            raise ValueError(
+                f"adaptive strategy {strat.name!r} is not executable by the "
+                f"{engine} engine; strategies this engine supports: "
+                f"{' | '.join(ok)}")
+        wire = registry.WIRES.get(self.train.wire)
+        if wire is None:
+            raise ValueError(
+                f"unknown wire scheme {self.train.wire!r}; registered: "
+                f"{registry.wire_names()}")
+        if self.fleet.cloud_sync_every != 1:
+            raise ValueError(
+                "fleet.cloud_sync_every is the multi-RSU edge->cloud "
+                "cadence; the single-RSU engine aggregates at its one RSU "
+                "every round (leave it at 1)")
+        rt = self.runtime
+        if (rt.coordinator_address is not None or rt.num_processes != 1
+                or rt.process_id != 0):
+            raise NotImplementedError(
+                "multi-process runs (runtime.coordinator_address / "
+                "num_processes / process_id): not ported yet")
+        if self.train.scheme == "sfl" \
+                and not 1 <= self.adaptive.cut <= entry.n_units - 1:
+            raise ValueError(
+                f"adaptive.cut={self.adaptive.cut} is out of range for "
+                f"model {self.model!r} ({entry.n_units} units): fixed cuts "
+                f"must be in [1, {entry.n_units - 1}]")
+        for field in ("per_vehicle_samples", "test_samples"):
+            if getattr(self.fleet, field) < 1:
+                raise ValueError(f"fleet.{field}="
+                                 f"{getattr(self.fleet, field)!r} must be "
+                                 f">= 1")
+        if self.fleet.per_vehicle_samples < self.train.batch_size \
+                and self.train.local_steps is None:
+            raise ValueError(
+                f"fleet.per_vehicle_samples={self.fleet.per_vehicle_samples}"
+                f" < train.batch_size={self.train.batch_size} with "
+                f"epoch-driven local steps; raise per_vehicle_samples or "
+                f"set train.local_steps")
+
+    def to_sim_config(self) -> SimConfig:
+        kw = {}
+        for sim_field, (group, field) in SIM_CONFIG_FIELD_MAP.items():
+            kw[sim_field] = getattr(getattr(self, group), field)
+        return SimConfig(**kw)
+
+    def to_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
+    def to_json(self, **dumps_kw) -> str:
+        return json.dumps(self.to_dict(), **dumps_kw)
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "ExperimentSpec":
+        kw = dict(d)
+        for group, typ in _GROUP_TYPES.items():
+            if group in kw and isinstance(kw[group], dict):
+                kw[group] = typ(**kw[group])
+        # JSON has no tuples: restore the (lo, hi) budget pair
+        fleet = kw.get("fleet")
+        if isinstance(fleet, FleetConfig) \
+                and isinstance(fleet.memory_budget_bytes, list):
+            kw["fleet"] = dataclasses.replace(
+                fleet, memory_budget_bytes=tuple(fleet.memory_budget_bytes))
+        return cls(**kw)
+
+    @classmethod
+    def from_json(cls, s: str) -> "ExperimentSpec":
+        return cls.from_dict(json.loads(s))

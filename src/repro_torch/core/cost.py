@@ -1,0 +1,141 @@
+"""Per-cut communication / computation / energy accounting (twin of
+``repro.core.cost``, the parts the ResNet and MLP profiles need).
+
+The analytic model behind the paper's Fig. 5a/5b.  numpy throughout: the
+port's numbers equal the reference's to float64 rounding.  Smashed traffic
+is charged at its on-wire size in both directions (activations up,
+cut-layer gradients down); model transfer stays dense fp32.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional
+
+import numpy as np
+
+from repro_torch.core import compression
+
+BYTES_F32 = 4
+BWD_FWD_RATIO = 2.0  # backward pass ~ 2x forward FLOPs
+
+
+@dataclasses.dataclass
+class SplitProfile:
+    name: str
+    unit_fwd_flops: List[float]            # per-sample forward FLOPs per unit
+    unit_param_bytes: List[int]            # parameter bytes per unit
+    smashed_bytes_per_sample: List[float]  # at cut c (index c-1), forward
+    head_flops: float = 0.0
+    head_param_bytes: int = 0
+    # trailing dim of the smashed tensor at cut c (index c-1): the axis the
+    # wire groups along; None = unknown (assume GROUP-divisible)
+    smashed_trailing_dim: Optional[List[int]] = None
+
+    @property
+    def n_units(self) -> int:
+        return len(self.unit_fwd_flops)
+
+
+def wire_smashed_ratio(profile: SplitProfile, cuts, wire: str = "none",
+                       wire_k: Optional[float] = None, group: int = 128):
+    """Dense-fp32 / on-wire bytes for the smashed tensors at each cut (both
+    directions ride the same wire)."""
+    if wire == "none":
+        return 1.0
+    td = profile.smashed_trailing_dim
+    trailing = (None if td is None
+                else np.asarray(td)[np.asarray(cuts, dtype=np.int64) - 1])
+    if wire_k is None:
+        wire_k = compression.WIRE_K
+    return compression.wire_compression_ratio(wire, BYTES_F32, group,
+                                              trailing, wire_k)
+
+
+def effective_comm_bytes(profile: SplitProfile, cuts, steps, batch: int,
+                         wire: str = "none", wire_k: Optional[float] = None,
+                         include_model_transfer: bool = True):
+    """(up, down) bytes for one round: smashed traffic at on-wire size in
+    both directions, model transfer (aggregation up + fresh copy down)
+    dense fp32."""
+    cuts = np.asarray(cuts, dtype=np.int64)
+    smashed = (np.asarray(profile.smashed_bytes_per_sample)[cuts - 1] * batch
+               / wire_smashed_ratio(profile, cuts, wire, wire_k))
+    up = np.asarray(steps) * smashed
+    down = np.asarray(steps) * smashed
+    if include_model_transfer:
+        bytes_cum = np.concatenate([[0], np.cumsum(profile.unit_param_bytes)])
+        up = up + bytes_cum[cuts]
+        down = down + bytes_cum[cuts]
+    return up, down
+
+
+def resnet_profile() -> SplitProfile:
+    from repro_torch.models import resnet as R
+    unit_flops = [float(R.unit_flops(i)) for i in range(R.N_UNITS)]
+    unit_bytes = [(3 * 3 * 3 * 64 + 2 * 64) * BYTES_F32]
+    cin = 64
+    for cout, stride in zip(R.STAGE_CHANNELS, R.STAGE_STRIDES):
+        n = 3 * 3 * cin * cout + 2 * cout + 3 * 3 * cout * cout + 2 * cout
+        if stride != 1 or cin != cout:
+            n += cin * cout + 2 * cout
+        unit_bytes.append(n * BYTES_F32)
+        cin = cout
+    smashed = [float(np.prod(R.smashed_shape(c, 1)[1:])) * BYTES_F32
+               for c in range(1, R.N_UNITS + 1)]
+    return SplitProfile(
+        name="resnet18",
+        unit_fwd_flops=unit_flops,
+        unit_param_bytes=unit_bytes,
+        smashed_bytes_per_sample=smashed,
+        head_flops=2 * 512 * 10,
+        head_param_bytes=(512 * 10 + 10) * BYTES_F32,
+        smashed_trailing_dim=[R.smashed_shape(c, 1)[-1]
+                              for c in range(1, R.N_UNITS + 1)],
+    )
+
+
+@dataclasses.dataclass
+class RoundCostArrays:
+    """Per-vehicle round cost; every field an np array over the fleet (and
+    optionally a candidate-cut axis)."""
+    comm_bytes_up: np.ndarray
+    comm_bytes_down: np.ndarray
+    t_client_compute: np.ndarray
+    t_server_compute: np.ndarray
+    t_comm: np.ndarray
+    energy_j: np.ndarray
+
+    @property
+    def comm_bytes(self) -> np.ndarray:
+        return self.comm_bytes_up + self.comm_bytes_down
+
+    @property
+    def latency(self) -> np.ndarray:
+        return self.t_client_compute + self.t_server_compute + self.t_comm
+
+
+def sfl_round_cost_arrays(profile: SplitProfile, cuts, n_batches, batch: int,
+                          rates_bps, client_flops, server_flops: float,
+                          local_epochs: int = 1, tx_power_w=0.5,
+                          compute_power_w=15.0,
+                          include_model_transfer: bool = True,
+                          wire: str = "none", wire_k: Optional[float] = None
+                          ) -> RoundCostArrays:
+    """One SFL round per vehicle: K local epochs of (client fwd -> smashed
+    up -> server fwd/bwd -> grad down -> client bwd), then the client-model
+    upload and the fresh-copy download.  Everything broadcasts."""
+    cuts = np.asarray(cuts, dtype=np.int64)
+    fwd_cum = np.concatenate([[0.0], np.cumsum(profile.unit_fwd_flops)])
+    steps = np.asarray(n_batches) * local_epochs
+    up, down = effective_comm_bytes(profile, cuts, steps, batch, wire,
+                                    wire_k, include_model_transfer)
+    c_fwd = fwd_cum[cuts] * batch
+    s_fwd = (fwd_cum[-1] - fwd_cum[cuts] + profile.head_flops) * batch
+    t_client = steps * c_fwd * (1 + BWD_FWD_RATIO) / np.asarray(client_flops)
+    t_server = steps * s_fwd * (1 + BWD_FWD_RATIO) / server_flops
+    rate = np.asarray(rates_bps, dtype=np.float64)
+    t_comm = (up + down) / np.maximum(rate / 8, 1e-9)
+    energy = (np.asarray(compute_power_w) * t_client
+              + np.asarray(tx_power_w) * (up * 8 / np.maximum(rate, 1e-9)))
+    b = np.broadcast_arrays(up, down, t_client, t_server, t_comm, energy)
+    return RoundCostArrays(*[np.asarray(a, dtype=np.float64) for a in b])

@@ -1,0 +1,23 @@
+"""Hand-written CUDA kernels of the port, with their plain PyTorch versions.
+
+Each wrapper runs its plain version only for a tensor on the CPU; for a
+CUDA tensor it launches its kernel or raises.  ``LAUNCHES`` counts kernel
+launches per wrapper (incremented only where a kernel is launched), so a
+run can show that its main path went through the kernels.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+KERNELS = ("quantize_int8", "dequantize_int8", "sparsify_quant_pack",
+           "unpack_dequant")
+LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def launch_counts() -> Dict[str, int]:
+    return dict(LAUNCHES)

@@ -1,0 +1,87 @@
+"""Split MLP UnitModel + synthetic fleet data (twin of
+``repro.models.mlp_unit``).
+
+The 9-unit split MLP over feature vectors mirrors ResNet18's 9 split points
+(every cut in {2, 4, 6, 8} is valid) at millisecond step cost: the fast
+CPU parity model of the port.  Its fleet data is drawn with numpy, so it
+replays the reference's shards exactly.
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core import cost
+from repro_torch.data.pipeline import ClientDataset
+
+
+class MLPUnitModel:
+    """9-unit split MLP over feature vectors."""
+    name = "mlp-split"
+
+    def __init__(self, dim: int = 48, width: int = 64, n_units: int = 9,
+                 n_classes: int = 10):
+        self.dim, self.width, self.n_units = dim, width, n_units
+        self.n_classes = n_classes
+
+    def init(self, gen: torch.Generator):
+        """Random init with the reference's recipe, drawn on the CPU."""
+        units = []
+        d_in = self.dim
+        for _ in range(self.n_units):
+            units.append({
+                "w": torch.randn((d_in, self.width), generator=gen)
+                * math.sqrt(2.0 / d_in),
+                "b": torch.zeros(self.width),
+            })
+            d_in = self.width
+        head = {"w": torch.randn((self.width, self.n_classes), generator=gen)
+                * math.sqrt(1.0 / self.width),
+                "b": torch.zeros(self.n_classes)}
+        return units, head
+
+    def apply_units(self, units, x, start):
+        for u in units:
+            x = torch.relu(x @ u["w"] + u["b"])
+        return x
+
+    def head_predict(self, head, feats):
+        return feats @ head["w"] + head["b"]
+
+    def head_loss(self, head, feats, labels):
+        logits = self.head_predict(head, feats)
+        return F.cross_entropy(logits, labels.long()), logits
+
+    def profile(self):
+        w, d = self.width, self.dim
+        flops = [2.0 * d * w] + [2.0 * w * w] * (self.n_units - 1)
+        pbytes = [(d * w + w) * 4] + [(w * w + w) * 4] * (self.n_units - 1)
+        return cost.SplitProfile(
+            name=self.name, unit_fwd_flops=flops, unit_param_bytes=pbytes,
+            smashed_bytes_per_sample=[w * 4.0] * self.n_units,
+            head_flops=2.0 * w * self.n_classes,
+            head_param_bytes=(w * self.n_classes + self.n_classes) * 4,
+            smashed_trailing_dim=[w] * self.n_units)
+
+
+def make_mlp_fleet_data(n_clients: int, per_client: int, dim: int = 48,
+                        seed: int = 0, n_test: int = 256,
+                        n_classes: int = 10):
+    """Class-structured feature vectors, one shard per vehicle (numpy; the
+    same draws as the reference).  Returns (clients, test) with the test
+    set as numpy arrays."""
+    rng = np.random.default_rng(seed)
+    templates = rng.normal(size=(n_classes, dim)).astype(np.float32)
+    clients = []
+    for i in range(n_clients):
+        y = rng.integers(0, n_classes, size=per_client)
+        x = templates[y] + 0.5 * rng.normal(size=(per_client, dim))
+        clients.append(ClientDataset(x.astype(np.float32),
+                                     y.astype(np.int32), i))
+    yt = rng.integers(0, n_classes, size=n_test)
+    xt = templates[yt] + 0.5 * rng.normal(size=(n_test, dim))
+    test = {"images": xt.astype(np.float32), "labels": yt.astype(np.int32)}
+    return clients, test

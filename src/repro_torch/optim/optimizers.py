@@ -1,0 +1,114 @@
+"""Functional optimizers over trees of tensors (twin of ``repro.optim``).
+
+``init(params) -> state`` and ``update(grads, state, params) -> (updates,
+state)``; :func:`apply_updates` adds the updates.  The arithmetic follows
+the reference op for op — adam is ``-lr*(m/bc1)/(sqrt(v/bc2)+eps)`` with
+float32 ``bc = 1 - b**count`` — so ``torch.optim.Adam`` (which rounds its
+denominator differently) is deliberately not used.  States mirror the
+parameter tree, so the engines can slice an RSU state to a cut suffix.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.tree import tree_map
+
+
+@dataclasses.dataclass(frozen=True)
+class Optimizer:
+    init: Callable[[Any], Any]
+    update: Callable[..., Any]  # (grads, state, params) -> (updates, state)
+
+
+def _first_leaf(tree):
+    while isinstance(tree, (dict, list, tuple)):
+        tree = next(iter(tree.values())) if isinstance(tree, dict) \
+            else tree[0]
+    return tree
+
+
+def _count0(params) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.int32,
+                       device=_first_leaf(params).device)
+
+
+def _lr(lr: float, count: torch.Tensor) -> torch.Tensor:
+    return torch.tensor(lr, dtype=torch.float32, device=count.device)
+
+
+def from_name(name: str, lr: float) -> Optimizer:
+    """Optimizer by config name (adam | sgd | momentum)."""
+    if name == "adam":
+        return adam(lr)
+    if name == "sgd":
+        return sgd(lr)
+    if name == "momentum":
+        return momentum(lr)
+    raise ValueError(f"unknown optimizer {name!r} "
+                     f"(expected adam | sgd | momentum)")
+
+
+def sgd(lr: float) -> Optimizer:
+    def init(params):
+        return {"count": _count0(params)}
+
+    def update(grads, state, params=None):
+        step = _lr(lr, state["count"])
+        upd = tree_map(lambda g: -step * g.to(torch.float32), grads)
+        return upd, {"count": state["count"] + 1}
+
+    return Optimizer(init, update)
+
+
+def momentum(lr: float, beta: float = 0.9) -> Optimizer:
+    def init(params):
+        return {"count": _count0(params),
+                "mu": tree_map(lambda p: torch.zeros_like(
+                    p, dtype=torch.float32), params)}
+
+    def update(grads, state, params=None):
+        step = _lr(lr, state["count"])
+        mu = tree_map(lambda m, g: beta * m + g.to(torch.float32),
+                      state["mu"], grads)
+        upd = tree_map(lambda m: -step * m, mu)
+        return upd, {"count": state["count"] + 1, "mu": mu}
+
+    return Optimizer(init, update)
+
+
+def adam(lr: float, b1: float = 0.9, b2: float = 0.999,
+         eps: float = 1e-8) -> Optimizer:
+    def init(params):
+        def zeros(p):
+            return torch.zeros_like(p, dtype=torch.float32)
+        return {"count": _count0(params),
+                "m": tree_map(zeros, params),
+                "v": tree_map(zeros, params)}
+
+    def update(grads, state, params=None):
+        c = state["count"] + 1
+        step = _lr(lr, state["count"])
+        m = tree_map(lambda m_, g: b1 * m_ + (1 - b1) * g.to(torch.float32),
+                     state["m"], grads)
+        v = tree_map(lambda v_, g: b2 * v_
+                     + (1 - b2) * torch.square(g.to(torch.float32)),
+                     state["v"], grads)
+        cf = c.to(torch.float32)
+        bc1 = 1 - torch.pow(torch.tensor(b1, dtype=torch.float32,
+                                         device=cf.device), cf)
+        bc2 = 1 - torch.pow(torch.tensor(b2, dtype=torch.float32,
+                                         device=cf.device), cf)
+        updates = tree_map(
+            lambda m_, v_: -step * (m_ / bc1) / (torch.sqrt(v_ / bc2) + eps),
+            m, v)
+        return updates, {"count": c, "m": m, "v": v}
+
+    return Optimizer(init, update)
+
+
+def apply_updates(params, updates):
+    return tree_map(lambda p, u: (p.to(torch.float32) + u).to(p.dtype),
+                    params, updates)

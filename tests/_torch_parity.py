@@ -1,0 +1,82 @@
+"""Shared helpers of the PyTorch-port parity tests (tests/test_torch_*.py):
+numpy inputs handed to both packages, leaves compared as numpy."""
+import os
+
+import jax
+import numpy as np
+import torch
+
+from repro.core import fedsim as JF
+from repro.models import mlp_unit as JM
+from repro_torch import bridge
+from repro_torch.core import fedsim as TF
+from repro_torch.models import mlp_unit as TM
+
+
+def cap_torch_threads():
+    """Under pytest-xdist several workers share the machine's cores: one
+    intra-op torch thread per worker keeps torch's OpenMP pool from
+    oversubscribing them (measured: 138 s -> 56 s for these files at -n 6).
+    Call at module import; a single-process run keeps torch's default."""
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        torch.set_num_threads(1)
+
+
+def jax_params_np(units, head):
+    """Reference params -> numpy leaves (the bridge's input form)."""
+    return ([jax.tree.map(np.asarray, u) for u in units],
+            jax.tree.map(np.asarray, head))
+
+
+def port_params_from_jax(units, head, device="cpu"):
+    return bridge.params_to_torch(*jax_params_np(units, head), device=device)
+
+
+def leaves_np(units, head):
+    """Flat list of numpy leaves in the reference's (sorted-key) order."""
+    return jax.tree.leaves(list(units)) + jax.tree.leaves(head)
+
+
+def port_leaves_np(units, head):
+    """The port's params as reference-layout numpy leaves, same order."""
+    u, h = bridge.params_to_numpy(units, head)
+    return leaves_np(u, h)
+
+
+def max_abs_diff(a_leaves, b_leaves):
+    assert len(a_leaves) == len(b_leaves)
+    return max(float(np.max(np.abs(np.asarray(a, np.float64)
+                                   - np.asarray(b, np.float64))))
+               for a, b in zip(a_leaves, b_leaves))
+
+
+# tolerance on loss and parameters per wire (see test_torch_fedsim.py)
+WIRE_TOL = {"none": 1e-5, "int8": 1e-4, "topk_int8": 1e-4}
+
+
+def run_both(opt, wire, lr, rounds=2, per_vehicle=32, **extra):
+    kw = dict(scheme="asfl", n_clients=4, batch_size=8, local_epochs=1,
+              lr=lr, rounds=rounds, optimizer=opt, wire=wire)
+    kw.update(extra)
+    jc, jt = JM.make_mlp_fleet_data(4, per_vehicle, seed=0, n_test=64)
+    tc, tt = TM.make_mlp_fleet_data(4, per_vehicle, seed=0, n_test=64)
+    js = JF.FederationSim(JM.MLPUnitModel(), jc, jt, JF.SimConfig(**kw))
+    ts = TF.FederationSim(TM.MLPUnitModel(), tc, tt, TF.SimConfig(**kw),
+                          device="cpu")
+    ts.set_params(*bridge.params_to_torch(*jax_params_np(js.units,
+                                                         js.head)))
+    return js, js.run(), ts, ts.run()
+
+
+def assert_sims_agree(js, jh, ts, th, wire):
+    tol = WIRE_TOL[wire]
+    assert len(jh) == len(th)
+    for a, b in zip(jh, th):
+        assert a.cuts == b.cuts
+        np.testing.assert_allclose(b.comm_bytes, a.comm_bytes, rtol=1e-12)
+        np.testing.assert_allclose(b.sim_time_s, a.sim_time_s, rtol=1e-12)
+        np.testing.assert_allclose(b.energy_j, a.energy_j, rtol=1e-12)
+        assert abs(a.loss - b.loss) <= tol
+        assert 0.0 <= b.test_acc <= 1.0
+    assert max_abs_diff(leaves_np(js.units, js.head),
+                        port_leaves_np(ts.units, ts.head)) <= tol
