@@ -7,26 +7,43 @@ Needs one CUDA card, ``nvcc`` (PATH or /usr/local/cuda/bin) and the repo's
 neither ``jax`` nor ``repro``.  In order it:
 
 1. prints the card's name and power limit (``nvidia-smi``);
-2. builds the codec's CUDA kernels (``kernels/csrc/codec.cu``) and prints
-   the build time and the ptxas report;
-3. holds each of the four kernels (quantize_int8, dequantize_int8,
+2. builds every CUDA source of the port (``kernels/csrc/*.cu``, one nvcc
+   per source, all started together) and prints the build time and the
+   ptxas report;
+3. holds each of the four codec kernels (quantize_int8, dequantize_int8,
    sparsify_quant_pack, unpack_dequant) ``torch.equal`` to its plain
    PyTorch version on the card, at the four ResNet18 cut shapes of the main
    path (batch 16) and the edge shapes of the CPU tests; at the cut shapes
    it times kernel and plain version on the device (``torch.profiler``
    kernel time per call) and the wrapper call (CUDA events), beside the
    bytes bound;
-4. drives the main path — ``repro_torch.api.run`` of the paper's case study
-   (resnet18, asfl, 4 vehicles, batch 16, adam) — for two rounds over the
-   ``topk_int8`` wire, with the launch counters zeroed just before and read
-   just after: pack and unpack each launch twice per client batch step;
-   each round's wall time excludes building the engine;
-5. one round over the ``int8`` wire: the quant kernels launch;
-6. one sgd SFL batch step per cut on the CPU and on the card from the same
+4. holds the LM lane's kernels (rmsnorm, flash_attention, ssd_chunk_scan)
+   to their plain versions within stated float32 tolerances at the serving
+   path's shapes and edge shapes, and at the path's main shape times
+   kernel, wrapper call, plain version and one PyTorch library call
+   (``scaled_dot_product_attention``, ``rms_norm``; none computes the SSD
+   scan) beside the bound (bytes or float32 operations, whichever is
+   larger);
+5. drives the ASFL path — ``repro_torch.api.run`` of the paper's case
+   study (resnet18, asfl, 4 vehicles, batch 16, adam) — for two rounds over
+   the ``topk_int8`` wire, with the launch counters zeroed just before and
+   read just after: pack and unpack each launch twice per client batch
+   step; each round's wall time excludes building the engine;
+6. one round over the ``int8`` wire: the quant kernels launch;
+7. one sgd SFL batch step per cut on the CPU and on the card from the same
    weights (``wire="none"``, TF32 off): the card's update agrees with the
    CPU's within 1 % of the largest update;
-7. prints the per-kernel JSON line, then ``{"ok": true, "device": ...}``
-   as the last line.
+8. serves smollm-360m and mamba2-780m at full width and depth through
+   ``repro_torch.launch.serve`` (batch 8, prompt 1024, 32 decode steps, the
+   default cut), with the launch counters zeroed just before and read just
+   after each: exactly the kernel launches the model implies; prints the
+   prefill and decode times;
+9. at full width, prefill(s-1) + one decode step reproduces the last
+   logits of prefill(s) within 1e-3;
+10. serves the reduced configs on the card and on the CPU from the same
+    weights: logits within 2e-4;
+11. prints the per-kernel JSON line, then ``{"ok": true, "device": ...}``
+    as the last line.
 
 Any failure raises and the script exits non-zero.
 """
@@ -61,8 +78,31 @@ KERNEL_META = {
     "unpack_dequant": "src/repro/kernels/wire.py:141",
 }
 SOURCE = "src/repro_torch/kernels/csrc/codec.cu"
-SGD_LR = 1e-2                   # phase 6: updates far above f32 rounding
-STEP_RTOL = 1e-2                # phase 6: card vs CPU, of the largest update
+SGD_LR = 1e-2                   # phase 7: updates far above f32 rounding
+STEP_RTOL = 1e-2                # phase 7: card vs CPU, of the largest update
+
+# ---- the LM lane
+F32_FLOPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
+#                                 (NVIDIA data sheet)
+LM_SOURCE = "src/repro_torch/kernels/csrc/lm.cu"
+LM_META = {
+    "rmsnorm": "src/repro/kernels/rmsnorm.py:27",
+    "flash_attention": "src/repro/kernels/flash_attention.py:94",
+    "ssd_chunk_scan": "src/repro/kernels/ssd.py:68",
+}
+# kernel vs plain version, |a - b| <= tol + tol * |b|:
+#   rmsnorm: the sum of squares in another order, rsqrtf within 2 ulp;
+#   flash: float32 sums over up to 1024 keys in another order, and the
+#     online rescaling (the reference's 2e-5 covers <= 256 keys);
+#   ssd: exp of differences of prefix sums of dt*A (|cum| up to a few
+#     hundred, one ulp ~3e-5) in another order: the reference's tolerance
+#     of its own SSD kernel (tests/test_kernels.py).
+LM_TOL = {"rmsnorm": 2e-5, "flash_attention": 1e-4, "ssd_chunk_scan": 2e-4}
+SERVE_ARCHS = ("smollm-360m", "mamba2-780m")
+SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = 8, 1024, 32
+TEACHER_TOL = 1e-3              # phase 9: f32 through 32-48 layers, prefill
+#                                 (kernels) vs decode (plain) sum orders
+REDUCED_TOL = 2e-4              # phase 10: as the CPU parity tests
 
 
 def _call_ms(fn, iters):
@@ -200,7 +240,7 @@ def check_kernels():
 
 
 def build_kernels():
-    """Phase 2: build the codec library from the checkout's sources."""
+    """Phase 2: build the kernel library from the checkout's sources."""
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     lib = _build.load()
@@ -224,7 +264,7 @@ def card_line():
 
 
 def drive_path(wire, rounds, kernel_names):
-    """Phases 4/5: the paper's case study through ``repro_torch.api.run``
+    """Phases 5/6: the paper's case study through ``repro_torch.api.run``
     on the card, launch counters zeroed just before and read just after.
     Returns (launches of ``kernel_names``, cuts of every round)."""
     import torch
@@ -271,7 +311,7 @@ def drive_path(wire, rounds, kernel_names):
 
 
 def cpu_vs_card():
-    """Phase 6: one sgd SFL batch step per cut (wire="none") from the same
+    """Phase 7: one sgd SFL batch step per cut (wire="none") from the same
     weights and batch on the CPU and on the card, TF32 off.  The card's
     update of every parameter agrees with the CPU's within STEP_RTOL of the
     largest update: the gradients differ only by float32 summation order
@@ -325,14 +365,323 @@ def cpu_vs_card():
     return worst
 
 
+# ------------------------------------------------------------- LM lane
+def _randn(shape, seed, scale=1.0):
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy((rng.normal(size=shape) * scale)
+                            .astype(np.float32)).cuda()
+
+
+def _rms_case(rows_shape, seed):
+    x = _randn(rows_shape, seed, 2.0)
+    return x, _randn(rows_shape[-1:], seed + 1, 0.1) + 1.0
+
+
+def _flash_case(b, sq, sk, h, kv, d, seed):
+    return (_randn((b, sq, h, d), seed), _randn((b, sk, kv, d), seed + 1),
+            _randn((b, sk, kv, d), seed + 2))
+
+
+def _ssd_case(b, s, h, p, g, n, seed):
+    """Inputs distributed as mamba2's prefill gives them: dt = softplus of
+    a unit normal plus the model's dt_bias, A = -linspace(1, 16)."""
+    import torch
+    bias = torch.log(torch.expm1(torch.linspace(1e-3, 1e-1, h))).cuda()
+    dt = torch.nn.functional.softplus(_randn((b, s, h), seed + 1) + bias)
+    return (_randn((b, s, h, p), seed, 0.5), dt,
+            -torch.linspace(1.0, 16.0, h).cuda(),
+            _randn((b, s, g, n), seed + 2), _randn((b, s, g, n), seed + 3))
+
+
+def _visible_pairs(sq, sk, causal, window):
+    """(query, key) pairs the masks leave visible, per (batch, head)."""
+    total = 0
+    for i in range(sq):
+        hi = min(sk, i + 1) if causal else sk
+        lo = max(0, i - window + 1) if window > 0 else 0
+        total += max(0, hi - lo)
+    return total
+
+
+def _ssd_flops(b, s, h, p, n, chunk):
+    """Flops of the chunked form for this run: per (batch, head) and chunk
+    of length L, C.B and scores @ x over the L(L+1)/2 pairs j <= i, and
+    C.H and the state update over L x n x p (2 flops per multiply-add)."""
+    total = 0
+    for c0 in range(0, s, chunk):
+        length = min(chunk, s - c0)
+        pairs = length * (length + 1) // 2
+        total += 2 * pairs * (n + p) + 4 * length * n * p
+    return b * h * total
+
+
+def _lm_cases():
+    """(kernel, label, main, kernel call, plain call, library call or None,
+    bytes, flops) for the serving path's shapes and the edge shapes."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import rmsnorm as RN
+    from repro_torch.kernels import ssd as SSD
+    cases = []
+    for label, shape, main in [
+            ("smollm_prefill_d960", (SERVE_BATCH, SERVE_PROMPT, 960), True),
+            ("mamba2_prefill_d1536", (SERVE_BATCH, SERVE_PROMPT, 1536),
+             False),
+            ("mamba2_gated_d3072", (SERVE_BATCH, SERVE_PROMPT, 3072), False),
+            ("decode_d960", (SERVE_BATCH, 1, 960), False),
+            ("reduced_d256", (2, 12, 256), False),
+            ("odd_d1001", (5, 7, 1001), False)]:
+        x, g = _rms_case(shape, len(cases))
+        n = math.prod(shape)
+        cases.append(("rmsnorm", label, main,
+                      lambda x=x, g=g: RN.rmsnorm(x, g),
+                      lambda x=x, g=g: RN.rmsnorm_plain(x, g),
+                      lambda x=x, g=g: F.rms_norm(x, g.shape, g, 1e-6),
+                      4 * (2 * n + shape[-1]), 3 * n))
+    for label, (b, sq, sk, h, kv, d, causal, window), main in [
+            ("smollm_prefill", (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 15,
+                                5, 64, True, 0), True),
+            ("d128_ragged", (1, 100, 100, 4, 2, 128, True, 0), False),
+            ("d256_mqa", (1, 70, 70, 4, 1, 256, True, 0), False),
+            ("d32_reduced", (2, 37, 37, 4, 2, 32, True, 0), False),
+            ("window48", (2, 200, 200, 4, 2, 64, True, 48), False),
+            ("noncausal", (2, 48, 80, 2, 2, 64, False, 0), False),
+            ("masked_rows", (1, 64, 16, 2, 1, 64, False, 8), False)]:
+        q, k, v = _flash_case(b, sq, sk, h, kv, d, len(cases))
+        lib = None
+        if main:
+            def lib(q=q, k=k, v=v):
+                return F.scaled_dot_product_attention(
+                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                    is_causal=True, enable_gqa=True)
+        cases.append((
+            "flash_attention", label, main,
+            lambda q=q, k=k, v=v, c=causal, w=window: FA.flash_attention(
+                q, k, v, causal=c, window=w),
+            lambda q=q, k=k, v=v, c=causal, w=window: FA.attention_plain(
+                q, k, v, causal=c, window=w), lib,
+            4 * (2 * q.numel() + k.numel() + v.numel()),
+            4 * d * b * h * _visible_pairs(sq, sk, causal, window)))
+    for label, (b, s, h, p, g, n, chunk), main in [
+            ("mamba2_prefill", (SERVE_BATCH, SERVE_PROMPT, 48, 64, 1, 128,
+                                256), True),
+            ("ragged_g2", (2, 300, 8, 64, 2, 128, 256), False),
+            ("chunk32_g2", (2, 100, 4, 32, 2, 16, 32), False),
+            ("s_lt_chunk", (1, 40, 4, 16, 1, 16, 64), False),
+            ("reduced", (2, 37, 32, 16, 1, 16, 32), False)]:
+        x, dt, A, B, C = _ssd_case(b, s, h, p, g, n, len(cases))
+        nbytes = 4 * (2 * x.numel() + dt.numel() + A.numel() + B.numel()
+                      + C.numel() + b * h * n * p)
+        cases.append((
+            "ssd_chunk_scan", label, main,
+            lambda a=(x, dt, A, B, C), c=chunk: SSD.ssd_chunk_scan(
+                *a, chunk=c),
+            lambda a=(x, dt, A, B, C), c=chunk: SSD.ssd_chunked(*a, c),
+            None, nbytes, _ssd_flops(b, s, h, p, n, chunk)))
+    return cases
+
+
+def check_lm_kernels():
+    """Phase 4: the LM kernels against their plain versions at every case
+    (every case is checked before a failure stops the run); times at the
+    path's main shape.  Returns {kernel: {label: row}}."""
+    import torch
+    out = {name: {} for name in LM_META}
+    bad = []
+    for name, label, main, run_k, run_p, run_lib, nbytes, flops in \
+            _lm_cases():
+        got, want = run_k(), run_p()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        torch.cuda.synchronize()
+        tol = LM_TOL[name]
+        err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        ok = all(a.shape == b.shape and bool(torch.isfinite(a).all())
+                 and bool(((a - b).abs() <= tol + tol * b.abs()).all())
+                 for a, b in zip(got, want))
+        row = {"shape": [list(a.shape) for a in got], "max_abs_err": err,
+               "within_tol": ok}
+        if main:
+            bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+            ops_ms = 1e3 * flops / F32_FLOPS_PER_S
+            iters = 200 if name == "rmsnorm" else 20
+            row.update(
+                ms=_device_ms(run_k, iters, f"{name}_kernel"),
+                call_ms=_call_ms(run_k, iters),
+                plain_ms=_device_ms(run_p, 5 if name != "rmsnorm" else 50),
+                library_ms=(_device_ms(run_lib, iters) if run_lib
+                            else None),
+                bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                bytes=nbytes, flops=flops)
+        out[name][label] = row
+        print(f"kernel {name:16s} {label:22s} shape={row['shape']} "
+              f"max_abs_err={err:g} tol={tol:g} ok={ok}"
+              + (f" ms={row['ms']:.6f} call_ms={row['call_ms']:.6f} "
+                 f"plain_ms={row['plain_ms']:.6f} library_ms="
+                 f"{row['library_ms']} bound_ms={row['bound_ms']:.6f} "
+                 f"bound_by={row['bound_by']}" if main else ""), flush=True)
+        if not ok:
+            bad.append(f"{name} {label}")
+    if bad:
+        raise AssertionError(f"kernels outside tolerance of their plain "
+                             f"versions: {bad}")
+    return out
+
+
+def _expected_launches(cfg):
+    """Kernel launches one served batch implies: per prefill one flash per
+    attention layer and one SSD scan per SSM layer; per forward (prefill
+    and each decode step) two rmsnorms per layer and the final norm."""
+    from repro_torch.configs import ATTN, SSM
+    kinds = cfg.layer_types
+    norms = 2 * len(kinds) + 1
+    return {"flash_attention": kinds.count(ATTN),
+            "ssd_chunk_scan": kinds.count(SSM),
+            "rmsnorm": norms * (1 + SERVE_STEPS)}
+
+
+def serve_path(arch):
+    """Phase 8: serve ``arch`` at full width and depth on the card, the
+    launch counters zeroed just before and read just after.  Returns
+    (config, params, serve result, counts, timing row)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.device import resolve_device
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves
+    dev = resolve_device("cuda")
+    cfg = get_config(arch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = T.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    # warm-up (cuBLAS plans, first launches), outside the counted run
+    serve.serve(cfg, params, batch=SERVE_BATCH, prompt_len=64,
+                decode_steps=2)
+    kernels.reset_launches()
+    res = serve.serve(cfg, params, batch=SERVE_BATCH,
+                      prompt_len=SERVE_PROMPT, decode_steps=SERVE_STEPS)
+    counts = kernels.launch_counts()
+    logits = res["logits"]
+    want = dict.fromkeys(counts, 0)
+    want.update(_expected_launches(cfg))
+    timing = {"arch": arch, "params": n_params, "cut": res["cut"],
+              "init_s": init_s, "prefill_ms": 1e3 * res["prefill_s"],
+              "decode_ms_per_step": 1e3 * res["decode_s"] / SERVE_STEPS,
+              "prefill_tokens_per_s":
+                  SERVE_BATCH * SERVE_PROMPT / res["prefill_s"],
+              "decode_tokens_per_s":
+                  SERVE_BATCH * SERVE_STEPS / res["decode_s"],
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print(f"serve {arch} params={n_params} cut={res['cut']} "
+          f"batch={SERVE_BATCH} prompt={SERVE_PROMPT} steps={SERVE_STEPS} "
+          f"init_s={init_s:.3f} prefill_ms={timing['prefill_ms']:.3f} "
+          f"decode_ms_per_step={timing['decode_ms_per_step']:.3f} "
+          f"prefill_tokens_per_s={timing['prefill_tokens_per_s']:.1f} "
+          f"decode_tokens_per_s={timing['decode_tokens_per_s']:.1f} "
+          f"peak_mem_gb={timing['peak_mem_gb']:.3f} launches={counts}",
+          flush=True)
+    if tuple(logits.shape) != (SERVE_BATCH, 1, cfg.padded_vocab) or not \
+            bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{arch}: bad logits {tuple(logits.shape)}")
+    if any(int(t.max()) >= cfg.vocab_size for t in res["tokens"]):
+        raise AssertionError(f"{arch}: sampled a token outside the vocab")
+    if counts != want:
+        raise AssertionError(f"{arch}: launches {counts}, expected {want}")
+    return cfg, params, res, counts, timing
+
+
+def teacher_forcing(cfg, params, prompt):
+    """Phase 9: at full width, prefill(s-1) + one decode step gives the
+    last logits of prefill(s) within TEACHER_TOL."""
+    import torch
+    from repro_torch.models import transformer as T
+    s = prompt.shape[1]
+    with torch.no_grad():
+        full, _ = T.forward(params, cfg, {"tokens": prompt}, "prefill",
+                            capacity=s)
+        last = full[:, -1].clone()
+        del full
+        _, caches = T.forward(params, cfg, {"tokens": prompt[:, :s - 1]},
+                              "prefill", capacity=s)
+        dec, _ = T.forward(params, cfg, {"tokens": prompt[:, s - 1:]},
+                           "decode", caches=caches, capacity=s,
+                           pos_offset=s - 1)
+    dec = dec[:, 0]
+    err = float((dec - last).abs().max())
+    ok = bool(((dec - last).abs()
+               <= TEACHER_TOL + TEACHER_TOL * last.abs()).all())
+    print(f"teacher_forcing {cfg.name} s={s} max_abs_err={err:g} "
+          f"max_abs_logit={float(last.abs().max()):g} tol={TEACHER_TOL:g} "
+          f"ok={ok}", flush=True)
+    if not ok:
+        raise AssertionError(f"{cfg.name}: prefill+decode disagrees with "
+                             f"prefill by {err:g}")
+    return err
+
+
+def reduced_cpu_vs_card():
+    """Phase 10: the reduced configs (three periods, cut 1) served on the
+    card (kernels) and on the CPU (plain versions) from the same weights
+    and tokens: prefill + 3 decode steps, logits within REDUCED_TOL."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import distributed as D
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_map
+    worst = {}
+    for arch in SERVE_ARCHS:
+        cfg = dataclasses.replace(get_config(arch).reduced(), n_layers=3)
+        params = T.init_params(torch.Generator().manual_seed(0), cfg)
+        tok = torch.from_numpy(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, size=(2, 40)))
+        outs = []
+        for where in ("cpu", "cuda"):
+            p = tree_map(lambda a: a.to(where), params)
+            opts = D.DistOptions(cut=1)
+            prefill = D.make_prefill_step(cfg, opts, 40)
+            decode = D.make_decode_step(cfg, opts, 40)
+            t = tok.to(where)
+            logits, caches = prefill(p, {"tokens": t[:, :37]})
+            seq = [logits.cpu()]
+            for i in range(3):
+                logits, caches = decode(p, {"tokens": t[:, 37 + i:38 + i]},
+                                        caches, 37 + i)
+                seq.append(logits.cpu())
+            outs.append(torch.stack(seq))
+        a, b = outs
+        err = float((a - b).abs().max())
+        ok = bool(((a - b).abs() <= REDUCED_TOL + REDUCED_TOL
+                   * a.abs()).all())
+        worst[arch] = err
+        print(f"reduced_cpu_vs_card {cfg.name} max_abs_err={err:g} "
+              f"tol={REDUCED_TOL:g} ok={ok}", flush=True)
+        if not ok:
+            raise AssertionError(f"{cfg.name}: card and CPU logits differ "
+                                 f"by {err:g}")
+    return worst
+
+
 def _main_cut(cuts_per_round):
     """The cut the path used most often (ties to the smaller cut)."""
     flat = [c for cuts in cuts_per_round for c in cuts]
     return min(set(flat), key=lambda c: (-flat.count(c), c))
 
 
-def kernel_report(checks, launches, main_cuts):
-    """Phase 7: one entry per kernel, timed at its path's main shape."""
+def kernel_report(checks, launches, main_cuts, lm_checks, lm_launches):
+    """Phase 11: one entry per kernel, timed at its path's main shape."""
     out = []
     for name, replaces in KERNEL_META.items():
         label = f"cut{main_cuts[name]}"
@@ -345,6 +694,17 @@ def kernel_report(checks, launches, main_cuts):
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "call_ms": row["call_ms"], "bound_ms": row["bound_ms"],
             "bound_by": "bytes", "library_ms": None, "shape": row["shape"]})
+    for name, replaces in LM_META.items():
+        row = next(r for r in lm_checks[name].values() if "ms" in r)
+        out.append({
+            "name": name, "route": "cuda", "source": LM_SOURCE,
+            "replaces": replaces, "launches": lm_launches[name],
+            "max_abs_err": max(r["max_abs_err"]
+                               for r in lm_checks[name].values()),
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "call_ms": row["call_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "shape": row["shape"][0]})
     return {"kernels": out}
 
 
@@ -359,17 +719,31 @@ def main() -> int:
     card_line()
     build_kernels()
     checks = check_kernels()
+    lm_checks = check_lm_kernels()
     topk_launches, topk_cuts = drive_path(
         "topk_int8", 2, ("sparsify_quant_pack", "unpack_dequant"))
     int8_launches, int8_cuts = drive_path(
         "int8", 1, ("quantize_int8", "dequantize_int8"))
     cpu_vs_card()
+    lm_launches = dict.fromkeys(LM_META, 0)
+    serving = []
+    for arch in SERVE_ARCHS:
+        cfg, params, res, counts, timing = serve_path(arch)
+        for name in LM_META:
+            lm_launches[name] += counts[name]
+        timing["teacher_forcing_err"] = teacher_forcing(cfg, params,
+                                                        res["prompt"])
+        serving.append(timing)
+        del params, res
+    reduced_cpu_vs_card()
+    print(json.dumps({"serving": serving}))
     main_cuts = {"sparsify_quant_pack": _main_cut(topk_cuts),
                  "unpack_dequant": _main_cut(topk_cuts),
                  "quantize_int8": _main_cut(int8_cuts),
                  "dequantize_int8": _main_cut(int8_cuts)}
     print(json.dumps(kernel_report(checks, {**topk_launches,
-                                            **int8_launches}, main_cuts)))
+                                            **int8_launches}, main_cuts,
+                                   lm_checks, lm_launches)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,12 +1,17 @@
-"""Profile one round of the PyTorch port on a CUDA card (torch.profiler).
+"""Profile the PyTorch port on a CUDA card (torch.profiler).
 
     python3 scripts/profile_port.py [--out chiprun_out/profile_port.json]
 
-One profiled ASFL round of the paper's case study on the topk_int8 wire
-(resnet18, 4 vehicles, batch 16, adam; ``local_steps=2`` to keep the trace
-small) after one warm-up round: wall time, device busy share (summed kernel
-time / wall), and the kernels that take the most device time, by name.
-The codec kernels' own times are measured by ``chip_smoke.py``.
+1. One profiled ASFL round of the paper's case study on the topk_int8 wire
+   (resnet18, 4 vehicles, batch 16, adam; ``local_steps=2`` to keep the
+   trace small) after one warm-up round.
+2. Split-inference serving of smollm-360m and mamba2-780m at full width
+   (batch 8, prompt 1024, the default cut) after a warm-up: one profiled
+   prefill, then 8 profiled decode steps.
+
+For each: wall time, device busy share (summed kernel time / wall), and
+the kernels that take the most device time, by name.  The kernels' own
+times are measured by ``chip_smoke.py``.
 
 Needs a CUDA card and nvcc; imports neither jax nor repro.
 """
@@ -71,6 +76,75 @@ def round_profile(top: int = 12):
     return res
 
 
+def _profiled(fn, top):
+    """Run ``fn`` under the profiler; (wall s, busy s, kernel count, top
+    rows)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev = [e for e in prof.key_averages() if _is_device_kernel(e)]
+    busy_us = sum(_device_us(e) for e in dev)
+    dev.sort(key=_device_us, reverse=True)
+    rows = [{"kernel": e.key[:120], "count": e.count,
+             "device_ms": _device_us(e) / 1e3} for e in dev[:top]]
+    return out, {"wall_s": wall, "device_busy_s": busy_us / 1e6,
+                 "device_busy_share": busy_us / 1e6 / wall,
+                 "n_device_kernels": sum(e.count for e in dev),
+                 "top": rows}
+
+
+def serve_profile(arch, top: int = 10, batch: int = 8, prompt: int = 1024,
+                  steps: int = 8):
+    """One profiled prefill and ``steps`` profiled decode steps of ``arch``
+    at full width, after a warm-up."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import distributed as D
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    cfg = get_config(arch)
+    dev = torch.device("cuda")
+    params = T.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    serve.serve(cfg, params, batch=batch, prompt_len=64, decode_steps=2)
+    opts = D.DistOptions(cut=cfg.default_cut)
+    cap = prompt + steps
+    prefill = D.make_prefill_step(cfg, opts, cap)
+    decode = D.make_decode_step(cfg, opts, cap)
+    tok = torch.randint(0, cfg.vocab_size, (batch, prompt + steps),
+                        generator=torch.Generator(device=dev).manual_seed(1),
+                        device=dev)
+    (logits, caches), pre = _profiled(
+        lambda: prefill(params, {"tokens": tok[:, :prompt]}), top)
+
+    def run_decode():
+        c = caches
+        for i in range(steps):
+            _, c = decode(params, {"tokens": tok[:, prompt + i:][:, :1]}, c,
+                          prompt + i)
+    _, dec = _profiled(run_decode, top)
+    res = {"arch": arch, "batch": batch, "prompt": prompt,
+           "decode_steps": steps, "prefill": pre, "decode": dec}
+    for phase, r in (("prefill", pre), ("decode", dec)):
+        print(f"serve {arch} {phase} wall_s={r['wall_s']:.6f} "
+              f"device_busy_s={r['device_busy_s']:.6f} "
+              f"busy_share={r['device_busy_share']:.4f} "
+              f"device_kernels={r['n_device_kernels']}", flush=True)
+        for row in r["top"]:
+            print(f"serve {arch} {phase} top count={row['count']:6d} "
+                  f"device_ms={row['device_ms']:.3f} {row['kernel']}",
+                  flush=True)
+    del params, caches, logits
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="chiprun_out/profile_port.json")
@@ -87,7 +161,9 @@ def main() -> int:
     print(card, flush=True)
     from repro_torch.device import set_float32_precision
     set_float32_precision()
-    result = {"card": card, "round": round_profile()}
+    result = {"card": card, "round": round_profile(),
+              "serve": [serve_profile(a) for a in ("smollm-360m",
+                                                   "mamba2-780m")]}
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(result, f, indent=1)

@@ -1,15 +1,20 @@
 """Carry parameters between the JAX reference and the port.
 
 The reference draws its initial parameters (``fedsim.FederationSim.reset``,
-``models/resnet.py``, ``models/mlp_unit.py``) and its ResNet data with
-threefry ``jax.random``, which torch cannot replay.  Parity tests therefore
-hand the reference's arrays to the port through this bridge: the reference's
-``(units, head)`` with every leaf turned into a numpy array
-(``np.asarray``) on one side, the port's tensors on the other.
+``models/resnet.py``, ``models/mlp_unit.py``, ``transformer.init_params``)
+and its ResNet data with threefry ``jax.random``, which torch cannot
+replay.  Parity tests therefore hand the reference's arrays to the port
+through this bridge: the reference's trees with every leaf turned into a
+numpy array (``np.asarray``) on one side, the port's tensors on the other.
 
-Layouts: 4-D leaves are convolution weights, HWIO in the reference and OIHW
-in the port; every other leaf (BatchNorm, dense / MLP weights, biases) is
-carried as is.
+ResNet / MLP lane, ``(units, head)``: 4-D leaves are convolution weights,
+HWIO in the reference and OIHW in the port; every other leaf (BatchNorm,
+dense / MLP weights, biases) is carried as is.
+
+LM lane: :func:`lm_params_to_torch` unstacks each segment's leading period
+axis into the port's per-period entries
+(``segments[segment][period][position]``) and keeps the einsum layouts;
+:func:`lm_params_to_numpy` stacks them back, so a round trip is exact.
 """
 from __future__ import annotations
 
@@ -19,6 +24,8 @@ import numpy as np
 import torch
 
 from repro_torch.tree import tree_map
+
+_LM_TOP = ("embed", "head", "final_norm")
 
 
 def _to_torch(a, device) -> torch.Tensor:
@@ -44,3 +51,37 @@ def params_to_torch(units, head, device="cpu") -> Tuple[list, Any]:
 def params_to_numpy(units, head) -> Tuple[list, Any]:
     """Port tensors ``(units, head)`` -> reference-layout numpy arrays."""
     return ([tree_map(_to_numpy, u) for u in units], tree_map(_to_numpy, head))
+
+
+def lm_params_to_torch(params, cfg, device="cpu"):
+    """Reference LM params (numpy leaves, segments stacked over periods)
+    -> the port's params (per-period entries)."""
+    from repro_torch.models import transformer as T
+
+    def conv(a):
+        return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+    out = {k: tree_map(conv, params[k]) for k in _LM_TOP}
+    out["segments"] = [
+        [tuple(tree_map(lambda a: conv(np.asarray(a)[i]), seg[j])
+               for j in range(len(pat))) for i in range(n)]
+        for (pat, n), seg in zip(T.segments_of(cfg), params["segments"])]
+    return out
+
+
+def lm_params_to_numpy(params, cfg):
+    """Inverse of :func:`lm_params_to_torch`: numpy leaves, each segment's
+    layers stacked along a leading period axis (tuples, as the reference
+    keeps them)."""
+    from repro_torch.models import transformer as T
+
+    def arr(t):
+        return t.detach().cpu().numpy()
+
+    out = {k: tree_map(arr, params[k]) for k in _LM_TOP}
+    out["segments"] = tuple(
+        tuple(tree_map(lambda *xs: np.stack([arr(x) for x in xs]),
+                       *[period[j] for period in seg])
+              for j in range(len(pat)))
+        for (pat, _), seg in zip(T.segments_of(cfg), params["segments"]))
+    return out

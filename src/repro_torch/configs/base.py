@@ -1,0 +1,103 @@
+"""Architecture configuration of the LM lane (twin of ``repro.configs.base``).
+
+The port keeps its own copy of what the ported families need: the layer ids
+``ATTN`` and ``SSM``, :class:`SSMConfig`, :class:`ArchConfig` with its
+derived properties and :meth:`ArchConfig.reduced`, and the Megatron-style
+vocabulary padding.  Fields of families not ported yet (MoE, MLA, RG-LRU,
+frontends) are absent; :func:`repro_torch.configs.get_config` refuses their
+archs.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+# Layer-type ids understood by models/transformer.py
+ATTN = "attn"            # global attention + dense MLP
+SSM = "ssm"              # Mamba2 SSD block (no separate FFN)
+
+VOCAB_PAD = 2048  # Megatron-style: pad embedding tables to a multiple of this
+
+
+def pad_vocab(v: int) -> int:
+    return ((v + VOCAB_PAD - 1) // VOCAB_PAD) * VOCAB_PAD
+
+
+@dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    d_state: int = 128
+    head_dim: int = 64
+    expand: int = 2
+    d_conv: int = 4
+    n_groups: int = 1
+    chunk: int = 256
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str               # dense | ssm
+    source: str               # citation (paper / model card)
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0         # 0 -> d_model // n_heads
+    # one repeating period of layer ids; the stack is pattern * n_periods
+    # + tail, and n_layers == len(pattern) * n_periods + len(tail)
+    pattern: Tuple[str, ...] = (ATTN,)
+    tail: Tuple[str, ...] = ()
+    qk_norm: bool = False
+    window: int = 0
+    rope_theta: float = 10000.0
+    pos: str = "rope"
+    mlp_variant: str = "swiglu"
+    logit_softcap: float = 0.0
+    ssm: Optional[SSMConfig] = None
+    frontend: str = "none"
+    default_cut: int = 2      # default cut layer, in period units
+    subquadratic: bool = False
+    param_dtype: str = "float32"
+
+    @property
+    def head_dim_(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def padded_vocab(self) -> int:
+        return pad_vocab(self.vocab_size)
+
+    @property
+    def layer_types(self) -> Tuple[str, ...]:
+        return tuple(self.pattern) * self.n_periods + tuple(self.tail)
+
+    @property
+    def n_periods(self) -> int:
+        body = self.n_layers - len(self.tail)
+        if body % len(self.pattern):
+            raise ValueError(f"{self.name}: {self.n_layers} layers, pattern "
+                             f"{self.pattern}, tail {self.tail} do not tile")
+        return body // len(self.pattern)
+
+    def reduced(self) -> "ArchConfig":
+        """Smoke-test variant: one period, d_model <= 256 (the reference's
+        rule, field for field)."""
+        d = min(self.d_model, 256)
+        n_heads = max(1, min(self.n_heads, 4))
+        n_kv = max(1, min(self.n_kv_heads, n_heads))
+        while n_heads % n_kv:
+            n_kv -= 1
+        ssm = None
+        if self.ssm is not None:
+            ssm = dataclasses.replace(self.ssm, d_state=16, head_dim=16,
+                                      chunk=32)
+        return dataclasses.replace(
+            self, name=self.name + "-smoke",
+            n_layers=len(self.pattern) + len(self.tail),
+            d_model=d, n_heads=n_heads, n_kv_heads=n_kv, head_dim=32,
+            d_ff=min(self.d_ff, 512) or 0,
+            vocab_size=min(self.vocab_size, 512),
+            window=min(self.window, 16) if self.window else 0,
+            ssm=ssm, default_cut=1)

@@ -1,14 +1,17 @@
-"""Build and load the codec's CUDA library (nvcc + ctypes).
+"""Build and load the port's CUDA library (nvcc + ctypes).
 
-``kernels/csrc/codec.cu`` has a plain C interface, so it compiles in seconds
-with ``nvcc`` alone (no PyTorch headers) into a shared library that ctypes
-loads.  The library is built at first use into ``build/kernels/`` at the
-repository root (listed in ``.gitignore``), named by a hash of the source
-and the flags, so an edited source rebuilds and a stale library is never
-loaded.
+Every source in ``kernels/csrc/*.cu`` (the codec, ``codec.cu``, and the LM
+lane, ``lm.cu``) has a plain C interface, so each compiles in seconds with
+``nvcc`` alone (no PyTorch headers).  The sources compile to objects in
+parallel, one ``nvcc`` each, all started together, and link into one shared
+library that ctypes loads.  The library is built at first use into
+``build/kernels/`` at the repository root (listed in ``.gitignore``), named
+by a hash of every source and the flags, so an edited source rebuilds and a
+stale library is never loaded.
 
 No ``--use_fast_math``: the codec is bit-exact against its plain version only
-with IEEE division and round-half-to-even.  A failed build raises.
+with IEEE division and round-half-to-even, and the LM kernels' tolerances
+assume IEEE ``expf``.  A failed build raises.
 """
 from __future__ import annotations
 
@@ -22,22 +25,33 @@ import time
 from pathlib import Path
 from typing import Optional
 
-_SRC = Path(__file__).resolve().parent / "csrc" / "codec.cu"
+_CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
-_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_float)
 # C entry point -> argument types (pointers and the stream as c_void_p)
 SIGNATURES = {
     "repro_quantize_int8": [_P, _P, _P, _LL, _I, _I, _I, _P],
     "repro_dequantize_int8": [_P, _P, _P, _LL, _I, _I, _I, _P],
     "repro_sparsify_quant_pack": [_P, _P, _LL, _I, _I, _I, _I, _I, _P],
     "repro_unpack_dequant": [_P, _P, _LL, _I, _I, _I, _I, _I, _P],
+    "repro_rmsnorm": [_P, _P, _P, _LL, _I, _F, _P],
+    "repro_flash_attention": [_P, _P, _P, _P, *[_I] * 6, *[_LL] * 9, _I, _I,
+                              _F, _P],
+    "repro_ssd_chunk_scan": [*[_P] * 7, *[_I] * 7, *[_LL] * 12, _P],
 }
 
 
-class CodecLibrary:
+def sources():
+    """Every CUDA source of the port, in a fixed order."""
+    return sorted(_CSRC.glob("*.cu"))
+
+
+class KernelLibrary:
     """The loaded library plus what its build reported."""
 
     def __init__(self, lib: ctypes.CDLL, path: Path, build_s: float,
@@ -48,7 +62,7 @@ class CodecLibrary:
         self.log = log                  # nvcc / ptxas output of the build
 
 
-_LOADED: Optional[CodecLibrary] = None
+_LOADED: Optional[KernelLibrary] = None
 
 
 def _nvcc() -> str:
@@ -59,36 +73,52 @@ def _nvcc() -> str:
     if cand.exists():
         return str(cand)
     raise RuntimeError("nvcc not found (PATH or /usr/local/cuda/bin); the "
-                       "CUDA codec kernels cannot be built")
+                       "port's CUDA kernels cannot be built")
 
 
-def load() -> CodecLibrary:
-    """Build (if needed) and load the codec library; cached per process."""
+def _run_all(cmds):
+    """Run the commands concurrently; raise with the log of any failure.
+    Returns the combined output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n"
+                               f"{' '.join(cmd)}\n{out}")
+    return "".join(outs)
+
+
+def load() -> KernelLibrary:
+    """Build (if needed) and load the kernel library; cached per process."""
     global _LOADED
     if _LOADED is not None:
         return _LOADED
-    src = _SRC.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    srcs = sources()
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in srcs:
+        digest.update(src.name.encode() + b"\0" + src.read_bytes())
+    tag = digest.hexdigest()[:16]
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    so = _BUILD_DIR / f"libreprocodec-{tag}.so"
+    so = _BUILD_DIR / f"libreprokernels-{tag}.so"
     build_s, log = 0.0, ""
     if not so.exists():
         t0 = time.perf_counter()
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(_SRC)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{log}")
-        os.replace(tmp, so)             # atomic: concurrent builders agree
+        nvcc = _nvcc()
+        with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as tmp:
+            objs = [Path(tmp) / f"{src.stem}.o" for src in srcs]
+            log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+                            for src, o in zip(srcs, objs)])
+            out = Path(tmp) / "lib.so"
+            log += _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", str(out),
+                              *map(str, objs)]])
+            os.replace(out, so)         # atomic: concurrent builders agree
         build_s = time.perf_counter() - t0
     lib = ctypes.CDLL(str(so))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    _LOADED = CodecLibrary(lib, so, build_s, log)
+    _LOADED = KernelLibrary(lib, so, build_s, log)
     return _LOADED

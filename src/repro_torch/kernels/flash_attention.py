@@ -1,0 +1,102 @@
+"""Flash attention: blocked online-softmax attention with causal and
+sliding-window masks and GQA.
+
+Replaces the Pallas TPU kernel of ``repro/kernels/flash_attention.py``
+(``flash_attention`` -> ``_fa_kernel``).  The CUDA kernel
+(``kernels/csrc/lm.cu``, ``repro_flash_attention``) takes float32 q
+``(b, sq, h, d)`` and k / v ``(b, sk, kv, d)`` with ``h % kv == 0`` and
+d in {32, 64, 128, 256}, read through their strides (the trailing dim must be
+contiguous), and writes a contiguous ``(b, sq, h, d)``.  Query and key
+positions both start at 0; a row with no visible key outputs 0.
+
+Bound on H100: operations.  The causal triangle needs 4 * d flops per
+visible (query, key) pair and head (q.k and p.v), which at the serving
+path's prefill is ~10x the time its bytes take.  The kernel runs on the
+CUDA cores in float32 (no TF32), so the floor is flops over the card's
+67 TFLOP/s float32 rate (NVIDIA's H100 SXM data sheet).  The design: one
+block per (query tile, head, batch) with the key loop inside the block,
+m / l / the output tile in registers, q / k / v / p tiles in shared
+memory, key tiles above the diagonal or left of the window skipped.
+
+:func:`attention_plain` is the plain PyTorch version (twin of
+``repro.kernels.ref.attention_ref``); the wrapper runs it for CPU tensors
+only.  CUDA tensors always go to the kernel, or the wrapper raises.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.quant import launch
+
+HEAD_DIMS = (32, 64, 128, 256)   # 32: the reduced configs
+MASKED = -1e30
+
+
+def _mask(sq: int, sk: int, causal: bool, window: int,
+          device: torch.device) -> torch.Tensor:
+    qpos = torch.arange(sq, device=device)[:, None]
+    kpos = torch.arange(sk, device=device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kpos <= qpos
+    if window > 0:
+        mask &= kpos > qpos - window
+    return mask
+
+
+def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """q (b,sq,h,d), k/v (b,sk,kv,d) -> (b,sq,h,d).  GQA by head grouping."""
+    b, sq, h, d = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    g = h // kv
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    qh = q.reshape(b, sq, kv, g, d).float()
+    s = torch.einsum("bsngd,btnd->bngst", qh, k.float()) * scale
+    mask = _mask(sq, sk, causal, window, q.device)
+    s = s.masked_fill(~mask, MASKED)
+    p = torch.softmax(s, dim=-1)
+    p = torch.where(mask.any(dim=-1)[:, None], p, 0.0)
+    o = torch.einsum("bngst,btnd->bsngd", p, v.float())
+    return o.reshape(b, sq, h, d).to(q.dtype)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """q (b, sq, h, d); k/v (b, sk, kv, d); GQA when h > kv.  Returns
+    (b, sq, h, d)."""
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"need q (b,sq,h,d) and k = v (b,sk,kv,d), got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    b, sq, h, d = q.shape
+    _, sk, kv, dk = k.shape
+    if k.shape[0] != b or dk != d or h % kv:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} do not "
+                         f"pair (batch, head_dim, heads % kv_heads)")
+    if not (q.device == k.device == v.device):
+        raise ValueError("q, k and v must be on the same device")
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    if q.device.type == "cpu":
+        return attention_plain(q, k, v, causal=causal, window=window,
+                               scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"q is on unsupported device {q.device}")
+    if any(t.dtype != torch.float32 for t in (q, k, v)):
+        raise TypeError("the flash_attention kernel takes float32; bf16 is "
+                        "not ported yet")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head_dim {d} not in {HEAD_DIMS}")
+    if any(t.stride(-1) != 1 for t in (q, k, v)):
+        raise ValueError("q, k and v need a contiguous trailing dim")
+    o = torch.empty((b, sq, h, d), dtype=torch.float32, device=q.device)
+    launch("flash_attention", q.device, q.data_ptr(), k.data_ptr(),
+           v.data_ptr(), o.data_ptr(), b, sq, sk, h, kv, d, *q.stride()[:3],
+           *k.stride()[:3], *v.stride()[:3], int(causal), int(window),
+           float(scale))
+    return o

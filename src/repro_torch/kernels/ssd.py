@@ -1,0 +1,149 @@
+"""Mamba2 SSD chunk scan (state-space duality, arXiv:2405.21060).
+
+Replaces the Pallas TPU kernel of ``repro/kernels/ssd.py``
+(``ssd_chunk_scan`` -> ``_ssd_kernel``).  Inputs: x ``(b, s, h, p)``, dt
+``(b, s, h)`` (already softplus'ed), A ``(h,)`` (negative), B / C
+``(b, s, g, n)`` with ``h / g`` heads per group.  Unlike the TPU kernel,
+which kept the recurrent state in scratch memory and dropped it, this one
+returns the final state ``(b, h, n, p)`` beside y: the prefill cache needs
+it.
+
+The CUDA kernel (``kernels/csrc/lm.cu``, ``repro_ssd_chunk_scan``) takes
+float32 with p <= 64, n <= 128 and chunk <= 256, reading x / dt / B / C
+through their strides (trailing dims of x, B and C contiguous).
+
+Bound on H100: operations.  The chunked form's C.B scores, score @ x,
+C.H and state update need ~3.2e10 flops at mamba2-780m's prefill against
+~0.2 GB of inputs and outputs, so the floor is flops over the card's
+67 TFLOP/s float32 rate (NVIDIA's H100 SXM data sheet).  The design: one
+block per (batch, head) walks the chunks in order with the f32 state in
+shared memory; each chunk is tiled into 64 x 64 (i, j) tiles of the lower
+triangle, since a whole 256 x 256 score block does not fit.
+
+:func:`ssd_chunked` (twin of ``repro.models.ssm.ssd_chunked``) is the plain
+PyTorch version the wrapper runs for CPU tensors only; :func:`ssd_naive`
+(twin of ``repro.kernels.ref.ssd_naive``, the literal recurrence) is the
+ground truth of the tests.  CUDA tensors always go to the kernel, or the
+wrapper raises.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.quant import launch
+
+MAX_HEAD_DIM, MAX_STATE, MAX_CHUNK = 64, 128, 256
+
+
+def ssd_chunked(x, dt, A, B, C, chunk: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (b,s,h,p), dt (b,s,h) [post-softplus], A (h,) [<0], B,C (b,s,g,n).
+    Returns y (b,s,h,p) and the final state (b,h,n,p) f32."""
+    b, s, h, p_ = x.shape
+    g, n = B.shape[2], B.shape[3]
+    rep = h // g
+    pad = (-s) % chunk
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        B = F.pad(B, (0, 0, 0, 0, 0, pad))
+        C = F.pad(C, (0, 0, 0, 0, 0, pad))
+    nc = (s + pad) // chunk
+    xc = x.reshape(b, nc, chunk, h, p_).float()
+    dtc = dt.reshape(b, nc, chunk, h).float()
+    Bc = B.reshape(b, nc, chunk, g, n).repeat_interleave(rep, dim=3).float()
+    Cc = C.reshape(b, nc, chunk, g, n).repeat_interleave(rep, dim=3).float()
+
+    la = dtc * A                                       # (b,nc,q,h), <= 0
+    cum = torch.cumsum(la, dim=2)                      # inclusive
+    total = cum[:, :, -1]                              # (b,nc,h)
+
+    # intra-chunk (the quadratic "attention-like" block)
+    cb = torch.einsum("bcihn,bcjhn->bchij", Cc, Bc)
+    ci = cum.permute(0, 1, 3, 2)                       # (b,nc,h,q)
+    decay = torch.exp(ci[..., :, None] - ci[..., None, :])
+    mask = torch.ones(chunk, chunk, dtype=torch.bool,
+                      device=x.device).tril()
+    scores = cb * torch.where(mask, decay, 0.0)
+    dtj = dtc.permute(0, 1, 3, 2)                      # (b,nc,h,q_j)
+    y_intra = torch.einsum("bchij,bcjhp->bcihp", scores * dtj[..., None, :],
+                           xc)
+
+    # per-chunk outgoing state: sum_j exp(total - cum_j) dt_j B_j x_j
+    w = torch.exp(total[:, :, None, :] - cum) * dtc    # (b,nc,q,h)
+    S = torch.einsum("bcjhn,bcjhp->bchnp", Bc * w[..., None], xc)
+
+    # inter-chunk recurrence
+    state = torch.zeros((b, h, n, p_), dtype=torch.float32, device=x.device)
+    prev = []
+    for c in range(nc):
+        prev.append(state)
+        state = torch.exp(total[:, c])[..., None, None] * state + S[:, c]
+    hprev = torch.stack(prev, dim=1)                   # (b,nc,h,n,p)
+    y_inter = torch.einsum("bcihn,bchnp->bcihp",
+                           Cc * torch.exp(cum)[..., None], hprev)
+    y = (y_intra + y_inter).reshape(b, s + pad, h, p_)[:, :s]
+    return y.to(x.dtype), state
+
+
+def ssd_naive(x, dt, A, B, C) -> Tuple[torch.Tensor, torch.Tensor]:
+    """O(s * n * p) literal recurrence.  Returns (y, final state)."""
+    b, s, h, p_ = x.shape
+    g, n = B.shape[2], B.shape[3]
+    rep = h // g
+    Bh = B.repeat_interleave(rep, dim=2).float()
+    Ch = C.repeat_interleave(rep, dim=2).float()
+    xf, dtf = x.float(), dt.float()
+    state = torch.zeros((b, h, n, p_), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(s):
+        a = torch.exp(dtf[:, t] * A)[..., None, None]
+        upd = torch.einsum("bhn,bhp->bhnp", Bh[:, t] * dtf[:, t, :, None],
+                           xf[:, t])
+        state = a * state + upd
+        ys.append(torch.einsum("bhn,bhnp->bhp", Ch[:, t], state))
+    return torch.stack(ys, dim=1).to(x.dtype), state
+
+
+def ssd_chunk_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                   B: torch.Tensor, C: torch.Tensor, *, chunk: int = 128
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (b,s,h,p), dt (b,s,h) [post-softplus], A (h,) [<0], B/C (b,s,g,n).
+    Returns y (b,s,h,p) and the final state (b,h,n,p) f32."""
+    if x.dim() != 4 or dt.dim() != 3 or B.dim() != 4 or B.shape != C.shape:
+        raise ValueError(f"need x (b,s,h,p), dt (b,s,h), B = C (b,s,g,n); "
+                         f"got {tuple(x.shape)}, {tuple(dt.shape)}, "
+                         f"{tuple(B.shape)}, {tuple(C.shape)}")
+    b, s, h, p_ = x.shape
+    g, n = B.shape[2], B.shape[3]
+    if (tuple(dt.shape) != (b, s, h) or tuple(A.shape) != (h,)
+            or tuple(B.shape[:2]) != (b, s) or h % g):
+        raise ValueError(f"shapes do not pair: x {tuple(x.shape)}, dt "
+                         f"{tuple(dt.shape)}, A {tuple(A.shape)}, B "
+                         f"{tuple(B.shape)}")
+    if not (x.device == dt.device == A.device == B.device == C.device):
+        raise ValueError("x, dt, A, B and C must be on the same device")
+    if x.device.type == "cpu":
+        return ssd_chunked(x, dt, A, B, C, chunk)
+    if x.device.type != "cuda":
+        raise ValueError(f"x is on unsupported device {x.device}")
+    if any(t.dtype != torch.float32 for t in (x, dt, A, B, C)):
+        raise TypeError("the ssd_chunk_scan kernel takes float32")
+    if p_ > MAX_HEAD_DIM or n > MAX_STATE or not 1 <= chunk <= MAX_CHUNK:
+        raise ValueError(f"head_dim {p_} > {MAX_HEAD_DIM}, d_state {n} > "
+                         f"{MAX_STATE} or chunk {chunk} outside "
+                         f"[1, {MAX_CHUNK}]")
+    if any(t.stride(-1) != 1 for t in (x, B, C)) or not A.is_contiguous():
+        raise ValueError("x, B and C need a contiguous trailing dim and A "
+                         "must be contiguous")
+    y = torch.empty((b, s, h, p_), dtype=torch.float32, device=x.device)
+    state = torch.empty((b, h, n, p_), dtype=torch.float32, device=x.device)
+    launch("ssd_chunk_scan", x.device, x.data_ptr(), dt.data_ptr(),
+           A.data_ptr(), B.data_ptr(), C.data_ptr(), y.data_ptr(),
+           state.data_ptr(), b, s, h, p_, g, n, chunk, *x.stride()[:3],
+           *dt.stride(), B.stride(0), B.stride(1), B.stride(2),
+           C.stride(0), C.stride(1), C.stride(2))
+    return y, state

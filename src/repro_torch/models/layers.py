@@ -1,0 +1,89 @@
+"""Shared building blocks of the LM lane (twin of ``repro.models.layers``):
+plain functions over dicts of tensors, the reference's parameter layout.
+
+``trunc_normal`` draws with a ``torch.Generator``; its values differ from
+the reference's threefry draw by construction, so parity tests carry the
+reference's parameters over with :mod:`repro_torch.bridge`.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import rmsnorm as K
+
+Params = Dict[str, Any]
+
+
+_TRUNC = 2.0
+# 2 * Phi(+-2) - 1: the uniform range whose erfinv is the normal on [-2, 2]
+_U_HI = math.erf(_TRUNC / math.sqrt(2))
+_U_LO = -_U_HI
+
+
+def trunc_normal(gen: torch.Generator, shape, stddev: float,
+                 dtype=torch.float32) -> torch.Tensor:
+    """stddev * a standard normal truncated to [-2, 2] (inverse CDF of a
+    uniform draw), drawn on the generator's device."""
+    t = torch.empty(shape, dtype=torch.float32, device=gen.device)
+    t.uniform_(_U_LO, _U_HI, generator=gen)
+    t = (torch.erfinv(t) * math.sqrt(2.0)).clamp_(-_TRUNC, _TRUNC)
+    return (t * stddev).to(dtype)
+
+
+def init_dense(gen: torch.Generator, d_in: int, d_out: int,
+               dtype=torch.float32) -> Params:
+    """Fan-in scaled dense kernel, no bias."""
+    return {"w": trunc_normal(gen, (d_in, d_out), 1.0 / math.sqrt(d_in),
+                              dtype)}
+
+
+def dense(p: Params, x: torch.Tensor) -> torch.Tensor:
+    return x @ p["w"].to(x.dtype)
+
+
+def init_rmsnorm(d: int, dtype=torch.float32, device=None) -> Params:
+    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+
+
+def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """The rmsnorm kernel for a CUDA tensor, its plain version on the CPU."""
+    return K.rmsnorm(x, p["scale"], eps)
+
+
+def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, variant: str,
+             dtype=torch.float32) -> Params:
+    if variant != "swiglu":
+        raise NotImplementedError(f"mlp variant {variant!r} is not ported "
+                                  f"yet")
+    return {"wi_gate": init_dense(gen, d_model, d_ff, dtype),
+            "wi_up": init_dense(gen, d_model, d_ff, dtype),
+            "wo": init_dense(gen, d_ff, d_model, dtype)}
+
+
+def mlp(p: Params, x: torch.Tensor, variant: str) -> torch.Tensor:
+    if variant != "swiglu":
+        raise NotImplementedError(f"mlp variant {variant!r} is not ported "
+                                  f"yet")
+    return dense(p["wo"], F.silu(dense(p["wi_gate"], x))
+                 * dense(p["wi_up"], x))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., seq, n_heads, head_dim) or (..., seq, head_dim);
+    positions: broadcastable to (..., seq)."""
+    half = x.shape[-1] // 2
+    freqs = torch.exp(-math.log(theta)
+                      * torch.arange(half, dtype=torch.float32,
+                                     device=x.device) / half)
+    angles = positions.to(torch.float32)[..., None] * freqs
+    if x.dim() == angles.dim() + 2:       # a head axis between seq and dim
+        angles = angles[..., None, :]
+    sin, cos = torch.sin(angles), torch.cos(angles)
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)

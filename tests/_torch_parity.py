@@ -80,3 +80,45 @@ def assert_sims_agree(js, jh, ts, th, wire):
         assert 0.0 <= b.test_acc <= 1.0
     assert max_abs_diff(leaves_np(js.units, js.head),
                         port_leaves_np(ts.units, ts.head)) <= tol
+
+
+# ------------------------------------------------------------- LM lane
+def lm_configs(arch, **changes):
+    """(reference cfg, port cfg) of the reduced ``arch`` with the same
+    ``dataclasses.replace`` changes on both sides."""
+    import dataclasses
+
+    from repro.configs import get_config as jax_config
+    from repro_torch.configs import get_config as port_config
+    return (dataclasses.replace(jax_config(arch).reduced(), **changes),
+            dataclasses.replace(port_config(arch).reduced(), **changes))
+
+
+def jax_lm_params(jcfg, seed=0):
+    """Reference LM params (threefry init) with numpy leaves."""
+    from repro.models import transformer as JT
+    init = jax.jit(JT.init_params, static_argnums=1)
+    return jax.tree.map(np.asarray, init(jax.random.PRNGKey(seed), jcfg))
+
+
+def assert_lm_caches_close(jax_caches, port_caches, tol):
+    """Reference caches (segments of stacked per-pattern dicts) against the
+    port's (segments of periods of per-pattern dicts)."""
+    assert len(jax_caches) == len(port_caches)
+    for jseg, tseg in zip(jax_caches, port_caches):
+        assert (jseg is None) == (tseg is None)
+        if jseg is None:
+            continue
+        assert len(tseg) == np.asarray(
+            jax.tree.leaves(jseg)[0]).shape[0]
+        for i, period in enumerate(tseg):
+            for j, layer in enumerate(period):
+                assert set(layer) == set(jseg[j])
+                for key, val in layer.items():
+                    ref = np.asarray(jseg[j][key])[i]
+                    if key == "pos":
+                        assert int(ref) == val
+                    else:
+                        np.testing.assert_allclose(
+                            val.numpy(), ref, rtol=tol, atol=tol,
+                            err_msg=f"cache {key} period {i} layer {j}")

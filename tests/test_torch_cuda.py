@@ -1,6 +1,9 @@
-"""The codec's CUDA kernels against their plain PyTorch versions on the
-card (torch.equal: the codec is bit-exact), and a short mlp9 run on cuda
-against the same run on the CPU.  Needs a CUDA card and nvcc:
+"""The port's CUDA kernels against their plain PyTorch versions on the
+card — the codec bit-exact (torch.equal), rmsnorm / flash attention / SSD
+within stated float32 tolerances at the serving path's shapes and edge
+shapes — a short mlp9 run on cuda against the same run on the CPU, and the
+reduced LM configs served on cuda against the CPU.  Needs a CUDA card and
+nvcc:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 
@@ -12,6 +15,9 @@ import torch
 
 from repro_torch.core import compression as C
 from repro_torch.kernels import LAUNCHES, launch_counts, quant, wire
+from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels import rmsnorm as RN
+from repro_torch.kernels import ssd as SSD
 
 pytestmark = pytest.mark.cuda
 
@@ -28,7 +34,9 @@ CASES = [((16, 32, 32, 64), 0.25, "normal"), ((16, 16, 16, 128), 0.25,
 def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (and nvcc) to build and run the "
-                    "codec kernels")
+                    "port's kernels")
+    from repro_torch.device import set_float32_precision
+    set_float32_precision()      # the plain versions' matmuls without TF32
     return torch.device("cuda")
 
 
@@ -57,7 +65,9 @@ def test_kernels_equal_plain_versions(dev, shape, k_frac, fill):
     assert torch.equal(wire.unpack_dequant(buf, d, k_frac),
                        C.wire_dequant_ref(buf, d, k_frac))
     after = launch_counts()
-    assert all(after[k] == before[k] + 1 for k in after)
+    codec = ("quantize_int8", "dequantize_int8", "sparsify_quant_pack",
+             "unpack_dequant")
+    assert all(after[k] == before[k] + (k in codec) for k in after)
 
 
 def test_wrappers_refuse_non_contiguous(dev):
@@ -92,3 +102,132 @@ def test_mlp_sim_on_cuda_matches_cpu(dev):
     for a, b in zip(cpu.units, gpu.units):
         for k in a:
             torch.testing.assert_close(b[k].cpu(), a[k], rtol=0, atol=1e-4)
+
+
+# ------------------------------------------------------------- LM kernels
+# rmsnorm: the sum of squares is reduced in another order and rsqrtf is
+# within 2 ulp, so a few float32 ulps of outputs of magnitude <= ~10.
+RMS_TOL = 2e-5
+# flash: float32 sums over up to 1024 keys in another order than the plain
+# softmax + matmul, plus the online rescaling by exp(m_old - m_new); the
+# reference's own 2e-5 covers at most 256 keys.
+FLASH_TOL = 1e-4
+# ssd: exp of differences of prefix sums of dt*A (|cum| up to a few hundred
+# at the path's shapes, where one ulp is ~3e-5), summed in another order:
+# the reference's tolerance of its SSD kernel (test_kernels.py).
+SSD_TOL = 2e-4
+
+
+def _randn(shape, dev, seed, scale=1.0):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy((rng.normal(size=shape) * scale)
+                            .astype(np.float32)).to(dev)
+
+
+@pytest.mark.parametrize("shape", [(8, 1024, 960), (8, 1024, 1536),
+                                   (8, 1024, 3072), (8, 1, 960),
+                                   (2, 12, 256), (5, 7, 1001), (3, 6)])
+def test_rmsnorm_kernel_matches_plain(dev, shape):
+    x = _randn(shape, dev, 0, 2.0)
+    g = _randn(shape[-1:], dev, 1, 0.1) + 1.0
+    n = LAUNCHES["rmsnorm"]
+    got = RN.rmsnorm(x, g)
+    assert LAUNCHES["rmsnorm"] == n + 1
+    torch.testing.assert_close(got, RN.rmsnorm_plain(x, g), rtol=RMS_TOL,
+                               atol=RMS_TOL)
+
+
+# (b, sq, sk, h, kv, d, causal, window): the path's smollm prefill, then
+# GQA / ragged / head dims / window / non-causal / fully masked rows
+FLASH_CASES = [(8, 1024, 1024, 15, 5, 64, True, 0),
+               (1, 100, 100, 4, 2, 128, True, 0),
+               (1, 70, 70, 4, 1, 256, True, 0),
+               (2, 37, 37, 4, 2, 32, True, 0),
+               (2, 200, 200, 4, 2, 64, True, 48),
+               (2, 48, 80, 2, 2, 64, False, 0),
+               (1, 64, 16, 2, 1, 64, False, 8)]
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal,window", FLASH_CASES)
+def test_flash_kernel_matches_plain(dev, b, sq, sk, h, kv, d, causal,
+                                    window):
+    q = _randn((b, sq, h, d), dev, 2)
+    k = _randn((b, sk, kv, d), dev, 3)
+    v = _randn((b, sk, kv, d), dev, 4)
+    n = LAUNCHES["flash_attention"]
+    got = FA.flash_attention(q, k, v, causal=causal, window=window)
+    assert LAUNCHES["flash_attention"] == n + 1
+    want = FA.attention_plain(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(got, want, rtol=FLASH_TOL, atol=FLASH_TOL)
+
+
+def test_flash_kernel_reads_strided_qkv(dev):
+    """q / k / v as views of one fused projection (no copies)."""
+    qkv = _randn((2, 50, 8, 64), dev, 5)
+    q, k, v = qkv[:, :, :4], qkv[:, :, 4:6], qkv[:, :, 6:]
+    got = FA.flash_attention(q, k, v)
+    want = FA.attention_plain(q, k, v)
+    torch.testing.assert_close(got, want, rtol=FLASH_TOL, atol=FLASH_TOL)
+
+
+def _ssd_inputs(dev, b, s, h, p, g, n, seed=0):
+    """Inputs distributed as mamba2's prefill gives them: dt = softplus of
+    a unit normal plus the model's dt_bias, A = -linspace(1, 16)."""
+    x = _randn((b, s, h, p), dev, seed, 0.5)
+    bias = torch.log(torch.expm1(torch.linspace(1e-3, 1e-1, h))).to(dev)
+    dt = torch.nn.functional.softplus(_randn((b, s, h), dev, seed + 1)
+                                      + bias)
+    A = -torch.linspace(1.0, 16.0, h).to(dev)
+    B = _randn((b, s, g, n), dev, seed + 2)
+    C = _randn((b, s, g, n), dev, seed + 3)
+    return x, dt, A, B, C
+
+
+# (b, s, h, p, g, n, chunk): the path's mamba2 prefill, then ragged s,
+# groups, chunk < 64, s < chunk, the reduced config
+SSD_CASES = [(8, 1024, 48, 64, 1, 128, 256), (2, 300, 8, 64, 2, 128, 256),
+             (2, 100, 4, 32, 2, 16, 32), (1, 40, 4, 16, 1, 16, 64),
+             (2, 37, 32, 16, 1, 16, 32)]
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", SSD_CASES)
+def test_ssd_kernel_matches_plain(dev, b, s, h, p, g, n, chunk):
+    x, dt, A, B, C = _ssd_inputs(dev, b, s, h, p, g, n)
+    cnt = LAUNCHES["ssd_chunk_scan"]
+    y, st = SSD.ssd_chunk_scan(x, dt, A, B, C, chunk=chunk)
+    assert LAUNCHES["ssd_chunk_scan"] == cnt + 1
+    y_ref, st_ref = SSD.ssd_chunked(x, dt, A, B, C, chunk)
+    torch.testing.assert_close(y, y_ref, rtol=SSD_TOL, atol=SSD_TOL)
+    torch.testing.assert_close(st, st_ref, rtol=SSD_TOL, atol=SSD_TOL)
+
+
+@pytest.mark.parametrize("arch", ["smollm-360m", "mamba2-780m"])
+def test_reduced_lm_serving_on_cuda_matches_cpu(dev, arch):
+    """Same weights, same tokens: prefill + 3 decode steps on the card
+    (kernels) and on the CPU (plain versions), logits within 2e-4."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import distributed as D
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_map
+    cfg = dataclasses.replace(get_config(arch).reduced(), n_layers=3)
+    params = T.init_params(torch.Generator().manual_seed(0), cfg)
+    tok = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(2, 40)))
+    outs = {}
+    for where in ("cpu", dev):
+        p = tree_map(lambda a: a.to(where), params)
+        opts = D.DistOptions(cut=1)
+        prefill = D.make_prefill_step(cfg, opts, 40)
+        decode = D.make_decode_step(cfg, opts, 40)
+        t = tok.to(where)
+        logits, caches = prefill(p, {"tokens": t[:, :37]})
+        seq = [logits.cpu()]
+        for i in range(3):
+            logits, caches = decode(p, {"tokens": t[:, 37 + i:38 + i]},
+                                    caches, 37 + i)
+            seq.append(logits.cpu())
+        outs[str(where)] = seq
+    for a, b in zip(outs["cpu"], outs[str(dev)]):
+        torch.testing.assert_close(b, a, rtol=2e-4, atol=2e-4)
