@@ -17,7 +17,14 @@ neither ``jax`` nor ``repro``.  In order it:
    it times kernel and plain version on the device (``torch.profiler``
    kernel time per call) and the wrapper call (CUDA events), beside the
    bytes bound;
-4. holds the LM lane's kernels (rmsnorm, flash_attention, ssd_chunk_scan)
+4. holds unpack_dequant_matmul (the RSU's first matmul reading the packed
+   topk_int8 buffer) to its plain version within 1e-5 + 1e-5·|b| (TF32
+   off) at the scenario path's shapes (rows 8 and 16, d = n = 64), the CPU
+   tests' shapes and a wide case (rows 4096, d 512, n 64); on the wide case
+   the call's peak allocation stays below its output plus the dense
+   smashed tensor, and its gradient keeps no float32 tensor of the smashed
+   shape; times it at the path's shape like the codec;
+4b. holds the LM lane's kernels (rmsnorm, flash_attention, ssd_chunk_scan)
    to their plain versions within stated float32 tolerances at the serving
    path's shapes and edge shapes, and at the path's main shape times
    kernel, wrapper call, plain version and one PyTorch library call
@@ -42,8 +49,21 @@ neither ``jax`` nor ``repro``.  In order it:
    logits of prefill(s) within 1e-3;
 10. serves the reduced configs on the card and on the CPU from the same
     weights: logits within 2e-4;
-11. prints the per-kernel JSON line, then ``{"ok": true, "device": ...}``
-    as the last line.
+10b. drives the multi-RSU scenario path through ``repro_torch.api.run``:
+    mlp9 on ``highway_corridor`` with 256 vehicles and 4 RSUs, cloud sync
+    every round, 4 rounds of local_steps 2 at batch 8 (sgd, lr 1e-3, the
+    scenario benchmark's settings), ``paper`` cuts over the ``topk_int8``
+    wire with error feedback; then 2 rounds of ``urban_grid`` (256
+    vehicles) with ``residence`` cuts over the ``int8`` wire.  Counters
+    zeroed just before and read just after each run; it checks finite
+    losses, handovers after round 0 on the highway, RSU loads summing to
+    the scheduled count, the cuts, and every codec launch count against the
+    design's formula; prints each round's wall time;
+10c. runs the two-cell handover trace (2 vehicles, 4 rounds, topk_int8,
+    cloud sync every 2 rounds) on the card and on the CPU from the same
+    weights: final global parameters within 1e-4 of the largest parameter;
+11. prints the per-kernel JSON line (all eight kernels), then
+    ``{"ok": true, "device": ...}`` as the last line.
 
 Any failure raises and the script exits non-zero.
 """
@@ -78,6 +98,29 @@ KERNEL_META = {
     "unpack_dequant": "src/repro/kernels/wire.py:141",
 }
 SOURCE = "src/repro_torch/kernels/csrc/codec.cu"
+MM_META = ("unpack_dequant_matmul", "src/repro/kernels/wire.py:170")
+# kernel 5 against its plain version: |a - b| <= MM_TOL + MM_TOL * |b|
+# (each slab's float32 products summed in another order; TF32 off)
+MM_TOL = 1e-5
+# (label, rows, d, n): the scenario path's cut (batch 8 and 16), the CPU
+# tests' shapes, a ragged tile / last group / column edge, the wide case
+MM_CASES = [("path_b8", 8, 64, 64), ("path_b16", 16, 64, 64),
+            ("d256_n64", 16, 256, 64), ("d200_n32", 16, 200, 32),
+            ("d48_n16", 16, 48, 16), ("ragged", 37, 130, 70),
+            ("wide", 4096, 512, 64)]
+# ---- the multi-RSU scenario path (benchmarks/bench_scenarios.py's cell)
+SCEN_VEHICLES, SCEN_ROUNDS, SCEN_STEPS, SCEN_BATCH = 256, 4, 2, 8
+SCEN_LR = 1e-3
+# codec launches per client batch step on the scenario path (mlp9):
+#   topk_int8: pack up + pack down; unpack for the vehicle's error-feedback
+#     residual, for the RSU's dW (the fused matmul's backward) and for the
+#     downlink; the fused matmul once (the RSU's first unit);
+#   int8: quantize and dequantize once each way.
+SCEN_LAUNCHES = {
+    "topk_int8": {"sparsify_quant_pack": 2, "unpack_dequant": 3,
+                  "unpack_dequant_matmul": 1},
+    "int8": {"quantize_int8": 2, "dequantize_int8": 2}}
+TRACE_TOL = 1e-4                # phase 10c: of the largest parameter
 SGD_LR = 1e-2                   # phase 7: updates far above f32 rounding
 STEP_RTOL = 1e-2                # phase 7: card vs CPU, of the largest update
 
@@ -237,6 +280,208 @@ def check_kernels():
                 raise AssertionError(f"{name} differs from its plain "
                                      f"version at {label} {shape}")
     return out
+
+
+def check_matmul_kernel():
+    """Phase 4: kernel 5 against its plain version at every case (every
+    case is checked before a failure stops the run), the no-materialization
+    property on the wide case, times at the path's shape (batch 8).
+    Returns {label: row}."""
+    import numpy as np
+    import torch
+    from repro_torch.core import compression as C
+    from repro_torch.kernels import wire
+    out, bad = {}, []
+    for ci, (label, rows, d, n) in enumerate(MM_CASES):
+        x = _make_input((rows, d), "normal", seed=100 + ci) / 3.0
+        rng = np.random.default_rng(200 + ci)
+        w = torch.from_numpy((rng.normal(size=(d, n)) * math.sqrt(2.0 / d))
+                             .astype(np.float32)).cuda()
+        buf = wire.sparsify_quant_pack(x)
+        got = wire.unpack_dequant_matmul(buf, w)
+        want = C.wire_dequant_matmul_ref(buf, w)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        ok = bool(((got - want).abs() <= MM_TOL + MM_TOL * want.abs()).all())
+        row = {"shape": [rows, d, n], "max_abs_err": err, "within_tol": ok,
+               "max_abs_out": float(want.abs().max())}
+        if label == "wide":
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            res = wire.unpack_dequant_matmul(buf, w)
+            torch.cuda.synchronize()
+            grew = torch.cuda.max_memory_allocated() - base
+            limit = 4 * res.numel() + 4 * rows * d
+            entry = wire.dequant_matmul(buf, w.clone().requires_grad_(True))
+            saved = [(str(t.dtype), list(t.shape))
+                     for t in entry.grad_fn.saved_tensors]
+            dense_saved = any(t.dtype == torch.float32
+                              and tuple(t.shape) == (rows, d)
+                              for t in entry.grad_fn.saved_tensors)
+            row.update(peak_growth_bytes=grew, limit_bytes=limit,
+                       saved_tensors=saved)
+            print(f"kernel unpack_dequant_matmul no-materialization: peak "
+                  f"growth {grew} B < output + dense smashed {limit} B: "
+                  f"{grew < limit}; saved tensors {saved}", flush=True)
+            if grew >= limit or dense_saved:
+                bad.append(f"{label}: materialized (grew {grew} B, saved "
+                           f"{saved})")
+        if label == "path_b8":
+            g, ng, k, wpg = C.wire_layout(d)
+            nbytes = 4 * (buf.numel() + w.numel() + rows * n)
+            # a sparse product: this run's data has k survivors per group
+            flops = 2 * rows * ng * k * n
+            bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+            ops_ms = 1e3 * flops / F32_FLOPS_PER_S
+            row.update(
+                ms=_device_ms(lambda: wire.unpack_dequant_matmul(buf, w),
+                              200, "unpack_dequant_matmul_kernel"),
+                call_ms=_call_ms(lambda: wire.unpack_dequant_matmul(buf, w),
+                                 200),
+                plain_ms=_device_ms(
+                    lambda: C.wire_dequant_matmul_ref(buf, w), 100),
+                unpack_then_matmul_ms=_device_ms(
+                    lambda: wire.unpack_dequant(buf, d) @ w, 100),
+                library_ms=None, bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                bytes=nbytes, flops=flops,
+                dense_flops_bound_ms=1e3 * 2 * rows * d * n
+                / F32_FLOPS_PER_S)
+        out[label] = row
+        print(f"kernel unpack_dequant_matmul {label:9s} rows={rows} d={d} "
+              f"n={n} max_abs_err={err:g} max_abs_out="
+              f"{row['max_abs_out']:g} tol={MM_TOL:g} ok={ok}"
+              + (f" ms={row['ms']:.6f} call_ms={row['call_ms']:.6f} "
+                 f"plain_ms={row['plain_ms']:.6f} unpack_then_matmul_ms="
+                 f"{row['unpack_then_matmul_ms']:.6f} bound_ms="
+                 f"{row['bound_ms']:.6f} bound_by={row['bound_by']}"
+                 if "ms" in row else ""), flush=True)
+        if not ok:
+            bad.append(f"{label}: error {err:g} outside tolerance")
+    if bad:
+        raise AssertionError(f"unpack_dequant_matmul: {bad}")
+    return out
+
+
+def _scenario_spec(scenario, n, rounds, strategy, wire, sync=1):
+    from repro_torch import api
+    return api.ExperimentSpec(
+        model="mlp9",
+        train=api.TrainConfig(scheme="asfl", rounds=rounds,
+                              local_steps=SCEN_STEPS, batch_size=SCEN_BATCH,
+                              lr=SCEN_LR, optimizer="sgd", eval_every=0,
+                              wire=wire),
+        adaptive=api.AdaptiveConfig(strategy=strategy),
+        fleet=api.FleetConfig(n_vehicles=n, scenario=scenario,
+                              scenario_kwargs={"seed": n},
+                              cloud_sync_every=sync, round_interval_s=10.0,
+                              per_vehicle_samples=64, data_seed=n))
+
+
+def scenario_path(scenario, rounds, strategy, wire, cut_set):
+    """Phase 10b: the multi-RSU path through ``repro_torch.api.run`` on the
+    card, the launch counters zeroed just before and read just after.
+    Returns (launches, timing row)."""
+    import torch
+    from repro_torch import api, kernels
+    spec = _scenario_spec(scenario, SCEN_VEHICLES, rounds, strategy, wire)
+    marks = []
+
+    def on_round(m):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        if not (math.isfinite(m.loss) and set(m.cuts) <= cut_set
+                and sum(m.rsu_loads) == m.n_scheduled > 0
+                and len(m.cuts) == SCEN_VEHICLES):
+            raise AssertionError(f"bad scenario round: {m}")
+
+    kernels.reset_launches()
+    res = api.run(spec, on_round=on_round)
+    counts = kernels.launch_counts()
+    run_s = res.timing["run_s"]
+    walls = [run_s - (marks[-1] - marks[0])] + [
+        b - a for a, b in zip(marks, marks[1:])]
+    for m, wall in zip(res.history, walls):
+        print(f"scenario {scenario} {strategy} {wire} round={m.round} "
+              f"loss={m.loss!r} scheduled={m.n_scheduled} "
+              f"skipped={m.n_skipped} handover={m.n_handover} "
+              f"loads={m.rsu_loads} wall_s={wall:.6f}", flush=True)
+    steps = res.diagnostics["client_batch_steps"]
+    print(f"scenario {scenario} device={res.diagnostics['device']!r} "
+          f"client_batch_steps={steps} launches={counts} run_s={run_s:.6f} "
+          f"wire_bytes={res.diagnostics['wire_bytes']}", flush=True)
+    if len(res.history) != rounds or steps <= 0:
+        raise AssertionError(f"{scenario}: {len(res.history)} rounds, "
+                             f"{steps} client batch steps")
+    if scenario == "highway_corridor" \
+            and sum(m.n_handover for m in res.history[1:]) == 0:
+        raise AssertionError("highway: no handover after round 0")
+    want = dict.fromkeys(counts, 0)
+    want.update({k: v * steps for k, v in SCEN_LAUNCHES[wire].items()})
+    if counts != want:
+        raise AssertionError(f"{scenario} {wire}: launches {counts}, "
+                             f"expected {want} ({steps} client batch "
+                             f"steps)")
+    timing = {"scenario": scenario, "strategy": strategy, "wire": wire,
+              "vehicles": SCEN_VEHICLES, "rounds": rounds,
+              "client_batch_steps": steps, "round_wall_s": walls,
+              "run_s": run_s}
+    return counts, timing
+
+
+def _two_cell_trace():
+    """Vehicle 0 drives RSU0 -> RSU1, vehicle 1 parks inside RSU0 (the CPU
+    tests' handover fixture)."""
+    import numpy as np
+    from repro_torch.core import channel, scenario
+    times = np.arange(5, dtype=np.float64) * 5.0
+    x = np.stack([np.linspace(300.0, 900.0, 5), np.full(5, 250.0)], -1)
+    pos = np.stack([x, np.zeros_like(x)], axis=-1)
+    rsus = np.array([[300.0, 0.0], [900.0, 0.0]])
+    return scenario.TraceReplay(times, pos, rsus, ch=channel.ChannelConfig(
+        fading_std_db=0.0, rsu_range_m=320.0), seed=0)
+
+
+def scenario_cpu_vs_card():
+    """Phase 10c: the two-cell trace (2 vehicles, 4 rounds, topk_int8, sync
+    every 2) on the card and on the CPU from the same weights.  Float32
+    sums in another order can move one smashed value across an int8
+    rounding boundary (one int8 step), so the lr is the scenario path's
+    1e-3 and the final parameters agree within TRACE_TOL of the largest."""
+    import numpy as np
+    from repro_torch.core import fedsim
+    from repro_torch.models.mlp_unit import MLPUnitModel, make_mlp_fleet_data
+    cfg = fedsim.SimConfig(rounds=4, local_steps=2, batch_size=8,
+                           lr=SCEN_LR, optimizer="sgd", wire="topk_int8",
+                           round_interval_s=5.0, eval_every=0)
+    clients, test = make_mlp_fleet_data(2, 24, seed=0, n_test=64)
+    runs = {}
+    for where in ("cpu", "cuda"):
+        eng = fedsim.ScenarioEngine(MLPUnitModel(), clients, test, cfg,
+                                    _two_cell_trace(), cloud_sync_every=2,
+                                    device=where)
+        hist = eng.run()
+        flat = np.concatenate([t.detach().cpu().numpy().ravel()
+                               for u in eng.units for t in u.values()]
+                              + [t.detach().cpu().numpy().ravel()
+                                 for t in eng.head.values()])
+        runs[where] = (hist, flat)
+    (hc, pc), (hg, pg) = runs["cpu"], runs["cuda"]
+    err = float(np.abs(pc - pg).max())
+    scale = float(np.abs(pc).max())
+    ok = (err <= TRACE_TOL * scale and np.isfinite(pg).all()
+          and [m.cuts for m in hc] == [m.cuts for m in hg]
+          and sum(m.n_handover for m in hg) >= 1)
+    print(f"scenario_cpu_vs_card two-cell trace losses_cpu="
+          f"{[m.loss for m in hc]} losses_card={[m.loss for m in hg]} "
+          f"max_param_diff={err:g} max_abs_param={scale:g} "
+          f"tol={TRACE_TOL:g}x ok={ok}", flush=True)
+    if not ok:
+        raise AssertionError(f"two-cell trace: card and CPU disagree "
+                             f"({err:g} > {TRACE_TOL:g} x {scale:g}, or "
+                             f"cuts / handovers differ)")
+    return err / scale
 
 
 def build_kernels():
@@ -680,7 +925,8 @@ def _main_cut(cuts_per_round):
     return min(set(flat), key=lambda c: (-flat.count(c), c))
 
 
-def kernel_report(checks, launches, main_cuts, lm_checks, lm_launches):
+def kernel_report(checks, launches, main_cuts, mm_checks, mm_launches,
+                  lm_checks, lm_launches):
     """Phase 11: one entry per kernel, timed at its path's main shape."""
     out = []
     for name, replaces in KERNEL_META.items():
@@ -694,6 +940,16 @@ def kernel_report(checks, launches, main_cuts, lm_checks, lm_launches):
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "call_ms": row["call_ms"], "bound_ms": row["bound_ms"],
             "bound_by": "bytes", "library_ms": None, "shape": row["shape"]})
+    row = mm_checks["path_b8"]
+    out.append({
+        "name": MM_META[0], "route": "cuda", "source": SOURCE,
+        "replaces": MM_META[1], "launches": mm_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in mm_checks.values()),
+        "ms": row["ms"], "plain_ms": row["plain_ms"],
+        "call_ms": row["call_ms"], "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"], "library_ms": None,
+        "unpack_then_matmul_ms": row["unpack_then_matmul_ms"],
+        "shape": row["shape"]})
     for name, replaces in LM_META.items():
         row = next(r for r in lm_checks[name].values() if "ms" in r)
         out.append({
@@ -719,6 +975,7 @@ def main() -> int:
     card_line()
     build_kernels()
     checks = check_kernels()
+    mm_checks = check_matmul_kernel()
     lm_checks = check_lm_kernels()
     topk_launches, topk_cuts = drive_path(
         "topk_int8", 2, ("sparsify_quant_pack", "unpack_dequant"))
@@ -737,12 +994,23 @@ def main() -> int:
         del params, res
     reduced_cpu_vs_card()
     print(json.dumps({"serving": serving}))
+    # the multi-RSU phases run after serving, so every earlier path is
+    # measured after the same phases as before they existed
+    highway, highway_timing = scenario_path(
+        "highway_corridor", SCEN_ROUNDS, "paper", "topk_int8",
+        {0, 2, 4, 6, 8})
+    urban, urban_timing = scenario_path("urban_grid", 2, "residence",
+                                        "int8", set(range(9)))
+    scenario_cpu_vs_card()
+    print(json.dumps({"scenarios": [highway_timing, urban_timing]}))
     main_cuts = {"sparsify_quant_pack": _main_cut(topk_cuts),
                  "unpack_dequant": _main_cut(topk_cuts),
                  "quantize_int8": _main_cut(int8_cuts),
                  "dequantize_int8": _main_cut(int8_cuts)}
     print(json.dumps(kernel_report(checks, {**topk_launches,
                                             **int8_launches}, main_cuts,
+                                   mm_checks,
+                                   highway["unpack_dequant_matmul"],
                                    lm_checks, lm_launches)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

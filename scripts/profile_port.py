@@ -5,7 +5,11 @@
 1. One profiled ASFL round of the paper's case study on the topk_int8 wire
    (resnet18, 4 vehicles, batch 16, adam; ``local_steps=2`` to keep the
    trace small) after one warm-up round.
-2. Split-inference serving of smollm-360m and mamba2-780m at full width
+2. One profiled round of the multi-RSU scenario path (mlp9 on
+   ``highway_corridor``, 256 vehicles, 4 RSUs, local_steps 2, batch 8,
+   sgd, ``paper`` cuts, the ``topk_int8`` wire with error feedback) after
+   one warm-up round.
+3. Split-inference serving of smollm-360m and mamba2-780m at full width
    (batch 8, prompt 1024, the default cut) after a warm-up: one profiled
    prefill, then 8 profiled decode steps.
 
@@ -72,6 +76,43 @@ def round_profile(top: int = 12):
           f"device_kernels={res['n_device_kernels']}", flush=True)
     for r in rows:
         print(f"round top count={r['count']:6d} "
+              f"device_ms={r['device_ms']:.3f} {r['kernel']}", flush=True)
+    return res
+
+
+def scenario_profile(top: int = 12, vehicles: int = 256):
+    """One profiled topk_int8 round of the multi-RSU path after a warm-up
+    round (the same spec as ``chip_smoke.py``'s highway phase)."""
+    import torch
+
+    from repro_torch import api, kernels
+    spec = api.ExperimentSpec(
+        model="mlp9",
+        train=api.TrainConfig(rounds=1, local_steps=2, batch_size=8,
+                              lr=1e-3, optimizer="sgd", eval_every=0,
+                              wire="topk_int8"),
+        fleet=api.FleetConfig(n_vehicles=vehicles,
+                              scenario="highway_corridor",
+                              scenario_kwargs={"seed": vehicles},
+                              round_interval_s=10.0, per_vehicle_samples=64,
+                              data_seed=vehicles))
+    eng = api.build_engine(spec)
+    eng.run()                                  # warm-up round
+    eng.reset()
+    kernels.reset_launches()
+    steps0 = eng.batch_steps
+    hist, res = _profiled(eng.run, top)
+    res.update(cuts=hist[-1].cuts, rsu_loads=hist[-1].rsu_loads,
+               client_batch_steps=eng.batch_steps - steps0,
+               launches=kernels.launch_counts())
+    print(f"scenario wall_s={res['wall_s']:.6f} "
+          f"device_busy_s={res['device_busy_s']:.6f} "
+          f"busy_share={res['device_busy_share']:.4f} "
+          f"client_batch_steps={res['client_batch_steps']} "
+          f"loads={res['rsu_loads']} "
+          f"device_kernels={res['n_device_kernels']}", flush=True)
+    for r in res["top"]:
+        print(f"scenario top count={r['count']:6d} "
               f"device_ms={r['device_ms']:.3f} {r['kernel']}", flush=True)
     return res
 
@@ -162,6 +203,7 @@ def main() -> int:
     from repro_torch.device import set_float32_precision
     set_float32_precision()
     result = {"card": card, "round": round_profile(),
+              "scenario": scenario_profile(),
               "serve": [serve_profile(a) for a in ("smollm-360m",
                                                    "mamba2-780m")]}
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)

@@ -1,9 +1,10 @@
 """String-keyed registries of the port's front door (twin of
 ``repro.api.registry``, holding what is ported so far).
 
-Models ``resnet18`` and ``mlp9``; scenario ``single_rsu``; every cut
-strategy and wire scheme of the reference as metadata (which engine may
-run it).  Server schedules other than ``sequential`` are refused by
+Models ``resnet18`` and ``mlp9``; scenarios ``single_rsu`` (the
+single-RSU ``FederationSim``) and the ported multi-RSU scenarios of
+``core/scenario.py`` (the ``ScenarioEngine``); every cut strategy and wire
+scheme of the reference as metadata (which engine may run it).  Server schedules other than ``sequential`` are refused by
 ``SimConfig`` ("not ported yet").  A name the reference knows but the port does
 not is refused with "not ported yet".
 """
@@ -12,11 +13,12 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable, Dict, Optional, Tuple
 
+from repro_torch.core import scenario as _scenario
 from repro_torch.core.fedsim import (FEDERATION_STRATEGIES,
                                      SCENARIO_STRATEGIES, WIRE_SCHEMES)
 
 FEDERATION = "federation"   # single-RSU FederationSim / CohortEngine
-SCENARIO = "scenario"       # multi-RSU ScenarioEngine (not ported yet)
+SCENARIO = "scenario"       # multi-RSU ScenarioEngine
 SINGLE_RSU = "single_rsu"   # the scenario key that routes to FederationSim
 
 
@@ -71,11 +73,20 @@ def model_entry(name: str) -> ModelEntry:
 
 
 # the single-RSU entry is None: the router dispatches it to FederationSim
-SCENARIOS: Dict[str, Optional[Callable[..., Any]]] = {SINGLE_RSU: None}
+SCENARIOS: Dict[str, Optional[Callable[..., Any]]] = {
+    SINGLE_RSU: None, **_scenario.SCENARIOS}
+NOT_PORTED_SCENARIOS = _scenario.NOT_PORTED
 
 
 def scenario_names() -> str:
     return " | ".join(sorted(SCENARIOS))
+
+
+def build_scenario(name: str, n_vehicles: int, seed: int = 0, **kw):
+    if SCENARIOS.get(name) is None:
+        raise ValueError(f"{name!r} is not a multi-RSU scenario; "
+                         f"registered: {scenario_names()}")
+    return SCENARIOS[name](n_vehicles, seed=seed, **kw)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,10 +1,12 @@
 """``run(spec)``: the port's front door (twin of ``repro.api.runner``).
 
-Routes a spec to :class:`~repro_torch.core.fedsim.FederationSim` on the
-requested device (``cuda`` unless ``device="cpu"``; raises without a card),
-drives it, and returns a :class:`RunResult` with the reference's keys.
-``diagnostics`` also names the device and the codec kernels' launch counts
-during the run.
+Routes a spec to :class:`~repro_torch.core.fedsim.FederationSim` (single
+RSU) or :class:`~repro_torch.core.fedsim.ScenarioEngine` (a multi-RSU
+scenario) on the requested device (``cuda`` unless ``device="cpu"``; raises
+without a card), drives it, and returns a :class:`RunResult` with the
+reference's keys.  ``diagnostics`` also names the device, the kernels'
+launch counts during the run, the client batch steps and the bytes that
+crossed the wire.
 """
 from __future__ import annotations
 
@@ -20,7 +22,8 @@ from repro_torch import bridge, kernels
 from repro_torch.api import registry
 from repro_torch.api.spec import ExperimentSpec
 from repro_torch.core import channel
-from repro_torch.core.fedsim import FederationSim, RoundMetrics
+from repro_torch.core.fedsim import (FederationSim, RoundMetrics,
+                                     ScenarioEngine, ScenarioRoundMetrics)
 from repro_torch.device import DeviceLike, device_name, resolve_device
 
 __all__ = ["RunResult", "run", "build_engine"]
@@ -66,15 +69,17 @@ class RunResult:
     def load(cls, path: str) -> "RunResult":
         with open(path) as f:
             d = json.load(f)
+        metrics_cls = (ScenarioRoundMetrics
+                       if d["engine_kind"] == registry.SCENARIO
+                       else RoundMetrics)
         return cls(spec=ExperimentSpec.from_dict(d["spec"]),
                    engine_kind=d["engine_kind"],
-                   history=[RoundMetrics(**m) for m in d["history"]],
+                   history=[metrics_cls(**m) for m in d["history"]],
                    totals=d["totals"], timing=d["timing"],
                    diagnostics=d["diagnostics"])
 
 
-def build_engine(spec: ExperimentSpec, *, device: DeviceLike = None
-                 ) -> FederationSim:
+def build_engine(spec: ExperimentSpec, *, device: DeviceLike = None):
     """The engine a spec routes to, on ``device`` (``cuda`` by default)."""
     dev = resolve_device(device)
     entry = registry.model_entry(spec.model)
@@ -83,6 +88,13 @@ def build_engine(spec: ExperimentSpec, *, device: DeviceLike = None
     clients, test = entry.make_data(f.n_vehicles, f.per_vehicle_samples,
                                     f.test_samples, f.data_seed)
     cfg = spec.to_sim_config()
+    if spec.engine_kind == registry.SCENARIO:
+        kw = dict(f.scenario_kwargs)
+        kw.setdefault("seed", spec.runtime.seed)
+        sc = registry.build_scenario(f.scenario, f.n_vehicles, **kw)
+        return ScenarioEngine(model, clients, test, cfg, sc,
+                              cloud_sync_every=f.cloud_sync_every,
+                              device=dev)
     fleet = None
     if f.memory_budget_bytes is not None:
         fleet = channel.make_fleet(f.n_vehicles, cfg.seed,
@@ -108,21 +120,46 @@ def _totals(history) -> Dict[str, float]:
         totals["n_dropout"] = int(sum(m.n_dropout for m in history))
         totals["n_upload_lost"] = int(sum(m.n_upload_lost for m in history))
         totals["n_straggler"] = 0
-        totals["absorbed_samples"] = 0.0
+        totals["absorbed_samples"] = float(sum(
+            getattr(m, "absorbed_samples", 0.0) for m in history))
         totals["stream_merges"] = 0
         totals["n_arrived"] = 0
     return totals
 
 
+def _occupancy(history) -> Dict[str, Any]:
+    """The reference's occupancy keys for a scenario run.  The port's loop
+    runs exactly the scheduled slots (no padded slot table), so every
+    executed slot is occupied."""
+    occ = [m.n_scheduled for m in history]
+    return {"layout": "loop",
+            "slot_capacity": max((max(m.rsu_loads) for m in history),
+                                 default=0),
+            "executed_slots": max(occ, default=0),
+            "mean_occupied_slots": float(np.mean(occ)) if occ else 0.0,
+            "padded_slot_frac": 0.0, "owned_plane_frac": 1.0,
+            "effective_flops_utilization": 1.0}
+
+
 def run(spec: ExperimentSpec, *, device: DeviceLike = None,
-        on_round: Optional[Callable[[Any], None]] = None) -> RunResult:
+        on_round: Optional[Callable[[Any], None]] = None,
+        on_cloud_merge: Optional[Callable[[int, Any], None]] = None
+        ) -> RunResult:
     """Execute a spec end to end on ``device`` (``cuda`` by default) and
-    return a :class:`RunResult`; ``on_round(metrics)`` fires per round."""
+    return a :class:`RunResult`; ``on_round(metrics)`` fires per round and,
+    on a multi-RSU scenario, ``on_cloud_merge(rnd, engine)`` after every
+    cloud sync."""
     engine = build_engine(spec, device=device)
+    scenario = isinstance(engine, ScenarioEngine)
+    counted = engine if scenario else engine.engine
     launches0 = kernels.launch_counts()
-    steps0, bytes0 = engine.engine.batch_steps, engine.engine.wire_bytes
+    steps0, bytes0 = counted.batch_steps, counted.wire_bytes
     t0 = time.perf_counter()
-    history = engine.run(on_round=on_round)
+    if scenario:
+        history = engine.run(on_round=on_round,
+                             on_cloud_merge=on_cloud_merge)
+    else:
+        history = engine.run(on_round=on_round)
     if engine.device.type == "cuda":
         torch.cuda.synchronize(engine.device)
     run_s = time.perf_counter() - t0
@@ -132,15 +169,22 @@ def run(spec: ExperimentSpec, *, device: DeviceLike = None,
     launches = kernels.launch_counts()
     diagnostics: Dict[str, Any] = {
         "model": spec.model, "wire": spec.train.wire,
-        "mode": engine.engine.mode, "n_rsus": 1, "mesh_devices": 1,
-        "fleet_axis": None, "mesh_shape": None, "n_processes": 1,
-        "device": device_name(engine.device),
+        "mode": counted.mode,
+        "n_rsus": engine.n_rsus if scenario else 1}
+    if scenario:
+        diagnostics.update(compile_fallbacks=0,
+                           superstep_layout=spec.runtime.superstep_layout,
+                           occupancy=_occupancy(history))
+    diagnostics.update({
+        "mesh_devices": 1, "fleet_axis": None, "mesh_shape": None,
+        "n_processes": 1, "device": device_name(engine.device),
         "kernel_launches": {k: launches[k] - launches0[k] for k in launches},
-        "client_batch_steps": engine.engine.batch_steps - steps0,
-        "wire_bytes": engine.engine.wire_bytes - bytes0,
-    }
+        "client_batch_steps": counted.batch_steps - steps0,
+        "wire_bytes": counted.wire_bytes - bytes0,
+    })
     totals = _totals(history)
-    totals["goodput_samples_per_s"] = 0.0
+    totals["goodput_samples_per_s"] = (
+        totals.get("absorbed_samples", 0.0) / run_s if run_s else 0.0)
     return RunResult(spec=spec, engine_kind=spec.engine_kind,
                      history=list(history), totals=totals, timing=timing,
                      diagnostics=diagnostics,

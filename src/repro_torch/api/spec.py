@@ -5,9 +5,12 @@ saved by ``repro.api`` loads here.  The device is deliberately *not* a spec
 field (it is a keyword of ``run`` / ``build_engine``), so the JSON stays
 identical to the reference's.
 
-Validation covers what the port can run: the single-RSU engine with the
-ported models.  A multi-RSU scenario, a non-default value of a plane that is
-not ported yet, or a multi-process topology raises.
+Validation covers what the port can run: the single-RSU engine and the
+multi-RSU scenario engine (one round per dispatch, sequential schedule)
+with the ported models and scenarios.  A scenario, a non-default value of a
+plane that is not ported yet, or a multi-process topology raises "not
+ported yet".  ``runtime.precompile`` is accepted and does nothing: the port
+runs eagerly and compiles nothing but its kernels, at first use.
 """
 from __future__ import annotations
 
@@ -52,7 +55,8 @@ class AdaptiveConfig:
 
 @dataclasses.dataclass(frozen=True)
 class FleetConfig:
-    """The fleet and where it drives (``single_rsu`` / None only, so far)."""
+    """The fleet and where it drives (``single_rsu`` / None, or a multi-RSU
+    scenario with its builder keywords and edge->cloud cadence)."""
     n_vehicles: int = 4
     scenario: Optional[str] = registry.SINGLE_RSU
     scenario_kwargs: Dict[str, Any] = dataclasses.field(default_factory=dict)
@@ -179,37 +183,57 @@ class ExperimentSpec:
                 if sc in (None, registry.SINGLE_RSU) else registry.SCENARIO)
 
     def __post_init__(self):
-        if self.engine_kind != registry.FEDERATION:
+        sc = self.fleet.scenario
+        if sc in registry.NOT_PORTED_SCENARIOS:
             raise NotImplementedError(
-                f"fleet.scenario={self.fleet.scenario!r}: the multi-RSU "
-                f"scenario engine is not ported yet; scenarios: "
+                f"fleet.scenario={sc!r}: not ported yet; scenarios: "
+                f"{registry.scenario_names()} (None == single_rsu)")
+        if sc is not None and sc not in registry.SCENARIOS:
+            raise ValueError(
+                f"unknown scenario {sc!r}; registered: "
                 f"{registry.scenario_names()} (None == single_rsu)")
         self.to_sim_config()        # field validity + not-ported planes
         entry = registry.model_entry(self.model)
-        engine = registry.FEDERATION
+        engine = self.engine_kind
 
         strat = registry.STRATEGIES.get(self.adaptive.strategy)
         if strat is None:
             raise ValueError(
                 f"unknown adaptive strategy {self.adaptive.strategy!r}; "
                 f"registered: {' | '.join(sorted(registry.STRATEGIES))}")
-        if self.train.scheme == "asfl" and engine not in strat.engines:
+        # the strategy is consumed whenever cuts are adaptive (asfl on the
+        # single-RSU engine; always on the scenario engine)
+        consumed = engine == registry.SCENARIO or self.train.scheme == "asfl"
+        if consumed and engine not in strat.engines:
             ok = sorted(n for n, s in registry.STRATEGIES.items()
                         if engine in s.engines)
             raise ValueError(
                 f"adaptive strategy {strat.name!r} is not executable by the "
-                f"{engine} engine; strategies this engine supports: "
-                f"{' | '.join(ok)}")
+                f"{engine} engine (fleet.scenario={sc!r}); strategies this "
+                f"engine supports: {' | '.join(ok)}")
         wire = registry.WIRES.get(self.train.wire)
         if wire is None:
             raise ValueError(
                 f"unknown wire scheme {self.train.wire!r}; registered: "
                 f"{registry.wire_names()}")
-        if self.fleet.cloud_sync_every != 1:
+        if engine == registry.SCENARIO:
+            if self.train.scheme != "asfl":
+                raise ValueError(
+                    f"scheme {self.train.scheme!r} is not executable by the "
+                    f"multi-RSU scenario engine (fleet.scenario={sc!r}); it "
+                    f"runs the adaptive split flow only: scheme='asfl'")
+            if self.fleet.memory_budget_bytes is not None:
+                raise ValueError(
+                    "fleet.memory_budget_bytes feeds the single-RSU "
+                    "'memory' strategy; the scenario engine's strategies "
+                    "are: " + " | ".join(sorted(
+                        n for n, s in registry.STRATEGIES.items()
+                        if registry.SCENARIO in s.engines)))
+        elif self.fleet.cloud_sync_every != 1:
             raise ValueError(
                 "fleet.cloud_sync_every is the multi-RSU edge->cloud "
                 "cadence; the single-RSU engine aggregates at its one RSU "
-                "every round (leave it at 1)")
+                "every round (leave it at 1 or set a scenario)")
         rt = self.runtime
         if (rt.coordinator_address is not None or rt.num_processes != 1
                 or rt.process_id != 0):

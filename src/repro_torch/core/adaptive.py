@@ -1,10 +1,11 @@
 """Cut-layer selection strategies (twin of ``repro.core.adaptive``, the host
-numpy strategies ``FederationSim`` accepts).
+numpy strategies ``FederationSim`` and ``ScenarioEngine`` accept).
 
 ``paper_threshold`` is the paper's Eq. 3 (rate bands -> cut in {2,4,6,8}),
 text-consistent by default (high rate -> early cut) and as printed behind
 ``literal_eq3=True``.  ``latency_optimal``, ``energy_aware`` and
-``memory_constrained`` are the reference's beyond-paper strategies.
+``memory_constrained`` are the reference's beyond-paper strategies;
+``residence_aware`` is the scenario engine's deadline rule (paper §II-C).
 """
 from __future__ import annotations
 
@@ -69,6 +70,43 @@ def energy_aware(profile: SplitProfile, rates_bps, client_flops,
     score = (latency_weight * lat / lat.max(axis=1, keepdims=True)
              + (1 - latency_weight) * en / en.max(axis=1, keepdims=True))
     return [int(c) for c in cuts[np.argmin(score, axis=1)]]
+
+
+SKIP = 0  # sentinel cut: the vehicle sits this round out
+
+
+def residence_aware(profile: SplitProfile, rates_bps: Sequence[float],
+                    client_flops: Sequence[float], server_flops: float,
+                    n_batches: int, batch: int, local_epochs: int,
+                    residence_s: Sequence[float],
+                    candidate_cuts: Optional[Sequence[int]] = None
+                    ) -> List[int]:
+    """Deadline-aware selection: among candidate cuts (ascending), the
+    smallest cut -- the most work pushed to the RSU -- whose analytic round
+    latency fits the vehicle's remaining residence time; :data:`SKIP` when
+    none fits (the vehicle would leave coverage mid-round)."""
+    cand = sorted(candidate_cuts or range(1, profile.n_units))
+    cuts, costs = _cost_matrix(profile, rates_bps, client_flops, server_flops,
+                               n_batches, batch, local_epochs, cand)
+    res = np.asarray(residence_s, dtype=np.float64)[:, None]
+    feasible = costs.latency <= res
+    first = np.argmax(feasible, axis=1)          # smallest feasible cut
+    out = np.where(feasible.any(axis=1), cuts[first], SKIP)
+    return [int(c) for c in out]
+
+
+def strategy_max_cut(strategy: str, n_units: int,
+                     candidate_cuts: Optional[Sequence[int]] = None) -> int:
+    """Upper bound on the cut a scenario strategy can emit: ``paper`` /
+    ``paper-literal`` pick from :data:`DEFAULT_CUTS` (clipped to U-1),
+    ``residence`` searches ``candidate_cuts`` (default ``1..U-1``).  The
+    reference sizes its super-step replica planes with it; the port's
+    per-replica loop keeps exactly the units before each cut."""
+    top = max(n_units - 1, 1)
+    if strategy in ("paper", "paper-literal"):
+        return min(max(DEFAULT_CUTS), top)
+    cand = sorted(candidate_cuts or range(1, n_units))
+    return min(max(cand), top) if cand else top
 
 
 def max_cut_for_budget(profile: SplitProfile,

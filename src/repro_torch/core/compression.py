@@ -1,12 +1,14 @@
 """Cut-boundary codec, plain PyTorch versions (twin of
 ``repro.core.compression``).
 
-These functions are the plain versions behind the four CUDA kernels in
+These functions are the plain versions behind the five CUDA kernels in
 :mod:`repro_torch.kernels.quant` and :mod:`repro_torch.kernels.wire`: the
 kernel wrappers run them for tensors on the CPU, and ``chip_smoke.py``
 holds each kernel against them on the card.  They are bit-exact against the
 JAX oracles (``tests/test_torch_codec.py``): same int8 values, same scales,
-same int32 wire words, same dequantized floats.
+same int32 wire words, same dequantized floats.  The one product,
+:func:`wire_dequant_matmul_ref`, has bit-exact slabs and leaves each
+slab's sum order to the BLAS (``tests/test_torch_wire_matmul.py``).
 
 Bit-exactness traps, each mirrored from the reference:
 
@@ -242,6 +244,33 @@ def wire_dequant_ref(buf: torch.Tensor, d: int, k_frac: float = WIRE_K,
     """Packed buffer -> dense (..., d): unpack + dequantise."""
     q, scale, _ = unpack_wire(buf, d, k_frac, group)
     return dequantize_int8(q, scale, dtype, group)
+
+
+def dequant_slab(q: torch.Tensor, scale: torch.Tensor, j: int
+                 ) -> torch.Tensor:
+    """Group ``j`` of unpacked groups (q (rows, ng, g), scale (rows, ng))
+    as a dense f32 (rows, g) slab."""
+    return q[:, j].to(torch.float32) * scale[:, j, None]
+
+
+def wire_dequant_matmul_ref(buf: torch.Tensor, w: torch.Tensor,
+                            k_frac: float = WIRE_K, group: int = GROUP
+                            ) -> torch.Tensor:
+    """Packed buffer (rows, ng*wpg) @ w (d, n) -> (rows, n) f32, one g-wide
+    slab per group accumulated in group order (the reference's order), so
+    the dense smashed tensor is never formed at full width.  A ragged last
+    group meets zero rows of ``w``."""
+    d, n = w.shape
+    g, ng, k, wpg = wire_layout(d, k_frac, group)
+    rows = buf.shape[0]
+    q, scale, _ = _unpack_groups(buf.reshape(rows, ng, wpg), g, k)
+    pad = ng * g - d
+    wp = torch.cat([w, w.new_zeros((pad, n))]) if pad else w
+    wg = wp.reshape(ng, g, n).to(torch.float32)
+    acc = torch.zeros((rows, n), dtype=torch.float32, device=buf.device)
+    for j in range(ng):
+        acc = acc + dequant_slab(q, scale, j) @ wg[j]
+    return acc
 
 
 def wire_topk_dense(x: torch.Tensor, k_frac: float = WIRE_K,

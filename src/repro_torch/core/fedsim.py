@@ -1,25 +1,40 @@
-"""Single-RSU federation simulator: SFL / ASFL (twin of
-``repro.core.fedsim``, the slice on the paper's case study).
+"""Federation simulators: single-RSU SFL / ASFL and the multi-RSU
+scenario engine (twin of ``repro.core.fedsim``).
 
 The SFL message flow is explicit, as in the paper's Fig. 3 workflow and the
 reference: vehicle-side forward -> **uplink** (the smashed tensor is packed
 on the vehicle and unpacked at the RSU by the codec kernels) -> RSU-side
 forward/backward -> **downlink** (the cut-layer gradient crosses the same
 wire) -> vehicle-side backward.  Where the reference computes the value
-after one wire trip (``fake_quant`` / ``wire_fake``), the port sends the
-real packed buffer, so the same values arrive and the bytes on the wire are
-counted from the buffers themselves.
+after one wire trip (``fake_quant`` / ``wire_fake`` / ``wire_boundary``),
+the port sends the real packed buffer, so the same values arrive and the
+bytes on the wire are counted from the buffers themselves.  On the
+``topk_int8`` wire a model with a packed RSU entry (mlp9) starts the RSU
+side from the buffer itself (the ``unpack_dequant_matmul`` kernel).
 
-``CohortEngine.split_round`` runs one round as a per-replica loop in the
-reference's update order (``_bucket_unroll``): buckets in ascending cut,
-members in ascending client index, the one shared RSU model and optimizer
-state threaded through every client batch (paper §III-B), then a unit-wise
-|D_n|-weighted FedAvg with the RSU copy of every unit it trained.
+``CohortEngine.split_round`` runs one single-RSU round as a per-replica
+loop in the reference's update order (``_bucket_unroll``): buckets in
+ascending cut, members in ascending client index, the one shared RSU model
+and optimizer state threaded through every client batch (paper §III-B),
+then a unit-wise |D_n|-weighted FedAvg with the RSU copy of every unit it
+trained.
 
-Ported: schemes ``sfl`` / ``asfl`` with the host cut strategies.  Not
-ported yet (``SimConfig`` raises on a non-default value): cl / fl / sl,
-the fault and streaming planes, super-steps, the mesh, other server
-schedules and the XLA execution knobs.
+``ScenarioEngine`` runs the multi-RSU vehicular setting: mobility and
+handover from a scenario, cuts from rates or residence time, one cohort
+per RSU trained against that RSU's edge model in the reference's
+sequential server schedule, error-feedback residuals on the ``topk_int8``
+wire, and a sample-weighted edge->cloud merge every ``cloud_sync_every``
+rounds.  It follows the reference's per-round fused program at K = 1 as a
+per-replica loop, the way ``split_round`` follows ``_bucket_unroll``.
+
+Ported: schemes ``sfl`` / ``asfl`` with the host cut strategies, and the
+scenario engine at one round per dispatch on the sequential schedule.
+Not ported yet (``SimConfig`` raises on a non-default value): cl / fl /
+sl, the fault and streaming planes, super-steps (K > 1), the mesh, the
+parallel and streaming server schedules and the XLA execution knobs.
+``slot_capacity`` and ``superstep_layout`` choose how the reference lays
+its slot tables out in XLA; under the sequential schedule both give the
+same math, so the port accepts and ignores them.
 """
 from __future__ import annotations
 
@@ -32,8 +47,8 @@ import torch.nn.functional as F
 
 from repro_torch import optim
 from repro_torch.core import adaptive, aggregation, channel, compression, cost
-from repro_torch.data.pipeline import (ClientDataset, sample_batch_indices,
-                                       stack_clients)
+from repro_torch.data.pipeline import (ClientDataset, fleet_batch_indices,
+                                       sample_batch_indices, stack_clients)
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import quant as quant_kernels
 from repro_torch.kernels import wire as wire_kernels
@@ -93,8 +108,8 @@ NOT_PORTED_FIELDS = (
     "fault_upload_loss", "fault_straggler", "fault_rsu_outage",
     "fault_staleness_discount", "fault_seed", "stream_buffer_size",
     "stream_churn_rate", "stream_kernel", "stream_alpha", "stream_seed",
-    "cohort_parallel", "server_schedule", "slot_capacity",
-    "superstep_layout", "superstep", "compilation_cache_dir",
+    "cohort_parallel", "server_schedule", "superstep",
+    "compilation_cache_dir",
     "mesh_devices", "fleet_axis", "mesh_shape", "page_slots",
     "stream_churn_source")
 
@@ -238,19 +253,48 @@ def _requires_grad(tree):
 
 
 def sfl_message_flow(model, cfg: SimConfig, opt: optim.Optimizer, cut: int,
-                     sv, so, cu, co, x, y):
+                     sv, so, cu, co, x, y, res=None,
+                     error_feedback: bool = False):
     """One client batch against the shared RSU state: vehicle fwd ->
     uplink -> RSU fwd/bwd -> downlink -> vehicle bwd -> both optimizer
-    steps.  Returns (sv, so, cu, co, loss, logits, wire bytes)."""
+    steps.  Returns (sv, so, cu, co, loss, logits, wire bytes, residual).
+
+    ``error_feedback`` (the scenario engine's ``topk_int8`` wire, EF-SGD):
+    the vehicle packs smashed + ``res`` (None = zero) and keeps what the
+    wire dropped, ``sent - unpack_dequant(buf)``, as the returned residual
+    (None otherwise).  The cut-layer gradient takes the stateless
+    downlink."""
     cu_req, cu_t, cu_rebuild = _requires_grad(cu)
     smashed = model.apply_units(cu_t, x, 0)
-    sm_recv, up_bytes = wire_trip(cfg, smashed.detach())        # uplink
-    sm_in = sm_recv.detach().requires_grad_(True)               # RSU leaf
     sv_req, sv_t, sv_rebuild = _requires_grad(sv)
-    feats = model.apply_units(sv_t["units"], sm_in, cut)
+    sent = smashed.detach()
+    if error_feedback and res is not None:
+        sent = sent + res
+    packed = False
+    if cfg.wire_scheme() == "topk_int8":                        # uplink
+        d = sent.shape[-1]
+        buf = wire_kernels.sparsify_quant_pack(sent.contiguous(), cfg.wire_k)
+        up_bytes = 4 * buf.numel()
+        if error_feedback:
+            res = sent - wire_kernels.unpack_dequant(buf, d, cfg.wire_k)
+        packed = hasattr(model, "apply_units_packed")
+        if packed:      # the RSU's first matmul reads the buffer itself
+            feats, entry = model.apply_units_packed(sv_t["units"], buf, cut,
+                                                    cfg.wire_k)
+        else:
+            entry = wire_kernels.unpack_dequant(
+                buf, d, cfg.wire_k).requires_grad_(True)
+            feats = model.apply_units(sv_t["units"], entry, cut)
+    else:
+        recv, up_bytes = wire_trip(cfg, sent)
+        entry = recv.detach().requires_grad_(True)              # RSU leaf
+        feats = model.apply_units(sv_t["units"], entry, cut)
     loss, logits = model.head_loss(sv_t["head"], feats, y)
-    grads = torch.autograd.grad(loss, sv_req + [sm_in])
-    g_recv, down_bytes = wire_trip(cfg, grads[-1])              # downlink
+    grads = torch.autograd.grad(loss, sv_req + [entry])
+    g_cut = grads[-1]
+    if packed:
+        g_cut = model.entry_input_grad(sv_t["units"], g_cut)
+    g_recv, down_bytes = wire_trip(cfg, g_cut)                  # downlink
     g_cu = torch.autograd.grad(smashed, cu_req, grad_outputs=g_recv)
     with torch.no_grad():
         upd_c, co2 = opt.update(cu_rebuild(list(g_cu)), co, cu)
@@ -258,7 +302,7 @@ def sfl_message_flow(model, cfg: SimConfig, opt: optim.Optimizer, cut: int,
         upd_s, so2 = opt.update(sv_rebuild(list(grads[:-1])), so, sv)
         sv2 = optim.apply_updates(sv, upd_s)
     return (sv2, so2, cu2, co2, loss.detach(), logits.detach(),
-            up_bytes + down_bytes)
+            up_bytes + down_bytes, res if error_feedback else None)
 
 
 def make_sfl_batch_step(model, cfg: SimConfig, cut: int):
@@ -269,7 +313,7 @@ def make_sfl_batch_step(model, cfg: SimConfig, cut: int):
     def step(client_units, server_units, head, c_opt, s_opt, batch):
         x, y = batch["images"], batch["labels"]
         sv = {"units": list(server_units), "head": head}
-        sv, s_opt, cu, c_opt, loss, logits, _ = sfl_message_flow(
+        sv, s_opt, cu, c_opt, loss, logits, _, _ = sfl_message_flow(
             model, cfg, opt, cut, sv, s_opt, list(client_units), c_opt, x, y)
         acc = (logits.argmax(-1) == y).to(torch.float32).mean()
         return cu, sv["units"], sv["head"], c_opt, s_opt, loss, acc
@@ -394,7 +438,7 @@ class CohortEngine:
                     row = int(plan.bucket_rows[bi][i])
                     x = self.stacked.images[row][idx[bi][s, i]]
                     y = self.stacked.labels[row][idx[bi][s, i]]
-                    sv, so, cus[i], cos[i], loss, _, nbytes = \
+                    sv, so, cus[i], cos[i], loss, _, nbytes, _ = \
                         sfl_message_flow(self.model, self.cfg, opt, cut,
                                          sv, so, cus[i], cos[i], x, y)
                     loss_sum = loss_sum + loss
@@ -412,6 +456,13 @@ def _to_device(tree, device):
     return tree_map(lambda a: torch.as_tensor(a).to(device), tree)
 
 
+def _stage_test(test: Dict[str, Any], device: torch.device):
+    return {"images": torch.as_tensor(np.asarray(test["images"], np.float32),
+                                      device=device),
+            "labels": torch.as_tensor(np.asarray(test["labels"], np.int64),
+                                      device=device)}
+
+
 class FederationSim:
     """The single-RSU SFL / ASFL simulator on one device (``cuda`` unless
     ``device="cpu"`` is passed; raises without a card)."""
@@ -424,12 +475,7 @@ class FederationSim:
         self.device = resolve_device(device)
         self.model = model
         self.clients = list(clients)
-        self.test = {"images": torch.as_tensor(
-                         np.asarray(test["images"], np.float32),
-                         device=self.device),
-                     "labels": torch.as_tensor(
-                         np.asarray(test["labels"], np.int64),
-                         device=self.device)}
+        self.test = _stage_test(test, self.device)
         self.cfg = cfg
         self.fleet = fleet or channel.make_fleet(len(clients), cfg.seed)
         self.fleet_arr = channel.fleet_arrays(self.fleet)
@@ -574,3 +620,308 @@ class FederationSim:
                              float(rc.comm_bytes.sum()),
                              float(rc.latency.max()),
                              float(rc.energy_j.sum()))
+
+
+# --------------------------------------------------------------------------
+# multi-RSU scenario engine
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class ScenarioRoundMetrics:
+    """The reference's per-round scenario metrics, field for field (the
+    fault and streaming fields keep their defaults: those planes are not
+    ported yet)."""
+    round: int
+    loss: float
+    test_acc: float          # NaN on rounds without a cloud sync / eval
+    comm_bytes: float
+    sim_time_s: float        # slowest scheduled vehicle's round latency
+    energy_j: float
+    n_scheduled: int         # vehicles that trained this round
+    n_skipped: int           # in coverage but residence-infeasible (cut 0)
+    n_handover: int          # scheduled vehicles whose cell changed
+    rsu_loads: List[int]     # participants per RSU
+    cuts: List[int]          # fleet-wide cuts; 0 = sat the round out
+    n_dropout: int = 0
+    n_upload_lost: int = 0
+    n_straggler: int = 0
+    n_rsu_down: int = 0
+    survivor_frac: float = 1.0
+    lost_update_bytes: float = 0.0
+    stale_merged: float = 0.0
+    n_present: int = -1
+    n_arrived: int = 0
+    absorbed_samples: float = 0.0   # sample weight merged into edge models
+    stream_merges: int = 0
+    buffer_occupancy: float = 0.0
+    stream_stale: float = 0.0
+
+
+class ScenarioEngine:
+    """Multi-RSU federation over a mobility scenario, with handover and
+    hierarchical edge->cloud aggregation (twin of the reference's
+    ``ScenarioEngine`` at ``superstep=1`` on the ``sequential`` server
+    schedule).  Per round:
+
+    1. Fleet state from ``fleet_states(rnd)`` (default: the scenario's
+       host ``fleet_state(rnd * round_interval_s, seed * 1000 + rnd)``);
+       rates and residence are taken as float32, as the reference's
+       program sees them.
+    2. Cuts: ``paper`` / ``paper-literal`` Eq. 3 banding, or
+       ``residence``-aware deadline feasibility (0 = SKIP); uncovered
+       vehicles get 0.
+    3. Every RSU trains its cohort -- slots in ascending (cut, vehicle) --
+       against its edge model with a fresh optimizer state: each local
+       step runs the slots in order through one shared RSU state (paper
+       §III-B), each vehicle on its own replica of the units before its
+       cut; then the unit-wise |D_n|-weighted FedAvg with the RSU copy.
+    4. On ``topk_int8`` every vehicle carries an error-feedback residual,
+       indexed by vehicle (it follows the vehicle across handover) and
+       zeroed when the vehicle's cut changes.
+    5. Every ``cloud_sync_every`` rounds the sample-weighted cloud merge
+       re-seeds every edge model from the global one.
+
+    Handover (a scheduled vehicle whose cell differs from its last
+    covered cell) moves the vehicle and its data; server-side state stays
+    at the RSU, and the vehicle-side model re-download is charged in the
+    accounting.  ``batch_indices(rnd) -> (steps, n, batch)`` (default: the
+    numpy :func:`fleet_batch_indices`) and ``fleet_states`` exist so the
+    parity tests can feed both engines the reference's threefry draws."""
+    mode = "loop"
+
+    def __init__(self, model, clients: Sequence[ClientDataset],
+                 test: Dict[str, Any], cfg: SimConfig, scenario,
+                 cloud_sync_every: int = 1, *, device: DeviceLike = None,
+                 fleet_states: Optional[Callable[[int], Any]] = None,
+                 batch_indices: Optional[Callable[[int], np.ndarray]] = None):
+        if len(clients) != scenario.n_vehicles:
+            raise ValueError(f"{len(clients)} client shards for a scenario "
+                             f"of {scenario.n_vehicles} vehicles")
+        if cfg.adaptive_strategy not in SCENARIO_STRATEGIES:
+            raise ValueError(
+                f"ScenarioEngine supports adaptive_strategy "
+                f"{' | '.join(SCENARIO_STRATEGIES)}, got "
+                f"{cfg.adaptive_strategy!r} (the single-RSU FederationSim "
+                f"strategies latency/energy/memory are not wired here)")
+        self.device = resolve_device(device)
+        self.model = model
+        self.clients = list(clients)
+        self.test = _stage_test(test, self.device)
+        self.cfg = cfg
+        self.scenario = scenario
+        self.n_rsus = len(scenario.rsu_positions)
+        self.fa = scenario.fleet_arrays
+        self.profile = model.profile()
+        self.lengths = np.array([len(c) for c in clients], dtype=np.int64)
+        self.cloud_sync_every = max(int(cloud_sync_every), 1)
+        self.opt = optim.from_name(cfg.optimizer, cfg.lr)
+        self.stacked = stack_clients(self.clients, self.device)
+        self.fleet_states = fleet_states or self._host_state
+        self.batch_indices = batch_indices or self._host_batch_indices
+        self.batch_steps = 0      # client batch steps run (lifetime)
+        self.wire_bytes = 0       # bytes across the wire, both directions
+        self.reset()
+
+    def reset(self):
+        """Fresh parameters (torch generator seeded with ``cfg.seed``; the
+        parity tests load the reference's with :meth:`set_params`) and
+        history."""
+        units, head = self.model.init(
+            torch.Generator().manual_seed(self.cfg.seed))
+        self.set_params(units, head)
+        self.history: List[ScenarioRoundMetrics] = []
+
+    def set_params(self, units, head):
+        """Load the global model (port layout) onto the device, re-seed
+        every edge model from it and clear the per-vehicle state."""
+        self.units = [_to_device(u, self.device) for u in units]
+        self.head = _to_device(head, self.device)
+        self.edges = [{"units": list(self.units), "head": self.head}
+                      for _ in range(self.n_rsus)]
+        n = len(self.clients)
+        self.samples = np.zeros(self.n_rsus, np.float32)
+        self.prev = np.full(n, -1, np.int64)        # last covered cell
+        self.wire_res: List[Optional[torch.Tensor]] = [None] * n
+        self.wire_cut = np.full(n, -1, np.int64)    # cut of each residual
+        self._sync_count = 0
+
+    # ---- staging ------------------------------------------------------
+    def _nb_ep(self) -> Tuple[int, int]:
+        """(batches, epochs), uniform over the fleet: every scheduled
+        vehicle runs the same number of local steps."""
+        c = self.cfg
+        if c.local_steps is not None:
+            return c.local_steps, 1
+        return max(int(self.lengths.max()) // c.batch_size, 1), c.local_epochs
+
+    def _steps(self) -> int:
+        nb, ep = self._nb_ep()
+        return nb * ep
+
+    def _host_state(self, rnd: int):
+        return self.scenario.fleet_state(rnd * self.cfg.round_interval_s,
+                                         self.cfg.seed * 1000 + rnd)
+
+    def _host_batch_indices(self, rnd: int) -> np.ndarray:
+        return fleet_batch_indices(self.lengths, self._steps(),
+                                   self.cfg.batch_size,
+                                   self.cfg.seed * 1000 + rnd)
+
+    def _pick_cuts(self, serving, rates, residence) -> np.ndarray:
+        """(n,) cuts, 0 = SKIP or uncovered."""
+        c, U = self.cfg, self.model.n_units
+        if c.adaptive_strategy in ("paper", "paper-literal"):
+            cuts = adaptive.paper_threshold(
+                rates, literal_eq3=c.adaptive_strategy == "paper-literal")
+        else:
+            nb, ep = self._nb_ep()
+            cuts = adaptive.residence_aware(
+                self.profile, np.maximum(rates, 1.0),
+                self.fa["compute_flops"], c.server_flops, nb, c.batch_size,
+                ep, residence)
+        cuts = np.asarray(cuts, np.int64)
+        cuts = np.where(cuts > 0, np.clip(cuts, 1, U - 1), 0)
+        return np.where(serving >= 0, cuts, 0)
+
+    # ---- the rounds ---------------------------------------------------
+    def _rsu_round(self, edge, members, cuts, idx, ef):
+        """One RSU's round on its edge model (sequential schedule): fresh
+        RSU and replica optimizer states, ``steps`` passes over the slots
+        in order, then the unit-wise FedAvg.  Returns (edge model, loss
+        sum, client batch steps, sample weight)."""
+        opt, model = self.opt, self.model
+        sv = {"units": list(edge["units"]), "head": edge["head"]}
+        so = opt.init(sv)
+        cus = [list(edge["units"][:cuts[v]]) for v in members]
+        cos = [opt.init(cu) for cu in cus]
+        loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
+        cnt = 0
+        for s in range(self._steps()):
+            for i, v in enumerate(members):
+                v, cut = int(v), int(cuts[v])
+                x = self.stacked.images[v][idx[s, v]]
+                y = self.stacked.labels[v][idx[s, v]]
+                svs = {"units": list(sv["units"][cut:]), "head": sv["head"]}
+                (svs, sos, cus[i], cos[i], loss, _, nbytes,
+                 self.wire_res[v]) = sfl_message_flow(
+                    model, self.cfg, opt, cut, svs, _suffix_state(so, cut),
+                    cus[i], cos[i], x, y, self.wire_res[v], ef)
+                sv = {"units": list(sv["units"][:cut]) + list(svs["units"]),
+                      "head": svs["head"]}
+                so = _merge_state(so, sos, cut)
+                loss_sum = loss_sum + loss
+                cnt += 1
+                self.wire_bytes += nbytes
+        # unit-wise FedAvg: replicas of every unit before their cut, and the
+        # RSU copy at the weight of every member that did not own the unit
+        w_slots = self.lengths[members].astype(np.float32)
+        w_total = np.float32(w_slots.sum(dtype=np.float32))
+        den = float(max(w_total, np.float32(1.0)))
+        merged = []
+        for u in range(model.n_units):
+            own = [i for i, v in enumerate(members) if cuts[v] > u]
+            w_own = w_slots[own]
+            swu = np.float32(w_total - w_own.sum(dtype=np.float32))
+            num = aggregation.weighted_sum(
+                [cus[i][u] for i in own] + [sv["units"][u]],
+                list(w_own) + [swu])
+            merged.append(tree_map(lambda nm, ref: (nm / den).to(ref.dtype),
+                                   num, sv["units"][u]))
+        return ({"units": merged, "head": sv["head"]}, loss_sum, cnt,
+                w_total)
+
+    def run_round(self, rnd: int) -> ScenarioRoundMetrics:
+        cfg = self.cfg
+        st = self.fleet_states(rnd)
+        serving = np.asarray(st.serving_rsu, np.int64)
+        rates = np.asarray(st.rates_bps, np.float32)
+        residence = np.asarray(st.residence_s, np.float32)
+        cuts = self._pick_cuts(serving, rates, residence)
+        sched = cuts > 0
+        idx = torch.as_tensor(np.array(self.batch_indices(rnd), np.int64),
+                              device=self.device)
+        ef = cfg.wire_scheme() == "topk_int8"
+        if ef:      # a residual is laid out for the cut it was built at
+            for v in np.nonzero(sched & (cuts != self.wire_cut))[0]:
+                self.wire_res[v] = None
+        loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
+        cnt = 0
+        counts = np.zeros(self.n_rsus, np.int64)
+        for r in range(self.n_rsus):
+            members = sorted(np.nonzero(sched & (serving == r))[0],
+                             key=lambda v: (cuts[v], v))
+            counts[r] = len(members)
+            if not members:
+                continue
+            self.edges[r], ls, c, w = self._rsu_round(
+                self.edges[r], np.asarray(members), cuts, idx, ef)
+            loss_sum = loss_sum + ls
+            cnt += c
+            self.samples[r] += w
+        self.batch_steps += cnt
+        if ef:
+            self.wire_cut = np.where(sched, cuts, self.wire_cut)
+        handover = sched & (self.prev >= 0) & (self.prev != serving)
+        self.prev = np.where(serving >= 0, serving, -1)
+        comm, lat, energy = self._accounting(rates, cuts, sched, handover)
+        m = ScenarioRoundMetrics(
+            rnd, float(loss_sum) / max(float(cnt), 1.0), float("nan"), comm,
+            lat, energy, n_scheduled=int(sched.sum()),
+            n_skipped=int(((serving >= 0) & ~sched).sum()),
+            n_handover=int(handover.sum()),
+            rsu_loads=[int(c) for c in counts],
+            cuts=[int(c) for c in cuts],
+            absorbed_samples=float(self.lengths[sched].sum()))
+        if (rnd + 1) % self.cloud_sync_every == 0:
+            glob = aggregation.cloud_merge(
+                self.edges, self.samples,
+                {"units": list(self.units), "head": self.head})
+            self.units, self.head = list(glob["units"]), glob["head"]
+            self.edges = [{"units": list(self.units), "head": self.head}
+                          for _ in range(self.n_rsus)]
+            self.samples[:] = 0.0
+            ev = cfg.eval_every
+            if ev and self._sync_count % ev == 0:
+                m.test_acc = evaluate(self.model, self.units, self.head,
+                                      self.test)
+            self._sync_count += 1
+        return m
+
+    def run(self,
+            on_round: Optional[Callable[[ScenarioRoundMetrics],
+                                        None]] = None,
+            on_cloud_merge: Optional[Callable[[int, "ScenarioEngine"],
+                                              None]] = None
+            ) -> List[ScenarioRoundMetrics]:
+        """Run ``cfg.rounds`` rounds; ``on_round(metrics)`` after each,
+        ``on_cloud_merge(rnd, engine)`` after each cloud sync."""
+        for rnd in range(self.cfg.rounds):
+            m = self.run_round(rnd)
+            self.history.append(m)
+            if on_round is not None:
+                on_round(m)
+            if (on_cloud_merge is not None
+                    and (rnd + 1) % self.cloud_sync_every == 0):
+                on_cloud_merge(rnd, self)
+        return self.history
+
+    def _accounting(self, rates, cuts, sched, handover):
+        """Analytic comm / latency / energy over the scheduled vehicles,
+        plus the handover migration bytes (the vehicle-side sub-model
+        re-downloaded at the new cell)."""
+        cfgc = self.cfg
+        act = np.nonzero(sched)[0]
+        bytes_cum = np.concatenate(
+            [[0.0], np.cumsum(self.profile.unit_param_bytes)])
+        ho_bytes = float(bytes_cum[cuts[handover]].sum())
+        if not len(act):
+            return ho_bytes, 0.0, 0.0
+        nb, ep = self._nb_ep()
+        rc = cost.sfl_round_cost_arrays(
+            self.profile, cuts[act], nb, cfgc.batch_size,
+            np.maximum(np.asarray(rates, np.float64)[act], 1.0),
+            self.fa["compute_flops"][act], cfgc.server_flops, ep,
+            self.fa["tx_power_w"][act], self.fa["compute_power_w"][act],
+            wire=cfgc.wire_scheme(), wire_k=cfgc.wire_k)
+        return (float(rc.comm_bytes.sum()) + ho_bytes,
+                float(rc.latency.max()), float(rc.energy_j.sum()))

@@ -23,6 +23,16 @@ def sample_batch_indices(n_items: int, batch_size: int, seed: int
     return rng.choice(n_items, size=batch_size, replace=n_items < batch_size)
 
 
+def fleet_batch_indices(lengths, steps: int, batch_size: int,
+                        seed: int) -> np.ndarray:
+    """Whole-fleet batch staging in one numpy draw: (steps, n, batch)
+    uniform indices modulo each vehicle's shard length (the scenario
+    engine's index stream; always with replacement)."""
+    lengths = np.asarray(lengths, dtype=np.int64)
+    u = np.random.default_rng(seed).random((steps, len(lengths), batch_size))
+    return (u * lengths[None, :, None]).astype(np.int32)
+
+
 def epoch_batch_indices(n_items: int, batch_size: int, seed: int
                         ) -> np.ndarray:
     """Full-batch permutation epoch (drop remainder) as (n_full, batch)."""

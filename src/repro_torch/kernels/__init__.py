@@ -10,7 +10,8 @@ from __future__ import annotations
 from typing import Dict
 
 KERNELS = ("quantize_int8", "dequantize_int8", "sparsify_quant_pack",
-           "unpack_dequant", "rmsnorm", "flash_attention", "ssd_chunk_scan")
+           "unpack_dequant", "unpack_dequant_matmul", "rmsnorm",
+           "flash_attention", "ssd_chunk_scan")
 LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 

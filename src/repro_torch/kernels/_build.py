@@ -39,6 +39,7 @@ SIGNATURES = {
     "repro_dequantize_int8": [_P, _P, _P, _LL, _I, _I, _I, _P],
     "repro_sparsify_quant_pack": [_P, _P, _LL, _I, _I, _I, _I, _I, _P],
     "repro_unpack_dequant": [_P, _P, _LL, _I, _I, _I, _I, _I, _P],
+    "repro_unpack_dequant_matmul": [_P, _P, _P, _LL, *[_I] * 6, _P],
     "repro_rmsnorm": [_P, _P, _P, _LL, _I, _F, _P],
     "repro_flash_attention": [_P, _P, _P, _P, *[_I] * 6, *[_LL] * 9, _I, _I,
                               _F, _P],

@@ -1,4 +1,4 @@
-// Cut-boundary codec for Hopper (sm_90a): four kernels with a plain C
+// Cut-boundary codec for Hopper (sm_90a): five kernels with a plain C
 // interface, loaded with ctypes by repro_torch/kernels/_build.py.
 //
 // They replace the Pallas TPU kernels of the JAX package:
@@ -6,8 +6,9 @@
 //   repro_dequantize_int8    <- repro/kernels/quant.py  _dequant_kernel
 //   repro_sparsify_quant_pack<- repro/kernels/wire.py   _pack_kernel/_pack_tile
 //   repro_unpack_dequant     <- repro/kernels/wire.py   _unpack_dequant_kernel
+//   repro_unpack_dequant_matmul <- repro/kernels/wire.py _unpack_matmul_kernel
 //
-// All four are memory-bound: a few integer/float operations per byte moved.
+// The first four are memory-bound: a few integer/float operations per byte moved.
 // On the TPU a tile of (block_rows, g) lived in VMEM; here one warp owns one
 // quantisation group (g <= 128, so <= 4 values per lane) and the group never
 // leaves registers / a small per-warp shared-memory row.  Reductions (amax,
@@ -227,6 +228,100 @@ __global__ void unpack_dequant_kernel(const int32_t* __restrict__ buf,
   }
 }
 
+// ------------------------------------ unpack + dequant fused into a matmul
+// out (rows, n) = dense(buf) (rows, d) @ w (d, n), where dense(buf) is the
+// received topk_int8 wire (rows, ng*wpg) and never exists in device memory.
+// A block owns an MM_ROWS x MM_COLS output tile.  For each group j in order
+// it decodes the g-wide slab of its rows into shared memory (one warp per
+// row, as unpack_dequant_kernel: bitmap bit -> slot by popcount ->
+// sign-extended byte times the scale; rows past `rows` decode to 0), loads
+// rows j*g .. j*g+g-1 of w for its columns (zero past d: the ragged last
+// group meets zero rows, as the reference pads w; zero past n), and adds
+// slab @ w-slab to the tile in f32 registers on CUDA cores.  Each thread owns
+// one row x 4 columns; a slab's partial product is summed over its g
+// positions in order and then added to the accumulator, the reference's
+// group-by-group order.
+//
+// Bound on H100: bytes at the main path's shapes (rows 8-16, d = n = 64:
+// ~20 KB moved against 0.13 Mflop); operations for wide rows.  This first
+// version is simple: no tensor cores, no cp.async, a 40 KB tile per block.
+constexpr int MM_ROWS = 16;
+constexpr int MM_COLS = 64;
+constexpr int MM_THREADS = 256;          // 16 rows x 16 column quads
+
+__global__ void unpack_dequant_matmul_kernel(const int32_t* __restrict__ buf,
+                                             const float* __restrict__ w,
+                                             float* __restrict__ out,
+                                             long long rows, int d, int n,
+                                             int g, int ng, int k, int wpg) {
+  __shared__ float s_slab[MM_ROWS][MAX_G];
+  __shared__ __align__(16) float s_w[MAX_G][MM_COLS];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const long long row0 = (long long)blockIdx.x * MM_ROWS;
+  const int col0 = blockIdx.y * MM_COLS;
+  const int tr = tid >> 4;               // tile row of this thread
+  const int tc = 4 * (tid & 15);         // first tile column of this thread
+  const int bw = (g + 31) / 32;
+  const unsigned lt = (1u << lane) - 1u;
+  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  for (int j = 0; j < ng; ++j) {
+    for (int r = warp; r < MM_ROWS; r += MM_THREADS / 32) {
+      const long long row = row0 + r;
+      if (row >= rows) {
+        for (int i = lane; i < g; i += 32) s_slab[r][i] = 0.0f;
+        continue;
+      }
+      const int32_t* in = buf + (row * ng + j) * wpg;
+      const float scale = __int_as_float(in[bw]);
+      const int32_t* words = in + bw + 1;
+      int before = 0;
+      for (int t = 0; t < bw; ++t) {
+        const unsigned bits = (unsigned)in[t];
+        const int i = lane + 32 * t;
+        float val = 0.0f;
+        if ((bits >> lane) & 1u) {
+          const int slot = before + __popc(bits & lt);
+          if (slot < k) {
+            const unsigned word = (unsigned)words[slot >> 2];
+            const int8_t b = (int8_t)((word >> (8 * (slot & 3))) & 0xFFu);
+            val = (float)b * scale;
+          }
+        }
+        if (i < g) s_slab[r][i] = val;
+        before += __popc(bits);
+      }
+    }
+    for (int e = tid; e < g * MM_COLS; e += MM_THREADS) {
+      const int i = e / MM_COLS;
+      const int c = e - i * MM_COLS;
+      const int wr = j * g + i;
+      const int wc = col0 + c;
+      s_w[i][c] = (wr < d && wc < n) ? w[(long long)wr * n + wc] : 0.0f;
+    }
+    __syncthreads();
+    float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int i = 0; i < g; ++i) {
+      const float a = s_slab[tr][i];
+      const float4 b = *reinterpret_cast<const float4*>(&s_w[i][tc]);
+      part[0] = fmaf(a, b.x, part[0]);
+      part[1] = fmaf(a, b.y, part[1]);
+      part[2] = fmaf(a, b.z, part[2]);
+      part[3] = fmaf(a, b.w, part[3]);
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[c] += part[c];
+    __syncthreads();                     // the next group reuses the tiles
+  }
+  const long long row = row0 + tr;
+  if (row < rows) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      if (col0 + tc + c < n) out[row * n + col0 + tc + c] = acc[c];
+  }
+}
+
 unsigned group_blocks(long long n_groups) {
   return (unsigned)((n_groups + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK);
 }
@@ -275,6 +370,19 @@ int repro_unpack_dequant(const int32_t* buf, float* x, long long rows, int d,
   if (n_groups > 0)
     unpack_dequant_kernel<<<group_blocks(n_groups), THREADS, 0, stream>>>(
         buf, x, n_groups, d, g, ng, k, wpg);
+  return (int)cudaGetLastError();
+}
+
+int repro_unpack_dequant_matmul(const int32_t* buf, const float* w,
+                                float* out, long long rows, int d, int n,
+                                int g, int ng, int k, int wpg,
+                                cudaStream_t stream) {
+  if (rows > 0 && n > 0) {
+    const dim3 grid((unsigned)((rows + MM_ROWS - 1) / MM_ROWS),
+                    (unsigned)((n + MM_COLS - 1) / MM_COLS));
+    unpack_dequant_matmul_kernel<<<grid, MM_THREADS, 0, stream>>>(
+        buf, w, out, rows, d, n, g, ng, k, wpg);
+  }
   return (int)cudaGetLastError();
 }
 

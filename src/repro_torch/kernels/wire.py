@@ -3,7 +3,10 @@
 Replaces the Pallas TPU kernels of ``repro/kernels/wire.py``:
 ``sparsify_quant_pack`` (``_pack_kernel`` -> ``_pack_tile``) and
 ``unpack_dequant`` (``_unpack_dequant_kernel`` -> ``_unpack_tile``), with
-the same signatures and bit-exact int32 words / dequantized floats.
+the same signatures and bit-exact int32 words / dequantized floats; and
+``unpack_dequant_matmul`` (``_unpack_matmul_kernel``), the RSU's first
+matmul reading the packed buffer itself, with the same signature and an
+f32 result whose slabs are exact and whose sums are in another order.
 
 Wire format per group of g values (exactly k survivors)::
 
@@ -66,3 +69,59 @@ def unpack_dequant(buf: torch.Tensor, d: int, k_frac: float = WIRE_K,
     launch("unpack_dequant", buf.device, buf.data_ptr(), x.data_ptr(),
            buf.numel() // words, d, g, ng, k, wpg)
     return x
+
+
+def unpack_dequant_matmul(buf: torch.Tensor, w: torch.Tensor,
+                          k_frac: float = WIRE_K, group: int = GROUP
+                          ) -> torch.Tensor:
+    """Packed buffer (rows, ng*wpg) int32 @ w (d, n) f32 -> (rows, n) f32,
+    dequantizing one g-wide slab at a time inside the product: the dense
+    (rows, d) tensor is never formed."""
+    _check_tensor(buf, "buf", torch.int32)
+    _check_tensor(w, "w", torch.float32)
+    _check_group(group)
+    if buf.dim() != 2 or w.dim() != 2:
+        raise ValueError(f"buf must be (rows, words) and w (d, n), got "
+                         f"{tuple(buf.shape)} and {tuple(w.shape)}")
+    if buf.device != w.device:
+        raise ValueError("buf and w must be on the same device")
+    d, n = w.shape
+    g, ng, k, wpg = C.wire_layout(d, k_frac, group)
+    rows, words = buf.shape
+    if words != ng * wpg:
+        raise ValueError(f"buf trailing dim {words} != ng*wpg = {ng * wpg} "
+                         f"for d={d}, k_frac={k_frac}, group={group}")
+    if buf.device.type == "cpu":
+        return C.wire_dequant_matmul_ref(buf, w, k_frac, group)
+    out = torch.empty((rows, n), dtype=torch.float32, device=buf.device)
+    launch("unpack_dequant_matmul", buf.device, buf.data_ptr(), w.data_ptr(),
+           out.data_ptr(), rows, d, n, g, ng, k, wpg)
+    return out
+
+
+class _DequantMatmul(torch.autograd.Function):
+    """:func:`unpack_dequant_matmul` with a gradient for ``w``.  The
+    forward saves the int32 buffer and ``w`` only, never an f32 tensor of
+    the smashed shape; the backward unpacks the buffer again (the
+    ``unpack_dequant`` kernel) for ``dW = dense(buf)^T @ g``.  The buffer
+    has no gradient: the caller takes the cut-layer gradient ``g @ w^T``
+    from the gradient at this function's output."""
+
+    @staticmethod
+    def forward(ctx, buf, w, k_frac, group):
+        ctx.save_for_backward(buf, w)
+        ctx.k_frac, ctx.group = k_frac, group
+        return unpack_dequant_matmul(buf, w, k_frac, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        buf, w = ctx.saved_tensors
+        dense = unpack_dequant(buf, w.shape[0], ctx.k_frac, ctx.group)
+        return None, dense.t() @ g, None, None
+
+
+def dequant_matmul(buf: torch.Tensor, w: torch.Tensor,
+                   k_frac: float = WIRE_K, group: int = GROUP
+                   ) -> torch.Tensor:
+    """Differentiable (in ``w``) :func:`unpack_dequant_matmul`."""
+    return _DequantMatmul.apply(buf, w, k_frac, group)

@@ -5,6 +5,12 @@ The 9-unit split MLP over feature vectors mirrors ResNet18's 9 split points
 (every cut in {2, 4, 6, 8} is valid) at millisecond step cost: the fast
 CPU parity model of the port.  Its fleet data is drawn with numpy, so it
 replays the reference's shards exactly.
+
+Every unit starts with a matmul, so on the ``topk_int8`` wire the RSU side
+can start from the received packed buffer itself
+(:meth:`MLPUnitModel.apply_units_packed`): the first unit reads it through
+the ``unpack_dequant_matmul`` kernel and the dense smashed tensor never
+exists on the RSU.
 """
 from __future__ import annotations
 
@@ -16,6 +22,7 @@ import torch.nn.functional as F
 
 from repro_torch.core import cost
 from repro_torch.data.pipeline import ClientDataset
+from repro_torch.kernels import wire
 
 
 class MLPUnitModel:
@@ -47,6 +54,22 @@ class MLPUnitModel:
         for u in units:
             x = torch.relu(x @ u["w"] + u["b"])
         return x
+
+    def apply_units_packed(self, units, buf, start, k_frac):
+        """The RSU side from the received topk_int8 buffer (rows, words):
+        the first unit is ``relu(unpack_dequant_matmul(buf, w) + b)``, the
+        rest as :meth:`apply_units`.  Returns (features, the first unit's
+        product) -- the cut-layer gradient is taken at the latter
+        (:meth:`entry_input_grad`)."""
+        first = units[0]
+        entry = wire.dequant_matmul(buf, first["w"], k_frac)
+        x = torch.relu(entry + first["b"])
+        return self.apply_units(units[1:], x, start + 1), entry
+
+    def entry_input_grad(self, units, g_entry):
+        """The cut-layer gradient from the gradient at the first RSU unit's
+        product: ``g @ w^T`` (the input gradient of ``x @ w``)."""
+        return g_entry @ units[0]["w"].t()
 
     def head_predict(self, head, feats):
         return feats @ head["w"] + head["b"]

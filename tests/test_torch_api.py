@@ -68,8 +68,7 @@ def test_spec_groups_and_result_keys_match_reference():
 
 def test_spec_refuses_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        TAPI.ExperimentSpec(fleet=TAPI.FleetConfig(
-            scenario="highway_corridor"))
+        TAPI.ExperimentSpec(fleet=TAPI.FleetConfig(scenario="city"))
     with pytest.raises(NotImplementedError, match="not ported yet"):
         TAPI.ExperimentSpec(faults=TAPI.FaultsConfig(dropout_rate=0.1))
     with pytest.raises(NotImplementedError, match="not ported yet"):

@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
-card — the codec bit-exact (torch.equal), rmsnorm / flash attention / SSD
-within stated float32 tolerances at the serving path's shapes and edge
-shapes — a short mlp9 run on cuda against the same run on the CPU, and the
-reduced LM configs served on cuda against the CPU.  Needs a CUDA card and
+card — the codec bit-exact (torch.equal), unpack_dequant_matmul /
+rmsnorm / flash attention / SSD within stated float32 tolerances at their
+paths' shapes and edge shapes — short mlp9 runs (single RSU, and one
+multi-RSU scenario round on topk_int8) on cuda against the same runs on the
+CPU, and the reduced LM configs served on cuda against the CPU.  Needs a CUDA card and
 nvcc:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -102,6 +103,95 @@ def test_mlp_sim_on_cuda_matches_cpu(dev):
     for a, b in zip(cpu.units, gpu.units):
         for k in a:
             torch.testing.assert_close(b[k].cpu(), a[k], rtol=0, atol=1e-4)
+
+
+# ------------------------------------------------- unpack_dequant_matmul
+# each slab's float32 products summed in another order than the plain
+# version's matmul (TF32 off for both); the slabs themselves are exact
+MM_TOL = 1e-5
+# (rows, d, n): mlp9's cut at batch 8 and 16, tests/test_kernels.py's
+# shapes, a ragged tile / last group / column edge, and a wide case
+MM_CASES = [(8, 64, 64), (16, 64, 64), (16, 256, 64), (16, 200, 32),
+            (16, 48, 16), (37, 130, 70), (4096, 512, 64)]
+
+
+def _mm_inputs(dev, rows, d, n, seed=6):
+    """Smashed values and He-initialised weights, as mlp9 has them."""
+    x = _randn((rows, d), dev, seed)
+    w = _randn((d, n), dev, seed + 1, (2.0 / d) ** 0.5)
+    return wire.sparsify_quant_pack(x), w
+
+
+@pytest.mark.parametrize("rows,d,n", MM_CASES)
+def test_unpack_dequant_matmul_matches_plain(dev, rows, d, n):
+    buf, w = _mm_inputs(dev, rows, d, n)
+    cnt = LAUNCHES["unpack_dequant_matmul"]
+    got = wire.unpack_dequant_matmul(buf, w)
+    assert LAUNCHES["unpack_dequant_matmul"] == cnt + 1
+    torch.testing.assert_close(got, C.wire_dequant_matmul_ref(buf, w),
+                               rtol=MM_TOL, atol=MM_TOL)
+
+
+def test_unpack_dequant_matmul_does_not_materialize(dev):
+    """The call allocates its output and nothing of the dense smashed
+    tensor's size; the gradient keeps only the int32 buffer and w."""
+    rows, d, n = 4096, 512, 64
+    buf, w = _mm_inputs(dev, rows, d, n)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = wire.unpack_dequant_matmul(buf, w)
+    torch.cuda.synchronize()
+    grew = torch.cuda.max_memory_allocated() - base
+    assert grew < 4 * out.numel() + 4 * rows * d
+    entry = wire.dequant_matmul(buf, w.requires_grad_(True))
+    assert not any(t.dtype == torch.float32 and tuple(t.shape) == (rows, d)
+                   for t in entry.grad_fn.saved_tensors)
+
+
+def test_dequant_matmul_gradient_on_cuda(dev):
+    """dW through the backward's unpack_dequant kernel equals autograd
+    through the dense composition on the card."""
+    buf, w0 = _mm_inputs(dev, 16, 64, 64)
+    w = w0.clone().requires_grad_(True)
+    g = _randn((16, 64), dev, 9)
+    (gw,) = torch.autograd.grad((wire.dequant_matmul(buf, w) * g).sum(),
+                                [w])
+    dense = C.wire_dequant_ref(buf, 64)
+    torch.testing.assert_close(gw, dense.t() @ g, rtol=MM_TOL, atol=MM_TOL)
+
+
+def test_mlp9_scenario_round_on_cuda_matches_cpu(dev):
+    """One topk_int8 round of the multi-RSU engine on the card and on the
+    CPU from the same weights: the same cuts and loads, the kernels
+    launched as the design implies (per client batch step: pack up and
+    down; unpack for the vehicle's residual, the RSU's dW and the
+    downlink; the fused matmul once), parameters within 1e-4."""
+    from repro_torch import api
+    spec = api.ExperimentSpec(
+        model="mlp9",
+        train=api.TrainConfig(rounds=1, local_steps=2, batch_size=8,
+                              lr=1e-3, optimizer="sgd", eval_every=0,
+                              wire="topk_int8"),
+        fleet=api.FleetConfig(n_vehicles=16, scenario="highway_corridor",
+                              round_interval_s=10.0,
+                              per_vehicle_samples=64))
+    cpu = api.run(spec, device="cpu")
+    gpu = api.run(spec, device=dev)
+    steps = gpu.diagnostics["client_batch_steps"]
+    launches = gpu.diagnostics["kernel_launches"]
+    assert steps > 0
+    assert launches["unpack_dequant_matmul"] == steps
+    assert launches["sparsify_quant_pack"] == 2 * steps
+    assert launches["unpack_dequant"] == 3 * steps
+    (mc,), (mg,) = cpu.history, gpu.history
+    assert (mc.cuts, mc.rsu_loads) == (mg.cuts, mg.rsu_loads)
+    assert abs(mc.loss - mg.loss) <= 1e-4
+    ca = np.concatenate([p.ravel() for u in cpu.final_params[0]
+                         for p in u.values()])
+    ga = np.concatenate([p.ravel() for u in gpu.final_params[0]
+                         for p in u.values()])
+    assert np.abs(ca - ga).max() <= 1e-4
 
 
 # ------------------------------------------------------------- LM kernels
