@@ -27,10 +27,12 @@ neither ``jax`` nor ``repro``.  In order it:
 4b. holds the LM lane's kernels (rmsnorm, flash_attention, ssd_chunk_scan)
    to their plain versions within stated float32 tolerances at the serving
    path's shapes and edge shapes, and at the path's main shape times
-   kernel, wrapper call, plain version and one PyTorch library call
+   kernel (for ssd_chunk_scan every kernel of one wrapper call), wrapper
+   call, plain version and one PyTorch library call
    (``scaled_dot_product_attention``, ``rms_norm``; none computes the SSD
    scan) beside the bound (bytes or float32 operations, whichever is
-   larger);
+   larger) and, for flash_attention and ssd_chunk_scan, which run 3xTF32
+   on the tensor cores, the operations bound at a third of the TF32 rate;
 5. drives the ASFL path — ``repro_torch.api.run`` of the paper's case
    study (resnet18, asfl, 4 vehicles, batch 16, adam) — for two rounds over
    the ``topk_int8`` wire, with the launch counters zeroed just before and
@@ -127,6 +129,10 @@ STEP_RTOL = 1e-2                # phase 7: card vs CPU, of the largest update
 # ---- the LM lane
 F32_FLOPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 #                                 (NVIDIA data sheet)
+TF32_FLOPS_PER_S = 495e12       # H100 SXM TF32 tensor cores, dense (ditto)
+# kernels whose products run 3xTF32 on the tensor cores: three TF32
+# products per float32 product
+TENSOR_CORE_KERNELS = ("flash_attention", "ssd_chunk_scan")
 LM_SOURCE = "src/repro_torch/kernels/csrc/lm.cu"
 LM_META = {
     "rmsnorm": "src/repro/kernels/rmsnorm.py:27",
@@ -624,8 +630,9 @@ def _rms_case(rows_shape, seed):
     return x, _randn(rows_shape[-1:], seed + 1, 0.1) + 1.0
 
 
-def _flash_case(b, sq, sk, h, kv, d, seed):
-    return (_randn((b, sq, h, d), seed), _randn((b, sk, kv, d), seed + 1),
+def _flash_case(b, sq, sk, h, kv, d, seed, qk_amp=1.0):
+    return (_randn((b, sq, h, d), seed, qk_amp),
+            _randn((b, sk, kv, d), seed + 1, qk_amp),
             _randn((b, sk, kv, d), seed + 2))
 
 
@@ -650,16 +657,19 @@ def _visible_pairs(sq, sk, causal, window):
     return total
 
 
-def _ssd_flops(b, s, h, p, n, chunk):
-    """Flops of the chunked form for this run: per (batch, head) and chunk
-    of length L, C.B and scores @ x over the L(L+1)/2 pairs j <= i, and
-    C.H and the state update over L x n x p (2 flops per multiply-add)."""
-    total = 0
+def _ssd_flops(b, s, h, p, g, n, chunk):
+    """Flops of the chunked form for this run (2 per multiply-add): C.B^T
+    over the L(L+1)/2 pairs j <= i of a chunk of length L once per (batch,
+    group, chunk), since the group's heads share it; per (batch, head) and
+    chunk, scores @ x over the same pairs, and C.H and the state update
+    over L x n x p."""
+    per_group = per_head = 0
     for c0 in range(0, s, chunk):
         length = min(chunk, s - c0)
         pairs = length * (length + 1) // 2
-        total += 2 * pairs * (n + p) + 4 * length * n * p
-    return b * h * total
+        per_group += 2 * pairs * n
+        per_head += 2 * pairs * p + 4 * length * n * p
+    return b * (g * per_group + h * per_head)
 
 
 def _lm_cases():
@@ -694,8 +704,13 @@ def _lm_cases():
             ("d32_reduced", (2, 37, 37, 4, 2, 32, True, 0), False),
             ("window48", (2, 200, 200, 4, 2, 64, True, 48), False),
             ("noncausal", (2, 48, 80, 2, 2, 64, False, 0), False),
-            ("masked_rows", (1, 64, 16, 2, 1, 64, False, 8), False)]:
-        q, k, v = _flash_case(b, sq, sk, h, kv, d, len(cases))
+            ("masked_rows", (1, 64, 16, 2, 1, 64, False, 8), False),
+            ("sq1", (2, 1, 77, 4, 2, 64, False, 0), False),
+            ("d256_window40", (1, 90, 90, 2, 1, 256, True, 40), False),
+            ("qk_x4", (1, 256, 256, 4, 2, 64, True, 0), False)]:
+        # q and k scaled by 4: scores up to ~80 would show a 1xTF32 route
+        q, k, v = _flash_case(b, sq, sk, h, kv, d, len(cases),
+                              4.0 if label == "qk_x4" else 1.0)
         lib = None
         if main:
             def lib(q=q, k=k, v=v):
@@ -716,7 +731,11 @@ def _lm_cases():
             ("ragged_g2", (2, 300, 8, 64, 2, 128, 256), False),
             ("chunk32_g2", (2, 100, 4, 32, 2, 16, 32), False),
             ("s_lt_chunk", (1, 40, 4, 16, 1, 16, 64), False),
-            ("reduced", (2, 37, 32, 16, 1, 16, 32), False)]:
+            ("reduced", (2, 37, 32, 16, 1, 16, 32), False),
+            ("g2_8heads", (1, 512, 16, 64, 2, 128, 256), False),
+            ("chunk128_ragged", (2, 333, 6, 64, 1, 128, 128), False),
+            ("chunk64", (1, 200, 8, 64, 1, 128, 64), False),
+            ("odd_pn_h7", (1, 150, 7, 18, 1, 10, 64), False)]:
         x, dt, A, B, C = _ssd_case(b, s, h, p, g, n, len(cases))
         nbytes = 4 * (2 * x.numel() + dt.numel() + A.numel() + B.numel()
                       + C.numel() + b * h * n * p)
@@ -725,7 +744,7 @@ def _lm_cases():
             lambda a=(x, dt, A, B, C), c=chunk: SSD.ssd_chunk_scan(
                 *a, chunk=c),
             lambda a=(x, dt, A, B, C), c=chunk: SSD.ssd_chunked(*a, c),
-            None, nbytes, _ssd_flops(b, s, h, p, n, chunk)))
+            None, nbytes, _ssd_flops(b, s, h, p, g, n, chunk)))
     return cases
 
 
@@ -753,8 +772,12 @@ def check_lm_kernels():
             bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
             ops_ms = 1e3 * flops / F32_FLOPS_PER_S
             iters = 200 if name == "rmsnorm" else 20
+            if name in TENSOR_CORE_KERNELS:
+                row["bound_tc_ms"] = 1e3 * 3 * flops / TF32_FLOPS_PER_S
             row.update(
-                ms=_device_ms(run_k, iters, f"{name}_kernel"),
+                # ssd: every kernel of one call (four behind one wrapper)
+                ms=_device_ms(run_k, iters, None if name == "ssd_chunk_scan"
+                              else f"{name}_kernel"),
                 call_ms=_call_ms(run_k, iters),
                 plain_ms=_device_ms(run_p, 5 if name != "rmsnorm" else 50),
                 library_ms=(_device_ms(run_lib, iters) if run_lib
@@ -768,7 +791,10 @@ def check_lm_kernels():
               + (f" ms={row['ms']:.6f} call_ms={row['call_ms']:.6f} "
                  f"plain_ms={row['plain_ms']:.6f} library_ms="
                  f"{row['library_ms']} bound_ms={row['bound_ms']:.6f} "
-                 f"bound_by={row['bound_by']}" if main else ""), flush=True)
+                 f"bound_by={row['bound_by']}"
+                 + (f" bound_tc_ms={row['bound_tc_ms']:.6f}"
+                    if "bound_tc_ms" in row else "")
+                 if main else ""), flush=True)
         if not ok:
             bad.append(f"{name} {label}")
     if bad:
@@ -960,7 +986,9 @@ def kernel_report(checks, launches, main_cuts, mm_checks, mm_launches,
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "call_ms": row["call_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-            "shape": row["shape"][0]})
+            "shape": row["shape"][0],
+            **({"bound_tc_ms": row["bound_tc_ms"]} if "bound_tc_ms" in row
+               else {})})
     return {"kernels": out}
 
 

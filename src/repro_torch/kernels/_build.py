@@ -43,8 +43,11 @@ SIGNATURES = {
     "repro_rmsnorm": [_P, _P, _P, _LL, _I, _F, _P],
     "repro_flash_attention": [_P, _P, _P, _P, *[_I] * 6, *[_LL] * 9, _I, _I,
                               _F, _P],
-    "repro_ssd_chunk_scan": [*[_P] * 7, *[_I] * 7, *[_LL] * 12, _P],
+    "repro_ssd_chunk_scan": [*[_P] * 8, *[_I] * 7, *[_LL] * 12, _P],
+    "repro_ssd_workspace_floats": [_I] * 7,
 }
+# entry points that return something other than a cudaError_t
+RESTYPES = {"repro_ssd_workspace_floats": _LL}
 
 
 def sources():
@@ -120,6 +123,6 @@ def load() -> KernelLibrary:
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = RESTYPES.get(name, ctypes.c_int)
     _LOADED = KernelLibrary(lib, so, build_s, log)
     return _LOADED

@@ -1,13 +1,23 @@
 // LM-lane kernels for Hopper (sm_90a): rmsnorm, flash attention and the
 // Mamba2 SSD chunk scan, each with a plain C interface loaded with ctypes by
-// repro_torch/kernels/_build.py.  All three work in float32 on CUDA cores
-// (no tensor cores, so no TF32 rounding: the port holds the card to the
-// CPU's float32 results).
+// repro_torch/kernels/_build.py.
 //
 // They replace the Pallas TPU kernels of the JAX package:
 //   repro_rmsnorm          <- repro/kernels/rmsnorm.py          _rmsnorm_kernel
 //   repro_flash_attention  <- repro/kernels/flash_attention.py  _fa_kernel
 //   repro_ssd_chunk_scan   <- repro/kernels/ssd.py              _ssd_kernel
+//
+// Arithmetic.  rmsnorm runs in float32 on the CUDA cores.  Flash attention
+// and the SSD scan run every matrix product on the tensor cores with the
+// 3xTF32 split (mma.sync m16n8k8 on tf32 operands): each float32 operand x
+// becomes big = tf32(x) and small = tf32(x - big) (cvt.rna), and a.b is
+// summed as a_small.b_big + a_big.b_small + a_big.b_big into float32
+// accumulators.  The dropped a_small.b_small is ~2^-22 of each product, so
+// the results keep float32 accuracy (the port holds the card to the CPU's
+// float32 results at unchanged tolerances) at a third of the TF32 rate,
+// 495 / 3 = 165 TFLOP/s against 67 on the CUDA cores.  Their tiles are
+// staged in shared memory with cp.async, double-buffered where a loop walks
+// them.
 //
 // Every entry point launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError() so the Python wrapper can raise on a refused
@@ -28,19 +38,154 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// reductions across the 16 lanes of a half-warp (lanes differ in bits 0-3)
-__device__ __forceinline__ float half_warp_max(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(FULL, v, off));
-  return v;
+// reductions across the 4 lanes of an mma quad (lanes differ in bits 0-1),
+// which hold the same rows of an accumulator tile
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(FULL, v, 1));
+  return fmaxf(v, __shfl_xor_sync(FULL, v, 2));
 }
 
-__device__ __forceinline__ float half_warp_sum(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(FULL, v, off);
-  return v;
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(FULL, v, 1);
+  return v + __shfl_xor_sync(FULL, v, 2);
 }
+
+// ------------------------------------------------------ 3xTF32 on mma.sync
+// Fragments of mma.m16n8k8 (tf32), lane = 4 * gq + tq:
+//   A (16 x 8, row-major): a0 (gq, tq), a1 (gq + 8, tq), a2 (gq, tq + 4),
+//                          a3 (gq + 8, tq + 4)
+//   B (8 x 8, k x n):      b0 (tq, gq), b1 (tq + 4, gq)
+//   C (16 x 8):            c0 (gq, 2tq), c1 (gq, 2tq + 1), c2 (gq + 8, 2tq),
+//                          c3 (gq + 8, 2tq + 1)
+// cvt.rna.tf32.f32's rounding (to nearest, ties away from zero, 10
+// mantissa bits) for finite x: an add and a mask of the bits, two
+// instructions where cvt compiles to four with its inf / NaN guard
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+struct FragA {
+  uint32_t big[4], small[4];
+};
+struct FragB {
+  uint32_t big[2], small[2];
+};
+
+// x ~ big + small, both tf32 (x - big is exact; small keeps 11 more bits)
+__device__ __forceinline__ void split(float x, uint32_t& big,
+                                      uint32_t& small) {
+  big = to_tf32(x);
+  small = to_tf32(x - __uint_as_float(big));
+}
+
+__device__ __forceinline__ FragA frag_a(float a0, float a1, float a2,
+                                        float a3) {
+  FragA f;
+  split(a0, f.big[0], f.small[0]);
+  split(a1, f.big[1], f.small[1]);
+  split(a2, f.big[2], f.small[2]);
+  split(a3, f.big[3], f.small[3]);
+  return f;
+}
+
+__device__ __forceinline__ FragB frag_b(float b0, float b1) {
+  FragB f;
+  split(b0, f.big[0], f.small[0]);
+  split(b1, f.big[1], f.small[1]);
+  return f;
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a.b in 3xTF32: the two correction products first, the large last
+__device__ __forceinline__ void mma3(float (&d)[4], const FragA& a,
+                                     const FragB& b) {
+  mma_tf32(d, a.small, b.big);
+  mma_tf32(d, a.big, b.small);
+  mma_tf32(d, a.big, b.big);
+}
+
+// acc[t] += a.b[t] for t < nt in 3xTF32, the same order as mma3; each pass
+// walks every tile, so a product never waits on the one just issued into
+// the same accumulator
+template <int N>
+__device__ __forceinline__ void mma3_row(float (&acc)[N][4], const FragA& a,
+                                         const FragB (&b)[N], int nt = N) {
+#pragma unroll
+  for (int t = 0; t < N; ++t)
+    if (t < nt) mma_tf32(acc[t], a.small, b[t].big);
+#pragma unroll
+  for (int t = 0; t < N; ++t)
+    if (t < nt) mma_tf32(acc[t], a.big, b[t].small);
+#pragma unroll
+  for (int t = 0; t < N; ++t)
+    if (t < nt) mma_tf32(acc[t], a.big, b[t].big);
+}
+
+// ------------------------------------------------------------- cp.async
+// With ok false the copy reads nothing (src-size 0) and zero-fills.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool ok) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool ok) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Stage a rows x cols tile (row r at src + r * ld, columns contiguous) in
+// shared memory with row stride sld, asynchronously; rows >= nrows and
+// columns >= ncols are zero-filled.  vec: 16-byte copies (cols, ncols, ld
+// and src multiples of 4 floats); else 4-byte ones.
+template <int THREADS>
+__device__ __forceinline__ void stage_tile(float* dst, int sld,
+                                           const float* src, long long ld,
+                                           int rows, int cols, int nrows,
+                                           int ncols, bool vec) {
+  if (vec) {
+    const int c4 = cols >> 2;
+    for (int e = threadIdx.x; e < rows * c4; e += THREADS) {
+      const int r = e / c4, c = (e - r * c4) << 2;
+      const bool ok = r < nrows && c < ncols;
+      cp_async16(dst + r * sld + c, ok ? src + r * ld + c : src, ok);
+    }
+  } else {
+    for (int e = threadIdx.x; e < rows * cols; e += THREADS) {
+      const int r = e / cols, c = e - r * cols;
+      const bool ok = r < nrows && c < ncols;
+      cp_async4(dst + r * sld + c, ok ? src + r * ld + c : src, ok);
+    }
+  }
+}
+
+inline long long round_up(long long x, long long m) {
+  return (x + m - 1) / m * m;
+}
+
+inline bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
 // ================================================================= rmsnorm
 // Replaces _rmsnorm_kernel: y = x * rsqrt(mean(x^2) + eps) * scale per row.
@@ -107,29 +252,39 @@ rmsnorm_kernel(const float* __restrict__ x, const float* __restrict__ scale,
 // Replaces _fa_kernel: softmax(q k^T * scale + mask) v with causal and
 // sliding-window masks and GQA (kv head = head / group).
 // Bound: operations.  At the serving path's prefill (b 8, s 1024, 15 heads,
-// d 64) the causal triangle needs ~1.6e10 flops against ~84 MB of q/k/v/o,
-// so f32 FMA issue, not bandwidth, sets the floor.  Design: one block per
-// (q tile of BQ rows, head, batch) with the k loop inside the block (the
-// TPU's sequential k grid axis); the online-softmax m / l and the BQ x D
-// accumulator stay in registers, 16 x 16 threads each own a (BQ/16) x
-// (BK/16) patch of the score tile and a (BQ/16) x (D/16) patch of the
-// output, and q / k / v / p tiles sit in shared memory (rows padded by one
-// float so column walks do not hit one bank).  k tiles wholly above the
-// diagonal, or wholly left of the window, are never loaded.  q / k / v are
-// read in their (b, s, heads, d) layout through strides; the ragged edge
-// (kpos >= sk) is masked in place of a host-side pad.  A row with no
-// visible key outputs 0.
-constexpr int FA_THREADS = 256;
+// d 64) the causal triangle needs ~1.6e10 flops against ~84 MB of q/k/v/o.
+// Design: FlashAttention-2's warp layout on the tensor cores.  A block owns
+// BQ query rows of one (batch, head), one warp per MT m tiles of 16 rows
+// (MT 2 at d 64, so each K / V fragment feeds two products; 1 elsewhere);
+// q.k^T and p.v are mma.sync in 3xTF32 with the scores, m, l and the
+// warp's output rows in registers.  P never touches shared memory: the
+// score accumulators are the A operand of p.v.  A lane holds keys 2tq and
+// 2tq + 1 of each 8-key step, so the step's k order is permuted (k = tq
+// <-> key 2tq, k = tq + 4 <-> key 2tq + 1) and V's rows are read in the
+// same order; the sum does not depend on it.  K and V tiles are
+// double-buffered with cp.async (two
+// stages), read through their strides (16-byte copies when aligned), the
+// ragged edge (kpos >= sk) zero-filled and masked.  Key tiles wholly above
+// the diagonal or left of the window are skipped by the block, and by a
+// warp whose rows see none of their keys, and a tile every row sees whole
+// skips the mask; query tiles are ordered longest causal row first.
+// Shared rows are padded to D + 4 floats, so every fragment load hits 32
+// distinct banks.  BQ / BK per head dim keep two stages in shared memory up
+// to d 256 (195 KB).  A row with no visible key outputs 0.
 
-template <int D, int BQ, int BK>
-struct FaSmem {
-  static constexpr int QS = D + 1, KS = D + 1, VS = D, PS = BK + 1;
-  static constexpr int FLOATS = BQ * QS + BK * KS + BK * VS + BQ * PS;
-  static constexpr int BYTES = FLOATS * 4;
+template <int D, int BQ, int BK, int MT>
+struct FaCfg {
+  static constexpr int ROWS = 16 * MT;           // query rows per warp
+  static constexpr int WARPS = BQ / ROWS, THREADS = 32 * WARPS, LD = D + 4;
+  static constexpr int BYTES = (BQ + 4 * BK) * LD * 4;  // Q, 2 x (K, V)
+  // two 256-thread blocks per SM (shared memory allows it at d 64) need
+  // <= 128 registers a thread
+  static constexpr int MIN_BLOCKS = THREADS == 256 ? 2 : 1;
 };
 
-template <int D, int BQ, int BK>
-__global__ void __launch_bounds__(FA_THREADS)
+template <int D, int BQ, int BK, int MT>
+__global__ void __launch_bounds__(FaCfg<D, BQ, BK, MT>::THREADS,
+                                  FaCfg<D, BQ, BK, MT>::MIN_BLOCKS)
 flash_attention_kernel(const float* __restrict__ q,
                        const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ o,
@@ -137,144 +292,198 @@ flash_attention_kernel(const float* __restrict__ q,
                        long long q_ss, long long q_sh, long long k_sb,
                        long long k_ss, long long k_sh, long long v_sb,
                        long long v_ss, long long v_sh, int causal,
-                       int window, float scale) {
-  using S = FaSmem<D, BQ, BK>;
-  constexpr int RQ = BQ / 16, RK = BK / 16, RD = D / 16;
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* Ks = Qs + BQ * S::QS;
-  float* Vs = Ks + BK * S::KS;
-  float* Ps = Vs + BK * S::VS;
+                       int window, float scale, int vec) {
+  using Cfg = FaCfg<D, BQ, BK, MT>;
+  constexpr int LD = Cfg::LD, THREADS = Cfg::THREADS, ROWS = Cfg::ROWS;
+  constexpr int NT = BK / 8, DT = D / 8;  // score / output n-tiles per warp
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;                   // [BQ][LD]
+  float* Ks = Qs + BQ * LD;           // [2][BK][LD]
+  float* Vs = Ks + 2 * BK * LD;       // [2][BK][LD]
 
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int q0 = blockIdx.x * BQ, hi = blockIdx.y, bi = blockIdx.z;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int hi = blockIdx.x % h, bi = blockIdx.x / h;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // long rows first
   const int kvh = hi / group;
-  const float* qb = q + bi * q_sb + hi * q_sh;
+  const float* qb = q + bi * q_sb + hi * q_sh + (long long)q0 * q_ss;
   const float* kb = k + bi * k_sb + kvh * k_sh;
   const float* vb = v + bi * v_sb + kvh * v_sh;
 
-  for (int e = tid; e < BQ * D; e += FA_THREADS) {
-    const int r = e / D, c = e % D, qpos = q0 + r;
-    Qs[r * S::QS + c] = qpos < sq ? qb[qpos * q_ss + c] : 0.f;
-  }
-
-  float m[RQ], l[RQ], acc[RQ][RD];
-#pragma unroll
-  for (int a = 0; a < RQ; ++a) {
-    m[a] = -INFINITY;
-    l[a] = 0.f;
-#pragma unroll
-    for (int c = 0; c < RD; ++c) acc[a][c] = 0.f;
-  }
-
   int k_hi = sk;
-  if (causal) k_hi = min(sk, q0 + BQ);          // keys <= the last row
+  if (causal) k_hi = min(sk, q0 + BQ);            // keys <= the last row
   int k_lo = 0;
-  if (window > 0) k_lo = max(0, q0 - window + 1); // keys > row 0 - window
+  if (window > 0) k_lo = max(0, q0 - window + 1);  // keys > row 0 - window
   k_lo = (k_lo / BK) * BK;
+  const int ntiles = k_hi > k_lo ? (k_hi - k_lo + BK - 1) / BK : 0;
 
-  for (int kt = k_lo; kt < k_hi; kt += BK) {
-    __syncthreads();                             // previous tile consumed
-    for (int e = tid; e < BK * D; e += FA_THREADS) {
-      const int r = e / D, c = e % D, kpos = kt + r;
-      const bool ok = kpos < sk;
-      Ks[r * S::KS + c] = ok ? kb[kpos * k_ss + c] : 0.f;
-      Vs[r * S::VS + c] = ok ? vb[kpos * v_ss + c] : 0.f;
-    }
-    __syncthreads();
-
-    float s[RQ][RK];
-#pragma unroll
-    for (int a = 0; a < RQ; ++a)
-#pragma unroll
-      for (int j = 0; j < RK; ++j) s[a][j] = 0.f;
-#pragma unroll 8
-    for (int kk = 0; kk < D; ++kk) {
-      float qa[RQ], kj[RK];
-#pragma unroll
-      for (int a = 0; a < RQ; ++a) qa[a] = Qs[(ty + 16 * a) * S::QS + kk];
-#pragma unroll
-      for (int j = 0; j < RK; ++j) kj[j] = Ks[(tx + 16 * j) * S::KS + kk];
-#pragma unroll
-      for (int a = 0; a < RQ; ++a)
-#pragma unroll
-        for (int j = 0; j < RK; ++j) s[a][j] = fmaf(qa[a], kj[j], s[a][j]);
-    }
-
-#pragma unroll
-    for (int a = 0; a < RQ; ++a) {
-      const int qpos = q0 + ty + 16 * a;
-      float mx = -INFINITY;
-      bool ok[RK];
-#pragma unroll
-      for (int j = 0; j < RK; ++j) {
-        const int kpos = kt + tx + 16 * j;
-        ok[j] = kpos < sk && (!causal || kpos <= qpos) &&
-                (window <= 0 || kpos > qpos - window);
-        s[a][j] = ok[j] ? s[a][j] * scale : -INFINITY;
-        mx = fmaxf(mx, s[a][j]);
-      }
-      mx = half_warp_max(mx);
-      const float m_new = fmaxf(m[a], mx);
-      const float m_use = m_new == -INFINITY ? 0.f : m_new;
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < RK; ++j) {
-        const float p = ok[j] ? expf(s[a][j] - m_use) : 0.f;
-        rs += p;
-        Ps[(ty + 16 * a) * S::PS + tx + 16 * j] = p;
-      }
-      rs = half_warp_sum(rs);
-      const float alpha = expf(m[a] - m_use);    // 0 while nothing was seen
-      l[a] = alpha * l[a] + rs;
-      m[a] = m_new;
-#pragma unroll
-      for (int c = 0; c < RD; ++c) acc[a][c] *= alpha;
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int j = 0; j < BK; ++j) {
-      float pa[RQ], vc[RD];
-#pragma unroll
-      for (int a = 0; a < RQ; ++a) pa[a] = Ps[(ty + 16 * a) * S::PS + j];
-#pragma unroll
-      for (int c = 0; c < RD; ++c) vc[c] = Vs[j * S::VS + tx + 16 * c];
-#pragma unroll
-      for (int a = 0; a < RQ; ++a)
-#pragma unroll
-        for (int c = 0; c < RD; ++c) acc[a][c] = fmaf(pa[a], vc[c], acc[a][c]);
-    }
+  stage_tile<THREADS>(Qs, LD, qb, q_ss, BQ, D, sq - q0, D, vec);
+  if (ntiles > 0) {
+    stage_tile<THREADS>(Ks, LD, kb + (long long)k_lo * k_ss, k_ss, BK, D,
+                        sk - k_lo, D, vec);
+    stage_tile<THREADS>(Vs, LD, vb + (long long)k_lo * v_ss, v_ss, BK, D,
+                        sk - k_lo, D, vec);
   }
+  cp_async_commit();
+
+  const int w0 = q0 + ROWS * warp;  // the warp's first query row
+  const float* Qw = Qs + ROWS * warp * LD;
+  // m tile mt holds rows w0 + 16 mt + gq (c0 / c1) and + 8 (c2 / c3)
+  float m_r[MT][2], l_r[MT][2], acc[MT][DT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      m_r[mt][r] = -INFINITY;
+      l_r[mt][r] = 0.f;
+    }
+#pragma unroll
+    for (int t = 0; t < DT; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][t][e] = 0.f;
+  }
+
+  for (int t = 0; t < ntiles; ++t) {
+    const int kt = k_lo + t * BK;
+    if (t + 1 < ntiles) {           // prefetch the next tile
+      const int st = (t + 1) & 1, kn = kt + BK;
+      stage_tile<THREADS>(Ks + st * BK * LD, LD, kb + (long long)kn * k_ss,
+                          k_ss, BK, D, sk - kn, D, vec);
+      stage_tile<THREADS>(Vs + st * BK * LD, LD, vb + (long long)kn * v_ss,
+                          v_ss, BK, D, sk - kn, D, vec);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();             // this tile (and Q) has landed
+    __syncthreads();
+    const float* Kt = Ks + (t & 1) * BK * LD;
+    const float* Vt = Vs + (t & 1) * BK * LD;
+    const bool live = w0 < sq && (!causal || kt <= w0 + ROWS - 1) &&
+                      (window <= 0 || kt + BK - 1 > w0 - window);
+    if (live) {
+      float s[MT][NT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[mt][n][e] = 0.f;
+#pragma unroll 2
+      for (int kk = 0; kk < D; kk += 8) {
+        FragA a[MT];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          const float* qr = Qw + (16 * mt + gq) * LD + kk + tq;
+          a[mt] = frag_a(qr[0], qr[8 * LD], qr[4], qr[8 * LD + 4]);
+        }
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          const float* kr = Kt + (n * 8 + gq) * LD + kk + tq;
+          const FragB kf = frag_b(kr[0], kr[4]);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) mma3(s[mt][n], a[mt], kf);
+        }
+      }
+      // every key of the tile visible to every row of the warp: no mask
+      const bool full = kt + BK <= sk && (!causal || kt + BK - 1 <= w0) &&
+                        (window <= 0 || kt > w0 + ROWS - 1 - window);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const int r0 = w0 + 16 * mt + gq;
+        float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = r0 + 8 * (e >> 1);
+            const int key = kt + n * 8 + 2 * tq + (e & 1);
+            const bool ok =
+                full || (key < sk && (!causal || key <= row) &&
+                         (window <= 0 || key > row - window));
+            s[mt][n][e] = ok ? s[mt][n][e] * scale : -INFINITY;
+            mx[e >> 1] = fmaxf(mx[e >> 1], s[mt][n][e]);
+          }
+        float m_use[2], alpha[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float m_new = fmaxf(m_r[mt][r], quad_max(mx[r]));
+          m_use[r] = m_new == -INFINITY ? 0.f : m_new;
+          alpha[r] = expf(m_r[mt][r] - m_use[r]);  // 0 while nothing seen
+          m_r[mt][r] = m_new;
+          l_r[mt][r] *= alpha[r];                  // this lane's share of l
+        }
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            s[mt][n][e] = expf(s[mt][n][e] - m_use[e >> 1]);  // masked: 0
+            l_r[mt][e >> 1] += s[mt][n][e];
+          }
+#pragma unroll
+        for (int t2 = 0; t2 < DT; ++t2) {
+          acc[mt][t2][0] *= alpha[0];
+          acc[mt][t2][1] *= alpha[0];
+          acc[mt][t2][2] *= alpha[1];
+          acc[mt][t2][3] *= alpha[1];
+        }
+      }
+      // p.v: step n covers keys n*8 .. n*8+7 in the permuted order
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        FragA pa[MT];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+          pa[mt] = frag_a(s[mt][n][0], s[mt][n][2], s[mt][n][1],
+                          s[mt][n][3]);
+        const float* vr = Vt + (n * 8 + 2 * tq) * LD + gq;
+#pragma unroll
+        for (int t2 = 0; t2 < DT; ++t2) {
+          const FragB vf = frag_b(vr[t2 * 8], vr[LD + t2 * 8]);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) mma3(acc[mt][t2], pa[mt], vf);
+        }
+      }
+    }
+    __syncthreads();                // the stage is refilled next iteration
+  }
+  cp_async_wait<0>();               // nothing in flight at exit
 
   // output is contiguous (b, sq, h, D)
 #pragma unroll
-  for (int a = 0; a < RQ; ++a) {
-    const int qpos = q0 + ty + 16 * a;
-    if (qpos >= sq) continue;
-    float* orow = o + (((long long)bi * sq + qpos) * h + hi) * D;
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int c = 0; c < RD; ++c)
-      orow[tx + 16 * c] = l[a] > 0.f ? acc[a][c] / l[a] : 0.f;
-  }
+    for (int r = 0; r < 2; ++r) {
+      const int row = w0 + 16 * mt + gq + 8 * r;
+      const float l = quad_sum(l_r[mt][r]);
+      if (row >= sq) continue;
+      float* orow = o + (((long long)bi * sq + row) * h + hi) * D + 2 * tq;
+#pragma unroll
+      for (int t2 = 0; t2 < DT; ++t2)
+        *reinterpret_cast<float2*>(orow + t2 * 8) =
+            l > 0.f ? make_float2(acc[mt][t2][2 * r] / l,
+                                  acc[mt][t2][2 * r + 1] / l)
+                    : make_float2(0.f, 0.f);
+    }
 }
 
-template <int D, int BQ, int BK>
+template <int D, int BQ, int BK, int MT>
 int launch_flash(const float* q, const float* k, const float* v, float* o,
                  int b, int sq, int sk, int h, int kv, long long q_sb,
                  long long q_ss, long long q_sh, long long k_sb,
                  long long k_ss, long long k_sh, long long v_sb,
                  long long v_ss, long long v_sh, int causal, int window,
                  float scale, cudaStream_t stream) {
-  using S = FaSmem<D, BQ, BK>;
-  auto kern = flash_attention_kernel<D, BQ, BK>;
+  using Cfg = FaCfg<D, BQ, BK, MT>;
+  auto kern = flash_attention_kernel<D, BQ, BK, MT>;
   cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, S::BYTES);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::BYTES);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((sq + BQ - 1) / BQ, h, b);
-  kern<<<grid, FA_THREADS, S::BYTES, stream>>>(
+  const bool vec = aligned16(q) && aligned16(k) && aligned16(v) &&
+                   (q_sb | q_ss | q_sh | k_sb | k_ss | k_sh | v_sb | v_ss |
+                    v_sh) % 4 == 0;
+  dim3 grid(b * h, (sq + BQ - 1) / BQ);
+  kern<<<grid, Cfg::THREADS, Cfg::BYTES, stream>>>(
       q, k, v, o, sq, sk, h, h / kv, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb,
-      v_ss, v_sh, causal, window, scale);
+      v_ss, v_sh, causal, window, scale, (int)vec);
   return (int)cudaGetLastError();
 }
 
@@ -285,263 +494,418 @@ int launch_flash(const float* q, const float* k, const float* v, float* o,
 //   H  <- exp(total) H + sum_j exp(total - cum_j) dt_j B_j x_j^T
 // and returns the final H (the TPU kernel dropped it; the prefill cache
 // needs it).
-// Bound: operations.  At mamba2-780m's prefill (b 8, s 1024, 48 heads,
-// p 64, n 128, chunk 256) the chunked form needs ~3.2e10 flops against
-// ~0.2 GB of x/dt/B/C/y, so f32 FMA issue sets the floor.  Design: one block
-// per (batch, head) loops over the chunks in order (the TPU's sequential
-// chunk axis); the f32 state H (n x p, 32 KB) lives in shared memory for the
-// whole sequence.  A chunk's q x q score block does not fit (256 KB at
-// q 256), so the chunk is tiled into 64 x 64 (i, j) tiles, lower triangle
-// only: C_i and B_j tiles (64 x n), x_j (64 x p) and the score tile sit in
-// shared memory, each of 16 x 16 threads owns a 4 x 4 patch.  Every y of the
-// chunk reads the old H before the block synchronises and updates H.
-// Positions past s (a ragged last chunk) load as dt = 0, x = B = C = 0, so
-// they leave H unchanged, and are not stored.
-constexpr int SSD_THREADS = 256;
-constexpr int SSD_T = 64;          // position tile (i and j)
+// Bound: operations.  At mamba2-780m's prefill (b 8, s 1024, 48 heads in
+// one B/C group, p 64, n 128, chunk 256) the work is ~1.96e10 flops (C.B^T
+// once per group, the other three products per head) against ~0.2 GB of
+// x/dt/B/C/y.  Design: Mamba2's own chunked decomposition (arXiv:2405.21060
+// section 6) as four kernels behind one call, every product in 3xTF32 on
+// mma.sync, one warp per 16 rows of a tile:
+//   cumsum  per (batch, head, chunk): cum and dt, contiguous, in scratch;
+//   cb      per (batch, group, chunk, 64 x 64 tile of the lower triangle):
+//           C.B^T, once for all the group's heads, into scratch (8.4 MB at
+//           the path's shape, so it stays in L2);
+//   state   per (32 columns of p, head, batch): walks the chunks in order,
+//           each chunk's own state S_c = sum_j exp(total - cum_j) dt_j
+//           B_j x_j^T on the tensor cores (j tiles double-buffered with
+//           cp.async), then the inter-chunk pass H_{c+1} = exp(total_c)
+//           H_c + S_c in registers; H_c goes to scratch, the last H to the
+//           final state;
+//   scan    per (128-row i tile, head, batch x chunk), 8 warps:
+//           exp(cum_i) C_i.H_c, then the (CB o exp(cum_i - cum_j) o dt_j)
+//           x_j tiles j <= i (64 wide) with CB and x double-buffered.  The
+//           i tiles of one (batch, head, chunk) sit side by side in the
+//           grid, so H_c and x are read from L2, and the heads of a group
+//           share CB and C there.
+// The scratch is the wrapper's (repro_ssd_workspace_floats says how many
+// floats).  Positions past s (a ragged last chunk) read as dt = 0 and
+// x = B = C = 0, so they leave the state unchanged, and are not stored.
+constexpr int SSD_T = 64;          // position tile
 constexpr int SSD_NMAX = 128;      // d_state
 constexpr int SSD_PMAX = 64;       // head_dim
 constexpr int SSD_CMAX = 256;      // chunk
-constexpr int SSD_CS = SSD_NMAX + 1;
-constexpr int SSD_SS = SSD_T + 1;
-constexpr int SSD_SMEM_FLOATS = SSD_NMAX * SSD_PMAX   // H
-                                + SSD_T * SSD_CS      // C_i tile
-                                + SSD_T * SSD_CS      // B_j tile
-                                + SSD_T * SSD_PMAX    // x_j tile
-                                + SSD_T * SSD_SS      // score tile
-                                + 2 * SSD_CMAX        // dt, cum
-                                + SSD_T + 32;         // w_j, warp sums
-constexpr int SSD_SMEM_BYTES = SSD_SMEM_FLOATS * 4;
+// shared row strides: + 4 where a fragment walks along a row (banks
+// 4 gq + tq), + 8 where it walks down a column (banks 8 tq + gq)
+constexpr int SSD_LDC = SSD_NMAX + 4;  // C or B tile [pos][n], along n
+constexpr int SSD_LDB = SSD_NMAX + 8;  // B tile [pos][n], down pos
+constexpr int SSD_LDX = SSD_PMAX + 8;  // x tile [pos][p], H [n][p]: down
+constexpr int SSD_LDS = SSD_T + 4;     // CB tile [i][j], along j
+// cb: 64 x 64 tiles, 4 warps x 16 rows
+constexpr int SSD_CB_THREADS = 128;
+constexpr int SSD_CB_FLOATS = 2 * SSD_T * SSD_LDC;
+// state: 32 columns of p, 8 warps x 16 rows of n, 64-row j tiles in two
+// stages (deeper pipelines of smaller tiles ran slower)
+constexpr int SSD_PB = 32;
+constexpr int SSD_STATE_THREADS = 256;
+constexpr int SSD_LDXB = SSD_PB + 8;   // its x tile: down
+constexpr int SSD_TJ = 64, SSD_ST = 2;
+constexpr int SSD_STATE_FLOATS =
+    SSD_ST * SSD_TJ * (1 + SSD_LDB + SSD_LDXB);
+// scan: 128-row i tiles, 8 warps x 16 rows; shared memory for cum and dt,
+// then phase 1 (the C tile and H) and phase 2 (two stages of the CB and x
+// tiles) in one region
+constexpr int SSD_TI = 128;
+constexpr int SSD_SCAN_THREADS = 2 * SSD_TI;
+constexpr int SSD_P1_FLOATS = SSD_TI * SSD_LDC + SSD_NMAX * SSD_LDX;
+constexpr int SSD_P2_FLOATS = 2 * SSD_TI * SSD_LDS + 2 * SSD_T * SSD_LDX;
+constexpr int SSD_SCAN_FLOATS =
+    2 * SSD_CMAX +
+    (SSD_P1_FLOATS > SSD_P2_FLOATS ? SSD_P1_FLOATS : SSD_P2_FLOATS);
 
-__global__ void __launch_bounds__(SSD_THREADS)
-ssd_chunk_scan_kernel(const float* __restrict__ x,
-                      const float* __restrict__ dt,
-                      const float* __restrict__ A,
-                      const float* __restrict__ B,
-                      const float* __restrict__ C, float* __restrict__ y,
-                      float* __restrict__ state, int s, int h, int P, int g,
-                      int N, int chunk, long long x_sb, long long x_ss,
-                      long long x_sh, long long dt_sb, long long dt_ss,
-                      long long dt_sh, long long B_sb, long long B_ss,
-                      long long B_sg, long long C_sb, long long C_ss,
-                      long long C_sg) {
-  extern __shared__ float smem[];
-  float* Hs = smem;                              // [NMAX][PMAX]
-  float* Cs = Hs + SSD_NMAX * SSD_PMAX;          // [T][CS]
-  float* Bs = Cs + SSD_T * SSD_CS;               // [T][CS]
-  float* Xs = Bs + SSD_T * SSD_CS;               // [T][PMAX]
-  float* Ss = Xs + SSD_T * SSD_PMAX;             // [T][SS]
-  float* dts = Ss + SSD_T * SSD_SS;              // [CMAX]
-  float* cum = dts + SSD_CMAX;                   // [CMAX]
-  float* wj = cum + SSD_CMAX;                    // [T]
-  float* wsum = wj + SSD_T;                      // [32]
+struct SsdWork {      // float offsets into the wrapper's scratch
+  long long cum, dts, cb, hs, total;
+  int nc, ldcb, ldh;  // chunks; row strides of CB (chunk) and H (p)
+};
 
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int bi = blockIdx.x / h, hi = blockIdx.x % h;
-  const int gi = hi / (h / g);
-  const float a_h = A[hi];
-  const float* xb = x + bi * x_sb + hi * x_sh;
-  const float* dtb = dt + bi * dt_sb + hi * dt_sh;
-  const float* Bb = B + bi * B_sb + gi * B_sg;
-  const float* Cb = C + bi * C_sb + gi * C_sg;
-  float* yb = y + ((long long)bi * s * h + hi) * P;   // y (b, s, h, P)
-  const long long y_ss = (long long)h * P;
+SsdWork ssd_work(int b, int s, int h, int p, int g, int n, int chunk) {
+  SsdWork w;
+  w.nc = (s + chunk - 1) / chunk;
+  w.ldcb = (int)round_up(chunk, 4);
+  w.ldh = (int)round_up(p, 4);
+  const long long bhc = (long long)b * h * w.nc;
+  // cum, dt: (b, h, nc, chunk); C.B^T: (b, g, nc, chunk, ldcb); H: (b, h,
+  // nc, n, ldh), slot c holding H_c (slot 0 unused: H_0 = 0)
+  w.cum = 0;
+  w.dts = round_up(bhc * chunk, 64);
+  w.cb = w.dts + round_up(bhc * chunk, 64);
+  w.hs = w.cb + round_up((long long)b * g * w.nc * chunk * w.ldcb, 64);
+  w.total = w.hs + bhc * n * w.ldh;
+  return w;
+}
 
-  for (int e = tid; e < SSD_NMAX * SSD_PMAX; e += SSD_THREADS) Hs[e] = 0.f;
-
-  for (int c0 = 0; c0 < s; c0 += chunk) {
-    const int L = min(chunk, s - c0);
-    __syncthreads();                             // H update of last chunk
-    // ---- dt and the inclusive prefix sum of dt*A (chunk <= 256 threads)
-    float la = 0.f;
-    if (tid < chunk) {
-      const float d = tid < L ? dtb[(c0 + tid) * dt_ss] : 0.f;
-      dts[tid] = d;
-      la = d * a_h;
-    }
+__global__ void __launch_bounds__(SSD_CMAX)
+ssd_cumsum_kernel(const float* __restrict__ dt, const float* __restrict__ A,
+                  float* __restrict__ cum, float* __restrict__ dts, int s,
+                  int h, int chunk, int nc, long long dt_sb, long long dt_ss,
+                  long long dt_sh) {
+  __shared__ float wsum[SSD_CMAX / 32];
+  const int bh = blockIdx.x, c = blockIdx.y, bi = bh / h, hi = bh % h;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int pos = c * chunk + t;
+  const float d = t < chunk && pos < s
+                      ? dt[bi * dt_sb + (long long)pos * dt_ss + hi * dt_sh]
+                      : 0.f;
+  float la = d * A[hi];
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float u = __shfl_up_sync(FULL, la, off);
+    if (lane >= off) la += u;
+  }
+  if (lane == 31) wsum[warp] = la;
+  __syncthreads();
+  if (warp == 0) {
+    float w = lane < SSD_CMAX / 32 ? wsum[lane] : 0.f;
+    const float own = w;
 #pragma unroll
     for (int off = 1; off < 32; off <<= 1) {
-      const float t = __shfl_up_sync(FULL, la, off);
-      if (lane >= off) la += t;
+      const float u = __shfl_up_sync(FULL, w, off);
+      if (lane >= off) w += u;
     }
-    if (lane == 31) wsum[warp] = la;
-    __syncthreads();
-    if (warp == 0) {
-      float w = lane < SSD_THREADS / 32 ? wsum[lane] : 0.f;
-      const float own = w;
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const float t = __shfl_up_sync(FULL, w, off);
-        if (lane >= off) w += t;
-      }
-      if (lane < SSD_THREADS / 32) wsum[lane] = w - own;   // exclusive
-    }
-    __syncthreads();
-    if (tid < chunk) cum[tid] = la + wsum[warp];
-    __syncthreads();
-    const float total = cum[chunk - 1];
-
-    // ---- y for every i tile of the chunk (reads the old H)
-    for (int i0 = 0; i0 < L; i0 += SSD_T) {
-      __syncthreads();                           // Cs free
-      for (int e = tid; e < SSD_T * N; e += SSD_THREADS) {
-        const int r = e / N, c = e % N;
-        Cs[r * SSD_CS + c] =
-            i0 + r < L ? Cb[(long long)(c0 + i0 + r) * C_ss + c] : 0.f;
-      }
-      float acc[4][4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int b2 = 0; b2 < 4; ++b2) acc[a][b2] = 0.f;
-
-      for (int j0 = 0; j0 <= i0; j0 += SSD_T) {
-        __syncthreads();                         // Bs / Xs / Ss free
-        for (int e = tid; e < SSD_T * N; e += SSD_THREADS) {
-          const int r = e / N, c = e % N;
-          Bs[r * SSD_CS + c] =
-              j0 + r < L ? Bb[(long long)(c0 + j0 + r) * B_ss + c] : 0.f;
-        }
-        for (int e = tid; e < SSD_T * P; e += SSD_THREADS) {
-          const int r = e / P, c = e % P;
-          Xs[r * SSD_PMAX + c] =
-              j0 + r < L ? xb[(long long)(c0 + j0 + r) * x_ss + c] : 0.f;
-        }
-        __syncthreads();
-        float sc[4][4];
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-#pragma unroll
-          for (int b2 = 0; b2 < 4; ++b2) sc[a][b2] = 0.f;
-        for (int nn = 0; nn < N; ++nn) {
-          float ca[4], bj[4];
-#pragma unroll
-          for (int a = 0; a < 4; ++a) ca[a] = Cs[(ty + 16 * a) * SSD_CS + nn];
-#pragma unroll
-          for (int b2 = 0; b2 < 4; ++b2)
-            bj[b2] = Bs[(tx + 16 * b2) * SSD_CS + nn];
-#pragma unroll
-          for (int a = 0; a < 4; ++a)
-#pragma unroll
-            for (int b2 = 0; b2 < 4; ++b2)
-              sc[a][b2] = fmaf(ca[a], bj[b2], sc[a][b2]);
-        }
-#pragma unroll
-        for (int a = 0; a < 4; ++a) {
-          const int i = i0 + ty + 16 * a;
-#pragma unroll
-          for (int b2 = 0; b2 < 4; ++b2) {
-            const int j = j0 + tx + 16 * b2;
-            float val = 0.f;
-            if (j <= i && i < L)
-              val = sc[a][b2] * expf(cum[i] - cum[j]) * dts[j];
-            Ss[(ty + 16 * a) * SSD_SS + tx + 16 * b2] = val;
-          }
-        }
-        __syncthreads();
-        for (int jj = 0; jj < SSD_T; ++jj) {
-          float sa[4], xp[4];
-#pragma unroll
-          for (int a = 0; a < 4; ++a) sa[a] = Ss[(ty + 16 * a) * SSD_SS + jj];
-#pragma unroll
-          for (int b2 = 0; b2 < 4; ++b2)
-            xp[b2] = Xs[jj * SSD_PMAX + tx + 16 * b2];
-#pragma unroll
-          for (int a = 0; a < 4; ++a)
-#pragma unroll
-            for (int b2 = 0; b2 < 4; ++b2)
-              acc[a][b2] = fmaf(sa[a], xp[b2], acc[a][b2]);
-        }
-      }
-      // incoming-state term: exp(cum_i) * (C_i . H), H from before the chunk
-      float inter[4][4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int b2 = 0; b2 < 4; ++b2) inter[a][b2] = 0.f;
-      for (int nn = 0; nn < N; ++nn) {
-        float ca[4], hp[4];
-#pragma unroll
-        for (int a = 0; a < 4; ++a) ca[a] = Cs[(ty + 16 * a) * SSD_CS + nn];
-#pragma unroll
-        for (int b2 = 0; b2 < 4; ++b2)
-          hp[b2] = Hs[nn * SSD_PMAX + tx + 16 * b2];
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-#pragma unroll
-          for (int b2 = 0; b2 < 4; ++b2)
-            inter[a][b2] = fmaf(ca[a], hp[b2], inter[a][b2]);
-      }
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        const int i = i0 + ty + 16 * a;
-        if (i >= L) continue;
-        const float ec = expf(cum[i]);
-#pragma unroll
-        for (int b2 = 0; b2 < 4; ++b2) {
-          const int p = tx + 16 * b2;
-          if (p < P)
-            yb[(long long)(c0 + i) * y_ss + p] = acc[a][b2] + ec * inter[a][b2];
-        }
-      }
-    }
-
-    // ---- state update, after every y of the chunk has read the old H
-    float hacc[8][4];
-#pragma unroll
-    for (int a = 0; a < 8; ++a)
-#pragma unroll
-      for (int b2 = 0; b2 < 4; ++b2) hacc[a][b2] = 0.f;
-    for (int j0 = 0; j0 < L; j0 += SSD_T) {
-      __syncthreads();                           // Bs / Xs / wj free
-      for (int e = tid; e < SSD_T * N; e += SSD_THREADS) {
-        const int r = e / N, c = e % N;
-        Bs[r * SSD_CS + c] =
-            j0 + r < L ? Bb[(long long)(c0 + j0 + r) * B_ss + c] : 0.f;
-      }
-      for (int e = tid; e < SSD_T * P; e += SSD_THREADS) {
-        const int r = e / P, c = e % P;
-        Xs[r * SSD_PMAX + c] =
-            j0 + r < L ? xb[(long long)(c0 + j0 + r) * x_ss + c] : 0.f;
-      }
-      if (tid < SSD_T) {
-        const int j = j0 + tid;
-        wj[tid] = j < L ? expf(total - cum[j]) * dts[j] : 0.f;
-      }
-      __syncthreads();
-      for (int jj = 0; jj < SSD_T; ++jj) {
-        const float w = wj[jj];
-        float bn[8], xp[4];
-#pragma unroll
-        for (int a = 0; a < 8; ++a) bn[a] = Bs[jj * SSD_CS + ty + 16 * a] * w;
-#pragma unroll
-        for (int b2 = 0; b2 < 4; ++b2)
-          xp[b2] = Xs[jj * SSD_PMAX + tx + 16 * b2];
-#pragma unroll
-        for (int a = 0; a < 8; ++a)
-#pragma unroll
-          for (int b2 = 0; b2 < 4; ++b2)
-            hacc[a][b2] = fmaf(bn[a], xp[b2], hacc[a][b2]);
-      }
-    }
-    __syncthreads();                             // every y read the old H
-    const float et = expf(total);
-#pragma unroll
-    for (int a = 0; a < 8; ++a) {
-      const int nn = ty + 16 * a;
-#pragma unroll
-      for (int b2 = 0; b2 < 4; ++b2) {
-        const int p = tx + 16 * b2;
-        if (nn < N && p < P)
-          Hs[nn * SSD_PMAX + p] = et * Hs[nn * SSD_PMAX + p] + hacc[a][b2];
-      }
-    }
+    if (lane < SSD_CMAX / 32) wsum[lane] = w - own;     // exclusive
   }
   __syncthreads();
-  float* st = state + ((long long)bi * h + hi) * N * P;   // (b, h, N, P)
-  for (int e = tid; e < N * P; e += SSD_THREADS)
-    st[e] = Hs[(e / P) * SSD_PMAX + e % P];
+  if (t < chunk) {
+    const long long at = ((long long)bh * nc + c) * chunk + t;
+    cum[at] = la + wsum[warp];
+    dts[at] = d;
+  }
+}
+
+__global__ void __launch_bounds__(SSD_CB_THREADS)
+ssd_cb_kernel(const float* __restrict__ B, const float* __restrict__ C,
+              float* __restrict__ cb, int s, int g, int n, int chunk, int nc,
+              int ldcb, long long B_sb, long long B_ss, long long B_sg,
+              long long C_sb, long long C_ss, long long C_sg, int vec) {
+  extern __shared__ __align__(16) float smem[];
+  float* Cs = smem;                       // [T][LDC]: rows i
+  float* Bs = Cs + SSD_T * SSD_LDC;       // [T][LDC]: rows j
+  int tj = blockIdx.x, ti = 0;            // tile pair of the lower triangle
+  while (tj > ti) tj -= ++ti;
+  const int c = blockIdx.y, bi = blockIdx.z / g, gi = blockIdx.z % g;
+  const int c0 = c * chunk, L = min(chunk, s - c0);
+  const int i0 = ti * SSD_T, j0 = tj * SSD_T, np = (n + 7) & ~7;
+  stage_tile<SSD_CB_THREADS>(
+      Cs, SSD_LDC, C + bi * C_sb + gi * C_sg + (long long)(c0 + i0) * C_ss,
+      C_ss, SSD_T, np, L - i0, n, vec);
+  stage_tile<SSD_CB_THREADS>(
+      Bs, SSD_LDC, B + bi * B_sb + gi * B_sg + (long long)(c0 + j0) * B_ss,
+      B_ss, SSD_T, np, L - j0, n, vec);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  float acc[8][4];
+#pragma unroll
+  for (int t = 0; t < 8; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
+  const float* Cw = Cs + 16 * warp * SSD_LDC;
+#pragma unroll 2
+  for (int kk = 0; kk < np; kk += 8) {
+    const float* cr = Cw + gq * SSD_LDC + kk + tq;
+    const FragA a = frag_a(cr[0], cr[8 * SSD_LDC], cr[4], cr[8 * SSD_LDC + 4]);
+    FragB bf[8];
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      const float* br = Bs + (t * 8 + gq) * SSD_LDC + kk + tq;
+      bf[t] = frag_b(br[0], br[4]);
+    }
+    mma3_row(acc, a, bf);
+  }
+  // rows past L are zero; the padding columns up to ldcb are written too
+  float* out = cb + ((long long)blockIdx.z * nc + c) * chunk * ldcb +
+               (long long)i0 * ldcb + j0;
+#pragma unroll
+  for (int t = 0; t < 8; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = 16 * warp + gq + 8 * (e >> 1);
+      const int col = t * 8 + 2 * tq + (e & 1);
+      if (r < chunk - i0 && col < ldcb - j0) out[r * ldcb + col] = acc[t][e];
+    }
+}
+
+// One block per (32 columns of p, head, batch) walks the chunks in order:
+// S_c = sum_j exp(total_c - cum_j) dt_j B_j x_j^T on the tensor cores, then
+// H_{c+1} = exp(total_c) H_c + S_c in registers; H_c (c >= 1) goes to
+// scratch for the scan, the last H to the final state.  8 warps, one per
+// 16 rows of n.
+__global__ void __launch_bounds__(SSD_STATE_THREADS)
+ssd_state_kernel(const float* __restrict__ x, const float* __restrict__ B,
+                 const float* __restrict__ cum,
+                 const float* __restrict__ dts, float* __restrict__ hs,
+                 float* __restrict__ state, int s, int h, int p, int g,
+                 int n, int chunk, int nc, int ldh, long long x_sb,
+                 long long x_ss, long long x_sh, long long B_sb,
+                 long long B_ss, long long B_sg, int vec_x, int vec_b) {
+  extern __shared__ __align__(16) float smem[];
+  float* wj = smem;                           // [ST][TJ]
+  float* Bs = wj + SSD_ST * SSD_TJ;           // [ST][TJ][LDB]
+  float* Xs = Bs + SSD_ST * SSD_TJ * SSD_LDB; // [ST][TJ][LDXB]
+  const int p0 = blockIdx.x * SSD_PB, hi = blockIdx.y, bi = blockIdx.z;
+  const int gi = hi / (h / g), pw = min(SSD_PB, p - p0);
+  const int np = (n + 7) & ~7, pwp = (pw + 7) & ~7, nt_p = pwp / 8;
+  const long long bh = (long long)bi * h + hi;
+  const float* xb = x + bi * x_sb + hi * x_sh + p0;
+  const float* Bb = B + bi * B_sb + gi * B_sg;
+  const int ntc = (chunk + SSD_TJ - 1) / SSD_TJ, ntiles = nc * ntc;
+
+  // tile k: j tile k % ntc of chunk k / ntc, with its weights
+  auto stage = [&](int k) {
+    const int sg = k % SSD_ST, c = k / ntc, j0 = (k - c * ntc) * SSD_TJ;
+    const int L = min(chunk, s - c * chunk);
+    const long long pos0 = (long long)c * chunk + j0;
+    stage_tile<SSD_STATE_THREADS>(Bs + sg * SSD_TJ * SSD_LDB, SSD_LDB,
+                                  Bb + pos0 * B_ss, B_ss, SSD_TJ, np, L - j0,
+                                  n, vec_b);
+    stage_tile<SSD_STATE_THREADS>(Xs + sg * SSD_TJ * SSD_LDXB, SSD_LDXB,
+                                  xb + pos0 * x_ss, x_ss, SSD_TJ, pwp, L - j0,
+                                  pw, vec_x);
+    const float* cumc = cum + (bh * nc + c) * chunk;
+    const float* dtc = dts + (bh * nc + c) * chunk;
+    const float total = cumc[chunk - 1];
+    for (int j = threadIdx.x; j < SSD_TJ; j += SSD_STATE_THREADS)
+      wj[sg * SSD_TJ + j] =
+          j0 + j < L ? expf(total - cumc[j0 + j]) * dtc[j0 + j] : 0.f;
+  };
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  // the warp's rows of S and H (n): 16 warp .. 16 warp + 15
+  const int m0 = 16 * warp;
+  float acc[SSD_PB / 8][4], hreg[SSD_PB / 8][4];
+#pragma unroll
+  for (int t = 0; t < SSD_PB / 8; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[t][e] = hreg[t][e] = 0.f;
+
+  for (int k = 0; k < SSD_ST - 1; ++k) {      // fill the pipeline
+    if (k < ntiles) stage(k);
+    cp_async_commit();
+  }
+  for (int k = 0; k < ntiles; ++k) {
+    if (k + SSD_ST - 1 < ntiles) stage(k + SSD_ST - 1);
+    cp_async_commit();
+    cp_async_wait<SSD_ST - 1>();              // tile k has landed
+    __syncthreads();
+    const int sg = k % SSD_ST;
+    const float* Bt = Bs + sg * SSD_TJ * SSD_LDB;
+    const float* Xt = Xs + sg * SSD_TJ * SSD_LDXB;
+    const float* w = wj + sg * SSD_TJ;
+    const int c = k / ntc, j0 = (k - c * ntc) * SSD_TJ;
+    const int kmax = min(SSD_TJ, min(chunk, s - c * chunk) - j0);
+#pragma unroll 2
+    for (int kk = 0; kk < (m0 < n ? kmax : 0); kk += 8) {
+      const float w0 = w[kk + tq], w1 = w[kk + tq + 4];
+      FragB bf[SSD_PB / 8];
+#pragma unroll
+      for (int t = 0; t < SSD_PB / 8; ++t) {
+        const float* xr = Xt + (kk + tq) * SSD_LDXB + t * 8 + gq;
+        bf[t] = frag_b(xr[0], xr[4 * SSD_LDXB]);
+      }
+      const float* br = Bt + (kk + tq) * SSD_LDB + m0 + gq;
+      const FragA a = frag_a(br[0] * w0, br[8] * w0, br[4 * SSD_LDB] * w1,
+                             br[4 * SSD_LDB + 8] * w1);
+      mma3_row(acc, a, bf, nt_p);
+    }
+    if (k - c * ntc == ntc - 1) {             // the chunk's last tile
+      const float et = expf(cum[(bh * nc + c) * chunk + chunk - 1]);
+      const bool fin = c + 1 == nc;
+      float* out = fin ? state + bh * n * p + p0
+                       : hs + (bh * nc + c + 1) * n * ldh + p0;
+      const int ld = fin ? p : ldh;
+#pragma unroll
+      for (int t = 0; t < SSD_PB / 8; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          hreg[t][e] = et * hreg[t][e] + acc[t][e];
+          acc[t][e] = 0.f;
+          const int r = m0 + gq + 8 * (e >> 1);
+          const int col = t * 8 + 2 * tq + (e & 1);
+          if (r < n && col < pw) out[r * ld + col] = hreg[t][e];
+        }
+    }
+    __syncthreads();
+  }
+  cp_async_wait<0>();
+}
+
+__global__ void __launch_bounds__(SSD_SCAN_THREADS, 2)
+ssd_scan_kernel(const float* __restrict__ x, const float* __restrict__ C,
+                const float* __restrict__ cum, const float* __restrict__ dts,
+                const float* __restrict__ cb, const float* __restrict__ hs,
+                float* __restrict__ y, int s, int h, int p, int g, int n,
+                int chunk, int nc, int ldcb, int ldh, long long x_sb,
+                long long x_ss, long long x_sh, long long C_sb,
+                long long C_ss, long long C_sg, int vec_x, int vec_c) {
+  extern __shared__ __align__(16) float smem[];
+  float* cumc = smem;                         // [CMAX]
+  float* dtc = cumc + SSD_CMAX;               // [CMAX]
+  float* region = dtc + SSD_CMAX;
+  float* Cs = region;                         // phase 1: [TI][LDC]
+  float* Hs = Cs + SSD_TI * SSD_LDC;          //          [NMAX][LDX]
+  float* CBs = region;                        // phase 2: [2][TI][LDS]
+  float* Xs = CBs + 2 * SSD_TI * SSD_LDS;     //          [2][T][LDX]
+
+  const int it = gridDim.x - 1 - blockIdx.x, hi = blockIdx.y;
+  const int bi = blockIdx.z / nc, c = blockIdx.z % nc, gi = hi / (h / g);
+  const int c0 = c * chunk, L = min(chunk, s - c0), i0 = it * SSD_TI;
+  if (i0 >= L) return;
+  const long long bhc = ((long long)bi * h + hi) * nc + c;
+  for (int j = threadIdx.x; j < SSD_CMAX; j += SSD_SCAN_THREADS) {
+    cumc[j] = j < chunk ? cum[bhc * chunk + j] : 0.f;
+    dtc[j] = j < chunk ? dts[bhc * chunk + j] : 0.f;
+  }
+  const float* xb = x + bi * x_sb + hi * x_sh + (long long)c0 * x_ss;
+  const float* cbb = cb + ((long long)(bi * g + gi) * nc + c) * chunk * ldcb +
+                     (long long)i0 * ldcb;
+  const int np = (n + 7) & ~7, pp = (p + 7) & ~7, nt_p = pp / 8;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gq = lane >> 2, tq = lane & 3, wr = 16 * warp;
+  float acc[8][4];
+#pragma unroll
+  for (int t = 0; t < 8; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
+
+  // ---- incoming state: exp(cum_i) C_i.H_c (H_0 = 0)
+  if (c > 0) {
+    stage_tile<SSD_SCAN_THREADS>(
+        Cs, SSD_LDC, C + bi * C_sb + gi * C_sg + (long long)(c0 + i0) * C_ss,
+        C_ss, SSD_TI, np, L - i0, n, vec_c);
+    stage_tile<SSD_SCAN_THREADS>(Hs, SSD_LDX, hs + bhc * n * ldh, ldh, np,
+                                 pp, n, p, (p & 3) == 0);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+#pragma unroll 2
+    for (int kk = 0; kk < np; kk += 8) {
+      const float* cr = Cs + (wr + gq) * SSD_LDC + kk + tq;
+      const FragA a =
+          frag_a(cr[0], cr[8 * SSD_LDC], cr[4], cr[8 * SSD_LDC + 4]);
+      FragB bf[8];
+#pragma unroll
+      for (int t = 0; t < 8; ++t) {
+        const float* hr = Hs + (kk + tq) * SSD_LDX + t * 8 + gq;
+        bf[t] = frag_b(hr[0], hr[4 * SSD_LDX]);
+      }
+      mma3_row(acc, a, bf, nt_p);
+    }
+    const float e0 = expf(cumc[i0 + wr + gq]);
+    const float e1 = expf(cumc[i0 + wr + gq + 8]);
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      acc[t][0] *= e0;
+      acc[t][1] *= e0;
+      acc[t][2] *= e1;
+      acc[t][3] *= e1;
+    }
+  }
+  __syncthreads();                            // phase 2 reuses the region
+
+  // ---- intra-chunk: tiles j <= i of (CB o exp(cum_i - cum_j) o dt_j) x_j.
+  // A 64-wide j tile right of a row's diagonal block holds CB's upper
+  // triangle, which the cb kernel leaves unwritten: the j <= i select (and
+  // kmax) never reads it.
+  auto stage = [&](int jt, int sg) {
+    const int j0 = jt * SSD_T;
+    stage_tile<SSD_SCAN_THREADS>(CBs + sg * SSD_TI * SSD_LDS, SSD_LDS,
+                                 cbb + j0, ldcb, SSD_TI, SSD_T, chunk - i0,
+                                 ldcb - j0, true);
+    stage_tile<SSD_SCAN_THREADS>(Xs + sg * SSD_T * SSD_LDX, SSD_LDX,
+                                 xb + (long long)j0 * x_ss, x_ss, SSD_T, pp,
+                                 L - j0, p, vec_x);
+  };
+  stage(0, 0);
+  cp_async_commit();
+  const float cum_r0 = cumc[i0 + wr + gq], cum_r1 = cumc[i0 + wr + gq + 8];
+  const int nj = (min(L, i0 + SSD_TI) + SSD_T - 1) / SSD_T;  // j tiles to i
+  for (int jt = 0; jt < nj; ++jt) {
+    if (jt + 1 < nj) stage(jt + 1, (jt + 1) & 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const float* CBt = CBs + (jt & 1) * SSD_TI * SSD_LDS;
+    const float* Xt = Xs + (jt & 1) * SSD_T * SSD_LDX;
+    const int j0 = jt * SSD_T;
+    // later rows of x are zero; keys past the warp's last row are masked
+    const int kmax = min(min(SSD_T, L - j0), i0 + wr + 16 - j0);
+#pragma unroll 2
+    for (int kk = 0; kk < kmax; kk += 8) {
+      float av[4];
+#pragma unroll
+      for (int q4 = 0; q4 < 4; ++q4) {
+        const int rr = wr + gq + 8 * (q4 & 1), cc = kk + tq + 4 * (q4 >> 1);
+        const int j = j0 + cc;
+        av[q4] = j <= i0 + rr ? CBt[rr * SSD_LDS + cc] *
+                                    expf((q4 & 1 ? cum_r1 : cum_r0) -
+                                         cumc[j]) *
+                                    dtc[j]
+                              : 0.f;
+      }
+      const FragA a = frag_a(av[0], av[1], av[2], av[3]);
+      FragB bf[8];
+#pragma unroll
+      for (int t = 0; t < 8; ++t) {
+        const float* xr = Xt + (kk + tq) * SSD_LDX + t * 8 + gq;
+        bf[t] = frag_b(xr[0], xr[4 * SSD_LDX]);
+      }
+      mma3_row(acc, a, bf, nt_p);
+    }
+    __syncthreads();
+  }
+
+  const long long y_ss = (long long)h * p;
+  float* yb = y + ((long long)bi * s + c0) * y_ss + (long long)hi * p;
+#pragma unroll
+  for (int t = 0; t < 8; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = i0 + wr + gq + 8 * (e >> 1);
+      const int col = t * 8 + 2 * tq + (e & 1);
+      if (i < L && col < p) yb[i * y_ss + col] = acc[t][e];
+    }
 }
 
 }  // namespace
@@ -574,19 +938,19 @@ int repro_flash_attention(const float* q, const float* k, const float* v,
   cudaStream_t st = (cudaStream_t)stream;
   switch (d) {
     case 32:
-      return launch_flash<32, 64, 64>(q, k, v, o, b, sq, sk, h, kv, q_sb,
+      return launch_flash<32, 64, 64, 1>(q, k, v, o, b, sq, sk, h, kv, q_sb,
                                       q_ss, q_sh, k_sb, k_ss, k_sh, v_sb,
                                       v_ss, v_sh, causal, window, scale, st);
     case 64:
-      return launch_flash<64, 64, 64>(q, k, v, o, b, sq, sk, h, kv, q_sb,
-                                      q_ss, q_sh, k_sb, k_ss, k_sh, v_sb,
-                                      v_ss, v_sh, causal, window, scale, st);
+      return launch_flash<64, 128, 64, 2>(q, k, v, o, b, sq, sk, h, kv, q_sb,
+                                       q_ss, q_sh, k_sb, k_ss, k_sh, v_sb,
+                                       v_ss, v_sh, causal, window, scale, st);
     case 128:
-      return launch_flash<128, 64, 32>(q, k, v, o, b, sq, sk, h, kv, q_sb,
+      return launch_flash<128, 64, 32, 1>(q, k, v, o, b, sq, sk, h, kv, q_sb,
                                        q_ss, q_sh, k_sb, k_ss, k_sh, v_sb,
                                        v_ss, v_sh, causal, window, scale, st);
     case 256:
-      return launch_flash<256, 32, 32>(q, k, v, o, b, sq, sk, h, kv, q_sb,
+      return launch_flash<256, 64, 32, 1>(q, k, v, o, b, sq, sk, h, kv, q_sb,
                                        q_ss, q_sh, k_sb, k_ss, k_sh, v_sb,
                                        v_ss, v_sh, causal, window, scale, st);
     default:
@@ -594,26 +958,66 @@ int repro_flash_attention(const float* q, const float* k, const float* v,
   }
 }
 
+// floats of scratch that repro_ssd_chunk_scan needs for these sizes
+long long repro_ssd_workspace_floats(int b, int s, int h, int p, int g,
+                                     int n, int chunk) {
+  if (b <= 0 || s <= 0 || h <= 0 || chunk < 1) return 0;
+  return ssd_work(b, s, h, p, g, n, chunk).total;
+}
+
 int repro_ssd_chunk_scan(const float* x, const float* dt, const float* A,
                          const float* B, const float* C, float* y,
-                         float* state, int b, int s, int h, int p, int g,
-                         int n, int chunk, long long x_sb, long long x_ss,
-                         long long x_sh, long long dt_sb, long long dt_ss,
-                         long long dt_sh, long long B_sb, long long B_ss,
-                         long long B_sg, long long C_sb, long long C_ss,
-                         long long C_sg, void* stream) {
+                         float* state, float* work, int b, int s, int h,
+                         int p, int g, int n, int chunk, long long x_sb,
+                         long long x_ss, long long x_sh, long long dt_sb,
+                         long long dt_ss, long long dt_sh, long long B_sb,
+                         long long B_ss, long long B_sg, long long C_sb,
+                         long long C_ss, long long C_sg, void* stream) {
   if (b <= 0 || h <= 0) return 0;
   if (p > SSD_PMAX || n > SSD_NMAX || chunk > SSD_CMAX || chunk < 1 ||
       g < 1 || h % g)
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      ssd_chunk_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      SSD_SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  ssd_chunk_scan_kernel<<<b * h, SSD_THREADS, SSD_SMEM_BYTES,
-                          (cudaStream_t)stream>>>(
-      x, dt, A, B, C, y, state, s, h, p, g, n, chunk, x_sb, x_ss, x_sh,
-      dt_sb, dt_ss, dt_sh, B_sb, B_ss, B_sg, C_sb, C_ss, C_sg);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (s <= 0)
+    return (int)cudaMemsetAsync(state, 0, sizeof(float) * b * h * n * p, st);
+  const SsdWork w = ssd_work(b, s, h, p, g, n, chunk);
+  float* cum = work + w.cum;
+  float* dts = work + w.dts;
+  float* cbs = work + w.cb;
+  float* hs = work + w.hs;
+  const bool vec_x = aligned16(x) && (x_sb | x_ss | x_sh | p) % 4 == 0;
+  const bool vec_b = aligned16(B) && (B_sb | B_ss | B_sg | n) % 4 == 0;
+  const bool vec_c = aligned16(C) && (C_sb | C_ss | C_sg | n) % 4 == 0;
+  const int nt = (chunk + SSD_T - 1) / SSD_T;
+  cudaError_t err;
+  const struct {
+    const void* fn;
+    int bytes;
+  } big[] = {{(const void*)ssd_cb_kernel, SSD_CB_FLOATS * 4},
+             {(const void*)ssd_state_kernel, SSD_STATE_FLOATS * 4},
+             {(const void*)ssd_scan_kernel, SSD_SCAN_FLOATS * 4}};
+  for (const auto& k : big) {
+    err = cudaFuncSetAttribute(
+        k.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, k.bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  ssd_cumsum_kernel<<<dim3(b * h, w.nc), SSD_CMAX, 0, st>>>(
+      dt, A, cum, dts, s, h, chunk, w.nc, dt_sb, dt_ss, dt_sh);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  ssd_cb_kernel<<<dim3(nt * (nt + 1) / 2, w.nc, b * g), SSD_CB_THREADS,
+                  SSD_CB_FLOATS * 4, st>>>(B, C, cbs, s, g, n, chunk, w.nc,
+                                           w.ldcb, B_sb, B_ss, B_sg, C_sb,
+                                           C_ss, C_sg, (int)(vec_b && vec_c));
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  ssd_state_kernel<<<dim3((p + SSD_PB - 1) / SSD_PB, h, b),
+                     SSD_STATE_THREADS, SSD_STATE_FLOATS * 4, st>>>(
+      x, B, cum, dts, hs, state, s, h, p, g, n, chunk, w.nc, w.ldh, x_sb,
+      x_ss, x_sh, B_sb, B_ss, B_sg, (int)vec_x, (int)vec_b);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  ssd_scan_kernel<<<dim3((chunk + SSD_TI - 1) / SSD_TI, h, b * w.nc),
+                    SSD_SCAN_THREADS, SSD_SCAN_FLOATS * 4, st>>>(
+      x, C, cum, dts, cbs, hs, y, s, h, p, g, n, chunk, w.nc, w.ldcb, w.ldh,
+      x_sb, x_ss, x_sh, C_sb, C_ss, C_sg, (int)vec_x, (int)vec_c);
   return (int)cudaGetLastError();
 }
 

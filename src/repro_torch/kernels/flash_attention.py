@@ -11,12 +11,16 @@ positions both start at 0; a row with no visible key outputs 0.
 
 Bound on H100: operations.  The causal triangle needs 4 * d flops per
 visible (query, key) pair and head (q.k and p.v), which at the serving
-path's prefill is ~10x the time its bytes take.  The kernel runs on the
-CUDA cores in float32 (no TF32), so the floor is flops over the card's
-67 TFLOP/s float32 rate (NVIDIA's H100 SXM data sheet).  The design: one
-block per (query tile, head, batch) with the key loop inside the block,
-m / l / the output tile in registers, q / k / v / p tiles in shared
-memory, key tiles above the diagonal or left of the window skipped.
+path's prefill is ~10x the time its bytes take.  The kernel runs both
+products on the tensor cores in 3xTF32 (float32 operands split into two
+TF32 parts, three products each), which keeps float32 accuracy: the floor
+is three times the flops over the TF32 rate of 495 TFLOP/s (NVIDIA's H100
+SXM data sheet), beside the float32 floor at 67 TFLOP/s.  The design is
+FlashAttention-2's: one warp per 16 query rows (32 at d 64), the scores,
+m, l and the output in registers, the score accumulators reused as the
+left operand of p.v (P never goes through shared memory), K / V tiles
+double-buffered with asynchronous copies, key tiles above the diagonal or
+left of the window skipped, the longest causal rows started first.
 
 :func:`attention_plain` is the plain PyTorch version (twin of
 ``repro.kernels.ref.attention_ref``); the wrapper runs it for CPU tensors

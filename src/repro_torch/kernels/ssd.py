@@ -8,17 +8,25 @@ which kept the recurrent state in scratch memory and dropped it, this one
 returns the final state ``(b, h, n, p)`` beside y: the prefill cache needs
 it.
 
-The CUDA kernel (``kernels/csrc/lm.cu``, ``repro_ssd_chunk_scan``) takes
+The CUDA kernels (``kernels/csrc/lm.cu``, ``repro_ssd_chunk_scan``) take
 float32 with p <= 64, n <= 128 and chunk <= 256, reading x / dt / B / C
 through their strides (trailing dims of x, B and C contiguous).
 
-Bound on H100: operations.  The chunked form's C.B scores, score @ x,
-C.H and state update need ~3.2e10 flops at mamba2-780m's prefill against
-~0.2 GB of inputs and outputs, so the floor is flops over the card's
-67 TFLOP/s float32 rate (NVIDIA's H100 SXM data sheet).  The design: one
-block per (batch, head) walks the chunks in order with the f32 state in
-shared memory; each chunk is tiled into 64 x 64 (i, j) tiles of the lower
-triangle, since a whole 256 x 256 score block does not fit.
+Bound on H100: operations.  With C.B^T computed once per (batch, group,
+chunk), the chunked form needs ~1.96e10 flops at mamba2-780m's prefill
+(C.B^T, scores @ x, C.H and the state update) against ~0.2 GB of inputs
+and outputs.  The design is Mamba2's own chunked decomposition
+(arXiv:2405.21060 section 6), four kernels behind this one call: the
+prefix sums of dt*A; C.B^T once per group, shared by its heads; per
+(batch, head) the chunks' own states walked in order, with the
+inter-chunk pass in registers; then per 128-row tile of a chunk C.H for
+the incoming state and the intra-chunk tiles.  Every product runs on the
+tensor cores in 3xTF32 (float32 operands split into two TF32 parts, three
+products each), which keeps float32 accuracy: the floor is three times
+the flops over the TF32 rate of 495 TFLOP/s (NVIDIA's H100 SXM data
+sheet), 0.12 ms at that shape, beside the float32 floor at 67 TFLOP/s,
+0.29 ms.  The intermediates (prefix sums, C.B^T, the chunks' incoming
+states) live in a scratch tensor this wrapper allocates.
 
 :func:`ssd_chunked` (twin of ``repro.models.ssm.ssd_chunked``) is the plain
 PyTorch version the wrapper runs for CPU tensors only; :func:`ssd_naive`
@@ -33,6 +41,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import _build
 from repro_torch.kernels.quant import launch
 
 MAX_HEAD_DIM, MAX_STATE, MAX_CHUNK = 64, 128, 256
@@ -141,9 +150,13 @@ def ssd_chunk_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                          "must be contiguous")
     y = torch.empty((b, s, h, p_), dtype=torch.float32, device=x.device)
     state = torch.empty((b, h, n, p_), dtype=torch.float32, device=x.device)
+    # the kernels' intermediates: cum / dt, C.B^T per group, chunk states
+    work = torch.empty(
+        _build.load().lib.repro_ssd_workspace_floats(b, s, h, p_, g, n, chunk),
+        dtype=torch.float32, device=x.device)
     launch("ssd_chunk_scan", x.device, x.data_ptr(), dt.data_ptr(),
            A.data_ptr(), B.data_ptr(), C.data_ptr(), y.data_ptr(),
-           state.data_ptr(), b, s, h, p_, g, n, chunk, *x.stride()[:3],
-           *dt.stride(), B.stride(0), B.stride(1), B.stride(2),
-           C.stride(0), C.stride(1), C.stride(2))
+           state.data_ptr(), work.data_ptr(), b, s, h, p_, g, n, chunk,
+           *x.stride()[:3], *dt.stride(), B.stride(0), B.stride(1),
+           B.stride(2), C.stride(0), C.stride(1), C.stride(2))
     return y, state

@@ -227,22 +227,32 @@ def test_rmsnorm_kernel_matches_plain(dev, shape):
                                atol=RMS_TOL)
 
 
-# (b, sq, sk, h, kv, d, causal, window): the path's smollm prefill, then
-# GQA / ragged / head dims / window / non-causal / fully masked rows
-FLASH_CASES = [(8, 1024, 1024, 15, 5, 64, True, 0),
-               (1, 100, 100, 4, 2, 128, True, 0),
-               (1, 70, 70, 4, 1, 256, True, 0),
-               (2, 37, 37, 4, 2, 32, True, 0),
-               (2, 200, 200, 4, 2, 64, True, 48),
-               (2, 48, 80, 2, 2, 64, False, 0),
-               (1, 64, 16, 2, 1, 64, False, 8)]
+# (b, sq, sk, h, kv, d, causal, window, qk_amp): the path's smollm
+# prefill, then GQA / ragged / head dims / window / non-causal / fully
+# masked rows; one query row; sk not a multiple of the key tile (64 at
+# d 64); d 256 with a window; the path's 15 heads over 5 kv heads at a
+# small s; q and k scaled by 4, so the scores (|s| up to ~80) would show a
+# single-TF32 route's ~1e-3 relative error
+FLASH_CASES = [(8, 1024, 1024, 15, 5, 64, True, 0, 1.0),
+               (1, 100, 100, 4, 2, 128, True, 0, 1.0),
+               (1, 70, 70, 4, 1, 256, True, 0, 1.0),
+               (2, 37, 37, 4, 2, 32, True, 0, 1.0),
+               (2, 200, 200, 4, 2, 64, True, 48, 1.0),
+               (2, 48, 80, 2, 2, 64, False, 0, 1.0),
+               (1, 64, 16, 2, 1, 64, False, 8, 1.0),
+               (2, 1, 77, 4, 2, 64, False, 0, 1.0),
+               (2, 150, 150, 6, 3, 64, True, 0, 1.0),
+               (1, 90, 90, 2, 1, 256, True, 40, 1.0),
+               (2, 96, 96, 15, 5, 64, True, 0, 1.0),
+               (1, 256, 256, 4, 2, 64, True, 0, 4.0)]
 
 
-@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal,window", FLASH_CASES)
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal,window,qk_amp",
+                         FLASH_CASES)
 def test_flash_kernel_matches_plain(dev, b, sq, sk, h, kv, d, causal,
-                                    window):
-    q = _randn((b, sq, h, d), dev, 2)
-    k = _randn((b, sk, kv, d), dev, 3)
+                                    window, qk_amp):
+    q = _randn((b, sq, h, d), dev, 2, qk_amp)
+    k = _randn((b, sk, kv, d), dev, 3, qk_amp)
     v = _randn((b, sk, kv, d), dev, 4)
     n = LAUNCHES["flash_attention"]
     got = FA.flash_attention(q, k, v, causal=causal, window=window)
@@ -274,10 +284,14 @@ def _ssd_inputs(dev, b, s, h, p, g, n, seed=0):
 
 
 # (b, s, h, p, g, n, chunk): the path's mamba2 prefill, then ragged s,
-# groups, chunk < 64, s < chunk, the reduced config
+# groups, chunk < 64, s < chunk, the reduced config; two groups of 8 heads
+# at the path's n and p; s a multiple of neither the chunk nor 64 at chunk
+# 128; chunk 64; 7 heads with p and n not multiples of 4 (4-byte copies)
 SSD_CASES = [(8, 1024, 48, 64, 1, 128, 256), (2, 300, 8, 64, 2, 128, 256),
              (2, 100, 4, 32, 2, 16, 32), (1, 40, 4, 16, 1, 16, 64),
-             (2, 37, 32, 16, 1, 16, 32)]
+             (2, 37, 32, 16, 1, 16, 32), (1, 512, 16, 64, 2, 128, 256),
+             (2, 333, 6, 64, 1, 128, 128), (1, 200, 8, 64, 1, 128, 64),
+             (1, 150, 7, 18, 1, 10, 64)]
 
 
 @pytest.mark.parametrize("b,s,h,p,g,n,chunk", SSD_CASES)
