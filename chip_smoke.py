@@ -13,17 +13,21 @@ neither ``jax`` nor ``repro``.  In order it:
 3. holds each of the four codec kernels (quantize_int8, dequantize_int8,
    sparsify_quant_pack, unpack_dequant) ``torch.equal`` to its plain
    PyTorch version on the card, at the four ResNet18 cut shapes of the main
-   path (batch 16) and the edge shapes of the CPU tests; at the cut shapes
-   it times kernel and plain version on the device (``torch.profiler``
-   kernel time per call) and the wrapper call (CUDA events), beside the
-   bytes bound;
+   path (batch 16), the scenario path's shapes (rows 8 and 16, d 64), the
+   edge shapes of the CPU tests and the selection's edges (k = 1, +-0.0
+   next to subnormals, all-equal groups of 128); at the cut shapes and the
+   scenario path's batch-8 shape it times kernel and plain version on the
+   device (``torch.profiler`` kernel time per call) and the wrapper call
+   (CUDA events), beside the bytes bound; and it times the launch floor
+   (the device time of ``zero_()`` on one element);
 4. holds unpack_dequant_matmul (the RSU's first matmul reading the packed
    topk_int8 buffer) to its plain version within 1e-5 + 1e-5·|b| (TF32
-   off) at the scenario path's shapes (rows 8 and 16, d = n = 64), the CPU
-   tests' shapes and a wide case (rows 4096, d 512, n 64); on the wide case
-   the call's peak allocation stays below its output plus the dense
-   smashed tensor, and its gradient keeps no float32 tensor of the smashed
-   shape; times it at the path's shape like the codec;
+   off) at the scenario path's shapes (rows 8 and 16, d = n = 64), one
+   row, a partial 8-row tile (rows 9), the CPU tests' shapes and a wide
+   case (rows 4096, d 512, n 64); on the wide case the call's peak
+   allocation stays below its output plus the dense smashed tensor, and
+   its gradient keeps no float32 tensor of the smashed shape; its device
+   time at every case, and at the path's shape times it like the codec;
 4b. holds the LM lane's kernels (rmsnorm, flash_attention, ssd_chunk_scan)
    to their plain versions within stated float32 tolerances at the serving
    path's shapes and edge shapes, and at the path's main shape times
@@ -46,7 +50,8 @@ neither ``jax`` nor ``repro``.  In order it:
    ``repro_torch.launch.serve`` (batch 8, prompt 1024, 32 decode steps, the
    default cut), with the launch counters zeroed just before and read just
    after each: exactly the kernel launches the model implies; prints the
-   prefill and decode times;
+   prefill and decode times, and a second full-size prefill's beside the
+   first;
 9. at full width, prefill(s-1) + one decode step reproduces the last
    logits of prefill(s) within 1e-3;
 10. serves the reduced configs on the card and on the CPU from the same
@@ -92,7 +97,18 @@ CASES = ([(f"cut{c}", s, 0.25, "normal") for c, s in CUT_SHAPES.items()]
             ("d200_k0.3", (64, 200), 0.3, "normal"),
             ("d200_k1.0", (64, 200), 1.0, "normal"),
             ("ties_cut6", (BATCH, 8, 8, 256), 0.25, "ties"),
-            ("zeros_d128", (4, 128), 0.25, "zeros")])
+            ("zeros_d128", (4, 128), 0.25, "zeros"),
+            # the scenario path's cut (mlp9, batch 8 and 16)
+            ("path_b8", (8, 64), 0.25, "normal"),
+            ("path_b16", (16, 64), 0.25, "normal"),
+            # the selection's edges: k = 1, +-0.0 beside subnormals, ties
+            ("k1_d128", (16, 128), 0.001, "normal"),
+            ("k1_ties_d64", (16, 64), 0.001, "ties"),
+            ("subnormal_d128", (16, 128), 0.25, "subnormal"),
+            ("subnormal_d200", (16, 200), 0.1, "subnormal"),
+            ("equal_d128", (32, 128), 0.25, "equal")])
+# labels timed in phase 3: the cut shapes and the scenario path's batch 8
+TIMED = ("cut2", "cut4", "cut6", "cut8", "path_b8")
 KERNEL_META = {
     "quantize_int8": "src/repro/kernels/quant.py:37",
     "dequantize_int8": "src/repro/kernels/quant.py:76",
@@ -104,12 +120,15 @@ MM_META = ("unpack_dequant_matmul", "src/repro/kernels/wire.py:170")
 # kernel 5 against its plain version: |a - b| <= MM_TOL + MM_TOL * |b|
 # (each slab's float32 products summed in another order; TF32 off)
 MM_TOL = 1e-5
-# (label, rows, d, n): the scenario path's cut (batch 8 and 16), the CPU
-# tests' shapes, a ragged tile / last group / column edge, the wide case
+# (label, rows, d, n): the scenario path's cut (batch 8 and 16), one row,
+# a partial 8-row tile, the CPU tests' shapes, a ragged tile / last group /
+# column edge, the wide case, wide rows over 2 column blocks (16-row tiles)
 MM_CASES = [("path_b8", 8, 64, 64), ("path_b16", 16, 64, 64),
+            ("rows1", 1, 64, 64), ("rows9", 9, 64, 64),
             ("d256_n64", 16, 256, 64), ("d200_n32", 16, 200, 32),
             ("d48_n16", 16, 48, 16), ("ragged", 37, 130, 70),
-            ("wide", 4096, 512, 64)]
+            ("wide", 4096, 512, 64), ("wide_n128", 4096, 256, 128),
+            ("wide_ragged", 4096, 130, 70)]
 # ---- the multi-RSU scenario path (benchmarks/bench_scenarios.py's cell)
 SCEN_VEHICLES, SCEN_ROUNDS, SCEN_STEPS, SCEN_BATCH = 256, 4, 2, 8
 SCEN_LR = 1e-3
@@ -210,6 +229,17 @@ def _make_input(shape, fill, seed):
         a = rng.normal(size=shape) * 3.0
     elif fill == "ties":
         a = rng.integers(-3, 4, size=shape)
+    elif fill == "equal":
+        a = np.where(rng.random(shape) < 0.5, -1.5, 1.5)
+    elif fill == "subnormal":
+        # +-0.0 and +-subnormals (repeated: ties), a few normal values
+        sub = (rng.integers(1, 1 << 23, size=shape).astype(np.uint32)
+               .view(np.float32) * np.where(rng.random(shape) < 0.5,
+                                            np.float32(-1), np.float32(1)))
+        a = np.where(rng.random(shape) < 0.5, -0.0, 0.0).astype(np.float32)
+        a = np.where(rng.random(shape) < 0.4, sub, a)
+        a = np.where(rng.random(shape) < 0.2, sub[..., ::-1], a)
+        a = np.where(rng.random(shape) < 0.05, rng.normal(size=shape), a)
     else:
         a = np.zeros(shape)
     return torch.from_numpy(a.astype(np.float32)).cuda()
@@ -270,7 +300,7 @@ def check_kernels():
                             .abs().max()) for a, b in zip(got, want))
             row = {"shape": list(shape), "k_frac": kf, "fill": fill,
                    "equal": equal, "max_abs_err": err}
-            if label.startswith("cut"):
+            if label in TIMED:
                 row["ms"] = _device_ms(run_k, 200, f"{name}_kernel")
                 row["plain_ms"] = _device_ms(run_p, 100)
                 row["call_ms"] = _call_ms(run_k, 200)
@@ -291,7 +321,8 @@ def check_kernels():
 def check_matmul_kernel():
     """Phase 4: kernel 5 against its plain version at every case (every
     case is checked before a failure stops the run), the no-materialization
-    property on the wide case, times at the path's shape (batch 8).
+    property on the wide case, its device time at every case and, at the
+    path's shape (batch 8), the call, the plain version and the bound.
     Returns {label: row}."""
     import numpy as np
     import torch
@@ -310,7 +341,10 @@ def check_matmul_kernel():
         err = float((got - want).abs().max())
         ok = bool(((got - want).abs() <= MM_TOL + MM_TOL * want.abs()).all())
         row = {"shape": [rows, d, n], "max_abs_err": err, "within_tol": ok,
-               "max_abs_out": float(want.abs().max())}
+               "max_abs_out": float(want.abs().max()),
+               "ms": _device_ms(lambda: wire.unpack_dequant_matmul(buf, w),
+                                200 if label == "path_b8" else 50,
+                                "unpack_dequant_matmul_kernel")}
         if label == "wide":
             torch.cuda.synchronize()
             base = torch.cuda.memory_allocated()
@@ -341,8 +375,6 @@ def check_matmul_kernel():
             bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
             ops_ms = 1e3 * flops / F32_FLOPS_PER_S
             row.update(
-                ms=_device_ms(lambda: wire.unpack_dequant_matmul(buf, w),
-                              200, "unpack_dequant_matmul_kernel"),
                 call_ms=_call_ms(lambda: wire.unpack_dequant_matmul(buf, w),
                                  200),
                 plain_ms=_device_ms(
@@ -357,17 +389,29 @@ def check_matmul_kernel():
         out[label] = row
         print(f"kernel unpack_dequant_matmul {label:9s} rows={rows} d={d} "
               f"n={n} max_abs_err={err:g} max_abs_out="
-              f"{row['max_abs_out']:g} tol={MM_TOL:g} ok={ok}"
-              + (f" ms={row['ms']:.6f} call_ms={row['call_ms']:.6f} "
+              f"{row['max_abs_out']:g} tol={MM_TOL:g} ok={ok} "
+              f"ms={row['ms']:.6f}"
+              + (f" call_ms={row['call_ms']:.6f} "
                  f"plain_ms={row['plain_ms']:.6f} unpack_then_matmul_ms="
                  f"{row['unpack_then_matmul_ms']:.6f} bound_ms="
                  f"{row['bound_ms']:.6f} bound_by={row['bound_by']}"
-                 if "ms" in row else ""), flush=True)
+                 if "call_ms" in row else ""), flush=True)
         if not ok:
             bad.append(f"{label}: error {err:g} outside tolerance")
     if bad:
         raise AssertionError(f"unpack_dequant_matmul: {bad}")
     return out
+
+
+def launch_floor_ms():
+    """The card's floor for one launch: the device time of ``zero_()`` on a
+    one-element tensor (``torch.profiler``), printed beside the codec's
+    times."""
+    import torch
+    z = torch.empty(1, device="cuda")
+    ms = _device_ms(lambda: z.zero_(), 200)
+    print(f"launch_floor zero_ numel=1 ms={ms:.6f}", flush=True)
+    return ms
 
 
 def _scenario_spec(scenario, n, rounds, strategy, wire, sync=1):
@@ -842,11 +886,17 @@ def serve_path(arch):
     res = serve.serve(cfg, params, batch=SERVE_BATCH,
                       prompt_len=SERVE_PROMPT, decode_steps=SERVE_STEPS)
     counts = kernels.launch_counts()
+    # the process's first full-size prefill (the counted one) against a
+    # second: a first one can wait on cudaMalloc growing the allocator's
+    # pool (scripts/profile_port.py times those calls)
+    again = serve.serve(cfg, params, batch=SERVE_BATCH,
+                        prompt_len=SERVE_PROMPT, decode_steps=0)
     logits = res["logits"]
     want = dict.fromkeys(counts, 0)
     want.update(_expected_launches(cfg))
     timing = {"arch": arch, "params": n_params, "cut": res["cut"],
               "init_s": init_s, "prefill_ms": 1e3 * res["prefill_s"],
+              "prefill_again_ms": 1e3 * again["prefill_s"],
               "decode_ms_per_step": 1e3 * res["decode_s"] / SERVE_STEPS,
               "prefill_tokens_per_s":
                   SERVE_BATCH * SERVE_PROMPT / res["prefill_s"],
@@ -856,6 +906,7 @@ def serve_path(arch):
     print(f"serve {arch} params={n_params} cut={res['cut']} "
           f"batch={SERVE_BATCH} prompt={SERVE_PROMPT} steps={SERVE_STEPS} "
           f"init_s={init_s:.3f} prefill_ms={timing['prefill_ms']:.3f} "
+          f"prefill_again_ms={timing['prefill_again_ms']:.3f} "
           f"decode_ms_per_step={timing['decode_ms_per_step']:.3f} "
           f"prefill_tokens_per_s={timing['prefill_tokens_per_s']:.1f} "
           f"decode_tokens_per_s={timing['decode_tokens_per_s']:.1f} "
@@ -965,7 +1016,9 @@ def kernel_report(checks, launches, main_cuts, mm_checks, mm_launches,
                                for r in checks[name].values()),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "call_ms": row["call_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": "bytes", "library_ms": None, "shape": row["shape"]})
+            "bound_by": "bytes", "library_ms": None, "shape": row["shape"],
+            "path_b8": {key: checks[name]["path_b8"][key] for key in
+                        ("shape", "ms", "call_ms", "plain_ms", "bound_ms")}})
     row = mm_checks["path_b8"]
     out.append({
         "name": MM_META[0], "route": "cuda", "source": SOURCE,
@@ -975,7 +1028,7 @@ def kernel_report(checks, launches, main_cuts, mm_checks, mm_launches,
         "call_ms": row["call_ms"], "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"], "library_ms": None,
         "unpack_then_matmul_ms": row["unpack_then_matmul_ms"],
-        "shape": row["shape"]})
+        "wide_ms": mm_checks["wide"]["ms"], "shape": row["shape"]})
     for name, replaces in LM_META.items():
         row = next(r for r in lm_checks[name].values() if "ms" in r)
         out.append({
@@ -1003,6 +1056,7 @@ def main() -> int:
     card_line()
     build_kernels()
     checks = check_kernels()
+    launch_floor_ms()
     mm_checks = check_matmul_kernel()
     lm_checks = check_lm_kernels()
     topk_launches, topk_cuts = drive_path(

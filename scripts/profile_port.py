@@ -10,12 +10,14 @@
    sgd, ``paper`` cuts, the ``topk_int8`` wire with error feedback) after
    one warm-up round.
 3. Split-inference serving of smollm-360m and mamba2-780m at full width
-   (batch 8, prompt 1024, the default cut) after a warm-up: one profiled
-   prefill, then 8 profiled decode steps.
+   (batch 8, prompt 1024, the default cut) after a warm-up at prompt 64,
+   as ``chip_smoke.py`` serves: one profiled prefill (the process's first
+   at full size), then 8 profiled decode steps.
 
 For each: wall time, device busy share (summed kernel time / wall), and
-the kernels that take the most device time, by name.  The kernels' own
-times are measured by ``chip_smoke.py``.
+the kernels that take the most device time, by name; for serving also the
+host's time in ``cudaMalloc`` and its calls (the caching allocator growing
+its pool).  The kernels' own times are measured by ``chip_smoke.py``.
 
 Needs a CUDA card and nvcc; imports neither jax nor repro.
 """
@@ -118,8 +120,8 @@ def scenario_profile(top: int = 12, vehicles: int = 256):
 
 
 def _profiled(fn, top):
-    """Run ``fn`` under the profiler; (wall s, busy s, kernel count, top
-    rows)."""
+    """Run ``fn`` under the profiler; (wall s, busy s, kernel count, host
+    time in and number of ``cudaMalloc`` calls, top rows)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -129,14 +131,19 @@ def _profiled(fn, top):
         out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    dev = [e for e in prof.key_averages() if _is_device_kernel(e)]
+    evts = prof.key_averages()
+    dev = [e for e in evts if _is_device_kernel(e)]
     busy_us = sum(_device_us(e) for e in dev)
+    mallocs = [e for e in evts if e.key == "cudaMalloc"]
     dev.sort(key=_device_us, reverse=True)
     rows = [{"kernel": e.key[:120], "count": e.count,
              "device_ms": _device_us(e) / 1e3} for e in dev[:top]]
     return out, {"wall_s": wall, "device_busy_s": busy_us / 1e6,
                  "device_busy_share": busy_us / 1e6 / wall,
                  "n_device_kernels": sum(e.count for e in dev),
+                 "cuda_malloc_s": sum(e.self_cpu_time_total
+                                      for e in mallocs) / 1e6,
+                 "cuda_mallocs": sum(e.count for e in mallocs),
                  "top": rows}
 
 
@@ -176,7 +183,9 @@ def serve_profile(arch, top: int = 10, batch: int = 8, prompt: int = 1024,
         print(f"serve {arch} {phase} wall_s={r['wall_s']:.6f} "
               f"device_busy_s={r['device_busy_s']:.6f} "
               f"busy_share={r['device_busy_share']:.4f} "
-              f"device_kernels={r['n_device_kernels']}", flush=True)
+              f"device_kernels={r['n_device_kernels']} "
+              f"cuda_malloc_s={r['cuda_malloc_s']:.6f} "
+              f"cuda_mallocs={r['cuda_mallocs']}", flush=True)
         for row in r["top"]:
             print(f"serve {arch} {phase} top count={row['count']:6d} "
                   f"device_ms={row['device_ms']:.3f} {row['kernel']}",

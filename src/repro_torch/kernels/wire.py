@@ -14,15 +14,28 @@ Wire format per group of g values (exactly k survivors)::
       values: ceil(k/4) words, 4 int8 lanes each, survivor order ]
 
 Bound on H100: bytes.  Pack reads 4 bytes per value and writes ~0.45
-(words per group / g); unpack the reverse.  The pairwise rank costs g
-comparisons per value (<= 128), still only a few microseconds of issue at
-the main path's sizes.  The design keeps one group in one warp: values in
-registers, |x| in a 512-byte per-warp shared row for the rank, the bitmap
-as warp ballots, survivor slots by popcount, and value words assembled by
-the first ceil(k/4) lanes from a per-warp shared byte row — so the dense
-f32 group never round-trips through device memory and no block-level
-synchronisation is needed.  Unpack is one warp per group with slots from
-popcount.  At 0.5-4 MB per call launch overhead dominates.
+(words per group / g); unpack the reverse.  The design keeps one group in
+one warp, values in registers.  Pack selects its exactly-k survivors by a
+radix select over the bits of |x| with warp ballots: the k-th largest key
+T is found bit by bit from the top (one compare per held value, one ballot
+per 32 values and popcounts a bit, stopping once a candidate's count is
+exactly k), then keys above T survive and keys equal to T by their rank in
+index order (popcounts of the ``eq`` ballots) — so no value is compared
+with every other value of its group.  The bitmap is the survivors'
+ballots, slots come by popcount, and the first ceil(k/4) lanes assemble
+the value words from a per-warp shared byte row: the dense f32 group never
+round-trips through device memory and no block-level synchronisation is
+needed.  Unpack is one warp per group with slots from popcount.  At 0.5-4
+MB per call launch overhead dominates.
+
+``unpack_dequant_matmul`` gives each block of 128 threads a 16 row by 64
+column output tile when that still gives every SM a block, else an 8 row
+one.  Per group it starts the w slab's copy to shared memory
+(``cp.async``) first; meanwhile each warp reads its rows' group words with
+one coalesced load per row and decodes them by warp shuffles into a
+shared g-wide slab; after one barrier each thread sums its register patch
+over the group in order.  The next group's copy and words are in flight
+while a group computes.
 
 The plain PyTorch versions (``repro_torch.core.compression``) run for CPU
 tensors; CUDA tensors always go to the kernel (``kernels/csrc/codec.cu``).
@@ -40,7 +53,13 @@ WIRE_K = C.WIRE_K
 
 def sparsify_quant_pack(x: torch.Tensor, k_frac: float = WIRE_K,
                         group: int = GROUP) -> torch.Tensor:
-    """x (..., d) f32 -> packed int32 wire buffer (..., ng*wpg)."""
+    """x (..., d) f32 -> packed int32 wire buffer (..., ng*wpg).
+
+    Finite inputs only.  For finite x (+-0.0, subnormals and exact ties
+    included) the kernel's words equal the plain version's bit for bit.
+    Non-finite values are outside the wire's contract: the plain version's
+    amax propagates a NaN into the scale and ranks it by IEEE comparisons,
+    the kernel's fmaxf drops it from the amax and ranks it above +inf."""
     _check_tensor(x, "x", torch.float32)
     _check_group(group)
     if x.device.type == "cpu":

@@ -28,7 +28,14 @@ CASES = [((16, 32, 32, 64), 0.25, "normal"), ((16, 16, 16, 128), 0.25,
                                              "normal"),
          ((64, 200), 0.1, "normal"), ((64, 200), 0.3, "normal"),
          ((64, 200), 1.0, "normal"), ((16, 8, 8, 256), 0.25, "ties"),
-         ((4, 128), 0.25, "zeros"), ((7, 48), 0.25, "normal")]
+         ((4, 128), 0.25, "zeros"), ((7, 48), 0.25, "normal"),
+         # the scenario path's cut (mlp9 at batch 8 and 16); the selection's
+         # edges: k = 1 (k_frac 0.001), +-0.0 beside subnormals and ties of
+         # them, all-equal groups of 128
+         ((8, 64), 0.25, "normal"), ((16, 64), 0.25, "normal"),
+         ((16, 128), 0.001, "normal"), ((16, 64), 0.001, "ties"),
+         ((16, 128), 0.25, "subnormal"), ((16, 200), 0.1, "subnormal"),
+         ((32, 128), 0.25, "equal"), ((32, 128), 1.0, "equal")]
 
 
 @pytest.fixture
@@ -47,6 +54,17 @@ def _input(shape, fill, dev, seed=0):
         a = rng.normal(size=shape) * 3.0
     elif fill == "ties":
         a = rng.integers(-3, 4, size=shape)
+    elif fill == "equal":
+        a = np.where(rng.random(shape) < 0.5, -1.5, 1.5)
+    elif fill == "subnormal":
+        # +-0.0 and +-subnormals (repeated: ties), a few normal values
+        sub = (rng.integers(1, 1 << 23, size=shape).astype(np.uint32)
+               .view(np.float32) * np.where(rng.random(shape) < 0.5,
+                                            np.float32(-1), np.float32(1)))
+        a = np.where(rng.random(shape) < 0.5, -0.0, 0.0).astype(np.float32)
+        a = np.where(rng.random(shape) < 0.4, sub, a)
+        a = np.where(rng.random(shape) < 0.2, sub[..., ::-1], a)
+        a = np.where(rng.random(shape) < 0.05, rng.normal(size=shape), a)
     else:
         a = np.zeros(shape)
     return torch.from_numpy(a.astype(np.float32)).to(dev)
@@ -110,9 +128,13 @@ def test_mlp_sim_on_cuda_matches_cpu(dev):
 # version's matmul (TF32 off for both); the slabs themselves are exact
 MM_TOL = 1e-5
 # (rows, d, n): mlp9's cut at batch 8 and 16, tests/test_kernels.py's
-# shapes, a ragged tile / last group / column edge, and a wide case
+# shapes, a ragged tile / last group / column edge, a wide case, one row
+# and a partial 8-row tile; then each tile height the host picks (8 rows
+# at 300 rows, 16 at the wide case, at 4096 x 128 over two column blocks
+# and at 4096 x 70 with 4-byte copies and a ragged last group)
 MM_CASES = [(8, 64, 64), (16, 64, 64), (16, 256, 64), (16, 200, 32),
-            (16, 48, 16), (37, 130, 70), (4096, 512, 64)]
+            (16, 48, 16), (37, 130, 70), (4096, 512, 64), (1, 64, 64),
+            (9, 64, 64), (300, 256, 64), (4096, 256, 128), (4096, 130, 70)]
 
 
 def _mm_inputs(dev, rows, d, n, seed=6):
