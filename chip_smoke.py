@@ -11,20 +11,24 @@ neither ``jax`` nor ``repro``.  In order it:
    per source, all started together) and prints the build time and the
    ptxas report;
 3. holds each of the four codec kernels (quantize_int8, dequantize_int8,
-   sparsify_quant_pack, unpack_dequant) ``torch.equal`` to its plain
-   PyTorch version on the card, at the four ResNet18 cut shapes of the main
-   path (batch 16), the scenario path's shapes (rows 8 and 16, d 64), the
-   edge shapes of the CPU tests and the selection's edges (k = 1, +-0.0
-   next to subnormals, all-equal groups of 128); at the cut shapes and the
+   sparsify_quant_pack, unpack_dequant) equal to its plain PyTorch version
+   on the card, at the four ResNet18 cut shapes of the main path (batch
+   16), the scenario path's shapes (rows 8 and 16, d 64), the edge shapes
+   of the CPU tests, the selection's edges (k = 1, +-0.0 next to
+   subnormals, all-equal groups of 128) and NaN / +-inf input (the
+   non-finite contract: NaN exactly where the plain version's is, every
+   other float, int8 and word bit for bit); at the cut shapes and the
    scenario path's batch-8 shape it times kernel and plain version on the
-   device (``torch.profiler`` kernel time per call) and the wrapper call
-   (CUDA events), beside the bytes bound; and it times the launch floor
-   (the device time of ``zero_()`` on one element);
+   device (``torch.profiler`` kernel time per call), the wrapper call (CUDA
+   events) and, for dequantize_int8, one ``torch.mul`` of q by its scales
+   (the same function bit for bit), beside the bytes bound; and it times
+   the launch floor (the device time of ``zero_()`` on one element);
 4. holds unpack_dequant_matmul (the RSU's first matmul reading the packed
    topk_int8 buffer) to its plain version within 1e-5 + 1e-5·|b| (TF32
    off) at the scenario path's shapes (rows 8 and 16, d = n = 64), one
-   row, a partial 8-row tile (rows 9), the CPU tests' shapes and a wide
-   case (rows 4096, d 512, n 64); on the wide case the call's peak
+   row, a partial 8-row tile (rows 9), the CPU tests' shapes, a wide case
+   (rows 4096, d 512, n 64) and two of NaN / +-inf input (the output NaN
+   exactly where the plain version's is); on the wide case the call's peak
    allocation stays below its output plus the dense smashed tensor, and
    its gradient keeps no float32 tensor of the smashed shape; its device
    time at every case, and at the path's shape times it like the codec;
@@ -106,7 +110,13 @@ CASES = ([(f"cut{c}", s, 0.25, "normal") for c, s in CUT_SHAPES.items()]
             ("k1_ties_d64", (16, 64), 0.001, "ties"),
             ("subnormal_d128", (16, 128), 0.25, "subnormal"),
             ("subnormal_d200", (16, 200), 0.1, "subnormal"),
-            ("equal_d128", (32, 128), 0.25, "equal")])
+            ("equal_d128", (32, 128), 0.25, "equal"),
+            # NaN, -NaN, +-inf, whole NaN groups beside finite ones; k = 1
+            # with three NaNs in a group; the padded tail group
+            ("nonfinite_cut6", (BATCH, 8, 8, 256), 0.25, "nonfinite"),
+            ("nonfinite_k1_d64", (14, 64), 0.001, "nonfinite"),
+            ("nonfinite_d200", (21, 200), 0.1, "nonfinite"),
+            ("nonfinite_b8", (8, 64), 0.25, "nonfinite")])
 # labels timed in phase 3: the cut shapes and the scenario path's batch 8
 TIMED = ("cut2", "cut4", "cut6", "cut8", "path_b8")
 KERNEL_META = {
@@ -128,7 +138,9 @@ MM_CASES = [("path_b8", 8, 64, 64), ("path_b16", 16, 64, 64),
             ("d256_n64", 16, 256, 64), ("d200_n32", 16, 200, 32),
             ("d48_n16", 16, 48, 16), ("ragged", 37, 130, 70),
             ("wide", 4096, 512, 64), ("wide_n128", 4096, 256, 128),
-            ("wide_ragged", 4096, 130, 70)]
+            ("wide_ragged", 4096, 130, 70),
+            # NaN / +-inf smashed values: NaN output rows
+            ("nonfinite_b16", 16, 64, 64), ("nonfinite_d200", 21, 200, 32)]
 # ---- the multi-RSU scenario path (benchmarks/bench_scenarios.py's cell)
 SCEN_VEHICLES, SCEN_ROUNDS, SCEN_STEPS, SCEN_BATCH = 256, 4, 2, 8
 SCEN_LR = 1e-3
@@ -221,9 +233,74 @@ def _device_ms(fn, iters, symbol=None):
     return sum(e.self_device_time_total for e in dev) / iters / 1e3
 
 
+def _nonfinite(shape, seed):
+    """Normal values (x 3) with, row by row in turn, in the row's first
+    quantisation group (g = min(128, d)): one NaN; three NaNs; a -NaN; +inf
+    beside -inf (in the row's last group when it has two or more); a whole
+    NaN group; a NaN beside +inf; nothing (the CPU tests' fill)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    a = (rng.normal(size=shape) * 3.0).astype(np.float32)
+    d = shape[-1]
+    g = min(128, d)
+    rows = a.reshape(-1, d)                       # a view: writes go to a
+    for r in range(rows.shape[0]):
+        cols = rng.permutation(g)[:3]
+        kind = r % 7
+        if kind == 0:
+            rows[r, cols[0]] = np.nan
+        elif kind == 1:
+            rows[r, cols] = np.nan
+        elif kind == 2:
+            rows[r, cols[0]] = np.uint32(0xFFC00000).view(np.float32)
+        elif kind == 3:
+            rows[r, cols[0]] = np.inf
+            rows[r, cols[1] if d == g else d - 1] = -np.inf
+        elif kind == 4:
+            rows[r, :g] = np.nan
+        elif kind == 5:
+            rows[r, cols[:2]] = (np.nan, np.inf)
+    return a
+
+
+def _same(a, b, scale_word=None):
+    """(equal, max |a - b| where both are finite) under the codec's
+    non-finite contract: floats NaN exactly where the other is NaN and
+    every other element bit for bit; int tensors bit for bit; with
+    ``scale_word = (bw, wpg)`` an int32 wire buffer whose scale words are
+    compared as floats (``torch.equal`` is False on NaN)."""
+    import torch
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False, math.inf
+    if scale_word is not None:
+        bw, wpg = scale_word
+        a, b = a.reshape(-1, wpg), b.reshape(-1, wpg)
+        ints = torch.arange(wpg, device=a.device) != bw
+        ok, _ = _same(a[:, bw].contiguous().view(torch.float32),
+                      b[:, bw].contiguous().view(torch.float32))
+        return ok and torch.equal(a[:, ints], b[:, ints]), _abs_err(a, b)
+    if not a.is_floating_point():
+        return torch.equal(a, b), _abs_err(a, b)
+    nan = torch.isnan(a)
+    ok = (torch.equal(nan, torch.isnan(b))
+          and torch.equal(a[~nan].view(torch.int32),
+                          b[~nan].view(torch.int32)))
+    return ok, _abs_err(a, b)
+
+
+def _abs_err(a, b):
+    """max |a - b| over the elements finite in both (0 when none is)."""
+    import torch
+    a, b = a.to(torch.float64), b.to(torch.float64)
+    both = torch.isfinite(a) & torch.isfinite(b)
+    return float((a - b)[both].abs().max()) if bool(both.any()) else 0.0
+
+
 def _make_input(shape, fill, seed):
     import numpy as np
     import torch
+    if fill == "nonfinite":
+        return torch.from_numpy(_nonfinite(shape, seed)).cuda()
     rng = np.random.default_rng(seed)
     if fill == "normal":
         a = rng.normal(size=shape) * 3.0
@@ -273,31 +350,48 @@ def check_kernels():
     for ci, (label, shape, kf, fill) in enumerate(CASES):
         x = _make_input(shape, fill, seed=ci)
         d = shape[-1]
+        rows = math.prod(shape) // d
+        g, ng, k, wpg = C.wire_layout(d, kf)
         q, s = quant.quantize_int8(x)
         q_ref, s_ref = (t.contiguous() for t in C.quantize_int8(x))
         buf = wire.sparsify_quant_pack(x, kf)
         buf_ref = C.sparsify_quant_pack_ref(x, kf)
+        lib_dequant = None
+        if ng * g == d:             # one PyTorch call, the same function
+            def lib_dequant(q=q_ref, s=s_ref, rows=rows, ng=ng, g=g):
+                return torch.mul(q.view(rows, ng, g), s.view(rows, ng, 1))
         pairs = {
             "quantize_int8": ((q, s), (q_ref, s_ref),
                               lambda: quant.quantize_int8(x),
-                              lambda: C.quantize_int8(x)),
+                              lambda: C.quantize_int8(x), None),
             "dequantize_int8": ((quant.dequantize_int8(q_ref, s_ref),),
                                 (C.dequantize_int8(q_ref, s_ref),),
                                 lambda: quant.dequantize_int8(q_ref, s_ref),
-                                lambda: C.dequantize_int8(q_ref, s_ref)),
+                                lambda: C.dequantize_int8(q_ref, s_ref),
+                                lib_dequant),
             "sparsify_quant_pack": ((buf,), (buf_ref,),
                                     lambda: wire.sparsify_quant_pack(x, kf),
-                                    lambda: C.sparsify_quant_pack_ref(x, kf)),
+                                    lambda: C.sparsify_quant_pack_ref(x, kf),
+                                    None),
             "unpack_dequant": ((wire.unpack_dequant(buf_ref, d, kf),),
                                (C.wire_dequant_ref(buf_ref, d, kf),),
                                lambda: wire.unpack_dequant(buf_ref, d, kf),
-                               lambda: C.wire_dequant_ref(buf_ref, d, kf)),
+                               lambda: C.wire_dequant_ref(buf_ref, d, kf),
+                               None),
         }
+        if lib_dequant is not None:     # the yardstick computes it too
+            lib_ok, _ = _same(lib_dequant().reshape(q_ref.shape),
+                              pairs["dequantize_int8"][1][0])
+            if not lib_ok:
+                raise AssertionError(f"torch.mul differs from the plain "
+                                     f"dequantize at {label}")
         torch.cuda.synchronize()
-        for name, (got, want, run_k, run_p) in pairs.items():
-            equal = all(torch.equal(a, b) for a, b in zip(got, want))
-            err = max(float((a.to(torch.float64) - b.to(torch.float64))
-                            .abs().max()) for a, b in zip(got, want))
+        for name, (got, want, run_k, run_p, run_lib) in pairs.items():
+            word = (-(-g // 32), wpg) if name == "sparsify_quant_pack" \
+                else None
+            same = [_same(a, b, word) for a, b in zip(got, want)]
+            equal = all(ok for ok, _ in same)
+            err = max(e for _, e in same)
             row = {"shape": list(shape), "k_frac": kf, "fill": fill,
                    "equal": equal, "max_abs_err": err}
             if label in TIMED:
@@ -305,12 +399,15 @@ def check_kernels():
                 row["plain_ms"] = _device_ms(run_p, 100)
                 row["call_ms"] = _call_ms(run_k, 200)
                 row["bound_ms"] = _bound_ms(name, shape, kf)
+                row["library_ms"] = (_device_ms(run_lib, 200) if run_lib
+                                     else None)
             out[name][label] = row
             print(f"kernel {name:20s} {label:11s} shape={list(shape)} "
                   f"k_frac={kf} equal={equal} max_abs_err={err:g}"
                   + (f" ms={row['ms']:.6f} plain_ms={row['plain_ms']:.6f} "
                      f"call_ms={row['call_ms']:.6f} "
-                     f"bound_ms={row['bound_ms']:.6f}"
+                     f"bound_ms={row['bound_ms']:.6f} "
+                     f"library_ms={row['library_ms']}"
                      if "ms" in row else ""), flush=True)
             if not equal:
                 raise AssertionError(f"{name} differs from its plain "
@@ -330,7 +427,8 @@ def check_matmul_kernel():
     from repro_torch.kernels import wire
     out, bad = {}, []
     for ci, (label, rows, d, n) in enumerate(MM_CASES):
-        x = _make_input((rows, d), "normal", seed=100 + ci) / 3.0
+        fill = "nonfinite" if label.startswith("nonfinite") else "normal"
+        x = _make_input((rows, d), fill, seed=100 + ci) / 3.0
         rng = np.random.default_rng(200 + ci)
         w = torch.from_numpy((rng.normal(size=(d, n)) * math.sqrt(2.0 / d))
                              .astype(np.float32)).cuda()
@@ -338,10 +436,15 @@ def check_matmul_kernel():
         got = wire.unpack_dequant_matmul(buf, w)
         want = C.wire_dequant_matmul_ref(buf, w)
         torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        ok = bool(((got - want).abs() <= MM_TOL + MM_TOL * want.abs()).all())
+        # a group that decodes to NaN makes its output row NaN, on both
+        nan = torch.isnan(want)
+        diff = (got - want)[~nan].abs()
+        err = float(diff.max())
+        ok = (torch.equal(torch.isnan(got), nan)
+              and bool(nan.any()) == (fill == "nonfinite")
+              and bool((diff <= MM_TOL + MM_TOL * want[~nan].abs()).all()))
         row = {"shape": [rows, d, n], "max_abs_err": err, "within_tol": ok,
-               "max_abs_out": float(want.abs().max()),
+               "fill": fill, "max_abs_out": float(want[~nan].abs().max()),
                "ms": _device_ms(lambda: wire.unpack_dequant_matmul(buf, w),
                                 200 if label == "path_b8" else 50,
                                 "unpack_dequant_matmul_kernel")}
@@ -1016,9 +1119,11 @@ def kernel_report(checks, launches, main_cuts, mm_checks, mm_launches,
                                for r in checks[name].values()),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "call_ms": row["call_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": "bytes", "library_ms": None, "shape": row["shape"],
+            "bound_by": "bytes", "library_ms": row["library_ms"],
+            "shape": row["shape"],
             "path_b8": {key: checks[name]["path_b8"][key] for key in
-                        ("shape", "ms", "call_ms", "plain_ms", "bound_ms")}})
+                        ("shape", "ms", "call_ms", "plain_ms", "bound_ms",
+                         "library_ms")}})
     row = mm_checks["path_b8"]
     out.append({
         "name": MM_META[0], "route": "cuda", "source": SOURCE,

@@ -20,7 +20,12 @@ Bit-exactness traps, each mirrored from the reference:
   assembled in int64 and wrapped to int32);
 * the scale word is the f32 bit pattern of the scale (a bitcast);
 * top-k ranks by pairwise comparison with ties going to the lower index —
-  never ``torch.topk``, whose tie order is unspecified.
+  never ``torch.topk``, whose tie order is unspecified;
+* NaN and +-inf: the amax and the max with 1e-8 keep a NaN, so a group
+  holding one has a NaN scale (+-inf: an inf scale); a NaN quotient is set
+  to 0 before the int8 cast (XLA's cast); in the top-k a NaN is beaten by
+  nothing and beats nothing, so it survives beside the k winners and its
+  value slot (>= k) is dropped.
 
 topk_int8 wire format per quantisation group of g values (exactly k
 survivors):
@@ -66,7 +71,10 @@ def _scale_of(absx: torch.Tensor) -> torch.Tensor:
 
 
 def _round_clip(xg: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    return torch.clamp(torch.round(xg / scale), -127, 127)
+    """round(x / scale) clipped to [-127, 127]; a NaN quotient (NaN scale,
+    inf / inf) is 0, as XLA casts it, before any integer cast sees it."""
+    r = torch.clamp(torch.round(xg / scale), -127, 127)
+    return torch.where(torch.isnan(r), torch.zeros_like(r), r)
 
 
 def quantize_int8(x: torch.Tensor, group: int = GROUP
@@ -160,9 +168,10 @@ def _pack_groups(q: torch.Tensor, scale: torch.Tensor, mask: torch.Tensor,
         m64 = torch.cat([m64, m64.new_zeros((*lead, ng, bw * 32 - g))], -1)
     shifts = torch.arange(32, device=q.device, dtype=torch.int64)
     bitmap = (m64.reshape(*lead, ng, bw, 32) << shifts).sum(-1)
-    # survivor compaction: the i-th masked value goes to slot i
+    # survivor compaction: the i-th masked value goes to slot i; slots >= k
+    # (a NaN survives beside the k winners) go to the discard slot k
     pos = torch.cumsum(mask.to(torch.int64), dim=-1) - 1
-    slot = torch.where(mask, pos, torch.full_like(pos, k))   # k = discard
+    slot = torch.where(mask & (pos < k), pos, torch.full_like(pos, k))
     vals = q.new_zeros((*lead, ng, k + 1), dtype=torch.int64)
     vals.scatter_(-1, slot, q.to(torch.int64))
     vals = vals[..., :k]
@@ -191,7 +200,7 @@ def _unpack_groups(buf: torch.Tensor, g: int, k: int):
     vals = vals - 256 * (vals > 127).to(torch.int32)       # sign-extend
     pos = torch.cumsum(mask.to(torch.int64), dim=-1) - 1
     q = torch.gather(vals, -1, pos.clamp(0, k - 1))
-    q = torch.where(mask, q, torch.zeros_like(q))
+    q = torch.where(mask & (pos < k), q, torch.zeros_like(q))
     return q, scale, mask
 
 

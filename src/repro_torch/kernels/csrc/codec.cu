@@ -16,14 +16,27 @@
 // block-level synchronisation is needed.  The pack kernel's exactly-k top-k
 // is a radix select over the bits of |x| by warp ballots (~31 ballot steps
 // per slot at most, not a comparison against every value of the group).
-// The fused matmul (kernel 5) copies its w slab with cp.async while each
-// warp decodes its rows from one coalesced load of the group's words by
-// shuffles, then sums slab @ w-slab on CUDA cores in register patches.
+// Dequantize is the exception: a thread owns 4 consecutive int8 of one
+// group (one 4-byte load beside its scale's, one float4 store).  Unpack
+// and the fused matmul (kernel 5) share one decode: a warp reads its group's
+// words with one coalesced load and decodes them by shuffles and popcounts.
+// Kernel 5 copies its w slab with cp.async while its warps decode, then
+// sums slab @ w-slab on CUDA cores in register patches.
 //
-// Bit-exactness with the JAX reference: the scale is fmaxf(amax, 1e-8f)
+// Bit-exactness with the JAX reference: the scale is max(amax, 1e-8f)
 // times f32(1/127) (a multiply), q = rintf(x / scale) with IEEE division and
 // round-half-to-even.  Build WITHOUT --use_fast_math: fast math turns the
 // division into an approximate reciprocal and the words stop matching.
+//
+// Non-finite input follows the reference too: the amax and the max with
+// 1e-8 keep a NaN (max.NaN, where fmaxf would drop it), so a group holding a
+// NaN has a NaN scale and one holding +-inf an inf scale; a NaN quotient
+// (NaN scale, inf / inf) quantises to 0, as XLA casts it; in the top-k a NaN
+// is beaten by nothing and beats nothing, so it takes no part in the select
+// and survives beside the k winners, its value slot >= k dropped; and
+// unpack writes q x scale everywhere, q = 0 off the mask, so such a group
+// decodes to NaN (in kernel 5 its survivors make the output row NaN).  NaN
+// payloads are not kept.
 //
 // Every entry point launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError() so the Python wrapper can raise on a refused
@@ -38,27 +51,35 @@ constexpr unsigned FULL = 0xffffffffu;
 constexpr int WARPS_PER_BLOCK = 8;
 constexpr int THREADS = 32 * WARPS_PER_BLOCK;
 constexpr int MAX_G = 128;               // GROUP: at most 4 values per lane
+constexpr int DQ_THREADS = 256;          // dequantize: threads per block
 constexpr int MAX_T = MAX_G / 32;
 
 __device__ __forceinline__ float inv127() {
   return (float)(1.0 / 127.0);
 }
 
+// max that keeps a NaN (PTX max.NaN, sm_80+), as jnp.max / jnp.maximum do
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
 __device__ __forceinline__ float group_scale(float amax) {
-  return fmaxf(amax, 1e-8f) * inv127();
+  return max_nan(amax, 1e-8f) * inv127();
 }
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(FULL, v, off));
+    v = max_nan(v, __shfl_xor_sync(FULL, v, off));
   return v;
 }
 
 __device__ __forceinline__ int quant_value(float x, float scale) {
-  float r = rintf(x / scale);
-  r = fminf(fmaxf(r, -127.0f), 127.0f);
-  return (int)r;
+  const float r = rintf(x / scale);
+  if (r != r) return 0;                   // NaN quotient: 0, as XLA casts it
+  return (int)fminf(fmaxf(r, -127.0f), 127.0f);
 }
 
 // ---------------------------------------------------------------- quantize
@@ -82,7 +103,7 @@ __global__ void quantize_int8_kernel(const float* __restrict__ x,
     const int i = lane + 32 * t;
     const int col = j * g + i;
     v[t] = (i < g && col < d) ? xr[col] : 0.0f;
-    amax = fmaxf(amax, fabsf(v[t]));
+    amax = max_nan(amax, fabsf(v[t]));
   }
   amax = warp_max(amax);
   const float scale = group_scale(amax);
@@ -97,16 +118,36 @@ __global__ void quantize_int8_kernel(const float* __restrict__ x,
 }
 
 // -------------------------------------------------------------- dequantize
-// one thread per element; the group index is column / g
+// A thread owns a run of V consecutive int8 of one group in one row.  The
+// grid is 2-D, x over a row's runs and y over rows, so the row, the run and
+// its group (one 32-bit divide) come from the thread index, and the scale's
+// load is in flight beside the run's.  V = 4 when d and g are multiples of
+// 4, q is 4-byte and x 16-byte aligned: one 4-byte load and one float4
+// store, so each of a warp's load and store instructions covers 128 and 512
+// contiguous bytes; else V = 1.  (Sixteen int8 a thread, one 16-byte load
+// and four float4 stores at a 64-byte lane stride, measured slower at every
+// cut shape.)  Zero bytes are multiplied too: 0 x NaN is NaN.
+template <int V>
 __global__ void dequantize_int8_kernel(const int8_t* __restrict__ q,
                                        const float* __restrict__ scales,
-                                       float* __restrict__ x, long long n,
+                                       float* __restrict__ x, long long rows,
                                        int d, int g, int ng) {
-  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < n;
-       e += (long long)gridDim.x * blockDim.x) {
-    const long long row = e / d;
-    const int col = (int)(e % d);
-    x[e] = (float)q[e] * scales[row * ng + col / g];
+  const int col = (blockIdx.x * blockDim.x + threadIdx.x) * V;
+  if (col >= d) return;
+  const int j = col / g;
+  for (long long r = (long long)blockIdx.y * blockDim.y + threadIdx.y;
+       r < rows; r += (long long)gridDim.y * blockDim.y) {
+    const long long e = r * d + col;
+    const float s = __ldg(scales + r * ng + j);
+    if constexpr (V == 4) {
+      const int u = __ldg(reinterpret_cast<const int*>(q + e));
+      *reinterpret_cast<float4*>(x + e) =
+          make_float4((float)(int8_t)u * s, (float)(int8_t)(u >> 8) * s,
+                      (float)(int8_t)(u >> 16) * s,
+                      (float)(int8_t)(u >> 24) * s);
+    } else {
+      x[e] = (float)q[e] * s;
+    }
   }
 }
 
@@ -118,20 +159,25 @@ __global__ void dequantize_int8_kernel(const int8_t* __restrict__ q,
 // ballots, not by ranking each value against the whole group:
 //  1. key = bits of |x| as uint32 (the sign bit cleared), which order as
 //     the values do for every non-negative float, +0 and subnormals
-//     included; lanes with i >= g hold no key and ballot 0;
+//     included; lanes with i >= g hold no key and ballot 0.  A NaN lane
+//     (bits above +inf's) holds key 0, which no candidate below reaches,
+//     takes no part in the ties at T, and sets its bit unconditionally:
+//     the reference's NaN is beaten by nothing and beats nothing;
 //  2. T = the largest t with #(key >= t) >= k, i.e. the k-th largest key,
 //     set bit by bit from bit 30 down (one compare per held value, one
 //     ballot per slot and popcounts a bit); once #(key >= candidate) == k
-//     those k keys are the survivors and the descent stops;
+//     those k keys are the survivors and the descent stops; with fewer
+//     than k keys T stays 0 and every key survives;
 //  3. keys > T survive; a key == T survives iff #(key > T) plus its rank
 //     among the equal keys in index order (popcounts of the earlier slots'
 //     `eq` ballots and of its own ballot below its lane) is < k.
 // Padded tail columns (col >= d, i < g) are zeros ranked at their own
 // indices, as the plain version pads them.  Bitmap word t is the ballot of
 // the survivors of slot t; a survivor's value slot is the popcount of
-// earlier ballots plus popc(ballot & lanemask_lt).  Survivors drop their
-// int8 into a per-warp shared byte row, and the first ceil(k/4) lanes
-// assemble one little-endian value word each.
+// earlier ballots plus popc(ballot & lanemask_lt).  Survivors at slots < k
+// drop their int8 into a per-warp shared byte row (a NaN beside the k
+// winners has a slot >= k and writes nothing), and the first ceil(k/4)
+// lanes assemble one little-endian value word each.
 template <int NT>
 __global__ void sparsify_quant_pack_kernel(const float* __restrict__ x,
                                            int32_t* __restrict__ buf,
@@ -150,6 +196,7 @@ __global__ void sparsify_quant_pack_kernel(const float* __restrict__ x,
   float v[NT];
   unsigned key[NT];
   bool live[NT];
+  bool nan[NT];
   float amax = 0.0f;
 #pragma unroll
   for (int t = 0; t < NT; ++t) {
@@ -157,14 +204,16 @@ __global__ void sparsify_quant_pack_kernel(const float* __restrict__ x,
     const int col = j * g + i;
     live[t] = i < g;
     v[t] = (live[t] && col < d) ? xr[col] : 0.0f;   // tail pad reads 0
-    key[t] = __float_as_uint(v[t]) & 0x7fffffffu;
-    amax = fmaxf(amax, fabsf(v[t]));
+    const unsigned bits = __float_as_uint(v[t]) & 0x7fffffffu;
+    nan[t] = bits > 0x7f800000u;
+    key[t] = nan[t] ? 0u : bits;          // below every candidate (>= 1)
+    amax = max_nan(amax, fabsf(v[t]));
     s_val[warp][i] = 0;
   }
   amax = warp_max(amax);
   const float scale = group_scale(amax);
 
-  unsigned thr = 0;                       // #(key >= 0) = g >= k
+  unsigned thr = 0;                       // every key >= 0
   for (int b = 30; b >= 0; --b) {
     const unsigned cand = thr | (1u << b);
     int cnt = 0;
@@ -181,15 +230,17 @@ __global__ void sparsify_quant_pack_kernel(const float* __restrict__ x,
 #pragma unroll
   for (int t = 0; t < NT; ++t) {
     ahead += __popc(__ballot_sync(FULL, live[t] && key[t] > thr));
-    eq[t] = __ballot_sync(FULL, live[t] && key[t] == thr);
+    eq[t] = __ballot_sync(FULL, live[t] && !nan[t] && key[t] == thr);
   }
   const unsigned lt = (1u << lane) - 1u;
   unsigned ballots[NT];
   bool keep[NT];
 #pragma unroll
   for (int t = 0; t < NT; ++t) {
-    keep[t] = live[t] && (key[t] > thr ||
-                          (key[t] == thr && ahead + __popc(eq[t] & lt) < k));
+    // bitwise, not short-circuit: no branch around the ties' rank
+    const bool first_k = ahead + __popc(eq[t] & lt) < k;
+    keep[t] = nan[t] | (live[t] & ((key[t] > thr) | ((key[t] == thr) &
+                                                     first_k)));
     ahead += __popc(eq[t]);
     ballots[t] = __ballot_sync(FULL, keep[t]);
   }
@@ -197,10 +248,9 @@ __global__ void sparsify_quant_pack_kernel(const float* __restrict__ x,
   int before = 0;
 #pragma unroll
   for (int t = 0; t < NT; ++t) {
-    if (keep[t]) {
-      const int slot = before + __popc(ballots[t] & lt);
+    const int slot = before + __popc(ballots[t] & lt);
+    if (keep[t] && slot < k)
       s_val[warp][slot] = (int8_t)quant_value(v[t], scale);
-    }
     before += __popc(ballots[t]);
   }
   __syncwarp();
@@ -224,8 +274,53 @@ __global__ void sparsify_quant_pack_kernel(const float* __restrict__ x,
 }
 
 // --------------------------------------------------------- unpack + dequant
-// one warp per group: bitmap bit -> slot by popcount -> sign-extended byte
-// times the scale; off-mask positions write 0; only columns < d are written
+// Decode of one packed group, shared by unpack_dequant and kernel 5.  Lane
+// l holds the group's words l (lo) and l + 32 (hi; wpg <= 37), read with
+// one coalesced load, so nothing below waits on another global load: the
+// scale and bitmap word t come by __shfl_sync, value i = lane + 32 t gets
+// its slot from popcounts of the bitmap words, and its value word by
+// __shfl_sync.  store(t, q x scale) for t < bw, with q the sign-extended
+// byte on the mask at slots < k and 0 elsewhere: the reference's product
+// (a group with a NaN or inf scale decodes to NaN).  Kernel 5 passes
+// ZERO_X_SCALE false and takes 0 for q = 0: a NaN or inf scale makes its
+// survivors, and so its output row, NaN all the same, and the product
+// measured 2-12 % slower in its wide tiles.  The store is a callable, so
+// the values stay in registers.
+template <bool ZERO_X_SCALE, typename Store>
+__device__ __forceinline__ void decode_group(int lo, int hi, int bw, int k,
+                                             int lane, Store store) {
+  const float scale = __int_as_float(__shfl_sync(FULL, lo, bw));
+  const float zero = ZERO_X_SCALE ? 0.0f * scale : 0.0f;   // q = 0
+  const unsigned lt = (1u << lane) - 1u;
+  int before = 0;
+#pragma unroll
+  for (int t = 0; t < MAX_T; ++t) {
+    if (t >= bw) break;                   // warp-uniform
+    const unsigned bits = (unsigned)__shfl_sync(FULL, lo, t);
+    const int slot = before + __popc(bits & lt);
+    const int widx = bw + 1 + (slot >> 2);
+    const int wlo = __shfl_sync(FULL, lo, widx & 31);
+    const int whi = __shfl_sync(FULL, hi, widx & 31);
+    const unsigned word = (unsigned)(widx < 32 ? wlo : whi);
+    float v = zero;
+    if (((bits >> lane) & 1u) && slot < k)
+      v = (float)(int8_t)((word >> (8 * (slot & 3))) & 0xFFu) * scale;
+    store(t, v);
+    before += __popc(bits);
+  }
+}
+
+// The group's words lane and lane + 32 (0 past wpg, and when !ok).
+__device__ __forceinline__ void load_group(const int32_t* in, int wpg,
+                                           int lane, bool ok, int& lo,
+                                           int& hi) {
+  lo = ok && lane < wpg ? __ldg(in + lane) : 0;
+  hi = ok && lane + 32 < wpg ? __ldg(in + lane + 32) : 0;
+}
+
+// One warp per group; lane l stores columns j*g + l + 32 t (coalesced), only
+// those < d.  With no padded group (d == ng*g) the group starts at grp * g
+// and no division is needed.
 __global__ void unpack_dequant_kernel(const int32_t* __restrict__ buf,
                                       float* __restrict__ x,
                                       long long n_groups, int d, int g,
@@ -233,32 +328,21 @@ __global__ void unpack_dequant_kernel(const int32_t* __restrict__ buf,
   const int lane = threadIdx.x & 31;
   const long long grp =
       (long long)blockIdx.x * WARPS_PER_BLOCK + (threadIdx.x >> 5);
-  if (grp >= n_groups) return;
-  const long long row = grp / ng;
-  const int j = (int)(grp % ng);
-  const int32_t* in = buf + grp * wpg;
-  const int bw = (g + 31) / 32;
-  const float scale = __int_as_float(in[bw]);
-  const int32_t* words = in + bw + 1;
-  const unsigned lt = (1u << lane) - 1u;
-  float* xr = x + row * d;
-  int before = 0;
-  for (int t = 0; t < bw; ++t) {
-    const unsigned bits = (unsigned)in[t];
-    const int i = lane + 32 * t;
-    const int col = j * g + i;
-    float val = 0.0f;
-    if ((bits >> lane) & 1u) {
-      const int slot = before + __popc(bits & lt);
-      if (slot < k) {
-        const unsigned word = (unsigned)words[slot >> 2];
-        const int8_t b = (int8_t)((word >> (8 * (slot & 3))) & 0xFFu);
-        val = (float)b * scale;
-      }
-    }
-    if (i < g && col < d) xr[col] = val;
-    before += __popc(bits);
+  if (grp >= n_groups) return;            // whole warp exits together
+  int lo, hi;
+  load_group(buf + grp * wpg, wpg, lane, true, lo, hi);
+  long long first = grp * g;              // the group's first element
+  int cols = g;                           // its columns < d
+  if (d != ng * g) {
+    const long long row = grp / ng;
+    const int j = (int)(grp - row * ng);
+    first = row * d + (long long)j * g;
+    cols = min(g, d - j * g);
   }
+  decode_group<true>(lo, hi, (g + 31) / 32, k, lane, [&](int t, float v) {
+    const int i = lane + 32 * t;
+    if (i < cols) x[first + i] = v;
+  });
 }
 
 // ------------------------------------ unpack + dequant fused into a matmul
@@ -277,10 +361,9 @@ __global__ void unpack_dequant_kernel(const int32_t* __restrict__ buf,
 //    the next group, while this group computes (two buffers when ng > 1);
 //  - each warp reads its rows' group words with one coalesced load per row
 //    (lane l holds word l and word l + 32; wpg <= 37), issued with the
-//    copy; bitmap, scale and value words then come from __shfl_sync:
-//    bitmap bit -> slot by popcount -> value word -> sign-extended byte
-//    times the scale, into a g x R slab in shared memory (rows past `rows`
-//    are not decoded; their outputs are not written);
+//    copy, and decode them as unpack_dequant does (decode_group) into a
+//    g x R slab in shared memory (rows past `rows` are not decoded; their
+//    outputs are not written);
 //  - after one barrier every thread sums slab @ w-slab over the g positions
 //    in order with fmaf and adds the partial to its accumulator, the
 //    reference's group-by-group order.
@@ -357,7 +440,6 @@ unpack_dequant_matmul_kernel(const int32_t* __restrict__ buf,
   const int tr = (tid >> 4) * RT;        // first tile row of this thread
   const int tc = 4 * (tid & 15);         // first tile column of this thread
   const int bw = (g + 31) / 32;
-  const unsigned lt = (1u << lane) - 1u;
 
   auto stage_w = [&](int j) {            // w rows of group j -> buffer j & 1
     float* dst = smem + (j & 1) * g * MM_COLS;
@@ -385,9 +467,8 @@ unpack_dequant_matmul_kernel(const int32_t* __restrict__ buf,
 #pragma unroll
     for (int q = 0; q < RPW; ++q) {
       const long long row = row0 + warp + MM_WARPS * q;
-      const int32_t* in = buf + (row * ng + j) * wpg;
-      lo[q] = (row < rows && lane < wpg) ? __ldg(in + lane) : 0;
-      hi[q] = (row < rows && lane + 32 < wpg) ? __ldg(in + lane + 32) : 0;
+      load_group(buf + (row * ng + j) * wpg, wpg, lane, row < rows, lo[q],
+                 hi[q]);
     }
   };
 
@@ -399,24 +480,10 @@ unpack_dequant_matmul_kernel(const int32_t* __restrict__ buf,
     for (int q = 0; q < RPW; ++q) {
       const int r = warp + MM_WARPS * q;
       if (row0 + r >= rows) continue;    // warp-uniform
-      const float scale = __int_as_float(__shfl_sync(FULL, lo[q], bw));
-      int before = 0;
-#pragma unroll
-      for (int t = 0; t < MAX_T; ++t) {
-        if (t >= bw) break;
-        const unsigned bits = (unsigned)__shfl_sync(FULL, lo[q], t);
-        const int slot = before + __popc(bits & lt);
-        const int widx = bw + 1 + (slot >> 2);
-        const int wlo = __shfl_sync(FULL, lo[q], widx & 31);
-        const int whi = __shfl_sync(FULL, hi[q], widx & 31);
-        const unsigned word = (unsigned)(widx < 32 ? wlo : whi);
-        float val = 0.0f;
-        if (((bits >> lane) & 1u) && slot < k)
-          val = (float)(int8_t)((word >> (8 * (slot & 3))) & 0xFFu) * scale;
+      decode_group<false>(lo[q], hi[q], bw, k, lane, [&](int t, float v) {
         const int i = lane + 32 * t;
-        if (i < g) s_slab[i * SL + r] = val;
-        before += __popc(bits);
-      }
+        if (i < g) s_slab[i * SL + r] = v;
+      });
     }
     if (j + 1 < ng) {                    // next group's copies and words
       stage_w(j + 1);
@@ -508,12 +575,23 @@ int repro_quantize_int8(const float* x, int8_t* q, float* scales,
 int repro_dequantize_int8(const int8_t* q, const float* scales, float* x,
                           long long rows, int d, int g, int ng,
                           cudaStream_t stream) {
-  const long long n = rows * d;
-  if (n > 0) {
-    long long blocks = (n + THREADS - 1) / THREADS;
-    if (blocks > 65535LL * 8) blocks = 65535LL * 8;
-    dequantize_int8_kernel<<<(unsigned)blocks, THREADS, 0, stream>>>(
-        q, scales, x, n, d, g, ng);
+  if (rows > 0 && d > 0) {
+    const bool vec = d % 4 == 0 && g % 4 == 0 &&
+                     reinterpret_cast<uintptr_t>(q) % 4 == 0 &&
+                     reinterpret_cast<uintptr_t>(x) % 16 == 0;
+    const int runs = vec ? d / 4 : d;    // threads per row
+    const int bx = runs < DQ_THREADS ? runs : DQ_THREADS;
+    const int by = DQ_THREADS / bx;
+    const long long row_blocks = (rows + by - 1) / by;
+    const dim3 block(bx, by);
+    const dim3 grid((unsigned)((runs + bx - 1) / bx),
+                    (unsigned)(row_blocks < 65535 ? row_blocks : 65535));
+    if (vec)
+      dequantize_int8_kernel<4><<<grid, block, 0, stream>>>(q, scales, x,
+                                                             rows, d, g, ng);
+    else
+      dequantize_int8_kernel<1><<<grid, block, 0, stream>>>(q, scales, x,
+                                                             rows, d, g, ng);
   }
   return (int)cudaGetLastError();
 }

@@ -6,11 +6,24 @@ Replaces the Pallas TPU kernels of ``repro/kernels/quant.py``:
 
 Bound on H100: bytes.  Quantize reads 4 bytes and writes 1 (+4 per group)
 per value; dequantize the reverse; a handful of flops per value, far below
-the card's ~20 flops/byte ridge for f32.  The design keeps each group in
+the card's ~20 flops/byte ridge for f32.  Quantize keeps each group in
 registers: one warp per group (g <= 128, so <= 4 values per lane), amax by
-a warp-shuffle max, no shared memory and no block synchronisation; dequant
-is one thread per element.  At the main path's sizes (0.5-4 MB per call)
-launch overhead, not bandwidth, dominates.
+a warp-shuffle max, no shared memory and no block synchronisation.
+Dequantize gives a thread 4 consecutive int8 of one group (one 4-byte load
+beside its scale's, one float4 store: a warp's loads and stores are
+contiguous) on a 2-D (run, row) grid, so no index needs a 64-bit divide;
+widths and groups that are not multiples of 4 and misaligned tensors take
+one value a thread.  At the main path's sizes (0.5-4 MB per call) launch
+overhead, not bandwidth, dominates.
+
+Non-finite input.  For any f32 input (NaN, +-inf, +-0.0 and subnormals
+included) the kernels and the plain versions give the reference's int8
+values bit for bit, its scales bit for bit where they are finite or +-inf
+and NaN exactly where they are NaN (payloads aside: XLA keeps the input's,
+torch and CUDA canonicalise it), and its dequantized floats, NaN where they
+are NaN.  A group holding a NaN has a NaN scale, one holding +-inf an inf
+scale; every int8 of such a group is 0 (a NaN quotient casts to 0) and it
+dequantizes to NaN.
 
 The plain PyTorch versions (``repro_torch.core.compression``) run for CPU
 tensors; CUDA tensors always go to the kernel (``kernels/csrc/codec.cu``).

@@ -25,8 +25,10 @@ with every other value of its group.  The bitmap is the survivors'
 ballots, slots come by popcount, and the first ceil(k/4) lanes assemble
 the value words from a per-warp shared byte row: the dense f32 group never
 round-trips through device memory and no block-level synchronisation is
-needed.  Unpack is one warp per group with slots from popcount.  At 0.5-4
-MB per call launch overhead dominates.
+needed.  Unpack is one warp per group: one coalesced load of the group's
+words, then bitmap, scale and value words by warp shuffles and slots by
+popcounts (the decode kernel 5 shares), so no load waits on another.  At
+0.5-4 MB per call launch overhead dominates.
 
 ``unpack_dequant_matmul`` gives each block of 128 threads a 16 row by 64
 column output tile when that still gives every SM a block, else an 8 row
@@ -36,6 +38,21 @@ one coalesced load per row and decodes them by warp shuffles into a
 shared g-wide slab; after one barrier each thread sums its register patch
 over the group in order.  The next group's copy and words are in flight
 while a group computes.
+
+Non-finite input.  For any f32 input (NaN, +-inf, +-0.0 and subnormals
+included) the kernels and the plain versions follow the reference: bitmap
+and value words bit for bit; scale words bit for bit where the reference's
+scale is finite or +-inf and NaN exactly where it is NaN (payloads aside:
+XLA keeps the input's, torch and CUDA canonicalise it); ``unpack_dequant``'s
+floats equal, NaN where they are NaN, and ``unpack_dequant_matmul``'s
+output NaN where the plain version's is (a NaN or inf scale makes the
+group's survivors NaN).  A group holding a NaN has a NaN scale, one holding
++-inf an inf scale, and every int8 of it is 0, so it decodes to NaN.  In
+the top-k a NaN is beaten by nothing and beats nothing: each NaN survives
+beside the k winners, its bit set and its value slot (>= k) dropped.  On
+the reference's side XLA on the CPU compares subnormals as zero, so on a
+group of zeros and subnormals its bitmap may keep other zero-valued
+positions than the port's; the values and dequantized floats agree.
 
 The plain PyTorch versions (``repro_torch.core.compression``) run for CPU
 tensors; CUDA tensors always go to the kernel (``kernels/csrc/codec.cu``).
@@ -53,13 +70,8 @@ WIRE_K = C.WIRE_K
 
 def sparsify_quant_pack(x: torch.Tensor, k_frac: float = WIRE_K,
                         group: int = GROUP) -> torch.Tensor:
-    """x (..., d) f32 -> packed int32 wire buffer (..., ng*wpg).
-
-    Finite inputs only.  For finite x (+-0.0, subnormals and exact ties
-    included) the kernel's words equal the plain version's bit for bit.
-    Non-finite values are outside the wire's contract: the plain version's
-    amax propagates a NaN into the scale and ranks it by IEEE comparisons,
-    the kernel's fmaxf drops it from the amax and ranks it above +inf."""
+    """x (..., d) f32 -> packed int32 wire buffer (..., ng*wpg), under the
+    non-finite contract above (exact ties go to the lower index)."""
     _check_tensor(x, "x", torch.float32)
     _check_group(group)
     if x.device.type == "cpu":

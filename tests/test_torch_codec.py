@@ -1,8 +1,11 @@
 """The port's plain codec is bit-exact against the JAX oracles
 (repro.core.compression) at the main path's cut shapes and the edge cases:
 padded tail group (d=200), k not a multiple of 4, tie-heavy integer inputs,
-all-zero groups.  Also the byte accounting and the kernel wrappers' CPU
-dispatch and argument checks."""
+all-zero groups, and NaN / +-inf (the ``nonfinite`` fill), held to the
+non-finite contract: int8 values, bitmap and value words bit for bit, scales
+and decoded floats NaN exactly where the reference's are and bit for bit
+elsewhere.  Also the byte accounting and the kernel wrappers' CPU dispatch
+and argument checks."""
 import functools
 
 import jax
@@ -11,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from _codec_inputs import nonfinite_input, same_floats, same_wire
 from _torch_parity import cap_torch_threads
 from repro.core import compression as J
 from repro_torch.core import compression as T
@@ -22,7 +26,7 @@ cap_torch_threads()
 SHAPES = [(2, 32, 32, 64), (2, 16, 16, 128), (2, 8, 8, 256), (2, 4, 4, 512),
           (3, 200), (5, 48)]
 K_FRACS = [0.1, 0.25, 0.3, 1.0]
-FILLS = ["normal", "ties", "zeros"]
+FILLS = ["normal", "ties", "zeros", "nonfinite"]
 
 
 def make_input(shape, fill, seed=0):
@@ -31,6 +35,8 @@ def make_input(shape, fill, seed=0):
         a = rng.normal(size=shape) * 3.0
     elif fill == "ties":
         a = rng.integers(-3, 4, size=shape)
+    elif fill == "nonfinite":
+        return nonfinite_input(shape, seed)
     else:
         a = np.zeros(shape)
         half = shape[-1] // 2
@@ -68,10 +74,10 @@ def test_quant_bit_exact_vs_jax_oracle(shape, fill):
     qt, st = T.quantize_int8(torch.from_numpy(x))
     assert qt.dtype == torch.int8 and st.dtype == torch.float32
     assert np.array_equal(np.asarray(qj), qt.numpy())
-    assert np.array_equal(np.asarray(sj), st.numpy())
+    assert same_floats(sj, st.numpy())
     dj = np.asarray(_jit(J.dequantize_int8)(qj, sj))
     dt = T.dequantize_int8(qt, st).numpy()
-    assert np.array_equal(dj, dt)
+    assert same_floats(dj, dt)
 
 
 @pytest.mark.parametrize("k_frac", K_FRACS)
@@ -80,21 +86,40 @@ def test_quant_bit_exact_vs_jax_oracle(shape, fill):
 def test_wire_bit_exact_vs_jax_oracle(shape, fill, k_frac):
     x = make_input(shape, fill)
     d = shape[-1]
+    g, _, k, _ = T.wire_layout(d, k_frac)
     bj = j_pack(x, k_frac)
     bt = T.sparsify_quant_pack_ref(torch.from_numpy(x), k_frac)
     assert bt.dtype == torch.int32 and bj.dtype == np.int32
-    assert np.array_equal(bj, bt.numpy())
-    assert np.array_equal(j_unpack(bj, d, k_frac),
-                          T.wire_dequant_ref(bt, d, k_frac).numpy())
-    assert np.array_equal(j_dense(x, k_frac),
-                          T.wire_topk_dense(torch.from_numpy(x),
-                                            k_frac).numpy())
+    assert same_wire(bj, bt.numpy(), g, k)
+    assert same_floats(j_unpack(bj, d, k_frac),
+                       T.wire_dequant_ref(bt, d, k_frac).numpy())
+    assert same_floats(j_dense(x, k_frac),
+                       T.wire_topk_dense(torch.from_numpy(x),
+                                         k_frac).numpy())
     # round trip of the intermediate pieces (q, scale, mask)
     qj, sj, mj = _jit(J.unpack_wire, 1, 2)(jnp.asarray(bj), d, k_frac)
     qt, st, mt = T.unpack_wire(bt, d, k_frac)
     assert np.array_equal(np.asarray(qj), qt.numpy())
-    assert np.array_equal(np.asarray(sj), st.numpy())
+    assert same_floats(sj, st.numpy())
     assert np.array_equal(np.asarray(mj), mt.numpy())
+
+
+def test_nan_survives_beside_the_k_winners():
+    """A NaN is beaten by nothing and beats nothing: every NaN of a group
+    sets its bit beside the k finite winners (three NaNs at k = 1 used to
+    raise in the pack), its value slot >= k is dropped, the group's int8
+    values are 0 and it decodes to NaN, as in the reference."""
+    x = np.arange(1, 65, dtype=np.float32)[None].repeat(2, 0)
+    x[0, [3, 10, 20]] = np.nan
+    buf = T.sparsify_quant_pack_ref(torch.from_numpy(x), 0.001)   # k = 1
+    bj = j_pack(x, 0.001)
+    assert same_wire(bj, buf.numpy(), 64, 1)
+    q, s, mask = T.unpack_wire(buf, 64, 0.001)
+    assert mask[0].nonzero().ravel().tolist() == [3, 10, 20, 63]
+    assert mask[1].nonzero().ravel().tolist() == [63]
+    assert not q[0].any() and np.isnan(s[0].item())
+    dense = T.wire_dequant_ref(buf, 64, 0.001)
+    assert torch.isnan(dense[0]).all() and not torch.isnan(dense[1]).any()
 
 
 def test_topk_exactly_k_with_ties():

@@ -1,12 +1,16 @@
 """The port's plain codec is bit-exact against the Pallas TPU kernels it
 replaces, run as tests/test_kernels.py runs them (interpret=True on CPU):
 repro.kernels.quant.quantize_int8/dequantize_int8 and
-repro.kernels.wire.sparsify_quant_pack/unpack_dequant."""
+repro.kernels.wire.sparsify_quant_pack/unpack_dequant.  On NaN / +-inf
+(the ``nonfinite`` fill) they are held to the non-finite contract: int8
+values, bitmap and value words bit for bit, scales and decoded floats NaN
+exactly where the kernels' are and bit for bit elsewhere."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from _codec_inputs import nonfinite_input, same_floats, same_wire
 from _torch_parity import cap_torch_threads
 from repro.kernels import quant as PQ
 from repro.kernels import wire as PW
@@ -18,7 +22,10 @@ SHAPES = [(2, 32, 32, 64), (2, 16, 16, 128), (2, 8, 8, 256), (2, 4, 4, 512),
           (3, 200)]
 CASES = ([(s, "normal", 0.25) for s in SHAPES]
          + [((3, 200), "normal", kf) for kf in (0.1, 0.3, 1.0)]
-         + [((2, 8, 8, 256), "ties", 0.25), ((4, 128), "zeros", 0.25)])
+         + [((2, 8, 8, 256), "ties", 0.25), ((4, 128), "zeros", 0.25)]
+         + [((2, 8, 8, 256), "nonfinite", 0.25),
+            ((14, 200), "nonfinite", 0.1), ((14, 64), "nonfinite", 0.001),
+            ((7, 48), "nonfinite", 1.0)])
 
 
 def make_input(shape, fill, seed=1):
@@ -27,6 +34,8 @@ def make_input(shape, fill, seed=1):
         a = rng.normal(size=shape) * 3.0
     elif fill == "ties":
         a = rng.integers(-3, 4, size=shape)
+    elif fill == "nonfinite":
+        return nonfinite_input(shape, seed)
     else:
         a = np.zeros(shape)
     return a.astype(np.float32)
@@ -36,19 +45,18 @@ def make_input(shape, fill, seed=1):
 def test_codec_bit_exact_vs_pallas_interpret(shape, fill, k_frac):
     x = make_input(shape, fill)
     d = shape[-1]
+    g, _, k, _ = T.wire_layout(d, k_frac)
     xt = torch.from_numpy(x)
     qp, sp = PQ.quantize_int8(jnp.asarray(x), interpret=True)
     qt, st = T.quantize_int8(xt)
     assert np.array_equal(np.asarray(qp), qt.numpy())
-    assert np.array_equal(np.asarray(sp), st.numpy())
-    assert np.array_equal(np.asarray(PQ.dequantize_int8(qp, sp,
-                                                        interpret=True)),
-                          T.dequantize_int8(qt, st).numpy())
+    assert same_floats(sp, st.numpy())
+    assert same_floats(PQ.dequantize_int8(qp, sp, interpret=True),
+                       T.dequantize_int8(qt, st).numpy())
     bp = np.asarray(PW.sparsify_quant_pack(jnp.asarray(x), k_frac,
                                            interpret=True))
     bt = T.sparsify_quant_pack_ref(xt, k_frac)
-    assert np.array_equal(bp, bt.numpy())
-    assert np.array_equal(
-        np.asarray(PW.unpack_dequant(jnp.asarray(bp), d, k_frac,
-                                     interpret=True)),
-        T.wire_dequant_ref(bt, d, k_frac).numpy())
+    assert same_wire(bp, bt.numpy(), g, k)
+    assert same_floats(PW.unpack_dequant(jnp.asarray(bp), d, k_frac,
+                                         interpret=True),
+                       T.wire_dequant_ref(bt, d, k_frac).numpy())

@@ -1,5 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
-card — the codec bit-exact (torch.equal), unpack_dequant_matmul /
+card — the codec bit-exact (on NaN / +-inf input under the non-finite
+contract: NaN exactly where the plain version's is, every other float,
+int8 and word bit for bit), unpack_dequant_matmul /
 rmsnorm / flash attention / SSD within stated float32 tolerances at their
 paths' shapes and edge shapes — short mlp9 runs (single RSU, and one
 multi-RSU scenario round on topk_int8) on cuda against the same runs on the
@@ -13,6 +15,7 @@ jax (the card machine has none)."""
 import numpy as np
 import pytest
 import torch
+from _codec_inputs import nonfinite_input, same_floats, same_wire
 
 from repro_torch.core import compression as C
 from repro_torch.kernels import LAUNCHES, launch_counts, quant, wire
@@ -35,7 +38,11 @@ CASES = [((16, 32, 32, 64), 0.25, "normal"), ((16, 16, 16, 128), 0.25,
          ((8, 64), 0.25, "normal"), ((16, 64), 0.25, "normal"),
          ((16, 128), 0.001, "normal"), ((16, 64), 0.001, "ties"),
          ((16, 128), 0.25, "subnormal"), ((16, 200), 0.1, "subnormal"),
-         ((32, 128), 0.25, "equal"), ((32, 128), 1.0, "equal")]
+         ((32, 128), 0.25, "equal"), ((32, 128), 1.0, "equal"),
+         # NaN, -NaN, +-inf, whole NaN groups beside finite ones; k = 1
+         # with three NaNs in a group; the padded tail group
+         ((16, 8, 8, 256), 0.25, "nonfinite"), ((14, 64), 0.001, "nonfinite"),
+         ((21, 200), 0.1, "nonfinite"), ((8, 64), 0.25, "nonfinite")]
 
 
 @pytest.fixture
@@ -56,6 +63,8 @@ def _input(shape, fill, dev, seed=0):
         a = rng.integers(-3, 4, size=shape)
     elif fill == "equal":
         a = np.where(rng.random(shape) < 0.5, -1.5, 1.5)
+    elif fill == "nonfinite":
+        return torch.from_numpy(nonfinite_input(shape, seed)).to(dev)
     elif fill == "subnormal":
         # +-0.0 and +-subnormals (repeated: ties), a few normal values
         sub = (rng.integers(1, 1 << 23, size=shape).astype(np.uint32)
@@ -70,23 +79,57 @@ def _input(shape, fill, dev, seed=0):
     return torch.from_numpy(a.astype(np.float32)).to(dev)
 
 
+def _same(a, b):
+    return same_floats(a.cpu().numpy(), b.cpu().numpy())
+
+
 @pytest.mark.parametrize("shape,k_frac,fill", CASES)
 def test_kernels_equal_plain_versions(dev, shape, k_frac, fill):
     x = _input(shape, fill, dev)
     d = shape[-1]
+    g, _, k, _ = C.wire_layout(d, k_frac)
     before = launch_counts()
     q, s = quant.quantize_int8(x)
     qr, sr = C.quantize_int8(x)
-    assert torch.equal(q, qr) and torch.equal(s, sr)
-    assert torch.equal(quant.dequantize_int8(q, s), C.dequantize_int8(q, s))
+    assert torch.equal(q, qr) and _same(s, sr)
+    assert _same(quant.dequantize_int8(q, s), C.dequantize_int8(q, s))
     buf = wire.sparsify_quant_pack(x, k_frac)
-    assert torch.equal(buf, C.sparsify_quant_pack_ref(x, k_frac))
-    assert torch.equal(wire.unpack_dequant(buf, d, k_frac),
-                       C.wire_dequant_ref(buf, d, k_frac))
+    assert same_wire(buf.cpu().numpy(),
+                     C.sparsify_quant_pack_ref(x, k_frac).cpu().numpy(), g, k)
+    assert _same(wire.unpack_dequant(buf, d, k_frac),
+                 C.wire_dequant_ref(buf, d, k_frac))
     after = launch_counts()
     codec = ("quantize_int8", "dequantize_int8", "sparsify_quant_pack",
              "unpack_dequant")
     assert all(after[k] == before[k] + (k in codec) for k in after)
+
+
+# (rows, d, group): custom groups (g = 48, 32), padded tail groups (d =
+# 200, 208), d and g not multiples of 16 (40), d and g not multiples of 4
+# (a custom g = 45, d = 50): the kernel's vector and one-value paths
+DEQUANT_SHAPES = [(16, 96, 48), (7, 48, 128), (33, 256, 32), (64, 200, 128),
+                  (9, 208, 128), (5, 40, 128), (6, 90, 45), (3, 50, 128)]
+
+
+@pytest.mark.parametrize("rows,d,group", DEQUANT_SHAPES)
+@pytest.mark.parametrize("offset", [0, 1])
+def test_dequantize_kernel_widths_and_alignment(dev, rows, d, group,
+                                                offset):
+    """dequantize_int8 at custom groups, padded tails and odd widths, from
+    an aligned q and from a contiguous one a byte past alignment; NaN and
+    inf scales beside finite ones."""
+    rng = np.random.default_rng(rows * d + offset)
+    ng = -(-d // min(group, d))
+    flat = torch.from_numpy(rng.integers(-127, 128, size=rows * d + offset)
+                            .astype(np.int8)).to(dev)
+    q = flat[offset:].view(rows, d)
+    s = (np.abs(rng.normal(size=(rows, ng))) / 127).astype(np.float32)
+    s[0, 0], s[-1, -1] = np.nan, np.inf
+    s = torch.from_numpy(s).to(dev)
+    n = LAUNCHES["dequantize_int8"]
+    got = quant.dequantize_int8(q, s, group=group)
+    assert LAUNCHES["dequantize_int8"] == n + 1
+    assert _same(got, C.dequantize_int8(q, s, group=group))
 
 
 def test_wrappers_refuse_non_contiguous(dev):
@@ -152,6 +195,23 @@ def test_unpack_dequant_matmul_matches_plain(dev, rows, d, n):
     assert LAUNCHES["unpack_dequant_matmul"] == cnt + 1
     torch.testing.assert_close(got, C.wire_dequant_matmul_ref(buf, w),
                                rtol=MM_TOL, atol=MM_TOL)
+
+
+@pytest.mark.parametrize("rows,d,n", [(16, 64, 64), (21, 200, 32),
+                                      (37, 130, 70)])
+def test_unpack_dequant_matmul_nonfinite(dev, rows, d, n):
+    """NaN and +-inf smashed values: a group that decodes to NaN makes its
+    output row NaN, as in the plain version; the other rows agree within
+    MM_TOL."""
+    x = torch.from_numpy(nonfinite_input((rows, d), rows)).to(dev)
+    w = _randn((d, n), dev, rows + 1, (2.0 / d) ** 0.5)
+    buf = wire.sparsify_quant_pack(x)
+    got = wire.unpack_dequant_matmul(buf, w)
+    want = C.wire_dequant_matmul_ref(buf, w)
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan) and nan.any() and not nan.all()
+    torch.testing.assert_close(got[~nan], want[~nan], rtol=MM_TOL,
+                               atol=MM_TOL)
 
 
 def test_unpack_dequant_matmul_does_not_materialize(dev):

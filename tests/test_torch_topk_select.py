@@ -9,6 +9,10 @@ select with warp ballots:
 
 - key = the float32 bits of |x| as uint32 (the sign bit cleared); lanes
   with i >= g hold no key and ballot 0;
+- a NaN lane (bits of |x| above 0x7f800000, those of +inf) holds key 0,
+  which no candidate of the descent (>= 1) reaches, is left out of the
+  ``eq`` ballot, and sets its bit: the reference's NaN is beaten by nothing
+  and beats nothing, so it survives beside the k winners;
 - T = the largest t with #(key >= t) >= k, set bit by bit from bit 30 down,
   each count the popcounts of one ballot per slot; the descent stops as
   soon as a candidate's count equals k;
@@ -42,6 +46,7 @@ from repro_torch.core import compression as C
 
 LANES = 32
 SIGN = np.uint32(0x80000000)
+INF_BITS = np.uint32(0x7f800000)          # keys above it are NaNs
 # does XLA:CPU compare the smallest subnormal as zero?
 JAX_FLUSHES_SUBNORMALS = not bool(jnp.float32(1e-45) > jnp.float32(0.0))
 
@@ -67,6 +72,8 @@ def warp_select(xg: np.ndarray, k) -> np.ndarray:
     bits[:, :g] = xg.astype(np.float32).view(np.uint32)
     key = (bits & ~SIGN).reshape(n_groups, nt, LANES)       # [grp, t, lane]
     live = (np.arange(nt * LANES) < g).reshape(1, nt, LANES)
+    nan = live & (key > INF_BITS)
+    key = np.where(nan, np.uint32(0), key)
     thr = np.zeros((n_groups, 1, 1), np.uint32)
     done = np.zeros((n_groups, 1, 1), bool)
     for b in range(30, -1, -1):
@@ -76,13 +83,13 @@ def warp_select(xg: np.ndarray, k) -> np.ndarray:
         thr = np.where(take, cand, thr)
         done |= take & (cnt == k)           # the kernel leaves its loop
     ahead = popc(ballot(live & (key > thr))).sum(-1)          # (G,)
-    eq = ballot(live & (key == thr))                          # (G, nt)
+    eq = ballot(live & ~nan & (key == thr))                   # (G, nt)
     eq_before = np.cumsum(popc(eq), -1) - popc(eq)            # earlier slots
     lt = (np.uint32(1) << np.arange(LANES, dtype=np.uint32)) - np.uint32(1)
     rank = eq_before[..., None] + popc(eq[..., None] & lt)    # (G, nt, 32)
     keep = live & ((key > thr)
                    | ((key == thr) & (ahead[:, None, None] + rank < k)))
-    return ballot(keep)
+    return ballot(keep | nan)
 
 
 def mask_words(mask: np.ndarray) -> np.ndarray:
@@ -116,8 +123,11 @@ def jax_words(xg: np.ndarray, k) -> np.ndarray:
 def check(xg: np.ndarray, k) -> None:
     got = warp_select(xg, k)
     np.testing.assert_array_equal(got, port_words(xg, k))
-    want = np.broadcast_to(np.asarray(k).reshape(-1), (len(xg),))
-    np.testing.assert_array_equal(popc(got).sum(-1), want)   # exactly k
+    # exactly k of the non-NaN values (all when fewer), and every NaN
+    nan = np.isnan(xg).sum(-1)
+    want = np.minimum(np.broadcast_to(np.asarray(k).reshape(-1),
+                                      (len(xg),)), xg.shape[-1] - nan) + nan
+    np.testing.assert_array_equal(popc(got).sum(-1), want)
     jax_in = flush_subnormals(xg) if JAX_FLUSHES_SUBNORMALS else xg
     np.testing.assert_array_equal(warp_select(jax_in, k),
                                   jax_words(xg, k))
@@ -134,6 +144,21 @@ def make_groups(fill: str, n_groups: int, g: int, seed: int) -> np.ndarray:
         a = np.where(rng.random(shape) < 0.5, -1.5, 1.5)
     elif fill == "all_zero":
         a = np.zeros(shape)
+    elif fill == "nonfinite":
+        # NaNs of both signs, quiet and signalling payloads (keys just above
+        # and far above +inf's), and +-inf (ties of them) among normal
+        # values and zeros (ties at key 0, a NaN lane's key); the last
+        # group all NaN
+        nans = np.array([0x7fc00000, 0xffc00000, 0x7f800001, 0xff800001,
+                         0x7fffffff], np.uint32).view(np.float32)
+        a = rng.normal(size=shape).astype(np.float32)
+        a = np.where(rng.random(shape) < 0.2, np.float32(0.0), a)
+        a = np.where(rng.random(shape) < 0.1,
+                     rng.choice(nans, size=shape), a)
+        infs = np.array([-np.inf, np.inf], np.float32)
+        a = np.where(rng.random(shape) < 0.05, rng.choice(infs, size=shape),
+                     a)
+        a[-1] = nans[0]
     elif fill == "signed_zeros":
         # +0.0 / -0.0 with a few normal values among them
         a = np.where(rng.random(shape) < 0.5, -0.0, 0.0)
@@ -149,7 +174,7 @@ def make_groups(fill: str, n_groups: int, g: int, seed: int) -> np.ndarray:
 
 
 FILLS = ("normal", "int_ties", "all_equal", "all_zero", "signed_zeros",
-         "subnormals")
+         "subnormals", "nonfinite")
 
 
 @pytest.mark.parametrize("g", [48, 64, 128])
@@ -162,7 +187,8 @@ def test_warp_select_matches_topk_mask(g, fill):
 
 
 @pytest.mark.parametrize("k_frac", [0.01, 0.1, 0.25, 0.3, 1.0])
-@pytest.mark.parametrize("fill", ["normal", "int_ties", "subnormals"])
+@pytest.mark.parametrize("fill", ["normal", "int_ties", "subnormals",
+                                  "nonfinite"])
 def test_warp_select_padded_tail_matches_pack(k_frac, fill):
     """d = 200: two groups of 128, the second padded with 56 zeros that
     rank at their own indices; the emulated ballots equal the bitmap words
