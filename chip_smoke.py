@@ -17,17 +17,23 @@ neither ``jax`` nor ``repro``.  In order it:
    of the CPU tests, the selection's edges (k = 1, +-0.0 next to
    subnormals, all-equal groups of 128) and NaN / +-inf input (the
    non-finite contract: NaN exactly where the plain version's is, every
-   other float, int8 and word bit for bit); at the cut shapes and the
-   scenario path's batch-8 shape it times kernel and plain version on the
-   device (``torch.profiler`` kernel time per call), the wrapper call (CUDA
-   events) and, for dequantize_int8, one ``torch.mul`` of q by its scales
-   (the same function bit for bit), beside the bytes bound; and it times
-   the launch floor (the device time of ``zero_()`` on one element);
+   other float, int8 and word bit for bit), in bfloat16 too (x, and the
+   decoders' output, at cut6 and the scenario shape, NaN / +-inf at cut6)
+   and at smollm's smashed tensor under ``compress_smashed`` (8192, 960);
+   at the cut shapes, the scenario path's batch-8 shape and cut6 in
+   bfloat16 it times kernel and plain version on the device
+   (``torch.profiler`` kernel time per call), the wrapper call (CUDA
+   events) and, for dequantize_int8 in float32, one ``torch.mul`` of q by
+   its scales (the same function bit for bit), beside the bytes bound (2
+   bytes a value for a bfloat16 input or output); quantize_int8 and
+   dequantize_int8 also at (8192, 960); and it times the launch floor (the
+   device time of ``zero_()`` on one element);
 4. holds unpack_dequant_matmul (the RSU's first matmul reading the packed
    topk_int8 buffer) to its plain version within 1e-5 + 1e-5·|b| (TF32
    off) at the scenario path's shapes (rows 8 and 16, d = n = 64), one
    row, a partial 8-row tile (rows 9), the CPU tests' shapes, a wide case
-   (rows 4096, d 512, n 64) and two of NaN / +-inf input (the output NaN
+   (rows 4096, d 512, n 64), the path's shape with w in bfloat16 and two
+   of NaN / +-inf input (the output NaN
    exactly where the plain version's is); on the wide case the call's peak
    allocation stays below its output plus the dense smashed tensor, and
    its gradient keeps no float32 tensor of the smashed shape; its device
@@ -95,7 +101,8 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (NVIDIA data sheet)
 BATCH = 16
 CUT_SHAPES = {2: (BATCH, 32, 32, 64), 4: (BATCH, 16, 16, 128),
               6: (BATCH, 8, 8, 256), 8: (BATCH, 4, 4, 512)}
-# (label, shape, k_frac, fill): the cut shapes, then the CPU tests' edges
+# (label, shape, k_frac, fill): the cut shapes, then the CPU tests' edges;
+# a label ending in "_bf16" runs x (and the decoders' output) in bfloat16
 CASES = ([(f"cut{c}", s, 0.25, "normal") for c, s in CUT_SHAPES.items()]
          + [("d200_k0.1", (64, 200), 0.1, "normal"),
             ("d200_k0.3", (64, 200), 0.3, "normal"),
@@ -116,9 +123,19 @@ CASES = ([(f"cut{c}", s, 0.25, "normal") for c, s in CUT_SHAPES.items()]
             ("nonfinite_cut6", (BATCH, 8, 8, 256), 0.25, "nonfinite"),
             ("nonfinite_k1_d64", (14, 64), 0.001, "nonfinite"),
             ("nonfinite_d200", (21, 200), 0.1, "nonfinite"),
-            ("nonfinite_b8", (8, 64), 0.25, "nonfinite")])
-# labels timed in phase 3: the cut shapes and the scenario path's batch 8
-TIMED = ("cut2", "cut4", "cut6", "cut8", "path_b8")
+            ("nonfinite_b8", (8, 64), 0.25, "nonfinite"),
+            # the reference's bfloat16 inputs and outputs
+            ("cut6_bf16", (BATCH, 8, 8, 256), 0.25, "normal"),
+            ("path_b8_bf16", (8, 64), 0.25, "normal"),
+            ("nonfinite_cut6_bf16", (BATCH, 8, 8, 256), 0.25, "nonfinite"),
+            # smollm-360m's smashed tensor under compress_smashed (batch 8,
+            # prompt 1024, width 960)
+            ("lm_smollm", (8, 1024, 960), 0.25, "normal")])
+# labels timed in phase 3: the cut shapes, the scenario path's batch 8 and
+# cut6 in bfloat16; the int8 pair also at smollm's smashed tensor
+TIMED = ("cut2", "cut4", "cut6", "cut8", "path_b8", "cut6_bf16")
+QUANT_TIMED = {"quantize_int8": ("lm_smollm",),
+               "dequantize_int8": ("lm_smollm",)}
 KERNEL_META = {
     "quantize_int8": "src/repro/kernels/quant.py:37",
     "dequantize_int8": "src/repro/kernels/quant.py:76",
@@ -139,6 +156,8 @@ MM_CASES = [("path_b8", 8, 64, 64), ("path_b16", 16, 64, 64),
             ("d48_n16", 16, 48, 16), ("ragged", 37, 130, 70),
             ("wide", 4096, 512, 64), ("wide_n128", 4096, 256, 128),
             ("wide_ragged", 4096, 130, 70),
+            # w in bfloat16 (a label ending in "_bf16")
+            ("path_b8_bf16", 8, 64, 64),
             # NaN / +-inf smashed values: NaN output rows
             ("nonfinite_b16", 16, 64, 64), ("nonfinite_d200", 21, 200, 32)]
 # ---- the multi-RSU scenario path (benchmarks/bench_scenarios.py's cell)
@@ -282,9 +301,9 @@ def _same(a, b, scale_word=None):
     if not a.is_floating_point():
         return torch.equal(a, b), _abs_err(a, b)
     nan = torch.isnan(a)
+    bits = torch.int32 if a.element_size() == 4 else torch.int16
     ok = (torch.equal(nan, torch.isnan(b))
-          and torch.equal(a[~nan].view(torch.int32),
-                          b[~nan].view(torch.int32)))
+          and torch.equal(a[~nan].view(bits), b[~nan].view(bits)))
     return ok, _abs_err(a, b)
 
 
@@ -322,10 +341,12 @@ def _make_input(shape, fill, seed):
     return torch.from_numpy(a.astype(np.float32)).cuda()
 
 
-def _bound_ms(name, shape, k_frac):
+def _bound_ms(name, shape, k_frac, esize=4):
     """Bytes each input read once and each output written once, over HBM
-    bandwidth.  Each function does a few f32 operations per element, which
-    over the card's f32 rate take far less than its bytes, so bytes bound."""
+    bandwidth; the float tensor (x, or a decoder's output) has ``esize``
+    bytes a value.  Each function does a few f32 operations per element,
+    which over the card's f32 rate take far less than its bytes, so bytes
+    bound."""
     from repro_torch.core import compression as C
     d = shape[-1]
     n = math.prod(shape)
@@ -333,10 +354,10 @@ def _bound_ms(name, shape, k_frac):
     g, ng, k, wpg = C.wire_layout(d, k_frac)
     scales = 4 * rows * ng
     wire = 4 * rows * ng * wpg
-    nbytes = {"quantize_int8": 4 * n + n + scales,
-              "dequantize_int8": n + scales + 4 * n,
-              "sparsify_quant_pack": 4 * n + wire,
-              "unpack_dequant": wire + 4 * n}[name]
+    nbytes = {"quantize_int8": esize * n + n + scales,
+              "dequantize_int8": n + scales + esize * n,
+              "sparsify_quant_pack": esize * n + wire,
+              "unpack_dequant": wire + esize * n}[name]
     return 1e3 * nbytes / HBM_BYTES_PER_S
 
 
@@ -348,7 +369,8 @@ def check_kernels():
     from repro_torch.kernels import quant, wire
     out = {name: {} for name in KERNEL_META}
     for ci, (label, shape, kf, fill) in enumerate(CASES):
-        x = _make_input(shape, fill, seed=ci)
+        dt = torch.bfloat16 if label.endswith("_bf16") else torch.float32
+        x = _make_input(shape, fill, seed=ci).to(dt)
         d = shape[-1]
         rows = math.prod(shape) // d
         g, ng, k, wpg = C.wire_layout(d, kf)
@@ -357,27 +379,29 @@ def check_kernels():
         buf = wire.sparsify_quant_pack(x, kf)
         buf_ref = C.sparsify_quant_pack_ref(x, kf)
         lib_dequant = None
-        if ng * g == d:             # one PyTorch call, the same function
+        # one PyTorch call, the same function (in f32: a bf16 output would
+        # take a second call)
+        if ng * g == d and dt == torch.float32:
             def lib_dequant(q=q_ref, s=s_ref, rows=rows, ng=ng, g=g):
                 return torch.mul(q.view(rows, ng, g), s.view(rows, ng, 1))
         pairs = {
             "quantize_int8": ((q, s), (q_ref, s_ref),
                               lambda: quant.quantize_int8(x),
                               lambda: C.quantize_int8(x), None),
-            "dequantize_int8": ((quant.dequantize_int8(q_ref, s_ref),),
-                                (C.dequantize_int8(q_ref, s_ref),),
-                                lambda: quant.dequantize_int8(q_ref, s_ref),
-                                lambda: C.dequantize_int8(q_ref, s_ref),
-                                lib_dequant),
+            "dequantize_int8": (
+                (quant.dequantize_int8(q_ref, s_ref, dtype=dt),),
+                (C.dequantize_int8(q_ref, s_ref, dt),),
+                lambda: quant.dequantize_int8(q_ref, s_ref, dtype=dt),
+                lambda: C.dequantize_int8(q_ref, s_ref, dt), lib_dequant),
             "sparsify_quant_pack": ((buf,), (buf_ref,),
                                     lambda: wire.sparsify_quant_pack(x, kf),
                                     lambda: C.sparsify_quant_pack_ref(x, kf),
                                     None),
-            "unpack_dequant": ((wire.unpack_dequant(buf_ref, d, kf),),
-                               (C.wire_dequant_ref(buf_ref, d, kf),),
-                               lambda: wire.unpack_dequant(buf_ref, d, kf),
-                               lambda: C.wire_dequant_ref(buf_ref, d, kf),
-                               None),
+            "unpack_dequant": (
+                (wire.unpack_dequant(buf_ref, d, kf, dtype=dt),),
+                (C.wire_dequant_ref(buf_ref, d, kf, dtype=dt),),
+                lambda: wire.unpack_dequant(buf_ref, d, kf, dtype=dt),
+                lambda: C.wire_dequant_ref(buf_ref, d, kf, dtype=dt), None),
         }
         if lib_dequant is not None:     # the yardstick computes it too
             lib_ok, _ = _same(lib_dequant().reshape(q_ref.shape),
@@ -393,17 +417,20 @@ def check_kernels():
             equal = all(ok for ok, _ in same)
             err = max(e for _, e in same)
             row = {"shape": list(shape), "k_frac": kf, "fill": fill,
-                   "equal": equal, "max_abs_err": err}
-            if label in TIMED:
+                   "dtype": str(dt).replace("torch.", ""), "equal": equal,
+                   "max_abs_err": err}
+            if label in TIMED or label in QUANT_TIMED.get(name, ()):
                 row["ms"] = _device_ms(run_k, 200, f"{name}_kernel")
                 row["plain_ms"] = _device_ms(run_p, 100)
                 row["call_ms"] = _call_ms(run_k, 200)
-                row["bound_ms"] = _bound_ms(name, shape, kf)
+                row["bound_ms"] = _bound_ms(name, shape, kf,
+                                            x.element_size())
                 row["library_ms"] = (_device_ms(run_lib, 200) if run_lib
                                      else None)
             out[name][label] = row
             print(f"kernel {name:20s} {label:11s} shape={list(shape)} "
-                  f"k_frac={kf} equal={equal} max_abs_err={err:g}"
+                  f"k_frac={kf} dtype={row['dtype']} equal={equal} "
+                  f"max_abs_err={err:g}"
                   + (f" ms={row['ms']:.6f} plain_ms={row['plain_ms']:.6f} "
                      f"call_ms={row['call_ms']:.6f} "
                      f"bound_ms={row['bound_ms']:.6f} "
@@ -432,6 +459,8 @@ def check_matmul_kernel():
         rng = np.random.default_rng(200 + ci)
         w = torch.from_numpy((rng.normal(size=(d, n)) * math.sqrt(2.0 / d))
                              .astype(np.float32)).cuda()
+        if label.endswith("_bf16"):
+            w = w.to(torch.bfloat16)
         buf = wire.sparsify_quant_pack(x)
         got = wire.unpack_dequant_matmul(buf, w)
         want = C.wire_dequant_matmul_ref(buf, w)
@@ -1121,9 +1150,11 @@ def kernel_report(checks, launches, main_cuts, mm_checks, mm_launches,
             "call_ms": row["call_ms"], "bound_ms": row["bound_ms"],
             "bound_by": "bytes", "library_ms": row["library_ms"],
             "shape": row["shape"],
-            "path_b8": {key: checks[name]["path_b8"][key] for key in
-                        ("shape", "ms", "call_ms", "plain_ms", "bound_ms",
-                         "library_ms")}})
+            **{extra: {key: checks[name][extra][key] for key in
+                       ("shape", "ms", "call_ms", "plain_ms", "bound_ms",
+                        "library_ms")}
+               for extra in ("path_b8", "cut6_bf16",
+                             *QUANT_TIMED.get(name, ()))}})
     row = mm_checks["path_b8"]
     out.append({
         "name": MM_META[0], "route": "cuda", "source": SOURCE,

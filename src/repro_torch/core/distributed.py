@@ -37,7 +37,7 @@ def _cross(smashed, opts: DistOptions):
     if not opts.compress_smashed:
         return smashed
     q, scales = quant.quantize_int8(smashed)          # vehicle
-    return quant.dequantize_int8(q, scales)           # RSU
+    return quant.dequantize_int8(q, scales, dtype=smashed.dtype)   # RSU
 
 
 def make_prefill_step(cfg: ArchConfig, opts: DistOptions,

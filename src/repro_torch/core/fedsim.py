@@ -240,9 +240,11 @@ def wire_trip(cfg: SimConfig, x: torch.Tensor) -> Tuple[torch.Tensor, int]:
     x = x.contiguous()
     if wire == "int8":
         q, s = quant_kernels.quantize_int8(x)
-        return quant_kernels.dequantize_int8(q, s), q.numel() + 4 * s.numel()
+        return (quant_kernels.dequantize_int8(q, s, dtype=x.dtype),
+                q.numel() + 4 * s.numel())
     buf = wire_kernels.sparsify_quant_pack(x, cfg.wire_k)
-    return (wire_kernels.unpack_dequant(buf, x.shape[-1], cfg.wire_k),
+    return (wire_kernels.unpack_dequant(buf, x.shape[-1], cfg.wire_k,
+                                        dtype=x.dtype),
             4 * buf.numel())
 
 
@@ -276,14 +278,15 @@ def sfl_message_flow(model, cfg: SimConfig, opt: optim.Optimizer, cut: int,
         buf = wire_kernels.sparsify_quant_pack(sent.contiguous(), cfg.wire_k)
         up_bytes = 4 * buf.numel()
         if error_feedback:
-            res = sent - wire_kernels.unpack_dequant(buf, d, cfg.wire_k)
+            res = sent - wire_kernels.unpack_dequant(buf, d, cfg.wire_k,
+                                                     dtype=sent.dtype)
         packed = hasattr(model, "apply_units_packed")
         if packed:      # the RSU's first matmul reads the buffer itself
             feats, entry = model.apply_units_packed(sv_t["units"], buf, cut,
                                                     cfg.wire_k)
         else:
             entry = wire_kernels.unpack_dequant(
-                buf, d, cfg.wire_k).requires_grad_(True)
+                buf, d, cfg.wire_k, dtype=sent.dtype).requires_grad_(True)
             feats = model.apply_units(sv_t["units"], entry, cut)
     else:
         recv, up_bytes = wire_trip(cfg, sent)

@@ -35,11 +35,12 @@ _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_float)
 # C entry point -> argument types (pointers and the stream as c_void_p)
 SIGNATURES = {
-    "repro_quantize_int8": [_P, _P, _P, _LL, _I, _I, _I, _P],
-    "repro_dequantize_int8": [_P, _P, _P, _LL, _I, _I, _I, _P],
-    "repro_sparsify_quant_pack": [_P, _P, _LL, _I, _I, _I, _I, _I, _P],
-    "repro_unpack_dequant": [_P, _P, _LL, _I, _I, _I, _I, _I, _P],
-    "repro_unpack_dequant_matmul": [_P, _P, _P, _LL, *[_I] * 6, _P],
+    # the codec's last int: the dtype code (kernels/csrc/codec.cu)
+    "repro_quantize_int8": [_P, _P, _P, _LL, _I, _I, _I, _I, _P],
+    "repro_dequantize_int8": [_P, _P, _P, _LL, _I, _I, _I, _I, _P],
+    "repro_sparsify_quant_pack": [_P, _P, _LL, *[_I] * 6, _P],
+    "repro_unpack_dequant": [_P, _P, _LL, *[_I] * 6, _P],
+    "repro_unpack_dequant_matmul": [_P, _P, _P, _LL, *[_I] * 7, _P],
     "repro_rmsnorm": [_P, _P, _P, _LL, _I, _F, _P],
     "repro_flash_attention": [_P, _P, _P, _P, *[_I] * 6, *[_LL] * 9, _I, _I,
                               _F, _P],

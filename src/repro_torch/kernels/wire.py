@@ -8,6 +8,13 @@ the same signatures and bit-exact int32 words / dequantized floats; and
 matmul reading the packed buffer itself, with the same signature and an
 f32 result whose slabs are exact and whose sums are in another order.
 
+Dtypes, as the reference's kernels: ``sparsify_quant_pack`` takes x and
+``unpack_dequant_matmul`` takes w in float32, bfloat16 or float16, each
+widened to f32 exactly as the kernel reads it (so the words are those of
+``x.float()``, and kernel 5's f32 output that of ``w.float()``);
+``unpack_dequant`` returns the ``dtype`` it is asked for, the f32 product
+rounded once to nearest even.  Any other dtype raises ``TypeError``.
+
 Wire format per group of g values (exactly k survivors)::
 
     [ bitmap: ceil(g/32) words | scale: 1 word (f32 bitcast) |
@@ -39,9 +46,10 @@ shared g-wide slab; after one barrier each thread sums its register patch
 over the group in order.  The next group's copy and words are in flight
 while a group computes.
 
-Non-finite input.  For any f32 input (NaN, +-inf, +-0.0 and subnormals
-included) the kernels and the plain versions follow the reference: bitmap
-and value words bit for bit; scale words bit for bit where the reference's
+Non-finite input.  For any input (NaN, +-inf, +-0.0 and subnormals
+included, in every input dtype; a bf16 or f16 NaN widens to an f32 NaN)
+the kernels and the plain versions follow the reference: bitmap and value
+words bit for bit; scale words bit for bit where the reference's
 scale is finite or +-inf and NaN exactly where it is NaN (payloads aside:
 XLA keeps the input's, torch and CUDA canonicalise it); ``unpack_dequant``'s
 floats equal, NaN where they are NaN, and ``unpack_dequant_matmul``'s
@@ -62,7 +70,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import compression as C
-from repro_torch.kernels.quant import (_check_group, _check_tensor, launch)
+from repro_torch.kernels.quant import (FLOAT_CODES, _check_group,
+                                       _check_tensor, float_code, launch)
 
 GROUP = C.GROUP
 WIRE_K = C.WIRE_K
@@ -70,9 +79,10 @@ WIRE_K = C.WIRE_K
 
 def sparsify_quant_pack(x: torch.Tensor, k_frac: float = WIRE_K,
                         group: int = GROUP) -> torch.Tensor:
-    """x (..., d) f32 -> packed int32 wire buffer (..., ng*wpg), under the
-    non-finite contract above (exact ties go to the lower index)."""
-    _check_tensor(x, "x", torch.float32)
+    """x (..., d) f32 / bf16 / f16 -> packed int32 wire buffer (...,
+    ng*wpg), under the non-finite contract above (exact ties go to the
+    lower index)."""
+    _check_tensor(x, "x", FLOAT_CODES)
     _check_group(group)
     if x.device.type == "cpu":
         return C.sparsify_quant_pack_ref(x, k_frac, group)
@@ -80,13 +90,16 @@ def sparsify_quant_pack(x: torch.Tensor, k_frac: float = WIRE_K,
     g, ng, k, wpg = C.wire_layout(d, k_frac, group)
     buf = torch.empty((*lead, ng * wpg), dtype=torch.int32, device=x.device)
     launch("sparsify_quant_pack", x.device, x.data_ptr(), buf.data_ptr(),
-           x.numel() // d, d, g, ng, k, wpg)
+           x.numel() // d, d, g, ng, k, wpg, FLOAT_CODES[x.dtype])
     return buf
 
 
 def unpack_dequant(buf: torch.Tensor, d: int, k_frac: float = WIRE_K,
-                   group: int = GROUP) -> torch.Tensor:
-    """Packed buffer (..., ng*wpg) -> dense f32 (..., d)."""
+                   group: int = GROUP,
+                   dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Packed buffer (..., ng*wpg) -> dense ``dtype`` (..., d) (f32, bf16
+    or f16)."""
+    code = float_code(dtype)
     _check_tensor(buf, "buf", torch.int32)
     _check_group(group)
     g, ng, k, wpg = C.wire_layout(d, k_frac, group)
@@ -95,21 +108,21 @@ def unpack_dequant(buf: torch.Tensor, d: int, k_frac: float = WIRE_K,
         raise ValueError(f"buf trailing dim {words} != ng*wpg = {ng * wpg} "
                          f"for d={d}, k_frac={k_frac}, group={group}")
     if buf.device.type == "cpu":
-        return C.wire_dequant_ref(buf, d, k_frac, group)
-    x = torch.empty((*lead, d), dtype=torch.float32, device=buf.device)
+        return C.wire_dequant_ref(buf, d, k_frac, group, dtype)
+    x = torch.empty((*lead, d), dtype=dtype, device=buf.device)
     launch("unpack_dequant", buf.device, buf.data_ptr(), x.data_ptr(),
-           buf.numel() // words, d, g, ng, k, wpg)
+           buf.numel() // words, d, g, ng, k, wpg, code)
     return x
 
 
 def unpack_dequant_matmul(buf: torch.Tensor, w: torch.Tensor,
                           k_frac: float = WIRE_K, group: int = GROUP
                           ) -> torch.Tensor:
-    """Packed buffer (rows, ng*wpg) int32 @ w (d, n) f32 -> (rows, n) f32,
-    dequantizing one g-wide slab at a time inside the product: the dense
-    (rows, d) tensor is never formed."""
+    """Packed buffer (rows, ng*wpg) int32 @ w (d, n) f32 / bf16 / f16 ->
+    (rows, n) f32, dequantizing one g-wide slab at a time inside the
+    product: the dense (rows, d) tensor is never formed."""
     _check_tensor(buf, "buf", torch.int32)
-    _check_tensor(w, "w", torch.float32)
+    _check_tensor(w, "w", FLOAT_CODES)
     _check_group(group)
     if buf.dim() != 2 or w.dim() != 2:
         raise ValueError(f"buf must be (rows, words) and w (d, n), got "
@@ -126,7 +139,7 @@ def unpack_dequant_matmul(buf: torch.Tensor, w: torch.Tensor,
         return C.wire_dequant_matmul_ref(buf, w, k_frac, group)
     out = torch.empty((rows, n), dtype=torch.float32, device=buf.device)
     launch("unpack_dequant_matmul", buf.device, buf.data_ptr(), w.data_ptr(),
-           out.data_ptr(), rows, d, n, g, ng, k, wpg)
+           out.data_ptr(), rows, d, n, g, ng, k, wpg, FLOAT_CODES[w.dtype])
     return out
 
 

@@ -132,6 +132,82 @@ def test_dequantize_kernel_widths_and_alignment(dev, rows, d, group,
     assert _same(got, C.dequantize_int8(q, s, group=group))
 
 
+# (rows, d, group): g 32 / 48 / 64 / 128 (g = min(group, d)) at d 48 /
+# 64 / 200 / 256 / 960 (padded tail groups at 200 and 960), then odd
+# widths and groups (the scalar path: d = 50, g = 45, g = 13)
+QUANT_SHAPES = ([(7, d, g) for g in (32, 48, 64, 128)
+                 for d in (48, 64, 200, 256, 960)]
+                + [(16384, 64, 128), (9, 50, 128), (6, 90, 45),
+                   (4, 13, 128)])
+
+
+@pytest.mark.parametrize("rows,d,group", QUANT_SHAPES)
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("fill", ["normal", "nonfinite"])
+def test_quantize_kernel_widths_and_alignment(dev, rows, d, group, offset,
+                                              fill):
+    """quantize_int8 against its plain version at the g / d grid of the
+    index map, from an aligned x and from a contiguous view one value past
+    alignment (the scalar path), on normal and NaN / +-inf input; one
+    launch a call."""
+    flat = _input((rows * d + offset,), "normal", dev, seed=rows * d)
+    if fill == "nonfinite":
+        flat[offset:] = torch.from_numpy(
+            nonfinite_input((rows, d), rows).ravel()).to(dev)
+    x = flat[offset:].view(rows, d)
+    n = LAUNCHES["quantize_int8"]
+    q, s = quant.quantize_int8(x, group)
+    assert LAUNCHES["quantize_int8"] == n + 1
+    qr, sr = C.quantize_int8(x, group)
+    assert torch.equal(q, qr) and _same(s, sr)
+
+
+HALF_CASES = [((16, 8, 8, 256), 0.25, "normal"), ((8, 64), 0.25, "normal"),
+              ((64, 200), 0.1, "normal"), ((7, 48), 0.25, "normal"),
+              ((16, 64), 0.001, "ties"), ((16, 8, 8, 256), 0.25, "nonfinite"),
+              ((21, 200), 0.1, "nonfinite")]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("shape,k_frac,fill", HALF_CASES)
+def test_codec_kernels_in_2byte_dtypes(dev, shape, k_frac, fill, dtype):
+    """All five codec functions with a bf16 / f16 input or output, against
+    their plain versions (words, int8 and scales those of x.float(); the
+    decoders' output rounded once to the dtype; kernel 5's f32 output
+    within its tolerance, NaN rows where the plain version's are); each
+    call one launch of its kernel."""
+    x = _input(shape, fill, dev).to(dtype)
+    d = shape[-1]
+    g, _, k, _ = C.wire_layout(d, k_frac)
+    before = launch_counts()
+    q, s = quant.quantize_int8(x)
+    qr, sr = C.quantize_int8(x)
+    assert torch.equal(q, qr) and _same(s, sr)
+    qf, sf = quant.quantize_int8(x.float())
+    assert torch.equal(q, qf) and _same(s, sf)
+    dq = quant.dequantize_int8(q, s, dtype=dtype)
+    dqr = C.dequantize_int8(q, s, dtype)
+    assert dq.dtype == dtype and _same(dq.float(), dqr.float())
+    buf = wire.sparsify_quant_pack(x, k_frac)
+    want = C.sparsify_quant_pack_ref(x, k_frac).cpu().numpy()
+    assert same_wire(buf.cpu().numpy(), want, g, k)
+    up = wire.unpack_dequant(buf, d, k_frac, dtype=dtype)
+    upr = C.wire_dequant_ref(buf, d, k_frac, dtype=dtype)
+    assert up.dtype == dtype and _same(up.float(), upr.float())
+    rows = x.numel() // d
+    w = _randn((d, 32), dev, 7, (2.0 / d) ** 0.5).to(dtype)
+    mm = wire.unpack_dequant_matmul(buf.view(rows, -1), w, k_frac)
+    mmr = C.wire_dequant_matmul_ref(buf.view(rows, -1), w, k_frac)
+    nan = torch.isnan(mmr)
+    assert mm.dtype == torch.float32 and torch.equal(torch.isnan(mm), nan)
+    torch.testing.assert_close(mm[~nan], mmr[~nan], rtol=MM_TOL, atol=MM_TOL)
+    after = launch_counts()
+    codec = ("quantize_int8", "dequantize_int8", "sparsify_quant_pack",
+             "unpack_dequant", "unpack_dequant_matmul")
+    assert all(after[n] == before[n] + (n in codec) + (n == "quantize_int8")
+               for n in after)
+
+
 def test_wrappers_refuse_non_contiguous(dev):
     x = torch.zeros(8, 128, device=dev).t()
     with pytest.raises(ValueError, match="contiguous"):

@@ -4,7 +4,9 @@ oracle ``repro.core.compression.wire_dequant_matmul_ref`` and the Pallas
 kernel ``repro.kernels.wire.unpack_dequant_matmul`` (interpret=True, as
 tests/test_kernels.py runs it), at that test's shapes and mlp9's; the
 autograd Function's gradients against autograd through the dense
-composition; and mlp9's packed RSU entry on the FederationSim path.
+composition; w in bfloat16 / float16 through the kernel wrapper (the plain
+version on the CPU) against the oracle and the Pallas kernel given the
+same w; and mlp9's packed RSU entry on the FederationSim path.
 
 Tolerances: the unpack and the dequantized slabs are exact (bit-equal);
 only each slab's product sums in the BLAS's order, which torch's CPU matmul
@@ -57,6 +59,27 @@ def test_plain_matches_jax_oracle_and_pallas(rows, d, n):
         want = np.asarray(want)
         assert got.shape == want.shape == (rows, n)
         assert np.abs(got - want).max() <= 1e-6 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("rows,d,n", [(16, 64, 64), (16, 200, 32)])
+def test_2byte_w_matches_jax_oracle_and_pallas(rows, d, n, dtype):
+    """w in bf16 / f16 is widened exactly: the wrapper's output is the f32
+    w's bit for bit, and the oracle's and the Pallas kernel's within the
+    products' tolerance."""
+    x, w = _inputs(rows, d, n, seed=1)
+    wt = torch.from_numpy(w).to(getattr(torch, dtype))
+    wj = jnp.asarray(wt.to(torch.float32).numpy()).astype(dtype)
+    buf = wire.sparsify_quant_pack(torch.from_numpy(x))
+    jbuf = jnp.asarray(buf.numpy())
+    got = wire.unpack_dequant_matmul(buf, wt)
+    assert got.dtype == torch.float32
+    assert torch.equal(got, wire.unpack_dequant_matmul(buf, wt.float()))
+    for want in (JC.wire_dequant_matmul_ref(jbuf, wj),
+                 PW.unpack_dequant_matmul(jbuf, wj, interpret=True)):
+        want = np.asarray(want)
+        assert want.dtype == np.float32
+        assert np.abs(got.numpy() - want).max() <= 1e-6 * np.abs(want).max()
 
 
 def test_wrapper_takes_plain_version_on_cpu():
