@@ -48,10 +48,12 @@ neither ``jax`` nor ``repro``.  In order it:
    larger) and, for flash_attention and ssd_chunk_scan, which run 3xTF32
    on the tensor cores, the operations bound at a third of the TF32 rate;
 5. drives the ASFL path — ``repro_torch.api.run`` of the paper's case
-   study (resnet18, asfl, 4 vehicles, batch 16, adam) — for two rounds over
-   the ``topk_int8`` wire, with the launch counters zeroed just before and
-   read just after: pack and unpack each launch twice per client batch
-   step; each round's wall time excludes building the engine;
+   study (resnet18, asfl, 4 vehicles, batch 16, adam) on the per-replica
+   loop (``cohort_parallel="unroll"``, the schedule of every earlier
+   measurement) — for two rounds over the ``topk_int8`` wire, with the
+   launch counters zeroed just before and read just after: pack and unpack
+   each launch twice per client batch step; each round's wall time
+   excludes building the engine;
 6. one round over the ``int8`` wire: the quant kernels launch;
 7. one sgd SFL batch step per cut on the CPU and on the card from the same
    weights (``wire="none"``, TF32 off): the card's update agrees with the
@@ -79,6 +81,23 @@ neither ``jax`` nor ``repro``.  In order it:
 10c. runs the two-cell handover trace (2 vehicles, 4 rounds, topk_int8,
     cloud sync every 2 rounds) on the card and on the CPU from the same
     weights: final global parameters within 1e-4 of the largest parameter;
+10d. drives the single-RSU engine's five schemes at full width through
+    ``repro_torch.api.run`` (resnet18, 4 vehicles on ``single_rsu``, the
+    paper's spec): one round each of ``cl`` and ``fl`` (``auto``, which is
+    ``vmap`` on the card) and ``sl`` over ``topk_int8``, then ``asfl`` over
+    ``topk_int8`` under ``vmap`` and under ``unroll`` from the same seed,
+    two rounds each.  Counters zeroed just before and read just after each
+    run; every round has a finite loss, accuracy in [0, 1] and its cuts,
+    the bytes on the wire equal the cost model's smashed bytes, and the
+    codec launches equal the schedule's formula (per client batch step:
+    the loop and the ``sl`` chain pack and unpack twice; ``vmap`` packs and
+    unpacks once per (bucket, local step) on the stacked smashed tensor and
+    once per client batch step on the downlink; ``cl`` / ``fl`` launch
+    none); prints each round's wall time and the resolved ``engine.mode``;
+10e. one sgd SFL round step of two buckets (cuts 2 and 6, two slots each,
+    one slot sitting the step out) under ``vmap`` on the card from the same
+    weights as the loop on the CPU, TF32 off, the model in float64: within
+    phase 7's tolerance (the float32 comparisons printed beside it);
 11. prints the per-kernel JSON line (all eight kernels), then
     ``{"ok": true, "device": ...}`` as the last line.
 
@@ -204,6 +223,11 @@ TEACHER_TOL = 1e-3              # phase 9: f32 through 32-48 layers, prefill
 REDUCED_TOL = 2e-4              # phase 10: as the CPU parity tests
 
 
+# torch.profiler traces a window again when its trace comes back without
+# a single device event (CUPTI delivered nothing)
+PROFILE_ATTEMPTS = 3
+
+
 def _call_ms(fn, iters):
     """Mean milliseconds per call over ``iters`` back-to-back calls (CUDA
     events): at the codec's sizes this is the Python wrapper and launch."""
@@ -226,18 +250,28 @@ def _device_ms(fn, iters, symbol=None):
     ``torch.profiler``) of every device kernel that ``iters`` calls
     launched, over ``iters``.  With ``symbol``, exactly one kernel name
     matches it, and the result is its mean time per recorded launch (CUPTI
-    may drop a record: on the card one of 200 went missing)."""
+    may drop a record: on the card one of 200 went missing, and once a
+    whole trace came back empty, which is profiled again, at most
+    PROFILE_ATTEMPTS times in all)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    dev = [e for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        if dev:
+            break
+        print(f"profiler: trace {attempt} of {iters} calls holds no device "
+              f"event", flush=True)
+    else:
+        raise AssertionError(f"profiler: no device event in "
+                             f"{PROFILE_ATTEMPTS} traces")
     if symbol is not None:
         # not preceded by a name character: quantize_int8_kernel must not
         # match dequantize_int8_kernel (mangled or demangled names)
@@ -666,6 +700,188 @@ def scenario_cpu_vs_card():
     return err / scale
 
 
+# ---- the single-RSU engine's schemes and replica schedules (phase 10d):
+# (scheme, cohort_parallel, wire, rounds); resnet18 on the paper's spec
+SCHEME_RUNS = (("cl", "auto", "none", 1), ("fl", "auto", "none", 1),
+               ("sl", "auto", "topk_int8", 1),
+               ("asfl", "vmap", "topk_int8", 2),
+               ("asfl", "unroll", "topk_int8", 2))
+
+
+def _bucket_steps(cuts, steps):
+    """(bucket, local step) pairs with an active slot in one split round:
+    per distinct cut, the most local steps among its vehicles."""
+    most = {}
+    for cut, n in zip(cuts, steps):
+        most[cut] = max(most.get(cut, 0), n)
+    return sum(most.values())
+
+
+def scheme_path(scheme, mode, wire, rounds):
+    """Phase 10d: one scheme through ``repro_torch.api.run`` on the card,
+    the launch counters zeroed just before and read just after; client
+    batch steps, wire bytes and codec launches checked against what the
+    data and the schedule imply.  Returns a timing row."""
+    import numpy as np
+    import torch
+    from repro_torch import api, kernels
+    from repro_torch.core import cost
+    spec = api.ExperimentSpec(
+        train=api.TrainConfig(scheme=scheme, rounds=rounds, wire=wire),
+        runtime=api.RuntimeConfig(cohort_parallel=mode))
+    tr, f = spec.train, spec.fleet
+    clients, _ = api.model_entry(spec.model).make_data(
+        f.n_vehicles, f.per_vehicle_samples, f.test_samples, f.data_seed)
+    steps = [max(len(c) // tr.batch_size, 1) * tr.local_epochs
+             for c in clients]
+    marks = []
+
+    def on_round(m):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        cuts_ok = (m.cuts == [] if scheme in ("cl", "fl")
+                   else len(m.cuts) == 4 and set(m.cuts) <= {2, 4, 6, 8})
+        if not (math.isfinite(m.loss) and 0.0 <= m.test_acc <= 1.0
+                and cuts_ok):
+            raise AssertionError(f"{scheme} {mode}: bad round {m}")
+
+    kernels.reset_launches()
+    res = api.run(spec, on_round=on_round)
+    counts = kernels.launch_counts()
+    d = res.diagnostics
+    run_s = res.timing["run_s"]
+    walls = [run_s - (marks[-1] - marks[0])] + [
+        b - a for a, b in zip(marks, marks[1:])]
+    cuts = [m.cuts for m in res.history]
+    if scheme == "cl":                   # one epoch of full batches a round
+        want_steps = rounds * sum(len(c) // tr.batch_size for c in clients)
+    else:
+        want_steps = rounds * sum(steps)
+    want_bytes, n_codec = 0.0, 0
+    if scheme in ("sl", "asfl"):
+        prof = cost.resnet_profile()
+        for c in cuts:
+            up, down = cost.effective_comm_bytes(
+                prof, c, steps, tr.batch_size, wire, tr.wire_k,
+                include_model_transfer=False)
+            want_bytes += float(np.sum(up + down))
+        # the loop and the sl chain: pack and unpack up and down per client
+        # batch step; vmap: the uplink once per (bucket, local step) on the
+        # stacked smashed tensor, the downlink per client batch step
+        n_codec = (want_steps + sum(_bucket_steps(c, steps) for c in cuts)
+                   if d["mode"] == "vmap" and scheme == "asfl"
+                   else 2 * want_steps)
+    want = dict.fromkeys(counts, 0)
+    want.update({"sparsify_quant_pack": n_codec, "unpack_dequant": n_codec})
+    want_mode = "vmap" if mode == "auto" else mode
+    for m, wall in zip(res.history, walls):
+        print(f"scheme {scheme} mode={d['mode']} wire={wire} "
+              f"round={m.round} loss={m.loss!r} acc={m.test_acc!r} "
+              f"cuts={m.cuts} wall_s={wall:.6f}", flush=True)
+    print(f"scheme {scheme} mode={d['mode']} device={d['device']!r} "
+          f"client_batch_steps={d['client_batch_steps']} launches={counts} "
+          f"wire_bytes={d['wire_bytes']} cost_model_bytes={want_bytes!r} "
+          f"run_s={run_s:.6f}", flush=True)
+    if (d["mode"] != want_mode or d["client_batch_steps"] != want_steps
+            or d["wire_bytes"] != want_bytes or counts != want):
+        raise AssertionError(
+            f"{scheme} {mode}: mode {d['mode']} (want {want_mode}), "
+            f"{d['client_batch_steps']} client batch steps (want "
+            f"{want_steps}), {d['wire_bytes']} wire bytes (want "
+            f"{want_bytes}), launches {counts} (want {want})")
+    return {"scheme": scheme, "mode": d["mode"], "wire": wire,
+            "rounds": rounds, "cuts": cuts,
+            "losses": [m.loss for m in res.history],
+            "client_batch_steps": want_steps, "launches": counts,
+            "wire_bytes": d["wire_bytes"], "round_wall_s": walls,
+            "run_s": run_s}
+
+
+def vmap_cpu_vs_card():
+    """Phase 10e: one sgd local step of a two-bucket SFL round (cuts 2 and
+    6, two slots each, the second slot of cut 6 sitting the step out),
+    ``wire="none"``, TF32 off, from the same weights and batches: ``vmap``
+    on the card against the loop on the CPU, with the model run in float64,
+    within phase 7's tolerance (STEP_RTOL of the largest update).  The
+    float32 runs (card vmap against CPU vmap and CPU loop, and the two CPU
+    schedules) are printed beside it, not held: three slots chained
+    through the RSU put BatchNorm outputs within float32 rounding of the
+    ReLU's kink, where a 1-ulp difference in a sum flips a gradient, so the
+    float32 schedules differ by about 1 % of the update even on one CPU,
+    and on the card one float32 result came out either side of that
+    (0.09 % or 1.1 % from the CPU's vmap in two processes of one call)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.core import fedsim
+    from repro_torch.data.pipeline import make_federated_data
+    from repro_torch.tree import tree_leaves, tree_map
+    model = fedsim.ResNetModel()
+    units, head = model.init(torch.Generator().manual_seed(0))
+    clients, _ = make_federated_data(0, n_train=256, n_test=8)
+    rng = np.random.default_rng(0)
+    cuts_sig = ((2, 2), (6, 2))
+    rows = [np.array([0, 1]), np.array([2, 3])]
+    idx = [rng.integers(0, min(len(clients[r]) for r in rr),
+                        size=(1, 2, BATCH)) for rr in rows]
+    mask = [np.array([[True, True]]), np.array([[True, False]])]
+    w = [np.array([len(clients[r]) for r in rr], np.float64) for rr in rows]
+    suw = np.array([sum(len(clients[r]) for rr, (c, _) in zip(rows, cuts_sig)
+                        for r in rr if c <= u) for u in range(model.n_units)],
+                   np.float64)
+    plan = fedsim.RoundPlan(cuts_sig, 1, rows, idx, mask, w, suw)
+    init = tree_leaves([units, head])
+    out = {}
+    for where, mode, dtype in (("cpu", "unroll", torch.float32),
+                               ("cpu", "vmap", torch.float32),
+                               ("cuda", "vmap", torch.float32),
+                               ("cpu", "unroll", torch.float64),
+                               ("cuda", "vmap", torch.float64)):
+        cfg = fedsim.SimConfig(optimizer="sgd", lr=SGD_LR, wire="none",
+                               cohort_parallel=mode)
+        dev = torch.device(where)
+        eng = fedsim.CohortEngine(model, cfg, clients, dev)
+        eng.stacked = dataclasses.replace(
+            eng.stacked, images=eng.stacked.images.to(dtype))
+        u = [tree_map(lambda a: a.to(dev, dtype), p) for p in units]
+        h = tree_map(lambda a: a.to(dev, dtype), head)
+        nu, nh, ls, cnt = eng.split_round(u, h, plan, BATCH)
+        if eng.mode != mode or cnt != 3:
+            raise AssertionError(f"{where} {mode}: mode {eng.mode}, {cnt} "
+                                 f"client batch steps")
+        out[where, mode, dtype] = (
+            [t.cpu().double() for t in tree_leaves([nu, nh])],
+            float(ls) / cnt)
+    moved = max(float((a - a0).abs().max())
+                for a, a0 in zip(out["cpu", "unroll", torch.float32][0],
+                                 init))
+    worst = {}
+    for label, a, b, held in (
+            ("f64 card vmap vs cpu loop", ("cuda", "vmap", torch.float64),
+             ("cpu", "unroll", torch.float64), True),
+            ("f32 card vmap vs cpu vmap", ("cuda", "vmap", torch.float32),
+             ("cpu", "vmap", torch.float32), False),
+            ("f32 card vmap vs cpu loop", ("cuda", "vmap", torch.float32),
+             ("cpu", "unroll", torch.float32), False),
+            ("f32 cpu vmap vs cpu loop", ("cpu", "vmap", torch.float32),
+             ("cpu", "unroll", torch.float32), False)):
+        (pa, la), (pb, lb) = out[a], out[b]
+        diff = max(float((x - y).abs().max()) for x, y in zip(pa, pb))
+        rel = diff / moved if moved > 0 else math.inf
+        ok = (rel <= STEP_RTOL and abs(la - lb) <= 1e-4
+              and all(bool(torch.isfinite(t).all()) for t in pa))
+        print(f"vmap_cpu_vs_card {label}: loss {la!r} / {lb!r} "
+              f"max_param_diff={diff:g} max_update={moved:g} "
+              f"diff_over_update={rel:g} held={held} ok={ok}", flush=True)
+        if held and not ok:
+            raise AssertionError(f"vmap_cpu_vs_card {label}: {diff:g} = "
+                                 f"{rel:g} of the largest update, losses "
+                                 f"{la!r} / {lb!r}")
+        worst[label] = rel
+    return worst
+
+
 def build_kernels():
     """Phase 2: build the kernel library from the checkout's sources."""
     from repro_torch.kernels import _build
@@ -696,8 +912,9 @@ def drive_path(wire, rounds, kernel_names):
     Returns (launches of ``kernel_names``, cuts of every round)."""
     import torch
     from repro_torch import api, kernels
-    spec = api.ExperimentSpec(train=api.TrainConfig(rounds=rounds,
-                                                    wire=wire))
+    spec = api.ExperimentSpec(
+        train=api.TrainConfig(rounds=rounds, wire=wire),
+        runtime=api.RuntimeConfig(cohort_parallel="unroll"))
     marks = []
 
     def on_round(m):
@@ -1221,6 +1438,15 @@ def main() -> int:
                                         "int8", set(range(9)))
     scenario_cpu_vs_card()
     print(json.dumps({"scenarios": [highway_timing, urban_timing]}))
+    # the single-RSU schemes and schedules run last, so every earlier path
+    # is measured after the same phases as before they existed
+    schemes = [scheme_path(*run) for run in SCHEME_RUNS]
+    vmap, loop = schemes[-2:]
+    if vmap["cuts"] != loop["cuts"]:
+        raise AssertionError(f"asfl vmap / unroll from one seed chose "
+                             f"other cuts: {vmap['cuts']} / {loop['cuts']}")
+    vmap_cpu_vs_card()
+    print(json.dumps({"schemes": schemes}))
     main_cuts = {"sparsify_quant_pack": _main_cut(topk_cuts),
                  "unpack_dequant": _main_cut(topk_cuts),
                  "quantize_int8": _main_cut(int8_cuts),

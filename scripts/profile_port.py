@@ -4,7 +4,8 @@
 
 1. One profiled ASFL round of the paper's case study on the topk_int8 wire
    (resnet18, 4 vehicles, batch 16, adam; ``local_steps=2`` to keep the
-   trace small) after one warm-up round.
+   trace small) after one warm-up round, under each replica schedule: the
+   per-replica loop (``unroll``) and the vectorised ``vmap``.
 2. One profiled round of the multi-RSU scenario path (mlp9 on
    ``highway_corridor``, 256 vehicles, 4 RSUs, local_steps 2, batch 8,
    sgd, ``paper`` cuts, the ``topk_int8`` wire with error feedback) after
@@ -42,13 +43,15 @@ def _is_device_kernel(evt) -> bool:
     return evt.device_type == torch.autograd.DeviceType.CUDA
 
 
-def round_profile(top: int = 12):
+def round_profile(mode: str, top: int = 12):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import api, kernels
-    spec = api.ExperimentSpec(train=api.TrainConfig(
-        rounds=1, local_steps=2, wire="topk_int8", eval_every=0))
+    spec = api.ExperimentSpec(
+        train=api.TrainConfig(rounds=1, local_steps=2, wire="topk_int8",
+                              eval_every=0),
+        runtime=api.RuntimeConfig(cohort_parallel=mode))
     sim = api.build_engine(spec)
     sim.run()                                  # warm-up round
     sim.reset()
@@ -67,17 +70,19 @@ def round_profile(top: int = 12):
     rows = [{"kernel": e.key[:120], "count": e.count,
              "device_ms": _device_us(e) / 1e3} for e in dev[:top]]
     steps = sim.engine.batch_steps - steps0
-    res = {"wall_s": wall, "device_busy_s": busy_us / 1e6,
+    res = {"mode": sim.engine.mode, "wall_s": wall,
+           "device_busy_s": busy_us / 1e6,
            "device_busy_share": busy_us / 1e6 / wall,
            "cuts": m.cuts, "client_batch_steps": steps,
            "codec_launches": kernels.launch_counts(),
            "n_device_kernels": sum(e.count for e in dev), "top": rows}
-    print(f"round wall_s={wall:.6f} device_busy_s={busy_us / 1e6:.6f} "
+    print(f"round mode={res['mode']} wall_s={wall:.6f} "
+          f"device_busy_s={busy_us / 1e6:.6f} "
           f"busy_share={res['device_busy_share']:.4f} cuts={m.cuts} "
           f"client_batch_steps={steps} "
           f"device_kernels={res['n_device_kernels']}", flush=True)
     for r in rows:
-        print(f"round top count={r['count']:6d} "
+        print(f"round {res['mode']} top count={r['count']:6d} "
               f"device_ms={r['device_ms']:.3f} {r['kernel']}", flush=True)
     return res
 
@@ -211,7 +216,8 @@ def main() -> int:
     print(card, flush=True)
     from repro_torch.device import set_float32_precision
     set_float32_precision()
-    result = {"card": card, "round": round_profile(),
+    result = {"card": card, "round": round_profile("unroll"),
+              "round_vmap": round_profile("vmap"),
               "scenario": scenario_profile(),
               "serve": [serve_profile(a) for a in ("smollm-360m",
                                                    "mamba2-780m")]}

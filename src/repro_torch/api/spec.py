@@ -5,9 +5,11 @@ saved by ``repro.api`` loads here.  The device is deliberately *not* a spec
 field (it is a keyword of ``run`` / ``build_engine``), so the JSON stays
 identical to the reference's.
 
-Validation covers what the port can run: the single-RSU engine and the
-multi-RSU scenario engine (one round per dispatch, sequential schedule)
-with the ported models and scenarios.  A scenario, a non-default value of a
+Validation covers what the port can run: the single-RSU engine (every
+scheme, every ``cohort_parallel`` mode, its fault plane) and the multi-RSU
+scenario engine (one round per dispatch, sequential schedule, no faults)
+with the ported models and scenarios, with the reference's messages for
+combinations no engine can run.  A scenario, a non-default value of a
 plane that is not ported yet, or a multi-process topology raises "not
 ported yet".  ``runtime.precompile`` is accepted and does nothing: the port
 runs eagerly and compiles nothing but its kernels, at first use.
@@ -72,7 +74,9 @@ class FleetConfig:
 
 @dataclasses.dataclass(frozen=True)
 class RuntimeConfig:
-    """Execution knobs (the reference's XLA ones; only defaults run here)."""
+    """Execution knobs: ``cohort_parallel`` picks the single-RSU engine's
+    replica schedule; of the reference's XLA knobs only the defaults run
+    here."""
     seed: int = 0
     cohort_parallel: str = "auto"
     superstep: int = 1
@@ -91,7 +95,9 @@ class RuntimeConfig:
 
 @dataclasses.dataclass(frozen=True)
 class FaultsConfig:
-    """The fault plane (not ported yet: defaults only)."""
+    """The fault plane: coverage, dropout and upload loss on the single-RSU
+    engine (straggler and RSU outage are scenario concepts); not ported yet
+    on the scenario engine (defaults only)."""
     coverage: bool = False
     dropout_rate: float = 0.0
     upload_loss_rate: float = 0.0
@@ -192,9 +198,27 @@ class ExperimentSpec:
             raise ValueError(
                 f"unknown scenario {sc!r}; registered: "
                 f"{registry.scenario_names()} (None == single_rsu)")
+        engine = self.engine_kind
+        rt = self.runtime
+        meshy = rt.mesh_devices == "auto" \
+            or (isinstance(rt.mesh_devices, int) and rt.mesh_devices > 1)
+        if meshy and engine == registry.FEDERATION:
+            # combinations the reference refuses whatever the mesh; the
+            # mesh itself is not ported yet (to_sim_config raises)
+            if self.train.scheme in ("cl", "sl"):
+                raise ValueError(
+                    f"scheme {self.train.scheme!r} is an inherently "
+                    f"sequential chain (one traveling model); "
+                    f"runtime.mesh_devices={rt.mesh_devices} has "
+                    f"nothing to shard — use fl | sfl | asfl or "
+                    f"mesh_devices=1")
+            if rt.cohort_parallel in ("scan", "unroll"):
+                raise ValueError(
+                    f"runtime.cohort_parallel={rt.cohort_parallel!r} "
+                    f"serializes the replica axis the mesh shards; "
+                    f"with mesh_devices > 1 use 'vmap' (or 'auto')")
         self.to_sim_config()        # field validity + not-ported planes
         entry = registry.model_entry(self.model)
-        engine = self.engine_kind
 
         strat = registry.STRATEGIES.get(self.adaptive.strategy)
         if strat is None:
@@ -216,12 +240,20 @@ class ExperimentSpec:
             raise ValueError(
                 f"unknown wire scheme {self.train.wire!r}; registered: "
                 f"{registry.wire_names()}")
+        fl = self.faults
         if engine == registry.SCENARIO:
             if self.train.scheme != "asfl":
                 raise ValueError(
                     f"scheme {self.train.scheme!r} is not executable by the "
                     f"multi-RSU scenario engine (fleet.scenario={sc!r}); it "
-                    f"runs the adaptive split flow only: scheme='asfl'")
+                    f"runs the adaptive split flow only: scheme='asfl'. "
+                    f"Use fleet.scenario='single_rsu' for cl | fl | sl | "
+                    f"sfl")
+            if self.fleet.mobility_dropout:
+                raise ValueError(
+                    "fleet.mobility_dropout is the single-RSU interruption "
+                    "model; multi-RSU scenarios model coverage through the "
+                    "scenario itself (serving_rsu == -1)")
             if self.fleet.memory_budget_bytes is not None:
                 raise ValueError(
                     "fleet.memory_budget_bytes feeds the single-RSU "
@@ -229,18 +261,40 @@ class ExperimentSpec:
                     "are: " + " | ".join(sorted(
                         n for n, s in registry.STRATEGIES.items()
                         if registry.SCENARIO in s.engines)))
-        elif self.fleet.cloud_sync_every != 1:
-            raise ValueError(
-                "fleet.cloud_sync_every is the multi-RSU edge->cloud "
-                "cadence; the single-RSU engine aggregates at its one RSU "
-                "every round (leave it at 1 or set a scenario)")
-        rt = self.runtime
+            if fl.coverage:
+                raise ValueError(
+                    "faults.coverage is the single-RSU §II-C in-range "
+                    "test; multi-RSU scenarios model coverage through the "
+                    "scenario itself (serving_rsu == -1)")
+            if fl != FaultsConfig():
+                raise NotImplementedError(
+                    f"faults={fl!r} on a multi-RSU scenario: not ported "
+                    f"yet (the port runs the fault plane on the single-RSU "
+                    f"engine, fleet.scenario='single_rsu')")
+        else:
+            if self.fleet.cloud_sync_every != 1:
+                raise ValueError(
+                    "fleet.cloud_sync_every is the multi-RSU edge->cloud "
+                    "cadence; the single-RSU engine aggregates at its one "
+                    "RSU every round (leave it at 1 or set a scenario)")
+            if fl.straggler_factor > 0.0 or fl.rsu_outage_rate > 0.0:
+                raise ValueError(
+                    "faults.straggler_factor / faults.rsu_outage_rate need "
+                    "a multi-RSU scenario (residence deadlines and RSU "
+                    "outages are scenario concepts); the single-RSU engine "
+                    "supports dropout_rate / upload_loss_rate / coverage")
+            if ((fl.dropout_rate > 0.0 or fl.upload_loss_rate > 0.0)
+                    and self.train.scheme not in ("sfl", "asfl")):
+                raise ValueError(
+                    f"stochastic fault injection is wired into the "
+                    f"split-federation round (sfl | asfl); scheme "
+                    f"{self.train.scheme!r} does not support it")
         if (rt.coordinator_address is not None or rt.num_processes != 1
                 or rt.process_id != 0):
             raise NotImplementedError(
                 "multi-process runs (runtime.coordinator_address / "
                 "num_processes / process_id): not ported yet")
-        if self.train.scheme == "sfl" \
+        if self.train.scheme in ("sl", "sfl") \
                 and not 1 <= self.adaptive.cut <= entry.n_units - 1:
             raise ValueError(
                 f"adaptive.cut={self.adaptive.cut} is out of range for "

@@ -1,7 +1,8 @@
 """Model aggregation (twin of the parts of ``repro.core.aggregation`` the
-split rounds use): the |D_n|-weighted sum of paper Eq. 1 over a list of
-replica trees, and the sample-weighted edge->cloud merge of the multi-RSU
-hierarchy.
+ported rounds use): the |D_n|-weighted sum of paper Eq. 1 over a list of
+replica trees or over a stacked leading replica axis, FedAvg over that axis
+(paper Eq. 1/2, the FL round's merge), and the sample-weighted edge->cloud
+merge of the multi-RSU hierarchy.
 """
 from __future__ import annotations
 
@@ -10,7 +11,7 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map
 
 
 def weighted_sum(trees: Sequence[Any], weights: Sequence[float]) -> Any:
@@ -27,6 +28,27 @@ def weighted_sum(trees: Sequence[Any], weights: Sequence[float]) -> Any:
         return acc
 
     return tree_map(f, trees[0], *trees[1:])
+
+
+def stacked_weighted_sum(stacked_tree: Any, weights) -> Any:
+    """The FedAvg numerator over a stacked leading replica axis: every leaf
+    carries the replicas on axis 0 and is reduced with float32 weights in
+    one tensordot.  A zero weight excludes a replica."""
+    w = torch.as_tensor(np.asarray(weights, np.float32),
+                        device=tree_leaves(stacked_tree)[0].device)
+    return tree_map(lambda a: torch.tensordot(w, a.to(torch.float32),
+                                              dims=([0], [0])),
+                    stacked_tree)
+
+
+def stacked_fedavg(stacked_tree: Any, weights) -> Any:
+    """Weighted mean over the stacked leading axis: the float32 numerator
+    over the float32 sum of the weights (which need not be normalised)."""
+    w = np.asarray(weights, np.float32)
+    den = float(np.sum(w, dtype=np.float32))
+    num = stacked_weighted_sum(stacked_tree, w)
+    return tree_map(lambda n, ref: (n / den).to(ref.dtype), num,
+                    stacked_tree)
 
 
 def cloud_merge(edge_trees: Sequence[Any], weights: Sequence[float],

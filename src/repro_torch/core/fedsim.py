@@ -1,5 +1,6 @@
-"""Federation simulators: single-RSU SFL / ASFL and the multi-RSU
-scenario engine (twin of ``repro.core.fedsim``).
+"""Federation simulators: the single-RSU engine of the paper's Fig. 5
+comparison (CL / FL / SL / SFL / ASFL) and the multi-RSU scenario engine
+(twin of ``repro.core.fedsim``).
 
 The SFL message flow is explicit, as in the paper's Fig. 3 workflow and the
 reference: vehicle-side forward -> **uplink** (the smashed tensor is packed
@@ -12,12 +13,17 @@ bytes on the wire are counted from the buffers themselves.  On the
 ``topk_int8`` wire a model with a packed RSU entry (mlp9) starts the RSU
 side from the buffer itself (the ``unpack_dequant_matmul`` kernel).
 
-``CohortEngine.split_round`` runs one single-RSU round as a per-replica
-loop in the reference's update order (``_bucket_unroll``): buckets in
+``FederationSim`` runs one scheme per simulation.  ``sfl`` / ``asfl``:
+``CohortEngine.split_round`` in the reference's update order -- buckets in
 ascending cut, members in ascending client index, the one shared RSU model
-and optimizer state threaded through every client batch (paper §III-B),
+and optimizer state threaded through every client batch (paper §III-B) --
 then a unit-wise |D_n|-weighted FedAvg with the RSU copy of every unit it
-trained.
+trained; its replicas run as a per-replica loop or vectorised
+(``cohort_parallel``, see :class:`CohortEngine`), and the single-RSU fault
+plane (coverage, mid-round dropout, upload loss) acts on the round's plan.
+``fl``: full-model local training and a stacked FedAvg.  ``sl`` (one
+travelling vehicle-side model through the message flow) and ``cl``
+(centralised) are sequential chains.
 
 ``ScenarioEngine`` runs the multi-RSU vehicular setting: mobility and
 handover from a scenario, cuts from rates or residence time, one cohort
@@ -27,14 +33,13 @@ wire, and a sample-weighted edge->cloud merge every ``cloud_sync_every``
 rounds.  It follows the reference's per-round fused program at K = 1 as a
 per-replica loop, the way ``split_round`` follows ``_bucket_unroll``.
 
-Ported: schemes ``sfl`` / ``asfl`` with the host cut strategies, and the
-scenario engine at one round per dispatch on the sequential schedule.
-Not ported yet (``SimConfig`` raises on a non-default value): cl / fl /
-sl, the fault and streaming planes, super-steps (K > 1), the mesh, the
-parallel and streaming server schedules and the XLA execution knobs.
-``slot_capacity`` and ``superstep_layout`` choose how the reference lays
-its slot tables out in XLA; under the sequential schedule both give the
-same math, so the port accepts and ignores them.
+Not ported yet (``SimConfig`` raises on a non-default value): the
+streaming plane, super-steps (K > 1), the mesh, the parallel and streaming
+server schedules and the XLA compilation cache; the scenario engine also
+refuses the fault plane.  ``slot_capacity`` and ``superstep_layout``
+choose how the reference lays its slot tables out in XLA; under the
+sequential schedule both give the same math, so the port accepts and
+ignores them.
 """
 from __future__ import annotations
 
@@ -46,8 +51,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import optim
-from repro_torch.core import adaptive, aggregation, channel, compression, cost
-from repro_torch.data.pipeline import (ClientDataset, fleet_batch_indices,
+from repro_torch.core import (adaptive, aggregation, channel, compression,
+                             cost, faults)
+from repro_torch.data.pipeline import (ClientDataset, epoch_batch_indices,
+                                       fleet_batch_indices,
                                        sample_batch_indices, stack_clients)
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import quant as quant_kernels
@@ -100,18 +107,19 @@ FLEET_AXES = ("auto", "vehicle", "rsu", "grid")
 FEDERATION_STRATEGIES = ("paper", "paper-literal", "latency", "energy",
                          "memory")
 SCENARIO_STRATEGIES = ("paper", "paper-literal", "residence")
-PORTED_SCHEMES = ("sfl", "asfl")
 # SimConfig fields whose planes are not ported yet: a non-default value
 # raises instead of being silently ignored
 NOT_PORTED_FIELDS = (
+    "stream_buffer_size", "stream_churn_rate", "stream_kernel",
+    "stream_alpha", "stream_seed", "server_schedule", "superstep",
+    "compilation_cache_dir", "mesh_devices", "fleet_axis", "mesh_shape",
+    "page_slots", "stream_churn_source")
+# the fault plane: ported on the single-RSU FederationSim, not yet on the
+# ScenarioEngine (which raises on a non-default value)
+FAULT_FIELDS = (
     "mobility_dropout", "fault_coverage", "fault_dropout",
     "fault_upload_loss", "fault_straggler", "fault_rsu_outage",
-    "fault_staleness_discount", "fault_seed", "stream_buffer_size",
-    "stream_churn_rate", "stream_kernel", "stream_alpha", "stream_seed",
-    "cohort_parallel", "server_schedule", "superstep",
-    "compilation_cache_dir",
-    "mesh_devices", "fleet_axis", "mesh_shape", "page_slots",
-    "stream_churn_source")
+    "fault_staleness_discount", "fault_seed")
 
 
 @dataclasses.dataclass
@@ -196,10 +204,12 @@ class SimConfig:
                 f"SimConfig.compress_smashed=True conflicts with "
                 f"wire={self.wire!r}: compress_smashed is the legacy "
                 f"spelling of wire='int8' — set wire alone")
-        if self.scheme not in PORTED_SCHEMES:
-            raise NotImplementedError(
-                f"SimConfig.scheme={self.scheme!r}: not ported yet; the "
-                f"PyTorch port runs {' | '.join(PORTED_SCHEMES)}")
+        if self.mobility_dropout and self.fault_coverage:
+            raise ValueError(
+                "SimConfig.mobility_dropout=True conflicts with "
+                "fault_coverage=True: mobility_dropout is the legacy "
+                "spelling of fault_coverage — set fault_coverage alone")
+        self.fault_config()  # rate / discount validation (FaultConfig)
         defaults = SimConfig.__dataclass_fields__
         for field in NOT_PORTED_FIELDS:
             if getattr(self, field) != defaults[field].default:
@@ -213,6 +223,18 @@ class SimConfig:
         if self.wire == "none" and self.compress_smashed:
             return "int8"
         return self.wire
+
+    def fault_config(self) -> faults.FaultConfig:
+        """The effective fault plane; ``mobility_dropout=True`` is the
+        legacy spelling of ``fault_coverage=True``."""
+        return faults.FaultConfig(
+            dropout_rate=self.fault_dropout,
+            upload_loss_rate=self.fault_upload_loss,
+            straggler_factor=self.fault_straggler,
+            rsu_outage_rate=self.fault_rsu_outage,
+            staleness_discount=self.fault_staleness_discount,
+            coverage=self.mobility_dropout or self.fault_coverage,
+            seed=self.fault_seed)
 
 
 @dataclasses.dataclass
@@ -254,6 +276,54 @@ def _requires_grad(tree):
     return req, rebuild(req), rebuild
 
 
+def _send_up(model, cfg: SimConfig, sent: torch.Tensor,
+             error_feedback: bool = False):
+    """The uplink: ``sent`` packed on the vehicle.  Returns (what the RSU
+    reads, whether that is the packed ``topk_int8`` buffer itself, bytes
+    on the wire, error-feedback residual or None).  On ``topk_int8`` a
+    model with a packed RSU entry (mlp9) reads the buffer; any other model
+    reads the unpacked tensor.  The codec works along the last axis, so a
+    stacked ``(n, B, ...)`` tensor goes up in one call per direction."""
+    if cfg.wire_scheme() != "topk_int8":
+        recv, nbytes = wire_trip(cfg, sent)
+        return recv, False, nbytes, None
+    d = sent.shape[-1]
+    buf = wire_kernels.sparsify_quant_pack(sent.contiguous(), cfg.wire_k)
+    res = None
+    if error_feedback:
+        res = sent - wire_kernels.unpack_dequant(buf, d, cfg.wire_k,
+                                                 dtype=sent.dtype)
+    if hasattr(model, "apply_units_packed"):
+        return buf, True, 4 * buf.numel(), res
+    return (wire_kernels.unpack_dequant(buf, d, cfg.wire_k, dtype=sent.dtype),
+            False, 4 * buf.numel(), res)
+
+
+def _rsu_step(model, cfg: SimConfig, opt: optim.Optimizer, cut: int, sv, so,
+              recv, packed: bool, y):
+    """The RSU's part of one client batch: forward/backward of the server
+    side on the received smashed batch, the downlink of the cut-layer
+    gradient, and the server's optimizer step.  Returns (sv, so, the
+    gradient the vehicle receives, loss, logits, downlink bytes)."""
+    sv_req, sv_t, sv_rebuild = _requires_grad(sv)
+    if packed:          # the RSU's first matmul reads the buffer itself
+        feats, entry = model.apply_units_packed(sv_t["units"], recv, cut,
+                                                cfg.wire_k)
+    else:
+        entry = recv.detach().requires_grad_(True)              # RSU leaf
+        feats = model.apply_units(sv_t["units"], entry, cut)
+    loss, logits = model.head_loss(sv_t["head"], feats, y)
+    grads = torch.autograd.grad(loss, sv_req + [entry])
+    g_cut = grads[-1]
+    if packed:
+        g_cut = model.entry_input_grad(sv_t["units"], g_cut)
+    g_recv, down_bytes = wire_trip(cfg, g_cut)                  # downlink
+    with torch.no_grad():
+        upd_s, so2 = opt.update(sv_rebuild(list(grads[:-1])), so, sv)
+        sv2 = optim.apply_updates(sv, upd_s)
+    return sv2, so2, g_recv, loss.detach(), logits.detach(), down_bytes
+
+
 def sfl_message_flow(model, cfg: SimConfig, opt: optim.Optimizer, cut: int,
                      sv, so, cu, co, x, y, res=None,
                      error_feedback: bool = False):
@@ -268,44 +338,17 @@ def sfl_message_flow(model, cfg: SimConfig, opt: optim.Optimizer, cut: int,
     downlink."""
     cu_req, cu_t, cu_rebuild = _requires_grad(cu)
     smashed = model.apply_units(cu_t, x, 0)
-    sv_req, sv_t, sv_rebuild = _requires_grad(sv)
     sent = smashed.detach()
     if error_feedback and res is not None:
         sent = sent + res
-    packed = False
-    if cfg.wire_scheme() == "topk_int8":                        # uplink
-        d = sent.shape[-1]
-        buf = wire_kernels.sparsify_quant_pack(sent.contiguous(), cfg.wire_k)
-        up_bytes = 4 * buf.numel()
-        if error_feedback:
-            res = sent - wire_kernels.unpack_dequant(buf, d, cfg.wire_k,
-                                                     dtype=sent.dtype)
-        packed = hasattr(model, "apply_units_packed")
-        if packed:      # the RSU's first matmul reads the buffer itself
-            feats, entry = model.apply_units_packed(sv_t["units"], buf, cut,
-                                                    cfg.wire_k)
-        else:
-            entry = wire_kernels.unpack_dequant(
-                buf, d, cfg.wire_k, dtype=sent.dtype).requires_grad_(True)
-            feats = model.apply_units(sv_t["units"], entry, cut)
-    else:
-        recv, up_bytes = wire_trip(cfg, sent)
-        entry = recv.detach().requires_grad_(True)              # RSU leaf
-        feats = model.apply_units(sv_t["units"], entry, cut)
-    loss, logits = model.head_loss(sv_t["head"], feats, y)
-    grads = torch.autograd.grad(loss, sv_req + [entry])
-    g_cut = grads[-1]
-    if packed:
-        g_cut = model.entry_input_grad(sv_t["units"], g_cut)
-    g_recv, down_bytes = wire_trip(cfg, g_cut)                  # downlink
+    recv, packed, up_bytes, res = _send_up(model, cfg, sent, error_feedback)
+    sv2, so2, g_recv, loss, logits, down_bytes = _rsu_step(
+        model, cfg, opt, cut, sv, so, recv, packed, y)
     g_cu = torch.autograd.grad(smashed, cu_req, grad_outputs=g_recv)
     with torch.no_grad():
         upd_c, co2 = opt.update(cu_rebuild(list(g_cu)), co, cu)
         cu2 = optim.apply_updates(cu, upd_c)
-        upd_s, so2 = opt.update(sv_rebuild(list(grads[:-1])), so, sv)
-        sv2 = optim.apply_updates(sv, upd_s)
-    return (sv2, so2, cu2, co2, loss.detach(), logits.detach(),
-            up_bytes + down_bytes, res if error_feedback else None)
+    return (sv2, so2, cu2, co2, loss, logits, up_bytes + down_bytes, res)
 
 
 def make_sfl_batch_step(model, cfg: SimConfig, cut: int):
@@ -363,6 +406,21 @@ def _merge_state(full, suffix, cut):
     return out
 
 
+def _stacked(tree, n: int):
+    """``n`` replicas of ``tree`` on a leading axis (views: every update
+    makes new tensors)."""
+    return tree_map(lambda a: a.expand((n,) + a.shape), tree)
+
+
+def _select(mask: torch.Tensor, new, old):
+    """Leaf-wise ``new`` where the (n,) ``mask`` is set, else ``old``, over
+    trees stacked on a leading replica axis."""
+    def f(a, b):
+        return torch.where(mask.view((-1,) + (1,) * (a.dim() - 1)), a, b)
+
+    return tree_map(f, new, old)
+
+
 @dataclasses.dataclass
 class RoundPlan:
     """Host-side staging of one round: per bucket (ascending cut) its
@@ -377,14 +435,35 @@ class RoundPlan:
 
 
 class CohortEngine:
-    """Runs whole split-federation rounds on one device.
+    """Runs whole federation rounds on one device.
 
     One instance per simulation: it owns the stacked client data (staged on
-    the device once) and counts what crossed the wire.  The schedule is the
-    reference's ``unroll`` order as a per-replica loop; the vmap/scan
-    schedules of the JAX engine are XLA compilation strategies for the same
-    math and have no counterpart here yet."""
-    mode = "loop"
+    the device once) and counts the client batch steps it ran and the bytes
+    that crossed the wire.  ``mode`` is the reference's intra-bucket
+    schedule of an SFL round, resolved from ``cfg.cohort_parallel``; every
+    mode computes the same math in the same client order:
+
+    * ``unroll`` and ``scan``: the per-replica loop, each slot of a bucket
+      through the whole message flow in slot order.  In the reference
+      ``scan`` fuses that loop into one ``lax.scan`` and ``unroll`` emits
+      it as straight-line code: two XLA compile strategies for one loop, so
+      both run the loop here.
+    * ``vmap`` (the reference's ``_bucket_vmap``): a bucket's replicas and
+      optimizer states are stacked on a leading axis; the vehicle-side
+      forward runs as ``torch.func.vmap`` under ``torch.func.vjp``; the
+      stacked smashed tensor goes up the wire in one codec call; the shared
+      RSU consumes the smashed batches one slot at a time in slot order
+      (paper §III-B), each with its own downlink; one vehicle-side backward
+      takes the stacked cut-layer gradients, and ``torch.func.vmap`` of the
+      optimizer update steps every replica.  Slots without a step keep
+      their state, and neither their bytes nor their steps are counted.
+    * ``auto``: ``vmap`` on a CUDA device, ``unroll`` on the CPU (the
+      reference's rule: vmap on accelerators).
+
+    ``fl_round`` vectorises the full-model batch step the same way under
+    ``vmap``; ``cl_round`` and ``sl_round`` are sequential chains (one
+    travelling model) under every mode.  The codec kernels are called only
+    outside the ``torch.func`` transforms."""
 
     def __init__(self, model, cfg: SimConfig,
                  clients: Sequence[ClientDataset], device: torch.device):
@@ -393,9 +472,68 @@ class CohortEngine:
         self.device = device
         self.opt = optim.from_name(cfg.optimizer, cfg.lr)
         self.stacked = stack_clients(clients, device)
+        mode = cfg.cohort_parallel
+        if mode == "auto":
+            mode = "vmap" if device.type == "cuda" else "unroll"
+        self.mode = mode
         self.batch_steps = 0      # client batch steps run (lifetime)
         self.wire_bytes = 0       # bytes across the wire, both directions
 
+    def _long(self, a) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a), dtype=torch.long,
+                               device=self.device)
+
+    def _gather(self, rows: torch.Tensor, idx: torch.Tensor):
+        """Batches of every replica: rows (n,), idx (n, B) -> (n, B, ...)."""
+        return (self.stacked.images[rows[:, None], idx],
+                self.stacked.labels[rows[:, None], idx])
+
+    # ---- one bucket's local step, per schedule ------------------------
+    def _bucket_loop(self, cut, sv, so, cus, cos, rows, idx, act):
+        """Each active slot through the whole message flow, in slot order.
+        ``cus`` / ``cos`` are lists of per-replica trees; ``rows`` host
+        client indices, ``idx`` (n, B) on the device."""
+        losses = []
+        for i in np.flatnonzero(act):
+            row = int(rows[i])
+            x = self.stacked.images[row][idx[i]]
+            y = self.stacked.labels[row][idx[i]]
+            sv, so, cus[i], cos[i], loss, _, nbytes, _ = sfl_message_flow(
+                self.model, self.cfg, self.opt, cut, sv, so, cus[i], cos[i],
+                x, y)
+            losses.append(loss)
+            self.wire_bytes += nbytes
+        return cus, cos, sv, so, losses
+
+    def _bucket_vmap(self, cut, sv, so, cu, co, rows, idx, act, act_t):
+        """The vectorised step: ``cu`` / ``co`` are stacked (n, ...) trees,
+        ``rows`` (n,) on the device, ``act_t`` the (n,) mask on the
+        device."""
+        model, cfg, opt = self.model, self.cfg, self.opt
+        x, y = self._gather(rows, idx)
+
+        def client_fwd(c):
+            return torch.func.vmap(
+                lambda ci, xi: model.apply_units(ci, xi, 0))(c, x)
+
+        smashed, client_vjp = torch.func.vjp(client_fwd, cu)
+        recv, packed, up_bytes, _ = _send_up(model, cfg, smashed.detach())
+        up_slot = up_bytes // len(act)
+        g_sm = torch.zeros_like(smashed)
+        losses = []
+        for i in np.flatnonzero(act):
+            sv, so, g_sm[i], loss, _, down_bytes = _rsu_step(
+                model, cfg, opt, cut, sv, so, recv[i], packed, y[i])
+            losses.append(loss)
+            self.wire_bytes += up_slot + down_bytes
+        (g_cu,) = client_vjp(g_sm)
+        upd, co2 = torch.func.vmap(opt.update)(g_cu, co, cu)
+        cu2 = optim.apply_updates(cu, upd)
+        if not act.all():
+            cu2, co2 = _select(act_t, cu2, cu), _select(act_t, co2, co)
+        return cu2, co2, sv, so, losses
+
+    # ---- rounds --------------------------------------------------------
     def _split_agg(self, plan: RoundPlan, server, bstates):
         """Unit-wise FedAvg: vehicle replicas of every unit before their cut
         plus the RSU copy of the units it served, |D_n|-weighted."""
@@ -406,7 +544,7 @@ class CohortEngine:
             for bi, (cut, n) in enumerate(plan.cuts_sig):
                 if cut > u:
                     w = plan.bucket_w[bi].astype(np.float32)
-                    trees += [bstates[bi][0][i][u] for i in range(n)]
+                    trees += [bstates[bi][i][u] for i in range(n)]
                     ws += list(w)
                     den = np.float32(den + np.sum(w, dtype=np.float32))
             num = aggregation.weighted_sum(trees, ws)
@@ -421,38 +559,148 @@ class CohortEngine:
         opt, dev = self.opt, self.device
         server = {"units": list(units), "head": head}
         s_opt = opt.init(server)
+        vmap = self.mode == "vmap"
         bstates = []
         for cut, n in plan.cuts_sig:
-            bstates.append(([list(units[:cut]) for _ in range(n)],
-                            [opt.init(list(units[:cut])) for _ in range(n)]))
-        idx = [torch.as_tensor(i, dtype=torch.long, device=dev)
-               for i in plan.bucket_idx]
+            if vmap:
+                cu = _stacked(list(units[:cut]), n)
+                bstates.append((cu, torch.func.vmap(opt.init)(cu)))
+            else:
+                bstates.append(([list(units[:cut]) for _ in range(n)],
+                                [opt.init(list(units[:cut]))
+                                 for _ in range(n)]))
+        idx = [self._long(i) for i in plan.bucket_idx]
+        if vmap:
+            rows = [self._long(r) for r in plan.bucket_rows]
+            masks = [torch.as_tensor(m, device=dev) for m in plan.bucket_mask]
         loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
         cnt = 0
         for s in range(plan.steps):
             for bi, (cut, n) in enumerate(plan.cuts_sig):
-                cus, cos = bstates[bi]
+                act = plan.bucket_mask[bi][s]
+                if not act.any():
+                    continue
                 sv = {"units": list(server["units"][cut:]),
                       "head": server["head"]}
                 so = _suffix_state(s_opt, cut)
-                for i in range(n):
-                    if not plan.bucket_mask[bi][s, i]:
-                        continue
-                    row = int(plan.bucket_rows[bi][i])
-                    x = self.stacked.images[row][idx[bi][s, i]]
-                    y = self.stacked.labels[row][idx[bi][s, i]]
-                    sv, so, cus[i], cos[i], loss, _, nbytes, _ = \
-                        sfl_message_flow(self.model, self.cfg, opt, cut,
-                                         sv, so, cus[i], cos[i], x, y)
+                if vmap:
+                    cu, co, sv, so, losses = self._bucket_vmap(
+                        cut, sv, so, *bstates[bi], rows[bi], idx[bi][s], act,
+                        masks[bi][s])
+                else:
+                    cu, co, sv, so, losses = self._bucket_loop(
+                        cut, sv, so, *bstates[bi], plan.bucket_rows[bi],
+                        idx[bi][s], act)
+                bstates[bi] = (cu, co)
+                for loss in losses:
                     loss_sum = loss_sum + loss
-                    cnt += 1
-                    self.wire_bytes += nbytes
+                cnt += len(losses)
                 server = {"units": list(server["units"][:cut])
                           + list(sv["units"]), "head": sv["head"]}
                 s_opt = _merge_state(s_opt, so, cut)
         self.batch_steps += cnt
-        units, head = self._split_agg(plan, server, bstates)
+        replicas = [[tree_map(lambda a: a[i], cu) for i in range(n)]
+                    if vmap else cu
+                    for (cu, _), (_, n) in zip(bstates, plan.cuts_sig)]
+        units, head = self._split_agg(plan, server, replicas)
         return units, head, loss_sum, cnt
+
+    def _full_batch(self, tree, ost, x, y):
+        """One full-model (CL / FL local) batch step: (tree, state, loss).
+        Written with ``torch.func`` so that ``vmap`` can take it whole."""
+        model = self.model
+
+        def loss_fn(t):
+            feats = model.apply_units(t["units"], x, 0)
+            return model.head_loss(t["head"], feats, y)[0]
+
+        g, loss = torch.func.grad_and_value(loss_fn)(tree)
+        upd, ost2 = self.opt.update(g, ost, tree)
+        return optim.apply_updates(tree, upd), ost2, loss
+
+    def fl_round(self, units, head, rows, idx, mask, w, batch: int):
+        """One FL round: every participant trains the full model on its own
+        data (``idx`` (steps, n, B), ``mask`` (steps, n)), then the
+        |D_n|-weighted FedAvg over the stacked replicas.  Returns (units,
+        head, loss sum, client batch steps)."""
+        opt, dev = self.opt, self.device
+        tree = {"units": list(units), "head": head}
+        n, steps = len(rows), idx.shape[0]
+        idx_t = self._long(idx)
+        loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
+        if self.mode == "vmap":
+            st = _stacked(tree, n)
+            ost = torch.func.vmap(opt.init)(st)
+            rows_t = self._long(rows)
+            mask_t = torch.as_tensor(mask, device=dev)
+            batch_step = torch.func.vmap(self._full_batch)
+            for s in range(steps):
+                x, y = self._gather(rows_t, idx_t[s])
+                st2, ost2, losses = batch_step(st, ost, x, y)
+                if mask[s].all():
+                    st, ost = st2, ost2
+                    loss_sum = loss_sum + losses.sum()
+                else:
+                    st = _select(mask_t[s], st2, st)
+                    ost = _select(mask_t[s], ost2, ost)
+                    loss_sum = loss_sum + torch.where(
+                        mask_t[s], losses, torch.zeros_like(losses)).sum()
+        else:
+            trees = [tree] * n
+            osts = [opt.init(tree) for _ in range(n)]
+            for s in range(steps):
+                for i in np.flatnonzero(mask[s]):
+                    r = int(rows[i])
+                    trees[i], osts[i], loss = self._full_batch(
+                        trees[i], osts[i], self.stacked.images[r][idx_t[s, i]],
+                        self.stacked.labels[r][idx_t[s, i]])
+                    loss_sum = loss_sum + loss
+            st = tree_map(lambda *a: torch.stack(a), trees[0], *trees[1:])
+        cnt = int(np.sum(mask))
+        self.batch_steps += cnt
+        avg = aggregation.stacked_fedavg(st, w)
+        return list(avg["units"]), avg["head"], loss_sum, cnt
+
+    def _chain_round(self, kind: str, cut: int, carry, rows, idx):
+        """SL (one travelling vehicle-side model through the message flow)
+        and CL (one centralised model): a sequential chain of batch steps,
+        step t on client ``rows[t]``'s samples ``idx[t]``."""
+        idx_t = self._long(idx)
+        loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
+        for t in range(len(rows)):
+            r = int(rows[t])
+            x = self.stacked.images[r][idx_t[t]]
+            y = self.stacked.labels[r][idx_t[t]]
+            if kind == "sl":
+                cu, sv, co, so = carry
+                sv, so, cu, co, loss, _, nbytes, _ = sfl_message_flow(
+                    self.model, self.cfg, self.opt, cut, sv, so, cu, co, x,
+                    y)
+                carry = (cu, sv, co, so)
+                self.wire_bytes += nbytes
+            else:
+                tree, ost = carry
+                tree, ost, loss = self._full_batch(tree, ost, x, y)
+                carry = (tree, ost)
+            loss_sum = loss_sum + loss
+        self.batch_steps += len(rows)
+        return carry, loss_sum
+
+    def sl_round(self, units, head, cut, rows, idx, batch: int):
+        """Vanilla SL: fresh optimizer states every round; returns (units,
+        head, loss sum)."""
+        sv = {"units": list(units[cut:]), "head": head}
+        carry = (list(units[:cut]), sv, self.opt.init(list(units[:cut])),
+                 self.opt.init(sv))
+        (cu, sv, _, _), ls = self._chain_round("sl", cut, carry, rows, idx)
+        return list(cu) + list(sv["units"]), sv["head"], ls
+
+    def cl_round(self, units, head, cl_opt, rows, idx, batch: int):
+        """Centralised training; the optimizer state is carried across
+        rounds by the caller.  Returns (units, head, state, loss sum)."""
+        carry = ({"units": list(units), "head": head}, cl_opt)
+        (tree, cl_opt), ls = self._chain_round("cl", 0, carry, rows, idx)
+        return list(tree["units"]), tree["head"], cl_opt, ls
 
 
 def _to_device(tree, device):
@@ -467,7 +715,9 @@ def _stage_test(test: Dict[str, Any], device: torch.device):
 
 
 class FederationSim:
-    """The single-RSU SFL / ASFL simulator on one device (``cuda`` unless
+    """The single-RSU simulator of the paper's Fig. 5 comparison: CL / FL /
+    SL / SFL (fixed cut) / ASFL, with the single-RSU fault plane (coverage,
+    mid-round dropout, upload loss), on one device (``cuda`` unless
     ``device="cpu"`` is passed; raises without a card)."""
 
     def __init__(self, model, clients: Sequence[ClientDataset],
@@ -475,6 +725,18 @@ class FederationSim:
                  fleet: Optional[List[channel.VehicleProfile]] = None,
                  ch_cfg: Optional[channel.ChannelConfig] = None, *,
                  device: DeviceLike = None):
+        self.faults = cfg.fault_config()
+        if (self.faults.straggler_factor > 0.0
+                or self.faults.rsu_outage_rate > 0.0):
+            raise ValueError(
+                "FederationSim is the single-RSU engine: fault_straggler "
+                "and fault_rsu_outage need the multi-RSU ScenarioEngine "
+                "(residence deadlines and RSU outages are scenario "
+                "concepts)")
+        if self.faults.stochastic and cfg.scheme not in ("sfl", "asfl"):
+            raise ValueError(
+                f"fault injection is wired into the split-federation round "
+                f"(sfl | asfl); scheme {cfg.scheme!r} does not support it")
         self.device = resolve_device(device)
         self.model = model
         self.clients = list(clients)
@@ -490,7 +752,8 @@ class FederationSim:
     def reset(self):
         """Re-initialise parameters (torch generator seeded with
         ``cfg.seed``; not the reference's threefry draw — parity tests load
-        the reference's weights with :meth:`set_params`) and history."""
+        the reference's weights with :meth:`set_params`), the CL optimizer
+        state and history."""
         gen = torch.Generator().manual_seed(self.cfg.seed)
         units, head = self.model.init(gen)
         self.set_params(units, head)
@@ -500,6 +763,7 @@ class FederationSim:
         """Load global parameters (port layout) onto the sim's device."""
         self.units = [_to_device(u, self.device) for u in units]
         self.head = _to_device(head, self.device)
+        self._cl_opt = None
 
     def _local_steps(self, client: ClientDataset) -> int:
         if self.cfg.local_steps is not None:
@@ -507,14 +771,28 @@ class FederationSim:
         nb = max(len(client) // self.cfg.batch_size, 1)
         return nb * self.cfg.local_epochs
 
+    def _n_batches(self, clients) -> np.ndarray:
+        return np.array([max(len(c) // self.cfg.batch_size, 1)
+                         for c in clients])
+
     def _round_rates(self, rnd: int) -> np.ndarray:
         t = rnd * self.cfg.round_interval_s
         return channel.sample_round_rates(self.ch, self.fleet_arr, t,
                                           self.cfg.seed * 1000 + rnd)
 
+    def _participants(self, rnd: int) -> List[int]:
+        """Vehicles in RSU coverage this round (all of them unless the
+        coverage fault, the legacy ``mobility_dropout``, is on); at least
+        one vehicle always takes part."""
+        if not self.faults.coverage:
+            return list(range(len(self.clients)))
+        t = rnd * self.cfg.round_interval_s
+        inr = np.nonzero(channel.in_range_mask(self.ch, self.fleet_arr, t))[0]
+        return list(map(int, inr)) or [0]
+
     def _pick_cuts(self, rates: np.ndarray) -> List[int]:
         c = self.cfg
-        if c.scheme == "sfl":
+        if c.scheme in ("sfl", "sl"):
             return [c.cut] * len(self.clients)
         strat = c.adaptive_strategy
         if strat not in FEDERATION_STRATEGIES:
@@ -542,10 +820,11 @@ class FederationSim:
 
     def run(self, on_round: Optional[Callable[[RoundMetrics], None]] = None
             ) -> List[RoundMetrics]:
-        """Run ``cfg.rounds`` rounds; ``on_round`` gets each round's
-        metrics as it completes."""
+        """Run ``cfg.rounds`` rounds of ``cfg.scheme``; ``on_round`` gets
+        each round's metrics as it completes."""
+        round_fn = getattr(self, f"_round_{self.cfg.scheme}")
         for rnd in range(self.cfg.rounds):
-            metrics = self._parallel_split_round(rnd)
+            metrics = round_fn(rnd)
             self.history.append(metrics)
             if on_round is not None:
                 on_round(metrics)
@@ -559,10 +838,96 @@ class FederationSim:
             acc = float("nan")
         return RoundMetrics(rnd, float(loss), acc, comm, time_s, energy, cuts)
 
+    def _round_cl(self, rnd: int) -> RoundMetrics:
+        """Centralised: every vehicle's raw data pooled at the RSU (the
+        upper bound the paper argues against); the raw-data upload is
+        charged on round 0."""
+        cfgc = self.cfg
+        if self._cl_opt is None:
+            self._cl_opt = self.engine.opt.init(
+                {"units": self.units, "head": self.head})
+        rows_l, idx_l = [], []
+        for ci, c in enumerate(self.clients):
+            eidx = epoch_batch_indices(len(c), cfgc.batch_size,
+                                       cfgc.seed + rnd)
+            rows_l += [ci] * len(eidx)
+            idx_l.append(eidx)
+        rows = np.asarray(rows_l, np.int64)
+        idx = np.concatenate(idx_l)
+        self.units, self.head, self._cl_opt, ls = self.engine.cl_round(
+            self.units, self.head, self._cl_opt, rows, idx, cfgc.batch_size)
+        comm = sum(c.images.nbytes for c in self.clients) if rnd == 0 else 0.0
+        return self._metrics(rnd, float(ls) / max(len(rows), 1), [], comm,
+                             0.0, 0.0)
+
+    def _round_fl(self, rnd: int) -> RoundMetrics:
+        cfgc = self.cfg
+        rates = self._round_rates(rnd)
+        part = self._participants(rnd)
+        steps_i = [self._local_steps(self.clients[ci]) for ci in part]
+        idx = np.zeros((max(steps_i), len(part), cfgc.batch_size), np.int64)
+        mask = np.zeros((max(steps_i), len(part)), bool)
+        w = np.zeros(len(part), np.float64)
+        for j, ci in enumerate(part):
+            ln = len(self.clients[ci])
+            w[j] = ln
+            for s in range(steps_i[j]):
+                idx[s, j] = sample_batch_indices(ln, cfgc.batch_size,
+                                                 cfgc.seed + rnd * 997 + s)
+                mask[s, j] = True
+        self.units, self.head, ls, cnt = self.engine.fl_round(
+            self.units, self.head, np.asarray(part), idx, mask, w,
+            cfgc.batch_size)
+        rc = cost.fl_round_cost_arrays(
+            self.profile, self._n_batches(self.clients[ci] for ci in part),
+            cfgc.batch_size, rates[part],
+            self.fleet_arr["compute_flops"][part], cfgc.local_epochs,
+            self.fleet_arr["tx_power_w"][part],
+            self.fleet_arr["compute_power_w"][part])
+        return self._metrics(rnd, float(ls) / max(float(cnt), 1.0), [],
+                             float(rc.comm_bytes.sum()),
+                             float(rc.latency.max()),
+                             float(rc.energy_j.sum()))
+
+    def _round_sl(self, rnd: int) -> RoundMetrics:
+        """Vanilla sequential SL: the vehicle-side model travels from
+        vehicle to vehicle; the RSU-side model trains continuously."""
+        cfgc = self.cfg
+        cut = cfgc.cut
+        rates = self._round_rates(rnd)
+        rows_l, idx_l = [], []
+        for ci, c in enumerate(self.clients):
+            for s in range(self._local_steps(c)):
+                rows_l.append(ci)
+                idx_l.append(sample_batch_indices(
+                    len(c), cfgc.batch_size, cfgc.seed + rnd * 991 + s))
+        rows = np.asarray(rows_l, np.int64)
+        self.units, self.head, ls = self.engine.sl_round(
+            self.units, self.head, cut, rows, np.stack(idx_l),
+            cfgc.batch_size)
+        rc = cost.sl_round_cost(
+            self.profile, cut, self._n_batches(self.clients),
+            cfgc.batch_size, rates, self.fleet_arr["compute_flops"],
+            cfgc.server_flops, cfgc.local_epochs)
+        return self._metrics(rnd, float(ls) / max(len(rows), 1),
+                             [cut] * len(self.clients), rc.comm_bytes,
+                             rc.latency, rc.energy_j)
+
+    def _round_sfl(self, rnd: int) -> RoundMetrics:
+        return self._parallel_split_round(rnd)
+
+    def _round_asfl(self, rnd: int) -> RoundMetrics:
+        return self._parallel_split_round(rnd)
+
     def _plan_split_round(self, rnd: int, cuts: List[int],
-                          participants: List[int]) -> RoundPlan:
+                          participants: List[int],
+                          performed: Optional[Dict[int, int]] = None,
+                          survivors: Optional[Dict[int, bool]] = None
+                          ) -> RoundPlan:
         """Bucket participants by cut (ascending, members by client index)
-        and pre-draw every member's batch-index stream for the round."""
+        and pre-draw every member's batch-index stream for the round.
+        Faults: ``performed[ci]`` truncates a dropout's step mask to the
+        steps it ran; ``survivors[ci]`` False zeroes its merge weight."""
         cfgc = self.cfg
         buckets: Dict[int, List[int]] = {}
         for ci in participants:
@@ -578,8 +943,10 @@ class FederationSim:
             w = np.zeros(n, np.float64)
             for j, ci in enumerate(members):
                 ln = len(self.clients[ci])
-                w[j] = ln
-                for s in range(self._local_steps(self.clients[ci])):
+                w[j] = ln if survivors is None or survivors[ci] else 0.0
+                n_s = (self._local_steps(self.clients[ci])
+                       if performed is None else performed[ci])
+                for s in range(n_s):
                     idx[s, j] = sample_batch_indices(
                         ln, cfgc.batch_size,
                         cfgc.seed + rnd * 983 + s * 31 + ci)
@@ -600,29 +967,76 @@ class FederationSim:
         """SFL/ASFL with SplitFed-V1 semantics: vehicle-side replicas train
         at (possibly heterogeneous) cuts while the RSU keeps one shared
         server-side model updated on every client batch; the round closes
-        with the unit-wise FedAvg and the analytic cost model."""
+        with the unit-wise FedAvg and the analytic cost model.  With the
+        fault plane on, the host draw decides who drops out (and after how
+        many steps) and whose upload is lost."""
         cfgc = self.cfg
+        fc = self.faults
         rates = self._round_rates(rnd)
-        participants = list(range(len(self.clients)))
+        participants = self._participants(rnd)
         cuts = [max(1, min(c, self.model.n_units - 1))
                 for c in self._pick_cuts(rates)]
-        plan = self._plan_split_round(rnd, cuts, participants)
+        performed = survivors = uploads = None
+        if fc.stochastic:
+            drop, dfrac, lost = faults.sample_faults_host(
+                fc, rnd, len(self.clients))
+            lost = lost & ~drop          # a dropout never uploads
+            if all(drop[ci] or lost[ci] for ci in participants):
+                # at least one participant survives: the first one's
+                # failures are cleared
+                drop[participants[0]] = lost[participants[0]] = False
+            performed = {ci: (int(dfrac[ci] * self._local_steps(
+                                  self.clients[ci])) if drop[ci]
+                              else self._local_steps(self.clients[ci]))
+                         for ci in participants}
+            survivors = {ci: not (drop[ci] or lost[ci])
+                         for ci in participants}
+            uploads = {ci: not drop[ci] for ci in participants}
+        plan = self._plan_split_round(rnd, cuts, participants, performed,
+                                      survivors)
         self.units, self.head, ls, cnt = self.engine.split_round(
             self.units, self.head, plan, cfgc.batch_size)
         part = np.asarray(participants)
-        rc = cost.sfl_round_cost_arrays(
-            self.profile, np.asarray(cuts)[part],
-            np.array([max(len(self.clients[ci]) // cfgc.batch_size, 1)
-                      for ci in participants]),
-            cfgc.batch_size, rates[part],
-            self.fleet_arr["compute_flops"][part], cfgc.server_flops,
-            cfgc.local_epochs, self.fleet_arr["tx_power_w"][part],
-            self.fleet_arr["compute_power_w"][part],
-            wire=cfgc.wire_scheme(), wire_k=cfgc.wire_k)
-        return self._metrics(rnd, float(ls) / max(float(cnt), 1.0), cuts,
-                             float(rc.comm_bytes.sum()),
-                             float(rc.latency.max()),
-                             float(rc.energy_j.sum()))
+        if fc.stochastic:
+            # charge only the work performed: a dropout pays its partial
+            # smashed traffic and compute but no upload; an upload loss
+            # pays everything; the latency bound is over the survivors
+            rc = cost.sfl_round_cost_arrays(
+                self.profile, np.asarray(cuts)[part],
+                np.array([performed[ci] for ci in participants]),
+                cfgc.batch_size, rates[part],
+                self.fleet_arr["compute_flops"][part], cfgc.server_flops,
+                1, self.fleet_arr["tx_power_w"][part],
+                self.fleet_arr["compute_power_w"][part],
+                wire=cfgc.wire_scheme(), wire_k=cfgc.wire_k,
+                model_upload=np.array([uploads[ci]
+                                       for ci in participants]))
+            surv_arr = np.array([survivors[ci] for ci in participants])
+            latency = float(np.max(rc.latency[surv_arr], initial=0.0))
+        else:
+            rc = cost.sfl_round_cost_arrays(
+                self.profile, np.asarray(cuts)[part],
+                self._n_batches(self.clients[ci] for ci in participants),
+                cfgc.batch_size, rates[part],
+                self.fleet_arr["compute_flops"][part], cfgc.server_flops,
+                cfgc.local_epochs, self.fleet_arr["tx_power_w"][part],
+                self.fleet_arr["compute_power_w"][part],
+                wire=cfgc.wire_scheme(), wire_k=cfgc.wire_k)
+            latency = float(rc.latency.max())
+        m = self._metrics(rnd, float(ls) / max(float(cnt), 1.0), cuts,
+                          float(rc.comm_bytes.sum()), latency,
+                          float(rc.energy_j.sum()))
+        if fc.stochastic:
+            bytes_cum = np.concatenate(
+                [[0.0], np.cumsum(self.profile.unit_param_bytes)])
+            m.n_dropout = int(sum(drop[ci] for ci in participants))
+            m.n_upload_lost = int(sum(lost[ci] for ci in participants))
+            m.survivor_frac = (float(sum(survivors.values()))
+                               / max(len(participants), 1))
+            m.lost_update_bytes = float(sum(
+                bytes_cum[cuts[ci]] for ci in participants
+                if not survivors[ci]))
+        return m
 
 
 # --------------------------------------------------------------------------
@@ -689,7 +1103,10 @@ class ScenarioEngine:
     at the RSU, and the vehicle-side model re-download is charged in the
     accounting.  ``batch_indices(rnd) -> (steps, n, batch)`` (default: the
     numpy :func:`fleet_batch_indices`) and ``fleet_states`` exist so the
-    parity tests can feed both engines the reference's threefry draws."""
+    parity tests can feed both engines the reference's threefry draws.
+    ``cohort_parallel`` and ``scheme`` are single-RSU knobs, which the
+    reference's scenario engine ignores too; the fault plane is not ported
+    here yet (a non-default fault field raises)."""
     mode = "loop"
 
     def __init__(self, model, clients: Sequence[ClientDataset],
@@ -697,6 +1114,13 @@ class ScenarioEngine:
                  cloud_sync_every: int = 1, *, device: DeviceLike = None,
                  fleet_states: Optional[Callable[[int], Any]] = None,
                  batch_indices: Optional[Callable[[int], np.ndarray]] = None):
+        defaults = SimConfig.__dataclass_fields__
+        for field in FAULT_FIELDS:
+            if getattr(cfg, field) != defaults[field].default:
+                raise NotImplementedError(
+                    f"SimConfig.{field}={getattr(cfg, field)!r}: not ported "
+                    f"yet on the ScenarioEngine (the port runs the fault "
+                    f"plane on the single-RSU FederationSim)")
         if len(clients) != scenario.n_vehicles:
             raise ValueError(f"{len(clients)} client shards for a scenario "
                              f"of {scenario.n_vehicles} vehicles")

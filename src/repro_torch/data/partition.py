@@ -1,9 +1,10 @@
-"""Non-IID client partitioner (twin of ``repro.data.partition``; numpy, so
-it replays the reference exactly).
+"""Non-IID client partitioners (twin of ``repro.data.partition``; numpy,
+so they replay the reference exactly).
 
 ``label_skew_power_law`` is the paper's setting: each vehicle keeps only
 ``labels_per_client`` of the ``n_classes`` labels (6 of 10) and sample
 counts follow a power law (Li et al., paper ref [14]).
+``dirichlet_partition`` is the standard Dirichlet(alpha) label skew.
 """
 from __future__ import annotations
 
@@ -44,3 +45,28 @@ def label_skew_power_law(seed: int, labels: np.ndarray, n_clients: int,
             idx.append(take)
         out.append(np.concatenate(idx))
     return out
+
+
+def dirichlet_partition(seed: int, labels: np.ndarray, n_clients: int,
+                        alpha: float = 0.5, n_classes: int = 10
+                        ) -> List[np.ndarray]:
+    """Dirichlet(alpha) label-skew partition: each class is split over the
+    clients in Dirichlet-drawn proportions; sorted indices per client."""
+    rng = np.random.default_rng(seed)
+    labels = np.asarray(labels)
+    out = [[] for _ in range(n_clients)]
+    for c in range(n_classes):
+        idx = rng.permutation(np.where(labels == c)[0])
+        props = rng.dirichlet([alpha] * n_clients)
+        cuts = (np.cumsum(props) * len(idx)).astype(int)[:-1]
+        for i, part in enumerate(np.split(idx, cuts)):
+            out[i].extend(part.tolist())
+    return [np.asarray(sorted(x), dtype=np.int64) for x in out]
+
+
+def partition_stats(parts: List[np.ndarray], labels: np.ndarray,
+                    n_classes: int = 10):
+    """Per client: its sample count and the classes it holds."""
+    labels = np.asarray(labels)
+    return [{"n": len(p), "classes": sorted(set(labels[p].tolist()))}
+            for p in parts]

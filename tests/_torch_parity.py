@@ -1,5 +1,6 @@
 """Shared helpers of the PyTorch-port parity tests (tests/test_torch_*.py):
 numpy inputs handed to both packages, leaves compared as numpy."""
+import dataclasses
 import os
 
 import jax
@@ -54,12 +55,23 @@ def max_abs_diff(a_leaves, b_leaves):
 WIRE_TOL = {"none": 1e-5, "int8": 1e-4, "topk_int8": 1e-4}
 
 
-def run_both(opt, wire, lr, rounds=2, per_vehicle=32, **extra):
+def run_both(opt, wire, lr, rounds=2, per_vehicle=32, sizes=None,
+             **extra):
+    """The reference's and the port's FederationSim (mlp9, 4 vehicles) on
+    the same data from the reference's initial parameters; ``sizes`` cuts
+    the shards to unequal lengths (vehicles then run different numbers of
+    local steps).  Returns (ref sim, ref history, port sim, port
+    history)."""
     kw = dict(scheme="asfl", n_clients=4, batch_size=8, local_epochs=1,
               lr=lr, rounds=rounds, optimizer=opt, wire=wire)
     kw.update(extra)
     jc, jt = JM.make_mlp_fleet_data(4, per_vehicle, seed=0, n_test=64)
     tc, tt = TM.make_mlp_fleet_data(4, per_vehicle, seed=0, n_test=64)
+    if sizes is not None:
+        jc = [dataclasses.replace(c, images=c.images[:n], labels=c.labels[:n])
+              for c, n in zip(jc, sizes)]
+        tc = [dataclasses.replace(c, images=c.images[:n], labels=c.labels[:n])
+              for c, n in zip(tc, sizes)]
     js = JF.FederationSim(JM.MLPUnitModel(), jc, jt, JF.SimConfig(**kw))
     ts = TF.FederationSim(TM.MLPUnitModel(), tc, tt, TF.SimConfig(**kw),
                           device="cpu")

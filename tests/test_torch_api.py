@@ -70,9 +70,13 @@ def test_spec_refuses_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="not ported yet"):
         TAPI.ExperimentSpec(fleet=TAPI.FleetConfig(scenario="city"))
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        TAPI.ExperimentSpec(faults=TAPI.FaultsConfig(dropout_rate=0.1))
+        TAPI.ExperimentSpec(
+            model="mlp9", faults=TAPI.FaultsConfig(dropout_rate=0.1),
+            fleet=TAPI.FleetConfig(n_vehicles=6,
+                                   scenario="highway_corridor"))
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        TAPI.ExperimentSpec(train=TAPI.TrainConfig(scheme="cl"))
+        TAPI.ExperimentSpec(train=TAPI.TrainConfig(
+            scheme="cl", server_schedule="parallel"))
     with pytest.raises(ValueError, match="not ported yet"):
         TAPI.ExperimentSpec(model="qwen3_14b")
     with pytest.raises(ValueError):

@@ -3,9 +3,11 @@ card — the codec bit-exact (on NaN / +-inf input under the non-finite
 contract: NaN exactly where the plain version's is, every other float,
 int8 and word bit for bit), unpack_dequant_matmul /
 rmsnorm / flash attention / SSD within stated float32 tolerances at their
-paths' shapes and edge shapes — short mlp9 runs (single RSU, and one
+paths' shapes and edge shapes — short mlp9 runs (single RSU under the
+loop and under vmap with the launch counts each schedule implies, and one
 multi-RSU scenario round on topk_int8) on cuda against the same runs on the
-CPU, and the reduced LM configs served on cuda against the CPU.  Needs a CUDA card and
+CPU, resnet18 under vmap against the loop on the card, and the reduced LM
+configs served on cuda against the CPU.  Needs a CUDA card and
 nvcc:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -224,7 +226,7 @@ def test_mlp_sim_on_cuda_matches_cpu(dev):
     from repro_torch.models.mlp_unit import MLPUnitModel, make_mlp_fleet_data
     cfg = fedsim.SimConfig(n_clients=4, batch_size=8, local_epochs=1,
                            lr=1e-2, rounds=1, optimizer="sgd",
-                           wire="int8")
+                           wire="int8", cohort_parallel="unroll")
     clients, test = make_mlp_fleet_data(4, 32)
     cpu = fedsim.FederationSim(MLPUnitModel(), clients, test, cfg,
                                device="cpu")
@@ -240,6 +242,91 @@ def test_mlp_sim_on_cuda_matches_cpu(dev):
     for a, b in zip(cpu.units, gpu.units):
         for k in a:
             torch.testing.assert_close(b[k].cpu(), a[k], rtol=0, atol=1e-4)
+
+
+def _uneven_mlp(sizes=(16, 24, 32, 40)):
+    """mlp9 shards of unequal size: replicas run different numbers of
+    local steps, so buckets hold slots that sit steps out."""
+    import dataclasses
+
+    from repro_torch.models.mlp_unit import make_mlp_fleet_data
+    clients, test = make_mlp_fleet_data(4, max(sizes), seed=2, n_test=64)
+    return ([dataclasses.replace(c, images=c.images[:n], labels=c.labels[:n])
+             for c, n in zip(clients, sizes)], test)
+
+
+def _flat(sim):
+    from repro_torch.tree import tree_leaves
+    return np.concatenate([t.detach().cpu().numpy().ravel()
+                           for t in tree_leaves([sim.units, sim.head])])
+
+
+@pytest.mark.parametrize("wire", ["int8", "topk_int8"])
+def test_vmap_on_cuda_matches_loop_on_cpu(dev, wire):
+    """asfl under auto (= vmap on the card) against the loop on the CPU
+    from the same weights: equal cuts, wire bytes and steps, loss and
+    parameters within 1e-4; codec launches as the vmap schedule implies
+    (the uplink once per (bucket, local step) on the stacked smashed
+    tensor, the downlink once per client batch step; on topk_int8 mlp9's
+    RSU reads the packed buffer, so the uplink unpacks nothing and the
+    fused matmul's backward unpacks once per client batch step)."""
+    from repro_torch.core import fedsim
+    from repro_torch.models.mlp_unit import MLPUnitModel
+    clients, test = _uneven_mlp()
+    kw = dict(n_clients=4, batch_size=8, local_epochs=1, lr=1e-2, rounds=2,
+              optimizer="sgd", wire=wire)
+    cpu = fedsim.FederationSim(MLPUnitModel(), clients, test,
+                               fedsim.SimConfig(cohort_parallel="unroll",
+                                                **kw), device="cpu")
+    gpu = fedsim.FederationSim(MLPUnitModel(), clients, test,
+                               fedsim.SimConfig(**kw), device=dev)
+    assert gpu.engine.mode == "vmap"
+    hc = cpu.run()
+    before = launch_counts()
+    hg = gpu.run()
+    got = {k: v - before[k] for k, v in launch_counts().items()}
+    steps = gpu.engine.batch_steps
+    local = [len(c) // 8 for c in clients]
+    buckets = 0
+    for m in hg:
+        most = {}
+        for cut, n in zip(m.cuts, local):
+            most[cut] = max(most.get(cut, 0), n)
+        buckets += sum(most.values())
+    want = dict.fromkeys(got, 0)
+    if wire == "int8":
+        want.update(quantize_int8=buckets + steps,
+                    dequantize_int8=buckets + steps)
+    else:
+        want.update(sparsify_quant_pack=buckets + steps,
+                    unpack_dequant=2 * steps, unpack_dequant_matmul=steps)
+    assert steps == cpu.engine.batch_steps == 2 * sum(local)
+    assert got == want
+    assert gpu.engine.wire_bytes == cpu.engine.wire_bytes
+    for a, b in zip(hc, hg):
+        assert a.cuts == b.cuts and abs(a.loss - b.loss) <= 1e-4
+    assert np.abs(_flat(cpu) - _flat(gpu)).max() <= 1e-4
+
+
+@pytest.mark.parametrize("scheme", ["asfl", "fl"])
+def test_resnet_vmap_matches_loop_on_cuda(dev, scheme):
+    """resnet18 (batch 4, one local step, wire none) under vmap and under
+    the loop, both on the card: parameters and loss within 1e-4."""
+    from repro_torch.core import fedsim
+    from repro_torch.data.pipeline import make_federated_data
+    clients, test = make_federated_data(0, n_train=64, n_test=8)
+    sims = []
+    for mode in ("vmap", "unroll"):
+        cfg = fedsim.SimConfig(scheme=scheme, batch_size=4, local_steps=1,
+                               lr=1e-2, rounds=1, optimizer="sgd",
+                               eval_every=0, cohort_parallel=mode)
+        sim = fedsim.FederationSim(fedsim.ResNetModel(), clients, test, cfg,
+                                   device=dev)
+        sims.append((sim, sim.run()[0]))
+    (sv, mv), (sl, ml) = sims
+    assert mv.cuts == ml.cuts and abs(mv.loss - ml.loss) <= 1e-4
+    assert sv.engine.batch_steps == sl.engine.batch_steps == 4
+    assert np.abs(_flat(sv) - _flat(sl)).max() <= 1e-4
 
 
 # ------------------------------------------------- unpack_dequant_matmul

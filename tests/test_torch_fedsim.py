@@ -96,10 +96,10 @@ def test_control_plane_matches_jax():
 
 
 def test_sim_config_refuses_what_is_not_ported():
-    for kw in ({"scheme": "fl"}, {"fault_dropout": 0.1},
+    for kw in ({"page_slots": 4}, {"stream_buffer_size": 8},
                {"superstep": 2}, {"mesh_devices": 2},
                {"server_schedule": "parallel"}, {"stream_churn_rate": 0.1},
-               {"cohort_parallel": "vmap"}):
+               {"server_schedule": "streaming"}):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             TF.SimConfig(**kw)
     with pytest.raises(ValueError):
