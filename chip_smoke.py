@@ -98,7 +98,42 @@ neither ``jax`` nor ``repro``.  In order it:
     one slot sitting the step out) under ``vmap`` on the card from the same
     weights as the loop on the CPU, TF32 off, the model in float64: within
     phase 7's tolerance (the float32 comparisons printed beside it);
-11. prints the per-kernel JSON line (all eight kernels), then
+10f. the LM kernels' autograd on the card (rmsnorm, flash GQA causal d 64,
+    ssd chunk 256; small shapes and the training path's): gradients
+    through the Function (kernel forward, plain backward) against
+    all-plain autograd, forward within phase 4b's tolerances and
+    gradients within them of the largest gradient; ``torch.func.vmap``
+    of each Function equal to the per-slice calls, bit for bit where the
+    rule folds the axis into the batch and within the forward tolerance
+    where it loops over a parameter per replica; ``torch.func.vjp`` of
+    that ``vmap`` (CohortEngine's vehicle side) under both rules against
+    the per-replica vjps, within the forward tolerance of the largest
+    gradient; at the training shapes the device time of the Function's
+    backward (the plain version's vjp);
+10g. trains through ``repro_torch.launch.train.train`` at full width and
+    depth (batch 8, seq 1024, the default cut, adamw lr 3e-4, clip 1.0,
+    remat, 4 clients): smollm-360m and mamba2-780m 3 steps each, smollm
+    with ``compress`` 2 steps, the launch counters zeroed just before and
+    read just after each: finite losses and grad norms, the launches the
+    model implies per step (remat runs each period's forward twice), and
+    nonzero first moments of the embedding (through the final rmsnorm) and
+    in every layer of the attention's ``wk`` or the SSM's ``A_log`` and of
+    ``norm1``'s scale (leaves whose gradient comes only through that
+    layer's flash / SSD and rmsnorm backward); prints step 0's and the
+    later steps' s/step and peak memory;
+10h. one sgd train step of the reduced configs (three periods) on the card
+    and on the CPU from the same weights and batch, remat on with smashed
+    data dense and int8 and remat off dense: updates within phase 7's 1 %
+    of the largest update, losses within 1e-4, and the card's launches
+    exact (remat off runs each period's kernels once);
+10i. ``api.run`` of both reduced LMs on ``single_rsu`` (4 vehicles, the
+    paper's spec, one round): ``asfl`` over ``topk_int8`` under ``vmap``
+    and ``unroll`` from one seed (the same cuts), and ``fl`` under
+    ``vmap`` (the kernels inside ``vmap`` of ``grad``): finite loss,
+    accuracy in [0, 1], wire bytes = the cost model's, and every launch
+    count the schedule implies;
+11. prints the per-kernel JSON line (all eight kernels, the quant and LM
+    kernels with their launches per training step), then
     ``{"ok": true, "device": ...}`` as the last line.
 
 Any failure raises and the script exits non-zero.
@@ -1345,6 +1380,436 @@ def reduced_cpu_vs_card():
     return worst
 
 
+# ---- the LM training path (phases 10f-10i)
+TRAIN_BATCH, TRAIN_SEQ = 8, 1024
+# (arch, compress, steps): adamw lr 3e-4, clip 1.0, remat on, 4 clients,
+# the default cut
+TRAIN_RUNS = (("smollm-360m", False, 3), ("mamba2-780m", False, 3),
+              ("smollm-360m", True, 2))
+# phase 10f, Function (kernel forward, plain backward) vs all-plain
+# autograd on the card.  The backward is the plain version's vjp on the
+# same inputs, and the loss sum(w * y) gives it a cotangent w that does
+# not depend on the forward, so the gradients differ only where the two
+# backward passes reduce in another order: held at phase 4b's forward
+# tolerances, relative to the largest gradient.  The forward outputs are
+# held at LM_TOL as in phase 4b.
+
+
+def _autograd_cases():
+    """(kernel, label, fn, plain fn, args, vmap in_dims, slices) at small
+    shapes and at the training path's shapes."""
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import rmsnorm as RN
+    from repro_torch.kernels import ssd as SSD
+    cases = []
+    for label, shape in (("small", (2, 12, 256)),
+                         ("smollm_train_d960", (TRAIN_BATCH, TRAIN_SEQ, 960)),
+                         ("mamba2_gated_d3072",
+                          (TRAIN_BATCH, TRAIN_SEQ, 3072))):
+        x, g = _rms_case(shape, 40 + len(cases))
+        cases.append(("rmsnorm", label, RN.rmsnorm, RN.rmsnorm_plain,
+                      (x, g)))
+    for label, (b, s, h, kv, d) in (
+            ("small", (2, 37, 4, 2, 64)),
+            ("smollm_train", (TRAIN_BATCH, TRAIN_SEQ, 15, 5, 64))):
+        q, k, v = _flash_case(b, s, s, h, kv, d, 40 + len(cases))
+        cases.append(("flash_attention", label,
+                      lambda q, k, v: FA.flash_attention(q, k, v),
+                      lambda q, k, v: FA.attention_plain(q, k, v),
+                      (q, k, v)))
+    for label, (b, s, h, p, g, n) in (
+            ("small", (2, 300, 8, 64, 1, 128)),
+            ("mamba2_train", (TRAIN_BATCH, TRAIN_SEQ, 48, 64, 1, 128))):
+        x, dt, A, B, C = _ssd_case(b, s, h, p, g, n, 40 + len(cases))
+        a_log = torch.log(-A)
+        cases.append(("ssd_chunk_scan", label,
+                      lambda x, dt, al, B, C: SSD.ssd_chunk_scan(
+                          x, dt, -torch.exp(al), B, C, chunk=256)[0],
+                      lambda x, dt, al, B, C: SSD.ssd_chunked(
+                          x, dt, -torch.exp(al), B, C, 256)[0],
+                      (x, dt, a_log, B, C)))
+    return cases
+
+
+def _grads(fn, args, w):
+    import torch
+    req = [a.detach().clone().requires_grad_() for a in args]
+    out = fn(*req)
+    grads = torch.autograd.grad((out * w).sum(), req)
+    return out.detach(), grads
+
+
+def _vjp_of_vmap(fn, vin, dims, tol):
+    """``torch.func.vjp`` of ``vmap(fn, in_dims=dims)`` (CohortEngine's
+    vehicle side under its ``vmap`` schedule) against the per-replica
+    vjps, in every input that carries the replica axis.  Both backward
+    passes are the plain version's vjp, on the folded batch or on one
+    replica, so they differ only in the order of their sums: held at the
+    forward tolerance relative to the largest gradient.  Returns the worst
+    error."""
+    import torch
+    diff = [i for i, d in enumerate(dims) if d is not None]
+
+    def with_diff(base, d_args):
+        full = list(base)
+        for i, a in zip(diff, d_args):
+            full[i] = a
+        return full
+
+    out, vjp = torch.func.vjp(
+        lambda *d: torch.func.vmap(fn, in_dims=tuple(dims))(
+            *with_diff(vin, d)), *[vin[i] for i in diff])
+    g = _randn(tuple(out.shape), 91)
+    got = vjp(g)
+    err, big = 0.0, 0.0
+    for r in range(out.shape[0]):
+        sl = [a if d is None else a.select(d, r) for a, d in zip(vin, dims)]
+        _, vjp1 = torch.func.vjp(lambda *d: fn(*with_diff(sl, d)),
+                                 *[sl[i] for i in diff])
+        for a, b in zip((t[r] for t in got), vjp1(g[r])):
+            err = max(err, float((a - b).abs().max()))
+            big = max(big, float(b.abs().max()))
+    if not (err <= tol * max(big, 1.0)
+            and all(bool(torch.isfinite(t).all()) for t in got)):
+        raise AssertionError(f"vjp of vmap differs from the per-replica "
+                             f"vjps by {err:g} (largest {big:g})")
+    return err
+
+
+def _vmap_checks(name, fn, args, tol):
+    """vmap of the Function over two replicas (the batch split in two)
+    against the per-replica calls: the activations-only rule (bit for bit)
+    and, for rmsnorm and the SSD, the parameter-carried rule (a scale / an
+    A_log per replica; within the forward tolerance).  Under each rule the
+    vjp of the vmap against the per-replica vjps too (:func:`_vjp_of_vmap`).
+    Returns the worst errors."""
+    import torch
+    split = [a.reshape(2, a.shape[0] // 2, *a.shape[1:]) for a in args]
+    out = {}
+    dims = [0] * len(args)
+    if name == "rmsnorm":
+        dims[1] = None
+    elif name == "ssd_chunk_scan":
+        dims[2] = None
+    vin = [s if d == 0 else a for s, a, d in zip(split, args, dims)]
+    got = torch.func.vmap(fn, in_dims=tuple(dims))(*vin)
+    want = torch.stack([fn(*[v[i] if d == 0 else v for v, d in
+                             zip(vin, dims)]) for i in range(2)])
+    out["fold"] = float((got - want).abs().max())
+    if not torch.equal(got, want):
+        raise AssertionError(f"{name}: vmap fold differs from the "
+                             f"per-slice calls by {out['fold']:g}")
+    out["vjp_fold"] = _vjp_of_vmap(fn, vin, dims, tol)
+    if name in ("rmsnorm", "ssd_chunk_scan"):
+        pi = 1 if name == "rmsnorm" else 2
+        par = torch.stack([args[pi], args[pi] * 1.01])
+        vin = list(split)
+        vin[pi] = par
+        got = torch.func.vmap(fn)(*vin)
+        want = torch.stack([fn(*[v[i] for v in vin]) for i in range(2)])
+        err = float((got - want).abs().max())
+        out["loop"] = err
+        if not bool(((got - want).abs() <= tol + tol * want.abs()).all()):
+            raise AssertionError(f"{name}: vmap over a parameter differs "
+                                 f"from the per-slice calls by {err:g}")
+        out["vjp_loop"] = _vjp_of_vmap(fn, vin, [0] * len(vin), tol)
+    return out
+
+
+def lm_autograd_on_card():
+    """Phase 10f: the LM kernels' autograd on the card.  Returns per
+    kernel and case the errors and, at the training shapes, the device
+    time of the Function's backward (the plain version's vjp, which
+    recomputes the plain forward)."""
+    import torch
+    rows = []
+    for name, label, fn, plain, args in _autograd_cases():
+        tol = LM_TOL[name]
+        w = _randn(tuple(fn(*args).shape), 90)
+        y_k, g_k = _grads(fn, args, w)
+        y_p, g_p = _grads(plain, args, w)
+        fwd_err = float((y_k - y_p).abs().max())
+        big = max(float(g.abs().max()) for g in g_p)
+        grad_err = max(float((a - b).abs().max()) for a, b in zip(g_k, g_p))
+        fwd_ok = bool(((y_k - y_p).abs() <= tol + tol * y_p.abs()).all())
+        ok = (fwd_ok and grad_err <= tol * max(big, 1.0)
+              and all(bool(torch.isfinite(g).all()) for g in g_k))
+        row = {"kernel": name, "case": label,
+               "shape": list(args[0].shape), "fwd_err": fwd_err,
+               "fwd_within_tol": fwd_ok, "grad_err": grad_err,
+               "max_grad": big, "tol": tol}
+        row.update(_vmap_checks(name, fn, args, tol))
+        if label != "small":
+            req = [a.detach().clone().requires_grad_() for a in args]
+            out = fn(*req)
+
+            def bwd(out=out, req=req, w=w):
+                return torch.autograd.grad(out, req, w, retain_graph=True)
+
+            row["bwd_ms"] = _device_ms(bwd, 3)
+            del out, req
+        rows.append(row)
+        print(f"autograd {name:16s} {label:20s} shape={row['shape']} "
+              f"fwd_err={fwd_err:g} fwd_within_tol={fwd_ok} "
+              f"grad_err={grad_err:g} max_grad={big:g} "
+              f"tol={tol:g} vmap_fold_err={row['fold']:g} "
+              f"vjp_vmap_fold_err={row['vjp_fold']:g}"
+              + (f" vmap_loop_err={row['loop']:g} "
+                 f"vjp_vmap_loop_err={row['vjp_loop']:g}"
+                 if "loop" in row else "")
+              + (f" bwd_ms={row['bwd_ms']:.6f}" if "bwd_ms" in row else "")
+              + f" ok={ok}", flush=True)
+        if not ok:
+            raise AssertionError(f"autograd {name} {label}: forward "
+                                 f"{fwd_err:g} or gradient {grad_err:g} "
+                                 f"(largest {big:g}) outside {tol:g}, or "
+                                 f"a gradient not finite")
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _train_launches(cfg, compress, steps, remat=True):
+    """Kernel launches a run of ``steps`` train steps implies.  Per step:
+    the forward runs two rmsnorms per layer and the final norm, one flash
+    per attention layer and one SSD scan per SSM layer; remat runs every
+    period's forward again in the backward (the final norm is outside the
+    periods); the backward itself is plain PyTorch.  ``compress`` adds one
+    quantize and one dequantize (the smashed boundary)."""
+    from repro_torch.configs import ATTN, SSM
+    kinds = cfg.layer_types
+    fwd = 2 if remat else 1
+    want = {"rmsnorm": steps * (fwd * 2 * len(kinds) + 1),
+            "flash_attention": steps * fwd * kinds.count(ATTN),
+            "ssd_chunk_scan": steps * fwd * kinds.count(SSM)}
+    if compress:
+        want.update(quantize_int8=steps, dequantize_int8=steps)
+    return want
+
+
+def train_path(arch, compress, steps):
+    """Phase 10g: ``launch.train.train`` at full width on the card (batch
+    8, seq 1024, adamw lr 3e-4, clip 1.0, remat, 4 clients, the default
+    cut), the launch counters zeroed just before and read just after."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as TR
+    cfg = get_config(arch)
+    torch.cuda.empty_cache()
+    kernels.reset_launches()
+    res = TR.train(cfg, steps=steps, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                   compress=compress, device="cuda")
+    counts = kernels.launch_counts()
+    want = dict.fromkeys(counts, 0)
+    want.update(_train_launches(cfg, compress, steps))
+    moments = res["state"]["opt"]["m"]
+    embed_moment = float(moments["embed"].abs().max())
+    mixer_moment, norm_moment = _layer_moments(moments)
+    row = {"arch": arch, "compress": compress, "steps": steps,
+           "cut": res["cut"], "params": cfg.param_count(),
+           "losses": [m["loss"] for m in res["metrics"]],
+           "grad_norms": [m["grad_norm"] for m in res["metrics"]],
+           "step_s": res["step_s"],
+           "peak_mem_gb": res["peak_bytes"] / 1e9,
+           "launches": counts,
+           "launches_per_step": {k: v // steps for k, v in counts.items()
+                                 if v},
+           "embed_first_moment_max": embed_moment,
+           "mixer_first_moment_min": mixer_moment,
+           "norm1_first_moment_min": norm_moment}
+    print(f"train {arch} compress={compress} cut={res['cut']} "
+          f"batch={TRAIN_BATCH} seq={TRAIN_SEQ} steps={steps} "
+          f"losses={row['losses']} grad_norms={row['grad_norms']} "
+          f"step0_s={res['step_s'][0]:.6f} "
+          f"later_s={res['step_s'][1:]} "
+          f"peak_mem_gb={row['peak_mem_gb']:.3f} launches={counts} "
+          f"embed_first_moment_max={embed_moment:g} "
+          f"mixer_first_moment_min={mixer_moment:g} "
+          f"norm1_first_moment_min={norm_moment:g}", flush=True)
+    if not all(math.isfinite(v) for v in row["losses"] + row["grad_norms"]):
+        raise AssertionError(f"{arch}: non-finite loss or grad norm {row}")
+    if counts != want:
+        raise AssertionError(f"{arch} compress={compress}: launches "
+                             f"{counts}, expected {want}")
+    if not (embed_moment > 0.0 and mixer_moment > 0.0
+            and norm_moment > 0.0):
+        raise AssertionError(f"{arch}: a leaf behind a kernel got no "
+                             f"gradient (embedding {embed_moment:g}, "
+                             f"mixers {mixer_moment:g}, norms "
+                             f"{norm_moment:g})")
+    del res, moments
+    return row
+
+
+def _layer_moments(moments):
+    """The smallest, over the layers, of the largest adamw first moment of
+    a leaf whose gradient comes only through that layer's kernels: the
+    attention's ``wk`` (its gradient is flash's key gradient) or the SSM's
+    ``A_log`` (the SSD scan's), and ``norm1``'s scale (the rmsnorm's).  The
+    embedding's gradient also reaches it around every mixer on the
+    residual stream, so it alone shows only the final norm's backward."""
+    layers = [layer for seg in moments["segments"] for period in seg
+              for layer in period]
+    mixer = min(float(layer["mixer"]["wk" if "wk" in layer["mixer"]
+                                     else "A_log"].abs().max())
+                for layer in layers)
+    norm = min(float(layer["norm1"]["scale"].abs().max())
+               for layer in layers)
+    return mixer, norm
+
+
+def train_cpu_vs_card():
+    """Phase 10h: one sgd train step (lr 1e-2, clip 1.0) of the reduced
+    configs grown to three periods, cut 1, on the CPU and on the card from
+    the same weights and batch, TF32 off: remat on with the smashed data
+    dense and as int8, and remat off with it dense.  The updates within
+    STEP_RTOL of the largest update, the losses within 1e-4, and the
+    card's launches those :func:`_train_launches` gives (remat off runs
+    each period's kernels once)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core import distributed as D
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves, tree_map
+    worst = {}
+    for arch in SERVE_ARCHS:
+        cfg = dataclasses.replace(get_config(arch).reduced(), n_layers=3)
+        params = T.init_params(torch.Generator().manual_seed(0), cfg)
+        rng = np.random.default_rng(0)
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                             size=(4, 65)))
+        w = torch.tensor([0.5, 0.5, 0.25, 0.25])
+        for compress, remat in ((False, True), (True, True),
+                                (False, False)):
+            opts = D.DistOptions(cut=1, optimizer="sgd",
+                                 learning_rate=SGD_LR,
+                                 compress_smashed=compress, remat=remat)
+            outs = {}
+            for where in ("cpu", "cuda"):
+                kernels.reset_launches()
+                p = tree_map(lambda a: a.to(where), params)
+                state = {"params": p,
+                         "opt": D.make_optimizer(opts).init(p),
+                         "step": torch.zeros((), dtype=torch.int32,
+                                             device=where)}
+                batch = {"tokens": toks[:, :-1].to(where),
+                         "labels": toks[:, 1:].to(where),
+                         "weights": w.to(where)}
+                new, m = D.make_train_step(cfg, opts)(state, batch)
+                outs[where] = ([t.cpu() for t in tree_leaves(
+                    new["params"])], float(m["loss"]))
+            counts = kernels.launch_counts()
+            want = dict.fromkeys(counts, 0)
+            want.update(_train_launches(cfg, compress, 1, remat))
+            (pa, la), (pb, lb) = outs["cpu"], outs["cuda"]
+            init = tree_leaves(params)
+            moved = max(float((a - a0).abs().max())
+                        for a, a0 in zip(pa, init))
+            diff = max(float((a - b).abs().max()) for a, b in zip(pa, pb))
+            rel = diff / moved if moved > 0 else math.inf
+            key = f"{arch} compress={compress}" + ("" if remat
+                                                    else " remat=False")
+            worst[key] = rel
+            print(f"train_cpu_vs_card {cfg.name} compress={compress} "
+                  f"remat={remat} loss_cpu={la!r} loss_card={lb!r} "
+                  f"max_param_diff={diff:g} max_update={moved:g} "
+                  f"diff_over_update={rel:g} launches={counts}", flush=True)
+            if (rel > STEP_RTOL or abs(la - lb) > 1e-4
+                    or not all(bool(torch.isfinite(t).all()) for t in pb)):
+                raise AssertionError(f"{key}: card and CPU disagree "
+                                     f"({rel:g} of the update, losses "
+                                     f"{la!r} / {lb!r})")
+            if counts != want:
+                raise AssertionError(f"{key}: launches {counts}, expected "
+                                     f"{want}")
+    return worst
+
+
+# phase 10i: per forward of the reduced LM (one period) the RSU runs three
+# rmsnorms (two in the period, the final norm) and one flash or SSD scan
+LM_FED_RUNS = (("asfl", "vmap"), ("asfl", "unroll"), ("fl", "vmap"))
+
+
+def lm_fed_path(arch, scheme, mode):
+    """Phase 10i: ``api.run`` of the reduced LM on ``single_rsu`` (4
+    vehicles, the paper's spec, one round; ``asfl`` over ``topk_int8``),
+    the launch counters zeroed just before and read just after.  Checks
+    finite loss, accuracy in [0, 1], the cuts, wire bytes = the cost
+    model's at the data's 8 tokens a sample, and every launch count: the
+    codec's by phase 10d's formula; per forward of the model three rmsnorms
+    and one flash / SSD scan, where ``fl``'s vmap runs the rmsnorms and the
+    SSD (a parameter per replica) once per replica and the flash kernel
+    (activations only) once for all."""
+    import numpy as np
+    import torch
+    from repro_torch import api, kernels
+    from repro_torch.core import cost
+    from repro_torch.configs import ATTN
+    wire = "topk_int8" if scheme == "asfl" else "none"
+    spec = api.ExperimentSpec(
+        model=arch, train=api.TrainConfig(scheme=scheme, rounds=1,
+                                          wire=wire),
+        runtime=api.RuntimeConfig(cohort_parallel=mode))
+    tr, f = spec.train, spec.fleet
+    entry = api.model_entry(arch)
+    clients, test = entry.make_data(f.n_vehicles, f.per_vehicle_samples,
+                                    f.test_samples, f.data_seed)
+    steps = [max(len(c) // tr.batch_size, 1) * tr.local_epochs
+             for c in clients]
+    model = entry.build()
+    kernels.reset_launches()
+    res = api.run(spec)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    d, (m,) = res.diagnostics, res.history
+    n_steps = sum(steps)
+    mixer = ("flash_attention" if model.cfg.pattern[0] == ATTN
+             else "ssd_chunk_scan")
+    evals = len(test["labels"]) // 256 + bool(len(test["labels"]) % 256)
+    want = dict.fromkeys(counts, 0)
+    want_bytes = 0.0
+    if scheme == "asfl":
+        want.update(rmsnorm=3 * (n_steps + evals), **{mixer: n_steps + evals})
+        n_codec = (n_steps + _bucket_steps(m.cuts, steps)
+                   if mode == "vmap" else 2 * n_steps)
+        want.update(sparsify_quant_pack=n_codec, unpack_dequant=n_codec)
+        prof = model.profile(seq=test["images"].shape[1])
+        up, down = cost.effective_comm_bytes(
+            prof, m.cuts, steps, tr.batch_size, wire, tr.wire_k,
+            include_model_transfer=False)
+        want_bytes = float(np.sum(up + down))
+    else:
+        n = f.n_vehicles
+        local = max(steps)
+        want.update(rmsnorm=3 * n * local + 3 * evals,
+                    **{mixer: (local if mixer == "flash_attention"
+                               else n * local) + evals})
+    print(f"lm_fed {arch} {scheme} mode={d['mode']} loss={m.loss!r} "
+          f"acc={m.test_acc!r} cuts={m.cuts} client_batch_steps="
+          f"{d['client_batch_steps']} wire_bytes={d['wire_bytes']} "
+          f"cost_model_bytes={want_bytes!r} launches={counts} "
+          f"run_s={res.timing['run_s']:.6f}", flush=True)
+    cuts_ok = (m.cuts == [] if scheme == "fl"
+               else len(m.cuts) == 4 and set(m.cuts) <= {1})
+    if not (math.isfinite(m.loss) and 0.0 <= m.test_acc <= 1.0 and cuts_ok
+            and d["mode"] == mode and d["client_batch_steps"] == n_steps
+            and d["wire_bytes"] == want_bytes and counts == want):
+        raise AssertionError(f"lm_fed {arch} {scheme} {mode}: {m}, "
+                             f"{d['client_batch_steps']} steps (want "
+                             f"{n_steps}), {d['wire_bytes']} bytes (want "
+                             f"{want_bytes}), launches {counts} (want "
+                             f"{want})")
+    return {"arch": arch, "scheme": scheme, "mode": d["mode"],
+            "loss": m.loss, "acc": m.test_acc, "cuts": m.cuts,
+            "wire_bytes": d["wire_bytes"], "launches": counts,
+            "run_s": res.timing["run_s"]}
+
+
 def _main_cut(cuts_per_round):
     """The cut the path used most often (ties to the smaller cut)."""
     flat = [c for cuts in cuts_per_round for c in cuts]
@@ -1352,8 +1817,15 @@ def _main_cut(cuts_per_round):
 
 
 def kernel_report(checks, launches, main_cuts, mm_checks, mm_launches,
-                  lm_checks, lm_launches):
-    """Phase 11: one entry per kernel, timed at its path's main shape."""
+                  lm_checks, lm_launches, training):
+    """Phase 11: one entry per kernel, timed at its path's main shape.  The
+    quant and LM kernels also carry their launches per training step of
+    each phase-10g run (``train_launches_per_step``)."""
+    per_step = {}
+    for run in training:
+        label = run["arch"] + ("+compress" if run["compress"] else "")
+        for name, n in run["launches_per_step"].items():
+            per_step.setdefault(name, {})[label] = n
     out = []
     for name, replaces in KERNEL_META.items():
         label = f"cut{main_cuts[name]}"
@@ -1367,6 +1839,8 @@ def kernel_report(checks, launches, main_cuts, mm_checks, mm_launches,
             "call_ms": row["call_ms"], "bound_ms": row["bound_ms"],
             "bound_by": "bytes", "library_ms": row["library_ms"],
             "shape": row["shape"],
+            **({"train_launches_per_step": per_step[name]}
+               if name in per_step else {}),
             **{extra: {key: checks[name][extra][key] for key in
                        ("shape", "ms", "call_ms", "plain_ms", "bound_ms",
                         "library_ms")}
@@ -1393,6 +1867,7 @@ def kernel_report(checks, launches, main_cuts, mm_checks, mm_launches,
             "call_ms": row["call_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "shape": row["shape"][0],
+            "train_launches_per_step": per_step.get(name, {}),
             **({"bound_tc_ms": row["bound_tc_ms"]} if "bound_tc_ms" in row
                else {})})
     return {"kernels": out}
@@ -1447,6 +1922,23 @@ def main() -> int:
                              f"other cuts: {vmap['cuts']} / {loop['cuts']}")
     vmap_cpu_vs_card()
     print(json.dumps({"schemes": schemes}))
+    # the LM training path runs after every earlier phase, so their
+    # numbers stay comparable with the slices before it
+    autograd = lm_autograd_on_card()
+    training = [train_path(*run) for run in TRAIN_RUNS]
+    train_worst = train_cpu_vs_card()
+    lm_fed = [lm_fed_path(arch, *run) for arch in SERVE_ARCHS
+              for run in LM_FED_RUNS]
+    for arch in SERVE_ARCHS:
+        vmap_run, loop_run = (r for r in lm_fed if r["arch"] == arch
+                              and r["scheme"] == "asfl")
+        if vmap_run["cuts"] != loop_run["cuts"]:
+            raise AssertionError(f"{arch}: asfl vmap / unroll chose other "
+                                 f"cuts: {vmap_run['cuts']} / "
+                                 f"{loop_run['cuts']}")
+    print(json.dumps({"training": {"autograd": autograd, "runs": training,
+                                   "cpu_vs_card": train_worst,
+                                   "federation": lm_fed}}))
     main_cuts = {"sparsify_quant_pack": _main_cut(topk_cuts),
                  "unpack_dequant": _main_cut(topk_cuts),
                  "quantize_int8": _main_cut(int8_cuts),
@@ -1455,7 +1947,7 @@ def main() -> int:
                                             **int8_launches}, main_cuts,
                                    mm_checks,
                                    highway["unpack_dequant_matmul"],
-                                   lm_checks, lm_launches)))
+                                   lm_checks, lm_launches, training)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

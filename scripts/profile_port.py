@@ -14,6 +14,12 @@
    (batch 8, prompt 1024, the default cut) after a warm-up at prompt 64,
    as ``chip_smoke.py`` serves: one profiled prefill (the process's first
    at full size), then 8 profiled decode steps.
+4. One sync-SFL train step of smollm-360m and of mamba2-780m at full width
+   (batch 8, seq 1024, the default cut, adamw, clip 1.0, remat) after one
+   warm-up step, as ``chip_smoke.py`` phase 10g trains.
+
+``--only round,scenario,serve,train`` picks the parts to run (all by
+default).
 
 For each: wall time, device busy share (summed kernel time / wall), and
 the kernels that take the most device time, by name; for serving also the
@@ -200,10 +206,47 @@ def serve_profile(arch, top: int = 10, batch: int = 8, prompt: int = 1024,
     return res
 
 
+def train_profile(arch, top: int = 20, batch: int = 8, seq: int = 1024):
+    """One profiled train step of ``arch`` at full width after a warm-up
+    step."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import distributed as D
+    from repro_torch.launch.train import synth_batch
+    cfg = get_config(arch)
+    dev = torch.device("cuda")
+    opts = D.DistOptions(cut=cfg.default_cut)
+    state = D.init_state(torch.Generator(device=dev).manual_seed(0), cfg,
+                         opts)
+    step = D.make_train_step(cfg, opts)
+    batches = [synth_batch(cfg, torch.Generator(device=dev).manual_seed(i),
+                           batch, seq, 4) for i in range(2)]
+    state, _ = step(state, batches[0])
+    (state, _), r = _profiled(lambda: step(state, batches[1]), top)
+    res = {"arch": arch, "batch": batch, "seq": seq, "cut": opts.cut,
+           "step": r}
+    print(f"train {arch} wall_s={r['wall_s']:.6f} "
+          f"device_busy_s={r['device_busy_s']:.6f} "
+          f"busy_share={r['device_busy_share']:.4f} "
+          f"device_kernels={r['n_device_kernels']} "
+          f"cuda_malloc_s={r['cuda_malloc_s']:.6f} "
+          f"cuda_mallocs={r['cuda_mallocs']}", flush=True)
+    for row in r["top"]:
+        print(f"train {arch} top count={row['count']:6d} "
+              f"device_ms={row['device_ms']:.3f} {row['kernel']}",
+              flush=True)
+    del state, batches
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="chiprun_out/profile_port.json")
+    ap.add_argument("--only", default="round,scenario,serve,train")
     args = ap.parse_args()
+    parts = set(args.only.split(","))
     import subprocess
 
     import torch
@@ -216,11 +259,17 @@ def main() -> int:
     print(card, flush=True)
     from repro_torch.device import set_float32_precision
     set_float32_precision()
-    result = {"card": card, "round": round_profile("unroll"),
-              "round_vmap": round_profile("vmap"),
-              "scenario": scenario_profile(),
-              "serve": [serve_profile(a) for a in ("smollm-360m",
-                                                   "mamba2-780m")]}
+    archs = ("smollm-360m", "mamba2-780m")
+    result = {"card": card}
+    if "round" in parts:
+        result.update(round=round_profile("unroll"),
+                      round_vmap=round_profile("vmap"))
+    if "scenario" in parts:
+        result["scenario"] = scenario_profile()
+    if "serve" in parts:
+        result["serve"] = [serve_profile(a) for a in archs]
+    if "train" in parts:
+        result["train"] = [train_profile(a) for a in archs]
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(result, f, indent=1)

@@ -1,7 +1,11 @@
 """String-keyed registries of the port's front door (twin of
 ``repro.api.registry``, holding what is ported so far).
 
-Models ``resnet18`` and ``mlp9``; scenarios ``single_rsu`` (the
+Models ``resnet18``, ``mlp9`` and every text arch the port's configs know
+(``smollm-360m``, ``mamba2-780m``: a ``TransformerUnitModel`` of the
+reduced config by default, ``model_kwargs={"reduced": False}`` for the
+full stack; the reference's other arch ids are "not ported yet");
+scenarios ``single_rsu`` (the
 single-RSU ``FederationSim``) and the ported multi-RSU scenarios of
 ``core/scenario.py`` (the ``ScenarioEngine``); every cut strategy and wire
 scheme of the reference as metadata (which engine may run it).  Server schedules other than ``sequential`` are refused by
@@ -13,6 +17,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable, Dict, Optional, Tuple
 
+from repro_torch import configs as _configs
 from repro_torch.core import scenario as _scenario
 from repro_torch.core.fedsim import (FEDERATION_STRATEGIES,
                                      SCENARIO_STRATEGIES, WIRE_SCHEMES)
@@ -55,6 +60,58 @@ def _mlp9_data(n_vehicles, per_vehicle, n_test, seed):
                                n_test=n_test)
 
 
+def make_lm_fleet_data(n_vehicles: int, per_vehicle: int, n_test: int,
+                       seed: int, vocab_size: int, seq_len: int = 8):
+    """Synthetic next-token shards for the LM UnitModels: ``images`` are
+    token ids (n, seq), ``labels`` the shifted next tokens (the fedsim
+    batch convention, core/lm_unit.py).  numpy ``default_rng``: the
+    reference's shards bit for bit."""
+    import numpy as np
+
+    from repro_torch.data.pipeline import ClientDataset
+
+    rng = np.random.default_rng(seed)
+
+    def shard(n):
+        toks = rng.integers(0, vocab_size, size=(n, seq_len + 1))
+        return (toks[:, :-1].astype(np.int32), toks[:, 1:].astype(np.int32))
+
+    clients = []
+    for i in range(n_vehicles):
+        x, y = shard(per_vehicle)
+        clients.append(ClientDataset(x, y, i))
+    xt, yt = shard(n_test)
+    return clients, {"images": xt, "labels": yt}
+
+
+def _arch_model_entry(arch_id: str) -> ModelEntry:
+    from repro_torch.configs import get_config
+    cfg = get_config(arch_id)
+    reduced_cfg = cfg.reduced()
+    # unit granularity (core/lm_unit.py): embedding + one unit per period
+    n_units = 1 + reduced_cfg.n_periods + (1 if reduced_cfg.tail else 0)
+
+    def build(reduced: bool = True):
+        from repro_torch.core.lm_unit import TransformerUnitModel
+        c = get_config(arch_id)
+        return TransformerUnitModel(c.reduced() if reduced else c)
+
+    def make_data(n_vehicles, per_vehicle, n_test, seed):
+        return make_lm_fleet_data(n_vehicles, per_vehicle, n_test, seed,
+                                  vocab_size=reduced_cfg.vocab_size)
+
+    return ModelEntry(
+        name=arch_id, build=build, make_data=make_data, n_units=n_units,
+        description=f"{cfg.family} LM ({cfg.source}); reduced config by "
+                    f"default, model_kwargs={{'reduced': False}} for full")
+
+
+def _text_arch_entries() -> Dict[str, ModelEntry]:
+    from repro_torch.configs import ARCH_IDS, get_config
+    return {a: _arch_model_entry(a) for a in ARCH_IDS
+            if get_config(a).frontend == "none"}
+
+
 MODELS: Dict[str, ModelEntry] = {
     "resnet18": ModelEntry(
         "resnet18", _build_resnet, _resnet_data, n_units=9,
@@ -62,10 +119,16 @@ MODELS: Dict[str, ModelEntry] = {
     "mlp9": ModelEntry(
         "mlp9", _build_mlp9, _mlp9_data, n_units=9,
         description="9-unit split MLP (models/mlp_unit.py)"),
+    **_text_arch_entries(),
 }
+# the reference's arch ids whose families the port does not have yet
+NOT_PORTED_MODELS = _configs.NOT_PORTED
 
 
 def model_entry(name: str) -> ModelEntry:
+    if name in NOT_PORTED_MODELS:
+        raise ValueError(f"model {name!r} is not ported yet; ported models: "
+                         f"{' | '.join(sorted(MODELS))}")
     if name not in MODELS:
         raise ValueError(f"model {name!r} is unknown or not ported yet; "
                          f"ported models: {' | '.join(sorted(MODELS))}")

@@ -18,7 +18,7 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch import bridge, kernels
+from repro_torch import kernels
 from repro_torch.api import registry
 from repro_torch.api.spec import ExperimentSpec
 from repro_torch.core import channel
@@ -41,7 +41,8 @@ def _json_default(o):
 class RunResult:
     """Everything one experiment produced.  ``final_params`` is the trained
     global model ``(units, head)`` as host numpy arrays in the reference's
-    layout (HWIO convolutions); not serialized by :meth:`save`."""
+    layout (HWIO convolutions; an LM's periods stacked on an axis of size 1);
+    not serialized by :meth:`save`."""
     spec: ExperimentSpec
     engine_kind: str
     history: List[Any]
@@ -188,5 +189,5 @@ def run(spec: ExperimentSpec, *, device: DeviceLike = None,
     return RunResult(spec=spec, engine_kind=spec.engine_kind,
                      history=list(history), totals=totals, timing=timing,
                      diagnostics=diagnostics,
-                     final_params=bridge.params_to_numpy(engine.units,
-                                                         engine.head))
+                     final_params=engine.model.params_to_numpy(
+                         engine.units, engine.head))

@@ -15,6 +15,8 @@ LM lane: :func:`lm_params_to_torch` unstacks each segment's leading period
 axis into the port's per-period entries
 (``segments[segment][period][position]``) and keeps the einsum layouts;
 :func:`lm_params_to_numpy` stacks them back, so a round trip is exact.
+:func:`lm_units_to_torch` / :func:`lm_units_to_numpy` do the same for the
+``TransformerUnitModel`` layout ``(units, head)``.
 """
 from __future__ import annotations
 
@@ -85,3 +87,26 @@ def lm_params_to_numpy(params, cfg):
               for j in range(len(pat)))
         for (pat, _), seg in zip(T.segments_of(cfg), params["segments"]))
     return out
+
+
+def lm_units_to_torch(units, head) -> Tuple[list, Any]:
+    """The reference's ``TransformerUnitModel`` layout (unit 0 ``{"embed"}``,
+    then one unit per period: a tuple of per-layer dicts whose leaves carry
+    a leading period axis of size 1; numpy leaves) -> the port's (the same
+    tuples without that axis)."""
+    def conv(a):
+        return torch.from_numpy(np.array(a, copy=True))
+
+    out = [tree_map(conv, units[0])]
+    out += [tree_map(lambda a: conv(np.asarray(a)[0]), u) for u in units[1:]]
+    return out, tree_map(conv, head)
+
+
+def lm_units_to_numpy(units, head) -> Tuple[list, Any]:
+    """Inverse of :func:`lm_units_to_torch`."""
+    def arr(t):
+        return t.detach().cpu().numpy()
+
+    out = [tree_map(arr, units[0])]
+    out += [tree_map(lambda t: arr(t)[None], tuple(u)) for u in units[1:]]
+    return out, tree_map(arr, head)

@@ -16,7 +16,7 @@ _MODULES = {
     "smollm-360m": "repro_torch.configs.smollm_360m",
 }
 # archs of the reference whose families the port does not have yet
-_NOT_PORTED = ("internvl2-1b", "deepseek-v2-lite-16b", "dbrx-132b",
+NOT_PORTED = ("internvl2-1b", "deepseek-v2-lite-16b", "dbrx-132b",
                "command-r-35b", "qwen3-14b", "musicgen-large", "gemma3-4b",
                "recurrentgemma-2b")
 
@@ -26,7 +26,7 @@ ARCH_IDS: List[str] = list(_MODULES)
 def get_config(name: str) -> ArchConfig:
     if name.endswith("-smoke"):
         return get_config(name[: -len("-smoke")]).reduced()
-    if name in _NOT_PORTED:
+    if name in NOT_PORTED:
         raise NotImplementedError(f"arch {name!r} is not ported yet; "
                                   f"ported: {ARCH_IDS}")
     if name not in _MODULES:

@@ -81,6 +81,11 @@ class ArchConfig:
                              f"{self.pattern}, tail {self.tail} do not tile")
         return body // len(self.pattern)
 
+    def param_count(self) -> int:
+        """Analytic parameter count (for 6ND model-FLOPs in the roofline)."""
+        from repro_torch.models.transformer import count_params  # lazy
+        return count_params(self)
+
     def reduced(self) -> "ArchConfig":
         """Smoke-test variant: one period, d_model <= 256 (the reference's
         rule, field for field)."""

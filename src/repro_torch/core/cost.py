@@ -1,5 +1,5 @@
 """Per-cut communication / computation / energy accounting (twin of
-``repro.core.cost``, the parts the ResNet and MLP profiles need).
+``repro.core.cost``, the parts the ResNet, MLP and LM profiles need).
 
 The analytic model behind the paper's Fig. 5a/5b: the SFL/ASFL round per
 vehicle, the FL round (full model on the vehicle) and the sequential SL
@@ -106,6 +106,54 @@ def resnet_profile() -> SplitProfile:
         head_param_bytes=(512 * 10 + 10) * BYTES_F32,
         smashed_trailing_dim=[R.smashed_shape(c, 1)[-1]
                               for c in range(1, R.N_UNITS + 1)],
+    )
+
+
+def arch_profile(cfg, seq: int, param_bytes_per: int = 2) -> SplitProfile:
+    """SplitProfile of an LM arch at period granularity, for the ported
+    layer kinds (attention, SSM); smashed data = (seq, d_model)
+    activations at the period boundary."""
+    import dataclasses as dc
+
+    from repro_torch.configs.base import ATTN, SSM
+    from repro_torch.models import transformer as T
+    from repro_torch.models.attention import attn_flops
+    from repro_torch.models.layers import mlp_flops
+    from repro_torch.models.ssm import ssm_flops
+
+    def layer_flops(kind: str) -> float:
+        if kind == SSM:
+            return float(ssm_flops(cfg, seq, "train"))
+        if kind != ATTN:
+            raise NotImplementedError(f"layer kind {kind!r} is not ported "
+                                      f"yet")
+        f = attn_flops(cfg, seq)
+        f += mlp_flops(cfg.d_model, cfg.d_ff, cfg.mlp_variant)
+        return float(f)
+
+    def layer_params(kind: str) -> int:
+        # the analytic counter over a 1-layer pseudo-config
+        one = dc.replace(cfg, n_layers=1, pattern=(kind,), tail=())
+        base = T.count_params(one)
+        emb = one.padded_vocab * one.d_model
+        head = one.d_model * one.padded_vocab
+        return (base - emb - head - one.d_model) * param_bytes_per
+
+    unit_flops, unit_bytes = [], []
+    for pat, n in T.segments_of(cfg):
+        for _ in range(n):
+            unit_flops.append(float(sum(layer_flops(k) for k in pat) * seq))
+            unit_bytes.append(int(sum(layer_params(k) for k in pat)))
+    smashed = [float(seq * cfg.d_model * param_bytes_per)] * len(unit_flops)
+    vp = cfg.padded_vocab
+    return SplitProfile(
+        name=cfg.name,
+        unit_fwd_flops=unit_flops,
+        unit_param_bytes=unit_bytes,
+        smashed_bytes_per_sample=smashed,
+        head_flops=float(2 * cfg.d_model * vp * seq),
+        head_param_bytes=2 * vp * cfg.d_model * param_bytes_per,
+        smashed_trailing_dim=[cfg.d_model] * len(unit_flops),
     )
 
 

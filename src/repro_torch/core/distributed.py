@@ -1,43 +1,133 @@
-"""Split-inference serving steps of the LM lane (the serving half of
-``repro.core.distributed``; paper §IV-C).
+"""Datacenter-scale SFL on one device (twin of ``repro.core.distributed``
+without the mesh): the sync-SFL train step and the split-inference
+prefill / decode steps (paper §IV-C).
 
-``make_prefill_step`` / ``make_decode_step`` run the vehicle-side periods,
-send the smashed activations across the cut, and run the RSU-side periods
-and the head.  With ``compress_smashed`` the smashed tensor crosses as int8:
-the vehicle quantizes and the RSU dequantizes with the codec kernels
-(:mod:`repro_torch.kernels.quant`), the forward value of the reference's
-``fake_quant``.  The training step, and the mesh placement of the smashed
-tensor (``smashed_sharding``), are not ported yet.
+Every step runs the vehicle-side periods, sends the smashed activations
+across the cut, and runs the RSU-side periods and the head.  With
+``compress_smashed`` the smashed tensor crosses as int8: the vehicle
+quantizes and the RSU dequantizes with the codec kernels
+(:func:`repro_torch.kernels.quant.fake_quant`, the reference's
+``fake_quant``: its gradient passes straight through).
+
+The train step is sync-SFL (aggregation every step, K = 1): client forward
+-> smashed boundary -> server forward / backward -> client backward, one
+|D_n|-weighted cross-entropy (:func:`weighted_ce`, the FedAvg objective of
+paper Eq. 1 inside one step), global-norm clipping and the optimizer.  The
+mesh placement of the smashed tensor (``smashed_sharding``) and a
+``param_dtype`` other than float32 are not ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Dict, Optional
 
+import torch
+
+from repro_torch import optim
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import split as SP
 from repro_torch.kernels import quant
+from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
+from repro_torch.tree import tree_flatten
 
 
 @dataclasses.dataclass
 class DistOptions:
     cut: int = 2
     compress_smashed: bool = False
+    remat: bool = True
+    learning_rate: float = 3e-4
+    optimizer: str = "adamw"
+    grad_clip: float = 1.0
     smashed_sharding: Optional[Any] = None
+    param_dtype: Any = None       # None or float32: the ported configs'
 
     def __post_init__(self):
         if self.smashed_sharding is not None:
             raise NotImplementedError("smashed_sharding (the mesh placement "
                                       "of the smashed tensor) is not ported "
                                       "yet")
+        if self.param_dtype not in (None, "float32", torch.float32):
+            raise NotImplementedError(f"param_dtype={self.param_dtype!r} is "
+                                      f"not ported yet (the kernels take "
+                                      f"float32)")
 
 
 def _cross(smashed, opts: DistOptions):
     """The smashed tensor as the RSU receives it."""
     if not opts.compress_smashed:
         return smashed
-    q, scales = quant.quantize_int8(smashed)          # vehicle
-    return quant.dequantize_int8(q, scales, dtype=smashed.dtype)   # RSU
+    return quant.fake_quant(smashed)
+
+
+def make_optimizer(opts: DistOptions) -> optim.Optimizer:
+    if opts.optimizer == "adamw":
+        return optim.adamw(opts.learning_rate, weight_decay=0.01)
+    if opts.optimizer == "adam":
+        return optim.adam(opts.learning_rate)
+    return optim.sgd(opts.learning_rate)
+
+
+def init_state(gen: torch.Generator, cfg: ArchConfig,
+               opts: DistOptions) -> Dict[str, Any]:
+    """float32 parameters drawn from ``gen`` (on its device), the
+    optimizer state and the step count."""
+    params = T.init_params(gen, cfg)
+    return {"params": params, "opt": make_optimizer(opts).init(params),
+            "step": torch.zeros((), dtype=torch.int32, device=gen.device)}
+
+
+def weighted_ce(logits, labels, weights, true_vocab: int) -> torch.Tensor:
+    """Per-sample-weighted token cross-entropy: the |D_n|-weighted FedAvg
+    objective (paper Eq. 1) inside one step."""
+    per_tok = L.per_token_ce(logits, labels, true_vocab)    # (b, s)
+    while per_tok.dim() > 1:
+        per_tok = per_tok.mean(dim=-1)
+    w = weights / torch.clamp(weights.sum(), min=1e-9)
+    return torch.sum(per_tok * w)
+
+
+def make_train_step(cfg: ArchConfig, opts: DistOptions) -> Callable:
+    """SFL round step: client fwd -> smashed boundary -> server fwd/bwd ->
+    client bwd -> the |D_n|-weighted loss, clipping, the optimizer.
+    ``step(state, batch)`` with batch ``tokens`` / ``labels`` (b, s) and
+    ``weights`` (b,) returns (new state, metrics: ``loss``, ``ce``,
+    ``aux``, ``grad_norm`` as device scalars)."""
+    opt = make_optimizer(opts)
+    cut = SP.clamp_cut(cfg, opts.cut)
+
+    def train_step(state, batch):
+        leaves, rebuild = tree_flatten(state["params"])
+        req = [t.detach().requires_grad_(True) for t in leaves]
+        client, server = SP.split_params(rebuild(req), cfg, cut)
+        smashed, positions, _ = SP.client_forward(client, cfg, batch, cut,
+                                                  "train", remat=opts.remat)
+        logits, _ = SP.server_forward(server, cfg, _cross(smashed, opts),
+                                      positions, cut, "train",
+                                      remat=opts.remat)
+        ce = weighted_ce(logits, batch["labels"], batch["weights"],
+                         cfg.vocab_size)
+        del logits
+        aux = torch.zeros((), dtype=torch.float32, device=ce.device)
+        loss = ce + aux
+        grads = rebuild(list(torch.autograd.grad(loss, req)))
+        del req
+        with torch.no_grad():
+            if opts.grad_clip > 0:
+                grads, gnorm = optim.clip_by_global_norm(grads,
+                                                         opts.grad_clip)
+            else:
+                gnorm = optim.global_norm(grads)
+            updates, opt_state = opt.update(grads, state["opt"],
+                                            state["params"])
+            params = optim.apply_updates(state["params"], updates)
+        metrics = {"loss": loss.detach(), "ce": ce.detach(), "aux": aux,
+                   "grad_norm": gnorm}
+        return ({"params": params, "opt": opt_state,
+                 "step": state["step"] + 1}, metrics)
+
+    return train_step
 
 
 def make_prefill_step(cfg: ArchConfig, opts: DistOptions,

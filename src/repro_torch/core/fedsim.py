@@ -50,11 +50,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch import optim
+from repro_torch import bridge, optim
 from repro_torch.core import (adaptive, aggregation, channel, compression,
                              cost, faults)
 from repro_torch.data.pipeline import (ClientDataset, epoch_batch_indices,
-                                       fleet_batch_indices,
+                                       feature_dtype, fleet_batch_indices,
                                        sample_batch_indices, stack_clients)
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import quant as quant_kernels
@@ -84,6 +84,10 @@ class ResNetModel:
 
     def head_predict(self, head, feats):
         return feats.mean(dim=(1, 2)) @ head["w"] + head["b"]
+
+    def params_to_numpy(self, units, head):
+        """(units, head) in the reference's layout, as numpy arrays."""
+        return bridge.params_to_numpy(units, head)
 
     def head_loss(self, head, feats, labels):
         logits = self.head_predict(head, feats)
@@ -371,15 +375,18 @@ def make_sfl_batch_step(model, cfg: SimConfig, cut: int):
 def evaluate(model, units, head, test: Dict[str, torch.Tensor],
              batch: int = 256) -> float:
     """Test accuracy in batches of 256 (BatchNorm uses batch statistics, so
-    the batching is part of the definition, as in the reference)."""
+    the batching is part of the definition, as in the reference): correct
+    predictions over every label, one per row (ResNet, mlp9) or per token
+    (an LM's (n, seq) labels)."""
     n = test["labels"].shape[0]
-    correct = 0
+    correct = total = 0
     for i in range(0, n, batch):
+        y = test["labels"][i:i + batch]
         feats = model.apply_units(units, test["images"][i:i + batch], 0)
         logits = model.head_predict(head, feats)
-        correct += int((logits.argmax(-1)
-                        == test["labels"][i:i + batch]).sum())
-    return correct / max(n, 1)
+        correct += int((logits.argmax(-1) == y).sum())
+        total += y.numel()
+    return correct / max(total, 1)
 
 
 def _suffix_state(state, cut):
@@ -708,7 +715,8 @@ def _to_device(tree, device):
 
 
 def _stage_test(test: Dict[str, Any], device: torch.device):
-    return {"images": torch.as_tensor(np.asarray(test["images"], np.float32),
+    images = np.asarray(test["images"])
+    return {"images": torch.as_tensor(images.astype(feature_dtype(images)),
                                       device=device),
             "labels": torch.as_tensor(np.asarray(test["labels"], np.int64),
                                       device=device)}

@@ -3,7 +3,9 @@
 
 The cut is at *period* granularity (:mod:`repro_torch.models.transformer`).
 ``split_params`` / ``join_params`` are exact inverses; the halves share the
-parameter tensors (no copies).
+parameter tensors (no copies).  In ``train`` mode both halves run their
+periods with remat on by default, as the reference's ``_run_sliced``
+always does; ``remat=False`` keeps every period's activations instead.
 """
 from __future__ import annotations
 
@@ -54,27 +56,29 @@ def join_params(client: Params, server: Params, cfg: ArchConfig) -> Params:
 
 def client_forward(client: Params, cfg: ArchConfig, batch, cut: int,
                    mode: str = "prefill", caches=None, capacity: int = 0,
-                   pos_offset: int = 0):
+                   pos_offset: int = 0, remat: bool = True):
     """Vehicle-side forward: embed + periods [0, cut) -> smashed data.
-    Returns (smashed, positions, caches)."""
+    Returns (smashed, positions, caches).  ``remat`` acts in train mode
+    only."""
     positions = T.positions_of(cfg, batch, mode, pos_offset)
     x = T.embed_inputs(client, cfg, batch, positions)
     x, new_caches = _run_sliced(client["segments"], cfg, x, mode, positions,
-                                caches, capacity)
+                                caches, capacity, remat)
     return x, positions, new_caches
 
 
 def server_forward(server: Params, cfg: ArchConfig, smashed, positions,
                    cut: int, mode: str = "prefill", caches=None,
-                   capacity: int = 0):
-    """RSU-side forward: periods [cut, P) + head -> (logits, caches)."""
+                   capacity: int = 0, remat: bool = True):
+    """RSU-side forward: periods [cut, P) + head -> (logits, caches).
+    ``remat`` acts in train mode only."""
     x, new_caches = _run_sliced(server["segments"], cfg, smashed, mode,
-                                positions, caches, capacity)
+                                positions, caches, capacity, remat)
     return T.unembed(server, cfg, x), new_caches
 
 
 def _run_sliced(sliced_segments, cfg: ArchConfig, x, mode, positions,
-                caches, capacity):
+                caches, capacity, remat):
     """Run pre-sliced segments (the client or the server part)."""
     out_caches = []
     for si, (pat, _) in enumerate(T.segments_of(cfg)):
@@ -84,7 +88,7 @@ def _run_sliced(sliced_segments, cfg: ArchConfig, x, mode, positions,
             continue
         seg_c = caches[si] if caches is not None else None
         x, nc = T._scan_segment(seg, cfg, pat, x, mode, positions, seg_c,
-                                capacity)
+                                capacity, remat)
         out_caches.append(nc)
     return x, tuple(out_caches)
 

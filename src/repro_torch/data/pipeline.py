@@ -62,13 +62,24 @@ class StackedClients:
     lengths: np.ndarray    # (n_clients,)
 
 
+def feature_dtype(images) -> type:
+    """Features are staged as float32; token ids stay integers, as
+    int64."""
+    return (np.int64 if np.issubdtype(np.asarray(images).dtype, np.integer)
+            else np.float32)
+
+
 def stack_clients(clients, device: torch.device) -> StackedClients:
+    """Features as :func:`feature_dtype`, labels as int64 with their
+    trailing shape ((n,) per row, (n, seq) per token)."""
     n = len(clients)
     lengths = np.array([len(c) for c in clients], dtype=np.int64)
     max_len = int(lengths.max())
     img_shape = clients[0].images.shape[1:]
-    images = np.zeros((n, max_len) + img_shape, dtype=np.float32)
-    labels = np.zeros((n, max_len), dtype=np.int64)
+    lab_shape = clients[0].labels.shape[1:]
+    images = np.zeros((n, max_len) + img_shape,
+                      dtype=feature_dtype(clients[0].images))
+    labels = np.zeros((n, max_len) + lab_shape, dtype=np.int64)
     for i, c in enumerate(clients):
         images[i, :lengths[i]] = c.images
         labels[i, :lengths[i]] = c.labels

@@ -22,3 +22,11 @@ def reset_launches() -> None:
 
 def launch_counts() -> Dict[str, int]:
     return dict(LAUNCHES)
+
+
+def fold_replicas(t, dim, n: int):
+    """A ``vmap`` rule's input with its replica axis (``dim``, or None
+    where it is shared: expanded) folded into the leading batch axis, so
+    the kernel takes all ``n`` replicas in one call."""
+    t = t.expand(n, *t.shape) if dim is None else t.movedim(dim, 0)
+    return t.reshape(n * t.shape[1], *t.shape[2:])

@@ -25,6 +25,15 @@ left of the window skipped, the longest causal rows started first.
 :func:`attention_plain` is the plain PyTorch version (twin of
 ``repro.kernels.ref.attention_ref``); the wrapper runs it for CPU tensors
 only.  CUDA tensors always go to the kernel, or the wrapper raises.
+
+Autograd.  :func:`flash_attention` is a ``torch.autograd.Function``: its
+forward is the kernel (the plain version on the CPU); its backward is
+``torch.func.vjp`` of :func:`attention_plain` on the saved q, k and v,
+plain PyTorch that recomputes the scores (the JAX package has no backward
+kernel; hand-written dq / dk / dv kernels are ROADMAP B.6).  Its ``vmap``
+rule folds the vmapped axis into the batch, ``(n, b, ...) -> (n*b, ...)``,
+one kernel call: q, k and v are activations in every caller (no parameter
+carries the axis; an unbatched one is expanded).
 """
 from __future__ import annotations
 
@@ -33,6 +42,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import fold_replicas
 from repro_torch.kernels.quant import launch
 
 HEAD_DIMS = (32, 64, 128, 256)   # 32: the reduced configs
@@ -73,7 +83,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     scale: Optional[float] = None) -> torch.Tensor:
     """q (b, sq, h, d); k/v (b, sk, kv, d); GQA when h > kv.  Returns
-    (b, sq, h, d)."""
+    (b, sq, h, d); differentiable in q, k and v."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"need q (b,sq,h,d) and k = v (b,sk,kv,d), got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
@@ -86,6 +96,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if not (q.device == k.device == v.device):
         raise ValueError("q, k and v must be on the same device")
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    return _Flash.apply(q, k, v, bool(causal), int(window), float(scale))
+
+
+def _forward(q, k, v, causal: bool, window: int, scale: float):
+    """The plain version for CPU tensors, the kernel for CUDA ones."""
+    b, sq, h, d = q.shape
+    _, sk, kv, _ = k.shape
     if q.device.type == "cpu":
         return attention_plain(q, k, v, causal=causal, window=window,
                                scale=scale)
@@ -104,3 +121,30 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
            *k.stride()[:3], *v.stride()[:3], int(causal), int(window),
            float(scale))
     return o
+
+
+class _Flash(torch.autograd.Function):
+    @staticmethod
+    def forward(q, k, v, causal, window, scale):
+        return _forward(q, k, v, causal, window, scale)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, causal, window, scale = inputs
+        ctx.save_for_backward(q, k, v)
+        ctx.opts = dict(causal=causal, window=window, scale=scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        _, vjp = torch.func.vjp(
+            lambda a, b, c: attention_plain(a, b, c, **ctx.opts), q, k, v)
+        return (*vjp(g), None, None, None)
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, causal, window, scale):
+        n = info.batch_size
+        o = _Flash.apply(*(fold_replicas(t, dim, n) for t, dim in
+                           zip((q, k, v), in_dims[:3])),
+                         causal, window, scale)
+        return o.reshape(n, -1, *o.shape[1:]), 0

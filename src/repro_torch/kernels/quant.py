@@ -142,3 +142,28 @@ def dequantize_int8(q: torch.Tensor, scales: torch.Tensor,
     launch("dequantize_int8", q.device, q.data_ptr(), scales.data_ptr(),
            x.data_ptr(), q.numel() // d, d, g, ng, code)
     return x
+
+
+class _FakeQuant(torch.autograd.Function):
+    """Quantise-dequantise with a straight-through gradient (twin of the
+    reference's ``core.compression.fake_quant``)."""
+
+    @staticmethod
+    def forward(x):
+        q, scales = quantize_int8(x)
+        return dequantize_int8(q, scales, dtype=x.dtype)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+def fake_quant(x: torch.Tensor) -> torch.Tensor:
+    """x after one int8 trip (``quantize_int8`` then ``dequantize_int8``:
+    the two kernels on a CUDA tensor); its gradient passes straight
+    through."""
+    return _FakeQuant.apply(x)

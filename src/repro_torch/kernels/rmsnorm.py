@@ -32,15 +32,10 @@ def rmsnorm_plain(x: torch.Tensor, scale: torch.Tensor,
     return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
 
 
-def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
-            eps: float = EPS) -> torch.Tensor:
-    """x (..., d), scale (d,) -> (..., d) in x's dtype."""
+def _forward(x: torch.Tensor, scale: torch.Tensor,
+             eps: float) -> torch.Tensor:
+    """The plain version for a CPU tensor, the kernel for a CUDA one."""
     d = x.shape[-1]
-    if tuple(scale.shape) != (d,):
-        raise ValueError(f"scale {tuple(scale.shape)} does not match the "
-                         f"trailing dim {d} of x {tuple(x.shape)}")
-    if x.device != scale.device:
-        raise ValueError("x and scale must be on the same device")
     if x.device.type == "cpu":
         return rmsnorm_plain(x, scale, eps)
     if x.device.type != "cuda":
@@ -54,3 +49,49 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
     launch("rmsnorm", x.device, x.data_ptr(), scale.data_ptr(), y.data_ptr(),
            x.numel() // d if d else 0, d, eps)
     return y
+
+
+class _RMSNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(x, scale, eps):
+        return _forward(x, scale, eps)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, scale, eps = inputs
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale = ctx.saved_tensors
+        _, vjp = torch.func.vjp(
+            lambda a, s: rmsnorm_plain(a, s, ctx.eps), x, scale)
+        gx, gs = vjp(g)
+        return gx, gs, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, scale, eps):
+        xd, sd = in_dims[0], in_dims[1]
+        if sd is None:              # activations only: fold into the rows
+            return _RMSNorm.apply(x.movedim(xd, 0).contiguous(), scale,
+                                  eps), 0
+        n = info.batch_size         # a scale per replica: one call each
+        xs = [x] * n if xd is None else x.movedim(xd, 0).unbind(0)
+        ss = scale.movedim(sd, 0).unbind(0)
+        return torch.stack([_RMSNorm.apply(a.contiguous(), b.contiguous(),
+                                           eps)
+                            for a, b in zip(xs, ss)]), 0
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
+            eps: float = EPS) -> torch.Tensor:
+    """x (..., d), scale (d,) -> (..., d) in x's dtype; differentiable in
+    both."""
+    d = x.shape[-1]
+    if tuple(scale.shape) != (d,):
+        raise ValueError(f"scale {tuple(scale.shape)} does not match the "
+                         f"trailing dim {d} of x {tuple(x.shape)}")
+    if x.device != scale.device:
+        raise ValueError("x and scale must be on the same device")
+    return _RMSNorm.apply(x, scale, eps)

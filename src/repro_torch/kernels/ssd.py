@@ -33,6 +33,18 @@ PyTorch version the wrapper runs for CPU tensors only; :func:`ssd_naive`
 (twin of ``repro.kernels.ref.ssd_naive``, the literal recurrence) is the
 ground truth of the tests.  CUDA tensors always go to the kernel, or the
 wrapper raises.
+
+Autograd.  :func:`ssd_chunk_scan` is a ``torch.autograd.Function``: its
+forward is the kernels (the plain version on the CPU); its backward is
+``torch.func.vjp`` of :func:`ssd_chunked` on the saved inputs, plain
+PyTorch that recomputes the chunked scan (the JAX package has no backward
+kernel; a hand-written reverse chunk scan is ROADMAP B.6).  The state's
+gradient may be ``None`` (training drops the state): the backward then
+differentiates y alone.  Its ``vmap`` rule folds a vmapped axis that only
+the activations x, dt, B and C carry into the batch ``b`` (one call);
+where ``A`` carries it (``-exp(A_log)`` of a parameter per replica, as
+under ``CohortEngine``'s ``vmap``) it loops over the replicas, one call
+each.
 """
 from __future__ import annotations
 
@@ -41,7 +53,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, fold_replicas
 from repro_torch.kernels.quant import launch
 
 MAX_HEAD_DIM, MAX_STATE, MAX_CHUNK = 64, 128, 256
@@ -70,13 +82,17 @@ def ssd_chunked(x, dt, A, B, C, chunk: int
     cum = torch.cumsum(la, dim=2)                      # inclusive
     total = cum[:, :, -1]                              # (b,nc,h)
 
-    # intra-chunk (the quadratic "attention-like" block)
+    # intra-chunk (the quadratic "attention-like" block).  The mask goes
+    # on the exponent, before exp: above the diagonal cum_i - cum_j > 0 can
+    # overflow exp to inf, which the reference masks after exp -- the same
+    # forward, but its gradient there is 0 * inf = NaN.
     cb = torch.einsum("bcihn,bcjhn->bchij", Cc, Bc)
     ci = cum.permute(0, 1, 3, 2)                       # (b,nc,h,q)
-    decay = torch.exp(ci[..., :, None] - ci[..., None, :])
     mask = torch.ones(chunk, chunk, dtype=torch.bool,
                       device=x.device).tril()
-    scores = cb * torch.where(mask, decay, 0.0)
+    decay = torch.exp(torch.where(mask, ci[..., :, None] - ci[..., None, :],
+                                  -torch.inf))
+    scores = cb * decay
     dtj = dtc.permute(0, 1, 3, 2)                      # (b,nc,h,q_j)
     y_intra = torch.einsum("bchij,bcjhp->bcihp", scores * dtj[..., None, :],
                            xc)
@@ -121,7 +137,8 @@ def ssd_chunk_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                    B: torch.Tensor, C: torch.Tensor, *, chunk: int = 128
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (b,s,h,p), dt (b,s,h) [post-softplus], A (h,) [<0], B/C (b,s,g,n).
-    Returns y (b,s,h,p) and the final state (b,h,n,p) f32."""
+    Returns y (b,s,h,p) and the final state (b,h,n,p) f32, differentiable
+    in x, dt, A, B and C."""
     if x.dim() != 4 or dt.dim() != 3 or B.dim() != 4 or B.shape != C.shape:
         raise ValueError(f"need x (b,s,h,p), dt (b,s,h), B = C (b,s,g,n); "
                          f"got {tuple(x.shape)}, {tuple(dt.shape)}, "
@@ -135,6 +152,13 @@ def ssd_chunk_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                          f"{tuple(B.shape)}")
     if not (x.device == dt.device == A.device == B.device == C.device):
         raise ValueError("x, dt, A, B and C must be on the same device")
+    return _SSD.apply(x, dt, A, B, C, int(chunk))
+
+
+def _forward(x, dt, A, B, C, chunk: int):
+    """The plain version for CPU tensors, the kernels for CUDA ones."""
+    b, s, h, p_ = x.shape
+    g, n = B.shape[2], B.shape[3]
     if x.device.type == "cpu":
         return ssd_chunked(x, dt, A, B, C, chunk)
     if x.device.type != "cuda":
@@ -160,3 +184,55 @@ def ssd_chunk_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
            *x.stride()[:3], *dt.stride(), B.stride(0), B.stride(1),
            B.stride(2), C.stride(0), C.stride(1), C.stride(2))
     return y, state
+
+
+class _SSD(torch.autograd.Function):
+    @staticmethod
+    def forward(x, dt, A, B, C, chunk):
+        return _forward(x, dt, A, B, C, chunk)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, dt, A, B, C, chunk = inputs
+        ctx.save_for_backward(x, dt, A, B, C)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+
+    @staticmethod
+    def backward(ctx, gy, gstate):
+        inputs = ctx.saved_tensors
+        if gy is None and gstate is None:
+            return (None,) * 6
+        chunk = ctx.chunk
+        if gstate is None:
+            _, vjp = torch.func.vjp(
+                lambda *a: ssd_chunked(*a, chunk)[0], *inputs)
+            grads = vjp(gy)
+        else:
+            _, vjp = torch.func.vjp(
+                lambda *a: ssd_chunked(*a, chunk), *inputs)
+            if gy is None:
+                gy = torch.zeros_like(inputs[0])
+            grads = vjp((gy, gstate))
+        return (*grads, None)
+
+    @staticmethod
+    def vmap(info, in_dims, x, dt, A, B, C, chunk):
+        n = info.batch_size
+        acts = (x, dt, B, C)
+        act_dims = (in_dims[0], in_dims[1], in_dims[3], in_dims[4])
+        if in_dims[2] is None:      # activations only: fold into the batch
+            fx, fdt, fB, fC = (fold_replicas(t, d, n)
+                               for t, d in zip(acts, act_dims))
+            y, state = _SSD.apply(fx, fdt, A, fB, fC, chunk)
+            return ((y.reshape(n, -1, *y.shape[1:]),
+                     state.reshape(n, -1, *state.shape[1:])), (0, 0))
+
+        def slot(t, dim, i):        # an A per replica: one call each
+            return t if dim is None else t.select(dim, i).contiguous()
+
+        outs = [_SSD.apply(*(slot(t, d, i) for t, d in
+                             zip((x, dt, A, B, C), in_dims[:5])), chunk)
+                for i in range(n)]
+        return ((torch.stack([o[0] for o in outs]),
+                 torch.stack([o[1] for o in outs])), (0, 0))

@@ -1,8 +1,10 @@
 """Attention of the LM lane (twin of ``repro.models.attention``): GQA,
 causal + sliding-window masks, KV-cache decode.
 
-Prefill runs the flash kernel (:mod:`repro_torch.kernels.flash_attention`),
-where query and key positions are both ``arange(s)``.  Decode — one query
+Training and prefill run the flash kernel
+(:mod:`repro_torch.kernels.flash_attention`, differentiable: its backward
+is the plain version's), where query and key positions are both
+``arange(s)``.  Decode — one query
 against a cache with ``k_pos`` and ring slots — stays the plain
 :func:`_sdpa`, as the reference computes it outside any Pallas kernel.
 
@@ -76,6 +78,23 @@ def _full_attention(q, k, v, window: int):
     """Causal self-attention with q and k positions both ``arange(s)``:
     the flash kernel for CUDA tensors, its plain version on the CPU."""
     return FA.flash_attention(q, k, v, causal=True, window=window)
+
+
+def attn_train(p: Params, cfg: ArchConfig, x: torch.Tensor,
+               positions: torch.Tensor, window: int = 0) -> torch.Tensor:
+    """Causal self-attention over the full sequence (no cache)."""
+    q, k, v = _qkv(p, cfg, x, positions)
+    o = _full_attention(q, k, v, window)
+    return torch.einsum("bshk,hkd->bsd", o, p["wo"].to(x.dtype))
+
+
+def attn_flops(cfg: ArchConfig, seq: int, window: int = 0) -> int:
+    """Per-token matmul FLOPs for one attention layer at context ``seq``."""
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    proj = 2 * d * hd * (2 * h + 2 * kv)
+    ctx = min(seq, window) if window > 0 else seq
+    sdpa = 2 * 2 * h * hd * ctx  # qk + pv
+    return proj + sdpa
 
 
 def init_cache(cfg: ArchConfig, batch: int, capacity: int, window: int,

@@ -8,7 +8,7 @@ reference's parameters over with :mod:`repro_torch.bridge`.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -72,6 +72,12 @@ def mlp(p: Params, x: torch.Tensor, variant: str) -> torch.Tensor:
                  * dense(p["wi_up"], x))
 
 
+def mlp_flops(d_model: int, d_ff: int, variant: str) -> int:
+    """matmul FLOPs per token (multiply-accumulate counted as 2)."""
+    n_mats = 3 if variant in ("swiglu", "geglu") else 2
+    return 2 * n_mats * d_model * d_ff
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
     """x: (..., seq, n_heads, head_dim) or (..., seq, head_dim);
@@ -87,3 +93,33 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x[..., :half].float(), x[..., half:].float()
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    return cap * torch.tanh(x / cap) if cap > 0 else x
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  true_vocab: Optional[int] = None) -> torch.Tensor:
+    """Mean token cross-entropy.  logits (..., V_pad), labels (...) int.
+    Padded vocab entries (>= true_vocab) get -1e9 added, as in the
+    reference."""
+    return per_token_ce(logits, labels, true_vocab).mean()
+
+
+def per_token_ce(logits: torch.Tensor, labels: torch.Tensor,
+                 true_vocab: Optional[int] = None) -> torch.Tensor:
+    """``logsumexp(logits) - logits[label]`` per position, in float32,
+    with the padded-vocab mask of :func:`cross_entropy`."""
+    logits = logits.to(torch.float32)
+    vpad = logits.shape[-1]
+    if true_vocab is not None and true_vocab < vpad:
+        mask = torch.cat([
+            torch.zeros((true_vocab,), dtype=torch.float32,
+                        device=logits.device),
+            torch.full((vpad - true_vocab,), -1e9, dtype=torch.float32,
+                       device=logits.device)])
+        logits = logits + mask
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return logz - gold

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import bridge
 from repro_torch.core import cost
 from repro_torch.data.pipeline import ClientDataset
 from repro_torch.kernels import wire
@@ -73,6 +74,10 @@ class MLPUnitModel:
 
     def head_predict(self, head, feats):
         return feats @ head["w"] + head["b"]
+
+    def params_to_numpy(self, units, head):
+        """(units, head) in the reference's layout, as numpy arrays."""
+        return bridge.params_to_numpy(units, head)
 
     def head_loss(self, head, feats, labels):
         logits = self.head_predict(head, feats)

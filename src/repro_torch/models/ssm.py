@@ -1,9 +1,10 @@
 """Mamba2 block of the LM lane (twin of ``repro.models.ssm``): SSD,
 state-space duality (arXiv:2405.21060).
 
-Prefill runs the chunked SSD through the ``ssd_chunk_scan`` kernel
-(:mod:`repro_torch.kernels.ssd`), which also returns the final state the
-cache keeps; the gated norm ``rmsnorm(y * silu(z))`` over d_inner runs the
+Training and prefill run the chunked SSD through the ``ssd_chunk_scan``
+kernel (:mod:`repro_torch.kernels.ssd`, differentiable: its backward is
+the plain version's), which also returns the final state the prefill
+cache keeps (training drops it); the gated norm ``rmsnorm(y * silu(z))`` over d_inner runs the
 rmsnorm kernel.  Decode is the plain one-step recurrence over the constant-
 size (heads, d_state, head_dim) state.  The in-projection is the
 reference's fused one (``SSMConfig.fused_proj=True``, what every arch
@@ -104,6 +105,10 @@ def init_ssm_cache(cfg: ArchConfig, batch: int, dtype=torch.float32,
     }
 
 
+def ssm_train(p: Params, cfg: ArchConfig, u: torch.Tensor) -> torch.Tensor:
+    return _ssm_full_keep(p, cfg, u)[0]
+
+
 def ssm_prefill(p: Params, cfg: ArchConfig, u: torch.Tensor
                 ) -> Tuple[torch.Tensor, Params]:
     y, (xBC_pre, state) = _ssm_full_keep(p, cfg, u)
@@ -155,3 +160,20 @@ def ssm_decode(p: Params, cfg: ArchConfig, u: torch.Tensor,
     y = L.dense(p["out_proj"], y)
     return y, {"conv": window[:, 1:], "state": state,
                "pos": cache["pos"] + 1}
+
+
+def ssm_flops(cfg: ArchConfig, seq: int, kind: str) -> int:
+    """Per-token matmul-ish FLOPs for one mamba2 block."""
+    s = cfg.ssm
+    d_inner, n_heads, conv_dim = dims(cfg)
+    d_in_proj = 2 * d_inner + 2 * s.n_groups * s.d_state + n_heads
+    proj = 2 * cfg.d_model * d_in_proj + 2 * d_inner * cfg.d_model
+    conv = 2 * s.d_conv * conv_dim
+    if kind == "decode":
+        ssd = 4 * n_heads * s.d_state * s.head_dim
+    else:
+        q = s.chunk
+        ssd = (2 * n_heads * s.d_state * q      # CB^T per token (q cols)
+               + 2 * n_heads * q * s.head_dim   # scores @ x
+               + 4 * n_heads * s.d_state * s.head_dim)  # state in/out
+    return proj + conv + ssd

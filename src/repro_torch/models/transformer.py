@@ -10,16 +10,21 @@ Python list of periods, each a tuple of per-layer parameter dicts
 splitting (:mod:`repro_torch.core.split`) addresses the stack at period
 granularity through ``start`` / ``end``.
 
-Modes: ``prefill`` (full sequence, returns the caches) and ``decode`` (one
-token, consumes and returns the caches).  ``train`` comes with the LM
-training slice.  No ported layer has an auxiliary loss, so the functions
-return no ``aux``.
+Modes: ``train`` (full sequence, no cache), ``prefill`` (full sequence,
+returns the caches) and ``decode`` (one token, consumes and returns the
+caches).  In ``train`` mode with ``remat`` each period runs under
+``torch.utils.checkpoint`` (non-reentrant): its activations are recomputed
+in the backward, the reference's ``jax.checkpoint`` of the scan body with
+the default (full recompute) policy; the ``dots`` policy is not ported.
+No ported layer has an auxiliary loss, so the functions return no ``aux``
+(:func:`loss_fn` reports it as 0).
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ATTN, SSM, ArchConfig
 from repro_torch.models import attention as A
@@ -27,7 +32,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 
 Params = Dict[str, Any]
-MODES = ("prefill", "decode")
+MODES = ("train", "prefill", "decode")
 
 
 def _not_ported(what: str):
@@ -59,14 +64,19 @@ def apply_layer(p: Params, cfg: ArchConfig, kind: str, x: torch.Tensor,
     if mode not in MODES:
         raise _not_ported(f"mode {mode!r}")
     h = L.rmsnorm(p["norm1"], x)
+    new_cache = None
     if kind == ATTN:
-        if mode == "prefill":
+        if mode == "train":
+            h = A.attn_train(p["mixer"], cfg, h, positions)
+        elif mode == "prefill":
             h, new_cache = A.attn_prefill(p["mixer"], cfg, h, positions,
                                           capacity)
         else:
             h, new_cache = A.attn_decode(p["mixer"], cfg, h, cache)
     elif kind == SSM:
-        if mode == "prefill":
+        if mode == "train":
+            h = S.ssm_train(p["mixer"], cfg, h)
+        elif mode == "prefill":
             h, new_cache = S.ssm_prefill(p["mixer"], cfg, h)
         else:
             h, new_cache = S.ssm_decode(p["mixer"], cfg, h, cache)
@@ -98,20 +108,36 @@ def total_periods(cfg: ArchConfig) -> int:
     return sum(n for _, n in segments_of(cfg))
 
 
+def _run_period(period, cfg: ArchConfig, pattern, x: torch.Tensor,
+                mode: str, positions, pc, capacity: int):
+    new = []
+    for i, kind in enumerate(pattern):
+        x, nc = apply_layer(period[i], cfg, kind, x, mode, positions,
+                            pc[i] if pc is not None else None, capacity)
+        new.append(nc)
+    return x, tuple(new)
+
+
 def _scan_segment(periods, cfg: ArchConfig, pattern, x: torch.Tensor,
-                  mode: str, positions, caches, capacity: int):
+                  mode: str, positions, caches, capacity: int,
+                  remat: bool = False):
     """Run the given periods of one segment in order (the reference's
     ``lax.scan`` over stacked periods).  ``caches`` holds one entry per
-    period in decode mode.  Returns (x, per-period caches)."""
+    period in decode mode; ``remat`` (train mode only) recomputes each
+    period in the backward.  Returns (x, per-period caches)."""
     out = []
     for k, period in enumerate(periods):
+        if remat and mode == "train":
+            x = checkpoint(
+                lambda pp, h: _run_period(pp, cfg, pattern, h, mode,
+                                          positions, None, capacity)[0],
+                period, x, use_reentrant=False)
+            out.append((None,) * len(pattern))
+            continue
         pc = caches[k] if caches is not None else None
-        new = []
-        for i, kind in enumerate(pattern):
-            x, nc = apply_layer(period[i], cfg, kind, x, mode, positions,
-                                pc[i] if pc is not None else None, capacity)
-            new.append(nc)
-        out.append(tuple(new))
+        x, new = _run_period(period, cfg, pattern, x, mode, positions, pc,
+                             capacity)
+        out.append(new)
     return x, out
 
 
@@ -142,17 +168,17 @@ def embed_inputs(p: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
 def unembed(p: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     x = L.rmsnorm(p["final_norm"], x)
     logits = x @ p["head"].to(x.dtype)
-    if cfg.logit_softcap > 0:
-        logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
-    return logits
+    return L.softcap(logits, cfg.logit_softcap)
 
 
 def forward_core(p: Params, cfg: ArchConfig, x: torch.Tensor, mode: str,
                  positions=None, caches=None, capacity: int = 0,
-                 start: int = 0, end: Optional[int] = None):
+                 start: int = 0, end: Optional[int] = None,
+                 remat: bool = False):
     """Run periods [start, end) of the stack.  ``caches`` (decode) covers
     every period of each segment, as :func:`init_caches` with the default
-    range or a prefill returns it.  Returns (x, caches)."""
+    range or a prefill returns it; ``remat`` acts in train mode only.
+    Returns (x, caches)."""
     end = total_periods(cfg) if end is None else end
     out_caches = []
     off = 0
@@ -161,7 +187,7 @@ def forward_core(p: Params, cfg: ArchConfig, x: torch.Tensor, mode: str,
         if lo < hi:
             seg_c = caches[si][lo:hi] if caches is not None else None
             x, nc = _scan_segment(p["segments"][si][lo:hi], cfg, pat, x,
-                                  mode, positions, seg_c, capacity)
+                                  mode, positions, seg_c, capacity, remat)
             out_caches.append(nc)
         else:
             out_caches.append(None)
@@ -198,9 +224,44 @@ def positions_of(cfg: ArchConfig, batch, mode: str,
 
 def forward(p: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
             mode: str = "prefill", caches=None, capacity: int = 0,
-            pos_offset: int = 0):
+            pos_offset: int = 0, remat: bool = False):
     """Full model: embed -> stack -> head.  Returns (logits, caches)."""
     positions = positions_of(cfg, batch, mode, pos_offset)
     x = embed_inputs(p, cfg, batch, positions)
-    x, caches = forward_core(p, cfg, x, mode, positions, caches, capacity)
+    x, caches = forward_core(p, cfg, x, mode, positions, caches, capacity,
+                             remat=remat)
     return unembed(p, cfg, x), caches
+
+
+def loss_fn(p: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
+            remat: bool = False) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Mean next-token cross-entropy of the full model in train mode.
+    Returns (loss, {"ce", "aux"}); ``aux`` is 0 (no ported layer has an
+    auxiliary loss)."""
+    logits, _ = forward(p, cfg, batch, "train", remat=remat)
+    ce = L.cross_entropy(logits, batch["labels"], cfg.vocab_size)
+    aux = torch.zeros((), dtype=torch.float32, device=ce.device)
+    return ce + aux, {"ce": ce, "aux": aux}
+
+
+def count_params(cfg: ArchConfig) -> int:
+    """Analytic parameter count of the ported layer kinds (the reference's
+    formula; roofline MODEL_FLOPS = 6 N D)."""
+    d, ff, vp = cfg.d_model, cfg.d_ff, cfg.padded_vocab
+    total = 0
+    for kind in cfg.layer_types:
+        if kind == ATTN:
+            hd = cfg.head_dim_
+            n = 2 * d + d * hd * (cfg.n_heads * 2 + cfg.n_kv_heads * 2)
+            mats = 3 if cfg.mlp_variant in ("swiglu", "geglu") else 2
+            n += mats * d * ff
+        elif kind == SSM:
+            d_inner, n_heads, conv_dim = S.dims(cfg)
+            n = d + d * (2 * d_inner + 2 * cfg.ssm.n_groups * cfg.ssm.d_state
+                         + n_heads)
+            n += cfg.ssm.d_conv * conv_dim + conv_dim + 3 * n_heads
+            n += d_inner + d_inner * d
+        else:
+            raise _not_ported(f"layer kind {kind!r}")
+        total += n
+    return total + 2 * vp * d + d

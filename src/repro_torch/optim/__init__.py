@@ -1,2 +1,5 @@
 from repro_torch.optim.optimizers import (  # noqa: F401
-    Optimizer, adam, apply_updates, from_name, momentum, sgd)
+    Optimizer, adam, adamw, apply_updates, clip_by_global_norm, from_name,
+    global_norm, momentum, sgd)
+from repro_torch.optim.schedules import (  # noqa: F401
+    constant, cosine_decay, linear_warmup, warmup_cosine)

@@ -580,3 +580,190 @@ def test_reduced_lm_serving_on_cuda_matches_cpu(dev, arch):
         outs[str(where)] = seq
     for a, b in zip(outs["cpu"], outs[str(dev)]):
         torch.testing.assert_close(b, a, rtol=2e-4, atol=2e-4)
+
+
+# ------------------------------------------------------- LM autograd
+# The Functions' backward is the plain version's vjp on the same inputs;
+# with the loss sum(w * y) its cotangent does not depend on the forward,
+# so kernel-forward and all-plain gradients differ only by the order of
+# the backward's own sums: held at the forward tolerances above, relative
+# to the largest gradient.
+def _grads(fn, args, w):
+    req = [a.detach().clone().requires_grad_() for a in args]
+    out = fn(*req)
+    return out.detach(), torch.autograd.grad((out * w).sum(), req)
+
+
+def _autograd_case(name, dev):
+    if name == "rmsnorm":
+        args = (_randn((4, 64, 960), dev, 0, 2.0),
+                _randn((960,), dev, 1, 0.1) + 1.0)
+        return RN.rmsnorm, RN.rmsnorm_plain, args, RMS_TOL
+    if name == "flash_attention":
+        args = tuple(_randn(s, dev, i) for i, s in enumerate(
+            [(4, 96, 15, 64), (4, 96, 5, 64), (4, 96, 5, 64)]))
+        return (lambda q, k, v: FA.flash_attention(q, k, v),
+                lambda q, k, v: FA.attention_plain(q, k, v), args, FLASH_TOL)
+    x, dt, A, B, C = _ssd_inputs(dev, 4, 300, 8, 64, 1, 128)
+    return (lambda x, dt, al, B, C: SSD.ssd_chunk_scan(
+                x, dt, -torch.exp(al), B, C, chunk=256)[0],
+            lambda x, dt, al, B, C: SSD.ssd_chunked(
+                x, dt, -torch.exp(al), B, C, 256)[0],
+            (x, dt, torch.log(-A), B, C), SSD_TOL)
+
+
+LM_KERNELS = ["rmsnorm", "flash_attention", "ssd_chunk_scan"]
+
+
+@pytest.mark.parametrize("name", LM_KERNELS)
+def test_lm_function_gradients_on_cuda_match_plain(dev, name):
+    fn, plain, args, tol = _autograd_case(name, dev)
+    w = _randn(tuple(plain(*args).shape), dev, 9)
+    n = LAUNCHES[name]
+    y_k, g_k = _grads(fn, args, w)
+    assert LAUNCHES[name] == n + 1          # the backward launches nothing
+    y_p, g_p = _grads(plain, args, w)
+    torch.testing.assert_close(y_k, y_p, rtol=tol, atol=tol)
+    assert all(bool(torch.isfinite(g).all()) for g in g_k)
+    big = max(float(g.abs().max()) for g in g_p)
+    for a, b in zip(g_k, g_p):
+        assert float((a - b).abs().max()) <= tol * max(big, 1.0)
+
+
+@pytest.mark.parametrize("name", LM_KERNELS)
+def test_lm_function_vmap_on_cuda(dev, name):
+    """Folded into the batch / rows: bit for bit the per-slice calls; a
+    parameter per replica (rmsnorm's scale, the SSD's A_log): one call per
+    replica, within the forward tolerance."""
+    fn, _, args, tol = _autograd_case(name, dev)
+    split = [a.reshape(2, a.shape[0] // 2, *a.shape[1:]) for a in args]
+    dims = [0] * len(args)
+    pi = {"rmsnorm": 1, "ssd_chunk_scan": 2}.get(name)
+    if pi is not None:
+        dims[pi] = None
+        split[pi] = args[pi]
+    n = LAUNCHES[name]
+    got = torch.func.vmap(fn, in_dims=tuple(dims))(*split)
+    assert LAUNCHES[name] == n + 1
+    want = torch.stack([fn(*[s[i] if d == 0 else s for s, d in
+                             zip(split, dims)]) for i in range(2)])
+    assert torch.equal(got, want)
+    if pi is not None:
+        split[pi] = torch.stack([args[pi], args[pi] * 1.01])
+        n = LAUNCHES[name]
+        got = torch.func.vmap(fn)(*split)
+        assert LAUNCHES[name] == n + 2
+        want = torch.stack([fn(*[s[i] for s in split]) for i in range(2)])
+        torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("arch", ["smollm-360m", "mamba2-780m"])
+@pytest.mark.parametrize("compress", [False, True])
+def test_reduced_lm_train_step_on_cuda_matches_cpu(dev, arch, compress):
+    """One sgd train step (clip 1.0, remat) of the reduced config grown to
+    three periods from the same weights and batch: the card's update within
+    1 % of the largest update of the CPU's, losses within 1e-4."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import distributed as D
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = dataclasses.replace(get_config(arch).reduced(), n_layers=3)
+    params = T.init_params(torch.Generator().manual_seed(0), cfg)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(4, 65)))
+    w = torch.tensor([0.5, 0.5, 0.25, 0.25])
+    opts = D.DistOptions(cut=1, optimizer="sgd", learning_rate=1e-2,
+                         compress_smashed=compress)
+    outs = {}
+    for where in ("cpu", dev):
+        p = tree_map(lambda a: a.to(where), params)
+        state = {"params": p, "opt": D.make_optimizer(opts).init(p),
+                 "step": torch.zeros((), dtype=torch.int32, device=where)}
+        new, m = D.make_train_step(cfg, opts)(
+            state, {"tokens": toks[:, :-1].to(where),
+                    "labels": toks[:, 1:].to(where), "weights": w.to(where)})
+        outs[str(where)] = ([t.cpu() for t in tree_leaves(new["params"])],
+                            float(m["loss"]))
+    (pa, la), (pb, lb) = outs["cpu"], outs[str(dev)]
+    moved = max(float((a - a0).abs().max())
+                for a, a0 in zip(pa, tree_leaves(params)))
+    diff = max(float((a - b).abs().max()) for a, b in zip(pa, pb))
+    assert diff <= 1e-2 * moved and abs(la - lb) <= 1e-4
+
+
+@pytest.mark.parametrize("name,rule", [("rmsnorm", "fold"),
+                                       ("rmsnorm", "loop"),
+                                       ("flash_attention", "fold"),
+                                       ("ssd_chunk_scan", "fold"),
+                                       ("ssd_chunk_scan", "loop")])
+def test_lm_function_vjp_of_vmap_on_cuda(dev, name, rule):
+    """CohortEngine's vehicle side under its ``vmap`` schedule: vjp of the
+    vmapped Function against the per-replica vjps, with only activations
+    carrying the replica axis (``fold``: one launch for both replicas) and
+    with a parameter per replica too (``loop``: one launch each).  Both
+    backward passes are the plain version's vjp, so the gradients differ
+    only in the order of their sums: within the forward tolerance of the
+    largest gradient."""
+    fn, _, args, tol = _autograd_case(name, dev)
+    vin = [a.reshape(2, a.shape[0] // 2, *a.shape[1:]) for a in args]
+    dims = [0] * len(args)
+    pi = {"rmsnorm": 1, "ssd_chunk_scan": 2}.get(name)
+    if rule == "fold" and pi is not None:
+        dims[pi], vin[pi] = None, args[pi]
+    elif rule == "loop":
+        vin[pi] = torch.stack([args[pi], args[pi] * 1.01])
+    diff = [i for i, d in enumerate(dims) if d is not None]
+
+    def with_diff(base, d_args):
+        full = list(base)
+        for i, a in zip(diff, d_args):
+            full[i] = a
+        return full
+
+    n = LAUNCHES[name]
+    out, vjp = torch.func.vjp(
+        lambda *d: torch.func.vmap(fn, in_dims=tuple(dims))(
+            *with_diff(vin, d)), *[vin[i] for i in diff])
+    g = _randn(tuple(out.shape), dev, 11)
+    got = vjp(g)
+    assert LAUNCHES[name] == n + (1 if rule == "fold" else 2)
+    for r in range(2):
+        sl = [a if d is None else a[r] for a, d in zip(vin, dims)]
+        _, vjp1 = torch.func.vjp(lambda *d: fn(*with_diff(sl, d)),
+                                 *[sl[i] for i in diff])
+        want = vjp1(g[r])
+        big = max(float(t.abs().max()) for t in want)
+        for a, b in zip((t[r] for t in got), want):
+            assert bool(torch.isfinite(a).all())
+            assert float((a - b).abs().max()) <= tol * max(big, 1.0)
+
+
+@pytest.mark.parametrize("arch", ["smollm-360m", "mamba2-780m"])
+def test_reduced_lm_train_step_launches_follow_remat(dev, arch):
+    """``DistOptions.remat`` on the card: with it on each of the three
+    periods launches its kernels again in the backward, off once; the
+    final norm once either way."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import distributed as D
+    from repro_torch.kernels import reset_launches
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(get_config(arch).reduced(), n_layers=3)
+    mixer = "flash_attention" if arch == "smollm-360m" else "ssd_chunk_scan"
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(4, 65))).to(dev)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+             "weights": torch.full((4,), 0.25, device=dev)}
+    for remat, fwd in ((True, 2), (False, 1)):
+        opts = D.DistOptions(cut=1, optimizer="sgd", remat=remat)
+        p = T.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+        state = {"params": p, "opt": D.make_optimizer(opts).init(p),
+                 "step": torch.zeros((), dtype=torch.int32, device=dev)}
+        reset_launches()
+        D.make_train_step(cfg, opts)(state, batch)
+        counts = launch_counts()
+        assert counts["rmsnorm"] == fwd * 2 * 3 + 1
+        assert counts[mixer] == fwd * 3

@@ -26,7 +26,8 @@ def _imported_modules(tree):
 def test_port_files_exist():
     names = {p.name for p in PORT_FILES}
     assert {"chip_smoke.py", "fedsim.py", "quant.py", "wire.py",
-            "compression.py", "runner.py"} <= names
+            "compression.py", "runner.py", "lm_unit.py", "checkpoint.py",
+            "train.py", "schedules.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,

@@ -190,6 +190,6 @@ def test_unported_modes_and_kinds_raise():
     _, tcfg, _, tparams = _setup("smollm-gqa")
     tok = torch.zeros(1, 4, dtype=torch.long)
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        T.forward(tparams, tcfg, {"tokens": tok}, "train")
+        T.forward(tparams, tcfg, {"tokens": tok}, "score")
     with pytest.raises(NotImplementedError, match="not ported yet"):
         T.init_layer(torch.Generator(), tcfg, "attn_moe")
