@@ -132,9 +132,22 @@ neither ``jax`` nor ``repro``.  In order it:
     ``vmap`` (the kernels inside ``vmap`` of ``grad``): finite loss,
     accuracy in [0, 1], wire bytes = the cost model's, and every launch
     count the schedule implies;
+10j. the multi-RSU path of phase 10b under the parallel server schedule
+    (arXiv:2405.18707; ``server_schedule="parallel"``): the highway on
+    ``topk_int8`` under the ``ragged`` layout for 4 rounds one at a time
+    (K = 1) and as one window (``superstep`` K = 4), under ``dense`` for 2
+    rounds, and the urban grid's 2 ``residence`` rounds on ``int8``, the
+    counters zeroed just before and read just after each: finite losses,
+    RSU loads summing to the scheduled count, the cuts, handovers after
+    round 0, client batch steps, and codec launches per (cut bucket,
+    local step) and per (cut bucket, RSU, local step) as the schedule
+    implies; K = 4 equal to K = 1 and ``dense`` equal to ``ragged`` bit
+    for bit; the two-cell trace on the card against the CPU as in 10c;
+    s/round printed beside phase 10b's, and each run's slot occupancy;
 11. prints the per-kernel JSON line (all eight kernels, the quant and LM
-    kernels with their launches per training step), then
-    ``{"ok": true, "device": ...}`` as the last line.
+    kernels with their launches per training step, the codec kernels with
+    their launches in phase 10j), then ``{"ok": true, "device": ...}`` as
+    the last line.
 
 Any failure raises and the script exits non-zero.
 """
@@ -694,18 +707,20 @@ def _two_cell_trace():
         fading_std_db=0.0, rsu_range_m=320.0), seed=0)
 
 
-def scenario_cpu_vs_card():
-    """Phase 10c: the two-cell trace (2 vehicles, 4 rounds, topk_int8, sync
-    every 2) on the card and on the CPU from the same weights.  Float32
-    sums in another order can move one smashed value across an int8
-    rounding boundary (one int8 step), so the lr is the scenario path's
-    1e-3 and the final parameters agree within TRACE_TOL of the largest."""
+def scenario_cpu_vs_card(schedule="sequential"):
+    """Phase 10c (and 10j with ``schedule="parallel"``): the two-cell trace
+    (2 vehicles, 4 rounds, topk_int8, sync every 2) on the card and on the
+    CPU from the same weights.  Float32 sums in another order can move one
+    smashed value across an int8 rounding boundary (one int8 step), so the
+    lr is the scenario path's 1e-3 and the final parameters agree within
+    TRACE_TOL of the largest."""
     import numpy as np
     from repro_torch.core import fedsim
     from repro_torch.models.mlp_unit import MLPUnitModel, make_mlp_fleet_data
     cfg = fedsim.SimConfig(rounds=4, local_steps=2, batch_size=8,
                            lr=SCEN_LR, optimizer="sgd", wire="topk_int8",
-                           round_interval_s=5.0, eval_every=0)
+                           round_interval_s=5.0, eval_every=0,
+                           server_schedule=schedule)
     clients, test = make_mlp_fleet_data(2, 24, seed=0, n_test=64)
     runs = {}
     for where in ("cpu", "cuda"):
@@ -724,7 +739,7 @@ def scenario_cpu_vs_card():
     ok = (err <= TRACE_TOL * scale and np.isfinite(pg).all()
           and [m.cuts for m in hc] == [m.cuts for m in hg]
           and sum(m.n_handover for m in hg) >= 1)
-    print(f"scenario_cpu_vs_card two-cell trace losses_cpu="
+    print(f"scenario_cpu_vs_card {schedule} two-cell trace losses_cpu="
           f"{[m.loss for m in hc]} losses_card={[m.loss for m in hg]} "
           f"max_param_diff={err:g} max_abs_param={scale:g} "
           f"tol={TRACE_TOL:g}x ok={ok}", flush=True)
@@ -1810,6 +1825,158 @@ def lm_fed_path(arch, scheme, mode):
             "run_s": res.timing["run_s"]}
 
 
+# ---- the parallel server schedule on the multi-RSU path (phase 10j):
+# phase 10b's cells under server_schedule="parallel" (arXiv:2405.18707).
+# (label, scenario, strategy, wire, layout, superstep K, rounds)
+PAR_RUNS = (
+    ("highway_ragged_k1", "highway_corridor", "paper", "topk_int8",
+     "ragged", 1, SCEN_ROUNDS),
+    ("highway_ragged_k4", "highway_corridor", "paper", "topk_int8",
+     "ragged", 4, SCEN_ROUNDS),
+    ("highway_dense_k1", "highway_corridor", "paper", "topk_int8", "dense",
+     1, 2),
+    ("urban_ragged_k1", "urban_grid", "residence", "int8", "ragged", 1, 2))
+# codec launches of the parallel schedule (mlp9) as (a, b): a per (cut
+# bucket, local step) and b per (cut bucket, RSU, local step), the
+# engine's ``bucket_steps`` / ``rsu_bucket_steps``.  topk_int8: pack up
+# and down; unpack for the vehicles' residuals (which is also the RSU's
+# dense copy for its first weight's gradient) and for the downlink; the
+# fused matmul once per RSU in the bucket.  int8: quantize and dequantize
+# once each way.
+PAR_LAUNCHES = {
+    "topk_int8": {"sparsify_quant_pack": (2, 0), "unpack_dequant": (2, 0),
+                  "unpack_dequant_matmul": (0, 1)},
+    "int8": {"quantize_int8": (2, 0), "dequantize_int8": (2, 0)}}
+
+
+def _flat_params(units, head):
+    import numpy as np
+    return np.concatenate(
+        [t.detach().cpu().numpy().ravel() for u in units for t in u.values()]
+        + [t.detach().cpu().numpy().ravel() for t in head.values()])
+
+
+def parallel_path(label, scenario, strategy, wire, layout, k, rounds,
+                  cut_set):
+    """Phase 10j: one run of the parallel schedule through the front door
+    (``api.build_engine`` of phase 10b's spec with ``server_schedule=
+    "parallel"``, ``superstep`` K and the layout, then ``engine.run``), the
+    launch counters zeroed just before and read just after: finite losses,
+    RSU loads summing to the scheduled count, cuts in the strategy's set,
+    handovers after round 0 on the highway, client batch steps and codec
+    launches as the schedule implies.  Returns a row with the losses, the
+    global model after each sync (K = 1) and at the end, and the
+    residuals."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch import api, kernels
+    spec = _scenario_spec(scenario, SCEN_VEHICLES, rounds, strategy, wire)
+    spec = dataclasses.replace(
+        spec, train=dataclasses.replace(spec.train,
+                                        server_schedule="parallel"),
+        runtime=dataclasses.replace(spec.runtime, superstep=k,
+                                    superstep_layout=layout))
+    eng = api.build_engine(spec)
+    marks, synced = [], {}
+
+    def on_round(m):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        if not (math.isfinite(m.loss) and set(m.cuts) <= cut_set
+                and sum(m.rsu_loads) == m.n_scheduled > 0
+                and len(m.cuts) == SCEN_VEHICLES):
+            raise AssertionError(f"parallel {label}: bad round {m}")
+
+    def on_merge(rnd, e):
+        synced[rnd] = _flat_params(e.units, e.head)
+
+    steps0, b0, r0 = eng.batch_steps, eng.bucket_steps, eng.rsu_bucket_steps
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    hist = eng.run(on_round=on_round, on_cloud_merge=on_merge)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    buckets, rsu_buckets = eng.bucket_steps - b0, eng.rsu_bucket_steps - r0
+    steps = eng.batch_steps - steps0
+    walls = ([run_s - (marks[-1] - marks[0])]
+             + [b - a for a, b in zip(marks, marks[1:])]) if k == 1 else []
+    occ = eng.occupancy_stats()
+    for m, wall in zip(hist, walls or [float("nan")] * len(hist)):
+        print(f"parallel {label} round={m.round} loss={m.loss!r} "
+              f"scheduled={m.n_scheduled} handover={m.n_handover} "
+              f"loads={m.rsu_loads} wall_s={wall:.6f}", flush=True)
+    print(f"parallel {label} layout={layout} K={k} client_batch_steps="
+          f"{steps} bucket_steps={buckets} rsu_bucket_steps={rsu_buckets} "
+          f"launches={counts} run_s={run_s:.6f} "
+          f"s_per_round={run_s / rounds:.6f} occupancy={occ}", flush=True)
+    want = dict.fromkeys(counts, 0)
+    want.update({name: a * buckets + b * rsu_buckets
+                 for name, (a, b) in PAR_LAUNCHES[wire].items()})
+    if (len(hist) != rounds or eng.mode != "parallel" or counts != want
+            or steps != SCEN_STEPS * sum(m.n_scheduled for m in hist)):
+        raise AssertionError(
+            f"parallel {label}: {len(hist)} rounds, mode {eng.mode}, "
+            f"launches {counts} (want {want}), {steps} client batch steps")
+    if scenario == "highway_corridor" \
+            and sum(m.n_handover for m in hist[1:]) == 0:
+        raise AssertionError(f"parallel {label}: no handover after round 0")
+    res = [np.zeros(0, np.float32) if r is None
+           else r.detach().cpu().numpy().ravel() for r in eng.wire_res]
+    return {"label": label, "scenario": scenario, "wire": wire,
+            "layout": layout, "k": k, "rounds": rounds,
+            "losses": [m.loss for m in hist], "synced": synced,
+            "final": _flat_params(eng.units, eng.head), "residuals": res,
+            "launches": counts, "bucket_steps": buckets,
+            "rsu_bucket_steps": rsu_buckets, "client_batch_steps": steps,
+            "round_wall_s": walls, "run_s": run_s,
+            "s_per_round": run_s / rounds, "occupancy": occ}
+
+
+def parallel_phase(seq_timings):
+    """Phase 10j: the parallel runs; K = 4 equal to K = 1 bit for bit (a
+    handover and four cloud merges inside the window), ``ragged`` equal to
+    ``dense`` bit for bit on the two rounds both ran, the two-cell trace
+    card vs CPU; s/round printed beside phase 10b's sequential rounds.
+    Returns the timing rows."""
+    import numpy as np
+    cut_sets = {"paper": {0, 2, 4, 6, 8}, "residence": set(range(9))}
+    rows = {run[0]: parallel_path(*run, cut_sets[run[2]])
+            for run in PAR_RUNS}
+    k1, k4 = rows["highway_ragged_k1"], rows["highway_ragged_k4"]
+    dense = rows["highway_dense_k1"]
+    same_k = (k4["losses"] == k1["losses"]
+              and np.array_equal(k4["final"], k1["final"])
+              and all(np.array_equal(a, b) for a, b in
+                      zip(k4["residuals"], k1["residuals"])))
+    same_layout = (dense["losses"] == k1["losses"][:2]
+                   and np.array_equal(dense["synced"][1], k1["synced"][1]))
+    print(f"parallel bit_for_bit K4_vs_K1={same_k} "
+          f"dense_vs_ragged={same_layout}", flush=True)
+    if not (same_k and same_layout):
+        raise AssertionError("parallel: K = 4 vs K = 1 or dense vs ragged "
+                             "differ in their bits")
+    trace_err = scenario_cpu_vs_card("parallel")
+    seq = {t["scenario"]: t for t in seq_timings}
+    out = []
+    for row in rows.values():
+        s = seq[row["scenario"]]
+        print(f"parallel vs sequential {row['label']}: s_per_round "
+              f"parallel={row['s_per_round']:.6f} sequential="
+              f"{s['run_s'] / s['rounds']:.6f} (rounds "
+              f"{[round(w, 6) for w in s['round_wall_s']]})", flush=True)
+        out.append({key: row[key] for key in (
+            "label", "scenario", "wire", "layout", "k", "rounds", "losses",
+            "launches", "bucket_steps", "rsu_bucket_steps",
+            "client_batch_steps", "round_wall_s", "run_s", "s_per_round",
+            "occupancy")}
+            | {"sequential_s_per_round": s["run_s"] / s["rounds"]})
+    return out, trace_err
+
+
 def _main_cut(cuts_per_round):
     """The cut the path used most often (ties to the smaller cut)."""
     flat = [c for cuts in cuts_per_round for c in cuts]
@@ -1817,10 +1984,12 @@ def _main_cut(cuts_per_round):
 
 
 def kernel_report(checks, launches, main_cuts, mm_checks, mm_launches,
-                  lm_checks, lm_launches, training):
+                  lm_checks, lm_launches, training, par_launches):
     """Phase 11: one entry per kernel, timed at its path's main shape.  The
     quant and LM kernels also carry their launches per training step of
-    each phase-10g run (``train_launches_per_step``)."""
+    each phase-10g run (``train_launches_per_step``), the codec kernels
+    their launches in phase 10j's parallel highway (topk_int8) or urban
+    (int8) run (``parallel_launches``)."""
     per_step = {}
     for run in training:
         label = run["arch"] + ("+compress" if run["compress"] else "")
@@ -1839,6 +2008,7 @@ def kernel_report(checks, launches, main_cuts, mm_checks, mm_launches,
             "call_ms": row["call_ms"], "bound_ms": row["bound_ms"],
             "bound_by": "bytes", "library_ms": row["library_ms"],
             "shape": row["shape"],
+            "parallel_launches": par_launches.get(name, 0),
             **({"train_launches_per_step": per_step[name]}
                if name in per_step else {}),
             **{extra: {key: checks[name][extra][key] for key in
@@ -1855,6 +2025,7 @@ def kernel_report(checks, launches, main_cuts, mm_checks, mm_launches,
         "call_ms": row["call_ms"], "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"], "library_ms": None,
         "unpack_then_matmul_ms": row["unpack_then_matmul_ms"],
+        "parallel_launches": par_launches.get(MM_META[0], 0),
         "wide_ms": mm_checks["wide"]["ms"], "shape": row["shape"]})
     for name, replaces in LM_META.items():
         row = next(r for r in lm_checks[name].values() if "ms" in r)
@@ -1939,6 +2110,17 @@ def main() -> int:
     print(json.dumps({"training": {"autograd": autograd, "runs": training,
                                    "cpu_vs_card": train_worst,
                                    "federation": lm_fed}}))
+    # the parallel schedule runs after every earlier phase, so their
+    # numbers stay comparable with the slices before it
+    parallel, parallel_trace_err = parallel_phase([highway_timing,
+                                                   urban_timing])
+    print(json.dumps({"parallel": parallel,
+                      "trace_cpu_vs_card": parallel_trace_err}))
+    par_launches = {}
+    for row in parallel:
+        if row["label"] in ("highway_ragged_k1", "urban_ragged_k1"):
+            par_launches.update({name: n for name, n in
+                                 row["launches"].items() if n})
     main_cuts = {"sparsify_quant_pack": _main_cut(topk_cuts),
                  "unpack_dequant": _main_cut(topk_cuts),
                  "quantize_int8": _main_cut(int8_cuts),
@@ -1947,7 +2129,8 @@ def main() -> int:
                                             **int8_launches}, main_cuts,
                                    mm_checks,
                                    highway["unpack_dequant_matmul"],
-                                   lm_checks, lm_launches, training)))
+                                   lm_checks, lm_launches, training,
+                                   par_launches)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

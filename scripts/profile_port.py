@@ -9,7 +9,8 @@
 2. One profiled round of the multi-RSU scenario path (mlp9 on
    ``highway_corridor``, 256 vehicles, 4 RSUs, local_steps 2, batch 8,
    sgd, ``paper`` cuts, the ``topk_int8`` wire with error feedback) after
-   one warm-up round.
+   one warm-up round, on the sequential server schedule and on the
+   parallel one (``server_schedule="parallel"``).
 3. Split-inference serving of smollm-360m and mamba2-780m at full width
    (batch 8, prompt 1024, the default cut) after a warm-up at prompt 64,
    as ``chip_smoke.py`` serves: one profiled prefill (the process's first
@@ -93,9 +94,11 @@ def round_profile(mode: str, top: int = 12):
     return res
 
 
-def scenario_profile(top: int = 12, vehicles: int = 256):
+def scenario_profile(top: int = 12, vehicles: int = 256,
+                     schedule: str = "sequential"):
     """One profiled topk_int8 round of the multi-RSU path after a warm-up
-    round (the same spec as ``chip_smoke.py``'s highway phase)."""
+    round (the same spec as ``chip_smoke.py``'s highway phase) on the
+    server ``schedule``."""
     import torch
 
     from repro_torch import api, kernels
@@ -103,7 +106,7 @@ def scenario_profile(top: int = 12, vehicles: int = 256):
         model="mlp9",
         train=api.TrainConfig(rounds=1, local_steps=2, batch_size=8,
                               lr=1e-3, optimizer="sgd", eval_every=0,
-                              wire="topk_int8"),
+                              wire="topk_int8", server_schedule=schedule),
         fleet=api.FleetConfig(n_vehicles=vehicles,
                               scenario="highway_corridor",
                               scenario_kwargs={"seed": vehicles},
@@ -115,17 +118,18 @@ def scenario_profile(top: int = 12, vehicles: int = 256):
     kernels.reset_launches()
     steps0 = eng.batch_steps
     hist, res = _profiled(eng.run, top)
-    res.update(cuts=hist[-1].cuts, rsu_loads=hist[-1].rsu_loads,
+    res.update(schedule=schedule, cuts=hist[-1].cuts,
+               rsu_loads=hist[-1].rsu_loads,
                client_batch_steps=eng.batch_steps - steps0,
                launches=kernels.launch_counts())
-    print(f"scenario wall_s={res['wall_s']:.6f} "
+    print(f"scenario {schedule} wall_s={res['wall_s']:.6f} "
           f"device_busy_s={res['device_busy_s']:.6f} "
           f"busy_share={res['device_busy_share']:.4f} "
           f"client_batch_steps={res['client_batch_steps']} "
           f"loads={res['rsu_loads']} "
           f"device_kernels={res['n_device_kernels']}", flush=True)
     for r in res["top"]:
-        print(f"scenario top count={r['count']:6d} "
+        print(f"scenario {schedule} top count={r['count']:6d} "
               f"device_ms={r['device_ms']:.3f} {r['kernel']}", flush=True)
     return res
 
@@ -266,6 +270,7 @@ def main() -> int:
                       round_vmap=round_profile("vmap"))
     if "scenario" in parts:
         result["scenario"] = scenario_profile()
+        result["scenario_parallel"] = scenario_profile(schedule="parallel")
     if "serve" in parts:
         result["serve"] = [serve_profile(a) for a in archs]
     if "train" in parts:

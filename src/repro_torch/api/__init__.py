@@ -10,8 +10,8 @@
 Specs are JSON-compatible with ``repro.api``: a spec saved there loads here.
 """
 from repro_torch.api.registry import (  # noqa: F401
-    FEDERATION, MODELS, SCENARIO, SCENARIOS, SINGLE_RSU, STRATEGIES, WIRES,
-    ModelEntry, model_entry)
+    FEDERATION, MODELS, SCENARIO, SCENARIOS, SCHEDULES, SINGLE_RSU,
+    STRATEGIES, WIRES, ModelEntry, model_entry)
 from repro_torch.api.runner import RunResult, build_engine, run  # noqa: F401
 from repro_torch.api.spec import (  # noqa: F401
     SIM_CONFIG_FIELD_MAP, AdaptiveConfig, ExperimentSpec, FaultsConfig,
@@ -20,7 +20,7 @@ from repro_torch.api.spec import (  # noqa: F401
 __all__ = [
     "ExperimentSpec", "TrainConfig", "AdaptiveConfig", "FleetConfig",
     "RuntimeConfig", "FaultsConfig", "StreamConfig", "SIM_CONFIG_FIELD_MAP",
-    "MODELS", "SCENARIOS", "STRATEGIES", "WIRES", "ModelEntry",
+    "MODELS", "SCENARIOS", "SCHEDULES", "STRATEGIES", "WIRES", "ModelEntry",
     "model_entry", "FEDERATION", "SCENARIO", "SINGLE_RSU",
     "run", "build_engine", "RunResult",
 ]

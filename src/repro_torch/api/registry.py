@@ -8,9 +8,11 @@ full stack; the reference's other arch ids are "not ported yet");
 scenarios ``single_rsu`` (the
 single-RSU ``FederationSim``) and the ported multi-RSU scenarios of
 ``core/scenario.py`` (the ``ScenarioEngine``); every cut strategy and wire
-scheme of the reference as metadata (which engine may run it).  Server schedules other than ``sequential`` are refused by
-``SimConfig`` ("not ported yet").  A name the reference knows but the port does
-not is refused with "not ported yet".
+scheme and server schedule of the reference as metadata (which engine may
+run it; the port runs ``sequential`` on both engines and ``parallel`` on
+the scenario engine, and refuses ``streaming`` as not ported yet).  A
+name the reference knows but the port does not is refused with "not
+ported yet".
 """
 from __future__ import annotations
 
@@ -20,7 +22,8 @@ from typing import Any, Callable, Dict, Optional, Tuple
 from repro_torch import configs as _configs
 from repro_torch.core import scenario as _scenario
 from repro_torch.core.fedsim import (FEDERATION_STRATEGIES,
-                                     SCENARIO_STRATEGIES, WIRE_SCHEMES)
+                                     SCENARIO_STRATEGIES, SERVER_SCHEDULES,
+                                     WIRE_SCHEMES)
 
 FEDERATION = "federation"   # single-RSU FederationSim / CohortEngine
 SCENARIO = "scenario"       # multi-RSU ScenarioEngine
@@ -173,6 +176,22 @@ STRATEGIES: Dict[str, StrategyEntry] = {
 }
 WIRES: Dict[str, WireEntry] = {
     name: WireEntry(name, (FEDERATION, SCENARIO)) for name in WIRE_SCHEMES}
+
+
+@dataclasses.dataclass(frozen=True)
+class ScheduleEntry:
+    name: str
+    engines: Tuple[str, ...]
+
+
+# the reference's server schedules and the engines that may run them
+SCHEDULES: Dict[str, ScheduleEntry] = {
+    "sequential": ScheduleEntry("sequential", (FEDERATION, SCENARIO)),
+    "parallel": ScheduleEntry("parallel", (SCENARIO,)),
+    "streaming": ScheduleEntry("streaming", (SCENARIO,))}
+assert set(SCHEDULES) == set(SERVER_SCHEDULES)
+# schedules the port's scenario engine does not run yet
+NOT_PORTED_SCHEDULES = ("streaming",)
 
 
 def wire_names() -> str:

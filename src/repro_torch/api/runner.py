@@ -128,20 +128,6 @@ def _totals(history) -> Dict[str, float]:
     return totals
 
 
-def _occupancy(history) -> Dict[str, Any]:
-    """The reference's occupancy keys for a scenario run.  The port's loop
-    runs exactly the scheduled slots (no padded slot table), so every
-    executed slot is occupied."""
-    occ = [m.n_scheduled for m in history]
-    return {"layout": "loop",
-            "slot_capacity": max((max(m.rsu_loads) for m in history),
-                                 default=0),
-            "executed_slots": max(occ, default=0),
-            "mean_occupied_slots": float(np.mean(occ)) if occ else 0.0,
-            "padded_slot_frac": 0.0, "owned_plane_frac": 1.0,
-            "effective_flops_utilization": 1.0}
-
-
 def run(spec: ExperimentSpec, *, device: DeviceLike = None,
         on_round: Optional[Callable[[Any], None]] = None,
         on_cloud_merge: Optional[Callable[[int, Any], None]] = None
@@ -175,7 +161,7 @@ def run(spec: ExperimentSpec, *, device: DeviceLike = None,
     if scenario:
         diagnostics.update(compile_fallbacks=0,
                            superstep_layout=spec.runtime.superstep_layout,
-                           occupancy=_occupancy(history))
+                           occupancy=engine.occupancy_stats())
     diagnostics.update({
         "mesh_devices": 1, "fleet_axis": None, "mesh_shape": None,
         "n_processes": 1, "device": device_name(engine.device),

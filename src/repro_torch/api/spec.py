@@ -7,9 +7,10 @@ identical to the reference's.
 
 Validation covers what the port can run: the single-RSU engine (every
 scheme, every ``cohort_parallel`` mode, its fault plane) and the multi-RSU
-scenario engine (one round per dispatch, sequential schedule, no faults)
-with the ported models and scenarios, with the reference's messages for
-combinations no engine can run.  A scenario, a non-default value of a
+scenario engine (the sequential and parallel schedules, super-step
+windows, both slot layouts, no faults) with the ported models and
+scenarios, with the reference's messages for combinations no engine can
+run.  A scenario, a non-default value of a
 plane that is not ported yet, or a multi-process topology raises "not
 ported yet".  ``runtime.precompile`` is accepted and does nothing: the port
 runs eagerly and compiles nothing but its kernels, at first use.
@@ -235,6 +236,23 @@ class ExperimentSpec:
                 f"adaptive strategy {strat.name!r} is not executable by the "
                 f"{engine} engine (fleet.scenario={sc!r}); strategies this "
                 f"engine supports: {' | '.join(ok)}")
+        sched = registry.SCHEDULES.get(self.train.server_schedule)
+        if sched is None:
+            raise ValueError(
+                f"unknown server schedule {self.train.server_schedule!r}; "
+                f"registered: {' | '.join(sorted(registry.SCHEDULES))}")
+        if engine not in sched.engines:
+            ok = sorted(n for n, s in registry.SCHEDULES.items()
+                        if engine in s.engines)
+            raise ValueError(
+                f"server schedule {sched.name!r} is not executable by the "
+                f"{engine} engine (fleet.scenario={sc!r}); schedules this "
+                f"engine supports: {' | '.join(ok)} (the parallel and "
+                f"streaming schedules need a multi-RSU scenario)")
+        if sched.name in registry.NOT_PORTED_SCHEDULES:
+            raise NotImplementedError(
+                f"train.server_schedule={sched.name!r}: not ported yet "
+                f"(the port's scenario engine runs sequential | parallel)")
         wire = registry.WIRES.get(self.train.wire)
         if wire is None:
             raise ValueError(
@@ -272,6 +290,12 @@ class ExperimentSpec:
                     f"yet (the port runs the fault plane on the single-RSU "
                     f"engine, fleet.scenario='single_rsu')")
         else:
+            if self.runtime.superstep > 1:
+                raise ValueError(
+                    f"runtime.superstep={self.runtime.superstep} fuses "
+                    f"multi-RSU rounds; the single-RSU engine dispatches "
+                    f"per round — set a fleet.scenario "
+                    f"({registry.scenario_names()}) or superstep=1")
             if self.fleet.cloud_sync_every != 1:
                 raise ValueError(
                     "fleet.cloud_sync_every is the multi-RSU edge->cloud "

@@ -27,19 +27,21 @@ travelling vehicle-side model through the message flow) and ``cl``
 
 ``ScenarioEngine`` runs the multi-RSU vehicular setting: mobility and
 handover from a scenario, cuts from rates or residence time, one cohort
-per RSU trained against that RSU's edge model in the reference's
-sequential server schedule, error-feedback residuals on the ``topk_int8``
-wire, and a sample-weighted edge->cloud merge every ``cloud_sync_every``
-rounds.  It follows the reference's per-round fused program at K = 1 as a
-per-replica loop, the way ``split_round`` follows ``_bucket_unroll``.
+per RSU trained against that RSU's edge model on the reference's
+``sequential`` server schedule (a per-replica loop, the way
+``split_round`` follows ``_bucket_unroll``) or its ``parallel`` one (every
+cohort at once, one mean-gradient step per RSU and local step:
+:mod:`repro_torch.core.superstep`), error-feedback residuals on the
+``topk_int8`` wire, and a sample-weighted edge->cloud merge every
+``cloud_sync_every`` rounds, in windows of ``superstep`` rounds with one
+read-back each.
 
 Not ported yet (``SimConfig`` raises on a non-default value): the
-streaming plane, super-steps (K > 1), the mesh, the parallel and streaming
-server schedules and the XLA compilation cache; the scenario engine also
-refuses the fault plane.  ``slot_capacity`` and ``superstep_layout``
-choose how the reference lays its slot tables out in XLA; under the
-sequential schedule both give the same math, so the port accepts and
-ignores them.
+streaming plane, the mesh, the paged slot windows and the XLA compilation
+cache; the scenario engine also refuses the ``streaming`` schedule and the
+fault plane.  ``FederationSim``, as the reference's single-RSU engine,
+runs its synchronous round whatever ``server_schedule`` (``parallel``) or
+``superstep`` say, and refuses ``streaming``.
 """
 from __future__ import annotations
 
@@ -53,6 +55,9 @@ import torch.nn.functional as F
 from repro_torch import bridge, optim
 from repro_torch.core import (adaptive, aggregation, channel, compression,
                              cost, faults)
+from repro_torch.core import superstep as SS
+from repro_torch.core.superstep import (SERVER_SCHEDULES, SLOT_CAPACITIES,
+                                        SUPERSTEP_LAYOUTS)
 from repro_torch.data.pipeline import (ClientDataset, epoch_batch_indices,
                                        feature_dtype, fleet_batch_indices,
                                        sample_batch_indices, stack_clients)
@@ -101,12 +106,9 @@ class ResNetModel:
 SCHEMES = ("cl", "fl", "sl", "sfl", "asfl")
 ADAPTIVE_STRATEGIES = ("paper", "paper-literal", "latency", "energy",
                        "memory", "residence")
-SLOT_CAPACITIES = ("pow2", "tight8")
 COHORT_MODES = ("auto", "vmap", "scan", "unroll")
 OPTIMIZERS = ("adam", "sgd", "momentum")
 WIRE_SCHEMES = compression.WIRE_SCHEMES
-SERVER_SCHEDULES = ("sequential", "parallel", "streaming")
-SUPERSTEP_LAYOUTS = ("ragged", "dense")
 FLEET_AXES = ("auto", "vehicle", "rsu", "grid")
 FEDERATION_STRATEGIES = ("paper", "paper-literal", "latency", "energy",
                          "memory")
@@ -115,9 +117,8 @@ SCENARIO_STRATEGIES = ("paper", "paper-literal", "residence")
 # raises instead of being silently ignored
 NOT_PORTED_FIELDS = (
     "stream_buffer_size", "stream_churn_rate", "stream_kernel",
-    "stream_alpha", "stream_seed", "server_schedule", "superstep",
-    "compilation_cache_dir", "mesh_devices", "fleet_axis", "mesh_shape",
-    "page_slots", "stream_churn_source")
+    "stream_alpha", "stream_seed", "compilation_cache_dir", "mesh_devices",
+    "fleet_axis", "mesh_shape", "page_slots", "stream_churn_source")
 # the fault plane: ported on the single-RSU FederationSim, not yet on the
 # ScenarioEngine (which raises on a non-default value)
 FAULT_FIELDS = (
@@ -745,6 +746,12 @@ class FederationSim:
             raise ValueError(
                 f"fault injection is wired into the split-federation round "
                 f"(sfl | asfl); scheme {cfg.scheme!r} does not support it")
+        if cfg.server_schedule == "streaming":
+            raise ValueError(
+                "server_schedule='streaming' needs the multi-RSU "
+                "ScenarioEngine (the StreamBuffer is per-RSU super-step "
+                "carry state); FederationSim runs the single-RSU "
+                "synchronous round loop")
         self.device = resolve_device(device)
         self.model = model
         self.clients = list(clients)
@@ -1085,8 +1092,7 @@ class ScenarioRoundMetrics:
 class ScenarioEngine:
     """Multi-RSU federation over a mobility scenario, with handover and
     hierarchical edge->cloud aggregation (twin of the reference's
-    ``ScenarioEngine`` at ``superstep=1`` on the ``sequential`` server
-    schedule).  Per round:
+    ``ScenarioEngine``; :mod:`repro_torch.core.superstep`).  Per round:
 
     1. Fleet state from ``fleet_states(rnd)`` (default: the scenario's
        host ``fleet_state(rnd * round_interval_s, seed * 1000 + rnd)``);
@@ -1094,17 +1100,36 @@ class ScenarioEngine:
        program sees them.
     2. Cuts: ``paper`` / ``paper-literal`` Eq. 3 banding, or
        ``residence``-aware deadline feasibility (0 = SKIP); uncovered
-       vehicles get 0.
-    3. Every RSU trains its cohort -- slots in ascending (cut, vehicle) --
-       against its edge model with a fresh optimizer state: each local
-       step runs the slots in order through one shared RSU state (paper
-       §III-B), each vehicle on its own replica of the units before its
-       cut; then the unit-wise |D_n|-weighted FedAvg with the RSU copy.
+       vehicles get 0.  One sort of (serving, cut, vehicle) keys lays the
+       scheduled vehicles out as slots (:func:`superstep.slot_sort`).
+    3. Every RSU trains its cohort against its edge model with fresh
+       optimizer states, on the ``server_schedule``:
+
+       * ``sequential`` (paper §III-B): each local step runs the RSU's
+         slots in ascending (cut, vehicle) order through one shared RSU
+         state, each vehicle on its own replica of the units before its
+         cut (a per-replica loop, as ``split_round`` follows
+         ``_bucket_unroll``);
+       * ``parallel`` (arXiv:2405.18707): each local step runs every slot
+         of the fleet at once, grouped by cut, against its RSU's model as
+         it stood at the start of the step, and each RSU takes one
+         |D_n|-weighted mean-gradient step
+         (:class:`superstep.ParallelSchedule`).
+
+       Then the unit-wise |D_n|-weighted FedAvg with the RSU copy.
     4. On ``topk_int8`` every vehicle carries an error-feedback residual,
        indexed by vehicle (it follows the vehicle across handover) and
        zeroed when the vehicle's cut changes.
     5. Every ``cloud_sync_every`` rounds the sample-weighted cloud merge
        re-seeds every edge model from the global one.
+
+    ``superstep`` K runs K rounds as one window: planned on the host
+    first (both capacity checks raise before any state changes), then run
+    back to back with the per-round losses read back once; the eval score
+    goes to the window's last synced round and ``on_round`` /
+    ``on_cloud_merge`` fire after the window.  ``slot_capacity`` and
+    ``superstep_layout`` shape the slot tables (:meth:`occupancy_stats`);
+    under either schedule both layouts train the same bits.
 
     Handover (a scheduled vehicle whose cell differs from its last
     covered cell) moves the vehicle and its data; server-side state stays
@@ -1113,9 +1138,8 @@ class ScenarioEngine:
     numpy :func:`fleet_batch_indices`) and ``fleet_states`` exist so the
     parity tests can feed both engines the reference's threefry draws.
     ``cohort_parallel`` and ``scheme`` are single-RSU knobs, which the
-    reference's scenario engine ignores too; the fault plane is not ported
-    here yet (a non-default fault field raises)."""
-    mode = "loop"
+    reference's scenario engine ignores too.  Not ported here yet (they
+    raise): the ``streaming`` schedule and the fault plane."""
 
     def __init__(self, model, clients: Sequence[ClientDataset],
                  test: Dict[str, Any], cfg: SimConfig, scenario,
@@ -1129,6 +1153,11 @@ class ScenarioEngine:
                     f"SimConfig.{field}={getattr(cfg, field)!r}: not ported "
                     f"yet on the ScenarioEngine (the port runs the fault "
                     f"plane on the single-RSU FederationSim)")
+        if cfg.server_schedule == "streaming":
+            raise NotImplementedError(
+                "SimConfig.server_schedule='streaming': not ported yet on "
+                "the ScenarioEngine (the port runs the sequential and "
+                "parallel schedules)")
         if len(clients) != scenario.n_vehicles:
             raise ValueError(f"{len(clients)} client shards for a scenario "
                              f"of {scenario.n_vehicles} vehicles")
@@ -1153,9 +1182,24 @@ class ScenarioEngine:
         self.stacked = stack_clients(self.clients, self.device)
         self.fleet_states = fleet_states or self._host_state
         self.batch_indices = batch_indices or self._host_batch_indices
+        self.parallel = cfg.server_schedule == "parallel"
+        self.mode = "parallel" if self.parallel else "loop"
+        self.layout = cfg.superstep_layout
         self.batch_steps = 0      # client batch steps run (lifetime)
         self.wire_bytes = 0       # bytes across the wire, both directions
+        # parallel schedule (lifetime): (cut bucket, local step) and (cut
+        # bucket, RSU, local step) dispatches, the units of its codec calls
+        self.bucket_steps = 0
+        self.rsu_bucket_steps = 0
+        self._states: Dict[int, Any] = {}
+        self._cohort_counts: Dict[int, int] = {}
+        self._covered_totals: Dict[int, int] = {}
         self.reset()
+        self.plane = SS.FlatPlane(self.units, self.head)
+        if self.parallel:
+            self.schedule = SS.ParallelSchedule(
+                model, cfg, self.opt, self.stacked, self.plane, self.device,
+                wire_trip)
 
     def reset(self):
         """Fresh parameters (torch generator seeded with ``cfg.seed``; the
@@ -1197,6 +1241,14 @@ class ScenarioEngine:
         return self.scenario.fleet_state(rnd * self.cfg.round_interval_s,
                                          self.cfg.seed * 1000 + rnd)
 
+    def _state(self, rnd: int):
+        """``fleet_states(rnd)``, once per round (capacity planning and the
+        round itself read the same state)."""
+        st = self._states.get(rnd)
+        if st is None:
+            st = self._states[rnd] = self.fleet_states(rnd)
+        return st
+
     def _host_batch_indices(self, rnd: int) -> np.ndarray:
         return fleet_batch_indices(self.lengths, self._steps(),
                                    self.cfg.batch_size,
@@ -1218,7 +1270,99 @@ class ScenarioEngine:
         cuts = np.where(cuts > 0, np.clip(cuts, 1, U - 1), 0)
         return np.where(serving >= 0, cuts, 0)
 
+    # ---- slot capacity ------------------------------------------------
+    def _capacity(self, horizon: int) -> int:
+        """Per-RSU slot capacity over rounds [0, horizon): the largest
+        covered count of any cell, rounded as ``slot_capacity`` says."""
+        for rnd in range(horizon):
+            if rnd not in self._cohort_counts:
+                s = np.asarray(self._state(rnd).serving_rsu)
+                self._cohort_counts[rnd] = int(np.bincount(
+                    s[s >= 0], minlength=self.n_rsus).max()) \
+                    if (s >= 0).any() else 0
+        return SS.round_capacity(
+            max(self._cohort_counts[r] for r in range(horizon)),
+            self.cfg.slot_capacity)
+
+    def _total_slots(self, horizon: int) -> int:
+        """The ragged parallel layout's compacted slot capacity over rounds
+        [0, horizon): the largest covered count of any round, rounded like
+        ``slot_capacity``; 0 for a layout or schedule without one."""
+        if not (self.parallel and self.layout == "ragged"):
+            return 0
+        for rnd in range(horizon):
+            if rnd not in self._covered_totals:
+                s = np.asarray(self._state(rnd).serving_rsu)
+                self._covered_totals[rnd] = int((s >= 0).sum())
+        return SS.round_capacity(
+            max(self._covered_totals[r] for r in range(horizon)),
+            self.cfg.slot_capacity)
+
+    def occupancy_stats(self) -> Dict[str, Any]:
+        """How much of the slot layout the run used (the reference's
+        keys): ``executed_slots`` is the slot table's size (R x capacity,
+        or the ragged parallel layout's compacted capacity),
+        ``mean_occupied_slots`` the mean scheduled count over the
+        history, ``owned_plane_frac`` the share of the parameters a
+        replica can own under the layout (the units below the strategy's
+        pow2 cut bucket; 1.0 dense).  Every schedule of the port computes
+        the occupied slots only."""
+        horizon = max(int(self.cfg.rounds), 1)
+        cap = self._capacity(horizon)
+        executed = (self._total_slots(horizon)
+                    if self.parallel and self.layout == "ragged"
+                    else self.n_rsus * cap)
+        occ = [float(m.n_scheduled) for m in self.history]
+        mean_occ = float(np.mean(occ)) if occ else 0.0
+        util = (mean_occ / executed) if executed else 0.0
+        width = self.plane.size
+        if self.layout == "ragged":
+            bucket = SS.cut_prefix_bucket(adaptive.strategy_max_cut(
+                self.cfg.adaptive_strategy, self.model.n_units),
+                self.model.n_units)
+            width = SS.owned_window(self.plane.unit_ids, bucket)[1]
+        return {"layout": self.layout, "slot_capacity": int(cap),
+                "executed_slots": int(executed),
+                "mean_occupied_slots": mean_occ,
+                "padded_slot_frac": float(1.0 - util),
+                "owned_plane_frac": float(width / max(self.plane.size, 1)),
+                "effective_flops_utilization": float(util)}
+
     # ---- the rounds ---------------------------------------------------
+    def _plan(self, rnd: int, cap: int, slots: int) -> Dict[str, Any]:
+        """Host side of round ``rnd``: fleet state, cuts, slot table and
+        batch indices.  Raises if a cohort overflows its slot table."""
+        st = self._state(rnd)
+        serving = np.asarray(st.serving_rsu, np.int64)
+        rates = np.asarray(st.rates_bps, np.float32)
+        residence = np.asarray(st.residence_s, np.float32)
+        cuts = self._pick_cuts(serving, rates, residence)
+        order, seg, counts = SS.slot_sort(serving, cuts, self.n_rsus,
+                                          self.model.n_units)
+        if int(counts.max(initial=0)) > cap:
+            raise RuntimeError(
+                f"per-RSU cohort of {int(counts.max())} exceeded slot "
+                f"capacity {cap} in round {rnd}; the window was not run "
+                f"— raise the capacity and reset() the engine")
+        if slots and int(counts.sum()) > slots:
+            raise RuntimeError(
+                f"fleet-wide occupied slots {int(counts.sum())} exceeded "
+                f"the compacted capacity {slots} in round {rnd}; the "
+                f"window was not run — raise the capacity and reset() the "
+                f"engine")
+        plan = {"rnd": rnd, "serving": serving, "rates": rates,
+                "cuts": cuts, "counts": counts,
+                "idx": np.asarray(self.batch_indices(rnd), np.int64)}
+        if self.parallel:
+            members, slot_seg = SS.slot_table_flat(
+                order, seg, counts, self.layout, cap, slots)
+            plan["par"] = SS.plan_parallel(members, slot_seg, cuts,
+                                           self.lengths, self.n_rsus,
+                                           self.model.n_units)
+        else:
+            plan["table"] = SS.slot_table_seq(order, counts, cap)
+        return plan
+
     def _rsu_round(self, edge, members, cuts, idx, ef):
         """One RSU's round on its edge model (sequential schedule): fresh
         RSU and replica optimizer states, ``steps`` passes over the slots
@@ -1265,49 +1409,58 @@ class ScenarioEngine:
         return ({"units": merged, "head": sv["head"]}, loss_sum, cnt,
                 w_total)
 
-    def run_round(self, rnd: int) -> ScenarioRoundMetrics:
+    def _train_sequential(self, plan, idx, ef):
+        loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
+        cnt = 0
+        members, mask = plan["table"]
+        for r in range(self.n_rsus):
+            if not mask[r].any():
+                continue
+            self.edges[r], ls, c, w = self._rsu_round(
+                self.edges[r], members[r][mask[r]], plan["cuts"], idx, ef)
+            loss_sum = loss_sum + ls
+            cnt += c
+            self.samples[r] += w
+        return loss_sum, cnt
+
+    def _train_parallel(self, plan, idx, ef, dev):
+        par, pl = plan["par"], self.plane
+        planes = torch.stack([pl.flatten(e["units"], e["head"])
+                              for e in self.edges])
+        planes, loss_sum, nbytes = self.schedule.run_round(
+            planes, par, dev, idx, self.wire_res if ef else None)
+        self.edges = [dict(zip(("units", "head"), pl.tree(planes[r])))
+                      for r in range(self.n_rsus)]
+        self.samples += par.w_seg
+        self.wire_bytes += nbytes
+        steps = self._steps()
+        self.bucket_steps += len(par.buckets) * steps
+        self.rsu_bucket_steps += sum(len(b.runs) for b in par.buckets) * steps
+        return loss_sum, par.n_slots * steps
+
+    def _train_round(self, plan, staged, i):
+        """Round ``plan`` on the device; host bookkeeping only (no read
+        back).  Returns (loss sum on the device, client batch steps,
+        handover mask)."""
         cfg = self.cfg
-        st = self.fleet_states(rnd)
-        serving = np.asarray(st.serving_rsu, np.int64)
-        rates = np.asarray(st.rates_bps, np.float32)
-        residence = np.asarray(st.residence_s, np.float32)
-        cuts = self._pick_cuts(serving, rates, residence)
+        cuts, serving = plan["cuts"], plan["serving"]
         sched = cuts > 0
-        idx = torch.as_tensor(np.array(self.batch_indices(rnd), np.int64),
-                              device=self.device)
+        idx = staged.get(("idx", i))
         ef = cfg.wire_scheme() == "topk_int8"
         if ef:      # a residual is laid out for the cut it was built at
             for v in np.nonzero(sched & (cuts != self.wire_cut))[0]:
                 self.wire_res[v] = None
-        loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
-        cnt = 0
-        counts = np.zeros(self.n_rsus, np.int64)
-        for r in range(self.n_rsus):
-            members = sorted(np.nonzero(sched & (serving == r))[0],
-                             key=lambda v: (cuts[v], v))
-            counts[r] = len(members)
-            if not members:
-                continue
-            self.edges[r], ls, c, w = self._rsu_round(
-                self.edges[r], np.asarray(members), cuts, idx, ef)
-            loss_sum = loss_sum + ls
-            cnt += c
-            self.samples[r] += w
+        if self.parallel:
+            loss_sum, cnt = self._train_parallel(
+                plan, idx, ef, lambda *k: staged.get((i,) + k))
+        else:
+            loss_sum, cnt = self._train_sequential(plan, idx, ef)
         self.batch_steps += cnt
         if ef:
             self.wire_cut = np.where(sched, cuts, self.wire_cut)
         handover = sched & (self.prev >= 0) & (self.prev != serving)
         self.prev = np.where(serving >= 0, serving, -1)
-        comm, lat, energy = self._accounting(rates, cuts, sched, handover)
-        m = ScenarioRoundMetrics(
-            rnd, float(loss_sum) / max(float(cnt), 1.0), float("nan"), comm,
-            lat, energy, n_scheduled=int(sched.sum()),
-            n_skipped=int(((serving >= 0) & ~sched).sum()),
-            n_handover=int(handover.sum()),
-            rsu_loads=[int(c) for c in counts],
-            cuts=[int(c) for c in cuts],
-            absorbed_samples=float(self.lengths[sched].sum()))
-        if (rnd + 1) % self.cloud_sync_every == 0:
+        if (plan["rnd"] + 1) % self.cloud_sync_every == 0:
             glob = aggregation.cloud_merge(
                 self.edges, self.samples,
                 {"units": list(self.units), "head": self.head})
@@ -1315,12 +1468,57 @@ class ScenarioEngine:
             self.edges = [{"units": list(self.units), "head": self.head}
                           for _ in range(self.n_rsus)]
             self.samples[:] = 0.0
-            ev = cfg.eval_every
-            if ev and self._sync_count % ev == 0:
-                m.test_acc = evaluate(self.model, self.units, self.head,
-                                      self.test)
-            self._sync_count += 1
-        return m
+        return loss_sum, cnt, handover
+
+    def run_superstep(self, rnd0: int, k: int) -> List[ScenarioRoundMetrics]:
+        """Rounds [rnd0, rnd0 + k) as one window: planned on the host
+        (raising before any state changes if a cohort overflows its slot
+        table), staged on the device in one copy, run back to back, and
+        their losses read back once.  Returns their metrics; the eval
+        score goes to the last synced round."""
+        horizon = max(self.cfg.rounds, rnd0 + k)
+        cap = self._capacity(horizon)
+        slots = self._total_slots(horizon)
+        plans = [self._plan(r, cap, slots) for r in range(rnd0, rnd0 + k)]
+        arrays: Dict[Any, np.ndarray] = {}
+        for i, plan in enumerate(plans):
+            arrays[("idx", i)] = plan["idx"]
+            if self.parallel:
+                SS.stage_parallel(plan["par"], i, arrays)
+        staged = SS.Staged(arrays, self.device)
+        runs = [self._train_round(plan, staged, i)
+                for i, plan in enumerate(plans)]
+        losses = torch.stack([ls for ls, _, _ in runs]).tolist()
+        out, eval_due, last_synced = [], False, None
+        for i, (plan, (_, cnt, handover)) in enumerate(zip(plans, runs)):
+            cuts, serving = plan["cuts"], plan["serving"]
+            sched = cuts > 0
+            comm, lat, energy = self._accounting(plan["rates"], cuts, sched,
+                                                 handover)
+            out.append(ScenarioRoundMetrics(
+                plan["rnd"], losses[i] / max(float(cnt), 1.0),
+                float("nan"), comm, lat, energy,
+                n_scheduled=int(sched.sum()),
+                n_skipped=int(((serving >= 0) & ~sched).sum()),
+                n_handover=int(handover.sum()),
+                rsu_loads=[int(c) for c in plan["counts"]],
+                cuts=[int(c) for c in cuts],
+                absorbed_samples=float(self.lengths[sched].sum())))
+            if (plan["rnd"] + 1) % self.cloud_sync_every == 0:
+                ev = self.cfg.eval_every
+                if ev and self._sync_count % ev == 0:
+                    eval_due = True
+                self._sync_count += 1
+                last_synced = i
+        if eval_due:
+            # the global model changes only at syncs: the current one is
+            # the last synced round's
+            out[last_synced].test_acc = evaluate(self.model, self.units,
+                                                 self.head, self.test)
+        return out
+
+    def run_round(self, rnd: int) -> ScenarioRoundMetrics:
+        return self.run_superstep(rnd, 1)[0]
 
     def run(self,
             on_round: Optional[Callable[[ScenarioRoundMetrics],
@@ -1328,16 +1526,20 @@ class ScenarioEngine:
             on_cloud_merge: Optional[Callable[[int, "ScenarioEngine"],
                                               None]] = None
             ) -> List[ScenarioRoundMetrics]:
-        """Run ``cfg.rounds`` rounds; ``on_round(metrics)`` after each,
-        ``on_cloud_merge(rnd, engine)`` after each cloud sync."""
-        for rnd in range(self.cfg.rounds):
-            m = self.run_round(rnd)
-            self.history.append(m)
-            if on_round is not None:
-                on_round(m)
-            if (on_cloud_merge is not None
-                    and (rnd + 1) % self.cloud_sync_every == 0):
-                on_cloud_merge(rnd, self)
+        """Run ``cfg.rounds`` rounds in windows of ``superstep`` rounds;
+        after each window ``on_round(metrics)`` for each of its rounds and
+        ``on_cloud_merge(rnd, engine)`` after each of its cloud syncs
+        (seeing the engine as the window left it)."""
+        k = max(int(self.cfg.superstep), 1)
+        for rnd0 in range(0, self.cfg.rounds, k):
+            window = self.run_superstep(rnd0, min(k, self.cfg.rounds - rnd0))
+            self.history.extend(window)
+            for m in window:
+                if on_round is not None:
+                    on_round(m)
+                if (on_cloud_merge is not None
+                        and (m.round + 1) % self.cloud_sync_every == 0):
+                    on_cloud_merge(m.round, self)
         return self.history
 
     def _accounting(self, rates, cuts, sched, handover):

@@ -87,11 +87,26 @@ class _RMSNorm(torch.autograd.Function):
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
             eps: float = EPS) -> torch.Tensor:
     """x (..., d), scale (d,) -> (..., d) in x's dtype; differentiable in
-    both."""
+    both.  Where nothing records a gradient and no ``torch.func``
+    transform is active, it calls the kernel (or the plain version)
+    without the autograd Function."""
     d = x.shape[-1]
     if tuple(scale.shape) != (d,):
         raise ValueError(f"scale {tuple(scale.shape)} does not match the "
                          f"trailing dim {d} of x {tuple(x.shape)}")
     if x.device != scale.device:
         raise ValueError("x and scale must be on the same device")
+    if not _needs_function(x, scale):
+        return _forward(x, scale, eps)
     return _RMSNorm.apply(x, scale, eps)
+
+
+def _needs_function(x: torch.Tensor, scale: torch.Tensor) -> bool:
+    """Whether the call needs the Function: autograd would record it, or a
+    ``torch.func`` transform wraps an input (its ``vmap`` rule).  Decode
+    needs neither, and ``Function.apply`` costs host time on each of its
+    65-97 calls a step."""
+    wrapped = torch._C._functorch.is_functorch_wrapped_tensor
+    return ((torch.is_grad_enabled()
+             and (x.requires_grad or scale.requires_grad))
+            or wrapped(x) or wrapped(scale))

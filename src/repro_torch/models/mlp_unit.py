@@ -56,16 +56,22 @@ class MLPUnitModel:
             x = torch.relu(x @ u["w"] + u["b"])
         return x
 
+    # the leaf of the first RSU unit that the packed buffer multiplies
+    packed_entry = "w"
+
     def apply_units_packed(self, units, buf, start, k_frac):
         """The RSU side from the received topk_int8 buffer (rows, words):
         the first unit is ``relu(unpack_dequant_matmul(buf, w) + b)``, the
         rest as :meth:`apply_units`.  Returns (features, the first unit's
         product) -- the cut-layer gradient is taken at the latter
         (:meth:`entry_input_grad`)."""
-        first = units[0]
-        entry = wire.dequant_matmul(buf, first["w"], k_frac)
-        x = torch.relu(entry + first["b"])
-        return self.apply_units(units[1:], x, start + 1), entry
+        entry = wire.dequant_matmul(buf, units[0][self.packed_entry], k_frac)
+        return self.apply_entry(units, entry, start), entry
+
+    def apply_entry(self, units, entry, start):
+        """The RSU side from the first unit's product ``entry``."""
+        x = torch.relu(entry + units[0]["b"])
+        return self.apply_units(units[1:], x, start + 1)
 
     def entry_input_grad(self, units, g_entry):
         """The cut-layer gradient from the gradient at the first RSU unit's

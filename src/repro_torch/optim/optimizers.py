@@ -8,7 +8,8 @@ denominator differently) is deliberately not used.  States mirror the
 parameter tree, so the engines can slice an RSU state to a cut suffix.
 
 ``lr`` is a float or a schedule of the step count (:mod:`.schedules`).
-Everything stays on tensors, with no host read (no ``.item()``), so
+Everything stays on tensors, with no host read (no ``.item()``) and no
+copy from the host (constants are fills), so
 ``torch.func.vmap(opt.update)`` steps stacked replicas
 (``CohortEngine._bucket_vmap``) and :func:`clip_by_global_norm` never
 waits on the device.
@@ -46,7 +47,9 @@ def _count0(params) -> torch.Tensor:
 def _lr(lr: Schedule, count: torch.Tensor) -> torch.Tensor:
     if callable(lr):
         return lr(count)
-    return torch.tensor(lr, dtype=torch.float32, device=count.device)
+    # a fill, not a copy from the host: a CUDA copy from pageable memory
+    # waits for the stream, and an update must not
+    return torch.full((), lr, dtype=torch.float32, device=count.device)
 
 
 def from_name(name: str, lr: Schedule) -> Optimizer:
@@ -120,10 +123,10 @@ def adamw(lr: Schedule, b1: float = 0.9, b2: float = 0.999,
                      + (1 - b2) * torch.square(g.to(torch.float32)),
                      state["v"], grads)
         cf = c.to(torch.float32)
-        bc1 = 1 - torch.pow(torch.tensor(b1, dtype=torch.float32,
-                                         device=cf.device), cf)
-        bc2 = 1 - torch.pow(torch.tensor(b2, dtype=torch.float32,
-                                         device=cf.device), cf)
+        bc1 = 1 - torch.pow(torch.full((), b1, dtype=torch.float32,
+                                       device=cf.device), cf)
+        bc2 = 1 - torch.pow(torch.full((), b2, dtype=torch.float32,
+                                       device=cf.device), cf)
         def upd(m_, v_, p):
             u = -step * (m_ / bc1) / (torch.sqrt(v_ / bc2) + eps)
             if weight_decay:

@@ -75,6 +75,13 @@ def test_spec_refuses_what_is_not_ported():
             fleet=TAPI.FleetConfig(n_vehicles=6,
                                    scenario="highway_corridor"))
     with pytest.raises(NotImplementedError, match="not ported yet"):
+        TAPI.ExperimentSpec(
+            model="mlp9", train=TAPI.TrainConfig(server_schedule="streaming"),
+            fleet=TAPI.FleetConfig(n_vehicles=6,
+                                   scenario="highway_corridor"))
+    # the parallel schedule is ported; like the reference, the single-RSU
+    # engine cannot run it
+    with pytest.raises(ValueError, match="not executable"):
         TAPI.ExperimentSpec(train=TAPI.TrainConfig(
             scheme="cl", server_schedule="parallel"))
     with pytest.raises(ValueError, match="not ported yet"):

@@ -4,10 +4,12 @@ contract: NaN exactly where the plain version's is, every other float,
 int8 and word bit for bit), unpack_dequant_matmul /
 rmsnorm / flash attention / SSD within stated float32 tolerances at their
 paths' shapes and edge shapes — short mlp9 runs (single RSU under the
-loop and under vmap with the launch counts each schedule implies, and one
-multi-RSU scenario round on topk_int8) on cuda against the same runs on the
-CPU, resnet18 under vmap against the loop on the card, and the reduced LM
-configs served on cuda against the CPU.  Needs a CUDA card and
+loop and under vmap with the launch counts each schedule implies, one
+multi-RSU scenario round on topk_int8, and a window of the parallel
+server schedule with its launch formula) on cuda against the same runs on
+the CPU, the parallel window's determinism (two runs, and the dense layout
+beside the ragged one, bit for bit), resnet18 under vmap against the loop
+on the card, and the reduced LM configs served on cuda against the CPU.  Needs a CUDA card and
 nvcc:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -437,6 +439,73 @@ def test_mlp9_scenario_round_on_cuda_matches_cpu(dev):
     ga = np.concatenate([p.ravel() for u in gpu.final_params[0]
                          for p in u.values()])
     assert np.abs(ca - ga).max() <= 1e-4
+
+
+def _parallel_engine(device, layout="ragged"):
+    """A reduced parallel window: 16 vehicles on the highway, 2 rounds as
+    one window (superstep 2), topk_int8 with error feedback."""
+    from repro_torch import api
+    spec = api.ExperimentSpec(
+        model="mlp9",
+        train=api.TrainConfig(rounds=2, local_steps=2, batch_size=8,
+                              lr=1e-3, optimizer="sgd", eval_every=0,
+                              wire="topk_int8", server_schedule="parallel"),
+        fleet=api.FleetConfig(n_vehicles=16, scenario="highway_corridor",
+                              round_interval_s=10.0,
+                              per_vehicle_samples=64),
+        runtime=api.RuntimeConfig(superstep=2, superstep_layout=layout))
+    return api.build_engine(spec, device=device)
+
+
+def _engine_params(eng):
+    return np.concatenate([t.detach().cpu().numpy().ravel()
+                           for u in eng.units for t in u.values()]
+                          + [t.detach().cpu().numpy().ravel()
+                             for t in eng.head.values()])
+
+
+def test_parallel_window_on_cuda_matches_cpu(dev):
+    """The parallel schedule's window on the card and on the CPU from the
+    same weights: the same cuts and loads, the codec kernels launched as
+    the schedule implies (per (cut bucket, local step) two packs and two
+    unpacks, per (cut bucket, RSU, local step) one fused matmul),
+    parameters within 1e-4."""
+    cpu = _parallel_engine("cpu")
+    hc = cpu.run()
+    gpu = _parallel_engine(dev)
+    before = launch_counts()
+    hg = gpu.run()
+    after = launch_counts()
+    launches = {k: after[k] - before[k] for k in after}
+    b, rb = gpu.bucket_steps, gpu.rsu_bucket_steps
+    assert rb >= b > 0
+    assert launches["sparsify_quant_pack"] == 2 * b
+    assert launches["unpack_dequant"] == 2 * b
+    assert launches["unpack_dequant_matmul"] == rb
+    assert launches["quantize_int8"] == launches["dequantize_int8"] == 0
+    assert gpu.batch_steps == 2 * sum(m.n_scheduled for m in hg)
+    for mc, mg in zip(hc, hg):
+        assert (mc.cuts, mc.rsu_loads) == (mg.cuts, mg.rsu_loads)
+        assert abs(mc.loss - mg.loss) <= 1e-4
+    assert np.abs(_engine_params(cpu) - _engine_params(gpu)).max() <= 1e-4
+
+
+def test_parallel_window_is_deterministic_on_cuda(dev):
+    """No float atomics on the parallel path: two runs of the same window
+    on the card, and the dense layout beside the ragged one, give the
+    same losses, parameters and residuals bit for bit."""
+    runs = []
+    for layout in ("ragged", "ragged", "dense"):
+        eng = _parallel_engine(dev, layout)
+        hist = eng.run()
+        runs.append(([m.loss for m in hist], _engine_params(eng),
+                     [r.cpu().numpy() for r in eng.wire_res
+                      if r is not None]))
+    for other in runs[1:]:
+        assert other[0] == runs[0][0]
+        np.testing.assert_array_equal(other[1], runs[0][1])
+        for a, b in zip(other[2], runs[0][2]):
+            np.testing.assert_array_equal(a, b)
 
 
 # ------------------------------------------------------------- LM kernels

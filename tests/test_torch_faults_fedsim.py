@@ -112,10 +112,13 @@ def test_reference_refusals():
     with pytest.raises(ValueError, match=r"\[0, 1\)"):
         TF.SimConfig(fault_dropout=1.0)
     assert TF.SimConfig(mobility_dropout=True).fault_config().coverage
-    for kw in ({"server_schedule": "streaming"}, {"stream_churn_rate": 0.1},
+    for kw in ({"stream_churn_rate": 0.1},
                {"stream_churn_source": "mobility"}):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             TF.SimConfig(**kw)
+    # the reference's single-RSU engine refuses the streaming schedule
+    with pytest.raises(ValueError, match="multi-RSU"):
+        sim(server_schedule="streaming")
     with pytest.raises(ValueError, match="sequential chain"):
         TAPI.ExperimentSpec(train=TAPI.TrainConfig(scheme="sl"),
                             runtime=TAPI.RuntimeConfig(mesh_devices=2))

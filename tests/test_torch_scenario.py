@@ -289,9 +289,6 @@ def test_scenario_spec_cross_loads_and_routes_to_the_port_engine():
 def test_scenario_spec_refuses_what_is_not_ported():
     base = _scenario_spec(TAPI)
     for change in (
-            {"runtime": dataclasses.replace(base.runtime, superstep=2)},
-            {"train": dataclasses.replace(base.train,
-                                          server_schedule="parallel")},
             {"train": dataclasses.replace(base.train,
                                           server_schedule="streaming")},
             {"faults": TAPI.FaultsConfig(dropout_rate=0.1)},
@@ -299,9 +296,11 @@ def test_scenario_spec_refuses_what_is_not_ported():
             {"fleet": dataclasses.replace(base.fleet, scenario="city")}):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             dataclasses.replace(base, **change)
-    # layout knobs of the reference's XLA slot tables: accepted, same math
+    # ported: the window, the parallel schedule and the slot layouts
     dataclasses.replace(base, runtime=dataclasses.replace(
-        base.runtime, slot_capacity="tight8", superstep_layout="dense"))
+        base.runtime, slot_capacity="tight8", superstep_layout="dense",
+        superstep=2), train=dataclasses.replace(
+            base.train, server_schedule="parallel"))
     with pytest.raises(ValueError, match="asfl"):
         dataclasses.replace(base, train=dataclasses.replace(
             base.train, scheme="sfl"))
