@@ -144,10 +144,26 @@ neither ``jax`` nor ``repro``.  In order it:
     implies; K = 4 equal to K = 1 and ``dense`` equal to ``ragged`` bit
     for bit; the two-cell trace on the card against the CPU as in 10c;
     s/round printed beside phase 10b's, and each run's slot occupancy;
+10k. phase 10b's highway cell with the fault plane (dropout 0.1, upload
+    loss 0.05, RSU outage 0.1, a deadline at 0.01 x the residence time):
+    ``sequential`` 4 rounds, ``parallel`` ``ragged`` K = 1 and one K = 4
+    window, ``dense`` 2 rounds; then the ``streaming`` schedule (churn
+    0.2, a buffer of 4, the ``poly`` kernel, alpha 0.5, 8 rounds, cloud
+    sync every 4) as one K = 4 window and one round at a time; the
+    counters zeroed just before and read just after each run: finite
+    losses, dropouts + losses + stragglers + survivors = scheduled, every
+    down RSU at load 0, stragglers in at least 2 rounds, StreamBuffer
+    merges, occupancy below R x B, codec launches as the engine's plans
+    imply (per client batch step performed, or per (cut bucket, local
+    step) and per (cut bucket, RSU, local step) with an active slot);
+    K = 4 equal to K = 1 bit for bit under faults and under streaming; the
+    two-cell trace card vs CPU with both planes on (sequential and
+    streaming); phase 10j's highway run again with fault and stream seeds
+    7 equal to it bit for bit; s/round printed beside 10b's and 10j's;
 11. prints the per-kernel JSON line (all eight kernels, the quant and LM
     kernels with their launches per training step, the codec kernels with
-    their launches in phase 10j), then ``{"ok": true, "device": ...}`` as
-    the last line.
+    their launches in phases 10j and 10k), then ``{"ok": true, "device":
+    ...}`` as the last line.
 
 Any failure raises and the script exits non-zero.
 """
@@ -707,9 +723,10 @@ def _two_cell_trace():
         fading_std_db=0.0, rsu_range_m=320.0), seed=0)
 
 
-def scenario_cpu_vs_card(schedule="sequential"):
-    """Phase 10c (and 10j with ``schedule="parallel"``): the two-cell trace
-    (2 vehicles, 4 rounds, topk_int8, sync every 2) on the card and on the
+def scenario_cpu_vs_card(schedule="sequential", **planes):
+    """Phase 10c (10j with ``schedule="parallel"``, 10k with the fault and
+    streaming ``planes``, SimConfig fields): the two-cell trace (2
+    vehicles, 4 rounds, topk_int8, sync every 2) on the card and on the
     CPU from the same weights.  Float32 sums in another order can move one
     smashed value across an int8 rounding boundary (one int8 step), so the
     lr is the scenario path's 1e-3 and the final parameters agree within
@@ -720,7 +737,7 @@ def scenario_cpu_vs_card(schedule="sequential"):
     cfg = fedsim.SimConfig(rounds=4, local_steps=2, batch_size=8,
                            lr=SCEN_LR, optimizer="sgd", wire="topk_int8",
                            round_interval_s=5.0, eval_every=0,
-                           server_schedule=schedule)
+                           server_schedule=schedule, **planes)
     clients, test = make_mlp_fleet_data(2, 24, seed=0, n_test=64)
     runs = {}
     for where in ("cpu", "cuda"):
@@ -739,8 +756,18 @@ def scenario_cpu_vs_card(schedule="sequential"):
     ok = (err <= TRACE_TOL * scale and np.isfinite(pg).all()
           and [m.cuts for m in hc] == [m.cuts for m in hg]
           and sum(m.n_handover for m in hg) >= 1)
-    print(f"scenario_cpu_vs_card {schedule} two-cell trace losses_cpu="
-          f"{[m.loss for m in hc]} losses_card={[m.loss for m in hg]} "
+    if planes:      # the plans (host draws) and their telemetry: equal
+        import dataclasses
+        ok = ok and ([dataclasses.astuple(m)[6:] for m in hc]
+                     == [dataclasses.astuple(m)[6:] for m in hg])
+    events = ""
+    if planes:
+        events = (f" events dropout/lost/straggler/down/arrived/merges="
+                  f"{[(m.n_dropout, m.n_upload_lost, m.n_straggler, m.n_rsu_down, m.n_arrived, m.stream_merges) for m in hg]}")
+    print(f"scenario_cpu_vs_card {schedule}{' planes' if planes else ''} "
+          f"two-cell trace losses_cpu="
+          f"{[m.loss for m in hc]} losses_card={[m.loss for m in hg]}"
+          f"{events} "
           f"max_param_diff={err:g} max_abs_param={scale:g} "
           f"tol={TRACE_TOL:g}x ok={ok}", flush=True)
     if not ok:
@@ -1857,16 +1884,16 @@ def _flat_params(units, head):
 
 
 def parallel_path(label, scenario, strategy, wire, layout, k, rounds,
-                  cut_set):
+                  cut_set, **groups):
     """Phase 10j: one run of the parallel schedule through the front door
     (``api.build_engine`` of phase 10b's spec with ``server_schedule=
     "parallel"``, ``superstep`` K and the layout, then ``engine.run``), the
     launch counters zeroed just before and read just after: finite losses,
     RSU loads summing to the scheduled count, cuts in the strategy's set,
     handovers after round 0 on the highway, client batch steps and codec
-    launches as the schedule implies.  Returns a row with the losses, the
-    global model after each sync (K = 1) and at the end, and the
-    residuals."""
+    launches as the schedule implies.  ``groups`` replace spec groups
+    (phase 10k's seeds).  Returns a row with the losses, the global model
+    after each sync (K = 1) and at the end, and the residuals."""
     import dataclasses
 
     import numpy as np
@@ -1877,7 +1904,7 @@ def parallel_path(label, scenario, strategy, wire, layout, k, rounds,
         spec, train=dataclasses.replace(spec.train,
                                         server_schedule="parallel"),
         runtime=dataclasses.replace(spec.runtime, superstep=k,
-                                    superstep_layout=layout))
+                                    superstep_layout=layout), **groups)
     eng = api.build_engine(spec)
     marks, synced = [], {}
 
@@ -1941,7 +1968,7 @@ def parallel_phase(seq_timings):
     handover and four cloud merges inside the window), ``ragged`` equal to
     ``dense`` bit for bit on the two rounds both ran, the two-cell trace
     card vs CPU; s/round printed beside phase 10b's sequential rounds.
-    Returns the timing rows."""
+    Returns the timing rows, the trace's error and the runs' rows."""
     import numpy as np
     cut_sets = {"paper": {0, 2, 4, 6, 8}, "residence": set(range(9))}
     rows = {run[0]: parallel_path(*run, cut_sets[run[2]])
@@ -1974,6 +2001,225 @@ def parallel_phase(seq_timings):
             "client_batch_steps", "round_wall_s", "run_s", "s_per_round",
             "occupancy")}
             | {"sequential_s_per_round": s["run_s"] / s["rounds"]})
+    return out, trace_err, rows
+
+
+# ---- the fault plane and the streaming plane on the multi-RSU path
+# (phase 10k): phase 10b's highway cell (256 vehicles, 4 RSUs, mlp9,
+# topk_int8 with error feedback, sgd lr 1e-3, local steps 2).  Faults:
+# mid-round dropout, upload loss, RSU outage, and a deadline at 0.01 x the
+# residence time, which some vehicles miss every round (the analytic
+# latency at the chosen cut over the residence runs 1.2e-4 to 0.15 on this
+# cell; 6-12 vehicles a round above 0.01, before dropout and loss take
+# precedence).  Streaming: the reference's bench_streaming.py settings.
+PLANE_FAULTS = dict(dropout_rate=0.1, upload_loss_rate=0.05,
+                    rsu_outage_rate=0.1, straggler_factor=0.01)
+PLANE_STREAM = dict(churn_rate=0.2, buffer_size=4, kernel="poly", alpha=0.5)
+# (label, schedule, layout, superstep K, rounds, cloud sync, faults, stream)
+PLANE_RUNS = (
+    ("faults_sequential", "sequential", "ragged", 1, SCEN_ROUNDS, 1, True,
+     False),
+    ("faults_ragged_k1", "parallel", "ragged", 1, SCEN_ROUNDS, 1, True,
+     False),
+    ("faults_ragged_k4", "parallel", "ragged", 4, SCEN_ROUNDS, 1, True,
+     False),
+    ("faults_dense_k1", "parallel", "dense", 1, 2, 1, True, False),
+    ("streaming_k4", "streaming", "ragged", 4, 8, 4, False, True),
+    ("streaming_k1", "streaming", "ragged", 1, 8, 4, False, True))
+# the two-cell trace card vs CPU with both planes on: failures on 2
+# vehicles (the 1e-7 deadline makes every survivor a straggler but the one
+# the rescue keeps), churn and a buffer of 2.  Stream seed 5 keeps both
+# vehicles present long enough for the fixture's handover; with it the
+# four rounds hold a dropout, stragglers, outages, an arrival and (on
+# streaming) a merge on both schedules
+TRACE_PLANES = dict(fault_dropout=0.3, fault_upload_loss=0.2,
+                    fault_rsu_outage=0.3, fault_straggler=1e-7,
+                    stream_churn_rate=0.3, stream_seed=5,
+                    stream_buffer_size=2, stream_kernel="poly")
+
+
+def _plane_codec_want(schedule, plans, steps):
+    """Codec launches phase 10k expects, counted from the engine's plans
+    (each vehicle's cut, cell and performed local steps): per client batch
+    step on the sequential schedule (SCEN_LAUNCHES); per (cut bucket,
+    local step) with an active slot, and per (cut bucket, RSU, local
+    step) with one, on the parallel machinery (PAR_LAUNCHES)."""
+    import numpy as np
+    if schedule == "sequential":
+        n = sum(int(p["dstep"][p["cuts"] > 0].sum()) for p in plans)
+        return {k: v * n for k, v in SCEN_LAUNCHES["topk_int8"].items()}, \
+            (n, 0)
+    buckets = runs = 0
+    for p in plans:
+        for s in range(steps):
+            act = (p["cuts"] > 0) & (p["dstep"] > s)
+            buckets += len(np.unique(p["cuts"][act]))
+            runs += len(set(zip(p["cuts"][act].tolist(),
+                                p["serving"][act].tolist())))
+    return {name: a * buckets + b * runs
+            for name, (a, b) in PAR_LAUNCHES["topk_int8"].items()}, \
+        (buckets, runs)
+
+
+def plane_path(label, schedule, layout, k, rounds, sync, faulted, streamed):
+    """Phase 10k: one run of phase 10b's highway cell with the fault plane
+    and / or the streaming schedule through the front door
+    (``api.build_engine``, then ``engine.run``), the launch counters
+    zeroed just before and read just after: finite losses, loads summing
+    to the scheduled count, dropouts + losses + stragglers + survivors =
+    scheduled, every down RSU (the engine's draw, through
+    ``ensure_rsu_up``) at load 0, the merge callback on the rounds that
+    merged, buffer occupancy below R x B, codec launches as the plans
+    imply.  Returns a row."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch import api, kernels
+    from repro_torch.core import faults
+    spec = _scenario_spec("highway_corridor", SCEN_VEHICLES, rounds, "paper",
+                          "topk_int8", sync)
+    spec = dataclasses.replace(
+        spec, train=dataclasses.replace(spec.train, server_schedule=schedule),
+        runtime=dataclasses.replace(spec.runtime, superstep=k,
+                                    superstep_layout=layout),
+        faults=api.FaultsConfig(**(PLANE_FAULTS if faulted else {})),
+        stream=api.StreamConfig(**(PLANE_STREAM if streamed else {})))
+    eng = api.build_engine(spec)
+    plans, marks, merged = [], [], []
+    real_plan = eng._plan
+
+    def spy(*args):
+        plans.append(real_plan(*args))
+        return plans[-1]
+
+    eng._plan = spy
+
+    def on_round(m):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    steps0, b0, r0 = eng.batch_steps, eng.bucket_steps, eng.rsu_bucket_steps
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    hist = eng.run(on_round=on_round,
+                   on_stream_merge=lambda m, e: merged.append(m.round))
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    steps = eng.batch_steps - steps0
+    walls = ([run_s - (marks[-1] - marks[0])]
+             + [b - a for a, b in zip(marks, marks[1:])]) if k == 1 else []
+    R, B = eng.n_rsus, PLANE_STREAM["buffer_size"]
+    bad = []
+    for m, wall in zip(hist, walls or [float("nan")] * len(hist)):
+        print(f"planes {label} round={m.round} loss={m.loss!r} "
+              f"scheduled={m.n_scheduled} loads={m.rsu_loads} "
+              f"dropout={m.n_dropout} lost={m.n_upload_lost} "
+              f"straggler={m.n_straggler} rsu_down={m.n_rsu_down} "
+              f"survivor_frac={m.survivor_frac:.6f} "
+              f"stale_merged={m.stale_merged} present={m.n_present} "
+              f"arrived={m.n_arrived} merges={m.stream_merges} "
+              f"occupancy={m.buffer_occupancy} "
+              f"absorbed={m.absorbed_samples} wall_s={wall:.6f}",
+              flush=True)
+        surv = round(m.survivor_frac * m.n_scheduled)
+        if not (math.isfinite(m.loss) and sum(m.rsu_loads) == m.n_scheduled
+                and m.n_dropout + m.n_upload_lost + m.n_straggler + surv
+                == m.n_scheduled and 0 <= m.buffer_occupancy < R * B):
+            bad.append(m.round)
+        if faulted:
+            down = faults.ensure_rsu_up(eng.fault_draws(m.round)[3])
+            if int(down.sum()) != m.n_rsu_down or any(
+                    m.rsu_loads[r] for r in np.nonzero(down)[0]):
+                bad.append(m.round)
+    want, (units, runs) = _plane_codec_want(schedule, plans, SCEN_STEPS)
+    full = dict.fromkeys(counts, 0)
+    full.update(want)
+    engine_units = ((steps, 0) if schedule == "sequential" else
+                    (eng.bucket_steps - b0, eng.rsu_bucket_steps - r0))
+    print(f"planes {label} schedule={schedule} layout={layout} K={k} "
+          f"client_batch_steps={steps} launch_units={(units, runs)} "
+          f"launches={counts} run_s={run_s:.6f} "
+          f"s_per_round={run_s / rounds:.6f}", flush=True)
+    if (bad or len(hist) != rounds or counts != full
+            or engine_units != (units, runs)
+            or merged != [m.round for m in hist if m.stream_merges]):
+        raise AssertionError(
+            f"planes {label}: bad rounds {sorted(set(bad))}, "
+            f"{len(hist)} rounds, launches {counts} (want {full}), "
+            f"units {engine_units} (want {(units, runs)}), merge "
+            f"callbacks {merged}")
+    if faulted and rounds == SCEN_ROUNDS and sum(
+            m.n_straggler > 0 for m in hist) < 2:
+        raise AssertionError(f"planes {label}: stragglers in fewer than 2 "
+                             f"rounds")
+    if streamed and not any(m.stream_merges for m in hist):
+        raise AssertionError(f"planes {label}: no StreamBuffer fired")
+    res = [np.zeros(0, np.float32) if r is None
+           else r.detach().cpu().numpy().ravel() for r in eng.wire_res]
+    return {"label": label, "schedule": schedule, "layout": layout, "k": k,
+            "rounds": rounds, "losses": [m.loss for m in hist],
+            "final": _flat_params(eng.units, eng.head), "residuals": res,
+            "launches": counts, "launch_units": [units, runs],
+            "client_batch_steps": steps, "round_wall_s": walls,
+            "run_s": run_s, "s_per_round": run_s / rounds,
+            "telemetry": {f: [getattr(m, f) for m in hist] for f in (
+                "n_scheduled", "n_dropout", "n_upload_lost", "n_straggler",
+                "n_rsu_down", "stale_merged", "n_present", "n_arrived",
+                "stream_merges", "buffer_occupancy", "absorbed_samples")}}
+
+
+def plane_phase(seq_timings, par_rows):
+    """Phase 10k: the fault and streaming runs; K = 4 equal to K = 1 bit
+    for bit under faults (parallel) and under streaming; the two-cell
+    trace card vs CPU with both planes on (sequential and streaming); the
+    zero-rate invariant (phase 10j's highway K = 1 run again with
+    ``fault_seed`` and ``stream_seed`` 7: the same bits); s/round printed
+    beside phases 10b and 10j.  Returns (timing rows, trace errors)."""
+    import numpy as np
+    from repro_torch import api
+    rows = {run[0]: plane_path(*run) for run in PLANE_RUNS}
+
+    def same(a, b):
+        return (a["losses"] == b["losses"]
+                and np.array_equal(a["final"], b["final"])
+                and all(np.array_equal(x, y) for x, y in
+                        zip(a["residuals"], b["residuals"])))
+
+    same_faults = same(rows["faults_ragged_k4"], rows["faults_ragged_k1"])
+    same_stream = same(rows["streaming_k4"], rows["streaming_k1"])
+    k1 = par_rows["highway_ragged_k1"]
+    zero = parallel_path(
+        "highway_ragged_k1_seeded", "highway_corridor", "paper", "topk_int8",
+        "ragged", 1, SCEN_ROUNDS, {0, 2, 4, 6, 8},
+        faults=api.FaultsConfig(seed=7), stream=api.StreamConfig(seed=7))
+    same_zero = same(zero, k1) and all(
+        np.array_equal(zero["synced"][r], k1["synced"][r])
+        for r in k1["synced"])
+    print(f"planes bit_for_bit faults_K4_vs_K1={same_faults} "
+          f"streaming_K4_vs_K1={same_stream} "
+          f"zero_rates_vs_10j={same_zero}", flush=True)
+    if not (same_faults and same_stream and same_zero):
+        raise AssertionError("planes: K = 4 vs K = 1, or the seeded "
+                             "zero-rate run vs phase 10j, differ in their "
+                             "bits")
+    trace_err = {sched: scenario_cpu_vs_card(sched, **TRACE_PLANES)
+                 for sched in ("sequential", "streaming")}
+    seq = {t["scenario"]: t for t in seq_timings}["highway_corridor"]
+    out = []
+    for row in rows.values():
+        print(f"planes vs 10b / 10j {row['label']}: s_per_round "
+              f"{row['s_per_round']:.6f} sequential_10b="
+              f"{seq['run_s'] / seq['rounds']:.6f} parallel_10j="
+              f"{k1['s_per_round']:.6f}", flush=True)
+        out.append({key: row[key] for key in (
+            "label", "schedule", "layout", "k", "rounds", "losses",
+            "launches", "launch_units", "client_batch_steps",
+            "round_wall_s", "run_s", "s_per_round", "telemetry")}
+            | {"sequential_10b_s_per_round": seq["run_s"] / seq["rounds"],
+               "parallel_10j_s_per_round": k1["s_per_round"]})
     return out, trace_err
 
 
@@ -1984,12 +2230,15 @@ def _main_cut(cuts_per_round):
 
 
 def kernel_report(checks, launches, main_cuts, mm_checks, mm_launches,
-                  lm_checks, lm_launches, training, par_launches):
+                  lm_checks, lm_launches, training, par_launches,
+                  plane_launches):
     """Phase 11: one entry per kernel, timed at its path's main shape.  The
     quant and LM kernels also carry their launches per training step of
     each phase-10g run (``train_launches_per_step``), the codec kernels
     their launches in phase 10j's parallel highway (topk_int8) or urban
-    (int8) run (``parallel_launches``)."""
+    (int8) run (``parallel_launches``) and in phase 10k's faulted
+    sequential and parallel highway runs and its streaming window
+    (``plane_launches``)."""
     per_step = {}
     for run in training:
         label = run["arch"] + ("+compress" if run["compress"] else "")
@@ -2009,6 +2258,7 @@ def kernel_report(checks, launches, main_cuts, mm_checks, mm_launches,
             "bound_by": "bytes", "library_ms": row["library_ms"],
             "shape": row["shape"],
             "parallel_launches": par_launches.get(name, 0),
+            "plane_launches": plane_launches.get(name, {}),
             **({"train_launches_per_step": per_step[name]}
                if name in per_step else {}),
             **{extra: {key: checks[name][extra][key] for key in
@@ -2026,6 +2276,7 @@ def kernel_report(checks, launches, main_cuts, mm_checks, mm_launches,
         "bound_by": row["bound_by"], "library_ms": None,
         "unpack_then_matmul_ms": row["unpack_then_matmul_ms"],
         "parallel_launches": par_launches.get(MM_META[0], 0),
+        "plane_launches": plane_launches.get(MM_META[0], {}),
         "wide_ms": mm_checks["wide"]["ms"], "shape": row["shape"]})
     for name, replaces in LM_META.items():
         row = next(r for r in lm_checks[name].values() if "ms" in r)
@@ -2112,10 +2363,23 @@ def main() -> int:
                                    "federation": lm_fed}}))
     # the parallel schedule runs after every earlier phase, so their
     # numbers stay comparable with the slices before it
-    parallel, parallel_trace_err = parallel_phase([highway_timing,
-                                                   urban_timing])
+    parallel, parallel_trace_err, par_rows = parallel_phase(
+        [highway_timing, urban_timing])
     print(json.dumps({"parallel": parallel,
                       "trace_cpu_vs_card": parallel_trace_err}))
+    # the fault and streaming planes run after every earlier phase, so
+    # their numbers stay comparable with the slices before it
+    planes, planes_trace_err = plane_phase([highway_timing, urban_timing],
+                                           par_rows)
+    print(json.dumps({"planes": planes,
+                      "trace_cpu_vs_card": planes_trace_err}))
+    plane_launches = {}
+    for row in planes:
+        if row["label"] in ("faults_sequential", "faults_ragged_k1",
+                            "streaming_k4"):
+            for name, n in row["launches"].items():
+                if n:
+                    plane_launches.setdefault(name, {})[row["label"]] = n
     par_launches = {}
     for row in parallel:
         if row["label"] in ("highway_ragged_k1", "urban_ragged_k1"):
@@ -2130,7 +2394,7 @@ def main() -> int:
                                    mm_checks,
                                    highway["unpack_dequant_matmul"],
                                    lm_checks, lm_launches, training,
-                                   par_launches)))
+                                   par_launches, plane_launches)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -10,7 +10,10 @@ against that RSU's edge model, and merges the edge models at a cloud tier
 every ``--sync`` rounds.  ``--schedule sequential`` is the paper's RSU
 (§III-B: one client batch at a time); ``parallel`` is the companion
 paper's (arXiv:2405.18707: every cohort at once, one mean-gradient step
-per RSU and local step).  ``--superstep`` K runs K rounds as one window
+per RSU and local step); ``streaming`` commits each RSU's parallel round
+through a buffer of pending deltas that merges when full (the per-round
+line then shows the merges and the buffer's fill).  ``--superstep`` K
+runs K rounds as one window
 with one read-back; the per-round lines stream from the ``on_round``
 callback after each window.  Runs on the CUDA card by default;
 ``--device cpu`` runs it on the CPU.
@@ -18,6 +21,8 @@ callback after each window.  Runs on the CUDA card by default;
   PYTHONPATH=src python examples/multi_rsu_sim_torch.py --device cpu
   PYTHONPATH=src python examples/multi_rsu_sim_torch.py --device cpu \
       --schedule parallel --superstep 3 --rounds 6 --sync 2
+  PYTHONPATH=src python examples/multi_rsu_sim_torch.py --device cpu \
+      --schedule streaming --rounds 6
   PYTHONPATH=src python examples/multi_rsu_sim_torch.py --scenario urban_grid
 """
 import argparse
@@ -60,9 +65,10 @@ def main():
                     help="rounds run as one window with one read-back "
                          "(1 = one round at a time)")
     ap.add_argument("--schedule", default="sequential",
-                    choices=["sequential", "parallel"],
-                    help="RSU server schedule: paper §III-B sequential or "
-                         "the parallel scheme of arXiv:2405.18707")
+                    choices=sorted(api.SCHEDULES),
+                    help="RSU server schedule: paper §III-B sequential, "
+                         "the parallel scheme of arXiv:2405.18707, or "
+                         "streaming (parallel rounds through a buffer)")
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
     args = ap.parse_args()
@@ -92,7 +98,10 @@ def main():
         acc = f"{m.test_acc:.3f}" if np.isfinite(m.test_acc) else "  -  "
         print(f"round {m.round}: loss={m.loss:.3f} acc={acc} "
               f"sched={m.n_scheduled:3d} handover={m.n_handover:2d} "
-              f"rsu_loads={m.rsu_loads} comm={m.comm_bytes/1e6:6.1f}MB")
+              f"rsu_loads={m.rsu_loads} comm={m.comm_bytes/1e6:6.1f}MB"
+              + (f" merges={m.stream_merges} buffered="
+                 f"{m.buffer_occupancy:.0f}"
+                 if args.schedule == "streaming" else ""))
 
     t0 = time.time()
     result = api.run(spec, device=args.device, on_round=on_round,

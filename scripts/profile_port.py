@@ -10,7 +10,9 @@
    ``highway_corridor``, 256 vehicles, 4 RSUs, local_steps 2, batch 8,
    sgd, ``paper`` cuts, the ``topk_int8`` wire with error feedback) after
    one warm-up round, on the sequential server schedule and on the
-   parallel one (``server_schedule="parallel"``).
+   parallel one (``server_schedule="parallel"``); with ``planes`` the same
+   round under ``chip_smoke.py`` phase 10k's faults on both schedules, and
+   the first round of its ``streaming`` schedule with presence churn.
 3. Split-inference serving of smollm-360m and mamba2-780m at full width
    (batch 8, prompt 1024, the default cut) after a warm-up at prompt 64,
    as ``chip_smoke.py`` serves: one profiled prefill (the process's first
@@ -19,8 +21,10 @@
    (batch 8, seq 1024, the default cut, adamw, clip 1.0, remat) after one
    warm-up step, as ``chip_smoke.py`` phase 10g trains.
 
-``--only round,scenario,serve,train`` picks the parts to run (all by
-default).
+``--only round,scenario,planes,serve,train`` picks the parts to run (all
+by default).  ``--repeat N`` profiles the scenario and planes rounds N
+times, taking the cells in turns, so that their wall times per client
+batch step can be compared within one process.
 
 For each: wall time, device busy share (summed kernel time / wall), and
 the kernels that take the most device time, by name; for serving also the
@@ -95,12 +99,12 @@ def round_profile(mode: str, top: int = 12):
 
 
 def scenario_profile(top: int = 12, vehicles: int = 256,
-                     schedule: str = "sequential"):
+                     schedule: str = "sequential", label: str = "",
+                     **groups):
     """One profiled topk_int8 round of the multi-RSU path after a warm-up
     round (the same spec as ``chip_smoke.py``'s highway phase) on the
-    server ``schedule``."""
-    import torch
-
+    server ``schedule``; ``groups`` (``faults``, ``stream``) as in its
+    phase 10k."""
     from repro_torch import api, kernels
     spec = api.ExperimentSpec(
         model="mlp9",
@@ -111,7 +115,7 @@ def scenario_profile(top: int = 12, vehicles: int = 256,
                               scenario="highway_corridor",
                               scenario_kwargs={"seed": vehicles},
                               round_interval_s=10.0, per_vehicle_samples=64,
-                              data_seed=vehicles))
+                              data_seed=vehicles), **groups)
     eng = api.build_engine(spec)
     eng.run()                                  # warm-up round
     eng.reset()
@@ -122,7 +126,11 @@ def scenario_profile(top: int = 12, vehicles: int = 256,
                rsu_loads=hist[-1].rsu_loads,
                client_batch_steps=eng.batch_steps - steps0,
                launches=kernels.launch_counts())
+    schedule = schedule + label
+    res["ms_per_step"] = 1e3 * res["wall_s"] / max(
+        res["client_batch_steps"], 1)
     print(f"scenario {schedule} wall_s={res['wall_s']:.6f} "
+          f"ms_per_step={res['ms_per_step']:.6f} "
           f"device_busy_s={res['device_busy_s']:.6f} "
           f"busy_share={res['device_busy_share']:.4f} "
           f"client_batch_steps={res['client_batch_steps']} "
@@ -248,7 +256,10 @@ def train_profile(arch, top: int = 20, batch: int = 8, seq: int = 1024):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="chiprun_out/profile_port.json")
-    ap.add_argument("--only", default="round,scenario,serve,train")
+    ap.add_argument("--only", default="round,scenario,planes,serve,train")
+    ap.add_argument("--repeat", type=int, default=1,
+                    help="profile the scenario / planes rounds this many "
+                         "times, the cells in turns")
     args = ap.parse_args()
     parts = set(args.only.split(","))
     import subprocess
@@ -268,9 +279,33 @@ def main() -> int:
     if "round" in parts:
         result.update(round=round_profile("unroll"),
                       round_vmap=round_profile("vmap"))
+    cells = []
     if "scenario" in parts:
-        result["scenario"] = scenario_profile()
-        result["scenario_parallel"] = scenario_profile(schedule="parallel")
+        cells += [("scenario", {}),
+                  ("scenario_parallel", {"schedule": "parallel"})]
+    if "planes" in parts:
+        # chip_smoke.py's phase 10k: the fault plane on both schedules,
+        # the streaming schedule with churn (its first round: no fire)
+        from repro_torch import api
+        faults = api.FaultsConfig(dropout_rate=0.1, upload_loss_rate=0.05,
+                                  rsu_outage_rate=0.1, straggler_factor=0.01)
+        cells += [("scenario_faults", {"label": "+faults", "faults": faults}),
+                  ("scenario_parallel_faults",
+                   {"schedule": "parallel", "label": "+faults",
+                    "faults": faults}),
+                  ("scenario_streaming",
+                   {"schedule": "streaming", "stream": api.StreamConfig(
+                       churn_rate=0.2, buffer_size=4, kernel="poly",
+                       alpha=0.5)})]
+    for rep in range(max(args.repeat, 1)):
+        for key, kw in cells:
+            res = scenario_profile(**kw)
+            if rep == 0:
+                result[key] = res
+            result.setdefault("repeats", {}).setdefault(key, []).append(
+                {k: res[k] for k in ("wall_s", "client_batch_steps",
+                                     "ms_per_step", "n_device_kernels",
+                                     "device_busy_share")})
     if "serve" in parts:
         result["serve"] = [serve_profile(a) for a in archs]
     if "train" in parts:

@@ -9,10 +9,9 @@ scenarios ``single_rsu`` (the
 single-RSU ``FederationSim``) and the ported multi-RSU scenarios of
 ``core/scenario.py`` (the ``ScenarioEngine``); every cut strategy and wire
 scheme and server schedule of the reference as metadata (which engine may
-run it; the port runs ``sequential`` on both engines and ``parallel`` on
-the scenario engine, and refuses ``streaming`` as not ported yet).  A
-name the reference knows but the port does not is refused with "not
-ported yet".
+run it: ``sequential`` on both engines, ``parallel`` and ``streaming`` on
+the scenario engine).  A name the reference knows but the port does not
+is refused with "not ported yet".
 """
 from __future__ import annotations
 
@@ -190,8 +189,6 @@ SCHEDULES: Dict[str, ScheduleEntry] = {
     "parallel": ScheduleEntry("parallel", (SCENARIO,)),
     "streaming": ScheduleEntry("streaming", (SCENARIO,))}
 assert set(SCHEDULES) == set(SERVER_SCHEDULES)
-# schedules the port's scenario engine does not run yet
-NOT_PORTED_SCHEDULES = ("streaming",)
 
 
 def wire_names() -> str:

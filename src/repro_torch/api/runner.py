@@ -120,22 +120,29 @@ def _totals(history) -> Dict[str, float]:
             m.lost_update_bytes for m in history))
         totals["n_dropout"] = int(sum(m.n_dropout for m in history))
         totals["n_upload_lost"] = int(sum(m.n_upload_lost for m in history))
-        totals["n_straggler"] = 0
+        totals["n_straggler"] = int(sum(
+            getattr(m, "n_straggler", 0) for m in history))
+        # the streaming plane: sample weight absorbed into the models (the
+        # goodput numerator), buffered merges and arrivals
         totals["absorbed_samples"] = float(sum(
             getattr(m, "absorbed_samples", 0.0) for m in history))
-        totals["stream_merges"] = 0
-        totals["n_arrived"] = 0
+        totals["stream_merges"] = int(sum(
+            getattr(m, "stream_merges", 0) for m in history))
+        totals["n_arrived"] = int(sum(
+            getattr(m, "n_arrived", 0) for m in history))
     return totals
 
 
 def run(spec: ExperimentSpec, *, device: DeviceLike = None,
         on_round: Optional[Callable[[Any], None]] = None,
-        on_cloud_merge: Optional[Callable[[int, Any], None]] = None
+        on_cloud_merge: Optional[Callable[[int, Any], None]] = None,
+        on_stream_merge: Optional[Callable[[Any, Any], None]] = None
         ) -> RunResult:
     """Execute a spec end to end on ``device`` (``cuda`` by default) and
     return a :class:`RunResult`; ``on_round(metrics)`` fires per round and,
     on a multi-RSU scenario, ``on_cloud_merge(rnd, engine)`` after every
-    cloud sync."""
+    cloud sync and ``on_stream_merge(metrics, engine)`` after every round
+    in which a StreamBuffer fired."""
     engine = build_engine(spec, device=device)
     scenario = isinstance(engine, ScenarioEngine)
     counted = engine if scenario else engine.engine
@@ -144,7 +151,8 @@ def run(spec: ExperimentSpec, *, device: DeviceLike = None,
     t0 = time.perf_counter()
     if scenario:
         history = engine.run(on_round=on_round,
-                             on_cloud_merge=on_cloud_merge)
+                             on_cloud_merge=on_cloud_merge,
+                             on_stream_merge=on_stream_merge)
     else:
         history = engine.run(on_round=on_round)
     if engine.device.type == "cuda":
@@ -169,6 +177,16 @@ def run(spec: ExperimentSpec, *, device: DeviceLike = None,
         "client_batch_steps": counted.batch_steps - steps0,
         "wire_bytes": counted.wire_bytes - bytes0,
     })
+    stale_key = ("stale_merged" if spec.faults.straggler_factor > 0.0
+                 else "stream_stale"
+                 if spec.train.server_schedule == "streaming" else None)
+    if stale_key is not None:
+        # the staleness histogram: banked straggler weight merged per
+        # round, or the buffered age mass the StreamBuffer merged
+        counts, edges = np.histogram(
+            [float(getattr(m, stale_key, 0.0)) for m in history], bins=8)
+        diagnostics["staleness_hist"] = {"counts": counts.tolist(),
+                                         "edges": edges.tolist()}
     totals = _totals(history)
     totals["goodput_samples_per_s"] = (
         totals.get("absorbed_samples", 0.0) / run_s if run_s else 0.0)

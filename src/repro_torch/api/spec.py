@@ -7,10 +7,10 @@ identical to the reference's.
 
 Validation covers what the port can run: the single-RSU engine (every
 scheme, every ``cohort_parallel`` mode, its fault plane) and the multi-RSU
-scenario engine (the sequential and parallel schedules, super-step
-windows, both slot layouts, no faults) with the ported models and
-scenarios, with the reference's messages for combinations no engine can
-run.  A scenario, a non-default value of a
+scenario engine (the sequential, parallel and streaming schedules,
+super-step windows, both slot layouts, the fault plane and presence churn)
+with the ported models and scenarios, with the reference's messages for
+combinations no engine can run.  A scenario, a non-default value of a
 plane that is not ported yet, or a multi-process topology raises "not
 ported yet".  ``runtime.precompile`` is accepted and does nothing: the port
 runs eagerly and compiles nothing but its kernels, at first use.
@@ -97,8 +97,9 @@ class RuntimeConfig:
 @dataclasses.dataclass(frozen=True)
 class FaultsConfig:
     """The fault plane: coverage, dropout and upload loss on the single-RSU
-    engine (straggler and RSU outage are scenario concepts); not ported yet
-    on the scenario engine (defaults only)."""
+    engine; dropout, upload loss, deadline stragglers with the staleness
+    bank and RSU outages on a multi-RSU scenario (coverage there is the
+    scenario's own, serving_rsu == -1).  All defaults: no faults."""
     coverage: bool = False
     dropout_rate: float = 0.0
     upload_loss_rate: float = 0.0
@@ -110,7 +111,11 @@ class FaultsConfig:
 
 @dataclasses.dataclass(frozen=True)
 class StreamConfig:
-    """The streaming plane (not ported yet: defaults only)."""
+    """The streaming plane of a multi-RSU scenario: presence churn (a
+    seeded toggle chain at ``churn_rate``, or coverage with
+    ``churn_source="mobility"``) on any schedule, and the StreamBuffer of
+    ``train.server_schedule="streaming"`` (``buffer_size`` deltas per RSU,
+    discounted by ``kernel`` / ``alpha``).  All defaults: no streaming."""
     buffer_size: int = 4
     churn_rate: float = 0.0
     kernel: str = "constant"
@@ -249,10 +254,6 @@ class ExperimentSpec:
                 f"{engine} engine (fleet.scenario={sc!r}); schedules this "
                 f"engine supports: {' | '.join(ok)} (the parallel and "
                 f"streaming schedules need a multi-RSU scenario)")
-        if sched.name in registry.NOT_PORTED_SCHEDULES:
-            raise NotImplementedError(
-                f"train.server_schedule={sched.name!r}: not ported yet "
-                f"(the port's scenario engine runs sequential | parallel)")
         wire = registry.WIRES.get(self.train.wire)
         if wire is None:
             raise ValueError(
@@ -284,11 +285,6 @@ class ExperimentSpec:
                     "faults.coverage is the single-RSU §II-C in-range "
                     "test; multi-RSU scenarios model coverage through the "
                     "scenario itself (serving_rsu == -1)")
-            if fl != FaultsConfig():
-                raise NotImplementedError(
-                    f"faults={fl!r} on a multi-RSU scenario: not ported "
-                    f"yet (the port runs the fault plane on the single-RSU "
-                    f"engine, fleet.scenario='single_rsu')")
         else:
             if self.runtime.superstep > 1:
                 raise ValueError(
@@ -313,6 +309,14 @@ class ExperimentSpec:
                     f"stochastic fault injection is wired into the "
                     f"split-federation round (sfl | asfl); scheme "
                     f"{self.train.scheme!r} does not support it")
+            if self.stream.churn_rate > 0.0 \
+                    or self.stream.churn_source == "mobility":
+                raise ValueError(
+                    "presence churn (stream.churn_rate > 0 or "
+                    "stream.churn_source='mobility') needs a multi-RSU "
+                    "scenario (continuous arrivals/departures live on the "
+                    "scenario engine's presence plane); the single-RSU "
+                    "engine models interruption via fleet.mobility_dropout")
         if (rt.coordinator_address is not None or rt.num_processes != 1
                 or rt.process_id != 0):
             raise NotImplementedError(

@@ -13,7 +13,8 @@ from typing import Callable, List, Optional, Sequence, Union
 
 import numpy as np
 
-from repro_torch.core.cost import SplitProfile, sfl_round_cost_arrays
+from repro_torch.core.cost import (BWD_FWD_RATIO, SplitProfile,
+                                   sfl_round_cost_arrays)
 
 DEFAULT_CUTS = (2, 4, 6, 8)
 DEFAULT_THRESHOLDS = (60e6, 110e6, 160e6, 260e6)
@@ -70,6 +71,31 @@ def energy_aware(profile: SplitProfile, rates_bps, client_flops,
     score = (latency_weight * lat / lat.max(axis=1, keepdims=True)
              + (1 - latency_weight) * en / en.max(axis=1, keepdims=True))
     return [int(c) for c in cuts[np.argmin(score, axis=1)]]
+
+
+def latency_matrix(profile: SplitProfile, rates_bps, client_flops,
+                   server_flops: float, n_batches: int, batch: int,
+                   local_epochs: int, candidate_cuts) -> np.ndarray:
+    """(n, k) float32 analytic round latency per candidate cut: the
+    reference's traced twin (``latency_matrix_traced``) in float32 numpy,
+    operation for operation, so that a deadline test on it flips exactly
+    where the reference's does."""
+    cuts = np.asarray(list(candidate_cuts), dtype=np.int64)
+    fwd_cum = np.concatenate([[0.0], np.cumsum(profile.unit_fwd_flops)])
+    bytes_cum = np.concatenate([[0.0], np.cumsum(profile.unit_param_bytes)])
+    smashed = np.asarray(profile.smashed_bytes_per_sample)[cuts - 1] * batch
+    steps = n_batches * local_epochs
+    updown = 2.0 * (steps * smashed + bytes_cum[cuts])          # (k,) f64
+    c_fwd = fwd_cum[cuts] * batch
+    s_fwd = (fwd_cum[-1] - fwd_cum[cuts] + profile.head_flops) * batch
+    rates = np.asarray(rates_bps, np.float32)[:, None]
+    flops = np.asarray(client_flops, np.float32)[:, None]
+    scale = np.float32(steps * (1 + BWD_FWD_RATIO))
+    t_client = (scale * np.asarray(c_fwd, np.float32)[None, :]) / flops
+    t_server = scale * np.asarray(s_fwd / server_flops, np.float32)[None, :]
+    t_comm = np.asarray(updown, np.float32)[None, :] \
+        / np.maximum(rates / np.float32(8.0), np.float32(1e-9))
+    return (t_client + t_server) + t_comm
 
 
 SKIP = 0  # sentinel cut: the vehicle sits this round out

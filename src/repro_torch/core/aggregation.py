@@ -1,8 +1,9 @@
 """Model aggregation (twin of the parts of ``repro.core.aggregation`` the
 ported rounds use): the |D_n|-weighted sum of paper Eq. 1 over a list of
 replica trees or over a stacked leading replica axis, FedAvg over that axis
-(paper Eq. 1/2, the FL round's merge), and the sample-weighted edge->cloud
-merge of the multi-RSU hierarchy.
+(paper Eq. 1/2, the FL round's merge), its survivor-weighted and
+staleness-discounted forms (the fault and streaming planes), and the
+sample-weighted edge->cloud merge of the multi-RSU hierarchy.
 """
 from __future__ import annotations
 
@@ -49,6 +50,48 @@ def stacked_fedavg(stacked_tree: Any, weights) -> Any:
     num = stacked_weighted_sum(stacked_tree, w)
     return tree_map(lambda n, ref: (n / den).to(ref.dtype), num,
                     stacked_tree)
+
+
+def survivor_weighted_sum(stacked_tree: Any, weights, survivors) -> Any:
+    """The partial-aggregation numerator: a failed replica's weight is
+    zeroed by the bool ``survivors`` mask before the same tensordot as
+    :func:`stacked_weighted_sum`, so it folds in as an exact +0."""
+    w = (np.asarray(weights, np.float32)
+         * np.asarray(survivors, bool).astype(np.float32))
+    return stacked_weighted_sum(stacked_tree, w)
+
+
+def _renormalised(stacked_tree: Any, w: np.ndarray, fallback: Any) -> Any:
+    total = np.float32(np.sum(w, dtype=np.float32))
+    if not total > 0.0:
+        return fallback
+    # a where, not max(total, 1): surviving weight in (0, 1) (fractional
+    # weights under staleness discounts) must still renormalise exactly
+    num = stacked_weighted_sum(stacked_tree, w)
+    return tree_map(lambda n, fb: (n / float(total)).to(fb.dtype), num,
+                    fallback)
+
+
+def survivor_fedavg(stacked_tree: Any, weights, survivors,
+                    fallback: Any) -> Any:
+    """Survivor-weighted FedAvg: the weighted mean over the surviving
+    replicas, renormalised over them; ``fallback`` (the pre-round model)
+    when none survives."""
+    w = (np.asarray(weights, np.float32)
+         * np.asarray(survivors, bool).astype(np.float32))
+    return _renormalised(stacked_tree, w, fallback)
+
+
+def discounted_survivor_fedavg(stacked_tree: Any, weights, survivors,
+                               discounts, fallback: Any) -> Any:
+    """Staleness-weighted survivor FedAvg: each replica's weight is also
+    scaled by its discount (the staleness kernel of its buffered age).
+    With every discount exactly 1.0 this is :func:`survivor_fedavg` bit
+    for bit (``w * 1.0 == w``)."""
+    w = (np.asarray(weights, np.float32)
+         * np.asarray(survivors, bool).astype(np.float32)
+         * np.asarray(discounts, np.float32))
+    return _renormalised(stacked_tree, w, fallback)
 
 
 def cloud_merge(edge_trees: Sequence[Any], weights: Sequence[float],

@@ -29,19 +29,20 @@ travelling vehicle-side model through the message flow) and ``cl``
 handover from a scenario, cuts from rates or residence time, one cohort
 per RSU trained against that RSU's edge model on the reference's
 ``sequential`` server schedule (a per-replica loop, the way
-``split_round`` follows ``_bucket_unroll``) or its ``parallel`` one (every
+``split_round`` follows ``_bucket_unroll``), its ``parallel`` one (every
 cohort at once, one mean-gradient step per RSU and local step:
-:mod:`repro_torch.core.superstep`), error-feedback residuals on the
-``topk_int8`` wire, and a sample-weighted edge->cloud merge every
-``cloud_sync_every`` rounds, in windows of ``superstep`` rounds with one
-read-back each.
+:mod:`repro_torch.core.superstep`) or its ``streaming`` one (the parallel
+round committed through a per-RSU StreamBuffer), error-feedback residuals
+on the ``topk_int8`` wire, the fault plane (dropout, upload loss,
+deadline stragglers with a staleness bank, RSU outages), presence churn,
+and a sample-weighted edge->cloud merge every ``cloud_sync_every`` rounds,
+in windows of ``superstep`` rounds with one read-back each.
 
-Not ported yet (``SimConfig`` raises on a non-default value): the
-streaming plane, the mesh, the paged slot windows and the XLA compilation
-cache; the scenario engine also refuses the ``streaming`` schedule and the
-fault plane.  ``FederationSim``, as the reference's single-RSU engine,
-runs its synchronous round whatever ``server_schedule`` (``parallel``) or
-``superstep`` say, and refuses ``streaming``.
+Not ported yet (``SimConfig`` raises on a non-default value): the mesh,
+the paged slot windows and the XLA compilation cache.  ``FederationSim``,
+as the reference's single-RSU engine, runs its synchronous round whatever
+``server_schedule`` (``parallel``) or ``superstep`` say, and refuses
+``streaming`` and presence churn.
 """
 from __future__ import annotations
 
@@ -54,7 +55,7 @@ import torch.nn.functional as F
 
 from repro_torch import bridge, optim
 from repro_torch.core import (adaptive, aggregation, channel, compression,
-                             cost, faults)
+                             cost, faults, streaming)
 from repro_torch.core import superstep as SS
 from repro_torch.core.superstep import (SERVER_SCHEDULES, SLOT_CAPACITIES,
                                         SUPERSTEP_LAYOUTS)
@@ -115,16 +116,8 @@ FEDERATION_STRATEGIES = ("paper", "paper-literal", "latency", "energy",
 SCENARIO_STRATEGIES = ("paper", "paper-literal", "residence")
 # SimConfig fields whose planes are not ported yet: a non-default value
 # raises instead of being silently ignored
-NOT_PORTED_FIELDS = (
-    "stream_buffer_size", "stream_churn_rate", "stream_kernel",
-    "stream_alpha", "stream_seed", "compilation_cache_dir", "mesh_devices",
-    "fleet_axis", "mesh_shape", "page_slots", "stream_churn_source")
-# the fault plane: ported on the single-RSU FederationSim, not yet on the
-# ScenarioEngine (which raises on a non-default value)
-FAULT_FIELDS = (
-    "mobility_dropout", "fault_coverage", "fault_dropout",
-    "fault_upload_loss", "fault_straggler", "fault_rsu_outage",
-    "fault_staleness_discount", "fault_seed")
+NOT_PORTED_FIELDS = ("compilation_cache_dir", "mesh_devices", "fleet_axis",
+                     "mesh_shape", "page_slots")
 
 
 @dataclasses.dataclass
@@ -214,7 +207,13 @@ class SimConfig:
                 "SimConfig.mobility_dropout=True conflicts with "
                 "fault_coverage=True: mobility_dropout is the legacy "
                 "spelling of fault_coverage — set fault_coverage alone")
+        if self.stream_churn_source not in streaming.CHURN_SOURCES:
+            raise ValueError(
+                f"SimConfig.stream_churn_source="
+                f"{self.stream_churn_source!r} is not valid; allowed "
+                f"values: {' | '.join(streaming.CHURN_SOURCES)}")
         self.fault_config()  # rate / discount validation (FaultConfig)
+        self.stream_config()  # kernel / rate validation (StreamConfig)
         defaults = SimConfig.__dataclass_fields__
         for field in NOT_PORTED_FIELDS:
             if getattr(self, field) != defaults[field].default:
@@ -240,6 +239,14 @@ class SimConfig:
             staleness_discount=self.fault_staleness_discount,
             coverage=self.mobility_dropout or self.fault_coverage,
             seed=self.fault_seed)
+
+    def stream_config(self) -> streaming.StreamConfig:
+        """The effective streaming plane."""
+        return streaming.StreamConfig(
+            buffer_size=self.stream_buffer_size,
+            churn_rate=self.stream_churn_rate, kernel=self.stream_kernel,
+            alpha=self.stream_alpha, seed=self.stream_seed,
+            churn_source=self.stream_churn_source)
 
 
 @dataclasses.dataclass
@@ -752,6 +759,12 @@ class FederationSim:
                 "ScenarioEngine (the StreamBuffer is per-RSU super-step "
                 "carry state); FederationSim runs the single-RSU "
                 "synchronous round loop")
+        if cfg.stream_config().churning:
+            raise ValueError(
+                "presence churn (stream_churn_rate > 0 or "
+                "stream_churn_source='mobility') needs the multi-RSU "
+                "ScenarioEngine (churn is per-round engine state there; "
+                "the single-RSU engine models coverage via fault_coverage)")
         self.device = resolve_device(device)
         self.model = model
         self.clients = list(clients)
@@ -1061,8 +1074,9 @@ class FederationSim:
 @dataclasses.dataclass
 class ScenarioRoundMetrics:
     """The reference's per-round scenario metrics, field for field (the
-    fault and streaming fields keep their defaults: those planes are not
-    ported yet)."""
+    fault fields keep their defaults without the fault plane, the
+    streaming ones without presence churn or the ``streaming``
+    schedule)."""
     round: int
     loss: float
     test_acc: float          # NaN on rounds without a cloud sync / eval
@@ -1074,19 +1088,19 @@ class ScenarioRoundMetrics:
     n_handover: int          # scheduled vehicles whose cell changed
     rsu_loads: List[int]     # participants per RSU
     cuts: List[int]          # fleet-wide cuts; 0 = sat the round out
-    n_dropout: int = 0
-    n_upload_lost: int = 0
-    n_straggler: int = 0
-    n_rsu_down: int = 0
-    survivor_frac: float = 1.0
-    lost_update_bytes: float = 0.0
-    stale_merged: float = 0.0
-    n_present: int = -1
-    n_arrived: int = 0
+    n_dropout: int = 0       # scheduled vehicles that dropped mid-round
+    n_upload_lost: int = 0   # full work done, update lost on the uplink
+    n_straggler: int = 0     # deadline missed; update banked, not lost
+    n_rsu_down: int = 0      # RSUs that sat the round out
+    survivor_frac: float = 1.0      # merged / scheduled
+    lost_update_bytes: float = 0.0  # vehicle-side params that never merged
+    stale_merged: float = 0.0       # banked weight merged this round
+    n_present: int = -1             # presence after churn (-1: no churn)
+    n_arrived: int = 0              # vehicles that arrived this round
     absorbed_samples: float = 0.0   # sample weight merged into edge models
-    stream_merges: int = 0
-    buffer_occupancy: float = 0.0
-    stream_stale: float = 0.0
+    stream_merges: int = 0          # StreamBuffer fires this round
+    buffer_occupancy: float = 0.0   # pending deltas over the RSUs
+    stream_stale: float = 0.0       # summed ages of the merged deltas
 
 
 class ScenarioEngine:
@@ -1114,7 +1128,12 @@ class ScenarioEngine:
          of the fleet at once, grouped by cut, against its RSU's model as
          it stood at the start of the step, and each RSU takes one
          |D_n|-weighted mean-gradient step
-         (:class:`superstep.ParallelSchedule`).
+         (:class:`superstep.ParallelSchedule`);
+       * ``streaming``: the parallel round, whose result each RSU pushes
+         as a pending delta into its StreamBuffer of ``stream_buffer_size``
+         B slots; the edge model moves only when B deltas are pending, by
+         their staleness-weighted FedAvg (``stream_kernel`` of their ages;
+         :func:`superstep.plan_stream`).
 
        Then the unit-wise |D_n|-weighted FedAvg with the RSU copy.
     4. On ``topk_int8`` every vehicle carries an error-feedback residual,
@@ -1122,6 +1141,22 @@ class ScenarioEngine:
        zeroed when the vehicle's cut changes.
     5. Every ``cloud_sync_every`` rounds the sample-weighted cloud merge
        re-seeds every edge model from the global one.
+
+    Presence churn (``stream_churn_rate`` or ``stream_churn_source=
+    "mobility"``) gates step 1: a vehicle that is not present, or that
+    arrived this round on a synchronous schedule (it is admitted the next
+    round; ``streaming`` admits it at once), looks like one outside
+    coverage.  The fault plane (``fault_*``, the reference's order) acts
+    on step 2 onwards: a down RSU's cohort gets cut 0 (its load is 0); a
+    mid-round dropout runs only its first ``floor(frac * steps)`` local
+    steps and its update is not merged (the server-side steps it took
+    stand); an upload loss trains in full and is not merged; a deadline
+    straggler (the float32 analytic latency at its cut above
+    ``fault_straggler x residence``) is not merged this round but banked
+    per RSU and merged the next at ``fault_staleness_discount``; at least
+    one scheduled vehicle always survives.  The FedAvg then weighs the
+    survivors only, and each local step of the parallel schedule
+    renormalises over the slots still active.
 
     ``superstep`` K runs K rounds as one window: planned on the host
     first (both capacity checks raise before any state changes), then run
@@ -1135,29 +1170,31 @@ class ScenarioEngine:
     covered cell) moves the vehicle and its data; server-side state stays
     at the RSU, and the vehicle-side model re-download is charged in the
     accounting.  ``batch_indices(rnd) -> (steps, n, batch)`` (default: the
-    numpy :func:`fleet_batch_indices`) and ``fleet_states`` exist so the
-    parity tests can feed both engines the reference's threefry draws.
-    ``cohort_parallel`` and ``scheme`` are single-RSU knobs, which the
-    reference's scenario engine ignores too.  Not ported here yet (they
-    raise): the ``streaming`` schedule and the fault plane."""
+    numpy :func:`fleet_batch_indices`), ``fleet_states``,
+    ``fault_draws(rnd) -> (drop, drop_frac, lost, rsu_down)`` (default:
+    :func:`faults.sample_scenario_faults_host`) and ``presence_toggles(rnd)
+    -> bool (n,)`` (default: :func:`streaming.sample_toggles_host`) exist
+    so the parity tests can feed both engines the reference's threefry
+    draws; everything after a draw is the engine's.  With every fault and
+    churn rate 0 and a schedule other than ``streaming`` none of these
+    planes runs, whatever their seeds.  ``cohort_parallel`` and ``scheme``
+    are single-RSU knobs, which the reference's scenario engine ignores
+    too."""
 
     def __init__(self, model, clients: Sequence[ClientDataset],
                  test: Dict[str, Any], cfg: SimConfig, scenario,
                  cloud_sync_every: int = 1, *, device: DeviceLike = None,
                  fleet_states: Optional[Callable[[int], Any]] = None,
-                 batch_indices: Optional[Callable[[int], np.ndarray]] = None):
-        defaults = SimConfig.__dataclass_fields__
-        for field in FAULT_FIELDS:
-            if getattr(cfg, field) != defaults[field].default:
-                raise NotImplementedError(
-                    f"SimConfig.{field}={getattr(cfg, field)!r}: not ported "
-                    f"yet on the ScenarioEngine (the port runs the fault "
-                    f"plane on the single-RSU FederationSim)")
-        if cfg.server_schedule == "streaming":
-            raise NotImplementedError(
-                "SimConfig.server_schedule='streaming': not ported yet on "
-                "the ScenarioEngine (the port runs the sequential and "
-                "parallel schedules)")
+                 batch_indices: Optional[Callable[[int], np.ndarray]] = None,
+                 fault_draws: Optional[Callable[[int], Tuple]] = None,
+                 presence_toggles: Optional[
+                     Callable[[int], np.ndarray]] = None):
+        self.faults = cfg.fault_config()
+        if self.faults.coverage:
+            raise ValueError(
+                "fault coverage (the legacy single-RSU mobility_dropout "
+                "in-range test) does not apply to the multi-RSU super-step "
+                "engine: scenarios model coverage through serving_rsu == -1")
         if len(clients) != scenario.n_vehicles:
             raise ValueError(f"{len(clients)} client shards for a scenario "
                              f"of {scenario.n_vehicles} vehicles")
@@ -1182,8 +1219,21 @@ class ScenarioEngine:
         self.stacked = stack_clients(self.clients, self.device)
         self.fleet_states = fleet_states or self._host_state
         self.batch_indices = batch_indices or self._host_batch_indices
-        self.parallel = cfg.server_schedule == "parallel"
-        self.mode = "parallel" if self.parallel else "loop"
+        self.stream = cfg.stream_config()
+        self.fault_draws = fault_draws or (
+            lambda rnd: faults.sample_scenario_faults_host(
+                self.faults, rnd, len(self.clients), self.n_rsus))
+        self.presence_toggles = presence_toggles or (
+            lambda rnd: streaming.sample_toggles_host(
+                self.stream, rnd, len(self.clients)))
+        # the planes run only when on (gated here, as the reference's
+        # program is): fz the fault plane, cz presence churn, sz the
+        # streaming schedule's StreamBuffer
+        self.fz = self.faults.stochastic
+        self.cz = self.stream.churning
+        self.sz = cfg.server_schedule == "streaming"
+        self.parallel = cfg.server_schedule in ("parallel", "streaming")
+        self.mode = cfg.server_schedule if self.parallel else "loop"
         self.layout = cfg.superstep_layout
         self.batch_steps = 0      # client batch steps run (lifetime)
         self.wire_bytes = 0       # bytes across the wire, both directions
@@ -1194,8 +1244,11 @@ class ScenarioEngine:
         self._states: Dict[int, Any] = {}
         self._cohort_counts: Dict[int, int] = {}
         self._covered_totals: Dict[int, int] = {}
-        self.reset()
-        self.plane = SS.FlatPlane(self.units, self.head)
+        # one init: the plane takes its layout from the parameters it loads
+        units, head = model.init(torch.Generator().manual_seed(cfg.seed))
+        self.plane = SS.FlatPlane(units, head)
+        self.set_params(units, head)
+        self.history: List[ScenarioRoundMetrics] = []
         if self.parallel:
             self.schedule = SS.ParallelSchedule(
                 model, cfg, self.opt, self.stacked, self.plane, self.device,
@@ -1223,6 +1276,25 @@ class ScenarioEngine:
         self.wire_res: List[Optional[torch.Tensor]] = [None] * n
         self.wire_cut = np.full(n, -1, np.int64)    # cut of each residual
         self._sync_count = 0
+        R, U, P = self.n_rsus, self.model.n_units, self.plane.size
+        if self.fz:
+            # the staleness bank: last round's deadline stragglers per RSU,
+            # their weighted replicas on the plane and, per unit (head
+            # column U is 0), the weight of those owning it
+            self.stale_num = torch.zeros((R, P), dtype=torch.float32,
+                                         device=self.device)
+            self.stale_den = np.zeros((R, U + 1), np.float32)
+        if self.cz:
+            self.present = np.ones(n, bool)     # all present at the start
+        if self.sz:
+            # the StreamBuffer: per RSU, B pending deltas on the plane,
+            # their merge weights, their ages in rounds and the fill count
+            B = int(self.stream.buffer_size)
+            self.sbuf = torch.zeros((R, B, P), dtype=torch.float32,
+                                    device=self.device)
+            self.sbuf_w = np.zeros((R, B), np.float32)
+            self.sbuf_age = np.zeros((R, B), np.int32)
+            self.sbuf_cnt = np.zeros(R, np.int32)
 
     # ---- staging ------------------------------------------------------
     def _nb_ep(self) -> Tuple[int, int]:
@@ -1329,16 +1401,58 @@ class ScenarioEngine:
                 "effective_flops_utilization": float(util)}
 
     # ---- the rounds ---------------------------------------------------
-    def _plan(self, rnd: int, cap: int, slots: int) -> Dict[str, Any]:
-        """Host side of round ``rnd``: fleet state, cuts, slot table and
-        batch indices.  Raises if a cohort overflows its slot table."""
+    def _host_planes(self) -> Dict[str, Any]:
+        """The host state a window's plans thread from round to round
+        (presence, the bank's weights, the StreamBuffer's bookkeeping);
+        the engine takes each round's from its plan after training it."""
+        ps: Dict[str, Any] = {}
+        if self.cz:
+            ps["present"] = self.present
+        if self.fz:
+            ps["stale_den"] = self.stale_den
+        if self.sz:
+            ps["sbuf"] = (self.sbuf_w, self.sbuf_age, self.sbuf_cnt)
+        return ps
+
+    def _plan(self, rnd: int, cap: int, slots: int,
+              ps: Dict[str, Any]) -> Dict[str, Any]:
+        """Host side of round ``rnd``: fleet state, presence, cuts, the
+        fault plan, slot table and batch indices (the reference's order,
+        ``superstep.py:1165-1248``).  ``ps`` is the host state after the
+        previous round, updated here to this round's.  Raises if a cohort
+        overflows its slot table."""
         st = self._state(rnd)
+        n, R, U = len(self.clients), self.n_rsus, self.model.n_units
         serving = np.asarray(st.serving_rsu, np.int64)
         rates = np.asarray(st.rates_bps, np.float32)
         residence = np.asarray(st.residence_s, np.float32)
+        plan: Dict[str, Any] = {"rnd": rnd}
+        if self.cz:
+            # presence: arrivals wait a round on the synchronous schedules
+            # (they still register and download the model), streaming
+            # admits them at once
+            if self.stream.churn_source == "mobility":
+                present = serving >= 0
+            else:
+                present = ps["present"] ^ np.asarray(
+                    self.presence_toggles(rnd), bool)
+            arrived = present & ~ps["present"]
+            admit = present if self.sz else present & ~arrived
+            serving, rates, residence = streaming.gate_presence(
+                serving, rates, residence, admit)
+            serving = serving.astype(np.int64)
+            ps["present"] = present
+            plan.update(n_present=int(present.sum()),
+                        n_arrived=int(arrived.sum()))
         cuts = self._pick_cuts(serving, rates, residence)
-        order, seg, counts = SS.slot_sort(serving, cuts, self.n_rsus,
-                                          self.model.n_units)
+        if self.fz:
+            drop, dfrac, lost, rsu_down = (np.asarray(a)
+                                           for a in self.fault_draws(rnd))
+            rsu_down = faults.ensure_rsu_up(rsu_down)
+            # a down RSU's cohort sits the round out before slot grouping
+            down_v = rsu_down[np.clip(serving, 0, R - 1)] & (serving >= 0)
+            cuts = np.where(down_v, 0, cuts)
+        order, seg, counts = SS.slot_sort(serving, cuts, R, U)
         if int(counts.max(initial=0)) > cap:
             raise RuntimeError(
                 f"per-RSU cohort of {int(counts.max())} exceeded slot "
@@ -1350,25 +1464,75 @@ class ScenarioEngine:
                 f"the compacted capacity {slots} in round {rnd}; the "
                 f"window was not run — raise the capacity and reset() the "
                 f"engine")
-        plan = {"rnd": rnd, "serving": serving, "rates": rates,
-                "cuts": cuts, "counts": counts,
-                "idx": np.asarray(self.batch_indices(rnd), np.int64)}
+        plan.update(serving=serving, rates=rates, cuts=cuts, counts=counts,
+                    idx=np.asarray(self.batch_indices(rnd), np.int64))
+        sched = cuts > 0
+        w_fleet = self.lengths.astype(np.float32)
+        steps = self._steps()
+        fault = None
+        if self.fz:
+            fc = self.faults
+            # precedence: a dropout has nothing left to upload; an upload
+            # loss discards what a straggler would have banked
+            drop = np.asarray(drop, bool) & sched
+            lost = np.asarray(lost, bool) & sched & ~drop
+            if fc.straggler_factor > 0.0:
+                nb, ep = self._nb_ep()
+                lat = adaptive.latency_matrix(
+                    self.profile, np.maximum(rates, np.float32(1.0)),
+                    self.fa["compute_flops"], self.cfg.server_flops, nb,
+                    self.cfg.batch_size, ep, range(1, U))
+                lat = lat[np.arange(n), np.clip(cuts - 1, 0, U - 2)]
+                strag = sched & (lat > np.float32(fc.straggler_factor)
+                                 * residence)
+            else:
+                strag = np.zeros(n, bool)
+            strag = strag & ~drop & ~lost
+            rescue = faults.rescue_mask(sched, drop | lost | strag)
+            drop, lost, strag = drop & ~rescue, lost & ~rescue, \
+                strag & ~rescue
+            dstep = faults.drop_steps(drop, dfrac, steps)
+            bank_in = ps["stale_den"]
+            # this round's bank weights, per RSU and unit, merge next round
+            bank_out = np.zeros((R, U + 1), np.float32)
+            for v in np.nonzero(strag)[0]:
+                bank_out[serving[v], :cuts[v]] += w_fleet[v]
+            ps["stale_den"] = bank_out
+            fault = (dstep, sched & ~drop & ~lost & ~strag, strag)
+            plan.update(rsu_down=rsu_down, bank_in=bank_in,
+                        bank_out=bank_out,
+                        stale_w=float(np.sum(bank_in, dtype=np.float32)))
+        else:   # every scheduled vehicle survives and runs every step
+            drop = lost = strag = np.zeros(n, bool)
+            dstep = np.full(n, steps, np.int32)
+        plan.update(drop=drop, lost=lost, strag=strag, dstep=dstep,
+                    surv=sched & ~drop & ~lost & ~strag)
         if self.parallel:
             members, slot_seg = SS.slot_table_flat(
                 order, seg, counts, self.layout, cap, slots)
-            plan["par"] = SS.plan_parallel(members, slot_seg, cuts,
-                                           self.lengths, self.n_rsus,
-                                           self.model.n_units)
+            plan["par"] = SS.plan_parallel(
+                members, slot_seg, cuts, self.lengths, R, U, fault, steps)
         else:
             plan["table"] = SS.slot_table_seq(order, counts, cap)
+        if self.sz:     # each RSU pushes the sample weight it merged
+            plan["stream"] = SS.plan_stream(
+                *ps["sbuf"], plan["par"].w_seg, self.stream.buffer_size,
+                self.stream.kernel, self.stream.alpha)
+            ps["sbuf"] = plan["stream"].post
+        plan["post"] = dict(ps)
         return plan
 
-    def _rsu_round(self, edge, members, cuts, idx, ef):
+    def _rsu_round(self, edge, members, cuts, idx, ef, plan, bank=None):
         """One RSU's round on its edge model (sequential schedule): fresh
         RSU and replica optimizer states, ``steps`` passes over the slots
-        in order, then the unit-wise FedAvg.  Returns (edge model, loss
-        sum, client batch steps, sample weight)."""
-        opt, model = self.opt, self.model
+        in order, each vehicle stopping at its performed steps, then the
+        unit-wise FedAvg over the survivors.  ``bank`` (the fault plane):
+        (the RSU's bank weights (U + 1,) and numerator (P,) from last
+        round, the discount), or None without one.  Returns (edge model,
+        loss sum, client batch steps, sample weight merged, this round's
+        bank numerator (P,) or None)."""
+        opt, model, plane = self.opt, self.model, self.plane
+        dstep = plan["dstep"]
         sv = {"units": list(edge["units"]), "head": edge["head"]}
         so = opt.init(sv)
         cus = [list(edge["units"][:cuts[v]]) for v in members]
@@ -1378,6 +1542,8 @@ class ScenarioEngine:
         for s in range(self._steps()):
             for i, v in enumerate(members):
                 v, cut = int(v), int(cuts[v])
+                if s >= dstep[v]:
+                    continue                # dropped: stops at its step
                 x = self.stacked.images[v][idx[s, v]]
                 y = self.stacked.labels[v][idx[s, v]]
                 svs = {"units": list(sv["units"][cut:]), "head": sv["head"]}
@@ -1391,52 +1557,114 @@ class ScenarioEngine:
                 loss_sum = loss_sum + loss
                 cnt += 1
                 self.wire_bytes += nbytes
-        # unit-wise FedAvg: replicas of every unit before their cut, and the
-        # RSU copy at the weight of every member that did not own the unit
+        # unit-wise FedAvg over the survivors: replicas of every unit before
+        # their cut, and the RSU copy at the weight of every survivor that
+        # did not own the unit, plus last round's bank at the discount
         w_slots = self.lengths[members].astype(np.float32)
-        w_total = np.float32(w_slots.sum(dtype=np.float32))
-        den = float(max(w_total, np.float32(1.0)))
-        merged = []
+        keep, strag = plan["surv"][members], plan["strag"][members]
+        w_total = np.float32(w_slots[keep].sum(dtype=np.float32))
+        merged, banked = [], None
         for u in range(model.n_units):
-            own = [i for i, v in enumerate(members) if cuts[v] > u]
+            own = [i for i, v in enumerate(members)
+                   if cuts[v] > u and keep[i]]
             w_own = w_slots[own]
             swu = np.float32(w_total - w_own.sum(dtype=np.float32))
             num = aggregation.weighted_sum(
                 [cus[i][u] for i in own] + [sv["units"][u]],
                 list(w_own) + [swu])
-            merged.append(tree_map(lambda nm, ref: (nm / den).to(ref.dtype),
-                                   num, sv["units"][u]))
+            den_u = w_total
+            if bank is not None and bank[0][u] > 0.0:
+                bank_den, bank_num, disc = bank
+                den_u = np.float32(w_total + np.float32(disc) * bank_den[u])
+                num = tree_map(lambda nm, st: nm + disc * st, num,
+                               plane.units(bank_num, u, u + 1)[0])
+            # the guard is a where: the weight can sit in (0, 1)
+            merged.append(
+                tree_map(lambda nm, ref: (nm / float(den_u)).to(ref.dtype),
+                         num, sv["units"][u])
+                if den_u > 0.0 else edge["units"][u])
+            late = [i for i, v in enumerate(members)
+                    if cuts[v] > u and strag[i]]
+            if late:
+                if banked is None:
+                    banked = torch.zeros(plane.size, dtype=torch.float32,
+                                         device=self.device)
+                banked[plane.offsets[u]:plane.offsets[u + 1]] = \
+                    plane.unit_vector(aggregation.weighted_sum(
+                        [cus[i][u] for i in late], list(w_slots[late])), u)
         return ({"units": merged, "head": sv["head"]}, loss_sum, cnt,
-                w_total)
+                w_total, banked)
 
     def _train_sequential(self, plan, idx, ef):
         loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
         cnt = 0
         members, mask = plan["table"]
+        banked = None
         for r in range(self.n_rsus):
-            if not mask[r].any():
+            bank = None
+            if self.fz and plan["bank_in"][r].any():
+                bank = (plan["bank_in"][r], self.stale_num[r],
+                        self.faults.staleness_discount)
+            # an RSU without members merges only a bank it holds
+            if not mask[r].any() and bank is None:
                 continue
-            self.edges[r], ls, c, w = self._rsu_round(
-                self.edges[r], members[r][mask[r]], plan["cuts"], idx, ef)
+            self.edges[r], ls, c, w, bank_r = self._rsu_round(
+                self.edges[r], members[r][mask[r]], plan["cuts"], idx, ef,
+                plan, bank)
             loss_sum = loss_sum + ls
             cnt += c
             self.samples[r] += w
+            if bank_r is not None:
+                if banked is None:
+                    banked = torch.zeros_like(self.stale_num)
+                banked[r] = bank_r
+        if self.fz:
+            self.stale_num = banked if banked is not None \
+                else torch.zeros_like(self.stale_num)
         return loss_sum, cnt
 
     def _train_parallel(self, plan, idx, ef, dev):
         par, pl = plan["par"], self.plane
         planes = torch.stack([pl.flatten(e["units"], e["head"])
                               for e in self.edges])
-        planes, loss_sum, nbytes = self.schedule.run_round(
-            planes, par, dev, idx, self.wire_res if ef else None)
-        self.edges = [dict(zip(("units", "head"), pl.tree(planes[r])))
+        bank = None
+        if self.fz and plan["bank_in"].any():
+            bank = (self.faults.staleness_discount, self.stale_num)
+        merged, loss_sum, nbytes, banked = self.schedule.run_round(
+            planes, par, dev, idx, self.wire_res if ef else None, bank)
+        if self.fz:
+            self.stale_num = banked if banked is not None \
+                else torch.zeros_like(self.stale_num)
+        if self.sz:
+            merged = self._stream_commit(planes, merged, plan["stream"], dev)
+        self.edges = [dict(zip(("units", "head"), pl.tree(merged[r])))
                       for r in range(self.n_rsus)]
         self.samples += par.w_seg
         self.wire_bytes += nbytes
-        steps = self._steps()
-        self.bucket_steps += len(par.buckets) * steps
-        self.rsu_bucket_steps += sum(len(b.runs) for b in par.buckets) * steps
-        return loss_sum, par.n_slots * steps
+        if par.fault is None:
+            steps = self._steps()
+            self.bucket_steps += len(par.buckets) * steps
+            self.rsu_bucket_steps += sum(len(b.runs)
+                                         for b in par.buckets) * steps
+            return loss_sum, par.n_slots * steps
+        for step in par.fault.steps:
+            self.bucket_steps += len(step)
+            self.rsu_bucket_steps += sum(len(sb.sub.runs) for sb in step)
+        return loss_sum, int(np.sum(plan["dstep"][plan["cuts"] > 0]))
+
+    def _stream_commit(self, planes, merged, sp, dev):
+        """The StreamBuffer commit of one round (:func:`superstep.
+        plan_stream`): each RSU that merged sample weight pushes its delta
+        ``merged - planes`` into its next free slot; a full buffer's RSU
+        moves to ``planes + sum_b kw_b delta_b / den``; the rest keep
+        ``planes``."""
+        for r, slot in sp.pushes:
+            self.sbuf[r, slot] = merged[r] - planes[r]
+        if not sp.fire.any():
+            return planes
+        step = planes + torch.einsum("rb,rbp->rp", dev("kw"),
+                                     self.sbuf) / dev("den_b")[:, None]
+        return torch.where(dev("fire")[:, None] > 0, step, planes)
 
     def _train_round(self, plan, staged, i):
         """Round ``plan`` on the device; host bookkeeping only (no read
@@ -1455,6 +1683,13 @@ class ScenarioEngine:
                 plan, idx, ef, lambda *k: staged.get((i,) + k))
         else:
             loss_sum, cnt = self._train_sequential(plan, idx, ef)
+        post = plan["post"]
+        if self.cz:
+            self.present = post["present"]
+        if self.fz:
+            self.stale_den = post["stale_den"]
+        if self.sz:
+            self.sbuf_w, self.sbuf_age, self.sbuf_cnt = post["sbuf"]
         self.batch_steps += cnt
         if ef:
             self.wire_cut = np.where(sched, cuts, self.wire_cut)
@@ -1479,31 +1714,29 @@ class ScenarioEngine:
         horizon = max(self.cfg.rounds, rnd0 + k)
         cap = self._capacity(horizon)
         slots = self._total_slots(horizon)
-        plans = [self._plan(r, cap, slots) for r in range(rnd0, rnd0 + k)]
+        ps = self._host_planes()
+        plans = [self._plan(r, cap, slots, ps) for r in range(rnd0, rnd0 + k)]
         arrays: Dict[Any, np.ndarray] = {}
         for i, plan in enumerate(plans):
             arrays[("idx", i)] = plan["idx"]
             if self.parallel:
                 SS.stage_parallel(plan["par"], i, arrays)
+                if self.fz and plan["bank_in"].any():
+                    arrays[(i, "st_den")] = plan["bank_in"]
+                if self.sz and plan["stream"].fire.any():
+                    sp = plan["stream"]
+                    arrays[(i, "kw")] = sp.kw
+                    arrays[(i, "den_b")] = sp.den
+                    arrays[(i, "fire")] = sp.fire.astype(np.float32)
         staged = SS.Staged(arrays, self.device)
         runs = [self._train_round(plan, staged, i)
                 for i, plan in enumerate(plans)]
         losses = torch.stack([ls for ls, _, _ in runs]).tolist()
         out, eval_due, last_synced = [], False, None
         for i, (plan, (_, cnt, handover)) in enumerate(zip(plans, runs)):
-            cuts, serving = plan["cuts"], plan["serving"]
-            sched = cuts > 0
-            comm, lat, energy = self._accounting(plan["rates"], cuts, sched,
-                                                 handover)
-            out.append(ScenarioRoundMetrics(
-                plan["rnd"], losses[i] / max(float(cnt), 1.0),
-                float("nan"), comm, lat, energy,
-                n_scheduled=int(sched.sum()),
-                n_skipped=int(((serving >= 0) & ~sched).sum()),
-                n_handover=int(handover.sum()),
-                rsu_loads=[int(c) for c in plan["counts"]],
-                cuts=[int(c) for c in cuts],
-                absorbed_samples=float(self.lengths[sched].sum())))
+            out.append(self._round_metrics(plan, losses[i] / max(float(cnt),
+                                                                1.0),
+                                           handover))
             if (plan["rnd"] + 1) % self.cloud_sync_every == 0:
                 ev = self.cfg.eval_every
                 if ev and self._sync_count % ev == 0:
@@ -1517,6 +1750,43 @@ class ScenarioEngine:
                                                  self.head, self.test)
         return out
 
+    def _round_metrics(self, plan, loss: float,
+                       handover) -> ScenarioRoundMetrics:
+        cuts, serving = plan["cuts"], plan["serving"]
+        sched = cuts > 0
+        comm, lat, energy = self._accounting(plan, sched, handover)
+        m = ScenarioRoundMetrics(
+            plan["rnd"], loss, float("nan"), comm, lat, energy,
+            n_scheduled=int(sched.sum()),
+            n_skipped=int(((serving >= 0) & ~sched).sum()),
+            n_handover=int(handover.sum()),
+            rsu_loads=[int(c) for c in plan["counts"]],
+            cuts=[int(c) for c in cuts],
+            absorbed_samples=float(self.lengths[plan["surv"]].sum()))
+        if self.fz:
+            bytes_cum = np.concatenate(
+                [[0.0], np.cumsum(self.profile.unit_param_bytes)])
+            m.n_dropout = int(plan["drop"].sum())
+            m.n_upload_lost = int(plan["lost"].sum())
+            m.n_straggler = int(plan["strag"].sum())
+            m.n_rsu_down = int(plan["rsu_down"].sum())
+            m.survivor_frac = (float(plan["surv"].sum())
+                               / max(int(sched.sum()), 1))
+            # stragglers are banked, not lost: only drop / lost updates die
+            m.lost_update_bytes = float(
+                bytes_cum[cuts[plan["drop"] | plan["lost"]]].sum())
+            m.stale_merged = plan["stale_w"]
+        if self.cz:
+            m.n_present, m.n_arrived = plan["n_present"], plan["n_arrived"]
+        if self.sz:
+            # absorption happens when a buffer fires
+            sp = plan["stream"]
+            m.absorbed_samples = sp.absorbed
+            m.stream_merges = sp.fires
+            m.buffer_occupancy = sp.occupancy
+            m.stream_stale = sp.stale
+        return m
+
     def run_round(self, rnd: int) -> ScenarioRoundMetrics:
         return self.run_superstep(rnd, 1)[0]
 
@@ -1524,12 +1794,17 @@ class ScenarioEngine:
             on_round: Optional[Callable[[ScenarioRoundMetrics],
                                         None]] = None,
             on_cloud_merge: Optional[Callable[[int, "ScenarioEngine"],
-                                              None]] = None
+                                              None]] = None,
+            on_stream_merge: Optional[Callable[[ScenarioRoundMetrics,
+                                                "ScenarioEngine"],
+                                               None]] = None
             ) -> List[ScenarioRoundMetrics]:
         """Run ``cfg.rounds`` rounds in windows of ``superstep`` rounds;
-        after each window ``on_round(metrics)`` for each of its rounds and
-        ``on_cloud_merge(rnd, engine)`` after each of its cloud syncs
-        (seeing the engine as the window left it)."""
+        after each window ``on_round(metrics)`` for each of its rounds,
+        ``on_cloud_merge(rnd, engine)`` after each of its cloud syncs and
+        ``on_stream_merge(metrics, engine)`` after each of its rounds in
+        which a StreamBuffer fired (each seeing the engine as the window
+        left it)."""
         k = max(int(self.cfg.superstep), 1)
         for rnd0 in range(0, self.cfg.rounds, k):
             window = self.run_superstep(rnd0, min(k, self.cfg.rounds - rnd0))
@@ -1540,25 +1815,30 @@ class ScenarioEngine:
                 if (on_cloud_merge is not None
                         and (m.round + 1) % self.cloud_sync_every == 0):
                     on_cloud_merge(m.round, self)
+                if on_stream_merge is not None and m.stream_merges > 0:
+                    on_stream_merge(m, self)
         return self.history
 
-    def _accounting(self, rates, cuts, sched, handover):
+    def _accounting(self, plan, sched, handover):
         """Analytic comm / latency / energy over the scheduled vehicles,
         plus the handover migration bytes (the vehicle-side sub-model
-        re-downloaded at the new cell)."""
-        cfgc = self.cfg
+        re-downloaded at the new cell).  Each vehicle pays the steps it
+        performed, a dropout no model upload, and the round's latency is
+        the slowest merged survivor's."""
+        cfgc, cuts = self.cfg, plan["cuts"]
         act = np.nonzero(sched)[0]
         bytes_cum = np.concatenate(
             [[0.0], np.cumsum(self.profile.unit_param_bytes)])
         ho_bytes = float(bytes_cum[cuts[handover]].sum())
         if not len(act):
             return ho_bytes, 0.0, 0.0
-        nb, ep = self._nb_ep()
         rc = cost.sfl_round_cost_arrays(
-            self.profile, cuts[act], nb, cfgc.batch_size,
-            np.maximum(np.asarray(rates, np.float64)[act], 1.0),
-            self.fa["compute_flops"][act], cfgc.server_flops, ep,
+            self.profile, cuts[act], plan["dstep"][act], cfgc.batch_size,
+            np.maximum(np.asarray(plan["rates"], np.float64)[act], 1.0),
+            self.fa["compute_flops"][act], cfgc.server_flops, 1,
             self.fa["tx_power_w"][act], self.fa["compute_power_w"][act],
-            wire=cfgc.wire_scheme(), wire_k=cfgc.wire_k)
-        return (float(rc.comm_bytes.sum()) + ho_bytes,
-                float(rc.latency.max()), float(rc.energy_j.sum()))
+            wire=cfgc.wire_scheme(), wire_k=cfgc.wire_k,
+            model_upload=~plan["drop"][act])
+        lat = float(np.max(rc.latency[plan["surv"][act]], initial=0.0))
+        return (float(rc.comm_bytes.sum()) + ho_bytes, lat,
+                float(rc.energy_j.sum()))

@@ -56,6 +56,19 @@ class FleetState:
         return self.positions.shape[0]
 
 
+def apply_presence(state: FleetState, present) -> FleetState:
+    """Arrivals and departures over any scenario: a departed vehicle looks
+    like one outside coverage (``serving_rsu = -1``, rate 0, residence 0;
+    int32 / float32 / float32, as the reference's)."""
+    present = np.asarray(present, bool)
+    return FleetState(
+        t=state.t, positions=state.positions, velocities=state.velocities,
+        serving_rsu=np.where(present, state.serving_rsu, -1).astype(np.int32),
+        rates_bps=np.where(present, state.rates_bps, 0.0).astype(np.float32),
+        residence_s=np.where(present, state.residence_s,
+                             0.0).astype(np.float32))
+
+
 # --------------------------------------------------------------------------
 # shared vectorized geometry
 # --------------------------------------------------------------------------

@@ -70,6 +70,28 @@ the two layouts run the same operations on the same occupied slots: bit
 for bit the same training.  The layout decides the slot table, its
 capacity checks and :meth:`occupancy_stats` of the engine.
 
+**The fault plane** (:class:`FaultPlan`; the reference's
+``superstep.py:1027-1110``).  A dropout runs only its first ``dstep``
+local steps: per local step only the slots still active run, so a bucket's
+step gathers its active rows (``pos``) and copies their updated replicas,
+moments and residuals back; a (cut bucket, local step) with no active slot
+launches nothing, a (cut bucket, RSU, local step) without one no fused
+matmul.  Each step's gradient weights renormalise over the active slots
+(``gw = w / max(w_step[seg], 1)``) and an RSU with none keeps its model.
+The FedAvg weighs the survivors only (a failed replica folds in at weight
+exactly 0) plus last round's staleness bank at the discount,
+``(num + (w - own) sv + disc st_num) / (w + disc st_den)`` where that
+denominator is positive, else the RSU's model before the round; this
+round's deadline stragglers form the next bank on the same plane.
+
+**The StreamBuffer** (``server_schedule="streaming"``,
+:func:`plan_stream`): the parallel round's result is not committed; each
+RSU that merged sample weight pushes ``merged - planes`` into its next
+free slot of B, and a full buffer moves the RSU to ``planes + sum_b kw_b
+delta_b / den`` with ``kw`` = weight x staleness kernel(age) (empty slots
+at weight 0).  The bookkeeping (weights, ages, fill, which buffers fire)
+is planned on the host with the round; the deltas live on the device.
+
 **The window** (``superstep`` K).  The engine plans K rounds on the host
 (fleet states, cuts, slot tables, the capacity checks, which raise before
 any state changes), stages their index arrays on the device in one copy,
@@ -89,6 +111,7 @@ import numpy as np
 import torch
 
 from repro_torch import optim
+from repro_torch.core import streaming
 from repro_torch.kernels import wire as wire_kernels
 from repro_torch.tree import tree_flatten, tree_leaves, tree_map
 
@@ -226,6 +249,12 @@ class FlatPlane:
                   for t in tree_leaves(tree_map(lambda _, a: a, tmpl, part))]
         return torch.cat(leaves)
 
+    def unit_vector(self, tree, u: int) -> torch.Tensor:
+        """Unit ``u`` (a tree like the plane's unit u) as its flat slice
+        of the plane, positions ``[offsets[u], offsets[u + 1])``."""
+        return torch.cat([t.reshape(-1) for t in tree_leaves(
+            tree_map(lambda _, a: a, self._templates[u], tree))])
+
     def _part(self, flat: torch.Tensor, u: int, base: int):
         rebuild, spec, _ = self._parts[u]
         return rebuild([flat[o - base:o - base + k].view(shape)
@@ -265,42 +294,124 @@ class Bucket:
 
 
 @dataclasses.dataclass
+class StepBucket:
+    """Under the fault plane, the slots of bucket ``bucket`` that run one
+    local step: ``pos`` their positions in the bucket (None: all) and
+    ``sub`` their members, RSUs, weights, this step's gradient weights and
+    runs."""
+    bucket: int
+    pos: Optional[np.ndarray]
+    sub: Bucket
+
+
+@dataclasses.dataclass
+class FaultPlan:
+    """The fault plane's part of a parallel round.  ``steps[s]`` lists the
+    buckets with a slot still active at local step s (a dropout stops at
+    its drop step); ``w_step`` (steps, R) is each RSU's active weight per
+    step; ``w_surv`` / ``w_strag`` per bucket the slots' weights in the
+    FedAvg (survivors) and in the staleness bank (deadline stragglers)."""
+    steps: List[List[StepBucket]]
+    w_step: np.ndarray
+    w_surv: List[np.ndarray]
+    w_strag: List[np.ndarray]
+
+
+@dataclasses.dataclass
 class ParallelPlan:
     """Host side of one parallel round: its buckets (ascending cut) and
-    the per-RSU weights of the FedAvg."""
+    the per-RSU weights of the FedAvg (of the survivors under the fault
+    plane, whose part is ``fault``)."""
     buckets: List[Bucket]
     w_seg: np.ndarray                   # (R,) float32
     own_w: np.ndarray                   # (R, U + 1) float32, head column 0
     n_slots: int
+    fault: Optional[FaultPlan] = None
+
+
+def _runs(seg: np.ndarray) -> List[Tuple[int, int, int]]:
+    """(rsu, start, stop) of each RSU's run in slots sorted RSU-major."""
+    runs = []
+    for r in np.unique(seg):
+        idx = np.nonzero(seg == r)[0]
+        runs.append((int(r), int(idx[0]), int(idx[-1]) + 1))
+    return runs
+
+
+def _seg_sums(w: np.ndarray, seg: np.ndarray, n_rsus: int) -> np.ndarray:
+    out = np.zeros(n_rsus, np.float32)
+    for r in range(n_rsus):              # integer counts: exact in f32
+        out[r] = np.sum(w[seg == r], dtype=np.float32)
+    return out
+
+
+def own_weights(w: np.ndarray, seg: np.ndarray, cut: np.ndarray,
+                n_rsus: int, n_units: int) -> np.ndarray:
+    """(R, U + 1) float32: per RSU, the weight of its slots that own each
+    unit (cut > u); the head column U is 0."""
+    own = np.zeros((n_rsus, n_units + 1), np.float32)
+    for c in np.unique(cut):
+        for r in np.unique(seg[cut == c]):
+            own[r, :int(c)] += np.sum(w[(cut == c) & (seg == r)],
+                                      dtype=np.float32)
+    return own
 
 
 def plan_parallel(members: np.ndarray, slot_seg: np.ndarray,
                   cuts: np.ndarray, lengths: np.ndarray, n_rsus: int,
-                  n_units: int) -> ParallelPlan:
+                  n_units: int, fault=None, steps: int = 1) -> ParallelPlan:
     """The occupied slots of a flat slot table (either layout), grouped by
-    cut in slot order, with their weights (float32, as the reference)."""
+    cut in slot order, with their weights (float32, as the reference).
+    ``fault = (dstep, surv, strag)``, fleet-indexed: each vehicle's
+    performed local steps, and whether its update merges or is banked."""
     occ = np.asarray(slot_seg) < n_rsus
     mem = np.asarray(members)[occ]
     seg = np.asarray(slot_seg)[occ]
     cut = np.asarray(cuts)[mem]
     w = np.asarray(lengths)[mem].astype(np.float32)
-    w_seg = np.zeros(n_rsus, np.float32)
-    for r in range(n_rsus):              # integer counts: exact in f32
-        w_seg[r] = np.sum(w[seg == r], dtype=np.float32)
+    w_seg = _seg_sums(w, seg, n_rsus)
     den = np.maximum(w_seg, np.float32(1.0))
     gw = (w / den[seg]).astype(np.float32)
-    own = np.zeros((n_rsus, n_units + 1), np.float32)
     buckets = []
     for c in np.unique(cut):
         pos = np.nonzero(cut == c)[0]
-        bseg = seg[pos]
-        runs = []
-        for r in np.unique(bseg):
-            idx = np.nonzero(bseg == r)[0]
-            runs.append((int(r), int(idx[0]), int(idx[-1]) + 1))
-            own[r, :int(c)] += np.sum(w[pos][idx], dtype=np.float32)
-        buckets.append(Bucket(int(c), mem[pos], bseg, w[pos], gw[pos], runs))
-    return ParallelPlan(buckets, w_seg, own, int(occ.sum()))
+        buckets.append(Bucket(int(c), mem[pos], seg[pos], w[pos], gw[pos],
+                              _runs(seg[pos])))
+    if fault is None:
+        return ParallelPlan(buckets, w_seg,
+                            own_weights(w, seg, cut, n_rsus, n_units),
+                            int(occ.sum()))
+    dstep, surv, strag = (np.asarray(a) for a in fault)
+    w_surv = (w * surv[mem]).astype(np.float32)
+    w_step = np.zeros((steps, n_rsus), np.float32)
+    per_step = []
+    for s in range(steps):
+        act = dstep[mem] > s
+        w_step[s] = _seg_sums((w * act).astype(np.float32), seg, n_rsus)
+        den_s = np.maximum(w_step[s], np.float32(1.0))
+        step = []
+        for b, bk in enumerate(buckets):
+            a = dstep[bk.members] > s
+            if not a.any():
+                continue
+            gw_s = (bk.w / den_s[bk.seg]).astype(np.float32)
+            if a.all():
+                step.append(StepBucket(b, None, dataclasses.replace(
+                    bk, gw=gw_s)))
+                continue
+            p = np.nonzero(a)[0]
+            step.append(StepBucket(b, p, Bucket(
+                bk.cut, bk.members[p], bk.seg[p], bk.w[p], gw_s[p],
+                _runs(bk.seg[p]))))
+        per_step.append(step)
+    fp = FaultPlan(per_step, w_step,
+                   [(bk.w * surv[bk.members]).astype(np.float32)
+                    for bk in buckets],
+                   [(bk.w * strag[bk.members]).astype(np.float32)
+                    for bk in buckets])
+    return ParallelPlan(buckets, _seg_sums(w_surv, seg, n_rsus),
+                        own_weights(w_surv, seg, cut, n_rsus, n_units),
+                        int(occ.sum()), fp)
 
 
 class Staged:
@@ -337,6 +448,20 @@ def stage_parallel(plan: ParallelPlan, key, arrays: Dict[Any, np.ndarray]):
         arrays[(key, b, "gw")] = bk.gw
     arrays[(key, "w_seg")] = plan.w_seg
     arrays[(key, "own_w")] = plan.own_w
+    fp = plan.fault
+    if fp is None:
+        return
+    for b in range(len(plan.buckets)):
+        arrays[(key, b, "w_surv")] = fp.w_surv[b]
+        arrays[(key, b, "w_strag")] = fp.w_strag[b]
+    arrays[(key, "w_step")] = fp.w_step
+    for s, step in enumerate(fp.steps):
+        for j, sb in enumerate(step):
+            arrays[(key, "s", s, j, "gw")] = sb.sub.gw
+            if sb.pos is not None:
+                arrays[(key, "s", s, j, "pos")] = sb.pos
+                arrays[(key, "s", s, j, "members")] = sb.sub.members
+                arrays[(key, "s", s, j, "seg")] = sb.sub.seg
 
 
 # ------------------------------------------------------- the parallel round
@@ -442,13 +567,18 @@ class ParallelSchedule:
 
     # ---- the round -----------------------------------------------------
     def run_round(self, planes: torch.Tensor, plan: ParallelPlan,
-                  dev, idx: torch.Tensor, residuals: Optional[list]):
+                  dev, idx: torch.Tensor, residuals: Optional[list],
+                  bank: Optional[Tuple[float, torch.Tensor]] = None):
         """One parallel round over the RSU models ``planes`` (R, P).
         ``dev(name)`` / ``dev(b, name)`` give the round's staged arrays,
         ``idx`` (steps, n, B) the batch indices, ``residuals`` the
         per-vehicle error-feedback residuals (topk_int8; renewed in place).
-        Returns (new planes, loss sum on the device, wire bytes)."""
+        Under the fault plane (``plan.fault``) ``bank`` is the staleness
+        discount and last round's bank numerator (R, P), or None when it
+        is empty.  Returns (new planes, loss sum on the device, wire bytes,
+        this round's bank numerator or None)."""
         opt, plane = self.opt, self.plane
+        fp = plan.fault
         steps = idx.shape[0]
         sv = planes
         so = torch.func.vmap(opt.init)(sv)
@@ -474,21 +604,50 @@ class ParallelSchedule:
         images, labels = self.stacked.images, self.stacked.labels
         for s in range(steps):
             g_srv = torch.zeros_like(sv)
-            for bk, st in zip(plan.buckets, states):
-                d, cu, co, idx_b, res = st
+            if fp is None:
+                runs = [(b, None, bk, states[b][0])
+                        for b, bk in enumerate(plan.buckets)]
+            else:
+                runs = [(sb.bucket, sb.pos, sb.sub,
+                         self._step_dev(dev, states[sb.bucket][0], s, j,
+                                        sb.pos))
+                        for j, sb in enumerate(fp.steps[s])]
+            for b, pos, bk, d in runs:
+                st = states[b]
+                _, cu, co, idx_b, res = st
+                if pos is not None:      # the bucket's slots still active
+                    p = d["pos"]
+                    cu, co = cu[p], {k: v[p] for k, v in co.items()}
+                    res = None if res is None else res[p]
+                    idx_s = idx_b[s][p]
+                else:
+                    idx_s = idx_b[s]
                 rows = d["members"][:, None]
-                x, y = images[rows, idx_b[s]], labels[rows, idx_b[s]]
-                g_cu, ls, shares, st[4], nb = self._bucket_step(
+                x, y = images[rows, idx_s], labels[rows, idx_s]
+                g_cu, ls, shares, res, nb = self._bucket_step(
                     bk, d, sv, cu, x, y, res)
                 off = plane.offsets[bk.cut]
                 for r, share in shares:
                     g_srv[r, off:] += share
-                upd, st[2] = torch.func.vmap(opt.update)(g_cu, co, cu)
-                st[1] = optim.apply_updates(cu, upd)
+                upd, co = torch.func.vmap(opt.update)(g_cu, co, cu)
+                cu = optim.apply_updates(cu, upd)
+                if pos is None:
+                    st[1], st[2], st[4] = cu, co, res
+                else:
+                    st[1] = st[1].index_copy(0, p, cu)
+                    st[2] = {k: st[2][k].index_copy(0, p, v)
+                             for k, v in co.items()}
+                    if res is not None:
+                        full = st[4] if st[4] is not None else \
+                            res.new_zeros((len(idx_b[s]),) + res.shape[1:])
+                        st[4] = full.index_copy(0, p, res)
                 loss = loss + ls
                 nbytes += nb
             upd, so2 = torch.func.vmap(opt.update)(g_srv, so, sv)
             sv2 = optim.apply_updates(sv, upd)
+            if fp is not None:           # RSUs with a slot active this step
+                active = fp.w_step[s] > 0
+                act_t = dev("w_step")[s] > 0
             if active.all():
                 sv, so = sv2, so2
             else:
@@ -497,18 +656,107 @@ class ParallelSchedule:
                                      v, so[k]) for k, v in so2.items()}
         # unit-wise FedAvg: replicas of every unit they own, the RSU copy
         # at the remaining weight; the rest of the plane as (w_seg sv)/den
+        # (under the fault plane the survivors' weights, a failed replica
+        # folding in as an exact +0, and last round's bank at the discount)
         num = torch.zeros_like(sv)
-        for bk, (d, cu, _, _, res) in zip(plan.buckets, states):
+        banked = None
+        if fp is not None and any(w.any() for w in fp.w_strag):
+            banked = torch.zeros_like(sv)
+        for b, (bk, (d, cu, _, _, res)) in enumerate(zip(plan.buckets,
+                                                         states)):
             off = plane.offsets[bk.cut]
-            for r, a, b in bk.runs:
-                num[r, :off] += torch.tensordot(d["w"][a:b], cu[a:b],
+            w = d["w"] if fp is None else dev(b, "w_surv")
+            for r, a, e in bk.runs:
+                num[r, :off] += torch.tensordot(w[a:e], cu[a:e],
                                                 dims=([0], [0]))
-            if residuals is not None:
+                if banked is not None and fp.w_strag[b][a:e].any():
+                    banked[r, :off] += torch.tensordot(
+                        dev(b, "w_strag")[a:e], cu[a:e], dims=([0], [0]))
+            if residuals is not None and res is not None:
                 for i, v in enumerate(bk.members):
                     residuals[v] = res[i]
         own_pos = dev("own_w")[:, self.unit_ids]        # (R, P)
-        den = torch.clamp(w_seg, min=1.0)[:, None]
-        merged = (num + (w_seg[:, None] - own_pos) * sv) / den
-        if not active.all():
-            merged = torch.where(act_t[:, None], merged, planes)
-        return merged, loss, nbytes
+        if fp is None:
+            den = torch.clamp(w_seg, min=1.0)[:, None]
+            merged = (num + (w_seg[:, None] - own_pos) * sv) / den
+            if not active.all():
+                merged = torch.where(act_t[:, None], merged, planes)
+            return merged, loss, nbytes, None
+        top = num + (w_seg[:, None] - own_pos) * sv
+        den = w_seg[:, None].expand_as(sv)
+        if bank is not None:
+            disc, st_num = bank
+            den = den + disc * dev("st_den")[:, self.unit_ids]
+            top = top + disc * st_num
+        pos_den = den > 0
+        merged = torch.where(pos_den, top / torch.where(pos_den, den, 1.0),
+                             planes)
+        return merged, loss, nbytes, banked
+
+    @staticmethod
+    def _step_dev(dev, full, s: int, j: int, pos):
+        """The staged arrays of the j-th active bucket of local step s."""
+        d = {"gw": dev("s", s, j, "gw")}
+        if pos is None:
+            d.update(members=full["members"], seg=full["seg"])
+        else:
+            d.update(pos=dev("s", s, j, "pos"),
+                     members=dev("s", s, j, "members"),
+                     seg=dev("s", s, j, "seg"))
+        return d
+
+
+# ---------------------------------------------------------- the StreamBuffer
+@dataclasses.dataclass
+class StreamStep:
+    """Host side of one round's StreamBuffer commit: the pushed deltas as
+    (rsu, buffer slot), which RSUs' buffers fire, the merge weights
+    ``kw`` (R, B) = weight x staleness kernel(age) x occupied and their
+    guarded sums ``den`` (R,), the merge telemetry (read before the
+    post-fire reset) and the buffer's bookkeeping after the round."""
+    pushes: List[Tuple[int, int]]
+    fire: np.ndarray
+    kw: np.ndarray
+    den: np.ndarray
+    absorbed: float
+    fires: int
+    occupancy: float
+    stale: float
+    post: Tuple[np.ndarray, np.ndarray, np.ndarray]   # weights, ages, fill
+
+
+def plan_stream(weights: np.ndarray, ages: np.ndarray, fill: np.ndarray,
+                w_tot: np.ndarray, buffer_size: int, kernel: str,
+                alpha: float) -> StreamStep:
+    """One round of the per-RSU StreamBuffer (the reference's
+    ``superstep.py:1355-1431``, in float32): every RSU that merged sample
+    weight this round pushes its delta into its next free slot; a buffer
+    holding ``buffer_size`` deltas fires a staleness-weighted survivor
+    FedAvg of them (empty slots fold in at weight 0); fired buffers clear
+    and the others' pending deltas age by one round."""
+    B = int(buffer_size)
+    w, age = weights.copy(), ages.copy()
+    pushed = w_tot > 0.0
+    pushes = [(int(r), int(fill[r])) for r in np.nonzero(pushed)[0]]
+    for r, slot in pushes:
+        w[r, slot] = w_tot[r]
+        age[r, slot] = 0
+    fill2 = (fill + pushed).astype(np.int32)
+    fire = fill2 >= B
+    valid = np.arange(B, dtype=np.int32)[None, :] < fill2[:, None]
+    kw = (w * streaming.staleness_kernel(kernel, alpha, age)
+          * valid.astype(np.float32)).astype(np.float32)
+    tot = kw.sum(axis=1, dtype=np.float32)
+    den = np.where(tot > 0.0, tot, np.float32(1.0)).astype(np.float32)
+    absorbed = np.sum(np.where(fire[:, None], w * valid, 0.0),
+                      dtype=np.float32)
+    stale = np.sum(np.where(fire[:, None],
+                            age.astype(np.float32) * valid, 0.0),
+                   dtype=np.float32)
+    post = (np.where(fire[:, None], np.float32(0.0), w).astype(np.float32),
+            np.where(fire[:, None], 0,
+                     np.where(valid, age + 1, age)).astype(np.int32),
+            np.where(fire, 0, fill2).astype(np.int32))
+    return StreamStep(pushes, fire, kw, den, float(absorbed),
+                      int(fire.sum()), float(np.where(fire, 0, fill2).sum()),
+                      float(stale), post)

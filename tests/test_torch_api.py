@@ -70,20 +70,19 @@ def test_spec_refuses_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="not ported yet"):
         TAPI.ExperimentSpec(fleet=TAPI.FleetConfig(scenario="city"))
     with pytest.raises(NotImplementedError, match="not ported yet"):
+        TAPI.ExperimentSpec(runtime=TAPI.RuntimeConfig(num_processes=2))
+    # ported: faults and the streaming schedule on a scenario
+    for kw in ({"faults": TAPI.FaultsConfig(dropout_rate=0.1)},
+               {"train": TAPI.TrainConfig(server_schedule="streaming")}):
         TAPI.ExperimentSpec(
-            model="mlp9", faults=TAPI.FaultsConfig(dropout_rate=0.1),
-            fleet=TAPI.FleetConfig(n_vehicles=6,
-                                   scenario="highway_corridor"))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        TAPI.ExperimentSpec(
-            model="mlp9", train=TAPI.TrainConfig(server_schedule="streaming"),
-            fleet=TAPI.FleetConfig(n_vehicles=6,
-                                   scenario="highway_corridor"))
-    # the parallel schedule is ported; like the reference, the single-RSU
-    # engine cannot run it
-    with pytest.raises(ValueError, match="not executable"):
-        TAPI.ExperimentSpec(train=TAPI.TrainConfig(
-            scheme="cl", server_schedule="parallel"))
+            model="mlp9", fleet=TAPI.FleetConfig(
+                n_vehicles=6, scenario="highway_corridor"), **kw)
+    # the parallel and streaming schedules need a scenario; like the
+    # reference, the single-RSU engine cannot run them
+    for schedule in ("parallel", "streaming"):
+        with pytest.raises(ValueError, match="not executable"):
+            TAPI.ExperimentSpec(train=TAPI.TrainConfig(
+                scheme="cl", server_schedule=schedule))
     with pytest.raises(ValueError, match="not ported yet"):
         TAPI.ExperimentSpec(model="qwen3_14b")
     with pytest.raises(ValueError):

@@ -8,7 +8,10 @@ loop and under vmap with the launch counts each schedule implies, one
 multi-RSU scenario round on topk_int8, and a window of the parallel
 server schedule with its launch formula) on cuda against the same runs on
 the CPU, the parallel window's determinism (two runs, and the dense layout
-beside the ragged one, bit for bit), resnet18 under vmap against the loop
+beside the ragged one, bit for bit), the fault and streaming planes on
+the scenario path (K = 4 windows equal to K = 1 on the card, the codec
+launch formula under dropouts, the two-cell trace with both planes on
+against the CPU), resnet18 under vmap against the loop
 on the card, and the reduced LM configs served on cuda against the CPU.  Needs a CUDA card and
 nvcc:
 
@@ -836,3 +839,122 @@ def test_reduced_lm_train_step_launches_follow_remat(dev, arch):
         counts = launch_counts()
         assert counts["rmsnorm"] == fwd * 2 * 3 + 1
         assert counts[mixer] == fwd * 3
+
+
+# ------------------------------------------ the fault and streaming planes
+# a reduced highway cell: 16 vehicles, topk_int8 with error feedback, the
+# faults of chip_smoke.py's phase 10k (a deadline every round catches) and
+# its streaming settings with a buffer of 2
+PLANE_FAULTS = dict(dropout_rate=0.3, upload_loss_rate=0.1,
+                    rsu_outage_rate=0.2, straggler_factor=0.001)
+PLANE_STREAM = dict(churn_rate=0.2, buffer_size=2, kernel="poly",
+                    alpha=0.5)
+
+
+def _plane_engine(device, schedule, k, faulted=True, streamed=False):
+    from repro_torch import api
+    spec = api.ExperimentSpec(
+        model="mlp9",
+        train=api.TrainConfig(rounds=4, local_steps=2, batch_size=8,
+                              lr=1e-3, optimizer="sgd", eval_every=0,
+                              wire="topk_int8", server_schedule=schedule),
+        fleet=api.FleetConfig(n_vehicles=16, scenario="highway_corridor",
+                              round_interval_s=10.0, cloud_sync_every=2,
+                              per_vehicle_samples=64),
+        faults=api.FaultsConfig(**(PLANE_FAULTS if faulted else {})),
+        stream=api.StreamConfig(**(PLANE_STREAM if streamed else {})),
+        runtime=api.RuntimeConfig(superstep=k))
+    return api.build_engine(spec, device=device)
+
+
+@pytest.mark.parametrize("schedule,streamed", [("sequential", False),
+                                               ("parallel", False),
+                                               ("streaming", True)])
+def test_plane_window_equals_rounds_on_cuda(dev, schedule, streamed):
+    """Under faults (and churn with the buffer on streaming), a K = 4
+    window trains the same bits on the card as four windows of one
+    round."""
+    runs = []
+    for k in (1, 4):
+        eng = _plane_engine(dev, schedule, k, streamed=streamed)
+        hist = eng.run()
+        runs.append(([m.loss for m in hist], _engine_params(eng),
+                     [r.cpu().numpy() for r in eng.wire_res
+                      if r is not None], hist))
+    assert runs[0][0] == runs[1][0]
+    np.testing.assert_array_equal(runs[0][1], runs[1][1])
+    for a, b in zip(runs[0][2], runs[1][2]):
+        np.testing.assert_array_equal(a, b)
+    hist = runs[0][3]
+    assert sum(m.n_dropout for m in hist) > 0
+    if streamed:
+        assert sum(m.stream_merges for m in hist) > 0
+
+
+def test_plane_codec_launches_on_cuda(dev):
+    """Parallel schedule under dropouts on the card: 2 packs and 2 unpacks
+    per (cut bucket, local step) with an active slot, one fused matmul per
+    (cut bucket, RSU, local step) with one, counted from the plans."""
+    eng = _plane_engine(dev, "parallel", 1)
+    plans = []
+    real = eng._plan
+
+    def spy(*args):
+        plans.append(real(*args))
+        return plans[-1]
+
+    eng._plan = spy
+    before = launch_counts()
+    hist = eng.run()
+    after = launch_counts()
+    launches = {k: after[k] - before[k] for k in after}
+    buckets = runs = 0
+    for p in plans:
+        for s in range(2):
+            act = (p["cuts"] > 0) & (p["dstep"] > s)
+            buckets += len(np.unique(p["cuts"][act]))
+            runs += len(set(zip(p["cuts"][act].tolist(),
+                                p["serving"][act].tolist())))
+    assert sum(m.n_dropout for m in hist) > 0
+    assert launches["sparsify_quant_pack"] == launches["unpack_dequant"] \
+        == 2 * buckets
+    assert launches["unpack_dequant_matmul"] == runs
+    assert eng.batch_steps == sum(int(p["dstep"][p["cuts"] > 0].sum())
+                                  for p in plans)
+
+
+@pytest.mark.parametrize("schedule", ["sequential", "streaming"])
+def test_plane_trace_on_cuda_matches_cpu(dev, schedule):
+    """The two-cell trace with both planes on (chip_smoke.py's phase 10k
+    settings) on the card and on the CPU from the same weights: the same
+    plans and telemetry, parameters within 1e-4 of the largest."""
+    import dataclasses
+
+    from repro_torch.core import channel, fedsim, scenario
+    from repro_torch.models.mlp_unit import MLPUnitModel, make_mlp_fleet_data
+    times = np.arange(5, dtype=np.float64) * 5.0
+    x = np.stack([np.linspace(300.0, 900.0, 5), np.full(5, 250.0)], -1)
+    pos = np.stack([x, np.zeros_like(x)], axis=-1)
+    rsus = np.array([[300.0, 0.0], [900.0, 0.0]])
+    cfg = fedsim.SimConfig(
+        rounds=4, local_steps=2, batch_size=8, lr=1e-3, optimizer="sgd",
+        wire="topk_int8", round_interval_s=5.0, eval_every=0,
+        server_schedule=schedule, fault_dropout=0.3, fault_upload_loss=0.2,
+        fault_rsu_outage=0.3, fault_straggler=1e-7, stream_churn_rate=0.3,
+        stream_seed=5, stream_buffer_size=2, stream_kernel="poly")
+    clients, test = make_mlp_fleet_data(2, 24, seed=0, n_test=64)
+    out = []
+    for where in ("cpu", dev):
+        sc = scenario.TraceReplay(times, pos, rsus,
+                                  ch=channel.ChannelConfig(
+                                      fading_std_db=0.0, rsu_range_m=320.0),
+                                  seed=0)
+        eng = fedsim.ScenarioEngine(MLPUnitModel(), clients, test, cfg, sc,
+                                    cloud_sync_every=2, device=where)
+        hist = eng.run()
+        out.append(([dataclasses.astuple(m)[6:] for m in hist],
+                    [m.loss for m in hist], _engine_params(eng)))
+    (tc, lc, pc), (tg, lg, pg) = out
+    assert tc == tg
+    np.testing.assert_allclose(lg, lc, atol=1e-4)
+    assert np.abs(pc - pg).max() <= 1e-4 * np.abs(pc).max()

@@ -6,7 +6,8 @@ lost_update_bytes, costs to rtol=1e-12, sgd parameters within 1e-5 on
 wire="none" and 1e-4 on topk_int8, under both replica schedules), the
 wire carrying exactly the smashed bytes the cost model charges for the
 steps performed, and the reference's refusals.  The multi-RSU scenario
-engine still refuses the fault plane ("not ported yet")."""
+engine takes every fault field but coverage, as the reference's
+(tests/test_torch_faults_scenario.py holds it to the reference)."""
 import dataclasses
 
 import numpy as np
@@ -112,10 +113,11 @@ def test_reference_refusals():
     with pytest.raises(ValueError, match=r"\[0, 1\)"):
         TF.SimConfig(fault_dropout=1.0)
     assert TF.SimConfig(mobility_dropout=True).fault_config().coverage
+    # presence churn is the scenario engine's, as in the reference
     for kw in ({"stream_churn_rate": 0.1},
                {"stream_churn_source": "mobility"}):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            TF.SimConfig(**kw)
+        with pytest.raises(ValueError, match="multi-RSU"):
+            sim(**kw)
     # the reference's single-RSU engine refuses the streaming schedule
     with pytest.raises(ValueError, match="multi-RSU"):
         sim(server_schedule="streaming")
@@ -129,25 +131,36 @@ def test_reference_refusals():
                             faults=TAPI.FaultsConfig(dropout_rate=0.1))
 
 
-def test_scenario_engine_still_refuses_faults():
+def test_scenario_engine_takes_faults_as_the_reference():
+    """The scenario engine takes every fault field of the reference's
+    scenario engine, from the spec and from SimConfig, and refuses the
+    coverage test with the reference's ValueError."""
     spec = TAPI.ExperimentSpec(
         model="mlp9", train=TAPI.TrainConfig(rounds=1, local_steps=1),
         fleet=TAPI.FleetConfig(n_vehicles=6, scenario="highway_corridor"))
     for faults in (TAPI.FaultsConfig(dropout_rate=0.1),
                    TAPI.FaultsConfig(upload_loss_rate=0.2),
-                   TAPI.FaultsConfig(seed=3)):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            dataclasses.replace(spec, faults=faults)
+                   TAPI.FaultsConfig(straggler_factor=0.5),
+                   TAPI.FaultsConfig(rsu_outage_rate=0.3),
+                   TAPI.FaultsConfig(seed=3, staleness_discount=0.25)):
+        eng = TAPI.build_engine(dataclasses.replace(spec, faults=faults),
+                                device="cpu")
+        assert eng.faults == TFa.FaultConfig(**dataclasses.asdict(faults))
+        assert eng.fz == eng.faults.stochastic
     with pytest.raises(ValueError, match="scenario itself"):
         dataclasses.replace(spec, faults=TAPI.FaultsConfig(coverage=True))
     eng = TAPI.build_engine(spec, device="cpu")
-    for field in TF.FAULT_FIELDS:
-        value = {"mobility_dropout": True, "fault_coverage": True,
-                 "fault_seed": 2, "fault_staleness_discount": 0.25}.get(
-                     field, 0.1)
+    test = {"images": np.zeros((1, 48), np.float32),
+            "labels": np.zeros(1, np.int64)}
+    for field, value in (("fault_dropout", 0.1), ("fault_upload_loss", 0.1),
+                         ("fault_straggler", 0.1), ("fault_rsu_outage", 0.1),
+                         ("fault_staleness_discount", 0.25),
+                         ("fault_seed", 2)):
         cfg = dataclasses.replace(eng.cfg, **{field: value})
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            TF.ScenarioEngine(eng.model, eng.clients, {
-                "images": np.zeros((1, 48), np.float32),
-                "labels": np.zeros(1, np.int64)}, cfg, eng.scenario,
-                device="cpu")
+        TF.ScenarioEngine(eng.model, eng.clients, test, cfg, eng.scenario,
+                          device="cpu")
+    for field in ("mobility_dropout", "fault_coverage"):
+        cfg = dataclasses.replace(eng.cfg, **{field: True})
+        with pytest.raises(ValueError, match="serving_rsu == -1"):
+            TF.ScenarioEngine(eng.model, eng.clients, test, cfg,
+                              eng.scenario, device="cpu")

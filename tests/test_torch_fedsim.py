@@ -96,15 +96,19 @@ def test_control_plane_matches_jax():
 
 
 def test_sim_config_refuses_what_is_not_ported():
-    for kw in ({"page_slots": 4}, {"stream_buffer_size": 8},
-               {"mesh_devices": 2}, {"stream_churn_rate": 0.1}):
+    for kw in ({"page_slots": 4}, {"mesh_devices": 2}):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             TF.SimConfig(**kw)
     # ported: the engines take or refuse these as the reference's do
-    # (tests/test_torch_superstep.py)
+    # (tests/test_torch_superstep.py, tests/test_torch_streaming.py)
     for kw in ({"superstep": 2}, {"server_schedule": "parallel"},
-               {"server_schedule": "streaming"}):
+               {"server_schedule": "streaming"}, {"stream_buffer_size": 8},
+               {"stream_churn_rate": 0.1}):
         TF.SimConfig(**kw)
+    with pytest.raises(ValueError, match="stream_churn_source"):
+        TF.SimConfig(stream_churn_source="gps")
+    with pytest.raises(ValueError, match="churn_rate must stay 0"):
+        TF.SimConfig(stream_churn_source="mobility", stream_churn_rate=0.1)
     with pytest.raises(ValueError):
         TF.SimConfig(wire="fp8")
     assert TF.SimConfig(compress_smashed=True).wire_scheme() == "int8"

@@ -27,7 +27,8 @@ def test_port_files_exist():
     names = {p.name for p in PORT_FILES}
     assert {"chip_smoke.py", "fedsim.py", "quant.py", "wire.py",
             "compression.py", "runner.py", "lm_unit.py", "checkpoint.py",
-            "train.py", "schedules.py", "superstep.py"} <= names
+            "train.py", "schedules.py", "superstep.py",
+            "streaming.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,

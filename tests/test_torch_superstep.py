@@ -293,10 +293,11 @@ def test_parallel_codec_calls_follow_the_formula(wire, monkeypatch):
 def test_schedules_and_planes_refused_as_the_reference():
     clients, test = TM.make_mlp_fleet_data(2, 24, seed=0, n_test=16)
     sc = _two_cell_trace(_Mods(TCh, TS))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        TF.ScenarioEngine(TM.MLPUnitModel(), clients, test,
-                          _cfg(server_schedule="streaming"), sc,
-                          device="cpu")
+    # the scenario engine runs the streaming schedule and the planes
+    eng = TF.ScenarioEngine(TM.MLPUnitModel(), clients, test,
+                            _cfg(server_schedule="streaming"), sc,
+                            device="cpu")
+    assert eng.sz and eng.parallel and eng.mode == "streaming"
     jclients, jtest = JM.make_mlp_fleet_data(4, 16, seed=0, n_test=16)
     tclients, ttest = TM.make_mlp_fleet_data(4, 16, seed=0, n_test=16)
     for kw in ({"server_schedule": "streaming"},):
@@ -306,26 +307,29 @@ def test_schedules_and_planes_refused_as_the_reference():
         with pytest.raises(ValueError, match="ScenarioEngine"):
             TF.FederationSim(TM.MLPUnitModel(), tclients, ttest,
                              TF.SimConfig(**kw), device="cpu")
-    for kw in ({"page_slots": 4}, {"stream_buffer_size": 8},
-               {"stream_churn_rate": 0.1}, {"mesh_devices": 2},
+    for kw in ({"page_slots": 4}, {"mesh_devices": 2},
                {"fleet_axis": "rsu"}, {"compilation_cache_dir": "x"}):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             TF.SimConfig(**kw)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        TF.ScenarioEngine(TM.MLPUnitModel(), clients, test,
-                          _cfg(fault_dropout=0.1), sc, device="cpu")
+    for kw in ({"stream_buffer_size": 8}, {"stream_churn_rate": 0.1},
+               {"fault_dropout": 0.1}):
+        TF.ScenarioEngine(TM.MLPUnitModel(), clients, test, _cfg(**kw), sc,
+                          device="cpu")
     # the front door, as the reference's: parallel and superstep > 1 need
-    # a multi-RSU scenario; streaming is not ported on one
+    # a multi-RSU scenario, and so does streaming
     for mod in (JAPI, TAPI):
         with pytest.raises(ValueError, match="not executable"):
             mod.ExperimentSpec(train=mod.TrainConfig(
                 server_schedule="parallel"))
+        with pytest.raises(ValueError, match="not executable"):
+            mod.ExperimentSpec(train=mod.TrainConfig(
+                server_schedule="streaming"))
         with pytest.raises(ValueError, match="superstep"):
             mod.ExperimentSpec(runtime=mod.RuntimeConfig(superstep=2))
     base = _spec(TAPI)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        dataclasses.replace(base, train=dataclasses.replace(
-            base.train, server_schedule="streaming"))
+    spec = dataclasses.replace(base, train=dataclasses.replace(
+        base.train, server_schedule="streaming"))
+    assert TAPI.build_engine(spec, device="cpu").sz
 
 
 def test_federation_sim_runs_its_round_whatever_the_schedule():
