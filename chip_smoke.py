@@ -160,10 +160,25 @@ neither ``jax`` nor ``repro``.  In order it:
     two-cell trace card vs CPU with both planes on (sequential and
     streaming); phase 10j's highway run again with fault and stream seeds
     7 equal to it bit for bit; s/round printed beside 10b's and 10j's;
+10l. the city lattice and slot paging at the reference's city width
+    (``benchmarks/bench_city.py``'s cell: mlp9, 4096 vehicles over a 16 x
+    16 lattice of 256 RSUs, ``parallel`` ``ragged`` K = 4, one local step,
+    mobility churn, cloud sync every round): (a) 4 rounds on ``none``
+    unpaged and at ``page_slots=128``, each with s/round, scheduled,
+    handovers, departures, ``occupancy_stats()``, the slot windows of 128
+    (more than one), the peak memory and one profiled round (kernels a
+    round, busy share): paged within 1e-6 of the largest parameter of
+    unpaged, its peak below unpaged; (b) ``topk_int8`` paged, K = 4 and K
+    = 1 bit for bit, codec launches per (cut bucket page, local step) and
+    per (cut bucket page, RSU run, local step) counted from the plans;
+    (c) the ``streaming`` schedule paged (B = 4, ``poly``, alpha 0.5, 8
+    rounds, sync every 4): a merge, occupancy below R x B; (d) the reduced
+    city (64 vehicles, 2 x 2, page 4, topk_int8) card vs CPU within 1e-4
+    of the largest parameter;
 11. prints the per-kernel JSON line (all eight kernels, the quant and LM
     kernels with their launches per training step, the codec kernels with
-    their launches in phases 10j and 10k), then ``{"ok": true, "device":
-    ...}`` as the last line.
+    their launches in phases 10j, 10k and 10l), then ``{"ok": true,
+    "device": ...}`` as the last line.
 
 Any failure raises and the script exits non-zero.
 """
@@ -2223,6 +2238,262 @@ def plane_phase(seq_timings, par_rows):
     return out, trace_err
 
 
+# ---- the city lattice and slot paging (phase 10l): the reference's city
+# cell (benchmarks/bench_city.py's ``_spec``): mlp9, asfl, sgd lr 1e-3,
+# 4096 vehicles on a 16 x 16 lattice of 256 RSUs (scenario and data seed
+# 4096), 16 samples a vehicle, batch 8, one local step, ``paper`` cuts,
+# cloud sync every round, 10 s rounds, ``parallel`` ``ragged`` K = 4,
+# mobility churn; unpaged and at ``page_slots=128``.
+CITY_VEHICLES, CITY_GRID, CITY_PAGE = 4096, (16, 16), 128
+CITY_ROUNDS, CITY_K = 4, 4
+# paged against unpaged on the none wire, of the largest parameter: a run
+# of one RSU that a page splits is summed in two parts
+PAGE_TOL = 1e-6
+# the reduced city card vs CPU: tests/test_fleet_sharding.py's
+# ``_city_engines`` lattice (64 vehicles, 2 x 2, page 4) on topk_int8
+CITY_SMALL_N, CITY_SMALL_PAGE = 64, 4
+
+
+def _city_spec(wire="none", page=0, k=CITY_K, rounds=CITY_ROUNDS,
+               schedule="parallel", sync=1, stream=None):
+    from repro_torch import api
+    gx, gy = CITY_GRID
+    return api.ExperimentSpec(
+        model="mlp9",
+        train=api.TrainConfig(scheme="asfl", rounds=rounds, local_steps=1,
+                              batch_size=8, lr=1e-3, optimizer="sgd",
+                              eval_every=0, wire=wire,
+                              server_schedule=schedule),
+        adaptive=api.AdaptiveConfig(strategy="paper"),
+        stream=stream or api.StreamConfig(churn_source="mobility"),
+        fleet=api.FleetConfig(n_vehicles=CITY_VEHICLES, scenario="city",
+                              scenario_kwargs={"seed": CITY_VEHICLES,
+                                               "grid_x": gx, "grid_y": gy},
+                              cloud_sync_every=sync, round_interval_s=10.0,
+                              per_vehicle_samples=16,
+                              data_seed=CITY_VEHICLES),
+        runtime=api.RuntimeConfig(superstep=k, superstep_layout="ragged",
+                                  page_slots=page))
+
+
+def _page_units(plans, page, steps=1):
+    """(cut bucket page, local step) and (cut bucket page, RSU run, local
+    step) units, counted afresh from the plans' cuts and cells: each cut's
+    scheduled vehicles RSU-major, in windows of ``page`` (one window
+    unpaged), every vehicle active every step (no fault plane here)."""
+    import numpy as np
+    units = runs = 0
+    for p in plans:
+        cuts, serving = p["cuts"], p["serving"]
+        for c in np.unique(cuts[cuts > 0]):
+            seg = np.sort(serving[cuts == c], kind="stable")
+            n = len(seg)
+            wins = ([(a, min(a + page, n)) for a in range(0, n, page)]
+                    if 0 < page < n else [(0, n)])
+            units += len(wins)
+            runs += sum(len(np.unique(seg[a:e])) for a, e in wins)
+    return units * steps, runs * steps
+
+
+def city_path(label, spec, profile=False):
+    """Phase 10l: one run of the city through the front door
+    (``api.build_engine``, then ``engine.run``), the launch counters
+    zeroed and the peak memory reset just before and both read just
+    after: s/round after synchronize, finite losses, loads summing to the
+    scheduled count, cuts in the paper's set, handovers and departures
+    (mobility churn), ``occupancy_stats()`` and the slot windows of 128,
+    codec launches as the plans imply (PAR_LAUNCHES per page unit); with
+    ``profile`` one more round under ``torch.profiler`` (kernels a round,
+    busy share).  Returns a row."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    from repro_torch import api, kernels
+    eng = api.build_engine(spec)
+    plans, merged = [], []
+    real_plan = eng._plan
+
+    def spy(*args):
+        plans.append(real_plan(*args))
+        return plans[-1]
+
+    eng._plan = spy
+    rounds, page = spec.train.rounds, spec.runtime.page_slots
+    b0, r0 = eng.bucket_steps, eng.rsu_bucket_steps
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    hist = eng.run(on_stream_merge=lambda m, e: merged.append(m.round))
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    occ = eng.occupancy_stats()
+    windows = -(-occ["executed_slots"] // CITY_PAGE)
+    R, B = eng.n_rsus, spec.stream.buffer_size
+    present, departures, bad = CITY_VEHICLES, [], []
+    for m in hist:
+        departures.append(present - (m.n_present - m.n_arrived))
+        present = m.n_present
+        print(f"city {label} round={m.round} loss={m.loss!r} "
+              f"scheduled={m.n_scheduled} handover={m.n_handover} "
+              f"present={m.n_present} arrived={m.n_arrived} "
+              f"departed={departures[-1]} "
+              f"cells_served={sum(c > 0 for c in m.rsu_loads)} "
+              f"max_load={max(m.rsu_loads)} merges={m.stream_merges} "
+              f"occupancy={m.buffer_occupancy}", flush=True)
+        if not (math.isfinite(m.loss) and len(m.cuts) == CITY_VEHICLES
+                and set(m.cuts) <= {0, 2, 4, 6, 8}
+                and sum(m.rsu_loads) == m.n_scheduled > 0
+                and 0 <= m.buffer_occupancy < R * B):
+            bad.append(m.round)
+    units, runs = _page_units(plans, page)
+    want = dict.fromkeys(counts, 0)
+    if spec.train.wire != "none":
+        want.update({name: a * units + b * runs for name, (a, b)
+                     in PAR_LAUNCHES[spec.train.wire].items()})
+    engine_units = (eng.bucket_steps - b0, eng.rsu_bucket_steps - r0)
+    row = {"label": label, "wire": spec.train.wire,
+           "schedule": spec.train.server_schedule, "k":
+           spec.runtime.superstep, "page_slots": page, "rounds": rounds,
+           "n_rsus": R, "losses": [m.loss for m in hist],
+           "scheduled": [m.n_scheduled for m in hist],
+           "handovers": [m.n_handover for m in hist],
+           "departures": departures,
+           "arrivals": [m.n_arrived for m in hist],
+           "merges": [m.stream_merges for m in hist],
+           "run_s": run_s, "s_per_round": run_s / rounds,
+           "occupancy": occ, "slot_windows": windows,
+           "page_units": [units, runs], "launches": counts,
+           "peak_bytes": peak, "held_bytes": held}
+    print(f"city {label} wire={spec.train.wire} schedule="
+          f"{spec.train.server_schedule} K={spec.runtime.superstep} "
+          f"page_slots={page} run_s={run_s:.6f} s_per_round="
+          f"{run_s / rounds:.6f} occupancy={occ} slot_windows={windows} "
+          f"page_units={(units, runs)} launches={counts} "
+          f"peak_bytes={peak} held_bytes={held}", flush=True)
+    if (bad or len(hist) != rounds or counts != want or windows <= 1
+            or engine_units != (units, runs)
+            or merged != [m.round for m in hist if m.stream_merges]):
+        raise AssertionError(
+            f"city {label}: bad rounds {bad}, {len(hist)} rounds, launches "
+            f"{counts} (want {want}), units {engine_units} (want "
+            f"{(units, runs)}), {windows} slot windows, merge callbacks "
+            f"{merged}")
+    if profile:     # one warm round more, under the profiler
+        torch.cuda.synchronize()
+        with tprofile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            eng.run_superstep(rounds, 1)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        dev = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = sum(float(e.self_device_time_total) for e in dev) / 1e6
+        row.update(profiled_round_s=wall,
+                   kernels_per_round=sum(e.count for e in dev),
+                   busy_share=busy / wall)
+        print(f"city {label} profiled_round_s={wall:.6f} "
+              f"kernels_per_round={row['kernels_per_round']} "
+              f"device_busy_s={busy:.6f} busy_share={busy / wall:.4f}",
+              flush=True)
+    res = [np.zeros(0, np.float32) if r is None
+           else r.detach().cpu().numpy().ravel() for r in eng.wire_res]
+    return row, _flat_params(eng.units, eng.head), res
+
+
+def city_cpu_vs_card():
+    """Phase 10l (d): the reduced paged city (64 vehicles, 2 x 2, page 4,
+    topk_int8, 4 rounds as one window, local steps 2, batch 8, sgd lr
+    1e-2, cloud sync every 2) on the card and on the CPU from the same
+    weights: final parameters within TRACE_TOL of the largest."""
+    import numpy as np
+    from repro_torch.core import fedsim, scenario
+    from repro_torch.models.mlp_unit import MLPUnitModel, make_mlp_fleet_data
+    cfg = fedsim.SimConfig(rounds=4, local_steps=2, batch_size=8, lr=1e-2,
+                           optimizer="sgd", wire="topk_int8",
+                           round_interval_s=5.0, eval_every=0, superstep=4,
+                           server_schedule="parallel",
+                           page_slots=CITY_SMALL_PAGE)
+    clients, test = make_mlp_fleet_data(CITY_SMALL_N, 24, seed=0, n_test=64)
+    runs = {}
+    for where in ("cpu", "cuda"):
+        sc = scenario.make_scenario("city", CITY_SMALL_N, seed=1, grid_x=2,
+                                    grid_y=2)
+        eng = fedsim.ScenarioEngine(MLPUnitModel(), clients, test, cfg, sc,
+                                    cloud_sync_every=2, device=where)
+        runs[where] = (eng.run(), _flat_params(eng.units, eng.head),
+                       eng.bucket_steps)
+    (hc, pc, uc), (hg, pg, ug) = runs["cpu"], runs["cuda"]
+    err, scale = float(np.abs(pc - pg).max()), float(np.abs(pc).max())
+    ok = (err <= TRACE_TOL * scale and np.isfinite(pg).all() and uc == ug
+          and [m.cuts for m in hc] == [m.cuts for m in hg])
+    print(f"city_cpu_vs_card reduced city losses_cpu={[m.loss for m in hc]} "
+          f"losses_card={[m.loss for m in hg]} page_units={ug} "
+          f"max_param_diff={err:g} max_abs_param={scale:g} "
+          f"tol={TRACE_TOL:g}x ok={ok}", flush=True)
+    if not ok:
+        raise AssertionError(f"reduced city: card and CPU disagree ({err:g}"
+                             f" > {TRACE_TOL:g} x {scale:g}, or cuts / "
+                             f"pages differ)")
+    return err / scale
+
+
+def city_phase():
+    """Phase 10l: (a) the city cell on ``none`` unpaged and at
+    ``page_slots=128``, each with one profiled round: the paged losses and
+    final parameters within PAGE_TOL of the unpaged ones, the paged peak
+    memory below the unpaged; (b) the cell on ``topk_int8`` paged, K = 4
+    and K = 1, equal bit for bit; (c) the ``streaming`` schedule on it,
+    paged (B = 4, ``poly``, alpha 0.5, mobility churn, K = 4, 8 rounds,
+    sync every 4): a merge, occupancy below R x B; (d) the reduced city
+    card vs CPU.  Returns (rows, the paged-vs-unpaged error, the reduced
+    city's error)."""
+    import numpy as np
+    from repro_torch import api
+    unpaged, p0, _ = city_path("none_unpaged", _city_spec(), profile=True)
+    paged, p1, _ = city_path("none_paged", _city_spec(page=CITY_PAGE),
+                             profile=True)
+    err = float(np.abs(p0 - p1).max())
+    scale = float(np.abs(p0).max())
+    loss_err = max(abs(a - b) for a, b in zip(unpaged["losses"],
+                                              paged["losses"]))
+    ok = (err <= PAGE_TOL * scale and loss_err <= PAGE_TOL
+          and unpaged["scheduled"] == paged["scheduled"]
+          and paged["peak_bytes"] < unpaged["peak_bytes"])
+    print(f"city paged_vs_unpaged max_param_diff={err:g} max_abs_param="
+          f"{scale:g} max_loss_diff={loss_err:g} tol={PAGE_TOL:g} "
+          f"peak_bytes unpaged={unpaged['peak_bytes']} paged="
+          f"{paged['peak_bytes']} kernels_per_round unpaged="
+          f"{unpaged['kernels_per_round']} paged="
+          f"{paged['kernels_per_round']} ok={ok}", flush=True)
+    if not ok:
+        raise AssertionError("city: paged and unpaged disagree, or paging "
+                             "did not lower the peak memory")
+    k4, f4, res4 = city_path("topk_paged_k4",
+                             _city_spec("topk_int8", CITY_PAGE))
+    k1, f1, res1 = city_path("topk_paged_k1",
+                             _city_spec("topk_int8", CITY_PAGE, k=1))
+    same = (k4["losses"] == k1["losses"] and np.array_equal(f4, f1)
+            and all(np.array_equal(a, b) for a, b in zip(res4, res1)))
+    print(f"city bit_for_bit topk_paged_K4_vs_K1={same}", flush=True)
+    if not same:
+        raise AssertionError("city: paged topk_int8 K = 4 and K = 1 differ "
+                             "in their bits")
+    stream, _, _ = city_path("streaming_paged", _city_spec(
+        "topk_int8", CITY_PAGE, rounds=8, schedule="streaming", sync=4,
+        stream=api.StreamConfig(churn_source="mobility", buffer_size=4,
+                                kernel="poly", alpha=0.5)))
+    if not any(stream["merges"]):
+        raise AssertionError("city streaming: no StreamBuffer fired")
+    small_err = city_cpu_vs_card()
+    return [unpaged, paged, k4, k1, stream], err / scale, small_err
+
+
 def _main_cut(cuts_per_round):
     """The cut the path used most often (ties to the smaller cut)."""
     flat = [c for cuts in cuts_per_round for c in cuts]
@@ -2231,14 +2502,15 @@ def _main_cut(cuts_per_round):
 
 def kernel_report(checks, launches, main_cuts, mm_checks, mm_launches,
                   lm_checks, lm_launches, training, par_launches,
-                  plane_launches):
+                  plane_launches, city_launches):
     """Phase 11: one entry per kernel, timed at its path's main shape.  The
     quant and LM kernels also carry their launches per training step of
     each phase-10g run (``train_launches_per_step``), the codec kernels
     their launches in phase 10j's parallel highway (topk_int8) or urban
-    (int8) run (``parallel_launches``) and in phase 10k's faulted
+    (int8) run (``parallel_launches``), in phase 10k's faulted
     sequential and parallel highway runs and its streaming window
-    (``plane_launches``)."""
+    (``plane_launches``) and in phase 10l's paged topk_int8 city run (K =
+    1) and paged streaming city run (``city_launches``)."""
     per_step = {}
     for run in training:
         label = run["arch"] + ("+compress" if run["compress"] else "")
@@ -2259,6 +2531,7 @@ def kernel_report(checks, launches, main_cuts, mm_checks, mm_launches,
             "shape": row["shape"],
             "parallel_launches": par_launches.get(name, 0),
             "plane_launches": plane_launches.get(name, {}),
+            "city_launches": city_launches.get(name, {}),
             **({"train_launches_per_step": per_step[name]}
                if name in per_step else {}),
             **{extra: {key: checks[name][extra][key] for key in
@@ -2277,6 +2550,7 @@ def kernel_report(checks, launches, main_cuts, mm_checks, mm_launches,
         "unpack_then_matmul_ms": row["unpack_then_matmul_ms"],
         "parallel_launches": par_launches.get(MM_META[0], 0),
         "plane_launches": plane_launches.get(MM_META[0], {}),
+        "city_launches": city_launches.get(MM_META[0], {}),
         "wide_ms": mm_checks["wide"]["ms"], "shape": row["shape"]})
     for name, replaces in LM_META.items():
         row = next(r for r in lm_checks[name].values() if "ms" in r)
@@ -2373,6 +2647,17 @@ def main() -> int:
                                            par_rows)
     print(json.dumps({"planes": planes,
                       "trace_cpu_vs_card": planes_trace_err}))
+    # the city and slot paging run after every earlier phase, so their
+    # numbers stay comparable with the slices before it
+    city, paged_err, small_err = city_phase()
+    print(json.dumps({"city": city, "paged_vs_unpaged": paged_err,
+                      "reduced_city_cpu_vs_card": small_err}))
+    city_launches = {}
+    for row in city:
+        if row["label"] in ("topk_paged_k1", "streaming_paged"):
+            for name, n in row["launches"].items():
+                if n:
+                    city_launches.setdefault(name, {})[row["label"]] = n
     plane_launches = {}
     for row in planes:
         if row["label"] in ("faults_sequential", "faults_ragged_k1",
@@ -2394,7 +2679,8 @@ def main() -> int:
                                    mm_checks,
                                    highway["unpack_dequant_matmul"],
                                    lm_checks, lm_launches, training,
-                                   par_launches, plane_launches)))
+                                   par_launches, plane_launches,
+                                   city_launches)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -15,7 +15,10 @@ through a buffer of pending deltas that merges when full (the per-round
 line then shows the merges and the buffer's fill).  ``--superstep`` K
 runs K rounds as one window
 with one read-back; the per-round lines stream from the ``on_round``
-callback after each window.  Runs on the CUDA card by default;
+callback after each window.  ``--scenario city`` is the scale-out
+lattice (``--grid`` cells, Zipf cell popularity, orbit mobility);
+``--page-slots`` walks each cut bucket's slots in windows of that many on
+the parallel / streaming schedules.  Runs on the CUDA card by default;
 ``--device cpu`` runs it on the CPU.
 
   PYTHONPATH=src python examples/multi_rsu_sim_torch.py --device cpu
@@ -24,6 +27,9 @@ callback after each window.  Runs on the CUDA card by default;
   PYTHONPATH=src python examples/multi_rsu_sim_torch.py --device cpu \
       --schedule streaming --rounds 6
   PYTHONPATH=src python examples/multi_rsu_sim_torch.py --scenario urban_grid
+  PYTHONPATH=src python examples/multi_rsu_sim_torch.py --device cpu \
+      --scenario city --grid 2x2 --vehicles 64 --schedule parallel \
+      --page-slots 8
 """
 import argparse
 import time
@@ -69,9 +75,18 @@ def main():
                     help="RSU server schedule: paper §III-B sequential, "
                          "the parallel scheme of arXiv:2405.18707, or "
                          "streaming (parallel rounds through a buffer)")
+    ap.add_argument("--grid", default="16x16",
+                    help="the city lattice, GXxGY RSU cells")
+    ap.add_argument("--page-slots", type=int, default=0,
+                    help="slot window of the ragged parallel / streaming "
+                         "schedules (0 = unpaged)")
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
     args = ap.parse_args()
+    sc_kw = {"seed": 7}
+    if args.scenario == "city":
+        gx, gy = (int(v) for v in args.grid.split("x"))
+        sc_kw.update(grid_x=gx, grid_y=gy)
 
     # the registry's mlp9 split model stands in for a vehicle perception
     # model (the federation dynamics, not the FLOPs, are this demo's point)
@@ -83,22 +98,27 @@ def main():
         adaptive=api.AdaptiveConfig(strategy="paper"),
         fleet=api.FleetConfig(n_vehicles=args.vehicles,
                               scenario=args.scenario,
-                              scenario_kwargs={"seed": 7},
+                              scenario_kwargs=sc_kw,
                               cloud_sync_every=args.sync,
                               round_interval_s=10.0,
                               per_vehicle_samples=64),
-        runtime=api.RuntimeConfig(superstep=args.superstep))
+        runtime=api.RuntimeConfig(superstep=args.superstep,
+                                  page_slots=args.page_slots))
     sc = api.SCENARIOS[args.scenario](args.vehicles,
                                       **spec.fleet.scenario_kwargs)
     print(f"scenario={args.scenario}: {args.vehicles} vehicles, "
           f"{len(sc.rsu_positions)} RSUs; schedule={args.schedule}, "
-          f"K={args.superstep}, cloud sync every {args.sync} round(s)")
+          f"K={args.superstep}, cloud sync every {args.sync} round(s)"
+          + (f", page_slots={args.page_slots}" if args.page_slots else ""))
 
     def on_round(m):
         acc = f"{m.test_acc:.3f}" if np.isfinite(m.test_acc) else "  -  "
         print(f"round {m.round}: loss={m.loss:.3f} acc={acc} "
               f"sched={m.n_scheduled:3d} handover={m.n_handover:2d} "
-              f"rsu_loads={m.rsu_loads} comm={m.comm_bytes/1e6:6.1f}MB"
+              + (f"rsu_loads={m.rsu_loads} " if len(m.rsu_loads) <= 8 else
+                 f"cells served={sum(c > 0 for c in m.rsu_loads)} "
+                 f"max load={max(m.rsu_loads)} ")
+              + f"comm={m.comm_bytes/1e6:6.1f}MB"
               + (f" merges={m.stream_merges} buffered="
                  f"{m.buffer_occupancy:.0f}"
                  if args.schedule == "streaming" else ""))

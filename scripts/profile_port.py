@@ -20,11 +20,15 @@
 4. One sync-SFL train step of smollm-360m and of mamba2-780m at full width
    (batch 8, seq 1024, the default cut, adamw, clip 1.0, remat) after one
    warm-up step, as ``chip_smoke.py`` phase 10g trains.
+5. With ``city``: one round of ``chip_smoke.py`` phase 10l's city cell
+   (4096 vehicles, 256 RSUs, mlp9, ``none``, parallel ragged, mobility
+   churn) after one warm-up round, unpaged and at ``page_slots=128``,
+   with the kernels that launch most often.
 
-``--only round,scenario,planes,serve,train`` picks the parts to run (all
-by default).  ``--repeat N`` profiles the scenario and planes rounds N
-times, taking the cells in turns, so that their wall times per client
-batch step can be compared within one process.
+``--only round,scenario,planes,serve,train,city`` picks the parts to run
+(all but ``city`` by default).  ``--repeat N`` profiles the scenario and
+planes rounds N times, taking the cells in turns, so that their wall
+times per client batch step can be compared within one process.
 
 For each: wall time, device busy share (summed kernel time / wall), and
 the kernels that take the most device time, by name; for serving also the
@@ -142,6 +146,32 @@ def scenario_profile(top: int = 12, vehicles: int = 256,
     return res
 
 
+def city_profile(page: int, top: int = 12):
+    """One profiled round of phase 10l's city cell after a warm-up round,
+    at ``page_slots=page``."""
+    sys.path.insert(0, os.path.dirname(HERE))
+    from chip_smoke import _city_spec
+
+    from repro_torch import api
+    eng = api.build_engine(_city_spec(page=page, rounds=1, k=1))
+    eng.run()                                  # warm-up round
+    eng.reset()
+    hist, res = _profiled(eng.run, top)
+    res.update(page_slots=page, scheduled=hist[-1].n_scheduled,
+               occupancy=eng.occupancy_stats())
+    print(f"city page_slots={page} wall_s={res['wall_s']:.6f} "
+          f"device_busy_s={res['device_busy_s']:.6f} "
+          f"busy_share={res['device_busy_share']:.4f} "
+          f"scheduled={res['scheduled']} "
+          f"device_kernels={res['n_device_kernels']}", flush=True)
+    for key in ("top", "most_launched"):
+        for r in res[key]:
+            print(f"city page_slots={page} {key} count={r['count']:6d} "
+                  f"device_ms={r['device_ms']:.3f} {r['kernel']}",
+                  flush=True)
+    return res
+
+
 def _profiled(fn, top):
     """Run ``fn`` under the profiler; (wall s, busy s, kernel count, host
     time in and number of ``cudaMalloc`` calls, top rows)."""
@@ -158,16 +188,21 @@ def _profiled(fn, top):
     dev = [e for e in evts if _is_device_kernel(e)]
     busy_us = sum(_device_us(e) for e in dev)
     mallocs = [e for e in evts if e.key == "cudaMalloc"]
+
+    def rows_of(evs):
+        return [{"kernel": e.key[:120], "count": e.count,
+                 "device_ms": _device_us(e) / 1e3} for e in evs[:top]]
+
+    most = rows_of(sorted(dev, key=lambda e: e.count, reverse=True))
     dev.sort(key=_device_us, reverse=True)
-    rows = [{"kernel": e.key[:120], "count": e.count,
-             "device_ms": _device_us(e) / 1e3} for e in dev[:top]]
+    rows = rows_of(dev)
     return out, {"wall_s": wall, "device_busy_s": busy_us / 1e6,
                  "device_busy_share": busy_us / 1e6 / wall,
                  "n_device_kernels": sum(e.count for e in dev),
                  "cuda_malloc_s": sum(e.self_cpu_time_total
                                       for e in mallocs) / 1e6,
                  "cuda_mallocs": sum(e.count for e in mallocs),
-                 "top": rows}
+                 "top": rows, "most_launched": most}
 
 
 def serve_profile(arch, top: int = 10, batch: int = 8, prompt: int = 1024,
@@ -310,6 +345,8 @@ def main() -> int:
         result["serve"] = [serve_profile(a) for a in archs]
     if "train" in parts:
         result["train"] = [train_profile(a) for a in archs]
+    if "city" in parts:
+        result["city"] = [city_profile(page) for page in (0, 128)]
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(result, f, indent=1)

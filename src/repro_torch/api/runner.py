@@ -177,6 +177,8 @@ def run(spec: ExperimentSpec, *, device: DeviceLike = None,
         "client_batch_steps": counted.batch_steps - steps0,
         "wire_bytes": counted.wire_bytes - bytes0,
     })
+    if spec.runtime.page_slots > 0:
+        diagnostics["page_slots"] = spec.runtime.page_slots
     stale_key = ("stale_merged" if spec.faults.straggler_factor > 0.0
                  else "stream_stale"
                  if spec.train.server_schedule == "streaming" else None)

@@ -317,6 +317,24 @@ class ExperimentSpec:
                     "scenario (continuous arrivals/departures live on the "
                     "scenario engine's presence plane); the single-RSU "
                     "engine models interruption via fleet.mobility_dropout")
+            if rt.page_slots > 0:
+                raise ValueError(
+                    "runtime.page_slots pages the multi-RSU super-step's "
+                    "compacted slot axis; set a fleet.scenario (and "
+                    "superstep_layout='ragged' with a parallel or "
+                    "streaming schedule), or leave it at 0")
+        if rt.page_slots < 0 or not isinstance(rt.page_slots, int):
+            raise ValueError(
+                f"runtime.page_slots={rt.page_slots!r} must be an int >= 0")
+        if rt.page_slots > 0 and engine == registry.SCENARIO \
+                and (rt.superstep_layout != "ragged"
+                     or self.train.server_schedule == "sequential"):
+            raise ValueError(
+                "runtime.page_slots pages the RAGGED layout's compacted "
+                "slot axis under the parallel/streaming schedules; the "
+                "dense layout and the sequential chain have no compacted "
+                "axis to page — set superstep_layout='ragged' and a "
+                "non-sequential train.server_schedule, or page_slots=0")
         if (rt.coordinator_address is not None or rt.num_processes != 1
                 or rt.process_id != 0):
             raise NotImplementedError(

@@ -3,7 +3,8 @@ ported rounds use): the |D_n|-weighted sum of paper Eq. 1 over a list of
 replica trees or over a stacked leading replica axis, FedAvg over that axis
 (paper Eq. 1/2, the FL round's merge), its survivor-weighted and
 staleness-discounted forms (the fault and streaming planes), and the
-sample-weighted edge->cloud merge of the multi-RSU hierarchy.
+sample-weighted edge->cloud merge of the multi-RSU hierarchy over the
+stacked edge models.
 """
 from __future__ import annotations
 
@@ -94,18 +95,19 @@ def discounted_survivor_fedavg(stacked_tree: Any, weights, survivors,
     return _renormalised(stacked_tree, w, fallback)
 
 
-def cloud_merge(edge_trees: Sequence[Any], weights: Sequence[float],
-                fallback: Any) -> Any:
-    """Cloud tier over the RSUs' edge models (twin of
-    ``stacked_cloud_merge``): ``sum_r w_r edge_r / max(sum_r w_r, 1)`` with
-    float32 weights (the samples each edge absorbed since the last merge).
-    Zero-weight RSUs are excluded; with every weight zero the ``fallback``
-    tree (the previous global model) is returned unchanged."""
+def stacked_cloud_merge(edge_stack: Any, weights: Sequence[float],
+                        fallback: Any) -> Any:
+    """Cloud tier over the RSUs' edge models stacked on a leading axis (the
+    engine's (R, P) planes, or any tree of such leaves; twin of the
+    reference's ``stacked_cloud_merge``): ``sum_r w_r edge_r / max(sum_r
+    w_r, 1)`` in one tensordot per leaf with float32 weights (the samples
+    each edge absorbed since the last merge).  Zero-weight RSUs fold in as
+    +0; with every weight zero the ``fallback`` (the previous global
+    model) is returned unchanged."""
     w = np.asarray(weights, dtype=np.float32)
     total = np.float32(w.sum(dtype=np.float32))
     if not total > 0.0:
         return fallback
-    served = np.nonzero(w > 0.0)[0]
-    num = weighted_sum([edge_trees[r] for r in served], w[served])
+    num = stacked_weighted_sum(edge_stack, w)
     den = float(max(total, np.float32(1.0)))
     return tree_map(lambda nm, ref: (nm / den).to(ref.dtype), num, fallback)

@@ -117,7 +117,7 @@ SCENARIO_STRATEGIES = ("paper", "paper-literal", "residence")
 # SimConfig fields whose planes are not ported yet: a non-default value
 # raises instead of being silently ignored
 NOT_PORTED_FIELDS = ("compilation_cache_dir", "mesh_devices", "fleet_axis",
-                     "mesh_shape", "page_slots")
+                     "mesh_shape")
 
 
 @dataclasses.dataclass
@@ -1165,6 +1165,12 @@ class ScenarioEngine:
     ``on_cloud_merge`` fire after the window.  ``slot_capacity`` and
     ``superstep_layout`` shape the slot tables (:meth:`occupancy_stats`);
     under either schedule both layouts train the same bits.
+    ``page_slots`` > 0 pages the ``ragged`` layout of the parallel and
+    streaming schedules (the reference pages only there): each local step
+    walks every cut bucket's slots in windows of that many, and the
+    compacted slot table is padded to whole windows.  The edge models
+    live as one (R, P) plane, ``edge_planes`` (``edges`` gives them as
+    trees), merged at the cloud in one tensordot.
 
     Handover (a scheduled vehicle whose cell differs from its last
     covered cell) moves the vehicle and its data; server-side state stays
@@ -1235,10 +1241,15 @@ class ScenarioEngine:
         self.parallel = cfg.server_schedule in ("parallel", "streaming")
         self.mode = cfg.server_schedule if self.parallel else "loop"
         self.layout = cfg.superstep_layout
+        # slot paging: the ragged parallel layout walks each cut bucket's
+        # slots in windows of page_slots (the reference pages only there)
+        self.page = (int(cfg.page_slots)
+                     if self.parallel and self.layout == "ragged" else 0)
         self.batch_steps = 0      # client batch steps run (lifetime)
         self.wire_bytes = 0       # bytes across the wire, both directions
-        # parallel schedule (lifetime): (cut bucket, local step) and (cut
-        # bucket, RSU, local step) dispatches, the units of its codec calls
+        # parallel schedule (lifetime): (cut bucket page, local step) and
+        # (cut bucket page, RSU, local step) dispatches, the units of its
+        # codec calls (a bucket is one page unless paged)
         self.bucket_steps = 0
         self.rsu_bucket_steps = 0
         self._states: Dict[int, Any] = {}
@@ -1266,10 +1277,9 @@ class ScenarioEngine:
     def set_params(self, units, head):
         """Load the global model (port layout) onto the device, re-seed
         every edge model from it and clear the per-vehicle state."""
-        self.units = [_to_device(u, self.device) for u in units]
-        self.head = _to_device(head, self.device)
-        self.edges = [{"units": list(self.units), "head": self.head}
-                      for _ in range(self.n_rsus)]
+        self._set_global(self.plane.flatten(
+            [_to_device(u, self.device) for u in units],
+            _to_device(head, self.device)))
         n = len(self.clients)
         self.samples = np.zeros(self.n_rsus, np.float32)
         self.prev = np.full(n, -1, np.int64)        # last covered cell
@@ -1295,6 +1305,25 @@ class ScenarioEngine:
             self.sbuf_w = np.zeros((R, B), np.float32)
             self.sbuf_age = np.zeros((R, B), np.int32)
             self.sbuf_cnt = np.zeros(R, np.int32)
+
+    @property
+    def edges(self) -> List[Dict[str, Any]]:
+        """Each RSU's edge model, ``{"units", "head"}``, as views of its row
+        of ``edge_planes`` (R, P), the flat planes the engine keeps."""
+        return [dict(zip(("units", "head"), self.plane.tree(p)))
+                for p in self.edge_planes]
+
+    @edges.setter
+    def edges(self, trees: Sequence[Dict[str, Any]]):
+        self.edge_planes = torch.stack([self.plane.flatten(e["units"],
+                                                           e["head"])
+                                        for e in trees])
+
+    def _set_global(self, glob: torch.Tensor):
+        """The global model := the plane ``glob``, and every edge model a
+        copy of it."""
+        self.units, self.head = self.plane.tree(glob)
+        self.edge_planes = glob.expand(self.n_rsus, -1).clone()
 
     # ---- staging ------------------------------------------------------
     def _nb_ep(self) -> Tuple[int, int]:
@@ -1511,7 +1540,8 @@ class ScenarioEngine:
             members, slot_seg = SS.slot_table_flat(
                 order, seg, counts, self.layout, cap, slots)
             plan["par"] = SS.plan_parallel(
-                members, slot_seg, cuts, self.lengths, R, U, fault, steps)
+                members, slot_seg, cuts, self.lengths, R, U, fault, steps,
+                self.page)
         else:
             plan["table"] = SS.slot_table_seq(order, counts, cap)
         if self.sz:     # each RSU pushes the sample weight it merged
@@ -1600,6 +1630,7 @@ class ScenarioEngine:
         cnt = 0
         members, mask = plan["table"]
         banked = None
+        edges, rows = self.edges, list(self.edge_planes)
         for r in range(self.n_rsus):
             bank = None
             if self.fz and plan["bank_in"][r].any():
@@ -1608,9 +1639,10 @@ class ScenarioEngine:
             # an RSU without members merges only a bank it holds
             if not mask[r].any() and bank is None:
                 continue
-            self.edges[r], ls, c, w, bank_r = self._rsu_round(
-                self.edges[r], members[r][mask[r]], plan["cuts"], idx, ef,
+            edge, ls, c, w, bank_r = self._rsu_round(
+                edges[r], members[r][mask[r]], plan["cuts"], idx, ef,
                 plan, bank)
+            rows[r] = self.plane.flatten(edge["units"], edge["head"])
             loss_sum = loss_sum + ls
             cnt += c
             self.samples[r] += w
@@ -1618,15 +1650,14 @@ class ScenarioEngine:
                 if banked is None:
                     banked = torch.zeros_like(self.stale_num)
                 banked[r] = bank_r
+        self.edge_planes = torch.stack(rows)
         if self.fz:
             self.stale_num = banked if banked is not None \
                 else torch.zeros_like(self.stale_num)
         return loss_sum, cnt
 
     def _train_parallel(self, plan, idx, ef, dev):
-        par, pl = plan["par"], self.plane
-        planes = torch.stack([pl.flatten(e["units"], e["head"])
-                              for e in self.edges])
+        par, planes = plan["par"], self.edge_planes
         bank = None
         if self.fz and plan["bank_in"].any():
             bank = (self.faults.staleness_discount, self.stale_num)
@@ -1637,19 +1668,20 @@ class ScenarioEngine:
                 else torch.zeros_like(self.stale_num)
         if self.sz:
             merged = self._stream_commit(planes, merged, plan["stream"], dev)
-        self.edges = [dict(zip(("units", "head"), pl.tree(merged[r])))
-                      for r in range(self.n_rsus)]
+        self.edge_planes = merged
         self.samples += par.w_seg
         self.wire_bytes += nbytes
         if par.fault is None:
             steps = self._steps()
-            self.bucket_steps += len(par.buckets) * steps
-            self.rsu_bucket_steps += sum(len(b.runs)
-                                         for b in par.buckets) * steps
+            self.bucket_steps += sum(len(b.pages)
+                                     for b in par.buckets) * steps
+            self.rsu_bucket_steps += sum(len(pg.runs) for b in par.buckets
+                                         for pg in b.pages) * steps
             return loss_sum, par.n_slots * steps
         for step in par.fault.steps:
-            self.bucket_steps += len(step)
-            self.rsu_bucket_steps += sum(len(sb.sub.runs) for sb in step)
+            self.bucket_steps += sum(len(sb.sub.pages) for sb in step)
+            self.rsu_bucket_steps += sum(len(pg.runs) for sb in step
+                                         for pg in sb.sub.pages)
         return loss_sum, int(np.sum(plan["dstep"][plan["cuts"] > 0]))
 
     def _stream_commit(self, planes, merged, sp, dev):
@@ -1658,8 +1690,9 @@ class ScenarioEngine:
         ``merged - planes`` into its next free slot; a full buffer's RSU
         moves to ``planes + sum_b kw_b delta_b / den``; the rest keep
         ``planes``."""
-        for r, slot in sp.pushes:
-            self.sbuf[r, slot] = merged[r] - planes[r]
+        if sp.pushes:     # one (rsu, slot) each: no index is written twice
+            rs = dev("push_rsu")
+            self.sbuf[rs, dev("push_slot")] = merged[rs] - planes[rs]
         if not sp.fire.any():
             return planes
         step = planes + torch.einsum("rb,rbp->rp", dev("kw"),
@@ -1696,12 +1729,9 @@ class ScenarioEngine:
         handover = sched & (self.prev >= 0) & (self.prev != serving)
         self.prev = np.where(serving >= 0, serving, -1)
         if (plan["rnd"] + 1) % self.cloud_sync_every == 0:
-            glob = aggregation.cloud_merge(
-                self.edges, self.samples,
-                {"units": list(self.units), "head": self.head})
-            self.units, self.head = list(glob["units"]), glob["head"]
-            self.edges = [{"units": list(self.units), "head": self.head}
-                          for _ in range(self.n_rsus)]
+            self._set_global(aggregation.stacked_cloud_merge(
+                self.edge_planes, self.samples,
+                self.plane.flatten(self.units, self.head)))
             self.samples[:] = 0.0
         return loss_sum, cnt, handover
 
@@ -1713,7 +1743,7 @@ class ScenarioEngine:
         score goes to the last synced round."""
         horizon = max(self.cfg.rounds, rnd0 + k)
         cap = self._capacity(horizon)
-        slots = self._total_slots(horizon)
+        slots = SS.page_padded_slots(self._total_slots(horizon), self.page)
         ps = self._host_planes()
         plans = [self._plan(r, cap, slots, ps) for r in range(rnd0, rnd0 + k)]
         arrays: Dict[Any, np.ndarray] = {}
@@ -1723,8 +1753,11 @@ class ScenarioEngine:
                 SS.stage_parallel(plan["par"], i, arrays)
                 if self.fz and plan["bank_in"].any():
                     arrays[(i, "st_den")] = plan["bank_in"]
-                if self.sz and plan["stream"].fire.any():
-                    sp = plan["stream"]
+                sp = plan.get("stream")
+                if sp is not None and sp.pushes:
+                    arrays[(i, "push_rsu")], arrays[(i, "push_slot")] = \
+                        np.array(sp.pushes, np.int64).T
+                if sp is not None and sp.fire.any():
                     arrays[(i, "kw")] = sp.kw
                     arrays[(i, "den_b")] = sp.den
                     arrays[(i, "fire")] = sp.fire.astype(np.float32)

@@ -13,9 +13,10 @@ host every round.
 Scenarios: ``highway_corridor`` (RSUs along a multi-lane road, vehicles
 wrapping around it), ``highway_zipf`` (the same with a Zipf-skewed initial
 cell load), ``urban_grid`` (Manhattan blocks with pseudo-random turns and
-intersection dwell) and ``trace_replay`` (deterministic array-driven
-trajectories; :func:`crossing_trace` is the handover fixture).  Not ported
-yet: the paged ``city`` lattice.
+intersection dwell), ``trace_replay`` (deterministic array-driven
+trajectories; :func:`crossing_trace` is the handover fixture) and
+``city`` (:class:`CityGrid`, a lattice of hundreds of RSU cells with
+Zipf cell popularity and orbit mobility: the scale-out / paging fixture).
 
 Handover moves a vehicle's RSU association only: its data shard and its
 wire error-feedback residual are keyed by vehicle and travel with it.
@@ -272,6 +273,119 @@ class UrbanGrid:
 
 
 # --------------------------------------------------------------------------
+# city grid (scale-out fixture)
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class CityGrid:
+    """City-scale deployment: a ``grid_x`` x ``grid_y`` lattice of RSU cells
+    serving thousands of vehicles.
+
+    Each vehicle is anchored to a home cell drawn from the Zipf popularity
+    law over the flattened cell index (``load_skew="zipf"``; uniform with
+    ``None``) and follows an eccentric orbit around that cell's centre: the
+    radius breathes between ``r0*(1 - ecc)`` and ``r0*(1 + ecc)`` while the
+    phase advances at an individual angular rate.  The radius band
+    straddles the coverage radius, so vehicles swing through the gaps
+    between cells (``serving_rsu == -1``: the signal mobility churn turns
+    into departures) and wide orbits hand over to neighbouring cells.
+
+    Every kinematic quantity is closed-form in ``t``, the fleet's
+    attributes are drawn one column at a time, and association floors onto
+    the lattice (O(n), no vehicle x RSU distance matrix).  The draws follow
+    the reference's order from ``np.random.default_rng(seed)``, so every
+    field of the fleet state is the reference's bit for bit."""
+    name: str = "city"
+    n_vehicles: int = 4096
+    grid_x: int = 16
+    grid_y: int = 16
+    cell_m: float = 900.0        # lattice pitch; > 2*rsu_range_m leaves gaps
+    orbit_frac: Sequence[float] = (0.35, 1.15)  # mean orbit r / rsu_range_m
+    eccentricity: float = 0.45   # radial breathing amplitude, x mean radius
+    speed_mps: float = 14.0
+    seed: int = 0
+    load_skew: Optional[str] = "zipf"       # "zipf" | None (uniform)
+    ch: channel.ChannelConfig = dataclasses.field(
+        default_factory=channel.ChannelConfig)
+    fleet: Optional[object] = None
+
+    def __post_init__(self):
+        rng = np.random.default_rng(self.seed)
+        n = self.n_vehicles
+        self.n_rsus = self.grid_x * self.grid_y
+        self.fleet_arrays = (self._vector_fleet(rng) if self.fleet is None
+                             else _resolve_fleet(n, self.seed, self.fleet))
+        gx, gy = np.meshgrid(np.arange(self.grid_x), np.arange(self.grid_y),
+                             indexing="ij")
+        self.rsu_positions = ((np.stack([gx.ravel(), gy.ravel()], axis=-1)
+                               + 0.5) * self.cell_m).astype(np.float64)
+        if self.load_skew is None:
+            home = rng.integers(0, self.n_rsus, size=n)
+        elif self.load_skew == "zipf":
+            w = 1.0 / (np.arange(self.n_rsus) + 1.0)
+            home = rng.choice(self.n_rsus, size=n, p=w / w.sum())
+        else:
+            raise ValueError(f"unknown load_skew {self.load_skew!r}; "
+                             f"expected None or 'zipf'")
+        self._center = self.rsu_positions[home]
+        lo, hi = self.orbit_frac
+        self._radius = self.ch.rsu_range_m * rng.uniform(lo, hi, size=n)
+        self._phase = rng.uniform(0.0, 2.0 * np.pi, size=n)
+        speed = self.speed_mps * rng.uniform(0.85, 1.15, size=n)
+        spin = rng.choice(np.array([-1.0, 1.0]), size=n)
+        self._omega = spin * speed / np.maximum(self._radius, 1e-9)
+        # radial breathing r(t) = r0 * (1 + ecc * sin(nu t + psi)), at a
+        # rate incommensurate with the sweep so crossings do not phase-lock
+        self._nu = np.abs(self._omega) * rng.uniform(0.4, 0.9, size=n)
+        self._psi = rng.uniform(0.0, 2.0 * np.pi, size=n)
+
+    def _vector_fleet(self, rng) -> Dict[str, np.ndarray]:
+        """``channel.make_fleet`` + ``fleet_arrays`` drawn one column at a
+        time (the same attribute distributions, no per-vehicle loop)."""
+        n = self.n_vehicles
+        return {
+            "compute_flops": rng.uniform(5e9, 50e9, size=n),
+            "tx_power_w": rng.uniform(0.2, 1.0, size=n),
+            "compute_power_w": rng.uniform(8.0, 25.0, size=n),
+            "x0_m": rng.uniform(-350.0, -50.0, size=n),
+            "speed_mps": rng.uniform(8.0, 30.0, size=n),
+            "memory_budget_bytes": np.full(n, float("inf")),
+        }
+
+    def _associate(self, pos: np.ndarray):
+        """The nearest centre of a square lattice is the enclosing cell:
+        floor and clip, O(n).  Returns (serving (n,) int32, distance)."""
+        ij = np.floor(pos / self.cell_m).astype(np.int64)
+        ij = np.clip(ij, 0, [self.grid_x - 1, self.grid_y - 1])
+        flat = ij[:, 0] * self.grid_y + ij[:, 1]
+        rel = pos - self.rsu_positions[flat]
+        dist = np.sqrt(np.einsum("nd,nd->n", rel, rel))
+        serving = np.where(dist <= self.ch.rsu_range_m, flat, -1)
+        return serving.astype(np.int32), dist
+
+    def fleet_state(self, t: float, seed: int) -> FleetState:
+        theta = self._phase + self._omega * t
+        ct, st = np.cos(theta), np.sin(theta)
+        breathe = self._nu * t + self._psi
+        r = self._radius * (1.0 + self.eccentricity * np.sin(breathe))
+        dr = self._radius * self.eccentricity * self._nu * np.cos(breathe)
+        pos = self._center + r[:, None] * np.stack([ct, st], -1)
+        vel = (dr[:, None] * np.stack([ct, st], -1)
+               + (r * self._omega)[:, None] * np.stack([-st, ct], -1))
+        serving, dist = self._associate(pos)
+        rates = _rates_to_serving(self.ch, dist,
+                                  self.fleet_arrays["tx_power_w"], serving,
+                                  seed)
+        # residence linearises the orbit at the current velocity: the same
+        # tangent-line deadline as every other scenario
+        centers = self.rsu_positions[np.maximum(serving, 0)]
+        res = np.where(serving >= 0,
+                       coverage_exit_time(pos, vel, centers,
+                                          self.ch.rsu_range_m), 0.0)
+        return FleetState(t, pos, vel, serving, rates, res)
+
+
+# --------------------------------------------------------------------------
 # trace replay
 # --------------------------------------------------------------------------
 
@@ -390,14 +504,21 @@ def highway_zipf(n_vehicles: int, seed: int = 0, **kw) -> HighwayCorridor:
     return HighwayCorridor(n_vehicles=n_vehicles, seed=seed, **kw)
 
 
+def city(n_vehicles: int, seed: int = 0, **kw) -> CityGrid:
+    """City-scale RSU lattice with Zipf cell popularity, orbit mobility
+    and geometric coverage gaps: the scale-out / paging fixture."""
+    return CityGrid(n_vehicles=n_vehicles, seed=seed, **kw)
+
+
 SCENARIOS = {
     "highway_corridor": highway_corridor,
     "highway_zipf": highway_zipf,
     "urban_grid": urban_grid,
     "trace_replay": trace_replay,
+    "city": city,
 }
 # scenarios of the reference that the port does not run yet
-NOT_PORTED = ("city",)
+NOT_PORTED = ()
 
 
 def make_scenario(name: str, n_vehicles: int, seed: int = 0, **kw):

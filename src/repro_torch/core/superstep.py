@@ -42,8 +42,9 @@ bucket c (ascending; the bucket's slots in slot order, so RSU-major):
   ``torch.func.vmap`` over the slots, each with its RSU's model gathered,
   under ``torch.func.vjp``: every slot's own gradient, as the reference's
   ``par_slot_grad`` gives it;
-* each RSU's share, ``sum_j gw_j g_j`` over its run of the bucket, is a
-  ``torch.sum`` over that run's slots;
+* each RSU's share, ``sum_j gw_j g_j`` over its run of the bucket, is
+  one row of a one-hot (run, slot) matrix weighted by ``gw`` times the
+  slots' gradients: one matmul for every run of the bucket;
 * the cut-layer gradients come back down in one codec call and one
   ``vjp`` gives every replica its gradient; ``torch.func.vmap`` of the
   optimizer steps them all.
@@ -55,15 +56,31 @@ RSU entry (mlp9) reads the buffer itself: one ``unpack_dequant_matmul``
 per RSU with slots in the bucket (its rows, its first weight); the dense
 floats of the same words, which the vehicle decodes for its residual,
 give each slot's first-weight gradient ``dense^T g`` (what the fused
-matmul's backward decodes).  Codec launches per (cut bucket, local step):
-``int8`` 2 ``quantize_int8`` and 2 ``dequantize_int8``; ``topk_int8`` 2
-``sparsify_quant_pack`` (up, down), 2 ``unpack_dequant`` (the residual,
-the downlink) and, with a packed entry, one ``unpack_dequant_matmul`` per
-RSU in the bucket (else a third unpack for the RSU's input).
+matmul's backward decodes).  Codec launches per (cut bucket page, local
+step): ``int8`` 2 ``quantize_int8`` and 2 ``dequantize_int8``;
+``topk_int8`` 2 ``sparsify_quant_pack`` (up, down), 2 ``unpack_dequant``
+(the residual, the downlink) and, with a packed entry, one
+``unpack_dequant_matmul`` per RSU run in the page (else a third unpack
+for the RSU's input).
+
+**Paging** (``page_slots`` > 0 on the ``ragged`` layout; the
+reference's ``paged_sweep``).  Each local step walks a bucket's slots
+(under the fault plane its active ones) in windows of that many, the
+last one shorter (:class:`Page`): the vehicle forward and its vjp, the codec
+trips, the server vjp, the RSUs' shares and the replica step run for one
+window at a time, so the (n, P - offsets[c]) gather of RSU models, its
+gradient and the activations exist for one window, never for the
+bucket.  Replicas, optimizer states and residuals stay whole per bucket
+and each window writes its rows back in place.  A run of one RSU that a
+window splits is summed in two parts added in window order: the only
+reassociation that reaches a parameter, so paged and unpaged train the
+same bits where every run lies inside one window.  A bucket that fits
+one window is not paged.
 
 **Determinism and the layouts.**  Every sum is a ``torch.sum`` or a
 matmul over tensors of fixed shape (no ``index_add_``, whose CUDA kernel
-adds with float atomics), so two runs of a window give the same bits.
+adds with float atomics; a run's row goes to its RSU by an indexed add
+whose indices are distinct), so two runs of a window give the same bits.
 Phantom slots have no cut bucket to run in: neither layout computes them,
 so their contribution is the exact zero the reference multiplies in, and
 the two layouts run the same operations on the same occupied slots: bit
@@ -283,14 +300,37 @@ class FlatPlane:
 
 # ------------------------------------------------------------- the plans
 @dataclasses.dataclass
+class Page:
+    """A window of one bucket's slots: positions ``[start, stop)``, the
+    runs of the bucket it cuts (indices ``[run_lo, run_hi)``), and those
+    runs clipped to it as (rsu, start, stop) relative to ``start``."""
+    start: int
+    stop: int
+    run_lo: int
+    run_hi: int
+    runs: List[Tuple[int, int, int]]
+
+
+@dataclasses.dataclass
 class Bucket:
-    """The occupied slots of one cut in one round, in slot order."""
+    """The occupied slots of one cut in one round, in slot order, with
+    their RSU runs and the pages a local step walks them in (one page
+    unpaged)."""
     cut: int
     members: np.ndarray                 # (n_c,) vehicles
     seg: np.ndarray                     # (n_c,) their RSUs
     w: np.ndarray                       # (n_c,) float32 |D_n|
     gw: np.ndarray                      # (n_c,) float32 w / max(w_seg, 1)
     runs: List[Tuple[int, int, int]]    # (rsu, start, stop) in the bucket
+    run_id: np.ndarray                  # (n_c,) index of each slot's run
+    pages: List[Page]
+
+
+def _bucket(cut: int, members, seg, w, gw, page: int) -> Bucket:
+    runs = _runs(seg)
+    run_id = np.repeat(np.arange(len(runs)), [e - a for _, a, e in runs])
+    return Bucket(int(cut), members, seg, w, gw, runs, run_id,
+                  _pages(runs, len(members), page))
 
 
 @dataclasses.dataclass
@@ -331,11 +371,37 @@ class ParallelPlan:
 
 def _runs(seg: np.ndarray) -> List[Tuple[int, int, int]]:
     """(rsu, start, stop) of each RSU's run in slots sorted RSU-major."""
-    runs = []
-    for r in np.unique(seg):
-        idx = np.nonzero(seg == r)[0]
-        runs.append((int(r), int(idx[0]), int(idx[-1]) + 1))
-    return runs
+    seg = np.asarray(seg)
+    if not len(seg):
+        return []
+    cut = np.flatnonzero(np.diff(seg)) + 1
+    starts = np.concatenate([[0], cut])
+    stops = np.concatenate([cut, [len(seg)]])
+    return [(int(seg[a]), int(a), int(e)) for a, e in zip(starts, stops)]
+
+
+def _pages(runs, n: int, page: int) -> List[Page]:
+    """Windows of ``page`` slots over a bucket of ``n`` (the last one
+    shorter); one window of all ``n`` when ``page`` is 0 or covers them.
+    A run that crosses a window is split between the two."""
+    bounds = ([(0, n)] if page <= 0 or n <= page
+              else [(a, min(a + page, n)) for a in range(0, n, page)])
+    out = []
+    for a, e in bounds:
+        idx = [j for j, (_, s, t) in enumerate(runs) if s < e and t > a]
+        out.append(Page(a, e, idx[0], idx[-1] + 1,
+                        [(r, max(s, a) - a, min(t, e) - a)
+                         for r, s, t in runs[idx[0]:idx[-1] + 1]]))
+    return out
+
+
+def page_padded_slots(slots: int, page: int) -> int:
+    """The compacted slot count padded to a whole number of pages when it
+    exceeds one page (the reference's ``signature()``; the padding is
+    phantom slots, which no schedule computes)."""
+    if page > 0 and slots > page:
+        return -(-slots // page) * page
+    return slots
 
 
 def _seg_sums(w: np.ndarray, seg: np.ndarray, n_rsus: int) -> np.ndarray:
@@ -359,11 +425,20 @@ def own_weights(w: np.ndarray, seg: np.ndarray, cut: np.ndarray,
 
 def plan_parallel(members: np.ndarray, slot_seg: np.ndarray,
                   cuts: np.ndarray, lengths: np.ndarray, n_rsus: int,
-                  n_units: int, fault=None, steps: int = 1) -> ParallelPlan:
+                  n_units: int, fault=None, steps: int = 1,
+                  page: int = 0) -> ParallelPlan:
     """The occupied slots of a flat slot table (either layout), grouped by
     cut in slot order, with their weights (float32, as the reference).
     ``fault = (dstep, surv, strag)``, fleet-indexed: each vehicle's
-    performed local steps, and whether its update merges or is banked."""
+    performed local steps, and whether its update merges or is banked.
+    ``page`` > 0 walks each bucket's (active) slots in windows of that
+    many; the table must then hold a whole number of pages."""
+    S = len(members)
+    if page > 0 and S > page and S % page:
+        raise ValueError(
+            f"page_slots={page} must divide the per-device compacted slot "
+            f"block {S} (the engine pads planned slots to a page multiple "
+            f"— pass slots through superstep.page_padded_slots)")
     occ = np.asarray(slot_seg) < n_rsus
     mem = np.asarray(members)[occ]
     seg = np.asarray(slot_seg)[occ]
@@ -375,8 +450,7 @@ def plan_parallel(members: np.ndarray, slot_seg: np.ndarray,
     buckets = []
     for c in np.unique(cut):
         pos = np.nonzero(cut == c)[0]
-        buckets.append(Bucket(int(c), mem[pos], seg[pos], w[pos], gw[pos],
-                              _runs(seg[pos])))
+        buckets.append(_bucket(c, mem[pos], seg[pos], w[pos], gw[pos], page))
     if fault is None:
         return ParallelPlan(buckets, w_seg,
                             own_weights(w, seg, cut, n_rsus, n_units),
@@ -400,9 +474,8 @@ def plan_parallel(members: np.ndarray, slot_seg: np.ndarray,
                     bk, gw=gw_s)))
                 continue
             p = np.nonzero(a)[0]
-            step.append(StepBucket(b, p, Bucket(
-                bk.cut, bk.members[p], bk.seg[p], bk.w[p], gw_s[p],
-                _runs(bk.seg[p]))))
+            step.append(StepBucket(b, p, _bucket(
+                bk.cut, bk.members[p], bk.seg[p], bk.w[p], gw_s[p], page)))
         per_step.append(step)
     fp = FaultPlan(per_step, w_step,
                    [(bk.w * surv[bk.members]).astype(np.float32)
@@ -439,6 +512,10 @@ class Staged:
         return self._views[key]
 
 
+def _run_rsus(bk: Bucket) -> np.ndarray:
+    return np.array([r for r, _, _ in bk.runs], np.int64)
+
+
 def stage_parallel(plan: ParallelPlan, key, arrays: Dict[Any, np.ndarray]):
     """Add a round's device arrays to ``arrays`` under ``(key, ...)``."""
     for b, bk in enumerate(plan.buckets):
@@ -446,6 +523,11 @@ def stage_parallel(plan: ParallelPlan, key, arrays: Dict[Any, np.ndarray]):
         arrays[(key, b, "seg")] = bk.seg
         arrays[(key, b, "w")] = bk.w
         arrays[(key, b, "gw")] = bk.gw
+        arrays[(key, b, "run_id")] = bk.run_id
+        arrays[(key, b, "run_rsu")] = _run_rsus(bk)
+    # run indices, for the one-hot run matrices of the per-RSU sums
+    arrays[(key, "ar")] = np.arange(max([len(bk.runs)
+                                         for bk in plan.buckets] + [1]))
     arrays[(key, "w_seg")] = plan.w_seg
     arrays[(key, "own_w")] = plan.own_w
     fp = plan.fault
@@ -462,6 +544,8 @@ def stage_parallel(plan: ParallelPlan, key, arrays: Dict[Any, np.ndarray]):
                 arrays[(key, "s", s, j, "pos")] = sb.pos
                 arrays[(key, "s", s, j, "members")] = sb.sub.members
                 arrays[(key, "s", s, j, "seg")] = sb.sub.seg
+                arrays[(key, "s", s, j, "run_id")] = sb.sub.run_id
+                arrays[(key, "s", s, j, "run_rsu")] = _run_rsus(sb.sub)
 
 
 # ------------------------------------------------------- the parallel round
@@ -517,12 +601,14 @@ class ParallelSchedule:
         g_p, g_inp = vjp(torch.ones_like(losses))
         return losses.detach(), g_p, g_inp
 
-    def _bucket_step(self, bk: Bucket, dev: Dict[str, torch.Tensor], sv,
-                     cu, x, y, res):
-        """One local step of one bucket.  Returns (replica gradient, loss
-        sum, the RSUs' gradient shares as [(rsu, share)], renewed
-        residual, bytes)."""
-        model, plane, c = self.model, self.plane, bk.cut
+    def _page_step(self, c: int, pg: Page, dev: Dict[str, torch.Tensor],
+                   sv, g_srv, cu, x, y, res):
+        """One local step of one page of a cut-``c`` bucket: ``dev`` holds
+        the page's staged arrays, ``cu`` / ``x`` / ``y`` / ``res`` its
+        slots' replicas, batch and residuals.  Adds each RSU's gradient
+        share ``sum_j gw_j g_j`` over its run in the page to ``g_srv``.
+        Returns (replica gradient, loss sum, renewed residual, bytes)."""
+        model, plane = self.model, self.plane
         off = plane.offsets[c]
 
         def client_fwd(p):
@@ -547,7 +633,7 @@ class ParallelSchedule:
                         buf[a:b].reshape(-1, buf.shape[-1]),
                         sv[r, lo:hi].view(d, -1), self.k_frac
                     ).view(b - a, sent.shape[1], -1)
-                    for r, a, b in bk.runs])
+                    for r, a, b in pg.runs])
                 losses, g_p, g_entry = self._server(c, p_srv, entry, y)
                 g_w = torch.bmm(dense.transpose(1, 2), g_entry)
                 g_p[:, lo - off:hi - off] = g_w.reshape(len(g_w), -1)
@@ -561,9 +647,11 @@ class ParallelSchedule:
             losses, g_p, g_cut = self._server(c, p_srv, recv, y)
         g_recv, down = self._trip(self.cfg, g_cut)
         (g_cu,) = client_vjp(g_recv)
-        contrib = g_p * dev["gw"][:, None]
-        shares = [(r, contrib[a:b].sum(0)) for r, a, b in bk.runs]
-        return g_cu, losses.sum(), shares, res, up + down
+        # the RSUs' shares: a one-hot (run, slot) matrix weighted by gw
+        # times the gradients, one row per run, added to its RSU's row
+        rows = _run_matrix(dev, pg.run_lo, pg.run_hi, dev["gw"]) @ g_p
+        g_srv[:, off:][dev["run_rsu"][pg.run_lo:pg.run_hi]] += rows
+        return g_cu, losses.sum(), res, up + down
 
     # ---- the round -----------------------------------------------------
     def run_round(self, planes: torch.Tensor, plan: ParallelPlan,
@@ -587,7 +675,9 @@ class ParallelSchedule:
         act_t = w_seg > 0
         states = []
         for b, bk in enumerate(plan.buckets):
-            d = {k: dev(b, k) for k in ("members", "seg", "w", "gw")}
+            d = {k: dev(b, k) for k in ("members", "seg", "w", "gw",
+                                        "run_id", "run_rsu")}
+            d["ar"] = dev("ar")
             cu = sv[:, :plane.offsets[bk.cut]][d["seg"]]
             res = None
             if residuals is not None and any(
@@ -622,15 +712,40 @@ class ParallelSchedule:
                     idx_s = idx_b[s][p]
                 else:
                     idx_s = idx_b[s]
-                rows = d["members"][:, None]
-                x, y = images[rows, idx_s], labels[rows, idx_s]
-                g_cu, ls, shares, res, nb = self._bucket_step(
-                    bk, d, sv, cu, x, y, res)
-                off = plane.offsets[bk.cut]
-                for r, share in shares:
-                    g_srv[r, off:] += share
-                upd, co = torch.func.vmap(opt.update)(g_cu, co, cu)
-                cu = optim.apply_updates(cu, upd)
+                paged = len(bk.pages) > 1
+                if paged:                # written page by page below
+                    cu = cu.contiguous()
+                    co = {k: v.contiguous() for k, v in co.items()}
+                for pg in bk.pages:      # one page unless paged
+                    a, e = pg.start, pg.stop
+                    dp = {k: d[k][a:e]
+                          for k in ("members", "seg", "gw", "run_id")}
+                    dp.update(run_rsu=d["run_rsu"], ar=d["ar"])
+                    cu_p = cu[a:e]
+                    co_p = {k: v[a:e] for k, v in co.items()}
+                    rows = dp["members"][:, None]
+                    x, y = images[rows, idx_s[a:e]], labels[rows, idx_s[a:e]]
+                    g_cu, ls, res_p, nb = self._page_step(
+                        bk.cut, pg, dp, sv, g_srv, cu_p, x, y,
+                        None if res is None else res[a:e])
+                    upd, co_p = torch.func.vmap(opt.update)(g_cu, co_p, cu_p)
+                    cu_p = optim.apply_updates(cu_p, upd)
+                    loss = loss + ls
+                    nbytes += nb
+                    if not paged:
+                        cu, co, res = cu_p, co_p, res_p
+                        continue
+                    # a page writes its slots back into the bucket's state
+                    # (its own, or this step's gather of the active rows):
+                    # no second bucket-wide copy is held
+                    cu[a:e] = cu_p
+                    for k, v in co_p.items():
+                        co[k][a:e] = v
+                    if res_p is not None:
+                        if res is None:
+                            res = res_p.new_zeros((len(bk.members),)
+                                                  + res_p.shape[1:])
+                        res[a:e] = res_p
                 if pos is None:
                     st[1], st[2], st[4] = cu, co, res
                 else:
@@ -641,8 +756,6 @@ class ParallelSchedule:
                         full = st[4] if st[4] is not None else \
                             res.new_zeros((len(idx_b[s]),) + res.shape[1:])
                         st[4] = full.index_copy(0, p, res)
-                loss = loss + ls
-                nbytes += nb
             upd, so2 = torch.func.vmap(opt.update)(g_srv, so, sv)
             sv2 = optim.apply_updates(sv, upd)
             if fp is not None:           # RSUs with a slot active this step
@@ -666,12 +779,11 @@ class ParallelSchedule:
                                                          states)):
             off = plane.offsets[bk.cut]
             w = d["w"] if fp is None else dev(b, "w_surv")
-            for r, a, e in bk.runs:
-                num[r, :off] += torch.tensordot(w[a:e], cu[a:e],
-                                                dims=([0], [0]))
-                if banked is not None and fp.w_strag[b][a:e].any():
-                    banked[r, :off] += torch.tensordot(
-                        dev(b, "w_strag")[a:e], cu[a:e], dims=([0], [0]))
+            n_runs = len(bk.runs)
+            num[:, :off][d["run_rsu"]] += _run_matrix(d, 0, n_runs, w) @ cu
+            if banked is not None and fp.w_strag[b].any():
+                banked[:, :off][d["run_rsu"]] += _run_matrix(
+                    d, 0, n_runs, dev(b, "w_strag")) @ cu
             if residuals is not None and res is not None:
                 for i, v in enumerate(bk.members):
                     residuals[v] = res[i]
@@ -696,14 +808,22 @@ class ParallelSchedule:
     @staticmethod
     def _step_dev(dev, full, s: int, j: int, pos):
         """The staged arrays of the j-th active bucket of local step s."""
-        d = {"gw": dev("s", s, j, "gw")}
-        if pos is None:
-            d.update(members=full["members"], seg=full["seg"])
-        else:
-            d.update(pos=dev("s", s, j, "pos"),
-                     members=dev("s", s, j, "members"),
-                     seg=dev("s", s, j, "seg"))
+        d = dict(full, gw=dev("s", s, j, "gw"))
+        if pos is not None:
+            d.update({k: dev("s", s, j, k)
+                      for k in ("pos", "members", "seg", "run_id",
+                                "run_rsu")})
         return d
+
+
+def _run_matrix(d: Dict[str, torch.Tensor], lo: int, hi: int,
+                weights: torch.Tensor) -> torch.Tensor:
+    """(hi - lo, n) one-hot of runs ``[lo, hi)`` over the slots of
+    ``d["run_id"]``, each slot's entry its weight: times a slot-major
+    tensor it gives every run's weighted sum in one matmul (float32, TF32
+    off; fixed shapes, so the bits repeat, unlike an atomic scatter)."""
+    hit = d["run_id"][None, :] == d["ar"][lo:hi, None]
+    return torch.where(hit, weights[None, :], 0.0)
 
 
 # ---------------------------------------------------------- the StreamBuffer

@@ -134,3 +134,17 @@ def assert_lm_caches_close(jax_caches, port_caches, tol):
                         np.testing.assert_allclose(
                             val.numpy(), ref, rtol=tol, atol=tol,
                             err_msg=f"cache {key} period {i} layer {j}")
+
+
+FLEET_STATE_FIELDS = ("positions", "velocities", "serving_rsu", "rates_bps",
+                      "residence_s")
+
+
+def assert_fleet_states_equal(ref, port):
+    """Two scenarios' FleetStates (reference, port): every field equal bit
+    for bit, dtypes included."""
+    assert port.t == ref.t
+    for f in FLEET_STATE_FIELDS:
+        a, b = getattr(ref, f), getattr(port, f)
+        assert a.dtype == b.dtype, (f, a.dtype, b.dtype)
+        np.testing.assert_array_equal(b, a, err_msg=f)

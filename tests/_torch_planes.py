@@ -2,9 +2,10 @@
 (tests/test_torch_faults_scenario.py, tests/test_torch_streaming.py): the
 reference's and the port's ScenarioEngine on tests/test_torch_parallel.py's
 cells (the two-cell trace or urban_grid, mlp9, paper cuts, local steps 2,
-batch 8, 4 rounds, cloud sync every 2; and tests/test_streaming.py's
-coverage-gap trace for the mobility churn source), the reference's threefry draws fed
-to the port through its seams (fleet states, batch indices, the fault
+batch 8, 4 rounds, cloud sync every 2; tests/test_streaming.py's
+coverage-gap trace for the mobility churn source; and a 64-vehicle city
+on a 2 x 2 lattice, tests/test_fleet_sharding.py's), the reference's
+threefry draws fed to the port through its seams (fleet states, batch indices, the fault
 draws before ``ensure_rsu_up``, the presence toggles), and the port's state
 compared with and set to the reference's carry after each round: the
 models, counters, residuals, and the staleness bank (``stale_num`` /
@@ -38,6 +39,7 @@ from test_torch_scenario import (BATCH, INTERVAL, ROUNDS, STEPS, _Mods,
                                  _traced_states, _two_cell_trace)
 
 TOL = 1e-5
+CITY_N = 64         # vehicles of the reduced city (a 2 x 2 lattice)
 
 
 def build(scenario, wire="none", schedule="sequential", layout="ragged",
@@ -55,6 +57,9 @@ def build(scenario, wire="none", schedule="sequential", layout="ragged",
     elif scenario == "gap":
         jsc = gap_trace(_Mods(JCh, JS))
         tsc = gap_trace(_Mods(TCh, TS))
+    elif scenario == "city":     # tests/test_fleet_sharding.py's lattice
+        jsc = JS.make_scenario("city", CITY_N, seed=1, grid_x=2, grid_y=2)
+        tsc = TS.make_scenario("city", CITY_N, seed=1, grid_x=2, grid_y=2)
     else:
         jsc = JS.make_scenario("urban_grid", 8, seed=0)
         tsc = TS.make_scenario("urban_grid", 8, seed=0)

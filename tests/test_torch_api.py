@@ -67,10 +67,18 @@ def test_spec_groups_and_result_keys_match_reference():
 
 
 def test_spec_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        TAPI.ExperimentSpec(fleet=TAPI.FleetConfig(scenario="city"))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        TAPI.ExperimentSpec(runtime=TAPI.RuntimeConfig(num_processes=2))
+    for runtime in ({"num_processes": 2}, {"mesh_devices": 2}):
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            TAPI.ExperimentSpec(
+                model="mlp9", fleet=TAPI.FleetConfig(
+                    n_vehicles=6, scenario="highway_corridor"),
+                runtime=TAPI.RuntimeConfig(**runtime))
+    # ported: the city lattice, with slot paging on the parallel schedule
+    TAPI.ExperimentSpec(
+        model="mlp9", fleet=TAPI.FleetConfig(n_vehicles=64, scenario="city"),
+        train=TAPI.TrainConfig(server_schedule="parallel"),
+        runtime=TAPI.RuntimeConfig(page_slots=8))
+    assert TAPI.registry.NOT_PORTED_SCENARIOS == ()
     # ported: faults and the streaming schedule on a scenario
     for kw in ({"faults": TAPI.FaultsConfig(dropout_rate=0.1)},
                {"train": TAPI.TrainConfig(server_schedule="streaming")}):

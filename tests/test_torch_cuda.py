@@ -11,7 +11,9 @@ the CPU, the parallel window's determinism (two runs, and the dense layout
 beside the ragged one, bit for bit), the fault and streaming planes on
 the scenario path (K = 4 windows equal to K = 1 on the card, the codec
 launch formula under dropouts, the two-cell trace with both planes on
-against the CPU), resnet18 under vmap against the loop
+against the CPU), the reduced city paged (card against CPU, two runs bit
+for bit, launches per page, the paged peak memory below the unpaged),
+resnet18 under vmap against the loop
 on the card, and the reduced LM configs served on cuda against the CPU.  Needs a CUDA card and
 nvcc:
 
@@ -958,3 +960,56 @@ def test_plane_trace_on_cuda_matches_cpu(dev, schedule):
     assert tc == tg
     np.testing.assert_allclose(lg, lc, atol=1e-4)
     assert np.abs(pc - pg).max() <= 1e-4 * np.abs(pc).max()
+
+
+# --------------------------------------------- the city and slot paging
+def _small_city_engine(device, page):
+    """tests/test_fleet_sharding.py's reduced city (64 vehicles, 2 x 2),
+    topk_int8, 4 rounds in one window, parallel ragged."""
+    from repro_torch.core import fedsim, scenario
+    from repro_torch.models.mlp_unit import MLPUnitModel, make_mlp_fleet_data
+    cfg = fedsim.SimConfig(rounds=4, local_steps=2, batch_size=8, lr=1e-2,
+                           optimizer="sgd", wire="topk_int8",
+                           round_interval_s=5.0, eval_every=0, superstep=4,
+                           server_schedule="parallel", page_slots=page)
+    clients, test = make_mlp_fleet_data(64, 24, seed=0, n_test=64)
+    sc = scenario.make_scenario("city", 64, seed=1, grid_x=2, grid_y=2)
+    return fedsim.ScenarioEngine(MLPUnitModel(), clients, test, cfg, sc,
+                                 cloud_sync_every=2, device=device)
+
+
+def test_paged_city_on_cuda(dev):
+    """The reduced city paged at 4 on the card: within 1e-4 of the largest
+    parameter of the CPU's run, two runs bit for bit, the codec launched
+    per page (two packs and two unpacks per (cut bucket page, local step),
+    one fused matmul per (cut bucket page, RSU run, local step)), and a
+    peak memory below the unpaged run's."""
+    cpu = _small_city_engine("cpu", 4)
+    cpu.run()
+    runs, peaks = [], {}
+    for page in (4, 4, 0):
+        eng = _small_city_engine(dev, page)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = launch_counts()
+        hist = eng.run()
+        torch.cuda.synchronize()
+        after = launch_counts()
+        peaks[page] = torch.cuda.max_memory_allocated()
+        if page:
+            launches = {k: after[k] - before[k] for k in after}
+            b, rb = eng.bucket_steps, eng.rsu_bucket_steps
+            assert launches["sparsify_quant_pack"] == 2 * b
+            assert launches["unpack_dequant"] == 2 * b
+            assert launches["unpack_dequant_matmul"] == rb
+            runs.append(([m.loss for m in hist], _engine_params(eng),
+                         [r.cpu().numpy() for r in eng.wire_res
+                          if r is not None], b))
+    assert runs[0][3] == cpu.bucket_steps > len(cpu.history) * 2
+    assert runs[0][0] == runs[1][0]
+    np.testing.assert_array_equal(runs[0][1], runs[1][1])
+    for a, b in zip(runs[0][2], runs[1][2]):
+        np.testing.assert_array_equal(a, b)
+    pc = _engine_params(cpu)
+    assert np.abs(pc - runs[0][1]).max() <= 1e-4 * np.abs(pc).max()
+    assert peaks[4] < peaks[0]

@@ -96,9 +96,13 @@ def test_control_plane_matches_jax():
 
 
 def test_sim_config_refuses_what_is_not_ported():
-    for kw in ({"page_slots": 4}, {"mesh_devices": 2}):
+    for kw in ({"mesh_devices": 2}, {"fleet_axis": "rsu"}):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             TF.SimConfig(**kw)
+    # ported: slot paging, an int >= 0 as in the reference
+    assert TF.SimConfig(page_slots=4).page_slots == 4
+    with pytest.raises(ValueError, match="page_slots"):
+        TF.SimConfig(page_slots=-1)
     # ported: the engines take or refuse these as the reference's do
     # (tests/test_torch_superstep.py, tests/test_torch_streaming.py)
     for kw in ({"superstep": 2}, {"server_schedule": "parallel"},

@@ -119,8 +119,8 @@ def test_cloud_merge_matches_reference(weights):
     want = JAg.stacked_cloud_merge(
         jax.tree.map(lambda *a: jnp.stack(a), *edges),
         jnp.asarray(weights), prev)
-    got = TAg.cloud_merge(
-        [{k: torch.from_numpy(v) for k, v in e.items()} for e in edges],
+    got = TAg.stacked_cloud_merge(
+        {k: torch.from_numpy(np.stack([e[k] for e in edges])) for k in prev},
         weights, {k: torch.from_numpy(v) for k, v in prev.items()})
     for k in prev:
         np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
@@ -288,11 +288,17 @@ def test_scenario_spec_cross_loads_and_routes_to_the_port_engine():
 
 def test_scenario_spec_refuses_what_is_not_ported():
     base = _scenario_spec(TAPI)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        dataclasses.replace(base, fleet=dataclasses.replace(
-            base.fleet, scenario="city"))
-    # ported: the window, the schedules, the slot layouts, the fault and
-    # streaming planes
+    # not ported: the mesh and multi-process runs
+    for runtime in ({"mesh_devices": 2}, {"num_processes": 2}):
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            dataclasses.replace(base, runtime=dataclasses.replace(
+                base.runtime, **runtime))
+    # ported: the city lattice and slot paging, the window, the schedules,
+    # the slot layouts, the fault and streaming planes
+    dataclasses.replace(base, fleet=dataclasses.replace(
+        base.fleet, scenario="city"), runtime=dataclasses.replace(
+            base.runtime, page_slots=4), train=dataclasses.replace(
+                base.train, server_schedule="parallel"))
     dataclasses.replace(base, runtime=dataclasses.replace(
         base.runtime, slot_capacity="tight8", superstep_layout="dense",
         superstep=2), train=dataclasses.replace(

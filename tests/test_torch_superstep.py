@@ -227,13 +227,13 @@ def test_parallel_residual_restarts_on_cut_change(monkeypatch):
     m0 = eng.run_round(0)
     kept = [r.clone() for r in eng.wire_res]
     seen = {}
-    real = SS.ParallelSchedule._bucket_step
+    real = SS.ParallelSchedule._page_step
 
-    def spy(self, bk, dev, sv, cu, x, y, res):
-        seen.setdefault(bk.cut, (list(bk.members), res))
-        return real(self, bk, dev, sv, cu, x, y, res)
+    def spy(self, c, pg, dev, sv, g_srv, cu, x, y, res):
+        seen.setdefault(c, (dev["members"].tolist(), res))
+        return real(self, c, pg, dev, sv, g_srv, cu, x, y, res)
 
-    monkeypatch.setattr(SS.ParallelSchedule, "_bucket_step", spy)
+    monkeypatch.setattr(SS.ParallelSchedule, "_page_step", spy)
     m1 = eng.run_round(1)
     assert m0.cuts == [2, 2] and m1.cuts == [4, 2]
     assert seen[2][0] == [1] and torch.equal(seen[2][1][0], kept[1])
@@ -307,7 +307,7 @@ def test_schedules_and_planes_refused_as_the_reference():
         with pytest.raises(ValueError, match="ScenarioEngine"):
             TF.FederationSim(TM.MLPUnitModel(), tclients, ttest,
                              TF.SimConfig(**kw), device="cpu")
-    for kw in ({"page_slots": 4}, {"mesh_devices": 2},
+    for kw in ({"mesh_devices": 2},
                {"fleet_axis": "rsu"}, {"compilation_cache_dir": "x"}):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             TF.SimConfig(**kw)
