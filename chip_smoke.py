@@ -40,13 +40,19 @@ neither ``jax`` nor ``repro``.  In order it:
    time at every case, and at the path's shape times it like the codec;
 4b. holds the LM lane's kernels (rmsnorm, flash_attention, ssd_chunk_scan)
    to their plain versions within stated float32 tolerances at the serving
-   path's shapes and edge shapes, and at the path's main shape times
-   kernel (for ssd_chunk_scan every kernel of one wrapper call), wrapper
-   call, plain version and one PyTorch library call
-   (``scaled_dot_product_attention``, ``rms_norm``; none computes the SSD
-   scan) beside the bound (bytes or float32 operations, whichever is
-   larger) and, for flash_attention and ssd_chunk_scan, which run 3xTF32
-   on the tensor cores, the operations bound at a third of the TF32 rate;
+   path's shapes and edge shapes, and at each served arch's prefill shape
+   (smollm, mamba2; gemma3's global and local layers at d 256, 8 heads
+   over 4, the local one also at s 1088 where its window masks keys;
+   recurrentgemma's local MQA, window 2048; internvl2's 14 over 2;
+   musicgen's MHA 32 / 32; rmsnorm at d 960 / 2560 / 896 / 2048 and
+   gemma3's qk-norm rows over head_dim 256) times kernel (for
+   ssd_chunk_scan every kernel of one wrapper call), wrapper call, plain
+   version and one PyTorch library call (``scaled_dot_product_attention``
+   with ``enable_gqa``, under a window with a boolean mask; ``rms_norm``;
+   none computes the SSD scan) beside the bound (bytes or float32
+   operations, whichever is larger) and, for flash_attention and
+   ssd_chunk_scan, which run 3xTF32 on the tensor cores, the operations
+   bound at a third of the TF32 rate;
 5. drives the ASFL path — ``repro_torch.api.run`` of the paper's case
    study (resnet18, asfl, 4 vehicles, batch 16, adam) on the per-replica
    loop (``cohort_parallel="unroll"``, the schedule of every earlier
@@ -58,16 +64,29 @@ neither ``jax`` nor ``repro``.  In order it:
 7. one sgd SFL batch step per cut on the CPU and on the card from the same
    weights (``wire="none"``, TF32 off): the card's update agrees with the
    CPU's within 1 % of the largest update;
-8. serves smollm-360m and mamba2-780m at full width and depth through
+8. serves smollm-360m, mamba2-780m, gemma3-4b (local + global attention,
+   qk-norm, GeGLU), recurrentgemma-2b (RG-LRU + local MQA), internvl2-1b
+   (256 patch embeddings prepended) and musicgen-large (4 codebooks in, 4
+   heads out, sinusoidal positions) at full width and depth through
    ``repro_torch.launch.serve`` (batch 8, prompt 1024, 32 decode steps, the
    default cut), with the launch counters zeroed just before and read just
-   after each: exactly the kernel launches the model implies; prints the
-   prefill and decode times, and a second full-size prefill's beside the
-   first;
+   after each: exactly the kernel launches the model implies (flash per
+   attention layer; rmsnorm 2 per layer, 2 more per attention layer under
+   qk-norm, and the final norm, per forward), finite logits of the right
+   shape ((8, 1, 4, 2048) for musicgen), the parameter count equal to
+   ``count_params`` plus the leaves it leaves out (qk-norm scales,
+   RG-LRU's ``lam``); prints the prefill and decode times, the counted
+   serve's peak memory, a second full-size prefill's time beside the
+   first, and the SM clocks (nvidia-smi) and reserved bytes just before
+   and just after the first;
 9. at full width, prefill(s-1) + one decode step reproduces the last
-   logits of prefill(s) within 1e-3;
+   logits of prefill(s) within 1e-3 (gemma3 at s 1088 and recurrentgemma
+   at s 2112, so that their local layers' rings wrap with a nonzero shift
+   and flash masks keys left of the window; the others at the served
+   prompt, through their own batches);
 10. serves the reduced configs on the card and on the CPU from the same
-    weights: logits within 2e-4;
+    weights and inputs (smollm / mamba2 at three periods, the four
+    families at their own depth): logits within 2e-4;
 10b. drives the multi-RSU scenario path through ``repro_torch.api.run``:
     mlp9 on ``highway_corridor`` with 256 vehicles and 4 RSUs, cloud sync
     every round, 4 rounds of local_steps 2 at batch 8 (sgd, lr 1e-3, the
@@ -98,7 +117,8 @@ neither ``jax`` nor ``repro``.  In order it:
     one slot sitting the step out) under ``vmap`` on the card from the same
     weights as the loop on the CPU, TF32 off, the model in float64: within
     phase 7's tolerance (the float32 comparisons printed beside it);
-10f. the LM kernels' autograd on the card (rmsnorm, flash GQA causal d 64,
+10f. (phases 10f-10i train smollm-360m and mamba2-780m only) the LM
+    kernels' autograd on the card (rmsnorm, flash GQA causal d 64,
     ssd chunk 256; small shapes and the training path's): gradients
     through the Function (kernel forward, plain backward) against
     all-plain autograd, forward within phase 4b's tolerances and
@@ -176,8 +196,10 @@ neither ``jax`` nor ``repro``.  In order it:
     city (64 vehicles, 2 x 2, page 4, topk_int8) card vs CPU within 1e-4
     of the largest parameter;
 11. prints the per-kernel JSON line (all eight kernels, the quant and LM
-    kernels with their launches per training step, the codec kernels with
-    their launches in phases 10j, 10k and 10l), then ``{"ok": true,
+    kernels with their launches per training step, the LM kernels with
+    their launches per served arch and their other timed shapes, the codec
+    kernels with their launches in phases 10j, 10k and 10l), then
+    ``{"ok": true,
     "device": ...}`` as the last line.
 
 Any failure raises and the script exits non-zero.
@@ -295,9 +317,13 @@ LM_META = {
 #     hundred, one ulp ~3e-5) in another order: the reference's tolerance
 #     of its own SSD kernel (tests/test_kernels.py).
 LM_TOL = {"rmsnorm": 2e-5, "flash_attention": 1e-4, "ssd_chunk_scan": 2e-4}
-SERVE_ARCHS = ("smollm-360m", "mamba2-780m")
+# phase 8-10's served archs; phases 10f-10i train the first two only
+# (gemma3-4b's adamw states alone would take ~73 GB in float32)
+SERVE_ARCHS = ("smollm-360m", "mamba2-780m", "gemma3-4b",
+               "recurrentgemma-2b", "internvl2-1b", "musicgen-large")
+TRAIN_ARCHS = ("smollm-360m", "mamba2-780m")
 SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = 8, 1024, 32
-TEACHER_TOL = 1e-3              # phase 9: f32 through 32-48 layers, prefill
+TEACHER_TOL = 1e-3              # phase 9: f32 through 24-48 layers, prefill
 #                                 (kernels) vs decode (plain) sum orders
 REDUCED_TOL = 2e-4              # phase 10: as the CPU parity tests
 
@@ -1157,33 +1183,62 @@ def _ssd_flops(b, s, h, p, g, n, chunk):
     return b * (g * per_group + h * per_head)
 
 
-def _lm_cases():
-    """(kernel, label, main, kernel call, plain call, library call or None,
-    bytes, flops) for the serving path's shapes and the edge shapes."""
-    import torch
+def _sdpa_library(q, k, v, causal, window):
+    """One ``scaled_dot_product_attention`` call on the same inputs (GQA
+    by ``enable_gqa``; under a window a boolean mask of the same pairs)."""
     import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    if window > 0:
+        mask = FA._mask(q.shape[1], k.shape[1], causal, window, q.device)
+        return lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True)
+    return lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=causal, enable_gqa=True)
+
+
+# the row of each LM kernel that the per-kernel JSON line reports (its
+# other timed rows go under "shapes")
+LM_MAIN = {"rmsnorm": "smollm_prefill_d960",
+           "flash_attention": "smollm_prefill",
+           "ssd_chunk_scan": "mamba2_prefill"}
+LM_ROW_KEYS = ("shape", "ms", "call_ms", "plain_ms", "library_ms",
+               "bound_ms", "bound_by", "bound_tc_ms", "max_abs_err")
+
+
+def _lm_cases():
+    """(kernel, label, timed, kernel call, plain call, library call or
+    None, bytes, flops) for the serving path's shapes (each served arch's
+    prefill shape is timed) and the edge shapes."""
+    import torch.nn.functional as F
+    B, S = SERVE_BATCH, SERVE_PROMPT
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import rmsnorm as RN
     from repro_torch.kernels import ssd as SSD
     cases = []
-    for label, shape, main in [
-            ("smollm_prefill_d960", (SERVE_BATCH, SERVE_PROMPT, 960), True),
-            ("mamba2_prefill_d1536", (SERVE_BATCH, SERVE_PROMPT, 1536),
-             False),
-            ("mamba2_gated_d3072", (SERVE_BATCH, SERVE_PROMPT, 3072), False),
-            ("decode_d960", (SERVE_BATCH, 1, 960), False),
+    for label, shape, timed in [
+            ("smollm_prefill_d960", (B, S, 960), True),
+            ("mamba2_prefill_d1536", (B, S, 1536), False),
+            ("mamba2_gated_d3072", (B, S, 3072), False),
+            ("decode_d960", (B, 1, 960), False),
             ("reduced_d256", (2, 12, 256), False),
-            ("odd_d1001", (5, 7, 1001), False)]:
+            ("odd_d1001", (5, 7, 1001), False),
+            # gemma3-4b / recurrentgemma-2b, internvl2-1b, musicgen-large
+            ("gemma3_prefill_d2560", (B, S, 2560), True),
+            ("internvl2_prefill_d896", (B, S, 896), True),
+            ("musicgen_prefill_d2048", (B, S, 2048), True),
+            # gemma3's qk-norm: q's rows (b * s * 8 heads) over head_dim
+            ("gemma3_qk_norm_d256", (B * S * 8, 256), True),
+            ("gemma3_decode_k_norm_d256", (B * 4, 256), False)]:
         x, g = _rms_case(shape, len(cases))
         n = math.prod(shape)
-        cases.append(("rmsnorm", label, main,
+        cases.append(("rmsnorm", label, timed,
                       lambda x=x, g=g: RN.rmsnorm(x, g),
                       lambda x=x, g=g: RN.rmsnorm_plain(x, g),
                       lambda x=x, g=g: F.rms_norm(x, g.shape, g, 1e-6),
                       4 * (2 * n + shape[-1]), 3 * n))
-    for label, (b, sq, sk, h, kv, d, causal, window), main in [
-            ("smollm_prefill", (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 15,
-                                5, 64, True, 0), True),
+    for label, (b, sq, sk, h, kv, d, causal, window), timed in [
+            ("smollm_prefill", (B, S, S, 15, 5, 64, True, 0), True),
             ("d128_ragged", (1, 100, 100, 4, 2, 128, True, 0), False),
             ("d256_mqa", (1, 70, 70, 4, 1, 256, True, 0), False),
             ("d32_reduced", (2, 37, 37, 4, 2, 32, True, 0), False),
@@ -1192,27 +1247,32 @@ def _lm_cases():
             ("masked_rows", (1, 64, 16, 2, 1, 64, False, 8), False),
             ("sq1", (2, 1, 77, 4, 2, 64, False, 0), False),
             ("d256_window40", (1, 90, 90, 2, 1, 256, True, 40), False),
-            ("qk_x4", (1, 256, 256, 4, 2, 64, True, 0), False)]:
+            ("qk_x4", (1, 256, 256, 4, 2, 64, True, 0), False),
+            # the four families' prefills: gemma3's global and local layers
+            # (at s = 1024 the window of 1024 masks nothing; at 1088 it
+            # masks keys), recurrentgemma's local MQA, internvl2, musicgen
+            ("gemma3_global", (B, S, S, 8, 4, 256, True, 0), True),
+            ("gemma3_local", (B, S, S, 8, 4, 256, True, 1024), True),
+            ("gemma3_local_s1088", (B, 1088, 1088, 8, 4, 256, True, 1024),
+             True),
+            ("recurrentgemma_local", (B, S, S, 10, 1, 256, True, 2048),
+             True),
+            ("internvl2_prefill", (B, S, S, 14, 2, 64, True, 0), True),
+            ("musicgen_prefill", (B, S, S, 32, 32, 64, True, 0), True)]:
         # q and k scaled by 4: scores up to ~80 would show a 1xTF32 route
         q, k, v = _flash_case(b, sq, sk, h, kv, d, len(cases),
                               4.0 if label == "qk_x4" else 1.0)
-        lib = None
-        if main:
-            def lib(q=q, k=k, v=v):
-                return F.scaled_dot_product_attention(
-                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                    is_causal=True, enable_gqa=True)
         cases.append((
-            "flash_attention", label, main,
+            "flash_attention", label, timed,
             lambda q=q, k=k, v=v, c=causal, w=window: FA.flash_attention(
                 q, k, v, causal=c, window=w),
             lambda q=q, k=k, v=v, c=causal, w=window: FA.attention_plain(
-                q, k, v, causal=c, window=w), lib,
+                q, k, v, causal=c, window=w),
+            _sdpa_library(q, k, v, causal, window) if timed else None,
             4 * (2 * q.numel() + k.numel() + v.numel()),
             4 * d * b * h * _visible_pairs(sq, sk, causal, window)))
-    for label, (b, s, h, p, g, n, chunk), main in [
-            ("mamba2_prefill", (SERVE_BATCH, SERVE_PROMPT, 48, 64, 1, 128,
-                                256), True),
+    for label, (b, s, h, p, g, n, chunk), timed in [
+            ("mamba2_prefill", (B, S, 48, 64, 1, 128, 256), True),
             ("ragged_g2", (2, 300, 8, 64, 2, 128, 256), False),
             ("chunk32_g2", (2, 100, 4, 32, 2, 16, 32), False),
             ("s_lt_chunk", (1, 40, 4, 16, 1, 16, 64), False),
@@ -1221,26 +1281,26 @@ def _lm_cases():
             ("chunk128_ragged", (2, 333, 6, 64, 1, 128, 128), False),
             ("chunk64", (1, 200, 8, 64, 1, 128, 64), False),
             ("odd_pn_h7", (1, 150, 7, 18, 1, 10, 64), False)]:
-        x, dt, A, B, C = _ssd_case(b, s, h, p, g, n, len(cases))
-        nbytes = 4 * (2 * x.numel() + dt.numel() + A.numel() + B.numel()
+        x, dt, A, B_, C = _ssd_case(b, s, h, p, g, n, len(cases))
+        nbytes = 4 * (2 * x.numel() + dt.numel() + A.numel() + B_.numel()
                       + C.numel() + b * h * n * p)
         cases.append((
-            "ssd_chunk_scan", label, main,
-            lambda a=(x, dt, A, B, C), c=chunk: SSD.ssd_chunk_scan(
+            "ssd_chunk_scan", label, timed,
+            lambda a=(x, dt, A, B_, C), c=chunk: SSD.ssd_chunk_scan(
                 *a, chunk=c),
-            lambda a=(x, dt, A, B, C), c=chunk: SSD.ssd_chunked(*a, c),
+            lambda a=(x, dt, A, B_, C), c=chunk: SSD.ssd_chunked(*a, c),
             None, nbytes, _ssd_flops(b, s, h, p, g, n, chunk)))
     return cases
 
 
 def check_lm_kernels():
     """Phase 4: the LM kernels against their plain versions at every case
-    (every case is checked before a failure stops the run); times at the
-    path's main shape.  Returns {kernel: {label: row}}."""
+    (every case is checked before a failure stops the run); times at each
+    served arch's prefill shape.  Returns {kernel: {label: row}}."""
     import torch
     out = {name: {} for name in LM_META}
     bad = []
-    for name, label, main, run_k, run_p, run_lib, nbytes, flops in \
+    for name, label, timed, run_k, run_p, run_lib, nbytes, flops in \
             _lm_cases():
         got, want = run_k(), run_p()
         got = got if isinstance(got, tuple) else (got,)
@@ -1253,7 +1313,7 @@ def check_lm_kernels():
                  for a, b in zip(got, want))
         row = {"shape": [list(a.shape) for a in got], "max_abs_err": err,
                "within_tol": ok}
-        if main:
+        if timed:
             bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
             ops_ms = 1e3 * flops / F32_FLOPS_PER_S
             iters = 200 if name == "rmsnorm" else 20
@@ -1279,7 +1339,7 @@ def check_lm_kernels():
                  f"bound_by={row['bound_by']}"
                  + (f" bound_tc_ms={row['bound_tc_ms']:.6f}"
                     if "bound_tc_ms" in row else "")
-                 if main else ""), flush=True)
+                 if timed else ""), flush=True)
         if not ok:
             bad.append(f"{name} {label}")
     if bad:
@@ -1290,20 +1350,56 @@ def check_lm_kernels():
 
 def _expected_launches(cfg):
     """Kernel launches one served batch implies: per prefill one flash per
-    attention layer and one SSD scan per SSM layer; per forward (prefill
-    and each decode step) two rmsnorms per layer and the final norm."""
-    from repro_torch.configs import ATTN, SSM
+    attention layer (global or local) and one SSD scan per SSM layer; per
+    forward (prefill and each decode step) two rmsnorms per layer (an SSM
+    block's second is its gated norm), two more per attention layer under
+    qk-norm (q and k over head_dim), and the final norm; none for an
+    RG-LRU block's recurrence (plain PyTorch, as the reference computes it
+    outside any Pallas kernel)."""
+    from repro_torch.configs import ATTN, ATTN_LOCAL, SSM
     kinds = cfg.layer_types
-    norms = 2 * len(kinds) + 1
-    return {"flash_attention": kinds.count(ATTN),
+    attn = kinds.count(ATTN) + kinds.count(ATTN_LOCAL)
+    norms = 2 * len(kinds) + (2 * attn if cfg.qk_norm else 0) + 1
+    return {"flash_attention": attn,
             "ssd_chunk_scan": kinds.count(SSM),
             "rmsnorm": norms * (1 + SERVE_STEPS)}
 
 
+def _uncounted_params(cfg):
+    """Leaves the analytic ``count_params`` leaves out, as the
+    reference's does: the qk-norm scales (2 x head_dim per attention
+    layer) and RG-LRU's ``lam`` (d_rnn per RG-LRU layer)."""
+    from repro_torch.configs import ATTN, ATTN_LOCAL, RGLRU
+    kinds = cfg.layer_types
+    n = 0
+    if cfg.qk_norm:
+        n += 2 * cfg.head_dim_ * (kinds.count(ATTN) + kinds.count(ATTN_LOCAL))
+    if cfg.rglru is not None:
+        n += (cfg.rglru.d_rnn or cfg.d_model) * kinds.count(RGLRU)
+    return n
+
+
+def _gpu_clocks():
+    """The card's SM clock, its maximum and the active throttle reasons,
+    as nvidia-smi prints them (one line)."""
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,"
+         "clocks_throttle_reasons.active", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    return (res.stdout.strip().splitlines() or [res.stderr.strip()])[0]
+
+
+def _logits_shape(cfg, rows):
+    k = (cfg.n_codebooks,) if cfg.frontend == "audio" else ()
+    return (rows, 1, *k, cfg.padded_vocab)
+
+
 def serve_path(arch):
     """Phase 8: serve ``arch`` at full width and depth on the card, the
-    launch counters zeroed just before and read just after.  Returns
-    (config, params, serve result, counts, timing row)."""
+    launch counters zeroed just before and read just after; the SM clocks
+    and the allocator's reserved bytes just before and just after the
+    first full-size prefill.  Returns (config, params, serve result,
+    counts, timing row)."""
     import torch
     from repro_torch import kernels
     from repro_torch.configs import get_config
@@ -1320,13 +1416,24 @@ def serve_path(arch):
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(t.numel() for t in tree_leaves(params))
+    counted, uncounted = T.count_params(cfg), _uncounted_params(cfg)
     # warm-up (cuBLAS plans, first launches), outside the counted run
     serve.serve(cfg, params, batch=SERVE_BATCH, prompt_len=64,
                 decode_steps=2)
+    probe = {}
+
+    def read(when):
+        probe[when] = {"clocks": _gpu_clocks(),
+                       "reserved_gb": torch.cuda.memory_reserved() / 1e9}
+
     kernels.reset_launches()
     res = serve.serve(cfg, params, batch=SERVE_BATCH,
-                      prompt_len=SERVE_PROMPT, decode_steps=SERVE_STEPS)
+                      prompt_len=SERVE_PROMPT, decode_steps=SERVE_STEPS,
+                      probe=read)
     counts = kernels.launch_counts()
+    # the counted serve's peak (the second serve below runs while this
+    # one's caches are still held)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     # the process's first full-size prefill (the counted one) against a
     # second: a first one can wait on cudaMalloc growing the allocator's
     # pool (scripts/profile_port.py times those calls)
@@ -1335,7 +1442,8 @@ def serve_path(arch):
     logits = res["logits"]
     want = dict.fromkeys(counts, 0)
     want.update(_expected_launches(cfg))
-    timing = {"arch": arch, "params": n_params, "cut": res["cut"],
+    timing = {"arch": arch, "params": n_params, "count_params": counted,
+              "uncounted_params": uncounted, "cut": res["cut"],
               "init_s": init_s, "prefill_ms": 1e3 * res["prefill_s"],
               "prefill_again_ms": 1e3 * again["prefill_s"],
               "decode_ms_per_step": 1e3 * res["decode_s"] / SERVE_STEPS,
@@ -1343,8 +1451,10 @@ def serve_path(arch):
                   SERVE_BATCH * SERVE_PROMPT / res["prefill_s"],
               "decode_tokens_per_s":
                   SERVE_BATCH * SERVE_STEPS / res["decode_s"],
-              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
-    print(f"serve {arch} params={n_params} cut={res['cut']} "
+              "peak_mem_gb": peak_gb,
+              "first_prefill_probe": probe, "launches": counts}
+    print(f"serve {arch} params={n_params} count_params={counted} "
+          f"uncounted={uncounted} cut={res['cut']} "
           f"batch={SERVE_BATCH} prompt={SERVE_PROMPT} steps={SERVE_STEPS} "
           f"init_s={init_s:.3f} prefill_ms={timing['prefill_ms']:.3f} "
           f"prefill_again_ms={timing['prefill_again_ms']:.3f} "
@@ -1353,7 +1463,14 @@ def serve_path(arch):
           f"decode_tokens_per_s={timing['decode_tokens_per_s']:.1f} "
           f"peak_mem_gb={timing['peak_mem_gb']:.3f} launches={counts}",
           flush=True)
-    if tuple(logits.shape) != (SERVE_BATCH, 1, cfg.padded_vocab) or not \
+    for when in ("before_prefill", "after_prefill"):
+        print(f"serve {arch} first_prefill {when} clocks(sm,max_sm,"
+              f"throttle)={probe[when]['clocks']} reserved_gb="
+              f"{probe[when]['reserved_gb']:.3f}", flush=True)
+    if n_params != counted + uncounted:
+        raise AssertionError(f"{arch}: {n_params} parameters, count_params "
+                             f"{counted} + {uncounted} left out")
+    if tuple(logits.shape) != _logits_shape(cfg, SERVE_BATCH) or not \
             bool(torch.isfinite(logits).all()):
         raise AssertionError(f"{arch}: bad logits {tuple(logits.shape)}")
     if any(int(t.max()) >= cfg.vocab_size for t in res["tokens"]):
@@ -1363,22 +1480,43 @@ def serve_path(arch):
     return cfg, params, res, counts, timing
 
 
+# phase 9's length per arch: past the window, so that prefill(s - 1)
+# fills the local layers' rings with a nonzero shift and the flash kernel
+# masks keys left of the window
+TEACHER_S = {"gemma3-4b": 1088, "recurrentgemma-2b": 2112}
+
+
+def _split_last(cfg, batch):
+    """(the batch without its last position, the last position's decode
+    batch)."""
+    if cfg.frontend == "audio":
+        return ({"codes": batch["codes"][:, :, :-1]},
+                {"codes": batch["codes"][:, :, -1:]})
+    return (dict(batch, tokens=batch["tokens"][:, :-1]),
+            {"tokens": batch["tokens"][:, -1:]})
+
+
 def teacher_forcing(cfg, params, prompt):
     """Phase 9: at full width, prefill(s-1) + one decode step gives the
-    last logits of prefill(s) within TEACHER_TOL."""
+    last logits of prefill(s) within TEACHER_TOL.  ``prompt`` is the
+    served prompt batch; an arch in TEACHER_S gets a prompt of that
+    length (seed 1) instead."""
     import torch
+    from repro_torch.launch import serve
     from repro_torch.models import transformer as T
-    s = prompt.shape[1]
+    if cfg.name in TEACHER_S:
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        prompt = serve.prompt_batch(cfg, gen, SERVE_BATCH,
+                                    TEACHER_S[cfg.name])
+    s = serve.prompt_length(cfg, prompt)
+    head, last_b = _split_last(cfg, prompt)
     with torch.no_grad():
-        full, _ = T.forward(params, cfg, {"tokens": prompt}, "prefill",
-                            capacity=s)
+        full, _ = T.forward(params, cfg, prompt, "prefill", capacity=s)
         last = full[:, -1].clone()
         del full
-        _, caches = T.forward(params, cfg, {"tokens": prompt[:, :s - 1]},
-                              "prefill", capacity=s)
-        dec, _ = T.forward(params, cfg, {"tokens": prompt[:, s - 1:]},
-                           "decode", caches=caches, capacity=s,
-                           pos_offset=s - 1)
+        _, caches = T.forward(params, cfg, head, "prefill", capacity=s)
+        dec, _ = T.forward(params, cfg, last_b, "decode", caches=caches,
+                           capacity=s, pos_offset=s - 1)
     dec = dec[:, 0]
     err = float((dec - last).abs().max())
     ok = bool(((dec - last).abs()
@@ -1392,36 +1530,74 @@ def teacher_forcing(cfg, params, prompt):
     return err
 
 
-def reduced_cpu_vs_card():
-    """Phase 10: the reduced configs (three periods, cut 1) served on the
-    card (kernels) and on the CPU (plain versions) from the same weights
-    and tokens: prefill + 3 decode steps, logits within REDUCED_TOL."""
-    import dataclasses
+REDUCED_PROMPT, REDUCED_STEPS = 37, 3
 
+
+def _reduced_stream(cfg, seed=0):
+    """(prompt batch of REDUCED_PROMPT positions, the decode batches), on
+    the CPU from numpy draws: tokens, patch embeddings or codes as the
+    arch's frontend takes them."""
     import numpy as np
     import torch
+    rng = np.random.default_rng(seed)
+    n = REDUCED_PROMPT + REDUCED_STEPS
+    if cfg.frontend == "audio":
+        codes = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, size=(2, cfg.n_codebooks, n)))
+        return ({"codes": codes[:, :, :REDUCED_PROMPT]},
+                [{"codes": codes[:, :, i:i + 1]}
+                 for i in range(REDUCED_PROMPT, n)])
+    patches = cfg.n_patches if cfg.frontend == "vision" else 0
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                        size=(2, n - patches)))
+    prompt = {"tokens": tok[:, :REDUCED_PROMPT - patches]}
+    if patches:
+        prompt["patch_embeds"] = torch.from_numpy(
+            (0.02 * rng.normal(size=(2, patches, cfg.d_model)))
+            .astype(np.float32))
+    return prompt, [{"tokens": tok[:, i:i + 1]}
+                    for i in range(REDUCED_PROMPT - patches, n - patches)]
+
+
+def _reduced_config(arch):
+    """smollm / mamba2 at three periods (cut 1 leaves two on the RSU); the
+    families at their reduced config's own depth (one pattern and the
+    tail)."""
+    import dataclasses
     from repro_torch.configs import get_config
+    cfg = get_config(arch).reduced()
+    if arch in TRAIN_ARCHS:
+        cfg = dataclasses.replace(cfg, n_layers=3)
+    return cfg
+
+
+def reduced_cpu_vs_card():
+    """Phase 10: the reduced configs served on the card (kernels) and on
+    the CPU (plain versions) from the same weights and inputs, cut 1:
+    prefill + 3 decode steps, logits within REDUCED_TOL."""
+    import torch
     from repro_torch.core import distributed as D
     from repro_torch.models import transformer as T
     from repro_torch.tree import tree_map
     worst = {}
     for arch in SERVE_ARCHS:
-        cfg = dataclasses.replace(get_config(arch).reduced(), n_layers=3)
+        cfg = _reduced_config(arch)
         params = T.init_params(torch.Generator().manual_seed(0), cfg)
-        tok = torch.from_numpy(np.random.default_rng(0).integers(
-            0, cfg.vocab_size, size=(2, 40)))
+        prompt, steps = _reduced_stream(cfg)
+        cap = REDUCED_PROMPT + REDUCED_STEPS
         outs = []
         for where in ("cpu", "cuda"):
             p = tree_map(lambda a: a.to(where), params)
             opts = D.DistOptions(cut=1)
-            prefill = D.make_prefill_step(cfg, opts, 40)
-            decode = D.make_decode_step(cfg, opts, 40)
-            t = tok.to(where)
-            logits, caches = prefill(p, {"tokens": t[:, :37]})
+            prefill = D.make_prefill_step(cfg, opts, cap)
+            decode = D.make_decode_step(cfg, opts, cap)
+            logits, caches = prefill(p, tree_map(lambda a: a.to(where),
+                                                 prompt))
             seq = [logits.cpu()]
-            for i in range(3):
-                logits, caches = decode(p, {"tokens": t[:, 37 + i:38 + i]},
-                                        caches, 37 + i)
+            for i, batch in enumerate(steps):
+                logits, caches = decode(
+                    p, tree_map(lambda a: a.to(where), batch), caches,
+                    REDUCED_PROMPT + i)
                 seq.append(logits.cpu())
             outs.append(torch.stack(seq))
         a, b = outs
@@ -1429,8 +1605,9 @@ def reduced_cpu_vs_card():
         ok = bool(((a - b).abs() <= REDUCED_TOL + REDUCED_TOL
                    * a.abs()).all())
         worst[arch] = err
-        print(f"reduced_cpu_vs_card {cfg.name} max_abs_err={err:g} "
-              f"tol={REDUCED_TOL:g} ok={ok}", flush=True)
+        print(f"reduced_cpu_vs_card {cfg.name} layers={cfg.n_layers} "
+              f"max_abs_err={err:g} tol={REDUCED_TOL:g} ok={ok}",
+              flush=True)
         if not ok:
             raise AssertionError(f"{cfg.name}: card and CPU logits differ "
                                  f"by {err:g}")
@@ -1734,7 +1911,7 @@ def train_cpu_vs_card():
     from repro_torch.models import transformer as T
     from repro_torch.tree import tree_leaves, tree_map
     worst = {}
-    for arch in SERVE_ARCHS:
+    for arch in TRAIN_ARCHS:
         cfg = dataclasses.replace(get_config(arch).reduced(), n_layers=3)
         params = T.init_params(torch.Generator().manual_seed(0), cfg)
         rng = np.random.default_rng(0)
@@ -2501,7 +2678,7 @@ def _main_cut(cuts_per_round):
 
 
 def kernel_report(checks, launches, main_cuts, mm_checks, mm_launches,
-                  lm_checks, lm_launches, training, par_launches,
+                  lm_checks, serving, training, par_launches,
                   plane_launches, city_launches):
     """Phase 11: one entry per kernel, timed at its path's main shape.  The
     quant and LM kernels also carry their launches per training step of
@@ -2510,7 +2687,9 @@ def kernel_report(checks, launches, main_cuts, mm_checks, mm_launches,
     (int8) run (``parallel_launches``), in phase 10k's faulted
     sequential and parallel highway runs and its streaming window
     (``plane_launches``) and in phase 10l's paged topk_int8 city run (K =
-    1) and paged streaming city run (``city_launches``)."""
+    1) and paged streaming city run (``city_launches``).  The LM kernels'
+    ``launches`` are phase 8's over every served arch, per arch under
+    ``serving_launches``; their other timed shapes under ``shapes``."""
     per_step = {}
     for run in training:
         label = run["arch"] + ("+compress" if run["compress"] else "")
@@ -2553,10 +2732,13 @@ def kernel_report(checks, launches, main_cuts, mm_checks, mm_launches,
         "city_launches": city_launches.get(MM_META[0], {}),
         "wide_ms": mm_checks["wide"]["ms"], "shape": row["shape"]})
     for name, replaces in LM_META.items():
-        row = next(r for r in lm_checks[name].values() if "ms" in r)
+        row = lm_checks[name][LM_MAIN[name]]
         out.append({
             "name": name, "route": "cuda", "source": LM_SOURCE,
-            "replaces": replaces, "launches": lm_launches[name],
+            "replaces": replaces,
+            "launches": sum(t["launches"][name] for t in serving),
+            "serving_launches": {t["arch"]: t["launches"][name]
+                                 for t in serving},
             "max_abs_err": max(r["max_abs_err"]
                                for r in lm_checks[name].values()),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
@@ -2564,6 +2746,10 @@ def kernel_report(checks, launches, main_cuts, mm_checks, mm_launches,
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "shape": row["shape"][0],
             "train_launches_per_step": per_step.get(name, {}),
+            "shapes": {label: {key: r[key] for key in LM_ROW_KEYS
+                               if key in r}
+                       for label, r in lm_checks[name].items()
+                       if "ms" in r and label != LM_MAIN[name]},
             **({"bound_tc_ms": row["bound_tc_ms"]} if "bound_tc_ms" in row
                else {})})
     return {"kernels": out}
@@ -2588,12 +2774,9 @@ def main() -> int:
     int8_launches, int8_cuts = drive_path(
         "int8", 1, ("quantize_int8", "dequantize_int8"))
     cpu_vs_card()
-    lm_launches = dict.fromkeys(LM_META, 0)
     serving = []
     for arch in SERVE_ARCHS:
         cfg, params, res, counts, timing = serve_path(arch)
-        for name in LM_META:
-            lm_launches[name] += counts[name]
         timing["teacher_forcing_err"] = teacher_forcing(cfg, params,
                                                         res["prompt"])
         serving.append(timing)
@@ -2623,9 +2806,9 @@ def main() -> int:
     autograd = lm_autograd_on_card()
     training = [train_path(*run) for run in TRAIN_RUNS]
     train_worst = train_cpu_vs_card()
-    lm_fed = [lm_fed_path(arch, *run) for arch in SERVE_ARCHS
+    lm_fed = [lm_fed_path(arch, *run) for arch in TRAIN_ARCHS
               for run in LM_FED_RUNS]
-    for arch in SERVE_ARCHS:
+    for arch in TRAIN_ARCHS:
         vmap_run, loop_run = (r for r in lm_fed if r["arch"] == arch
                               and r["scheme"] == "asfl")
         if vmap_run["cuts"] != loop_run["cuts"]:
@@ -2678,7 +2861,7 @@ def main() -> int:
                                             **int8_launches}, main_cuts,
                                    mm_checks,
                                    highway["unpack_dequant_matmul"],
-                                   lm_checks, lm_launches, training,
+                                   lm_checks, serving, training,
                                    par_launches, plane_launches,
                                    city_launches)))
     print(json.dumps({"ok": True, "device": {

@@ -13,10 +13,12 @@
    parallel one (``server_schedule="parallel"``); with ``planes`` the same
    round under ``chip_smoke.py`` phase 10k's faults on both schedules, and
    the first round of its ``streaming`` schedule with presence churn.
-3. Split-inference serving of smollm-360m and mamba2-780m at full width
-   (batch 8, prompt 1024, the default cut) after a warm-up at prompt 64,
-   as ``chip_smoke.py`` serves: one profiled prefill (the process's first
-   at full size), then 8 profiled decode steps.
+3. Split-inference serving of the served archs (``--serve-archs``; by
+   default smollm-360m, mamba2-780m, gemma3-4b, recurrentgemma-2b,
+   internvl2-1b, musicgen-large) at full width (batch 8, prompt 1024, the
+   default cut) after a warm-up at prompt 64, as ``chip_smoke.py`` serves:
+   one profiled prefill (the process's first at full size), then 8
+   profiled decode steps.
 4. One sync-SFL train step of smollm-360m and of mamba2-780m at full width
    (batch 8, seq 1024, the default cut, adamw, clip 1.0, remat) after one
    warm-up step, as ``chip_smoke.py`` phase 10g trains.
@@ -220,20 +222,22 @@ def serve_profile(arch, top: int = 10, batch: int = 8, prompt: int = 1024,
     params = T.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
     serve.serve(cfg, params, batch=batch, prompt_len=64, decode_steps=2)
     opts = D.DistOptions(cut=cfg.default_cut)
-    cap = prompt + steps
+    gen = torch.Generator(device=dev).manual_seed(1)
+    batch0 = serve.prompt_batch(cfg, gen, batch, prompt)
+    n = serve.prompt_length(cfg, batch0)
+    cap = n + steps
     prefill = D.make_prefill_step(cfg, opts, cap)
     decode = D.make_decode_step(cfg, opts, cap)
-    tok = torch.randint(0, cfg.vocab_size, (batch, prompt + steps),
-                        generator=torch.Generator(device=dev).manual_seed(1),
-                        device=dev)
-    (logits, caches), pre = _profiled(
-        lambda: prefill(params, {"tokens": tok[:, :prompt]}), top)
+    shape = (batch, cfg.n_codebooks) if cfg.frontend == "audio" else (batch,)
+    step_batches = [serve.step_batch(cfg, torch.randint(
+        0, cfg.vocab_size, shape, generator=gen, device=dev))
+        for _ in range(steps)]
+    (logits, caches), pre = _profiled(lambda: prefill(params, batch0), top)
 
     def run_decode():
         c = caches
         for i in range(steps):
-            _, c = decode(params, {"tokens": tok[:, prompt + i:][:, :1]}, c,
-                          prompt + i)
+            _, c = decode(params, step_batches[i], c, n + i)
     _, dec = _profiled(run_decode, top)
     res = {"arch": arch, "batch": batch, "prompt": prompt,
            "decode_steps": steps, "prefill": pre, "decode": dec}
@@ -292,6 +296,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="chiprun_out/profile_port.json")
     ap.add_argument("--only", default="round,scenario,planes,serve,train")
+    ap.add_argument("--serve-archs",
+                    default="smollm-360m,mamba2-780m,gemma3-4b,"
+                            "recurrentgemma-2b,internvl2-1b,musicgen-large")
     ap.add_argument("--repeat", type=int, default=1,
                     help="profile the scenario / planes rounds this many "
                          "times, the cells in turns")
@@ -342,7 +349,8 @@ def main() -> int:
                                      "ms_per_step", "n_device_kernels",
                                      "device_busy_share")})
     if "serve" in parts:
-        result["serve"] = [serve_profile(a) for a in archs]
+        result["serve"] = [serve_profile(a)
+                           for a in args.serve_archs.split(",")]
     if "train" in parts:
         result["train"] = [train_profile(a) for a in archs]
     if "city" in parts:

@@ -1,10 +1,11 @@
 """String-keyed registries of the port's front door (twin of
 ``repro.api.registry``, holding what is ported so far).
 
-Models ``resnet18``, ``mlp9`` and every text arch the port's configs know
+Models ``resnet18``, ``mlp9`` and every text arch the port trains
 (``smollm-360m``, ``mamba2-780m``: a ``TransformerUnitModel`` of the
 reduced config by default, ``model_kwargs={"reduced": False}`` for the
-full stack; the reference's other arch ids are "not ported yet");
+full stack; the reference's other arch ids, the served-only
+``configs.SERVE_ONLY`` among them, are "not ported yet");
 scenarios ``single_rsu`` (the
 single-RSU ``FederationSim``) and the ported multi-RSU scenarios of
 ``core/scenario.py`` (the ``ScenarioEngine``); every cut strategy and wire
@@ -109,9 +110,9 @@ def _arch_model_entry(arch_id: str) -> ModelEntry:
 
 
 def _text_arch_entries() -> Dict[str, ModelEntry]:
-    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.configs import ARCH_IDS, SERVE_ONLY, get_config
     return {a: _arch_model_entry(a) for a in ARCH_IDS
-            if get_config(a).frontend == "none"}
+            if get_config(a).frontend == "none" and a not in SERVE_ONLY}
 
 
 MODELS: Dict[str, ModelEntry] = {
@@ -123,8 +124,9 @@ MODELS: Dict[str, ModelEntry] = {
         description="9-unit split MLP (models/mlp_unit.py)"),
     **_text_arch_entries(),
 }
-# the reference's arch ids whose families the port does not have yet
-NOT_PORTED_MODELS = _configs.NOT_PORTED
+# the reference's arch ids the port does not train yet: families not
+# ported, and the archs it serves only
+NOT_PORTED_MODELS = _configs.NOT_PORTED + _configs.SERVE_ONLY
 
 
 def model_entry(name: str) -> ModelEntry:

@@ -1,24 +1,35 @@
 """Config registry of the port: ``get_config("<arch-id>")`` for the archs
 ported so far (twin of ``repro.configs``).  ``"<arch>-smoke"`` is the
 reduced variant.  Every other arch id of the reference raises "not ported
-yet"."""
+yet".
+
+``SERVE_ONLY`` archs are served (prefill and decode, ``launch/serve.py``)
+but not trained: the train step, ``launch/train.py`` and
+``TransformerUnitModel`` refuse them (:func:`check_trainable`)."""
 from __future__ import annotations
 
 import importlib
 from typing import List
 
 from repro_torch.configs.base import (  # noqa: F401  (re-exported)
-    ATTN, SSM, ArchConfig, SSMConfig, VOCAB_PAD, pad_vocab,
+    ATTN, ATTN_LOCAL, RGLRU, SSM, ArchConfig, RGLRUConfig, SSMConfig,
+    VOCAB_PAD, pad_vocab,
 )
 
 _MODULES = {
+    "internvl2-1b": "repro_torch.configs.internvl2_1b",
     "mamba2-780m": "repro_torch.configs.mamba2_780m",
     "smollm-360m": "repro_torch.configs.smollm_360m",
+    "musicgen-large": "repro_torch.configs.musicgen_large",
+    "gemma3-4b": "repro_torch.configs.gemma3_4b",
+    "recurrentgemma-2b": "repro_torch.configs.recurrentgemma_2b",
 }
 # archs of the reference whose families the port does not have yet
-NOT_PORTED = ("internvl2-1b", "deepseek-v2-lite-16b", "dbrx-132b",
-               "command-r-35b", "qwen3-14b", "musicgen-large", "gemma3-4b",
-               "recurrentgemma-2b")
+NOT_PORTED = ("deepseek-v2-lite-16b", "dbrx-132b", "command-r-35b",
+              "qwen3-14b")
+# ported for serving; their training is not ported yet
+SERVE_ONLY = ("internvl2-1b", "musicgen-large", "gemma3-4b",
+              "recurrentgemma-2b")
 
 ARCH_IDS: List[str] = list(_MODULES)
 
@@ -32,3 +43,12 @@ def get_config(name: str) -> ArchConfig:
     if name not in _MODULES:
         raise KeyError(f"unknown arch {name!r}; known: {ARCH_IDS}")
     return importlib.import_module(_MODULES[name]).CONFIG
+
+
+def check_trainable(cfg: ArchConfig) -> None:
+    """Raise for an arch the port serves but does not train yet."""
+    base = cfg.name[: -len("-smoke")] if cfg.name.endswith("-smoke") \
+        else cfg.name
+    if base in SERVE_ONLY:
+        raise NotImplementedError(f"training {cfg.name!r} ({cfg.family}) "
+                                  f"is not ported yet; it is served only")

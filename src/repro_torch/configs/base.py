@@ -1,11 +1,11 @@
 """Architecture configuration of the LM lane (twin of ``repro.configs.base``).
 
 The port keeps its own copy of what the ported families need: the layer ids
-``ATTN`` and ``SSM``, :class:`SSMConfig`, :class:`ArchConfig` with its
-derived properties and :meth:`ArchConfig.reduced`, and the Megatron-style
-vocabulary padding.  Fields of families not ported yet (MoE, MLA, RG-LRU,
-frontends) are absent; :func:`repro_torch.configs.get_config` refuses their
-archs.
+``ATTN``, ``ATTN_LOCAL``, ``SSM`` and ``RGLRU``, :class:`SSMConfig`,
+:class:`RGLRUConfig`, :class:`ArchConfig` with its derived properties and
+:meth:`ArchConfig.reduced`, the vision / audio frontend fields, and the
+Megatron-style vocabulary padding.  Fields of families not ported yet (MoE,
+MLA) are absent; :func:`repro_torch.configs.get_config` refuses their archs.
 """
 from __future__ import annotations
 
@@ -14,7 +14,9 @@ from typing import Optional, Tuple
 
 # Layer-type ids understood by models/transformer.py
 ATTN = "attn"            # global attention + dense MLP
+ATTN_LOCAL = "attn_local"  # sliding-window attention + dense MLP
 SSM = "ssm"              # Mamba2 SSD block (no separate FFN)
+RGLRU = "rglru"          # RG-LRU recurrent block + dense MLP
 
 VOCAB_PAD = 2048  # Megatron-style: pad embedding tables to a multiple of this
 
@@ -34,9 +36,16 @@ class SSMConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class RGLRUConfig:
+    d_rnn: int = 0          # 0 -> d_model
+    d_conv: int = 4
+    c_exponent: float = 8.0
+
+
+@dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str               # dense | ssm
+    family: str               # dense | ssm | hybrid | vlm | audio
     source: str               # citation (paper / model card)
     n_layers: int
     d_model: int
@@ -56,7 +65,11 @@ class ArchConfig:
     mlp_variant: str = "swiglu"
     logit_softcap: float = 0.0
     ssm: Optional[SSMConfig] = None
+    rglru: Optional[RGLRUConfig] = None
+    # modality frontend stub ("none" | "vision" | "audio")
     frontend: str = "none"
+    n_patches: int = 256      # vision: patch embeddings prepended to text
+    n_codebooks: int = 4      # audio: EnCodec codebooks summed at the input
     default_cut: int = 2      # default cut layer, in period units
     subquadratic: bool = False
     param_dtype: str = "float32"
@@ -98,6 +111,9 @@ class ArchConfig:
         if self.ssm is not None:
             ssm = dataclasses.replace(self.ssm, d_state=16, head_dim=16,
                                       chunk=32)
+        rglru = None
+        if self.rglru is not None:
+            rglru = dataclasses.replace(self.rglru, d_rnn=0)
         return dataclasses.replace(
             self, name=self.name + "-smoke",
             n_layers=len(self.pattern) + len(self.tail),
@@ -105,4 +121,5 @@ class ArchConfig:
             d_ff=min(self.d_ff, 512) or 0,
             vocab_size=min(self.vocab_size, 512),
             window=min(self.window, 16) if self.window else 0,
-            ssm=ssm, default_cut=1)
+            ssm=ssm, rglru=rglru, n_patches=min(self.n_patches, 8),
+            default_cut=1)

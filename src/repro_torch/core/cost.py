@@ -111,41 +111,51 @@ def resnet_profile() -> SplitProfile:
 
 def arch_profile(cfg, seq: int, param_bytes_per: int = 2) -> SplitProfile:
     """SplitProfile of an LM arch at period granularity, for the ported
-    layer kinds (attention, SSM); smashed data = (seq, d_model)
-    activations at the period boundary."""
+    layer kinds (attention, local attention, SSM, RG-LRU); smashed data =
+    (seq, d_model) activations at the period boundary."""
     import dataclasses as dc
 
-    from repro_torch.configs.base import ATTN, SSM
+    from repro_torch.configs.base import ATTN, ATTN_LOCAL, RGLRU, SSM
     from repro_torch.models import transformer as T
     from repro_torch.models.attention import attn_flops
     from repro_torch.models.layers import mlp_flops
+    from repro_torch.models.rglru import rglru_flops
     from repro_torch.models.ssm import ssm_flops
 
     def layer_flops(kind: str) -> float:
         if kind == SSM:
             return float(ssm_flops(cfg, seq, "train"))
-        if kind != ATTN:
+        if kind == ATTN:
+            f = attn_flops(cfg, seq)
+        elif kind == ATTN_LOCAL:
+            f = attn_flops(cfg, seq, cfg.window)
+        elif kind == RGLRU:
+            f = rglru_flops(cfg)
+        else:
             raise NotImplementedError(f"layer kind {kind!r} is not ported "
                                       f"yet")
-        f = attn_flops(cfg, seq)
         f += mlp_flops(cfg.d_model, cfg.d_ff, cfg.mlp_variant)
         return float(f)
+
+    # the audio frontend's K codebook embeddings and heads
+    n_k = cfg.n_codebooks if cfg.frontend == "audio" else 1
 
     def layer_params(kind: str) -> int:
         # the analytic counter over a 1-layer pseudo-config
         one = dc.replace(cfg, n_layers=1, pattern=(kind,), tail=())
         base = T.count_params(one)
-        emb = one.padded_vocab * one.d_model
-        head = one.d_model * one.padded_vocab
+        emb = one.padded_vocab * one.d_model * n_k
+        head = one.d_model * one.padded_vocab * n_k
         return (base - emb - head - one.d_model) * param_bytes_per
 
     unit_flops, unit_bytes = [], []
     for pat, n in T.segments_of(cfg):
         for _ in range(n):
-            unit_flops.append(float(sum(layer_flops(k) for k in pat) * seq))
-            unit_bytes.append(int(sum(layer_params(k) for k in pat)))
+            unit_flops.append(float(sum(layer_flops(kind) for kind in pat)
+                                    * seq))
+            unit_bytes.append(int(sum(layer_params(kind) for kind in pat)))
     smashed = [float(seq * cfg.d_model * param_bytes_per)] * len(unit_flops)
-    vp = cfg.padded_vocab
+    vp = cfg.padded_vocab * n_k
     return SplitProfile(
         name=cfg.name,
         unit_fwd_flops=unit_flops,

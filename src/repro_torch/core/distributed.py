@@ -24,6 +24,7 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 from repro_torch import optim
+from repro_torch.configs import check_trainable
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import split as SP
 from repro_torch.kernels import quant
@@ -94,6 +95,7 @@ def make_train_step(cfg: ArchConfig, opts: DistOptions) -> Callable:
     ``step(state, batch)`` with batch ``tokens`` / ``labels`` (b, s) and
     ``weights`` (b,) returns (new state, metrics: ``loss``, ``ce``,
     ``aux``, ``grad_norm`` as device scalars)."""
+    check_trainable(cfg)
     opt = make_optimizer(opts)
     cut = SP.clamp_cut(cfg, opts.cut)
 
@@ -133,8 +135,10 @@ def make_train_step(cfg: ArchConfig, opts: DistOptions) -> Callable:
 def make_prefill_step(cfg: ArchConfig, opts: DistOptions,
                       capacity: int) -> Callable:
     """Prefill: vehicle-side periods over the prompt, one smashed upload,
-    RSU-side periods fill their caches.  ``step(params, batch)`` returns
-    (last-position logits (b, 1, V), (client caches, server caches))."""
+    RSU-side periods fill their caches.  ``step(params, batch)`` (the
+    batch of :func:`repro_torch.models.transformer.embed_inputs`) returns
+    (last-position logits (b, 1, V), or (b, 1, K, V) for audio, and
+    (client caches, server caches))."""
     cut = SP.clamp_cut(cfg, opts.cut)
 
     def prefill_step(params, batch):
@@ -152,7 +156,8 @@ def make_prefill_step(cfg: ArchConfig, opts: DistOptions,
 def make_decode_step(cfg: ArchConfig, opts: DistOptions,
                      capacity: int) -> Callable:
     """Decode: ONE new token against the caches.  ``step(params, batch,
-    caches, pos)`` returns (logits (b, 1, V), caches)."""
+    caches, pos)`` with ``tokens`` (b, 1), or ``codes`` (b, K, 1) for
+    audio, returns (logits (b, 1, V) or (b, 1, K, V), caches)."""
     cut = SP.clamp_cut(cfg, opts.cut)
 
     def decode_step(params, batch, caches, pos: int):

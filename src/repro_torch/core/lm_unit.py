@@ -19,6 +19,7 @@ from typing import List, Tuple
 import torch
 
 from repro_torch import bridge
+from repro_torch.configs import check_trainable
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import cost
 from repro_torch.models import layers as L
@@ -29,6 +30,7 @@ class TransformerUnitModel:
     def __init__(self, cfg: ArchConfig):
         if cfg.frontend != "none":
             raise ValueError("the fedsim LM adapter takes text archs only")
+        check_trainable(cfg)
         self.cfg = cfg
         self.name = cfg.name
         # (segment index, pattern) per period, in stack order

@@ -5,6 +5,10 @@ Prefill + batched decode with the model split at the cut layer: the
 vehicle-side periods produce the smashed activations, the RSU-side periods
 decode against their caches.  Runs on ``cuda`` unless ``--device cpu`` is
 given (without a card it raises); ``--smoke`` serves the reduced config.
+A vision arch's prompt is ``n_patches`` random patch embeddings (0.02 x a
+normal draw) and ``prompt_len - n_patches`` text tokens; an audio arch's is
+``codes`` (batch, K, prompt_len), and each decode step samples each of the
+K codebooks.
 
     python -m repro_torch.launch.serve --arch smollm-360m \\
         --batch 8 --prompt-len 1024 --decode-steps 32
@@ -15,7 +19,7 @@ from __future__ import annotations
 
 import argparse
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
@@ -30,38 +34,89 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def prompt_batch(cfg: ArchConfig, gen: torch.Generator, batch: int,
+                 prompt_len: int) -> Dict[str, torch.Tensor]:
+    """Random prompts drawn from ``gen`` on its device: ``tokens``, plus
+    ``patch_embeds`` for vision; ``codes`` (b, K, s) for audio."""
+    dev = gen.device
+    if cfg.frontend == "audio":
+        return {"codes": torch.randint(
+            0, cfg.vocab_size, (batch, cfg.n_codebooks, prompt_len),
+            generator=gen, device=dev)}
+    if cfg.frontend == "vision":
+        s_text = max(prompt_len - cfg.n_patches, 1)
+        tokens = torch.randint(0, cfg.vocab_size, (batch, s_text),
+                               generator=gen, device=dev)
+        patches = torch.randn((batch, cfg.n_patches, cfg.d_model),
+                              generator=gen, device=dev)
+        return {"tokens": tokens, "patch_embeds": 0.02 * patches}
+    return {"tokens": torch.randint(0, cfg.vocab_size, (batch, prompt_len),
+                                    generator=gen, device=dev)}
+
+
+def prompt_length(cfg: ArchConfig, batch: Dict[str, torch.Tensor]) -> int:
+    """Positions a prefill of ``batch`` fills."""
+    if cfg.frontend == "audio":
+        return batch["codes"].shape[2]
+    n = batch["tokens"].shape[1]
+    return n + cfg.n_patches if "patch_embeds" in batch else n
+
+
+def sample(cfg: ArchConfig, logits: torch.Tensor, gen: torch.Generator,
+           temperature: float = 1.0) -> torch.Tensor:
+    """One sampled id per row (per row and codebook for audio) from the
+    last position's logits, clamped into the true vocab: (b,) or (b, K)."""
+    last = logits[:, -1].float() / temperature       # (b, V) or (b, K, V)
+    probs = torch.softmax(last.reshape(-1, last.shape[-1]), dim=-1)
+    nxt = torch.multinomial(probs, 1, generator=gen)[:, 0]
+    # padded-vocab safety: clamp into the true vocab
+    return torch.clamp(nxt, max=cfg.vocab_size - 1).reshape(last.shape[:-1])
+
+
+def step_batch(cfg: ArchConfig, nxt: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """A decode step's batch from the sampled ids: ``tokens`` (b, 1), or
+    ``codes`` (b, K, 1) for audio."""
+    if cfg.frontend == "audio":
+        return {"codes": nxt[:, :, None]}
+    return {"tokens": nxt[:, None]}
+
+
 def serve(cfg: ArchConfig, params, *, batch: int, prompt_len: int,
           decode_steps: int, cut: Optional[int] = None,
-          temperature: float = 1.0, seed: int = 0) -> Dict[str, Any]:
-    """Serve one batch of random prompts: a prefill, then ``decode_steps``
-    sampled tokens.  ``params`` lie on the device to serve on.  Returns the
-    last logits, the sampled tokens, the caches and the prefill / decode
-    wall times (seconds, after a device synchronize)."""
+          temperature: float = 1.0, seed: int = 0,
+          probe: Optional[Callable[[str], None]] = None) -> Dict[str, Any]:
+    """Serve one batch of random prompts (:func:`prompt_batch`): a
+    prefill, then ``decode_steps`` sampled tokens.  ``params`` lie on the
+    device to serve on.  ``probe``, if given, is called with
+    ``"before_prefill"`` and ``"after_prefill"`` outside the timed span.
+    Returns the prompt batch, the last logits, the sampled ids, the caches
+    and the prefill / decode wall times (seconds, after a device
+    synchronize)."""
     device = params["embed"].device
-    capacity = prompt_len + decode_steps
+    gen = torch.Generator(device=device).manual_seed(seed)
+    prompt = prompt_batch(cfg, gen, batch, prompt_len)
+    pos = prompt_length(cfg, prompt)
+    capacity = pos + decode_steps
     opts = D.DistOptions(cut=cfg.default_cut if cut is None else cut)
     prefill = D.make_prefill_step(cfg, opts, capacity)
     decode = D.make_decode_step(cfg, opts, capacity)
-    gen = torch.Generator(device=device).manual_seed(seed)
-    prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
-                           generator=gen, device=device)
 
     _sync(device)
+    if probe is not None:
+        probe("before_prefill")
     t0 = time.perf_counter()
-    logits, caches = prefill(params, {"tokens": prompt})
+    logits, caches = prefill(params, prompt)
     _sync(device)
     prefill_s = time.perf_counter() - t0
+    if probe is not None:
+        probe("after_prefill")
 
     tokens = []
-    pos = prompt_len
     t0 = time.perf_counter()
     for _ in range(decode_steps):
-        probs = torch.softmax(logits[:, -1].float() / temperature, dim=-1)
-        nxt = torch.multinomial(probs, 1, generator=gen)[:, 0]
-        # padded-vocab safety: clamp into the true vocab
-        nxt = torch.clamp(nxt, max=cfg.vocab_size - 1)
+        nxt = sample(cfg, logits, gen, temperature)
         tokens.append(nxt)
-        logits, caches = decode(params, {"tokens": nxt[:, None]}, caches, pos)
+        logits, caches = decode(params, step_batch(cfg, nxt), caches, pos)
         pos += 1
     _sync(device)
     decode_s = time.perf_counter() - t0

@@ -1,5 +1,5 @@
 """Attention of the LM lane (twin of ``repro.models.attention``): GQA,
-causal + sliding-window masks, KV-cache decode.
+qk-norm, causal + sliding-window masks, KV-cache decode.
 
 Training and prefill run the flash kernel
 (:mod:`repro_torch.kernels.flash_attention`, differentiable: its backward
@@ -30,33 +30,33 @@ Params = Dict[str, Any]
 NEG_INF = -2.0e38
 
 
-def _check_ported(cfg: ArchConfig) -> None:
-    if cfg.qk_norm or cfg.pos != "rope":
-        raise NotImplementedError(f"{cfg.name}: qk-norm / non-rope "
-                                  f"attention is not ported yet")
-
-
 def init_attn(gen: torch.Generator, cfg: ArchConfig,
               dtype=torch.float32) -> Params:
-    _check_ported(cfg)
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
-    return {
+    p = {
         "wq": L.trunc_normal(gen, (d, h, hd), 1.0 / math.sqrt(d), dtype),
         "wk": L.trunc_normal(gen, (d, kv, hd), 1.0 / math.sqrt(d), dtype),
         "wv": L.trunc_normal(gen, (d, kv, hd), 1.0 / math.sqrt(d), dtype),
         "wo": L.trunc_normal(gen, (h, hd, d), 1.0 / math.sqrt(h * hd),
                              dtype),
     }
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones((hd,), dtype=dtype, device=gen.device)
+        p["k_norm"] = torch.ones((hd,), dtype=dtype, device=gen.device)
+    return p
 
 
 def _qkv(p: Params, cfg: ArchConfig, x: torch.Tensor,
          positions: torch.Tensor):
-    _check_ported(cfg)
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
     k = torch.einsum("bsd,dnk->bsnk", x, p["wk"].to(x.dtype))
     v = torch.einsum("bsd,dnk->bsnk", x, p["wv"].to(x.dtype))
-    q = L.apply_rope(q, positions, cfg.rope_theta)
-    k = L.apply_rope(k, positions, cfg.rope_theta)
+    if cfg.qk_norm:
+        q = L.rms_head_norm(p["q_norm"], q)
+        k = L.rms_head_norm(p["k_norm"], k)
+    if cfg.pos == "rope":
+        q = L.apply_rope(q, positions, cfg.rope_theta)
+        k = L.apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 

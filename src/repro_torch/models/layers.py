@@ -54,22 +54,37 @@ def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return K.rmsnorm(x, p["scale"], eps)
 
 
+def rms_head_norm(scale: torch.Tensor, x: torch.Tensor,
+                  eps: float = 1e-6) -> torch.Tensor:
+    """qk-norm: RMSNorm over the trailing head_dim of (..., head_dim), the
+    same function as :func:`rmsnorm` (the rmsnorm kernel for a CUDA
+    tensor)."""
+    return K.rmsnorm(x.contiguous(), scale, eps)
+
+
 def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, variant: str,
              dtype=torch.float32) -> Params:
-    if variant != "swiglu":
-        raise NotImplementedError(f"mlp variant {variant!r} is not ported "
-                                  f"yet")
-    return {"wi_gate": init_dense(gen, d_model, d_ff, dtype),
-            "wi_up": init_dense(gen, d_model, d_ff, dtype),
-            "wo": init_dense(gen, d_ff, d_model, dtype)}
+    if variant in ("swiglu", "geglu"):
+        return {"wi_gate": init_dense(gen, d_model, d_ff, dtype),
+                "wi_up": init_dense(gen, d_model, d_ff, dtype),
+                "wo": init_dense(gen, d_ff, d_model, dtype)}
+    if variant == "gelu":
+        return {"wi": init_dense(gen, d_model, d_ff, dtype),
+                "wo": init_dense(gen, d_ff, d_model, dtype)}
+    raise ValueError(variant)
 
 
 def mlp(p: Params, x: torch.Tensor, variant: str) -> torch.Tensor:
-    if variant != "swiglu":
-        raise NotImplementedError(f"mlp variant {variant!r} is not ported "
-                                  f"yet")
-    return dense(p["wo"], F.silu(dense(p["wi_gate"], x))
-                 * dense(p["wi_up"], x))
+    if variant == "swiglu":
+        return dense(p["wo"], F.silu(dense(p["wi_gate"], x))
+                     * dense(p["wi_up"], x))
+    if variant == "geglu":
+        return dense(p["wo"], F.gelu(dense(p["wi_gate"], x),
+                                     approximate="tanh")
+                     * dense(p["wi_up"], x))
+    if variant == "gelu":
+        return dense(p["wo"], F.gelu(dense(p["wi"], x), approximate="tanh"))
+    raise ValueError(variant)
 
 
 def mlp_flops(d_model: int, d_ff: int, variant: str) -> int:
@@ -93,6 +108,16 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x[..., :half].float(), x[..., half:].float()
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_pos(positions: torch.Tensor, d_model: int) -> torch.Tensor:
+    """(..., seq) positions -> (..., seq, d_model): sines then cosines."""
+    half = d_model // 2
+    freqs = torch.exp(-math.log(10000.0)
+                      * torch.arange(half, dtype=torch.float32,
+                                     device=positions.device) / half)
+    ang = positions.to(torch.float32)[..., None] * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:

@@ -1,6 +1,8 @@
 """Config-driven assembly of the LM lane (twin of
-``repro.models.transformer``) for the ported layer kinds ``ATTN`` and
-``SSM``.
+``repro.models.transformer``) for the ported layer kinds ``ATTN``,
+``ATTN_LOCAL`` (sliding window ``cfg.window``), ``SSM`` and ``RGLRU``, with
+text, vision (patch embeddings prepended) and audio (codebook embeddings
+summed, one head per codebook) inputs.
 
 The stack is a list of *segments*; a segment repeats a pattern of layer
 kinds over ``n_periods``.  The reference stacks each segment's parameters
@@ -26,35 +28,43 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ATTN, SSM, ArchConfig
+from repro_torch.configs.base import ATTN, ATTN_LOCAL, RGLRU, SSM, ArchConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import rglru as R
 from repro_torch.models import ssm as S
 
 Params = Dict[str, Any]
 MODES = ("train", "prefill", "decode")
+KINDS = (ATTN, ATTN_LOCAL, SSM, RGLRU)
+_ATTN_KINDS = (ATTN, ATTN_LOCAL)
 
 
 def _not_ported(what: str):
     return NotImplementedError(f"{what} is not ported yet (the port has "
-                               f"layer kinds {ATTN!r} and {SSM!r}, text "
-                               f"input, modes {MODES})")
+                               f"layer kinds {KINDS}, modes {MODES})")
 
 
 def init_layer(gen: torch.Generator, cfg: ArchConfig, kind: str,
                dtype=torch.float32) -> Params:
     dev = gen.device
     p: Params = {"norm1": L.init_rmsnorm(cfg.d_model, dtype, dev)}
-    if kind == ATTN:
+    if kind in _ATTN_KINDS:
         p["mixer"] = A.init_attn(gen, cfg, dtype)
     elif kind == SSM:
         p["mixer"] = S.init_ssm(gen, cfg, dtype)
         return p  # the mamba block has no separate FFN
+    elif kind == RGLRU:
+        p["mixer"] = R.init_rglru(gen, cfg, dtype)
     else:
         raise _not_ported(f"layer kind {kind!r}")
     p["norm2"] = L.init_rmsnorm(cfg.d_model, dtype, dev)
     p["ffn"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp_variant, dtype)
     return p
+
+
+def _window(cfg: ArchConfig, kind: str) -> int:
+    return cfg.window if kind == ATTN_LOCAL else 0
 
 
 def apply_layer(p: Params, cfg: ArchConfig, kind: str, x: torch.Tensor,
@@ -65,14 +75,22 @@ def apply_layer(p: Params, cfg: ArchConfig, kind: str, x: torch.Tensor,
         raise _not_ported(f"mode {mode!r}")
     h = L.rmsnorm(p["norm1"], x)
     new_cache = None
-    if kind == ATTN:
+    if kind in _ATTN_KINDS:
+        w = _window(cfg, kind)
         if mode == "train":
-            h = A.attn_train(p["mixer"], cfg, h, positions)
+            h = A.attn_train(p["mixer"], cfg, h, positions, w)
         elif mode == "prefill":
             h, new_cache = A.attn_prefill(p["mixer"], cfg, h, positions,
-                                          capacity)
+                                          capacity, w)
         else:
-            h, new_cache = A.attn_decode(p["mixer"], cfg, h, cache)
+            h, new_cache = A.attn_decode(p["mixer"], cfg, h, cache, w)
+    elif kind == RGLRU:
+        if mode == "train":
+            h = R.rglru_train(p["mixer"], cfg, h)
+        elif mode == "prefill":
+            h, new_cache = R.rglru_prefill(p["mixer"], cfg, h)
+        else:
+            h, new_cache = R.rglru_decode(p["mixer"], cfg, h, cache)
     elif kind == SSM:
         if mode == "train":
             h = S.ssm_train(p["mixer"], cfg, h)
@@ -90,10 +108,13 @@ def apply_layer(p: Params, cfg: ArchConfig, kind: str, x: torch.Tensor,
 
 def init_layer_cache(cfg: ArchConfig, kind: str, batch: int, capacity: int,
                      dtype=torch.float32, device=None) -> Any:
-    if kind == ATTN:
-        return A.init_cache(cfg, batch, capacity, 0, dtype, device)
+    if kind in _ATTN_KINDS:
+        return A.init_cache(cfg, batch, capacity, _window(cfg, kind), dtype,
+                            device)
     if kind == SSM:
         return S.init_ssm_cache(cfg, batch, dtype, device)
+    if kind == RGLRU:
+        return R.init_rglru_cache(cfg, batch, dtype, device)
     raise _not_ported(f"layer kind {kind!r}")
 
 
@@ -143,13 +164,16 @@ def _scan_segment(periods, cfg: ArchConfig, pattern, x: torch.Tensor,
 
 def init_params(gen: torch.Generator, cfg: ArchConfig,
                 dtype=torch.float32) -> Params:
-    """Random parameters drawn from ``gen``, on the generator's device."""
-    if cfg.frontend != "none":
+    """Random parameters drawn from ``gen``, on the generator's device.
+    The audio frontend keeps one embedding table (K, vp, d) and one head
+    (d, K, vp) over its K codebooks."""
+    if cfg.frontend not in ("none", "vision", "audio"):
         raise _not_ported(f"frontend {cfg.frontend!r}")
     vp, d = cfg.padded_vocab, cfg.d_model
+    k = (cfg.n_codebooks,) if cfg.frontend == "audio" else ()
     return {
-        "embed": L.trunc_normal(gen, (vp, d), d ** -0.5, dtype),
-        "head": L.trunc_normal(gen, (d, vp), d ** -0.5, dtype),
+        "embed": L.trunc_normal(gen, (*k, vp, d), d ** -0.5, dtype),
+        "head": L.trunc_normal(gen, (d, *k, vp), d ** -0.5, dtype),
         "final_norm": L.init_rmsnorm(d, dtype, gen.device),
         "segments": [[tuple(init_layer(gen, cfg, kind, dtype)
                             for kind in pat) for _ in range(n)]
@@ -159,15 +183,34 @@ def init_params(gen: torch.Generator, cfg: ArchConfig,
 
 def embed_inputs(p: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
                  positions: torch.Tensor) -> torch.Tensor:
-    """batch -> (b, s, d) activations (the vehicle-side input boundary)."""
-    if cfg.frontend != "none" or cfg.pos != "rope":
-        raise _not_ported(f"frontend {cfg.frontend!r} / pos {cfg.pos!r}")
-    return p["embed"][batch["tokens"]]
+    """batch -> (b, s, d) activations (the vehicle-side input boundary):
+    ``tokens`` (b, s); for vision also ``patch_embeds`` (b, n_patches, d),
+    prepended; for audio ``codes`` (b, K, s), the K codebook embeddings
+    summed."""
+    if cfg.pos not in ("rope", "sinusoidal"):
+        raise _not_ported(f"pos {cfg.pos!r}")
+    if cfg.frontend == "vision" and "patch_embeds" in batch:
+        tok = p["embed"][batch["tokens"]]
+        x = torch.cat([batch["patch_embeds"].to(tok.dtype), tok], dim=1)
+    elif cfg.frontend == "audio":
+        codes = batch["codes"]                      # (b, K, s)
+        x = p["embed"][0][codes[:, 0]]
+        for k in range(1, cfg.n_codebooks):
+            x = x + p["embed"][k][codes[:, k]]
+    else:
+        x = p["embed"][batch["tokens"]]
+    if cfg.pos == "sinusoidal":
+        x = x + L.sinusoidal_pos(positions, cfg.d_model).to(x.dtype)
+    return x
 
 
 def unembed(p: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    """(b, s, d) -> logits (b, s, vp), or (b, s, K, vp) for audio."""
     x = L.rmsnorm(p["final_norm"], x)
-    logits = x @ p["head"].to(x.dtype)
+    if cfg.frontend == "audio":
+        logits = torch.einsum("bsd,dkv->bskv", x, p["head"].to(x.dtype))
+    else:
+        logits = x @ p["head"].to(x.dtype)
     return L.softcap(logits, cfg.logit_softcap)
 
 
@@ -213,13 +256,21 @@ def init_caches(cfg: ArchConfig, batch: int, capacity: int,
 
 def positions_of(cfg: ArchConfig, batch, mode: str,
                  pos_offset: int = 0) -> torch.Tensor:
-    """Token positions of a step: ``[pos_offset]`` in decode, else
-    ``arange(s)``."""
-    dev = batch["tokens"].device
+    """Positions of a step: ``[pos_offset]`` in decode, else ``arange(s)``
+    over the whole input (vision: the patches and the text; audio: the
+    frames)."""
+    if cfg.frontend == "audio":
+        ref = batch["codes"]
+        s = ref.shape[2]
+    else:
+        ref = batch["tokens"]
+        s = ref.shape[1]
+        if cfg.frontend == "vision" and mode != "decode":
+            s += cfg.n_patches
     if mode == "decode":
-        return torch.full((1,), pos_offset, dtype=torch.int32, device=dev)
-    return torch.arange(batch["tokens"].shape[1], dtype=torch.int32,
-                        device=dev)
+        return torch.full((1,), pos_offset, dtype=torch.int32,
+                          device=ref.device)
+    return torch.arange(s, dtype=torch.int32, device=ref.device)
 
 
 def forward(p: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
@@ -235,33 +286,48 @@ def forward(p: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
 
 def loss_fn(p: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
             remat: bool = False) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """Mean next-token cross-entropy of the full model in train mode.
+    """Mean next-token cross-entropy of the full model in train mode (audio:
+    over the K codebooks of each frame; vision: on the text positions).
     Returns (loss, {"ce", "aux"}); ``aux`` is 0 (no ported layer has an
     auxiliary loss)."""
     logits, _ = forward(p, cfg, batch, "train", remat=remat)
-    ce = L.cross_entropy(logits, batch["labels"], cfg.vocab_size)
+    if cfg.frontend == "audio":
+        ce = L.cross_entropy(logits, batch["codes"].transpose(1, 2),
+                             cfg.vocab_size)
+    else:
+        if cfg.frontend == "vision":
+            logits = logits[:, cfg.n_patches:]
+        ce = L.cross_entropy(logits, batch["labels"], cfg.vocab_size)
     aux = torch.zeros((), dtype=torch.float32, device=ce.device)
     return ce + aux, {"ce": ce, "aux": aux}
 
 
 def count_params(cfg: ArchConfig) -> int:
-    """Analytic parameter count of the ported layer kinds (the reference's
-    formula; roofline MODEL_FLOPS = 6 N D)."""
+    """Analytic parameter count of the ported layer kinds, the reference's
+    formula term for term (roofline MODEL_FLOPS = 6 N D).  Like the
+    reference's, it leaves out the qk-norm scales (2 * head_dim per
+    attention layer) and RG-LRU's ``lam`` (d_rnn per RG-LRU layer)."""
     d, ff, vp = cfg.d_model, cfg.d_ff, cfg.padded_vocab
     total = 0
     for kind in cfg.layer_types:
-        if kind == ATTN:
-            hd = cfg.head_dim_
-            n = 2 * d + d * hd * (cfg.n_heads * 2 + cfg.n_kv_heads * 2)
-            mats = 3 if cfg.mlp_variant in ("swiglu", "geglu") else 2
-            n += mats * d * ff
+        n = 2 * d  # norms
+        if kind in _ATTN_KINDS:
+            n += d * cfg.head_dim_ * (cfg.n_heads * 2 + cfg.n_kv_heads * 2)
         elif kind == SSM:
             d_inner, n_heads, conv_dim = S.dims(cfg)
             n = d + d * (2 * d_inner + 2 * cfg.ssm.n_groups * cfg.ssm.d_state
                          + n_heads)
             n += cfg.ssm.d_conv * conv_dim + conv_dim + 3 * n_heads
             n += d_inner + d_inner * d
+            total += n
+            continue
+        elif kind == RGLRU:
+            dr = cfg.rglru.d_rnn or d
+            n += (d * dr * 2 + dr * d + 2 * dr * dr + 3 * dr
+                  + cfg.rglru.d_conv * dr)
         else:
             raise _not_ported(f"layer kind {kind!r}")
+        n += (3 if cfg.mlp_variant in ("swiglu", "geglu") else 2) * d * ff
         total += n
-    return total + 2 * vp * d + d
+    k = cfg.n_codebooks if cfg.frontend == "audio" else 1
+    return total + 2 * vp * d * k + d

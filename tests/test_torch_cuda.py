@@ -533,8 +533,13 @@ def _randn(shape, dev, seed, scale=1.0):
                             .astype(np.float32)).to(dev)
 
 
+# the serving prefills' widths (smollm, mamba2 and its gated norm,
+# gemma3 / recurrentgemma, internvl2, musicgen), gemma3's qk-norm over
+# head_dim 256 (q's rows at prefill, k's at a decode step), decode, edges
 @pytest.mark.parametrize("shape", [(8, 1024, 960), (8, 1024, 1536),
-                                   (8, 1024, 3072), (8, 1, 960),
+                                   (8, 1024, 3072), (8, 1024, 2560),
+                                   (8, 1024, 896), (8, 1024, 2048),
+                                   (65536, 256), (32, 256), (8, 1, 960),
                                    (2, 12, 256), (5, 7, 1001), (3, 6)])
 def test_rmsnorm_kernel_matches_plain(dev, shape):
     x = _randn(shape, dev, 0, 2.0)
@@ -551,7 +556,10 @@ def test_rmsnorm_kernel_matches_plain(dev, shape):
 # masked rows; one query row; sk not a multiple of the key tile (64 at
 # d 64); d 256 with a window; the path's 15 heads over 5 kv heads at a
 # small s; q and k scaled by 4, so the scores (|s| up to ~80) would show a
-# single-TF32 route's ~1e-3 relative error
+# single-TF32 route's ~1e-3 relative error; then the served families'
+# prefills: gemma3's global and local layers (d 256, 8 heads over 4; the
+# window masks keys at s 1088), recurrentgemma's local MQA (10 over 1,
+# window 2048), internvl2 (14 over 2), musicgen (MHA 32 / 32)
 FLASH_CASES = [(8, 1024, 1024, 15, 5, 64, True, 0, 1.0),
                (1, 100, 100, 4, 2, 128, True, 0, 1.0),
                (1, 70, 70, 4, 1, 256, True, 0, 1.0),
@@ -563,7 +571,12 @@ FLASH_CASES = [(8, 1024, 1024, 15, 5, 64, True, 0, 1.0),
                (2, 150, 150, 6, 3, 64, True, 0, 1.0),
                (1, 90, 90, 2, 1, 256, True, 40, 1.0),
                (2, 96, 96, 15, 5, 64, True, 0, 1.0),
-               (1, 256, 256, 4, 2, 64, True, 0, 4.0)]
+               (1, 256, 256, 4, 2, 64, True, 0, 4.0),
+               (8, 1024, 1024, 8, 4, 256, True, 0, 1.0),
+               (8, 1088, 1088, 8, 4, 256, True, 1024, 1.0),
+               (8, 1024, 1024, 10, 1, 256, True, 2048, 1.0),
+               (8, 1024, 1024, 14, 2, 64, True, 0, 1.0),
+               (8, 1024, 1024, 32, 32, 64, True, 0, 1.0)]
 
 
 @pytest.mark.parametrize("b,sq,sk,h,kv,d,causal,window,qk_amp",
@@ -652,6 +665,65 @@ def test_reduced_lm_serving_on_cuda_matches_cpu(dev, arch):
                                     caches, 37 + i)
             seq.append(logits.cpu())
         outs[str(where)] = seq
+    for a, b in zip(outs["cpu"], outs[str(dev)]):
+        torch.testing.assert_close(b, a, rtol=2e-4, atol=2e-4)
+
+
+def _family_stream(cfg, seed=0):
+    """(prompt of 37 positions, 3 decode batches) on the CPU: tokens,
+    patch embeddings or codes as the arch's frontend takes them."""
+    rng = np.random.default_rng(seed)
+    if cfg.frontend == "audio":
+        codes = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, size=(2, cfg.n_codebooks, 40)))
+        return ({"codes": codes[:, :, :37]},
+                [{"codes": codes[:, :, i:i + 1]} for i in range(37, 40)])
+    patches = cfg.n_patches if cfg.frontend == "vision" else 0
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                        size=(2, 40 - patches)))
+    prompt = {"tokens": tok[:, :37 - patches]}
+    if patches:
+        prompt["patch_embeds"] = torch.from_numpy(
+            (0.02 * rng.normal(size=(2, patches, cfg.d_model)))
+            .astype(np.float32))
+    return prompt, [{"tokens": tok[:, i:i + 1]}
+                    for i in range(37 - patches, 40 - patches)]
+
+
+@pytest.mark.parametrize("arch", ["gemma3-4b", "recurrentgemma-2b",
+                                  "internvl2-1b", "musicgen-large"])
+def test_reduced_family_serving_on_cuda_matches_cpu(dev, arch):
+    """The reduced dense / hybrid / vision / audio archs at their own depth
+    (past the window of 16): prefill + 3 decode steps on the card and on
+    the CPU from the same weights, logits within 2e-4, and the card's
+    flash and rmsnorm launches as the model implies."""
+    from repro_torch.configs import ATTN, ATTN_LOCAL, get_config
+    from repro_torch.core import distributed as D
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_map
+    cfg = get_config(arch).reduced()
+    params = T.init_params(torch.Generator().manual_seed(0), cfg)
+    prompt, steps = _family_stream(cfg)
+    outs = {}
+    for where in ("cpu", dev):
+        p = tree_map(lambda a: a.to(where), params)
+        opts = D.DistOptions(cut=1)
+        prefill = D.make_prefill_step(cfg, opts, 40)
+        decode = D.make_decode_step(cfg, opts, 40)
+        before = dict(LAUNCHES)
+        logits, caches = prefill(p, tree_map(lambda a: a.to(where), prompt))
+        seq = [logits.cpu()]
+        for i, batch in enumerate(steps):
+            logits, caches = decode(p, tree_map(lambda a: a.to(where),
+                                                batch), caches, 37 + i)
+            seq.append(logits.cpu())
+        outs[str(where)] = seq
+        grew = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+    kinds = cfg.layer_types
+    attn = kinds.count(ATTN) + kinds.count(ATTN_LOCAL)
+    assert grew["flash_attention"] == attn
+    assert grew["rmsnorm"] == 4 * (2 * len(kinds) + 1
+                                   + (2 * attn if cfg.qk_norm else 0))
     for a, b in zip(outs["cpu"], outs[str(dev)]):
         torch.testing.assert_close(b, a, rtol=2e-4, atol=2e-4)
 

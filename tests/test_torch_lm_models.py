@@ -72,7 +72,7 @@ def test_configs_match_reference(arch):
 
 def test_unported_archs_raise():
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        get_config("gemma3-4b")
+        get_config("deepseek-v2-lite-16b")
     with pytest.raises(NotImplementedError, match="not ported yet"):
         get_config("qwen3-14b-smoke")
     with pytest.raises(KeyError):
