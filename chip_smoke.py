@@ -78,7 +78,7 @@ neither ``jax`` nor ``repro``.  In order it:
    RG-LRU's ``lam``); prints the prefill and decode times, the counted
    serve's peak memory, a second full-size prefill's time beside the
    first, and the SM clocks (nvidia-smi) and reserved bytes just before
-   and just after the first;
+   and just after the counted serve, whose prefill is the first;
 9. at full width, prefill(s-1) + one decode step reproduces the last
    logits of prefill(s) within 1e-3 (gemma3 at s 1088 and recurrentgemma
    at s 2112, so that their local layers' rings wrap with a nonzero shift
@@ -1348,35 +1348,21 @@ def check_lm_kernels():
     return out
 
 
-def _expected_launches(cfg):
-    """Kernel launches one served batch implies: per prefill one flash per
-    attention layer (global or local) and one SSD scan per SSM layer; per
-    forward (prefill and each decode step) two rmsnorms per layer (an SSM
-    block's second is its gated norm), two more per attention layer under
-    qk-norm (q and k over head_dim), and the final norm; none for an
-    RG-LRU block's recurrence (plain PyTorch, as the reference computes it
-    outside any Pallas kernel)."""
+def _expected_launches(cfg, decode_steps=SERVE_STEPS):
+    """Kernel launches a prefill and ``decode_steps`` decode steps imply:
+    per prefill one flash per attention layer (global or local) and one
+    SSD scan per SSM layer; per forward (prefill and each decode step) two
+    rmsnorms per layer (an SSM block's second is its gated norm), two more
+    per attention layer under qk-norm (q and k over head_dim), and the
+    final norm; none for an RG-LRU block's recurrence (plain PyTorch, as
+    the reference computes it outside any Pallas kernel)."""
     from repro_torch.configs import ATTN, ATTN_LOCAL, SSM
     kinds = cfg.layer_types
     attn = kinds.count(ATTN) + kinds.count(ATTN_LOCAL)
     norms = 2 * len(kinds) + (2 * attn if cfg.qk_norm else 0) + 1
     return {"flash_attention": attn,
             "ssd_chunk_scan": kinds.count(SSM),
-            "rmsnorm": norms * (1 + SERVE_STEPS)}
-
-
-def _uncounted_params(cfg):
-    """Leaves the analytic ``count_params`` leaves out, as the
-    reference's does: the qk-norm scales (2 x head_dim per attention
-    layer) and RG-LRU's ``lam`` (d_rnn per RG-LRU layer)."""
-    from repro_torch.configs import ATTN, ATTN_LOCAL, RGLRU
-    kinds = cfg.layer_types
-    n = 0
-    if cfg.qk_norm:
-        n += 2 * cfg.head_dim_ * (kinds.count(ATTN) + kinds.count(ATTN_LOCAL))
-    if cfg.rglru is not None:
-        n += (cfg.rglru.d_rnn or cfg.d_model) * kinds.count(RGLRU)
-    return n
+            "rmsnorm": norms * (1 + decode_steps)}
 
 
 def _gpu_clocks():
@@ -1389,6 +1375,12 @@ def _gpu_clocks():
     return (res.stdout.strip().splitlines() or [res.stderr.strip()])[0]
 
 
+def _card_state():
+    import torch
+    return {"clocks": _gpu_clocks(),
+            "reserved_gb": torch.cuda.memory_reserved() / 1e9}
+
+
 def _logits_shape(cfg, rows):
     k = (cfg.n_codebooks,) if cfg.frontend == "audio" else ()
     return (rows, 1, *k, cfg.padded_vocab)
@@ -1397,8 +1389,8 @@ def _logits_shape(cfg, rows):
 def serve_path(arch):
     """Phase 8: serve ``arch`` at full width and depth on the card, the
     launch counters zeroed just before and read just after; the SM clocks
-    and the allocator's reserved bytes just before and just after the
-    first full-size prefill.  Returns (config, params, serve result,
+    and the allocator's reserved bytes just before and just after that
+    serve, whose prefill is the first at full size.  Returns (config, params, serve result,
     counts, timing row)."""
     import torch
     from repro_torch import kernels
@@ -1416,21 +1408,18 @@ def serve_path(arch):
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(t.numel() for t in tree_leaves(params))
-    counted, uncounted = T.count_params(cfg), _uncounted_params(cfg)
+    counted, uncounted = T.count_params(cfg), T.uncounted_params(cfg)
     # warm-up (cuBLAS plans, first launches), outside the counted run
     serve.serve(cfg, params, batch=SERVE_BATCH, prompt_len=64,
                 decode_steps=2)
-    probe = {}
-
-    def read(when):
-        probe[when] = {"clocks": _gpu_clocks(),
-                       "reserved_gb": torch.cuda.memory_reserved() / 1e9}
-
+    # the SM clocks and the pool before and after the counted serve, the
+    # process's first full-size prefill (decode's buffers are far smaller)
+    probe = {"before_serve": _card_state()}
     kernels.reset_launches()
     res = serve.serve(cfg, params, batch=SERVE_BATCH,
-                      prompt_len=SERVE_PROMPT, decode_steps=SERVE_STEPS,
-                      probe=read)
+                      prompt_len=SERVE_PROMPT, decode_steps=SERVE_STEPS)
     counts = kernels.launch_counts()
+    probe["after_serve"] = _card_state()
     # the counted serve's peak (the second serve below runs while this
     # one's caches are still held)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1463,7 +1452,7 @@ def serve_path(arch):
           f"decode_tokens_per_s={timing['decode_tokens_per_s']:.1f} "
           f"peak_mem_gb={timing['peak_mem_gb']:.3f} launches={counts}",
           flush=True)
-    for when in ("before_prefill", "after_prefill"):
+    for when in ("before_serve", "after_serve"):
         print(f"serve {arch} first_prefill {when} clocks(sm,max_sm,"
               f"throttle)={probe[when]['clocks']} reserved_gb="
               f"{probe[when]['reserved_gb']:.3f}", flush=True)
@@ -1534,29 +1523,17 @@ REDUCED_PROMPT, REDUCED_STEPS = 37, 3
 
 
 def _reduced_stream(cfg, seed=0):
-    """(prompt batch of REDUCED_PROMPT positions, the decode batches), on
-    the CPU from numpy draws: tokens, patch embeddings or codes as the
-    arch's frontend takes them."""
-    import numpy as np
+    """(prompt batch of REDUCED_PROMPT positions, the decode batches) of 2
+    rows, drawn on the CPU as ``launch.serve`` draws a served prompt and
+    its steps' batches."""
     import torch
-    rng = np.random.default_rng(seed)
-    n = REDUCED_PROMPT + REDUCED_STEPS
-    if cfg.frontend == "audio":
-        codes = torch.from_numpy(rng.integers(
-            0, cfg.vocab_size, size=(2, cfg.n_codebooks, n)))
-        return ({"codes": codes[:, :, :REDUCED_PROMPT]},
-                [{"codes": codes[:, :, i:i + 1]}
-                 for i in range(REDUCED_PROMPT, n)])
-    patches = cfg.n_patches if cfg.frontend == "vision" else 0
-    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size,
-                                        size=(2, n - patches)))
-    prompt = {"tokens": tok[:, :REDUCED_PROMPT - patches]}
-    if patches:
-        prompt["patch_embeds"] = torch.from_numpy(
-            (0.02 * rng.normal(size=(2, patches, cfg.d_model)))
-            .astype(np.float32))
-    return prompt, [{"tokens": tok[:, i:i + 1]}
-                    for i in range(REDUCED_PROMPT - patches, n - patches)]
+    from repro_torch.launch import serve
+    gen = torch.Generator().manual_seed(seed)
+    prompt = serve.prompt_batch(cfg, gen, 2, REDUCED_PROMPT)
+    ids = (2, cfg.n_codebooks) if cfg.frontend == "audio" else (2,)
+    return prompt, [serve.step_batch(cfg, torch.randint(
+        0, cfg.vocab_size, ids, generator=gen))
+        for _ in range(REDUCED_STEPS)]
 
 
 def _reduced_config(arch):

@@ -13,12 +13,11 @@
    parallel one (``server_schedule="parallel"``); with ``planes`` the same
    round under ``chip_smoke.py`` phase 10k's faults on both schedules, and
    the first round of its ``streaming`` schedule with presence churn.
-3. Split-inference serving of the served archs (``--serve-archs``; by
-   default smollm-360m, mamba2-780m, gemma3-4b, recurrentgemma-2b,
-   internvl2-1b, musicgen-large) at full width (batch 8, prompt 1024, the
-   default cut) after a warm-up at prompt 64, as ``chip_smoke.py`` serves:
-   one profiled prefill (the process's first at full size), then 8
-   profiled decode steps.
+3. Split-inference serving of smollm-360m, mamba2-780m, gemma3-4b,
+   recurrentgemma-2b, internvl2-1b and musicgen-large at full width
+   (batch 8, prompt 1024, the default cut) after a warm-up at prompt 64,
+   as ``chip_smoke.py`` serves: one profiled prefill (the process's first
+   at full size), then 8 profiled decode steps.
 4. One sync-SFL train step of smollm-360m and of mamba2-780m at full width
    (batch 8, seq 1024, the default cut, adamw, clip 1.0, remat) after one
    warm-up step, as ``chip_smoke.py`` phase 10g trains.
@@ -296,9 +295,6 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="chiprun_out/profile_port.json")
     ap.add_argument("--only", default="round,scenario,planes,serve,train")
-    ap.add_argument("--serve-archs",
-                    default="smollm-360m,mamba2-780m,gemma3-4b,"
-                            "recurrentgemma-2b,internvl2-1b,musicgen-large")
     ap.add_argument("--repeat", type=int, default=1,
                     help="profile the scenario / planes rounds this many "
                          "times, the cells in turns")
@@ -349,8 +345,9 @@ def main() -> int:
                                      "ms_per_step", "n_device_kernels",
                                      "device_busy_share")})
     if "serve" in parts:
-        result["serve"] = [serve_profile(a)
-                           for a in args.serve_archs.split(",")]
+        result["serve"] = [serve_profile(a) for a in archs + (
+            "gemma3-4b", "recurrentgemma-2b", "internvl2-1b",
+            "musicgen-large")]
     if "train" in parts:
         result["train"] = [train_profile(a) for a in archs]
     if "city" in parts:

@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import argparse
 import time
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -83,15 +83,12 @@ def step_batch(cfg: ArchConfig, nxt: torch.Tensor) -> Dict[str, torch.Tensor]:
 
 def serve(cfg: ArchConfig, params, *, batch: int, prompt_len: int,
           decode_steps: int, cut: Optional[int] = None,
-          temperature: float = 1.0, seed: int = 0,
-          probe: Optional[Callable[[str], None]] = None) -> Dict[str, Any]:
+          temperature: float = 1.0, seed: int = 0) -> Dict[str, Any]:
     """Serve one batch of random prompts (:func:`prompt_batch`): a
     prefill, then ``decode_steps`` sampled tokens.  ``params`` lie on the
-    device to serve on.  ``probe``, if given, is called with
-    ``"before_prefill"`` and ``"after_prefill"`` outside the timed span.
-    Returns the prompt batch, the last logits, the sampled ids, the caches
-    and the prefill / decode wall times (seconds, after a device
-    synchronize)."""
+    device to serve on.  Returns the prompt batch, the last logits, the
+    sampled ids, the caches and the prefill / decode wall times (seconds,
+    after a device synchronize)."""
     device = params["embed"].device
     gen = torch.Generator(device=device).manual_seed(seed)
     prompt = prompt_batch(cfg, gen, batch, prompt_len)
@@ -102,14 +99,10 @@ def serve(cfg: ArchConfig, params, *, batch: int, prompt_len: int,
     decode = D.make_decode_step(cfg, opts, capacity)
 
     _sync(device)
-    if probe is not None:
-        probe("before_prefill")
     t0 = time.perf_counter()
     logits, caches = prefill(params, prompt)
     _sync(device)
     prefill_s = time.perf_counter() - t0
-    if probe is not None:
-        probe("after_prefill")
 
     tokens = []
     t0 = time.perf_counter()

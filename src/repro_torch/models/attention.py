@@ -9,7 +9,8 @@ against a cache with ``k_pos`` and ring slots — stays the plain
 :func:`_sdpa`, as the reference computes it outside any Pallas kernel.
 
 The einsum layouts are the reference's: ``wq (d, h, hd)``, ``wk / wv
-(d, kv, hd)``, ``wo (h, hd, d)``.  qk-norm is not ported yet.
+(d, kv, hd)``, ``wo (h, hd, d)``.  qk-norm scales ``q_norm`` / ``k_norm``
+(hd,) normalise q and k over head_dim with the rmsnorm kernel.
 
 Decode writes the new key and value into the cache tensors in place (the
 reference returns new arrays): a copy of every layer's cache per generated

@@ -331,3 +331,16 @@ def count_params(cfg: ArchConfig) -> int:
         total += n
     k = cfg.n_codebooks if cfg.frontend == "audio" else 1
     return total + 2 * vp * d * k + d
+
+
+def uncounted_params(cfg: ArchConfig) -> int:
+    """The values :func:`count_params` leaves out: the qk-norm scales and
+    RG-LRU's ``lam``.  The tree of :func:`init_params` holds
+    ``count_params(cfg) + uncounted_params(cfg)`` values."""
+    kinds = cfg.layer_types
+    n = 0
+    if cfg.qk_norm:
+        n += 2 * cfg.head_dim_ * sum(kinds.count(k) for k in _ATTN_KINDS)
+    if RGLRU in kinds:
+        n += (cfg.rglru.d_rnn or cfg.d_model) * kinds.count(RGLRU)
+    return n

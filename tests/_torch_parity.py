@@ -113,6 +113,35 @@ def jax_lm_params(jcfg, seed=0):
     return jax.tree.map(np.asarray, init(jax.random.PRNGKey(seed), jcfg))
 
 
+def lm_stream(cfg, rows, prompt, steps=0, seed=0):
+    """(prompt batch of ``prompt`` positions, ``steps`` decode batches) of
+    numpy draws for ``cfg``'s frontend: ``tokens``; ``n_patches`` patch
+    embeddings (0.02 x a normal draw) and ``prompt - n_patches`` tokens
+    for vision; ``codes`` (rows, K, s) for audio."""
+    rng = np.random.default_rng(seed)
+    if cfg.frontend == "audio":
+        codes = rng.integers(0, cfg.vocab_size, size=(
+            rows, cfg.n_codebooks, prompt + steps)).astype(np.int32)
+        return ({"codes": codes[:, :, :prompt]},
+                [{"codes": codes[:, :, prompt + i:prompt + i + 1]}
+                 for i in range(steps)])
+    n_text = prompt - (cfg.n_patches if cfg.frontend == "vision" else 0)
+    tok = rng.integers(0, cfg.vocab_size,
+                       size=(rows, n_text + steps)).astype(np.int32)
+    first = {"tokens": tok[:, :n_text]}
+    if cfg.frontend == "vision":
+        first["patch_embeds"] = (0.02 * rng.normal(
+            size=(rows, cfg.n_patches, cfg.d_model))).astype(np.float32)
+    return first, [{"tokens": tok[:, n_text + i:n_text + i + 1]}
+                   for i in range(steps)]
+
+
+def lm_batch_to_torch(batch):
+    """A numpy LM batch as the port takes it (int32 ids as int64)."""
+    return {k: torch.from_numpy(v).long() if v.dtype == np.int32
+            else torch.from_numpy(v) for k, v in batch.items()}
+
+
 def assert_lm_caches_close(jax_caches, port_caches, tol):
     """Reference caches (segments of stacked per-pattern dicts) against the
     port's (segments of periods of per-pattern dicts)."""

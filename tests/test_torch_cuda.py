@@ -669,25 +669,16 @@ def test_reduced_lm_serving_on_cuda_matches_cpu(dev, arch):
         torch.testing.assert_close(b, a, rtol=2e-4, atol=2e-4)
 
 
-def _family_stream(cfg, seed=0):
-    """(prompt of 37 positions, 3 decode batches) on the CPU: tokens,
-    patch embeddings or codes as the arch's frontend takes them."""
-    rng = np.random.default_rng(seed)
-    if cfg.frontend == "audio":
-        codes = torch.from_numpy(rng.integers(
-            0, cfg.vocab_size, size=(2, cfg.n_codebooks, 40)))
-        return ({"codes": codes[:, :, :37]},
-                [{"codes": codes[:, :, i:i + 1]} for i in range(37, 40)])
-    patches = cfg.n_patches if cfg.frontend == "vision" else 0
-    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size,
-                                        size=(2, 40 - patches)))
-    prompt = {"tokens": tok[:, :37 - patches]}
-    if patches:
-        prompt["patch_embeds"] = torch.from_numpy(
-            (0.02 * rng.normal(size=(2, patches, cfg.d_model)))
-            .astype(np.float32))
-    return prompt, [{"tokens": tok[:, i:i + 1]}
-                    for i in range(37 - patches, 40 - patches)]
+def _chip_smoke():
+    """The repo's ``chip_smoke.py`` as a module, for its phase-10 inputs
+    and its launch formula."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 @pytest.mark.parametrize("arch", ["gemma3-4b", "recurrentgemma-2b",
@@ -697,33 +688,32 @@ def test_reduced_family_serving_on_cuda_matches_cpu(dev, arch):
     (past the window of 16): prefill + 3 decode steps on the card and on
     the CPU from the same weights, logits within 2e-4, and the card's
     flash and rmsnorm launches as the model implies."""
-    from repro_torch.configs import ATTN, ATTN_LOCAL, get_config
+    from repro_torch.configs import get_config
     from repro_torch.core import distributed as D
     from repro_torch.models import transformer as T
     from repro_torch.tree import tree_map
+    cs = _chip_smoke()
     cfg = get_config(arch).reduced()
     params = T.init_params(torch.Generator().manual_seed(0), cfg)
-    prompt, steps = _family_stream(cfg)
+    prompt, steps = cs._reduced_stream(cfg)
+    n, cap = cs.REDUCED_PROMPT, cs.REDUCED_PROMPT + cs.REDUCED_STEPS
     outs = {}
     for where in ("cpu", dev):
         p = tree_map(lambda a: a.to(where), params)
         opts = D.DistOptions(cut=1)
-        prefill = D.make_prefill_step(cfg, opts, 40)
-        decode = D.make_decode_step(cfg, opts, 40)
+        prefill = D.make_prefill_step(cfg, opts, cap)
+        decode = D.make_decode_step(cfg, opts, cap)
         before = dict(LAUNCHES)
         logits, caches = prefill(p, tree_map(lambda a: a.to(where), prompt))
         seq = [logits.cpu()]
         for i, batch in enumerate(steps):
             logits, caches = decode(p, tree_map(lambda a: a.to(where),
-                                                batch), caches, 37 + i)
+                                                batch), caches, n + i)
             seq.append(logits.cpu())
         outs[str(where)] = seq
         grew = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
-    kinds = cfg.layer_types
-    attn = kinds.count(ATTN) + kinds.count(ATTN_LOCAL)
-    assert grew["flash_attention"] == attn
-    assert grew["rmsnorm"] == 4 * (2 * len(kinds) + 1
-                                   + (2 * attn if cfg.qk_norm else 0))
+    want = cs._expected_launches(cfg, decode_steps=len(steps))
+    assert {k: grew[k] for k in want} == want
     for a, b in zip(outs["cpu"], outs[str(dev)]):
         torch.testing.assert_close(b, a, rtol=2e-4, atol=2e-4)
 

@@ -14,7 +14,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import cap_torch_threads, jax_lm_params, lm_configs
+from _torch_parity import (cap_torch_threads, jax_lm_params,
+                           lm_batch_to_torch, lm_configs, lm_stream)
 from repro.configs import get_config as jax_config
 from repro.core import cost as JC
 from repro.models import layers as JL
@@ -54,41 +55,6 @@ def _setup(arch):
     return _cache[arch]
 
 
-def _batch(cfg, b, s, seed=0):
-    """A numpy batch of ``s`` positions for ``cfg``'s frontend."""
-    rng = np.random.default_rng(seed)
-    if cfg.frontend == "audio":
-        return {"codes": rng.integers(0, cfg.vocab_size,
-                                      size=(b, cfg.n_codebooks, s))
-                .astype(np.int32)}
-    if cfg.frontend == "vision":
-        return {"tokens": rng.integers(0, cfg.vocab_size,
-                                       size=(b, s - cfg.n_patches))
-                .astype(np.int32),
-                "patch_embeds": (0.02 * rng.normal(
-                    size=(b, cfg.n_patches, cfg.d_model))).astype(
-                        np.float32)}
-    return {"tokens": rng.integers(0, cfg.vocab_size, size=(b, s))
-            .astype(np.int32)}
-
-
-def _torch_batch(batch):
-    return {k: torch.from_numpy(v).long() if v.dtype == np.int32
-            else torch.from_numpy(v) for k, v in batch.items()}
-
-
-def _uncounted(cfg):
-    """Leaves the analytic count leaves out (both packages): the qk-norm
-    scales and RG-LRU's ``lam``."""
-    n = 0
-    for kind in cfg.layer_types:
-        if kind in ("attn", "attn_local") and cfg.qk_norm:
-            n += 2 * cfg.head_dim_
-        elif kind == "rglru":
-            n += cfg.rglru.d_rnn or cfg.d_model
-    return n
-
-
 # ----------------------------------------------------------------- configs
 @pytest.mark.parametrize("arch", [a + s for a in FAMILIES
                                   for s in ("", "-smoke")])
@@ -126,7 +92,7 @@ def test_leaves_are_the_count_plus_what_it_leaves_out(arch):
     jcfg, tcfg, params, tparams = _setup(arch)
     n_ref = sum(a.size for a in jax.tree.leaves(params))
     n_port = sum(t.numel() for t in tree_leaves(tparams))
-    assert n_port == n_ref == T.count_params(tcfg) + _uncounted(tcfg)
+    assert n_port == n_ref == T.count_params(tcfg) + T.uncounted_params(tcfg)
     mine = T.init_params(torch.Generator().manual_seed(0), tcfg)
     assert sum(t.numel() for t in tree_leaves(mine)) == n_port
 
@@ -288,10 +254,10 @@ def test_prefill_logits_match_reference(arch):
     reference's teacher-forced forward (37 positions: past the reduced
     window of 16), and the train-mode loss against the reference's."""
     jcfg, tcfg, params, tparams = _setup(arch)
-    batch = _batch(tcfg, 2, 37)
+    batch = lm_stream(tcfg, 2, 37)[0]
     fwd = jax.jit(lambda p, b: JT.forward(p, jcfg, b, "train")[0])
     jlogits = np.asarray(fwd(params, batch))
-    logits, caches = T.forward(tparams, tcfg, _torch_batch(batch),
+    logits, caches = T.forward(tparams, tcfg, lm_batch_to_torch(batch),
                                "prefill", capacity=40)
     k = (tcfg.n_codebooks,) if tcfg.frontend == "audio" else ()
     assert logits.shape == (2, 37, *k, tcfg.padded_vocab)
@@ -304,7 +270,7 @@ def test_prefill_logits_match_reference(arch):
             0, tcfg.vocab_size, size=(2, n_text)).astype(np.int32)
     jloss = float(jax.jit(lambda p, b: JT.loss_fn(p, jcfg, b)[0])(params,
                                                                   batch))
-    tloss = float(T.loss_fn(tparams, tcfg, _torch_batch(batch))[0])
+    tloss = float(T.loss_fn(tparams, tcfg, lm_batch_to_torch(batch))[0])
     np.testing.assert_allclose(tloss, jloss, rtol=1e-5)
 
 
@@ -314,7 +280,7 @@ def test_prefill_then_decode_matches_teacher_forcing(arch):
     with s past the window so the local caches are rings."""
     _, tcfg, _, tparams = _setup(arch)
     s, cap = 33, 48
-    full_b = _torch_batch(_batch(tcfg, 2, s, seed=2))
+    full_b = lm_batch_to_torch(lm_stream(tcfg, 2, s, seed=2)[0])
     if tcfg.frontend == "audio":
         head = {"codes": full_b["codes"][:, :, :s - 1]}
         last = {"codes": full_b["codes"][:, :, s - 1:]}
@@ -333,9 +299,28 @@ def test_prefill_then_decode_matches_teacher_forcing(arch):
 def test_training_the_served_families_is_refused(arch):
     from repro_torch.core import distributed as D
     from repro_torch.core.lm_unit import TransformerUnitModel
-    for name in (arch, arch + "-smoke"):
+    renamed = dataclasses.replace(get_config(arch), name="renamed")
+    for cfg in (get_config(arch), get_config(arch + "-smoke"), renamed):
         with pytest.raises(NotImplementedError, match="served only"):
-            D.make_train_step(get_config(name), D.DistOptions())
+            D.make_train_step(cfg, D.DistOptions())
     if get_config(arch).frontend == "none":
         with pytest.raises(NotImplementedError, match="served only"):
             TransformerUnitModel(get_config(arch).reduced())
+
+
+@pytest.mark.parametrize("change", [
+    dict(frontend="vision"), dict(pattern=("attn", "attn_local")),
+    dict(tail=("rglru",)), dict(qk_norm=True), dict(pos="sinusoidal"),
+    dict(mlp_variant="geglu"), dict(mlp_variant="gelu")])
+def test_training_refusal_follows_what_the_config_holds(change):
+    """A trained arch that gains a layer whose training is not ported is
+    refused, whatever its name; the trained archs as they are pass."""
+    from repro_torch.configs import check_trainable, untrained_features
+    from repro_torch.core import distributed as D
+    for arch in ("smollm-360m", "mamba2-780m"):
+        assert untrained_features(get_config(arch)) == []
+        check_trainable(get_config(arch + "-smoke"))
+    cfg = dataclasses.replace(get_config("smollm-360m-smoke"), **change)
+    assert untrained_features(cfg)
+    with pytest.raises(NotImplementedError, match="served only"):
+        D.make_train_step(cfg, D.DistOptions())

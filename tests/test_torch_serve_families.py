@@ -12,7 +12,8 @@ import pytest
 import torch
 
 from _torch_parity import (assert_lm_caches_close, cap_torch_threads,
-                           jax_lm_params, lm_configs)
+                           jax_lm_params, lm_batch_to_torch, lm_configs,
+                           lm_stream)
 from repro.core import distributed as JD
 from repro_torch import bridge
 from repro_torch.configs import get_config
@@ -42,31 +43,6 @@ def _setup(arch):
     return _cache[arch]
 
 
-def _stream(cfg, seed):
-    """(prompt batch of PROMPT positions, the STEPS decode batches), numpy."""
-    rng = np.random.default_rng(seed)
-    if cfg.frontend == "audio":
-        codes = rng.integers(0, cfg.vocab_size, size=(
-            2, cfg.n_codebooks, PROMPT + STEPS)).astype(np.int32)
-        return ({"codes": codes[:, :, :PROMPT]},
-                [{"codes": codes[:, :, PROMPT + i:PROMPT + i + 1]}
-                 for i in range(STEPS)])
-    n_text = PROMPT - (cfg.n_patches if cfg.frontend == "vision" else 0)
-    tok = rng.integers(0, cfg.vocab_size,
-                       size=(2, n_text + STEPS)).astype(np.int32)
-    prompt = {"tokens": tok[:, :n_text]}
-    if cfg.frontend == "vision":
-        prompt["patch_embeds"] = (0.02 * rng.normal(
-            size=(2, cfg.n_patches, cfg.d_model))).astype(np.float32)
-    return prompt, [{"tokens": tok[:, n_text + i:n_text + i + 1]}
-                    for i in range(STEPS)]
-
-
-def _to_torch(batch):
-    return {k: torch.from_numpy(v).long() if v.dtype == np.int32
-            else torch.from_numpy(v) for k, v in batch.items()}
-
-
 def _run(make_prefill, make_decode, params, prompt, steps, to_np, conv):
     cap = PROMPT + STEPS
     prefill, decode = make_prefill(cap), make_decode(cap)
@@ -82,14 +58,14 @@ def _run(make_prefill, make_decode, params, prompt, steps, to_np, conv):
 @pytest.mark.parametrize("arch", list(ARCHS))
 def test_serving_steps_match_reference(arch, cut):
     jcfg, tcfg, params, tparams = _setup(arch)
-    prompt, steps = _stream(tcfg, cut)
+    prompt, steps = lm_stream(tcfg, 2, PROMPT, STEPS, seed=cut)
     before = dict(LAUNCHES)
     port = _run(lambda c: D.make_prefill_step(tcfg, D.DistOptions(cut=cut),
                                               c),
                 lambda c: D.make_decode_step(tcfg, D.DistOptions(cut=cut),
                                              c),
                 tparams, prompt, steps, lambda t: t.numpy().copy(),
-                _to_torch)
+                lm_batch_to_torch)
     assert LAUNCHES == before             # CPU tensors: plain versions only
     ref = _run(lambda c: jax.jit(JD.make_prefill_step(
                    jcfg, JD.DistOptions(cut=cut), c)),
