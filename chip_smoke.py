@@ -40,16 +40,22 @@ neither ``jax`` nor ``repro``.  In order it:
    time at every case, and at the path's shape times it like the codec;
 4b. holds the LM lane's kernels (rmsnorm, flash_attention, ssd_chunk_scan)
    to their plain versions within stated float32 tolerances at the serving
-   path's shapes and edge shapes, and at each served arch's prefill shape
+   path's shapes and edge shapes (rmsnorm also in bfloat16 and float16,
+   with a float32 scale or one of x's dtype, within one ulp of the working
+   type; its backward kernel against the closed-form plain backward and
+   the plain vjp, two calls bit for bit, at d 256 / 960 / 1536 / 3072 in
+   float32 and bfloat16), and at each served arch's prefill shape
    (smollm, mamba2; gemma3's global and local layers at d 256, 8 heads
    over 4, the local one also at s 1088 where its window masks keys;
    recurrentgemma's local MQA, window 2048; internvl2's 14 over 2;
-   musicgen's MHA 32 / 32; rmsnorm at d 960 / 2560 / 896 / 2048 and
-   gemma3's qk-norm rows over head_dim 256) times kernel (for
-   ssd_chunk_scan every kernel of one wrapper call), wrapper call, plain
-   version and one PyTorch library call (``scaled_dot_product_attention``
-   with ``enable_gqa``, under a window with a boolean mask; ``rms_norm``;
-   none computes the SSD scan) beside the bound (bytes or float32
+   musicgen's MHA 32 / 32; rmsnorm at every shape in float32 and
+   bfloat16, its backward at the four widths) times kernel (for
+   ssd_chunk_scan and rmsnorm's backward every kernel of one wrapper
+   call), wrapper call, plain version and one PyTorch library call
+   (``scaled_dot_product_attention`` with ``enable_gqa``, under a window
+   with a boolean mask; ``rms_norm``, and for the backward the backward
+   half of ``torch.autograd.grad`` through it; none computes the SSD
+   scan) beside the bound (bytes or float32
    operations, whichever is larger) and, for flash_attention and
    ssd_chunk_scan, which run 3xTF32 on the tensor cores, the operations
    bound at a third of the TF32 rate;
@@ -120,22 +126,25 @@ neither ``jax`` nor ``repro``.  In order it:
 10f. (phases 10f-10i train smollm-360m and mamba2-780m only) the LM
     kernels' autograd on the card (rmsnorm, flash GQA causal d 64,
     ssd chunk 256; small shapes and the training path's): gradients
-    through the Function (kernel forward, plain backward) against
-    all-plain autograd, forward within phase 4b's tolerances and
+    through the Function (kernel forward; rmsnorm's backward kernel, the
+    plain vjp for flash and ssd) against all-plain autograd, forward within phase 4b's tolerances and
     gradients within them of the largest gradient; ``torch.func.vmap``
     of each Function equal to the per-slice calls, bit for bit where the
     rule folds the axis into the batch and within the forward tolerance
     where it loops over a parameter per replica; ``torch.func.vjp`` of
     that ``vmap`` (CohortEngine's vehicle side) under both rules against
     the per-replica vjps, within the forward tolerance of the largest
-    gradient; at the training shapes the device time of the Function's
-    backward (the plain version's vjp);
+    gradient; for rmsnorm ``vmap`` of ``grad`` (scale shared and per
+    replica: one backward launch for both replicas) and remat; every
+    route's launches of the kernel and of rmsnorm's backward kernel exact;
+    at the training shapes the device time of the Function's backward;
 10g. trains through ``repro_torch.launch.train.train`` at full width and
     depth (batch 8, seq 1024, the default cut, adamw lr 3e-4, clip 1.0,
     remat, 4 clients): smollm-360m and mamba2-780m 3 steps each, smollm
     with ``compress`` 2 steps, the launch counters zeroed just before and
     read just after each: finite losses and grad norms, the launches the
-    model implies per step (remat runs each period's forward twice), and
+    model implies per step (remat runs each period's forward twice;
+    rmsnorm's backward kernel once a norm: 65 / 97 a step), and
     nonzero first moments of the embedding (through the final rmsnorm) and
     in every layer of the attention's ``wk`` or the SSM's ``A_log`` and of
     ``norm1``'s scale (leaves whose gradient comes only through that
@@ -151,7 +160,9 @@ neither ``jax`` nor ``repro``.  In order it:
     and ``unroll`` from one seed (the same cuts), and ``fl`` under
     ``vmap`` (the kernels inside ``vmap`` of ``grad``): finite loss,
     accuracy in [0, 1], wire bytes = the cost model's, and every launch
-    count the schedule implies;
+    count the schedule implies (rmsnorm's backward kernel three a client
+    batch step; under ``fl``'s ``vmap`` of ``grad`` three a local step for
+    all replicas);
 10j. the multi-RSU path of phase 10b under the parallel server schedule
     (arXiv:2405.18707; ``server_schedule="parallel"``): the highway on
     ``topk_int8`` under the ``ragged`` layout for 4 rounds one at a time
@@ -195,7 +206,8 @@ neither ``jax`` nor ``repro``.  In order it:
     rounds, sync every 4): a merge, occupancy below R x B; (d) the reduced
     city (64 vehicles, 2 x 2, page 4, topk_int8) card vs CPU within 1e-4
     of the largest parameter;
-11. prints the per-kernel JSON line (all eight kernels, the quant and LM
+11. prints the per-kernel JSON line (all eight kernels and rmsnorm's
+    backward kernel with its launches in phase 10g, the quant and LM
     kernels with their launches per training step, the LM kernels with
     their launches per served arch and their other timed shapes, the codec
     kernels with their launches in phases 10j, 10k and 10l), then
@@ -316,7 +328,21 @@ LM_META = {
 #   ssd: exp of differences of prefix sums of dt*A (|cum| up to a few
 #     hundred, one ulp ~3e-5) in another order: the reference's tolerance
 #     of its own SSD kernel (tests/test_kernels.py).
-LM_TOL = {"rmsnorm": 2e-5, "flash_attention": 1e-4, "ssd_chunk_scan": 2e-4}
+#   rmsnorm_backward: the sums over d and over the rows in another order:
+#     its tolerance times each gradient's largest value (dscale sums
+#     8,192-65,536 rows);
+#   16-bit rmsnorm: one ulp of the working type (the float32 results
+#     differ by a few float32 ulps and are rounded once), the backward's
+#     plus its float32 tolerance (dx subtracts terms of similar size).
+LM_TOL = {"rmsnorm": 2e-5, "rmsnorm_backward": 2e-5,
+          "flash_attention": 1e-4, "ssd_chunk_scan": 2e-4}
+# the backward kernel (two kernels a call) replaces no TPU kernel: the JAX
+# package differentiates rmsnorm_ref by autodiff
+RMS_BWD_REPLACES = ("none: jax.vjp of rmsnorm_ref "
+                    "(src/repro/kernels/ref.py:45), the port's plain vjp")
+# the kernel a timed call launches (a pattern of its name), or None where
+# the wrapper launches several (timed together)
+LM_SYMBOL = {"rmsnorm": "rmsnorm_", "flash_attention": "flash_attention_kernel"}
 # phase 8-10's served archs; phases 10f-10i train the first two only
 # (gemma3-4b's adamw states alone would take ~73 GB in float32)
 SERVE_ARCHS = ("smollm-360m", "mamba2-780m", "gemma3-4b",
@@ -1197,9 +1223,123 @@ def _sdpa_library(q, k, v, causal, window):
         qt, kt, vt, is_causal=causal, enable_gqa=True)
 
 
+# phase 4b's rmsnorm shapes: the serving prefills' widths (smollm, mamba2
+# and its gated norm, gemma3 / recurrentgemma, internvl2, musicgen),
+# decode, gemma3's qk-norm over head_dim 256 (q's rows at prefill, k's at
+# a decode step), edges (d not a multiple of the vector, d past the
+# registers' 8192 float32)
+RMS_SHAPES = (
+    ("smollm_prefill_d960", (SERVE_BATCH, SERVE_PROMPT, 960)),
+    ("mamba2_prefill_d1536", (SERVE_BATCH, SERVE_PROMPT, 1536)),
+    ("mamba2_gated_d3072", (SERVE_BATCH, SERVE_PROMPT, 3072)),
+    ("decode_d960", (SERVE_BATCH, 1, 960)),
+    ("reduced_d256", (2, 12, 256)),
+    ("odd_d1001", (5, 7, 1001)),
+    ("gemma3_prefill_d2560", (SERVE_BATCH, SERVE_PROMPT, 2560)),
+    ("internvl2_prefill_d896", (SERVE_BATCH, SERVE_PROMPT, 896)),
+    ("musicgen_prefill_d2048", (SERVE_BATCH, SERVE_PROMPT, 2048)),
+    ("gemma3_qk_norm_d256", (SERVE_BATCH * SERVE_PROMPT * 8, 256)),
+    ("gemma3_decode_k_norm_d256", (SERVE_BATCH * 4, 256)),
+    ("tiny_d6", (3, 6)),
+    ("wide_d9000", (3, 9000)))
+# the backward at the training path's widths (batch 8, seq 1024: smollm,
+# mamba2 and its gated norm) and over gemma3's qk-norm rows
+RMS_BWD_SHAPES = (
+    ("gemma3_qk_norm_d256", (SERVE_BATCH * SERVE_PROMPT * 8, 256)),
+    ("smollm_train_d960", (SERVE_BATCH, SERVE_PROMPT, 960)),
+    ("mamba2_train_d1536", (SERVE_BATCH, SERVE_PROMPT, 1536)),
+    ("mamba2_gated_d3072", (SERVE_BATCH, SERVE_PROMPT, 3072)))
+# x's dtype and the scale's; a label's suffix is the key ("f32": none).
+# The timed ones: float32, and bfloat16 with a bfloat16 scale (the same
+# function as F.rms_norm's fused kernel on those inputs)
+RMS_DTYPES = {"f32": ("float32", "float32"),
+              "bf16": ("bfloat16", "bfloat16"),
+              "bf16_f32scale": ("bfloat16", "float32"),
+              "f16": ("float16", "float16"),
+              "f16_f32scale": ("float16", "float32")}
+RMS_TIMED = ("f32", "bf16")
+
+
+def _dtype(name):
+    import torch
+    return getattr(torch, name)
+
+
+def _ulp(b):
+    """One ulp of each value of a 16-bit tensor, as float32."""
+    import torch
+    bits = {torch.bfloat16: 7, torch.float16: 10}[b.dtype]
+    _, e = torch.frexp(b.float().abs().clamp_min(torch.finfo(b.dtype).tiny))
+    return torch.ldexp(torch.ones_like(b, dtype=torch.float32),
+                       e - 1 - bits)
+
+
+def _rms_ok(a, b, scale_tol=0.0):
+    """float32 within LM_TOL["rmsnorm"] (absolute + relative), 16-bit
+    within one ulp, each plus ``scale_tol``; finite, same shape and
+    dtype."""
+    import torch
+    if a.dtype != b.dtype or a.shape != b.shape or not bool(
+            torch.isfinite(a).all()):
+        return False
+    tol = LM_TOL["rmsnorm"]
+    err = (a.float() - b.float()).abs()
+    bound = (tol + tol * b.abs() if a.dtype == torch.float32
+             else _ulp(b)) + scale_tol
+    return bool((err <= bound).all())
+
+
+def _rms_close(got, want):
+    return all(_rms_ok(a, b) for a, b in zip(got, want))
+
+
+def _grad_tol(b):
+    return LM_TOL["rmsnorm_backward"] * max(float(b.float().abs().max()),
+                                            1.0)
+
+
+def _rms_backward_close(x, g, dy):
+    """The backward kernel's (dx, dscale) against the closed-form plain
+    version and against the plain vjp (each gradient within its
+    tolerance), and a second call bit for bit."""
+    import torch
+    from repro_torch.kernels import rmsnorm as RN
+
+    def close(got, want):
+        again = RN.rmsnorm_backward(x, g, dy)
+        _, vjp = torch.func.vjp(RN.rmsnorm_plain, x, g)
+        return (all(torch.equal(a, b) for a, b in zip(got, again))
+                and all(_rms_ok(a, b, _grad_tol(b))
+                        for ref in (want, vjp(dy)) for a, b in zip(got, ref)))
+    return close
+
+
+def _lm_close(name):
+    """|a - b| <= tol + tol * |b| at LM_TOL[name], finite, same shape."""
+    import torch
+    tol = LM_TOL[name]
+    return lambda got, want: all(
+        a.shape == b.shape and bool(torch.isfinite(a).all())
+        and bool(((a - b).abs() <= tol + tol * b.abs()).all())
+        for a, b in zip(got, want))
+
+
+def _rms_norm_backward_library(x, g, dy):
+    """The backward half of ``torch.autograd.grad`` through
+    ``F.rms_norm`` on the same inputs (its forward run once, outside the
+    timed calls): the same function as the backward kernel."""
+    import torch
+    import torch.nn.functional as F
+    xr = x.detach().clone().requires_grad_()
+    gr = g.detach().clone().requires_grad_()
+    y = F.rms_norm(xr, (x.shape[-1],), gr, 1e-6)
+    return lambda: torch.autograd.grad(y, (xr, gr), dy, retain_graph=True)
+
+
 # the row of each LM kernel that the per-kernel JSON line reports (its
 # other timed rows go under "shapes")
 LM_MAIN = {"rmsnorm": "smollm_prefill_d960",
+           "rmsnorm_backward": "smollm_train_d960",
            "flash_attention": "smollm_prefill",
            "ssd_chunk_scan": "mamba2_prefill"}
 LM_ROW_KEYS = ("shape", "ms", "call_ms", "plain_ms", "library_ms",
@@ -1208,35 +1348,46 @@ LM_ROW_KEYS = ("shape", "ms", "call_ms", "plain_ms", "library_ms",
 
 def _lm_cases():
     """(kernel, label, timed, kernel call, plain call, library call or
-    None, bytes, flops) for the serving path's shapes (each served arch's
-    prefill shape is timed) and the edge shapes."""
+    None, bytes, flops, close) for the serving path's shapes (each served
+    arch's prefill shape is timed; rmsnorm every shape, in float32 and
+    bfloat16, and its backward at the training path's widths) and the edge
+    shapes; close(got, want) says whether the kernel's outputs are within
+    tolerance of the plain version's."""
     import torch.nn.functional as F
     B, S = SERVE_BATCH, SERVE_PROMPT
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import rmsnorm as RN
     from repro_torch.kernels import ssd as SSD
     cases = []
-    for label, shape, timed in [
-            ("smollm_prefill_d960", (B, S, 960), True),
-            ("mamba2_prefill_d1536", (B, S, 1536), False),
-            ("mamba2_gated_d3072", (B, S, 3072), False),
-            ("decode_d960", (B, 1, 960), False),
-            ("reduced_d256", (2, 12, 256), False),
-            ("odd_d1001", (5, 7, 1001), False),
-            # gemma3-4b / recurrentgemma-2b, internvl2-1b, musicgen-large
-            ("gemma3_prefill_d2560", (B, S, 2560), True),
-            ("internvl2_prefill_d896", (B, S, 896), True),
-            ("musicgen_prefill_d2048", (B, S, 2048), True),
-            # gemma3's qk-norm: q's rows (b * s * 8 heads) over head_dim
-            ("gemma3_qk_norm_d256", (B * S * 8, 256), True),
-            ("gemma3_decode_k_norm_d256", (B * 4, 256), False)]:
-        x, g = _rms_case(shape, len(cases))
-        n = math.prod(shape)
-        cases.append(("rmsnorm", label, timed,
-                      lambda x=x, g=g: RN.rmsnorm(x, g),
-                      lambda x=x, g=g: RN.rmsnorm_plain(x, g),
-                      lambda x=x, g=g: F.rms_norm(x, g.shape, g, 1e-6),
-                      4 * (2 * n + shape[-1]), 3 * n))
+    for label, shape in RMS_SHAPES:
+        for dt, (x_dt, s_dt) in RMS_DTYPES.items():
+            x, g = _rms_case(shape, len(cases))
+            x, g = x.to(_dtype(x_dt)), g.to(_dtype(s_dt))
+            n, d = math.prod(shape), shape[-1]
+            es, gs = x.element_size(), g.element_size()
+            cases.append((
+                "rmsnorm", label + ("" if dt == "f32" else f"_{dt}"),
+                dt in RMS_TIMED,
+                lambda x=x, g=g: RN.rmsnorm(x, g),
+                lambda x=x, g=g: RN.rmsnorm_plain(x, g),
+                lambda x=x, g=g, d=d: F.rms_norm(x, (d,), g, 1e-6),
+                es * 2 * n + gs * d, 3 * n, _rms_close))
+    for label, shape in RMS_BWD_SHAPES:
+        for dt in RMS_TIMED:
+            x_dt, s_dt = RMS_DTYPES[dt]
+            x, g = _rms_case(shape, len(cases))
+            x, g = x.to(_dtype(x_dt)), g.to(_dtype(s_dt))
+            dy = _randn(shape, len(cases) + 2).to(x.dtype)
+            n, d = math.prod(shape), shape[-1]
+            es, gs = x.element_size(), g.element_size()
+            cases.append((
+                "rmsnorm_backward", label + ("" if dt == "f32" else f"_{dt}"),
+                True,
+                lambda x=x, g=g, dy=dy: RN.rmsnorm_backward(x, g, dy),
+                lambda x=x, g=g, dy=dy: RN.rmsnorm_backward_plain(x, g, dy),
+                _rms_norm_backward_library(x, g, dy),
+                es * 3 * n + gs * 2 * d, 12 * n,
+                _rms_backward_close(x, g, dy)))
     for label, (b, sq, sk, h, kv, d, causal, window), timed in [
             ("smollm_prefill", (B, S, S, 15, 5, 64, True, 0), True),
             ("d128_ragged", (1, 100, 100, 4, 2, 128, True, 0), False),
@@ -1270,7 +1421,8 @@ def _lm_cases():
                 q, k, v, causal=c, window=w),
             _sdpa_library(q, k, v, causal, window) if timed else None,
             4 * (2 * q.numel() + k.numel() + v.numel()),
-            4 * d * b * h * _visible_pairs(sq, sk, causal, window)))
+            4 * d * b * h * _visible_pairs(sq, sk, causal, window),
+            _lm_close(name="flash_attention")))
     for label, (b, s, h, p, g, n, chunk), timed in [
             ("mamba2_prefill", (B, S, 48, 64, 1, 128, 256), True),
             ("ragged_g2", (2, 300, 8, 64, 2, 128, 256), False),
@@ -1289,7 +1441,8 @@ def _lm_cases():
             lambda a=(x, dt, A, B_, C), c=chunk: SSD.ssd_chunk_scan(
                 *a, chunk=c),
             lambda a=(x, dt, A, B_, C), c=chunk: SSD.ssd_chunked(*a, c),
-            None, nbytes, _ssd_flops(b, s, h, p, g, n, chunk)))
+            None, nbytes, _ssd_flops(b, s, h, p, g, n, chunk),
+            _lm_close(name="ssd_chunk_scan")))
     return cases
 
 
@@ -1298,33 +1451,33 @@ def check_lm_kernels():
     (every case is checked before a failure stops the run); times at each
     served arch's prefill shape.  Returns {kernel: {label: row}}."""
     import torch
-    out = {name: {} for name in LM_META}
+    out = {name: {} for name in (*LM_META, "rmsnorm_backward")}
     bad = []
-    for name, label, timed, run_k, run_p, run_lib, nbytes, flops in \
+    for name, label, timed, run_k, run_p, run_lib, nbytes, flops, close in \
             _lm_cases():
         got, want = run_k(), run_p()
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
         torch.cuda.synchronize()
         tol = LM_TOL[name]
-        err = max(float((a - b).abs().max()) for a, b in zip(got, want))
-        ok = all(a.shape == b.shape and bool(torch.isfinite(a).all())
-                 and bool(((a - b).abs() <= tol + tol * b.abs()).all())
-                 for a, b in zip(got, want))
+        err = max(float((a.float() - b.float()).abs().max())
+                  for a, b in zip(got, want))
+        ok = close(got, want)
         row = {"shape": [list(a.shape) for a in got], "max_abs_err": err,
                "within_tol": ok}
         if timed:
             bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
             ops_ms = 1e3 * flops / F32_FLOPS_PER_S
-            iters = 200 if name == "rmsnorm" else 20
+            iters = 200 if name.startswith("rmsnorm") else 20
             if name in TENSOR_CORE_KERNELS:
                 row["bound_tc_ms"] = 1e3 * 3 * flops / TF32_FLOPS_PER_S
             row.update(
-                # ssd: every kernel of one call (four behind one wrapper)
-                ms=_device_ms(run_k, iters, None if name == "ssd_chunk_scan"
-                              else f"{name}_kernel"),
+                # ssd, rmsnorm_backward: every kernel of one call (four /
+                # two behind one wrapper)
+                ms=_device_ms(run_k, iters, LM_SYMBOL.get(name)),
                 call_ms=_call_ms(run_k, iters),
-                plain_ms=_device_ms(run_p, 5 if name != "rmsnorm" else 50),
+                plain_ms=_device_ms(run_p, 50 if name.startswith("rmsnorm")
+                                    else 5),
                 library_ms=(_device_ms(run_lib, iters) if run_lib
                             else None),
                 bound_ms=max(bytes_ms, ops_ms),
@@ -1597,18 +1750,20 @@ TRAIN_BATCH, TRAIN_SEQ = 8, 1024
 # the default cut
 TRAIN_RUNS = (("smollm-360m", False, 3), ("mamba2-780m", False, 3),
               ("smollm-360m", True, 2))
-# phase 10f, Function (kernel forward, plain backward) vs all-plain
-# autograd on the card.  The backward is the plain version's vjp on the
-# same inputs, and the loss sum(w * y) gives it a cotangent w that does
-# not depend on the forward, so the gradients differ only where the two
-# backward passes reduce in another order: held at phase 4b's forward
-# tolerances, relative to the largest gradient.  The forward outputs are
-# held at LM_TOL as in phase 4b.
+# phase 10f, Function vs all-plain autograd on the card: rmsnorm's kernel
+# forward and backward, flash's and ssd's kernel forward and the plain
+# version's vjp.  The loss sum(w * y) gives the backward a cotangent w
+# that does not depend on the forward, so the gradients differ only where
+# the two backward passes reduce in another order: held at phase 4b's
+# forward tolerances, relative to the largest gradient.  The forward
+# outputs are held at LM_TOL as in phase 4b.  Every route's launches of
+# the kernel and of rmsnorm's backward kernel are counted exactly: a CUDA
+# tensor's rmsnorm gradient never reaches the plain vjp.
 
 
 def _autograd_cases():
-    """(kernel, label, fn, plain fn, args, vmap in_dims, slices) at small
-    shapes and at the training path's shapes."""
+    """(kernel, label, fn, plain fn, args) at small shapes and at the
+    training path's shapes."""
     import torch
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import rmsnorm as RN
@@ -1643,6 +1798,32 @@ def _autograd_cases():
     return cases
 
 
+class _Grew:
+    """Launches of ``name`` and of rmsnorm's backward kernel while the
+    ``with`` block runs, held to (forward, backward) exactly."""
+
+    def __init__(self, name, label, want):
+        self.name, self.label, self.want = name, label, want
+
+    def __enter__(self):
+        from repro_torch import kernels
+        self.before = kernels.launch_counts()
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch import kernels
+        if exc[0] is not None:
+            return False
+        now = kernels.launch_counts()
+        got = tuple(now[k] - self.before[k]
+                    for k in (self.name, "rmsnorm_backward"))
+        if got != self.want:
+            raise AssertionError(f"{self.name} {self.label}: launches "
+                                 f"(kernel, rmsnorm backward) {got}, "
+                                 f"expected {self.want}")
+        return False
+
+
 def _grads(fn, args, w):
     import torch
     req = [a.detach().clone().requires_grad_() for a in args]
@@ -1651,14 +1832,15 @@ def _grads(fn, args, w):
     return out.detach(), grads
 
 
-def _vjp_of_vmap(fn, vin, dims, tol):
+def _vjp_of_vmap(fn, vin, dims, tol, launches):
     """``torch.func.vjp`` of ``vmap(fn, in_dims=dims)`` (CohortEngine's
     vehicle side under its ``vmap`` schedule) against the per-replica
-    vjps, in every input that carries the replica axis.  Both backward
-    passes are the plain version's vjp, on the folded batch or on one
-    replica, so they differ only in the order of their sums: held at the
-    forward tolerance relative to the largest gradient.  Returns the worst
-    error."""
+    vjps, in every input that carries the replica axis, with the vmapped
+    vjp's launches held to ``launches`` (a :class:`_Grew`).  Both backward
+    passes are the same backward (the plain version's vjp, or rmsnorm's
+    kernel), on the folded batch or on one replica, so they differ only in
+    the order of their sums: held at the forward tolerance relative to the
+    largest gradient.  Returns the worst error."""
     import torch
     diff = [i for i, d in enumerate(dims) if d is not None]
 
@@ -1668,11 +1850,12 @@ def _vjp_of_vmap(fn, vin, dims, tol):
             full[i] = a
         return full
 
-    out, vjp = torch.func.vjp(
-        lambda *d: torch.func.vmap(fn, in_dims=tuple(dims))(
-            *with_diff(vin, d)), *[vin[i] for i in diff])
-    g = _randn(tuple(out.shape), 91)
-    got = vjp(g)
+    with launches:
+        out, vjp = torch.func.vjp(
+            lambda *d: torch.func.vmap(fn, in_dims=tuple(dims))(
+                *with_diff(vin, d)), *[vin[i] for i in diff])
+        g = _randn(tuple(out.shape), 91)
+        got = vjp(g)
     err, big = 0.0, 0.0
     for r in range(out.shape[0]):
         sl = [a if d is None else a.select(d, r) for a, d in zip(vin, dims)]
@@ -1694,7 +1877,9 @@ def _vmap_checks(name, fn, args, tol):
     and, for rmsnorm and the SSD, the parameter-carried rule (a scale / an
     A_log per replica; within the forward tolerance).  Under each rule the
     vjp of the vmap against the per-replica vjps too (:func:`_vjp_of_vmap`).
-    Returns the worst errors."""
+    Launches exact: one kernel call for both replicas under the fold, one
+    a replica under the loop, and as many of rmsnorm's backward kernel as
+    its forward's.  Returns the worst errors."""
     import torch
     split = [a.reshape(2, a.shape[0] // 2, *a.shape[1:]) for a in args]
     out = {}
@@ -1704,41 +1889,92 @@ def _vmap_checks(name, fn, args, tol):
     elif name == "ssd_chunk_scan":
         dims[2] = None
     vin = [s if d == 0 else a for s, a, d in zip(split, args, dims)]
-    got = torch.func.vmap(fn, in_dims=tuple(dims))(*vin)
+    bwd = int(name == "rmsnorm")
+    with _Grew(name, "vmap fold", (1, 0)):
+        got = torch.func.vmap(fn, in_dims=tuple(dims))(*vin)
     want = torch.stack([fn(*[v[i] if d == 0 else v for v, d in
                              zip(vin, dims)]) for i in range(2)])
     out["fold"] = float((got - want).abs().max())
     if not torch.equal(got, want):
         raise AssertionError(f"{name}: vmap fold differs from the "
                              f"per-slice calls by {out['fold']:g}")
-    out["vjp_fold"] = _vjp_of_vmap(fn, vin, dims, tol)
+    out["vjp_fold"] = _vjp_of_vmap(fn, vin, dims, tol, _Grew(
+        name, "vjp of vmap fold", (1, bwd)))
     if name in ("rmsnorm", "ssd_chunk_scan"):
         pi = 1 if name == "rmsnorm" else 2
         par = torch.stack([args[pi], args[pi] * 1.01])
         vin = list(split)
         vin[pi] = par
-        got = torch.func.vmap(fn)(*vin)
+        with _Grew(name, "vmap loop", (2, 0)):
+            got = torch.func.vmap(fn)(*vin)
         want = torch.stack([fn(*[v[i] for v in vin]) for i in range(2)])
         err = float((got - want).abs().max())
         out["loop"] = err
         if not bool(((got - want).abs() <= tol + tol * want.abs()).all()):
             raise AssertionError(f"{name}: vmap over a parameter differs "
                                  f"from the per-slice calls by {err:g}")
-        out["vjp_loop"] = _vjp_of_vmap(fn, vin, [0] * len(vin), tol)
+        out["vjp_loop"] = _vjp_of_vmap(fn, vin, [0] * len(vin), tol, _Grew(
+            name, "vjp of vmap loop", (2, 2 * bwd)))
+    return out
+
+
+def _rms_func_routes(args, tol):
+    """rmsnorm's other routes to its backward on the card: ``vmap`` of
+    ``grad`` (the fl round) with the scale shared (the forward folded, one
+    call) and per replica (one forward call a replica), one backward
+    launch for both replicas either way, each replica's dscale its own;
+    and remat (``torch.utils.checkpoint``: the forward twice, the backward
+    once).  Each against the per-replica grads within the forward
+    tolerance of the largest gradient.  Returns the worst errors."""
+    import torch
+    from torch.utils.checkpoint import checkpoint
+    from repro_torch.kernels import rmsnorm as RN
+    x, g = args
+    xs = x.reshape(2, x.shape[0] // 2, *x.shape[1:])
+    grad = torch.func.grad(lambda a, b: RN.rmsnorm(a, b).square().sum(),
+                           argnums=(0, 1))
+    out = {}
+    for rule, s, dims, fwd in (("fold", g, (0, None), 1),
+                               ("loop", torch.stack([g, g * 1.01]), (0, 0),
+                                2)):
+        with _Grew("rmsnorm", f"vmap of grad {rule}", (fwd, 1)):
+            got = torch.func.vmap(grad, in_dims=dims)(xs, s)
+        err, big = 0.0, 0.0
+        for r in range(2):
+            for a, b in zip((t[r] for t in got),
+                            grad(xs[r], s if dims[1] is None else s[r])):
+                err = max(err, float((a - b).abs().max()))
+                big = max(big, float(b.abs().max()))
+        if err > tol * max(big, 1.0):
+            raise AssertionError(f"rmsnorm vmap of grad ({rule}) differs "
+                                 f"from the per-replica grads by {err:g}")
+        out[f"vmap_grad_{rule}"] = err
+    req = [a.detach().clone().requires_grad_() for a in args]
+    with _Grew("rmsnorm", "remat", (2, 1)):
+        y = checkpoint(RN.rmsnorm, *req, use_reentrant=False)
+        got = torch.autograd.grad(y.square().sum(), req)
+    want = _grads(RN.rmsnorm, args, 2 * RN.rmsnorm_plain(*args))[1]
+    out["remat"] = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    big = max(float(b.abs().max()) for b in want)
+    if out["remat"] > tol * max(big, 1.0):
+        raise AssertionError(f"rmsnorm under remat differs by "
+                             f"{out['remat']:g}")
     return out
 
 
 def lm_autograd_on_card():
     """Phase 10f: the LM kernels' autograd on the card.  Returns per
     kernel and case the errors and, at the training shapes, the device
-    time of the Function's backward (the plain version's vjp, which
-    recomputes the plain forward)."""
+    time of the Function's backward (rmsnorm's backward kernel; the plain
+    version's vjp, which recomputes the plain forward, for flash and
+    ssd)."""
     import torch
     rows = []
     for name, label, fn, plain, args in _autograd_cases():
         tol = LM_TOL[name]
         w = _randn(tuple(fn(*args).shape), 90)
-        y_k, g_k = _grads(fn, args, w)
+        with _Grew(name, f"{label} grad", (1, int(name == "rmsnorm"))):
+            y_k, g_k = _grads(fn, args, w)
         y_p, g_p = _grads(plain, args, w)
         fwd_err = float((y_k - y_p).abs().max())
         big = max(float(g.abs().max()) for g in g_p)
@@ -1751,6 +1987,8 @@ def lm_autograd_on_card():
                "fwd_within_tol": fwd_ok, "grad_err": grad_err,
                "max_grad": big, "tol": tol}
         row.update(_vmap_checks(name, fn, args, tol))
+        if name == "rmsnorm":
+            row.update(_rms_func_routes(args, tol))
         if label != "small":
             req = [a.detach().clone().requires_grad_() for a in args]
             out = fn(*req)
@@ -1758,18 +1996,20 @@ def lm_autograd_on_card():
             def bwd(out=out, req=req, w=w):
                 return torch.autograd.grad(out, req, w, retain_graph=True)
 
-            row["bwd_ms"] = _device_ms(bwd, 3)
+            # flash / ssd: the plain vjp, ~8 / ~15 ms a call
+            row["bwd_ms"] = _device_ms(bwd, 20 if name == "rmsnorm" else 3)
             del out, req
         rows.append(row)
+        extra = " ".join(f"{k}_err={row[k]:g}" for k in
+                         ("loop", "vjp_loop", "vmap_grad_fold",
+                          "vmap_grad_loop", "remat") if k in row)
         print(f"autograd {name:16s} {label:20s} shape={row['shape']} "
               f"fwd_err={fwd_err:g} fwd_within_tol={fwd_ok} "
               f"grad_err={grad_err:g} max_grad={big:g} "
               f"tol={tol:g} vmap_fold_err={row['fold']:g} "
-              f"vjp_vmap_fold_err={row['vjp_fold']:g}"
-              + (f" vmap_loop_err={row['loop']:g} "
-                 f"vjp_vmap_loop_err={row['vjp_loop']:g}"
-                 if "loop" in row else "")
+              f"vjp_vmap_fold_err={row['vjp_fold']:g} {extra}"
               + (f" bwd_ms={row['bwd_ms']:.6f}" if "bwd_ms" in row else "")
+              + " launches_exact=True"
               + f" ok={ok}", flush=True)
         if not ok:
             raise AssertionError(f"autograd {name} {label}: forward "
@@ -1785,12 +2025,14 @@ def _train_launches(cfg, compress, steps, remat=True):
     the forward runs two rmsnorms per layer and the final norm, one flash
     per attention layer and one SSD scan per SSM layer; remat runs every
     period's forward again in the backward (the final norm is outside the
-    periods); the backward itself is plain PyTorch.  ``compress`` adds one
+    periods); the backward runs rmsnorm's backward kernel once per norm
+    (remat or not) and plain PyTorch for the rest.  ``compress`` adds one
     quantize and one dequantize (the smashed boundary)."""
     from repro_torch.configs import ATTN, SSM
     kinds = cfg.layer_types
     fwd = 2 if remat else 1
     want = {"rmsnorm": steps * (fwd * 2 * len(kinds) + 1),
+            "rmsnorm_backward": steps * (2 * len(kinds) + 1),
             "flash_attention": steps * fwd * kinds.count(ATTN),
             "ssd_chunk_scan": steps * fwd * kinds.count(SSM)}
     if compress:
@@ -1955,7 +2197,9 @@ def lm_fed_path(arch, scheme, mode):
     codec's by phase 10d's formula; per forward of the model three rmsnorms
     and one flash / SSD scan, where ``fl``'s vmap runs the rmsnorms and the
     SSD (a parameter per replica) once per replica and the flash kernel
-    (activations only) once for all."""
+    (activations only) once for all; per training forward three of
+    rmsnorm's backward kernel, where ``fl``'s ``vmap`` of ``grad`` folds
+    the replicas into one."""
     import numpy as np
     import torch
     from repro_torch import api, kernels
@@ -1985,7 +2229,9 @@ def lm_fed_path(arch, scheme, mode):
     want = dict.fromkeys(counts, 0)
     want_bytes = 0.0
     if scheme == "asfl":
-        want.update(rmsnorm=3 * (n_steps + evals), **{mixer: n_steps + evals})
+        want.update(rmsnorm=3 * (n_steps + evals),
+                    rmsnorm_backward=3 * n_steps,
+                    **{mixer: n_steps + evals})
         n_codec = (n_steps + _bucket_steps(m.cuts, steps)
                    if mode == "vmap" else 2 * n_steps)
         want.update(sparsify_quant_pack=n_codec, unpack_dequant=n_codec)
@@ -1998,6 +2244,7 @@ def lm_fed_path(arch, scheme, mode):
         n = f.n_vehicles
         local = max(steps)
         want.update(rmsnorm=3 * n * local + 3 * evals,
+                    rmsnorm_backward=3 * local,
                     **{mixer: (local if mixer == "flash_attention"
                                else n * local) + evals})
     print(f"lm_fed {arch} {scheme} mode={d['mode']} loss={m.loss!r} "
@@ -2666,7 +2913,9 @@ def kernel_report(checks, launches, main_cuts, mm_checks, mm_launches,
     (``plane_launches``) and in phase 10l's paged topk_int8 city run (K =
     1) and paged streaming city run (``city_launches``).  The LM kernels'
     ``launches`` are phase 8's over every served arch, per arch under
-    ``serving_launches``; their other timed shapes under ``shapes``."""
+    ``serving_launches``; their other timed shapes under ``shapes``.
+    rmsnorm's backward kernel, which serving never runs, has phase 10g's
+    launches over its runs (per run under ``train_launches``)."""
     per_step = {}
     for run in training:
         label = run["arch"] + ("+compress" if run["compress"] else "")
@@ -2729,6 +2978,25 @@ def kernel_report(checks, launches, main_cuts, mm_checks, mm_launches,
                        if "ms" in r and label != LM_MAIN[name]},
             **({"bound_tc_ms": row["bound_tc_ms"]} if "bound_tc_ms" in row
                else {})})
+    name = "rmsnorm_backward"
+    row = lm_checks[name][LM_MAIN[name]]
+    out.append({
+        "name": name, "route": "cuda", "source": LM_SOURCE,
+        "replaces": RMS_BWD_REPLACES,
+        "launches": sum(t["launches"][name] for t in training),
+        "train_launches": {t["arch"] + ("+compress" if t["compress"]
+                                        else ""): t["launches"][name]
+                           for t in training},
+        "max_abs_err": max(r["max_abs_err"]
+                           for r in lm_checks[name].values()),
+        "ms": row["ms"], "plain_ms": row["plain_ms"],
+        "call_ms": row["call_ms"], "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+        "shape": row["shape"][0],
+        "train_launches_per_step": per_step.get(name, {}),
+        "shapes": {label: {key: r[key] for key in LM_ROW_KEYS if key in r}
+                   for label, r in lm_checks[name].items()
+                   if label != LM_MAIN[name]}})
     return {"kernels": out}
 
 

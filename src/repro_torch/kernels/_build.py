@@ -41,7 +41,10 @@ SIGNATURES = {
     "repro_sparsify_quant_pack": [_P, _P, _LL, *[_I] * 6, _P],
     "repro_unpack_dequant": [_P, _P, _LL, *[_I] * 6, _P],
     "repro_unpack_dequant_matmul": [_P, _P, _P, _LL, *[_I] * 7, _P],
-    "repro_rmsnorm": [_P, _P, _P, _LL, _I, _F, _P],
+    # rmsnorm's last ints: x's and scale's dtype codes (as the codec's)
+    "repro_rmsnorm": [_P, _P, _P, _LL, _I, _F, _I, _I, _P],
+    "repro_rmsnorm_backward": [*[_P] * 6, _LL, *[_I] * 4, _F, _I, _I, _P],
+    "repro_rmsnorm_backward_blocks": [_LL, *[_I] * 4],
     "repro_flash_attention": [_P, _P, _P, _P, *[_I] * 6, *[_LL] * 9, _I, _I,
                               _F, _P],
     "repro_ssd_chunk_scan": [*[_P] * 8, *[_I] * 7, *[_LL] * 12, _P],

@@ -6,8 +6,11 @@
 //   repro_rmsnorm          <- repro/kernels/rmsnorm.py          _rmsnorm_kernel
 //   repro_flash_attention  <- repro/kernels/flash_attention.py  _fa_kernel
 //   repro_ssd_chunk_scan   <- repro/kernels/ssd.py              _ssd_kernel
+// and repro_rmsnorm_backward (two kernels) replaces no TPU kernel: it is
+// rmsnorm's gradient, which the JAX package leaves to autodiff.
 //
-// Arithmetic.  rmsnorm runs in float32 on the CUDA cores.  Flash attention
+// Arithmetic.  rmsnorm (both ways) computes in float32 on the CUDA cores,
+// from and to float32, bfloat16 or float16 tensors.  Flash attention
 // and the SSD scan run every matrix product on the tensor cores with the
 // 3xTF32 split (mma.sync m16n8k8 on tf32 operands): each float32 operand x
 // becomes big = tf32(x) and small = tf32(x - big) (cvt.rna), and a.b is
@@ -24,9 +27,13 @@
 // launch.  Built without --use_fast_math: expf / rsqrtf keep their IEEE-ish
 // accuracy, which the tolerances against the plain versions rely on.
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -188,64 +195,657 @@ inline long long round_up(long long x, long long m) {
 inline bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
 // ================================================================= rmsnorm
-// Replaces _rmsnorm_kernel: y = x * rsqrt(mean(x^2) + eps) * scale per row.
-// Bound: bytes (each value read once and written once, ~3 flops per value,
-// far below the card's f32 ridge of ~20 flops/byte).  One block per row: the
-// row is read once into registers-by-stride (float4 loads when d % 4 == 0
-// and the pointers are 16-byte aligned, scalar loads otherwise), the sum of
-// squares is a warp-shuffle reduction plus one shared-memory step, and the
-// second pass re-reads the row from L1/L2, not from device memory.
-constexpr int RMS_THREADS = 256;
+// Forward: replaces _rmsnorm_kernel, y = x * rsqrt(mean(x^2) + eps) * scale
+// per row, in float32, y in x's type (T: float32, bfloat16 or float16;
+// the scale S: float32 or T), rounded to nearest even as the reference's
+// astype.  Backward: replaces no TPU kernel (the JAX package differentiates
+// rmsnorm_ref by autodiff); it replaces the port's plain vjp, which
+// recomputed the forward in about ten elementwise launches.  Per row, with
+// r = rsqrt(mean(x^2) + eps):
+//   dx = r * (dy * scale) - x * r^3 * sum(dy * scale * x) / d,
+//   dscale = sum over the rows of dy * x * r.
+// Bound: bytes, both ways.  The forward reads x and writes y, the backward
+// reads x and dy and writes dx (and d-wide scale / dscale), with ~3 and
+// ~12 flops a value, far below the card's f32 ridge of ~20 flops a byte.
+// So each row is read from device memory exactly once and held in
+// registers between its reduction and its write, in 16-byte vectors (4
+// float32 or 8 bfloat16 / float16 values a load):
+//   - short rows (at most 32 x 8 vectors: float32 d <= 1024, 16-bit d <=
+//     2048): one warp a row, NV vectors a lane, the sums by warp shuffles
+//     alone (no shared memory, no __syncthreads); 8 warps a block, a
+//     persistent grid of as many blocks as stay resident, each warp walking
+//     rows with the scale held in its registers;
+//   - long rows (up to 256 x 8 vectors: float32 d <= 8192): one block a
+//     row, NV <= 8 vectors a thread, blockDim a multiple of 32 sized so that
+//     NV is the smallest power of two that fits; one shared-memory step and
+//     one __syncthreads a row (the backward's persistent blocks walk rows
+//     with two parity buffers, its scale in registers);
+//   - anything else (d not a multiple of the vector, an unaligned pointer,
+//     wider rows): one block a row with scalar loads, reading the row again
+//     for the write.
+// The backward keeps dscale's partial sums in registers while a warp
+// (short) or block (long) walks its rows, combines a block's warps in a
+// fixed order and writes one row of partials a block to a (groups, blocks,
+// d) float32 workspace; rmsnorm_dscale_kernel sums it over the blocks in a
+// fixed order.  No atomics: two runs give the same bits.  A group is a
+// replica of a torch.func.vmap fold (rows of group g are contiguous, its
+// scale row g or the shared scale), whose dscale stays its own.
+constexpr int RMS_WARPS = 8;                  // short route: warps a block
+constexpr int RMS_THREADS = 32 * RMS_WARPS;   // also the scalar route's
+constexpr int RMS_MAX_NV = 8;                 // vectors a lane / a thread
 
-template <bool VEC>
-__global__ void __launch_bounds__(RMS_THREADS)
-rmsnorm_kernel(const float* __restrict__ x, const float* __restrict__ scale,
-               float* __restrict__ y, int d, float eps) {
-  __shared__ float partial[RMS_THREADS / 32];
-  __shared__ float total;
-  const long long row = blockIdx.x;
-  const float* xr = x + row * d;
-  float* yr = y + row * d;
-  float ss = 0.f;
-  if (VEC) {
-    const float4* x4 = reinterpret_cast<const float4*>(xr);
-    for (int i = threadIdx.x; i < d / 4; i += RMS_THREADS) {
-      const float4 v = x4[i];
-      ss += v.x * v.x;
-      ss += v.y * v.y;
-      ss += v.z * v.z;
-      ss += v.w * v.w;
-    }
+template <typename T>
+__device__ __forceinline__ float to_f32(T v);
+template <>
+__device__ __forceinline__ float to_f32<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <>
+__device__ __forceinline__ float to_f32<__half>(__half v) {
+  return __half2float(v);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+template <>
+__device__ __forceinline__ __half from_f32<__half>(float v) {
+  return __float2half_rn(v);
+}
+
+// a 16-byte vector of W = 16 / sizeof(T) values <-> W floats (widening is
+// exact; narrowing rounds to nearest even)
+template <typename T>
+__device__ __forceinline__ void unpack(const uint4& u, float* f) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+  if constexpr (sizeof(T) == 4) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) f[k] = __uint_as_float(w[k]);
   } else {
-    for (int i = threadIdx.x; i < d; i += RMS_THREADS) {
-      const float v = xr[i];
-      ss += v * v;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const unsigned short lo = (unsigned short)(w[k] & 0xffffu);
+      const unsigned short hi = (unsigned short)(w[k] >> 16);
+      if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+        f[2 * k] = __bfloat162float(__ushort_as_bfloat16(lo));
+        f[2 * k + 1] = __bfloat162float(__ushort_as_bfloat16(hi));
+      } else {
+        f[2 * k] = __half2float(__ushort_as_half(lo));
+        f[2 * k + 1] = __half2float(__ushort_as_half(hi));
+      }
     }
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ uint32_t bits16(float v) {
+  if constexpr (std::is_same_v<T, __nv_bfloat16>)
+    return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+  else
+    return __half_as_ushort(__float2half_rn(v));
+}
+
+template <typename T>
+__device__ __forceinline__ uint4 pack(const float* f) {
+  if constexpr (sizeof(T) == 4) {
+    return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
+                      __float_as_uint(f[2]), __float_as_uint(f[3]));
+  } else {
+    uint32_t w[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      w[k] = bits16<T>(f[2 * k]) | (bits16<T>(f[2 * k + 1]) << 16);
+    return make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
+// the sum over a block's warps (each warp's value in part[warp]) in warp
+// order, the same in every thread
+__device__ __forceinline__ float block_total(const float* part, int warps) {
+  float t = 0.f;
+  for (int w = 0; w < warps; ++w) t += part[w];
+  return t;
+}
+
+// ---- forward
+template <typename T, typename S, int NV>
+__global__ void __launch_bounds__(RMS_THREADS)
+rmsnorm_warp_kernel(const T* __restrict__ x, const S* __restrict__ scale,
+                    T* __restrict__ y, long long rows, int d, float eps) {
+  constexpr int W = 16 / sizeof(T);
+  const int lane = threadIdx.x & 31;
+  const int nvec = d / W;
+  float g[NV][W];
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int v = i * 32 + lane;
+#pragma unroll
+    for (int e = 0; e < W; ++e)
+      g[i][e] = v < nvec ? to_f32<S>(scale[v * W + e]) : 0.f;
+  }
+  const long long stride = (long long)gridDim.x * RMS_WARPS;
+  for (long long row = (long long)blockIdx.x * RMS_WARPS + (threadIdx.x >> 5);
+       row < rows; row += stride) {
+    const uint4* xr = reinterpret_cast<const uint4*>(x + row * d);
+    uint4 u[NV];
+#pragma unroll
+    for (int i = 0; i < NV; ++i)
+      if (i * 32 + lane < nvec) u[i] = __ldg(xr + i * 32 + lane);
+    float ss = 0.f;
+#pragma unroll
+    for (int i = 0; i < NV; ++i)
+      if (i * 32 + lane < nvec) {
+        float f[W];
+        unpack<T>(u[i], f);
+#pragma unroll
+        for (int e = 0; e < W; ++e) ss += f[e] * f[e];
+      }
+    ss = warp_sum(ss);
+    const float r = rsqrtf(ss / (float)d + eps);
+    uint4* yr = reinterpret_cast<uint4*>(y + row * d);
+#pragma unroll
+    for (int i = 0; i < NV; ++i)
+      if (i * 32 + lane < nvec) {
+        float f[W];
+        unpack<T>(u[i], f);
+#pragma unroll
+        for (int e = 0; e < W; ++e) f[e] = f[e] * r * g[i][e];
+        yr[i * 32 + lane] = pack<T>(f);
+      }
+  }
+}
+
+template <typename T, typename S, int NV>
+__global__ void __launch_bounds__(RMS_THREADS)
+rmsnorm_block_kernel(const T* __restrict__ x, const S* __restrict__ scale,
+                     T* __restrict__ y, int d, float eps) {
+  constexpr int W = 16 / sizeof(T);
+  __shared__ float part[RMS_WARPS];
+  const int t = threadIdx.x, nt = blockDim.x, nvec = d / W;
+  const long long row = blockIdx.x;
+  const uint4* xr = reinterpret_cast<const uint4*>(x + row * d);
+  uint4 u[NV];
+#pragma unroll
+  for (int i = 0; i < NV; ++i)
+    if (i * nt + t < nvec) u[i] = __ldg(xr + i * nt + t);
+  float ss = 0.f;
+#pragma unroll
+  for (int i = 0; i < NV; ++i)
+    if (i * nt + t < nvec) {
+      float f[W];
+      unpack<T>(u[i], f);
+#pragma unroll
+      for (int e = 0; e < W; ++e) ss += f[e] * f[e];
+    }
+  ss = warp_sum(ss);
+  if ((t & 31) == 0) part[t >> 5] = ss;
+  __syncthreads();
+  const float r = rsqrtf(block_total(part, nt >> 5) / (float)d + eps);
+  uint4* yr = reinterpret_cast<uint4*>(y + row * d);
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int v = i * nt + t;
+    if (v < nvec) {
+      float f[W];
+      unpack<T>(u[i], f);
+#pragma unroll
+      for (int e = 0; e < W; ++e)
+        f[e] = f[e] * r * to_f32<S>(scale[v * W + e]);
+      yr[v] = pack<T>(f);
+    }
+  }
+}
+
+template <typename T, typename S>
+__global__ void __launch_bounds__(RMS_THREADS)
+rmsnorm_scalar_kernel(const T* __restrict__ x, const S* __restrict__ scale,
+                      T* __restrict__ y, int d, float eps) {
+  __shared__ float part[RMS_WARPS];
+  const long long row = blockIdx.x;
+  const T* xr = x + row * d;
+  T* yr = y + row * d;
+  float ss = 0.f;
+  for (int i = threadIdx.x; i < d; i += RMS_THREADS) {
+    const float v = to_f32<T>(xr[i]);
+    ss += v * v;
   }
   ss = warp_sum(ss);
-  if ((threadIdx.x & 31) == 0) partial[threadIdx.x >> 5] = ss;
+  if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = ss;
   __syncthreads();
-  if (threadIdx.x < 32) {
-    float v = threadIdx.x < RMS_THREADS / 32 ? partial[threadIdx.x] : 0.f;
-    v = warp_sum(v);
-    if (threadIdx.x == 0) total = v;
-  }
-  __syncthreads();
-  const float r = rsqrtf(total / (float)d + eps);
-  if (VEC) {
-    const float4* x4 = reinterpret_cast<const float4*>(xr);
-    const float4* g4 = reinterpret_cast<const float4*>(scale);
-    float4* y4 = reinterpret_cast<float4*>(yr);
-    for (int i = threadIdx.x; i < d / 4; i += RMS_THREADS) {
-      const float4 v = x4[i];
-      const float4 g = g4[i];
-      y4[i] = make_float4(v.x * r * g.x, v.y * r * g.y, v.z * r * g.z,
-                          v.w * r * g.w);
+  const float r = rsqrtf(block_total(part, RMS_WARPS) / (float)d + eps);
+  for (int i = threadIdx.x; i < d; i += RMS_THREADS)
+    yr[i] = from_f32<T>(to_f32<T>(xr[i]) * r * to_f32<S>(scale[i]));
+}
+
+// ---- backward
+// Per value: ss += x^2, dot += (dy * g) * x, and after the row's sums
+// dx = r * (dy * g) - x * c with c = r^3 * dot / d, acc += dy * x * r.
+template <typename T, typename S, int NV>
+__global__ void __launch_bounds__(RMS_THREADS)
+rmsnorm_bwd_warp_kernel(const T* __restrict__ x, const S* __restrict__ scale,
+                        const T* __restrict__ dy, T* __restrict__ dx,
+                        float* __restrict__ part, long long rows, int d,
+                        long long scale_gstride, float eps) {
+  constexpr int W = 16 / sizeof(T);
+  __shared__ float red[RMS_WARPS][32 * W];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nvec = d / W;
+  const long long off = (long long)blockIdx.y * rows * d;
+  scale += blockIdx.y * scale_gstride;
+  float g[NV][W], acc[NV][W];
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int v = i * 32 + lane;
+#pragma unroll
+    for (int e = 0; e < W; ++e) {
+      g[i][e] = v < nvec ? to_f32<S>(scale[v * W + e]) : 0.f;
+      acc[i][e] = 0.f;
     }
-  } else {
-    for (int i = threadIdx.x; i < d; i += RMS_THREADS)
-      yr[i] = xr[i] * r * scale[i];
   }
+  const long long stride = (long long)gridDim.x * RMS_WARPS;
+  for (long long row = (long long)blockIdx.x * RMS_WARPS + warp; row < rows;
+       row += stride) {
+    const long long base = off + row * d;
+    const uint4* xr = reinterpret_cast<const uint4*>(x + base);
+    const uint4* dr = reinterpret_cast<const uint4*>(dy + base);
+    uint4 ux[NV], ud[NV];
+#pragma unroll
+    for (int i = 0; i < NV; ++i)
+      if (i * 32 + lane < nvec) {
+        ux[i] = __ldg(xr + i * 32 + lane);
+        ud[i] = __ldg(dr + i * 32 + lane);
+      }
+    float ss = 0.f, dot = 0.f;
+#pragma unroll
+    for (int i = 0; i < NV; ++i)
+      if (i * 32 + lane < nvec) {
+        float fx[W], fd[W];
+        unpack<T>(ux[i], fx);
+        unpack<T>(ud[i], fd);
+#pragma unroll
+        for (int e = 0; e < W; ++e) {
+          ss += fx[e] * fx[e];
+          dot += fd[e] * g[i][e] * fx[e];
+        }
+      }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      ss += __shfl_xor_sync(FULL, ss, o);
+      dot += __shfl_xor_sync(FULL, dot, o);
+    }
+    const float r = rsqrtf(ss / (float)d + eps);
+    const float c = r * r * r * dot / (float)d;
+    uint4* outr = reinterpret_cast<uint4*>(dx + base);
+#pragma unroll
+    for (int i = 0; i < NV; ++i)
+      if (i * 32 + lane < nvec) {
+        float fx[W], fd[W];
+        unpack<T>(ux[i], fx);
+        unpack<T>(ud[i], fd);
+#pragma unroll
+        for (int e = 0; e < W; ++e) {
+          acc[i][e] += fd[e] * fx[e] * r;
+          fd[e] = r * (fd[e] * g[i][e]) - fx[e] * c;
+        }
+        outr[i * 32 + lane] = pack<T>(fd);
+      }
+  }
+  // the block's warps, summed in warp order, one vector slot at a time
+  float* out = part + ((long long)blockIdx.y * gridDim.x + blockIdx.x) * d;
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    __syncthreads();
+#pragma unroll
+    for (int e = 0; e < W; ++e) red[warp][lane * W + e] = acc[i][e];
+    __syncthreads();
+    for (int k = threadIdx.x; k < 32 * W; k += RMS_THREADS) {
+      const int col = i * 32 * W + k;
+      if (col < d) {
+        float s = 0.f;
+#pragma unroll
+        for (int w = 0; w < RMS_WARPS; ++w) s += red[w][k];
+        out[col] = s;
+      }
+    }
+  }
+}
+
+template <typename T, typename S, int NV>
+__global__ void __launch_bounds__(RMS_THREADS)
+rmsnorm_bwd_block_kernel(const T* __restrict__ x, const S* __restrict__ scale,
+                         const T* __restrict__ dy, T* __restrict__ dx,
+                         float* __restrict__ part, long long rows, int d,
+                         long long scale_gstride, float eps) {
+  constexpr int W = 16 / sizeof(T);
+  __shared__ float red[2][2][RMS_WARPS];    // parity x (ss, dot) x warp
+  const int t = threadIdx.x, nt = blockDim.x, nw = nt >> 5, nvec = d / W;
+  const long long off = (long long)blockIdx.y * rows * d;
+  scale += blockIdx.y * scale_gstride;
+  float g[NV][W], acc[NV][W];
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int v = i * nt + t;
+#pragma unroll
+    for (int e = 0; e < W; ++e) {
+      g[i][e] = v < nvec ? to_f32<S>(scale[v * W + e]) : 0.f;
+      acc[i][e] = 0.f;
+    }
+  }
+  int parity = 0;
+  for (long long row = blockIdx.x; row < rows; row += gridDim.x) {
+    const long long base = off + row * d;
+    const uint4* xr = reinterpret_cast<const uint4*>(x + base);
+    const uint4* dr = reinterpret_cast<const uint4*>(dy + base);
+    uint4 ux[NV], ud[NV];
+#pragma unroll
+    for (int i = 0; i < NV; ++i)
+      if (i * nt + t < nvec) {
+        ux[i] = __ldg(xr + i * nt + t);
+        ud[i] = __ldg(dr + i * nt + t);
+      }
+    float ss = 0.f, dot = 0.f;
+#pragma unroll
+    for (int i = 0; i < NV; ++i)
+      if (i * nt + t < nvec) {
+        float fx[W], fd[W];
+        unpack<T>(ux[i], fx);
+        unpack<T>(ud[i], fd);
+#pragma unroll
+        for (int e = 0; e < W; ++e) {
+          ss += fx[e] * fx[e];
+          dot += fd[e] * g[i][e] * fx[e];
+        }
+      }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      ss += __shfl_xor_sync(FULL, ss, o);
+      dot += __shfl_xor_sync(FULL, dot, o);
+    }
+    if ((t & 31) == 0) {
+      red[parity][0][t >> 5] = ss;
+      red[parity][1][t >> 5] = dot;
+    }
+    __syncthreads();
+    const float r =
+        rsqrtf(block_total(red[parity][0], nw) / (float)d + eps);
+    const float c = r * r * r * block_total(red[parity][1], nw) / (float)d;
+    parity ^= 1;
+    uint4* outr = reinterpret_cast<uint4*>(dx + base);
+#pragma unroll
+    for (int i = 0; i < NV; ++i)
+      if (i * nt + t < nvec) {
+        float fx[W], fd[W];
+        unpack<T>(ux[i], fx);
+        unpack<T>(ud[i], fd);
+#pragma unroll
+        for (int e = 0; e < W; ++e) {
+          acc[i][e] += fd[e] * fx[e] * r;
+          fd[e] = r * (fd[e] * g[i][e]) - fx[e] * c;
+        }
+        outr[i * nt + t] = pack<T>(fd);
+      }
+  }
+  // each column belongs to one thread: no combine
+  float* out = part + ((long long)blockIdx.y * gridDim.x + blockIdx.x) * d;
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int v = i * nt + t;
+    if (v < nvec)
+#pragma unroll
+      for (int e = 0; e < W; ++e) out[v * W + e] = acc[i][e];
+  }
+}
+
+// any d or alignment: the block's row of partials lives in the workspace
+// itself (each column read and written by the one thread that owns it)
+template <typename T, typename S>
+__global__ void __launch_bounds__(RMS_THREADS)
+rmsnorm_bwd_scalar_kernel(const T* __restrict__ x, const S* __restrict__ scale,
+                          const T* __restrict__ dy, T* __restrict__ dx,
+                          float* __restrict__ part, long long rows, int d,
+                          long long scale_gstride, float eps) {
+  __shared__ float red[2][2][RMS_WARPS];
+  const int t = threadIdx.x;
+  const long long off = (long long)blockIdx.y * rows * d;
+  scale += blockIdx.y * scale_gstride;
+  float* out = part + ((long long)blockIdx.y * gridDim.x + blockIdx.x) * d;
+  for (int i = t; i < d; i += RMS_THREADS) out[i] = 0.f;
+  int parity = 0;
+  for (long long row = blockIdx.x; row < rows; row += gridDim.x) {
+    const long long base = off + row * d;
+    float ss = 0.f, dot = 0.f;
+    for (int i = t; i < d; i += RMS_THREADS) {
+      const float fx = to_f32<T>(x[base + i]);
+      ss += fx * fx;
+      dot += to_f32<T>(dy[base + i]) * to_f32<S>(scale[i]) * fx;
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      ss += __shfl_xor_sync(FULL, ss, o);
+      dot += __shfl_xor_sync(FULL, dot, o);
+    }
+    if ((t & 31) == 0) {
+      red[parity][0][t >> 5] = ss;
+      red[parity][1][t >> 5] = dot;
+    }
+    __syncthreads();
+    const float r =
+        rsqrtf(block_total(red[parity][0], RMS_WARPS) / (float)d + eps);
+    const float c =
+        r * r * r * block_total(red[parity][1], RMS_WARPS) / (float)d;
+    parity ^= 1;
+    for (int i = t; i < d; i += RMS_THREADS) {
+      const float fx = to_f32<T>(x[base + i]);
+      const float fd = to_f32<T>(dy[base + i]);
+      out[i] += fd * fx * r;
+      dx[base + i] = from_f32<T>(r * (fd * to_f32<S>(scale[i])) - fx * c);
+    }
+  }
+}
+
+// dscale[g][col] = sum over the blocks b of part[g][b][col]: 32 columns a
+// block, its 32 rows of threads each summing every 32nd block, then one
+// row of threads summing those 32 in order
+template <typename S>
+__global__ void __launch_bounds__(1024)
+rmsnorm_dscale_kernel(const float* __restrict__ part, S* __restrict__ dscale,
+                      int blocks, int d) {
+  __shared__ float red[32][33];
+  const int col = blockIdx.x * 32 + threadIdx.x;
+  float s = 0.f;
+  if (col < d) {
+    const float* p = part + (long long)blockIdx.y * blocks * d + col;
+#pragma unroll 4
+    for (int b = threadIdx.y; b < blocks; b += 32) s += p[(long long)b * d];
+  }
+  red[threadIdx.y][threadIdx.x] = s;
+  __syncthreads();
+  if (threadIdx.y == 0 && col < d) {
+    float total = 0.f;
+#pragma unroll
+    for (int j = 0; j < 32; ++j) total += red[j][threadIdx.x];
+    dscale[(long long)blockIdx.y * d + col] = from_f32<S>(total);
+  }
+}
+
+// ---- launch plans
+enum RmsRoute { RMS_WARP, RMS_BLOCK, RMS_SCALAR };
+
+struct RmsPlan {
+  RmsRoute route;
+  int nv;        // vectors a lane (warp) or a thread (block)
+  int threads;   // a block
+};
+
+// the route for a row of d values of `size`-byte elements: vectors need d
+// a multiple of W = 16 / size and `vec` (16-byte aligned pointers)
+inline RmsPlan rms_plan(int d, int size, bool vec) {
+  const int w = 16 / size;
+  if (!vec || d % w != 0 || d / w > RMS_THREADS * RMS_MAX_NV)
+    return {RMS_SCALAR, 0, RMS_THREADS};
+  const int nvec = d / w;
+  if (nvec <= 32 * RMS_MAX_NV) {
+    int nv = 1;
+    while (32 * nv < nvec) nv <<= 1;
+    return {RMS_WARP, nv, RMS_THREADS};
+  }
+  int nv = 1;
+  while (RMS_THREADS * nv < nvec) nv <<= 1;
+  const int per = (nvec + nv - 1) / nv;
+  return {RMS_BLOCK, nv, (int)round_up(per, 32)};
+}
+
+int sm_count() {
+  static int cached[64] = {0};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 1;
+  int n = dev >= 0 && dev < 64 ? cached[dev] : 0;
+  if (n == 0) {
+    if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess ||
+        n < 1)
+      n = 1;
+    if (dev >= 0 && dev < 64) cached[dev] = n;
+  }
+  return n;
+}
+
+template <typename K>
+int resident_blocks(K kernel, int threads) {
+  int n = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads, 0) !=
+          cudaSuccess ||
+      n < 1)
+    n = 1;
+  return n;
+}
+
+// Calls f(nv constant) for nv in {1, 2, 4, 8}.
+template <typename F>
+void with_nv(int nv, F f) {
+  switch (nv) {
+    case 1: f(std::integral_constant<int, 1>{}); break;
+    case 2: f(std::integral_constant<int, 2>{}); break;
+    case 4: f(std::integral_constant<int, 4>{}); break;
+    default: f(std::integral_constant<int, 8>{}); break;
+  }
+}
+
+// Calls f with null (T*, S*) for x's dtype code and scale's (0 float32,
+// 1 bfloat16, 2 float16; scale float32 or x's type); false otherwise.
+template <typename F>
+bool with_rms_types(int xcode, int scode, F f) {
+  if (scode != 0 && scode != xcode) return false;
+  switch (xcode) {
+    case 0: f((float*)nullptr, (float*)nullptr); return true;
+    case 1:
+      if (scode == 0) f((__nv_bfloat16*)nullptr, (float*)nullptr);
+      else f((__nv_bfloat16*)nullptr, (__nv_bfloat16*)nullptr);
+      return true;
+    case 2:
+      if (scode == 0) f((__half*)nullptr, (float*)nullptr);
+      else f((__half*)nullptr, (__half*)nullptr);
+      return true;
+    default: return false;
+  }
+}
+
+// the backward's blocks a group: as many as stay resident across the card
+// (split between the groups), but no more than its rows can feed
+template <typename T, typename S>
+int rms_bwd_blocks(long long rows, int d, int groups, bool vec) {
+  const RmsPlan p = rms_plan(d, sizeof(T), vec);
+  int resident = 1;
+  long long per_block = 1;   // rows a block takes in one pass
+  if (p.route == RMS_WARP) {
+    per_block = RMS_WARPS;
+    with_nv(p.nv, [&](auto nv) {
+      constexpr int NV = decltype(nv)::value;
+      resident = resident_blocks(rmsnorm_bwd_warp_kernel<T, S, NV>,
+                                 p.threads);
+    });
+  } else if (p.route == RMS_BLOCK) {
+    with_nv(p.nv, [&](auto nv) {
+      constexpr int NV = decltype(nv)::value;
+      resident = resident_blocks(rmsnorm_bwd_block_kernel<T, S, NV>,
+                                 p.threads);
+    });
+  } else {
+    resident = resident_blocks(rmsnorm_bwd_scalar_kernel<T, S>, p.threads);
+  }
+  long long cap = (long long)resident * sm_count() / (groups > 0 ? groups : 1);
+  const long long need = (rows + per_block - 1) / per_block;
+  if (cap > need) cap = need;
+  return (int)(cap > 1 ? cap : 1);
+}
+
+template <typename T, typename S>
+void launch_rmsnorm(const T* x, const S* scale, T* y, long long rows, int d,
+                    float eps, bool vec, cudaStream_t st) {
+  const RmsPlan p = rms_plan(d, sizeof(T), vec);
+  if (p.route == RMS_WARP) {
+    with_nv(p.nv, [&](auto nv) {
+      constexpr int NV = decltype(nv)::value;
+      static const int resident =
+          resident_blocks(rmsnorm_warp_kernel<T, S, NV>, RMS_THREADS);
+      long long blocks = (rows + RMS_WARPS - 1) / RMS_WARPS;
+      const long long cap = (long long)resident * sm_count();
+      if (blocks > cap) blocks = cap;
+      rmsnorm_warp_kernel<T, S, NV><<<(unsigned)blocks, RMS_THREADS, 0, st>>>(
+          x, scale, y, rows, d, eps);
+    });
+  } else if (p.route == RMS_BLOCK) {
+    with_nv(p.nv, [&](auto nv) {
+      constexpr int NV = decltype(nv)::value;
+      rmsnorm_block_kernel<T, S, NV><<<(unsigned)rows, p.threads, 0, st>>>(
+          x, scale, y, d, eps);
+    });
+  } else {
+    rmsnorm_scalar_kernel<T, S><<<(unsigned)rows, RMS_THREADS, 0, st>>>(
+        x, scale, y, d, eps);
+  }
+}
+
+template <typename T, typename S>
+cudaError_t launch_rmsnorm_bwd(const T* x, const S* scale, const T* dy,
+                               T* dx, S* dscale, float* work, long long rows,
+                               int d, int groups, int blocks,
+                               long long scale_gstride, float eps, bool vec,
+                               cudaStream_t st) {
+  const RmsPlan p = rms_plan(d, sizeof(T), vec);
+  const dim3 grid((unsigned)blocks, (unsigned)groups);
+  if (p.route == RMS_WARP) {
+    with_nv(p.nv, [&](auto nv) {
+      constexpr int NV = decltype(nv)::value;
+      rmsnorm_bwd_warp_kernel<T, S, NV><<<grid, RMS_THREADS, 0, st>>>(
+          x, scale, dy, dx, work, rows, d, scale_gstride, eps);
+    });
+  } else if (p.route == RMS_BLOCK) {
+    with_nv(p.nv, [&](auto nv) {
+      constexpr int NV = decltype(nv)::value;
+      rmsnorm_bwd_block_kernel<T, S, NV><<<grid, p.threads, 0, st>>>(
+          x, scale, dy, dx, work, rows, d, scale_gstride, eps);
+    });
+  } else {
+    rmsnorm_bwd_scalar_kernel<T, S><<<grid, RMS_THREADS, 0, st>>>(
+        x, scale, dy, dx, work, rows, d, scale_gstride, eps);
+  }
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  rmsnorm_dscale_kernel<S><<<dim3((unsigned)((d + 31) / 32), (unsigned)groups),
+                             dim3(32, 32), 0, st>>>(work, dscale, blocks, d);
+  return cudaGetLastError();
 }
 
 // ========================================================= flash attention
@@ -912,19 +1512,62 @@ ssd_scan_kernel(const float* __restrict__ x, const float* __restrict__ C,
 
 extern "C" {
 
-int repro_rmsnorm(const float* x, const float* scale, float* y,
-                  long long rows, int d, float eps, void* stream) {
-  if (rows <= 0) return 0;
-  const bool vec = d % 4 == 0 && ((uintptr_t)x % 16) == 0 &&
-                   ((uintptr_t)y % 16) == 0 && ((uintptr_t)scale % 16) == 0;
+// x and y (rows, d) of x's dtype code, scale (d,) of its own (see rmsnorm
+// above: 0 float32, 1 bfloat16, 2 float16; scale float32 or x's type)
+int repro_rmsnorm(const void* x, const void* scale, void* y, long long rows,
+                  int d, float eps, int xcode, int scode, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (vec)
-    rmsnorm_kernel<true><<<(unsigned)rows, RMS_THREADS, 0, st>>>(x, scale, y,
-                                                                 d, eps);
-  else
-    rmsnorm_kernel<false><<<(unsigned)rows, RMS_THREADS, 0, st>>>(x, scale,
-                                                                  y, d, eps);
+  const bool vec = aligned16(x) && aligned16(y);
+  const bool known = with_rms_types(xcode, scode, [&](auto* xt, auto* stt) {
+    using T = std::remove_pointer_t<decltype(xt)>;
+    using S = std::remove_pointer_t<decltype(stt)>;
+    if (rows > 0 && d > 0)
+      launch_rmsnorm<T, S>(static_cast<const T*>(x),
+                           static_cast<const S*>(scale), static_cast<T*>(y),
+                           rows, d, eps, vec, st);
+  });
+  if (!known) return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
+}
+
+// blocks a group of repro_rmsnorm_backward takes for these sizes (its
+// workspace holds groups x blocks x d floats); -1 for unknown dtype codes
+int repro_rmsnorm_backward_blocks(long long rows, int d, int groups,
+                                  int xcode, int scode) {
+  int blocks = -1;
+  with_rms_types(xcode, scode, [&](auto* xt, auto* stt) {
+    using T = std::remove_pointer_t<decltype(xt)>;
+    using S = std::remove_pointer_t<decltype(stt)>;
+    blocks = rms_bwd_blocks<T, S>(rows, d, groups, true);
+  });
+  return blocks;
+}
+
+// groups of `rows` rows each: x, dy, dx (groups * rows, d), scale (d,) or,
+// with scale_grouped, (groups, d); dscale (groups, d) in scale's type; work
+// groups * blocks * d floats (blocks from repro_rmsnorm_backward_blocks).
+// Two kernels: the rows, then dscale's sum over the blocks.
+int repro_rmsnorm_backward(const void* x, const void* scale, const void* dy,
+                           void* dx, void* dscale, float* work,
+                           long long rows, int d, int groups, int blocks,
+                           int scale_grouped, float eps, int xcode,
+                           int scode, void* stream) {
+  if (d <= 0 || groups <= 0) return 0;
+  if (rows < 0 || blocks < 1 || groups > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const bool vec = aligned16(x) && aligned16(dy) && aligned16(dx);
+  cudaError_t err = cudaSuccess;
+  const bool known = with_rms_types(xcode, scode, [&](auto* xt, auto* stt) {
+    using T = std::remove_pointer_t<decltype(xt)>;
+    using S = std::remove_pointer_t<decltype(stt)>;
+    err = launch_rmsnorm_bwd<T, S>(
+        static_cast<const T*>(x), static_cast<const S*>(scale),
+        static_cast<const T*>(dy), static_cast<T*>(dx), static_cast<S*>(dscale),
+        work, rows, d, groups, blocks, scale_grouped ? d : 0, eps, vec, st);
+  });
+  if (!known) return (int)cudaErrorInvalidValue;
+  return (int)err;
 }
 
 int repro_flash_attention(const float* q, const float* k, const float* v,

@@ -3,7 +3,9 @@ card — the codec bit-exact (on NaN / +-inf input under the non-finite
 contract: NaN exactly where the plain version's is, every other float,
 int8 and word bit for bit), unpack_dequant_matmul /
 rmsnorm / flash attention / SSD within stated float32 tolerances at their
-paths' shapes and edge shapes — short mlp9 runs (single RSU under the
+paths' shapes and edge shapes (rmsnorm and its backward kernel also in
+bfloat16 and float16 within one ulp, unaligned, the backward twice bit
+for bit and under ``vmap`` of ``grad``) — short mlp9 runs (single RSU under the
 loop and under vmap with the launch counts each schedule implies, one
 multi-RSU scenario round on topk_int8, and a window of the parallel
 server schedule with its launch formula) on cuda against the same runs on
@@ -21,6 +23,8 @@ nvcc:
 
 Without a card every test skips with the reason.  This file imports no
 jax (the card machine has none)."""
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -513,6 +517,19 @@ def test_parallel_window_is_deterministic_on_cuda(dev):
             np.testing.assert_array_equal(a, b)
 
 
+@functools.lru_cache(maxsize=None)
+def _chip_smoke():
+    """The repo's ``chip_smoke.py`` as a module, for its phase-10 inputs,
+    its launch formula and its rmsnorm tolerances."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
 # ------------------------------------------------------------- LM kernels
 # rmsnorm: the sum of squares is reduced in another order and rsqrtf is
 # within 2 ulp, so a few float32 ulps of outputs of magnitude <= ~10.
@@ -536,19 +553,114 @@ def _randn(shape, dev, seed, scale=1.0):
 # the serving prefills' widths (smollm, mamba2 and its gated norm,
 # gemma3 / recurrentgemma, internvl2, musicgen), gemma3's qk-norm over
 # head_dim 256 (q's rows at prefill, k's at a decode step), decode, edges
-@pytest.mark.parametrize("shape", [(8, 1024, 960), (8, 1024, 1536),
-                                   (8, 1024, 3072), (8, 1024, 2560),
-                                   (8, 1024, 896), (8, 1024, 2048),
-                                   (65536, 256), (32, 256), (8, 1, 960),
-                                   (2, 12, 256), (5, 7, 1001), (3, 6)])
-def test_rmsnorm_kernel_matches_plain(dev, shape):
-    x = _randn(shape, dev, 0, 2.0)
-    g = _randn(shape[-1:], dev, 1, 0.1) + 1.0
+# (d not a multiple of the vector; d past the registers' 8192 float32)
+RMS_SHAPES = [(8, 1024, 960), (8, 1024, 1536), (8, 1024, 3072),
+              (8, 1024, 2560), (8, 1024, 896), (8, 1024, 2048),
+              (65536, 256), (32, 256), (8, 1, 960), (2, 12, 256),
+              (5, 7, 1001), (3, 6), (3, 9000)]
+# x's dtype, the scale's (chip_smoke.py's names): float32, and bfloat16 /
+# float16 with a scale of x's dtype or a float32 one
+RMS_DTYPES = {"f32": (torch.float32, torch.float32),
+              "bf16": (torch.bfloat16, torch.bfloat16),
+              "bf16_f32scale": (torch.bfloat16, torch.float32),
+              "f16": (torch.float16, torch.float16),
+              "f16_f32scale": (torch.float16, torch.float32)}
+
+
+def _rms_close(got, want, scale_tol=0.0):
+    """``chip_smoke._rms_ok``: float32 within RMS_TOL (absolute +
+    relative), 16-bit within one ulp of the working type (the float32
+    results differ by a few float32 ulps and are rounded once), each plus
+    ``scale_tol`` (a gradient's float32 reassociation where it subtracts
+    terms of similar size)."""
+    err = float((got.float() - want.float()).abs().max())
+    assert _chip_smoke()._rms_ok(got, want, scale_tol), err
+
+
+def _rms_inputs(shape, dtype, dev, seed=0, unaligned=False):
+    x_dt, s_dt = RMS_DTYPES[dtype]
+    x = _randn(shape, dev, seed, 2.0).to(x_dt)
+    if unaligned:           # one element past a 16-byte boundary
+        buf = torch.empty(x.numel() + 1, dtype=x_dt, device=dev)
+        buf[1:] = x.reshape(-1)
+        x = buf[1:].view(shape)
+    return x, (_randn(shape[-1:], dev, seed + 1, 0.1) + 1.0).to(s_dt)
+
+
+@pytest.mark.parametrize("dtype", list(RMS_DTYPES))
+@pytest.mark.parametrize("shape", RMS_SHAPES)
+def test_rmsnorm_kernel_matches_plain(dev, shape, dtype):
+    x, g = _rms_inputs(shape, dtype, dev)
     n = LAUNCHES["rmsnorm"]
     got = RN.rmsnorm(x, g)
     assert LAUNCHES["rmsnorm"] == n + 1
-    torch.testing.assert_close(got, RN.rmsnorm_plain(x, g), rtol=RMS_TOL,
-                               atol=RMS_TOL)
+    _rms_close(got, RN.rmsnorm_plain(x, g))
+
+
+@pytest.mark.parametrize("dtype", list(RMS_DTYPES))
+@pytest.mark.parametrize("shape", RMS_SHAPES)
+def test_rmsnorm_backward_kernel_matches_plain(dev, shape, dtype):
+    """dx and dscale against the closed-form plain version and the plain
+    vjp (for 16-bit input: within one ulp plus RMS_TOL of the largest
+    gradient); one launch a call; two calls bit for bit (no atomics)."""
+    x, g = _rms_inputs(shape, dtype, dev)
+    dy = _randn(shape, dev, 7).to(x.dtype)
+    n = LAUNCHES["rmsnorm_backward"]
+    got = RN.rmsnorm_backward(x, g, dy)
+    assert LAUNCHES["rmsnorm_backward"] == n + 1
+    assert got[0].dtype == x.dtype and got[1].dtype == g.dtype
+    again = RN.rmsnorm_backward(x, g, dy)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    _, vjp = torch.func.vjp(RN.rmsnorm_plain, x, g)
+    for want in (RN.rmsnorm_backward_plain(x, g, dy), vjp(dy)):
+        for a, b in zip(got, want):
+            _rms_close(a, b, _chip_smoke()._grad_tol(b))
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(4, 96, 960), (64, 256), (3, 9000),
+                                   (5, 7, 1001)])
+def test_rmsnorm_kernels_take_unaligned_rows(dev, shape, dtype):
+    """x one element past a 16-byte boundary: the scalar routes."""
+    x, g = _rms_inputs(shape, dtype, dev, unaligned=True)
+    dy = _randn(shape, dev, 7).to(x.dtype)
+    _rms_close(RN.rmsnorm(x, g), RN.rmsnorm_plain(x, g))
+    for a, b in zip(RN.rmsnorm_backward(x, g, dy),
+                    RN.rmsnorm_backward_plain(x, g, dy)):
+        _rms_close(a, b, _chip_smoke()._grad_tol(b))
+
+
+def test_rmsnorm_kernels_refuse_other_dtypes(dev):
+    x = torch.ones(4, 64, dtype=torch.float64, device=dev)
+    with pytest.raises(TypeError, match="rmsnorm kernels"):
+        RN.rmsnorm(x, torch.ones(64, dtype=torch.float64, device=dev))
+    x = torch.ones(4, 64, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(TypeError, match="rmsnorm kernels"):
+        RN.rmsnorm_backward(x, torch.ones(64, dtype=torch.float16,
+                                          device=dev), x)
+
+
+@pytest.mark.parametrize("batched_scale", [False, True])
+def test_rmsnorm_backward_vmap_of_grad_on_cuda(dev, batched_scale):
+    """The fl round's ``vmap`` of ``grad`` on the card: one backward launch
+    for both replicas (the forward: one, or one a replica with a scale
+    each), each replica's dscale its own, within the gradient tolerance of
+    the per-replica grads."""
+    x = _randn((2, 4, 64, 960), dev, 0, 2.0)
+    g = _randn((960,), dev, 1, 0.1) + 1.0
+    s = torch.stack([g, g * 1.01]) if batched_scale else g
+    dims = (0, 0 if batched_scale else None)
+    grad = torch.func.grad(lambda a, b: RN.rmsnorm(a, b).square().sum(),
+                           argnums=(0, 1))
+    n = launch_counts()
+    got = torch.func.vmap(grad, in_dims=dims)(x, s)
+    grew = {k: v - n[k] for k, v in launch_counts().items()}
+    assert grew["rmsnorm"] == (2 if batched_scale else 1)
+    assert grew["rmsnorm_backward"] == 1
+    for r in range(2):
+        want = grad(x[r], s[r] if batched_scale else s)
+        for a, b in zip((t[r] for t in got), want):
+            _rms_close(a, b, _chip_smoke()._grad_tol(b))
 
 
 # (b, sq, sk, h, kv, d, causal, window, qk_amp): the path's smollm
@@ -669,18 +781,6 @@ def test_reduced_lm_serving_on_cuda_matches_cpu(dev, arch):
         torch.testing.assert_close(b, a, rtol=2e-4, atol=2e-4)
 
 
-def _chip_smoke():
-    """The repo's ``chip_smoke.py`` as a module, for its phase-10 inputs
-    and its launch formula."""
-    import importlib.util
-    from pathlib import Path
-    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
-    spec = importlib.util.spec_from_file_location("chip_smoke", path)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module
-
-
 @pytest.mark.parametrize("arch", ["gemma3-4b", "recurrentgemma-2b",
                                   "internvl2-1b", "musicgen-large"])
 def test_reduced_family_serving_on_cuda_matches_cpu(dev, arch):
@@ -719,11 +819,11 @@ def test_reduced_family_serving_on_cuda_matches_cpu(dev, arch):
 
 
 # ------------------------------------------------------- LM autograd
-# The Functions' backward is the plain version's vjp on the same inputs;
-# with the loss sum(w * y) its cotangent does not depend on the forward,
-# so kernel-forward and all-plain gradients differ only by the order of
-# the backward's own sums: held at the forward tolerances above, relative
-# to the largest gradient.
+# flash and ssd's backward is the plain version's vjp on the same inputs;
+# rmsnorm's is the backward kernel.  With the loss sum(w * y) the
+# cotangent does not depend on the forward, so kernel and all-plain
+# gradients differ only by the order of the sums: held at the forward
+# tolerances above, relative to the largest gradient.
 def _grads(fn, args, w):
     req = [a.detach().clone().requires_grad_() for a in args]
     out = fn(*req)
@@ -755,9 +855,11 @@ LM_KERNELS = ["rmsnorm", "flash_attention", "ssd_chunk_scan"]
 def test_lm_function_gradients_on_cuda_match_plain(dev, name):
     fn, plain, args, tol = _autograd_case(name, dev)
     w = _randn(tuple(plain(*args).shape), dev, 9)
-    n = LAUNCHES[name]
+    n, nb = LAUNCHES[name], LAUNCHES["rmsnorm_backward"]
     y_k, g_k = _grads(fn, args, w)
-    assert LAUNCHES[name] == n + 1          # the backward launches nothing
+    assert LAUNCHES[name] == n + 1
+    # rmsnorm's backward launches its kernel; flash's and ssd's nothing
+    assert LAUNCHES["rmsnorm_backward"] == nb + (name == "rmsnorm")
     y_p, g_p = _grads(plain, args, w)
     torch.testing.assert_close(y_k, y_p, rtol=tol, atol=tol)
     assert all(bool(torch.isfinite(g).all()) for g in g_k)
@@ -838,10 +940,11 @@ def test_lm_function_vjp_of_vmap_on_cuda(dev, name, rule):
     """CohortEngine's vehicle side under its ``vmap`` schedule: vjp of the
     vmapped Function against the per-replica vjps, with only activations
     carrying the replica axis (``fold``: one launch for both replicas) and
-    with a parameter per replica too (``loop``: one launch each).  Both
-    backward passes are the plain version's vjp, so the gradients differ
-    only in the order of their sums: within the forward tolerance of the
-    largest gradient."""
+    with a parameter per replica too (``loop``: one launch each; rmsnorm's
+    backward kernel the same).  Both backward passes are the same
+    backward (the plain version's vjp, or rmsnorm's kernel), on the folded
+    batch or on one replica, so the gradients differ only in the order of
+    their sums: within the forward tolerance of the largest gradient."""
     fn, _, args, tol = _autograd_case(name, dev)
     vin = [a.reshape(2, a.shape[0] // 2, *a.shape[1:]) for a in args]
     dims = [0] * len(args)
@@ -858,13 +961,15 @@ def test_lm_function_vjp_of_vmap_on_cuda(dev, name, rule):
             full[i] = a
         return full
 
-    n = LAUNCHES[name]
+    n, nb = LAUNCHES[name], LAUNCHES["rmsnorm_backward"]
     out, vjp = torch.func.vjp(
         lambda *d: torch.func.vmap(fn, in_dims=tuple(dims))(
             *with_diff(vin, d)), *[vin[i] for i in diff])
     g = _randn(tuple(out.shape), dev, 11)
     got = vjp(g)
-    assert LAUNCHES[name] == n + (1 if rule == "fold" else 2)
+    calls = 1 if rule == "fold" else 2
+    assert LAUNCHES[name] == n + calls
+    assert LAUNCHES["rmsnorm_backward"] == nb + calls * (name == "rmsnorm")
     for r in range(2):
         sl = [a if d is None else a[r] for a, d in zip(vin, dims)]
         _, vjp1 = torch.func.vjp(lambda *d: fn(*with_diff(sl, d)),
@@ -902,6 +1007,7 @@ def test_reduced_lm_train_step_launches_follow_remat(dev, arch):
         D.make_train_step(cfg, opts)(state, batch)
         counts = launch_counts()
         assert counts["rmsnorm"] == fwd * 2 * 3 + 1
+        assert counts["rmsnorm_backward"] == 2 * 3 + 1
         assert counts[mixer] == fwd * 3
 
 

@@ -1,14 +1,17 @@
 """The LM kernels' autograd on the CPU: rmsnorm, flash_attention and
-ssd_chunk_scan are ``torch.autograd.Function``s whose backward is
-``torch.func.vjp`` of the plain version.  Their gradients against plain
-autograd; ``torch.func.grad``, ``vjp`` of ``vmap`` (``CohortEngine``'s
-vmap schedule) and ``vmap`` of ``grad`` (its fl round) against per-slice
+ssd_chunk_scan are ``torch.autograd.Function``s.  flash and ssd's backward
+is ``torch.func.vjp`` of the plain version; rmsnorm's is a Function of its
+own (the backward kernel on the card, ``rmsnorm_backward_plain`` here)
+with a ``vmap`` rule.  Their gradients against plain autograd;
+``torch.func.grad``, ``vjp`` of ``vmap`` (``CohortEngine``'s vmap
+schedule) and ``vmap`` of ``grad`` (its fl round) against per-slice
 loops, with the vmapped axis on the activations only (folded into the
-kernel's batch or rows) and on a parameter too (one call per replica);
-the SSD with the state's gradient ``None``; a model's gradients with remat
-on and off; the int8 smashed boundary's straight-through gradient.  On
-the CPU the Functions' forward is the plain version, so every rule here
-runs the same code as on the card but the kernel."""
+kernel's batch or rows), on a parameter too (one call per replica), and
+for rmsnorm on the scale alone; the SSD with the state's gradient
+``None``; a model's gradients with remat on and off; the int8 smashed
+boundary's straight-through gradient.  On the CPU the Functions' forward
+is the plain version, so every rule here runs the same code as on the
+card but the kernel."""
 import dataclasses
 
 import numpy as np
@@ -52,12 +55,19 @@ def _close(got, want, tol=TOL):
 
 # ------------------------------------------------------------- gradients
 def test_rmsnorm_gradients_equal_plain_autograd():
+    """The Function's backward is the closed form here (the kernel's plain
+    version): equal to it bit for bit, and to autograd of the plain
+    forward within float32 reassociation (1e-5 of each largest
+    gradient)."""
     x = _randn(3, 7, 48, seed=0, scale=2.0).requires_grad_()
     s = (_randn(48, seed=1, scale=0.1) + 1.0).requires_grad_()
     w = _randn(3, 7, 48, seed=2)
     got = torch.autograd.grad((RN.rmsnorm(x, s) * w).sum(), (x, s))
+    _close(got, RN.rmsnorm_backward_plain(x.detach(), s.detach(), w), 0.0)
     want = torch.autograd.grad((RN.rmsnorm_plain(x, s) * w).sum(), (x, s))
-    _close(got, want, 0.0)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=1e-5 * float(b.abs().max()))
 
 
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 5),
@@ -121,13 +131,17 @@ def test_ssd_gradient_is_finite_where_the_decay_overflows():
 
 
 # ------------------------------------------------------ torch.func rules
-def _rms_case(batched_scale):
+def _rms_case(batched):
+    """``batched``: False the activations only, True the scale too,
+    "scale" the scale alone (one x for every replica)."""
     x = _randn(3, 5, 6, 32, seed=0, scale=2.0)
     s = _randn(3, 32, seed=1, scale=0.1) + 1.0
-    if not batched_scale:
+    if not batched:
         s = s[0]
+    if batched == "scale":
+        x = x[0]
     return (lambda a, b: RN.rmsnorm(a, b)), (x, s), \
-        (0, 0 if batched_scale else None)
+        (None if batched == "scale" else 0, 0 if batched else None)
 
 
 def _flash_case(_):
@@ -150,6 +164,7 @@ def _ssd_case(batched_a):
 
 
 CASES = {"rmsnorm-act": (_rms_case, False), "rmsnorm-param": (_rms_case, True),
+         "rmsnorm-scale": (_rms_case, "scale"),
          "flash-act": (_flash_case, None), "ssd-act": (_ssd_case, False),
          "ssd-param": (_ssd_case, True)}
 
