@@ -49,7 +49,8 @@ neither ``jax`` nor ``repro``.  In order it:
    over 4, the local one also at s 1088 where its window masks keys;
    recurrentgemma's local MQA, window 2048; internvl2's 14 over 2;
    musicgen's MHA 32 / 32; rmsnorm at every shape in float32 and
-   bfloat16, its backward at the four widths) times kernel (for
+   bfloat16, deepseek's ``kv_norm`` over the latent (8, 1024, 512) among
+   them, its backward at the four widths) times kernel (for
    ssd_chunk_scan and rmsnorm's backward every kernel of one wrapper
    call), wrapper call, plain version and one PyTorch library call
    (``scaled_dot_product_attention`` with ``enable_gqa``, under a window
@@ -58,7 +59,10 @@ neither ``jax`` nor ``repro``.  In order it:
    scan) beside the bound (bytes or float32
    operations, whichever is larger) and, for flash_attention and
    ssd_chunk_scan, which run 3xTF32 on the tensor cores, the operations
-   bound at a third of the TF32 rate;
+   bound at a third of the TF32 rate; every rmsnorm row (and its
+   backward's) also with L2 flushed before each call, kernel and
+   ``rms_norm`` (back-to-back calls keep a working set under 50 MB in
+   L2);
 5. drives the ASFL path — ``repro_torch.api.run`` of the paper's case
    study (resnet18, asfl, 4 vehicles, batch 16, adam) on the per-replica
    loop (``cohort_parallel="unroll"``, the schedule of every earlier
@@ -72,27 +76,35 @@ neither ``jax`` nor ``repro``.  In order it:
    CPU's within 1 % of the largest update;
 8. serves smollm-360m, mamba2-780m, gemma3-4b (local + global attention,
    qk-norm, GeGLU), recurrentgemma-2b (RG-LRU + local MQA), internvl2-1b
-   (256 patch embeddings prepended) and musicgen-large (4 codebooks in, 4
-   heads out, sinusoidal positions) at full width and depth through
+   (256 patch embeddings prepended), musicgen-large (4 codebooks in, 4
+   heads out, sinusoidal positions) and, last, deepseek-v2-lite-16b (MLA
+   and MoE, 15.7B float32 parameters) at full width and depth through
    ``repro_torch.launch.serve`` (batch 8, prompt 1024, 32 decode steps, the
    default cut), with the launch counters zeroed just before and read just
    after each: exactly the kernel launches the model implies (flash per
    attention layer; rmsnorm 2 per layer, 2 more per attention layer under
-   qk-norm, and the final norm, per forward), finite logits of the right
+   qk-norm, 1 more per MLA layer, and the final norm, per forward: 2,706
+   for deepseek), finite logits of the right
    shape ((8, 1, 4, 2048) for musicgen), the parameter count equal to
    ``count_params`` plus the leaves it leaves out (qk-norm scales,
    RG-LRU's ``lam``); prints the prefill and decode times, the counted
    serve's peak memory, a second full-size prefill's time beside the
-   first, and the SM clocks (nvidia-smi) and reserved bytes just before
-   and just after the counted serve, whose prefill is the first;
+   first, the SM clocks (nvidia-smi) and reserved bytes just before
+   and just after the counted serve, whose prefill is the first, and for
+   deepseek the share of (token, expert) slots its prefill's grouped MoE
+   dispatch dropped (some must be kept), taken in a third, untimed
+   prefill of the same prompt, every dispatch's kept slots held to a
+   plain count on the CPU;
 9. at full width, prefill(s-1) + one decode step reproduces the last
    logits of prefill(s) within 1e-3 (gemma3 at s 1088 and recurrentgemma
    at s 2112, so that their local layers' rings wrap with a nonzero shift
-   and flash masks keys left of the window; the others at the served
-   prompt, through their own batches);
+   and flash masks keys left of the window; deepseek at batch 1, where
+   both forwards take the drop-free dense MoE path, so the phase holds
+   MLA's absorbed decode against its materialised prefill; the others at
+   the served prompt, through their own batches);
 10. serves the reduced configs on the card and on the CPU from the same
     weights and inputs (smollm / mamba2 at three periods, the four
-    families at their own depth): logits within 2e-4;
+    families and deepseek at their own depth): logits within 2e-4;
 10b. drives the multi-RSU scenario path through ``repro_torch.api.run``:
     mlp9 on ``highway_corridor`` with 256 vehicles and 4 RSUs, cloud sync
     every round, 4 rounds of local_steps 2 at batch 8 (sgd, lr 1e-3, the
@@ -345,8 +357,11 @@ RMS_BWD_REPLACES = ("none: jax.vjp of rmsnorm_ref "
 LM_SYMBOL = {"rmsnorm": "rmsnorm_", "flash_attention": "flash_attention_kernel"}
 # phase 8-10's served archs; phases 10f-10i train the first two only
 # (gemma3-4b's adamw states alone would take ~73 GB in float32)
+# (deepseek-v2-lite-16b last: its 62.8 GB of float32 weights take the
+# card after every other arch's are freed)
 SERVE_ARCHS = ("smollm-360m", "mamba2-780m", "gemma3-4b",
-               "recurrentgemma-2b", "internvl2-1b", "musicgen-large")
+               "recurrentgemma-2b", "internvl2-1b", "musicgen-large",
+               "deepseek-v2-lite-16b")
 TRAIN_ARCHS = ("smollm-360m", "mamba2-780m")
 SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = 8, 1024, 32
 TEACHER_TOL = 1e-3              # phase 9: f32 through 24-48 layers, prefill
@@ -354,9 +369,23 @@ TEACHER_TOL = 1e-3              # phase 9: f32 through 24-48 layers, prefill
 REDUCED_TOL = 2e-4              # phase 10: as the CPU parity tests
 
 
-# torch.profiler traces a window again when its trace comes back without
-# a single device event (CUPTI delivered nothing)
+# CUPTI drops the records of runs of launches: on the card a trace's
+# first two as a rule, at times up to 57 of 100 calls of a row, now and
+# then in the middle, and on some traces 26 of 100 at the end; and a
+# plain function's kernel can change its name from trace to trace
+# (vectorised or unrolled, by a buffer's alignment).  So a time per call
+# is read from the launches that were recorded (:func:`_per_call_ms`).  A
+# trace opens with LEAD_IN_CALLS launches of a kernel of its own, a
+# synchronize and LEAD_IN_S of sleep, left out; a time takes
+# TRACES_PER_TIME traces, and one that holds no device kernel is taken
+# again, at most PROFILE_ATTEMPTS more times
 PROFILE_ATTEMPTS = 3
+TRACES_PER_TIME = 2
+LEAD_IN_CALLS, LEAD_IN_S, LEAD_IN_KERNEL = 64, 0.05, "erfinv"
+# an L2-flushed timing writes this many bytes before each call (5x the
+# H100's 50 MB L2), with a kernel named apart from the timed ones
+L2_FLUSH_BYTES = 256 * 2 ** 20
+FLUSH_KERNEL = "bitwise_not"
 
 
 def _call_ms(fn, iters):
@@ -376,45 +405,113 @@ def _call_ms(fn, iters):
     return start.elapsed_time(stop) / iters
 
 
-def _device_ms(fn, iters, symbol=None):
-    """Device milliseconds per call: the kernel time (CUPTI, through
-    ``torch.profiler``) of every device kernel that ``iters`` calls
-    launched, over ``iters``.  With ``symbol``, exactly one kernel name
-    matches it, and the result is its mean time per recorded launch (CUPTI
-    may drop a record: on the card one of 200 went missing, and once a
-    whole trace came back empty, which is profiled again, at most
-    PROFILE_ATTEMPTS times in all)."""
+def _trace(fn, iters):
+    """{kernel name: profiler event} of ``iters`` calls of ``fn`` in one
+    ``torch.profiler`` trace, after the lead-in (LEAD_IN_CALLS launches of
+    ``erfinv_``, a synchronize, LEAD_IN_S of sleep), which is left out."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    lead = torch.zeros(1, device="cuda")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(LEAD_IN_CALLS):
+            lead.erfinv_()
+        torch.cuda.synchronize()
+        time.sleep(LEAD_IN_S)
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and LEAD_IN_KERNEL not in e.key}
+
+
+def _traces(fn, iters, skip=None):
+    """TRACES_PER_TIME traces of ``iters`` calls of ``fn`` (:func:`_trace`)
+    that hold some device kernel, the kernels whose names hold ``skip``
+    left out; an empty trace is taken again, at most PROFILE_ATTEMPTS more
+    times in all."""
+    out, empty = [], 0
+    while len(out) < TRACES_PER_TIME:
+        dev = {k: e for k, e in _trace(fn, iters).items()
+               if skip is None or skip not in k}
+        if dev:
+            out.append(dev)
+            continue
+        empty += 1
+        print(f"profiler: trace of {iters} calls holds no device kernel",
+              flush=True)
+        if empty > PROFILE_ATTEMPTS:
+            raise AssertionError(f"profiler: {empty} traces of {iters} "
+                                 f"calls hold no device kernel")
+    return out
+
+
+def _per_call_ms(traces, iters):
+    """Device milliseconds per call from traces of ``iters`` calls that may
+    have lost records: each kernel's launches per call (its recorded
+    launches over ``iters``, rounded up, which is right while it lost
+    fewer than ``iters`` records) times its mean time per recorded launch,
+    summed over the kernels of the trace with the most launches per call
+    (then the most records)."""
+    def per_call(e):
+        return -(-e.count // iters)
+
+    dev = max(traces, key=lambda d: (sum(map(per_call, d.values())),
+                                     sum(e.count for e in d.values())))
+    short = sorted((k[:60], e.count) for k, e in dev.items()
+                   if e.count % iters)
+    if short:
+        print(f"profiler: {iters} calls traced with lost records {short}; "
+              f"timed per recorded launch", flush=True)
+    return sum(per_call(e) * e.self_device_time_total / e.count
+               for e in dev.values()) / 1e3
+
+
+def _device_ms(fn, iters, symbol=None):
+    """Device milliseconds per call: the kernel time (CUPTI, through
+    ``torch.profiler``) of every device kernel a call launches
+    (:func:`_per_call_ms` of :func:`_traces`).  With ``symbol``, exactly
+    one kernel name matches it, and the result is its mean time per
+    recorded launch in one trace (taken again, at most PROFILE_ATTEMPTS
+    more times, while no kernel matches)."""
+    import torch
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    for attempt in range(1, PROFILE_ATTEMPTS + 1):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        dev = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-        if dev:
+    if symbol is None:
+        return _per_call_ms(_traces(fn, iters), iters)
+    # not preceded by a name character: quantize_int8_kernel must not
+    # match dequantize_int8_kernel (mangled or demangled names)
+    pat = re.compile(r"(^|[^A-Za-z_])" + symbol)
+    for _ in range(PROFILE_ATTEMPTS + 1):
+        dev = _trace(fn, iters)
+        hits = [e for k, e in dev.items() if pat.search(k)]
+        if hits:
             break
-        print(f"profiler: trace {attempt} of {iters} calls holds no device "
-              f"event", flush=True)
-    else:
-        raise AssertionError(f"profiler: no device event in "
-                             f"{PROFILE_ATTEMPTS} traces")
-    if symbol is not None:
-        # not preceded by a name character: quantize_int8_kernel must not
-        # match dequantize_int8_kernel (mangled or demangled names)
-        pat = re.compile(r"(^|[^A-Za-z_])" + symbol)
-        hits = [e for e in dev if pat.search(e.key)]
-        if len(hits) != 1 or not 0 < hits[0].count <= iters:
-            raise AssertionError(
-                f"profiler: expected up to {iters} launches of {symbol}, got "
-                f"{[(e.key, e.count) for e in hits]} among "
-                f"{[e.key for e in dev]}")
-        return hits[0].self_device_time_total / hits[0].count / 1e3
-    return sum(e.self_device_time_total for e in dev) / iters / 1e3
+    if len(hits) != 1 or not 0 < hits[0].count <= iters:
+        raise AssertionError(
+            f"profiler: expected up to {iters} launches of {symbol}, got "
+            f"{[(e.key, e.count) for e in hits]} among {list(dev)}")
+    return hits[0].self_device_time_total / hits[0].count / 1e3
+
+
+def _device_ms_flushed(fn, iters):
+    """Device milliseconds per call with L2 flushed before each call: a
+    ``bitwise_not_`` over L2_FLUSH_BYTES, then ``fn``; the time of ``fn``'s
+    kernels (the flush's own, whose name holds FLUSH_KERNEL, left out) as
+    :func:`_device_ms` reads it.  Every recorded launch of ``fn`` follows
+    its call's flush on the stream, whether or not the flush's record was
+    kept."""
+    import torch
+    buf = torch.zeros(L2_FLUSH_BYTES // 4, dtype=torch.int32, device="cuda")
+
+    def flushed():
+        buf.bitwise_not_()
+        fn()
+    for _ in range(3):
+        flushed()
+    torch.cuda.synchronize()
+    return _per_call_ms(_traces(flushed, iters, FLUSH_KERNEL), iters)
 
 
 def _nonfinite(shape, seed):
@@ -1224,7 +1321,8 @@ def _sdpa_library(q, k, v, causal, window):
 
 
 # phase 4b's rmsnorm shapes: the serving prefills' widths (smollm, mamba2
-# and its gated norm, gemma3 / recurrentgemma, internvl2, musicgen),
+# and its gated norm, gemma3 / recurrentgemma, internvl2, musicgen and
+# deepseek's norm1 / norm2 at d 2048, deepseek's kv_norm over the latent),
 # decode, gemma3's qk-norm over head_dim 256 (q's rows at prefill, k's at
 # a decode step), edges (d not a multiple of the vector, d past the
 # registers' 8192 float32)
@@ -1238,6 +1336,7 @@ RMS_SHAPES = (
     ("gemma3_prefill_d2560", (SERVE_BATCH, SERVE_PROMPT, 2560)),
     ("internvl2_prefill_d896", (SERVE_BATCH, SERVE_PROMPT, 896)),
     ("musicgen_prefill_d2048", (SERVE_BATCH, SERVE_PROMPT, 2048)),
+    ("deepseek_kv_norm_d512", (SERVE_BATCH, SERVE_PROMPT, 512)),
     ("gemma3_qk_norm_d256", (SERVE_BATCH * SERVE_PROMPT * 8, 256)),
     ("gemma3_decode_k_norm_d256", (SERVE_BATCH * 4, 256)),
     ("tiny_d6", (3, 6)),
@@ -1342,8 +1441,10 @@ LM_MAIN = {"rmsnorm": "smollm_prefill_d960",
            "rmsnorm_backward": "smollm_train_d960",
            "flash_attention": "smollm_prefill",
            "ssd_chunk_scan": "mamba2_prefill"}
-LM_ROW_KEYS = ("shape", "ms", "call_ms", "plain_ms", "library_ms",
-               "bound_ms", "bound_by", "bound_tc_ms", "max_abs_err")
+LM_ROW_KEYS = ("shape", "ms", "ms_flushed", "call_ms", "plain_ms",
+               "library_ms", "library_ms_flushed", "bound_ms", "bound_by",
+               "bound_tc_ms", "max_abs_err")
+FLUSHED_ITERS = 100
 
 
 def _lm_cases():
@@ -1483,6 +1584,13 @@ def check_lm_kernels():
                 bound_ms=max(bytes_ms, ops_ms),
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                 bytes=nbytes, flops=flops)
+            if name.startswith("rmsnorm"):
+                # back-to-back calls keep a working set under 50 MB in L2:
+                # these read x from HBM, as the bound assumes
+                row.update(
+                    ms_flushed=_device_ms_flushed(run_k, FLUSHED_ITERS),
+                    library_ms_flushed=_device_ms_flushed(run_lib,
+                                                          FLUSHED_ITERS))
         out[name][label] = row
         print(f"kernel {name:16s} {label:22s} shape={row['shape']} "
               f"max_abs_err={err:g} tol={tol:g} ok={ok}"
@@ -1492,6 +1600,9 @@ def check_lm_kernels():
                  f"bound_by={row['bound_by']}"
                  + (f" bound_tc_ms={row['bound_tc_ms']:.6f}"
                     if "bound_tc_ms" in row else "")
+                 + (f" ms_flushed={row['ms_flushed']:.6f} library_ms_flushed"
+                    f"={row['library_ms_flushed']:.6f}"
+                    if "ms_flushed" in row else "")
                  if timed else ""), flush=True)
         if not ok:
             bad.append(f"{name} {label}")
@@ -1503,16 +1614,21 @@ def check_lm_kernels():
 
 def _expected_launches(cfg, decode_steps=SERVE_STEPS):
     """Kernel launches a prefill and ``decode_steps`` decode steps imply:
-    per prefill one flash per attention layer (global or local) and one
-    SSD scan per SSM layer; per forward (prefill and each decode step) two
-    rmsnorms per layer (an SSM block's second is its gated norm), two more
-    per attention layer under qk-norm (q and k over head_dim), and the
-    final norm; none for an RG-LRU block's recurrence (plain PyTorch, as
-    the reference computes it outside any Pallas kernel)."""
-    from repro_torch.configs import ATTN, ATTN_LOCAL, SSM
+    per prefill one flash per attention layer (global, local or with an
+    MoE FFN) and one SSD scan per SSM layer; per forward (prefill and each
+    decode step) two rmsnorms per layer (an SSM block's second is its
+    gated norm), two more per attention layer under qk-norm (q and k over
+    head_dim), one more per MLA layer (``kv_norm`` over the latent: once,
+    as the port's prefill computes the latents once), and the final norm;
+    none for an RG-LRU block's recurrence, MLA's attention or an MoE FFN
+    (plain PyTorch, as the reference computes them outside any Pallas
+    kernel)."""
+    from repro_torch.configs import (ATTN, ATTN_LOCAL, ATTN_MOE, MLA_DENSE,
+                                     MLA_MOE, SSM)
     kinds = cfg.layer_types
-    attn = kinds.count(ATTN) + kinds.count(ATTN_LOCAL)
-    norms = 2 * len(kinds) + (2 * attn if cfg.qk_norm else 0) + 1
+    attn = sum(kinds.count(k) for k in (ATTN, ATTN_LOCAL, ATTN_MOE))
+    mla = kinds.count(MLA_DENSE) + kinds.count(MLA_MOE)
+    norms = 2 * len(kinds) + (2 * attn if cfg.qk_norm else 0) + mla + 1
     return {"flash_attention": attn,
             "ssd_chunk_scan": kinds.count(SSM),
             "rmsnorm": norms * (1 + decode_steps)}
@@ -1539,15 +1655,72 @@ def _logits_shape(cfg, rows):
     return (rows, 1, *k, cfg.padded_vocab)
 
 
-def serve_path(arch):
+def _plain_keep(expert_idx, n_experts, cap):
+    """The kept (token, choice) slots of one grouped dispatch, counted
+    plainly from its (g, tpg, k) expert choices (nested lists): in each
+    group, token by token and choice by choice, a slot is kept while fewer
+    than ``cap`` earlier slots of the group went to its expert."""
+    keep = []
+    for group in expert_idx:
+        seen = [0] * n_experts
+        rows = []
+        for choices in group:
+            row = []
+            for e in choices:
+                row.append(seen[e] < cap)
+                seen[e] += 1
+            rows.append(row)
+        keep.append(rows)
+    return keep
+
+
+def _count_moe_slots():
+    """Wrap the grouped MoE dispatch (``moe._experts_grouped``) to tally
+    the (token, expert) slots it routes and keeps, and to hold each call's
+    kept slots to :func:`_plain_keep` on the CPU, at the reference's
+    capacity formula (``src/repro/models/moe.py``).  Returns the tally and
+    the function that undoes the wrap."""
+    import numpy as np
+    from repro_torch.models import moe
+    grouped = moe._experts_grouped
+    tally = {"routed": 0, "kept": 0, "witnessed": 0}
+
+    def counted(p, cfg, xt, gate_vals, expert_idx, n_groups):
+        y, keep = grouped(p, cfg, xt, gate_vals, expert_idx, n_groups)
+        g, tpg, k = keep.shape
+        m = cfg.moe
+        cap = max(4, min(math.ceil(tpg * k / m.n_experts
+                                   * m.capacity_factor), tpg))
+        got = keep.cpu().numpy()
+        want = np.array(_plain_keep(
+            expert_idx.reshape(g, tpg, k).tolist(), m.n_experts, cap))
+        if got.shape != want.shape or not (got == want).all():
+            raise AssertionError(
+                f"grouped dispatch {tally['witnessed']}: kept slots differ "
+                f"from the plain count (cap {cap}) at "
+                f"{int((got != want).sum())} of {got.size}")
+        tally["routed"] += got.size
+        tally["kept"] += int(got.sum())
+        tally["witnessed"] += 1
+        return y, keep
+    moe._experts_grouped = counted
+    return tally, lambda: setattr(moe, "_experts_grouped", grouped)
+
+
+def serve_path(arch, card=""):
     """Phase 8: serve ``arch`` at full width and depth on the card, the
     launch counters zeroed just before and read just after; the SM clocks
     and the allocator's reserved bytes just before and just after that
-    serve, whose prefill is the first at full size.  Returns (config, params, serve result,
-    counts, timing row)."""
+    serve, whose prefill is the first at full size; for an MoE arch the
+    share of (token, expert) slots its grouped dispatch dropped, taken in
+    one more prefill of the same prompt that nothing times, each dispatch's
+    kept slots held to a plain count on the CPU (decode takes the dense
+    path, which drops nothing).  ``card`` (the card's name and power
+    limit) is printed on the serve line.  Returns (config, params, serve
+    result, counts, timing row)."""
     import torch
     from repro_torch import kernels
-    from repro_torch.configs import get_config
+    from repro_torch.configs import MLA_MOE, ATTN_MOE, get_config
     from repro_torch.device import resolve_device
     from repro_torch.launch import serve
     from repro_torch.models import transformer as T
@@ -1579,21 +1752,33 @@ def serve_path(arch):
     # the process's first full-size prefill (the counted one) against a
     # second: a first one can wait on cudaMalloc growing the allocator's
     # pool (scripts/profile_port.py times those calls)
-    again = serve.serve(cfg, params, batch=SERVE_BATCH,
+    prefill_again_s = serve.serve(cfg, params, batch=SERVE_BATCH,
+                                  prompt_len=SERVE_PROMPT,
+                                  decode_steps=0)["prefill_s"]
+    slots = {"routed": 0, "kept": 0, "witnessed": 0}
+    if cfg.moe is not None:
+        tally, unwrap = _count_moe_slots()
+        try:
+            serve.serve(cfg, params, batch=SERVE_BATCH,
                         prompt_len=SERVE_PROMPT, decode_steps=0)
+        finally:
+            unwrap()
+        slots = tally
     logits = res["logits"]
     want = dict.fromkeys(counts, 0)
     want.update(_expected_launches(cfg))
     timing = {"arch": arch, "params": n_params, "count_params": counted,
               "uncounted_params": uncounted, "cut": res["cut"],
               "init_s": init_s, "prefill_ms": 1e3 * res["prefill_s"],
-              "prefill_again_ms": 1e3 * again["prefill_s"],
+              "prefill_again_ms": 1e3 * prefill_again_s,
               "decode_ms_per_step": 1e3 * res["decode_s"] / SERVE_STEPS,
               "prefill_tokens_per_s":
                   SERVE_BATCH * SERVE_PROMPT / res["prefill_s"],
               "decode_tokens_per_s":
                   SERVE_BATCH * SERVE_STEPS / res["decode_s"],
-              "peak_mem_gb": peak_gb,
+              "peak_mem_gb": peak_gb, "moe_slots": slots,
+              "moe_dropped_share": (1 - slots["kept"] / slots["routed"]
+                                    if slots["routed"] else None),
               "first_prefill_probe": probe, "launches": counts}
     print(f"serve {arch} params={n_params} count_params={counted} "
           f"uncounted={uncounted} cut={res['cut']} "
@@ -1603,8 +1788,9 @@ def serve_path(arch):
           f"decode_ms_per_step={timing['decode_ms_per_step']:.3f} "
           f"prefill_tokens_per_s={timing['prefill_tokens_per_s']:.1f} "
           f"decode_tokens_per_s={timing['decode_tokens_per_s']:.1f} "
-          f"peak_mem_gb={timing['peak_mem_gb']:.3f} launches={counts}",
-          flush=True)
+          f"peak_mem_gb={timing['peak_mem_gb']:.3f} launches={counts} "
+          f"moe_slots={slots} moe_dropped_share="
+          f"{timing['moe_dropped_share']} card={card}", flush=True)
     for when in ("before_serve", "after_serve"):
         print(f"serve {arch} first_prefill {when} clocks(sm,max_sm,"
               f"throttle)={probe[when]['clocks']} reserved_gb="
@@ -1619,6 +1805,11 @@ def serve_path(arch):
         raise AssertionError(f"{arch}: sampled a token outside the vocab")
     if counts != want:
         raise AssertionError(f"{arch}: launches {counts}, expected {want}")
+    moe_layers = sum(cfg.layer_types.count(k) for k in (MLA_MOE, ATTN_MOE))
+    if cfg.moe is not None and (slots["witnessed"] != moe_layers
+                                or not 0 < slots["kept"] <= slots["routed"]):
+        raise AssertionError(f"{arch}: the prefill's grouped dispatch kept "
+                             f"{slots} over {moe_layers} MoE layers")
     return cfg, params, res, counts, timing
 
 
@@ -1626,6 +1817,13 @@ def serve_path(arch):
 # fills the local layers' rings with a nonzero shift and the flash kernel
 # masks keys left of the window
 TEACHER_S = {"gemma3-4b": 1088, "recurrentgemma-2b": 2112}
+# phase 9's rows per arch where not the served batch: deepseek's prefill at
+# batch 8 takes the grouped MoE path, which drops slots and regroups when
+# s changes while decode drops none, so prefill(s-1) + decode is not
+# prefill(s) there (nor in the reference); at batch 1 both sides take the
+# drop-free dense path (1024 x 64 x 1408 <= 2^27), and the phase holds
+# MLA's absorbed decode against its materialised prefill at full width
+TEACHER_ROWS = {"deepseek-v2-lite-16b": 1}
 
 
 def _split_last(cfg, batch):
@@ -1642,28 +1840,36 @@ def teacher_forcing(cfg, params, prompt):
     """Phase 9: at full width, prefill(s-1) + one decode step gives the
     last logits of prefill(s) within TEACHER_TOL.  ``prompt`` is the
     served prompt batch; an arch in TEACHER_S gets a prompt of that
-    length (seed 1) instead."""
+    length (seed 1) instead, one in TEACHER_ROWS the served prompt's
+    first rows (MoE: both forwards on the dense path, checked)."""
     import torch
     from repro_torch.launch import serve
+    from repro_torch.models import moe
     from repro_torch.models import transformer as T
     if cfg.name in TEACHER_S:
         gen = torch.Generator(device="cuda").manual_seed(1)
         prompt = serve.prompt_batch(cfg, gen, SERVE_BATCH,
                                     TEACHER_S[cfg.name])
+    rows = TEACHER_ROWS.get(cfg.name, SERVE_BATCH)
+    prompt = {k: v[:rows] for k, v in prompt.items()}
     s = serve.prompt_length(cfg, prompt)
+    if cfg.moe is not None and not moe.uses_dense_path(cfg, rows * s):
+        raise AssertionError(f"{cfg.name}: phase 9 at {rows} x {s} takes "
+                             f"the grouped MoE path")
     head, last_b = _split_last(cfg, prompt)
     with torch.no_grad():
-        full, _ = T.forward(params, cfg, prompt, "prefill", capacity=s)
+        full, _, _ = T.forward(params, cfg, prompt, "prefill", capacity=s)
         last = full[:, -1].clone()
         del full
-        _, caches = T.forward(params, cfg, head, "prefill", capacity=s)
-        dec, _ = T.forward(params, cfg, last_b, "decode", caches=caches,
-                           capacity=s, pos_offset=s - 1)
+        _, _, caches = T.forward(params, cfg, head, "prefill", capacity=s)
+        dec, _, _ = T.forward(params, cfg, last_b, "decode", caches=caches,
+                              capacity=s, pos_offset=s - 1)
     dec = dec[:, 0]
     err = float((dec - last).abs().max())
     ok = bool(((dec - last).abs()
                <= TEACHER_TOL + TEACHER_TOL * last.abs()).all())
-    print(f"teacher_forcing {cfg.name} s={s} max_abs_err={err:g} "
+    print(f"teacher_forcing {cfg.name} rows={rows} s={s} "
+          f"max_abs_err={err:g} "
           f"max_abs_logit={float(last.abs().max()):g} tol={TEACHER_TOL:g} "
           f"ok={ok}", flush=True)
     if not ok:
@@ -3008,7 +3214,7 @@ def main() -> int:
     # the port must be importable from this checkout before anything runs
     from repro_torch.device import set_float32_precision
     set_float32_precision()
-    card_line()
+    card = card_line()
     build_kernels()
     checks = check_kernels()
     launch_floor_ms()
@@ -3021,7 +3227,7 @@ def main() -> int:
     cpu_vs_card()
     serving = []
     for arch in SERVE_ARCHS:
-        cfg, params, res, counts, timing = serve_path(arch)
+        cfg, params, res, counts, timing = serve_path(arch, card)
         timing["teacher_forcing_err"] = teacher_forcing(cfg, params,
                                                         res["prompt"])
         serving.append(timing)

@@ -14,7 +14,8 @@
    round under ``chip_smoke.py`` phase 10k's faults on both schedules, and
    the first round of its ``streaming`` schedule with presence churn.
 3. Split-inference serving of smollm-360m, mamba2-780m, gemma3-4b,
-   recurrentgemma-2b, internvl2-1b and musicgen-large at full width
+   recurrentgemma-2b, internvl2-1b, musicgen-large and
+   deepseek-v2-lite-16b at full width
    (batch 8, prompt 1024, the default cut) after a warm-up at prompt 64,
    as ``chip_smoke.py`` serves: one profiled prefill (the process's first
    at full size), then 8 profiled decode steps.
@@ -347,7 +348,7 @@ def main() -> int:
     if "serve" in parts:
         result["serve"] = [serve_profile(a) for a in archs + (
             "gemma3-4b", "recurrentgemma-2b", "internvl2-1b",
-            "musicgen-large")]
+            "musicgen-large", "deepseek-v2-lite-16b")]
     if "train" in parts:
         result["train"] = [train_profile(a) for a in archs]
     if "city" in parts:

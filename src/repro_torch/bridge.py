@@ -13,7 +13,9 @@ dense / MLP weights, biases) is carried as is.
 
 LM lane: :func:`lm_params_to_torch` unstacks each segment's leading period
 axis into the port's per-period entries
-(``segments[segment][period][position]``) and keeps the einsum layouts;
+(``segments[segment][period][position]``) and keeps the einsum layouts and
+each leaf's dtype (MLA's projections and ``kv_norm``, an MoE FFN's experts,
+shared MLP and its float32 ``router`` are per-period slices like any leaf);
 :func:`lm_params_to_numpy` stacks them back, so a round trip is exact.
 :func:`lm_units_to_torch` / :func:`lm_units_to_numpy` do the same for the
 ``TransformerUnitModel`` layout ``(units, head)``.

@@ -4,19 +4,23 @@ reduced variant.  Every other arch id of the reference raises "not ported
 yet".
 
 A config that holds a layer whose training is not ported yet (a frontend,
-local attention, RG-LRU, qk-norm, non-rope positions, a non-SwiGLU MLP) is
-served (prefill and decode, ``launch/serve.py``) but not trained: the train
-step, ``launch/train.py`` and ``TransformerUnitModel`` refuse it
+local attention, RG-LRU, MLA, an MoE FFN, qk-norm, non-rope positions, a
+non-SwiGLU MLP) is served (prefill and decode, ``launch/serve.py``) but
+not trained: the train step, ``launch/train.py`` and
+``TransformerUnitModel`` refuse it
 (:func:`check_trainable`).  ``SERVE_ONLY`` lists the arch ids that hold
-one."""
+one.
+
+An arch whose ``param_dtype`` is ``"bfloat16"`` (``NOT_PORTED``) is refused:
+the port builds float32 parameters only."""
 from __future__ import annotations
 
 import importlib
 from typing import List
 
 from repro_torch.configs.base import (  # noqa: F401  (re-exported)
-    ATTN, ATTN_LOCAL, RGLRU, SSM, ArchConfig, RGLRUConfig, SSMConfig,
-    VOCAB_PAD, pad_vocab,
+    ATTN, ATTN_LOCAL, ATTN_MOE, MLA_DENSE, MLA_MOE, RGLRU, SSM, ArchConfig,
+    MLAConfig, MoEConfig, RGLRUConfig, SSMConfig, VOCAB_PAD, pad_vocab,
 )
 
 _MODULES = {
@@ -26,19 +30,23 @@ _MODULES = {
     "musicgen-large": "repro_torch.configs.musicgen_large",
     "gemma3-4b": "repro_torch.configs.gemma3_4b",
     "recurrentgemma-2b": "repro_torch.configs.recurrentgemma_2b",
+    "deepseek-v2-lite-16b": "repro_torch.configs.deepseek_v2_lite_16b",
+    "dbrx-132b": "repro_torch.configs.dbrx_132b",
 }
-# archs of the reference whose families the port does not have yet
-NOT_PORTED = ("deepseek-v2-lite-16b", "dbrx-132b", "command-r-35b",
-              "qwen3-14b")
-ARCH_IDS: List[str] = list(_MODULES)
+# archs of the reference whose param_dtype="bfloat16" the port does not
+# have yet (dbrx-132b's config is here, for its ATTN_MOE layers)
+NOT_PORTED = ("dbrx-132b", "command-r-35b", "qwen3-14b")
+ARCH_IDS: List[str] = [a for a in _MODULES if a not in NOT_PORTED]
 
 
 def get_config(name: str) -> ArchConfig:
     if name.endswith("-smoke"):
         return get_config(name[: -len("-smoke")]).reduced()
     if name in NOT_PORTED:
-        raise NotImplementedError(f"arch {name!r} is not ported yet; "
-                                  f"ported: {ARCH_IDS}")
+        raise NotImplementedError(
+            f"arch {name!r} is not ported yet: its param_dtype='bfloat16' "
+            f"needs bfloat16 parameters, and the port builds float32 ones; "
+            f"ported: {ARCH_IDS}")
     if name not in _MODULES:
         raise KeyError(f"unknown arch {name!r}; known: {ARCH_IDS}")
     return importlib.import_module(_MODULES[name]).CONFIG
@@ -50,8 +58,12 @@ def untrained_features(cfg: ArchConfig) -> List[str]:
     found = []
     if cfg.frontend != "none":
         found.append(f"frontend {cfg.frontend!r}")
-    found += [f"{k!r} layers" for k in (ATTN_LOCAL, RGLRU)
-              if k in cfg.pattern or k in cfg.tail]
+    kinds = set(cfg.pattern) | set(cfg.tail)
+    found += [f"{k!r} layers" for k in (ATTN_LOCAL, RGLRU) if k in kinds]
+    if kinds & {MLA_DENSE, MLA_MOE}:
+        found.append("MLA layers")
+    if kinds & {ATTN_MOE, MLA_MOE}:
+        found.append("MoE FFNs")
     if cfg.qk_norm:
         found.append("qk-norm")
     if cfg.pos != "rope":

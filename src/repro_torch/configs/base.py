@@ -1,11 +1,11 @@
 """Architecture configuration of the LM lane (twin of ``repro.configs.base``).
 
 The port keeps its own copy of what the ported families need: the layer ids
-``ATTN``, ``ATTN_LOCAL``, ``SSM`` and ``RGLRU``, :class:`SSMConfig`,
+``ATTN``, ``ATTN_LOCAL``, ``ATTN_MOE``, ``MLA_DENSE``, ``MLA_MOE``, ``SSM``
+and ``RGLRU``, :class:`MoEConfig`, :class:`MLAConfig`, :class:`SSMConfig`,
 :class:`RGLRUConfig`, :class:`ArchConfig` with its derived properties and
 :meth:`ArchConfig.reduced`, the vision / audio frontend fields, and the
-Megatron-style vocabulary padding.  Fields of families not ported yet (MoE,
-MLA) are absent; :func:`repro_torch.configs.get_config` refuses their archs.
+Megatron-style vocabulary padding.
 """
 from __future__ import annotations
 
@@ -15,6 +15,9 @@ from typing import Optional, Tuple
 # Layer-type ids understood by models/transformer.py
 ATTN = "attn"            # global attention + dense MLP
 ATTN_LOCAL = "attn_local"  # sliding-window attention + dense MLP
+ATTN_MOE = "attn_moe"    # global attention + MoE FFN
+MLA_DENSE = "mla_dense"  # multi-head latent attention + dense MLP
+MLA_MOE = "mla_moe"      # multi-head latent attention + MoE FFN
 SSM = "ssm"              # Mamba2 SSD block (no separate FFN)
 RGLRU = "rglru"          # RG-LRU recurrent block + dense MLP
 
@@ -23,6 +26,24 @@ VOCAB_PAD = 2048  # Megatron-style: pad embedding tables to a multiple of this
 
 def pad_vocab(v: int) -> int:
     return ((v + VOCAB_PAD - 1) // VOCAB_PAD) * VOCAB_PAD
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int            # routed experts
+    top_k: int
+    n_shared: int = 0         # shared (always-on) experts
+    d_ff_expert: int = 0      # expert hidden dim (0 -> use arch d_ff)
+    capacity_factor: float = 1.25
+    aux_loss_weight: float = 0.01
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    kv_lora_rank: int = 512
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_head_dim: int = 128
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,7 +66,7 @@ class RGLRUConfig:
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str               # dense | ssm | hybrid | vlm | audio
+    family: str               # dense | moe | ssm | hybrid | vlm | audio
     source: str               # citation (paper / model card)
     n_layers: int
     d_model: int
@@ -64,6 +85,8 @@ class ArchConfig:
     pos: str = "rope"
     mlp_variant: str = "swiglu"
     logit_softcap: float = 0.0
+    moe: Optional[MoEConfig] = None
+    mla: Optional[MLAConfig] = None
     ssm: Optional[SSMConfig] = None
     rglru: Optional[RGLRUConfig] = None
     # modality frontend stub ("none" | "vision" | "audio")
@@ -100,13 +123,24 @@ class ArchConfig:
         return count_params(self)
 
     def reduced(self) -> "ArchConfig":
-        """Smoke-test variant: one period, d_model <= 256 (the reference's
-        rule, field for field)."""
+        """Smoke-test variant: one period, d_model <= 256, <= 4 experts
+        (the reference's rule, field for field)."""
         d = min(self.d_model, 256)
         n_heads = max(1, min(self.n_heads, 4))
         n_kv = max(1, min(self.n_kv_heads, n_heads))
         while n_heads % n_kv:
             n_kv -= 1
+        moe = None
+        if self.moe is not None:
+            moe = dataclasses.replace(
+                self.moe, n_experts=min(self.moe.n_experts, 4),
+                top_k=min(self.moe.top_k, 2),
+                n_shared=min(self.moe.n_shared, 1),
+                d_ff_expert=min(self.moe.d_ff_expert or 128, 128))
+        mla = None
+        if self.mla is not None:
+            mla = MLAConfig(kv_lora_rank=64, qk_nope_dim=32, qk_rope_dim=16,
+                            v_head_dim=32)
         ssm = None
         if self.ssm is not None:
             ssm = dataclasses.replace(self.ssm, d_state=16, head_dim=16,
@@ -121,5 +155,6 @@ class ArchConfig:
             d_ff=min(self.d_ff, 512) or 0,
             vocab_size=min(self.vocab_size, 512),
             window=min(self.window, 16) if self.window else 0,
-            ssm=ssm, rglru=rglru, n_patches=min(self.n_patches, 8),
+            moe=moe, mla=mla, ssm=ssm, rglru=rglru,
+            n_patches=min(self.n_patches, 8),
             default_cut=1)

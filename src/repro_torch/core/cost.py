@@ -110,31 +110,39 @@ def resnet_profile() -> SplitProfile:
 
 
 def arch_profile(cfg, seq: int, param_bytes_per: int = 2) -> SplitProfile:
-    """SplitProfile of an LM arch at period granularity, for the ported
-    layer kinds (attention, local attention, SSM, RG-LRU); smashed data =
-    (seq, d_model) activations at the period boundary."""
+    """SplitProfile of an LM arch at period granularity (every layer kind:
+    attention, local attention, attention + MoE, MLA + dense / MoE, SSM,
+    RG-LRU); smashed data = (seq, d_model) activations at the period
+    boundary."""
     import dataclasses as dc
 
-    from repro_torch.configs.base import ATTN, ATTN_LOCAL, RGLRU, SSM
+    from repro_torch.configs.base import (ATTN, ATTN_LOCAL, ATTN_MOE,
+                                          MLA_DENSE, MLA_MOE, RGLRU, SSM)
     from repro_torch.models import transformer as T
     from repro_torch.models.attention import attn_flops
     from repro_torch.models.layers import mlp_flops
+    from repro_torch.models.mla import mla_flops
+    from repro_torch.models.moe import moe_flops
     from repro_torch.models.rglru import rglru_flops
     from repro_torch.models.ssm import ssm_flops
 
     def layer_flops(kind: str) -> float:
         if kind == SSM:
             return float(ssm_flops(cfg, seq, "train"))
-        if kind == ATTN:
+        if kind in (ATTN, ATTN_MOE):
             f = attn_flops(cfg, seq)
         elif kind == ATTN_LOCAL:
             f = attn_flops(cfg, seq, cfg.window)
+        elif kind in (MLA_DENSE, MLA_MOE):
+            f = mla_flops(cfg, seq)
         elif kind == RGLRU:
             f = rglru_flops(cfg)
         else:
-            raise NotImplementedError(f"layer kind {kind!r} is not ported "
-                                      f"yet")
-        f += mlp_flops(cfg.d_model, cfg.d_ff, cfg.mlp_variant)
+            raise ValueError(kind)
+        if kind in (ATTN_MOE, MLA_MOE):
+            f += moe_flops(cfg)
+        else:
+            f += mlp_flops(cfg.d_model, cfg.d_ff, cfg.mlp_variant)
         return float(f)
 
     # the audio frontend's K codebook embeddings and heads

@@ -58,8 +58,8 @@ class TransformerUnitModel:
                 x = T.embed_inputs(u, cfg, {"tokens": x}, positions)
             else:
                 _, pat = self._period_seg[i - 1]
-                x, _ = T._scan_segment([u], cfg, pat, x, "train", positions,
-                                       None, 0, remat=False)
+                x, _, _ = T._scan_segment([u], cfg, pat, x, "train",
+                                          positions, None, 0, remat=False)
         return x
 
     def head_loss(self, head, feats, labels):

@@ -6,6 +6,11 @@ The cut is at *period* granularity (:mod:`repro_torch.models.transformer`).
 parameter tensors (no copies).  In ``train`` mode both halves run their
 periods with remat on by default, as the reference's ``_run_sliced``
 always does; ``remat=False`` keeps every period's activations instead.
+The caches are whatever each layer kind keeps (attention's K / V, MLA's
+latent ``c_kv`` / ``k_rope``, SSM and RG-LRU states), carried per period.
+The MoE layers' aux loss is not returned: the split steps serve, and the
+train step refuses a config with an MoE layer
+(:func:`repro_torch.configs.check_trainable`).
 """
 from __future__ import annotations
 
@@ -87,8 +92,8 @@ def _run_sliced(sliced_segments, cfg: ArchConfig, x, mode, positions,
             out_caches.append(None)
             continue
         seg_c = caches[si] if caches is not None else None
-        x, nc = T._scan_segment(seg, cfg, pat, x, mode, positions, seg_c,
-                                capacity, remat)
+        x, _, nc = T._scan_segment(seg, cfg, pat, x, mode, positions,
+                                   seg_c, capacity, remat)
         out_caches.append(nc)
     return x, tuple(out_caches)
 

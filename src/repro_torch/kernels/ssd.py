@@ -38,9 +38,9 @@ Autograd.  :func:`ssd_chunk_scan` is a ``torch.autograd.Function``: its
 forward is the kernels (the plain version on the CPU); its backward is
 ``torch.func.vjp`` of :func:`ssd_chunked` on the saved inputs, plain
 PyTorch that recomputes the chunked scan (the JAX package has no backward
-kernel; a hand-written reverse chunk scan is ROADMAP B.6).  The state's
-gradient may be ``None`` (training drops the state): the backward then
-differentiates y alone.  Its ``vmap`` rule folds a vmapped axis that only
+kernel; a hand-written reverse chunk scan is still to be written).  The
+state's gradient may be ``None`` (training drops the state): the backward
+then differentiates y alone.  Its ``vmap`` rule folds a vmapped axis that only
 the activations x, dt, B and C carry into the batch ``b`` (one call);
 where ``A`` carries it (``-exp(A_log)`` of a parameter per replica, as
 under ``CohortEngine``'s ``vmap``) it loops over the replicas, one call

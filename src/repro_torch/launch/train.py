@@ -107,8 +107,9 @@ def main(argv=None) -> int:
                     help="cuda (the default; raises without a card) or cpu")
     args = ap.parse_args(argv)
     if args.shape is not None or args.multi_pod:
-        raise NotImplementedError("--shape / --multi-pod needs the mesh, "
-                                  "not ported yet (A.8)")
+        raise NotImplementedError("--shape / --multi-pod needs the device "
+                                  "mesh on torch.distributed, which is not "
+                                  "ported yet")
 
     cfg = get_config(args.arch)
     if args.smoke:

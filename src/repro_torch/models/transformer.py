@@ -1,8 +1,10 @@
 """Config-driven assembly of the LM lane (twin of
-``repro.models.transformer``) for the ported layer kinds ``ATTN``,
-``ATTN_LOCAL`` (sliding window ``cfg.window``), ``SSM`` and ``RGLRU``, with
-text, vision (patch embeddings prepended) and audio (codebook embeddings
-summed, one head per codebook) inputs.
+``repro.models.transformer``) for every layer kind of the reference:
+``ATTN``, ``ATTN_LOCAL`` (sliding window ``cfg.window``), ``ATTN_MOE``
+(attention + an MoE FFN), ``MLA_DENSE`` / ``MLA_MOE`` (multi-head latent
+attention + a dense or MoE FFN), ``SSM`` and ``RGLRU``, with text, vision
+(patch embeddings prepended) and audio (codebook embeddings summed, one
+head per codebook) inputs.
 
 The stack is a list of *segments*; a segment repeats a pattern of layer
 kinds over ``n_periods``.  The reference stacks each segment's parameters
@@ -18,8 +20,10 @@ caches).  In ``train`` mode with ``remat`` each period runs under
 ``torch.utils.checkpoint`` (non-reentrant): its activations are recomputed
 in the backward, the reference's ``jax.checkpoint`` of the scan body with
 the default (full recompute) policy; the ``dots`` policy is not ported.
-No ported layer has an auxiliary loss, so the functions return no ``aux``
-(:func:`loss_fn` reports it as 0).
+An MoE FFN returns the router's aux load-balance loss; :func:`forward_core`
+and :func:`forward` return its sum over the layers they ran (the float
+0.0 where none is an MoE layer), and :func:`loss_fn` adds it to the loss,
+as the reference does.
 """
 from __future__ import annotations
 
@@ -28,21 +32,30 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ATTN, ATTN_LOCAL, RGLRU, SSM, ArchConfig
+from repro_torch.configs.base import (ATTN, ATTN_LOCAL, ATTN_MOE, MLA_DENSE,
+                                      MLA_MOE, RGLRU, SSM, ArchConfig)
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import mla as M
+from repro_torch.models import moe as E
 from repro_torch.models import rglru as R
 from repro_torch.models import ssm as S
 
 Params = Dict[str, Any]
 MODES = ("train", "prefill", "decode")
-KINDS = (ATTN, ATTN_LOCAL, SSM, RGLRU)
-_ATTN_KINDS = (ATTN, ATTN_LOCAL)
+KINDS = (ATTN, ATTN_LOCAL, ATTN_MOE, MLA_DENSE, MLA_MOE, SSM, RGLRU)
+_ATTN_KINDS = (ATTN, ATTN_LOCAL, ATTN_MOE)
+_MLA_KINDS = (MLA_DENSE, MLA_MOE)
+_MOE_KINDS = (ATTN_MOE, MLA_MOE)
 
 
 def _not_ported(what: str):
     return NotImplementedError(f"{what} is not ported yet (the port has "
                                f"layer kinds {KINDS}, modes {MODES})")
+
+
+def _unknown_kind(kind: str):
+    return ValueError(f"unknown layer kind {kind!r}; known: {KINDS}")
 
 
 def init_layer(gen: torch.Generator, cfg: ArchConfig, kind: str,
@@ -51,15 +64,21 @@ def init_layer(gen: torch.Generator, cfg: ArchConfig, kind: str,
     p: Params = {"norm1": L.init_rmsnorm(cfg.d_model, dtype, dev)}
     if kind in _ATTN_KINDS:
         p["mixer"] = A.init_attn(gen, cfg, dtype)
+    elif kind in _MLA_KINDS:
+        p["mixer"] = M.init_mla(gen, cfg, dtype)
     elif kind == SSM:
         p["mixer"] = S.init_ssm(gen, cfg, dtype)
         return p  # the mamba block has no separate FFN
     elif kind == RGLRU:
         p["mixer"] = R.init_rglru(gen, cfg, dtype)
     else:
-        raise _not_ported(f"layer kind {kind!r}")
+        raise _unknown_kind(kind)
     p["norm2"] = L.init_rmsnorm(cfg.d_model, dtype, dev)
-    p["ffn"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp_variant, dtype)
+    if kind in _MOE_KINDS:
+        p["ffn"] = E.init_moe(gen, cfg, dtype)
+    else:
+        p["ffn"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp_variant,
+                              dtype)
     return p
 
 
@@ -69,10 +88,12 @@ def _window(cfg: ArchConfig, kind: str) -> int:
 
 def apply_layer(p: Params, cfg: ArchConfig, kind: str, x: torch.Tensor,
                 mode: str, positions, cache, capacity: int
-                ) -> Tuple[torch.Tensor, Any]:
-    """Returns (x, new_cache)."""
+                ) -> Tuple[torch.Tensor, Any, Any]:
+    """Returns (x, aux_loss, new_cache); ``aux_loss`` is the float 0.0
+    but for an MoE FFN."""
     if mode not in MODES:
         raise _not_ported(f"mode {mode!r}")
+    aux = 0.0
     h = L.rmsnorm(p["norm1"], x)
     new_cache = None
     if kind in _ATTN_KINDS:
@@ -84,6 +105,14 @@ def apply_layer(p: Params, cfg: ArchConfig, kind: str, x: torch.Tensor,
                                           capacity, w)
         else:
             h, new_cache = A.attn_decode(p["mixer"], cfg, h, cache, w)
+    elif kind in _MLA_KINDS:
+        if mode == "train":
+            h = M.mla_train(p["mixer"], cfg, h, positions)
+        elif mode == "prefill":
+            h, new_cache = M.mla_prefill(p["mixer"], cfg, h, positions,
+                                         capacity)
+        else:
+            h, new_cache = M.mla_decode(p["mixer"], cfg, h, cache)
     elif kind == RGLRU:
         if mode == "train":
             h = R.rglru_train(p["mixer"], cfg, h)
@@ -98,12 +127,16 @@ def apply_layer(p: Params, cfg: ArchConfig, kind: str, x: torch.Tensor,
             h, new_cache = S.ssm_prefill(p["mixer"], cfg, h)
         else:
             h, new_cache = S.ssm_decode(p["mixer"], cfg, h, cache)
-        return x + h, new_cache
+        return x + h, aux, new_cache
     else:
-        raise _not_ported(f"layer kind {kind!r}")
+        raise _unknown_kind(kind)
     x = x + h
     h = L.rmsnorm(p["norm2"], x)
-    return x + L.mlp(p["ffn"], h, cfg.mlp_variant), new_cache
+    if kind in _MOE_KINDS:
+        h, aux = E.moe_forward(p["ffn"], cfg, h)
+    else:
+        h = L.mlp(p["ffn"], h, cfg.mlp_variant)
+    return x + h, aux, new_cache
 
 
 def init_layer_cache(cfg: ArchConfig, kind: str, batch: int, capacity: int,
@@ -111,11 +144,13 @@ def init_layer_cache(cfg: ArchConfig, kind: str, batch: int, capacity: int,
     if kind in _ATTN_KINDS:
         return A.init_cache(cfg, batch, capacity, _window(cfg, kind), dtype,
                             device)
+    if kind in _MLA_KINDS:
+        return M.init_mla_cache(cfg, batch, capacity, dtype, device)
     if kind == SSM:
         return S.init_ssm_cache(cfg, batch, dtype, device)
     if kind == RGLRU:
         return R.init_rglru_cache(cfg, batch, dtype, device)
-    raise _not_ported(f"layer kind {kind!r}")
+    raise _unknown_kind(kind)
 
 
 def segments_of(cfg: ArchConfig) -> List[Tuple[Tuple[str, ...], int]]:
@@ -131,12 +166,13 @@ def total_periods(cfg: ArchConfig) -> int:
 
 def _run_period(period, cfg: ArchConfig, pattern, x: torch.Tensor,
                 mode: str, positions, pc, capacity: int):
-    new = []
+    new, aux = [], 0.0
     for i, kind in enumerate(pattern):
-        x, nc = apply_layer(period[i], cfg, kind, x, mode, positions,
-                            pc[i] if pc is not None else None, capacity)
+        x, a, nc = apply_layer(period[i], cfg, kind, x, mode, positions,
+                               pc[i] if pc is not None else None, capacity)
+        aux = aux + a
         new.append(nc)
-    return x, tuple(new)
+    return x, aux, tuple(new)
 
 
 def _scan_segment(periods, cfg: ArchConfig, pattern, x: torch.Tensor,
@@ -145,21 +181,24 @@ def _scan_segment(periods, cfg: ArchConfig, pattern, x: torch.Tensor,
     """Run the given periods of one segment in order (the reference's
     ``lax.scan`` over stacked periods).  ``caches`` holds one entry per
     period in decode mode; ``remat`` (train mode only) recomputes each
-    period in the backward.  Returns (x, per-period caches)."""
-    out = []
+    period in the backward.  Returns (x, aux loss summed over the periods,
+    per-period caches)."""
+    out, aux = [], 0.0
     for k, period in enumerate(periods):
         if remat and mode == "train":
-            x = checkpoint(
+            x, a = checkpoint(
                 lambda pp, h: _run_period(pp, cfg, pattern, h, mode,
-                                          positions, None, capacity)[0],
+                                          positions, None, capacity)[:2],
                 period, x, use_reentrant=False)
+            aux = aux + a
             out.append((None,) * len(pattern))
             continue
         pc = caches[k] if caches is not None else None
-        x, new = _run_period(period, cfg, pattern, x, mode, positions, pc,
-                             capacity)
+        x, a, new = _run_period(period, cfg, pattern, x, mode, positions,
+                                pc, capacity)
+        aux = aux + a
         out.append(new)
-    return x, out
+    return x, aux, out
 
 
 def init_params(gen: torch.Generator, cfg: ArchConfig,
@@ -221,21 +260,23 @@ def forward_core(p: Params, cfg: ArchConfig, x: torch.Tensor, mode: str,
     """Run periods [start, end) of the stack.  ``caches`` (decode) covers
     every period of each segment, as :func:`init_caches` with the default
     range or a prefill returns it; ``remat`` acts in train mode only.
-    Returns (x, caches)."""
+    Returns (x, aux loss, caches)."""
     end = total_periods(cfg) if end is None else end
     out_caches = []
+    aux = 0.0
     off = 0
     for si, (pat, n) in enumerate(segments_of(cfg)):
         lo, hi = max(start - off, 0), min(end - off, n)
         if lo < hi:
             seg_c = caches[si][lo:hi] if caches is not None else None
-            x, nc = _scan_segment(p["segments"][si][lo:hi], cfg, pat, x,
-                                  mode, positions, seg_c, capacity, remat)
+            x, a, nc = _scan_segment(p["segments"][si][lo:hi], cfg, pat, x,
+                                     mode, positions, seg_c, capacity, remat)
+            aux = aux + a
             out_caches.append(nc)
         else:
             out_caches.append(None)
         off += n
-    return x, tuple(out_caches)
+    return x, aux, tuple(out_caches)
 
 
 def init_caches(cfg: ArchConfig, batch: int, capacity: int,
@@ -276,21 +317,22 @@ def positions_of(cfg: ArchConfig, batch, mode: str,
 def forward(p: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
             mode: str = "prefill", caches=None, capacity: int = 0,
             pos_offset: int = 0, remat: bool = False):
-    """Full model: embed -> stack -> head.  Returns (logits, caches)."""
+    """Full model: embed -> stack -> head.  Returns (logits, aux loss,
+    caches)."""
     positions = positions_of(cfg, batch, mode, pos_offset)
     x = embed_inputs(p, cfg, batch, positions)
-    x, caches = forward_core(p, cfg, x, mode, positions, caches, capacity,
-                             remat=remat)
-    return unembed(p, cfg, x), caches
+    x, aux, caches = forward_core(p, cfg, x, mode, positions, caches,
+                                  capacity, remat=remat)
+    return unembed(p, cfg, x), aux, caches
 
 
 def loss_fn(p: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
             remat: bool = False) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Mean next-token cross-entropy of the full model in train mode (audio:
     over the K codebooks of each frame; vision: on the text positions).
-    Returns (loss, {"ce", "aux"}); ``aux`` is 0 (no ported layer has an
-    auxiliary loss)."""
-    logits, _ = forward(p, cfg, batch, "train", remat=remat)
+    Returns (ce + aux, {"ce", "aux"}): ``aux`` is the MoE layers' summed
+    load-balance loss (0 without one)."""
+    logits, aux, _ = forward(p, cfg, batch, "train", remat=remat)
     if cfg.frontend == "audio":
         ce = L.cross_entropy(logits, batch["codes"].transpose(1, 2),
                              cfg.vocab_size)
@@ -298,21 +340,28 @@ def loss_fn(p: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
         if cfg.frontend == "vision":
             logits = logits[:, cfg.n_patches:]
         ce = L.cross_entropy(logits, batch["labels"], cfg.vocab_size)
-    aux = torch.zeros((), dtype=torch.float32, device=ce.device)
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=ce.device)
     return ce + aux, {"ce": ce, "aux": aux}
 
 
 def count_params(cfg: ArchConfig) -> int:
-    """Analytic parameter count of the ported layer kinds, the reference's
-    formula term for term (roofline MODEL_FLOPS = 6 N D).  Like the
-    reference's, it leaves out the qk-norm scales (2 * head_dim per
-    attention layer) and RG-LRU's ``lam`` (d_rnn per RG-LRU layer)."""
+    """Analytic parameter count, the reference's formula term for term
+    (roofline MODEL_FLOPS = 6 N D).  Like the reference's, it leaves out
+    the qk-norm scales (2 * head_dim per attention layer) and RG-LRU's
+    ``lam`` (d_rnn per RG-LRU layer); it counts every value of an MLA
+    layer and an MoE FFN."""
     d, ff, vp = cfg.d_model, cfg.d_ff, cfg.padded_vocab
     total = 0
     for kind in cfg.layer_types:
         n = 2 * d  # norms
         if kind in _ATTN_KINDS:
             n += d * cfg.head_dim_ * (cfg.n_heads * 2 + cfg.n_kv_heads * 2)
+        elif kind in _MLA_KINDS:
+            m = cfg.mla
+            qk = m.qk_nope_dim + m.qk_rope_dim
+            n += d * (cfg.n_heads * qk + m.kv_lora_rank + m.qk_rope_dim)
+            n += m.kv_lora_rank * cfg.n_heads * (m.qk_nope_dim + m.v_head_dim)
+            n += cfg.n_heads * m.v_head_dim * d + m.kv_lora_rank
         elif kind == SSM:
             d_inner, n_heads, conv_dim = S.dims(cfg)
             n = d + d * (2 * d_inner + 2 * cfg.ssm.n_groups * cfg.ssm.d_state
@@ -326,8 +375,13 @@ def count_params(cfg: ArchConfig) -> int:
             n += (d * dr * 2 + dr * d + 2 * dr * dr + 3 * dr
                   + cfg.rglru.d_conv * dr)
         else:
-            raise _not_ported(f"layer kind {kind!r}")
-        n += (3 if cfg.mlp_variant in ("swiglu", "geglu") else 2) * d * ff
+            raise _unknown_kind(kind)
+        if kind in _MOE_KINDS:
+            m = cfg.moe
+            n += d * m.n_experts  # router
+            n += (m.n_experts + m.n_shared) * 3 * d * (m.d_ff_expert or ff)
+        else:
+            n += (3 if cfg.mlp_variant in ("swiglu", "geglu") else 2) * d * ff
         total += n
     k = cfg.n_codebooks if cfg.frontend == "audio" else 1
     return total + 2 * vp * d * k + d

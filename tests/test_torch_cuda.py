@@ -15,9 +15,9 @@ the scenario path (K = 4 windows equal to K = 1 on the card, the codec
 launch formula under dropouts, the two-cell trace with both planes on
 against the CPU), the reduced city paged (card against CPU, two runs bit
 for bit, launches per page, the paged peak memory below the unpaged),
-resnet18 under vmap against the loop
-on the card, and the reduced LM configs served on cuda against the CPU.  Needs a CUDA card and
-nvcc:
+resnet18 under vmap against the loop on the card, the reduced LM configs
+served on cuda against the CPU, and the MoE's grouped dispatch with drops
+on cuda against the CPU.  Needs a CUDA card and nvcc:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 
@@ -782,7 +782,8 @@ def test_reduced_lm_serving_on_cuda_matches_cpu(dev, arch):
 
 
 @pytest.mark.parametrize("arch", ["gemma3-4b", "recurrentgemma-2b",
-                                  "internvl2-1b", "musicgen-large"])
+                                  "internvl2-1b", "musicgen-large",
+                                  "deepseek-v2-lite-16b"])
 def test_reduced_family_serving_on_cuda_matches_cpu(dev, arch):
     """The reduced dense / hybrid / vision / audio archs at their own depth
     (past the window of 16): prefill + 3 decode steps on the card and on
@@ -816,6 +817,38 @@ def test_reduced_family_serving_on_cuda_matches_cpu(dev, arch):
     assert {k: grew[k] for k in want} == want
     for a, b in zip(outs["cpu"], outs[str(dev)]):
         torch.testing.assert_close(b, a, rtol=2e-4, atol=2e-4)
+
+
+def test_moe_grouped_path_on_cuda_matches_cpu(dev):
+    """The reduced deepseek MoE's grouped GShard dispatch at capacity
+    factor 0.5 (2,400 tokens, 2 groups): the router's choices equal on
+    the card and the CPU; from the same choices, the kept slots equal with
+    some dropped, and the outputs within 1e-5 of the largest."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as E
+    from repro_torch.tree import tree_map
+    cfg = get_config("deepseek-v2-lite-16b-smoke")
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=0.5))
+    p = E.init_moe(torch.Generator().manual_seed(0), cfg)
+    x = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(2400, cfg.d_model)).astype(np.float32))
+    assert E._pick_groups(2400) == 2
+    _, gates, idx, _ = E._route(p, cfg, x)
+    outs = {}
+    for where in ("cpu", dev):
+        pp = tree_map(lambda a: a.to(where), p)
+        _, _, card_idx, _ = E._route(pp, cfg, x.to(where))
+        y, keep = E._experts_grouped(pp, cfg, x.to(where), gates.to(where),
+                                     idx.to(where), None)
+        outs[str(where)] = (card_idx.cpu(), y.cpu(), keep.cpu())
+    (i_c, y_c, k_c), (i_d, y_d, k_d) = outs["cpu"], outs[str(dev)]
+    assert torch.equal(i_d, i_c)
+    assert torch.equal(k_d, k_c) and 0 < int(k_c.sum()) < k_c.numel()
+    err = float((y_d - y_c).abs().max())
+    assert err <= 1e-5 * float(y_c.abs().max()), err
 
 
 # ------------------------------------------------------- LM autograd

@@ -71,9 +71,9 @@ def test_configs_match_reference(arch):
 
 
 def test_registry_holds_the_served_families():
-    assert set(FAMILIES) <= set(ARCH_IDS) and set(SERVE_ONLY) == set(FAMILIES)
-    assert NOT_PORTED == ("deepseek-v2-lite-16b", "dbrx-132b",
-                          "command-r-35b", "qwen3-14b")
+    assert set(FAMILIES) <= set(ARCH_IDS)
+    assert set(SERVE_ONLY) == set(FAMILIES) | {"deepseek-v2-lite-16b"}
+    assert NOT_PORTED == ("dbrx-132b", "command-r-35b", "qwen3-14b")
     from repro.configs import ARCH_IDS as REF_IDS
     assert sorted(ARCH_IDS + list(NOT_PORTED)) == sorted(REF_IDS)
 
@@ -257,8 +257,8 @@ def test_prefill_logits_match_reference(arch):
     batch = lm_stream(tcfg, 2, 37)[0]
     fwd = jax.jit(lambda p, b: JT.forward(p, jcfg, b, "train")[0])
     jlogits = np.asarray(fwd(params, batch))
-    logits, caches = T.forward(tparams, tcfg, lm_batch_to_torch(batch),
-                               "prefill", capacity=40)
+    logits, _, caches = T.forward(tparams, tcfg, lm_batch_to_torch(batch),
+                                  "prefill", capacity=40)
     k = (tcfg.n_codebooks,) if tcfg.frontend == "audio" else ()
     assert logits.shape == (2, 37, *k, tcfg.padded_vocab)
     np.testing.assert_allclose(logits.numpy(), jlogits, rtol=LOGIT_TOL,
@@ -287,10 +287,10 @@ def test_prefill_then_decode_matches_teacher_forcing(arch):
     else:
         head = dict(full_b, tokens=full_b["tokens"][:, :-1])
         last = {"tokens": full_b["tokens"][:, -1:]}
-    full, _ = T.forward(tparams, tcfg, full_b, "prefill", capacity=cap)
-    _, caches = T.forward(tparams, tcfg, head, "prefill", capacity=cap)
-    dec, _ = T.forward(tparams, tcfg, last, "decode", caches=caches,
-                       capacity=cap, pos_offset=s - 1)
+    full, _, _ = T.forward(tparams, tcfg, full_b, "prefill", capacity=cap)
+    _, _, caches = T.forward(tparams, tcfg, head, "prefill", capacity=cap)
+    dec, _, _ = T.forward(tparams, tcfg, last, "decode", caches=caches,
+                          capacity=cap, pos_offset=s - 1)
     np.testing.assert_allclose(dec[:, 0].numpy(), full[:, -1].numpy(),
                                rtol=LOGIT_TOL, atol=LOGIT_TOL)
 

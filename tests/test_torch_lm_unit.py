@@ -98,7 +98,7 @@ def test_units_equal_the_monolithic_forward(arch):
     head = {"final_norm": params["final_norm"], "head": params["head"]}
     tok = torch.from_numpy(_tokens(tcfg)[:, :-1].astype(np.int64))
     with torch.no_grad():
-        want, _ = T.forward(params, tcfg, {"tokens": tok}, "train")
+        want, _, _ = T.forward(params, tcfg, {"tokens": tok}, "train")
         mid = tm.apply_units(units[:2], tok, 0)
         got = tm.head_predict(head, tm.apply_units(units[2:], mid, 2))
     assert tm.n_units == 4
