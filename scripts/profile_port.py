@@ -14,11 +14,11 @@
    round under ``chip_smoke.py`` phase 10k's faults on both schedules, and
    the first round of its ``streaming`` schedule with presence churn.
 3. Split-inference serving of smollm-360m, mamba2-780m, gemma3-4b,
-   recurrentgemma-2b, internvl2-1b, musicgen-large and
-   deepseek-v2-lite-16b at full width
+   recurrentgemma-2b, internvl2-1b, musicgen-large, deepseek-v2-lite-16b
+   and the bfloat16 qwen3-14b and command-r-35b at full width
    (batch 8, prompt 1024, the default cut) after a warm-up at prompt 64,
-   as ``chip_smoke.py`` serves: one profiled prefill (the process's first
-   at full size), then 8 profiled decode steps.
+   as ``chip_smoke.py`` serves: a profiled prefill (the first run is the
+   process's first at full size), then 8 profiled decode steps.
 4. One sync-SFL train step of smollm-360m and of mamba2-780m at full width
    (batch 8, seq 1024, the default cut, adamw, clip 1.0, remat) after one
    warm-up step, as ``chip_smoke.py`` phase 10g trains.
@@ -35,7 +35,10 @@ times per client batch step can be compared within one process.
 For each: wall time, device busy share (summed kernel time / wall), and
 the kernels that take the most device time, by name; for serving also the
 host's time in ``cudaMalloc`` and its calls (the caching allocator growing
-its pool).  The kernels' own times are measured by ``chip_smoke.py``.
+its pool, in the first run).  CUPTI drops runs of kernel records, so each
+profile traces its run twice (from the same start) and reads the trace
+that kept the most launches, printing both counts when they differ.  The
+kernels' own times are measured by ``chip_smoke.py``.
 
 Needs a CUDA card and nvcc; imports neither jax nor repro.
 """
@@ -60,45 +63,45 @@ def _is_device_kernel(evt) -> bool:
     return evt.device_type == torch.autograd.DeviceType.CUDA
 
 
-def round_profile(mode: str, top: int = 12):
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+def _fresh_runs(sim, counter):
+    """(reset, run) for :func:`_profiled` of an engine's rounds from a
+    fresh start: ``reset`` resets ``sim`` and the launch counters; ``run``
+    returns the rounds' metrics, the client batch steps ``counter`` took
+    and the launches."""
+    from repro_torch import kernels
+    base = {}
 
-    from repro_torch import api, kernels
+    def reset():
+        sim.reset()
+        kernels.reset_launches()
+        base["steps"] = counter.batch_steps
+
+    def run():
+        hist = sim.run()
+        return (hist, counter.batch_steps - base["steps"],
+                kernels.launch_counts())
+    reset()
+    return reset, run
+
+
+def round_profile(mode: str, top: int = 12):
+    from repro_torch import api
     spec = api.ExperimentSpec(
         train=api.TrainConfig(rounds=1, local_steps=2, wire="topk_int8",
                               eval_every=0),
         runtime=api.RuntimeConfig(cohort_parallel=mode))
     sim = api.build_engine(spec)
     sim.run()                                  # warm-up round
-    sim.reset()
-    torch.cuda.synchronize()
-    kernels.reset_launches()
-    steps0 = sim.engine.batch_steps
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        (m,) = sim.run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    dev = [e for e in prof.key_averages() if _is_device_kernel(e)]
-    busy_us = sum(_device_us(e) for e in dev)
-    dev.sort(key=_device_us, reverse=True)
-    rows = [{"kernel": e.key[:120], "count": e.count,
-             "device_ms": _device_us(e) / 1e3} for e in dev[:top]]
-    steps = sim.engine.batch_steps - steps0
-    res = {"mode": sim.engine.mode, "wall_s": wall,
-           "device_busy_s": busy_us / 1e6,
-           "device_busy_share": busy_us / 1e6 / wall,
-           "cuts": m.cuts, "client_batch_steps": steps,
-           "codec_launches": kernels.launch_counts(),
-           "n_device_kernels": sum(e.count for e in dev), "top": rows}
-    print(f"round mode={res['mode']} wall_s={wall:.6f} "
-          f"device_busy_s={busy_us / 1e6:.6f} "
+    reset, run = _fresh_runs(sim, sim.engine)
+    ((m,), steps, launches), res = _profiled(run, top, reset)
+    res.update(mode=sim.engine.mode, cuts=m.cuts, client_batch_steps=steps,
+               codec_launches=launches)
+    print(f"round mode={res['mode']} wall_s={res['wall_s']:.6f} "
+          f"device_busy_s={res['device_busy_s']:.6f} "
           f"busy_share={res['device_busy_share']:.4f} cuts={m.cuts} "
           f"client_batch_steps={steps} "
           f"device_kernels={res['n_device_kernels']}", flush=True)
-    for r in rows:
+    for r in res["top"]:
         print(f"round {res['mode']} top count={r['count']:6d} "
               f"device_ms={r['device_ms']:.3f} {r['kernel']}", flush=True)
     return res
@@ -111,7 +114,7 @@ def scenario_profile(top: int = 12, vehicles: int = 256,
     round (the same spec as ``chip_smoke.py``'s highway phase) on the
     server ``schedule``; ``groups`` (``faults``, ``stream``) as in its
     phase 10k."""
-    from repro_torch import api, kernels
+    from repro_torch import api
     spec = api.ExperimentSpec(
         model="mlp9",
         train=api.TrainConfig(rounds=1, local_steps=2, batch_size=8,
@@ -124,14 +127,11 @@ def scenario_profile(top: int = 12, vehicles: int = 256,
                               data_seed=vehicles), **groups)
     eng = api.build_engine(spec)
     eng.run()                                  # warm-up round
-    eng.reset()
-    kernels.reset_launches()
-    steps0 = eng.batch_steps
-    hist, res = _profiled(eng.run, top)
+    reset, run = _fresh_runs(eng, eng)
+    (hist, steps, launches), res = _profiled(run, top, reset)
     res.update(schedule=schedule, cuts=hist[-1].cuts,
-               rsu_loads=hist[-1].rsu_loads,
-               client_batch_steps=eng.batch_steps - steps0,
-               launches=kernels.launch_counts())
+               rsu_loads=hist[-1].rsu_loads, client_batch_steps=steps,
+               launches=launches)
     schedule = schedule + label
     res["ms_per_step"] = 1e3 * res["wall_s"] / max(
         res["client_batch_steps"], 1)
@@ -158,7 +158,7 @@ def city_profile(page: int, top: int = 12):
     eng = api.build_engine(_city_spec(page=page, rounds=1, k=1))
     eng.run()                                  # warm-up round
     eng.reset()
-    hist, res = _profiled(eng.run, top)
+    hist, res = _profiled(eng.run, top, eng.reset)
     res.update(page_slots=page, scheduled=hist[-1].n_scheduled,
                occupancy=eng.occupancy_stats())
     print(f"city page_slots={page} wall_s={res['wall_s']:.6f} "
@@ -174,22 +174,44 @@ def city_profile(page: int, top: int = 12):
     return res
 
 
-def _profiled(fn, top):
-    """Run ``fn`` under the profiler; (wall s, busy s, kernel count, host
-    time in and number of ``cudaMalloc`` calls, top rows)."""
+# CUPTI drops runs of kernel records (chip_smoke.py's _per_call_ms): a
+# profile takes this many traces of its run and reads the one that kept
+# the most kernel launches
+TRACES = 2
+
+
+def _profiled(fn, top, reset=None):
+    """Run ``fn`` under the profiler TRACES times (``reset``, where given,
+    before every run but the first, outside the trace); read the trace
+    that kept the most kernel launches and print the counts when the
+    traces differ (the shorter lost records).  Returns (``fn``'s output
+    of that run, {wall s, busy s, kernel count, every trace's count, host
+    time in and number of ``cudaMalloc`` calls of the first run, which
+    grows the allocator's pool, top rows})."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        out = fn()
+    runs = []
+    for i in range(TRACES):
+        if i and reset is not None:
+            reset()
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    evts = prof.key_averages()
-    dev = [e for e in evts if _is_device_kernel(e)]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        evts = prof.key_averages()
+        dev = [e for e in evts if _is_device_kernel(e)]
+        runs.append((sum(e.count for e in dev), out, wall, dev,
+                     [e for e in evts if e.key == "cudaMalloc"]))
+    traced = [r[0] for r in runs]
+    if len(set(traced)) > 1:
+        print(f"profiler: traces of one run kept {traced} kernel records; "
+              f"the longest is read", flush=True)
+    mallocs = runs[0][4]
+    _, out, wall, dev, _ = max(runs, key=lambda r: r[0])
     busy_us = sum(_device_us(e) for e in dev)
-    mallocs = [e for e in evts if e.key == "cudaMalloc"]
 
     def rows_of(evs):
         return [{"kernel": e.key[:120], "count": e.count,
@@ -201,6 +223,7 @@ def _profiled(fn, top):
     return out, {"wall_s": wall, "device_busy_s": busy_us / 1e6,
                  "device_busy_share": busy_us / 1e6 / wall,
                  "n_device_kernels": sum(e.count for e in dev),
+                 "traced_kernels": traced,
                  "cuda_malloc_s": sum(e.self_cpu_time_total
                                       for e in mallocs) / 1e6,
                  "cuda_mallocs": sum(e.count for e in mallocs),
@@ -348,7 +371,8 @@ def main() -> int:
     if "serve" in parts:
         result["serve"] = [serve_profile(a) for a in archs + (
             "gemma3-4b", "recurrentgemma-2b", "internvl2-1b",
-            "musicgen-large", "deepseek-v2-lite-16b")]
+            "musicgen-large", "deepseek-v2-lite-16b", "qwen3-14b",
+            "command-r-35b")]
     if "train" in parts:
         result["train"] = [train_profile(a) for a in archs]
     if "city" in parts:

@@ -17,6 +17,9 @@ axis into the port's per-period entries
 each leaf's dtype (MLA's projections and ``kv_norm``, an MoE FFN's experts,
 shared MLP and its float32 ``router`` are per-period slices like any leaf);
 :func:`lm_params_to_numpy` stacks them back, so a round trip is exact.
+A bfloat16 leaf (numpy's is ``ml_dtypes.bfloat16``, which neither
+``torch.from_numpy`` nor ``Tensor.numpy`` takes) crosses as a view of its
+bits as int16, so it too is carried bit for bit.
 :func:`lm_units_to_torch` / :func:`lm_units_to_numpy` do the same for the
 ``TransformerUnitModel`` layout ``(units, head)``.
 """
@@ -32,15 +35,32 @@ from repro_torch.tree import tree_map
 _LM_TOP = ("embed", "head", "final_norm")
 
 
+def _tensor(a) -> torch.Tensor:
+    """A numpy array -> a tensor that owns a copy of it, bfloat16 too."""
+    a = np.array(a, copy=True)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def _array(t: torch.Tensor) -> np.ndarray:
+    """A tensor -> a numpy array (``ml_dtypes.bfloat16`` for bfloat16)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
 def _to_torch(a, device) -> torch.Tensor:
     a = np.asarray(a)
     if a.ndim == 4:
         a = a.transpose(3, 2, 0, 1)                 # HWIO -> OIHW
-    return torch.from_numpy(np.array(a, copy=True)).to(device)
+    return _tensor(a).to(device)
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
-    a = t.detach().cpu().numpy()
+    a = _array(t)
     if a.ndim == 4:
         a = a.transpose(2, 3, 1, 0)                 # OIHW -> HWIO
     return np.ascontiguousarray(a)
@@ -63,7 +83,7 @@ def lm_params_to_torch(params, cfg, device="cpu"):
     from repro_torch.models import transformer as T
 
     def conv(a):
-        return torch.from_numpy(np.array(a, copy=True)).to(device)
+        return _tensor(a).to(device)
 
     out = {k: tree_map(conv, params[k]) for k in _LM_TOP}
     out["segments"] = [
@@ -79,12 +99,9 @@ def lm_params_to_numpy(params, cfg):
     keeps them)."""
     from repro_torch.models import transformer as T
 
-    def arr(t):
-        return t.detach().cpu().numpy()
-
-    out = {k: tree_map(arr, params[k]) for k in _LM_TOP}
+    out = {k: tree_map(_array, params[k]) for k in _LM_TOP}
     out["segments"] = tuple(
-        tuple(tree_map(lambda *xs: np.stack([arr(x) for x in xs]),
+        tuple(tree_map(lambda *xs: np.stack([_array(x) for x in xs]),
                        *[period[j] for period in seg])
               for j in range(len(pat)))
         for (pat, _), seg in zip(T.segments_of(cfg), params["segments"]))
@@ -96,19 +113,14 @@ def lm_units_to_torch(units, head) -> Tuple[list, Any]:
     then one unit per period: a tuple of per-layer dicts whose leaves carry
     a leading period axis of size 1; numpy leaves) -> the port's (the same
     tuples without that axis)."""
-    def conv(a):
-        return torch.from_numpy(np.array(a, copy=True))
-
-    out = [tree_map(conv, units[0])]
-    out += [tree_map(lambda a: conv(np.asarray(a)[0]), u) for u in units[1:]]
-    return out, tree_map(conv, head)
+    out = [tree_map(_tensor, units[0])]
+    out += [tree_map(lambda a: _tensor(np.asarray(a)[0]), u)
+            for u in units[1:]]
+    return out, tree_map(_tensor, head)
 
 
 def lm_units_to_numpy(units, head) -> Tuple[list, Any]:
     """Inverse of :func:`lm_units_to_torch`."""
-    def arr(t):
-        return t.detach().cpu().numpy()
-
-    out = [tree_map(arr, units[0])]
-    out += [tree_map(lambda t: arr(t)[None], tuple(u)) for u in units[1:]]
-    return out, tree_map(arr, head)
+    out = [tree_map(_array, units[0])]
+    out += [tree_map(lambda t: _array(t)[None], tuple(u)) for u in units[1:]]
+    return out, tree_map(_array, head)

@@ -1,18 +1,18 @@
 """Config registry of the port: ``get_config("<arch-id>")`` for the archs
-ported so far (twin of ``repro.configs``).  ``"<arch>-smoke"`` is the
-reduced variant.  Every other arch id of the reference raises "not ported
-yet".
+of the reference (twin of ``repro.configs``).  ``"<arch>-smoke"`` is the
+reduced variant.
 
 A config that holds a layer whose training is not ported yet (a frontend,
 local attention, RG-LRU, MLA, an MoE FFN, qk-norm, non-rope positions, a
-non-SwiGLU MLP) is served (prefill and decode, ``launch/serve.py``) but
-not trained: the train step, ``launch/train.py`` and
+non-SwiGLU MLP, bfloat16 parameters) is served (prefill and decode,
+``launch/serve.py``) but not trained: the train step, ``launch/train.py`` and
 ``TransformerUnitModel`` refuse it
 (:func:`check_trainable`).  ``SERVE_ONLY`` lists the arch ids that hold
 one.
 
-An arch whose ``param_dtype`` is ``"bfloat16"`` (``NOT_PORTED``) is refused:
-the port builds float32 parameters only."""
+``transformer.init_params`` builds an arch's parameters in its
+``param_dtype`` (float32, or bfloat16 for qwen3-14b, command-r-35b and
+dbrx-132b), as the reference does."""
 from __future__ import annotations
 
 import importlib
@@ -32,21 +32,15 @@ _MODULES = {
     "recurrentgemma-2b": "repro_torch.configs.recurrentgemma_2b",
     "deepseek-v2-lite-16b": "repro_torch.configs.deepseek_v2_lite_16b",
     "dbrx-132b": "repro_torch.configs.dbrx_132b",
+    "qwen3-14b": "repro_torch.configs.qwen3_14b",
+    "command-r-35b": "repro_torch.configs.command_r_35b",
 }
-# archs of the reference whose param_dtype="bfloat16" the port does not
-# have yet (dbrx-132b's config is here, for its ATTN_MOE layers)
-NOT_PORTED = ("dbrx-132b", "command-r-35b", "qwen3-14b")
-ARCH_IDS: List[str] = [a for a in _MODULES if a not in NOT_PORTED]
+ARCH_IDS: List[str] = list(_MODULES)
 
 
 def get_config(name: str) -> ArchConfig:
     if name.endswith("-smoke"):
         return get_config(name[: -len("-smoke")]).reduced()
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"arch {name!r} is not ported yet: its param_dtype='bfloat16' "
-            f"needs bfloat16 parameters, and the port builds float32 ones; "
-            f"ported: {ARCH_IDS}")
     if name not in _MODULES:
         raise KeyError(f"unknown arch {name!r}; known: {ARCH_IDS}")
     return importlib.import_module(_MODULES[name]).CONFIG
@@ -70,6 +64,8 @@ def untrained_features(cfg: ArchConfig) -> List[str]:
         found.append(f"pos {cfg.pos!r}")
     if cfg.mlp_variant != "swiglu":
         found.append(f"mlp {cfg.mlp_variant!r}")
+    if cfg.param_dtype != "float32":
+        found.append(f"{cfg.param_dtype} parameters")
     return found
 
 

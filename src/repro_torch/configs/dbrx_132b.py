@@ -6,8 +6,9 @@ The memory-constrained adaptive cut strategy (core/adaptive.py) forces an
 early cut here: one DBRX MoE layer is ~3.3B params, far beyond any
 vehicle-side budget — exactly the paper's resource argument.
 
-Its ``param_dtype="bfloat16"`` is not ported yet, so
-:func:`repro_torch.configs.get_config` refuses it (and its ``-smoke``).
+Its parameters are bfloat16 (``param_dtype``, 263 GB): one card holds
+only its ``-smoke``.  Served, not trained
+(:func:`repro_torch.configs.check_trainable`).
 """
 from repro_torch.configs.base import ATTN_MOE, ArchConfig, MoEConfig
 

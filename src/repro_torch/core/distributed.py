@@ -13,8 +13,9 @@ The train step is sync-SFL (aggregation every step, K = 1): client forward
 -> smashed boundary -> server forward / backward -> client backward, one
 |D_n|-weighted cross-entropy (:func:`weighted_ce`, the FedAvg objective of
 paper Eq. 1 inside one step), global-norm clipping and the optimizer.  The
-mesh placement of the smashed tensor (``smashed_sharding``) and a
-``param_dtype`` other than float32 are not ported yet.
+mesh placement of the smashed tensor (``smashed_sharding``) and training in
+a ``param_dtype`` other than float32 are not ported yet; the prefill and
+decode steps serve the parameters in whatever dtype they hold.
 """
 from __future__ import annotations
 
@@ -42,7 +43,7 @@ class DistOptions:
     optimizer: str = "adamw"
     grad_clip: float = 1.0
     smashed_sharding: Optional[Any] = None
-    param_dtype: Any = None       # None or float32: the ported configs'
+    param_dtype: Any = None       # None -> cfg.param_dtype; float32 to train
 
     def __post_init__(self):
         if self.smashed_sharding is not None:
@@ -50,9 +51,9 @@ class DistOptions:
                                       "of the smashed tensor) is not ported "
                                       "yet")
         if self.param_dtype not in (None, "float32", torch.float32):
-            raise NotImplementedError(f"param_dtype={self.param_dtype!r} is "
-                                      f"not ported yet (the kernels take "
-                                      f"float32)")
+            raise NotImplementedError(f"param_dtype={self.param_dtype!r}: "
+                                      f"training in bfloat16 parameters is "
+                                      f"not ported yet (serving is)")
 
 
 def _cross(smashed, opts: DistOptions):
@@ -72,9 +73,10 @@ def make_optimizer(opts: DistOptions) -> optim.Optimizer:
 
 def init_state(gen: torch.Generator, cfg: ArchConfig,
                opts: DistOptions) -> Dict[str, Any]:
-    """float32 parameters drawn from ``gen`` (on its device), the
-    optimizer state and the step count."""
-    params = T.init_params(gen, cfg)
+    """Parameters drawn from ``gen`` (on its device) in
+    ``opts.param_dtype`` (None: ``cfg.param_dtype``), the optimizer state
+    and the step count."""
+    params = T.init_params(gen, cfg, opts.param_dtype)
     return {"params": params, "opt": make_optimizer(opts).init(params),
             "step": torch.zeros((), dtype=torch.int32, device=gen.device)}
 

@@ -45,8 +45,9 @@ SIGNATURES = {
     "repro_rmsnorm": [_P, _P, _P, _LL, _I, _F, _I, _I, _P],
     "repro_rmsnorm_backward": [*[_P] * 6, _LL, *[_I] * 4, _F, _I, _I, _P],
     "repro_rmsnorm_backward_blocks": [_LL, *[_I] * 4],
+    # flash's last int: q / k / v / o's dtype code (as the codec's)
     "repro_flash_attention": [_P, _P, _P, _P, *[_I] * 6, *[_LL] * 9, _I, _I,
-                              _F, _P],
+                              _F, _I, _P],
     "repro_ssd_chunk_scan": [*[_P] * 8, *[_I] * 7, *[_LL] * 12, _P],
     "repro_ssd_workspace_floats": [_I] * 7,
 }

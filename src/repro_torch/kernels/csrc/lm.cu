@@ -11,16 +11,20 @@
 //
 // Arithmetic.  rmsnorm (both ways) computes in float32 on the CUDA cores,
 // from and to float32, bfloat16 or float16 tensors.  Flash attention
-// and the SSD scan run every matrix product on the tensor cores with the
-// 3xTF32 split (mma.sync m16n8k8 on tf32 operands): each float32 operand x
-// becomes big = tf32(x) and small = tf32(x - big) (cvt.rna), and a.b is
-// summed as a_small.b_big + a_big.b_small + a_big.b_big into float32
-// accumulators.  The dropped a_small.b_small is ~2^-22 of each product, so
-// the results keep float32 accuracy (the port holds the card to the CPU's
-// float32 results at unchanged tolerances) at a third of the TF32 rate,
-// 495 / 3 = 165 TFLOP/s against 67 on the CUDA cores.  Their tiles are
-// staged in shared memory with cp.async, double-buffered where a loop walks
-// them.
+// (float32 inputs) and the SSD scan run every matrix product on the tensor
+// cores with the 3xTF32 split (mma.sync m16n8k8 on tf32 operands): each
+// float32 operand x becomes big = tf32(x) and small = tf32(x - big)
+// (cvt.rna), and a.b is summed as a_small.b_big + a_big.b_small +
+// a_big.b_big into float32 accumulators.  The dropped a_small.b_small is
+// ~2^-22 of each product, so the results keep float32 accuracy (the port
+// holds the card to the CPU's float32 results at unchanged tolerances) at a
+// third of the TF32 rate, 495 / 3 = 165 TFLOP/s against 67 on the CUDA
+// cores.  Flash attention on bfloat16 / float16 inputs multiplies the 16-bit
+// values as they are (mma.sync m16n8k16, float32 accumulators: a product of
+// two 16-bit values is exact in float32), and splits the float32
+// probabilities p into hi = T(p) and lo = T(p - hi) for p.v (see the
+// kernel).  Their tiles are staged in shared memory with cp.async,
+// double-buffered where a loop walks them.
 //
 // Every entry point launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError() so the Python wrapper can raise on a refused
@@ -136,9 +140,44 @@ __device__ __forceinline__ void mma3_row(float (&acc)[N][4], const FragA& a,
     if (t < nt) mma_tf32(acc[t], a.big, b[t].big);
 }
 
+// ------------------------------------------- mma.sync on 16-bit operands
+// Fragments of mma.m16n8k16 (bf16 / f16), lane = 4 * gq + tq, each register
+// two values (the lower index in the low half):
+//   A (16 x 16, row-major): a0 (gq, 2tq..+1), a1 (gq + 8, 2tq..+1),
+//                           a2 (gq, 2tq + 8..+9), a3 (gq + 8, 2tq + 8..+9)
+//   B (16 x 8, k x n):      b0 (2tq..+1, gq), b1 (2tq + 8..+9, gq)
+//   C (16 x 8):             as m16n8k8's
+template <typename T>
+__device__ __forceinline__ void mma_16(float (&d)[4], const uint32_t (&a)[4],
+                                       const uint32_t (&b)[2]) {
+  if constexpr (std::is_same_v<T, __nv_bfloat16>)
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+  else
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// four 8 x 8 tiles of 16-bit values, transposed: lanes 8i .. 8i + 7 give
+// the rows of tile i (16-byte aligned); r[i] holds, in each lane, tile i's
+// (rows 2tq, 2tq + 1; column gq), the B fragment of a row-major k x n tile
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* row) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(row);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s)
+      : "memory");
+}
+
 // ------------------------------------------------------------- cp.async
 // With ok false the copy reads nothing (src-size 0) and zero-fills.
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool ok) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
@@ -146,7 +185,7 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src,
                : "memory");
 }
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
                                           bool ok) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
@@ -163,27 +202,36 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Stage a rows x cols tile (row r at src + r * ld, columns contiguous) in
-// shared memory with row stride sld, asynchronously; rows >= nrows and
+// Stage a rows x cols tile of T (row r at src + r * ld, columns contiguous)
+// in shared memory with row stride sld, asynchronously; rows >= nrows and
 // columns >= ncols are zero-filled.  vec: 16-byte copies (cols, ncols, ld
-// and src multiples of 4 floats); else 4-byte ones.
-template <int THREADS>
-__device__ __forceinline__ void stage_tile(float* dst, int sld,
-                                           const float* src, long long ld,
-                                           int rows, int cols, int nrows,
-                                           int ncols, bool vec) {
+// and src multiples of 16 bytes); else 4-byte ones for float32, and for a
+// 16-bit T (cp.async copies no 2 bytes) plain loads and stores, which the
+// __syncthreads after the cp.async wait orders as well.
+template <int THREADS, typename T>
+__device__ __forceinline__ void stage_tile(T* dst, int sld, const T* src,
+                                           long long ld, int rows, int cols,
+                                           int nrows, int ncols, bool vec) {
+  constexpr int E = 16 / sizeof(T);    // values a 16-byte copy
   if (vec) {
-    const int c4 = cols >> 2;
-    for (int e = threadIdx.x; e < rows * c4; e += THREADS) {
-      const int r = e / c4, c = (e - r * c4) << 2;
+    const int ce = cols / E;
+    for (int e = threadIdx.x; e < rows * ce; e += THREADS) {
+      const int r = e / ce, c = (e - r * ce) * E;
       const bool ok = r < nrows && c < ncols;
       cp_async16(dst + r * sld + c, ok ? src + r * ld + c : src, ok);
     }
-  } else {
+  } else if constexpr (sizeof(T) == 4) {
     for (int e = threadIdx.x; e < rows * cols; e += THREADS) {
       const int r = e / cols, c = e - r * cols;
       const bool ok = r < nrows && c < ncols;
       cp_async4(dst + r * sld + c, ok ? src + r * ld + c : src, ok);
+    }
+  } else {
+    auto* d16 = reinterpret_cast<unsigned short*>(dst);
+    const auto* s16 = reinterpret_cast<const unsigned short*>(src);
+    for (int e = threadIdx.x; e < rows * cols; e += THREADS) {
+      const int r = e / cols, c = e - r * cols;
+      d16[r * sld + c] = r < nrows && c < ncols ? s16[r * ld + c] : 0;
     }
   }
 }
@@ -850,65 +898,105 @@ cudaError_t launch_rmsnorm_bwd(const T* x, const S* scale, const T* dy,
 
 // ========================================================= flash attention
 // Replaces _fa_kernel: softmax(q k^T * scale + mask) v with causal and
-// sliding-window masks and GQA (kv head = head / group).
+// sliding-window masks and GQA (kv head = head / group), from and to
+// float32, bfloat16 or float16 (T; the output in q's type, as the
+// reference's), the arithmetic in float32 as the reference's, which
+// upcasts its q, k and v tiles and keeps p in float32 for p.v.
 // Bound: operations.  At the serving path's prefill (b 8, s 1024, 15 heads,
 // d 64) the causal triangle needs ~1.6e10 flops against ~84 MB of q/k/v/o.
 // Design: FlashAttention-2's warp layout on the tensor cores.  A block owns
 // BQ query rows of one (batch, head), one warp per MT m tiles of 16 rows
-// (MT 2 at d 64, so each K / V fragment feeds two products; 1 elsewhere);
-// q.k^T and p.v are mma.sync in 3xTF32 with the scores, m, l and the
-// warp's output rows in registers.  P never touches shared memory: the
-// score accumulators are the A operand of p.v.  A lane holds keys 2tq and
-// 2tq + 1 of each 8-key step, so the step's k order is permuted (k = tq
-// <-> key 2tq, k = tq + 4 <-> key 2tq + 1) and V's rows are read in the
-// same order; the sum does not depend on it.  K and V tiles are
-// double-buffered with cp.async (two
-// stages), read through their strides (16-byte copies when aligned), the
-// ragged edge (kpos >= sk) zero-filled and masked.  Key tiles wholly above
-// the diagonal or left of the window are skipped by the block, and by a
-// warp whose rows see none of their keys, and a tile every row sees whole
-// skips the mask; query tiles are ordered longest causal row first.
-// Shared rows are padded to D + 4 floats, so every fragment load hits 32
-// distinct banks.  BQ / BK per head dim keep two stages in shared memory up
-// to d 256 (195 KB).  A row with no visible key outputs 0.
+// (MT 2 at d 64, so each K / V fragment feeds two products; 1 elsewhere),
+// the scores, m, l and the warp's output rows in registers.  P never
+// touches shared memory: the score accumulators are the A operand of p.v.
+//   - float32: q.k^T and p.v are mma.sync m16n8k8 in 3xTF32.  A lane holds
+//     keys 2tq and 2tq + 1 of each 8-key step, so the step's k order is
+//     permuted (k = tq <-> key 2tq, k = tq + 4 <-> key 2tq + 1) and V's rows
+//     are read in the same order; the sum does not depend on it.
+//   - bfloat16 / float16: q.k^T is one mma.sync m16n8k16 on the 16-bit
+//     values as they are, which matches the float32 scores of the upcast
+//     values but for the order of the sums.  p.v: the accumulators of two
+//     8-key tiles are the A fragment of a 16-key step as they lie (FA-2's
+//     register trick, no permutation); p is float32, so it is split into hi
+//     = T(p) and lo = T(p - hi) (p - hi is exact) and summed as lo.v + hi.v
+//     (v is exact in T): 16 bits of p's significand in bfloat16, 22 in
+//     float16, within flash's float32 tolerance of the float32 p.v.  V's B
+//     fragments come transposed from row-major tiles by ldmatrix.trans.
+//     Rows are padded by 8 values (16 bytes): Q / K fragment loads and the
+//     ldmatrix rows hit distinct banks.
+// K and V tiles are double-buffered with cp.async (two stages), read
+// through their strides (16-byte copies when aligned), the ragged edge
+// (kpos >= sk) zero-filled and masked.  Key tiles wholly above the diagonal
+// or left of the window are skipped by the block, and by a warp whose rows
+// see none of their keys, and a tile every row sees whole skips the mask;
+// query tiles are ordered longest causal row first.  float32 rows are
+// padded to D + 4 floats, so every fragment load hits 32 distinct banks.
+// BQ / BK per head dim keep two stages in shared memory up to d 256
+// (float32 195 KB, 16-bit 99 KB).  A row with no visible key outputs 0.
 
-template <int D, int BQ, int BK, int MT>
+template <typename T, int D, int BQ, int BK, int MT>
 struct FaCfg {
   static constexpr int ROWS = 16 * MT;           // query rows per warp
-  static constexpr int WARPS = BQ / ROWS, THREADS = 32 * WARPS, LD = D + 4;
-  static constexpr int BYTES = (BQ + 4 * BK) * LD * 4;  // Q, 2 x (K, V)
+  static constexpr int WARPS = BQ / ROWS, THREADS = 32 * WARPS;
+  static constexpr int LD = D + 16 / (int)sizeof(T);   // 16 bytes of pad
+  static constexpr int BYTES = (BQ + 4 * BK) * LD * (int)sizeof(T);
   // two 256-thread blocks per SM (shared memory allows it at d 64) need
   // <= 128 registers a thread
   static constexpr int MIN_BLOCKS = THREADS == 256 ? 2 : 1;
 };
 
-template <int D, int BQ, int BK, int MT>
-__global__ void __launch_bounds__(FaCfg<D, BQ, BK, MT>::THREADS,
-                                  FaCfg<D, BQ, BK, MT>::MIN_BLOCKS)
-flash_attention_kernel(const float* __restrict__ q,
-                       const float* __restrict__ k,
-                       const float* __restrict__ v, float* __restrict__ o,
-                       int sq, int sk, int h, int group, long long q_sb,
+template <typename T>
+__device__ __forceinline__ uint32_t ld32(const T* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// the 16-bit value whose bits are the low half of b, as float32 (exact)
+template <typename T>
+__device__ __forceinline__ float from_bits16(uint32_t b) {
+  if constexpr (std::is_same_v<T, __nv_bfloat16>)
+    return __uint_as_float(b << 16);
+  else
+    return __half2float(__ushort_as_half((unsigned short)b));
+}
+
+// p0, p1 -> (hi, lo) registers of two T values each, p ~ hi + lo
+template <typename T>
+__device__ __forceinline__ void split_pair(float p0, float p1, uint32_t& hi,
+                                           uint32_t& lo) {
+  const uint32_t h0 = bits16<T>(p0), h1 = bits16<T>(p1);
+  hi = h0 | (h1 << 16);
+  lo = bits16<T>(p0 - from_bits16<T>(h0)) |
+       (bits16<T>(p1 - from_bits16<T>(h1)) << 16);
+}
+
+template <typename T, int D, int BQ, int BK, int MT>
+__global__ void __launch_bounds__(FaCfg<T, D, BQ, BK, MT>::THREADS,
+                                  FaCfg<T, D, BQ, BK, MT>::MIN_BLOCKS)
+flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, T* __restrict__ o, int sq,
+                       int sk, int h, int group, long long q_sb,
                        long long q_ss, long long q_sh, long long k_sb,
                        long long k_ss, long long k_sh, long long v_sb,
                        long long v_ss, long long v_sh, int causal,
                        int window, float scale, int vec) {
-  using Cfg = FaCfg<D, BQ, BK, MT>;
+  using Cfg = FaCfg<T, D, BQ, BK, MT>;
+  constexpr bool F32 = sizeof(T) == 4;
   constexpr int LD = Cfg::LD, THREADS = Cfg::THREADS, ROWS = Cfg::ROWS;
   constexpr int NT = BK / 8, DT = D / 8;  // score / output n-tiles per warp
-  extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;                   // [BQ][LD]
-  float* Ks = Qs + BQ * LD;           // [2][BK][LD]
-  float* Vs = Ks + 2 * BK * LD;       // [2][BK][LD]
+  static_assert(F32 || (NT % 2 == 0 && DT % 2 == 0), "16-key steps");
+  extern __shared__ __align__(16) unsigned char fa_smem[];
+  T* Qs = reinterpret_cast<T*>(fa_smem);   // [BQ][LD]
+  T* Ks = Qs + BQ * LD;                    // [2][BK][LD]
+  T* Vs = Ks + 2 * BK * LD;                // [2][BK][LD]
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int gq = lane >> 2, tq = lane & 3;
   const int hi = blockIdx.x % h, bi = blockIdx.x / h;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // long rows first
   const int kvh = hi / group;
-  const float* qb = q + bi * q_sb + hi * q_sh + (long long)q0 * q_ss;
-  const float* kb = k + bi * k_sb + kvh * k_sh;
-  const float* vb = v + bi * v_sb + kvh * v_sh;
+  const T* qb = q + bi * q_sb + hi * q_sh + (long long)q0 * q_ss;
+  const T* kb = k + bi * k_sb + kvh * k_sh;
+  const T* vb = v + bi * v_sb + kvh * v_sh;
 
   int k_hi = sk;
   if (causal) k_hi = min(sk, q0 + BQ);            // keys <= the last row
@@ -927,7 +1015,7 @@ flash_attention_kernel(const float* __restrict__ q,
   cp_async_commit();
 
   const int w0 = q0 + ROWS * warp;  // the warp's first query row
-  const float* Qw = Qs + ROWS * warp * LD;
+  const T* Qw = Qs + ROWS * warp * LD;
   // m tile mt holds rows w0 + 16 mt + gq (c0 / c1) and + 8 (c2 / c3)
   float m_r[MT][2], l_r[MT][2], acc[MT][DT][4];
 #pragma unroll
@@ -955,8 +1043,8 @@ flash_attention_kernel(const float* __restrict__ q,
     cp_async_commit();
     cp_async_wait<1>();             // this tile (and Q) has landed
     __syncthreads();
-    const float* Kt = Ks + (t & 1) * BK * LD;
-    const float* Vt = Vs + (t & 1) * BK * LD;
+    const T* Kt = Ks + (t & 1) * BK * LD;
+    const T* Vt = Vs + (t & 1) * BK * LD;
     const bool live = w0 < sq && (!causal || kt <= w0 + ROWS - 1) &&
                       (window <= 0 || kt + BK - 1 > w0 - window);
     if (live) {
@@ -967,20 +1055,42 @@ flash_attention_kernel(const float* __restrict__ q,
         for (int n = 0; n < NT; ++n)
 #pragma unroll
           for (int e = 0; e < 4; ++e) s[mt][n][e] = 0.f;
+      if constexpr (F32) {
 #pragma unroll 2
-      for (int kk = 0; kk < D; kk += 8) {
-        FragA a[MT];
+        for (int kk = 0; kk < D; kk += 8) {
+          FragA a[MT];
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          const float* qr = Qw + (16 * mt + gq) * LD + kk + tq;
-          a[mt] = frag_a(qr[0], qr[8 * LD], qr[4], qr[8 * LD + 4]);
+          for (int mt = 0; mt < MT; ++mt) {
+            const float* qr = Qw + (16 * mt + gq) * LD + kk + tq;
+            a[mt] = frag_a(qr[0], qr[8 * LD], qr[4], qr[8 * LD + 4]);
+          }
+#pragma unroll
+          for (int n = 0; n < NT; ++n) {
+            const float* kr = Kt + (n * 8 + gq) * LD + kk + tq;
+            const FragB kf = frag_b(kr[0], kr[4]);
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt) mma3(s[mt][n], a[mt], kf);
+          }
         }
+      } else {
+#pragma unroll 2
+        for (int kk = 0; kk < D; kk += 16) {
+          uint32_t a[MT][4];
 #pragma unroll
-        for (int n = 0; n < NT; ++n) {
-          const float* kr = Kt + (n * 8 + gq) * LD + kk + tq;
-          const FragB kf = frag_b(kr[0], kr[4]);
+          for (int mt = 0; mt < MT; ++mt) {
+            const T* qr = Qw + (16 * mt + gq) * LD + kk + 2 * tq;
+            a[mt][0] = ld32(qr);
+            a[mt][1] = ld32(qr + 8 * LD);
+            a[mt][2] = ld32(qr + 8);
+            a[mt][3] = ld32(qr + 8 * LD + 8);
+          }
 #pragma unroll
-          for (int mt = 0; mt < MT; ++mt) mma3(s[mt][n], a[mt], kf);
+          for (int n = 0; n < NT; ++n) {
+            const T* kr = Kt + (n * 8 + gq) * LD + kk + 2 * tq;
+            const uint32_t kf[2] = {ld32(kr), ld32(kr + 8)};
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt) mma_16<T>(s[mt][n], a[mt], kf);
+          }
         }
       }
       // every key of the tile visible to every row of the warp: no mask
@@ -1026,20 +1136,56 @@ flash_attention_kernel(const float* __restrict__ q,
           acc[mt][t2][3] *= alpha[1];
         }
       }
-      // p.v: step n covers keys n*8 .. n*8+7 in the permuted order
+      if constexpr (F32) {
+        // p.v: step n covers keys n*8 .. n*8+7 in the permuted order
 #pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        FragA pa[MT];
+        for (int n = 0; n < NT; ++n) {
+          FragA pa[MT];
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt)
-          pa[mt] = frag_a(s[mt][n][0], s[mt][n][2], s[mt][n][1],
-                          s[mt][n][3]);
-        const float* vr = Vt + (n * 8 + 2 * tq) * LD + gq;
+          for (int mt = 0; mt < MT; ++mt)
+            pa[mt] = frag_a(s[mt][n][0], s[mt][n][2], s[mt][n][1],
+                            s[mt][n][3]);
+          const float* vr = Vt + (n * 8 + 2 * tq) * LD + gq;
 #pragma unroll
-        for (int t2 = 0; t2 < DT; ++t2) {
-          const FragB vf = frag_b(vr[t2 * 8], vr[LD + t2 * 8]);
+          for (int t2 = 0; t2 < DT; ++t2) {
+            const FragB vf = frag_b(vr[t2 * 8], vr[LD + t2 * 8]);
 #pragma unroll
-          for (int mt = 0; mt < MT; ++mt) mma3(acc[mt][t2], pa[mt], vf);
+            for (int mt = 0; mt < MT; ++mt) mma3(acc[mt][t2], pa[mt], vf);
+          }
+        }
+      } else {
+        // p.v: step j covers keys 16j .. 16j+15 (score tiles 2j and 2j+1);
+        // lane l gives ldmatrix row (l & 7) + 8 ((l >> 3) & 1) of the step,
+        // columns 8 (l >> 4) on: tiles (keys 0-7 | 8-15) x (d 0-7 | 8-15)
+        const T* vrow = Vt + (((lane >> 3) & 1) * 8 + (lane & 7)) * LD +
+                        (lane >> 4) * 8;
+#pragma unroll
+        for (int j = 0; j < NT / 2; ++j) {
+          uint32_t ph[MT][4], pl[MT][4];
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            split_pair<T>(s[mt][2 * j][0], s[mt][2 * j][1], ph[mt][0],
+                          pl[mt][0]);
+            split_pair<T>(s[mt][2 * j][2], s[mt][2 * j][3], ph[mt][1],
+                          pl[mt][1]);
+            split_pair<T>(s[mt][2 * j + 1][0], s[mt][2 * j + 1][1],
+                          ph[mt][2], pl[mt][2]);
+            split_pair<T>(s[mt][2 * j + 1][2], s[mt][2 * j + 1][3],
+                          ph[mt][3], pl[mt][3]);
+          }
+#pragma unroll
+          for (int t2 = 0; t2 < DT; t2 += 2) {
+            uint32_t vf[4];
+            ldmatrix_x4_trans(vf, vrow + 16 * j * LD + t2 * 8);
+            const uint32_t v0[2] = {vf[0], vf[1]}, v1[2] = {vf[2], vf[3]};
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt) {
+              mma_16<T>(acc[mt][t2], pl[mt], v0);
+              mma_16<T>(acc[mt][t2 + 1], pl[mt], v1);
+              mma_16<T>(acc[mt][t2], ph[mt], v0);
+              mma_16<T>(acc[mt][t2 + 1], ph[mt], v1);
+            }
+          }
         }
       }
     }
@@ -1047,7 +1193,7 @@ flash_attention_kernel(const float* __restrict__ q,
   }
   cp_async_wait<0>();               // nothing in flight at exit
 
-  // output is contiguous (b, sq, h, D)
+  // output is contiguous (b, sq, h, D), rounded once to T
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
@@ -1055,36 +1201,68 @@ flash_attention_kernel(const float* __restrict__ q,
       const int row = w0 + 16 * mt + gq + 8 * r;
       const float l = quad_sum(l_r[mt][r]);
       if (row >= sq) continue;
-      float* orow = o + (((long long)bi * sq + row) * h + hi) * D + 2 * tq;
+      T* orow = o + (((long long)bi * sq + row) * h + hi) * D + 2 * tq;
 #pragma unroll
-      for (int t2 = 0; t2 < DT; ++t2)
-        *reinterpret_cast<float2*>(orow + t2 * 8) =
-            l > 0.f ? make_float2(acc[mt][t2][2 * r] / l,
-                                  acc[mt][t2][2 * r + 1] / l)
-                    : make_float2(0.f, 0.f);
+      for (int t2 = 0; t2 < DT; ++t2) {
+        const float o0 = l > 0.f ? acc[mt][t2][2 * r] / l : 0.f;
+        const float o1 = l > 0.f ? acc[mt][t2][2 * r + 1] / l : 0.f;
+        if constexpr (F32)
+          *reinterpret_cast<float2*>(orow + t2 * 8) = make_float2(o0, o1);
+        else
+          *reinterpret_cast<uint32_t*>(orow + t2 * 8) =
+              bits16<T>(o0) | (bits16<T>(o1) << 16);
+      }
     }
 }
 
-template <int D, int BQ, int BK, int MT>
-int launch_flash(const float* q, const float* k, const float* v, float* o,
-                 int b, int sq, int sk, int h, int kv, long long q_sb,
-                 long long q_ss, long long q_sh, long long k_sb,
-                 long long k_ss, long long k_sh, long long v_sb,
-                 long long v_ss, long long v_sh, int causal, int window,
-                 float scale, cudaStream_t stream) {
-  using Cfg = FaCfg<D, BQ, BK, MT>;
-  auto kern = flash_attention_kernel<D, BQ, BK, MT>;
+template <typename T, int D, int BQ, int BK, int MT>
+int launch_flash(const T* q, const T* k, const T* v, T* o, int b, int sq,
+                 int sk, int h, int kv, long long q_sb, long long q_ss,
+                 long long q_sh, long long k_sb, long long k_ss,
+                 long long k_sh, long long v_sb, long long v_ss,
+                 long long v_sh, int causal, int window, float scale,
+                 cudaStream_t stream) {
+  using Cfg = FaCfg<T, D, BQ, BK, MT>;
+  auto kern = flash_attention_kernel<T, D, BQ, BK, MT>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::BYTES);
   if (err != cudaSuccess) return (int)err;
+  constexpr long long E = 16 / sizeof(T);     // values a 16-byte copy
   const bool vec = aligned16(q) && aligned16(k) && aligned16(v) &&
                    (q_sb | q_ss | q_sh | k_sb | k_ss | k_sh | v_sb | v_ss |
-                    v_sh) % 4 == 0;
+                    v_sh) % E == 0;
   dim3 grid(b * h, (sq + BQ - 1) / BQ);
   kern<<<grid, Cfg::THREADS, Cfg::BYTES, stream>>>(
       q, k, v, o, sq, sk, h, h / kv, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb,
       v_ss, v_sh, causal, window, scale, (int)vec);
   return (int)cudaGetLastError();
+}
+
+// the tiles per head dim: float32 as tuned on the 3xTF32 route; 16-bit
+// values take half the shared memory, so d 128 doubles BK
+template <typename T>
+int launch_flash_d(const void* q, const void* k, const void* v, void* o,
+                   int b, int sq, int sk, int h, int kv, int d,
+                   long long q_sb, long long q_ss, long long q_sh,
+                   long long k_sb, long long k_ss, long long k_sh,
+                   long long v_sb, long long v_ss, long long v_sh, int causal,
+                   int window, float scale, cudaStream_t st) {
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  T* ot = static_cast<T*>(o);
+#define REPRO_FA(D, BQ, BK, MT)                                              \
+  launch_flash<T, D, BQ, BK, MT>(qt, kt, vt, ot, b, sq, sk, h, kv, q_sb,     \
+                                 q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss,   \
+                                 v_sh, causal, window, scale, st)
+  switch (d) {
+    case 32: return REPRO_FA(32, 64, 64, 1);
+    case 64: return REPRO_FA(64, 128, 64, 2);
+    case 128: return REPRO_FA(128, 64, sizeof(T) == 4 ? 32 : 64, 1);
+    case 256: return REPRO_FA(256, 64, 32, 1);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef REPRO_FA
 }
 
 // ===================================================== SSD chunk scan
@@ -1570,32 +1748,32 @@ int repro_rmsnorm_backward(const void* x, const void* scale, const void* dy,
   return (int)err;
 }
 
-int repro_flash_attention(const float* q, const float* k, const float* v,
-                          float* o, int b, int sq, int sk, int h, int kv,
+// q (b, sq, h, d), k / v (b, sk, kv, d) read through their strides, o a
+// contiguous (b, sq, h, d), all of one dtype code (0 float32, 1 bfloat16,
+// 2 float16)
+int repro_flash_attention(const void* q, const void* k, const void* v,
+                          void* o, int b, int sq, int sk, int h, int kv,
                           int d, long long q_sb, long long q_ss,
                           long long q_sh, long long k_sb, long long k_ss,
                           long long k_sh, long long v_sb, long long v_ss,
                           long long v_sh, int causal, int window, float scale,
-                          void* stream) {
+                          int code, void* stream) {
   if (b <= 0 || sq <= 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
-  switch (d) {
-    case 32:
-      return launch_flash<32, 64, 64, 1>(q, k, v, o, b, sq, sk, h, kv, q_sb,
-                                      q_ss, q_sh, k_sb, k_ss, k_sh, v_sb,
-                                      v_ss, v_sh, causal, window, scale, st);
-    case 64:
-      return launch_flash<64, 128, 64, 2>(q, k, v, o, b, sq, sk, h, kv, q_sb,
-                                       q_ss, q_sh, k_sb, k_ss, k_sh, v_sb,
-                                       v_ss, v_sh, causal, window, scale, st);
-    case 128:
-      return launch_flash<128, 64, 32, 1>(q, k, v, o, b, sq, sk, h, kv, q_sb,
-                                       q_ss, q_sh, k_sb, k_ss, k_sh, v_sb,
-                                       v_ss, v_sh, causal, window, scale, st);
-    case 256:
-      return launch_flash<256, 64, 32, 1>(q, k, v, o, b, sq, sk, h, kv, q_sb,
-                                       q_ss, q_sh, k_sb, k_ss, k_sh, v_sb,
-                                       v_ss, v_sh, causal, window, scale, st);
+  switch (code) {
+    case 0:
+      return launch_flash_d<float>(q, k, v, o, b, sq, sk, h, kv, d, q_sb,
+                                   q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss,
+                                   v_sh, causal, window, scale, st);
+    case 1:
+      return launch_flash_d<__nv_bfloat16>(q, k, v, o, b, sq, sk, h, kv, d,
+                                           q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
+                                           v_sb, v_ss, v_sh, causal, window,
+                                           scale, st);
+    case 2:
+      return launch_flash_d<__half>(q, k, v, o, b, sq, sk, h, kv, d, q_sb,
+                                    q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss,
+                                    v_sh, causal, window, scale, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -3,24 +3,31 @@ sliding-window masks and GQA.
 
 Replaces the Pallas TPU kernel of ``repro/kernels/flash_attention.py``
 (``flash_attention`` -> ``_fa_kernel``).  The CUDA kernel
-(``kernels/csrc/lm.cu``, ``repro_flash_attention``) takes float32 q
-``(b, sq, h, d)`` and k / v ``(b, sk, kv, d)`` with ``h % kv == 0`` and
-d in {32, 64, 128, 256}, read through their strides (the trailing dim must be
-contiguous), and writes a contiguous ``(b, sq, h, d)``.  Query and key
-positions both start at 0; a row with no visible key outputs 0.
+(``kernels/csrc/lm.cu``, ``repro_flash_attention``) takes q ``(b, sq, h,
+d)`` and k / v ``(b, sk, kv, d)`` of one dtype, float32, bfloat16 or
+float16, with ``h % kv == 0`` and d in {32, 64, 128, 256}, read through
+their strides (the trailing dim must be contiguous), and writes a
+contiguous ``(b, sq, h, d)`` in that dtype.  As the Pallas kernel, it
+computes in float32 (scores, softmax and p.v of the upcast values) and
+rounds once to q's dtype.  Query and key positions both start at 0; a row
+with no visible key outputs 0.
 
 Bound on H100: operations.  The causal triangle needs 4 * d flops per
 visible (query, key) pair and head (q.k and p.v), which at the serving
-path's prefill is ~10x the time its bytes take.  The kernel runs both
-products on the tensor cores in 3xTF32 (float32 operands split into two
-TF32 parts, three products each), which keeps float32 accuracy: the floor
-is three times the flops over the TF32 rate of 495 TFLOP/s (NVIDIA's H100
-SXM data sheet), beside the float32 floor at 67 TFLOP/s.  The design is
-FlashAttention-2's: one warp per 16 query rows (32 at d 64), the scores,
-m, l and the output in registers, the score accumulators reused as the
-left operand of p.v (P never goes through shared memory), K / V tiles
-double-buffered with asynchronous copies, key tiles above the diagonal or
-left of the window skipped, the longest causal rows started first.
+path's prefill is ~10x the time its bytes take.  Both products run on the
+tensor cores.  float32: 3xTF32 (float32 operands split into two TF32
+parts, three products each), which keeps float32 accuracy: the floor is
+three times the flops over the TF32 rate of 495 TFLOP/s (NVIDIA's H100 SXM
+data sheet), beside the float32 floor at 67 TFLOP/s.  bfloat16 / float16:
+q.k^T as one 16-bit product (exact products, float32 sums) and p.v as two
+(p split into a 16-bit high and low part against the exact 16-bit v): the
+floor is the flops of q.k^T plus twice those of p.v over 989 TFLOP/s
+(dense bf16 / f16).  The design is FlashAttention-2's: one warp per 16
+query rows (32 at d 64), the scores, m, l and the output in registers, the
+score accumulators reused as the left operand of p.v (P never goes through
+shared memory), K / V tiles double-buffered with asynchronous copies, key
+tiles above the diagonal or left of the window skipped, the longest causal
+rows started first.
 
 :func:`attention_plain` is the plain PyTorch version (twin of
 ``repro.kernels.ref.attention_ref``); the wrapper runs it for CPU tensors
@@ -43,7 +50,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import fold_replicas
-from repro_torch.kernels.quant import launch
+from repro_torch.kernels.quant import FLOAT_CODES, launch
 
 HEAD_DIMS = (32, 64, 128, 256)   # 32: the reduced configs
 MASKED = -1e30
@@ -95,6 +102,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"pair (batch, head_dim, heads % kv_heads)")
     if not (q.device == k.device == v.device):
         raise ValueError("q, k and v must be on the same device")
+    if not q.dtype == k.dtype == v.dtype or q.dtype not in FLOAT_CODES:
+        raise TypeError(f"q, k and v must share one dtype of "
+                        f"{tuple(FLOAT_CODES)}, got {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     return _Flash.apply(q, k, v, bool(causal), int(window), float(scale))
 
@@ -108,18 +119,15 @@ def _forward(q, k, v, causal: bool, window: int, scale: float):
                                scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"q is on unsupported device {q.device}")
-    if any(t.dtype != torch.float32 for t in (q, k, v)):
-        raise TypeError("the flash_attention kernel takes float32; bf16 is "
-                        "not ported yet")
     if d not in HEAD_DIMS:
         raise ValueError(f"head_dim {d} not in {HEAD_DIMS}")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("q, k and v need a contiguous trailing dim")
-    o = torch.empty((b, sq, h, d), dtype=torch.float32, device=q.device)
+    o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     launch("flash_attention", q.device, q.data_ptr(), k.data_ptr(),
            v.data_ptr(), o.data_ptr(), b, sq, sk, h, kv, d, *q.stride()[:3],
            *k.stride()[:3], *v.stride()[:3], int(causal), int(window),
-           float(scale))
+           float(scale), FLOAT_CODES[q.dtype])
     return o
 
 

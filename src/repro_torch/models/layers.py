@@ -27,11 +27,13 @@ _U_LO = -_U_HI
 def trunc_normal(gen: torch.Generator, shape, stddev: float,
                  dtype=torch.float32) -> torch.Tensor:
     """stddev * a standard normal truncated to [-2, 2] (inverse CDF of a
-    uniform draw), drawn on the generator's device."""
+    uniform draw), drawn in float32 on the generator's device and cast once
+    to ``dtype``; in place, so a leaf costs its float32 draw and its cast
+    (command-r-35b's 2.1e9-value embedding: 8.4 GB and 4.2 GB)."""
     t = torch.empty(shape, dtype=torch.float32, device=gen.device)
     t.uniform_(_U_LO, _U_HI, generator=gen)
-    t = (torch.erfinv(t) * math.sqrt(2.0)).clamp_(-_TRUNC, _TRUNC)
-    return (t * stddev).to(dtype)
+    t.erfinv_().mul_(math.sqrt(2.0)).clamp_(-_TRUNC, _TRUNC).mul_(stddev)
+    return t.to(dtype)
 
 
 def init_dense(gen: torch.Generator, d_in: int, d_out: int,

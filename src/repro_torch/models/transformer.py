@@ -202,12 +202,17 @@ def _scan_segment(periods, cfg: ArchConfig, pattern, x: torch.Tensor,
 
 
 def init_params(gen: torch.Generator, cfg: ArchConfig,
-                dtype=torch.float32) -> Params:
-    """Random parameters drawn from ``gen``, on the generator's device.
-    The audio frontend keeps one embedding table (K, vp, d) and one head
-    (d, K, vp) over its K codebooks."""
+                dtype=None) -> Params:
+    """Random parameters drawn from ``gen``, on the generator's device, in
+    ``dtype`` (a torch dtype or its name; None: ``cfg.param_dtype``, as the
+    reference); each leaf is drawn in float32 and cast once, and the MoE
+    router stays float32.  The audio frontend keeps one embedding table
+    (K, vp, d) and one head (d, K, vp) over its K codebooks."""
     if cfg.frontend not in ("none", "vision", "audio"):
         raise _not_ported(f"frontend {cfg.frontend!r}")
+    dtype = cfg.param_dtype if dtype is None else dtype
+    if isinstance(dtype, str):
+        dtype = getattr(torch, dtype)
     vp, d = cfg.padded_vocab, cfg.d_model
     k = (cfg.n_codebooks,) if cfg.frontend == "audio" else ()
     return {

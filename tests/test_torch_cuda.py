@@ -5,7 +5,9 @@ int8 and word bit for bit), unpack_dequant_matmul /
 rmsnorm / flash attention / SSD within stated float32 tolerances at their
 paths' shapes and edge shapes (rmsnorm and its backward kernel also in
 bfloat16 and float16 within one ulp, unaligned, the backward twice bit
-for bit and under ``vmap`` of ``grad``) — short mlp9 runs (single RSU under the
+for bit and under ``vmap`` of ``grad``; flash in bfloat16 and float16
+within one ulp plus its float32 tolerance, twice bit for bit, strided and
+unaligned) — short mlp9 runs (single RSU under the
 loop and under vmap with the launch counts each schedule implies, one
 multi-RSU scenario round on topk_int8, and a window of the parallel
 server schedule with its launch formula) on cuda against the same runs on
@@ -16,7 +18,8 @@ launch formula under dropouts, the two-cell trace with both planes on
 against the CPU), the reduced city paged (card against CPU, two runs bit
 for bit, launches per page, the paged peak memory below the unpaged),
 resnet18 under vmap against the loop on the card, the reduced LM configs
-served on cuda against the CPU, and the MoE's grouped dispatch with drops
+served on cuda against the CPU (the bfloat16 archs' on bfloat16 weights),
+and the MoE's grouped dispatch with drops
 on cuda against the CPU.  Needs a CUDA card and nvcc:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -712,6 +715,81 @@ def test_flash_kernel_reads_strided_qkv(dev):
     got = FA.flash_attention(q, k, v)
     want = FA.attention_plain(q, k, v)
     torch.testing.assert_close(got, want, rtol=FLASH_TOL, atol=FLASH_TOL)
+
+
+# the 16-bit kernel: float32's cases, and the bfloat16 archs' prefills
+# (qwen3-14b 40 heads over 8, command-r-35b 64 over 8, d 128)
+FLASH16_CASES = FLASH_CASES + [(8, 1024, 1024, 40, 8, 128, True, 0, 1.0),
+                               (8, 1024, 1024, 64, 8, 128, True, 0, 1.0)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal,window,qk_amp",
+                         FLASH16_CASES)
+def test_flash_kernel_16bit_matches_plain(dev, b, sq, sk, h, kv, d, causal,
+                                          window, qk_amp, dtype):
+    """bfloat16 / float16 q, k and v: the output in their dtype within one
+    ulp of it plus flash's float32 tolerance of the plain version (both
+    compute in float32 and round once), a second call bit for bit."""
+    cs = _chip_smoke()
+    q = _randn((b, sq, h, d), dev, 2, qk_amp).to(dtype)
+    k = _randn((b, sk, kv, d), dev, 3, qk_amp).to(dtype)
+    v = _randn((b, sk, kv, d), dev, 4).to(dtype)
+    n = LAUNCHES["flash_attention"]
+    got = FA.flash_attention(q, k, v, causal=causal, window=window)
+    again = FA.flash_attention(q, k, v, causal=causal, window=window)
+    assert LAUNCHES["flash_attention"] == n + 2
+    want = FA.attention_plain(q, k, v, causal=causal, window=window)
+    assert got.dtype == dtype and torch.equal(got, again)
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= cs._ulp(want) + FLASH_TOL
+                 + FLASH_TOL * want.float().abs()).all()), float(err.max())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_kernel_16bit_keeps_p_low_half(dev, dtype):
+    """chip_smoke's split case, whose output nearly cancels: the kernel
+    within one ulp plus flash's float32 tolerance of the plain version,
+    where p.v without p's low half falls outside it."""
+    cs = _chip_smoke()
+    q, k, v = cs.flash_split_case(dtype, device=dev)
+    got = FA.flash_attention(q, k, v, causal=False)
+    want = FA.attention_plain(q, k, v, causal=False)
+    assert got.dtype == dtype and cs.flash16_within(got, want)
+    assert not cs.flash16_within(cs.flash_hi_only(q, k, v), want)
+
+
+def test_flash_kernel_16bit_reads_strided_qkv_and_refuses_mixed(dev):
+    """q / k / v as views of one fused bfloat16 projection (no copies),
+    and an unaligned one (plain copies in place of cp.async); q, k and v
+    of mixed dtypes raise before a launch."""
+    cs = _chip_smoke()
+    qkv = _randn((2, 50, 8, 64), dev, 5).to(torch.bfloat16)
+    odd = _randn((2 * 50 * 8 * 64 + 1,), dev, 6).to(torch.bfloat16)
+    odd = odd[1:].view(2, 50, 8, 64)
+    for t in (qkv, odd):
+        q, k, v = t[:, :, :4], t[:, :, 4:6], t[:, :, 6:]
+        got = FA.flash_attention(q, k, v)
+        want = FA.attention_plain(q, k, v)
+        err = (got.float() - want.float()).abs()
+        assert bool((err <= cs._ulp(want) + FLASH_TOL
+                     + FLASH_TOL * want.float().abs()).all())
+    n = LAUNCHES["flash_attention"]
+    with pytest.raises(TypeError, match="one dtype"):
+        FA.flash_attention(q, k.float(), v)
+    assert LAUNCHES["flash_attention"] == n
+
+
+@pytest.mark.parametrize("arch", ["qwen3-14b", "command-r-35b",
+                                  "dbrx-132b"])
+def test_reduced_bf16_serving_on_cuda_matches_cpu(dev, arch):
+    """The bfloat16 archs' -smoke configs (weights in bfloat16) served on
+    the card and on the CPU from the same weights and inputs (chip_smoke's
+    phase 10): logits within 8 ulps of bfloat16 at the largest, over 8
+    rows, those the MoE routed apart (a near tie) left out, at most
+    half."""
+    row = _chip_smoke().reduced_arch_cpu_vs_card(arch)
+    assert row["dtype"] == "bfloat16" and row["ok"], row
 
 
 def _ssd_inputs(dev, b, s, h, p, g, n, seed=0):

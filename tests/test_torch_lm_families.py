@@ -22,7 +22,7 @@ from repro.models import layers as JL
 from repro.models import rglru as JR
 from repro.models import transformer as JT
 from repro_torch import bridge
-from repro_torch.configs import (ARCH_IDS, NOT_PORTED, SERVE_ONLY,
+from repro_torch.configs import (ARCH_IDS, SERVE_ONLY,
                                  get_config)
 from repro_torch.core import cost as TC
 from repro_torch.models import layers as L
@@ -72,10 +72,10 @@ def test_configs_match_reference(arch):
 
 def test_registry_holds_the_served_families():
     assert set(FAMILIES) <= set(ARCH_IDS)
-    assert set(SERVE_ONLY) == set(FAMILIES) | {"deepseek-v2-lite-16b"}
-    assert NOT_PORTED == ("dbrx-132b", "command-r-35b", "qwen3-14b")
+    assert set(SERVE_ONLY) == set(FAMILIES) | {
+        "deepseek-v2-lite-16b", "dbrx-132b", "command-r-35b", "qwen3-14b"}
     from repro.configs import ARCH_IDS as REF_IDS
-    assert sorted(ARCH_IDS + list(NOT_PORTED)) == sorted(REF_IDS)
+    assert sorted(ARCH_IDS) == sorted(REF_IDS)
 
 
 @pytest.mark.parametrize("arch", ALL_ARCHS)

@@ -71,10 +71,15 @@ def test_configs_match_reference(arch):
 
 
 def test_unported_archs_raise():
-    with pytest.raises(NotImplementedError, match="param_dtype"):
-        get_config("dbrx-132b")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        get_config("qwen3-14b-smoke")
+    """Every arch id of the reference has a config (the bfloat16 ones
+    since their parameters were ported); an unknown id raises, and a
+    bfloat16 arch's training is refused."""
+    from repro_torch.configs import check_trainable
+    for name in ("dbrx-132b", "qwen3-14b-smoke"):
+        assert dataclasses.asdict(get_config(name)) == dataclasses.asdict(
+            jax_config(name))
+        with pytest.raises(NotImplementedError, match="bfloat16 parameters"):
+            check_trainable(get_config(name))
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 

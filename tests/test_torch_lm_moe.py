@@ -5,8 +5,9 @@ float32 replica of dbrx-132b-smoke (``attn_moe``, grown to three periods):
 configs, ``count_params`` and the tree's size, the cost profile, the
 bridge, logits and the loss's ce and aux, split prefill + 3 decode steps
 at two cuts (logits and caches within 2e-4), and the refusals (training,
-the bfloat16 archs).  Parameters come from the reference's threefry init
-and cross through ``repro_torch.bridge``; inputs are numpy draws."""
+and the bfloat16 archs' training).  Parameters come from the reference's
+threefry init and cross through ``repro_torch.bridge``; inputs are numpy
+draws."""
 import dataclasses
 
 import jax
@@ -46,7 +47,7 @@ def _configs(name):
     if name == "deepseek-smoke-4l":
         pair = (jax_config(DEEPSEEK).reduced(), get_config(DEEPSEEK).reduced())
         change = dict(n_layers=4)
-    else:       # the port refuses dbrx's bfloat16: a float32 replica
+    else:       # dbrx in float32 (tests/test_torch_serve_bf16.py: bf16)
         pair = (JDBRX.reduced(), TDBRX.reduced())
         change = dict(n_layers=3, param_dtype="float32")
     return tuple(dataclasses.replace(c, **change) for c in pair)
@@ -210,7 +211,7 @@ def test_serving_steps_match_reference(name, cut):
 
 # --------------------------------------------------------------- refusals
 def test_training_deepseek_is_refused_and_the_bf16_archs_too():
-    from repro_torch.configs import (NOT_PORTED, SERVE_ONLY, check_trainable,
+    from repro_torch.configs import (SERVE_ONLY, check_trainable,
                                      untrained_features)
     from repro_torch.core.lm_unit import TransformerUnitModel
     from repro_torch.launch import train as TR
@@ -229,11 +230,13 @@ def test_training_deepseek_is_refused_and_the_bf16_archs_too():
     with pytest.raises(NotImplementedError, match="served only"):
         TR.main(["--arch", DEEPSEEK, "--smoke", "--steps", "1", "--device",
                  "cpu"])
-    assert NOT_PORTED == ("dbrx-132b", "command-r-35b", "qwen3-14b")
-    for arch in NOT_PORTED:
+    for arch in ("dbrx-132b", "command-r-35b", "qwen3-14b"):
+        assert arch in SERVE_ONLY
         for name in (arch, arch + "-smoke"):
-            with pytest.raises(NotImplementedError, match="param_dtype"):
-                get_config(name)
+            assert get_config(name).param_dtype == "bfloat16"
+            with pytest.raises(NotImplementedError,
+                               match="bfloat16 parameters"):
+                check_trainable(get_config(name))
 
 
 def test_serve_cli_serves_deepseek_on_cpu_when_asked(capsys):
