@@ -51,11 +51,16 @@ neither ``jax`` nor ``repro``.  In order it:
    musicgen's MHA 32 / 32; rmsnorm at every shape in float32 and
    bfloat16, deepseek's ``kv_norm`` over the latent (8, 1024, 512) among
    them, its backward at the four widths) and flash in bfloat16 and
-   float16 (every head dim and float32's edge shapes; qwen3-14b's prefill,
-   40 heads over 8 at d 128, and command-r-35b's, 64 over 8; within one
-   ulp of the working type plus flash's float32 tolerance, two calls bit
-   for bit; bound: the bytes, or q.k^T once and p.v twice at 989 TFLOP/s
-   dense bf16 / f16) times kernel (for
+   float16 (``FLASH16_CASES``: every head dim and float32's edge shapes,
+   their d-128 variants; qwen3-14b's prefill, 40 heads over 8 at d 128,
+   and command-r-35b's, 64 over 8; within one ulp of the working type plus
+   flash's float32 tolerance, two calls bit for bit on the route
+   ``flash_route`` picks: d 128 on the Hopper route, the rest on the mma
+   route; the timed prefills also forced onto the mma route in the same
+   call, rows ``*_mma``; bound: the bytes, or q.k^T once and p.v twice at
+   989 TFLOP/s dense bf16 / f16; the build prints the Hopper kernel's
+   registers, spills and shared memory, and fails on a spill) times
+   kernel (for
    ssd_chunk_scan and rmsnorm's backward every kernel of one wrapper
    call), wrapper call, plain version and one PyTorch library call
    (``scaled_dot_product_attention`` with ``enable_gqa``, under a window
@@ -103,7 +108,12 @@ neither ``jax`` nor ``repro``.  In order it:
    dispatch dropped (some must be kept), taken in a third, untimed
    prefill of the same prompt, every dispatch's kept slots held to a
    plain count on the CPU; flash's launches by q's dtype, all in the
-   weights' dtype;
+   weights' dtype, and by route, all on the Hopper route for the bfloat16
+   archs and on the mma route for the float32 ones; both full-size
+   prefills run under ``torch.profiler`` and are timed on the host clock
+   inside their traces, and where the first takes over 5 % longer than
+   the second the kernels whose summed device time differs most between
+   them are printed (ROADMAP C);
 9. at full width, prefill(s-1) + one decode step reproduces the last
    logits of prefill(s) within 1e-3 (gemma3 at s 1088 and recurrentgemma
    at s 2112, so that their local layers' rings wrap with a nonzero shift
@@ -372,8 +382,15 @@ LM_TOL = {"rmsnorm": 2e-5, "rmsnorm_backward": 2e-5,
 RMS_BWD_REPLACES = ("none: jax.vjp of rmsnorm_ref "
                     "(src/repro/kernels/ref.py:45), the port's plain vjp")
 # the kernel a timed call launches (a pattern of its name), or None where
-# the wrapper launches several (timed together)
-LM_SYMBOL = {"rmsnorm": "rmsnorm_", "flash_attention": "flash_attention_kernel"}
+# the wrapper launches several (timed together); flash's names both routes'
+# kernels, of which a call launches one
+LM_SYMBOL = {"rmsnorm": "rmsnorm_",
+             "flash_attention": "flash_attention_(?:hopper_)?kernel"}
+# flash's Hopper route (csrc/flash_hopper.cu) as a kernel of its own in the
+# JSON line, and the timed row it reports
+HOPPER_NAME, HOPPER_SOURCE = ("flash_attention_hopper",
+                              "src/repro_torch/kernels/csrc/flash_hopper.cu")
+HOPPER_MAIN = "qwen3_prefill_bf16"
 # phase 8-10's served archs; phases 10f-10i train the first two only
 # (gemma3-4b's adamw states alone would take ~73 GB in float32)
 # (deepseek-v2-lite-16b after the float32 ones: its 62.8 GB of float32
@@ -388,6 +405,32 @@ TRAIN_ARCHS = ("smollm-360m", "mamba2-780m")
 # 263 GB of bfloat16 weights fit no card, its -smoke does
 REDUCED_ONLY = ("dbrx-132b",)
 SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = 8, 1024, 32
+# phase 4b's 16-bit flash cases, each in bfloat16 and float16: (label,
+# (b, sq, sk, h, kv, d, causal, window), the dtypes timed).  Every head dim
+# and the float32 edges (windows, MQA, ragged s, masked rows, one query),
+# the d-128 edges (the Hopper route's), and the bfloat16 archs' prefills at
+# d 128: qwen3-14b's 40 heads over 8, command-r-35b's 64 over 8.  A timed
+# row is timed again on the mma route (its label + "_mma"), in the same call.
+FLASH16_CASES = (
+    ("smollm_prefill", (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 15, 5, 64,
+                        True, 0), ()),
+    ("d128_ragged", (1, 100, 100, 4, 2, 128, True, 0), ()),
+    ("d256_mqa", (1, 70, 70, 4, 1, 256, True, 0), ()),
+    ("d32_reduced", (2, 37, 37, 4, 2, 32, True, 0), ()),
+    ("window48", (2, 200, 200, 4, 2, 64, True, 48), ()),
+    ("noncausal", (2, 48, 80, 2, 2, 64, False, 0), ()),
+    ("masked_rows", (1, 64, 16, 2, 1, 64, False, 8), ()),
+    ("sq1", (2, 1, 77, 4, 2, 64, False, 0), ()),
+    ("d256_window40", (1, 90, 90, 2, 1, 256, True, 40), ()),
+    ("qk_x4", (1, 256, 256, 4, 2, 64, True, 0), ()),
+    ("window48_d128", (2, 200, 200, 4, 2, 128, True, 48), ()),
+    ("noncausal_d128", (2, 48, 80, 2, 2, 128, False, 0), ()),
+    ("masked_rows_d128", (1, 64, 16, 2, 1, 128, False, 8), ()),
+    ("sq1_d128", (2, 1, 77, 4, 2, 128, False, 0), ()),
+    ("qwen3_prefill", (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 40, 8, 128,
+                       True, 0), ("bf16", "f16")),
+    ("command_r_prefill", (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 64, 8,
+                           128, True, 0), ("bf16",)))
 TEACHER_TOL = 1e-3              # phase 9: f32 through 24-48 layers, prefill
 #                                 (kernels) vs decode (plain) sum orders
 REDUCED_TOL = 2e-4              # phase 10: as the CPU parity tests
@@ -1170,7 +1213,42 @@ def build_kernels():
     for line in lib.log.splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             print(f"build: {line.strip()}", flush=True)
+    if lib.log:
+        hopper = hopper_ptxas(lib.log)
+        smem = lib.lib.repro_flash_hopper_smem_bytes()
+        for dtype, info in hopper.items():
+            print(f"build: {HOPPER_NAME} {dtype} registers="
+                  f"{info['registers']} spill_stores={info['spill_stores']} "
+                  f"spill_loads={info['spill_loads']} stack={info['stack']} "
+                  f"dynamic_smem_bytes={smem}", flush=True)
+        if len(hopper) != 2 or any(i["spill_stores"] or i["spill_loads"]
+                                   for i in hopper.values()):
+            raise AssertionError(f"{HOPPER_NAME}: ptxas reports {hopper} "
+                                 f"(both dtypes, no spills wanted)")
     return lib
+
+
+def hopper_ptxas(log):
+    """The Hopper flash kernel's ptxas -v report per dtype, from a build
+    log: {"bf16" | "f16": {registers, spill_stores, spill_loads,
+    stack}}."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            cur = None
+            if "flash_attention_hopper_kernel" in line:
+                cur = out.setdefault(
+                    "bf16" if "bfloat16" in line else "f16", {})
+        elif cur is not None:
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", line)
+            if m:
+                cur.update(stack=int(m[1]), spill_stores=int(m[2]),
+                           spill_loads=int(m[3]))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                cur["registers"] = int(m[1])
+    return out
 
 
 def card_line():
@@ -1512,16 +1590,20 @@ def flash16_within(a, b):
                  <= _ulp(b) + tol + tol * b.float().abs()).all())
 
 
-def _flash16_close(run_k):
+def _flash16_close(run_k, route):
     """16-bit flash against its plain version: :func:`flash16_within`,
-    finite, of q's dtype; a second call bit for bit."""
+    finite, of q's dtype; a second call bit for bit, on ``route``."""
     import torch
+    from repro_torch.kernels import flash_attention as FA
 
     def close(got, want):
         (a,), (b,) = got, want
-        return (a.dtype == b.dtype and a.shape == b.shape
-                and bool(torch.isfinite(a).all())
-                and torch.equal(a, run_k()) and flash16_within(a, b))
+        before = dict(FA.ROUTE_LAUNCHES)
+        again = run_k()
+        took = [r for r, n in FA.ROUTE_LAUNCHES.items() if n != before[r]]
+        return (took == [route] and a.dtype == b.dtype
+                and a.shape == b.shape and bool(torch.isfinite(a).all())
+                and torch.equal(a, again) and flash16_within(a, b))
     return close
 
 
@@ -1545,7 +1627,7 @@ LM_MAIN = {"rmsnorm": "smollm_prefill_d960",
            "ssd_chunk_scan": "mamba2_prefill"}
 LM_ROW_KEYS = ("shape", "ms", "ms_flushed", "call_ms", "plain_ms",
                "library_ms", "library_ms_flushed", "bound_ms", "bound_by",
-               "bound_tc_ms", "bound_split_ms", "max_abs_err")
+               "bound_tc_ms", "bound_split_ms", "max_abs_err", "route")
 FLUSHED_ITERS = 100
 
 
@@ -1627,15 +1709,12 @@ def _lm_cases():
             4 * (2 * q.numel() + k.numel() + v.numel()),
             4 * d * b * h * _visible_pairs(sq, sk, causal, window),
             _lm_close(name="flash_attention"), F32_FLOPS_PER_S))
-    # the 16-bit kernel, bfloat16 and float16, at every head dim and the
-    # float32 edges (windows, MQA, ragged s, masked rows, one query), the
-    # bfloat16 archs' prefills at d 128: qwen3-14b's 40 heads over 8,
-    # command-r-35b's 64 over 8 (timed in bfloat16; qwen3's in float16
-    # too), and the split case, where a p.v without p's low half would
-    # fall outside the tolerance (held so here).  The function's
-    # operations: q.k^T and p.v, 4 d per visible pair and head, at the
-    # bf16 / f16 rate (bound_split_ms counts p.v twice, as the kernel
-    # runs it)
+    # the 16-bit kernel, bfloat16 and float16, at FLASH16_CASES, the timed
+    # rows on both routes, and the split case (d 128: the Hopper route),
+    # where a p.v without p's low half would fall outside the tolerance
+    # (held so here).  The function's operations: q.k^T and p.v, 4 d per
+    # visible pair and head, at the bf16 / f16 rate (bound_split_ms counts
+    # p.v twice, as both routes run it)
     for dt in ("bf16", "f16"):
         q, k, v = flash_split_case(_dtype(RMS_DTYPES[dt][0]))
         if flash16_within(flash_hi_only(q, k, v),
@@ -1649,35 +1728,35 @@ def _lm_cases():
             "flash_attention", f"p_split_{dt}", False, run_k,
             lambda q=q, k=k, v=v: FA.attention_plain(q, k, v, causal=False),
             None, 2 * (2 * q.numel() + k.numel() + v.numel()),
-            4 * d * b * h * sq * sk, _flash16_close(run_k),
+            4 * d * b * h * sq * sk,
+            _flash16_close(run_k, FA.flash_route(q, k, v)),
             BF16_FLOPS_PER_S))
-        for label, (b, sq, sk, h, kv, d, causal, window), timed in [
-                ("smollm_prefill", (B, S, S, 15, 5, 64, True, 0), False),
-                ("d128_ragged", (1, 100, 100, 4, 2, 128, True, 0), False),
-                ("d256_mqa", (1, 70, 70, 4, 1, 256, True, 0), False),
-                ("d32_reduced", (2, 37, 37, 4, 2, 32, True, 0), False),
-                ("window48", (2, 200, 200, 4, 2, 64, True, 48), False),
-                ("noncausal", (2, 48, 80, 2, 2, 64, False, 0), False),
-                ("masked_rows", (1, 64, 16, 2, 1, 64, False, 8), False),
-                ("sq1", (2, 1, 77, 4, 2, 64, False, 0), False),
-                ("d256_window40", (1, 90, 90, 2, 1, 256, True, 40), False),
-                ("qk_x4", (1, 256, 256, 4, 2, 64, True, 0), False),
-                ("qwen3_prefill", (B, S, S, 40, 8, 128, True, 0), True),
-                ("command_r_prefill", (B, S, S, 64, 8, 128, True, 0),
-                 dt == "bf16")]:
+        for label, (b, sq, sk, h, kv, d, causal, window), timed_dts in \
+                FLASH16_CASES:
             q, k, v = (t.to(_dtype(RMS_DTYPES[dt][0])) for t in _flash_case(
                 b, sq, sk, h, kv, d, len(cases),
                 4.0 if label == "qk_x4" else 1.0))
-            run_k = (lambda q=q, k=k, v=v, c=causal, w=window:
-                     FA.flash_attention(q, k, v, causal=c, window=w))
-            cases.append((
-                "flash_attention", f"{label}_{dt}", timed, run_k,
-                lambda q=q, k=k, v=v, c=causal, w=window: FA.attention_plain(
-                    q, k, v, causal=c, window=w),
-                _sdpa_library(q, k, v, causal, window) if timed else None,
-                2 * (2 * q.numel() + k.numel() + v.numel()),
-                4 * d * b * h * _visible_pairs(sq, sk, causal, window),
-                _flash16_close(run_k), BF16_FLOPS_PER_S))
+            timed = dt in timed_dts
+            for route in (None, "mma") if timed else (None,):
+                if route is None:
+                    run_k = (lambda q=q, k=k, v=v, c=causal, w=window:
+                             FA.flash_attention(q, k, v, causal=c, window=w))
+                else:
+                    run_k = (lambda q=q, k=k, v=v, c=causal, w=window, d=d:
+                             FA._forward(q, k, v, c, w, d ** -0.5,
+                                         route="mma"))
+                cases.append((
+                    "flash_attention",
+                    f"{label}_{dt}" + (f"_{route}" if route else ""), timed,
+                    run_k,
+                    lambda q=q, k=k, v=v, c=causal, w=window:
+                        FA.attention_plain(q, k, v, causal=c, window=w),
+                    (_sdpa_library(q, k, v, causal, window)
+                     if timed and route is None else None),
+                    2 * (2 * q.numel() + k.numel() + v.numel()),
+                    4 * d * b * h * _visible_pairs(sq, sk, causal, window),
+                    _flash16_close(run_k, route or FA.flash_route(q, k, v)),
+                    BF16_FLOPS_PER_S))
     for label, (b, s, h, p, g, n, chunk), timed in [
             ("mamba2_prefill", (B, S, 48, 64, 1, 128, 256), True),
             ("ragged_g2", (2, 300, 8, 64, 2, 128, 256), False),
@@ -1706,11 +1785,15 @@ def check_lm_kernels():
     (every case is checked before a failure stops the run); times at each
     served arch's prefill shape.  Returns {kernel: {label: row}}."""
     import torch
+    from repro_torch.kernels import flash_attention as FA
     out = {name: {} for name in (*LM_META, "rmsnorm_backward")}
     bad = []
     for (name, label, timed, run_k, run_p, run_lib, nbytes, flops, close,
          rate) in _lm_cases():
+        before = dict(FA.ROUTE_LAUNCHES)
         got, want = run_k(), run_p()
+        took = ",".join(r for r, n in FA.ROUTE_LAUNCHES.items()
+                        if n != before[r])
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
         torch.cuda.synchronize()
@@ -1720,6 +1803,12 @@ def check_lm_kernels():
         ok = close(got, want)
         row = {"shape": [list(a.shape) for a in got], "max_abs_err": err,
                "within_tol": ok}
+        if name == "flash_attention":
+            # the route the call took (16-bit: close checks it again);
+            # float32 has the mma route only
+            row["route"] = took
+            ok = row["within_tol"] = ok and (rate == BF16_FLOPS_PER_S
+                                             or took == "mma")
         if timed:
             bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
             ops_ms = 1e3 * flops / rate
@@ -1753,6 +1842,7 @@ def check_lm_kernels():
         tol_s = f"1ulp+{tol:g}" if rate == BF16_FLOPS_PER_S else f"{tol:g}"
         print(f"kernel {name:16s} {label:22s} shape={row['shape']} "
               f"max_abs_err={err:g} tol={tol_s} ok={ok}"
+              + (f" route={row['route']}" if "route" in row else "")
               + (f" ms={row['ms']:.6f} call_ms={row['call_ms']:.6f} "
                  f"plain_ms={row['plain_ms']:.6f} library_ms="
                  f"{row['library_ms']} bound_ms={row['bound_ms']:.6f} "
@@ -1870,18 +1960,72 @@ def _count_moe_slots():
 
 def _count_flash_dtypes():
     """Wrap flash's dispatcher (``flash_attention._forward``, which on the
-    card launches the kernel or raises) to tally its calls by q's dtype.
-    Returns the tally and the function that undoes the wrap."""
+    card launches the kernel or raises) to tally its calls by q's dtype
+    and its launches by route (``ROUTE_LAUNCHES`` across each call).
+    Returns the tallies and the function that undoes the wrap."""
     from repro_torch.kernels import flash_attention as FA
     forward = FA._forward
-    tally = {}
+    tally, routes = {}, {}
 
-    def counted(q, *args):
+    def counted(q, *args, **kwargs):
         key = str(q.dtype).replace("torch.", "")
         tally[key] = tally.get(key, 0) + 1
-        return forward(q, *args)
+        before = dict(FA.ROUTE_LAUNCHES)
+        out = forward(q, *args, **kwargs)
+        for route, n in FA.ROUTE_LAUNCHES.items():
+            if n != before[route]:
+                routes[route] = routes.get(route, 0) + n - before[route]
+        return out
     FA._forward = counted
-    return tally, lambda: setattr(FA, "_forward", forward)
+    return tally, routes, lambda: setattr(FA, "_forward", forward)
+
+
+# phase 8 prints the kernels of the first full-size prefill whose summed
+# device time differs most from the second's when the first's wall time is
+# this much above the second's (ROADMAP C), and this many of them
+SLOW_FIRST, SLOW_FIRST_TOP = 1.05, 8
+
+
+def _profile_prefills():
+    """Wrap ``serve``'s prefill step so that each prefill runs under
+    ``torch.profiler`` (device activity only).  Per prefill, (its host-clock
+    seconds from the call to a synchronize, inside the trace but without
+    starting or stopping it; its kernels' summed device microseconds by
+    name) go into the returned list.  Returns the list and the function
+    that undoes the wrap."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch import serve
+    make = serve.D.make_prefill_step
+    traces = []
+
+    def made(*args, **kwargs):
+        step = make(*args, **kwargs)
+
+        def traced(*a, **k):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                out = step(*a, **k)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            traces.append((wall, {
+                e.key: e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA}))
+            return out
+        return traced
+    serve.D.make_prefill_step = made
+    return traces, lambda: setattr(serve.D, "make_prefill_step", make)
+
+
+def _first_prefill_kernels(first, second):
+    """(device ms of each trace, the SLOW_FIRST_TOP kernels whose summed
+    device time differs most between them as (name, first ms, second
+    ms))."""
+    names = sorted(set(first) | set(second),
+                   key=lambda n: -abs(first.get(n, 0) - second.get(n, 0)))
+    return ((sum(first.values()) / 1e3, sum(second.values()) / 1e3),
+            [(n[:80], first.get(n, 0) / 1e3, second.get(n, 0) / 1e3)
+             for n in names[:SLOW_FIRST_TOP]])
 
 
 def serve_path(arch, card=""):
@@ -1919,24 +2063,40 @@ def serve_path(arch, card=""):
     # the SM clocks and the pool before and after the counted serve, the
     # process's first full-size prefill (decode's buffers are far smaller)
     probe = {"before_serve": _card_state()}
-    flash_dtypes, unwrap_flash = _count_flash_dtypes()
+    flash_dtypes, flash_routes, unwrap_flash = _count_flash_dtypes()
+    # both full-size prefills run under the profiler, each timed on the host
+    # clock inside its trace (ROADMAP C's slow first prefill)
+    prefill_traces, unwrap_prefill = _profile_prefills()
     kernels.reset_launches()
     try:
         res = serve.serve(cfg, params, batch=SERVE_BATCH,
                           prompt_len=SERVE_PROMPT, decode_steps=SERVE_STEPS)
         counts = kernels.launch_counts()
+        unwrap_flash()               # the tallies hold the counted serve
+        probe["after_serve"] = _card_state()
+        # the counted serve's peak (the second serve below runs while this
+        # one's caches are still held)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        # the process's first full-size prefill (the counted one) against
+        # a second: a first one can wait on cudaMalloc growing the
+        # allocator's pool (scripts/profile_port.py times those calls)
+        serve.serve(cfg, params, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+                    decode_steps=0)
     finally:
         unwrap_flash()
-    probe["after_serve"] = _card_state()
-    # the counted serve's peak (the second serve below runs while this
-    # one's caches are still held)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    # the process's first full-size prefill (the counted one) against a
-    # second: a first one can wait on cudaMalloc growing the allocator's
-    # pool (scripts/profile_port.py times those calls)
-    prefill_again_s = serve.serve(cfg, params, batch=SERVE_BATCH,
-                                  prompt_len=SERVE_PROMPT,
-                                  decode_steps=0)["prefill_s"]
+        unwrap_prefill()
+    # the prefills' own host-clock times (serve's include the trace's stop)
+    (prefill_s, first), (prefill_again_s, again) = prefill_traces
+    (first_dev_ms, again_dev_ms), top = _first_prefill_kernels(first, again)
+    slow_first = prefill_s > SLOW_FIRST * prefill_again_s
+    print(f"serve {arch} prefill_trace first_ms={1e3 * prefill_s:.3f} "
+          f"again_ms={1e3 * prefill_again_s:.3f} first_device_ms="
+          f"{first_dev_ms:.3f} again_device_ms={again_dev_ms:.3f} kernels="
+          f"{len(first)}/{len(again)} slow_first={slow_first}", flush=True)
+    if slow_first:
+        for name, a, b in top:
+            print(f"serve {arch} slow_first_prefill kernel={name} "
+                  f"first_ms={a:.3f} again_ms={b:.3f}", flush=True)
     slots = {"routed": 0, "kept": 0, "witnessed": 0}
     if cfg.moe is not None:
         tally, unwrap = _count_moe_slots()
@@ -1951,18 +2111,22 @@ def serve_path(arch, card=""):
     want.update(_expected_launches(cfg))
     timing = {"arch": arch, "params": n_params, "count_params": counted,
               "uncounted_params": uncounted, "cut": res["cut"],
-              "init_s": init_s, "prefill_ms": 1e3 * res["prefill_s"],
+              "init_s": init_s, "prefill_ms": 1e3 * prefill_s,
               "prefill_again_ms": 1e3 * prefill_again_s,
               "decode_ms_per_step": 1e3 * res["decode_s"] / SERVE_STEPS,
               "prefill_tokens_per_s":
-                  SERVE_BATCH * SERVE_PROMPT / res["prefill_s"],
+                  SERVE_BATCH * SERVE_PROMPT / prefill_s,
               "decode_tokens_per_s":
                   SERVE_BATCH * SERVE_STEPS / res["decode_s"],
               "peak_mem_gb": peak_gb, "moe_slots": slots,
               "moe_dropped_share": (1 - slots["kept"] / slots["routed"]
                                     if slots["routed"] else None),
               "first_prefill_probe": probe, "launches": counts,
+              "prefill_device_ms": first_dev_ms,
+              "prefill_again_device_ms": again_dev_ms,
+              "slow_first_kernels": top if slow_first else [],
               "flash_launches_by_dtype": flash_dtypes,
+              "flash_launches_by_route": flash_routes,
               "param_dtype": cfg.param_dtype}
     print(f"serve {arch} params={n_params} count_params={counted} "
           f"uncounted={uncounted} cut={res['cut']} "
@@ -1974,6 +2138,7 @@ def serve_path(arch, card=""):
           f"decode_tokens_per_s={timing['decode_tokens_per_s']:.1f} "
           f"peak_mem_gb={timing['peak_mem_gb']:.3f} launches={counts} "
           f"flash_launches_by_dtype={flash_dtypes} "
+          f"flash_launches_by_route={flash_routes} "
           f"param_dtype={cfg.param_dtype} "
           f"moe_slots={slots} moe_dropped_share="
           f"{timing['moe_dropped_share']} card={card}", flush=True)
@@ -1995,6 +2160,13 @@ def serve_path(arch, card=""):
                         if counts["flash_attention"] else {}):
         raise AssertionError(f"{arch}: flash launched on {flash_dtypes}, "
                              f"its weights are {cfg.param_dtype}")
+    # the bfloat16 archs' prefills (d 128) take the Hopper route, the
+    # float32 archs' the mma route
+    route = "hopper" if cfg.param_dtype == "bfloat16" else "mma"
+    if flash_routes != ({route: counts["flash_attention"]}
+                        if counts["flash_attention"] else {}):
+        raise AssertionError(f"{arch}: flash launched on routes "
+                             f"{flash_routes}, expected {route} only")
     moe_layers = sum(cfg.layer_types.count(k) for k in (MLA_MOE, ATTN_MOE))
     if cfg.moe is not None and (slots["witnessed"] != moe_layers
                                 or not 0 < slots["kept"] <= slots["routed"]):
@@ -3449,16 +3621,28 @@ def kernel_report(checks, launches, main_cuts, mm_checks, mm_launches,
         "plane_launches": plane_launches.get(MM_META[0], {}),
         "city_launches": city_launches.get(MM_META[0], {}),
         "wide_ms": mm_checks["wide"]["ms"], "shape": row["shape"]})
+    def flash_routes(route):
+        return {t["arch"]: t["flash_launches_by_route"].get(route, 0)
+                for t in serving}
+
     for name, replaces in LM_META.items():
         row = lm_checks[name][LM_MAIN[name]]
         out.append({
             "name": name, "route": "cuda", "source": LM_SOURCE,
             "replaces": replaces,
-            "launches": sum(t["launches"][name] for t in serving),
-            "serving_launches": {t["arch"]: t["launches"][name]
-                                 for t in serving},
+            # flash: lm.cu's kernel, the mma route (the wrapper's count,
+            # both routes, under wrapper_launches)
+            "launches": (sum(flash_routes("mma").values())
+                         if name == "flash_attention" else
+                         sum(t["launches"][name] for t in serving)),
+            "serving_launches": (flash_routes("mma")
+                                 if name == "flash_attention" else
+                                 {t["arch"]: t["launches"][name]
+                                  for t in serving}),
             **({"launches_by_dtype": {t["arch"]: t["flash_launches_by_dtype"]
-                                      for t in serving}}
+                                      for t in serving},
+                "wrapper_launches": sum(t["launches"][name]
+                                        for t in serving)}
                if name == "flash_attention" else {}),
             "max_abs_err": max(r["max_abs_err"]
                                for r in lm_checks[name].values()),
@@ -3473,6 +3657,24 @@ def kernel_report(checks, launches, main_cuts, mm_checks, mm_launches,
                        if "ms" in r and label != LM_MAIN[name]},
             **({"bound_tc_ms": row["bound_tc_ms"]} if "bound_tc_ms" in row
                else {})})
+    # flash's Hopper route: the bfloat16 archs' prefills
+    rows = {label: r for label, r in lm_checks["flash_attention"].items()
+            if r.get("route") == "hopper"}
+    row = rows[HOPPER_MAIN]
+    out.append({
+        "name": HOPPER_NAME, "route": "cuda", "source": HOPPER_SOURCE,
+        "replaces": LM_META["flash_attention"],
+        "launches": sum(flash_routes("hopper").values()),
+        "serving_launches": flash_routes("hopper"),
+        "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
+        "ms": row["ms"], "plain_ms": row["plain_ms"],
+        "call_ms": row["call_ms"], "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+        "bound_split_ms": row["bound_split_ms"], "shape": row["shape"][0],
+        "shapes": {label: {key: r[key] for key in LM_ROW_KEYS if key in r}
+                   for label, r in lm_checks["flash_attention"].items()
+                   if "ms" in r and label != HOPPER_MAIN
+                   and (r["route"] == "hopper" or label.endswith("_mma"))}})
     name = "rmsnorm_backward"
     row = lm_checks[name][LM_MAIN[name]]
     out.append({

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA library (nvcc + ctypes).
 
-Every source in ``kernels/csrc/*.cu`` (the codec, ``codec.cu``, and the LM
-lane, ``lm.cu``) has a plain C interface, so each compiles in seconds with
+Every source in ``kernels/csrc/*.cu`` (the codec, ``codec.cu``, the LM
+lane, ``lm.cu``, and flash's Hopper route, ``flash_hopper.cu``) has a plain C
+interface, so each compiles in seconds with
 ``nvcc`` alone (no PyTorch headers).  The sources compile to objects in
 parallel, one ``nvcc`` each, all started together, and link into one shared
 library that ctypes loads.  The library is built at first use into
@@ -45,9 +46,13 @@ SIGNATURES = {
     "repro_rmsnorm": [_P, _P, _P, _LL, _I, _F, _I, _I, _P],
     "repro_rmsnorm_backward": [*[_P] * 6, _LL, *[_I] * 4, _F, _I, _I, _P],
     "repro_rmsnorm_backward_blocks": [_LL, *[_I] * 4],
-    # flash's last int: q / k / v / o's dtype code (as the codec's)
+    # flash's last ints: q / k / v / o's dtype code (as the codec's) and,
+    # for the dispatcher, the route (0 mma.sync, 1 Hopper)
     "repro_flash_attention": [_P, _P, _P, _P, *[_I] * 6, *[_LL] * 9, _I, _I,
-                              _F, _I, _P],
+                              _F, _I, _I, _P],
+    "repro_flash_attention_hopper": [_P, _P, _P, _P, *[_I] * 6, *[_LL] * 9,
+                                     _I, _I, _F, _I, _P],
+    "repro_flash_hopper_smem_bytes": [],
     "repro_ssd_chunk_scan": [*[_P] * 8, *[_I] * 7, *[_LL] * 12, _P],
     "repro_ssd_workspace_floats": [_I] * 7,
 }

@@ -1,0 +1,564 @@
+// Flash attention's Hopper route (sm_90a): bfloat16 / float16 q, k and v at
+// head dim 128, with a plain C interface loaded with ctypes by
+// repro_torch/kernels/_build.py.  repro_flash_attention (lm.cu) calls it when
+// the Python wrapper's flash_route picked "hopper"; every other input takes
+// lm.cu's mma.sync kernel.
+//
+// Replaces _fa_kernel (repro/kernels/flash_attention.py), as lm.cu's route
+// does, and computes what lm.cu's 16-bit route computes: softmax(q k^T *
+// scale + mask) v with causal and sliding-window masks and GQA (kv head =
+// head / group), the scores of the 16-bit values as they are (a product of
+// two 16-bit values is exact in float32, the sums float32), the online
+// softmax in float32, p kept in float32 for p.v by splitting it into
+// hi = T(p) and lo = T(p - hi) and summing lo.v, then hi.v, into float32
+// accumulators, and one rounding of the output to T.  A row with no visible
+// key outputs 0.
+//
+// Bound: operations.  The function needs 4 d flops a visible (query, key)
+// pair and head; the kernel does 6 d (q.k^T once, p.v twice), so its floor
+// is 6 d flops a visible pair at 989 TFLOP/s (dense bf16 / f16, NVIDIA's H100
+// SXM data sheet); the bytes (q, k, v and o read or written once) take
+// ~1/10 of that at the bf16 archs' prefills.
+//
+// Design: FlashAttention-3's shape, the usual shape of a fast Hopper kernel.
+// A block owns one (batch, head, 128-row query tile), query tiles ordered
+// longest causal row first, and runs three warpgroups:
+//   - a producer (registers lowered to 24 by setmaxnreg): one thread issues
+//     every copy with TMA (cp.async.bulk.tensor) from tensor maps the host
+//     builds for each call.  Q (4-D map over (d, s, h, b)) is loaded once;
+//     K and V (over (d, s, kv, b)) run through a ring of FH_STAGES stages
+//     with full / empty mbarriers.  A box is 64 columns (128 bytes, the
+//     128-byte swizzle's span) by the tile's rows, so a d-128 row is two
+//     boxes; rows past sq or sk arrive zero-filled;
+//   - two consumers of 64 query rows each (registers raised to 240): S =
+//     Q.K^T is wgmma m64n128k16 with both operands in shared memory (both
+//     K-major), into float32 registers; the masks only on tiles that need
+//     them (the diagonal, the window's edge, a ragged sk); the online
+//     softmax in registers with exp2 and scale.log2(e) folded into one FFMA
+//     a score; then p.v is wgmma m64n128k16 with p's hi / lo halves as
+//     register A operands (the S accumulators' layout is the A register
+//     layout of 16-bit operands) and V as the shared-memory B operand,
+//     MN-major (row-major [key][d] tiles, the transpose bit of 16-bit B),
+//     in two commit groups of 64 keys so that the second half's split
+//     overlaps the first half's products.  Each pair of p is converted
+//     with one packed instruction (no spills at 240 registers).
+// Key tiles wholly above the diagonal or left of the window are skipped.
+// The wgmma descriptors use the 128-byte swizzle TMA writes: K-major
+// operands step 32 bytes along K inside the swizzle atom (SBO: 8 rows of
+// 128 bytes); V steps 16 keys (2048 bytes) and its two 64-column halves are
+// LBO apart.
+//
+// Left for later: overlapping one tile's softmax with the next Q.K^T inside
+// a consumer, ping-pong scheduling of the two consumers, a persistent grid,
+// cluster multicast of K / V across a GQA group's heads, d 64 and d 256.
+
+#include <cuda.h>  // CUtensorMap and its enums; cuTensorMapEncodeTiled is
+                   // reached through cudaGetDriverEntryPoint (no -lcuda)
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+namespace {
+
+constexpr int FH_D = 128;             // head dim
+constexpr int FH_BQ = 128;            // query rows a block (two consumers)
+constexpr int FH_BK = 128;            // keys a tile
+constexpr int FH_STAGES = 2;          // K / V ring
+constexpr int FH_THREADS = 384;       // producer + two consumer warpgroups
+constexpr int FH_BOX = 64;            // columns a TMA box: 128 bytes
+constexpr int FH_ROW = FH_BOX * 2;    // bytes a swizzled row of a box
+constexpr int FH_Q_BYTES = FH_BQ * FH_D * 2;
+constexpr int FH_KV_BYTES = FH_BK * FH_D * 2;
+constexpr int FH_BAR = FH_Q_BYTES + 2 * FH_STAGES * FH_KV_BYTES;
+// Q, K[stages], V[stages] (each 1024-aligned, as the swizzle needs), the
+// barriers, and slack to align the dynamic shared memory's base
+constexpr int FH_SMEM = FH_BAR + 64 + 1024;
+constexpr float FH_LOG2E = 1.4426950408889634f;
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// a and b rounded to T (to nearest even) in one register, a in the low half
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float a, float b) {
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    const __nv_bfloat162 r = __floats2bfloat162_rn(a, b);
+    return *reinterpret_cast<const uint32_t*>(&r);
+  } else {
+    const __half2 r = __floats2half2_rn(a, b);
+    return *reinterpret_cast<const uint32_t*>(&r);
+  }
+}
+
+// the two T values of a register, as float32 (exact)
+template <typename T>
+__device__ __forceinline__ float2 unpack2(uint32_t r) {
+  if constexpr (std::is_same_v<T, __nv_bfloat16>)
+    return make_float2(__uint_as_float(r << 16),
+                       __uint_as_float(r & 0xffff0000u));
+  else
+    return __half22float2(*reinterpret_cast<const __half2*>(&r));
+}
+
+// p0, p1 -> (hi, lo) registers of two T values each, p ~ hi + lo: hi =
+// T(p), lo = T(p - hi) (p - hi is exact), lm.cu's split_pair with each pair
+// converted by one packed instruction
+template <typename T>
+__device__ __forceinline__ void split_pair(float p0, float p1, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = pack2<T>(p0, p1);
+  const float2 h = unpack2<T>(hi);
+  lo = pack2<T>(p0 - h.x, p1 - h.y);
+}
+
+// ------------------------------------------------------------ mbarriers
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+// one arrival that also expects ``bytes`` of TMA traffic
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// until the phase of parity ``parity`` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+}
+
+// one box of a 4-D tensor map into shared memory, completing on ``bar``
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// ----------------------------------------------------------------- wgmma
+// a shared-memory matrix descriptor for the 128-byte swizzle: the start
+// address, LBO and SBO in 16-byte units, layout type 1 (bits 62-63)
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFFu) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// pins registers at this point of the program, so the compiler moves no
+// read or write of an asynchronous wgmma's operands across a fence / wait
+__device__ __forceinline__ void pin(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void pin(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
+#define FH_D64                                                               \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "   \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "   \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "   \
+  "%58, %59, %60, %61, %62, %63}"
+#define FH_ACC8(d, i)                                                      \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),              \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define FH_ACC64(d)                                                        \
+  FH_ACC8(d, 0), FH_ACC8(d, 8), FH_ACC8(d, 16), FH_ACC8(d, 24),            \
+      FH_ACC8(d, 32), FH_ACC8(d, 40), FH_ACC8(d, 48), FH_ACC8(d, 56)
+// both operands in shared memory, K-major; scale-d 0 overwrites d
+#define FH_WGMMA_SS(TY)                                                    \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                \
+               "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY    \
+               " " FH_D64 ", %64, %65, p, 1, 1, 0, 0;\n}\n"                \
+               : FH_ACC64(d)                                               \
+               : "l"(da), "l"(db), "r"(accumulate))
+// A from registers, B MN-major in shared memory (transpose bit 1)
+#define FH_WGMMA_RS(TY)                                                    \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                \
+               "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY    \
+               " " FH_D64 ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"  \
+               : FH_ACC64(d)                                               \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),      \
+                 "r"(1))
+
+// d (64 x 128) (+)= A (64 x 16, shared) . B (16 x 128, shared)
+template <typename T>
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  if constexpr (std::is_same_v<T, __nv_bfloat16>)
+    FH_WGMMA_SS("bf16");
+  else
+    FH_WGMMA_SS("f16");
+}
+
+// d (64 x 128) += A (64 x 16, registers) . B (16 x 128, shared)
+template <typename T>
+__device__ __forceinline__ void wgmma_rs(float (&d)[64],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (std::is_same_v<T, __nv_bfloat16>)
+    FH_WGMMA_RS("bf16");
+  else
+    FH_WGMMA_RS("f16");
+}
+
+// ---------------------------------------------------------------- kernel
+// Accumulator layout of wgmma m64nN (f32), per warp w of the warpgroup and
+// lane = 4 gq + tq: d[4j + e] is row 16w + gq + 8 (e >> 1), column
+// 8j + 2tq + (e & 1); the A register fragment of a 16-column step kk is
+// {d[8kk], d[8kk+1]}, {d[8kk+2], d[8kk+3]}, {d[8kk+4], d[8kk+5]},
+// {d[8kk+6], d[8kk+7]} packed as pairs of T.
+template <typename T>
+__global__ void __launch_bounds__(FH_THREADS, 1)
+    flash_attention_hopper_kernel(const __grid_constant__ CUtensorMap mq,
+                                  const __grid_constant__ CUtensorMap mk,
+                                  const __grid_constant__ CUtensorMap mv,
+                                  T* __restrict__ o, int sq, int sk, int h,
+                                  int group, int causal, int window,
+                                  float scale_log2) {
+  extern __shared__ __align__(1024) unsigned char fh_smem[];
+  const uint32_t sQ =
+      ((uint32_t)__cvta_generic_to_shared(fh_smem) + 1023u) & ~1023u;
+  const uint32_t sK = sQ + FH_Q_BYTES;
+  const uint32_t sV = sK + FH_STAGES * FH_KV_BYTES;
+  // barriers: Q full, then per stage K full, V full, stage empty
+  const uint32_t bar_q = sQ + FH_BAR;
+  auto bar_k = [=](int s) { return bar_q + 8u * (1 + s); };
+  auto bar_v = [=](int s) { return bar_q + 8u * (1 + FH_STAGES + s); };
+  auto bar_e = [=](int s) { return bar_q + 8u * (1 + 2 * FH_STAGES + s); };
+
+  const int hi = blockIdx.x % h, bi = blockIdx.x / h;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * FH_BQ;  // long rows first
+  int k_hi = sk;
+  if (causal) k_hi = min(sk, q0 + FH_BQ);              // keys <= last row
+  int k_lo = 0;
+  if (window > 0) k_lo = max(0, q0 - window + 1);      // keys > row 0 - window
+  k_lo = (k_lo / FH_BK) * FH_BK;
+  const int ntiles = k_hi > k_lo ? (k_hi - k_lo + FH_BK - 1) / FH_BK : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < FH_STAGES; ++s) {
+      mbar_init(bar_k(s), 1);
+      mbar_init(bar_v(s), 1);
+      mbar_init(bar_e(s), 2 * 128);  // every consumer thread
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ------------------------------------------------------ producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      const int kvh = hi / group;
+      mbar_expect_tx(bar_q, FH_Q_BYTES);
+      tma_load(sQ, &mq, bar_q, 0, q0, hi, bi);
+      tma_load(sQ + FH_BQ * FH_ROW, &mq, bar_q, FH_BOX, q0, hi, bi);
+      for (int t = 0; t < ntiles; ++t) {
+        const int st = t % FH_STAGES;
+        const uint32_t parity = ((t / FH_STAGES) & 1) ^ 1;  // round 0 free
+        const int kt = k_lo + t * FH_BK;
+        mbar_wait(bar_e(st), parity);
+        const uint32_t kd = sK + st * FH_KV_BYTES, vd = sV + st * FH_KV_BYTES;
+        mbar_expect_tx(bar_k(st), FH_KV_BYTES);
+        tma_load(kd, &mk, bar_k(st), 0, kt, kvh, bi);
+        tma_load(kd + FH_BK * FH_ROW, &mk, bar_k(st), FH_BOX, kt, kvh, bi);
+        mbar_expect_tx(bar_v(st), FH_KV_BYTES);
+        tma_load(vd, &mv, bar_v(st), 0, kt, kvh, bi);
+        tma_load(vd + FH_BK * FH_ROW, &mv, bar_v(st), FH_BOX, kt, kvh, bi);
+      }
+    }
+  } else {
+    // ------------------------------------------------------ consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int c = (threadIdx.x >> 7) - 1, warp = (threadIdx.x >> 5) & 3;
+    const int lane = threadIdx.x & 31, gq = lane >> 2, tq = lane & 3;
+    const int g0 = q0 + 64 * c;   // the warpgroup's first row
+    const int w0 = g0 + 16 * warp;  // the warp's first row
+    const int r0 = w0 + gq;       // this thread's rows: r0, r0 + 8
+    const uint32_t qa = sQ + 64 * c * FH_ROW;
+    float acc[64], m_r[2] = {-INFINITY, -INFINITY}, l_r[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    mbar_wait(bar_q, 0);
+
+    for (int t = 0; t < ntiles; ++t) {
+      const int st = t % FH_STAGES;
+      const uint32_t parity = (t / FH_STAGES) & 1;
+      const int kt = k_lo + t * FH_BK;
+      const uint32_t kb = sK + st * FH_KV_BYTES, vb = sV + st * FH_KV_BYTES;
+      // one decision for the warpgroup: its 64 rows see a key of the tile
+      const bool live = g0 < sq && (!causal || kt <= g0 + 63) &&
+                        (window <= 0 || kt + FH_BK - 1 > g0 - window);
+      mbar_wait(bar_k(st), parity);
+      if (live) {
+        float s[64];
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < FH_D / 16; ++kk) {
+          const uint32_t off = (kk & 3) * 32;  // 16 columns a step
+          wgmma_ss<T>(s,
+                      sw128_desc(qa + (kk >> 2) * (FH_BQ * FH_ROW) + off, 16,
+                                 8 * FH_ROW),
+                      sw128_desc(kb + (kk >> 2) * (FH_BK * FH_ROW) + off, 16,
+                                 8 * FH_ROW),
+                      kk > 0);
+        }
+        wg_commit();
+        wg_wait_all();
+        pin(s);
+        // every key of the tile visible to every row of the warp: no mask
+        const bool full = kt + FH_BK <= sk &&
+                          (!causal || kt + FH_BK - 1 <= w0) &&
+                          (window <= 0 || kt > w0 + 15 - window);
+        if (!full) {
+#pragma unroll
+          for (int j = 0; j < FH_BK / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int row = r0 + 8 * (e >> 1);
+              const int key = kt + 8 * j + 2 * tq + (e & 1);
+              const bool ok = key < sk && (!causal || key <= row) &&
+                              (window <= 0 || key > row - window);
+              if (!ok) s[4 * j + e] = -INFINITY;
+            }
+        }
+        // the running max of the raw scores (scale > 0), alpha, l
+        float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+        for (int i = 0; i < 64; ++i)
+          mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+        float ms[2], alpha[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float m_new = fmaxf(m_r[r], quad_max(mx[r]));
+          const float m_use = m_new == -INFINITY ? 0.f : m_new;
+          alpha[r] = exp2f((m_r[r] - m_use) * scale_log2);  // 0 while unseen
+          m_r[r] = m_new;
+          l_r[r] *= alpha[r];
+          ms[r] = m_use * scale_log2;
+        }
+#pragma unroll
+        for (int i = 0; i < 64; ++i) {
+          const int r = (i >> 1) & 1;
+          s[i] = exp2f(fmaf(s[i], scale_log2, -ms[r]));  // masked: 0
+          l_r[r] += s[i];
+        }
+#pragma unroll
+        for (int i = 0; i < 64; ++i) acc[i] *= alpha[(i >> 1) & 1];
+        mbar_wait(bar_v(st), parity);
+        pin(acc);
+        // p.v in two halves of 64 keys, a commit group each: the second
+        // half's split runs while the first half's products do
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          uint32_t ph[4][4], pl[4][4];
+#pragma unroll
+          for (int k4 = 0; k4 < 4; ++k4)
+#pragma unroll
+            for (int f = 0; f < 4; ++f) {
+              const int i = 8 * (4 * half + k4) + 2 * f;
+              split_pair<T>(s[i], s[i + 1], ph[k4][f], pl[k4][f]);
+            }
+          pin(ph);
+          pin(pl);
+          wg_fence();
+#pragma unroll
+          for (int k4 = 0; k4 < 4; ++k4) {
+            const uint64_t db = sw128_desc(vb + (4 * half + k4) * 16 * FH_ROW,
+                                           FH_BK * FH_ROW, 8 * FH_ROW);
+            wgmma_rs<T>(acc, pl[k4], db);
+            wgmma_rs<T>(acc, ph[k4], db);
+          }
+          wg_commit();
+        }
+        wg_wait_all();
+        pin(acc);
+      } else {
+        mbar_wait(bar_v(st), parity);  // the stage's copies have landed
+      }
+      mbar_arrive(bar_e(st));
+    }
+
+    // output is contiguous (b, sq, h, D), rounded once to T
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r0 + 8 * r;
+      const float l = quad_sum(l_r[r]);
+      if (row >= sq) continue;
+      T* orow = o + (((long long)bi * sq + row) * h + hi) * FH_D + 2 * tq;
+#pragma unroll
+      for (int j = 0; j < FH_D / 8; ++j) {
+        const float o0 = l > 0.f ? acc[4 * j + 2 * r] / l : 0.f;
+        const float o1 = l > 0.f ? acc[4 * j + 2 * r + 1] / l : 0.f;
+        *reinterpret_cast<uint32_t*>(orow + 8 * j) = pack2<T>(o0, o1);
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------------------ host
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a 4-D map over (d, s, heads, b) of a 16-bit tensor read through its
+// element strides, boxes of 64 columns by ``rows``, 128-byte swizzle, rows
+// out of bounds zero-filled.  A dimension of extent 1 is never stepped, so
+// its stride is given as 16 bytes (TMA wants multiples of 16).
+bool make_map(CUtensorMap* map, EncodeTiled enc, CUtensorMapDataType type,
+              const void* ptr, int s, int heads, int b, long long ss,
+              long long sh, long long sb, int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)FH_D, (cuuint64_t)s,
+                              (cuuint64_t)heads, (cuuint64_t)b};
+  const long long el[3] = {ss, sh, sb};
+  cuuint64_t strides[3];
+  for (int i = 0; i < 3; ++i)
+    strides[i] = dims[i + 1] == 1 ? 16 : (cuuint64_t)(2 * el[i]);
+  const cuuint32_t box[4] = {(cuuint32_t)FH_BOX, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t one[4] = {1, 1, 1, 1};
+  return enc(map, type, 4, const_cast<void*>(ptr), dims, strides, box, one,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <typename T>
+int launch_hopper(const void* q, const void* k, const void* v, void* o, int b,
+                  int sq, int sk, int h, int kv, long long q_sb,
+                  long long q_ss, long long q_sh, long long k_sb,
+                  long long k_ss, long long k_sh, long long v_sb,
+                  long long v_ss, long long v_sh, int causal, int window,
+                  float scale, cudaStream_t st) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  const CUtensorMapDataType type = std::is_same_v<T, __nv_bfloat16>
+                                       ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                       : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+  CUtensorMap mq, mk, mv;
+  if (!make_map(&mq, enc, type, q, sq, h, b, q_ss, q_sh, q_sb, FH_BQ) ||
+      !make_map(&mk, enc, type, k, sk, kv, b, k_ss, k_sh, k_sb, FH_BK) ||
+      !make_map(&mv, enc, type, v, sk, kv, b, v_ss, v_sh, v_sb, FH_BK))
+    return (int)cudaErrorInvalidValue;
+  auto kern = flash_attention_hopper_kernel<T>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, FH_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(b * h, (sq + FH_BQ - 1) / FH_BQ);
+  kern<<<grid, FH_THREADS, FH_SMEM, st>>>(mq, mk, mv, static_cast<T*>(o), sq,
+                                          sk, h, h / kv, causal, window,
+                                          scale * FH_LOG2E);
+  return (int)cudaGetLastError();
+}
+
+inline bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
+
+}  // namespace
+
+extern "C" {
+
+// As repro_flash_attention (lm.cu), for the inputs this route takes: dtype
+// code 1 (bfloat16) or 2 (float16), d 128, sk >= 1, scale > 0, q / k / v
+// 16-byte aligned with batch, sequence and head strides multiples of 8
+// elements (the trailing one 1, which the wrapper checks).  Anything else
+// returns cudaErrorInvalidValue before a launch.
+int repro_flash_attention_hopper(const void* q, const void* k, const void* v,
+                                 void* o, int b, int sq, int sk, int h, int kv,
+                                 int d, long long q_sb, long long q_ss,
+                                 long long q_sh, long long k_sb,
+                                 long long k_ss, long long k_sh,
+                                 long long v_sb, long long v_ss,
+                                 long long v_sh, int causal, int window,
+                                 float scale, int code, void* stream) {
+  if (b <= 0 || sq <= 0) return 0;
+  if ((code != 1 && code != 2) || d != FH_D || sk <= 0 || kv <= 0 ||
+      h % kv != 0 || !(scale > 0.f) || !aligned16(q) || !aligned16(k) ||
+      !aligned16(v) || !aligned16(o) ||
+      (q_sb | q_ss | q_sh | k_sb | k_ss | k_sh | v_sb | v_ss | v_sh) % 8 != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (code == 1)
+    return launch_hopper<__nv_bfloat16>(q, k, v, o, b, sq, sk, h, kv, q_sb,
+                                        q_ss, q_sh, k_sb, k_ss, k_sh, v_sb,
+                                        v_ss, v_sh, causal, window, scale, st);
+  return launch_hopper<__half>(q, k, v, o, b, sq, sk, h, kv, q_sb, q_ss, q_sh,
+                               k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, causal,
+                               window, scale, st);
+}
+
+// the dynamic shared memory a block of the kernel asks for
+int repro_flash_hopper_smem_bytes(void) { return FH_SMEM; }
+
+}  // extern "C"

@@ -5,6 +5,7 @@
 // They replace the Pallas TPU kernels of the JAX package:
 //   repro_rmsnorm          <- repro/kernels/rmsnorm.py          _rmsnorm_kernel
 //   repro_flash_attention  <- repro/kernels/flash_attention.py  _fa_kernel
+//                             (its Hopper route: flash_hopper.cu)
 //   repro_ssd_chunk_scan   <- repro/kernels/ssd.py              _ssd_kernel
 // and repro_rmsnorm_backward (two kernels) replaces no TPU kernel: it is
 // rmsnorm's gradient, which the JAX package leaves to autodiff.
@@ -902,6 +903,11 @@ cudaError_t launch_rmsnorm_bwd(const T* x, const S* scale, const T* dy,
 // float32, bfloat16 or float16 (T; the output in q's type, as the
 // reference's), the arithmetic in float32 as the reference's, which
 // upcasts its q, k and v tiles and keeps p in float32 for p.v.
+// This is the "mma" route of repro_flash_attention: float32, 16-bit at
+// d 32 / 64 / 256, and 16-bit views TMA cannot map.  16-bit inputs at
+// d 128 that TMA can map (the bfloat16 archs' prefills) take the "hopper"
+// route, flash_hopper.cu (wgmma, TMA, warp-specialised), with the same
+// arithmetic; the Python wrapper's flash_route picks one before the launch.
 // Bound: operations.  At the serving path's prefill (b 8, s 1024, 15 heads,
 // d 64) the causal triangle needs ~1.6e10 flops against ~84 MB of q/k/v/o.
 // Design: FlashAttention-2's warp layout on the tensor cores.  A block owns
@@ -1748,16 +1754,32 @@ int repro_rmsnorm_backward(const void* x, const void* scale, const void* dy,
   return (int)err;
 }
 
+int repro_flash_attention_hopper(const void* q, const void* k, const void* v,
+                                 void* o, int b, int sq, int sk, int h, int kv,
+                                 int d, long long q_sb, long long q_ss,
+                                 long long q_sh, long long k_sb,
+                                 long long k_ss, long long k_sh,
+                                 long long v_sb, long long v_ss,
+                                 long long v_sh, int causal, int window,
+                                 float scale, int code, void* stream);
+
 // q (b, sq, h, d), k / v (b, sk, kv, d) read through their strides, o a
 // contiguous (b, sq, h, d), all of one dtype code (0 float32, 1 bfloat16,
-// 2 float16)
+// 2 float16).  route 1 is the Hopper kernel (flash_hopper.cu), which refuses
+// what it does not take; route 0 the mma.sync kernel here
 int repro_flash_attention(const void* q, const void* k, const void* v,
                           void* o, int b, int sq, int sk, int h, int kv,
                           int d, long long q_sb, long long q_ss,
                           long long q_sh, long long k_sb, long long k_ss,
                           long long k_sh, long long v_sb, long long v_ss,
                           long long v_sh, int causal, int window, float scale,
-                          int code, void* stream) {
+                          int code, int route, void* stream) {
+  if (route == 1)
+    return repro_flash_attention_hopper(q, k, v, o, b, sq, sk, h, kv, d, q_sb,
+                                        q_ss, q_sh, k_sb, k_ss, k_sh, v_sb,
+                                        v_ss, v_sh, causal, window, scale,
+                                        code, stream);
+  if (route != 0) return (int)cudaErrorInvalidValue;
   if (b <= 0 || sq <= 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
   switch (code) {

@@ -7,7 +7,9 @@ paths' shapes and edge shapes (rmsnorm and its backward kernel also in
 bfloat16 and float16 within one ulp, unaligned, the backward twice bit
 for bit and under ``vmap`` of ``grad``; flash in bfloat16 and float16
 within one ulp plus its float32 tolerance, twice bit for bit, strided and
-unaligned) — short mlp9 runs (single RSU under the
+unaligned, on the route ``flash_route`` picks — d 128 on the Hopper
+kernel, which the mma route forced at the same shapes agrees with and
+which refuses what it does not take) — short mlp9 runs (single RSU under the
 loop and under vmap with the launch counts each schedule implies, one
 multi-RSU scenario round on topk_int8, and a window of the parallel
 server schedule with its launch formula) on cuda against the same runs on
@@ -736,14 +738,89 @@ def test_flash_kernel_16bit_matches_plain(dev, b, sq, sk, h, kv, d, causal,
     k = _randn((b, sk, kv, d), dev, 3, qk_amp).to(dtype)
     v = _randn((b, sk, kv, d), dev, 4).to(dtype)
     n = LAUNCHES["flash_attention"]
+    routes = dict(FA.ROUTE_LAUNCHES)
     got = FA.flash_attention(q, k, v, causal=causal, window=window)
     again = FA.flash_attention(q, k, v, causal=causal, window=window)
     assert LAUNCHES["flash_attention"] == n + 2
+    route = "hopper" if d == 128 else "mma"
+    assert FA.ROUTE_LAUNCHES[route] == routes[route] + 2
     want = FA.attention_plain(q, k, v, causal=causal, window=window)
     assert got.dtype == dtype and torch.equal(got, again)
     err = (got.float() - want.float()).abs()
     assert bool((err <= cs._ulp(want) + FLASH_TOL
                  + FLASH_TOL * want.float().abs()).all()), float(err.max())
+
+
+# the Hopper route's shapes: FLASH16_CASES' d-128 rows and the d-128 edges
+# (window, non-causal with sq != sk, rows with no visible key, one query)
+HOPPER_CASES = [c for c in FLASH16_CASES if c[5] == 128] + [
+    (2, 200, 200, 4, 2, 128, True, 48, 1.0),
+    (2, 48, 80, 2, 2, 128, False, 0, 1.0),
+    (1, 64, 16, 2, 1, 128, False, 8, 1.0),
+    (2, 1, 77, 4, 2, 128, False, 0, 1.0),
+    (8, 1087, 1087, 40, 8, 128, True, 0, 1.0)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal,window,qk_amp",
+                         HOPPER_CASES)
+def test_flash_16bit_hopper_route_against_mma_route(dev, b, sq, sk, h, kv, d,
+                                                    causal, window, qk_amp,
+                                                    dtype):
+    """At the Hopper route's shapes: two calls take it, bit for bit, and
+    the mma route forced at the same shape agrees with it within one ulp
+    plus flash's float32 tolerance (each is held to the plain version so
+    by test_flash_kernel_16bit_matches_plain)."""
+    cs = _chip_smoke()
+    q = _randn((b, sq, h, d), dev, 2, qk_amp).to(dtype)
+    k = _randn((b, sk, kv, d), dev, 3, qk_amp).to(dtype)
+    v = _randn((b, sk, kv, d), dev, 4).to(dtype)
+    scale = d ** -0.5
+    assert FA.flash_route(q, k, v) == "hopper"
+    routes = dict(FA.ROUTE_LAUNCHES)
+    got = FA._forward(q, k, v, causal, window, scale)
+    again = FA._forward(q, k, v, causal, window, scale)
+    mma = FA._forward(q, k, v, causal, window, scale, route="mma")
+    assert {r: n - routes[r] for r, n in FA.ROUTE_LAUNCHES.items()} == {
+        "hopper": 2, "mma": 1}
+    assert torch.equal(got, again) and got.dtype == dtype
+    assert cs.flash16_within(got, mma)
+    assert cs.flash16_within(got, FA.attention_plain(
+        q, k, v, causal=causal, window=window))
+
+
+def test_flash_hopper_route_refuses_what_it_does_not_take(dev):
+    """Forced onto the Hopper route, d 64, float32 and a misaligned view
+    raise before a launch: nothing falls back to the mma route."""
+    bf = torch.bfloat16
+    q64 = _randn((1, 32, 2, 64), dev, 7).to(bf)
+    q32 = _randn((1, 32, 2, 128), dev, 8)
+    odd = _randn((1 * 32 * 2 * 128 + 1,), dev, 9).to(bf)[1:].view(
+        1, 32, 2, 128)
+    n, routes = LAUNCHES["flash_attention"], dict(FA.ROUTE_LAUNCHES)
+    for t in (q64, q32, odd):
+        assert FA.flash_route(t, t, t) == "mma"
+        with pytest.raises(RuntimeError, match="cudaError 1"):
+            FA._forward(t, t, t, True, 0, t.shape[-1] ** -0.5,
+                        route="hopper")
+    assert LAUNCHES["flash_attention"] == n and FA.ROUTE_LAUNCHES == routes
+
+
+def test_flash_16bit_strided_views_take_their_routes(dev):
+    """q / k / v as views of one fused bfloat16 projection at d 128 (the
+    Hopper route reads them through TMA) and the same views misaligned by
+    one element (the mma route): each within one ulp plus flash's float32
+    tolerance of the plain version."""
+    cs = _chip_smoke()
+    qkv = _randn((2, 50, 8, 128), dev, 5).to(torch.bfloat16)
+    odd = _randn((2 * 50 * 8 * 128 + 1,), dev, 6).to(torch.bfloat16)
+    odd = odd[1:].view(2, 50, 8, 128)
+    for t, route in ((qkv, "hopper"), (odd, "mma")):
+        q, k, v = t[:, :, :4], t[:, :, 4:6], t[:, :, 6:]
+        before = FA.ROUTE_LAUNCHES[route]
+        got = FA.flash_attention(q, k, v)
+        assert FA.ROUTE_LAUNCHES[route] == before + 1
+        assert cs.flash16_within(got, FA.attention_plain(q, k, v))
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])

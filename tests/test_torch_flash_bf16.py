@@ -12,8 +12,10 @@ value does not cover).  The 16-bit kernel's arithmetic
 is emulated here (scores from the 16-bit values in float32, the online
 softmax over key tiles, p split into hi = T(p) and lo = T(p - hi) against
 the 16-bit v): its float32 result within flash's card tolerance (1e-4) of
-the plain version's, and its 16-bit output within one ulp plus that.  The
-wrapper refuses q, k and v of mixed dtypes and dtypes the kernel does not
+the plain version's, and its 16-bit output within one ulp plus that; so
+is the Hopper kernel's order (128-key tiles, exp2 with scale * log2(e)
+folded into one fma a score, lo.v then hi.v), at d 128, also against the
+Pallas kernel.  The wrapper refuses q, k and v of mixed dtypes and dtypes the kernel does not
 take.  chip_smoke.py's split case, which the card checks the kernel on,
 sees p's low half: without it the emulated output leaves the tolerance.  Inputs are numpy draws rounded to the working dtype first, so both
 packages see the same values."""
@@ -117,17 +119,29 @@ def test_flash_plain_16bit_matches_ref_at_edges(b, sq, sk, h, kv, d, causal,
     _within_one_ulp(got, _to_torch(ref, tdt), F32_TOL)
 
 
+LOG2E = np.float32(1.4426950408889634)   # flash_hopper.cu's FH_LOG2E
+
+
 def _kernel_16bit_emulated(q, k, v, causal, window, block_k=64,
-                           keep_lo=True):
+                           keep_lo=True, route="mma"):
     """The 16-bit kernel's arithmetic in float32: per key tile of
     ``block_k``, scores of the 16-bit values (exact products), the masks,
     the online max and rescaling, p = exp(s - m) summed into l in float32,
     and p.v as lo.v + hi.v with hi = T(p), lo = T(p - hi) (hi.v alone
-    without ``keep_lo``).  Returns the float32 output (before its one
-    rounding to T)."""
+    without ``keep_lo``).  ``route="hopper"`` takes the Hopper kernel's
+    order instead: tiles of 128 keys, the max of the raw scores, p =
+    exp2(fma(s, c, -m c)) with c = scale * log2(e) in float32 (the fma
+    emulated in float64, whose product of two float32 values is exact),
+    alpha = exp2((m_old - m) c), the output rescaled first, then lo.v, then
+    hi.v added.  Returns the float32 output (before its one rounding to
+    T)."""
     b, sq, h, d = q.shape
     sk, kv = k.shape[1], k.shape[2]
     g, scale, dt = h // kv, d ** -0.5, q.dtype
+    hopper = route == "hopper"
+    if hopper:
+        block_k = 128
+        c = float(np.float32(scale) * LOG2E)
     qf = q.float().reshape(b, sq, kv, g, d)
     m = torch.full((b, kv, g, sq), -float("inf"))
     l = torch.zeros((b, kv, g, sq))
@@ -136,7 +150,9 @@ def _kernel_16bit_emulated(q, k, v, causal, window, block_k=64,
     for k0 in range(0, sk, block_k):
         kt, vt = k[:, k0:k0 + block_k], v[:, k0:k0 + block_k]
         kpos = torch.arange(k0, k0 + kt.shape[1])[None, :]
-        s = torch.einsum("bsngd,btnd->bngst", qf, kt.float()) * scale
+        s = torch.einsum("bsngd,btnd->bngst", qf, kt.float())
+        if not hopper:
+            s = s * scale
         mask = torch.ones((sq, kt.shape[1]), dtype=torch.bool)
         if causal:
             mask &= kpos <= qpos
@@ -145,14 +161,22 @@ def _kernel_16bit_emulated(q, k, v, causal, window, block_k=64,
         s = s.masked_fill(~mask, -float("inf"))
         m_new = torch.maximum(m, s.amax(-1))
         m_use = torch.where(m_new == -float("inf"), 0.0, m_new)
-        alpha = torch.exp(m - m_use)
-        p = torch.exp(s - m_use[..., None])
+        if hopper:
+            alpha = torch.exp2((m - m_use) * c)
+            ms = (m_use * c)[..., None]
+            p = torch.exp2((s.double() * c - ms.double()).float())
+        else:
+            alpha = torch.exp(m - m_use)
+            p = torch.exp(s - m_use[..., None])
         hi = p.to(dt)
         lo = (p - hi.float()).to(dt) if keep_lo else torch.zeros_like(hi)
-        pv = (torch.einsum("bngst,btnd->bngsd", lo.float(), vt.float())
-              + torch.einsum("bngst,btnd->bngsd", hi.float(), vt.float()))
+        lo_v = torch.einsum("bngst,btnd->bngsd", lo.float(), vt.float())
+        hi_v = torch.einsum("bngst,btnd->bngsd", hi.float(), vt.float())
         l = l * alpha + p.sum(-1)
-        acc = acc * alpha[..., None] + pv
+        if hopper:
+            acc = acc * alpha[..., None] + lo_v + hi_v
+        else:
+            acc = acc * alpha[..., None] + (lo_v + hi_v)
         m = m_new
     o = torch.where(l[..., None] > 0, acc / l.clamp_min(1e-30)[..., None],
                     0.0)
@@ -204,6 +228,65 @@ def test_split_case_sees_p_low_half(dt):
     assert not cs.flash16_within(hi_only.to(tdt), want)
     assert not cs.flash16_within(cs.flash_hi_only(q, k, v), want)
     _within_one_ulp(cs.flash_hi_only(q, k, v), hi_only.to(tdt))
+
+
+# the Hopper route's shapes (d 128): EDGE_CASES' d-128 row, its window /
+# non-causal (sq != sk) / masked-rows / one-query variants, and 256 keys
+# over two 128-key tiles with 4 heads a kv head
+HOPPER_EDGE_CASES = [c for c in EDGE_CASES if c[5] == 128] + [
+    (2, 200, 200, 4, 2, 128, True, 48), (2, 48, 80, 2, 2, 128, False, 0),
+    (1, 64, 16, 2, 1, 128, False, 8), (2, 1, 77, 4, 2, 128, False, 0),
+    (1, 256, 256, 8, 2, 128, True, 0)]
+
+
+@pytest.mark.parametrize("dt", list(TORCH_16))
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal,window", HOPPER_EDGE_CASES)
+def test_hopper_order_within_card_tolerance(b, sq, sk, h, kv, d, causal,
+                                            window, dt):
+    """The Hopper kernel's order (128-key tiles, exp2 with the folded
+    scale, lo.v then hi.v) keeps its float32 output within the card's
+    float32 tolerance of the plain version's float32 math, and its 16-bit
+    output within one ulp plus that of the plain version's."""
+    tdt = TORCH_16[dt]
+    q, k, v = _qkv(b, sq, sk, h, kv, d, tdt, 13 * sq + d)
+    emul = _kernel_16bit_emulated(q, k, v, causal, window, route="hopper")
+    exact = FA.attention_plain(q.float(), k.float(), v.float(),
+                               causal=causal, window=window)
+    torch.testing.assert_close(emul, exact, rtol=CARD_TOL, atol=CARD_TOL)
+    _within_one_ulp(emul.to(tdt), FA.attention_plain(
+        q, k, v, causal=causal, window=window), CARD_TOL)
+
+
+@pytest.mark.parametrize("dt", list(TORCH_16))
+def test_hopper_order_matches_pallas(dt):
+    """The Hopper kernel's order at REF_SHAPES' d-128 case against the
+    Pallas kernel (interpret) at the reference's 2e-2."""
+    (b, sq, sk, h, kv, d), = [c for c in REF_SHAPES if c[5] == 128]
+    tdt, jdt = TORCH_16[dt], JAX_16[dt]
+    q, k, v = _qkv(b, sq, sk, h, kv, d, tdt, sq + d)
+    emul = _kernel_16bit_emulated(q, k, v, True, 0, route="hopper").to(tdt)
+    pallas = jax_flash(*(_to_jax(t, jdt) for t in (q, k, v)), causal=True,
+                       block_q=64, block_k=64, interpret=True)
+    np.testing.assert_allclose(emul.float().numpy(),
+                               np.asarray(pallas, np.float32),
+                               rtol=PALLAS_TOL, atol=PALLAS_TOL)
+
+
+@pytest.mark.parametrize("dt", list(TORCH_16))
+def test_split_case_sees_p_low_half_on_hopper_order(dt):
+    """chip_smoke's split case (d 128, so the card runs it on the Hopper
+    route) through the Hopper kernel's order: within one ulp plus the card
+    tolerance of the plain version with p's low half, outside without."""
+    cs, tdt = _chip_smoke(), TORCH_16[dt]
+    q, k, v = cs.flash_split_case(tdt, device="cpu")
+    assert FA.flash_route(q, k, v) == "hopper"
+    want = FA.attention_plain(q, k, v, causal=False)
+    split = _kernel_16bit_emulated(q, k, v, False, 0, route="hopper")
+    hi_only = _kernel_16bit_emulated(q, k, v, False, 0, keep_lo=False,
+                                     route="hopper")
+    _within_one_ulp(split.to(tdt), want, CARD_TOL)
+    assert cs.flash16_within(split.to(tdt), want)
+    assert not cs.flash16_within(hi_only.to(tdt), want)
 
 
 def test_wrapper_refuses_mixed_and_other_dtypes():
