@@ -43,14 +43,15 @@ neither ``jax`` nor ``repro``.  In order it:
    path's shapes and edge shapes (rmsnorm also in bfloat16 and float16,
    with a float32 scale or one of x's dtype, within one ulp of the working
    type; its backward kernel against the closed-form plain backward and
-   the plain vjp, two calls bit for bit, at d 256 / 960 / 1536 / 3072 in
-   float32 and bfloat16), and at each served arch's prefill shape
+   the plain vjp, two calls bit for bit, at d 256 / 960 / 1536 / 3072 and
+   the families' training widths 2560 / 896 / 2048 in float32 and
+   bfloat16), and at each served arch's prefill shape
    (smollm, mamba2; gemma3's global and local layers at d 256, 8 heads
    over 4, the local one also at s 1088 where its window masks keys;
    recurrentgemma's local MQA, window 2048; internvl2's 14 over 2;
    musicgen's MHA 32 / 32; rmsnorm at every shape in float32 and
    bfloat16, deepseek's ``kv_norm`` over the latent (8, 1024, 512) among
-   them, its backward at the four widths) and flash in bfloat16 and
+   them, its backward at the seven widths) and flash in bfloat16 and
    float16 (``FLASH16_CASES``: every head dim and float32's edge shapes,
    their d-128 variants; qwen3-14b's prefill, 40 heads over 8 at d 128,
    and command-r-35b's, 64 over 8; within one ulp of the working type plus
@@ -160,9 +161,14 @@ neither ``jax`` nor ``repro``.  In order it:
     one slot sitting the step out) under ``vmap`` on the card from the same
     weights as the loop on the CPU, TF32 off, the model in float64: within
     phase 7's tolerance (the float32 comparisons printed beside it);
-10f. (phases 10f-10i train smollm-360m and mamba2-780m only) the LM
+10f. (phases 10f-10i train smollm-360m, mamba2-780m, gemma3-4b,
+    recurrentgemma-2b, internvl2-1b and musicgen-large) the LM
     kernels' autograd on the card (rmsnorm, flash GQA causal d 64,
-    ssd chunk 256; small shapes and the training path's): gradients
+    ssd chunk 256; small shapes and the training path's; flash at d 256
+    with a window that masks keys, at gemma3's local (window 1024) and
+    global layers at batch 4 and recurrentgemma's MQA with window 2048,
+    internvl2's 14 heads over 2 and musicgen's MHA at d 64, rmsnorm over
+    gemma3's qk-norm rows at batch 4): gradients
     through the Function (kernel forward; rmsnorm's backward kernel, the
     plain vjp for flash and ssd) against all-plain autograd, forward within phase 4b's tolerances and
     gradients within them of the largest gradient; ``torch.func.vmap``
@@ -175,31 +181,42 @@ neither ``jax`` nor ``repro``.  In order it:
     replica: one backward launch for both replicas) and remat; every
     route's launches of the kernel and of rmsnorm's backward kernel exact;
     at the training shapes the device time of the Function's backward;
-10g. trains through ``repro_torch.launch.train.train`` at full width and
-    depth (batch 8, seq 1024, the default cut, adamw lr 3e-4, clip 1.0,
-    remat, 4 clients): smollm-360m and mamba2-780m 3 steps each, smollm
-    with ``compress`` 2 steps, the launch counters zeroed just before and
-    read just after each: finite losses and grad norms, the launches the
-    model implies per step (remat runs each period's forward twice;
-    rmsnorm's backward kernel once a norm: 65 / 97 a step), and
-    nonzero first moments of the embedding (through the final rmsnorm) and
-    in every layer of the attention's ``wk`` or the SSM's ``A_log`` and of
-    ``norm1``'s scale (leaves whose gradient comes only through that
-    layer's flash / SSD and rmsnorm backward); prints step 0's and the
-    later steps' s/step and peak memory;
-10h. one sgd train step of the reduced configs (three periods) on the card
-    and on the CPU from the same weights and batch, remat on with smashed
-    data dense and int8 and remat off dense: updates within phase 7's 1 %
-    of the largest update, losses within 1e-4, and the card's launches
-    exact (remat off runs each period's kernels once);
-10i. ``api.run`` of both reduced LMs on ``single_rsu`` (4 vehicles, the
-    paper's spec, one round): ``asfl`` over ``topk_int8`` under ``vmap``
-    and ``unroll`` from one seed (the same cuts), and ``fl`` under
-    ``vmap`` (the kernels inside ``vmap`` of ``grad``): finite loss,
-    accuracy in [0, 1], wire bytes = the cost model's, and every launch
-    count the schedule implies (rmsnorm's backward kernel three a client
-    batch step; under ``fl``'s ``vmap`` of ``grad`` three a local step for
-    all replicas);
+10g. trains through ``repro_torch.launch.train.train`` at full width
+    (seq 1024, the default cut, adamw lr 3e-4, clip 1.0, remat, 4
+    clients): smollm-360m and mamba2-780m at full depth and batch 8, 3
+    steps each, smollm with ``compress`` 2 steps; internvl2-1b (256 patch
+    embeddings before 768 tokens) at full depth, musicgen-large at 36 of
+    its 48 layers, recurrentgemma-2b at one period (R, R, A) without its
+    tail, all at batch 8, and gemma3-4b at one period (5 local + 1 global)
+    without its tail at batch 4, 2 steps each (depth and batch cut as one
+    card forces, printed on each line); the launch counters zeroed just
+    before and read just after each: finite losses and grad norms, the
+    launches the model implies per step (remat runs each period's forward
+    twice; rmsnorm's backward kernel once a norm, qk-norm's rows included:
+    65 / 97 a step for smollm / mamba2), and nonzero first moments of the
+    embedding (through the final rmsnorm) and in every layer of the
+    attention's ``wk``, the SSM's ``A_log`` or the RG-LRU's ``w_a``, of
+    ``norm1``'s scale and, under qk-norm, of the ``q_norm`` / ``k_norm``
+    scales (leaves whose gradient comes only through that layer's flash /
+    SSD / recurrence and rmsnorm backward); prints step 0's and the later
+    steps' s/step and peak memory;
+10h. one sgd train step of each trained arch's reduced config (smollm,
+    mamba2, internvl2, musicgen at three layers; gemma3 and recurrentgemma
+    at their period and tail; vision and audio batches) on the card and on
+    the CPU from the same weights and batch, remat on with smashed data
+    dense and int8 and remat off dense: updates within phase 7's 1 % of
+    the largest update, losses within 1e-4, and the card's launches exact
+    (remat off runs each period's kernels once);
+10i. ``api.run`` of the reduced text LMs (smollm, mamba2, gemma3,
+    recurrentgemma) on ``single_rsu`` (4 vehicles, the paper's spec, one
+    round): ``asfl`` over ``topk_int8`` under ``vmap`` and ``unroll`` from
+    one seed (the same cuts), and ``fl`` under ``vmap`` (the kernels
+    inside ``vmap`` of ``grad``): finite loss, accuracy in [0, 1], wire
+    bytes = the cost model's, and every launch count the schedule implies
+    (rmsnorm's backward kernel once a norm a client batch step; under
+    ``fl``'s ``vmap`` of ``grad`` once a norm a local step for all
+    replicas; flash under ``vmap`` once for a bucket's replicas on the
+    vehicle side);
 10j. the multi-RSU path of phase 10b under the parallel server schedule
     (arXiv:2405.18707; ``server_schedule="parallel"``): the highway on
     ``topk_int8`` under the ``ragged`` layout for 4 rounds one at a time
@@ -391,8 +408,7 @@ LM_SYMBOL = {"rmsnorm": "rmsnorm_",
 HOPPER_NAME, HOPPER_SOURCE = ("flash_attention_hopper",
                               "src/repro_torch/kernels/csrc/flash_hopper.cu")
 HOPPER_MAIN = "qwen3_prefill_bf16"
-# phase 8-10's served archs; phases 10f-10i train the first two only
-# (gemma3-4b's adamw states alone would take ~73 GB in float32)
+# phase 8-10's served archs
 # (deepseek-v2-lite-16b after the float32 ones: its 62.8 GB of float32
 # weights take the card after every other arch's are freed; then the
 # bfloat16 archs, qwen3-14b's 29.6 GB and command-r-35b's 64.8 GB, each on
@@ -400,7 +416,15 @@ HOPPER_MAIN = "qwen3_prefill_bf16"
 SERVE_ARCHS = ("smollm-360m", "mamba2-780m", "gemma3-4b",
                "recurrentgemma-2b", "internvl2-1b", "musicgen-large",
                "deepseek-v2-lite-16b", "qwen3-14b", "command-r-35b")
-TRAIN_ARCHS = ("smollm-360m", "mamba2-780m")
+# phases 10f-10i train the float32 archs without MLA or MoE: smollm and
+# mamba2 at full depth; of the families, those whose adamw states take a
+# card at full depth (gemma3-4b's alone ~73 GB in float32) at the depth of
+# TRAIN_RUNS (phase 10g); the bfloat16 archs and deepseek are served only
+TRAIN_ARCHS = ("smollm-360m", "mamba2-780m", "gemma3-4b",
+               "recurrentgemma-2b", "internvl2-1b", "musicgen-large")
+# phase 10's and 10h's reduced configs grown to three periods (one layer a
+# period); the families keep their reduced depth (one pattern and the tail)
+THREE_PERIOD_ARCHS = ("smollm-360m", "mamba2-780m")
 # phase 10's reduced bfloat16 archs beside the served ones: dbrx-132b's
 # 263 GB of bfloat16 weights fit no card, its -smoke does
 REDUCED_ONLY = ("dbrx-132b",)
@@ -1028,13 +1052,18 @@ SCHEME_RUNS = (("cl", "auto", "none", 1), ("fl", "auto", "none", 1),
                ("asfl", "unroll", "topk_int8", 2))
 
 
-def _bucket_steps(cuts, steps):
-    """(bucket, local step) pairs with an active slot in one split round:
-    per distinct cut, the most local steps among its vehicles."""
+def _bucket_most(cuts, steps):
+    """Per distinct cut (a bucket), the most local steps among its
+    vehicles: its (bucket, local step) pairs with an active slot."""
     most = {}
     for cut, n in zip(cuts, steps):
         most[cut] = max(most.get(cut, 0), n)
-    return sum(most.values())
+    return most
+
+
+def _bucket_steps(cuts, steps):
+    """(bucket, local step) pairs with an active slot in one split round."""
+    return sum(_bucket_most(cuts, steps).values())
 
 
 def scheme_path(scheme, mode, wire, rounds):
@@ -1500,12 +1529,16 @@ RMS_SHAPES = (
     ("tiny_d6", (3, 6)),
     ("wide_d9000", (3, 9000)))
 # the backward at the training path's widths (batch 8, seq 1024: smollm,
-# mamba2 and its gated norm) and over gemma3's qk-norm rows
+# mamba2 and its gated norm), over gemma3's qk-norm rows, and at the
+# families' widths (gemma3 / recurrentgemma, internvl2, musicgen)
 RMS_BWD_SHAPES = (
     ("gemma3_qk_norm_d256", (SERVE_BATCH * SERVE_PROMPT * 8, 256)),
     ("smollm_train_d960", (SERVE_BATCH, SERVE_PROMPT, 960)),
     ("mamba2_train_d1536", (SERVE_BATCH, SERVE_PROMPT, 1536)),
-    ("mamba2_gated_d3072", (SERVE_BATCH, SERVE_PROMPT, 3072)))
+    ("mamba2_gated_d3072", (SERVE_BATCH, SERVE_PROMPT, 3072)),
+    ("gemma3_train_d2560", (SERVE_BATCH, SERVE_PROMPT, 2560)),
+    ("internvl2_train_d896", (SERVE_BATCH, SERVE_PROMPT, 896)),
+    ("musicgen_train_d2048", (SERVE_BATCH, SERVE_PROMPT, 2048)))
 # x's dtype and the scale's; a label's suffix is the key ("f32": none).
 # The timed ones: float32, and bfloat16 with a bfloat16 scale (the same
 # function as F.rms_norm's fused kernel on those inputs)
@@ -2281,7 +2314,7 @@ def _reduced_config(arch):
     import dataclasses
     from repro_torch.configs import get_config
     cfg = get_config(arch).reduced()
-    if arch in TRAIN_ARCHS:
+    if arch in THREE_PERIOD_ARCHS:
         cfg = dataclasses.replace(cfg, n_layers=3)
     return cfg
 
@@ -2390,10 +2423,26 @@ def reduced_cpu_vs_card():
 
 # ---- the LM training path (phases 10f-10i)
 TRAIN_BATCH, TRAIN_SEQ = 8, 1024
-# (arch, compress, steps): adamw lr 3e-4, clip 1.0, remat on, 4 clients,
-# the default cut
-TRAIN_RUNS = (("smollm-360m", False, 3), ("mamba2-780m", False, 3),
-              ("smollm-360m", True, 2))
+# (arch, compress, steps, batch, cut): adamw lr 3e-4, clip 1.0, remat on,
+# 4 clients, the default cut (clamped to the stack's periods), seq 1024;
+# the config at full width, its depth cut where one card forces it (the
+# cut's config changes; PERF.md section 4): one step keeps the old and new
+# parameters and moments, the gradients and the updates alive, ~7.5x the
+# float32 parameter bytes, plus ~1.3 logits tensors.  musicgen-large at 36
+# of 48 layers; recurrentgemma-2b one period (R, R, A) without its tail
+# (R, R: with it the step's 7.8 GiB logits-sized buffer found no free block
+# beside 51 GiB allocated and 21 GiB cached); gemma3-4b one period (5 local
+# + 1 global) without its tail of 4 local layers, at batch 4 (its logits at
+# batch 8 take 8.6 GB a tensor).  One period holds every layer kind; the
+# cut then clamps to 1, so the RSU holds the head alone
+TRAIN_RUNS = (("smollm-360m", False, 3, TRAIN_BATCH, {}),
+              ("mamba2-780m", False, 3, TRAIN_BATCH, {}),
+              ("smollm-360m", True, 2, TRAIN_BATCH, {}),
+              ("internvl2-1b", False, 2, TRAIN_BATCH, {}),
+              ("musicgen-large", False, 2, TRAIN_BATCH, {"n_layers": 36}),
+              ("recurrentgemma-2b", False, 2, TRAIN_BATCH,
+               {"n_layers": 3, "tail": ()}),
+              ("gemma3-4b", False, 2, 4, {"n_layers": 6, "tail": ()}))
 # phase 10f, Function vs all-plain autograd on the card: rmsnorm's kernel
 # forward and backward, flash's and ssd's kernel forward and the plain
 # version's vjp.  The loss sum(w * y) gives the backward a cotangent w
@@ -2439,6 +2488,28 @@ def _autograd_cases():
                       lambda x, dt, al, B, C: SSD.ssd_chunked(
                           x, dt, -torch.exp(al), B, C, 256)[0],
                       (x, dt, a_log, B, C)))
+    # the families' training shapes (phase 10g): flash at head dim 256 with
+    # a window that masks keys (small), gemma3's local and global layers at
+    # its batch of 4, recurrentgemma's local MQA, internvl2's 14 heads over
+    # 2, musicgen's MHA; rmsnorm over gemma3's qk-norm rows at batch 4
+    for label, (b, s, h, kv, d, window) in (
+            ("small_window_d256", (2, 37, 8, 4, 256, 16)),
+            ("gemma3_local_train", (4, TRAIN_SEQ, 8, 4, 256, 1024)),
+            ("gemma3_global_train", (4, TRAIN_SEQ, 8, 4, 256, 0)),
+            ("recurrentgemma_train",
+             (TRAIN_BATCH, TRAIN_SEQ, 10, 1, 256, 2048)),
+            ("internvl2_train", (TRAIN_BATCH, TRAIN_SEQ, 14, 2, 64, 0)),
+            ("musicgen_train", (TRAIN_BATCH, TRAIN_SEQ, 32, 32, 64, 0))):
+        q, k, v = _flash_case(b, s, s, h, kv, d, 40 + len(cases))
+        cases.append(("flash_attention", label,
+                      lambda q, k, v, w=window: FA.flash_attention(
+                          q, k, v, window=w),
+                      lambda q, k, v, w=window: FA.attention_plain(
+                          q, k, v, window=w),
+                      (q, k, v)))
+    x, g = _rms_case((4, TRAIN_SEQ, 8, 256), 40 + len(cases))
+    cases.append(("rmsnorm", "gemma3_qk_rows_b4", RN.rmsnorm,
+                  RN.rmsnorm_plain, (x, g)))
     return cases
 
 
@@ -2633,7 +2704,7 @@ def lm_autograd_on_card():
         row.update(_vmap_checks(name, fn, args, tol))
         if name == "rmsnorm":
             row.update(_rms_func_routes(args, tol))
-        if label != "small":
+        if not label.startswith("small"):
             req = [a.detach().clone().requires_grad_() for a in args]
             out = fn(*req)
 
@@ -2666,45 +2737,54 @@ def lm_autograd_on_card():
 
 def _train_launches(cfg, compress, steps, remat=True):
     """Kernel launches a run of ``steps`` train steps implies.  Per step:
-    the forward runs two rmsnorms per layer and the final norm, one flash
-    per attention layer and one SSD scan per SSM layer; remat runs every
+    one forward's (:func:`_expected_launches` without decode: the qk-norm
+    rows' rmsnorms included, nothing for an RG-LRU mixer); remat runs every
     period's forward again in the backward (the final norm is outside the
     periods); the backward runs rmsnorm's backward kernel once per norm
     (remat or not) and plain PyTorch for the rest.  ``compress`` adds one
     quantize and one dequantize (the smashed boundary)."""
-    from repro_torch.configs import ATTN, SSM
-    kinds = cfg.layer_types
-    fwd = 2 if remat else 1
-    want = {"rmsnorm": steps * (fwd * 2 * len(kinds) + 1),
-            "rmsnorm_backward": steps * (2 * len(kinds) + 1),
-            "flash_attention": steps * fwd * kinds.count(ATTN),
-            "ssd_chunk_scan": steps * fwd * kinds.count(SSM)}
+    fwd = _expected_launches(cfg, decode_steps=0)
+    runs = 2 if remat else 1
+    want = {"rmsnorm": steps * (runs * (fwd["rmsnorm"] - 1) + 1),
+            "rmsnorm_backward": steps * fwd["rmsnorm"],
+            "flash_attention": steps * runs * fwd["flash_attention"],
+            "ssd_chunk_scan": steps * runs * fwd["ssd_chunk_scan"]}
     if compress:
         want.update(quantize_int8=steps, dequantize_int8=steps)
     return want
 
 
-def train_path(arch, compress, steps):
-    """Phase 10g: ``launch.train.train`` at full width on the card (batch
-    8, seq 1024, adamw lr 3e-4, clip 1.0, remat, 4 clients, the default
-    cut), the launch counters zeroed just before and read just after."""
+def train_path(arch, compress, steps, batch=TRAIN_BATCH, changes=None):
+    """Phase 10g: ``launch.train.train`` at full width on the card (seq
+    1024, adamw lr 3e-4, clip 1.0, remat, 4 clients, the default cut) at
+    ``batch`` rows, the config's depth cut by ``changes`` (printed), the
+    launch counters zeroed just before and read just after."""
+    import dataclasses
+
     import torch
     from repro_torch import kernels
     from repro_torch.configs import get_config
     from repro_torch.launch import train as TR
-    cfg = get_config(arch)
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, **(changes or {}))
     torch.cuda.empty_cache()
     kernels.reset_launches()
-    res = TR.train(cfg, steps=steps, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+    res = TR.train(cfg, steps=steps, batch=batch, seq=TRAIN_SEQ,
                    compress=compress, device="cuda")
     counts = kernels.launch_counts()
     want = dict.fromkeys(counts, 0)
     want.update(_train_launches(cfg, compress, steps))
     moments = res["state"]["opt"]["m"]
     embed_moment = float(moments["embed"].abs().max())
-    mixer_moment, norm_moment = _layer_moments(moments)
+    layer_moments = _layer_moments(moments)
+    cut = ("" if not changes else
+           f"layers {cfg.n_layers} of {full.n_layers} (tail "
+           f"{list(cfg.tail)} of {list(full.tail)})")
     row = {"arch": arch, "compress": compress, "steps": steps,
+           "batch": batch, "layers": cfg.n_layers,
+           "full_layers": full.n_layers, "depth_cut": cut,
            "cut": res["cut"], "params": cfg.param_count(),
+           "full_params": full.param_count(),
            "losses": [m["loss"] for m in res["metrics"]],
            "grad_norms": [m["grad_norm"] for m in res["metrics"]],
            "step_s": res["step_s"],
@@ -2713,74 +2793,95 @@ def train_path(arch, compress, steps):
            "launches_per_step": {k: v // steps for k, v in counts.items()
                                  if v},
            "embed_first_moment_max": embed_moment,
-           "mixer_first_moment_min": mixer_moment,
-           "norm1_first_moment_min": norm_moment}
+           **{f"{k}_first_moment_min": v for k, v in layer_moments.items()}}
     print(f"train {arch} compress={compress} cut={res['cut']} "
-          f"batch={TRAIN_BATCH} seq={TRAIN_SEQ} steps={steps} "
+          f"batch={batch} seq={TRAIN_SEQ} steps={steps} "
+          f"layers={cfg.n_layers}/{full.n_layers} "
+          f"depth_cut={cut or 'none'} params={row['params']} "
           f"losses={row['losses']} grad_norms={row['grad_norms']} "
           f"step0_s={res['step_s'][0]:.6f} "
           f"later_s={res['step_s'][1:]} "
           f"peak_mem_gb={row['peak_mem_gb']:.3f} launches={counts} "
           f"embed_first_moment_max={embed_moment:g} "
-          f"mixer_first_moment_min={mixer_moment:g} "
-          f"norm1_first_moment_min={norm_moment:g}", flush=True)
+          + " ".join(f"{k}_first_moment_min={v:g}"
+                     for k, v in layer_moments.items()), flush=True)
     if not all(math.isfinite(v) for v in row["losses"] + row["grad_norms"]):
         raise AssertionError(f"{arch}: non-finite loss or grad norm {row}")
     if counts != want:
         raise AssertionError(f"{arch} compress={compress}: launches "
                              f"{counts}, expected {want}")
-    if not (embed_moment > 0.0 and mixer_moment > 0.0
-            and norm_moment > 0.0):
+    if not (embed_moment > 0.0
+            and all(v > 0.0 for v in layer_moments.values())):
         raise AssertionError(f"{arch}: a leaf behind a kernel got no "
                              f"gradient (embedding {embed_moment:g}, "
-                             f"mixers {mixer_moment:g}, norms "
-                             f"{norm_moment:g})")
+                             f"layers {layer_moments})")
     del res, moments
     return row
 
 
 def _layer_moments(moments):
     """The smallest, over the layers, of the largest adamw first moment of
-    a leaf whose gradient comes only through that layer's kernels: the
-    attention's ``wk`` (its gradient is flash's key gradient) or the SSM's
-    ``A_log`` (the SSD scan's), and ``norm1``'s scale (the rmsnorm's).  The
-    embedding's gradient also reaches it around every mixer on the
-    residual stream, so it alone shows only the final norm's backward."""
+    a leaf whose gradient comes only through that layer: the attention's
+    ``wk`` (its gradient is flash's key gradient), the SSM's ``A_log``
+    (the SSD scan's), the RG-LRU's ``w_a`` (its gate's, through the plain
+    scan), ``norm1``'s scale (the rmsnorm's) and, under qk-norm, the
+    ``q_norm`` and ``k_norm`` scales (the qk-norm rows' rmsnorm backward
+    kernel).  The embedding's gradient also reaches it around every mixer
+    on the residual stream, so it alone shows only the final norm's
+    backward."""
     layers = [layer for seg in moments["segments"] for period in seg
               for layer in period]
-    mixer = min(float(layer["mixer"]["wk" if "wk" in layer["mixer"]
-                                     else "A_log"].abs().max())
-                for layer in layers)
-    norm = min(float(layer["norm1"]["scale"].abs().max())
-               for layer in layers)
-    return mixer, norm
+
+    def least(leaves):
+        return min(float(t.abs().max()) for t in leaves)
+
+    def mixer_leaf(mixer):
+        return mixer[next(k for k in ("wk", "A_log", "w_a") if k in mixer)]
+
+    out = {"mixer": least(mixer_leaf(layer["mixer"]) for layer in layers),
+           "norm1": least(layer["norm1"]["scale"] for layer in layers)}
+    qk = [layer["mixer"][k] for layer in layers for k in ("q_norm", "k_norm")
+          if k in layer["mixer"]]
+    if qk:
+        out["qk_norm"] = least(qk)
+    return out
+
+
+def _train_smoke_config(arch):
+    """Phase 10h's config: smollm / mamba2 grown to three periods, the
+    families' ``-smoke`` config (gemma3's period and tail, recurrentgemma's
+    period and tail), internvl2 and musicgen grown to three layers, so cut 1
+    leaves layers on the RSU (as the CPU parity tests)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(arch).reduced()
+    if len(cfg.pattern) == 1 and not cfg.tail:
+        cfg = dataclasses.replace(cfg, n_layers=3)
+    return cfg
 
 
 def train_cpu_vs_card():
-    """Phase 10h: one sgd train step (lr 1e-2, clip 1.0) of the reduced
-    configs grown to three periods, cut 1, on the CPU and on the card from
-    the same weights and batch, TF32 off: remat on with the smashed data
-    dense and as int8, and remat off with it dense.  The updates within
+    """Phase 10h: one sgd train step (lr 1e-2, clip 1.0) of each trained
+    arch's reduced config (:func:`_train_smoke_config`), cut 1, on the
+    CPU and on the card from the same weights and batch (64 positions
+    drawn by ``launch.train.synth_batch`` on the CPU: tokens, patch
+    embeddings, codebooks), TF32 off: remat on with the smashed data dense
+    and as int8, and remat off with it dense.  The updates within
     STEP_RTOL of the largest update, the losses within 1e-4, and the
     card's launches those :func:`_train_launches` gives (remat off runs
     each period's kernels once)."""
-    import dataclasses
-
-    import numpy as np
     import torch
     from repro_torch import kernels
-    from repro_torch.configs import get_config
     from repro_torch.core import distributed as D
+    from repro_torch.launch import train as TR
     from repro_torch.models import transformer as T
     from repro_torch.tree import tree_leaves, tree_map
     worst = {}
     for arch in TRAIN_ARCHS:
-        cfg = dataclasses.replace(get_config(arch).reduced(), n_layers=3)
+        cfg = _train_smoke_config(arch)
         params = T.init_params(torch.Generator().manual_seed(0), cfg)
-        rng = np.random.default_rng(0)
-        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
-                                             size=(4, 65)))
-        w = torch.tensor([0.5, 0.5, 0.25, 0.25])
+        batch = TR.synth_batch(cfg, torch.Generator().manual_seed(0), 4, 64,
+                               2)
         for compress, remat in ((False, True), (True, True),
                                 (False, False)):
             opts = D.DistOptions(cut=1, optimizer="sgd",
@@ -2794,10 +2895,8 @@ def train_cpu_vs_card():
                          "opt": D.make_optimizer(opts).init(p),
                          "step": torch.zeros((), dtype=torch.int32,
                                              device=where)}
-                batch = {"tokens": toks[:, :-1].to(where),
-                         "labels": toks[:, 1:].to(where),
-                         "weights": w.to(where)}
-                new, m = D.make_train_step(cfg, opts)(state, batch)
+                new, m = D.make_train_step(cfg, opts)(
+                    state, {k: v.to(where) for k, v in batch.items()})
                 outs[where] = ([t.cpu() for t in tree_leaves(
                     new["params"])], float(m["loss"]))
             counts = kernels.launch_counts()
@@ -2812,7 +2911,8 @@ def train_cpu_vs_card():
             key = f"{arch} compress={compress}" + ("" if remat
                                                     else " remat=False")
             worst[key] = rel
-            print(f"train_cpu_vs_card {cfg.name} compress={compress} "
+            print(f"train_cpu_vs_card {cfg.name} layers={cfg.n_layers} "
+                  f"compress={compress} "
                   f"remat={remat} loss_cpu={la!r} loss_card={lb!r} "
                   f"max_param_diff={diff:g} max_update={moved:g} "
                   f"diff_over_update={rel:g} launches={counts}", flush=True)
@@ -2827,9 +2927,29 @@ def train_cpu_vs_card():
     return worst
 
 
-# phase 10i: per forward of the reduced LM (one period) the RSU runs three
-# rmsnorms (two in the period, the final norm) and one flash or SSD scan
+# phase 10i: the text archs that TransformerUnitModel trains (the vision
+# and audio frontends stay refused there, as in the reference), at their
+# reduced configs: smollm / mamba2 one layer, gemma3 its period and tail
+# (10 attention layers under qk-norm), recurrentgemma its period and tail
+# (one local attention among 4 RG-LRU layers)
+LM_FED_ARCHS = ("smollm-360m", "mamba2-780m", "gemma3-4b",
+                "recurrentgemma-2b")
 LM_FED_RUNS = (("asfl", "vmap"), ("asfl", "unroll"), ("fl", "vmap"))
+
+
+def _unit_launches(cfg):
+    """Per unit of ``TransformerUnitModel`` (the embedding, then one a
+    period) the kernel launches of its forward, and the head's (the final
+    norm), as :func:`_expected_launches` counts a forward."""
+    import dataclasses
+    from repro_torch.models import transformer as T
+    units = [{"rmsnorm": 0, "flash_attention": 0, "ssd_chunk_scan": 0}]
+    for pat, n in T.segments_of(cfg):
+        one = _expected_launches(dataclasses.replace(
+            cfg, pattern=pat, tail=(), n_layers=len(pat)), decode_steps=0)
+        one["rmsnorm"] -= 1                 # the final norm is the head's
+        units += [one] * n
+    return units, {"rmsnorm": 1, "flash_attention": 0, "ssd_chunk_scan": 0}
 
 
 def lm_fed_path(arch, scheme, mode):
@@ -2838,17 +2958,18 @@ def lm_fed_path(arch, scheme, mode):
     the launch counters zeroed just before and read just after.  Checks
     finite loss, accuracy in [0, 1], the cuts, wire bytes = the cost
     model's at the data's 8 tokens a sample, and every launch count: the
-    codec's by phase 10d's formula; per forward of the model three rmsnorms
-    and one flash / SSD scan, where ``fl``'s vmap runs the rmsnorms and the
-    SSD (a parameter per replica) once per replica and the flash kernel
-    (activations only) once for all; per training forward three of
-    rmsnorm's backward kernel, where ``fl``'s ``vmap`` of ``grad`` folds
-    the replicas into one."""
+    codec's by phase 10d's formula; per forward of the model its norms
+    (:func:`_expected_launches`: two a layer, two more an attention layer
+    under qk-norm, the final norm), one flash per attention layer and one
+    SSD scan per SSM layer, where ``fl``'s vmap runs the rmsnorms (the
+    qk-norm scales too) and the SSD (a parameter per replica) once per
+    replica and the flash kernel (activations only) once for all; per
+    training forward one of rmsnorm's backward kernel a norm, where
+    ``fl``'s ``vmap`` of ``grad`` folds the replicas into one."""
     import numpy as np
     import torch
     from repro_torch import api, kernels
     from repro_torch.core import cost
-    from repro_torch.configs import ATTN
     wire = "topk_int8" if scheme == "asfl" else "none"
     spec = api.ExperimentSpec(
         model=arch, train=api.TrainConfig(scheme=scheme, rounds=1,
@@ -2861,21 +2982,41 @@ def lm_fed_path(arch, scheme, mode):
     steps = [max(len(c) // tr.batch_size, 1) * tr.local_epochs
              for c in clients]
     model = entry.build()
+    units, head = _unit_launches(model.cfg)
+    assert len(units) == model.n_units
+
+    def launches(name, lo=0, hi=None):
+        """``name``'s launches in a forward of units [lo, hi), with the
+        head when ``hi`` is None."""
+        return (sum(u[name] for u in units[lo:hi])
+                + (head[name] if hi is None else 0))
+
+    norms, flash, ssd = (launches("rmsnorm"), launches("flash_attention"),
+                         launches("ssd_chunk_scan"))
     kernels.reset_launches()
     res = api.run(spec)
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
     d, (m,) = res.diagnostics, res.history
     n_steps = sum(steps)
-    mixer = ("flash_attention" if model.cfg.pattern[0] == ATTN
-             else "ssd_chunk_scan")
     evals = len(test["labels"]) // 256 + bool(len(test["labels"]) % 256)
     want = dict.fromkeys(counts, 0)
     want_bytes = 0.0
     if scheme == "asfl":
-        want.update(rmsnorm=3 * (n_steps + evals),
-                    rmsnorm_backward=3 * n_steps,
-                    **{mixer: n_steps + evals})
+        # under vmap a bucket's vehicle side runs flash once for its
+        # replicas a local step (activations only); its rmsnorms and SSD
+        # scans carry a parameter per replica and run once a replica
+        if mode == "vmap":
+            n_flash = (sum(launches("flash_attention", 0, cut) * n
+                           for cut, n in _bucket_most(m.cuts, steps).items())
+                       + sum(launches("flash_attention", cut) * n
+                             for cut, n in zip(m.cuts, steps)))
+        else:
+            n_flash = flash * n_steps
+        want.update(rmsnorm=norms * (n_steps + evals),
+                    rmsnorm_backward=norms * n_steps,
+                    flash_attention=n_flash + flash * evals,
+                    ssd_chunk_scan=ssd * (n_steps + evals))
         n_codec = (n_steps + _bucket_steps(m.cuts, steps)
                    if mode == "vmap" else 2 * n_steps)
         want.update(sparsify_quant_pack=n_codec, unpack_dequant=n_codec)
@@ -2887,17 +3028,18 @@ def lm_fed_path(arch, scheme, mode):
     else:
         n = f.n_vehicles
         local = max(steps)
-        want.update(rmsnorm=3 * n * local + 3 * evals,
-                    rmsnorm_backward=3 * local,
-                    **{mixer: (local if mixer == "flash_attention"
-                               else n * local) + evals})
+        want.update(rmsnorm=norms * (n * local + evals),
+                    rmsnorm_backward=norms * local,
+                    flash_attention=flash * (local + evals),
+                    ssd_chunk_scan=ssd * (n * local + evals))
     print(f"lm_fed {arch} {scheme} mode={d['mode']} loss={m.loss!r} "
           f"acc={m.test_acc!r} cuts={m.cuts} client_batch_steps="
           f"{d['client_batch_steps']} wire_bytes={d['wire_bytes']} "
           f"cost_model_bytes={want_bytes!r} launches={counts} "
           f"run_s={res.timing['run_s']:.6f}", flush=True)
     cuts_ok = (m.cuts == [] if scheme == "fl"
-               else len(m.cuts) == 4 and set(m.cuts) <= {1})
+               else len(m.cuts) == 4
+               and set(m.cuts) <= set(range(1, model.n_units)))
     if not (math.isfinite(m.loss) and 0.0 <= m.test_acc <= 1.0 and cuts_ok
             and d["mode"] == mode and d["client_batch_steps"] == n_steps
             and d["wire_bytes"] == want_bytes and counts == want):
@@ -3748,9 +3890,9 @@ def main() -> int:
     autograd = lm_autograd_on_card()
     training = [train_path(*run) for run in TRAIN_RUNS]
     train_worst = train_cpu_vs_card()
-    lm_fed = [lm_fed_path(arch, *run) for arch in TRAIN_ARCHS
+    lm_fed = [lm_fed_path(arch, *run) for arch in LM_FED_ARCHS
               for run in LM_FED_RUNS]
-    for arch in TRAIN_ARCHS:
+    for arch in LM_FED_ARCHS:
         vmap_run, loop_run = (r for r in lm_fed if r["arch"] == arch
                               and r["scheme"] == "asfl")
         if vmap_run["cuts"] != loop_run["cuts"]:

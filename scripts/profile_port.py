@@ -19,9 +19,12 @@
    (batch 8, prompt 1024, the default cut) after a warm-up at prompt 64,
    as ``chip_smoke.py`` serves: a profiled prefill (the first run is the
    process's first at full size), then 8 profiled decode steps.
-4. One sync-SFL train step of smollm-360m and of mamba2-780m at full width
-   (batch 8, seq 1024, the default cut, adamw, clip 1.0, remat) after one
-   warm-up step, as ``chip_smoke.py`` phase 10g trains.
+4. One sync-SFL train step of each arch that ``chip_smoke.py`` phase 10g
+   trains, at full width, at that phase's depth and batch (smollm-360m,
+   mamba2-780m and internvl2-1b whole at batch 8, musicgen-large at 36
+   layers, recurrentgemma-2b and gemma3-4b at one period, gemma3 at batch
+   4; seq 1024, the default cut, adamw, clip 1.0, remat)
+   after one warm-up step.
 5. With ``city``: one round of ``chip_smoke.py`` phase 10l's city cell
    (4096 vehicles, 256 RSUs, mlp9, ``none``, parallel ragged, mobility
    churn) after one warm-up round, unpaged and at ``page_slots=128``,
@@ -280,15 +283,18 @@ def serve_profile(arch, top: int = 10, batch: int = 8, prompt: int = 1024,
     return res
 
 
-def train_profile(arch, top: int = 20, batch: int = 8, seq: int = 1024):
-    """One profiled train step of ``arch`` at full width after a warm-up
-    step."""
+def train_profile(arch, top: int = 20, batch: int = 8, seq: int = 1024,
+                  changes=None):
+    """One profiled train step of ``arch`` at full width, its config
+    changed by ``changes`` (a depth cut), after a warm-up step."""
+    import dataclasses
+
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.core import distributed as D
     from repro_torch.launch.train import synth_batch
-    cfg = get_config(arch)
+    cfg = dataclasses.replace(get_config(arch), **(changes or {}))
     dev = torch.device("cuda")
     opts = D.DistOptions(cut=cfg.default_cut)
     state = D.init_state(torch.Generator(device=dev).manual_seed(0), cfg,
@@ -297,10 +303,13 @@ def train_profile(arch, top: int = 20, batch: int = 8, seq: int = 1024):
     batches = [synth_batch(cfg, torch.Generator(device=dev).manual_seed(i),
                            batch, seq, 4) for i in range(2)]
     state, _ = step(state, batches[0])
-    (state, _), r = _profiled(lambda: step(state, batches[1]), top)
+    # each traced run's new state is dropped at once: two full states
+    # alive would not fit beside the step at phase 10g's depths
+    _, r = _profiled(lambda: step(state, batches[1])[1], top)
     res = {"arch": arch, "batch": batch, "seq": seq, "cut": opts.cut,
-           "step": r}
-    print(f"train {arch} wall_s={r['wall_s']:.6f} "
+           "layers": cfg.n_layers, "step": r}
+    print(f"train {arch} layers={cfg.n_layers} batch={batch} "
+          f"wall_s={r['wall_s']:.6f} "
           f"device_busy_s={r['device_busy_s']:.6f} "
           f"busy_share={r['device_busy_share']:.4f} "
           f"device_kernels={r['n_device_kernels']} "
@@ -374,7 +383,12 @@ def main() -> int:
             "musicgen-large", "deepseek-v2-lite-16b", "qwen3-14b",
             "command-r-35b")]
     if "train" in parts:
-        result["train"] = [train_profile(a) for a in archs]
+        sys.path.insert(0, os.path.dirname(HERE))
+        import chip_smoke                  # phase 10g's depth and batch
+        result["train"] = [
+            train_profile(arch, batch=batch, changes=changes)
+            for arch, compress, _, batch, changes in chip_smoke.TRAIN_RUNS
+            if not compress]
     if "city" in parts:
         result["city"] = [city_profile(page) for page in (0, 128)]
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)

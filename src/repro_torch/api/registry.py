@@ -2,10 +2,11 @@
 ``repro.api.registry``, holding what is ported so far).
 
 Models ``resnet18``, ``mlp9`` and every text arch the port trains
-(``smollm-360m``, ``mamba2-780m``: a ``TransformerUnitModel`` of the
-reduced config by default, ``model_kwargs={"reduced": False}`` for the
-full stack; the reference's other arch ids, the served-only
-``configs.SERVE_ONLY`` among them, are "not ported yet");
+(``smollm-360m``, ``mamba2-780m``, ``gemma3-4b``, ``recurrentgemma-2b``:
+a ``TransformerUnitModel`` of the reduced config by default,
+``model_kwargs={"reduced": False}`` for the full stack; the served-only
+``configs.SERVE_ONLY``, the MLA / MoE and bfloat16 archs, are "not ported
+yet");
 scenarios ``single_rsu`` (the
 single-RSU ``FederationSim``) and the ported multi-RSU scenarios of
 ``core/scenario.py`` (the ``ScenarioEngine``); every cut strategy and wire

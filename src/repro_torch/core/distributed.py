@@ -83,7 +83,9 @@ def init_state(gen: torch.Generator, cfg: ArchConfig,
 
 def weighted_ce(logits, labels, weights, true_vocab: int) -> torch.Tensor:
     """Per-sample-weighted token cross-entropy: the |D_n|-weighted FedAvg
-    objective (paper Eq. 1) inside one step."""
+    objective (paper Eq. 1) inside one step.  logits (b, s, vp) with labels
+    (b, s), or audio's (b, s, K, vp) with (b, s, K): a sample's loss is the
+    mean over its positions (and codebooks)."""
     per_tok = L.per_token_ce(logits, labels, true_vocab)    # (b, s)
     while per_tok.dim() > 1:
         per_tok = per_tok.mean(dim=-1)
@@ -91,12 +93,24 @@ def weighted_ce(logits, labels, weights, true_vocab: int) -> torch.Tensor:
     return torch.sum(per_tok * w)
 
 
+def _labels_of(cfg: ArchConfig, batch) -> torch.Tensor:
+    """The targets of a train batch: ``codes`` as (b, s, K) for audio (each
+    frame predicts its own K codes, as the reference's), else
+    ``labels``."""
+    if cfg.frontend == "audio":
+        return batch["codes"].transpose(1, 2)
+    return batch["labels"]
+
+
 def make_train_step(cfg: ArchConfig, opts: DistOptions) -> Callable:
     """SFL round step: client fwd -> smashed boundary -> server fwd/bwd ->
     client bwd -> the |D_n|-weighted loss, clipping, the optimizer.
-    ``step(state, batch)`` with batch ``tokens`` / ``labels`` (b, s) and
-    ``weights`` (b,) returns (new state, metrics: ``loss``, ``ce``,
-    ``aux``, ``grad_norm`` as device scalars)."""
+    ``step(state, batch)`` with ``weights`` (b,) and the frontend's inputs
+    (:func:`repro_torch.launch.train.synth_batch`: ``tokens`` / ``labels``
+    (b, s); for vision also ``patch_embeds``, whose positions are cut off
+    the logits before the loss; for audio ``codes`` (b, K, s) alone)
+    returns (new state, metrics: ``loss``, ``ce``, ``aux``, ``grad_norm``
+    as device scalars)."""
     check_trainable(cfg)
     opt = make_optimizer(opts)
     cut = SP.clamp_cut(cfg, opts.cut)
@@ -110,7 +124,9 @@ def make_train_step(cfg: ArchConfig, opts: DistOptions) -> Callable:
         logits, _ = SP.server_forward(server, cfg, _cross(smashed, opts),
                                       positions, cut, "train",
                                       remat=opts.remat)
-        ce = weighted_ce(logits, batch["labels"], batch["weights"],
+        if cfg.frontend == "vision":
+            logits = logits[:, cfg.n_patches:]
+        ce = weighted_ce(logits, _labels_of(cfg, batch), batch["weights"],
                          cfg.vocab_size)
         del logits
         aux = torch.zeros((), dtype=torch.float32, device=ce.device)

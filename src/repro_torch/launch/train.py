@@ -5,15 +5,18 @@ Trains an LM arch with the model split at the cut: vehicle-side periods,
 the smashed boundary (int8 under ``--compress``), RSU-side periods and
 head, the |D_n|-weighted cross-entropy, global-norm clipping and adamw
 (:func:`repro_torch.core.distributed.make_train_step`), on ``cuda`` unless
-``--device cpu`` is given (without a card it raises).  ``--smoke`` trains
-the reduced config; without it the full config at ``--batch`` /
-``--seq``.  The reference's mesh shapes (``--shape``, ``--multi-pod``) are
-not ported.
+``--device cpu`` is given (without a card it raises).  Text, vision
+(patch embeddings before the tokens; the loss on the text positions) and
+audio (K codebooks in, each frame's K codes as its targets) archs train;
+MLA, MoE and bfloat16-parameter archs are refused (served only).
+``--smoke`` trains the reduced config; without it the full config at
+``--batch`` / ``--seq``.  The reference's mesh shapes (``--shape``,
+``--multi-pod``) are not ported.
 
     python -m repro_torch.launch.train --arch smollm-360m --batch 8 \\
         --seq 1024 --steps 3
-    python -m repro_torch.launch.train --arch mamba2-780m --smoke \\
-        --device cpu --steps 2
+    python -m repro_torch.launch.train --arch internvl2-1b --smoke \\
+        --device cpu --steps 2 --seq 32
 """
 from __future__ import annotations
 
@@ -32,16 +35,34 @@ from repro_torch.device import resolve_device
 
 def synth_batch(cfg: ArchConfig, gen: torch.Generator, batch: int, seq: int,
                 n_clients: int) -> Dict[str, torch.Tensor]:
-    """Synthetic federated LM batch on the generator's device: uniform
-    tokens from ``gen`` and heterogeneous |D_n| weights (a numpy power
-    law, as in the paper's case study), ``batch // n_clients`` rows per
-    client."""
-    toks = torch.randint(0, cfg.vocab_size, (batch, seq + 1), generator=gen,
-                         device=gen.device)
+    """Synthetic federated LM batch of ``seq`` positions on the generator's
+    device, the reference's shapes drawn from ``gen``: uniform ``tokens``
+    and their next-token ``labels``; for vision ``n_patches`` patch
+    embeddings (0.02 x a normal draw) before ``seq - n_patches`` tokens;
+    for audio ``codes`` (b, K, seq) alone.  Heterogeneous |D_n| weights (a
+    numpy power law, as in the paper's case study), ``batch // n_clients``
+    rows per client."""
+    dev = gen.device
+    if cfg.frontend == "vision" and seq <= cfg.n_patches:
+        raise ValueError(f"{cfg.name}: seq {seq} leaves no text after its "
+                         f"{cfg.n_patches} patches")
+    if cfg.frontend == "audio":
+        out = {"codes": torch.randint(0, cfg.vocab_size,
+                                      (batch, cfg.n_codebooks, seq),
+                                      generator=gen, device=dev)}
+    else:
+        s_text = seq - (cfg.n_patches if cfg.frontend == "vision" else 0)
+        toks = torch.randint(0, cfg.vocab_size, (batch, s_text + 1),
+                             generator=gen, device=dev)
+        out = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        if cfg.frontend == "vision":
+            out["patch_embeds"] = 0.02 * torch.randn(
+                (batch, cfg.n_patches, cfg.d_model), generator=gen,
+                device=dev)
     sizes = np.arange(1, n_clients + 1, dtype=np.float32) ** -1.5
     w = np.repeat(sizes / sizes.sum(), batch // n_clients)
-    return {"tokens": toks[:, :-1], "labels": toks[:, 1:],
-            "weights": torch.as_tensor(w[:batch], device=gen.device)}
+    out["weights"] = torch.as_tensor(w[:batch], device=dev)
+    return out
 
 
 def _sync(device: torch.device) -> None:

@@ -177,3 +177,119 @@ def assert_fleet_states_equal(ref, port):
         a, b = getattr(ref, f), getattr(port, f)
         assert a.dtype == b.dtype, (f, a.dtype, b.dtype)
         np.testing.assert_array_equal(b, a, err_msg=f)
+
+
+# ------------------------------------------------------- LM train step
+def lm_train_batch(cfg, b=4, s=32, n_clients=2, seed=0):
+    """A numpy train batch of ``s`` positions for ``cfg``'s frontend (the
+    reference's ``synth_batch`` shapes): ``tokens`` and next-token
+    ``labels``; for vision ``n_patches`` patch embeddings (0.02 x a normal
+    draw) before ``s - n_patches`` tokens; for audio ``codes`` (b, K, s)
+    alone; and power-law |D_n| ``weights``, ``b // n_clients`` rows a
+    client."""
+    rng = np.random.default_rng(seed)
+    if cfg.frontend == "audio":
+        out = {"codes": rng.integers(0, cfg.vocab_size, size=(
+            b, cfg.n_codebooks, s)).astype(np.int32)}
+    else:
+        n_text = s - (cfg.n_patches if cfg.frontend == "vision" else 0)
+        toks = rng.integers(0, cfg.vocab_size,
+                            size=(b, n_text + 1)).astype(np.int32)
+        out = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        if cfg.frontend == "vision":
+            out["patch_embeds"] = (0.02 * rng.normal(
+                size=(b, cfg.n_patches, cfg.d_model))).astype(np.float32)
+    sizes = np.arange(1, n_clients + 1, dtype=np.float32) ** -1.5
+    out["weights"] = np.repeat(sizes / sizes.sum(),
+                               b // n_clients).astype(np.float32)
+    return out
+
+
+_TRAIN_JITS = {}
+
+
+def run_train_steps(jcfg, tcfg, params, steps, batch_fn, cut=1, **opts):
+    """The reference's jitted ``make_train_step`` and the port's from the
+    same numpy ``params`` over ``batch_fn(i)``'s numpy batches (each jit
+    cached per config and options).  Returns (ref losses, port losses, ref
+    params, port params as numpy, ref metrics, port metrics)."""
+    import jax.numpy as jnp
+
+    from repro.core import distributed as JD
+    from repro_torch.core import distributed as D
+    jopts = JD.DistOptions(cut=cut, **opts)
+    topts = D.DistOptions(cut=cut, **opts)
+    key = (jcfg, cut, tuple(sorted(opts.items())))
+    if key not in _TRAIN_JITS:
+        _TRAIN_JITS[key] = jax.jit(JD.make_train_step(jcfg, jopts))
+    jstep = _TRAIN_JITS[key]
+    jstate = {"params": jax.tree.map(jnp.asarray, params),
+              "opt": JD.make_optimizer(jopts).init(params),
+              "step": jnp.zeros((), jnp.int32)}
+    tparams = bridge.lm_params_to_torch(params, tcfg)
+    tstep = D.make_train_step(tcfg, topts)
+    tstate = {"params": tparams,
+              "opt": D.make_optimizer(topts).init(tparams),
+              "step": torch.zeros((), dtype=torch.int32)}
+    jl, tl, jm, tm = [], [], [], []
+    for i in range(steps):
+        b = batch_fn(i)
+        jstate, m = jstep(jstate, {k: jnp.asarray(v) for k, v in b.items()})
+        jl.append(float(m["loss"]))
+        jm.append(m)
+        tstate, m = tstep(tstate, lm_batch_to_torch(b))
+        tl.append(float(m["loss"]))
+        tm.append(m)
+    return (jl, tl, jstate["params"],
+            bridge.lm_params_to_numpy(tstate["params"], tcfg), jm, tm)
+
+
+def assert_params_within(ref, port, tol):
+    """Every leaf of ``port`` within ``tol`` of the largest value of
+    ``ref`` (same tree, numpy leaves)."""
+    ra, pa = jax.tree.leaves(ref), jax.tree.leaves(port)
+    assert len(ra) == len(pa)
+    big = max(float(np.abs(np.asarray(a)).max()) for a in ra)
+    worst = max(float(np.abs(np.asarray(a) - b).max())
+                for a, b in zip(ra, pa))
+    assert worst <= tol * big, (worst, big)
+
+
+def assert_grads_close(got, want, rtol):
+    """Port gradients (torch) against reference ones (jax / numpy), leaf
+    by leaf: each within ``rtol`` of that leaf's largest value."""
+    assert len(got) == len(want)
+    for i, (a, b) in enumerate(zip(got, want)):
+        b = np.asarray(b)
+        a = a.detach().numpy()
+        assert a.shape == b.shape, (i, a.shape, b.shape)
+        big = float(np.abs(b).max())
+        assert np.isfinite(a).all(), i
+        np.testing.assert_allclose(a, b, rtol=0, atol=rtol * max(big, 1e-30),
+                                   err_msg=f"leaf {i} (largest {big:g})")
+
+
+def grads_vs_jax(jfn, tfn, args, seed=99):
+    """``jax.grad`` of sum(jfn(*args) * w) and the port's autograd of
+    sum(tfn(*args) * w) in every leaf of every argument (numpy trees in;
+    the port's as torch tensors, a leaf it does not read getting a zero
+    gradient), w a fixed numpy draw.  Returns (port output, reference
+    output, port gradients, reference gradients), leaves in the
+    reference's order."""
+    import jax.numpy as jnp
+    jargs = jax.tree.map(jnp.asarray, args)
+    jout = jfn(*jargs)
+    w = np.random.default_rng(seed).normal(
+        size=np.shape(jout)).astype(np.float32)
+    want = jax.grad(lambda *a: jnp.sum(jfn(*a) * w),
+                    argnums=tuple(range(len(args))))(*jargs)
+    targs = jax.tree.map(lambda a: torch.tensor(a, requires_grad=True),
+                         args)
+    tout = tfn(*targs)
+    leaves = jax.tree.leaves(targs)
+    got = torch.autograd.grad((tout * torch.from_numpy(w)).sum(), leaves,
+                              allow_unused=True)
+    got = [torch.zeros_like(t) if g is None else g
+           for g, t in zip(got, leaves)]
+    return (tout.detach().numpy(), np.asarray(jout), got,
+            jax.tree.leaves(want))

@@ -1169,6 +1169,48 @@ def test_lm_function_vjp_of_vmap_on_cuda(dev, name, rule):
             assert float((a - b).abs().max()) <= tol * max(big, 1.0)
 
 
+@pytest.mark.parametrize("arch", ["gemma3-4b", "recurrentgemma-2b",
+                                  "internvl2-1b", "musicgen-large"])
+def test_reduced_family_train_step_on_cuda_matches_cpu(dev, arch):
+    """One sgd train step (clip 1.0, remat) of a family's reduced config
+    (``chip_smoke._train_smoke_config``: gemma3 / recurrentgemma with their
+    period and tail, internvl2 / musicgen at three layers) on the card and
+    on the CPU from the same weights and batch (patch embeddings and
+    codebooks as ``launch.train.synth_batch`` draws them): the card's
+    update within 1 % of the largest update, losses within 1e-4, and the
+    card's launches those ``chip_smoke._train_launches`` gives (qk-norm's
+    rows included, nothing for an RG-LRU mixer)."""
+    from repro_torch.core import distributed as D
+    from repro_torch.kernels import reset_launches
+    from repro_torch.launch.train import synth_batch
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves, tree_map
+    cs = _chip_smoke()
+    cfg = cs._train_smoke_config(arch)
+    params = T.init_params(torch.Generator().manual_seed(0), cfg)
+    batch = synth_batch(cfg, torch.Generator().manual_seed(0), 4, 64, 2)
+    opts = D.DistOptions(cut=1, optimizer="sgd", learning_rate=1e-2)
+    outs = {}
+    for where in ("cpu", dev):
+        p = tree_map(lambda a: a.to(where), params)
+        state = {"params": p, "opt": D.make_optimizer(opts).init(p),
+                 "step": torch.zeros((), dtype=torch.int32, device=where)}
+        reset_launches()
+        new, m = D.make_train_step(cfg, opts)(
+            state, {k: v.to(where) for k, v in batch.items()})
+        outs[str(where)] = ([t.cpu() for t in tree_leaves(new["params"])],
+                            float(m["loss"]))
+    counts = launch_counts()
+    want = dict.fromkeys(counts, 0)
+    want.update(cs._train_launches(cfg, False, 1))
+    assert counts == want
+    (pa, la), (pb, lb) = outs["cpu"], outs[str(dev)]
+    moved = max(float((a - a0).abs().max())
+                for a, a0 in zip(pa, tree_leaves(params)))
+    diff = max(float((a - b).abs().max()) for a, b in zip(pa, pb))
+    assert diff <= 1e-2 * moved and abs(la - lb) <= 1e-4
+
+
 @pytest.mark.parametrize("arch", ["smollm-360m", "mamba2-780m"])
 def test_reduced_lm_train_step_launches_follow_remat(dev, arch):
     """``DistOptions.remat`` on the card: with it on each of the three

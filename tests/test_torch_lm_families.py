@@ -71,8 +71,10 @@ def test_configs_match_reference(arch):
 
 
 def test_registry_holds_the_served_families():
+    """The families are registered and trained; the archs served only are
+    the MLA / MoE and bfloat16 ones."""
     assert set(FAMILIES) <= set(ARCH_IDS)
-    assert set(SERVE_ONLY) == set(FAMILIES) | {
+    assert set(SERVE_ONLY) == {
         "deepseek-v2-lite-16b", "dbrx-132b", "command-r-35b", "qwen3-14b"}
     from repro.configs import ARCH_IDS as REF_IDS
     assert sorted(ARCH_IDS) == sorted(REF_IDS)
@@ -297,30 +299,62 @@ def test_prefill_then_decode_matches_teacher_forcing(arch):
 
 @pytest.mark.parametrize("arch", FAMILIES)
 def test_training_the_served_families_is_refused(arch):
+    """Training the families is no longer refused: each ``-smoke`` train
+    step builds (renamed too: the check reads what the config holds),
+    steps once from its own init and gives finite metrics; the text archs
+    build ``TransformerUnitModel``, the frontends stay refused there as in
+    the reference's ``core/lm_unit.py``."""
+    from repro_torch.configs import check_trainable, untrained_features
     from repro_torch.core import distributed as D
     from repro_torch.core.lm_unit import TransformerUnitModel
+    from repro_torch.launch.train import synth_batch
     renamed = dataclasses.replace(get_config(arch), name="renamed")
-    for cfg in (get_config(arch), get_config(arch + "-smoke"), renamed):
-        with pytest.raises(NotImplementedError, match="served only"):
-            D.make_train_step(cfg, D.DistOptions())
-    if get_config(arch).frontend == "none":
-        with pytest.raises(NotImplementedError, match="served only"):
-            TransformerUnitModel(get_config(arch).reduced())
+    for cfg in (get_config(arch), renamed):
+        assert untrained_features(cfg) == []
+        check_trainable(cfg)
+    cfg = get_config(arch + "-smoke")
+    opts = D.DistOptions(cut=1)
+    state = D.init_state(torch.Generator().manual_seed(0), cfg, opts)
+    batch = synth_batch(cfg, torch.Generator().manual_seed(1), 4, 32, 2)
+    state, m = D.make_train_step(cfg, opts)(state, batch)
+    assert set(m) == {"loss", "ce", "aux", "grad_norm"}
+    assert all(bool(torch.isfinite(v)) for v in m.values())
+    assert int(state["step"]) == 1
+    if cfg.frontend == "none":
+        assert TransformerUnitModel(cfg).n_units > 1
+    else:
+        with pytest.raises(ValueError, match="text archs only"):
+            TransformerUnitModel(cfg)
 
 
-@pytest.mark.parametrize("change", [
-    dict(frontend="vision"), dict(pattern=("attn", "attn_local")),
-    dict(tail=("rglru",)), dict(qk_norm=True), dict(pos="sinusoidal"),
-    dict(mlp_variant="geglu"), dict(mlp_variant="gelu")])
+# the features the families brought, now trained, and those still served
+# only
+TRAINED_CHANGES = [
+    dict(frontend="vision"), dict(pattern=("attn", "attn_local"), n_layers=2),
+    dict(tail=("rglru",), n_layers=2), dict(qk_norm=True),
+    dict(pos="sinusoidal"),
+    dict(mlp_variant="geglu"), dict(mlp_variant="gelu")]
+REFUSED_CHANGES = [dict(pattern=("mla_dense",)), dict(pattern=("attn_moe",)),
+                   dict(param_dtype="bfloat16")]
+
+
+@pytest.mark.parametrize("change", TRAINED_CHANGES + REFUSED_CHANGES)
 def test_training_refusal_follows_what_the_config_holds(change):
-    """A trained arch that gains a layer whose training is not ported is
-    refused, whatever its name; the trained archs as they are pass."""
+    """The refusal reads what a config holds, whatever its name: a trained
+    arch that gains a frontend, local attention, RG-LRU, qk-norm,
+    sinusoidal positions or a GeGLU / GeLU MLP still trains; one that
+    gains an MLA layer, an MoE FFN or bfloat16 parameters is refused as
+    served only.  The trained archs as they are pass."""
     from repro_torch.configs import check_trainable, untrained_features
     from repro_torch.core import distributed as D
     for arch in ("smollm-360m", "mamba2-780m"):
         assert untrained_features(get_config(arch)) == []
         check_trainable(get_config(arch + "-smoke"))
     cfg = dataclasses.replace(get_config("smollm-360m-smoke"), **change)
+    if change in TRAINED_CHANGES:
+        assert untrained_features(cfg) == []
+        D.make_train_step(cfg, D.DistOptions())
+        return
     assert untrained_features(cfg)
     with pytest.raises(NotImplementedError, match="served only"):
         D.make_train_step(cfg, D.DistOptions())

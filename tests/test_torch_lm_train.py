@@ -7,13 +7,14 @@ the reference's threefry init through ``repro_torch.bridge``; tokens and
 weights are numpy draws."""
 import dataclasses
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from _torch_parity import cap_torch_threads, jax_lm_params, lm_configs
+from _torch_parity import (assert_params_within, cap_torch_threads,
+                           jax_lm_params, lm_batch_to_torch, lm_configs,
+                           lm_train_batch, run_train_steps)
 from repro.core import distributed as JD
 from repro.models import layers as JL
 from repro_torch import bridge
@@ -39,18 +40,8 @@ def _setup(arch):
     return _cache[arch]
 
 
-def _batch(cfg, b=4, s=16, n_clients=2, seed=0):
-    rng = np.random.default_rng(seed)
-    toks = rng.integers(0, cfg.vocab_size, size=(b, s + 1)).astype(np.int32)
-    sizes = np.arange(1, n_clients + 1, dtype=np.float32) ** -1.5
-    w = np.repeat(sizes / sizes.sum(), b // n_clients).astype(np.float32)
-    return {"tokens": toks[:, :-1], "labels": toks[:, 1:], "weights": w}
-
-
-def _torch_batch(b):
-    return {"tokens": torch.from_numpy(b["tokens"].astype(np.int64)),
-            "labels": torch.from_numpy(b["labels"].astype(np.int64)),
-            "weights": torch.from_numpy(b["weights"])}
+def _batch(cfg, seed=0):
+    return lm_train_batch(cfg, s=16, seed=seed)
 
 
 def _run_both(arch, steps, **opts):
@@ -58,28 +49,8 @@ def _run_both(arch, steps, **opts):
     parameters over the same batches.  Returns (ref losses, port losses,
     ref params, port params as numpy, ref metrics, port metrics)."""
     jcfg, tcfg, params = _setup(arch)
-    jopts = JD.DistOptions(cut=1, **opts)
-    topts = D.DistOptions(cut=1, **opts)
-    jstep = jax.jit(JD.make_train_step(jcfg, jopts))
-    jstate = {"params": jax.tree.map(jnp.asarray, params),
-              "opt": JD.make_optimizer(jopts).init(params),
-              "step": jnp.zeros((), jnp.int32)}
-    tparams = bridge.lm_params_to_torch(params, tcfg)
-    tstep = D.make_train_step(tcfg, topts)
-    tstate = {"params": tparams,
-              "opt": D.make_optimizer(topts).init(tparams),
-              "step": torch.zeros((), dtype=torch.int32)}
-    jl, tl, jm, tm = [], [], [], []
-    for i in range(steps):
-        b = _batch(tcfg, seed=i)
-        jstate, m = jstep(jstate, {k: jnp.asarray(v) for k, v in b.items()})
-        jl.append(float(m["loss"]))
-        jm.append(m)
-        tstate, m = tstep(tstate, _torch_batch(b))
-        tl.append(float(m["loss"]))
-        tm.append(m)
-    return (jl, tl, jstate["params"],
-            bridge.lm_params_to_numpy(tstate["params"], tcfg), jm, tm)
+    return run_train_steps(jcfg, tcfg, params, steps,
+                           lambda i: _batch(tcfg, seed=i), **opts)
 
 
 def test_cross_entropy_matches_reference_at_padded_vocab():
@@ -114,12 +85,7 @@ def test_sgd_train_step_matches_reference(arch, clip, compress):
                                        learning_rate=SGD_LR, grad_clip=clip,
                                        compress_smashed=compress)
     np.testing.assert_allclose(tl, jl, rtol=LOSS_RTOL)
-    ja, ta = jax.tree.leaves(jp), jax.tree.leaves(tp)
-    assert len(ja) == len(ta)
-    big = max(float(np.abs(np.asarray(a)).max()) for a in ja)
-    worst = max(float(np.abs(np.asarray(a) - b).max())
-                for a, b in zip(ja, ta))
-    assert worst <= PARAM_TOL * big
+    assert_params_within(jp, tp, PARAM_TOL)
     if clip:
         np.testing.assert_allclose(float(tm[0]["grad_norm"]),
                                    float(jm[0]["grad_norm"]), rtol=1e-4)
@@ -138,7 +104,7 @@ def test_train_step_reports_finite_metrics_and_steps_the_count():
     state = {"params": tparams, "opt": D.make_optimizer(opts).init(tparams),
              "step": torch.zeros((), dtype=torch.int32)}
     state, m = D.make_train_step(tcfg, opts)(state,
-                                              _torch_batch(_batch(tcfg)))
+                                              lm_batch_to_torch(_batch(tcfg)))
     assert set(m) == {"loss", "ce", "aux", "grad_norm"}
     assert all(bool(torch.isfinite(v)) for v in m.values())
     assert float(m["aux"]) == 0.0 and int(state["step"]) == 1
@@ -169,7 +135,7 @@ def test_dist_options_remat_sets_the_period_forwards(arch, monkeypatch):
                  "step": torch.zeros((), dtype=torch.int32)}
         calls.clear()
         state, m = D.make_train_step(tcfg, opts)(state,
-                                                  _torch_batch(_batch(tcfg)))
+                                                  lm_batch_to_torch(_batch(tcfg)))
         out[remat] = (len(calls), float(m["loss"]),
                       tree_leaves(state["params"]))
     assert out[True][0] == 2 * 3 and out[False][0] == 3
