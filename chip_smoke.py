@@ -45,20 +45,22 @@ neither ``jax`` nor ``repro``.  In order it:
    type; its backward kernel against the closed-form plain backward and
    the plain vjp, two calls bit for bit, at d 256 / 960 / 1536 / 3072 and
    the families' training widths 2560 / 896 / 2048 in float32 and
-   bfloat16), and at each served arch's prefill shape
+   bfloat16, the bfloat16 archs' 5120 / 8192 and qwen3's qk-norm rows
+   over 128 too), and at each served arch's prefill shape
    (smollm, mamba2; gemma3's global and local layers at d 256, 8 heads
    over 4, the local one also at s 1088 where its window masks keys;
    recurrentgemma's local MQA, window 2048; internvl2's 14 over 2;
    musicgen's MHA 32 / 32; rmsnorm at every shape in float32 and
    bfloat16, deepseek's ``kv_norm`` over the latent (8, 1024, 512) among
-   them, its backward at the seven widths) and flash in bfloat16 and
+   them, its backward at the ten widths; at the bfloat16 archs' widths
+   timed in bfloat16 only, RMS_BF16_WIDTHS) and flash in bfloat16 and
    float16 (``FLASH16_CASES``: every head dim and float32's edge shapes,
    their d-128 variants; qwen3-14b's prefill, 40 heads over 8 at d 128,
    and command-r-35b's, 64 over 8; within one ulp of the working type plus
    flash's float32 tolerance, two calls bit for bit on the route
    ``flash_route`` picks: d 128 on the Hopper route, the rest on the mma
-   route; the timed prefills also forced onto the mma route in the same
-   call, rows ``*_mma``; bound: the bytes, or q.k^T once and p.v twice at
+   route; the timed prefills also checked, untimed, forced onto the mma
+   route, rows ``*_mma``; bound: the bytes, or q.k^T once and p.v twice at
    989 TFLOP/s dense bf16 / f16; the build prints the Hopper kernel's
    registers, spills and shared memory, and fails on a spill) times
    kernel (for
@@ -162,13 +164,18 @@ neither ``jax`` nor ``repro``.  In order it:
     weights as the loop on the CPU, TF32 off, the model in float64: within
     phase 7's tolerance (the float32 comparisons printed beside it);
 10f. (phases 10f-10i train smollm-360m, mamba2-780m, gemma3-4b,
-    recurrentgemma-2b, internvl2-1b and musicgen-large) the LM
+    recurrentgemma-2b, internvl2-1b and musicgen-large, and in bfloat16
+    qwen3-14b, command-r-35b and gemma3-4b) the LM
     kernels' autograd on the card (rmsnorm, flash GQA causal d 64,
     ssd chunk 256; small shapes and the training path's; flash at d 256
     with a window that masks keys, at gemma3's local (window 1024) and
     global layers at batch 4 and recurrentgemma's MQA with window 2048,
     internvl2's 14 heads over 2 and musicgen's MHA at d 64, rmsnorm over
-    gemma3's qk-norm rows at batch 4): gradients
+    gemma3's qk-norm rows at batch 4; in bfloat16 flash at qwen3's and
+    command-r's training shapes (the Hopper route) and gemma3's local and
+    global layers (d 256, the mma route), rmsnorm at d 5120 and over
+    qwen3's qk-norm rows; a 16-bit output or gradient one ulp of it
+    wider; each flash case on the route ``flash_route`` gives): gradients
     through the Function (kernel forward; rmsnorm's backward kernel, the
     plain vjp for flash and ssd) against all-plain autograd, forward within phase 4b's tolerances and
     gradients within them of the largest gradient; ``torch.func.vmap``
@@ -180,16 +187,21 @@ neither ``jax`` nor ``repro``.  In order it:
     gradient; for rmsnorm ``vmap`` of ``grad`` (scale shared and per
     replica: one backward launch for both replicas) and remat; every
     route's launches of the kernel and of rmsnorm's backward kernel exact;
-    at the training shapes the device time of the Function's backward;
+    at the training shapes the device time of the Function's backward
+    and the memory it takes;
 10g. trains through ``repro_torch.launch.train.train`` at full width
     (seq 1024, the default cut, adamw lr 3e-4, clip 1.0, remat, 4
-    clients): smollm-360m and mamba2-780m at full depth and batch 8, 3
-    steps each, smollm with ``compress`` 2 steps; internvl2-1b (256 patch
-    embeddings before 768 tokens) at full depth, musicgen-large at 36 of
-    its 48 layers, recurrentgemma-2b at one period (R, R, A) without its
-    tail, all at batch 8, and gemma3-4b at one period (5 local + 1 global)
-    without its tail at batch 4, 2 steps each (depth and batch cut as one
-    card forces, printed on each line); the launch counters zeroed just
+    clients, the donated step): smollm-360m and mamba2-780m at full depth
+    and batch 8, 3 steps each, smollm with ``compress`` 2 steps;
+    internvl2-1b (256 patch embeddings before 768 tokens) and
+    musicgen-large at full depth, recurrentgemma-2b at one period (R, R,
+    A) and its tail, all at batch 8, and gemma3-4b at one period (5 local
+    + 1 global) without its tail at batch 4; in bfloat16 qwen3-14b at 13
+    of 40 layers at batch 8 (also 2 layers under ``compress``, 1 step),
+    command-r-35b at 3 of 40 at batch 4 and gemma3-4b whole at batch 4;
+    2 steps each (depth and batch cut as one card forces, printed on each
+    line; parameters in their dtype, moments float32; flash's launches
+    on the route ``flash_route`` gives); the launch counters zeroed just
     before and read just after each: finite losses and grad norms, the
     launches the model implies per step (remat runs each period's forward
     twice; rmsnorm's backward kernel once a norm, qk-norm's rows included:
@@ -199,16 +211,22 @@ neither ``jax`` nor ``repro``.  In order it:
     ``norm1``'s scale and, under qk-norm, of the ``q_norm`` / ``k_norm``
     scales (leaves whose gradient comes only through that layer's flash /
     SSD / recurrence and rmsnorm backward); prints step 0's and the later
-    steps' s/step and peak memory;
+    steps' s/step and peak memory; then one donated step against one
+    functional step from the same state at qwen3-14b's width (1 layer,
+    batch 4), bit for bit, the donated one in its own storage and below
+    the functional one's peak;
 10h. one sgd train step of each trained arch's reduced config (smollm,
     mamba2, internvl2, musicgen at three layers; gemma3 and recurrentgemma
     at their period and tail; vision and audio batches) on the card and on
     the CPU from the same weights and batch, remat on with smashed data
     dense and int8 and remat off dense: updates within phase 7's 1 % of
     the largest update, losses within 1e-4, and the card's launches exact
-    (remat off runs each period's kernels once);
+    (remat off runs each period's kernels once); the bfloat16 archs
+    (qwen3-14b, command-r-35b, three layers) take one adamw step, each
+    leaf's float32 first moment within 10 % of the CPU's in norm and the
+    losses within 1e-3;
 10i. ``api.run`` of the reduced text LMs (smollm, mamba2, gemma3,
-    recurrentgemma) on ``single_rsu`` (4 vehicles, the paper's spec, one
+    recurrentgemma, and qwen3-14b in bfloat16) on ``single_rsu`` (4 vehicles, the paper's spec, one
     round): ``asfl`` over ``topk_int8`` under ``vmap`` and ``unroll`` from
     one seed (the same cuts), and ``fl`` under ``vmap`` (the kernels
     inside ``vmap`` of ``grad``): finite loss, accuracy in [0, 1], wire
@@ -416,12 +434,14 @@ HOPPER_MAIN = "qwen3_prefill_bf16"
 SERVE_ARCHS = ("smollm-360m", "mamba2-780m", "gemma3-4b",
                "recurrentgemma-2b", "internvl2-1b", "musicgen-large",
                "deepseek-v2-lite-16b", "qwen3-14b", "command-r-35b")
-# phases 10f-10i train the float32 archs without MLA or MoE: smollm and
-# mamba2 at full depth; of the families, those whose adamw states take a
-# card at full depth (gemma3-4b's alone ~73 GB in float32) at the depth of
-# TRAIN_RUNS (phase 10g); the bfloat16 archs and deepseek are served only
+# phases 10f-10i train the archs without MLA or MoE: the float32 ones
+# (smollm, mamba2, internvl2 and musicgen at full depth; recurrentgemma
+# and gemma3 at the depth of TRAIN_RUNS, phase 10g) and, in bfloat16,
+# qwen3-14b and command-r-35b at the depth one card holds, and gemma3-4b
+# at full depth; deepseek and dbrx are served only
 TRAIN_ARCHS = ("smollm-360m", "mamba2-780m", "gemma3-4b",
                "recurrentgemma-2b", "internvl2-1b", "musicgen-large")
+BF16_TRAIN_ARCHS = ("qwen3-14b", "command-r-35b")
 # phase 10's and 10h's reduced configs grown to three periods (one layer a
 # period); the families keep their reduced depth (one pattern and the tail)
 THREE_PERIOD_ARCHS = ("smollm-360m", "mamba2-780m")
@@ -434,7 +454,8 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = 8, 1024, 32
 # and the float32 edges (windows, MQA, ragged s, masked rows, one query),
 # the d-128 edges (the Hopper route's), and the bfloat16 archs' prefills at
 # d 128: qwen3-14b's 40 heads over 8, command-r-35b's 64 over 8.  A timed
-# row is timed again on the mma route (its label + "_mma"), in the same call.
+# row is also checked on the mma route (its label + "_mma"), untimed: PR 28
+# recorded both routes' times (PERF.md section 6, rows 6h-6j).
 FLASH16_CASES = (
     ("smollm_prefill", (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 15, 5, 64,
                         True, 0), ()),
@@ -1526,11 +1547,16 @@ RMS_SHAPES = (
     ("deepseek_kv_norm_d512", (SERVE_BATCH, SERVE_PROMPT, 512)),
     ("gemma3_qk_norm_d256", (SERVE_BATCH * SERVE_PROMPT * 8, 256)),
     ("gemma3_decode_k_norm_d256", (SERVE_BATCH * 4, 256)),
+    ("qwen3_d5120", (SERVE_BATCH, SERVE_PROMPT, 5120)),
+    ("command_r_d8192", (SERVE_BATCH, SERVE_PROMPT, 8192)),
+    ("qwen3_qk_norm_d128", (SERVE_BATCH * SERVE_PROMPT * 40, 128)),
     ("tiny_d6", (3, 6)),
     ("wide_d9000", (3, 9000)))
 # the backward at the training path's widths (batch 8, seq 1024: smollm,
-# mamba2 and its gated norm), over gemma3's qk-norm rows, and at the
-# families' widths (gemma3 / recurrentgemma, internvl2, musicgen)
+# mamba2 and its gated norm), over gemma3's qk-norm rows, at the
+# families' widths (gemma3 / recurrentgemma, internvl2, musicgen) and at
+# the bfloat16 archs' (qwen3's d 5120 and qk-norm rows over head_dim 128,
+# command-r's d 8192)
 RMS_BWD_SHAPES = (
     ("gemma3_qk_norm_d256", (SERVE_BATCH * SERVE_PROMPT * 8, 256)),
     ("smollm_train_d960", (SERVE_BATCH, SERVE_PROMPT, 960)),
@@ -1538,7 +1564,10 @@ RMS_BWD_SHAPES = (
     ("mamba2_gated_d3072", (SERVE_BATCH, SERVE_PROMPT, 3072)),
     ("gemma3_train_d2560", (SERVE_BATCH, SERVE_PROMPT, 2560)),
     ("internvl2_train_d896", (SERVE_BATCH, SERVE_PROMPT, 896)),
-    ("musicgen_train_d2048", (SERVE_BATCH, SERVE_PROMPT, 2048)))
+    ("musicgen_train_d2048", (SERVE_BATCH, SERVE_PROMPT, 2048)),
+    ("qwen3_train_d5120", (SERVE_BATCH, SERVE_PROMPT, 5120)),
+    ("command_r_train_d8192", (SERVE_BATCH, SERVE_PROMPT, 8192)),
+    ("qwen3_qk_norm_d128", (SERVE_BATCH * SERVE_PROMPT * 40, 128)))
 # x's dtype and the scale's; a label's suffix is the key ("f32": none).
 # The timed ones: float32, and bfloat16 with a bfloat16 scale (the same
 # function as F.rms_norm's fused kernel on those inputs)
@@ -1548,6 +1577,12 @@ RMS_DTYPES = {"f32": ("float32", "float32"),
               "f16": ("float16", "float16"),
               "f16_f32scale": ("float16", "float32")}
 RMS_TIMED = ("f32", "bf16")
+# the bfloat16 archs' widths (qwen3's d 5120 and qk-norm rows over
+# head_dim 128, command-r's d 8192), forward and backward: checked in
+# every dtype above (the backward in RMS_TIMED's), timed in bfloat16 only,
+# the dtype they train and serve in
+RMS_BF16_WIDTHS = ("qwen3_d5120", "command_r_d8192", "qwen3_qk_norm_d128",
+                   "qwen3_train_d5120", "command_r_train_d8192")
 
 
 def _dtype(name):
@@ -1678,30 +1713,32 @@ def _lm_cases():
     from repro_torch.kernels import rmsnorm as RN
     from repro_torch.kernels import ssd as SSD
     cases = []
+    # one draw of a shape's inputs serves its every dtype (cast once each)
     for label, shape in RMS_SHAPES:
+        x32, g32 = _rms_case(shape, len(cases))
         for dt, (x_dt, s_dt) in RMS_DTYPES.items():
-            x, g = _rms_case(shape, len(cases))
-            x, g = x.to(_dtype(x_dt)), g.to(_dtype(s_dt))
+            x, g = x32.to(_dtype(x_dt)), g32.to(_dtype(s_dt))
             n, d = math.prod(shape), shape[-1]
             es, gs = x.element_size(), g.element_size()
             cases.append((
                 "rmsnorm", label + ("" if dt == "f32" else f"_{dt}"),
-                dt in RMS_TIMED,
+                dt == "bf16" if label in RMS_BF16_WIDTHS else dt in RMS_TIMED,
                 lambda x=x, g=g: RN.rmsnorm(x, g),
                 lambda x=x, g=g: RN.rmsnorm_plain(x, g),
                 lambda x=x, g=g, d=d: F.rms_norm(x, (d,), g, 1e-6),
                 es * 2 * n + gs * d, 3 * n, _rms_close, F32_FLOPS_PER_S))
     for label, shape in RMS_BWD_SHAPES:
+        x32, g32 = _rms_case(shape, len(cases))
+        dy32 = _randn(shape, len(cases) + 2)
         for dt in RMS_TIMED:
             x_dt, s_dt = RMS_DTYPES[dt]
-            x, g = _rms_case(shape, len(cases))
-            x, g = x.to(_dtype(x_dt)), g.to(_dtype(s_dt))
-            dy = _randn(shape, len(cases) + 2).to(x.dtype)
+            x, g = x32.to(_dtype(x_dt)), g32.to(_dtype(s_dt))
+            dy = dy32.to(x.dtype)
             n, d = math.prod(shape), shape[-1]
             es, gs = x.element_size(), g.element_size()
             cases.append((
                 "rmsnorm_backward", label + ("" if dt == "f32" else f"_{dt}"),
-                True,
+                dt == "bf16" or label not in RMS_BF16_WIDTHS,
                 lambda x=x, g=g, dy=dy: RN.rmsnorm_backward(x, g, dy),
                 lambda x=x, g=g, dy=dy: RN.rmsnorm_backward_plain(x, g, dy),
                 _rms_norm_backward_library(x, g, dy),
@@ -1742,12 +1779,14 @@ def _lm_cases():
             4 * (2 * q.numel() + k.numel() + v.numel()),
             4 * d * b * h * _visible_pairs(sq, sk, causal, window),
             _lm_close(name="flash_attention"), F32_FLOPS_PER_S))
-    # the 16-bit kernel, bfloat16 and float16, at FLASH16_CASES, the timed
-    # rows on both routes, and the split case (d 128: the Hopper route),
-    # where a p.v without p's low half would fall outside the tolerance
-    # (held so here).  The function's operations: q.k^T and p.v, 4 d per
-    # visible pair and head, at the bf16 / f16 rate (bound_split_ms counts
-    # p.v twice, as both routes run it)
+    # the 16-bit kernel, bfloat16 and float16, at FLASH16_CASES (one draw
+    # of a case's inputs for both), the timed rows also checked on the mma
+    # route, and the split case (d 128: the Hopper route), where a p.v
+    # without p's low half would fall outside the tolerance (held so
+    # here).  The function's operations: q.k^T and p.v, 4 d per visible
+    # pair and head, at the bf16 / f16 rate (bound_split_ms counts p.v
+    # twice, as both routes run it)
+    drawn = {}
     for dt in ("bf16", "f16"):
         q, k, v = flash_split_case(_dtype(RMS_DTYPES[dt][0]))
         if flash16_within(flash_hi_only(q, k, v),
@@ -1766,11 +1805,13 @@ def _lm_cases():
             BF16_FLOPS_PER_S))
         for label, (b, sq, sk, h, kv, d, causal, window), timed_dts in \
                 FLASH16_CASES:
-            q, k, v = (t.to(_dtype(RMS_DTYPES[dt][0])) for t in _flash_case(
-                b, sq, sk, h, kv, d, len(cases),
-                4.0 if label == "qk_x4" else 1.0))
-            timed = dt in timed_dts
-            for route in (None, "mma") if timed else (None,):
+            if label not in drawn:
+                drawn[label] = _flash_case(b, sq, sk, h, kv, d, len(cases),
+                                           4.0 if label == "qk_x4" else 1.0)
+            q, k, v = (t.to(_dtype(RMS_DTYPES[dt][0]))
+                       for t in drawn[label])
+            for route in (None, "mma") if dt in timed_dts else (None,):
+                timed = dt in timed_dts and route is None
                 if route is None:
                     run_k = (lambda q=q, k=k, v=v, c=causal, w=window:
                              FA.flash_attention(q, k, v, causal=c, window=w))
@@ -1784,8 +1825,7 @@ def _lm_cases():
                     run_k,
                     lambda q=q, k=k, v=v, c=causal, w=window:
                         FA.attention_plain(q, k, v, causal=c, window=w),
-                    (_sdpa_library(q, k, v, causal, window)
-                     if timed and route is None else None),
+                    _sdpa_library(q, k, v, causal, window) if timed else None,
                     2 * (2 * q.numel() + k.numel() + v.numel()),
                     4 * d * b * h * _visible_pairs(sq, sk, causal, window),
                     _flash16_close(run_k, route or FA.flash_route(q, k, v)),
@@ -2423,35 +2463,45 @@ def reduced_cpu_vs_card():
 
 # ---- the LM training path (phases 10f-10i)
 TRAIN_BATCH, TRAIN_SEQ = 8, 1024
-# (arch, compress, steps, batch, cut): adamw lr 3e-4, clip 1.0, remat on,
-# 4 clients, the default cut (clamped to the stack's periods), seq 1024;
-# the config at full width, its depth cut where one card forces it (the
-# cut's config changes; PERF.md section 4): one step keeps the old and new
-# parameters and moments, the gradients and the updates alive, ~7.5x the
-# float32 parameter bytes, plus ~1.3 logits tensors.  musicgen-large at 36
-# of 48 layers; recurrentgemma-2b one period (R, R, A) without its tail
-# (R, R: with it the step's 7.8 GiB logits-sized buffer found no free block
-# beside 51 GiB allocated and 21 GiB cached); gemma3-4b one period (5 local
-# + 1 global) without its tail of 4 local layers, at batch 4 (its logits at
-# batch 8 take 8.6 GB a tensor).  One period holds every layer kind; the
-# cut then clamps to 1, so the RSU holds the head alone
+# (arch, compress, steps, batch, changes): adamw lr 3e-4, clip 1.0, remat
+# on, 4 clients, the default cut (clamped to the stack's periods), seq
+# 1024, the donated step (the optimizer in place, leaf by leaf: 16 B a
+# float32 parameter, 12 B a bfloat16 one, with its gradient), the config
+# at full width in its param_dtype.  Depth is cut where one card forces
+# it (PERF.md section 4): recurrentgemma-2b one period (R, R, A) and its
+# tail (R, R); gemma3-4b in float32 one period (5 local + 1 global) without
+# its tail at batch 4 (the cut of the functional step's runs, kept to
+# compare the peaks); in bfloat16 qwen3-14b at 13 of 40 layers at batch 8
+# (77.9 GB; 14 ran out of memory) and command-r-35b at 3 of 40 at batch 4
+# (78.5 GB; 4 layers at batch 4 and 1 at batch 8 ran out), beside their
+# embedding and head of 1.57B / 4.19B parameters, gemma3-4b whole at batch
+# 4; qwen3 also under int8 smashed data (the bf16 codec), one step.  One
+# period holds every layer kind; the cut then clamps to 1, so the RSU
+# holds the head alone
 TRAIN_RUNS = (("smollm-360m", False, 3, TRAIN_BATCH, {}),
               ("mamba2-780m", False, 3, TRAIN_BATCH, {}),
               ("smollm-360m", True, 2, TRAIN_BATCH, {}),
               ("internvl2-1b", False, 2, TRAIN_BATCH, {}),
-              ("musicgen-large", False, 2, TRAIN_BATCH, {"n_layers": 36}),
-              ("recurrentgemma-2b", False, 2, TRAIN_BATCH,
-               {"n_layers": 3, "tail": ()}),
-              ("gemma3-4b", False, 2, 4, {"n_layers": 6, "tail": ()}))
+              ("musicgen-large", False, 2, TRAIN_BATCH, {}),
+              ("recurrentgemma-2b", False, 2, TRAIN_BATCH, {"n_layers": 5}),
+              ("gemma3-4b", False, 2, 4, {"n_layers": 6, "tail": ()}),
+              ("qwen3-14b", False, 2, TRAIN_BATCH, {"n_layers": 13}),
+              ("qwen3-14b", True, 1, TRAIN_BATCH, {"n_layers": 2}),
+              ("command-r-35b", False, 2, 4, {"n_layers": 3}),
+              ("gemma3-4b", False, 2, 4, {"param_dtype": "bfloat16"}))
+# phase 10g's donation check: (arch, changes, batch) at full width
+DONATION_RUN = ("qwen3-14b", {"n_layers": 1}, 4)
 # phase 10f, Function vs all-plain autograd on the card: rmsnorm's kernel
 # forward and backward, flash's and ssd's kernel forward and the plain
 # version's vjp.  The loss sum(w * y) gives the backward a cotangent w
 # that does not depend on the forward, so the gradients differ only where
 # the two backward passes reduce in another order: held at phase 4b's
 # forward tolerances, relative to the largest gradient.  The forward
-# outputs are held at LM_TOL as in phase 4b.  Every route's launches of
-# the kernel and of rmsnorm's backward kernel are counted exactly: a CUDA
-# tensor's rmsnorm gradient never reaches the plain vjp.
+# outputs are held at LM_TOL as in phase 4b.  A 16-bit output or gradient
+# gets one ulp of its working type more (both sides round float32 math
+# once, :func:`_lm_within`).  Every route's launches of the kernel and of
+# rmsnorm's backward kernel are counted exactly: a CUDA tensor's rmsnorm
+# gradient never reaches the plain vjp.
 
 
 def _autograd_cases():
@@ -2510,7 +2560,46 @@ def _autograd_cases():
     x, g = _rms_case((4, TRAIN_SEQ, 8, 256), 40 + len(cases))
     cases.append(("rmsnorm", "gemma3_qk_rows_b4", RN.rmsnorm,
                   RN.rmsnorm_plain, (x, g)))
+    # the bfloat16 train path: flash's Function at qwen3-14b's and
+    # command-r-35b's training shapes (its forward on the Hopper route) and
+    # at gemma3-4b's local and global layers in bfloat16 (d 256: the mma
+    # route), rmsnorm at qwen3's width and over its qk-norm rows (head_dim
+    # 128), scale in bf16
+    for label, (b, s, h, kv, d, window) in (
+            ("qwen3_train_bf16", (TRAIN_BATCH, TRAIN_SEQ, 40, 8, 128, 0)),
+            ("command_r_train_bf16",
+             (TRAIN_BATCH, TRAIN_SEQ, 64, 8, 128, 0)),
+            ("gemma3_local_train_bf16", (4, TRAIN_SEQ, 8, 4, 256, 1024)),
+            ("gemma3_global_train_bf16", (4, TRAIN_SEQ, 8, 4, 256, 0))):
+        q, k, v = (t.to(torch.bfloat16) for t in _flash_case(
+            b, s, s, h, kv, d, 40 + len(cases)))
+        cases.append(("flash_attention", label,
+                      lambda q, k, v, w=window: FA.flash_attention(
+                          q, k, v, window=w),
+                      lambda q, k, v, w=window: FA.attention_plain(
+                          q, k, v, window=w),
+                      (q, k, v)))
+    for label, shape in (
+            ("qwen3_train_d5120_bf16", (TRAIN_BATCH, TRAIN_SEQ, 5120)),
+            ("qwen3_qk_rows_bf16", (TRAIN_BATCH * TRAIN_SEQ * 40, 128))):
+        x, g = (t.to(torch.bfloat16) for t in _rms_case(shape,
+                                                        40 + len(cases)))
+        cases.append(("rmsnorm", label, RN.rmsnorm, RN.rmsnorm_plain,
+                      (x, g)))
     return cases
+
+
+def _lm_within(a, b, tol, big=None):
+    """``a`` within ``tol + tol * |b|`` of ``b`` or, given ``big`` (a
+    gradient's largest value), within ``tol * max(big, 1)``; a 16-bit
+    ``a`` one ulp of ``b`` more."""
+    import torch
+    err = (a.float() - b.float()).abs()
+    bound = (tol * max(big, 1.0) if big is not None
+             else tol + tol * b.float().abs())
+    if a.dtype in (torch.bfloat16, torch.float16):
+        bound = bound + _ulp(b)
+    return bool((err <= bound).all())
 
 
 class _Grew:
@@ -2569,17 +2658,17 @@ def _vjp_of_vmap(fn, vin, dims, tol, launches):
         out, vjp = torch.func.vjp(
             lambda *d: torch.func.vmap(fn, in_dims=tuple(dims))(
                 *with_diff(vin, d)), *[vin[i] for i in diff])
-        g = _randn(tuple(out.shape), 91)
+        g = _randn(tuple(out.shape), 91).to(out.dtype)
         got = vjp(g)
-    err, big = 0.0, 0.0
+    pairs = []
     for r in range(out.shape[0]):
         sl = [a if d is None else a.select(d, r) for a, d in zip(vin, dims)]
         _, vjp1 = torch.func.vjp(lambda *d: fn(*with_diff(sl, d)),
                                  *[sl[i] for i in diff])
-        for a, b in zip((t[r] for t in got), vjp1(g[r])):
-            err = max(err, float((a - b).abs().max()))
-            big = max(big, float(b.abs().max()))
-    if not (err <= tol * max(big, 1.0)
+        pairs += zip((t[r] for t in got), vjp1(g[r]))
+    err = max(float((a.float() - b.float()).abs().max()) for a, b in pairs)
+    big = max(float(b.float().abs().max()) for _, b in pairs)
+    if not (all(_lm_within(a, b, tol, big) for a, b in pairs)
             and all(bool(torch.isfinite(t).all()) for t in got)):
         raise AssertionError(f"vjp of vmap differs from the per-replica "
                              f"vjps by {err:g} (largest {big:g})")
@@ -2623,9 +2712,9 @@ def _vmap_checks(name, fn, args, tol):
         with _Grew(name, "vmap loop", (2, 0)):
             got = torch.func.vmap(fn)(*vin)
         want = torch.stack([fn(*[v[i] for v in vin]) for i in range(2)])
-        err = float((got - want).abs().max())
+        err = float((got.float() - want.float()).abs().max())
         out["loop"] = err
-        if not bool(((got - want).abs() <= tol + tol * want.abs()).all()):
+        if not _lm_within(got, want, tol):
             raise AssertionError(f"{name}: vmap over a parameter differs "
                                  f"from the per-slice calls by {err:g}")
         out["vjp_loop"] = _vjp_of_vmap(fn, vin, [0] * len(vin), tol, _Grew(
@@ -2654,24 +2743,26 @@ def _rms_func_routes(args, tol):
                                 2)):
         with _Grew("rmsnorm", f"vmap of grad {rule}", (fwd, 1)):
             got = torch.func.vmap(grad, in_dims=dims)(xs, s)
-        err, big = 0.0, 0.0
-        for r in range(2):
-            for a, b in zip((t[r] for t in got),
-                            grad(xs[r], s if dims[1] is None else s[r])):
-                err = max(err, float((a - b).abs().max()))
-                big = max(big, float(b.abs().max()))
-        if err > tol * max(big, 1.0):
+        pairs = [(a, b) for r in range(2) for a, b in zip(
+            (t[r] for t in got),
+            grad(xs[r], s if dims[1] is None else s[r]))]
+        err = max(float((a.float() - b.float()).abs().max())
+                  for a, b in pairs)
+        big = max(float(b.float().abs().max()) for _, b in pairs)
+        if not all(_lm_within(a, b, tol, big) for a, b in pairs):
             raise AssertionError(f"rmsnorm vmap of grad ({rule}) differs "
                                  f"from the per-replica grads by {err:g}")
         out[f"vmap_grad_{rule}"] = err
     req = [a.detach().clone().requires_grad_() for a in args]
+    w = 2 * RN.rmsnorm_plain(*args)
     with _Grew("rmsnorm", "remat", (2, 1)):
         y = checkpoint(RN.rmsnorm, *req, use_reentrant=False)
-        got = torch.autograd.grad(y.square().sum(), req)
-    want = _grads(RN.rmsnorm, args, 2 * RN.rmsnorm_plain(*args))[1]
-    out["remat"] = max(float((a - b).abs().max()) for a, b in zip(got, want))
-    big = max(float(b.abs().max()) for b in want)
-    if out["remat"] > tol * max(big, 1.0):
+        got = torch.autograd.grad(y, req, w)
+    want = _grads(RN.rmsnorm, args, w)[1]
+    out["remat"] = max(float((a.float() - b.float()).abs().max())
+                       for a, b in zip(got, want))
+    big = max(float(b.float().abs().max()) for b in want)
+    if not all(_lm_within(a, b, tol, big) for a, b in zip(got, want)):
         raise AssertionError(f"rmsnorm under remat differs by "
                              f"{out['remat']:g}")
     return out
@@ -2682,55 +2773,78 @@ def lm_autograd_on_card():
     kernel and case the errors and, at the training shapes, the device
     time of the Function's backward (rmsnorm's backward kernel; the plain
     version's vjp, which recomputes the plain forward, for flash and
-    ssd)."""
+    ssd) and the memory it takes beyond what was allocated before it (its
+    gradients included).  A flash case must take the route
+    ``flash_route`` gives its q / k / v: a bfloat16 one at head_dim 128
+    the Hopper route, gemma3's bfloat16 d 256 and every float32 case the
+    mma route."""
     import torch
+    from repro_torch.kernels import flash_attention as FA
     rows = []
     for name, label, fn, plain, args in _autograd_cases():
         tol = LM_TOL[name]
         w = _randn(tuple(fn(*args).shape), 90)
+        before = dict(FA.ROUTE_LAUNCHES)
         with _Grew(name, f"{label} grad", (1, int(name == "rmsnorm"))):
             y_k, g_k = _grads(fn, args, w)
+        routes = [r for r, n in FA.ROUTE_LAUNCHES.items() if n != before[r]]
         y_p, g_p = _grads(plain, args, w)
-        fwd_err = float((y_k - y_p).abs().max())
-        big = max(float(g.abs().max()) for g in g_p)
-        grad_err = max(float((a - b).abs().max()) for a, b in zip(g_k, g_p))
-        fwd_ok = bool(((y_k - y_p).abs() <= tol + tol * y_p.abs()).all())
-        ok = (fwd_ok and grad_err <= tol * max(big, 1.0)
+        fwd_err = float((y_k.float() - y_p.float()).abs().max())
+        big = max(float(g.float().abs().max()) for g in g_p)
+        grad_err = max(float((a.float() - b.float()).abs().max())
+                       for a, b in zip(g_k, g_p))
+        fwd_ok = y_k.dtype == y_p.dtype and _lm_within(y_k, y_p, tol)
+        want_route = ([FA.flash_route(*args)]
+                      if name == "flash_attention" else [])
+        ok = (fwd_ok and routes == want_route
+              and all(_lm_within(a, b, tol, big) for a, b in zip(g_k, g_p))
               and all(bool(torch.isfinite(g).all()) for g in g_k))
-        row = {"kernel": name, "case": label,
+        row = {"kernel": name, "case": label, "dtype": str(args[0].dtype),
                "shape": list(args[0].shape), "fwd_err": fwd_err,
                "fwd_within_tol": fwd_ok, "grad_err": grad_err,
-               "max_grad": big, "tol": tol}
+               "max_grad": big, "tol": tol, "routes": routes}
         row.update(_vmap_checks(name, fn, args, tol))
         if name == "rmsnorm":
             row.update(_rms_func_routes(args, tol))
         if not label.startswith("small"):
             req = [a.detach().clone().requires_grad_() for a in args]
             out = fn(*req)
+            wo = w.to(out.dtype)
 
-            def bwd(out=out, req=req, w=w):
+            def bwd(out=out, req=req, w=wo):
                 return torch.autograd.grad(out, req, w, retain_graph=True)
 
             # flash / ssd: the plain vjp, ~8 / ~15 ms a call
             row["bwd_ms"] = _device_ms(bwd, 20 if name == "rmsnorm" else 3)
-            del out, req
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            grads = bwd()
+            torch.cuda.synchronize()
+            row["bwd_transient_gb"] = (torch.cuda.max_memory_allocated()
+                                       - base) / 1e9
+            del out, req, grads
         rows.append(row)
         extra = " ".join(f"{k}_err={row[k]:g}" for k in
                          ("loop", "vjp_loop", "vmap_grad_fold",
                           "vmap_grad_loop", "remat") if k in row)
-        print(f"autograd {name:16s} {label:20s} shape={row['shape']} "
+        print(f"autograd {name:16s} {label:20s} dtype={row['dtype']} "
+              f"shape={row['shape']} routes={routes} "
               f"fwd_err={fwd_err:g} fwd_within_tol={fwd_ok} "
               f"grad_err={grad_err:g} max_grad={big:g} "
               f"tol={tol:g} vmap_fold_err={row['fold']:g} "
               f"vjp_vmap_fold_err={row['vjp_fold']:g} {extra}"
-              + (f" bwd_ms={row['bwd_ms']:.6f}" if "bwd_ms" in row else "")
+              + (f" bwd_ms={row['bwd_ms']:.6f} bwd_transient_gb="
+                 f"{row['bwd_transient_gb']:.3f}" if "bwd_ms" in row
+                 else "")
               + " launches_exact=True"
               + f" ok={ok}", flush=True)
         if not ok:
             raise AssertionError(f"autograd {name} {label}: forward "
                                  f"{fwd_err:g} or gradient {grad_err:g} "
-                                 f"(largest {big:g}) outside {tol:g}, or "
-                                 f"a gradient not finite")
+                                 f"(largest {big:g}) outside {tol:g}, a "
+                                 f"gradient not finite, or routes "
+                                 f"{routes} (want {want_route})")
         torch.cuda.empty_cache()
     return rows
 
@@ -2756,32 +2870,48 @@ def _train_launches(cfg, compress, steps, remat=True):
 
 def train_path(arch, compress, steps, batch=TRAIN_BATCH, changes=None):
     """Phase 10g: ``launch.train.train`` at full width on the card (seq
-    1024, adamw lr 3e-4, clip 1.0, remat, 4 clients, the default cut) at
-    ``batch`` rows, the config's depth cut by ``changes`` (printed), the
-    launch counters zeroed just before and read just after."""
+    1024, adamw lr 3e-4, clip 1.0, remat, 4 clients, the default cut, the
+    donated step) at ``batch`` rows, in the config's ``param_dtype``
+    (``changes`` may set it), its depth cut by ``changes`` (printed), the
+    launch counters zeroed just before and read just after.  flash's
+    launches must all take the route ``flash_route`` gives the run's q /
+    k / v (bfloat16 at head_dim 128: the Hopper route); the parameters
+    stay in their dtype, the moments float32."""
     import dataclasses
 
     import torch
     from repro_torch import kernels
     from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.launch import train as TR
+    from repro_torch.tree import tree_leaves
     full = get_config(arch)
     cfg = dataclasses.replace(full, **(changes or {}))
     torch.cuda.empty_cache()
     kernels.reset_launches()
+    before = dict(FA.ROUTE_LAUNCHES)
     res = TR.train(cfg, steps=steps, batch=batch, seq=TRAIN_SEQ,
                    compress=compress, device="cuda")
     counts = kernels.launch_counts()
+    routes = {r: n - before[r] for r, n in FA.ROUTE_LAUNCHES.items()}
     want = dict.fromkeys(counts, 0)
     want.update(_train_launches(cfg, compress, steps))
+    flash_route = ("hopper" if cfg.param_dtype == "bfloat16"
+                   and cfg.head_dim_ == 128 else "mma")
     moments = res["state"]["opt"]["m"]
+    dtypes = sorted({str(t.dtype).replace("torch.", "")
+                     for t in tree_leaves(res["state"]["params"])})
+    moment_dtypes = sorted({str(t.dtype).replace("torch.", "")
+                            for t in tree_leaves(moments)})
     embed_moment = float(moments["embed"].abs().max())
     layer_moments = _layer_moments(moments)
-    cut = ("" if not changes else
+    depth = {k: v for k, v in (changes or {}).items()
+             if k in ("n_layers", "tail")}
+    cut = ("" if not depth else
            f"layers {cfg.n_layers} of {full.n_layers} (tail "
            f"{list(cfg.tail)} of {list(full.tail)})")
     row = {"arch": arch, "compress": compress, "steps": steps,
-           "batch": batch, "layers": cfg.n_layers,
+           "dtype": cfg.param_dtype, "batch": batch, "layers": cfg.n_layers,
            "full_layers": full.n_layers, "depth_cut": cut,
            "cut": res["cut"], "params": cfg.param_count(),
            "full_params": full.param_count(),
@@ -2792,16 +2922,22 @@ def train_path(arch, compress, steps, batch=TRAIN_BATCH, changes=None):
            "launches": counts,
            "launches_per_step": {k: v // steps for k, v in counts.items()
                                  if v},
+           "flash_routes": routes,
            "embed_first_moment_max": embed_moment,
            **{f"{k}_first_moment_min": v for k, v in layer_moments.items()}}
-    print(f"train {arch} compress={compress} cut={res['cut']} "
+    print(f"train {arch} dtype={cfg.param_dtype} compress={compress} "
+          f"cut={res['cut']} "
           f"batch={batch} seq={TRAIN_SEQ} steps={steps} "
           f"layers={cfg.n_layers}/{full.n_layers} "
           f"depth_cut={cut or 'none'} params={row['params']} "
           f"losses={row['losses']} grad_norms={row['grad_norms']} "
           f"step0_s={res['step_s'][0]:.6f} "
           f"later_s={res['step_s'][1:]} "
-          f"peak_mem_gb={row['peak_mem_gb']:.3f} launches={counts} "
+          f"peak_mem_gb={row['peak_mem_gb']:.3f} "
+          f"param_dtypes={dtypes} moment_dtypes={moment_dtypes} "
+          f"launches={counts} "
+          f"launches_per_step={row['launches_per_step']} "
+          f"flash_routes={routes} "
           f"embed_first_moment_max={embed_moment:g} "
           + " ".join(f"{k}_first_moment_min={v:g}"
                      for k, v in layer_moments.items()), flush=True)
@@ -2810,12 +2946,99 @@ def train_path(arch, compress, steps, batch=TRAIN_BATCH, changes=None):
     if counts != want:
         raise AssertionError(f"{arch} compress={compress}: launches "
                              f"{counts}, expected {want}")
+    if routes[flash_route] != counts["flash_attention"]:
+        raise AssertionError(f"{arch}: flash launches by route {routes}, "
+                             f"all expected on {flash_route!r}")
+    if dtypes != [cfg.param_dtype] or moment_dtypes != ["float32"]:
+        raise AssertionError(f"{arch}: parameters {dtypes}, moments "
+                             f"{moment_dtypes}")
     if not (embed_moment > 0.0
             and all(v > 0.0 for v in layer_moments.values())):
         raise AssertionError(f"{arch}: a leaf behind a kernel got no "
                              f"gradient (embedding {embed_moment:g}, "
                              f"layers {layer_moments})")
     del res, moments
+    return row
+
+
+def donation_check():
+    """Phase 10g's donation check: at DONATION_RUN (full width, seq 1024,
+    adamw, clip 1.0, remat; one donated warm-up step first so the moments
+    are not zero) one functional train step and one donated step from the
+    same state, with torch's deterministic algorithms where it has them:
+    every parameter, moment, count and metric equal bit for bit, the
+    donated step's state the storage it was given.  Prints both steps'
+    peaks (``max_memory_allocated`` over the step) and the state's
+    bytes."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import distributed as D
+    from repro_torch.launch import train as TR
+    from repro_torch.tree import tree_leaves
+    arch, changes, batch = DONATION_RUN
+    cfg = dataclasses.replace(get_config(arch), **changes)
+    dev = torch.device("cuda")
+    opts = D.DistOptions(cut=cfg.default_cut)
+    torch.cuda.empty_cache()
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        state = D.init_state(torch.Generator(device=dev).manual_seed(0),
+                             cfg, opts)
+        donated = D.make_train_step(cfg, opts)
+        functional = D.make_train_step(cfg, opts, donate=False)
+        batches = [TR.synth_batch(cfg, torch.Generator(device=dev)
+                                  .manual_seed(i), batch, TRAIN_SEQ, 4)
+                   for i in range(2)]
+        state, _ = donated(state, batches[0])
+        state_gb = sum(t.numel() * t.element_size()
+                       for t in tree_leaves(state)) / 1e9
+        peaks = {}
+
+        def step(fn, label):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            out = fn(state, batches[1])
+            torch.cuda.synchronize()
+            peaks[label] = torch.cuda.max_memory_allocated() / 1e9
+            return out
+
+        # the functional step's state waits on the host while the donated
+        # step runs (two states beside it would raise its peak)
+        want, m_want = step(functional, "functional")
+        want = [t.cpu() for t in tree_leaves(want)]
+        torch.cuda.empty_cache()
+        ptrs = [t.data_ptr() for t in tree_leaves(state["params"])]
+        got, m_got = step(donated, "donated")
+        same_storage = ptrs == [t.data_ptr()
+                                for t in tree_leaves(got["params"])]
+        leaves = tree_leaves(got)
+        equal = len(leaves) == len(want) and all(
+            a.dtype == b.dtype and torch.equal(a, b.to(a.device))
+            for a, b in zip(leaves, want)) and all(
+            torch.equal(m_got[k], m_want[k]) for k in m_want)
+    finally:
+        torch.use_deterministic_algorithms(deterministic)
+    row = {"arch": arch, "layers": cfg.n_layers, "batch": batch,
+           "dtype": cfg.param_dtype, "state_gb": state_gb,
+           "functional_peak_gb": peaks["functional"],
+           "donated_peak_gb": peaks["donated"], "bit_for_bit": equal,
+           "same_storage": same_storage, "loss": float(m_got["loss"])}
+    print(f"donation {arch} layers={cfg.n_layers} batch={batch} "
+          f"dtype={cfg.param_dtype} state_gb={state_gb:.3f} "
+          f"functional_peak_gb={peaks['functional']:.3f} "
+          f"donated_peak_gb={peaks['donated']:.3f} "
+          f"loss={row['loss']!r} bit_for_bit={equal} "
+          f"same_storage={same_storage}", flush=True)
+    del state, got, want, leaves
+    torch.cuda.empty_cache()
+    if not (equal and same_storage
+            and peaks["donated"] < peaks["functional"]):
+        raise AssertionError(f"donation: the donated step differs from "
+                             f"the functional one or did not lower the "
+                             f"peak: {row}")
     return row
 
 
@@ -2860,6 +3083,29 @@ def _train_smoke_config(arch):
     return cfg
 
 
+# phase 10h's bfloat16 archs: a bfloat16 parameter rounds away an update
+# below half its ulp, so their step is adamw and the gradient is held in
+# the float32 first moment ((1 - b1) g after one step), leaf by leaf in
+# norm relative to the CPU's; on the CPU these smokes' bfloat16 moments
+# differ from float32's (same bfloat16-valued weights) by at most 5.4 %
+# (gemma3-smoke in bfloat16 under int8: 2.5-5.4 %, qwen3 / command-r
+# 1.8-3.5 %), card and CPU by less (they round at the same places).  The
+# loss: on the card 1e-5 to 3.5e-4 from the CPU's
+BF16_MOMENT_RTOL = 0.1
+BF16_LOSS_TOL = 1e-3
+
+
+def _moment_rel_err(want, got):
+    """The largest, over the leaves, of ||got - want|| / ||want|| (a leaf
+    whose ``want`` is zero: 0 if ``got`` is zero too, else inf)."""
+    worst = 0.0
+    for a, b in zip(want, got, strict=True):
+        err, ref = float((b - a).norm()), float(a.norm())
+        worst = max(worst, err / ref if ref > 0 else
+                    (0.0 if err == 0 else math.inf))
+    return worst
+
+
 def train_cpu_vs_card():
     """Phase 10h: one sgd train step (lr 1e-2, clip 1.0) of each trained
     arch's reduced config (:func:`_train_smoke_config`), cut 1, on the
@@ -2869,7 +3115,13 @@ def train_cpu_vs_card():
     and as int8, and remat off with it dense.  The updates within
     STEP_RTOL of the largest update, the losses within 1e-4, and the
     card's launches those :func:`_train_launches` gives (remat off runs
-    each period's kernels once)."""
+    each period's kernels once).  The bfloat16 archs (BF16_TRAIN_ARCHS,
+    their int8 trip the bf16 codec) take an adamw step instead (lr 1e-2,
+    clip 1.0): each leaf's first moment within BF16_MOMENT_RTOL of the
+    CPU's in norm (:func:`_moment_rel_err`), the losses within
+    BF16_LOSS_TOL, the parameters bfloat16 and the moments float32.  Each
+    side steps its own copy of the weights (the step donates its
+    state)."""
     import torch
     from repro_torch import kernels
     from repro_torch.core import distributed as D
@@ -2877,20 +3129,22 @@ def train_cpu_vs_card():
     from repro_torch.models import transformer as T
     from repro_torch.tree import tree_leaves, tree_map
     worst = {}
-    for arch in TRAIN_ARCHS:
+    for arch in TRAIN_ARCHS + BF16_TRAIN_ARCHS:
         cfg = _train_smoke_config(arch)
         params = T.init_params(torch.Generator().manual_seed(0), cfg)
         batch = TR.synth_batch(cfg, torch.Generator().manual_seed(0), 4, 64,
                                2)
+        bf16 = cfg.param_dtype == "bfloat16"
         for compress, remat in ((False, True), (True, True),
                                 (False, False)):
-            opts = D.DistOptions(cut=1, optimizer="sgd",
+            opts = D.DistOptions(cut=1,
+                                 optimizer="adamw" if bf16 else "sgd",
                                  learning_rate=SGD_LR,
                                  compress_smashed=compress, remat=remat)
             outs = {}
             for where in ("cpu", "cuda"):
                 kernels.reset_launches()
-                p = tree_map(lambda a: a.to(where), params)
+                p = tree_map(lambda a: a.to(where, copy=True), params)
                 state = {"params": p,
                          "opt": D.make_optimizer(opts).init(p),
                          "step": torch.zeros((), dtype=torch.int32,
@@ -2898,28 +3152,42 @@ def train_cpu_vs_card():
                 new, m = D.make_train_step(cfg, opts)(
                     state, {k: v.to(where) for k, v in batch.items()})
                 outs[where] = ([t.cpu() for t in tree_leaves(
-                    new["params"])], float(m["loss"]))
+                    new["params"])], float(m["loss"]),
+                    [t.cpu() for t in tree_leaves(new["opt"].get("m", []))])
             counts = kernels.launch_counts()
             want = dict.fromkeys(counts, 0)
             want.update(_train_launches(cfg, compress, 1, remat))
-            (pa, la), (pb, lb) = outs["cpu"], outs["cuda"]
+            (pa, la, ma), (pb, lb, mb) = outs["cpu"], outs["cuda"]
             init = tree_leaves(params)
-            moved = max(float((a - a0).abs().max())
+            moved = max(float((a.float() - a0.float()).abs().max())
                         for a, a0 in zip(pa, init))
-            diff = max(float((a - b).abs().max()) for a, b in zip(pa, pb))
-            rel = diff / moved if moved > 0 else math.inf
+            diff = max(float((a.float() - b.float()).abs().max())
+                       for a, b in zip(pa, pb))
             key = f"{arch} compress={compress}" + ("" if remat
                                                     else " remat=False")
+            if bf16:
+                rel = _moment_rel_err(ma, mb)
+                close = (rel <= BF16_MOMENT_RTOL
+                         and abs(la - lb) <= BF16_LOSS_TOL
+                         and {t.dtype for t in pb} == {torch.bfloat16}
+                         and {t.dtype for t in mb} == {torch.float32}
+                         and all(bool(torch.isfinite(t).all())
+                                 for t in mb))
+                measure = "moment_rel"
+            else:
+                rel = diff / moved if moved > 0 else math.inf
+                close = rel <= STEP_RTOL and abs(la - lb) <= 1e-4
+                measure = "over_update"
             worst[key] = rel
             print(f"train_cpu_vs_card {cfg.name} layers={cfg.n_layers} "
-                  f"compress={compress} "
+                  f"dtype={cfg.param_dtype} compress={compress} "
                   f"remat={remat} loss_cpu={la!r} loss_card={lb!r} "
                   f"max_param_diff={diff:g} max_update={moved:g} "
-                  f"diff_over_update={rel:g} launches={counts}", flush=True)
-            if (rel > STEP_RTOL or abs(la - lb) > 1e-4
+                  f"diff_{measure}={rel:g} launches={counts}", flush=True)
+            if (not close
                     or not all(bool(torch.isfinite(t).all()) for t in pb)):
                 raise AssertionError(f"{key}: card and CPU disagree "
-                                     f"({rel:g} of the update, losses "
+                                     f"({measure} {rel:g}, losses "
                                      f"{la!r} / {lb!r})")
             if counts != want:
                 raise AssertionError(f"{key}: launches {counts}, expected "
@@ -2931,9 +3199,11 @@ def train_cpu_vs_card():
 # and audio frontends stay refused there, as in the reference), at their
 # reduced configs: smollm / mamba2 one layer, gemma3 its period and tail
 # (10 attention layers under qk-norm), recurrentgemma its period and tail
-# (one local attention among 4 RG-LRU layers)
+# (one local attention among 4 RG-LRU layers), and qwen3-14b's one layer
+# in bfloat16 (qk-norm; its units bfloat16, the FedAvg and the codec on
+# bfloat16 leaves and smashed data)
 LM_FED_ARCHS = ("smollm-360m", "mamba2-780m", "gemma3-4b",
-                "recurrentgemma-2b")
+                "recurrentgemma-2b", "qwen3-14b")
 LM_FED_RUNS = (("asfl", "vmap"), ("asfl", "unroll"), ("fl", "vmap"))
 
 
@@ -3707,6 +3977,15 @@ def _main_cut(cuts_per_round):
     return min(set(flat), key=lambda c: (-flat.count(c), c))
 
 
+def _run_label(run):
+    """A phase-10g run's name in the JSON line: the arch, "+compress"
+    under int8 smashed data, "+bf16" for a float32 arch trained in
+    bfloat16."""
+    return (run["arch"] + ("+compress" if run["compress"] else "")
+            + ("+bf16" if run["dtype"] == "bfloat16"
+               and run["arch"] not in BF16_TRAIN_ARCHS else ""))
+
+
 def kernel_report(checks, launches, main_cuts, mm_checks, mm_launches,
                   lm_checks, serving, training, par_launches,
                   plane_launches, city_launches):
@@ -3724,7 +4003,7 @@ def kernel_report(checks, launches, main_cuts, mm_checks, mm_launches,
     launches over its runs (per run under ``train_launches``)."""
     per_step = {}
     for run in training:
-        label = run["arch"] + ("+compress" if run["compress"] else "")
+        label = _run_label(run)
         for name, n in run["launches_per_step"].items():
             per_step.setdefault(name, {})[label] = n
     out = []
@@ -3813,18 +4092,20 @@ def kernel_report(checks, launches, main_cuts, mm_checks, mm_launches,
         "call_ms": row["call_ms"], "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"], "library_ms": row["library_ms"],
         "bound_split_ms": row["bound_split_ms"], "shape": row["shape"][0],
+        "train_launches_per_step": {
+            _run_label(t): t["flash_routes"]["hopper"] // t["steps"]
+            for t in training if t["flash_routes"]["hopper"]},
         "shapes": {label: {key: r[key] for key in LM_ROW_KEYS if key in r}
                    for label, r in lm_checks["flash_attention"].items()
                    if "ms" in r and label != HOPPER_MAIN
-                   and (r["route"] == "hopper" or label.endswith("_mma"))}})
+                   and r["route"] == "hopper"}})
     name = "rmsnorm_backward"
     row = lm_checks[name][LM_MAIN[name]]
     out.append({
         "name": name, "route": "cuda", "source": LM_SOURCE,
         "replaces": RMS_BWD_REPLACES,
         "launches": sum(t["launches"][name] for t in training),
-        "train_launches": {t["arch"] + ("+compress" if t["compress"]
-                                        else ""): t["launches"][name]
+        "train_launches": {_run_label(t): t["launches"][name]
                            for t in training},
         "max_abs_err": max(r["max_abs_err"]
                            for r in lm_checks[name].values()),
@@ -3839,6 +4120,17 @@ def kernel_report(checks, launches, main_cuts, mm_checks, mm_launches,
     return {"kernels": out}
 
 
+_LAP = [time.perf_counter()]
+
+
+def _lap(name):
+    """Print the wall seconds since the last lap: a phase's share of the
+    run's time limit."""
+    now = time.perf_counter()
+    print(f"phase_s {name} {now - _LAP[0]:.1f}", flush=True)
+    _LAP[0] = now
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3849,15 +4141,19 @@ def main() -> int:
     set_float32_precision()
     card = card_line()
     build_kernels()
+    _lap("build")
     checks = check_kernels()
     launch_floor_ms()
     mm_checks = check_matmul_kernel()
+    _lap("codec")
     lm_checks = check_lm_kernels()
+    _lap("lm_kernels")
     topk_launches, topk_cuts = drive_path(
         "topk_int8", 2, ("sparsify_quant_pack", "unpack_dequant"))
     int8_launches, int8_cuts = drive_path(
         "int8", 1, ("quantize_int8", "dequantize_int8"))
     cpu_vs_card()
+    _lap("asfl")
     serving = []
     for arch in SERVE_ARCHS:
         cfg, params, res, counts, timing = serve_path(arch, card)
@@ -3865,6 +4161,7 @@ def main() -> int:
                                                         res["prompt"])
         serving.append(timing)
         del params, res
+    _lap("serving")
     reduced_cpu_vs_card()
     print(json.dumps({"serving": serving}))
     # the multi-RSU phases run after serving, so every earlier path is
@@ -3875,6 +4172,7 @@ def main() -> int:
     urban, urban_timing = scenario_path("urban_grid", 2, "residence",
                                         "int8", set(range(9)))
     scenario_cpu_vs_card()
+    _lap("reduced_and_scenarios")
     print(json.dumps({"scenarios": [highway_timing, urban_timing]}))
     # the single-RSU schemes and schedules run last, so every earlier path
     # is measured after the same phases as before they existed
@@ -3884,14 +4182,21 @@ def main() -> int:
         raise AssertionError(f"asfl vmap / unroll from one seed chose "
                              f"other cuts: {vmap['cuts']} / {loop['cuts']}")
     vmap_cpu_vs_card()
+    _lap("schemes")
     print(json.dumps({"schemes": schemes}))
     # the LM training path runs after every earlier phase, so their
     # numbers stay comparable with the slices before it
     autograd = lm_autograd_on_card()
+    _lap("train_autograd")
     training = [train_path(*run) for run in TRAIN_RUNS]
+    _lap("train_runs")
+    donation = donation_check()
+    _lap("donation")
     train_worst = train_cpu_vs_card()
+    _lap("train_cpu_vs_card")
     lm_fed = [lm_fed_path(arch, *run) for arch in LM_FED_ARCHS
               for run in LM_FED_RUNS]
+    _lap("lm_fed")
     for arch in LM_FED_ARCHS:
         vmap_run, loop_run = (r for r in lm_fed if r["arch"] == arch
                               and r["scheme"] == "asfl")
@@ -3900,23 +4205,27 @@ def main() -> int:
                                  f"cuts: {vmap_run['cuts']} / "
                                  f"{loop_run['cuts']}")
     print(json.dumps({"training": {"autograd": autograd, "runs": training,
+                                   "donation": donation,
                                    "cpu_vs_card": train_worst,
                                    "federation": lm_fed}}))
     # the parallel schedule runs after every earlier phase, so their
     # numbers stay comparable with the slices before it
     parallel, parallel_trace_err, par_rows = parallel_phase(
         [highway_timing, urban_timing])
+    _lap("parallel")
     print(json.dumps({"parallel": parallel,
                       "trace_cpu_vs_card": parallel_trace_err}))
     # the fault and streaming planes run after every earlier phase, so
     # their numbers stay comparable with the slices before it
     planes, planes_trace_err = plane_phase([highway_timing, urban_timing],
                                            par_rows)
+    _lap("planes")
     print(json.dumps({"planes": planes,
                       "trace_cpu_vs_card": planes_trace_err}))
     # the city and slot paging run after every earlier phase, so their
     # numbers stay comparable with the slices before it
     city, paged_err, small_err = city_phase()
+    _lap("city")
     print(json.dumps({"city": city, "paged_vs_unpaged": paged_err,
                       "reduced_city_cpu_vs_card": small_err}))
     city_launches = {}

@@ -19,12 +19,14 @@
    (batch 8, prompt 1024, the default cut) after a warm-up at prompt 64,
    as ``chip_smoke.py`` serves: a profiled prefill (the first run is the
    process's first at full size), then 8 profiled decode steps.
-4. One sync-SFL train step of each arch that ``chip_smoke.py`` phase 10g
-   trains, at full width, at that phase's depth and batch (smollm-360m,
-   mamba2-780m and internvl2-1b whole at batch 8, musicgen-large at 36
-   layers, recurrentgemma-2b and gemma3-4b at one period, gemma3 at batch
-   4; seq 1024, the default cut, adamw, clip 1.0, remat)
-   after one warm-up step.
+4. One sync-SFL train step of each run of ``chip_smoke.py`` phase 10g
+   (``TRAIN_RUNS`` without int8 smashed data), at full width, at that
+   phase's depth, batch and dtype (smollm-360m, mamba2-780m, internvl2-1b
+   and musicgen-large whole at batch 8, recurrentgemma-2b one period and
+   its tail, gemma3-4b one period at batch 4; in bfloat16 qwen3-14b and
+   command-r-35b at their cut depth, gemma3-4b whole at batch 4; seq
+   1024, the default cut, adamw, clip 1.0, remat, the donated step) after
+   one warm-up step.
 5. With ``city``: one round of ``chip_smoke.py`` phase 10l's city cell
    (4096 vehicles, 256 RSUs, mlp9, ``none``, parallel ragged, mobility
    churn) after one warm-up round, unpaged and at ``page_slots=128``,
@@ -286,7 +288,9 @@ def serve_profile(arch, top: int = 10, batch: int = 8, prompt: int = 1024,
 def train_profile(arch, top: int = 20, batch: int = 8, seq: int = 1024,
                   changes=None):
     """One profiled train step of ``arch`` at full width, its config
-    changed by ``changes`` (a depth cut), after a warm-up step."""
+    changed by ``changes`` (a depth cut, a dtype), after a warm-up step;
+    the donated step, so each traced step updates the one state in
+    place."""
     import dataclasses
 
     import torch
@@ -302,13 +306,18 @@ def train_profile(arch, top: int = 20, batch: int = 8, seq: int = 1024,
     step = D.make_train_step(cfg, opts)
     batches = [synth_batch(cfg, torch.Generator(device=dev).manual_seed(i),
                            batch, seq, 4) for i in range(2)]
-    state, _ = step(state, batches[0])
-    # each traced run's new state is dropped at once: two full states
-    # alive would not fit beside the step at phase 10g's depths
-    _, r = _profiled(lambda: step(state, batches[1])[1], top)
-    res = {"arch": arch, "batch": batch, "seq": seq, "cut": opts.cut,
-           "layers": cfg.n_layers, "step": r}
-    print(f"train {arch} layers={cfg.n_layers} batch={batch} "
+    held = {"state": step(state, batches[0])[0]}
+    del state
+
+    def run():
+        held["state"], m = step(held["state"], batches[1])
+        return m
+
+    _, r = _profiled(run, top)
+    res = {"arch": arch, "dtype": cfg.param_dtype, "batch": batch,
+           "seq": seq, "cut": opts.cut, "layers": cfg.n_layers, "step": r}
+    print(f"train {arch} dtype={cfg.param_dtype} layers={cfg.n_layers} "
+          f"batch={batch} "
           f"wall_s={r['wall_s']:.6f} "
           f"device_busy_s={r['device_busy_s']:.6f} "
           f"busy_share={r['device_busy_share']:.4f} "
@@ -319,7 +328,7 @@ def train_profile(arch, top: int = 20, batch: int = 8, seq: int = 1024,
         print(f"train {arch} top count={row['count']:6d} "
               f"device_ms={row['device_ms']:.3f} {row['kernel']}",
               flush=True)
-    del state, batches
+    del held, batches
     torch.cuda.empty_cache()
     return res
 

@@ -2,11 +2,11 @@
 ``repro.api.registry``, holding what is ported so far).
 
 Models ``resnet18``, ``mlp9`` and every text arch the port trains
-(``smollm-360m``, ``mamba2-780m``, ``gemma3-4b``, ``recurrentgemma-2b``:
-a ``TransformerUnitModel`` of the reduced config by default,
+(``smollm-360m``, ``mamba2-780m``, ``gemma3-4b``, ``recurrentgemma-2b``,
+and in bfloat16 ``qwen3-14b`` and ``command-r-35b``: a
+``TransformerUnitModel`` of the reduced config by default,
 ``model_kwargs={"reduced": False}`` for the full stack; the served-only
-``configs.SERVE_ONLY``, the MLA / MoE and bfloat16 archs, are "not ported
-yet");
+``configs.SERVE_ONLY``, the MLA / MoE archs, are "not ported yet");
 scenarios ``single_rsu`` (the
 single-RSU ``FederationSim``) and the ported multi-RSU scenarios of
 ``core/scenario.py`` (the ``ScenarioEngine``); every cut strategy and wire

@@ -3,17 +3,19 @@ of the reference (twin of ``repro.configs``).  ``"<arch>-smoke"`` is the
 reduced variant.
 
 Every layer kind but MLA and the MoE FFN trains, with every frontend,
-qk-norm, rope and sinusoidal positions and the SwiGLU, GeGLU and GeLU MLPs:
-each backward is held to the reference's ``jax.grad``.  A config that holds
-a layer whose training is not ported yet (MLA, an MoE FFN) or bfloat16
-parameters is served (prefill and decode, ``launch/serve.py``) but not
-trained: the train step, ``launch/train.py`` and ``TransformerUnitModel``
-refuse it (:func:`check_trainable`).  ``SERVE_ONLY`` lists the arch ids
-that hold one.
+qk-norm, rope and sinusoidal positions and the SwiGLU, GeGLU and GeLU MLPs,
+in float32 or bfloat16 parameters: each backward is held to the
+reference's ``jax.grad``.  A config that holds a layer whose training is
+not ported yet (MLA, an MoE FFN), or parameters in another dtype, is served
+(prefill and decode, ``launch/serve.py``) but not trained: the train step,
+``launch/train.py`` and ``TransformerUnitModel`` refuse it
+(:func:`check_trainable`).  ``SERVE_ONLY`` lists the arch ids that hold
+one: deepseek-v2-lite-16b (MLA, MoE) and dbrx-132b (MoE).
 
 ``transformer.init_params`` builds an arch's parameters in its
 ``param_dtype`` (float32, or bfloat16 for qwen3-14b, command-r-35b and
-dbrx-132b), as the reference does."""
+dbrx-132b), as the reference does; training keeps the optimizer's
+moments in float32 (:mod:`repro_torch.optim`)."""
 from __future__ import annotations
 
 import importlib
@@ -47,6 +49,11 @@ def get_config(name: str) -> ArchConfig:
     return importlib.import_module(_MODULES[name]).CONFIG
 
 
+# the parameter dtypes the train step takes (the reference's DistOptions
+# takes any; float16 is not held against it yet)
+TRAINED_DTYPES = ("float32", "bfloat16")
+
+
 def untrained_features(cfg: ArchConfig) -> List[str]:
     """What ``cfg`` holds whose backward the port has not checked against
     the reference yet (empty: the config can be trained)."""
@@ -56,7 +63,7 @@ def untrained_features(cfg: ArchConfig) -> List[str]:
         found.append("MLA layers")
     if kinds & {ATTN_MOE, MLA_MOE}:
         found.append("MoE FFNs")
-    if cfg.param_dtype != "float32":
+    if cfg.param_dtype not in TRAINED_DTYPES:
         found.append(f"{cfg.param_dtype} parameters")
     return found
 

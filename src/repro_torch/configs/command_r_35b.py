@@ -2,8 +2,8 @@
 
 [dense] 40L d_model=8192 64H (GQA kv=8) d_ff=22528 vocab=256000.
 Pure full attention -> long_500k skipped.  Its parameters are bfloat16
-(``param_dtype``, 64.8 GB): served, not trained
-(:func:`repro_torch.configs.check_trainable`).
+(``param_dtype``, 64.8 GB): served, and trained in bfloat16 (the
+optimizer's moments in float32) at the depth one card holds.
 """
 from repro_torch.configs.base import ATTN, ArchConfig
 

@@ -7,8 +7,8 @@ early cut here: one DBRX MoE layer is ~3.3B params, far beyond any
 vehicle-side budget — exactly the paper's resource argument.
 
 Its parameters are bfloat16 (``param_dtype``, 263 GB): one card holds
-only its ``-smoke``.  Served, not trained
-(:func:`repro_torch.configs.check_trainable`).
+only its ``-smoke``.  Served, not trained: its MoE FFNs' backward is not
+ported yet (:func:`repro_torch.configs.check_trainable`).
 """
 from repro_torch.configs.base import ATTN_MOE, ArchConfig, MoEConfig
 

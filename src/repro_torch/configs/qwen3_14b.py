@@ -2,8 +2,8 @@
 
 [dense] 40L d_model=5120 40H (GQA kv=8) d_ff=17408 vocab=151936.
 Pure full attention -> long_500k skipped.  Its parameters are bfloat16
-(``param_dtype``): ``init_params`` builds them so, and the port serves it
-(training in bfloat16 is refused, :func:`repro_torch.configs.check_trainable`).
+(``param_dtype``): ``init_params`` builds them so, and the port serves and
+trains it in bfloat16 (the optimizer's moments in float32).
 """
 from repro_torch.configs.base import ATTN, ArchConfig
 

@@ -12,10 +12,18 @@ quantizes and the RSU dequantizes with the codec kernels
 The train step is sync-SFL (aggregation every step, K = 1): client forward
 -> smashed boundary -> server forward / backward -> client backward, one
 |D_n|-weighted cross-entropy (:func:`weighted_ce`, the FedAvg objective of
-paper Eq. 1 inside one step), global-norm clipping and the optimizer.  The
-mesh placement of the smashed tensor (``smashed_sharding``) and training in
-a ``param_dtype`` other than float32 are not ported yet; the prefill and
-decode steps serve the parameters in whatever dtype they hold.
+paper Eq. 1 inside one step, read in float32), global-norm clipping and the
+optimizer.  It trains float32 or bfloat16 parameters (``param_dtype``, as
+the reference's: the forward and backward in the parameters' dtype, the
+moments and the update in float32, the new parameter rounded back).
+The step donates its state, as ``jax.jit(step, donate_argnums=0)``: the
+optimizer runs leaf by leaf in place (``Optimizer.update_``), so the
+caller's state is consumed and the state returned is the same storage (a
+caller that needs the old state clones it).  ``donate=False`` is the
+functional step, equal to it bit for bit, kept as the reference it is
+held to.  The mesh placement of the smashed tensor (``smashed_sharding``) is
+not ported yet; the prefill and decode steps serve the parameters in
+whatever dtype they hold.
 """
 from __future__ import annotations
 
@@ -25,11 +33,10 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 from repro_torch import optim
-from repro_torch.configs import check_trainable
+from repro_torch.configs import TRAINED_DTYPES, check_trainable
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import split as SP
 from repro_torch.kernels import quant
-from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.tree import tree_flatten
 
@@ -43,17 +50,23 @@ class DistOptions:
     optimizer: str = "adamw"
     grad_clip: float = 1.0
     smashed_sharding: Optional[Any] = None
-    param_dtype: Any = None       # None -> cfg.param_dtype; float32 to train
+    param_dtype: Any = None       # None -> cfg.param_dtype
 
     def __post_init__(self):
         if self.smashed_sharding is not None:
             raise NotImplementedError("smashed_sharding (the mesh placement "
                                       "of the smashed tensor) is not ported "
                                       "yet")
-        if self.param_dtype not in (None, "float32", torch.float32):
-            raise NotImplementedError(f"param_dtype={self.param_dtype!r}: "
-                                      f"training in bfloat16 parameters is "
-                                      f"not ported yet (serving is)")
+        if self.param_dtype not in _TRAINED_DTYPES:
+            raise NotImplementedError(
+                f"param_dtype={self.param_dtype!r}: training takes None, "
+                f"float32 or bfloat16 parameters; another dtype is not "
+                f"ported yet")
+
+
+# DistOptions.param_dtype values the train step takes (None: the config's)
+_TRAINED_DTYPES = (None, *TRAINED_DTYPES,
+                   *(getattr(torch, d) for d in TRAINED_DTYPES))
 
 
 def _cross(smashed, opts: DistOptions):
@@ -81,12 +94,58 @@ def init_state(gen: torch.Generator, cfg: ArchConfig,
             "step": torch.zeros((), dtype=torch.int32, device=gen.device)}
 
 
-def weighted_ce(logits, labels, weights, true_vocab: int) -> torch.Tensor:
+class _TokenCE(torch.autograd.Function):
+    """Per position ``logsumexp(x) - x[label]`` of ``x = logits[:, start:,
+    ..., :vocab]`` in float32: :func:`repro_torch.models.layers.
+    per_token_ce`'s value, whose -1e9 mask on the padded vocab (as the
+    reference's) leaves the padded tail out of the softmax, here left out
+    of the sums.  One batch row at a time, so its float32 work is a row's;
+    the backward writes ``(softmax - onehot) * g`` row by row into one
+    gradient of the logits' shape and dtype (zero on the padded tail and
+    the first ``start`` positions), where autograd of the plain ops held
+    the float32 logits, their masked copy and ~3 more of that size."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, vocab: int, start: int):
+        per_tok, lse = [], []
+        for x, y in zip(logits, labels):
+            xs = x[start:, ..., :vocab].to(torch.float32)
+            m = torch.logsumexp(xs, dim=-1)
+            per_tok.append(m - torch.gather(xs, -1, y[..., None].long())[
+                ..., 0])
+            lse.append(m)
+        ctx.save_for_backward(logits, labels, torch.stack(lse))
+        ctx.vocab, ctx.start = vocab, start
+        return torch.stack(per_tok)
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, labels, lse = ctx.saved_tensors
+        vocab, start = ctx.vocab, ctx.start
+        grad = torch.empty(logits.shape, dtype=logits.dtype,
+                           device=logits.device)
+        grad[:, :start] = 0
+        grad[..., vocab:] = 0
+        for i in range(logits.shape[0]):
+            p = logits[i, start:, ..., :vocab].to(torch.float32, copy=True)
+            p.sub_(lse[i][..., None]).exp_()              # softmax
+            idx = labels[i][..., None].long()
+            p.scatter_(-1, idx, p.gather(-1, idx) - 1.0)   # - onehot
+            p.mul_(g[i][..., None])
+            grad[i, start:, ..., :vocab] = p
+        return grad, None, None, None
+
+
+def weighted_ce(logits, labels, weights, true_vocab: int,
+                start: int = 0) -> torch.Tensor:
     """Per-sample-weighted token cross-entropy: the |D_n|-weighted FedAvg
     objective (paper Eq. 1) inside one step.  logits (b, s, vp) with labels
-    (b, s), or audio's (b, s, K, vp) with (b, s, K): a sample's loss is the
-    mean over its positions (and codebooks)."""
-    per_tok = L.per_token_ce(logits, labels, true_vocab)    # (b, s)
+    (b, s - start), or audio's (b, s, K, vp) with (b, s, K): a sample's
+    loss is the mean over its positions (and codebooks) from ``start``
+    (vision's patch positions carry no label).  The logits are read in
+    float32 (:class:`_TokenCE`)."""
+    per_tok = _TokenCE.apply(logits, labels,
+                             min(true_vocab, logits.shape[-1]), start)
     while per_tok.dim() > 1:
         per_tok = per_tok.mean(dim=-1)
     w = weights / torch.clamp(weights.sum(), min=1e-9)
@@ -102,9 +161,15 @@ def _labels_of(cfg: ArchConfig, batch) -> torch.Tensor:
     return batch["labels"]
 
 
-def make_train_step(cfg: ArchConfig, opts: DistOptions) -> Callable:
+def make_train_step(cfg: ArchConfig, opts: DistOptions,
+                    donate: bool = True) -> Callable:
     """SFL round step: client fwd -> smashed boundary -> server fwd/bwd ->
-    client bwd -> the |D_n|-weighted loss, clipping, the optimizer.
+    client bwd -> the |D_n|-weighted loss, clipping, the optimizer.  The
+    step donates ``state`` (the reference's ``donate_argnums``): the
+    optimizer writes the parameters and moments in place, leaf by leaf, so
+    the caller's state is consumed and the returned one holds the same
+    tensors.  ``donate=False`` is the functional step (new parameter and
+    moment trees, ``state`` left as it was), the same values bit for bit.
     ``step(state, batch)`` with ``weights`` (b,) and the frontend's inputs
     (:func:`repro_torch.launch.train.synth_batch`: ``tokens`` / ``labels``
     (b, s); for vision also ``patch_embeds``, whose positions are cut off
@@ -124,24 +189,31 @@ def make_train_step(cfg: ArchConfig, opts: DistOptions) -> Callable:
         logits, _ = SP.server_forward(server, cfg, _cross(smashed, opts),
                                       positions, cut, "train",
                                       remat=opts.remat)
-        if cfg.frontend == "vision":
-            logits = logits[:, cfg.n_patches:]
         ce = weighted_ce(logits, _labels_of(cfg, batch), batch["weights"],
-                         cfg.vocab_size)
+                         cfg.vocab_size,
+                         cfg.n_patches if cfg.frontend == "vision" else 0)
         del logits
         aux = torch.zeros((), dtype=torch.float32, device=ce.device)
         loss = ce + aux
-        grads = rebuild(list(torch.autograd.grad(loss, req)))
+        grads = list(torch.autograd.grad(loss, req))
         del req
         with torch.no_grad():
-            if opts.grad_clip > 0:
-                grads, gnorm = optim.clip_by_global_norm(grads,
-                                                         opts.grad_clip)
+            if donate:
+                scale, gnorm = (optim.clip_scale(grads, opts.grad_clip)
+                                if opts.grad_clip > 0
+                                else (None, optim.global_norm(grads)))
+                opt_state = opt.update_(grads, state["opt"], leaves, scale)
+                params = state["params"]
             else:
-                gnorm = optim.global_norm(grads)
-            updates, opt_state = opt.update(grads, state["opt"],
-                                            state["params"])
-            params = optim.apply_updates(state["params"], updates)
+                grads = rebuild(grads)
+                if opts.grad_clip > 0:
+                    grads, gnorm = optim.clip_by_global_norm(grads,
+                                                             opts.grad_clip)
+                else:
+                    gnorm = optim.global_norm(grads)
+                updates, opt_state = opt.update(grads, state["opt"],
+                                                state["params"])
+                params = optim.apply_updates(state["params"], updates)
         metrics = {"loss": loss.detach(), "ce": ce.detach(), "aux": aux,
                    "grad_norm": gnorm}
         return ({"params": params, "opt": opt_state,

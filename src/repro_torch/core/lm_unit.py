@@ -11,6 +11,8 @@ the head (final norm + LM head) lives with the RSU.  Batches use the
 fedsim convention: ``images`` = token ids (b, s), ``labels`` = next-token
 ids (b, s).  The units run in ``train`` mode without remat, as the
 reference's do, so the engines' ``torch.func`` transforms take them whole.
+The units are built in the config's ``param_dtype`` (bfloat16 for qwen3-14b
+and command-r-35b), as the reference's.
 """
 from __future__ import annotations
 

@@ -49,10 +49,13 @@ Autograd.  :func:`flash_attention` is a ``torch.autograd.Function``: its
 forward is the kernel (the plain version on the CPU); its backward is
 ``torch.func.vjp`` of :func:`attention_plain` on the saved q, k and v,
 plain PyTorch that recomputes the scores (the JAX package has no backward
-kernel; hand-written dq / dk / dv kernels are still to be written).  Its
-``vmap`` rule folds the vmapped axis into the batch, ``(n, b, ...) ->
-(n*b, ...)``, one kernel call: q, k and v are activations in every caller (no parameter
-carries the axis; an unbatched one is expanded).
+kernel; hand-written dq / dk / dv kernels are still to be written).  On
+bfloat16 q, k and v (the bf16 archs' training) the forward takes the
+kernel's 16-bit route and the backward the plain version's float32 math,
+its gradients in q's dtype.  Its ``vmap`` rule folds the vmapped axis into
+the batch, ``(n, b, ...) -> (n*b, ...)``, one kernel call: q, k and v are
+activations in every caller (no parameter carries the axis; an unbatched
+one is expanded).
 """
 from __future__ import annotations
 

@@ -4,17 +4,24 @@
 Trains an LM arch with the model split at the cut: vehicle-side periods,
 the smashed boundary (int8 under ``--compress``), RSU-side periods and
 head, the |D_n|-weighted cross-entropy, global-norm clipping and adamw
-(:func:`repro_torch.core.distributed.make_train_step`), on ``cuda`` unless
-``--device cpu`` is given (without a card it raises).  Text, vision
+(:func:`repro_torch.core.distributed.make_train_step`, which donates its
+state: the loop rebinds ``state`` every step, as the reference's does, and
+the optimizer writes the parameters and moments in place), on ``cuda``
+unless ``--device cpu`` is given (without a card it raises).  Text, vision
 (patch embeddings before the tokens; the loss on the text positions) and
-audio (K codebooks in, each frame's K codes as its targets) archs train;
-MLA, MoE and bfloat16-parameter archs are refused (served only).
+audio (K codebooks in, each frame's K codes as its targets) archs train, in
+their config's ``param_dtype``: qwen3-14b and command-r-35b in bfloat16
+(float32 moments), any other arch in bfloat16 through
+``dataclasses.replace(cfg, param_dtype="bfloat16")`` passed to
+:func:`train`.  MLA and MoE archs are refused (served only).
 ``--smoke`` trains the reduced config; without it the full config at
 ``--batch`` / ``--seq``.  The reference's mesh shapes (``--shape``,
 ``--multi-pod``) are not ported.
 
     python -m repro_torch.launch.train --arch smollm-360m --batch 8 \\
         --seq 1024 --steps 3
+    python -m repro_torch.launch.train --arch qwen3-14b --smoke \\
+        --device cpu --steps 2 --seq 32
     python -m repro_torch.launch.train --arch internvl2-1b --smoke \\
         --device cpu --steps 2 --seq 32
 """
@@ -76,10 +83,12 @@ def train(cfg: ArchConfig, *, steps: int, batch: int, seq: int,
           on_step: Optional[Callable[[int, Dict[str, float]], None]] = None
           ) -> Dict[str, Any]:
     """Train ``steps`` sync-SFL steps (adamw, clip 1.0, remat) from fresh
-    parameters drawn from seed 0, on synthetic batches (step i's tokens
-    from a generator seeded i).  Returns the final state, the per-step
-    metrics (floats), the per-step wall times (seconds, after a device
-    synchronize), the cut and, on cuda, the peak allocated bytes."""
+    parameters drawn from seed 0 in ``cfg.param_dtype``, on synthetic
+    batches (step i's tokens from a generator seeded i), each step the
+    donated one (the state updated in place).  Returns the final state,
+    the per-step metrics (floats), the per-step wall times (seconds, after
+    a device synchronize), the cut and, on cuda, the peak allocated
+    bytes."""
     dev = resolve_device(device)
     opts = D.DistOptions(cut=cfg.default_cut if cut is None else cut,
                          compress_smashed=compress, learning_rate=lr)

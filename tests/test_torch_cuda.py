@@ -21,7 +21,9 @@ against the CPU), the reduced city paged (card against CPU, two runs bit
 for bit, launches per page, the paged peak memory below the unpaged),
 resnet18 under vmap against the loop on the card, the reduced LM configs
 served on cuda against the CPU (the bfloat16 archs' on bfloat16 weights),
-and the MoE's grouped dispatch with drops
+the optimizers' in-place step against their functional form bit for bit,
+a reduced bfloat16 train step (the donated one) against the CPU, and the
+MoE's grouped dispatch with drops
 on cuda against the CPU.  Needs a CUDA card and nvcc:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -1104,7 +1106,8 @@ def test_reduced_lm_train_step_on_cuda_matches_cpu(dev, arch, compress):
                          compress_smashed=compress)
     outs = {}
     for where in ("cpu", dev):
-        p = tree_map(lambda a: a.to(where), params)
+        # the step donates its state: the CPU's copy must not be params
+        p = tree_map(lambda a: a.to(where, copy=True), params)
         state = {"params": p, "opt": D.make_optimizer(opts).init(p),
                  "step": torch.zeros((), dtype=torch.int32, device=where)}
         new, m = D.make_train_step(cfg, opts)(
@@ -1117,6 +1120,92 @@ def test_reduced_lm_train_step_on_cuda_matches_cpu(dev, arch, compress):
                 for a, a0 in zip(pa, tree_leaves(params)))
     diff = max(float((a - b).abs().max()) for a, b in zip(pa, pb))
     assert diff <= 1e-2 * moved and abs(la - lb) <= 1e-4
+
+
+@pytest.mark.parametrize("name", ["sgd", "momentum", "adamw"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_update_inplace_on_cuda_equals_functional(dev, name, dtype):
+    """The optimizer's in-place step on the card against its functional
+    form from the same parameters and gradients (clip 1.0), three steps,
+    in slices (a leaf over CHUNK values): parameters, moments and the norm
+    bit for bit, in the storage it was given."""
+    from repro_torch import optim
+    from repro_torch.optim import optimizers as O
+    from repro_torch.tree import tree_leaves, tree_map
+    make = {"sgd": lambda: optim.sgd(1e-2),
+            "momentum": lambda: optim.momentum(1e-2, nesterov=True),
+            "adamw": lambda: optim.adamw(3e-3, weight_decay=0.01)}[name]
+    opt = make()
+    rng = np.random.default_rng(0)
+
+    def tree(scale):
+        return {k: torch.from_numpy((scale * rng.normal(size=s)).astype(
+            np.float32)).to(dev, dtype)
+            for k, s in (("big", (O.CHUNK // 1024 + 3, 1024)),
+                         ("w", (96, 33)), ("b", (33,)))}
+
+    params = tree(1.0)
+    mine = tree_map(lambda t: t.clone(), params)
+    state, my_state = opt.init(params), opt.init(mine)
+    ptrs = [t.data_ptr() for t in tree_leaves(mine)]
+    for step in range(3):
+        grads = tree(0.5 + step)
+        clipped, norm = optim.clip_by_global_norm(grads, 1.0)
+        updates, state = opt.update(clipped, state, params)
+        params = optim.apply_updates(params, updates)
+        glist = tree_leaves(grads)
+        scale, my_norm = optim.clip_scale(glist, 1.0)
+        my_state = opt.update_(glist, my_state, tree_leaves(mine), scale)
+        assert torch.equal(norm, my_norm)
+        assert all(torch.equal(a, b) for a, b in zip(
+            tree_leaves([params, state]), tree_leaves([mine, my_state])))
+    assert [t.data_ptr() for t in tree_leaves(mine)] == ptrs
+
+
+@pytest.mark.parametrize("arch", ["qwen3-14b", "command-r-35b"])
+@pytest.mark.parametrize("compress", [False, True])
+def test_reduced_bf16_train_step_on_cuda_matches_cpu(dev, arch, compress):
+    """One adamw train step (lr 1e-2, clip 1.0, remat) of the bfloat16
+    arch's reduced config grown to three layers from the same bfloat16
+    weights and batch, the donated step on the card and on the CPU.  A
+    bfloat16 parameter rounds away an update below half its ulp, so the
+    gradient is held where it is float32: each leaf's first moment
+    (``(1 - b1) g``) within BF16_MOMENT_RTOL of the CPU's in norm, the
+    loss within 1e-3; the card's parameters bfloat16 in their own
+    storage, its moments float32 and finite."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import distributed as D
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves, tree_map
+    cs = _chip_smoke()
+    cfg = dataclasses.replace(get_config(arch).reduced(), n_layers=3)
+    params = T.init_params(torch.Generator().manual_seed(0), cfg)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(4, 65)))
+    w = torch.tensor([0.5, 0.5, 0.25, 0.25])
+    opts = D.DistOptions(cut=1, optimizer="adamw", learning_rate=1e-2,
+                         compress_smashed=compress)
+    outs = {}
+    for where in ("cpu", dev):
+        p = tree_map(lambda a: a.to(where, copy=True), params)
+        ptrs = [t.data_ptr() for t in tree_leaves(p)]
+        state = {"params": p, "opt": D.make_optimizer(opts).init(p),
+                 "step": torch.zeros((), dtype=torch.int32, device=where)}
+        new, m = D.make_train_step(cfg, opts)(
+            state, {"tokens": toks[:, :-1].to(where),
+                    "labels": toks[:, 1:].to(where), "weights": w.to(where)})
+        assert [t.data_ptr() for t in tree_leaves(new["params"])] == ptrs
+        outs[str(where)] = ([t.cpu() for t in tree_leaves(new["params"])],
+                            [t.cpu() for t in tree_leaves(new["opt"]["m"])],
+                            float(m["loss"]))
+    (_, ma, la), (pb, mb, lb) = outs["cpu"], outs[str(dev)]
+    assert {t.dtype for t in pb} == {torch.bfloat16}
+    assert {t.dtype for t in mb} == {torch.float32}
+    assert all(bool(torch.isfinite(t).all()) for t in mb)
+    assert abs(la - lb) <= cs.BF16_LOSS_TOL
+    assert cs._moment_rel_err(ma, mb) <= cs.BF16_MOMENT_RTOL
 
 
 @pytest.mark.parametrize("name,rule", [("rmsnorm", "fold"),
@@ -1192,7 +1281,7 @@ def test_reduced_family_train_step_on_cuda_matches_cpu(dev, arch):
     opts = D.DistOptions(cut=1, optimizer="sgd", learning_rate=1e-2)
     outs = {}
     for where in ("cpu", dev):
-        p = tree_map(lambda a: a.to(where), params)
+        p = tree_map(lambda a: a.to(where, copy=True), params)
         state = {"params": p, "opt": D.make_optimizer(opts).init(p),
                  "step": torch.zeros((), dtype=torch.int32, device=where)}
         reset_launches()

@@ -72,10 +72,10 @@ def test_configs_match_reference(arch):
 
 def test_registry_holds_the_served_families():
     """The families are registered and trained; the archs served only are
-    the MLA / MoE and bfloat16 ones."""
+    the MLA / MoE ones (the bfloat16 archs train since bfloat16 training
+    was ported)."""
     assert set(FAMILIES) <= set(ARCH_IDS)
-    assert set(SERVE_ONLY) == {
-        "deepseek-v2-lite-16b", "dbrx-132b", "command-r-35b", "qwen3-14b"}
+    assert SERVE_ONLY == ("deepseek-v2-lite-16b", "dbrx-132b")
     from repro.configs import ARCH_IDS as REF_IDS
     assert sorted(ARCH_IDS) == sorted(REF_IDS)
 
@@ -333,18 +333,19 @@ TRAINED_CHANGES = [
     dict(frontend="vision"), dict(pattern=("attn", "attn_local"), n_layers=2),
     dict(tail=("rglru",), n_layers=2), dict(qk_norm=True),
     dict(pos="sinusoidal"),
-    dict(mlp_variant="geglu"), dict(mlp_variant="gelu")]
+    dict(mlp_variant="geglu"), dict(mlp_variant="gelu"),
+    dict(param_dtype="bfloat16")]
 REFUSED_CHANGES = [dict(pattern=("mla_dense",)), dict(pattern=("attn_moe",)),
-                   dict(param_dtype="bfloat16")]
+                   dict(param_dtype="float16")]
 
 
 @pytest.mark.parametrize("change", TRAINED_CHANGES + REFUSED_CHANGES)
 def test_training_refusal_follows_what_the_config_holds(change):
     """The refusal reads what a config holds, whatever its name: a trained
     arch that gains a frontend, local attention, RG-LRU, qk-norm,
-    sinusoidal positions or a GeGLU / GeLU MLP still trains; one that
-    gains an MLA layer, an MoE FFN or bfloat16 parameters is refused as
-    served only.  The trained archs as they are pass."""
+    sinusoidal positions, a GeGLU / GeLU MLP or bfloat16 parameters still
+    trains; one that gains an MLA layer, an MoE FFN or float16 parameters
+    is refused as served only.  The trained archs as they are pass."""
     from repro_torch.configs import check_trainable, untrained_features
     from repro_torch.core import distributed as D
     for arch in ("smollm-360m", "mamba2-780m"):

@@ -72,14 +72,19 @@ def test_configs_match_reference(arch):
 
 def test_unported_archs_raise():
     """Every arch id of the reference has a config (the bfloat16 ones
-    since their parameters were ported); an unknown id raises, and a
-    bfloat16 arch's training is refused."""
+    since their parameters were ported); an unknown id raises; a bfloat16
+    arch trains unless it holds an MoE FFN, and float16 parameters are
+    refused."""
     from repro_torch.configs import check_trainable
     for name in ("dbrx-132b", "qwen3-14b-smoke"):
         assert dataclasses.asdict(get_config(name)) == dataclasses.asdict(
             jax_config(name))
-        with pytest.raises(NotImplementedError, match="bfloat16 parameters"):
-            check_trainable(get_config(name))
+    with pytest.raises(NotImplementedError, match="MoE FFNs"):
+        check_trainable(get_config("dbrx-132b"))
+    check_trainable(get_config("qwen3-14b-smoke"))
+    with pytest.raises(NotImplementedError, match="float16 parameters"):
+        check_trainable(dataclasses.replace(get_config("qwen3-14b-smoke"),
+                                            param_dtype="float16"))
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 

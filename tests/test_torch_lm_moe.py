@@ -230,13 +230,23 @@ def test_training_deepseek_is_refused_and_the_bf16_archs_too():
     with pytest.raises(NotImplementedError, match="served only"):
         TR.main(["--arch", DEEPSEEK, "--smoke", "--steps", "1", "--device",
                  "cpu"])
+    # the bfloat16 archs: dbrx is served only for its MoE FFNs, the dense
+    # ones train (their float16 twins are refused)
+    assert SERVE_ONLY == (DEEPSEEK, "dbrx-132b")
     for arch in ("dbrx-132b", "command-r-35b", "qwen3-14b"):
-        assert arch in SERVE_ONLY
         for name in (arch, arch + "-smoke"):
-            assert get_config(name).param_dtype == "bfloat16"
+            cfg = get_config(name)
+            assert cfg.param_dtype == "bfloat16"
+            if arch == "dbrx-132b":
+                assert untrained_features(cfg) == ["MoE FFNs"]
+                with pytest.raises(NotImplementedError, match="MoE FFNs"):
+                    check_trainable(cfg)
+            else:
+                check_trainable(cfg)
             with pytest.raises(NotImplementedError,
-                               match="bfloat16 parameters"):
-                check_trainable(get_config(name))
+                               match="float16 parameters"):
+                check_trainable(dataclasses.replace(cfg,
+                                                    param_dtype="float16"))
 
 
 def test_serve_cli_serves_deepseek_on_cpu_when_asked(capsys):
