@@ -164,19 +164,21 @@ neither ``jax`` nor ``repro``.  In order it:
     weights as the loop on the CPU, TF32 off, the model in float64: within
     phase 7's tolerance (the float32 comparisons printed beside it);
 10f. (phases 10f-10i train smollm-360m, mamba2-780m, gemma3-4b,
-    recurrentgemma-2b, internvl2-1b and musicgen-large, and in bfloat16
-    qwen3-14b, command-r-35b and gemma3-4b) the LM
+    recurrentgemma-2b, internvl2-1b, musicgen-large and deepseek-v2-lite-
+    16b (MLA, MoE), and in bfloat16 qwen3-14b, command-r-35b, gemma3-4b
+    and dbrx-132b (MoE)) the LM
     kernels' autograd on the card (rmsnorm, flash GQA causal d 64,
     ssd chunk 256; small shapes and the training path's; flash at d 256
     with a window that masks keys, at gemma3's local (window 1024) and
     global layers at batch 4 and recurrentgemma's MQA with window 2048,
     internvl2's 14 heads over 2 and musicgen's MHA at d 64, rmsnorm over
-    gemma3's qk-norm rows at batch 4; in bfloat16 flash at qwen3's and
-    command-r's training shapes (the Hopper route) and gemma3's local and
-    global layers (d 256, the mma route), rmsnorm at d 5120 and over
-    qwen3's qk-norm rows; a 16-bit output or gradient one ulp of it
-    wider; each flash case on the route ``flash_route`` gives): gradients
-    through the Function (kernel forward; rmsnorm's backward kernel, the
+    gemma3's qk-norm rows at batch 4 and over deepseek's 512-wide MLA
+    latent (``kv_norm``); in bfloat16 flash at qwen3's, command-r's and
+    dbrx's training shapes (the Hopper route) and gemma3's local and
+    global layers (d 256, the mma route), rmsnorm at d 5120, over qwen3's
+    qk-norm rows and at dbrx's d 6144; a 16-bit output or gradient one
+    ulp of it wider; each flash case on the route ``flash_route`` gives):
+    gradients through the Function (kernel forward; rmsnorm's backward kernel, the
     plain vjp for flash and ssd) against all-plain autograd, forward within phase 4b's tolerances and
     gradients within them of the largest gradient; ``torch.func.vmap``
     of each Function equal to the per-slice calls, bit for bit where the
@@ -188,7 +190,8 @@ neither ``jax`` nor ``repro``.  In order it:
     replica: one backward launch for both replicas) and remat; every
     route's launches of the kernel and of rmsnorm's backward kernel exact;
     at the training shapes the device time of the Function's backward
-    and the memory it takes;
+    and the memory it takes, and for bfloat16 flash the device time of
+    SDPA's backward on the same inputs;
 10g. trains through ``repro_torch.launch.train.train`` at full width
     (seq 1024, the default cut, adamw lr 3e-4, clip 1.0, remat, 4
     clients, the donated step): smollm-360m and mamba2-780m at full depth
@@ -199,6 +202,9 @@ neither ``jax`` nor ``repro``.  In order it:
     + 1 global) without its tail at batch 4; in bfloat16 qwen3-14b at 13
     of 40 layers at batch 8 (also 2 layers under ``compress``, 1 step),
     command-r-35b at 3 of 40 at batch 4 and gemma3-4b whole at batch 4;
+    deepseek-v2-lite-16b in float32 at 8 of 27 layers at batch 8 (the
+    grouped MoE path with capacity drops) and dbrx-132b in bfloat16 at one
+    layer at batch 4 (its router float32);
     2 steps each (depth and batch cut as one card forces, printed on each
     line; parameters in their dtype, moments float32; flash's launches
     on the route ``flash_route`` gives); the launch counters zeroed just
@@ -207,28 +213,35 @@ neither ``jax`` nor ``repro``.  In order it:
     twice; rmsnorm's backward kernel once a norm, qk-norm's rows included:
     65 / 97 a step for smollm / mamba2), and nonzero first moments of the
     embedding (through the final rmsnorm) and in every layer of the
-    attention's ``wk``, the SSM's ``A_log`` or the RG-LRU's ``w_a``, of
-    ``norm1``'s scale and, under qk-norm, of the ``q_norm`` / ``k_norm``
-    scales (leaves whose gradient comes only through that layer's flash /
-    SSD / recurrence and rmsnorm backward); prints step 0's and the later
-    steps' s/step and peak memory; then one donated step against one
-    functional step from the same state at qwen3-14b's width (1 layer,
-    batch 4), bit for bit, the donated one in its own storage and below
-    the functional one's peak;
+    attention's ``wk``, MLA's ``w_dkv``, the SSM's ``A_log`` or the
+    RG-LRU's ``w_a``, of ``norm1``'s scale, under qk-norm of the
+    ``q_norm`` / ``k_norm`` scales and of every MoE router (leaves whose
+    gradient comes only through that layer's flash / SSD / recurrence /
+    router and rmsnorm backward); prints step 0's and the later steps'
+    s/step and peak memory; then one donated step against one functional
+    step from the same state at qwen3-14b's width (1 layer, batch 4), bit
+    for bit, the donated one in its own storage and below the functional
+    one's peak; then deepseek at full width, 3 layers, batch 8, its
+    objective and gradients with remat on and off: the recompute's expert
+    choices and kept slots equal to the forward's (printed), losses within
+    1e-5 and gradients within phase 4b's rmsnorm tolerance;
 10h. one sgd train step of each trained arch's reduced config (smollm,
     mamba2, internvl2, musicgen at three layers; gemma3 and recurrentgemma
-    at their period and tail; vision and audio batches) on the card and on
+    at their period and tail, deepseek its MLA + MoE period and tail;
+    vision and audio batches) on the card and on
     the CPU from the same weights and batch, remat on with smashed data
     dense and int8 and remat off dense: updates within phase 7's 1 % of
     the largest update, losses within 1e-4, and the card's launches exact
     (remat off runs each period's kernels once); the bfloat16 archs
-    (qwen3-14b, command-r-35b, three layers) take one adamw step, each
-    leaf's float32 first moment within 10 % of the CPU's in norm and the
-    losses within 1e-3;
-10i. ``api.run`` of the reduced text LMs (smollm, mamba2, gemma3,
-    recurrentgemma, and qwen3-14b in bfloat16) on ``single_rsu`` (4 vehicles, the paper's spec, one
-    round): ``asfl`` over ``topk_int8`` under ``vmap`` and ``unroll`` from
-    one seed (the same cuts), and ``fl`` under ``vmap`` (the kernels
+    (qwen3-14b, command-r-35b, dbrx-132b, three layers) take one adamw
+    step, each leaf's float32 first moment within 10 % of the CPU's in
+    norm and the losses within 1e-3; an MoE's routing compared first, the
+    (token, choice) slots routed apart printed;
+10i. ``api.run`` of reduced text LMs (smollm, mamba2, recurrentgemma,
+    qwen3-14b in bfloat16 and deepseek-v2-lite-16b) on ``single_rsu`` (4
+    vehicles, the paper's spec, one round): ``asfl`` over ``topk_int8``
+    under ``vmap`` and ``unroll`` from one seed (the same cuts), and, for
+    smollm, qwen3 and deepseek, ``fl`` under ``vmap`` (the kernels
     inside ``vmap`` of ``grad``): finite loss, accuracy in [0, 1], wire
     bytes = the cost model's, and every launch count the schedule implies
     (rmsnorm's backward kernel once a norm a client batch step; under
@@ -434,14 +447,16 @@ HOPPER_MAIN = "qwen3_prefill_bf16"
 SERVE_ARCHS = ("smollm-360m", "mamba2-780m", "gemma3-4b",
                "recurrentgemma-2b", "internvl2-1b", "musicgen-large",
                "deepseek-v2-lite-16b", "qwen3-14b", "command-r-35b")
-# phases 10f-10i train the archs without MLA or MoE: the float32 ones
-# (smollm, mamba2, internvl2 and musicgen at full depth; recurrentgemma
-# and gemma3 at the depth of TRAIN_RUNS, phase 10g) and, in bfloat16,
-# qwen3-14b and command-r-35b at the depth one card holds, and gemma3-4b
-# at full depth; deepseek and dbrx are served only
+# phases 10f-10i train every arch: the float32 ones (smollm, mamba2,
+# internvl2 and musicgen at full depth; recurrentgemma and gemma3 at the
+# depth of TRAIN_RUNS, phase 10g; deepseek-v2-lite-16b, MLA and MoE, at
+# the depth one card holds) and, in bfloat16, qwen3-14b and command-r-35b
+# at the depth one card holds, dbrx-132b (MoE) at one layer, and gemma3-4b
+# at full depth
 TRAIN_ARCHS = ("smollm-360m", "mamba2-780m", "gemma3-4b",
-               "recurrentgemma-2b", "internvl2-1b", "musicgen-large")
-BF16_TRAIN_ARCHS = ("qwen3-14b", "command-r-35b")
+               "recurrentgemma-2b", "internvl2-1b", "musicgen-large",
+               "deepseek-v2-lite-16b")
+BF16_TRAIN_ARCHS = ("qwen3-14b", "command-r-35b", "dbrx-132b")
 # phase 10's and 10h's reduced configs grown to three periods (one layer a
 # period); the families keep their reduced depth (one pattern and the tail)
 THREE_PERIOD_ARCHS = ("smollm-360m", "mamba2-780m")
@@ -475,7 +490,15 @@ FLASH16_CASES = (
     ("qwen3_prefill", (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 40, 8, 128,
                        True, 0), ("bf16", "f16")),
     ("command_r_prefill", (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 64, 8,
-                           128, True, 0), ("bf16",)))
+                           128, True, 0), ("bf16",)),
+    # the bfloat16 train steps' forwards (phase 10g): gemma3-4b's global
+    # layer at batch 4 (d 256: the mma route; its local layer's window of
+    # 1024 masks nothing at s 1024) and dbrx-132b's at batch 4, 48 heads
+    # over 8 (d 128: the Hopper route)
+    ("gemma3_train", (4, SERVE_PROMPT, SERVE_PROMPT, 8, 4, 256, True, 0),
+     ("bf16",)),
+    ("dbrx_train", (4, SERVE_PROMPT, SERVE_PROMPT, 48, 8, 128, True, 0),
+     ("bf16",)))
 TEACHER_TOL = 1e-3              # phase 9: f32 through 24-48 layers, prefill
 #                                 (kernels) vs decode (plain) sum orders
 REDUCED_TOL = 2e-4              # phase 10: as the CPU parity tests
@@ -1550,13 +1573,16 @@ RMS_SHAPES = (
     ("qwen3_d5120", (SERVE_BATCH, SERVE_PROMPT, 5120)),
     ("command_r_d8192", (SERVE_BATCH, SERVE_PROMPT, 8192)),
     ("qwen3_qk_norm_d128", (SERVE_BATCH * SERVE_PROMPT * 40, 128)),
+    ("dbrx_train_d6144", (4, SERVE_PROMPT, 6144)),
     ("tiny_d6", (3, 6)),
     ("wide_d9000", (3, 9000)))
 # the backward at the training path's widths (batch 8, seq 1024: smollm,
 # mamba2 and its gated norm), over gemma3's qk-norm rows, at the
-# families' widths (gemma3 / recurrentgemma, internvl2, musicgen) and at
-# the bfloat16 archs' (qwen3's d 5120 and qk-norm rows over head_dim 128,
-# command-r's d 8192)
+# families' widths (gemma3 / recurrentgemma, internvl2, musicgen;
+# musicgen's d 2048 is deepseek's norm1 / norm2 too), deepseek's kv_norm
+# over the MLA latent, and at the bfloat16 archs' (qwen3's d 5120 and
+# qk-norm rows over head_dim 128, command-r's d 8192, dbrx's d 6144 at its
+# batch of 4)
 RMS_BWD_SHAPES = (
     ("gemma3_qk_norm_d256", (SERVE_BATCH * SERVE_PROMPT * 8, 256)),
     ("smollm_train_d960", (SERVE_BATCH, SERVE_PROMPT, 960)),
@@ -1567,7 +1593,9 @@ RMS_BWD_SHAPES = (
     ("musicgen_train_d2048", (SERVE_BATCH, SERVE_PROMPT, 2048)),
     ("qwen3_train_d5120", (SERVE_BATCH, SERVE_PROMPT, 5120)),
     ("command_r_train_d8192", (SERVE_BATCH, SERVE_PROMPT, 8192)),
-    ("qwen3_qk_norm_d128", (SERVE_BATCH * SERVE_PROMPT * 40, 128)))
+    ("qwen3_qk_norm_d128", (SERVE_BATCH * SERVE_PROMPT * 40, 128)),
+    ("deepseek_kv_norm_train_d512", (SERVE_BATCH, SERVE_PROMPT, 512)),
+    ("dbrx_train_d6144", (4, SERVE_PROMPT, 6144)))
 # x's dtype and the scale's; a label's suffix is the key ("f32": none).
 # The timed ones: float32, and bfloat16 with a bfloat16 scale (the same
 # function as F.rms_norm's fused kernel on those inputs)
@@ -1578,11 +1606,12 @@ RMS_DTYPES = {"f32": ("float32", "float32"),
               "f16_f32scale": ("float16", "float32")}
 RMS_TIMED = ("f32", "bf16")
 # the bfloat16 archs' widths (qwen3's d 5120 and qk-norm rows over
-# head_dim 128, command-r's d 8192), forward and backward: checked in
-# every dtype above (the backward in RMS_TIMED's), timed in bfloat16 only,
-# the dtype they train and serve in
+# head_dim 128, command-r's d 8192, dbrx's d 6144), forward and backward:
+# checked in every dtype above (the backward in RMS_TIMED's), timed in
+# bfloat16 only, the dtype they train and serve in
 RMS_BF16_WIDTHS = ("qwen3_d5120", "command_r_d8192", "qwen3_qk_norm_d128",
-                   "qwen3_train_d5120", "command_r_train_d8192")
+                   "qwen3_train_d5120", "command_r_train_d8192",
+                   "dbrx_train_d6144")
 
 
 def _dtype(name):
@@ -2002,12 +2031,13 @@ def _count_moe_slots():
     """Wrap the grouped MoE dispatch (``moe._experts_grouped``) to tally
     the (token, expert) slots it routes and keeps, and to hold each call's
     kept slots to :func:`_plain_keep` on the CPU, at the reference's
-    capacity formula (``src/repro/models/moe.py``).  Returns the tally and
-    the function that undoes the wrap."""
+    capacity formula (``src/repro/models/moe.py``); ``keeps`` lists each
+    call's kept slots (on the CPU).  Returns the tally and the function
+    that undoes the wrap."""
     import numpy as np
     from repro_torch.models import moe
     grouped = moe._experts_grouped
-    tally = {"routed": 0, "kept": 0, "witnessed": 0}
+    tally = {"routed": 0, "kept": 0, "witnessed": 0, "keeps": []}
 
     def counted(p, cfg, xt, gate_vals, expert_idx, n_groups):
         y, keep = grouped(p, cfg, xt, gate_vals, expert_idx, n_groups)
@@ -2015,7 +2045,8 @@ def _count_moe_slots():
         m = cfg.moe
         cap = max(4, min(math.ceil(tpg * k / m.n_experts
                                    * m.capacity_factor), tpg))
-        got = keep.cpu().numpy()
+        tally["keeps"].append(keep.cpu())
+        got = tally["keeps"][-1].numpy()
         want = np.array(_plain_keep(
             expert_idx.reshape(g, tpg, k).tolist(), m.n_experts, cap))
         if got.shape != want.shape or not (got == want).all():
@@ -2178,7 +2209,7 @@ def serve_path(arch, card=""):
                         prompt_len=SERVE_PROMPT, decode_steps=0)
         finally:
             unwrap()
-        slots = tally
+        slots = {k: tally[k] for k in slots}
     logits = res["logits"]
     want = dict.fromkeys(counts, 0)
     want.update(_expected_launches(cfg))
@@ -2359,10 +2390,11 @@ def _reduced_config(arch):
     return cfg
 
 
-def _route_spy():
+def _route_spy(probs=None):
     """Wrap the MoE router (``moe._route``) to record each call's expert
-    choices (t, k) on the CPU.  Returns the record and the function that
-    undoes the wrap."""
+    choices (t, k) on the CPU, and its probabilities (t, E) into
+    ``probs`` when given a list.  Returns the record and the function
+    that undoes the wrap."""
     from repro_torch.models import moe
     route = moe._route
     record = []
@@ -2370,9 +2402,32 @@ def _route_spy():
     def spy(p, cfg, xt):
         res = route(p, cfg, xt)
         record.append(res[2].cpu())
+        if probs is not None:
+            probs.append(res[0].detach().cpu())
         return res
     moe._route = spy
     return record, lambda: setattr(moe, "_route", route)
+
+
+def _route_pin(choices):
+    """Wrap the MoE router's top-k (``moe.top_k``) to return, call after
+    call, the given expert choices (t, k) in place of its own, with the
+    caller's probabilities at them as the values: a step then routes as
+    the run that recorded ``choices`` did, and its gates, aux loss and
+    gradients are its own arithmetic.  Returns the function that undoes
+    the wrap."""
+    from repro_torch.models import moe
+    top_k = moe.top_k
+    left = list(choices)
+
+    def pinned(probs, k):
+        idx = left.pop(0).to(probs.device)
+        if idx.shape != (*probs.shape[:-1], k):
+            raise AssertionError(f"pinned choices {tuple(idx.shape)} for "
+                                 f"probabilities {tuple(probs.shape)}")
+        return probs.gather(-1, idx), idx
+    moe.top_k = pinned
+    return lambda: setattr(moe, "top_k", top_k)
 
 
 def _row_flips(a, b, rows):
@@ -2475,9 +2530,14 @@ TRAIN_BATCH, TRAIN_SEQ = 8, 1024
 # (77.9 GB; 14 ran out of memory) and command-r-35b at 3 of 40 at batch 4
 # (78.5 GB; 4 layers at batch 4 and 1 at batch 8 ran out), beside their
 # embedding and head of 1.57B / 4.19B parameters, gemma3-4b whole at batch
-# 4; qwen3 also under int8 smashed data (the bf16 codec), one step.  One
-# period holds every layer kind; the cut then clamps to 1, so the RSU
-# holds the head alone
+# 4; qwen3 also under int8 smashed data (the bf16 codec), one step.  The
+# MLA / MoE archs: deepseek-v2-lite-16b in float32 at batch 8 at 8 of 27
+# layers, seven MLA + MoE periods and its MLA + dense tail (76.5 GB; 9
+# ran out of memory in a grouped MoE einsum at 83.0 GB; the grouped path
+# with capacity drops: 8,192 tokens x 64 experts x 1,408 > 2^27), and
+# dbrx-132b in bfloat16 at one full-width layer at batch 4 (58.0 GB).
+# One period holds every layer kind; the cut then clamps to 1, so the RSU
+# holds the head alone (dbrx: its final norm and head)
 TRAIN_RUNS = (("smollm-360m", False, 3, TRAIN_BATCH, {}),
               ("mamba2-780m", False, 3, TRAIN_BATCH, {}),
               ("smollm-360m", True, 2, TRAIN_BATCH, {}),
@@ -2488,7 +2548,10 @@ TRAIN_RUNS = (("smollm-360m", False, 3, TRAIN_BATCH, {}),
               ("qwen3-14b", False, 2, TRAIN_BATCH, {"n_layers": 13}),
               ("qwen3-14b", True, 1, TRAIN_BATCH, {"n_layers": 2}),
               ("command-r-35b", False, 2, 4, {"n_layers": 3}),
-              ("gemma3-4b", False, 2, 4, {"param_dtype": "bfloat16"}))
+              ("gemma3-4b", False, 2, 4, {"param_dtype": "bfloat16"}),
+              ("deepseek-v2-lite-16b", False, 2, TRAIN_BATCH,
+               {"n_layers": 8}),
+              ("dbrx-132b", False, 2, 4, {"n_layers": 1}))
 # phase 10g's donation check: (arch, changes, batch) at full width
 DONATION_RUN = ("qwen3-14b", {"n_layers": 1}, 4)
 # phase 10f, Function vs all-plain autograd on the card: rmsnorm's kernel
@@ -2505,8 +2568,9 @@ DONATION_RUN = ("qwen3-14b", {"n_layers": 1}, 4)
 
 
 def _autograd_cases():
-    """(kernel, label, fn, plain fn, args) at small shapes and at the
-    training path's shapes."""
+    """(kernel, label, fn, plain fn, args, library) at small shapes and at
+    the training path's shapes; ``library`` (None but for the bfloat16
+    flash cases) times the library's backward on the case's args."""
     import torch
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import rmsnorm as RN
@@ -2560,15 +2624,21 @@ def _autograd_cases():
     x, g = _rms_case((4, TRAIN_SEQ, 8, 256), 40 + len(cases))
     cases.append(("rmsnorm", "gemma3_qk_rows_b4", RN.rmsnorm,
                   RN.rmsnorm_plain, (x, g)))
-    # the bfloat16 train path: flash's Function at qwen3-14b's and
-    # command-r-35b's training shapes (its forward on the Hopper route) and
-    # at gemma3-4b's local and global layers in bfloat16 (d 256: the mma
-    # route), rmsnorm at qwen3's width and over its qk-norm rows (head_dim
-    # 128), scale in bf16
+    # deepseek-v2-lite-16b's kv_norm over the 512-wide MLA latent (its
+    # norm1 / norm2 at d 2048 are musicgen's width)
+    x, g = _rms_case((TRAIN_BATCH, TRAIN_SEQ, 512), 40 + len(cases))
+    cases.append(("rmsnorm", "deepseek_kv_norm_d512", RN.rmsnorm,
+                  RN.rmsnorm_plain, (x, g)))
+    # the bfloat16 train path: flash's Function at qwen3-14b's,
+    # command-r-35b's and dbrx-132b's training shapes (its forward on the
+    # Hopper route) and at gemma3-4b's local and global layers in bfloat16
+    # (d 256: the mma route), rmsnorm at qwen3's and dbrx's widths and over
+    # qwen3's qk-norm rows (head_dim 128), scale in bf16
     for label, (b, s, h, kv, d, window) in (
             ("qwen3_train_bf16", (TRAIN_BATCH, TRAIN_SEQ, 40, 8, 128, 0)),
             ("command_r_train_bf16",
              (TRAIN_BATCH, TRAIN_SEQ, 64, 8, 128, 0)),
+            ("dbrx_train_bf16", (4, TRAIN_SEQ, 48, 8, 128, 0)),
             ("gemma3_local_train_bf16", (4, TRAIN_SEQ, 8, 4, 256, 1024)),
             ("gemma3_global_train_bf16", (4, TRAIN_SEQ, 8, 4, 256, 0))):
         q, k, v = (t.to(torch.bfloat16) for t in _flash_case(
@@ -2578,15 +2648,18 @@ def _autograd_cases():
                           q, k, v, window=w),
                       lambda q, k, v, w=window: FA.attention_plain(
                           q, k, v, window=w),
-                      (q, k, v)))
+                      (q, k, v),
+                      lambda q, k, v, w=window: _sdpa_backward_ms(
+                          q, k, v, window=w)))
     for label, shape in (
             ("qwen3_train_d5120_bf16", (TRAIN_BATCH, TRAIN_SEQ, 5120)),
-            ("qwen3_qk_rows_bf16", (TRAIN_BATCH * TRAIN_SEQ * 40, 128))):
+            ("qwen3_qk_rows_bf16", (TRAIN_BATCH * TRAIN_SEQ * 40, 128)),
+            ("dbrx_train_d6144_bf16", (4, TRAIN_SEQ, 6144))):
         x, g = (t.to(torch.bfloat16) for t in _rms_case(shape,
                                                         40 + len(cases)))
         cases.append(("rmsnorm", label, RN.rmsnorm, RN.rmsnorm_plain,
                       (x, g)))
-    return cases
+    return [case + (None,) * (6 - len(case)) for case in cases]
 
 
 def _lm_within(a, b, tol, big=None):
@@ -2768,6 +2841,25 @@ def _rms_func_routes(args, tol):
     return out
 
 
+def _sdpa_backward_ms(q, k, v, window=0):
+    """Device ms of the backward of one causal ``scaled_dot_product_
+    attention`` call (GQA by ``enable_gqa``; under a window a boolean
+    mask) on q / k / v, with a fixed cotangent: the library's time for
+    flash's backward, which the port computes by the plain version's vjp.
+    Profiled, as CUDA events around ``autograd.grad`` time the host at
+    gemma3's 0.24 ms of device work (0.51 ms)."""
+    import torch
+    req = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    out = _sdpa_library(*req, True, window)()
+    g = _randn(tuple(out.shape), 92).to(out.dtype)
+
+    def bwd():
+        return torch.autograd.grad(out, req, g, retain_graph=True)
+    ms = _device_ms(bwd, 5)
+    del out, req
+    return ms
+
+
 def lm_autograd_on_card():
     """Phase 10f: the LM kernels' autograd on the card.  Returns per
     kernel and case the errors and, at the training shapes, the device
@@ -2781,7 +2873,7 @@ def lm_autograd_on_card():
     import torch
     from repro_torch.kernels import flash_attention as FA
     rows = []
-    for name, label, fn, plain, args in _autograd_cases():
+    for name, label, fn, plain, args, library in _autograd_cases():
         tol = LM_TOL[name]
         w = _randn(tuple(fn(*args).shape), 90)
         before = dict(FA.ROUTE_LAUNCHES)
@@ -2824,6 +2916,8 @@ def lm_autograd_on_card():
             row["bwd_transient_gb"] = (torch.cuda.max_memory_allocated()
                                        - base) / 1e9
             del out, req, grads
+            if library is not None:
+                row["library_bwd_ms"] = library(*args)
         rows.append(row)
         extra = " ".join(f"{k}_err={row[k]:g}" for k in
                          ("loop", "vjp_loop", "vmap_grad_fold",
@@ -2837,6 +2931,8 @@ def lm_autograd_on_card():
               + (f" bwd_ms={row['bwd_ms']:.6f} bwd_transient_gb="
                  f"{row['bwd_transient_gb']:.3f}" if "bwd_ms" in row
                  else "")
+              + (f" library_bwd_ms={row['library_bwd_ms']:.6f}"
+                 if "library_bwd_ms" in row else "")
               + " launches_exact=True"
               + f" ok={ok}", flush=True)
         if not ok:
@@ -2899,8 +2995,12 @@ def train_path(arch, compress, steps, batch=TRAIN_BATCH, changes=None):
     flash_route = ("hopper" if cfg.param_dtype == "bfloat16"
                    and cfg.head_dim_ == 128 else "mma")
     moments = res["state"]["opt"]["m"]
+    # the MoE router stays float32 whatever the parameters' dtype
     dtypes = sorted({str(t.dtype).replace("torch.", "")
-                     for t in tree_leaves(res["state"]["params"])})
+                     for t in tree_leaves(_without_routers(
+                         res["state"]["params"]))})
+    router_dtypes = sorted({str(t.dtype).replace("torch.", "")
+                            for t in _routers(res["state"]["params"])})
     moment_dtypes = sorted({str(t.dtype).replace("torch.", "")
                             for t in tree_leaves(moments)})
     embed_moment = float(moments["embed"].abs().max())
@@ -2934,7 +3034,8 @@ def train_path(arch, compress, steps, batch=TRAIN_BATCH, changes=None):
           f"step0_s={res['step_s'][0]:.6f} "
           f"later_s={res['step_s'][1:]} "
           f"peak_mem_gb={row['peak_mem_gb']:.3f} "
-          f"param_dtypes={dtypes} moment_dtypes={moment_dtypes} "
+          f"param_dtypes={dtypes} router_dtypes={router_dtypes} "
+          f"moment_dtypes={moment_dtypes} "
           f"launches={counts} "
           f"launches_per_step={row['launches_per_step']} "
           f"flash_routes={routes} "
@@ -2949,9 +3050,10 @@ def train_path(arch, compress, steps, batch=TRAIN_BATCH, changes=None):
     if routes[flash_route] != counts["flash_attention"]:
         raise AssertionError(f"{arch}: flash launches by route {routes}, "
                              f"all expected on {flash_route!r}")
-    if dtypes != [cfg.param_dtype] or moment_dtypes != ["float32"]:
-        raise AssertionError(f"{arch}: parameters {dtypes}, moments "
-                             f"{moment_dtypes}")
+    if (dtypes != [cfg.param_dtype] or moment_dtypes != ["float32"]
+            or router_dtypes not in ([], ["float32"])):
+        raise AssertionError(f"{arch}: parameters {dtypes}, routers "
+                             f"{router_dtypes}, moments {moment_dtypes}")
     if not (embed_moment > 0.0
             and all(v > 0.0 for v in layer_moments.values())):
         raise AssertionError(f"{arch}: a leaf behind a kernel got no "
@@ -3042,16 +3144,125 @@ def donation_check():
     return row
 
 
+# phase 10g's remat check: (arch, changes, batch) at full width, a depth
+# that holds every activation with remat off; the losses within
+# REMAT_LOSS_TOL, the gradients within phase 4b's tolerance of the
+# kernels on its path (rmsnorm's forward and backward) of each leaf's
+# largest
+REMAT_RUN = ("deepseek-v2-lite-16b", {"n_layers": 3}, TRAIN_BATCH)
+REMAT_LOSS_TOL = 1e-5
+REMAT_GRAD_TOL = max(LM_TOL["rmsnorm"], LM_TOL["rmsnorm_backward"])
+
+
+def moe_remat_check():
+    """Phase 10g's remat check: the train step's objective and gradients
+    (``distributed.loss_and_grads``) of REMAT_RUN at full width, seq 1024,
+    from one set of weights and one batch, with remat on and off.  Routing
+    first: with remat on every router call runs twice, in the forward and
+    in the backward's recompute (periods in reverse order); the recompute's
+    expert choices and grouped-dispatch kept slots must equal the
+    forward's, and the forward's those of the run without remat.  Then the
+    losses (ce + aux) within REMAT_LOSS_TOL and every gradient within
+    REMAT_GRAD_TOL of its leaf's largest value."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import distributed as D
+    from repro_torch.launch import train as TR
+    from repro_torch.models import transformer as T
+    arch, changes, batch = REMAT_RUN
+    cfg = dataclasses.replace(get_config(arch), **changes)
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    params = T.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    b = TR.synth_batch(cfg, torch.Generator(device=dev).manual_seed(0),
+                       batch, TRAIN_SEQ, 4)
+    runs = {}
+    for remat in (True, False):
+        routes, unroute = _route_spy()
+        tally, uncount = _count_moe_slots()
+        try:
+            grads, _, _, m = D.loss_and_grads(
+                cfg, D.DistOptions(cut=cfg.default_cut, remat=remat),
+                params, b)
+        finally:
+            unroute()
+            uncount()
+        runs[remat] = (grads, {k: float(v) for k, v in m.items()}, routes,
+                       tally["keeps"])
+        del grads
+    (g_on, m_on, r_on, k_on), (g_off, m_off, r_off, k_off) = (runs[True],
+                                                              runs[False])
+    n = len(r_off)
+
+    def same(a, b):
+        return len(a) == len(b) and all(torch.equal(x, y)
+                                        for x, y in zip(a, b))
+    # the backward recomputes the periods last to first
+    recompute_routes = same(r_on[:n], r_on[n:][::-1])
+    recompute_kept = same(k_on[:n], k_on[n:][::-1])
+    forward_same = same(r_on[:n], r_off) and same(k_on[:n], k_off)
+    loss_err = max(abs(m_on[k] - m_off[k]) for k in ("loss", "ce", "aux"))
+    grad_rel = max(float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                    1e-30)
+                   for a, b in zip(g_on, g_off))
+    slots = sum(k.numel() for k in k_off)
+    dropped = 1.0 - sum(int(k.sum()) for k in k_off) / max(slots, 1)
+    ok = (n > 0 and len(r_on) == 2 * n and len(k_on) == 2 * n
+          and recompute_routes and recompute_kept and forward_same
+          and loss_err <= REMAT_LOSS_TOL and grad_rel <= REMAT_GRAD_TOL)
+    row = {"arch": arch, "layers": cfg.n_layers, "batch": batch,
+           "moe_calls": n, "loss_remat": m_on["loss"],
+           "loss_no_remat": m_off["loss"], "aux": m_on["aux"],
+           "max_loss_err": loss_err, "max_grad_rel_err": grad_rel,
+           "grad_tol": REMAT_GRAD_TOL,
+           "recompute_routing_equal": recompute_routes,
+           "recompute_kept_equal": recompute_kept,
+           "remat_forward_equals_no_remat": forward_same,
+           "dropped_share": dropped, "ok": ok}
+    print(f"remat_check {arch} layers={cfg.n_layers} batch={batch} "
+          f"moe_calls={n} loss_remat={m_on['loss']!r} "
+          f"loss_no_remat={m_off['loss']!r} aux={m_on['aux']!r} "
+          f"max_loss_err={loss_err:g} max_grad_rel_err={grad_rel:g} "
+          f"grad_tol={REMAT_GRAD_TOL:g} "
+          f"recompute_routing_equal={recompute_routes} "
+          f"recompute_kept_equal={recompute_kept} "
+          f"remat_forward_equals_no_remat={forward_same} "
+          f"dropped_share={dropped:.6f} ok={ok}", flush=True)
+    del runs, g_on, g_off, params
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError(f"remat check: {row}")
+    return row
+
+
+def _routers(tree):
+    """The MoE routers of a parameter (or moment) tree."""
+    return [layer["ffn"]["router"] for seg in tree["segments"]
+            for period in seg for layer in period
+            if "router" in layer.get("ffn", {})]
+
+
+def _without_routers(tree):
+    """The tree's leaves but the MoE routers."""
+    from repro_torch.tree import tree_leaves
+    ids = {id(t) for t in _routers(tree)}
+    return [t for t in tree_leaves(tree) if id(t) not in ids]
+
+
 def _layer_moments(moments):
     """The smallest, over the layers, of the largest adamw first moment of
     a leaf whose gradient comes only through that layer: the attention's
-    ``wk`` (its gradient is flash's key gradient), the SSM's ``A_log``
-    (the SSD scan's), the RG-LRU's ``w_a`` (its gate's, through the plain
-    scan), ``norm1``'s scale (the rmsnorm's) and, under qk-norm, the
-    ``q_norm`` and ``k_norm`` scales (the qk-norm rows' rmsnorm backward
-    kernel).  The embedding's gradient also reaches it around every mixer
-    on the residual stream, so it alone shows only the final norm's
-    backward."""
+    ``wk`` (its gradient is flash's key gradient), MLA's ``w_dkv`` (through
+    ``kv_norm``'s rmsnorm backward kernel), the SSM's ``A_log`` (the SSD
+    scan's), the RG-LRU's ``w_a`` (its gate's, through the plain scan),
+    ``norm1``'s scale (the rmsnorm's), under qk-norm the ``q_norm`` and
+    ``k_norm`` scales (the qk-norm rows' rmsnorm backward kernel) and an
+    MoE FFN's router (its gates' and the aux loss's gradient, through the
+    top-k and, under remat, the recompute).  The embedding's gradient also
+    reaches it around every mixer on the residual stream, so it alone
+    shows only the final norm's backward."""
     layers = [layer for seg in moments["segments"] for period in seg
               for layer in period]
 
@@ -3059,7 +3270,8 @@ def _layer_moments(moments):
         return min(float(t.abs().max()) for t in leaves)
 
     def mixer_leaf(mixer):
-        return mixer[next(k for k in ("wk", "A_log", "w_a") if k in mixer)]
+        return mixer[next(k for k in ("wk", "w_dkv", "A_log", "w_a")
+                          if k in mixer)]
 
     out = {"mixer": least(mixer_leaf(layer["mixer"]) for layer in layers),
            "norm1": least(layer["norm1"]["scale"] for layer in layers)}
@@ -3067,6 +3279,8 @@ def _layer_moments(moments):
           if k in layer["mixer"]]
     if qk:
         out["qk_norm"] = least(qk)
+    if _routers(moments):
+        out["router"] = least(_routers(moments))
     return out
 
 
@@ -3090,7 +3304,10 @@ def _train_smoke_config(arch):
 # differ from float32's (same bfloat16-valued weights) by at most 5.4 %
 # (gemma3-smoke in bfloat16 under int8: 2.5-5.4 %, qwen3 / command-r
 # 1.8-3.5 %), card and CPU by less (they round at the same places).  The
-# loss: on the card 1e-5 to 3.5e-4 from the CPU's
+# loss: on the card 1e-5 to 3.5e-4 from the CPU's for qwen3 / command-r /
+# gemma3, 5.6e-4 (routed as the card) to 6.6e-4 for dbrx-smoke's three MoE
+# layers (H100); routed its own way, two near-tie tokens of dbrx-smoke's
+# 256 moved the CPU's loss to 9.9e-4 from the card's
 BF16_MOMENT_RTOL = 0.1
 BF16_LOSS_TOL = 1e-3
 
@@ -3106,11 +3323,51 @@ def _moment_rel_err(want, got):
     return worst
 
 
+def _routing_apart(a, b):
+    """Two runs' routings (per MoE call, (t, k) expert ids): the (token,
+    choice) slots whose expert differs, and the tokens whose set of
+    experts differs (a slot can differ by a swap of two near-tied
+    choices)."""
+    if len(a) != len(b):
+        raise AssertionError(f"{len(a)} and {len(b)} MoE calls")
+    slots = sum(int((x != y).sum()) for x, y in zip(a, b))
+    tokens = sum(int((x.sort(-1).values != y.sort(-1).values).any(-1)
+                     .sum()) for x, y in zip(a, b))
+    return slots, tokens
+
+
+def _flip_margins(cpu, card, cpu_probs, card_probs):
+    """For each token that the card routed to another set of experts than
+    the CPU: the CPU's margin that the card crossed, the least CPU
+    probability among the experts only the CPU chose less the largest
+    among those only the card chose, in bfloat16 ulps of the former.
+    Raises unless the card's choices are the top-k of the card's own
+    probabilities (``moe.top_k`` on them), so a flip comes from the
+    probabilities, never from the selection."""
+    import torch
+    from repro_torch.models import moe
+    margins = []
+    for a, b, pa, pb in zip(cpu, card, cpu_probs, card_probs):
+        if not torch.equal(moe.top_k(pb, b.shape[-1])[1], b):
+            raise AssertionError("the card's expert choices are not the "
+                                 "top-k of its own router probabilities")
+        for t in torch.nonzero((a.sort(-1).values != b.sort(-1).values)
+                               .any(-1)).flatten().tolist():
+            only_a = [e for e in a[t].tolist() if e not in b[t].tolist()]
+            only_b = [e for e in b[t].tolist() if e not in a[t].tolist()]
+            low = min(float(pa[t, e]) for e in only_a)
+            high = max(float(pa[t, e]) for e in only_b)
+            ulp = 2.0 ** (math.floor(math.log2(low)) - 7)
+            margins.append((low - high) / ulp)
+    return margins
+
+
 def train_cpu_vs_card():
     """Phase 10h: one sgd train step (lr 1e-2, clip 1.0) of each trained
-    arch's reduced config (:func:`_train_smoke_config`), cut 1, on the
-    CPU and on the card from the same weights and batch (64 positions
-    drawn by ``launch.train.synth_batch`` on the CPU: tokens, patch
+    arch's reduced config (:func:`_train_smoke_config`; deepseek's MLA +
+    MoE period and its tail, dbrx's three MoE periods in bfloat16), cut 1,
+    on the CPU and on the card from the same weights and batch (64
+    positions drawn by ``launch.train.synth_batch`` on the CPU: tokens, patch
     embeddings, codebooks), TF32 off: remat on with the smashed data dense
     and as int8, and remat off with it dense.  The updates within
     STEP_RTOL of the largest update, the losses within 1e-4, and the
@@ -3119,9 +3376,19 @@ def train_cpu_vs_card():
     their int8 trip the bf16 codec) take an adamw step instead (lr 1e-2,
     clip 1.0): each leaf's first moment within BF16_MOMENT_RTOL of the
     CPU's in norm (:func:`_moment_rel_err`), the losses within
-    BF16_LOSS_TOL, the parameters bfloat16 and the moments float32.  Each
-    side steps its own copy of the weights (the step donates its
-    state)."""
+    BF16_LOSS_TOL, the parameters bfloat16 (the MoE router float32) and
+    the moments float32.  An MoE's routing is compared first: the (token,
+    choice) slots the card routed elsewhere than the CPU, over the
+    forward's and the recompute's router calls, are counted and printed.
+    A float32 step is held to its tolerance as it ran, so a flip fails it
+    there, printed, never silently.  In bfloat16 the card's and the CPU's
+    activations round at other places, so a router near tie can fall
+    either way: the card's choices must be the top-k of its own
+    probabilities (:func:`_flip_margins`, the CPU margin each routed-apart
+    token crossed printed in bfloat16 ulps), and the card's step is held
+    to a CPU step that routes as the card did (:func:`_route_pin`), the
+    free CPU step's loss printed beside it.  Each side steps its own copy
+    of the weights (the step donates its state)."""
     import torch
     from repro_torch import kernels
     from repro_torch.core import distributed as D
@@ -3141,23 +3408,47 @@ def train_cpu_vs_card():
                                  optimizer="adamw" if bf16 else "sgd",
                                  learning_rate=SGD_LR,
                                  compress_smashed=compress, remat=remat)
-            outs = {}
-            for where in ("cpu", "cuda"):
+
+            def side(where, pin=None):
+                """One step on ``where`` from a copy of the weights,
+                routed as ``pin`` when given: (parameters, loss, first
+                moments), the routes, their probabilities, the launches."""
                 kernels.reset_launches()
                 p = tree_map(lambda a: a.to(where, copy=True), params)
                 state = {"params": p,
                          "opt": D.make_optimizer(opts).init(p),
                          "step": torch.zeros((), dtype=torch.int32,
                                              device=where)}
-                new, m = D.make_train_step(cfg, opts)(
-                    state, {k: v.to(where) for k, v in batch.items()})
-                outs[where] = ([t.cpu() for t in tree_leaves(
-                    new["params"])], float(m["loss"]),
-                    [t.cpu() for t in tree_leaves(new["opt"].get("m", []))])
-            counts = kernels.launch_counts()
+                probs = []
+                routes, unwrap = _route_spy(probs)
+                unpin = _route_pin(pin) if pin is not None else None
+                try:
+                    new, m = D.make_train_step(cfg, opts)(
+                        state, {k: v.to(where) for k, v in batch.items()})
+                finally:
+                    unwrap()
+                    if unpin is not None:
+                        unpin()
+                out = ([t.cpu() for t in tree_leaves(new["params"])],
+                       float(m["loss"]),
+                       [t.cpu() for t in tree_leaves(new["opt"].get("m",
+                                                                    []))])
+                torch.cuda.synchronize()
+                return out, routes, probs, kernels.launch_counts(), new
+            cpu, routes_cpu, probs_cpu, _, _ = side("cpu")
+            card, routes_card, probs_card, counts, new = side("cuda")
+            # an MoE's routing first: the (token, choice) slots a near tie
+            # of the router sends elsewhere on the card
+            slots_apart, tokens_apart = _routing_apart(routes_cpu,
+                                                       routes_card)
+            margins = _flip_margins(routes_cpu, routes_card, probs_cpu,
+                                    probs_card)
+            free_loss = cpu[1]
+            if bf16 and tokens_apart:
+                cpu = side("cpu", pin=routes_card)[0]
             want = dict.fromkeys(counts, 0)
             want.update(_train_launches(cfg, compress, 1, remat))
-            (pa, la, ma), (pb, lb, mb) = outs["cpu"], outs["cuda"]
+            (pa, la, ma), (pb, lb, mb) = cpu, card
             init = tree_leaves(params)
             moved = max(float((a.float() - a0.float()).abs().max())
                         for a, a0 in zip(pa, init))
@@ -3169,7 +3460,10 @@ def train_cpu_vs_card():
                 rel = _moment_rel_err(ma, mb)
                 close = (rel <= BF16_MOMENT_RTOL
                          and abs(la - lb) <= BF16_LOSS_TOL
-                         and {t.dtype for t in pb} == {torch.bfloat16}
+                         and {t.dtype for t in _without_routers(
+                             new["params"])} == {torch.bfloat16}
+                         and {t.dtype for t in _routers(
+                             new["params"])} <= {torch.float32}
                          and {t.dtype for t in mb} == {torch.float32}
                          and all(bool(torch.isfinite(t).all())
                                  for t in mb))
@@ -3183,7 +3477,13 @@ def train_cpu_vs_card():
                   f"dtype={cfg.param_dtype} compress={compress} "
                   f"remat={remat} loss_cpu={la!r} loss_card={lb!r} "
                   f"max_param_diff={diff:g} max_update={moved:g} "
-                  f"diff_{measure}={rel:g} launches={counts}", flush=True)
+                  f"diff_{measure}={rel:g} moe_calls={len(routes_cpu)} "
+                  f"slots_routed_apart={slots_apart} "
+                  f"tokens_routed_apart={tokens_apart} "
+                  f"flip_margins_bf16_ulps={[round(x, 4) for x in margins]} "
+                  f"cpu_routed_as_card={bool(bf16 and tokens_apart)} "
+                  f"loss_cpu_own_routing={free_loss!r} "
+                  f"launches={counts}", flush=True)
             if (not close
                     or not all(bool(torch.isfinite(t).all()) for t in pb)):
                 raise AssertionError(f"{key}: card and CPU disagree "
@@ -3199,12 +3499,19 @@ def train_cpu_vs_card():
 # and audio frontends stay refused there, as in the reference), at their
 # reduced configs: smollm / mamba2 one layer, gemma3 its period and tail
 # (10 attention layers under qk-norm), recurrentgemma its period and tail
-# (one local attention among 4 RG-LRU layers), and qwen3-14b's one layer
-# in bfloat16 (qk-norm; its units bfloat16, the FedAvg and the codec on
-# bfloat16 leaves and smashed data)
+# (one local attention among 4 RG-LRU layers), qwen3-14b's one layer in
+# bfloat16 (qk-norm; its units bfloat16, the FedAvg and the codec on
+# bfloat16 leaves and smashed data) and deepseek-v2-lite-16b's MLA + MoE
+# period and its MLA + dense tail (the MoE's dense path batched over a
+# bucket's replicas under vmap; the units drop the aux loss, as the
+# reference's).  Each arch runs every one of LM_FED_RUNS on a fleet of
+# LM_FED_SAMPLES samples a vehicle (one batch of 16, so 5 local steps of
+# the spec's 5 epochs): the spec's 64 took the phase 35-58 s with one arch
+# fewer
 LM_FED_ARCHS = ("smollm-360m", "mamba2-780m", "gemma3-4b",
-                "recurrentgemma-2b", "qwen3-14b")
+                "recurrentgemma-2b", "qwen3-14b", "deepseek-v2-lite-16b")
 LM_FED_RUNS = (("asfl", "vmap"), ("asfl", "unroll"), ("fl", "vmap"))
+LM_FED_SAMPLES = 16
 
 
 def _unit_launches(cfg):
@@ -3224,7 +3531,8 @@ def _unit_launches(cfg):
 
 def lm_fed_path(arch, scheme, mode):
     """Phase 10i: ``api.run`` of the reduced LM on ``single_rsu`` (4
-    vehicles, the paper's spec, one round; ``asfl`` over ``topk_int8``),
+    vehicles of LM_FED_SAMPLES samples, the paper's spec otherwise, one
+    round; ``asfl`` over ``topk_int8``),
     the launch counters zeroed just before and read just after.  Checks
     finite loss, accuracy in [0, 1], the cuts, wire bytes = the cost
     model's at the data's 8 tokens a sample, and every launch count: the
@@ -3244,6 +3552,7 @@ def lm_fed_path(arch, scheme, mode):
     spec = api.ExperimentSpec(
         model=arch, train=api.TrainConfig(scheme=scheme, rounds=1,
                                           wire=wire),
+        fleet=api.FleetConfig(per_vehicle_samples=LM_FED_SAMPLES),
         runtime=api.RuntimeConfig(cohort_parallel=mode))
     tr, f = spec.train, spec.fleet
     entry = api.model_entry(arch)
@@ -4191,6 +4500,7 @@ def main() -> int:
     training = [train_path(*run) for run in TRAIN_RUNS]
     _lap("train_runs")
     donation = donation_check()
+    remat = moe_remat_check()
     _lap("donation")
     train_worst = train_cpu_vs_card()
     _lap("train_cpu_vs_card")
@@ -4205,7 +4515,7 @@ def main() -> int:
                                  f"cuts: {vmap_run['cuts']} / "
                                  f"{loop_run['cuts']}")
     print(json.dumps({"training": {"autograd": autograd, "runs": training,
-                                   "donation": donation,
+                                   "donation": donation, "remat": remat,
                                    "cpu_vs_card": train_worst,
                                    "federation": lm_fed}}))
     # the parallel schedule runs after every earlier phase, so their

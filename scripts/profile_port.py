@@ -23,10 +23,11 @@
    (``TRAIN_RUNS`` without int8 smashed data), at full width, at that
    phase's depth, batch and dtype (smollm-360m, mamba2-780m, internvl2-1b
    and musicgen-large whole at batch 8, recurrentgemma-2b one period and
-   its tail, gemma3-4b one period at batch 4; in bfloat16 qwen3-14b and
-   command-r-35b at their cut depth, gemma3-4b whole at batch 4; seq
-   1024, the default cut, adamw, clip 1.0, remat, the donated step) after
-   one warm-up step.
+   its tail, gemma3-4b one period at batch 4, deepseek-v2-lite-16b at its
+   cut depth; in bfloat16 qwen3-14b and command-r-35b at their cut depth,
+   gemma3-4b whole at batch 4, dbrx-132b one layer at batch 4; seq 1024,
+   the default cut, adamw, clip 1.0, remat, the donated step) after one
+   warm-up step.
 5. With ``city``: one round of ``chip_smoke.py`` phase 10l's city cell
    (4096 vehicles, 256 RSUs, mlp9, ``none``, parallel ragged, mobility
    churn) after one warm-up round, unpaged and at ``page_slots=128``,

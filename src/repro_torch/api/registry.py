@@ -1,12 +1,13 @@
 """String-keyed registries of the port's front door (twin of
 ``repro.api.registry``, holding what is ported so far).
 
-Models ``resnet18``, ``mlp9`` and every text arch the port trains
+Models ``resnet18``, ``mlp9`` and every text arch of the reference
 (``smollm-360m``, ``mamba2-780m``, ``gemma3-4b``, ``recurrentgemma-2b``,
-and in bfloat16 ``qwen3-14b`` and ``command-r-35b``: a
-``TransformerUnitModel`` of the reduced config by default,
-``model_kwargs={"reduced": False}`` for the full stack; the served-only
-``configs.SERVE_ONLY``, the MLA / MoE archs, are "not ported yet");
+``deepseek-v2-lite-16b`` (MLA, MoE), and in bfloat16 ``qwen3-14b``,
+``command-r-35b`` and ``dbrx-132b`` (MoE): a ``TransformerUnitModel`` of
+the reduced config by default, ``model_kwargs={"reduced": False}`` for the
+full stack; an arch in ``configs.SERVE_ONLY``, none today, would be "not
+ported yet");
 scenarios ``single_rsu`` (the
 single-RSU ``FederationSim``) and the ported multi-RSU scenarios of
 ``core/scenario.py`` (the ``ScenarioEngine``); every cut strategy and wire
@@ -126,7 +127,7 @@ MODELS: Dict[str, ModelEntry] = {
     **_text_arch_entries(),
 }
 # the reference's arch ids the port does not train yet: the archs it
-# serves only
+# serves only (none)
 NOT_PORTED_MODELS = _configs.SERVE_ONLY
 
 

@@ -2,15 +2,16 @@
 of the reference (twin of ``repro.configs``).  ``"<arch>-smoke"`` is the
 reduced variant.
 
-Every layer kind but MLA and the MoE FFN trains, with every frontend,
-qk-norm, rope and sinusoidal positions and the SwiGLU, GeGLU and GeLU MLPs,
-in float32 or bfloat16 parameters: each backward is held to the
-reference's ``jax.grad``.  A config that holds a layer whose training is
-not ported yet (MLA, an MoE FFN), or parameters in another dtype, is served
-(prefill and decode, ``launch/serve.py``) but not trained: the train step,
-``launch/train.py`` and ``TransformerUnitModel`` refuse it
-(:func:`check_trainable`).  ``SERVE_ONLY`` lists the arch ids that hold
-one: deepseek-v2-lite-16b (MLA, MoE) and dbrx-132b (MoE).
+Every layer kind trains -- attention (global, local, GQA / MQA, qk-norm),
+MLA, the MoE FFN (dense and grouped GShard dispatch, the aux load-balance
+loss in the objective), SSM and RG-LRU -- with every frontend, rope and
+sinusoidal positions and the SwiGLU, GeGLU and GeLU MLPs, in float32 or
+bfloat16 parameters: each backward is held to the reference's
+``jax.grad``.  A config whose parameters are in another dtype (float16)
+is served (prefill and decode, ``launch/serve.py``) but not trained: the
+train step, ``launch/train.py`` and ``TransformerUnitModel`` refuse it
+(:func:`check_trainable`).  ``SERVE_ONLY`` lists the arch ids that are
+served only: none (every registered arch is float32 or bfloat16).
 
 ``transformer.init_params`` builds an arch's parameters in its
 ``param_dtype`` (float32, or bfloat16 for qwen3-14b, command-r-35b and
@@ -56,16 +57,11 @@ TRAINED_DTYPES = ("float32", "bfloat16")
 
 def untrained_features(cfg: ArchConfig) -> List[str]:
     """What ``cfg`` holds whose backward the port has not checked against
-    the reference yet (empty: the config can be trained)."""
-    found = []
-    kinds = set(cfg.pattern) | set(cfg.tail)
-    if kinds & {MLA_DENSE, MLA_MOE}:
-        found.append("MLA layers")
-    if kinds & {ATTN_MOE, MLA_MOE}:
-        found.append("MoE FFNs")
+    the reference yet (empty: the config can be trained): parameters in a
+    dtype outside ``TRAINED_DTYPES``."""
     if cfg.param_dtype not in TRAINED_DTYPES:
-        found.append(f"{cfg.param_dtype} parameters")
-    return found
+        return [f"{cfg.param_dtype} parameters"]
+    return []
 
 
 def check_trainable(cfg: ArchConfig) -> None:

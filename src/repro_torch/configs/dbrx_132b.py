@@ -6,9 +6,10 @@ The memory-constrained adaptive cut strategy (core/adaptive.py) forces an
 early cut here: one DBRX MoE layer is ~3.3B params, far beyond any
 vehicle-side budget — exactly the paper's resource argument.
 
-Its parameters are bfloat16 (``param_dtype``, 263 GB): one card holds
-only its ``-smoke``.  Served, not trained: its MoE FFNs' backward is not
-ported yet (:func:`repro_torch.configs.check_trainable`).
+Its parameters are bfloat16 (``param_dtype``, 263 GB; the router
+float32): one card serves only its ``-smoke`` and trains one full-width
+layer.  It trains in bfloat16 with float32 moments, the MoE's aux
+load-balance loss in the objective.
 """
 from repro_torch.configs.base import ATTN_MOE, ArchConfig, MoEConfig
 

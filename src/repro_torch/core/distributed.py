@@ -12,10 +12,12 @@ quantizes and the RSU dequantizes with the codec kernels
 The train step is sync-SFL (aggregation every step, K = 1): client forward
 -> smashed boundary -> server forward / backward -> client backward, one
 |D_n|-weighted cross-entropy (:func:`weighted_ce`, the FedAvg objective of
-paper Eq. 1 inside one step, read in float32), global-norm clipping and the
-optimizer.  It trains float32 or bfloat16 parameters (``param_dtype``, as
-the reference's: the forward and backward in the parameters' dtype, the
-moments and the update in float32, the new parameter rounded back).
+paper Eq. 1 inside one step, read in float32) plus both sides' MoE aux
+load-balance losses, global-norm clipping and the optimizer.  The prefill
+and decode steps drop the aux loss, as the reference's do.  It trains
+float32 or bfloat16 parameters (``param_dtype``, as the reference's: the
+forward and backward in the parameters' dtype, the moments and the update
+in float32, the new parameter rounded back).
 The step donates its state, as ``jax.jit(step, donate_argnums=0)``: the
 optimizer runs leaf by leaf in place (``Optimizer.update_``), so the
 caller's state is consumed and the state returned is the same storage (a
@@ -161,11 +163,43 @@ def _labels_of(cfg: ArchConfig, batch) -> torch.Tensor:
     return batch["labels"]
 
 
+def loss_and_grads(cfg: ArchConfig, opts: DistOptions, params, batch):
+    """The train step's objective at ``params`` and its gradient in every
+    leaf: client forward -> the smashed boundary -> server forward and
+    head, ``ce`` the |D_n|-weighted cross-entropy (:func:`weighted_ce`),
+    ``aux`` both sides' MoE load-balance losses, ``loss = ce + aux`` (the
+    reference's ``ce + aux_c + aux_s``, in that order).  Returns (the
+    gradients and the parameter leaves, both in ``tree_flatten`` order,
+    the ``rebuild`` of that order, and {"loss", "ce", "aux"} as detached
+    device scalars; ``aux`` is 0 without an MoE layer)."""
+    cut = SP.clamp_cut(cfg, opts.cut)
+    leaves, rebuild = tree_flatten(params)
+    req = [t.detach().requires_grad_(True) for t in leaves]
+    client, server = SP.split_params(rebuild(req), cfg, cut)
+    smashed, positions, aux_c, _ = SP.client_forward(
+        client, cfg, batch, cut, "train", remat=opts.remat)
+    logits, aux_s, _ = SP.server_forward(
+        server, cfg, _cross(smashed, opts), positions, cut, "train",
+        remat=opts.remat)
+    ce = weighted_ce(logits, _labels_of(cfg, batch), batch["weights"],
+                     cfg.vocab_size,
+                     cfg.n_patches if cfg.frontend == "vision" else 0)
+    del logits
+    loss = ce + aux_c + aux_s
+    aux = aux_c + aux_s
+    if not torch.is_tensor(aux):      # the float 0.0: no MoE layer
+        aux = torch.zeros((), dtype=torch.float32, device=ce.device)
+    grads = list(torch.autograd.grad(loss, req))
+    return grads, leaves, rebuild, {"loss": loss.detach(),
+                                    "ce": ce.detach(), "aux": aux.detach()}
+
+
 def make_train_step(cfg: ArchConfig, opts: DistOptions,
                     donate: bool = True) -> Callable:
     """SFL round step: client fwd -> smashed boundary -> server fwd/bwd ->
-    client bwd -> the |D_n|-weighted loss, clipping, the optimizer.  The
-    step donates ``state`` (the reference's ``donate_argnums``): the
+    client bwd -> the |D_n|-weighted loss plus the MoE layers' aux
+    load-balance loss (:func:`loss_and_grads`), clipping, the optimizer.
+    The step donates ``state`` (the reference's ``donate_argnums``): the
     optimizer writes the parameters and moments in place, leaf by leaf, so
     the caller's state is consumed and the returned one holds the same
     tensors.  ``donate=False`` is the functional step (new parameter and
@@ -178,25 +212,10 @@ def make_train_step(cfg: ArchConfig, opts: DistOptions,
     as device scalars)."""
     check_trainable(cfg)
     opt = make_optimizer(opts)
-    cut = SP.clamp_cut(cfg, opts.cut)
 
     def train_step(state, batch):
-        leaves, rebuild = tree_flatten(state["params"])
-        req = [t.detach().requires_grad_(True) for t in leaves]
-        client, server = SP.split_params(rebuild(req), cfg, cut)
-        smashed, positions, _ = SP.client_forward(client, cfg, batch, cut,
-                                                  "train", remat=opts.remat)
-        logits, _ = SP.server_forward(server, cfg, _cross(smashed, opts),
-                                      positions, cut, "train",
-                                      remat=opts.remat)
-        ce = weighted_ce(logits, _labels_of(cfg, batch), batch["weights"],
-                         cfg.vocab_size,
-                         cfg.n_patches if cfg.frontend == "vision" else 0)
-        del logits
-        aux = torch.zeros((), dtype=torch.float32, device=ce.device)
-        loss = ce + aux
-        grads = list(torch.autograd.grad(loss, req))
-        del req
+        grads, leaves, rebuild, metrics = loss_and_grads(
+            cfg, opts, state["params"], batch)
         with torch.no_grad():
             if donate:
                 scale, gnorm = (optim.clip_scale(grads, opts.grad_clip)
@@ -214,8 +233,7 @@ def make_train_step(cfg: ArchConfig, opts: DistOptions,
                 updates, opt_state = opt.update(grads, state["opt"],
                                                 state["params"])
                 params = optim.apply_updates(state["params"], updates)
-        metrics = {"loss": loss.detach(), "ce": ce.detach(), "aux": aux,
-                   "grad_norm": gnorm}
+        metrics["grad_norm"] = gnorm
         return ({"params": params, "opt": opt_state,
                  "step": state["step"] + 1}, metrics)
 
@@ -233,9 +251,9 @@ def make_prefill_step(cfg: ArchConfig, opts: DistOptions,
 
     def prefill_step(params, batch):
         client, server = SP.split_params(params, cfg, cut)
-        smashed, positions, c_caches = SP.client_forward(
+        smashed, positions, _, c_caches = SP.client_forward(
             client, cfg, batch, cut, "prefill", capacity=capacity)
-        logits, s_caches = SP.server_forward(
+        logits, _, s_caches = SP.server_forward(
             server, cfg, _cross(smashed, opts), positions, cut, "prefill",
             capacity=capacity)
         return logits[:, -1:], (c_caches, s_caches)
@@ -253,10 +271,10 @@ def make_decode_step(cfg: ArchConfig, opts: DistOptions,
     def decode_step(params, batch, caches, pos: int):
         client, server = SP.split_params(params, cfg, cut)
         c_caches, s_caches = caches
-        smashed, positions, c_caches = SP.client_forward(
+        smashed, positions, _, c_caches = SP.client_forward(
             client, cfg, batch, cut, "decode", caches=c_caches,
             capacity=capacity, pos_offset=pos)
-        logits, s_caches = SP.server_forward(
+        logits, _, s_caches = SP.server_forward(
             server, cfg, _cross(smashed, opts), positions, cut, "decode",
             caches=s_caches, capacity=capacity)
         return logits, (c_caches, s_caches)

@@ -11,8 +11,10 @@ the head (final norm + LM head) lives with the RSU.  Batches use the
 fedsim convention: ``images`` = token ids (b, s), ``labels`` = next-token
 ids (b, s).  The units run in ``train`` mode without remat, as the
 reference's do, so the engines' ``torch.func`` transforms take them whole.
-The units are built in the config's ``param_dtype`` (bfloat16 for qwen3-14b
-and command-r-35b), as the reference's.
+The units are built in the config's ``param_dtype`` (bfloat16 for qwen3-14b,
+command-r-35b and dbrx-132b), as the reference's.  An MoE unit's aux
+load-balance loss is dropped, as the reference's ``apply_units`` drops it:
+the federation loss of an MoE arch is the cross-entropy alone.
 """
 from __future__ import annotations
 

@@ -8,9 +8,11 @@ periods with remat on by default, as the reference's ``_run_sliced``
 always does; ``remat=False`` keeps every period's activations instead.
 The caches are whatever each layer kind keeps (attention's K / V, MLA's
 latent ``c_kv`` / ``k_rope``, SSM and RG-LRU states), carried per period.
-The MoE layers' aux loss is not returned: the split steps serve, and the
-train step refuses a config with an MoE layer
-(:func:`repro_torch.configs.check_trainable`).
+Each side returns the aux load-balance loss of its MoE layers, summed (the
+float 0.0 where it holds none), as the reference's does: the train step
+adds both sides' to its objective, the prefill and decode steps drop it.
+Under remat the aux comes out of each checkpointed period beside its
+activations, so its gradient reaches the router through the recompute.
 """
 from __future__ import annotations
 
@@ -63,39 +65,24 @@ def client_forward(client: Params, cfg: ArchConfig, batch, cut: int,
                    mode: str = "prefill", caches=None, capacity: int = 0,
                    pos_offset: int = 0, remat: bool = True):
     """Vehicle-side forward: embed + periods [0, cut) -> smashed data.
-    Returns (smashed, positions, caches).  ``remat`` acts in train mode
-    only."""
+    Returns (smashed, positions, aux loss, caches).  ``remat`` acts in
+    train mode only."""
     positions = T.positions_of(cfg, batch, mode, pos_offset)
     x = T.embed_inputs(client, cfg, batch, positions)
-    x, new_caches = _run_sliced(client["segments"], cfg, x, mode, positions,
-                                caches, capacity, remat)
-    return x, positions, new_caches
+    x, aux, new_caches = T.run_segments(client["segments"], cfg, x, mode,
+                                        positions, caches, capacity, remat)
+    return x, positions, aux, new_caches
 
 
 def server_forward(server: Params, cfg: ArchConfig, smashed, positions,
                    cut: int, mode: str = "prefill", caches=None,
                    capacity: int = 0, remat: bool = True):
-    """RSU-side forward: periods [cut, P) + head -> (logits, caches).
-    ``remat`` acts in train mode only."""
-    x, new_caches = _run_sliced(server["segments"], cfg, smashed, mode,
-                                positions, caches, capacity, remat)
-    return T.unembed(server, cfg, x), new_caches
-
-
-def _run_sliced(sliced_segments, cfg: ArchConfig, x, mode, positions,
-                caches, capacity, remat):
-    """Run pre-sliced segments (the client or the server part)."""
-    out_caches = []
-    for si, (pat, _) in enumerate(T.segments_of(cfg)):
-        seg = sliced_segments[si]
-        if seg is None:
-            out_caches.append(None)
-            continue
-        seg_c = caches[si] if caches is not None else None
-        x, _, nc = T._scan_segment(seg, cfg, pat, x, mode, positions,
-                                   seg_c, capacity, remat)
-        out_caches.append(nc)
-    return x, tuple(out_caches)
+    """RSU-side forward: periods [cut, P) + head -> (logits, aux loss,
+    caches).  ``remat`` acts in train mode only."""
+    x, aux, new_caches = T.run_segments(server["segments"], cfg, smashed,
+                                        mode, positions, caches, capacity,
+                                        remat)
+    return T.unembed(server, cfg, x), aux, new_caches
 
 
 def init_split_caches(cfg: ArchConfig, batch: int, capacity: int, cut: int,

@@ -10,10 +10,12 @@ the optimizer writes the parameters and moments in place), on ``cuda``
 unless ``--device cpu`` is given (without a card it raises).  Text, vision
 (patch embeddings before the tokens; the loss on the text positions) and
 audio (K codebooks in, each frame's K codes as its targets) archs train, in
-their config's ``param_dtype``: qwen3-14b and command-r-35b in bfloat16
-(float32 moments), any other arch in bfloat16 through
-``dataclasses.replace(cfg, param_dtype="bfloat16")`` passed to
-:func:`train`.  MLA and MoE archs are refused (served only).
+their config's ``param_dtype``: qwen3-14b, command-r-35b and dbrx-132b in
+bfloat16 (float32 moments; the MoE router float32), any other arch in
+bfloat16 through ``dataclasses.replace(cfg, param_dtype="bfloat16")``
+passed to :func:`train`.  MLA and MoE archs (deepseek-v2-lite-16b,
+dbrx-132b) train with their aux load-balance loss in the objective;
+float16 parameters are refused.
 ``--smoke`` trains the reduced config; without it the full config at
 ``--batch`` / ``--seq``.  The reference's mesh shapes (``--shape``,
 ``--multi-pod``) are not ported.
@@ -24,6 +26,8 @@ their config's ``param_dtype``: qwen3-14b and command-r-35b in bfloat16
         --device cpu --steps 2 --seq 32
     python -m repro_torch.launch.train --arch internvl2-1b --smoke \\
         --device cpu --steps 2 --seq 32
+    python -m repro_torch.launch.train --arch deepseek-v2-lite-16b \\
+        --smoke --device cpu --steps 2 --seq 32
 """
 from __future__ import annotations
 
@@ -151,7 +155,7 @@ def main(argv=None) -> int:
     def log(i, m):
         if i % args.log_every == 0 or i == args.steps - 1:
             print(f"  step {i:4d} loss={m['loss']:.4f} ce={m['ce']:.4f} "
-                  f"grad_norm={m['grad_norm']:.4f} "
+                  f"aux={m['aux']:.6f} grad_norm={m['grad_norm']:.4f} "
                   f"({(time.perf_counter() - t0) / (i + 1):.2f}s/step)",
                   flush=True)
 

@@ -21,6 +21,14 @@ weights into one GEMM operand.
 
 DBRX: 16 routed top-4.  DeepSeek-V2-Lite: 64 routed top-6 + 2 shared.
 The aux load-balance loss follows Switch / GShard.
+
+Both paths train by autograd of these ops, as the reference's by
+``jax.grad``: the gates' gradient reaches the router through the top-k's
+chosen probabilities (the same experts as ``jax.lax.top_k``'s, ties
+included) and the renormalisation; a dropped slot's gate is zeroed before
+the combine, so no gradient reaches it; the aux loss's gradient flows
+through the mean router probabilities alone (its token fractions come from
+an integer one-hot).
 """
 from __future__ import annotations
 
@@ -60,6 +68,14 @@ def init_moe(gen: torch.Generator, cfg: ArchConfig,
     return p
 
 
+def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """``F.one_hot(idx, n)`` (int64) as a comparison with ``arange(n)``,
+    the reference's ``jax.nn.one_hot``: ``F.one_hot`` checks its indices'
+    range with a data-dependent read, which ``vmap`` of ``grad`` (the
+    engines' ``fl`` round) cannot batch."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).long()
+
+
 def top_k(probs: torch.Tensor, k: int):
     """(values, indices) of the k largest along the last axis, descending,
     a tie to the lower index first (``jax.lax.top_k``'s order)."""
@@ -76,7 +92,7 @@ def _route(p: Params, cfg: ArchConfig, xt: torch.Tensor):
     gate_vals, expert_idx = top_k(probs, m.top_k)
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
                                         min=1e-9)
-    onehot = F.one_hot(expert_idx, m.n_experts).float()
+    onehot = _one_hot(expert_idx, m.n_experts).float()
     frac_tokens = onehot.sum(1).mean(0)
     frac_probs = probs.mean(0)
     aux = (m.n_experts * torch.sum(frac_tokens / m.top_k * frac_probs)
@@ -85,10 +101,13 @@ def _route(p: Params, cfg: ArchConfig, xt: torch.Tensor):
 
 
 def _experts_dense(p: Params, cfg: ArchConfig, xt, gate_vals, expert_idx):
-    """All-experts compute, router-gated sum (decode path)."""
+    """All-experts compute, router-gated sum (decode path).  The gate
+    matrix is an out-of-place ``scatter`` into zeros (the reference's
+    one-hot sum, the same values), so ``torch.func.vmap`` batches it over
+    replicas' indices and gates."""
     t = xt.shape[0]
     w = torch.zeros((t, cfg.moe.n_experts), dtype=torch.float32,
-                    device=xt.device).scatter_(1, expert_idx, gate_vals)
+                    device=xt.device).scatter(1, expert_idx, gate_vals)
     # (t, d) @ (e, d, f) -> (e, t, f): each expert's weights as they lie
     h = F.silu(torch.matmul(xt, p["wi_gate"].to(xt.dtype)))
     h = h * torch.matmul(xt, p["wi_up"].to(xt.dtype))
@@ -124,7 +143,7 @@ def _experts_grouped(p: Params, cfg: ArchConfig, xt, gate_vals, expert_idx,
     idx = expert_idx.reshape(g, tpg, k)
     gates = gate_vals.reshape(g, tpg, k)
 
-    onehot = F.one_hot(idx, e)                                # (g,tpg,k,e)
+    onehot = _one_hot(idx, e)                                 # (g,tpg,k,e)
     flat = onehot.reshape(g, tpg * k, e)
     pos = (torch.cumsum(flat, dim=1) - flat).reshape(g, tpg, k, e)
     pos = (pos * onehot).sum(-1)                              # (g,tpg,k)
@@ -132,7 +151,7 @@ def _experts_grouped(p: Params, cfg: ArchConfig, xt, gate_vals, expert_idx,
     gates = torch.where(keep, gates, 0.0)
 
     # a dropped slot's row of the position one-hot is zeroed by its gate
-    slot = F.one_hot(pos.clamp(max=cap - 1), cap).float() * gates[..., None]
+    slot = _one_hot(pos.clamp(max=cap - 1), cap).float() * gates[..., None]
     combine = torch.einsum("gtke,gtkc->gtec",
                            (onehot * keep[..., None]).float(), slot)
     dispatch = (combine > 0).to(xt.dtype)                     # (g,tpg,e,cap)

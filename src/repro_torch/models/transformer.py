@@ -267,20 +267,38 @@ def forward_core(p: Params, cfg: ArchConfig, x: torch.Tensor, mode: str,
     range or a prefill returns it; ``remat`` acts in train mode only.
     Returns (x, aux loss, caches)."""
     end = total_periods(cfg) if end is None else end
+    segments, seg_caches = [], []
+    off = 0
+    for si, (_, n) in enumerate(segments_of(cfg)):
+        lo, hi = max(start - off, 0), min(end - off, n)
+        segments.append(p["segments"][si][lo:hi] if lo < hi else None)
+        seg_caches.append(caches[si][lo:hi]
+                          if caches is not None and lo < hi else None)
+        off += n
+    return run_segments(segments, cfg, x, mode, positions,
+                        seg_caches if caches is not None else None,
+                        capacity, remat)
+
+
+def run_segments(segments, cfg: ArchConfig, x: torch.Tensor, mode: str,
+                 positions=None, caches=None, capacity: int = 0,
+                 remat: bool = False):
+    """Run each segment's given periods in order (None: none of that
+    segment's), ``caches`` (decode) holding one list per segment for
+    those periods.  Returns (x, the aux loss summed over every period,
+    per-segment caches, None where a segment ran no period): the stack's
+    forward and each side of the split run this one loop."""
     out_caches = []
     aux = 0.0
-    off = 0
-    for si, (pat, n) in enumerate(segments_of(cfg)):
-        lo, hi = max(start - off, 0), min(end - off, n)
-        if lo < hi:
-            seg_c = caches[si][lo:hi] if caches is not None else None
-            x, a, nc = _scan_segment(p["segments"][si][lo:hi], cfg, pat, x,
-                                     mode, positions, seg_c, capacity, remat)
-            aux = aux + a
-            out_caches.append(nc)
-        else:
+    for si, (pat, _) in enumerate(segments_of(cfg)):
+        if segments[si] is None:
             out_caches.append(None)
-        off += n
+            continue
+        seg_c = caches[si] if caches is not None else None
+        x, a, nc = _scan_segment(segments[si], cfg, pat, x, mode, positions,
+                                 seg_c, capacity, remat)
+        aux = aux + a
+        out_caches.append(nc)
     return x, aux, tuple(out_caches)
 
 

@@ -22,9 +22,11 @@ for bit, launches per page, the paged peak memory below the unpaged),
 resnet18 under vmap against the loop on the card, the reduced LM configs
 served on cuda against the CPU (the bfloat16 archs' on bfloat16 weights),
 the optimizers' in-place step against their functional form bit for bit,
-a reduced bfloat16 train step (the donated one) against the CPU, and the
-MoE's grouped dispatch with drops
-on cuda against the CPU.  Needs a CUDA card and nvcc:
+a reduced bfloat16 train step (the donated one) against the CPU, the
+MoE's grouped dispatch with drops on cuda against the CPU, a reduced
+deepseek train step (MLA, MoE on both paths, routing compared first)
+against the CPU and the MoE's dense path under ``vmap``.  Needs a CUDA
+card and nvcc:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 
@@ -1120,6 +1122,112 @@ def test_reduced_lm_train_step_on_cuda_matches_cpu(dev, arch, compress):
                 for a, a0 in zip(pa, tree_leaves(params)))
     diff = max(float((a - b).abs().max()) for a, b in zip(pa, pb))
     assert diff <= 1e-2 * moved and abs(la - lb) <= 1e-4
+
+
+def _spy_routes(E, record):
+    """Wrap ``E._route`` to append each call's expert choices (on the CPU)
+    to ``record``; returns the function that undoes the wrap."""
+    route = E._route
+
+    def spy(p, cfg, xt):
+        res = route(p, cfg, xt)
+        record.append(res[2].cpu())
+        return res
+    E._route = spy
+    return lambda: setattr(E, "_route", route)
+
+
+@pytest.mark.parametrize("grouped", [False, True])
+def test_reduced_deepseek_train_step_on_cuda_matches_cpu(dev, grouped):
+    """One sgd train step (clip 1.0, remat, cut 1) of deepseek-v2-lite-16b-
+    smoke (an MLA + MoE period, the MLA + dense tail) from the same weights
+    and batch on the card and the CPU, on the dense MoE path and on the
+    grouped one (the dense budget 0, capacity factor 0.5, slots dropped).
+    The routing is compared first: every router call's (token, choice)
+    slots, the forward's and the remat recompute's, equal on both; then
+    the card's update within 1 % of the largest update of the CPU's, the
+    loss and the aux within 1e-4."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import distributed as D
+    from repro_torch.models import moe as E
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = get_config("deepseek-v2-lite-16b-smoke")
+    if grouped:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=0.5))
+    params = T.init_params(torch.Generator().manual_seed(0), cfg)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(4, 65)))
+    w = torch.tensor([0.5, 0.5, 0.25, 0.25])
+    opts = D.DistOptions(cut=1, optimizer="sgd", learning_rate=1e-2)
+    budget = E.DENSE_PATH_MAX_ELEMENTS
+    outs, routes = {}, {}
+    try:
+        if grouped:
+            E.DENSE_PATH_MAX_ELEMENTS = 0
+        for where in ("cpu", dev):
+            p = tree_map(lambda a: a.to(where, copy=True), params)
+            state = {"params": p, "opt": D.make_optimizer(opts).init(p),
+                     "step": torch.zeros((), dtype=torch.int32,
+                                         device=where)}
+            routes[str(where)] = []
+            undo = _spy_routes(E, routes[str(where)])
+            try:
+                new, m = D.make_train_step(cfg, opts)(
+                    state, {"tokens": toks[:, :-1].to(where),
+                            "labels": toks[:, 1:].to(where),
+                            "weights": w.to(where)})
+            finally:
+                undo()
+            outs[str(where)] = ([t.cpu() for t in tree_leaves(
+                new["params"])], float(m["loss"]), float(m["aux"]))
+    finally:
+        E.DENSE_PATH_MAX_ELEMENTS = budget
+    ra, rb = routes["cpu"], routes[str(dev)]
+    assert len(ra) == len(rb) == 2            # the forward and the remat
+    apart = sum(int((a != b).sum()) for a, b in zip(ra, rb))
+    assert apart == 0, f"{apart} (token, choice) slots routed apart"
+    (pa, la, xa), (pb, lb, xb) = outs["cpu"], outs[str(dev)]
+    moved = max(float((a - a0).abs().max())
+                for a, a0 in zip(pa, tree_leaves(params)))
+    diff = max(float((a - b).abs().max()) for a, b in zip(pa, pb))
+    assert diff <= 1e-2 * moved and abs(la - lb) <= 1e-4
+    assert xa > 0 and abs(xa - xb) <= 1e-4
+
+
+def test_moe_dense_path_under_vmap_on_cuda(dev):
+    """``_experts_dense`` (its gate matrix an out-of-place scatter) under
+    ``torch.func.vmap`` over two replicas' parameters, tokens and routing
+    on the card: equal to the per-replica calls within 1e-6 of the
+    largest, and the CPU's within 1e-5."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as E
+    from repro_torch.tree import tree_map
+    cfg = get_config("deepseek-v2-lite-16b-smoke")
+    reps = [E.init_moe(torch.Generator().manual_seed(i), cfg)
+            for i in range(2)]
+    stacked = tree_map(lambda *a: torch.stack(a), *reps)
+    x = torch.from_numpy(np.random.default_rng(1).normal(
+        size=(2, 40, cfg.d_model)).astype(np.float32))
+    routed = [E._route(reps[i], cfg, x[i]) for i in range(2)]
+    gates = torch.stack([r[1] for r in routed])
+    idx = torch.stack([r[2] for r in routed])
+
+    def fn(p, xt, g, i):
+        return E._experts_dense(p, cfg, xt, g, i)
+
+    got = torch.func.vmap(fn)(*tree_map(lambda a: a.to(dev),
+                                        (stacked, x, gates, idx)))
+    want = torch.stack([fn(*tree_map(lambda a: a.to(dev),
+                                     (reps[i], x[i], gates[i], idx[i])))
+                        for i in range(2)])
+    cpu = torch.func.vmap(fn)(stacked, x, gates, idx)
+    big = float(cpu.abs().max())
+    assert float((got - want).abs().max()) <= 1e-6 * big
+    assert float((got.cpu() - cpu).abs().max()) <= 1e-5 * big
 
 
 @pytest.mark.parametrize("name", ["sgd", "momentum", "adamw"])

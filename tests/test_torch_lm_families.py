@@ -71,11 +71,11 @@ def test_configs_match_reference(arch):
 
 
 def test_registry_holds_the_served_families():
-    """The families are registered and trained; the archs served only are
-    the MLA / MoE ones (the bfloat16 archs train since bfloat16 training
-    was ported)."""
+    """The families are registered and trained; no arch is served only
+    (the bfloat16 archs train since bfloat16 training was ported, the MLA
+    / MoE ones since their training was)."""
     assert set(FAMILIES) <= set(ARCH_IDS)
-    assert SERVE_ONLY == ("deepseek-v2-lite-16b", "dbrx-132b")
+    assert SERVE_ONLY == ()
     from repro.configs import ARCH_IDS as REF_IDS
     assert sorted(ARCH_IDS) == sorted(REF_IDS)
 
@@ -327,24 +327,24 @@ def test_training_the_served_families_is_refused(arch):
             TransformerUnitModel(cfg)
 
 
-# the features the families brought, now trained, and those still served
-# only
+# the features the families brought, now trained (MLA and the MoE FFN
+# too), and the one still served only
 TRAINED_CHANGES = [
     dict(frontend="vision"), dict(pattern=("attn", "attn_local"), n_layers=2),
     dict(tail=("rglru",), n_layers=2), dict(qk_norm=True),
     dict(pos="sinusoidal"),
     dict(mlp_variant="geglu"), dict(mlp_variant="gelu"),
-    dict(param_dtype="bfloat16")]
-REFUSED_CHANGES = [dict(pattern=("mla_dense",)), dict(pattern=("attn_moe",)),
-                   dict(param_dtype="float16")]
+    dict(param_dtype="bfloat16"), dict(pattern=("mla_dense",)),
+    dict(pattern=("attn_moe",))]
+REFUSED_CHANGES = [dict(param_dtype="float16")]
 
 
 @pytest.mark.parametrize("change", TRAINED_CHANGES + REFUSED_CHANGES)
 def test_training_refusal_follows_what_the_config_holds(change):
     """The refusal reads what a config holds, whatever its name: a trained
     arch that gains a frontend, local attention, RG-LRU, qk-norm,
-    sinusoidal positions, a GeGLU / GeLU MLP or bfloat16 parameters still
-    trains; one that gains an MLA layer, an MoE FFN or float16 parameters
+    sinusoidal positions, a GeGLU / GeLU MLP, bfloat16 parameters, an MLA
+    layer or an MoE FFN still trains; one that gains float16 parameters
     is refused as served only.  The trained archs as they are pass."""
     from repro_torch.configs import check_trainable, untrained_features
     from repro_torch.core import distributed as D

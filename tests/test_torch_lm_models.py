@@ -72,16 +72,18 @@ def test_configs_match_reference(arch):
 
 def test_unported_archs_raise():
     """Every arch id of the reference has a config (the bfloat16 ones
-    since their parameters were ported); an unknown id raises; a bfloat16
-    arch trains unless it holds an MoE FFN, and float16 parameters are
-    refused."""
+    since their parameters were ported); an unknown id raises; every
+    bfloat16 arch trains, dbrx-132b's MoE FFNs too, and float16
+    parameters are refused."""
     from repro_torch.configs import check_trainable
     for name in ("dbrx-132b", "qwen3-14b-smoke"):
         assert dataclasses.asdict(get_config(name)) == dataclasses.asdict(
             jax_config(name))
-    with pytest.raises(NotImplementedError, match="MoE FFNs"):
-        check_trainable(get_config("dbrx-132b"))
+    check_trainable(get_config("dbrx-132b"))
     check_trainable(get_config("qwen3-14b-smoke"))
+    with pytest.raises(NotImplementedError, match="float16 parameters"):
+        check_trainable(dataclasses.replace(get_config("dbrx-132b"),
+                                            param_dtype="float16"))
     with pytest.raises(NotImplementedError, match="float16 parameters"):
         check_trainable(dataclasses.replace(get_config("qwen3-14b-smoke"),
                                             param_dtype="float16"))
@@ -170,11 +172,11 @@ def test_split_forward_equals_full_forward(name):
         for key in tparams:
             assert all(a is b for a, b in zip(tree_leaves(joined[key]),
                                               tree_leaves(tparams[key])))
-        smashed, positions, _ = SP.client_forward(client, tcfg,
-                                                  {"tokens": tok}, cut,
-                                                  capacity=12)
-        logits, _ = SP.server_forward(server, tcfg, smashed, positions, cut,
-                                      capacity=12)
+        smashed, positions, _, _ = SP.client_forward(client, tcfg,
+                                                     {"tokens": tok}, cut,
+                                                     capacity=12)
+        logits, _, _ = SP.server_forward(server, tcfg, smashed, positions,
+                                         cut, capacity=12)
         np.testing.assert_allclose(logits.numpy(), full.numpy(), rtol=1e-6,
                                    atol=1e-6)
 

@@ -4,8 +4,9 @@ the ``mla_dense`` tail, so cuts 1 and 2 leave layers on both sides) and a
 float32 replica of dbrx-132b-smoke (``attn_moe``, grown to three periods):
 configs, ``count_params`` and the tree's size, the cost profile, the
 bridge, logits and the loss's ce and aux, split prefill + 3 decode steps
-at two cuts (logits and caches within 2e-4), and the refusals (training,
-and the bfloat16 archs' training).  Parameters come from the reference's
+at two cuts (logits and caches within 2e-4), and that both train (only
+float16 parameters are refused); their training is held to the reference
+in ``test_torch_lm_train_moe.py``.  Parameters come from the reference's
 threefry init and cross through ``repro_torch.bridge``; inputs are numpy
 draws."""
 import dataclasses
@@ -209,40 +210,36 @@ def test_serving_steps_match_reference(name, cut):
         assert_lm_caches_close(jc[side], pc[side], TOL)
 
 
-# --------------------------------------------------------------- refusals
-def test_training_deepseek_is_refused_and_the_bf16_archs_too():
+# ------------------------------------------------- training, no refusal
+def test_training_deepseek_is_refused_and_the_bf16_archs_too(capsys):
+    """Once a refusal, now what replaced it: deepseek-v2-lite-16b (MLA,
+    MoE) and dbrx-132b (MoE, bfloat16) train -- ``untrained_features`` is
+    empty for them, ``SERVE_ONLY`` is empty, the train step,
+    ``TransformerUnitModel`` and ``launch/train.py`` take them -- and
+    float16 parameters are still refused in every arch."""
     from repro_torch.configs import (SERVE_ONLY, check_trainable,
                                      untrained_features)
     from repro_torch.core.lm_unit import TransformerUnitModel
     from repro_torch.launch import train as TR
-    assert untrained_features(get_config(DEEPSEEK)) == ["MLA layers",
-                                                        "MoE FFNs"]
-    assert untrained_features(_configs("dbrx-smoke-f32")[1]) == ["MoE FFNs"]
-    assert DEEPSEEK in SERVE_ONLY
+    assert SERVE_ONLY == ()
+    assert untrained_features(get_config(DEEPSEEK)) == []
+    assert untrained_features(_configs("dbrx-smoke-f32")[1]) == []
     for cfg in (get_config(DEEPSEEK), get_config(DEEPSEEK + "-smoke"),
                 _configs("dbrx-smoke-f32")[1]):
-        with pytest.raises(NotImplementedError, match="served only"):
-            check_trainable(cfg)
-        with pytest.raises(NotImplementedError, match="served only"):
-            D.make_train_step(cfg, D.DistOptions())
-        with pytest.raises(NotImplementedError, match="served only"):
-            TransformerUnitModel(cfg)
-    with pytest.raises(NotImplementedError, match="served only"):
-        TR.main(["--arch", DEEPSEEK, "--smoke", "--steps", "1", "--device",
-                 "cpu"])
-    # the bfloat16 archs: dbrx is served only for its MoE FFNs, the dense
-    # ones train (their float16 twins are refused)
-    assert SERVE_ONLY == (DEEPSEEK, "dbrx-132b")
-    for arch in ("dbrx-132b", "command-r-35b", "qwen3-14b"):
+        check_trainable(cfg)
+        D.make_train_step(cfg, D.DistOptions())
+        if cfg.name.endswith("-smoke"):
+            assert TransformerUnitModel(cfg).n_units > 1
+    assert TR.main(["--arch", DEEPSEEK, "--smoke", "--steps", "1",
+                    "--batch", "4", "--seq", "16", "--device", "cpu"]) == 0
+    assert "aux=" in capsys.readouterr().out
+    for arch in ("dbrx-132b", "command-r-35b", "qwen3-14b", DEEPSEEK):
         for name in (arch, arch + "-smoke"):
             cfg = get_config(name)
-            assert cfg.param_dtype == "bfloat16"
-            if arch == "dbrx-132b":
-                assert untrained_features(cfg) == ["MoE FFNs"]
-                with pytest.raises(NotImplementedError, match="MoE FFNs"):
-                    check_trainable(cfg)
-            else:
-                check_trainable(cfg)
+            assert cfg.param_dtype == ("float32" if arch == DEEPSEEK
+                                       else "bfloat16")
+            assert untrained_features(cfg) == []
+            check_trainable(cfg)
             with pytest.raises(NotImplementedError,
                                match="float16 parameters"):
                 check_trainable(dataclasses.replace(cfg,

@@ -212,10 +212,10 @@ def _port_value_and_grad(tcfg, params, batch, cut=1):
     req = [t.detach().requires_grad_(True) for t in leaves]
     client, server = SP.split_params(rebuild(req), tcfg, cut)
     tb = lm_batch_to_torch(batch)
-    smashed, positions, _ = SP.client_forward(client, tcfg, tb, cut, "train",
-                                              remat=True)
-    logits, _ = SP.server_forward(server, tcfg, smashed, positions, cut,
-                                  "train", remat=True)
+    smashed, positions, _, _ = SP.client_forward(client, tcfg, tb, cut,
+                                                 "train", remat=True)
+    logits, _, _ = SP.server_forward(server, tcfg, smashed, positions, cut,
+                                     "train", remat=True)
     ce = D.weighted_ce(logits, tb["labels"], tb["weights"], tcfg.vocab_size)
     per_tok = L.per_token_ce(logits, tb["labels"], tcfg.vocab_size)
     grads = torch.autograd.grad(ce, req)

@@ -280,10 +280,12 @@ def test_api_run_trace_replay(arch):
 
 
 def test_registry_holds_the_ported_text_archs():
-    """Every text arch the port trains is registered as the reference
-    registers it (the bfloat16 ones too); the MLA / MoE archs are served
-    only, refused as "not ported yet"."""
-    for arch in ARCHS + BF16_ARCHS:
+    """Every text arch of the reference is registered as the reference
+    registers it: the float32 and bfloat16 ones, and the MLA / MoE archs
+    since their training was ported; none is refused as "not ported
+    yet"."""
+    moe = ["deepseek-v2-lite-16b", "dbrx-132b"]
+    for arch in ARCHS + BF16_ARCHS + moe:
         a, b = JR.model_entry(arch), TR.model_entry(arch)
         assert (b.name, b.n_units, b.description) == \
             (a.name, a.n_units, a.description)
@@ -302,9 +304,7 @@ def test_registry_holds_the_ported_text_archs():
     text = [k for k, e in JR.MODELS.items()
             if k not in ("resnet18", "mlp9")]
     assert sorted(k for k in TR.MODELS if k not in ("resnet18", "mlp9")) \
-        == sorted(ARCHS + BF16_ARCHS)
-    assert TR.NOT_PORTED_MODELS == ("deepseek-v2-lite-16b", "dbrx-132b")
-    for arch in set(text) - set(ARCHS + BF16_ARCHS):
-        assert arch in TR.NOT_PORTED_MODELS
-        with pytest.raises(ValueError, match="not ported yet"):
-            TR.model_entry(arch)
+        == sorted(text) == sorted(ARCHS + BF16_ARCHS + moe)
+    assert TR.NOT_PORTED_MODELS == ()
+    with pytest.raises(ValueError, match="not ported yet"):
+        TR.model_entry("no-such-arch")

@@ -114,11 +114,11 @@ def test_compressed_smashed_is_the_reference_fake_quant():
     plain, _ = D.make_prefill_step(tcfg, D.DistOptions(cut=1), cap)(
         tparams, {"tokens": tok})
     client, server = SP.split_params(tparams, tcfg, 1)
-    sm, positions, _ = SP.client_forward(client, tcfg, {"tokens": tok}, 1,
-                                         capacity=cap)
-    want, _ = SP.server_forward(server, tcfg,
-                                C.dequantize_int8(*C.quantize_int8(sm)),
-                                positions, 1, capacity=cap)
+    sm, positions, _, _ = SP.client_forward(client, tcfg, {"tokens": tok},
+                                            1, capacity=cap)
+    want, _, _ = SP.server_forward(server, tcfg,
+                                   C.dequantize_int8(*C.quantize_int8(sm)),
+                                   positions, 1, capacity=cap)
     assert torch.equal(logits, want[:, -1:])
     assert not torch.equal(logits, plain)   # the int8 trip changed them
 

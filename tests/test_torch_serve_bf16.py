@@ -6,7 +6,8 @@ Configs and ``count_params`` at full width equal the reference's;
 ``init_params`` builds the weights in bfloat16 (the MoE router in float32,
 as the reference's); the bridge carries bfloat16 leaves bit for bit;
 qwen3-14b and command-r-35b train (tests/test_torch_lm_train_bf16.py holds
-that to the reference), dbrx-132b's training is refused for its MoE FFNs.  Serving is held at the ``-smoke`` widths, grown to
+that to the reference), dbrx-132b too (tests/test_torch_lm_train_moe_bf16.py).
+Serving is held at the ``-smoke`` widths, grown to
 three layers on both sides so that cut 1 leaves layers on both sides:
 
 - in float32 (``param_dtype="float32"`` on both sides: the algorithm), the
@@ -325,10 +326,10 @@ def test_bf16_serving_three_way(arch, monkeypatch, record_property):
 # ---------------------------------------------------------------- refusals
 @pytest.mark.parametrize("arch", ARCHS)
 def test_bf16_training_is_refused(arch, capsys):
-    """bfloat16 parameters no longer refuse training: qwen3-14b and
-    command-r-35b build the train step and ``TransformerUnitModel`` and
-    train through ``launch/train.py``; dbrx-132b is still refused, for its
-    MoE FFNs alone; float16 parameters are refused in every arch."""
+    """bfloat16 parameters no longer refuse training: qwen3-14b,
+    command-r-35b and dbrx-132b (whose MoE FFNs train too) build the train
+    step and ``TransformerUnitModel`` and train through
+    ``launch/train.py``; float16 parameters are refused in every arch."""
     from repro_torch.core.lm_unit import TransformerUnitModel
     from repro_torch.launch import train as TR
     cfg = get_config(arch)
@@ -339,19 +340,6 @@ def test_bf16_training_is_refused(arch, capsys):
     for c in (cfg, get_config(arch + "-smoke")):
         with pytest.raises(NotImplementedError, match="float16 parameters"):
             check_trainable(dataclasses.replace(c, param_dtype="float16"))
-    if arch == "dbrx-132b":
-        assert arch in SERVE_ONLY
-        assert untrained_features(cfg) == ["MoE FFNs"]
-        for c in (cfg, get_config(arch + "-smoke")):
-            for refuse in (check_trainable,
-                           lambda c: D.make_train_step(c, D.DistOptions()),
-                           TransformerUnitModel):
-                with pytest.raises(NotImplementedError, match="MoE FFNs"):
-                    refuse(c)
-        with pytest.raises(NotImplementedError, match="MoE FFNs"):
-            TR.main(["--arch", arch, "--smoke", "--steps", "1", "--device",
-                     "cpu"])
-        return
     assert arch not in SERVE_ONLY and untrained_features(cfg) == []
     for c in (cfg, get_config(arch + "-smoke")):
         check_trainable(c)
