@@ -62,7 +62,12 @@ neither ``jax`` nor ``repro``.  In order it:
    route; the timed prefills also checked, untimed, forced onto the mma
    route, rows ``*_mma``; bound: the bytes, or q.k^T once and p.v twice at
    989 TFLOP/s dense bf16 / f16; the build prints the Hopper kernel's
-   registers, spills and shared memory, and fails on a spill) times
+   registers, spills and shared memory, and fails on a spill) and
+   ssd_chunk_scan with x / B / C in bfloat16 and float16 at every SSD
+   shape (``SSD_CASES``; at mamba2's prefill shape also with dt and A in
+   x's dtype; y of x's dtype within one ulp of it plus the float32
+   tolerance, the state float32; float32 math, so the float32 operations
+   bound, bytes at 2 B a 16-bit value), times
    kernel (for
    ssd_chunk_scan and rmsnorm's backward every kernel of one wrapper
    call), wrapper call, plain version and one PyTorch library call
@@ -94,7 +99,9 @@ neither ``jax`` nor ``repro``.  In order it:
    15.7B float32 parameters) and, last, on bfloat16 weights, qwen3-14b
    (qk-norm, 14.8B) and command-r-35b (32.4B, 64.8 GB; where it does not
    fit, the measured failure is printed and it is served at the fewest
-   layers cut that fit, listed) at full width and depth through
+   layers cut that fit, listed), then mamba2-780m with its parameters in
+   bfloat16 and in float16 (the SSD scan on 16-bit inputs: 48 launches a
+   prefill in the weights' dtype), at full width and depth through
    ``repro_torch.launch.serve`` (batch 8, prompt 1024, 32 decode steps, the
    default cut), with the launch counters zeroed just before and read just
    after each: exactly the kernel launches the model implies (flash per
@@ -123,14 +130,15 @@ neither ``jax`` nor ``repro``.  In order it:
    and flash masks keys left of the window; deepseek at batch 1, where
    both forwards take the drop-free dense MoE path, so the phase holds
    MLA's absorbed decode against its materialised prefill; the others at
-   the served prompt, through their own batches; on bfloat16 weights
-   within 8 ulps of bfloat16 at the largest logit, the CPU tests'
+   the served prompt, through their own batches; on 16-bit weights
+   within 8 ulps of their dtype at the largest logit, the CPU tests'
    bfloat16 tolerance);
 10. serves the reduced configs on the card and on the CPU from the same
     weights and inputs (smollm / mamba2 at three periods, the four
     families, deepseek and the bfloat16 qwen3-14b-smoke, command-r-35b-smoke
-    and dbrx-132b-smoke at their own depth): logits within 2e-4, an MoE's
-    expert choices equal; bfloat16 logits within 8 ulps of the largest,
+    and dbrx-132b-smoke at their own depth, mamba2 in bfloat16 and
+    float16): logits within 2e-4, an MoE's expert choices equal; 16-bit
+    logits within 8 ulps of their dtype at the largest,
     over 8 rows of which those the MoE routed apart on the card and the
     CPU (a near tie) are left out and counted, at most half;
 10b. drives the multi-RSU scenario path through ``repro_torch.api.run``:
@@ -176,7 +184,9 @@ neither ``jax`` nor ``repro``.  In order it:
     latent (``kv_norm``); in bfloat16 flash at qwen3's, command-r's and
     dbrx's training shapes (the Hopper route) and gemma3's local and
     global layers (d 256, the mma route), rmsnorm at d 5120, over qwen3's
-    qk-norm rows and at dbrx's d 6144; a 16-bit output or gradient one
+    qk-norm rows and at dbrx's d 6144; the SSD scan at mamba2's training
+    shape with x / B / C in bfloat16 and in float16, each gradient in its
+    input's dtype; a 16-bit output or gradient one
     ulp of it wider; each flash case on the route ``flash_route`` gives):
     gradients through the Function (kernel forward; rmsnorm's backward kernel, the
     plain vjp for flash and ssd) against all-plain autograd, forward within phase 4b's tolerances and
@@ -195,7 +205,7 @@ neither ``jax`` nor ``repro``.  In order it:
 10g. trains through ``repro_torch.launch.train.train`` at full width
     (seq 1024, the default cut, adamw lr 3e-4, clip 1.0, remat, 4
     clients, the donated step): smollm-360m and mamba2-780m at full depth
-    and batch 8, 3 steps each, smollm with ``compress`` 2 steps;
+    and batch 8, smollm also with ``compress``;
     internvl2-1b (256 patch embeddings before 768 tokens) and
     musicgen-large at full depth, recurrentgemma-2b at one period (R, R,
     A) and its tail, all at batch 8, and gemma3-4b at one period (5 local
@@ -204,7 +214,9 @@ neither ``jax`` nor ``repro``.  In order it:
     command-r-35b at 3 of 40 at batch 4 and gemma3-4b whole at batch 4;
     deepseek-v2-lite-16b in float32 at 8 of 27 layers at batch 8 (the
     grouped MoE path with capacity drops) and dbrx-132b in bfloat16 at one
-    layer at batch 4 (its router float32);
+    layer at batch 4 (its router float32); mamba2-780m whole in bfloat16
+    and in float16 and smollm-360m whole in float16 at batch 8; smollm-360m
+    whole in float32 under the "dots" remat policy;
     2 steps each (depth and batch cut as one card forces, printed on each
     line; parameters in their dtype, moments float32; flash's launches
     on the route ``flash_route`` gives); the launch counters zeroed just
@@ -224,7 +236,12 @@ neither ``jax`` nor ``repro``.  In order it:
     one's peak; then deepseek at full width, 3 layers, batch 8, its
     objective and gradients with remat on and off: the recompute's expert
     choices and kept slots equal to the forward's (printed), losses within
-    1e-5 and gradients within phase 4b's rmsnorm tolerance;
+    1e-5 and gradients within phase 4b's rmsnorm tolerance; then smollm
+    at full width, 4 layers, batch 8: loss and gradients under the "dots"
+    remat policy bit for bit those of full recompute, the matrix products
+    of forward and backward counted (printed), the backward running no
+    projection of the forward again under "dots" (it does under full
+    recompute), the kernels' launches the same;
 10h. one sgd train step of each trained arch's reduced config (smollm,
     mamba2, internvl2, musicgen at three layers; gemma3 and recurrentgemma
     at their period and tail, deepseek its MLA + MoE period and tail;
@@ -235,7 +252,8 @@ neither ``jax`` nor ``repro``.  In order it:
     (remat off runs each period's kernels once); the bfloat16 archs
     (qwen3-14b, command-r-35b, dbrx-132b, three layers) take one adamw
     step, each leaf's float32 first moment within 10 % of the CPU's in
-    norm and the losses within 1e-3; an MoE's routing compared first, the
+    norm and the losses within 1e-3, and so do mamba2 in bfloat16 and in
+    float16 and smollm in float16; an MoE's routing compared first, the
     (token, choice) slots routed apart printed;
 10i. ``api.run`` of reduced text LMs (smollm, mamba2, recurrentgemma,
     qwen3-14b in bfloat16 and deepseek-v2-lite-16b) on ``single_rsu`` (4
@@ -446,7 +464,10 @@ HOPPER_MAIN = "qwen3_prefill_bf16"
 # a freed card, so that every earlier arch is measured as before them)
 SERVE_ARCHS = ("smollm-360m", "mamba2-780m", "gemma3-4b",
                "recurrentgemma-2b", "internvl2-1b", "musicgen-large",
-               "deepseek-v2-lite-16b", "qwen3-14b", "command-r-35b")
+               "deepseek-v2-lite-16b", "qwen3-14b", "command-r-35b",
+               # the SSD scan on 16-bit inputs (1.7 GB of weights each),
+               # after every earlier arch so those are measured as before
+               "mamba2-780m:bfloat16", "mamba2-780m:float16")
 # phases 10f-10i train every arch: the float32 ones (smollm, mamba2,
 # internvl2 and musicgen at full depth; recurrentgemma and gemma3 at the
 # depth of TRAIN_RUNS, phase 10g; deepseek-v2-lite-16b, MLA and MoE, at
@@ -457,6 +478,10 @@ TRAIN_ARCHS = ("smollm-360m", "mamba2-780m", "gemma3-4b",
                "recurrentgemma-2b", "internvl2-1b", "musicgen-large",
                "deepseek-v2-lite-16b")
 BF16_TRAIN_ARCHS = ("qwen3-14b", "command-r-35b", "dbrx-132b")
+# the 16-bit parameter dtypes; a label "<arch>:<dtype>" serves or trains
+# the arch with its parameters in that dtype (``dataclasses.replace(cfg,
+# param_dtype=...)``, as a user would)
+LOW_DTYPES = ("bfloat16", "float16")
 # phase 10's and 10h's reduced configs grown to three periods (one layer a
 # period); the families keep their reduced depth (one pattern and the tail)
 THREE_PERIOD_ARCHS = ("smollm-360m", "mamba2-780m")
@@ -1512,6 +1537,41 @@ def _ssd_case(b, s, h, p, g, n, seed):
             _randn((b, s, g, n), seed + 2), _randn((b, s, g, n), seed + 3))
 
 
+# phase 4b's SSD shapes (label, (b, s, h, p, g, n, chunk), timed): mamba2's
+# prefill, then the edges (ragged chunks, two groups, s below the chunk,
+# chunk 32 / 64 / 128, odd p and n), each also in SSD16_DTYPES; the
+# 16-bit rows of the timed shape are timed too
+SSD_CASES = (("mamba2_prefill", (SERVE_BATCH, SERVE_PROMPT, 48, 64, 1, 128,
+                                 256), True),
+             ("ragged_g2", (2, 300, 8, 64, 2, 128, 256), False),
+             ("chunk32_g2", (2, 100, 4, 32, 2, 16, 32), False),
+             ("s_lt_chunk", (1, 40, 4, 16, 1, 16, 64), False),
+             ("reduced", (2, 37, 32, 16, 1, 16, 32), False),
+             ("g2_8heads", (1, 512, 16, 64, 2, 128, 256), False),
+             ("chunk128_ragged", (2, 333, 6, 64, 1, 128, 128), False),
+             ("chunk64", (1, 200, 8, 64, 1, 128, 64), False),
+             ("odd_pn_h7", (1, 150, 7, 18, 1, 10, 64), False))
+SSD16_DTYPES = ("bf16", "f16")
+# the shape whose 16-bit rows also run with dt and A in x's dtype
+SSD16_ALL_INPUTS = "mamba2_prefill"
+
+
+def _ssd16_close(got, want):
+    """The SSD scan on 16-bit inputs against its plain version on the same
+    inputs: y of x's dtype within one ulp of it plus the float32
+    tolerance (both compute in float32 and round once), the state float32
+    within the float32 tolerance; finite, same shapes."""
+    import torch
+    tol = LM_TOL["ssd_chunk_scan"]
+    (y, st), (y_p, st_p) = got, want
+    return (y.dtype == y_p.dtype and st.dtype == st_p.dtype == torch.float32
+            and y.shape == y_p.shape and st.shape == st_p.shape
+            and bool(torch.isfinite(y).all())
+            and bool(torch.isfinite(st).all())
+            and _lm_within(y, y_p, tol)
+            and bool(((st - st_p).abs() <= tol + tol * st_p.abs()).all()))
+
+
 def _visible_pairs(sq, sk, causal, window):
     """(query, key) pairs the masks leave visible, per (batch, head)."""
     total = 0
@@ -1859,26 +1919,36 @@ def _lm_cases():
                     4 * d * b * h * _visible_pairs(sq, sk, causal, window),
                     _flash16_close(run_k, route or FA.flash_route(q, k, v)),
                     BF16_FLOPS_PER_S))
-    for label, (b, s, h, p, g, n, chunk), timed in [
-            ("mamba2_prefill", (B, S, 48, 64, 1, 128, 256), True),
-            ("ragged_g2", (2, 300, 8, 64, 2, 128, 256), False),
-            ("chunk32_g2", (2, 100, 4, 32, 2, 16, 32), False),
-            ("s_lt_chunk", (1, 40, 4, 16, 1, 16, 64), False),
-            ("reduced", (2, 37, 32, 16, 1, 16, 32), False),
-            ("g2_8heads", (1, 512, 16, 64, 2, 128, 256), False),
-            ("chunk128_ragged", (2, 333, 6, 64, 1, 128, 128), False),
-            ("chunk64", (1, 200, 8, 64, 1, 128, 64), False),
-            ("odd_pn_h7", (1, 150, 7, 18, 1, 10, 64), False)]:
-        x, dt, A, B_, C = _ssd_case(b, s, h, p, g, n, len(cases))
-        nbytes = 4 * (2 * x.numel() + dt.numel() + A.numel() + B_.numel()
-                      + C.numel() + b * h * n * p)
-        cases.append((
-            "ssd_chunk_scan", label, timed,
-            lambda a=(x, dt, A, B_, C), c=chunk: SSD.ssd_chunk_scan(
-                *a, chunk=c),
-            lambda a=(x, dt, A, B_, C), c=chunk: SSD.ssd_chunked(*a, c),
-            None, nbytes, _ssd_flops(b, s, h, p, g, n, chunk),
-            _lm_close(name="ssd_chunk_scan"), F32_FLOPS_PER_S))
+    # the SSD scan in float32 and, on one draw of a shape's inputs, with
+    # x / B / C in bfloat16 and float16 (dt and A float32, as the model
+    # gives them; at mamba2's prefill shape also with dt and A in x's
+    # dtype): float32 math either way, so the operations bound is
+    # float32's and the bytes bound counts 2 B a 16-bit value
+    for label, (b, s, h, p, g, n, chunk), timed in SSD_CASES:
+        x32, dt32, A32, B32, C32 = _ssd_case(b, s, h, p, g, n, len(cases))
+        for dt_name, all16 in (("f32", False), *((d, False) for d in
+                                                 SSD16_DTYPES),
+                               *((d, True) for d in SSD16_DTYPES
+                                 if label == SSD16_ALL_INPUTS)):
+            low = _dtype(RMS_DTYPES[dt_name][0])
+            x, B_, C = (t.to(low) for t in (x32, B32, C32))
+            dt, A = (t.to(low) for t in (dt32, A32)) if all16 else (dt32,
+                                                                    A32)
+            nbytes = (x.element_size() * (2 * x.numel() + B_.numel()
+                                          + C.numel())
+                      + dt.element_size() * dt.numel()
+                      + A.element_size() * A.numel() + 4 * b * h * n * p)
+            tag = ("" if dt_name == "f32" else f"_{dt_name}"
+                   + ("_dt16" if all16 else ""))
+            cases.append((
+                "ssd_chunk_scan", label + tag,
+                timed and (dt_name == "f32" or not all16),
+                lambda a=(x, dt, A, B_, C), c=chunk: SSD.ssd_chunk_scan(
+                    *a, chunk=c),
+                lambda a=(x, dt, A, B_, C), c=chunk: SSD.ssd_chunked(*a, c),
+                None, nbytes, _ssd_flops(b, s, h, p, g, n, chunk),
+                _lm_close(name="ssd_chunk_scan") if dt_name == "f32"
+                else _ssd16_close, F32_FLOPS_PER_S))
     return cases
 
 
@@ -1941,7 +2011,8 @@ def check_lm_kernels():
                                                           FLUSHED_ITERS))
         out[name][label] = row
         # 16-bit flash: one ulp of the working type plus the tolerance
-        tol_s = f"1ulp+{tol:g}" if rate == BF16_FLOPS_PER_S else f"{tol:g}"
+        tol_s = (f"1ulp+{tol:g}" if rate == BF16_FLOPS_PER_S
+                 or close is _ssd16_close else f"{tol:g}")
         print(f"kernel {name:16s} {label:22s} shape={row['shape']} "
               f"max_abs_err={err:g} tol={tol_s} ok={ok}"
               + (f" route={row['route']}" if "route" in row else "")
@@ -1963,6 +2034,16 @@ def check_lm_kernels():
         raise AssertionError(f"kernels outside tolerance of their plain "
                              f"versions: {bad}")
     return out
+
+
+def _arch_config(label):
+    """The config of a label "<arch>" or "<arch>:<dtype>" (the arch with
+    its parameters in that dtype)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    arch, _, dtype = label.partition(":")
+    cfg = get_config(arch)
+    return dataclasses.replace(cfg, param_dtype=dtype) if dtype else cfg
 
 
 def _expected_launches(cfg, decode_steps=SERVE_STEPS):
@@ -2133,7 +2214,8 @@ def _first_prefill_kernels(first, second):
 
 
 def serve_path(arch, card=""):
-    """Phase 8: serve ``arch`` at full width and depth on the card, the
+    """Phase 8: serve ``arch`` (a label of :func:`_arch_config`) at full
+    width and depth on the card, the
     launch counters zeroed just before and read just after; the SM clocks
     and the allocator's reserved bytes just before and just after that
     serve, whose prefill is the first at full size; for an MoE arch the
@@ -2146,13 +2228,13 @@ def serve_path(arch, card=""):
     timing row)."""
     import torch
     from repro_torch import kernels
-    from repro_torch.configs import MLA_MOE, ATTN_MOE, get_config
+    from repro_torch.configs import MLA_MOE, ATTN_MOE
     from repro_torch.device import resolve_device
     from repro_torch.launch import serve
     from repro_torch.models import transformer as T
     from repro_torch.tree import tree_leaves
     dev = resolve_device("cuda")
-    cfg = get_config(arch)
+    cfg = _arch_config(arch)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2266,7 +2348,7 @@ def serve_path(arch, card=""):
                              f"its weights are {cfg.param_dtype}")
     # the bfloat16 archs' prefills (d 128) take the Hopper route, the
     # float32 archs' the mma route
-    route = "hopper" if cfg.param_dtype == "bfloat16" else "mma"
+    route = "hopper" if cfg.param_dtype in LOW_DTYPES else "mma"
     if flash_routes != ({route: counts["flash_attention"]}
                         if counts["flash_attention"] else {}):
         raise AssertionError(f"{arch}: flash launched on routes "
@@ -2307,13 +2389,21 @@ def _bf16_ulp(x):
     return 2.0 ** (math.floor(math.log2(max(abs(x), 2.0 ** -126))) - 7)
 
 
-def _logits_close(got, want, bf16):
+def _ulp_at(x, dtype):
+    """One ulp of ``dtype`` (bfloat16: 8 significant bits; float16: 11,
+    subnormal below 2^-14) at |x|."""
+    if dtype == "bfloat16":
+        return _bf16_ulp(x)
+    return 2.0 ** (math.floor(math.log2(max(abs(x), 2.0 ** -14))) - 10)
+
+
+def _logits_close(got, want, dtype):
     """(max error, tolerance, within): float32 logits within TEACHER_TOL
-    (absolute + relative); bfloat16 ones within BF16_ULPS ulps of bfloat16
-    at the largest |want|."""
+    (absolute + relative); 16-bit ones (``dtype`` in LOW_DTYPES) within
+    BF16_ULPS ulps of that dtype at the largest |want|."""
     err = (got.float() - want.float()).abs()
-    if bf16:
-        tol = BF16_ULPS * _bf16_ulp(float(want.float().abs().max()))
+    if dtype in LOW_DTYPES:
+        tol = BF16_ULPS * _ulp_at(float(want.float().abs().max()), dtype)
         return float(err.max()), tol, bool((err <= tol).all())
     return (float(err.max()), TEACHER_TOL,
             bool((err <= TEACHER_TOL + TEACHER_TOL * want.abs()).all()))
@@ -2321,9 +2411,10 @@ def _logits_close(got, want, bf16):
 
 def teacher_forcing(cfg, params, prompt):
     """Phase 9: at full width, prefill(s-1) + one decode step gives the
-    last logits of prefill(s) within TEACHER_TOL (on bfloat16 weights
-    within BF16_ULPS ulps of the largest logit: the prefill's attention
-    runs flash's float32 math, decode's the plain scores in bfloat16).
+    last logits of prefill(s) within TEACHER_TOL (on 16-bit weights within
+    BF16_ULPS ulps of their dtype at the largest logit: the prefill's
+    attention runs flash's float32 math, decode's the plain scores in 16
+    bits; the SSD's prefill the chunked scan, decode the recurrence).
     ``prompt`` is the served prompt batch; an arch in TEACHER_S gets a
     prompt of that length (seed 1) instead, one in TEACHER_ROWS the served
     prompt's first rows (MoE: both forwards on the dense path, checked)."""
@@ -2350,7 +2441,7 @@ def teacher_forcing(cfg, params, prompt):
         dec, _, _ = T.forward(params, cfg, last_b, "decode", caches=caches,
                               capacity=s, pos_offset=s - 1)
     dec = dec[:, 0]
-    err, tol, ok = _logits_close(dec, last, cfg.param_dtype == "bfloat16")
+    err, tol, ok = _logits_close(dec, last, cfg.param_dtype)
     print(f"teacher_forcing {cfg.name} rows={rows} s={s} "
           f"dtype={cfg.param_dtype} max_abs_err={err:g} "
           f"max_abs_logit={float(last.float().abs().max()):g} tol={tol:g} "
@@ -2378,13 +2469,14 @@ def _reduced_stream(cfg, seed=0, rows=2):
         for _ in range(REDUCED_STEPS)]
 
 
-def _reduced_config(arch):
+def _reduced_config(label):
     """smollm / mamba2 at three periods (cut 1 leaves two on the RSU); the
     families and the bfloat16 archs at their reduced config's own depth
-    (one pattern and the tail)."""
+    (one pattern and the tail); a label "<arch>:<dtype>" in that
+    param_dtype."""
     import dataclasses
-    from repro_torch.configs import get_config
-    cfg = get_config(arch).reduced()
+    arch = label.partition(":")[0]
+    cfg = _arch_config(label).reduced()
     if arch in THREE_PERIOD_ARCHS:
         cfg = dataclasses.replace(cfg, n_layers=3)
     return cfg
@@ -2450,8 +2542,8 @@ def reduced_arch_cpu_vs_card(arch):
     (kernels) and on the CPU (plain versions) from the same weights (in
     the config's ``param_dtype``) and inputs, cut 1: prefill + 3 decode
     steps.  float32 logits within REDUCED_TOL (absolute + relative), and
-    an MoE's expert choices equal on both; bfloat16 logits within
-    BF16_ULPS ulps of the CPU's largest, over BF16_ROWS rows of which
+    an MoE's expert choices equal on both; 16-bit logits within BF16_ULPS
+    ulps of their dtype at the CPU's largest, over BF16_ROWS rows of which
     those an MoE routed apart (a near tie of its router) are left out, at
     most half.  Returns a row."""
     import torch
@@ -2459,8 +2551,8 @@ def reduced_arch_cpu_vs_card(arch):
     from repro_torch.models import transformer as T
     from repro_torch.tree import tree_map
     cfg = _reduced_config(arch)
-    bf16 = cfg.param_dtype == "bfloat16"
-    rows = BF16_ROWS if bf16 else 2
+    low = cfg.param_dtype in LOW_DTYPES
+    rows = BF16_ROWS if low else 2
     params = T.init_params(torch.Generator().manual_seed(0), cfg)
     prompt, steps = _reduced_stream(cfg, rows=rows)
     cap = REDUCED_PROMPT + REDUCED_STEPS
@@ -2487,15 +2579,15 @@ def reduced_arch_cpu_vs_card(arch):
     flips = _row_flips(*routes, rows)
     keep = ~flips
     a, b = (o[:, keep] for o in outs)
-    if bf16:
-        err, tol, ok = _logits_close(b, a, True)
+    if low:
+        err, tol, ok = _logits_close(b, a, cfg.param_dtype)
         ok = ok and 2 * int(keep.sum()) >= rows
     else:
         err, tol = float((a - b).abs().max()), REDUCED_TOL
         ok = not bool(flips.any()) and bool(
             ((a - b).abs() <= REDUCED_TOL + REDUCED_TOL * a.abs()).all())
-    row = {"arch": cfg.name, "layers": cfg.n_layers,
-           "dtype": cfg.param_dtype, "rows": rows,
+    row = {"arch": cfg.name + "".join(arch.partition(":")[1:]),
+           "layers": cfg.n_layers, "dtype": cfg.param_dtype, "rows": rows,
            "rows_routed_apart": int(flips.sum()), "max_abs_err": err,
            "tol": tol, "ok": ok}
     print(f"reduced_cpu_vs_card {cfg.name} layers={cfg.n_layers} "
@@ -2537,9 +2629,15 @@ TRAIN_BATCH, TRAIN_SEQ = 8, 1024
 # with capacity drops: 8,192 tokens x 64 experts x 1,408 > 2^27), and
 # dbrx-132b in bfloat16 at one full-width layer at batch 4 (58.0 GB).
 # One period holds every layer kind; the cut then clamps to 1, so the RSU
-# holds the head alone (dbrx: its final norm and head)
-TRAIN_RUNS = (("smollm-360m", False, 3, TRAIN_BATCH, {}),
-              ("mamba2-780m", False, 3, TRAIN_BATCH, {}),
+# holds the head alone (dbrx: its final norm and head).  16-bit parameters
+# of float32 archs: mamba2-780m whole in bfloat16 and in float16 (the SSD
+# scan on 16-bit inputs), smollm-360m whole in float16 (flash's 16-bit mma
+# route at d 64 on a training path); and smollm-360m in float32 under the
+# "dots" remat policy (``changes["remat_policy"]``), beside its default
+# run.  smollm / mamba2 take 2 steps (3 until their 16-bit and "dots" runs
+# came): step 0 apart, one timed step each
+TRAIN_RUNS = (("smollm-360m", False, 2, TRAIN_BATCH, {}),
+              ("mamba2-780m", False, 2, TRAIN_BATCH, {}),
               ("smollm-360m", True, 2, TRAIN_BATCH, {}),
               ("internvl2-1b", False, 2, TRAIN_BATCH, {}),
               ("musicgen-large", False, 2, TRAIN_BATCH, {}),
@@ -2551,7 +2649,15 @@ TRAIN_RUNS = (("smollm-360m", False, 3, TRAIN_BATCH, {}),
               ("gemma3-4b", False, 2, 4, {"param_dtype": "bfloat16"}),
               ("deepseek-v2-lite-16b", False, 2, TRAIN_BATCH,
                {"n_layers": 8}),
-              ("dbrx-132b", False, 2, 4, {"n_layers": 1}))
+              ("dbrx-132b", False, 2, 4, {"n_layers": 1}),
+              ("mamba2-780m", False, 2, TRAIN_BATCH,
+               {"param_dtype": "bfloat16"}),
+              ("mamba2-780m", False, 2, TRAIN_BATCH,
+               {"param_dtype": "float16"}),
+              ("smollm-360m", False, 2, TRAIN_BATCH,
+               {"param_dtype": "float16"}),
+              ("smollm-360m", False, 2, TRAIN_BATCH,
+               {"remat_policy": "dots"}))
 # phase 10g's donation check: (arch, changes, batch) at full width
 DONATION_RUN = ("qwen3-14b", {"n_layers": 1}, 4)
 # phase 10f, Function vs all-plain autograd on the card: rmsnorm's kernel
@@ -2659,6 +2765,20 @@ def _autograd_cases():
                                                         40 + len(cases)))
         cases.append(("rmsnorm", label, RN.rmsnorm, RN.rmsnorm_plain,
                       (x, g)))
+    # the 16-bit mamba2 train path: the SSD scan's Function at its
+    # training shape with x / B / C in bfloat16 and float16 (dt and A_log
+    # float32, as the model gives them); y and the gradients of x / B / C
+    # come back in their dtype, dt's and A_log's in float32
+    for dt_name in SSD16_DTYPES:
+        x, dt, A, B, C = _ssd_case(TRAIN_BATCH, TRAIN_SEQ, 48, 64, 1, 128,
+                                   40 + len(cases))
+        x, B, C = (t.to(_dtype(RMS_DTYPES[dt_name][0])) for t in (x, B, C))
+        cases.append(("ssd_chunk_scan", f"mamba2_train_{dt_name}",
+                      lambda x, dt, al, B, C: SSD.ssd_chunk_scan(
+                          x, dt, -torch.exp(al), B, C, chunk=256)[0],
+                      lambda x, dt, al, B, C: SSD.ssd_chunked(
+                          x, dt, -torch.exp(al), B, C, 256)[0],
+                      (x, dt, torch.log(-A), B, C)))
     return [case + (None,) * (6 - len(case)) for case in cases]
 
 
@@ -2889,6 +3009,7 @@ def lm_autograd_on_card():
         want_route = ([FA.flash_route(*args)]
                       if name == "flash_attention" else [])
         ok = (fwd_ok and routes == want_route
+              and all(g.dtype == a.dtype for g, a in zip(g_k, args))
               and all(_lm_within(a, b, tol, big) for a, b in zip(g_k, g_p))
               and all(bool(torch.isfinite(g).all()) for g in g_k))
         row = {"kernel": name, "case": label, "dtype": str(args[0].dtype),
@@ -2968,11 +3089,13 @@ def train_path(arch, compress, steps, batch=TRAIN_BATCH, changes=None):
     """Phase 10g: ``launch.train.train`` at full width on the card (seq
     1024, adamw lr 3e-4, clip 1.0, remat, 4 clients, the default cut, the
     donated step) at ``batch`` rows, in the config's ``param_dtype``
-    (``changes`` may set it), its depth cut by ``changes`` (printed), the
-    launch counters zeroed just before and read just after.  flash's
-    launches must all take the route ``flash_route`` gives the run's q /
-    k / v (bfloat16 at head_dim 128: the Hopper route); the parameters
-    stay in their dtype, the moments float32."""
+    (``changes`` may set it), its depth cut by ``changes`` (printed), under
+    the remat policy ``changes["remat_policy"]`` (default None: full
+    recompute; ``models.transformer.set_remat_policy``), the launch
+    counters zeroed just before and read just after.  flash's launches
+    must all take the route ``flash_route`` gives the run's q / k / v
+    (16-bit at head_dim 128: the Hopper route); the parameters stay in
+    their dtype, the moments float32."""
     import dataclasses
 
     import torch
@@ -2980,38 +3103,47 @@ def train_path(arch, compress, steps, batch=TRAIN_BATCH, changes=None):
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.launch import train as TR
+    from repro_torch.models import transformer as T
     from repro_torch.tree import tree_leaves
     full = get_config(arch)
-    cfg = dataclasses.replace(full, **(changes or {}))
+    changes = dict(changes or {})
+    policy = changes.pop("remat_policy", None)
+    cfg = dataclasses.replace(full, **changes)
     torch.cuda.empty_cache()
     kernels.reset_launches()
     before = dict(FA.ROUTE_LAUNCHES)
-    res = TR.train(cfg, steps=steps, batch=batch, seq=TRAIN_SEQ,
-                   compress=compress, device="cuda")
+    T.set_remat_policy(policy)
+    try:
+        res = TR.train(cfg, steps=steps, batch=batch, seq=TRAIN_SEQ,
+                       compress=compress, device="cuda")
+    finally:
+        T.set_remat_policy(None)
     counts = kernels.launch_counts()
     routes = {r: n - before[r] for r, n in FA.ROUTE_LAUNCHES.items()}
     want = dict.fromkeys(counts, 0)
     want.update(_train_launches(cfg, compress, steps))
-    flash_route = ("hopper" if cfg.param_dtype == "bfloat16"
+    flash_route = ("hopper" if cfg.param_dtype in LOW_DTYPES
                    and cfg.head_dim_ == 128 else "mma")
     moments = res["state"]["opt"]["m"]
-    # the MoE router stays float32 whatever the parameters' dtype
+    # the MoE router and the SSM's A_log / D / dt_bias stay float32
+    # whatever the parameters' dtype
     dtypes = sorted({str(t.dtype).replace("torch.", "")
-                     for t in tree_leaves(_without_routers(
+                     for t in tree_leaves(_without_float32_leaves(
                          res["state"]["params"]))})
-    router_dtypes = sorted({str(t.dtype).replace("torch.", "")
-                            for t in _routers(res["state"]["params"])})
+    f32_leaf_dtypes = sorted({str(t.dtype).replace("torch.", "")
+                            for t in _float32_leaves(
+                                res["state"]["params"])})
     moment_dtypes = sorted({str(t.dtype).replace("torch.", "")
                             for t in tree_leaves(moments)})
     embed_moment = float(moments["embed"].abs().max())
     layer_moments = _layer_moments(moments)
-    depth = {k: v for k, v in (changes or {}).items()
-             if k in ("n_layers", "tail")}
+    depth = {k: v for k, v in changes.items() if k in ("n_layers", "tail")}
     cut = ("" if not depth else
            f"layers {cfg.n_layers} of {full.n_layers} (tail "
            f"{list(cfg.tail)} of {list(full.tail)})")
     row = {"arch": arch, "compress": compress, "steps": steps,
-           "dtype": cfg.param_dtype, "batch": batch, "layers": cfg.n_layers,
+           "dtype": cfg.param_dtype, "remat_policy": policy,
+           "batch": batch, "layers": cfg.n_layers,
            "full_layers": full.n_layers, "depth_cut": cut,
            "cut": res["cut"], "params": cfg.param_count(),
            "full_params": full.param_count(),
@@ -3026,7 +3158,7 @@ def train_path(arch, compress, steps, batch=TRAIN_BATCH, changes=None):
            "embed_first_moment_max": embed_moment,
            **{f"{k}_first_moment_min": v for k, v in layer_moments.items()}}
     print(f"train {arch} dtype={cfg.param_dtype} compress={compress} "
-          f"cut={res['cut']} "
+          f"remat_policy={policy} cut={res['cut']} "
           f"batch={batch} seq={TRAIN_SEQ} steps={steps} "
           f"layers={cfg.n_layers}/{full.n_layers} "
           f"depth_cut={cut or 'none'} params={row['params']} "
@@ -3034,7 +3166,7 @@ def train_path(arch, compress, steps, batch=TRAIN_BATCH, changes=None):
           f"step0_s={res['step_s'][0]:.6f} "
           f"later_s={res['step_s'][1:]} "
           f"peak_mem_gb={row['peak_mem_gb']:.3f} "
-          f"param_dtypes={dtypes} router_dtypes={router_dtypes} "
+          f"param_dtypes={dtypes} f32_leaf_dtypes={f32_leaf_dtypes} "
           f"moment_dtypes={moment_dtypes} "
           f"launches={counts} "
           f"launches_per_step={row['launches_per_step']} "
@@ -3051,9 +3183,9 @@ def train_path(arch, compress, steps, batch=TRAIN_BATCH, changes=None):
         raise AssertionError(f"{arch}: flash launches by route {routes}, "
                              f"all expected on {flash_route!r}")
     if (dtypes != [cfg.param_dtype] or moment_dtypes != ["float32"]
-            or router_dtypes not in ([], ["float32"])):
-        raise AssertionError(f"{arch}: parameters {dtypes}, routers "
-                             f"{router_dtypes}, moments {moment_dtypes}")
+            or f32_leaf_dtypes not in ([], ["float32"])):
+        raise AssertionError(f"{arch}: parameters {dtypes}, float32 leaves "
+                             f"{f32_leaf_dtypes}, moments {moment_dtypes}")
     if not (embed_moment > 0.0
             and all(v > 0.0 for v in layer_moments.values())):
         raise AssertionError(f"{arch}: a leaf behind a kernel got no "
@@ -3237,6 +3369,121 @@ def moe_remat_check():
     return row
 
 
+# phase 10g's "dots" check: (arch, changes, batch) at full width
+DOTS_RUN = ("smollm-360m", {"n_layers": 4}, TRAIN_BATCH)
+
+
+def _gemm_spy():
+    """A dispatch mode that records, for every matrix product it sees
+    (mm, addmm, bmm, baddbmm), its op and its tensor operands' shapes and
+    strides; ``calls`` holds the records.  A ``checkpoint`` recompute's
+    saved products (the "dots" policy's) never reach it."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    aten = torch.ops.aten
+    ops = (aten.mm.default, aten.addmm.default, aten.bmm.default,
+           aten.baddbmm.default)
+
+    class Spy(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.calls = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func in ops:
+                self.calls.append((str(func), tuple(
+                    (tuple(a.shape), a.stride()) for a in args
+                    if torch.is_tensor(a))))
+            return func(*args, **(kwargs or {}))
+    return Spy()
+
+
+def _projection(call):
+    """A recorded product without batch dims (mm / addmm, or a batch of
+    one): what the "dots" policy saves."""
+    op, operands = call
+    return (op in ("aten.mm.default", "aten.addmm.default")
+            or operands[-2][0][0] == 1)
+
+
+def dots_check():
+    """Phase 10g's "dots" check: the loss and gradients of
+    ``transformer.loss_fn`` with remat at DOTS_RUN (full width, seq 1024,
+    one set of weights and one batch) under full recompute and under the
+    "dots" policy, bit for bit (torch's deterministic algorithms where it
+    has them).  The matrix products are recorded (:func:`_gemm_spy`) in
+    the forward and in the backward; a backward product is a projection
+    run a second time when its op and operands' shapes and strides are
+    those of a forward product without batch dims (:func:`_projection`).
+    Under "dots" the backward runs none; under full recompute it runs
+    them again.  The kernels' launches are the same under both.  Prints
+    the counts; returns a row."""
+    import dataclasses
+
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as TR
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_flatten
+    arch, changes, batch = DOTS_RUN
+    cfg = dataclasses.replace(get_config(arch), **changes)
+    dev = torch.device("cuda")
+    params = T.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    data = TR.synth_batch(cfg, torch.Generator(device=dev).manual_seed(1),
+                          batch, TRAIN_SEQ, 4)
+    leaves, rebuild = tree_flatten(params)
+    runs = {}
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for policy in (None, "dots"):
+            T.set_remat_policy(policy)
+            kernels.reset_launches()
+            req = [t.detach().requires_grad_(True) for t in leaves]
+            with _gemm_spy() as fwd:
+                loss, _ = T.loss_fn(rebuild(req), cfg, data, remat=True)
+            with _gemm_spy() as bwd:
+                grads = torch.autograd.grad(loss, req)
+            torch.cuda.synchronize()
+            proj = {c for c in fwd.calls if _projection(c)}
+            runs[policy] = {
+                "loss": loss.detach(), "grads": grads,
+                "forward_gemms": len(fwd.calls),
+                "forward_projections": sum(map(_projection, fwd.calls)),
+                "backward_gemms": len(bwd.calls),
+                "backward_projections_again": sum(c in proj
+                                                  for c in bwd.calls),
+                "launches": {k: v for k, v in kernels.launch_counts().items()
+                             if v}}
+            del req, loss
+    finally:
+        T.set_remat_policy(None)
+        torch.use_deterministic_algorithms(deterministic)
+    full, dots = runs[None], runs["dots"]
+    same = (torch.equal(full["loss"], dots["loss"])
+            and all(torch.equal(a, b)
+                    for a, b in zip(full["grads"], dots["grads"])))
+    row = {"arch": arch, "layers": cfg.n_layers, "batch": batch,
+           "bit_for_bit": same, "loss": float(full["loss"]),
+           **{f"{k}_{name}": r[k] for name, r in (("full", full),
+                                                  ("dots", dots))
+              for k in ("forward_gemms", "forward_projections",
+                        "backward_gemms", "backward_projections_again",
+                        "launches")}}
+    print(f"dots_check {arch} layers={cfg.n_layers} batch={batch} "
+          f"seq={TRAIN_SEQ} bit_for_bit={same} loss={row['loss']!r} "
+          + " ".join(f"{k}={v}" for k, v in row.items()
+                     if k.endswith(("_full", "_dots"))), flush=True)
+    del runs, full, dots, params
+    torch.cuda.empty_cache()
+    if not (same and row["backward_projections_again_dots"] == 0
+            and row["backward_projections_again_full"] > 0
+            and row["launches_full"] == row["launches_dots"]):
+        raise AssertionError(f"dots check: {row}")
+    return row
+
+
 def _routers(tree):
     """The MoE routers of a parameter (or moment) tree."""
     return [layer["ffn"]["router"] for seg in tree["segments"]
@@ -3244,10 +3491,24 @@ def _routers(tree):
             if "router" in layer.get("ffn", {})]
 
 
-def _without_routers(tree):
-    """The tree's leaves but the MoE routers."""
+# an SSM block's leaves that stay float32 whatever the parameters' dtype,
+# as the reference's ``init_ssm`` builds them
+SSM_FLOAT32 = ("A_log", "D", "dt_bias")
+
+
+def _float32_leaves(tree):
+    """The leaves of a parameter tree that stay float32 in any
+    param_dtype: the MoE routers and the SSM's SSM_FLOAT32."""
+    return _routers(tree) + [
+        layer["mixer"][k] for seg in tree["segments"] for period in seg
+        for layer in period for k in SSM_FLOAT32
+        if k in layer.get("mixer", {})]
+
+
+def _without_float32_leaves(tree):
+    """The tree's leaves but :func:`_float32_leaves`."""
     from repro_torch.tree import tree_leaves
-    ids = {id(t) for t in _routers(tree)}
+    ids = {id(t) for t in _float32_leaves(tree)}
     return [t for t in tree_leaves(tree) if id(t) not in ids]
 
 
@@ -3288,10 +3549,10 @@ def _train_smoke_config(arch):
     """Phase 10h's config: smollm / mamba2 grown to three periods, the
     families' ``-smoke`` config (gemma3's period and tail, recurrentgemma's
     period and tail), internvl2 and musicgen grown to three layers, so cut 1
-    leaves layers on the RSU (as the CPU parity tests)."""
+    leaves layers on the RSU (as the CPU parity tests); a label
+    "<arch>:<dtype>" in that param_dtype."""
     import dataclasses
-    from repro_torch.configs import get_config
-    cfg = get_config(arch).reduced()
+    cfg = _arch_config(arch).reduced()
     if len(cfg.pattern) == 1 and not cfg.tail:
         cfg = dataclasses.replace(cfg, n_layers=3)
     return cfg
@@ -3310,6 +3571,10 @@ def _train_smoke_config(arch):
 # 256 moved the CPU's loss to 9.9e-4 from the card's
 BF16_MOMENT_RTOL = 0.1
 BF16_LOSS_TOL = 1e-3
+# phase 10h's float32 archs with 16-bit parameters, held as the bfloat16
+# archs are (an adamw step, BF16_MOMENT_RTOL, BF16_LOSS_TOL)
+LOW_TRAIN_SMOKES = ("mamba2-780m:bfloat16", "mamba2-780m:float16",
+                    "smollm-360m:float16")
 
 
 def _moment_rel_err(want, got):
@@ -3373,11 +3638,12 @@ def train_cpu_vs_card():
     STEP_RTOL of the largest update, the losses within 1e-4, and the
     card's launches those :func:`_train_launches` gives (remat off runs
     each period's kernels once).  The bfloat16 archs (BF16_TRAIN_ARCHS,
-    their int8 trip the bf16 codec) take an adamw step instead (lr 1e-2,
-    clip 1.0): each leaf's first moment within BF16_MOMENT_RTOL of the
-    CPU's in norm (:func:`_moment_rel_err`), the losses within
-    BF16_LOSS_TOL, the parameters bfloat16 (the MoE router float32) and
-    the moments float32.  An MoE's routing is compared first: the (token,
+    their int8 trip the bf16 codec) and LOW_TRAIN_SMOKES (float32 archs in
+    bfloat16 or float16) take an adamw step instead (lr 1e-2, clip 1.0):
+    each leaf's first moment within BF16_MOMENT_RTOL of the CPU's in norm
+    (:func:`_moment_rel_err`), the losses within BF16_LOSS_TOL, the
+    parameters in their 16-bit dtype (the MoE router float32) and the
+    moments float32.  An MoE's routing is compared first: the (token,
     choice) slots the card routed elsewhere than the CPU, over the
     forward's and the recompute's router calls, are counted and printed.
     A float32 step is held to its tolerance as it ran, so a flip fails it
@@ -3396,12 +3662,12 @@ def train_cpu_vs_card():
     from repro_torch.models import transformer as T
     from repro_torch.tree import tree_leaves, tree_map
     worst = {}
-    for arch in TRAIN_ARCHS + BF16_TRAIN_ARCHS:
+    for arch in TRAIN_ARCHS + BF16_TRAIN_ARCHS + LOW_TRAIN_SMOKES:
         cfg = _train_smoke_config(arch)
         params = T.init_params(torch.Generator().manual_seed(0), cfg)
         batch = TR.synth_batch(cfg, torch.Generator().manual_seed(0), 4, 64,
                                2)
-        bf16 = cfg.param_dtype == "bfloat16"
+        bf16 = cfg.param_dtype in LOW_DTYPES
         for compress, remat in ((False, True), (True, True),
                                 (False, False)):
             opts = D.DistOptions(cut=1,
@@ -3460,9 +3726,9 @@ def train_cpu_vs_card():
                 rel = _moment_rel_err(ma, mb)
                 close = (rel <= BF16_MOMENT_RTOL
                          and abs(la - lb) <= BF16_LOSS_TOL
-                         and {t.dtype for t in _without_routers(
-                             new["params"])} == {torch.bfloat16}
-                         and {t.dtype for t in _routers(
+                         and {t.dtype for t in _without_float32_leaves(
+                             new["params"])} == {_dtype(cfg.param_dtype)}
+                         and {t.dtype for t in _float32_leaves(
                              new["params"])} <= {torch.float32}
                          and {t.dtype for t in mb} == {torch.float32}
                          and all(bool(torch.isfinite(t).all())
@@ -4288,11 +4554,12 @@ def _main_cut(cuts_per_round):
 
 def _run_label(run):
     """A phase-10g run's name in the JSON line: the arch, "+compress"
-    under int8 smashed data, "+bf16" for a float32 arch trained in
-    bfloat16."""
+    under int8 smashed data, "+bf16" / "+f16" for a float32 arch trained
+    in bfloat16 / float16, "+dots" under the "dots" remat policy."""
+    tag = {"bfloat16": "+bf16", "float16": "+f16"}.get(run["dtype"], "")
     return (run["arch"] + ("+compress" if run["compress"] else "")
-            + ("+bf16" if run["dtype"] == "bfloat16"
-               and run["arch"] not in BF16_TRAIN_ARCHS else ""))
+            + (tag if run["arch"] not in BF16_TRAIN_ARCHS else "")
+            + (f"+{run['remat_policy']}" if run["remat_policy"] else ""))
 
 
 def kernel_report(checks, launches, main_cuts, mm_checks, mm_launches,
@@ -4501,6 +4768,7 @@ def main() -> int:
     _lap("train_runs")
     donation = donation_check()
     remat = moe_remat_check()
+    dots = dots_check()
     _lap("donation")
     train_worst = train_cpu_vs_card()
     _lap("train_cpu_vs_card")
@@ -4516,6 +4784,7 @@ def main() -> int:
                                  f"{loop_run['cuts']}")
     print(json.dumps({"training": {"autograd": autograd, "runs": training,
                                    "donation": donation, "remat": remat,
+                                   "dots": dots,
                                    "cpu_vs_card": train_worst,
                                    "federation": lm_fed}}))
     # the parallel schedule runs after every earlier phase, so their

@@ -25,9 +25,10 @@
    and musicgen-large whole at batch 8, recurrentgemma-2b one period and
    its tail, gemma3-4b one period at batch 4, deepseek-v2-lite-16b at its
    cut depth; in bfloat16 qwen3-14b and command-r-35b at their cut depth,
-   gemma3-4b whole at batch 4, dbrx-132b one layer at batch 4; seq 1024,
-   the default cut, adamw, clip 1.0, remat, the donated step) after one
-   warm-up step.
+   gemma3-4b whole at batch 4, dbrx-132b one layer at batch 4; mamba2-780m
+   whole in bfloat16 and float16, smollm-360m whole in float16 and in
+   float32 under the "dots" remat policy; seq 1024, the default cut,
+   adamw, clip 1.0, remat, the donated step) after one warm-up step.
 5. With ``city``: one round of ``chip_smoke.py`` phase 10l's city cell
    (4096 vehicles, 256 RSUs, mlp9, ``none``, parallel ragged, mobility
    churn) after one warm-up round, unpaged and at ``page_slots=128``,
@@ -289,7 +290,8 @@ def serve_profile(arch, top: int = 10, batch: int = 8, prompt: int = 1024,
 def train_profile(arch, top: int = 20, batch: int = 8, seq: int = 1024,
                   changes=None):
     """One profiled train step of ``arch`` at full width, its config
-    changed by ``changes`` (a depth cut, a dtype), after a warm-up step;
+    changed by ``changes`` (a depth cut, a dtype; ``remat_policy`` sets
+    ``transformer.set_remat_policy`` for the step), after a warm-up step;
     the donated step, so each traced step updates the one state in
     place."""
     import dataclasses
@@ -299,7 +301,23 @@ def train_profile(arch, top: int = 20, batch: int = 8, seq: int = 1024,
     from repro_torch.configs import get_config
     from repro_torch.core import distributed as D
     from repro_torch.launch.train import synth_batch
-    cfg = dataclasses.replace(get_config(arch), **(changes or {}))
+    from repro_torch.models import transformer as T
+    changes = dict(changes or {})
+    policy = changes.pop("remat_policy", None)
+    T.set_remat_policy(policy)
+    try:
+        return _train_profile(arch, dataclasses.replace(get_config(arch),
+                                                        **changes),
+                              policy, top, batch, seq)
+    finally:
+        T.set_remat_policy(None)
+
+
+def _train_profile(arch, cfg, policy, top, batch, seq):
+    import torch
+
+    from repro_torch.core import distributed as D
+    from repro_torch.launch.train import synth_batch
     dev = torch.device("cuda")
     opts = D.DistOptions(cut=cfg.default_cut)
     state = D.init_state(torch.Generator(device=dev).manual_seed(0), cfg,
@@ -315,10 +333,11 @@ def train_profile(arch, top: int = 20, batch: int = 8, seq: int = 1024,
         return m
 
     _, r = _profiled(run, top)
-    res = {"arch": arch, "dtype": cfg.param_dtype, "batch": batch,
-           "seq": seq, "cut": opts.cut, "layers": cfg.n_layers, "step": r}
-    print(f"train {arch} dtype={cfg.param_dtype} layers={cfg.n_layers} "
-          f"batch={batch} "
+    res = {"arch": arch, "dtype": cfg.param_dtype, "remat_policy": policy,
+           "batch": batch, "seq": seq, "cut": opts.cut,
+           "layers": cfg.n_layers, "step": r}
+    print(f"train {arch} dtype={cfg.param_dtype} remat_policy={policy} "
+          f"layers={cfg.n_layers} batch={batch} "
           f"wall_s={r['wall_s']:.6f} "
           f"device_busy_s={r['device_busy_s']:.6f} "
           f"busy_share={r['device_busy_share']:.4f} "

@@ -5,11 +5,13 @@ reduced variant.
 Every layer kind trains -- attention (global, local, GQA / MQA, qk-norm),
 MLA, the MoE FFN (dense and grouped GShard dispatch, the aux load-balance
 loss in the objective), SSM and RG-LRU -- with every frontend, rope and
-sinusoidal positions and the SwiGLU, GeGLU and GeLU MLPs, in float32 or
-bfloat16 parameters: each backward is held to the reference's
-``jax.grad``.  A config whose parameters are in another dtype (float16)
-is served (prefill and decode, ``launch/serve.py``) but not trained: the
-train step, ``launch/train.py`` and ``TransformerUnitModel`` refuse it
+sinusoidal positions and the SwiGLU, GeGLU and GeLU MLPs, in float32,
+bfloat16 or float16 parameters: each backward is held to the reference's
+``jax.grad``.  Any arch trains and serves in another of those dtypes
+through ``dataclasses.replace(cfg, param_dtype="float16")`` (or
+``"bfloat16"``).  A config whose parameters are in any other dtype
+(float64, an integer type) is not trained: the train step,
+``launch/train.py`` and ``TransformerUnitModel`` refuse it
 (:func:`check_trainable`).  ``SERVE_ONLY`` lists the arch ids that are
 served only: none (every registered arch is float32 or bfloat16).
 
@@ -50,9 +52,9 @@ def get_config(name: str) -> ArchConfig:
     return importlib.import_module(_MODULES[name]).CONFIG
 
 
-# the parameter dtypes the train step takes (the reference's DistOptions
-# takes any; float16 is not held against it yet)
-TRAINED_DTYPES = ("float32", "bfloat16")
+# the parameter dtypes the train step takes, each held against the
+# reference's (whose DistOptions takes any dtype; the others are not)
+TRAINED_DTYPES = ("float32", "bfloat16", "float16")
 
 
 def untrained_features(cfg: ArchConfig) -> List[str]:
@@ -65,7 +67,7 @@ def untrained_features(cfg: ArchConfig) -> List[str]:
 
 
 def check_trainable(cfg: ArchConfig) -> None:
-    """Raise for a config the port serves but does not train yet."""
+    """Raise for a config the port does not train."""
     found = untrained_features(cfg)
     if found:
         raise NotImplementedError(

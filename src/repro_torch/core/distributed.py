@@ -15,9 +15,9 @@ The train step is sync-SFL (aggregation every step, K = 1): client forward
 paper Eq. 1 inside one step, read in float32) plus both sides' MoE aux
 load-balance losses, global-norm clipping and the optimizer.  The prefill
 and decode steps drop the aux loss, as the reference's do.  It trains
-float32 or bfloat16 parameters (``param_dtype``, as the reference's: the
-forward and backward in the parameters' dtype, the moments and the update
-in float32, the new parameter rounded back).
+float32, bfloat16 or float16 parameters (``param_dtype``, as the
+reference's: the forward and backward in the parameters' dtype, the
+moments and the update in float32, the new parameter rounded back).
 The step donates its state, as ``jax.jit(step, donate_argnums=0)``: the
 optimizer runs leaf by leaf in place (``Optimizer.update_``), so the
 caller's state is consumed and the state returned is the same storage (a
@@ -62,8 +62,8 @@ class DistOptions:
         if self.param_dtype not in _TRAINED_DTYPES:
             raise NotImplementedError(
                 f"param_dtype={self.param_dtype!r}: training takes None, "
-                f"float32 or bfloat16 parameters; another dtype is not "
-                f"ported yet")
+                f"float32, bfloat16 or float16 parameters; another dtype "
+                f"is not ported yet")
 
 
 # DistOptions.param_dtype values the train step takes (None: the config's)

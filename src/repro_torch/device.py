@@ -9,9 +9,10 @@ This is also the one place the port sets matmul precision: TF32 is turned
 off for both matmuls and cuDNN convolutions.  cuDNN runs float32 convolutions
 in TF32 by default (about three decimal digits), which would put the card's
 ResNet numbers far outside the parity tolerances held against the CPU and
-the JAX reference.  bfloat16 matmuls keep float32 partial sums too
-(``allow_bf16_reduced_precision_reduction`` off): cuBLAS may otherwise add
-the partial sums of a split-K GEMM in bfloat16, where the reference's dot
+the JAX reference.  bfloat16 and float16 matmuls keep float32 partial
+sums too (``allow_bf16_reduced_precision_reduction`` and
+``allow_fp16_reduced_precision_reduction`` off): cuBLAS may otherwise add
+the partial sums of a split-K GEMM in 16 bits, where the reference's dot
 accumulates in float32 and rounds once.
 """
 from __future__ import annotations
@@ -25,10 +26,11 @@ DeviceLike = Union[str, torch.device, None]
 
 def set_float32_precision() -> None:
     """Full float32 for matmuls and convolutions (TF32 off), and float32
-    partial sums in bfloat16 matmuls."""
+    partial sums in bfloat16 and float16 matmuls."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:

@@ -53,7 +53,9 @@ SIGNATURES = {
     "repro_flash_attention_hopper": [_P, _P, _P, _P, *[_I] * 6, *[_LL] * 9,
                                      _I, _I, _F, _I, _P],
     "repro_flash_hopper_smem_bytes": [],
-    "repro_ssd_chunk_scan": [*[_P] * 8, *[_I] * 7, *[_LL] * 12, _P],
+    # ssd's last ints: the dtype codes of x / B / C / y, of dt and of A
+    "repro_ssd_chunk_scan": [*[_P] * 8, *[_I] * 7, *[_LL] * 12, _I, _I, _I,
+                             _P],
     "repro_ssd_workspace_floats": [_I] * 7,
 }
 # entry points that return something other than a cudaError_t

@@ -12,8 +12,9 @@
 //
 // Arithmetic.  rmsnorm (both ways) computes in float32 on the CUDA cores,
 // from and to float32, bfloat16 or float16 tensors.  Flash attention
-// (float32 inputs) and the SSD scan run every matrix product on the tensor
-// cores with the 3xTF32 split (mma.sync m16n8k8 on tf32 operands): each
+// (float32 inputs) and the SSD scan (float32 math from float32, bfloat16 or
+// float16 inputs) run every matrix product on the tensor cores with the
+// 3xTF32 split (mma.sync m16n8k8 on tf32 operands): each
 // float32 operand x becomes big = tf32(x) and small = tf32(x - big)
 // (cvt.rna), and a.b is summed as a_small.b_big + a_big.b_small +
 // a_big.b_big into float32 accumulators.  The dropped a_small.b_small is
@@ -1271,6 +1272,45 @@ int launch_flash_d(const void* q, const void* k, const void* v, void* o,
 #undef REPRO_FA
 }
 
+// Stage a tile of T as float32 in shared memory (dst float, row stride
+// sld, a multiple of 4), rows >= nrows and columns >= ncols zero: float32
+// by stage_tile (asynchronously); a 16-bit T widened on the way, exactly,
+// by plain loads and stores (cp.async cannot convert), which the
+// __syncthreads after the cp.async wait orders as well.  vec: 16-byte
+// loads of 8 values (cols, ncols, ld and src multiples of 16 bytes), each
+// stored as two float4.
+template <int THREADS, typename T>
+__device__ __forceinline__ void stage_tile_f32(float* dst, int sld,
+                                               const T* src, long long ld,
+                                               int rows, int cols, int nrows,
+                                               int ncols, bool vec) {
+  if constexpr (sizeof(T) == 4) {
+    stage_tile<THREADS, float>(dst, sld, src, ld, rows, cols, nrows, ncols,
+                               vec);
+  } else if (vec) {
+    const int ce = cols / 8;
+#pragma unroll 4
+    for (int e = threadIdx.x; e < rows * ce; e += THREADS) {
+      const int r = e / ce, c = (e - r * ce) * 8;
+      float f[8];
+      if (r < nrows && c < ncols)
+        unpack<T>(*reinterpret_cast<const uint4*>(src + r * ld + c), f);
+      else
+#pragma unroll
+        for (int k = 0; k < 8; ++k) f[k] = 0.f;
+      float4* d4 = reinterpret_cast<float4*>(dst + r * sld + c);
+      d4[0] = make_float4(f[0], f[1], f[2], f[3]);
+      d4[1] = make_float4(f[4], f[5], f[6], f[7]);
+    }
+  } else {
+    for (int e = threadIdx.x; e < rows * cols; e += THREADS) {
+      const int r = e / cols, c = e - r * cols;
+      dst[r * sld + c] =
+          r < nrows && c < ncols ? to_f32<T>(src[r * ld + c]) : 0.f;
+    }
+  }
+}
+
 // ===================================================== SSD chunk scan
 // Replaces _ssd_kernel (Mamba2 SSD).  Per chunk of positions, with
 // cum = inclusive prefix sum of dt*A:
@@ -1300,6 +1340,12 @@ int launch_flash_d(const void* q, const void* k, const void* v, void* o,
 //           i tiles of one (batch, head, chunk) sit side by side in the
 //           grid, so H_c and x are read from L2, and the heads of a group
 //           share CB and C there.
+// Inputs: x, B and C in float32, bfloat16 or float16 (one type), dt and A
+// each in float32 or that type.  A 16-bit tile is widened exactly to
+// float32 as it is staged in shared memory (stage_tile_f32), so every
+// product and every intermediate (cum, C.B^T, the chunk states, the final
+// state) is the float32 one; y is written in x's type, rounded once from
+// the float32 accumulator (the reference's astype(x.dtype)).
 // The scratch is the wrapper's (repro_ssd_workspace_floats says how many
 // floats).  Positions past s (a ragged last chunk) read as dt = 0 and
 // x = B = C = 0, so they leave the state unchanged, and are not stored.
@@ -1356,8 +1402,9 @@ SsdWork ssd_work(int b, int s, int h, int p, int g, int n, int chunk) {
   return w;
 }
 
+template <typename TD, typename TA>
 __global__ void __launch_bounds__(SSD_CMAX)
-ssd_cumsum_kernel(const float* __restrict__ dt, const float* __restrict__ A,
+ssd_cumsum_kernel(const TD* __restrict__ dt, const TA* __restrict__ A,
                   float* __restrict__ cum, float* __restrict__ dts, int s,
                   int h, int chunk, int nc, long long dt_sb, long long dt_ss,
                   long long dt_sh) {
@@ -1365,10 +1412,11 @@ ssd_cumsum_kernel(const float* __restrict__ dt, const float* __restrict__ A,
   const int bh = blockIdx.x, c = blockIdx.y, bi = bh / h, hi = bh % h;
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const int pos = c * chunk + t;
-  const float d = t < chunk && pos < s
-                      ? dt[bi * dt_sb + (long long)pos * dt_ss + hi * dt_sh]
-                      : 0.f;
-  float la = d * A[hi];
+  const float d =
+      t < chunk && pos < s
+          ? to_f32<TD>(dt[bi * dt_sb + (long long)pos * dt_ss + hi * dt_sh])
+          : 0.f;
+  float la = d * to_f32<TA>(A[hi]);
 #pragma unroll
   for (int off = 1; off < 32; off <<= 1) {
     const float u = __shfl_up_sync(FULL, la, off);
@@ -1394,8 +1442,9 @@ ssd_cumsum_kernel(const float* __restrict__ dt, const float* __restrict__ A,
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(SSD_CB_THREADS)
-ssd_cb_kernel(const float* __restrict__ B, const float* __restrict__ C,
+ssd_cb_kernel(const T* __restrict__ B, const T* __restrict__ C,
               float* __restrict__ cb, int s, int g, int n, int chunk, int nc,
               int ldcb, long long B_sb, long long B_ss, long long B_sg,
               long long C_sb, long long C_ss, long long C_sg, int vec) {
@@ -1407,10 +1456,10 @@ ssd_cb_kernel(const float* __restrict__ B, const float* __restrict__ C,
   const int c = blockIdx.y, bi = blockIdx.z / g, gi = blockIdx.z % g;
   const int c0 = c * chunk, L = min(chunk, s - c0);
   const int i0 = ti * SSD_T, j0 = tj * SSD_T, np = (n + 7) & ~7;
-  stage_tile<SSD_CB_THREADS>(
+  stage_tile_f32<SSD_CB_THREADS>(
       Cs, SSD_LDC, C + bi * C_sb + gi * C_sg + (long long)(c0 + i0) * C_ss,
       C_ss, SSD_T, np, L - i0, n, vec);
-  stage_tile<SSD_CB_THREADS>(
+  stage_tile_f32<SSD_CB_THREADS>(
       Bs, SSD_LDC, B + bi * B_sb + gi * B_sg + (long long)(c0 + j0) * B_ss,
       B_ss, SSD_T, np, L - j0, n, vec);
   cp_async_commit();
@@ -1455,8 +1504,9 @@ ssd_cb_kernel(const float* __restrict__ B, const float* __restrict__ C,
 // H_{c+1} = exp(total_c) H_c + S_c in registers; H_c (c >= 1) goes to
 // scratch for the scan, the last H to the final state.  8 warps, one per
 // 16 rows of n.
+template <typename T>
 __global__ void __launch_bounds__(SSD_STATE_THREADS)
-ssd_state_kernel(const float* __restrict__ x, const float* __restrict__ B,
+ssd_state_kernel(const T* __restrict__ x, const T* __restrict__ B,
                  const float* __restrict__ cum,
                  const float* __restrict__ dts, float* __restrict__ hs,
                  float* __restrict__ state, int s, int h, int p, int g,
@@ -1471,8 +1521,8 @@ ssd_state_kernel(const float* __restrict__ x, const float* __restrict__ B,
   const int gi = hi / (h / g), pw = min(SSD_PB, p - p0);
   const int np = (n + 7) & ~7, pwp = (pw + 7) & ~7, nt_p = pwp / 8;
   const long long bh = (long long)bi * h + hi;
-  const float* xb = x + bi * x_sb + hi * x_sh + p0;
-  const float* Bb = B + bi * B_sb + gi * B_sg;
+  const T* xb = x + bi * x_sb + hi * x_sh + p0;
+  const T* Bb = B + bi * B_sb + gi * B_sg;
   const int ntc = (chunk + SSD_TJ - 1) / SSD_TJ, ntiles = nc * ntc;
 
   // tile k: j tile k % ntc of chunk k / ntc, with its weights
@@ -1480,12 +1530,12 @@ ssd_state_kernel(const float* __restrict__ x, const float* __restrict__ B,
     const int sg = k % SSD_ST, c = k / ntc, j0 = (k - c * ntc) * SSD_TJ;
     const int L = min(chunk, s - c * chunk);
     const long long pos0 = (long long)c * chunk + j0;
-    stage_tile<SSD_STATE_THREADS>(Bs + sg * SSD_TJ * SSD_LDB, SSD_LDB,
-                                  Bb + pos0 * B_ss, B_ss, SSD_TJ, np, L - j0,
-                                  n, vec_b);
-    stage_tile<SSD_STATE_THREADS>(Xs + sg * SSD_TJ * SSD_LDXB, SSD_LDXB,
-                                  xb + pos0 * x_ss, x_ss, SSD_TJ, pwp, L - j0,
-                                  pw, vec_x);
+    stage_tile_f32<SSD_STATE_THREADS>(Bs + sg * SSD_TJ * SSD_LDB, SSD_LDB,
+                                      Bb + pos0 * B_ss, B_ss, SSD_TJ, np,
+                                      L - j0, n, vec_b);
+    stage_tile_f32<SSD_STATE_THREADS>(Xs + sg * SSD_TJ * SSD_LDXB, SSD_LDXB,
+                                      xb + pos0 * x_ss, x_ss, SSD_TJ, pwp,
+                                      L - j0, pw, vec_x);
     const float* cumc = cum + (bh * nc + c) * chunk;
     const float* dtc = dts + (bh * nc + c) * chunk;
     const float total = cumc[chunk - 1];
@@ -1555,11 +1605,12 @@ ssd_state_kernel(const float* __restrict__ x, const float* __restrict__ B,
   cp_async_wait<0>();
 }
 
+template <typename T>
 __global__ void __launch_bounds__(SSD_SCAN_THREADS, 2)
-ssd_scan_kernel(const float* __restrict__ x, const float* __restrict__ C,
+ssd_scan_kernel(const T* __restrict__ x, const T* __restrict__ C,
                 const float* __restrict__ cum, const float* __restrict__ dts,
                 const float* __restrict__ cb, const float* __restrict__ hs,
-                float* __restrict__ y, int s, int h, int p, int g, int n,
+                T* __restrict__ y, int s, int h, int p, int g, int n,
                 int chunk, int nc, int ldcb, int ldh, long long x_sb,
                 long long x_ss, long long x_sh, long long C_sb,
                 long long C_ss, long long C_sg, int vec_x, int vec_c) {
@@ -1581,7 +1632,7 @@ ssd_scan_kernel(const float* __restrict__ x, const float* __restrict__ C,
     cumc[j] = j < chunk ? cum[bhc * chunk + j] : 0.f;
     dtc[j] = j < chunk ? dts[bhc * chunk + j] : 0.f;
   }
-  const float* xb = x + bi * x_sb + hi * x_sh + (long long)c0 * x_ss;
+  const T* xb = x + bi * x_sb + hi * x_sh + (long long)c0 * x_ss;
   const float* cbb = cb + ((long long)(bi * g + gi) * nc + c) * chunk * ldcb +
                      (long long)i0 * ldcb;
   const int np = (n + 7) & ~7, pp = (p + 7) & ~7, nt_p = pp / 8;
@@ -1595,7 +1646,7 @@ ssd_scan_kernel(const float* __restrict__ x, const float* __restrict__ C,
 
   // ---- incoming state: exp(cum_i) C_i.H_c (H_0 = 0)
   if (c > 0) {
-    stage_tile<SSD_SCAN_THREADS>(
+    stage_tile_f32<SSD_SCAN_THREADS>(
         Cs, SSD_LDC, C + bi * C_sb + gi * C_sg + (long long)(c0 + i0) * C_ss,
         C_ss, SSD_TI, np, L - i0, n, vec_c);
     stage_tile<SSD_SCAN_THREADS>(Hs, SSD_LDX, hs + bhc * n * ldh, ldh, np,
@@ -1637,9 +1688,9 @@ ssd_scan_kernel(const float* __restrict__ x, const float* __restrict__ C,
     stage_tile<SSD_SCAN_THREADS>(CBs + sg * SSD_TI * SSD_LDS, SSD_LDS,
                                  cbb + j0, ldcb, SSD_TI, SSD_T, chunk - i0,
                                  ldcb - j0, true);
-    stage_tile<SSD_SCAN_THREADS>(Xs + sg * SSD_T * SSD_LDX, SSD_LDX,
-                                 xb + (long long)j0 * x_ss, x_ss, SSD_T, pp,
-                                 L - j0, p, vec_x);
+    stage_tile_f32<SSD_SCAN_THREADS>(Xs + sg * SSD_T * SSD_LDX, SSD_LDX,
+                                     xb + (long long)j0 * x_ss, x_ss, SSD_T,
+                                     pp, L - j0, p, vec_x);
   };
   stage(0, 0);
   cp_async_commit();
@@ -1681,15 +1732,92 @@ ssd_scan_kernel(const float* __restrict__ x, const float* __restrict__ C,
   }
 
   const long long y_ss = (long long)h * p;
-  float* yb = y + ((long long)bi * s + c0) * y_ss + (long long)hi * p;
+  T* yb = y + ((long long)bi * s + c0) * y_ss + (long long)hi * p;
 #pragma unroll
   for (int t = 0; t < 8; ++t)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int i = i0 + wr + gq + 8 * (e >> 1);
       const int col = t * 8 + 2 * tq + (e & 1);
-      if (i < L && col < p) yb[i * y_ss + col] = acc[t][e];
+      if (i < L && col < p) yb[i * y_ss + col] = from_f32<T>(acc[t][e]);
     }
+}
+
+// Calls f with null (T*, TD*, TA*) for x's dtype code (0 float32, 1
+// bfloat16, 2 float16) and dt's and A's (each float32 or x's type); false
+// otherwise.
+template <typename F>
+bool with_ssd_types(int xcode, int dtcode, int acode, F f) {
+  if ((dtcode != 0 && dtcode != xcode) || (acode != 0 && acode != xcode))
+    return false;
+  auto go = [&](auto* xt) {
+    using T = std::remove_pointer_t<decltype(xt)>;
+    if (dtcode == 0 && acode == 0) f(xt, (float*)nullptr, (float*)nullptr);
+    else if (dtcode == 0) f(xt, (float*)nullptr, (T*)nullptr);
+    else if (acode == 0) f(xt, (T*)nullptr, (float*)nullptr);
+    else f(xt, (T*)nullptr, (T*)nullptr);
+  };
+  switch (xcode) {
+    case 0: f((float*)nullptr, (float*)nullptr, (float*)nullptr); return true;
+    case 1: go((__nv_bfloat16*)nullptr); return true;
+    case 2: go((__half*)nullptr); return true;
+    default: return false;
+  }
+}
+
+// The four kernels of one call on x / B / C of type T (y written in T),
+// dt of TD and A of TA; every intermediate and the state float32.
+template <typename T, typename TD, typename TA>
+cudaError_t launch_ssd(const T* x, const TD* dt, const TA* A, const T* B,
+                       const T* C, T* y, float* state, float* work, int b,
+                       int s, int h, int p, int g, int n, int chunk,
+                       long long x_sb, long long x_ss, long long x_sh,
+                       long long dt_sb, long long dt_ss, long long dt_sh,
+                       long long B_sb, long long B_ss, long long B_sg,
+                       long long C_sb, long long C_ss, long long C_sg,
+                       cudaStream_t st) {
+  const SsdWork w = ssd_work(b, s, h, p, g, n, chunk);
+  float* cum = work + w.cum;
+  float* dts = work + w.dts;
+  float* cbs = work + w.cb;
+  float* hs = work + w.hs;
+  // 16-byte loads: 16 / sizeof(T) values, so every stride and width a
+  // multiple of that
+  constexpr int E = 16 / sizeof(T);
+  const bool vec_x = aligned16(x) && (x_sb | x_ss | x_sh | p) % E == 0;
+  const bool vec_b = aligned16(B) && (B_sb | B_ss | B_sg | n) % E == 0;
+  const bool vec_c = aligned16(C) && (C_sb | C_ss | C_sg | n) % E == 0;
+  const int nt = (chunk + SSD_T - 1) / SSD_T;
+  cudaError_t err;
+  const struct {
+    const void* fn;
+    int bytes;
+  } big[] = {{(const void*)ssd_cb_kernel<T>, SSD_CB_FLOATS * 4},
+             {(const void*)ssd_state_kernel<T>, SSD_STATE_FLOATS * 4},
+             {(const void*)ssd_scan_kernel<T>, SSD_SCAN_FLOATS * 4}};
+  for (const auto& k : big) {
+    err = cudaFuncSetAttribute(
+        k.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, k.bytes);
+    if (err != cudaSuccess) return err;
+  }
+  ssd_cumsum_kernel<TD, TA><<<dim3(b * h, w.nc), SSD_CMAX, 0, st>>>(
+      dt, A, cum, dts, s, h, chunk, w.nc, dt_sb, dt_ss, dt_sh);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  ssd_cb_kernel<T><<<dim3(nt * (nt + 1) / 2, w.nc, b * g), SSD_CB_THREADS,
+                     SSD_CB_FLOATS * 4, st>>>(
+      B, C, cbs, s, g, n, chunk, w.nc, w.ldcb, B_sb, B_ss, B_sg, C_sb, C_ss,
+      C_sg, (int)(vec_b && vec_c));
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  ssd_state_kernel<T><<<dim3((p + SSD_PB - 1) / SSD_PB, h, b),
+                        SSD_STATE_THREADS, SSD_STATE_FLOATS * 4, st>>>(
+      x, B, cum, dts, hs, state, s, h, p, g, n, chunk, w.nc, w.ldh, x_sb,
+      x_ss, x_sh, B_sb, B_ss, B_sg, (int)vec_x, (int)vec_b);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  ssd_scan_kernel<T><<<dim3((chunk + SSD_TI - 1) / SSD_TI, h, b * w.nc),
+                       SSD_SCAN_THREADS, SSD_SCAN_FLOATS * 4, st>>>(
+      x, C, cum, dts, cbs, hs, y, s, h, p, g, n, chunk, w.nc, w.ldcb, w.ldh,
+      x_sb, x_ss, x_sh, C_sb, C_ss, C_sg, (int)vec_x, (int)vec_c);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -1808,14 +1936,17 @@ long long repro_ssd_workspace_floats(int b, int s, int h, int p, int g,
   return ssd_work(b, s, h, p, g, n, chunk).total;
 }
 
-int repro_ssd_chunk_scan(const float* x, const float* dt, const float* A,
-                         const float* B, const float* C, float* y,
-                         float* state, float* work, int b, int s, int h,
-                         int p, int g, int n, int chunk, long long x_sb,
-                         long long x_ss, long long x_sh, long long dt_sb,
-                         long long dt_ss, long long dt_sh, long long B_sb,
-                         long long B_ss, long long B_sg, long long C_sb,
-                         long long C_ss, long long C_sg, void* stream) {
+// x, B, C (and y) of one dtype code (0 float32, 1 bfloat16, 2 float16),
+// dt and A each float32 or x's type; state and work float32
+int repro_ssd_chunk_scan(const void* x, const void* dt, const void* A,
+                         const void* B, const void* C, void* y, float* state,
+                         float* work, int b, int s, int h, int p, int g,
+                         int n, int chunk, long long x_sb, long long x_ss,
+                         long long x_sh, long long dt_sb, long long dt_ss,
+                         long long dt_sh, long long B_sb, long long B_ss,
+                         long long B_sg, long long C_sb, long long C_ss,
+                         long long C_sg, int xcode, int dtcode, int acode,
+                         void* stream) {
   if (b <= 0 || h <= 0) return 0;
   if (p > SSD_PMAX || n > SSD_NMAX || chunk > SSD_CMAX || chunk < 1 ||
       g < 1 || h % g)
@@ -1823,45 +1954,19 @@ int repro_ssd_chunk_scan(const float* x, const float* dt, const float* A,
   cudaStream_t st = (cudaStream_t)stream;
   if (s <= 0)
     return (int)cudaMemsetAsync(state, 0, sizeof(float) * b * h * n * p, st);
-  const SsdWork w = ssd_work(b, s, h, p, g, n, chunk);
-  float* cum = work + w.cum;
-  float* dts = work + w.dts;
-  float* cbs = work + w.cb;
-  float* hs = work + w.hs;
-  const bool vec_x = aligned16(x) && (x_sb | x_ss | x_sh | p) % 4 == 0;
-  const bool vec_b = aligned16(B) && (B_sb | B_ss | B_sg | n) % 4 == 0;
-  const bool vec_c = aligned16(C) && (C_sb | C_ss | C_sg | n) % 4 == 0;
-  const int nt = (chunk + SSD_T - 1) / SSD_T;
-  cudaError_t err;
-  const struct {
-    const void* fn;
-    int bytes;
-  } big[] = {{(const void*)ssd_cb_kernel, SSD_CB_FLOATS * 4},
-             {(const void*)ssd_state_kernel, SSD_STATE_FLOATS * 4},
-             {(const void*)ssd_scan_kernel, SSD_SCAN_FLOATS * 4}};
-  for (const auto& k : big) {
-    err = cudaFuncSetAttribute(
-        k.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, k.bytes);
-    if (err != cudaSuccess) return (int)err;
-  }
-  ssd_cumsum_kernel<<<dim3(b * h, w.nc), SSD_CMAX, 0, st>>>(
-      dt, A, cum, dts, s, h, chunk, w.nc, dt_sb, dt_ss, dt_sh);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  ssd_cb_kernel<<<dim3(nt * (nt + 1) / 2, w.nc, b * g), SSD_CB_THREADS,
-                  SSD_CB_FLOATS * 4, st>>>(B, C, cbs, s, g, n, chunk, w.nc,
-                                           w.ldcb, B_sb, B_ss, B_sg, C_sb,
-                                           C_ss, C_sg, (int)(vec_b && vec_c));
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  ssd_state_kernel<<<dim3((p + SSD_PB - 1) / SSD_PB, h, b),
-                     SSD_STATE_THREADS, SSD_STATE_FLOATS * 4, st>>>(
-      x, B, cum, dts, hs, state, s, h, p, g, n, chunk, w.nc, w.ldh, x_sb,
-      x_ss, x_sh, B_sb, B_ss, B_sg, (int)vec_x, (int)vec_b);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  ssd_scan_kernel<<<dim3((chunk + SSD_TI - 1) / SSD_TI, h, b * w.nc),
-                    SSD_SCAN_THREADS, SSD_SCAN_FLOATS * 4, st>>>(
-      x, C, cum, dts, cbs, hs, y, s, h, p, g, n, chunk, w.nc, w.ldcb, w.ldh,
-      x_sb, x_ss, x_sh, C_sb, C_ss, C_sg, (int)vec_x, (int)vec_c);
-  return (int)cudaGetLastError();
+  cudaError_t err = cudaErrorInvalidValue;
+  with_ssd_types(xcode, dtcode, acode, [&](auto* xt, auto* dtt, auto* at) {
+    using T = std::remove_pointer_t<decltype(xt)>;
+    using TD = std::remove_pointer_t<decltype(dtt)>;
+    using TA = std::remove_pointer_t<decltype(at)>;
+    err = launch_ssd<T, TD, TA>(
+        static_cast<const T*>(x), static_cast<const TD*>(dt),
+        static_cast<const TA*>(A), static_cast<const T*>(B),
+        static_cast<const T*>(C), static_cast<T*>(y), state, work, b, s, h, p,
+        g, n, chunk, x_sb, x_ss, x_sh, dt_sb, dt_ss, dt_sh, B_sb, B_ss, B_sg,
+        C_sb, C_ss, C_sg, st);
+  });
+  return (int)err;
 }
 
 }  // extern "C"

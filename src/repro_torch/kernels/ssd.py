@@ -9,8 +9,13 @@ returns the final state ``(b, h, n, p)`` beside y: the prefill cache needs
 it.
 
 The CUDA kernels (``kernels/csrc/lm.cu``, ``repro_ssd_chunk_scan``) take
-float32 with p <= 64, n <= 128 and chunk <= 256, reading x / dt / B / C
-through their strides (trailing dims of x, B and C contiguous).
+x, B and C in float32, bfloat16 or float16 (one dtype) and dt and A each
+in float32 or x's dtype, with p <= 64, n <= 128 and chunk <= 256, reading
+x / dt / B / C through their strides (trailing dims of x, B and C
+contiguous).  As the reference's kernel, they widen every input to float32
+as they load it, keep every intermediate (prefix sums, C.B^T, chunk
+states) and the returned state in float32, and write y in x's dtype,
+rounded once.
 
 Bound on H100: operations.  With C.B^T computed once per (batch, group,
 chunk), the chunked form needs ~1.96e10 flops at mamba2-780m's prefill
@@ -38,7 +43,9 @@ Autograd.  :func:`ssd_chunk_scan` is a ``torch.autograd.Function``: its
 forward is the kernels (the plain version on the CPU); its backward is
 ``torch.func.vjp`` of :func:`ssd_chunked` on the saved inputs, plain
 PyTorch that recomputes the chunked scan (the JAX package has no backward
-kernel; a hand-written reverse chunk scan is still to be written).  The
+kernel; a hand-written reverse chunk scan is still to be written); each
+gradient comes back in its input's dtype, as ``jax.vjp`` of the
+reference gives it.  The
 state's gradient may be ``None`` (training drops the state): the backward
 then differentiates y alone.  Its ``vmap`` rule folds a vmapped axis that only
 the activations x, dt, B and C carry into the batch ``b`` (one call);
@@ -54,7 +61,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import _build, fold_replicas
-from repro_torch.kernels.quant import launch
+from repro_torch.kernels.quant import FLOAT_CODES, launch
 
 MAX_HEAD_DIM, MAX_STATE, MAX_CHUNK = 64, 128, 256
 
@@ -163,8 +170,12 @@ def _forward(x, dt, A, B, C, chunk: int):
         return ssd_chunked(x, dt, A, B, C, chunk)
     if x.device.type != "cuda":
         raise ValueError(f"x is on unsupported device {x.device}")
-    if any(t.dtype != torch.float32 for t in (x, dt, A, B, C)):
-        raise TypeError("the ssd_chunk_scan kernel takes float32")
+    if (x.dtype not in FLOAT_CODES or not x.dtype == B.dtype == C.dtype
+            or any(t.dtype not in (torch.float32, x.dtype) for t in (dt, A))):
+        raise TypeError(f"the ssd_chunk_scan kernel takes x, B and C of one "
+                        f"dtype in {tuple(FLOAT_CODES)} and dt, A in float32 "
+                        f"or x's dtype; got x {x.dtype}, dt {dt.dtype}, A "
+                        f"{A.dtype}, B {B.dtype}, C {C.dtype}")
     if p_ > MAX_HEAD_DIM or n > MAX_STATE or not 1 <= chunk <= MAX_CHUNK:
         raise ValueError(f"head_dim {p_} > {MAX_HEAD_DIM}, d_state {n} > "
                          f"{MAX_STATE} or chunk {chunk} outside "
@@ -172,7 +183,7 @@ def _forward(x, dt, A, B, C, chunk: int):
     if any(t.stride(-1) != 1 for t in (x, B, C)) or not A.is_contiguous():
         raise ValueError("x, B and C need a contiguous trailing dim and A "
                          "must be contiguous")
-    y = torch.empty((b, s, h, p_), dtype=torch.float32, device=x.device)
+    y = torch.empty((b, s, h, p_), dtype=x.dtype, device=x.device)
     state = torch.empty((b, h, n, p_), dtype=torch.float32, device=x.device)
     # the kernels' intermediates: cum / dt, C.B^T per group, chunk states
     work = torch.empty(
@@ -182,7 +193,8 @@ def _forward(x, dt, A, B, C, chunk: int):
            A.data_ptr(), B.data_ptr(), C.data_ptr(), y.data_ptr(),
            state.data_ptr(), work.data_ptr(), b, s, h, p_, g, n, chunk,
            *x.stride()[:3], *dt.stride(), B.stride(0), B.stride(1),
-           B.stride(2), C.stride(0), C.stride(1), C.stride(2))
+           B.stride(2), C.stride(0), C.stride(1), C.stride(2),
+           FLOAT_CODES[x.dtype], FLOAT_CODES[dt.dtype], FLOAT_CODES[A.dtype])
     return y, state
 
 

@@ -11,11 +11,12 @@ unless ``--device cpu`` is given (without a card it raises).  Text, vision
 (patch embeddings before the tokens; the loss on the text positions) and
 audio (K codebooks in, each frame's K codes as its targets) archs train, in
 their config's ``param_dtype``: qwen3-14b, command-r-35b and dbrx-132b in
-bfloat16 (float32 moments; the MoE router float32), any other arch in
-bfloat16 through ``dataclasses.replace(cfg, param_dtype="bfloat16")``
-passed to :func:`train`.  MLA and MoE archs (deepseek-v2-lite-16b,
-dbrx-132b) train with their aux load-balance loss in the objective;
-float16 parameters are refused.
+bfloat16 (float32 moments; the MoE router float32), any arch in bfloat16
+or float16 through ``dataclasses.replace(cfg, param_dtype="float16")``
+passed to :func:`train` (mamba2-780m's SSD scan takes 16-bit inputs on the
+card).  MLA and MoE archs (deepseek-v2-lite-16b, dbrx-132b) train with
+their aux load-balance loss in the objective; parameters of another dtype
+(float64, an integer type) are refused.
 ``--smoke`` trains the reduced config; without it the full config at
 ``--batch`` / ``--seq``.  The reference's mesh shapes (``--shape``,
 ``--multi-pod``) are not ported.

@@ -18,8 +18,12 @@ Modes: ``train`` (full sequence, no cache), ``prefill`` (full sequence,
 returns the caches) and ``decode`` (one token, consumes and returns the
 caches).  In ``train`` mode with ``remat`` each period runs under
 ``torch.utils.checkpoint`` (non-reentrant): its activations are recomputed
-in the backward, the reference's ``jax.checkpoint`` of the scan body with
-the default (full recompute) policy; the ``dots`` policy is not ported.
+in the backward, the reference's ``jax.checkpoint`` of the scan body.  Its
+policy is the reference's trace-time switch :data:`REMAT_POLICY`
+(:func:`set_remat_policy`): ``None`` recomputes everything; ``"dots"``
+(``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``) saves the
+outputs of the matrix products without batch dims -- the projections --
+and recomputes the rest (:func:`_dots_policy`).
 An MoE FFN returns the router's aux load-balance loss; :func:`forward_core`
 and :func:`forward` return its sum over the layers they ran (the float
 0.0 where none is an MoE layer), and :func:`loss_fn` adds it to the loss,
@@ -27,10 +31,13 @@ as the reference does.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from repro_torch.configs.base import (ATTN, ATTN_LOCAL, ATTN_MOE, MLA_DENSE,
                                       MLA_MOE, RGLRU, SSM, ArchConfig)
@@ -175,6 +182,57 @@ def _run_period(period, cfg: ArchConfig, pattern, x: torch.Tensor,
     return x, aux, tuple(new)
 
 
+# Remat policy of a period in train mode (a perf knob, read when a period
+# runs): None = full recompute; "dots" = save the outputs of the matrix
+# products without batch dims (fewer recomputed GEMMs in the backward, more
+# activation memory), as the reference's switch of the same name.
+REMAT_POLICY: Optional[str] = None
+REMAT_POLICIES = (None, "dots")
+
+
+def set_remat_policy(name: Optional[str]) -> None:
+    """``None`` or ``"dots"`` (the reference's ``set_remat_policy``)."""
+    global REMAT_POLICY
+    if name not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat policy {name!r}; known: "
+                         f"{REMAT_POLICIES}")
+    REMAT_POLICY = name
+
+
+_aten = torch.ops.aten
+_UNBATCHED = (_aten.mm.default, _aten.addmm.default)
+_BATCHED = (_aten.bmm.default, _aten.baddbmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Save what ``dots_with_no_batch_dims_saveable`` saves: a product
+    with no batch dims.  The port's dense layers (``x @ w``, an MoE's
+    ``xt @ w`` over its experts' weights) reach ``mm``; its einsum
+    projections (``bsd,dhk->bshk``) reach ``bmm`` with a batch of one;
+    attention's q.k^T and p.v, the SSD's and an MoE's per-expert products
+    reach ``bmm`` over a real batch and are recomputed.  (A product whose
+    batch happens to be one, b * heads = 1, is saved too: memory only, the
+    values are the same.)  The kernels' ctypes launches write into
+    ``torch.empty`` buffers, which are recomputed, so every kernel runs
+    again in the recompute."""
+    if op in _UNBATCHED:
+        return CheckpointPolicy.MUST_SAVE
+    if op in _BATCHED:      # bmm(a, b) / baddbmm(c, a, b): a's batch
+        a = args[1] if op is _aten.baddbmm.default else args[0]
+        if a.shape[0] == 1:
+            return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_context():
+    """The ``context_fn`` of a period's ``checkpoint`` under
+    :data:`REMAT_POLICY` (None: torch's default, full recompute)."""
+    if REMAT_POLICY == "dots":
+        return functools.partial(create_selective_checkpoint_contexts,
+                                 _dots_policy)
+    return noop_context_fn
+
+
 def _scan_segment(periods, cfg: ArchConfig, pattern, x: torch.Tensor,
                   mode: str, positions, caches, capacity: int,
                   remat: bool = False):
@@ -189,7 +247,8 @@ def _scan_segment(periods, cfg: ArchConfig, pattern, x: torch.Tensor,
             x, a = checkpoint(
                 lambda pp, h: _run_period(pp, cfg, pattern, h, mode,
                                           positions, None, capacity)[:2],
-                period, x, use_reentrant=False)
+                period, x, use_reentrant=False,
+                context_fn=_remat_context())
             aux = aux + a
             out.append((None,) * len(pattern))
             continue

@@ -23,6 +23,28 @@ def cap_torch_threads():
         torch.set_num_threads(1)
 
 
+def ulp_np(x, dtype):
+    """One ulp of ``dtype`` ("bfloat16": 8 significant bits, "float16":
+    11, subnormal below 2^-14; "float32": 0, no allowance) at each |x|, as
+    float32."""
+    if dtype == "float32":
+        return np.zeros(np.shape(x), np.float32)
+    bits, tiny = {"bfloat16": (7, 2.0 ** -126),
+                  "float16": (10, 2.0 ** -14)}[dtype]
+    e = np.floor(np.log2(np.maximum(np.abs(np.asarray(x, np.float32)),
+                                    tiny)))
+    return np.exp2(e - bits).astype(np.float32)
+
+
+def low_precision(a, dtype):
+    """A float32 numpy array rounded once to ``dtype`` ("bfloat16",
+    "float16"): (the numpy array the reference takes, ``ml_dtypes`` for
+    bfloat16; the port's tensor of the same bits)."""
+    import jax.numpy as jnp
+    arr = np.asarray(jnp.asarray(a).astype(dtype))
+    return arr, bridge._tensor(arr)
+
+
 def jax_params_np(units, head):
     """Reference params -> numpy leaves (the bridge's input form)."""
     return ([jax.tree.map(np.asarray, u) for u in units],
@@ -293,3 +315,114 @@ def grads_vs_jax(jfn, tfn, args, seed=99):
            for g, t in zip(got, leaves)]
     return (tout.detach().numpy(), np.asarray(jout), got,
             jax.tree.leaves(want))
+
+
+# ------------------------------------------------ 16-bit three-way checks
+def three_way(port, ref, f32, what, dtype, ulps, rms_ratio=1.5,
+              record_property=None, rms=True):
+    """The 16-bit three-way check over lists of float32 numpy leaves: the
+    port's run and the reference's in ``dtype``, each against the other and
+    against the reference run in float32 on the same ``dtype``-valued
+    weights (``f32``), within ``ulps`` ulps of ``dtype`` at each leaf's
+    largest |value| of ``f32``; and the port's root-mean-square error
+    against ``f32`` at most ``rms_ratio`` times the reference's, over every
+    element (``rms=False``: the ulp checks alone, for a loss).  Returns
+    the worst errors in units of the ulp limit, and the two RMS errors."""
+    assert len(port) == len(ref) == len(f32), what
+    worst = {"port_ref": 0.0, "port_f32": 0.0, "ref_f32": 0.0}
+    for i, (p, r, f) in enumerate(zip(port, ref, f32)):
+        assert p.shape == r.shape == f.shape, (what, i)
+        assert np.isfinite(p).all(), (what, i)
+        tol = ulps * float(ulp_np(np.float32(np.abs(f).max()), dtype))
+        for key, a, b in (("port_ref", p, r), ("port_f32", p, f),
+                          ("ref_f32", r, f)):
+            err = float(np.abs(a - b).max())
+            worst[key] = max(worst[key], err / tol)
+            assert err <= tol, (what, i, key, err, tol)
+    if record_property is not None:
+        record_property(f"{what}_worst_over_tol", worst)
+    if not rms:
+        return worst, None
+    errs = {k: float(np.sqrt(np.mean(np.concatenate(
+        [np.square(a - f).ravel() for a, f in zip(side, f32)]))))
+        for k, side in (("port", port), ("ref", ref))}
+    if record_property is not None:
+        record_property(f"{what}_rms_vs_f32", errs)
+    assert errs["port"] <= rms_ratio * errs["ref"], (what, errs)
+    return worst, errs
+
+
+def f32_leaves(tree):
+    """Every leaf of a (numpy or jax) tree as a float32 numpy array."""
+    return [np.asarray(a, dtype=np.float32) for a in jax.tree.leaves(tree)]
+
+
+_OBJECTIVE_JITS = {}
+
+
+def ref_loss_and_grad(jcfg, cut=1):
+    """The reference train step's objective (``ce + aux_c + aux_s``, its
+    ``make_train_step``'s loss) jitted with its gradient, once per config
+    and cut."""
+    from repro.core import distributed as JD
+    from repro.core import split as JSP
+    if (jcfg, cut) in _OBJECTIVE_JITS:
+        return _OBJECTIVE_JITS[jcfg, cut]
+
+    def loss_fn(params, batch):
+        client, server = JSP.split_params(params, jcfg, cut)
+        smashed, positions, aux_c, _ = JSP.client_forward(
+            client, jcfg, batch, cut, "train")
+        logits, aux_s, _ = JSP.server_forward(server, jcfg, smashed,
+                                              positions, cut, "train")
+        return (JD.weighted_ce(logits, batch["labels"], batch["weights"],
+                               jcfg.vocab_size) + aux_c + aux_s)
+
+    _OBJECTIVE_JITS[jcfg, cut] = jax.jit(jax.value_and_grad(loss_fn))
+    return _OBJECTIVE_JITS[jcfg, cut]
+
+
+def ref_train(jcfg, params, steps, batch_fn, cut=1, **opts):
+    """The reference's train step from numpy ``params`` over
+    ``batch_fn(i)``'s batches, its body as ``make_train_step`` runs it:
+    the objective and its gradient (:func:`ref_loss_and_grad`, jitted once
+    per config, so every optimizer and step count shares one compile),
+    then ``clip_by_global_norm``, the optimizer's update and
+    ``apply_updates`` of ``repro.optim`` (jitted once per config and
+    options).  Returns (losses, params)."""
+    import jax.numpy as jnp
+
+    from repro import optim as JO
+    from repro.core import distributed as JD
+    jopts = JD.DistOptions(cut=cut, **opts)
+    opt = JD.make_optimizer(jopts)
+    key = ("update", jcfg, cut, tuple(sorted(opts.items())))
+    if key not in _TRAIN_JITS:
+        def update(grads, state, params):
+            if jopts.grad_clip > 0:
+                grads, _ = JO.clip_by_global_norm(grads, jopts.grad_clip)
+            updates, state = opt.update(grads, state, params)
+            return JO.apply_updates(params, updates), state
+        _TRAIN_JITS[key] = jax.jit(update)
+    objective = ref_loss_and_grad(jcfg, cut)
+    params = jax.tree.map(jnp.asarray, params)
+    state = opt.init(params)
+    losses = []
+    for i in range(steps):
+        loss, grads = objective(params, {k: jnp.asarray(v) for k, v in
+                                         batch_fn(i).items()})
+        params, state = _TRAIN_JITS[key](grads, state, params)
+        losses.append(float(loss))
+    return losses, params
+
+
+def lm_params_in(jcfg, params32):
+    """Reference-layout numpy ``params32`` (float32) cast leaf by leaf to
+    the dtypes the reference's ``init_params`` gives ``jcfg`` (its
+    ``param_dtype``; the MoE router and the SSM's A_log / D / dt_bias
+    float32), read from ``jax.eval_shape`` without a compile."""
+    from repro.models import transformer as JT
+    shapes = jax.eval_shape(lambda key: JT.init_params(key, jcfg),
+                            jax.random.PRNGKey(0))
+    return jax.tree.map(lambda a, s: np.asarray(
+        jax.numpy.asarray(a).astype(s.dtype)), params32, shapes)

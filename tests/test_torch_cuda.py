@@ -908,6 +908,35 @@ def test_ssd_kernel_matches_plain(dev, b, s, h, p, g, n, chunk):
     torch.testing.assert_close(st, st_ref, rtol=SSD_TOL, atol=SSD_TOL)
 
 
+@pytest.mark.parametrize("dt16", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", SSD_CASES)
+def test_ssd_kernel_16bit_matches_plain(dev, b, s, h, p, g, n, chunk, dtype,
+                                        dt16):
+    """x / B / C in bfloat16 or float16 (dt and A float32 or, with
+    ``dt16``, x's dtype): y of x's dtype within one ulp of it plus SSD_TOL
+    of the plain version on the same inputs, the state float32 within
+    SSD_TOL (both compute in float32)."""
+    x, dt, A, B, C = _ssd_inputs(dev, b, s, h, p, g, n)
+    x, B, C = x.to(dtype), B.to(dtype), C.to(dtype)
+    if dt16:
+        dt, A = dt.to(dtype), A.to(dtype)
+    cnt = LAUNCHES["ssd_chunk_scan"]
+    y, st = SSD.ssd_chunk_scan(x, dt, A, B, C, chunk=chunk)
+    assert LAUNCHES["ssd_chunk_scan"] == cnt + 1
+    y_ref, st_ref = SSD.ssd_chunked(x, dt, A, B, C, chunk)
+    assert y.dtype == dtype and st.dtype == torch.float32
+    assert _chip_smoke()._ssd16_close((y, st), (y_ref, st_ref))
+
+
+def test_ssd_kernel_refuses_mixed_dtypes(dev):
+    x, dt, A, B, C = _ssd_inputs(dev, 1, 64, 4, 16, 1, 16)
+    with pytest.raises(TypeError, match="one dtype"):
+        SSD.ssd_chunk_scan(x.half(), dt, A, B.bfloat16(), C.bfloat16())
+    with pytest.raises(TypeError, match="float32 or x's dtype"):
+        SSD.ssd_chunk_scan(x.half(), dt.bfloat16(), A, B.half(), C.half())
+
+
 @pytest.mark.parametrize("arch", ["smollm-360m", "mamba2-780m"])
 def test_reduced_lm_serving_on_cuda_matches_cpu(dev, arch):
     """Same weights, same tokens: prefill + 3 decode steps on the card

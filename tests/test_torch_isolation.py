@@ -1,5 +1,6 @@
-"""The port stands alone: no module of src/repro_torch/, chip_smoke.py or
-scripts/profile_port.py imports jax, jaxlib or the JAX package repro; and
+"""The port stands alone: no module of src/repro_torch/, chip_smoke.py,
+scripts/profile_port.py or the examples' ``*_torch.py`` twins imports jax,
+jaxlib or the JAX package repro; and
 its entry points default to cuda and raise without a card instead of
 running on the CPU."""
 import ast
@@ -10,7 +11,8 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
-    + [ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_port.py"]
+    + [ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_port.py"] \
+    + sorted((ROOT / "examples").glob("*_torch.py"))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 

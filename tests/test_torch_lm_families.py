@@ -335,17 +335,18 @@ TRAINED_CHANGES = [
     dict(pos="sinusoidal"),
     dict(mlp_variant="geglu"), dict(mlp_variant="gelu"),
     dict(param_dtype="bfloat16"), dict(pattern=("mla_dense",)),
-    dict(pattern=("attn_moe",))]
-REFUSED_CHANGES = [dict(param_dtype="float16")]
+    dict(pattern=("attn_moe",)), dict(param_dtype="float16")]
+REFUSED_CHANGES = [dict(param_dtype="float64")]
 
 
 @pytest.mark.parametrize("change", TRAINED_CHANGES + REFUSED_CHANGES)
 def test_training_refusal_follows_what_the_config_holds(change):
     """The refusal reads what a config holds, whatever its name: a trained
     arch that gains a frontend, local attention, RG-LRU, qk-norm,
-    sinusoidal positions, a GeGLU / GeLU MLP, bfloat16 parameters, an MLA
-    layer or an MoE FFN still trains; one that gains float16 parameters
-    is refused as served only.  The trained archs as they are pass."""
+    sinusoidal positions, a GeGLU / GeLU MLP, bfloat16 or float16
+    parameters, an MLA layer or an MoE FFN still trains; one that gains
+    float64 parameters is refused as served only.  The trained archs as
+    they are pass."""
     from repro_torch.configs import check_trainable, untrained_features
     from repro_torch.core import distributed as D
     for arch in ("smollm-360m", "mamba2-780m"):

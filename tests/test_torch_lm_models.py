@@ -73,20 +73,22 @@ def test_configs_match_reference(arch):
 def test_unported_archs_raise():
     """Every arch id of the reference has a config (the bfloat16 ones
     since their parameters were ported); an unknown id raises; every
-    bfloat16 arch trains, dbrx-132b's MoE FFNs too, and float16
-    parameters are refused."""
+    bfloat16 arch trains, dbrx-132b's MoE FFNs too, and so does any arch
+    in float16; float64 parameters are refused."""
     from repro_torch.configs import check_trainable
     for name in ("dbrx-132b", "qwen3-14b-smoke"):
         assert dataclasses.asdict(get_config(name)) == dataclasses.asdict(
             jax_config(name))
     check_trainable(get_config("dbrx-132b"))
     check_trainable(get_config("qwen3-14b-smoke"))
-    with pytest.raises(NotImplementedError, match="float16 parameters"):
+    check_trainable(dataclasses.replace(get_config("dbrx-132b"),
+                                        param_dtype="float16"))
+    with pytest.raises(NotImplementedError, match="float64 parameters"):
         check_trainable(dataclasses.replace(get_config("dbrx-132b"),
-                                            param_dtype="float16"))
-    with pytest.raises(NotImplementedError, match="float16 parameters"):
+                                            param_dtype="float64"))
+    with pytest.raises(NotImplementedError, match="float64 parameters"):
         check_trainable(dataclasses.replace(get_config("qwen3-14b-smoke"),
-                                            param_dtype="float16"))
+                                            param_dtype="float64"))
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 

@@ -5,7 +5,7 @@ float32 replica of dbrx-132b-smoke (``attn_moe``, grown to three periods):
 configs, ``count_params`` and the tree's size, the cost profile, the
 bridge, logits and the loss's ce and aux, split prefill + 3 decode steps
 at two cuts (logits and caches within 2e-4), and that both train (only
-float16 parameters are refused); their training is held to the reference
+float16 parameters train too, as in any arch); their training is held to the reference
 in ``test_torch_lm_train_moe.py``.  Parameters come from the reference's
 threefry init and cross through ``repro_torch.bridge``; inputs are numpy
 draws."""
@@ -211,12 +211,12 @@ def test_serving_steps_match_reference(name, cut):
 
 
 # ------------------------------------------------- training, no refusal
-def test_training_deepseek_is_refused_and_the_bf16_archs_too(capsys):
-    """Once a refusal, now what replaced it: deepseek-v2-lite-16b (MLA,
-    MoE) and dbrx-132b (MoE, bfloat16) train -- ``untrained_features`` is
-    empty for them, ``SERVE_ONLY`` is empty, the train step,
-    ``TransformerUnitModel`` and ``launch/train.py`` take them -- and
-    float16 parameters are still refused in every arch."""
+def test_training_deepseek_and_the_16bit_archs_is_accepted(capsys):
+    """deepseek-v2-lite-16b (MLA, MoE) and dbrx-132b (MoE, bfloat16)
+    train -- ``untrained_features`` is empty for them, ``SERVE_ONLY`` is
+    empty, the train step, ``TransformerUnitModel`` and ``launch/train.py``
+    take them -- and so does every arch with float16 parameters, while a
+    non-float dtype is refused in every arch."""
     from repro_torch.configs import (SERVE_ONLY, check_trainable,
                                      untrained_features)
     from repro_torch.core.lm_unit import TransformerUnitModel
@@ -240,10 +240,11 @@ def test_training_deepseek_is_refused_and_the_bf16_archs_too(capsys):
                                        else "bfloat16")
             assert untrained_features(cfg) == []
             check_trainable(cfg)
+            check_trainable(dataclasses.replace(cfg, param_dtype="float16"))
             with pytest.raises(NotImplementedError,
-                               match="float16 parameters"):
+                               match="int32 parameters"):
                 check_trainable(dataclasses.replace(cfg,
-                                                    param_dtype="float16"))
+                                                    param_dtype="int32"))
 
 
 def test_serve_cli_serves_deepseek_on_cpu_when_asked(capsys):

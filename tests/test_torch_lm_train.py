@@ -167,11 +167,12 @@ def test_param_count_matches_reference():
 
 
 def test_unported_dist_options_raise():
-    """float16 parameters (bfloat16 trains) and the mesh shapes are not
-    ported."""
+    """float64 parameters (bfloat16 and float16 train) and the mesh
+    shapes are not ported."""
     D.DistOptions(param_dtype="bfloat16")
+    D.DistOptions(param_dtype="float16")
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        D.DistOptions(param_dtype="float16")
+        D.DistOptions(param_dtype="float64")
     with pytest.raises(NotImplementedError, match="not ported yet"):
         TR.main(["--arch", "smollm-360m", "--shape", "train_4k",
                  "--device", "cpu"])

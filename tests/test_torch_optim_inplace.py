@@ -206,11 +206,16 @@ def test_dist_options_take_the_trained_dtypes(param_dtype):
         {torch.float32}
 
 
-@pytest.mark.parametrize("param_dtype", ["float16", torch.float16,
+@pytest.mark.parametrize("param_dtype", ["int32", torch.int32,
                                          "float64"])
 def test_dist_options_refuse_other_dtypes(param_dtype):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         D.DistOptions(param_dtype=param_dtype)
+
+
+@pytest.mark.parametrize("param_dtype", ["float16", torch.float16])
+def test_dist_options_take_float16(param_dtype):
+    assert D.DistOptions(param_dtype=param_dtype).param_dtype == param_dtype
 
 
 @pytest.mark.parametrize("arch", ["qwen3-14b", "command-r-35b"])

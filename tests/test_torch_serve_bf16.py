@@ -325,21 +325,23 @@ def test_bf16_serving_three_way(arch, monkeypatch, record_property):
 
 # ---------------------------------------------------------------- refusals
 @pytest.mark.parametrize("arch", ARCHS)
-def test_bf16_training_is_refused(arch, capsys):
-    """bfloat16 parameters no longer refuse training: qwen3-14b,
-    command-r-35b and dbrx-132b (whose MoE FFNs train too) build the train
-    step and ``TransformerUnitModel`` and train through
-    ``launch/train.py``; float16 parameters are refused in every arch."""
+def test_bf16_training_is_accepted(arch, capsys):
+    """bfloat16 parameters train: qwen3-14b, command-r-35b and dbrx-132b
+    (whose MoE FFNs train too) build the train step and
+    ``TransformerUnitModel`` and train through ``launch/train.py``; so do
+    float16 parameters in every arch, and a non-float dtype is refused."""
     from repro_torch.core.lm_unit import TransformerUnitModel
     from repro_torch.launch import train as TR
     cfg = get_config(arch)
     assert "bfloat16 parameters" not in untrained_features(cfg)
     D.DistOptions(param_dtype="bfloat16")
-    with pytest.raises(NotImplementedError, match="float16"):
-        D.DistOptions(param_dtype="float16")
+    D.DistOptions(param_dtype="float16")
+    with pytest.raises(NotImplementedError, match="float64"):
+        D.DistOptions(param_dtype="float64")
     for c in (cfg, get_config(arch + "-smoke")):
-        with pytest.raises(NotImplementedError, match="float16 parameters"):
-            check_trainable(dataclasses.replace(c, param_dtype="float16"))
+        check_trainable(dataclasses.replace(c, param_dtype="float16"))
+        with pytest.raises(NotImplementedError, match="float64 parameters"):
+            check_trainable(dataclasses.replace(c, param_dtype="float64"))
     assert arch not in SERVE_ONLY and untrained_features(cfg) == []
     for c in (cfg, get_config(arch + "-smoke")):
         check_trainable(c)
