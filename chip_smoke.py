@@ -63,6 +63,18 @@ neither ``jax`` nor ``repro``.  In order it:
    route, rows ``*_mma``; bound: the bytes, or q.k^T once and p.v twice at
    989 TFLOP/s dense bf16 / f16; the build prints the Hopper kernel's
    registers, spills and shared memory, and fails on a spill) and
+   flash's backward kernel (``FLASH_BWD_TRAIN``: the training shapes of
+   phase 10g's archs in their dtype, timed; ``FLASH_BWD_EDGES`` in every
+   dtype: every head dim, windows that mask keys, sq != sk with rows that
+   see no key, one query, q / k / v as views of one fused projection,
+   aligned and misaligned by one element, a strided cotangent) from the
+   forward kernel's lse (within 1e-4 of the plain one, +inf exactly where
+   a row sees no key) against its closed-form plain version and the plain
+   vjp, each gradient within flash's tolerance of the largest (16-bit: one
+   ulp more), two calls bit for bit, with the memory a call takes beyond
+   what was allocated, SDPA's backward as the library call, bound: the
+   bytes, or the five products' 10 d flops a visible pair and head (the
+   16-bit kernel's split products, 24 d, beside it); and
    ssd_chunk_scan with x / B / C in bfloat16 and float16 at every SSD
    shape (``SSD_CASES``; at mamba2's prefill shape also with dt and A in
    x's dtype; y of x's dtype within one ulp of it plus the float32
@@ -188,9 +200,10 @@ neither ``jax`` nor ``repro``.  In order it:
     shape with x / B / C in bfloat16 and in float16, each gradient in its
     input's dtype; a 16-bit output or gradient one
     ulp of it wider; each flash case on the route ``flash_route`` gives):
-    gradients through the Function (kernel forward; rmsnorm's backward kernel, the
-    plain vjp for flash and ssd) against all-plain autograd, forward within phase 4b's tolerances and
-    gradients within them of the largest gradient; ``torch.func.vmap``
+    gradients through the Function (kernel forward; rmsnorm's and flash's
+    backward kernels, the plain vjp for ssd) against all-plain autograd,
+    forward within phase 4b's tolerances and gradients within them of the
+    largest gradient; ``torch.func.vmap``
     of each Function equal to the per-slice calls, bit for bit where the
     rule folds the axis into the batch and within the forward tolerance
     where it loops over a parameter per replica; ``torch.func.vjp`` of
@@ -198,7 +211,7 @@ neither ``jax`` nor ``repro``.  In order it:
     the per-replica vjps, within the forward tolerance of the largest
     gradient; for rmsnorm ``vmap`` of ``grad`` (scale shared and per
     replica: one backward launch for both replicas) and remat; every
-    route's launches of the kernel and of rmsnorm's backward kernel exact;
+    route's launches of the kernel and of its backward kernel exact;
     at the training shapes the device time of the Function's backward
     and the memory it takes, and for bfloat16 flash the device time of
     SDPA's backward on the same inputs;
@@ -209,7 +222,7 @@ neither ``jax`` nor ``repro``.  In order it:
     internvl2-1b (256 patch embeddings before 768 tokens) and
     musicgen-large at full depth, recurrentgemma-2b at one period (R, R,
     A) and its tail, all at batch 8, and gemma3-4b at one period (5 local
-    + 1 global) without its tail at batch 4; in bfloat16 qwen3-14b at 13
+    + 1 global) without its tail at batch 4; in bfloat16 qwen3-14b at 15
     of 40 layers at batch 8 (also 2 layers under ``compress``, 1 step),
     command-r-35b at 3 of 40 at batch 4 and gemma3-4b whole at batch 4;
     deepseek-v2-lite-16b in float32 at 8 of 27 layers at batch 8 (the
@@ -265,7 +278,7 @@ neither ``jax`` nor ``repro``.  In order it:
     (rmsnorm's backward kernel once a norm a client batch step; under
     ``fl``'s ``vmap`` of ``grad`` once a norm a local step for all
     replicas; flash under ``vmap`` once for a bucket's replicas on the
-    vehicle side);
+    vehicle side, and its backward kernel once a forward call);
 10j. the multi-RSU path of phase 10b under the parallel server schedule
     (arXiv:2405.18707; ``server_schedule="parallel"``): the highway on
     ``topk_int8`` under the ``ragged`` layout for 4 rounds one at a time
@@ -311,8 +324,9 @@ neither ``jax`` nor ``repro``.  In order it:
     rounds, sync every 4): a merge, occupancy below R x B; (d) the reduced
     city (64 vehicles, 2 x 2, page 4, topk_int8) card vs CPU within 1e-4
     of the largest parameter;
-11. prints the per-kernel JSON line (all eight kernels and rmsnorm's
-    backward kernel with its launches in phase 10g, the quant and LM
+11. prints the per-kernel JSON line (all eight kernels and the backward
+    kernels of rmsnorm and flash with their launches in phase 10g, the
+    quant and LM
     kernels with their launches per training step, the LM kernels with
     their launches per served arch and their other timed shapes, flash
     with its launches per served arch by dtype, the codec
@@ -421,7 +435,8 @@ TF32_FLOPS_PER_S = 495e12       # H100 SXM TF32 tensor cores, dense (ditto)
 BF16_FLOPS_PER_S = 989e12       # H100 SXM bf16 / fp16 tensor cores, dense
 # kernels whose products run 3xTF32 on the tensor cores: three TF32
 # products per float32 product
-TENSOR_CORE_KERNELS = ("flash_attention", "ssd_chunk_scan")
+TENSOR_CORE_KERNELS = ("flash_attention", "flash_attention_backward",
+                       "ssd_chunk_scan")
 LM_SOURCE = "src/repro_torch/kernels/csrc/lm.cu"
 LM_META = {
     "rmsnorm": "src/repro/kernels/rmsnorm.py:27",
@@ -441,12 +456,28 @@ LM_META = {
 #   16-bit rmsnorm: one ulp of the working type (the float32 results
 #     differ by a few float32 ulps and are rounded once), the backward's
 #     plus its float32 tolerance (dx subtracts terms of similar size).
+#   flash_attention_backward: flash's float32 tolerance of each case's
+#     largest gradient (sums over up to 1024 keys or queries and a GQA
+#     group's heads in another order), a 16-bit gradient one ulp of its
+#     dtype more.
 LM_TOL = {"rmsnorm": 2e-5, "rmsnorm_backward": 2e-5,
-          "flash_attention": 1e-4, "ssd_chunk_scan": 2e-4}
+          "flash_attention": 1e-4, "flash_attention_backward": 1e-4,
+          "ssd_chunk_scan": 2e-4}
 # the backward kernel (two kernels a call) replaces no TPU kernel: the JAX
 # package differentiates rmsnorm_ref by autodiff
 RMS_BWD_REPLACES = ("none: jax.vjp of rmsnorm_ref "
                     "(src/repro/kernels/ref.py:45), the port's plain vjp")
+# flash's backward kernel (three kernels a call) replaces no TPU kernel
+# either: the JAX package's flash_attention has no custom_vjp
+FLASH_BWD_REPLACES = ("none: jax.vjp of attention_ref "
+                      "(src/repro/kernels/ref.py:11; flash_attention, "
+                      "src/repro/kernels/flash_attention.py:94, has no "
+                      "custom_vjp), the port's plain vjp")
+# the 16-bit backward kernel runs S and dP in each of its three passes and
+# splits the three products with a float32 left operand into hi / lo
+# halves: 24 d flops of 16-bit products a visible pair and head, against
+# the five products' 10 d
+FLASH_BWD_SPLIT = 2.4
 # the kernel a timed call launches (a pattern of its name), or None where
 # the wrapper launches several (timed together); flash's names both routes'
 # kernels, of which a call launches one
@@ -489,6 +520,7 @@ THREE_PERIOD_ARCHS = ("smollm-360m", "mamba2-780m")
 # 263 GB of bfloat16 weights fit no card, its -smoke does
 REDUCED_ONLY = ("dbrx-132b",)
 SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = 8, 1024, 32
+TRAIN_BATCH, TRAIN_SEQ = 8, 1024   # phases 4b and 10f-10i
 # phase 4b's 16-bit flash cases, each in bfloat16 and float16: (label,
 # (b, sq, sk, h, kv, d, causal, window), the dtypes timed).  Every head dim
 # and the float32 edges (windows, MQA, ragged s, masked rows, one query),
@@ -497,8 +529,10 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = 8, 1024, 32
 # row is also checked on the mma route (its label + "_mma"), untimed: PR 28
 # recorded both routes' times (PERF.md section 6, rows 6h-6j).
 FLASH16_CASES = (
+    # smollm-360m's shape, timed in float16: its f16 train step's forward
+    # (phase 10g, the mma route at d 64)
     ("smollm_prefill", (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 15, 5, 64,
-                        True, 0), ()),
+                        True, 0), ("f16",)),
     ("d128_ragged", (1, 100, 100, 4, 2, 128, True, 0), ()),
     ("d256_mqa", (1, 70, 70, 4, 1, 256, True, 0), ()),
     ("d32_reduced", (2, 37, 37, 4, 2, 32, True, 0), ()),
@@ -524,6 +558,53 @@ FLASH16_CASES = (
      ("bf16",)),
     ("dbrx_train", (4, SERVE_PROMPT, SERVE_PROMPT, 48, 8, 128, True, 0),
      ("bf16",)))
+# phase 4b's backward cases: (label, (b, sq, sk, h, kv, d, causal,
+# window), dtype, timed).  Timed: the training shapes of the archs' steps
+# (phase 10g) in their dtype: qwen3-14b's and command-r-35b's (at batch 8,
+# as their plain backward was first timed), dbrx-132b's and gemma3-4b's local
+# and global layers in bfloat16, smollm in float16, and in float32
+# smollm, gemma3 (batch 4), recurrentgemma, internvl2 and musicgen.
+# Untimed, in every dtype: every head dim, windows that mask keys, sq !=
+# sk (rows that see no key), one query, q / k / v as views of one fused
+# projection (aligned, and misaligned by one element) with a strided
+# cotangent.
+FLASH_BWD_TRAIN = (
+    ("qwen3_train", (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 40, 8, 128, True, 0),
+     "bf16"),
+    ("command_r_train", (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 64, 8, 128, True,
+                         0), "bf16"),
+    ("dbrx_train", (4, TRAIN_SEQ, TRAIN_SEQ, 48, 8, 128, True, 0), "bf16"),
+    ("gemma3_local_train", (4, TRAIN_SEQ, TRAIN_SEQ, 8, 4, 256, True, 1024),
+     "bf16"),
+    ("gemma3_global_train", (4, TRAIN_SEQ, TRAIN_SEQ, 8, 4, 256, True, 0),
+     "bf16"),
+    ("smollm_train", (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 15, 5, 64, True, 0),
+     "f16"),
+    ("smollm_train", (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 15, 5, 64, True, 0),
+     "f32"),
+    ("gemma3_global_train", (4, TRAIN_SEQ, TRAIN_SEQ, 8, 4, 256, True, 0),
+     "f32"),
+    ("gemma3_local_train", (4, TRAIN_SEQ, TRAIN_SEQ, 8, 4, 256, True, 1024),
+     "f32"),
+    ("recurrentgemma_train", (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 10, 1, 256,
+                              True, 2048), "f32"),
+    ("internvl2_train", (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 14, 2, 64, True,
+                         0), "f32"),
+    ("musicgen_train", (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 32, 32, 64, True,
+                        0), "f32"))
+FLASH_BWD_EDGES = (
+    ("d32", (2, 37, 37, 4, 2, 32, True, 0)),
+    ("d128", (2, 100, 100, 4, 2, 128, True, 0)),
+    ("d256_mqa", (1, 70, 70, 4, 1, 256, True, 0)),
+    ("window48", (2, 200, 200, 4, 2, 64, True, 48)),
+    ("noncausal_sq_lt_sk", (2, 48, 80, 2, 2, 64, False, 0)),
+    ("masked_rows", (1, 64, 16, 2, 1, 64, False, 8)),
+    ("causal_sq_gt_sk", (2, 80, 48, 4, 2, 128, True, 0)),
+    ("sq1", (2, 1, 77, 4, 2, 64, False, 0)),
+    ("d256_window40", (1, 90, 90, 2, 1, 256, True, 40)),
+    ("d32_window20", (2, 150, 150, 6, 3, 32, False, 20)),
+    ("strided_qkv", (2, 50, 50, 4, 2, 64, True, 0)),
+    ("strided_qkv_odd", (2, 50, 50, 4, 2, 64, True, 0)))
 TEACHER_TOL = 1e-3              # phase 9: f32 through 24-48 layers, prefill
 #                                 (kernels) vs decode (plain) sum orders
 REDUCED_TOL = 2e-4              # phase 10: as the CPU parity tests
@@ -1764,6 +1845,70 @@ def _flash16_close(run_k, route):
     return close
 
 
+def _flash_bwd_inputs(label, shape, dtype, seed):
+    """q, k, v and a cotangent dO of ``dtype`` for a backward case: drawn
+    apart, or (``strided_qkv*``) q / k / v as views of one fused
+    projection (``_odd``: misaligned by one element) and dO a view of a
+    wider tensor (a contiguous trailing dim)."""
+    b, sq, sk, h, kv, d = shape[:6]
+    if label.startswith("strided_qkv"):
+        n = b * sq * (h + 2 * kv) * d
+        flat = _randn((n + 1,), seed).to(dtype)
+        qkv = (flat[1:] if label.endswith("_odd") else flat[:-1]).view(
+            b, sq, h + 2 * kv, d)
+        wide = _randn((b, sq, h + 2, d), seed + 3).to(dtype)
+        return (qkv[:, :, :h], qkv[:, :, h:h + kv], qkv[:, :, h + kv:],
+                wide[:, :, 1:h + 1])
+    q, k, v = (t.to(dtype) for t in _flash_case(b, sq, sk, h, kv, d, seed))
+    return q, k, v, _randn((b, sq, h, d), seed + 3).to(dtype)
+
+
+def _flash_bwd_close(q, k, v, lse, do, causal, window, run_k):
+    """The backward kernel's (dq, dk, dv) against the closed form (the
+    kernel's plain version, on the kernel's lse) and against the plain
+    vjp of attention_plain, each gradient within LM_TOL of the largest
+    (16-bit: one ulp more, :func:`_lm_within`), finite, of q's dtype; a
+    second call bit for bit; the forward kernel's lse within 1e-4 of the
+    plain one, +inf exactly where a row sees no key."""
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+    tol = LM_TOL["flash_attention_backward"]
+
+    def within(got, want):
+        big = max(float(w.float().abs().max()) for w in want)
+        return all(a.dtype == w.dtype == q.dtype and a.shape == w.shape
+                   and bool(torch.isfinite(a).all())
+                   and _lm_within(a, w, tol, big)
+                   for a, w in zip(got, want))
+
+    def close(got, want):
+        again = run_k()
+        _, lse_p = FA._plain_forward(q, k, v, causal, window,
+                                     q.shape[-1] ** -0.5)
+        seen = torch.isfinite(lse_p)
+        lse_ok = (torch.equal(seen, torch.isfinite(lse))
+                  and bool(((lse - lse_p).abs()[seen] <= 1e-4).all()))
+        del lse_p
+        _, vjp = torch.func.vjp(lambda a, b, c: FA.attention_plain(
+            a, b, c, causal=causal, window=window), q, k, v)
+        return (lse_ok and all(torch.equal(a, b) for a, b in zip(got, again))
+                and within(got, want) and within(got, vjp(do)))
+    return close
+
+
+def _sdpa_backward(q, k, v, do, causal, window):
+    """The backward half of ``torch.autograd.grad`` through one
+    ``scaled_dot_product_attention`` call on the same inputs and
+    cotangent (its forward run once, outside the timed calls): the same
+    function as flash's backward kernel; timed, never called by the
+    port."""
+    import torch
+    req = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    out = _sdpa_library(*req, causal, window)()
+    g = do.transpose(1, 2)
+    return lambda: torch.autograd.grad(out, req, g, retain_graph=True)
+
+
 def _rms_norm_backward_library(x, g, dy):
     """The backward half of ``torch.autograd.grad`` through
     ``F.rms_norm`` on the same inputs (its forward run once, outside the
@@ -1780,11 +1925,13 @@ def _rms_norm_backward_library(x, g, dy):
 # other timed rows go under "shapes")
 LM_MAIN = {"rmsnorm": "smollm_prefill_d960",
            "rmsnorm_backward": "smollm_train_d960",
+           "flash_attention_backward": "qwen3_train_bf16",
            "flash_attention": "smollm_prefill",
            "ssd_chunk_scan": "mamba2_prefill"}
 LM_ROW_KEYS = ("shape", "ms", "ms_flushed", "call_ms", "plain_ms",
                "library_ms", "library_ms_flushed", "bound_ms", "bound_by",
-               "bound_tc_ms", "bound_split_ms", "max_abs_err", "route")
+               "bound_tc_ms", "bound_split_ms", "max_abs_err", "route",
+               "transient_gb")
 FLUSHED_ITERS = 100
 
 
@@ -1919,6 +2066,33 @@ def _lm_cases():
                     4 * d * b * h * _visible_pairs(sq, sk, causal, window),
                     _flash16_close(run_k, route or FA.flash_route(q, k, v)),
                     BF16_FLOPS_PER_S))
+    # flash's backward kernel at FLASH_BWD_TRAIN (timed, in the training
+    # dtype) and FLASH_BWD_EDGES (in every dtype), from the forward
+    # kernel's lse and a fixed cotangent.  Bytes: q, k, v, dO and lse read,
+    # dq, dk, dv written once; operations: the five products, 10 d flops a
+    # visible pair and head (float32 at the float32 rate, its 3xTF32 and
+    # the 16-bit kernel's split products beside it)
+    for label, shape, dt, timed in (
+            *((l, sh, dt, True) for l, sh, dt in FLASH_BWD_TRAIN),
+            *((l, sh, dt, False) for l, sh in FLASH_BWD_EDGES
+              for dt in ("f32", "bf16", "f16"))):
+        b, sq, sk, h, kv, d, causal, window = shape
+        q, k, v, do = _flash_bwd_inputs(label, shape,
+                                        _dtype(RMS_DTYPES[dt][0]),
+                                        len(cases))
+        _, lse = FA._attend(q, k, v, causal, window, d ** -0.5)
+        run_k = (lambda a=(q, k, v, lse, do), c=causal, w=window:
+                 FA.flash_attention_backward(*a, causal=c, window=w))
+        cases.append((
+            "flash_attention_backward", f"{label}_{dt}", timed, run_k,
+            lambda a=(q, k, v, lse, do), c=causal, w=window:
+                FA.attention_backward_plain(*a, causal=c, window=w),
+            _sdpa_backward(q, k, v, do, causal, window) if timed else None,
+            q.element_size() * 2 * (q.numel() + k.numel() + v.numel())
+            + 4 * b * h * sq,
+            10 * d * b * h * _visible_pairs(sq, sk, causal, window),
+            _flash_bwd_close(q, k, v, lse, do, causal, window, run_k),
+            F32_FLOPS_PER_S if dt == "f32" else BF16_FLOPS_PER_S))
     # the SSD scan in float32 and, on one draw of a shape's inputs, with
     # x / B / C in bfloat16 and float16 (dt and A float32, as the model
     # gives them; at mamba2's prefill shape also with dt and A in x's
@@ -1958,7 +2132,8 @@ def check_lm_kernels():
     served arch's prefill shape.  Returns {kernel: {label: row}}."""
     import torch
     from repro_torch.kernels import flash_attention as FA
-    out = {name: {} for name in (*LM_META, "rmsnorm_backward")}
+    out = {name: {} for name in (*LM_META, "rmsnorm_backward",
+                                 "flash_attention_backward")}
     bad = []
     for (name, label, timed, run_k, run_p, run_lib, nbytes, flops, close,
          rate) in _lm_cases():
@@ -1990,6 +2165,21 @@ def check_lm_kernels():
             if name == "flash_attention" and rate == BF16_FLOPS_PER_S:
                 # q.k^T once, p.v twice (p's high and low 16-bit halves)
                 row["bound_split_ms"] = 1e3 * 1.5 * flops / rate
+            if (name == "flash_attention_backward"
+                    and rate == BF16_FLOPS_PER_S):
+                row["bound_split_ms"] = 1e3 * FLASH_BWD_SPLIT * flops / rate
+            if name == "flash_attention_backward":
+                # the memory one call takes beyond what was allocated
+                # before it: its gradients and D (8.39 GB at qwen3's shape
+                # for the plain vjp)
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                grads = run_k()
+                torch.cuda.synchronize()
+                row["transient_gb"] = (torch.cuda.max_memory_allocated()
+                                       - base) / 1e9
+                del grads
             row.update(
                 # ssd, rmsnorm_backward: every kernel of one call (four /
                 # two behind one wrapper)
@@ -2024,6 +2214,8 @@ def check_lm_kernels():
                     if "bound_tc_ms" in row else "")
                  + (f" bound_split_ms={row['bound_split_ms']:.6f}"
                     if "bound_split_ms" in row else "")
+                 + (f" transient_gb={row['transient_gb']:.3f}"
+                    if "transient_gb" in row else "")
                  + (f" ms_flushed={row['ms_flushed']:.6f} library_ms_flushed"
                     f"={row['library_ms_flushed']:.6f}"
                     if "ms_flushed" in row else "")
@@ -2144,12 +2336,12 @@ def _count_moe_slots():
 
 
 def _count_flash_dtypes():
-    """Wrap flash's dispatcher (``flash_attention._forward``, which on the
+    """Wrap flash's dispatcher (``flash_attention._attend``, which on the
     card launches the kernel or raises) to tally its calls by q's dtype
     and its launches by route (``ROUTE_LAUNCHES`` across each call).
     Returns the tallies and the function that undoes the wrap."""
     from repro_torch.kernels import flash_attention as FA
-    forward = FA._forward
+    forward = FA._attend
     tally, routes = {}, {}
 
     def counted(q, *args, **kwargs):
@@ -2161,8 +2353,8 @@ def _count_flash_dtypes():
             if n != before[route]:
                 routes[route] = routes.get(route, 0) + n - before[route]
         return out
-    FA._forward = counted
-    return tally, routes, lambda: setattr(FA, "_forward", forward)
+    FA._attend = counted
+    return tally, routes, lambda: setattr(FA, "_attend", forward)
 
 
 # phase 8 prints the kernels of the first full-size prefill whose summed
@@ -2608,8 +2800,7 @@ def reduced_cpu_vs_card():
     return {r["arch"]: r["max_abs_err"] for r in rows}
 
 
-# ---- the LM training path (phases 10f-10i)
-TRAIN_BATCH, TRAIN_SEQ = 8, 1024
+# ---- the LM training path (phases 10f-10i; TRAIN_BATCH, TRAIN_SEQ above)
 # (arch, compress, steps, batch, changes): adamw lr 3e-4, clip 1.0, remat
 # on, 4 clients, the default cut (clamped to the stack's periods), seq
 # 1024, the donated step (the optimizer in place, leaf by leaf: 16 B a
@@ -2618,9 +2809,10 @@ TRAIN_BATCH, TRAIN_SEQ = 8, 1024
 # it (PERF.md section 4): recurrentgemma-2b one period (R, R, A) and its
 # tail (R, R); gemma3-4b in float32 one period (5 local + 1 global) without
 # its tail at batch 4 (the cut of the functional step's runs, kept to
-# compare the peaks); in bfloat16 qwen3-14b at 13 of 40 layers at batch 8
-# (77.9 GB; 14 ran out of memory) and command-r-35b at 3 of 40 at batch 4
-# (78.5 GB; 4 layers at batch 4 and 1 at batch 8 ran out), beside their
+# compare the peaks); in bfloat16 qwen3-14b at 15 of 40 layers at batch 8
+# (78.9 GB with flash's backward kernel; 13 with the plain backward's 8.4
+# GB a layer) and command-r-35b at 3 of 40 at batch 4 (4 layers run out at
+# the loss's float32 logits, 80.7 GB; 1 at batch 8 too), beside their
 # embedding and head of 1.57B / 4.19B parameters, gemma3-4b whole at batch
 # 4; qwen3 also under int8 smashed data (the bf16 codec), one step.  The
 # MLA / MoE archs: deepseek-v2-lite-16b in float32 at batch 8 at 8 of 27
@@ -2643,7 +2835,7 @@ TRAIN_RUNS = (("smollm-360m", False, 2, TRAIN_BATCH, {}),
               ("musicgen-large", False, 2, TRAIN_BATCH, {}),
               ("recurrentgemma-2b", False, 2, TRAIN_BATCH, {"n_layers": 5}),
               ("gemma3-4b", False, 2, 4, {"n_layers": 6, "tail": ()}),
-              ("qwen3-14b", False, 2, TRAIN_BATCH, {"n_layers": 13}),
+              ("qwen3-14b", False, 2, TRAIN_BATCH, {"n_layers": 15}),
               ("qwen3-14b", True, 1, TRAIN_BATCH, {"n_layers": 2}),
               ("command-r-35b", False, 2, 4, {"n_layers": 3}),
               ("gemma3-4b", False, 2, 4, {"param_dtype": "bfloat16"}),
@@ -2660,8 +2852,8 @@ TRAIN_RUNS = (("smollm-360m", False, 2, TRAIN_BATCH, {}),
                {"remat_policy": "dots"}))
 # phase 10g's donation check: (arch, changes, batch) at full width
 DONATION_RUN = ("qwen3-14b", {"n_layers": 1}, 4)
-# phase 10f, Function vs all-plain autograd on the card: rmsnorm's kernel
-# forward and backward, flash's and ssd's kernel forward and the plain
+# phase 10f, Function vs all-plain autograd on the card: rmsnorm's and
+# flash's kernel forward and backward, ssd's kernel forward and the plain
 # version's vjp.  The loss sum(w * y) gives the backward a cotangent w
 # that does not depend on the forward, so the gradients differ only where
 # the two backward passes reduce in another order: held at phase 4b's
@@ -2669,8 +2861,8 @@ DONATION_RUN = ("qwen3-14b", {"n_layers": 1}, 4)
 # outputs are held at LM_TOL as in phase 4b.  A 16-bit output or gradient
 # gets one ulp of its working type more (both sides round float32 math
 # once, :func:`_lm_within`).  Every route's launches of the kernel and of
-# rmsnorm's backward kernel are counted exactly: a CUDA tensor's rmsnorm
-# gradient never reaches the plain vjp.
+# its backward kernel are counted exactly: a CUDA tensor's rmsnorm or
+# flash gradient never reaches the plain vjp.
 
 
 def _autograd_cases():
@@ -2795,9 +2987,15 @@ def _lm_within(a, b, tol, big=None):
     return bool((err <= bound).all())
 
 
+# the backward kernel of each LM kernel that has one
+BACKWARD_KERNELS = {"rmsnorm": "rmsnorm_backward",
+                    "flash_attention": "flash_attention_backward"}
+
+
 class _Grew:
-    """Launches of ``name`` and of rmsnorm's backward kernel while the
-    ``with`` block runs, held to (forward, backward) exactly."""
+    """Launches of ``name`` and of its backward kernel (0 where it has
+    none) while the ``with`` block runs, held to (forward, backward)
+    exactly; the other backward kernels launch nothing."""
 
     def __init__(self, name, label, want):
         self.name, self.label, self.want = name, label, want
@@ -2812,12 +3010,16 @@ class _Grew:
         if exc[0] is not None:
             return False
         now = kernels.launch_counts()
-        got = tuple(now[k] - self.before[k]
-                    for k in (self.name, "rmsnorm_backward"))
-        if got != self.want:
+        grew = {k: now[k] - self.before[k] for k in now}
+        bwd = BACKWARD_KERNELS.get(self.name)
+        got = (grew[self.name], grew[bwd] if bwd else 0)
+        others = {k: grew[k] for k in BACKWARD_KERNELS.values()
+                  if k != bwd and grew[k]}
+        if got != self.want or others:
             raise AssertionError(f"{self.name} {self.label}: launches "
-                                 f"(kernel, rmsnorm backward) {got}, "
-                                 f"expected {self.want}")
+                                 f"(kernel, its backward) {got}, expected "
+                                 f"{self.want}; other backward kernels "
+                                 f"{others}")
         return False
 
 
@@ -2834,7 +3036,7 @@ def _vjp_of_vmap(fn, vin, dims, tol, launches):
     vehicle side under its ``vmap`` schedule) against the per-replica
     vjps, in every input that carries the replica axis, with the vmapped
     vjp's launches held to ``launches`` (a :class:`_Grew`).  Both backward
-    passes are the same backward (the plain version's vjp, or rmsnorm's
+    passes are the same backward (the plain version's vjp, or a backward
     kernel), on the folded batch or on one replica, so they differ only in
     the order of their sums: held at the forward tolerance relative to the
     largest gradient.  Returns the worst error."""
@@ -2875,8 +3077,8 @@ def _vmap_checks(name, fn, args, tol):
     A_log per replica; within the forward tolerance).  Under each rule the
     vjp of the vmap against the per-replica vjps too (:func:`_vjp_of_vmap`).
     Launches exact: one kernel call for both replicas under the fold, one
-    a replica under the loop, and as many of rmsnorm's backward kernel as
-    its forward's.  Returns the worst errors."""
+    a replica under the loop, and as many of its backward kernel (rmsnorm's,
+    flash's) as its forward's.  Returns the worst errors."""
     import torch
     split = [a.reshape(2, a.shape[0] // 2, *a.shape[1:]) for a in args]
     out = {}
@@ -2886,7 +3088,7 @@ def _vmap_checks(name, fn, args, tol):
     elif name == "ssd_chunk_scan":
         dims[2] = None
     vin = [s if d == 0 else a for s, a, d in zip(split, args, dims)]
-    bwd = int(name == "rmsnorm")
+    bwd = int(name in BACKWARD_KERNELS)
     with _Grew(name, "vmap fold", (1, 0)):
         got = torch.func.vmap(fn, in_dims=tuple(dims))(*vin)
     want = torch.stack([fn(*[v[i] if d == 0 else v for v, d in
@@ -2963,30 +3165,21 @@ def _rms_func_routes(args, tol):
 
 def _sdpa_backward_ms(q, k, v, window=0):
     """Device ms of the backward of one causal ``scaled_dot_product_
-    attention`` call (GQA by ``enable_gqa``; under a window a boolean
-    mask) on q / k / v, with a fixed cotangent: the library's time for
-    flash's backward, which the port computes by the plain version's vjp.
-    Profiled, as CUDA events around ``autograd.grad`` time the host at
-    gemma3's 0.24 ms of device work (0.51 ms)."""
-    import torch
-    req = [t.detach().clone().requires_grad_() for t in (q, k, v)]
-    out = _sdpa_library(*req, True, window)()
-    g = _randn(tuple(out.shape), 92).to(out.dtype)
-
-    def bwd():
-        return torch.autograd.grad(out, req, g, retain_graph=True)
-    ms = _device_ms(bwd, 5)
-    del out, req
-    return ms
+    attention`` call (:func:`_sdpa_backward`) on q / k / v with a fixed
+    cotangent: the library's time for flash's backward.  Profiled, as CUDA
+    events around ``autograd.grad`` time the host at gemma3's 0.24 ms of
+    device work (0.51 ms)."""
+    do = _randn(tuple(q.shape), 92).to(q.dtype)
+    return _device_ms(_sdpa_backward(q, k, v, do, True, window), 5)
 
 
 def lm_autograd_on_card():
     """Phase 10f: the LM kernels' autograd on the card.  Returns per
     kernel and case the errors and, at the training shapes, the device
-    time of the Function's backward (rmsnorm's backward kernel; the plain
-    version's vjp, which recomputes the plain forward, for flash and
-    ssd) and the memory it takes beyond what was allocated before it (its
-    gradients included).  A flash case must take the route
+    time of the Function's backward (rmsnorm's and flash's backward
+    kernels; the plain version's vjp, which recomputes the plain forward,
+    for ssd) and the memory it takes beyond what was allocated before it
+    (its gradients included).  A flash case must take the route
     ``flash_route`` gives its q / k / v: a bfloat16 one at head_dim 128
     the Hopper route, gemma3's bfloat16 d 256 and every float32 case the
     mma route."""
@@ -2997,7 +3190,8 @@ def lm_autograd_on_card():
         tol = LM_TOL[name]
         w = _randn(tuple(fn(*args).shape), 90)
         before = dict(FA.ROUTE_LAUNCHES)
-        with _Grew(name, f"{label} grad", (1, int(name == "rmsnorm"))):
+        with _Grew(name, f"{label} grad",
+                   (1, int(name in BACKWARD_KERNELS))):
             y_k, g_k = _grads(fn, args, w)
         routes = [r for r, n in FA.ROUTE_LAUNCHES.items() if n != before[r]]
         y_p, g_p = _grads(plain, args, w)
@@ -3027,8 +3221,9 @@ def lm_autograd_on_card():
             def bwd(out=out, req=req, w=wo):
                 return torch.autograd.grad(out, req, w, retain_graph=True)
 
-            # flash / ssd: the plain vjp, ~8 / ~15 ms a call
-            row["bwd_ms"] = _device_ms(bwd, 20 if name == "rmsnorm" else 3)
+            # ssd: the plain vjp, ~15 ms a call
+            row["bwd_ms"] = _device_ms(
+                bwd, 3 if name == "ssd_chunk_scan" else 20)
             torch.cuda.synchronize()
             base = torch.cuda.memory_allocated()
             torch.cuda.reset_peak_memory_stats()
@@ -3072,13 +3267,15 @@ def _train_launches(cfg, compress, steps, remat=True):
     rows' rmsnorms included, nothing for an RG-LRU mixer); remat runs every
     period's forward again in the backward (the final norm is outside the
     periods); the backward runs rmsnorm's backward kernel once per norm
-    (remat or not) and plain PyTorch for the rest.  ``compress`` adds one
-    quantize and one dequantize (the smashed boundary)."""
+    and flash's once per flash layer (remat or not), and plain PyTorch for
+    the rest.  ``compress`` adds one quantize and one dequantize (the
+    smashed boundary)."""
     fwd = _expected_launches(cfg, decode_steps=0)
     runs = 2 if remat else 1
     want = {"rmsnorm": steps * (runs * (fwd["rmsnorm"] - 1) + 1),
             "rmsnorm_backward": steps * fwd["rmsnorm"],
             "flash_attention": steps * runs * fwd["flash_attention"],
+            "flash_attention_backward": steps * fwd["flash_attention"],
             "ssd_chunk_scan": steps * runs * fwd["ssd_chunk_scan"]}
     if compress:
         want.update(quantize_int8=steps, dequantize_int8=steps)
@@ -3861,6 +4058,7 @@ def lm_fed_path(arch, scheme, mode):
         want.update(rmsnorm=norms * (n_steps + evals),
                     rmsnorm_backward=norms * n_steps,
                     flash_attention=n_flash + flash * evals,
+                    flash_attention_backward=n_flash,
                     ssd_chunk_scan=ssd * (n_steps + evals))
         n_codec = (n_steps + _bucket_steps(m.cuts, steps)
                    if mode == "vmap" else 2 * n_steps)
@@ -3876,6 +4074,7 @@ def lm_fed_path(arch, scheme, mode):
         want.update(rmsnorm=norms * (n * local + evals),
                     rmsnorm_backward=norms * local,
                     flash_attention=flash * (local + evals),
+                    flash_attention_backward=flash * local,
                     ssd_chunk_scan=ssd * (n * local + evals))
     print(f"lm_fed {arch} {scheme} mode={d['mode']} loss={m.loss!r} "
           f"acc={m.test_acc!r} cuts={m.cuts} client_batch_steps="
@@ -4675,11 +4874,22 @@ def kernel_report(checks, launches, main_cuts, mm_checks, mm_launches,
                    for label, r in lm_checks["flash_attention"].items()
                    if "ms" in r and label != HOPPER_MAIN
                    and r["route"] == "hopper"}})
-    name = "rmsnorm_backward"
+    for name, replaces in (("rmsnorm_backward", RMS_BWD_REPLACES),
+                           ("flash_attention_backward",
+                            FLASH_BWD_REPLACES)):
+        out.append(_backward_entry(name, replaces, lm_checks, training,
+                                   per_step))
+    return {"kernels": out}
+
+
+def _backward_entry(name, replaces, lm_checks, training, per_step):
+    """The JSON line's entry of a backward kernel, which serving never
+    runs: its launches are phase 10g's over its runs (per run under
+    ``train_launches``)."""
     row = lm_checks[name][LM_MAIN[name]]
-    out.append({
+    return {
         "name": name, "route": "cuda", "source": LM_SOURCE,
-        "replaces": RMS_BWD_REPLACES,
+        "replaces": replaces,
         "launches": sum(t["launches"][name] for t in training),
         "train_launches": {_run_label(t): t["launches"][name]
                            for t in training},
@@ -4692,8 +4902,9 @@ def kernel_report(checks, launches, main_cuts, mm_checks, mm_launches,
         "train_launches_per_step": per_step.get(name, {}),
         "shapes": {label: {key: r[key] for key in LM_ROW_KEYS if key in r}
                    for label, r in lm_checks[name].items()
-                   if label != LM_MAIN[name]}})
-    return {"kernels": out}
+                   if label != LM_MAIN[name]},
+        **({"bound_split_ms": row["bound_split_ms"]}
+           if "bound_split_ms" in row else {})}
 
 
 _LAP = [time.perf_counter()]

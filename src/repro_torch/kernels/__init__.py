@@ -11,7 +11,8 @@ from typing import Dict
 
 KERNELS = ("quantize_int8", "dequantize_int8", "sparsify_quant_pack",
            "unpack_dequant", "unpack_dequant_matmul", "rmsnorm",
-           "rmsnorm_backward", "flash_attention", "ssd_chunk_scan")
+           "rmsnorm_backward", "flash_attention", "flash_attention_backward",
+           "ssd_chunk_scan")
 LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 

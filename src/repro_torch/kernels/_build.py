@@ -46,12 +46,19 @@ SIGNATURES = {
     "repro_rmsnorm": [_P, _P, _P, _LL, _I, _F, _I, _I, _P],
     "repro_rmsnorm_backward": [*[_P] * 6, _LL, *[_I] * 4, _F, _I, _I, _P],
     "repro_rmsnorm_backward_blocks": [_LL, *[_I] * 4],
-    # flash's last ints: q / k / v / o's dtype code (as the codec's) and,
-    # for the dispatcher, the route (0 mma.sync, 1 Hopper)
-    "repro_flash_attention": [_P, _P, _P, _P, *[_I] * 6, *[_LL] * 9, _I, _I,
-                              _F, _I, _I, _P],
-    "repro_flash_attention_hopper": [_P, _P, _P, _P, *[_I] * 6, *[_LL] * 9,
-                                     _I, _I, _F, _I, _P],
+    # flash: q, k, v, o and lse (float32, each row's log-sum-exp), then b,
+    # sq, sk, h, kv, d, q / k / v's strides, causal, window, scale, the
+    # dtype code of q / k / v / o (as the codec's) and, for the
+    # dispatcher, the route (0 mma.sync, 1 Hopper)
+    "repro_flash_attention": [*[_P] * 5, *[_I] * 6, *[_LL] * 9, _I, _I, _F,
+                              _I, _I, _P],
+    "repro_flash_attention_hopper": [*[_P] * 5, *[_I] * 6, *[_LL] * 9, _I,
+                                     _I, _F, _I, _P],
+    # its gradient: q, k, v, dO, lse, D (float32 scratch), dq, dk, dv, then
+    # b, sq, sk, h, kv, d, q / k / v / dO's strides, causal, window, scale
+    # and the dtype code
+    "repro_flash_attention_backward": [*[_P] * 9, *[_I] * 6, *[_LL] * 12, _I,
+                                       _I, _F, _I, _P],
     "repro_flash_hopper_smem_bytes": [],
     # ssd's last ints: the dtype codes of x / B / C / y, of dt and of A
     "repro_ssd_chunk_scan": [*[_P] * 8, *[_I] * 7, *[_LL] * 12, _I, _I, _I,

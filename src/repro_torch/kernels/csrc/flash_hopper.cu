@@ -78,6 +78,7 @@ constexpr int FH_BAR = FH_Q_BYTES + 2 * FH_STAGES * FH_KV_BYTES;
 // barriers, and slack to align the dynamic shared memory's base
 constexpr int FH_SMEM = FH_BAR + 64 + 1024;
 constexpr float FH_LOG2E = 1.4426950408889634f;
+constexpr float FH_LN2 = 0.6931471805599453f;
 
 __device__ __forceinline__ float quad_max(float v) {
   v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
@@ -263,9 +264,9 @@ __global__ void __launch_bounds__(FH_THREADS, 1)
     flash_attention_hopper_kernel(const __grid_constant__ CUtensorMap mq,
                                   const __grid_constant__ CUtensorMap mk,
                                   const __grid_constant__ CUtensorMap mv,
-                                  T* __restrict__ o, int sq, int sk, int h,
-                                  int group, int causal, int window,
-                                  float scale_log2) {
+                                  T* __restrict__ o, float* __restrict__ lse,
+                                  int sq, int sk, int h, int group,
+                                  int causal, int window, float scale_log2) {
   extern __shared__ __align__(1024) unsigned char fh_smem[];
   const uint32_t sQ =
       ((uint32_t)__cvta_generic_to_shared(fh_smem) + 1023u) & ~1023u;
@@ -431,12 +432,19 @@ __global__ void __launch_bounds__(FH_THREADS, 1)
       mbar_arrive(bar_e(st));
     }
 
-    // output is contiguous (b, sq, h, D), rounded once to T
+    // output is contiguous (b, sq, h, D), rounded once to T; lse (b, h,
+    // sq) the row's log-sum-exp in natural-log units of the scaled scores:
+    // m and l are kept in the exp2 domain (m raw, scale.log2(e) folded into
+    // the exponent), so lse = (m scale log2(e) + log2(l)) ln 2; +inf where
+    // the row sees no key (the backward's p = exp(s - lse) is then 0)
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = r0 + 8 * r;
       const float l = quad_sum(l_r[r]);
       if (row >= sq) continue;
+      if (tq == 0)
+        lse[((long long)bi * h + hi) * sq + row] =
+            l > 0.f ? (m_r[r] * scale_log2 + log2f(l)) * FH_LN2 : INFINITY;
       T* orow = o + (((long long)bi * sq + row) * h + hi) * FH_D + 2 * tq;
 #pragma unroll
       for (int j = 0; j < FH_D / 8; ++j) {
@@ -496,8 +504,8 @@ bool make_map(CUtensorMap* map, EncodeTiled enc, CUtensorMapDataType type,
 }
 
 template <typename T>
-int launch_hopper(const void* q, const void* k, const void* v, void* o, int b,
-                  int sq, int sk, int h, int kv, long long q_sb,
+int launch_hopper(const void* q, const void* k, const void* v, void* o,
+                  float* lse, int b, int sq, int sk, int h, int kv, long long q_sb,
                   long long q_ss, long long q_sh, long long k_sb,
                   long long k_ss, long long k_sh, long long v_sb,
                   long long v_ss, long long v_sh, int causal, int window,
@@ -517,8 +525,8 @@ int launch_hopper(const void* q, const void* k, const void* v, void* o, int b,
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, FH_SMEM);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(b * h, (sq + FH_BQ - 1) / FH_BQ);
-  kern<<<grid, FH_THREADS, FH_SMEM, st>>>(mq, mk, mv, static_cast<T*>(o), sq,
-                                          sk, h, h / kv, causal, window,
+  kern<<<grid, FH_THREADS, FH_SMEM, st>>>(mq, mk, mv, static_cast<T*>(o), lse,
+                                          sq, sk, h, h / kv, causal, window,
                                           scale * FH_LOG2E);
   return (int)cudaGetLastError();
 }
@@ -529,19 +537,21 @@ inline bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
 extern "C" {
 
-// As repro_flash_attention (lm.cu), for the inputs this route takes: dtype
+// As repro_flash_attention (lm.cu), lse included, for the inputs this
+// route takes: dtype
 // code 1 (bfloat16) or 2 (float16), d 128, sk >= 1, scale > 0, q / k / v
 // 16-byte aligned with batch, sequence and head strides multiples of 8
 // elements (the trailing one 1, which the wrapper checks).  Anything else
 // returns cudaErrorInvalidValue before a launch.
 int repro_flash_attention_hopper(const void* q, const void* k, const void* v,
-                                 void* o, int b, int sq, int sk, int h, int kv,
-                                 int d, long long q_sb, long long q_ss,
-                                 long long q_sh, long long k_sb,
-                                 long long k_ss, long long k_sh,
-                                 long long v_sb, long long v_ss,
-                                 long long v_sh, int causal, int window,
-                                 float scale, int code, void* stream) {
+                                 void* o, float* lse, int b, int sq, int sk,
+                                 int h, int kv, int d, long long q_sb,
+                                 long long q_ss, long long q_sh,
+                                 long long k_sb, long long k_ss,
+                                 long long k_sh, long long v_sb,
+                                 long long v_ss, long long v_sh, int causal,
+                                 int window, float scale, int code,
+                                 void* stream) {
   if (b <= 0 || sq <= 0) return 0;
   if ((code != 1 && code != 2) || d != FH_D || sk <= 0 || kv <= 0 ||
       h % kv != 0 || !(scale > 0.f) || !aligned16(q) || !aligned16(k) ||
@@ -550,12 +560,13 @@ int repro_flash_attention_hopper(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (code == 1)
-    return launch_hopper<__nv_bfloat16>(q, k, v, o, b, sq, sk, h, kv, q_sb,
-                                        q_ss, q_sh, k_sb, k_ss, k_sh, v_sb,
-                                        v_ss, v_sh, causal, window, scale, st);
-  return launch_hopper<__half>(q, k, v, o, b, sq, sk, h, kv, q_sb, q_ss, q_sh,
-                               k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, causal,
-                               window, scale, st);
+    return launch_hopper<__nv_bfloat16>(q, k, v, o, lse, b, sq, sk, h, kv,
+                                        q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
+                                        v_sb, v_ss, v_sh, causal, window,
+                                        scale, st);
+  return launch_hopper<__half>(q, k, v, o, lse, b, sq, sk, h, kv, q_sb, q_ss,
+                               q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
+                               causal, window, scale, st);
 }
 
 // the dynamic shared memory a block of the kernel asks for

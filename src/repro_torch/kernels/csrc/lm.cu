@@ -7,14 +7,16 @@
 //   repro_flash_attention  <- repro/kernels/flash_attention.py  _fa_kernel
 //                             (its Hopper route: flash_hopper.cu)
 //   repro_ssd_chunk_scan   <- repro/kernels/ssd.py              _ssd_kernel
-// and repro_rmsnorm_backward (two kernels) replaces no TPU kernel: it is
-// rmsnorm's gradient, which the JAX package leaves to autodiff.
+// and two replace no TPU kernel, gradients the JAX package leaves to
+// autodiff: repro_rmsnorm_backward (two kernels), rmsnorm's, and
+// repro_flash_attention_backward (three kernels: D, dK / dV, dQ), flash
+// attention's, from the lse that repro_flash_attention writes.
 //
 // Arithmetic.  rmsnorm (both ways) computes in float32 on the CUDA cores,
-// from and to float32, bfloat16 or float16 tensors.  Flash attention
-// (float32 inputs) and the SSD scan (float32 math from float32, bfloat16 or
-// float16 inputs) run every matrix product on the tensor cores with the
-// 3xTF32 split (mma.sync m16n8k8 on tf32 operands): each
+// from and to float32, bfloat16 or float16 tensors.  Flash attention, both
+// ways (float32 inputs), and the SSD scan (float32 math from float32,
+// bfloat16 or float16 inputs) run every matrix product on the tensor cores
+// with the 3xTF32 split (mma.sync m16n8k8 on tf32 operands): each
 // float32 operand x becomes big = tf32(x) and small = tf32(x - big)
 // (cvt.rna), and a.b is summed as a_small.b_big + a_big.b_small +
 // a_big.b_big into float32 accumulators.  The dropped a_small.b_small is
@@ -25,8 +27,9 @@
 // values as they are (mma.sync m16n8k16, float32 accumulators: a product of
 // two 16-bit values is exact in float32), and splits the float32
 // probabilities p into hi = T(p) and lo = T(p - hi) for p.v (see the
-// kernel).  Their tiles are staged in shared memory with cp.async,
-// double-buffered where a loop walks them.
+// kernel), and its backward splits p and dS the same way.  Their tiles are
+// staged in shared memory with cp.async, double-buffered where a loop walks
+// them.
 //
 // Every entry point launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError() so the Python wrapper can raise on a refused
@@ -980,7 +983,8 @@ template <typename T, int D, int BQ, int BK, int MT>
 __global__ void __launch_bounds__(FaCfg<T, D, BQ, BK, MT>::THREADS,
                                   FaCfg<T, D, BQ, BK, MT>::MIN_BLOCKS)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int sq,
+                       const T* __restrict__ v, T* __restrict__ o,
+                       float* __restrict__ lse, int sq,
                        int sk, int h, int group, long long q_sb,
                        long long q_ss, long long q_sh, long long k_sb,
                        long long k_ss, long long k_sh, long long v_sb,
@@ -1200,7 +1204,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   cp_async_wait<0>();               // nothing in flight at exit
 
-  // output is contiguous (b, sq, h, D), rounded once to T
+  // output is contiguous (b, sq, h, D), rounded once to T; each row's
+  // log-sum-exp of the scaled scores m + log(l) to lse (b, h, sq), +inf
+  // where the row sees no key (the backward's p = exp(s - lse) is then 0)
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
@@ -1208,6 +1214,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int row = w0 + 16 * mt + gq + 8 * r;
       const float l = quad_sum(l_r[mt][r]);
       if (row >= sq) continue;
+      if (tq == 0)
+        lse[((long long)bi * h + hi) * sq + row] =
+            l > 0.f ? m_r[mt][r] + logf(l) : INFINITY;
       T* orow = o + (((long long)bi * sq + row) * h + hi) * D + 2 * tq;
 #pragma unroll
       for (int t2 = 0; t2 < DT; ++t2) {
@@ -1223,7 +1232,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int D, int BQ, int BK, int MT>
-int launch_flash(const T* q, const T* k, const T* v, T* o, int b, int sq,
+int launch_flash(const T* q, const T* k, const T* v, T* o, float* lse,
+                 int b, int sq,
                  int sk, int h, int kv, long long q_sb, long long q_ss,
                  long long q_sh, long long k_sb, long long k_ss,
                  long long k_sh, long long v_sb, long long v_ss,
@@ -1240,7 +1250,7 @@ int launch_flash(const T* q, const T* k, const T* v, T* o, int b, int sq,
                     v_sh) % E == 0;
   dim3 grid(b * h, (sq + BQ - 1) / BQ);
   kern<<<grid, Cfg::THREADS, Cfg::BYTES, stream>>>(
-      q, k, v, o, sq, sk, h, h / kv, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb,
+      q, k, v, o, lse, sq, sk, h, h / kv, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb,
       v_ss, v_sh, causal, window, scale, (int)vec);
   return (int)cudaGetLastError();
 }
@@ -1249,7 +1259,7 @@ int launch_flash(const T* q, const T* k, const T* v, T* o, int b, int sq,
 // values take half the shared memory, so d 128 doubles BK
 template <typename T>
 int launch_flash_d(const void* q, const void* k, const void* v, void* o,
-                   int b, int sq, int sk, int h, int kv, int d,
+                   float* lse, int b, int sq, int sk, int h, int kv, int d,
                    long long q_sb, long long q_ss, long long q_sh,
                    long long k_sb, long long k_ss, long long k_sh,
                    long long v_sb, long long v_ss, long long v_sh, int causal,
@@ -1259,9 +1269,9 @@ int launch_flash_d(const void* q, const void* k, const void* v, void* o,
   const T* vt = static_cast<const T*>(v);
   T* ot = static_cast<T*>(o);
 #define REPRO_FA(D, BQ, BK, MT)                                              \
-  launch_flash<T, D, BQ, BK, MT>(qt, kt, vt, ot, b, sq, sk, h, kv, q_sb,     \
-                                 q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss,   \
-                                 v_sh, causal, window, scale, st)
+  launch_flash<T, D, BQ, BK, MT>(qt, kt, vt, ot, lse, b, sq, sk, h, kv,     \
+                                 q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb,   \
+                                 v_ss, v_sh, causal, window, scale, st)
   switch (d) {
     case 32: return REPRO_FA(32, 64, 64, 1);
     case 64: return REPRO_FA(64, 128, 64, 2);
@@ -1270,6 +1280,572 @@ int launch_flash_d(const void* q, const void* k, const void* v, void* o,
     default: return (int)cudaErrorInvalidValue;
   }
 #undef REPRO_FA
+}
+
+// ================================================ flash attention backward
+// Replaces no TPU kernel: the JAX package's flash_attention has no
+// custom_vjp (JAX differentiates attention_ref), and the port's backward
+// was torch.func.vjp of the plain version, which kept the float32 (b, kv,
+// g, sq, sk) scores and their gradients (8.4 GB a layer at qwen3-14b's
+// bfloat16 training shape).  This is FlashAttention-2's backward: from q,
+// k, v, the cotangent dO and the forward's lse (each row's log-sum-exp of
+// its scaled scores), P = exp(S scale - lse) is recomputed tile by tile and
+// never stored, and
+//   dV = P^T dO,  dP = dO V^T,  dS = P o (dP - D),  dK = scale dS^T Q,
+//   dQ = scale dS K,  D = rowsum(P o dP),
+// in float32, the gradients rounded once to the inputs' type.  D is the
+// softmax backward's sum over the visible keys, as the plain vjp forms it:
+// FlashAttention-2's rowsum(dO o O) is the same sum only for the unrounded
+// O, and from a 16-bit O it puts the gradients 10-20x flash's float32
+// tolerance off the plain vjp's.  Three launches a call, no atomics (the
+// same inputs give the same bits on every run):
+//   (a) flash_bwd_rows_kernel<.., false>: D, a block per (batch, head,
+//       query tile) walking the key tiles its rows see;
+//   (b) flash_bwd_kv_kernel: dK and dV, a block per (batch, kv head, key
+//       tile) walking the group's heads and the query tiles that see its
+//       keys (causal: from the diagonal down; under a window: to the last
+//       key + window - 1), so a GQA group's sum stays in the block;
+//   (c) flash_bwd_rows_kernel<.., true>: dQ, on (a)'s blocks.
+// Bound: operations.  The five products take 10 d flops a visible (query,
+// key) pair and head; the kernels run nine (S and dP in each of (a), (b)
+// and (c)), 18 d, and on 16-bit inputs the three with a float32 left
+// operand (P^T dO, dS^T Q, dS K) twice each, on P / dS split into hi = T(x)
+// and lo = T(x - hi) as the forward's p.v: 24 d of 16-bit products.
+// float32 runs every product in 3xTF32, as the forward.
+// Design: the forward's mma route turned around.  A warp owns 16 rows
+// (queries in (a) / (c), keys in (b)) and holds its S (S^T) and dP tiles
+// in registers; those accumulators are the left operand of the next
+// product as they lie (FA-2's register trick), the right operand a
+// row-major tile transposed by ldmatrix.trans (16-bit) or read in the
+// permuted key order (float32).  The block's own tile (Q and dO, or K and
+// V) is staged once; the walked one (K and V, or Q, dO, lse and D) is
+// double-buffered with cp.async.  Where 16 rows' output accumulators would
+// not fit in registers (16-bit d 256, float32 d 128 and 256), SPLIT warps
+// share the 16 rows, each owning D / SPLIT output columns: at most 128
+// accumulator floats a lane for dK and dV together.  In float32 each warp
+// also takes D / SPLIT columns of S's and dP's contraction, and the
+// partial sums meet in shared memory (split_sum), added in a fixed order,
+// so every warp of the group holds the same S and dP; in 16 bits each warp
+// computes the whole S and dP, which took less time on the card than the
+// shared-memory sums (a 16-bit product is a third of a 3xTF32 one).
+template <typename T, int D>
+struct FbCfg {
+  static constexpr bool F32 = sizeof(T) == 4;
+  static constexpr int DW_MAX = F32 ? 64 : 128;
+  static constexpr int DW = D < DW_MAX ? D : DW_MAX;  // a warp's out columns
+  static constexpr int SPLIT = D / DW;                // warps on 16 rows
+  static constexpr int RW = 4 / SPLIT;                // 16-row groups a block
+  static constexpr int THREADS = 32 * RW * SPLIT;     // 128
+  // the SPLIT warps of a group share S's and dP's contraction (float32) or
+  // each compute it whole (16-bit); (a) runs one warp a group in the latter
+  static constexpr bool SHARE = F32 && SPLIT > 1;
+  static constexpr int KW = SHARE ? DW : D;           // S / dP columns a warp
+  static constexpr int D_THREADS = SHARE ? THREADS : 32 * RW;
+  static constexpr int LD = D + 16 / (int)sizeof(T);  // 16 bytes of pad
+  // keys a tile walked by (a) / (c), queries a tile walked by (b)
+  static constexpr int BK = F32 ? (D == 256 ? 16 : 32) : (D == 256 ? 32 : 64);
+  static constexpr int BQ = F32 ? (D == 256 ? 16 : 32) : (D <= 64 ? 64 : 32);
+  // split_sum's partials: 2 x (n-tiles) x 4 x 32 floats a warp
+  static constexpr int RED_ROWS = SHARE ? THREADS * BK : 0;
+  static constexpr int RED_KV = SHARE ? THREADS * BQ : 0;
+  static constexpr int ROWS_BYTES =
+      (2 * 16 * RW + 4 * BK) * LD * (int)sizeof(T) + 4 * RED_ROWS;
+  static constexpr int KV_BYTES =
+      (2 * 16 * RW + 4 * BQ) * LD * (int)sizeof(T) + 4 * BQ * 4 +
+      4 * RED_KV;
+};
+
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// The SP warps of a 16-row group hold partial s and dp over their own
+// columns of the contraction: sum them through shared memory (red: the
+// group's SP x 2 x NT x 4 x 32 floats) in the order of the parts, so every
+// warp of the group ends with the same whole S and dP.  The group meets at
+// named barrier 1 + rg; the caller's __syncthreads orders red's reuse.
+template <int SP, int NT>
+__device__ __forceinline__ void split_sum(float (&s)[NT][4],
+                                          float (&dp)[NT][4], float* red,
+                                          int part, int rg, int lane) {
+  if constexpr (SP > 1) {
+    constexpr int W = 2 * NT * 4 * 32;  // floats a warp
+    float* mine = red + part * W;
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        mine[(n * 4 + e) * 32 + lane] = s[n][e];
+        mine[((NT + n) * 4 + e) * 32 + lane] = dp[n][e];
+      }
+    bar_sync(1 + rg, 32 * SP);
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float a = 0.f, b = 0.f;
+#pragma unroll
+        for (int p = 0; p < SP; ++p) {
+          a += red[p * W + (n * 4 + e) * 32 + lane];
+          b += red[p * W + ((NT + n) * 4 + e) * 32 + lane];
+        }
+        s[n][e] = a;
+        dp[n][e] = b;
+      }
+  }
+}
+
+// s[n] = A . B^T over KW columns: 16 rows of A (row-major, row stride LD
+// of a D-wide tile, from Aw) against the 8 NT rows of B from Bt, as the
+// forward's q.k^T (16-bit: one mma.sync m16n8k16 a step of 16; float32:
+// 3xTF32 m16n8k8 a step of 8)
+template <typename T, int D, int NT, int KW>
+__device__ __forceinline__ void rows_dot(float (&s)[NT][4], const T* Aw,
+                                         const T* Bt, int gq, int tq) {
+  constexpr int LD = D + 16 / (int)sizeof(T);
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+  if constexpr (sizeof(T) == 4) {
+#pragma unroll 2
+    for (int kk = 0; kk < KW; kk += 8) {
+      const float* ar = Aw + gq * LD + kk + tq;
+      const FragA a = frag_a(ar[0], ar[8 * LD], ar[4], ar[8 * LD + 4]);
+      FragB b[NT];
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const float* br = Bt + (n * 8 + gq) * LD + kk + tq;
+        b[n] = frag_b(br[0], br[4]);
+      }
+      mma3_row(s, a, b);
+    }
+  } else {
+#pragma unroll 2
+    for (int kk = 0; kk < KW; kk += 16) {
+      const T* ar = Aw + gq * LD + kk + 2 * tq;
+      const uint32_t a[4] = {ld32(ar), ld32(ar + 8 * LD), ld32(ar + 8),
+                             ld32(ar + 8 * LD + 8)};
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const T* br = Bt + (n * 8 + gq) * LD + kk + 2 * tq;
+        const uint32_t b[2] = {ld32(br), ld32(br + 8)};
+        mma_16<T>(s[n], a, b);
+      }
+    }
+  }
+}
+
+// acc[t] += P . B[:, 8t .. 8t + 7] for t < DT, P (16 x 8 NT) the score
+// accumulators as they lie, B (8 NT rows) row-major at Bt (row stride LD),
+// as the forward's p.v.  16-bit: P split into hi / lo, lo.B then hi.B, B's
+// fragments transposed by ldmatrix; float32: 3xTF32, P's columns in the
+// permuted order (k = tq <-> column 2tq, k = tq + 4 <-> 2tq + 1) and B's
+// rows read in the same order
+template <typename T, int D, int NT, int DT>
+__device__ __forceinline__ void acc_pb(float (&acc)[DT][4],
+                                       const float (&p)[NT][4], const T* Bt,
+                                       int lane) {
+  constexpr int LD = D + 16 / (int)sizeof(T);
+  const int gq = lane >> 2, tq = lane & 3;
+  if constexpr (sizeof(T) == 4) {
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const FragA pa = frag_a(p[n][0], p[n][2], p[n][1], p[n][3]);
+      const float* br = Bt + (n * 8 + 2 * tq) * LD + gq;
+      FragB b[DT];
+#pragma unroll
+      for (int t = 0; t < DT; ++t) b[t] = frag_b(br[t * 8], br[LD + t * 8]);
+      mma3_row(acc, pa, b);
+    }
+  } else {
+    static_assert(NT % 2 == 0 && DT % 2 == 0, "16-row steps");
+    const T* brow = Bt + (((lane >> 3) & 1) * 8 + (lane & 7)) * LD +
+                    (lane >> 4) * 8;
+#pragma unroll
+    for (int j = 0; j < NT / 2; ++j) {
+      uint32_t ph[4], pl[4];
+      split_pair<T>(p[2 * j][0], p[2 * j][1], ph[0], pl[0]);
+      split_pair<T>(p[2 * j][2], p[2 * j][3], ph[1], pl[1]);
+      split_pair<T>(p[2 * j + 1][0], p[2 * j + 1][1], ph[2], pl[2]);
+      split_pair<T>(p[2 * j + 1][2], p[2 * j + 1][3], ph[3], pl[3]);
+#pragma unroll
+      for (int t = 0; t < DT; t += 2) {
+        uint32_t bf[4];
+        ldmatrix_x4_trans(bf, brow + 16 * j * LD + t * 8);
+        const uint32_t b0[2] = {bf[0], bf[1]}, b1[2] = {bf[2], bf[3]};
+        mma_16<T>(acc[t], pl, b0);
+        mma_16<T>(acc[t + 1], pl, b1);
+        mma_16<T>(acc[t], ph, b0);
+        mma_16<T>(acc[t + 1], ph, b1);
+      }
+    }
+  }
+}
+
+// a pair of output values (columns c, c + 1 of a contiguous row), rounded
+// once to T
+template <typename T>
+__device__ __forceinline__ void store_pair(T* p, float a, float b) {
+  if constexpr (sizeof(T) == 4)
+    *reinterpret_cast<float2*>(p) = make_float2(a, b);
+  else
+    *reinterpret_cast<uint32_t*>(p) = bits16<T>(a) | (bits16<T>(b) << 16);
+}
+
+// (a) with DQ false: delta = D per query row; (c) with DQ true: dq.  A
+// block owns 16 RW query rows of one (batch, head), Q and dO staged once,
+// K and V tiles of BK keys double-buffered; rows longest causal first
+template <typename T, int D, bool DQ>
+__global__ void __launch_bounds__(DQ ? FbCfg<T, D>::THREADS
+                                     : FbCfg<T, D>::D_THREADS)
+flash_bwd_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, const T* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      float* __restrict__ delta, T* __restrict__ dq, int sq,
+                      int sk, int h, int group, long long q_sb,
+                      long long q_ss, long long q_sh, long long k_sb,
+                      long long k_ss, long long k_sh, long long v_sb,
+                      long long v_ss, long long v_sh, long long o_sb,
+                      long long o_ss, long long o_sh, int causal,
+                      int window, float scale, int vec) {
+  using Cfg = FbCfg<T, D>;
+  // (a) without SHARE: one warp a group (no output columns to split)
+  constexpr int SP = DQ || Cfg::SHARE ? Cfg::SPLIT : 1;
+  constexpr int RW = Cfg::RW, BK = Cfg::BK, DW = Cfg::DW, KW = Cfg::KW;
+  constexpr int LD = Cfg::LD, THREADS = 32 * RW * SP, BQ = 16 * RW;
+  constexpr int NT = BK / 8, DT = DW / 8, K0 = Cfg::SHARE ? DW : 0;
+  extern __shared__ __align__(16) unsigned char fb_smem[];
+  T* Qs = reinterpret_cast<T*>(fb_smem);  // [BQ][LD]
+  T* Os = Qs + BQ * LD;                   // dO [BQ][LD]
+  T* Ks = Os + BQ * LD;                   // [2][BK][LD]
+  T* Vs = Ks + 2 * BK * LD;               // [2][BK][LD]
+  float* red = reinterpret_cast<float*>(Vs + 2 * BK * LD);  // split_sum's
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int rg = warp / SP, part = warp - rg * SP;
+  const int hi = blockIdx.x % h, bi = blockIdx.x / h;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // long rows first
+  const int kvh = hi / group;
+  const T* kb = k + bi * k_sb + kvh * k_sh;
+  const T* vb = v + bi * v_sb + kvh * v_sh;
+
+  int k_hi = sk;
+  if (causal) k_hi = min(sk, q0 + BQ);            // keys <= the last row
+  int k_lo = 0;
+  if (window > 0) k_lo = max(0, q0 - window + 1);  // keys > row 0 - window
+  k_lo = (k_lo / BK) * BK;
+  const int ntiles = k_hi > k_lo ? (k_hi - k_lo + BK - 1) / BK : 0;
+
+  stage_tile<THREADS>(Qs, LD, q + bi * q_sb + hi * q_sh + (long long)q0 * q_ss,
+                      q_ss, BQ, D, sq - q0, D, vec);
+  stage_tile<THREADS>(Os, LD,
+                      dout + bi * o_sb + hi * o_sh + (long long)q0 * o_ss,
+                      o_ss, BQ, D, sq - q0, D, vec);
+  if (ntiles > 0) {
+    stage_tile<THREADS>(Ks, LD, kb + (long long)k_lo * k_ss, k_ss, BK, D,
+                        sk - k_lo, D, vec);
+    stage_tile<THREADS>(Vs, LD, vb + (long long)k_lo * v_ss, v_ss, BK, D,
+                        sk - k_lo, D, vec);
+  }
+  cp_async_commit();
+
+  const int w0 = q0 + 16 * rg;  // the warp's first query row
+  const T* Qw = Qs + 16 * rg * LD;
+  const T* Ow = Os + 16 * rg * LD;
+  const long long rb = ((long long)bi * h + hi) * sq;
+  // this lane's rows w0 + gq (c0 / c1) and + 8 (c2 / c3)
+  float lse_r[2], d_r[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = w0 + gq + 8 * r;
+    lse_r[r] = row < sq ? lse[rb + row] : INFINITY;
+    if constexpr (DQ) d_r[r] = row < sq ? delta[rb + row] : 0.f;
+  }
+  float acc[DQ ? DT : 2][4];
+#pragma unroll
+  for (int t = 0; t < (DQ ? DT : 2); ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
+
+  for (int t = 0; t < ntiles; ++t) {
+    const int kt = k_lo + t * BK;
+    if (t + 1 < ntiles) {           // prefetch the next tile
+      const int st = (t + 1) & 1, kn = kt + BK;
+      stage_tile<THREADS>(Ks + st * BK * LD, LD, kb + (long long)kn * k_ss,
+                          k_ss, BK, D, sk - kn, D, vec);
+      stage_tile<THREADS>(Vs + st * BK * LD, LD, vb + (long long)kn * v_ss,
+                          v_ss, BK, D, sk - kn, D, vec);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();             // this tile (and Q, dO) has landed
+    __syncthreads();
+    const T* Kt = Ks + (t & 1) * BK * LD;
+    const T* Vt = Vs + (t & 1) * BK * LD;
+    const bool live = w0 < sq && (!causal || kt <= w0 + 15) &&
+                      (window <= 0 || kt + BK - 1 > w0 - window);
+    if (live) {
+      float s[NT][4], dp[NT][4];
+      rows_dot<T, D, NT, KW>(s, Qw + part * K0, Kt + part * K0, gq, tq);
+      rows_dot<T, D, NT, KW>(dp, Ow + part * K0, Vt + part * K0, gq, tq);
+      if constexpr (Cfg::SHARE)
+        split_sum<SP, NT>(s, dp, red + rg * SP * 2 * NT * 128, part, rg,
+                          lane);
+      // every key of the tile visible to every row of the warp: no mask
+      const bool full = kt + BK <= sk && (!causal || kt + BK - 1 <= w0) &&
+                        (window <= 0 || kt > w0 + 15 - window);
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = w0 + gq + 8 * (e >> 1);
+          const int key = kt + n * 8 + 2 * tq + (e & 1);
+          const bool ok = full || (key < sk && (!causal || key <= row) &&
+                                   (window <= 0 || key > row - window));
+          const float p =
+              ok ? expf(fmaf(s[n][e], scale, -lse_r[e >> 1])) : 0.f;
+          if constexpr (DQ)
+            s[n][e] = p * (dp[n][e] - d_r[e >> 1]);  // dS
+          else
+            acc[0][e >> 1] += p * dp[n][e];          // this lane's D
+        }
+      if constexpr (DQ) acc_pb<T, D, NT, DT>(acc, s, Kt + part * DW, lane);
+    }
+    __syncthreads();                // the stage is refilled next iteration
+  }
+  cp_async_wait<0>();               // nothing in flight at exit
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = w0 + gq + 8 * r;
+    if constexpr (DQ) {
+      if (row >= sq) continue;
+      // dq is contiguous (b, sq, h, D)
+      T* drow = dq + (((long long)bi * sq + row) * h + hi) * D + part * DW +
+                2 * tq;
+#pragma unroll
+      for (int t = 0; t < DT; ++t)
+        store_pair<T>(drow + t * 8, acc[t][2 * r] * scale,
+                      acc[t][2 * r + 1] * scale);
+    } else {
+      const float dsum = quad_sum(acc[0][r]);  // the group's warps agree
+      if (part == 0 && tq == 0 && row < sq) delta[rb + row] = dsum;
+    }
+  }
+}
+
+// (b): dk and dv.  A block owns 16 RW keys of one (batch, kv head), K and
+// V staged once, and walks the group's heads and, for each, the query
+// tiles that see its keys: Q, dO, lse and D tiles of BQ rows
+// double-buffered.  Key tile 0 first (the most query tiles under causal)
+template <typename T, int D>
+__global__ void __launch_bounds__(FbCfg<T, D>::THREADS)
+flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, T* __restrict__ dk,
+                    T* __restrict__ dv, int sq, int sk, int h, int group,
+                    long long q_sb, long long q_ss, long long q_sh,
+                    long long k_sb, long long k_ss, long long k_sh,
+                    long long v_sb, long long v_ss, long long v_sh,
+                    long long o_sb, long long o_ss, long long o_sh,
+                    int causal, int window, float scale, int vec) {
+  using Cfg = FbCfg<T, D>;
+  constexpr int SP = Cfg::SPLIT, RW = Cfg::RW, BQ = Cfg::BQ, LD = Cfg::LD;
+  constexpr int THREADS = Cfg::THREADS, BKV = 16 * RW, NT = BQ / 8;
+  constexpr int DW = Cfg::DW, DT = DW / 8, KW = Cfg::KW;
+  constexpr int K0 = Cfg::SHARE ? DW : 0;
+  extern __shared__ __align__(16) unsigned char fb_smem[];
+  T* Ks = reinterpret_cast<T*>(fb_smem);  // [BKV][LD]
+  T* Vs = Ks + BKV * LD;                  // [BKV][LD]
+  T* Qs = Vs + BKV * LD;                  // [2][BQ][LD]
+  T* Os = Qs + 2 * BQ * LD;               // dO [2][BQ][LD]
+  float* Ls = reinterpret_cast<float*>(Os + 2 * BQ * LD);  // lse [2][BQ]
+  float* Ds = Ls + 2 * BQ;                                 // D [2][BQ]
+  float* red = Ds + 2 * BQ;                                // split_sum's
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int rg = warp / SP, part = warp - rg * SP;
+  const int kv = h / group;
+  const int kvh = blockIdx.x % kv, bi = blockIdx.x / kv;
+  const int k0 = blockIdx.y * BKV;
+
+  // the query tiles that see a key of [k0, k0 + BKV)
+  int q_lo = causal ? k0 : 0;                     // queries >= the key
+  int q_hi = sq;
+  if (window > 0) q_hi = min(sq, k0 + BKV - 1 + window);  // < key + window
+  q_lo = (q_lo / BQ) * BQ;
+  const int nqt = q_hi > q_lo ? (q_hi - q_lo + BQ - 1) / BQ : 0;
+  const int total = group * nqt;  // (head, query tile) steps
+
+  auto stage_q = [&](int it, int st) {
+    const int j = it / nqt, qt = q_lo + (it - j * nqt) * BQ;
+    const int hq = kvh * group + j;
+    stage_tile<THREADS>(Qs + st * BQ * LD, LD,
+                        q + bi * q_sb + hq * q_sh + (long long)qt * q_ss,
+                        q_ss, BQ, D, sq - qt, D, vec);
+    stage_tile<THREADS>(Os + st * BQ * LD, LD,
+                        dout + bi * o_sb + hq * o_sh + (long long)qt * o_ss,
+                        o_ss, BQ, D, sq - qt, D, vec);
+    const long long rb = ((long long)bi * h + hq) * sq + qt;
+    stage_tile<THREADS>(Ls + st * BQ, BQ, lse + rb, 0, 1, BQ, 1, sq - qt,
+                        false);
+    stage_tile<THREADS>(Ds + st * BQ, BQ, delta + rb, 0, 1, BQ, 1, sq - qt,
+                        false);
+  };
+  stage_tile<THREADS>(Ks, LD, k + bi * k_sb + kvh * k_sh + (long long)k0 * k_ss,
+                      k_ss, BKV, D, sk - k0, D, vec);
+  stage_tile<THREADS>(Vs, LD, v + bi * v_sb + kvh * v_sh + (long long)k0 * v_ss,
+                      v_ss, BKV, D, sk - k0, D, vec);
+  if (total > 0) stage_q(0, 0);
+  cp_async_commit();
+
+  const int w0 = k0 + 16 * rg;  // the warp's first key
+  const T* Kw = Ks + 16 * rg * LD;
+  const T* Vw = Vs + 16 * rg * LD;
+  float dka[DT][4], dva[DT][4];
+#pragma unroll
+  for (int t = 0; t < DT; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[t][e] = dva[t][e] = 0.f;
+
+  for (int it = 0; it < total; ++it) {
+    if (it + 1 < total) stage_q(it + 1, (it + 1) & 1);  // prefetch
+    cp_async_commit();
+    cp_async_wait<1>();             // this step's tiles (and K, V) landed
+    __syncthreads();
+    const int j = it / nqt, qt = q_lo + (it - j * nqt) * BQ;
+    const T* Qt = Qs + (it & 1) * BQ * LD;
+    const T* Ot = Os + (it & 1) * BQ * LD;
+    const float* Lt = Ls + (it & 1) * BQ;
+    const float* Dt = Ds + (it & 1) * BQ;
+    const bool live = w0 < sk && (!causal || qt + BQ - 1 >= w0) &&
+                      (window <= 0 || qt < w0 + 15 + window);
+    if (live) {
+      float s[NT][4], dp[NT][4];    // S^T and dP^T: (key, query)
+      rows_dot<T, D, NT, KW>(s, Kw + part * K0, Qt + part * K0, gq, tq);
+      rows_dot<T, D, NT, KW>(dp, Vw + part * K0, Ot + part * K0, gq, tq);
+      if constexpr (Cfg::SHARE)
+        split_sum<SP, NT>(s, dp, red + rg * SP * 2 * NT * 128, part, rg,
+                          lane);
+      // every query of the tile sees every key of the warp: no mask
+      const bool full = w0 + 16 <= sk && qt + BQ <= sq &&
+                        (!causal || qt >= w0 + 15) &&
+                        (window <= 0 || qt + BQ - 1 - w0 < window);
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = w0 + gq + 8 * (e >> 1);
+          const int c = n * 8 + 2 * tq + (e & 1), query = qt + c;
+          const bool ok =
+              full || (key < sk && query < sq && (!causal || key <= query) &&
+                       (window <= 0 || key > query - window));
+          const float p = ok ? expf(fmaf(s[n][e], scale, -Lt[c])) : 0.f;
+          s[n][e] = p;
+          dp[n][e] = p * (dp[n][e] - Dt[c]);  // dS^T
+        }
+      acc_pb<T, D, NT, DT>(dva, s, Ot + part * DW, lane);
+      acc_pb<T, D, NT, DT>(dka, dp, Qt + part * DW, lane);
+    }
+    __syncthreads();                // the stage is refilled next iteration
+  }
+  cp_async_wait<0>();               // nothing in flight at exit
+
+  // dk and dv are contiguous (b, sk, kv, D), rounded once to T
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = w0 + gq + 8 * r;
+    if (key >= sk) continue;
+    const long long off = (((long long)bi * sk + key) * kv + kvh) * D +
+                          part * DW + 2 * tq;
+#pragma unroll
+    for (int t = 0; t < DT; ++t) {
+      store_pair<T>(dk + off + t * 8, dka[t][2 * r] * scale,
+                    dka[t][2 * r + 1] * scale);
+      store_pair<T>(dv + off + t * 8, dva[t][2 * r], dva[t][2 * r + 1]);
+    }
+  }
+}
+
+template <typename K>
+cudaError_t fb_smem_attr(K kern, int bytes) {
+  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              bytes);
+}
+
+template <typename T, int D>
+int launch_flash_bwd(const T* q, const T* k, const T* v, const T* dout,
+                     const float* lse, float* delta, T* dq, T* dk, T* dv,
+                     int b, int sq, int sk, int h, int kv, long long q_sb,
+                     long long q_ss, long long q_sh, long long k_sb,
+                     long long k_ss, long long k_sh, long long v_sb,
+                     long long v_ss, long long v_sh, long long o_sb,
+                     long long o_ss, long long o_sh, int causal, int window,
+                     float scale, cudaStream_t st) {
+  using Cfg = FbCfg<T, D>;
+  auto pass_d = flash_bwd_rows_kernel<T, D, false>;
+  auto pass_q = flash_bwd_rows_kernel<T, D, true>;
+  auto pass_kv = flash_bwd_kv_kernel<T, D>;
+  cudaError_t err = fb_smem_attr(pass_d, Cfg::ROWS_BYTES);
+  if (err == cudaSuccess) err = fb_smem_attr(pass_q, Cfg::ROWS_BYTES);
+  if (err == cudaSuccess) err = fb_smem_attr(pass_kv, Cfg::KV_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  constexpr long long E = 16 / sizeof(T);     // values a 16-byte copy
+  const bool vec = aligned16(q) && aligned16(k) && aligned16(v) &&
+                   aligned16(dout) &&
+                   (q_sb | q_ss | q_sh | k_sb | k_ss | k_sh | v_sb | v_ss |
+                    v_sh | o_sb | o_ss | o_sh) % E == 0;
+  const int group = h / kv, rows = 16 * Cfg::RW;
+  const dim3 rows_grid(b * h, (sq + rows - 1) / rows);
+  const dim3 kv_grid(b * kv, (sk + rows - 1) / rows);
+#define REPRO_FB_ARGS                                                        \
+  sq, sk, h, group, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,    \
+      o_sb, o_ss, o_sh, causal, window, scale, (int)vec
+  if (sq > 0) {
+    pass_d<<<rows_grid, Cfg::D_THREADS, Cfg::ROWS_BYTES, st>>>(
+        q, k, v, dout, lse, delta, dq, REPRO_FB_ARGS);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  if (sk > 0) {
+    pass_kv<<<kv_grid, Cfg::THREADS, Cfg::KV_BYTES, st>>>(
+        q, k, v, dout, lse, delta, dk, dv, REPRO_FB_ARGS);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  if (sq > 0)
+    pass_q<<<rows_grid, Cfg::THREADS, Cfg::ROWS_BYTES, st>>>(
+        q, k, v, dout, lse, delta, dq, REPRO_FB_ARGS);
+#undef REPRO_FB_ARGS
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_flash_bwd_d(const void* q, const void* k, const void* v,
+                       const void* dout, const float* lse, float* delta,
+                       void* dq, void* dk, void* dv, int b, int sq, int sk,
+                       int h, int kv, int d, long long q_sb, long long q_ss,
+                       long long q_sh, long long k_sb, long long k_ss,
+                       long long k_sh, long long v_sb, long long v_ss,
+                       long long v_sh, long long o_sb, long long o_ss,
+                       long long o_sh, int causal, int window, float scale,
+                       cudaStream_t st) {
+#define REPRO_FB(D)                                                          \
+  launch_flash_bwd<T, D>(                                                    \
+      static_cast<const T*>(q), static_cast<const T*>(k),                    \
+      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,     \
+      static_cast<T*>(dq), static_cast<T*>(dk), static_cast<T*>(dv), b, sq,  \
+      sk, h, kv, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, \
+      o_ss, o_sh, causal, window, scale, st)
+  switch (d) {
+    case 32: return REPRO_FB(32);
+    case 64: return REPRO_FB(64);
+    case 128: return REPRO_FB(128);
+    case 256: return REPRO_FB(256);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef REPRO_FB
 }
 
 // Stage a tile of T as float32 in shared memory (dst float, row stride
@@ -1883,50 +2459,88 @@ int repro_rmsnorm_backward(const void* x, const void* scale, const void* dy,
 }
 
 int repro_flash_attention_hopper(const void* q, const void* k, const void* v,
-                                 void* o, int b, int sq, int sk, int h, int kv,
-                                 int d, long long q_sb, long long q_ss,
-                                 long long q_sh, long long k_sb,
-                                 long long k_ss, long long k_sh,
-                                 long long v_sb, long long v_ss,
-                                 long long v_sh, int causal, int window,
-                                 float scale, int code, void* stream);
+                                 void* o, float* lse, int b, int sq, int sk,
+                                 int h, int kv, int d, long long q_sb,
+                                 long long q_ss, long long q_sh,
+                                 long long k_sb, long long k_ss,
+                                 long long k_sh, long long v_sb,
+                                 long long v_ss, long long v_sh, int causal,
+                                 int window, float scale, int code,
+                                 void* stream);
 
 // q (b, sq, h, d), k / v (b, sk, kv, d) read through their strides, o a
 // contiguous (b, sq, h, d), all of one dtype code (0 float32, 1 bfloat16,
-// 2 float16).  route 1 is the Hopper kernel (flash_hopper.cu), which refuses
-// what it does not take; route 0 the mma.sync kernel here
+// 2 float16); lse a contiguous float32 (b, h, sq), each row's log-sum-exp
+// of its scaled scores (+inf for a row with no visible key), written on
+// every call.  route 1 is the Hopper kernel (flash_hopper.cu), which
+// refuses what it does not take; route 0 the mma.sync kernel here
 int repro_flash_attention(const void* q, const void* k, const void* v,
-                          void* o, int b, int sq, int sk, int h, int kv,
-                          int d, long long q_sb, long long q_ss,
+                          void* o, float* lse, int b, int sq, int sk, int h,
+                          int kv, int d, long long q_sb, long long q_ss,
                           long long q_sh, long long k_sb, long long k_ss,
                           long long k_sh, long long v_sb, long long v_ss,
                           long long v_sh, int causal, int window, float scale,
                           int code, int route, void* stream) {
   if (route == 1)
-    return repro_flash_attention_hopper(q, k, v, o, b, sq, sk, h, kv, d, q_sb,
-                                        q_ss, q_sh, k_sb, k_ss, k_sh, v_sb,
-                                        v_ss, v_sh, causal, window, scale,
-                                        code, stream);
+    return repro_flash_attention_hopper(q, k, v, o, lse, b, sq, sk, h, kv, d,
+                                        q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
+                                        v_sb, v_ss, v_sh, causal, window,
+                                        scale, code, stream);
   if (route != 0) return (int)cudaErrorInvalidValue;
   if (b <= 0 || sq <= 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
   switch (code) {
     case 0:
-      return launch_flash_d<float>(q, k, v, o, b, sq, sk, h, kv, d, q_sb,
+      return launch_flash_d<float>(q, k, v, o, lse, b, sq, sk, h, kv, d, q_sb,
                                    q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss,
                                    v_sh, causal, window, scale, st);
     case 1:
-      return launch_flash_d<__nv_bfloat16>(q, k, v, o, b, sq, sk, h, kv, d,
-                                           q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
-                                           v_sb, v_ss, v_sh, causal, window,
-                                           scale, st);
+      return launch_flash_d<__nv_bfloat16>(q, k, v, o, lse, b, sq, sk, h, kv,
+                                           d, q_sb, q_ss, q_sh, k_sb, k_ss,
+                                           k_sh, v_sb, v_ss, v_sh, causal,
+                                           window, scale, st);
     case 2:
-      return launch_flash_d<__half>(q, k, v, o, b, sq, sk, h, kv, d, q_sb,
-                                    q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss,
-                                    v_sh, causal, window, scale, st);
+      return launch_flash_d<__half>(q, k, v, o, lse, b, sq, sk, h, kv, d,
+                                    q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb,
+                                    v_ss, v_sh, causal, window, scale, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// The gradient of repro_flash_attention: q and dout (b, sq, h, d), k and v
+// (b, sk, kv, d) read through their strides (the trailing dim contiguous),
+// lse the forward's (b, h, sq) float32, delta a (b, h, sq) float32 scratch
+// (D); dq (b, sq, h, d) and dk / dv (b, sk, kv, d) contiguous, all of one
+// dtype code (0 float32, 1 bfloat16, 2 float16).  Three launches: D, then
+// dk / dv, then dq.
+int repro_flash_attention_backward(const void* q, const void* k,
+                                   const void* v, const void* dout,
+                                   const float* lse, float* delta, void* dq,
+                                   void* dk, void* dv, int b, int sq, int sk,
+                                   int h, int kv, int d, long long q_sb,
+                                   long long q_ss, long long q_sh,
+                                   long long k_sb, long long k_ss,
+                                   long long k_sh, long long v_sb,
+                                   long long v_ss, long long v_sh,
+                                   long long o_sb, long long o_ss,
+                                   long long o_sh, int causal, int window,
+                                   float scale, int code, void* stream) {
+  if (b <= 0 || (sq <= 0 && sk <= 0)) return 0;
+  if (kv <= 0 || h % kv != 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+#define REPRO_FB_D(T)                                                        \
+  launch_flash_bwd_d<T>(q, k, v, dout, lse, delta, dq, dk, dv, b, sq, sk, h, \
+                        kv, d, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb,     \
+                        v_ss, v_sh, o_sb, o_ss, o_sh, causal, window, scale, \
+                        st)
+  switch (code) {
+    case 0: return REPRO_FB_D(float);
+    case 1: return REPRO_FB_D(__nv_bfloat16);
+    case 2: return REPRO_FB_D(__half);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef REPRO_FB_D
 }
 
 // floats of scratch that repro_ssd_chunk_scan needs for these sizes

@@ -46,16 +46,26 @@ causal rows first.
 only.  CUDA tensors always go to the kernel, or the wrapper raises.
 
 Autograd.  :func:`flash_attention` is a ``torch.autograd.Function``: its
-forward is the kernel (the plain version on the CPU); its backward is
-``torch.func.vjp`` of :func:`attention_plain` on the saved q, k and v,
-plain PyTorch that recomputes the scores (the JAX package has no backward
-kernel; hand-written dq / dk / dv kernels are still to be written).  On
-bfloat16 q, k and v (the bf16 archs' training) the forward takes the
-kernel's 16-bit route and the backward the plain version's float32 math,
-its gradients in q's dtype.  Its ``vmap`` rule folds the vmapped axis into
-the batch, ``(n, b, ...) -> (n*b, ...)``, one kernel call: q, k and v are
-activations in every caller (no parameter carries the axis; an unbatched
-one is expanded).
+forward is the kernel (the plain version on the CPU), which also writes
+each row's log-sum-exp ``lse`` (b, h, sq) in float32 (+inf for a row with
+no visible key); its backward is the backward kernel
+``repro_flash_attention_backward`` (``kernels/csrc/lm.cu``), which replaces
+no TPU kernel (the JAX package's flash_attention has no custom_vjp; JAX
+differentiates ``attention_ref``): FlashAttention-2's backward from q, k, v,
+lse and the cotangent, three launches a call (D, dK / dV, dQ) counted as
+one, no atomics, with :func:`attention_backward_plain` its plain version
+for CPU tensors.  Its gradients come in q's dtype, from float32 math on the
+16-bit inputs as they are.  Bound on H100: operations, 10 d flops a
+visible pair and head for the five products (the kernels run nine, S and
+dP in each pass, and on 16-bit inputs split p and dS into hi / lo halves
+as the forward splits p).
+The backward is a Function of its own (``_FlashBackward``) where a
+``torch.func`` transform wraps its inputs: its ``vmap`` rule folds the
+replicas into the batch, so ``vmap`` of ``grad`` makes one kernel call.
+The forward's ``vmap`` rule folds the vmapped axis into the batch, ``(n,
+b, ...) -> (n*b, ...)``, one kernel call: q, k and v are activations in
+every caller (no parameter carries the axis; an unbatched one is
+expanded).
 """
 from __future__ import annotations
 
@@ -104,22 +114,74 @@ def _mask(sq: int, sk: int, causal: bool, window: int,
     return mask
 
 
+def _scores(q, k, causal, window, scale):
+    """The masked float32 scores (b, kv, g, sq, sk) (masked: MASKED) and
+    the mask (sq, sk)."""
+    b, sq, h, d = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    qh = q.reshape(b, sq, kv, h // kv, d).float()
+    s = torch.einsum("bsngd,btnd->bngst", qh, k.float()) * scale
+    mask = _mask(sq, sk, causal, window, q.device)
+    return s.masked_fill(~mask, MASKED), mask
+
+
+def _plain_forward(q, k, v, causal, window, scale):
+    """(o, lse): :func:`attention_plain`'s output and each row's
+    log-sum-exp of its scaled scores (b, h, sq) in float32, +inf for a row
+    with no visible key, as the kernels write it."""
+    b, sq, h, d = q.shape
+    s, mask = _scores(q, k, causal, window, scale)
+    seen = mask.any(dim=-1)[:, None]
+    p = torch.where(seen, torch.softmax(s, dim=-1), 0.0)
+    o = torch.einsum("bngst,btnd->bsngd", p, v.float())
+    lse = torch.where(seen[..., 0], torch.logsumexp(s, dim=-1), math.inf)
+    return (o.reshape(b, sq, h, d).to(q.dtype),
+            lse.reshape(b, h, sq))
+
+
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     scale: Optional[float] = None) -> torch.Tensor:
     """q (b,sq,h,d), k/v (b,sk,kv,d) -> (b,sq,h,d).  GQA by head grouping."""
     b, sq, h, d = q.shape
-    sk, kv = k.shape[1], k.shape[2]
-    g = h // kv
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    qh = q.reshape(b, sq, kv, g, d).float()
-    s = torch.einsum("bsngd,btnd->bngst", qh, k.float()) * scale
-    mask = _mask(sq, sk, causal, window, q.device)
-    s = s.masked_fill(~mask, MASKED)
+    s, mask = _scores(q, k, causal, window, scale)
     p = torch.softmax(s, dim=-1)
     p = torch.where(mask.any(dim=-1)[:, None], p, 0.0)
     o = torch.einsum("bngst,btnd->bsngd", p, v.float())
     return o.reshape(b, sq, h, d).to(q.dtype)
+
+
+def attention_backward_plain(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, lse: torch.Tensor,
+                             do: torch.Tensor, *, causal: bool = True,
+                             window: int = 0,
+                             scale: Optional[float] = None):
+    """(dq, dk, dv) of :func:`attention_plain` at q, k, v for the cotangent
+    ``do``, in closed form (FlashAttention-2's) from the forward's ``lse``
+    (b, h, sq): P = exp(S scale - lse) on the visible pairs, dP = dO V^T,
+    D = rowsum(P o dP), dS = P o (dP - D), dV = P^T dO, dK = scale dS^T Q,
+    dQ = scale dS K; float32 math, the gradients in q's dtype.  D is the
+    softmax backward's sum, as the vjp forms it (not rowsum(dO o O): a
+    16-bit O is rounded)."""
+    b, sq, h, d = q.shape
+    kv = k.shape[2]
+    g = h // kv
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    qf = q.reshape(b, sq, kv, g, d).float()
+    dof = do.reshape(b, sq, kv, g, d).float()
+    kf, vf = k.float(), v.float()
+    # a masked score is MASKED: its p is 0, and so is a row's with no
+    # visible key (lse +inf)
+    s, _ = _scores(q, k, causal, window, scale)
+    p = torch.exp(s - lse.reshape(b, kv, g, sq, 1))
+    dp = torch.einsum("bsngd,btnd->bngst", dof, vf)
+    ds = p * (dp - (p * dp).sum(dim=-1, keepdim=True))
+    dv = torch.einsum("bngst,bsngd->btnd", p, dof)
+    dk = torch.einsum("bngst,bsngd->btnd", ds, qf) * scale
+    dq = torch.einsum("bngst,btnd->bsngd", ds, kf) * scale
+    return (dq.reshape(b, sq, h, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -143,60 +205,168 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         f"{tuple(FLOAT_CODES)}, got {q.dtype}, {k.dtype}, "
                         f"{v.dtype}")
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    return _Flash.apply(q, k, v, bool(causal), int(window), float(scale))
+    return _Flash.apply(q, k, v, bool(causal), int(window), float(scale))[0]
 
 
-def _forward(q, k, v, causal: bool, window: int, scale: float, *,
-             route: Optional[str] = None):
-    """The plain version for CPU tensors, the kernel for CUDA ones: on the
-    route :func:`flash_route` picks, or on ``route`` (a test forcing
-    ``"mma"`` at a shape the Hopper route takes; the Hopper kernel refuses
-    a shape it does not take, and the call raises)."""
+def _check_cuda(*ts: torch.Tensor) -> None:
+    """Raise unless the CUDA tensors ``ts`` take the kernels: a head dim
+    of HEAD_DIMS and a contiguous trailing dim."""
+    if ts[0].device.type != "cuda":
+        raise ValueError(f"q is on unsupported device {ts[0].device}")
+    if ts[0].shape[-1] not in HEAD_DIMS:
+        raise ValueError(f"head_dim {ts[0].shape[-1]} not in {HEAD_DIMS}")
+    if any(t.stride(-1) != 1 for t in ts):
+        raise ValueError("q, k, v (and the cotangent) need a contiguous "
+                         "trailing dim")
+
+
+def _attend(q, k, v, causal: bool, window: int, scale: float, *,
+            route: Optional[str] = None):
+    """(o, lse): the plain version for CPU tensors, the kernel for CUDA
+    ones: on the route :func:`flash_route` picks, or on ``route`` (a test
+    forcing ``"mma"`` at a shape the Hopper route takes; the Hopper kernel
+    refuses a shape it does not take, and the call raises)."""
     b, sq, h, d = q.shape
     _, sk, kv, _ = k.shape
     if q.device.type == "cpu":
-        return attention_plain(q, k, v, causal=causal, window=window,
-                               scale=scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"q is on unsupported device {q.device}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head_dim {d} not in {HEAD_DIMS}")
-    if any(t.stride(-1) != 1 for t in (q, k, v)):
-        raise ValueError("q, k and v need a contiguous trailing dim")
+        return _plain_forward(q, k, v, causal, window, scale)
+    _check_cuda(q, k, v)
     route = route or flash_route(q, k, v, scale)
     if route not in ROUTES:
         raise ValueError(f"route {route!r} not in {tuple(ROUTES)}")
     o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     launch("flash_attention", q.device, q.data_ptr(), k.data_ptr(),
-           v.data_ptr(), o.data_ptr(), b, sq, sk, h, kv, d, *q.stride()[:3],
-           *k.stride()[:3], *v.stride()[:3], int(causal), int(window),
-           float(scale), FLOAT_CODES[q.dtype], ROUTES[route])
+           v.data_ptr(), o.data_ptr(), lse.data_ptr(), b, sq, sk, h, kv, d,
+           *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], int(causal),
+           int(window), float(scale), FLOAT_CODES[q.dtype], ROUTES[route])
     ROUTE_LAUNCHES[route] += 1
-    return o
+    return o, lse
+
+
+def _forward(q, k, v, causal: bool, window: int, scale: float, *,
+             route: Optional[str] = None) -> torch.Tensor:
+    """The output of :func:`_attend`."""
+    return _attend(q, k, v, causal, window, scale, route=route)[0]
+
+
+def _backward(q, k, v, lse, do, causal: bool, window: int, scale: float):
+    """(dq, dk, dv): :func:`attention_backward_plain` for CPU tensors, the
+    backward kernel for CUDA ones (three launches, counted as one call);
+    the gradients contiguous, in q's dtype."""
+    if q.device.type == "cpu":
+        return attention_backward_plain(q, k, v, lse, do, causal=causal,
+                                        window=window, scale=scale)
+    if do.stride(-1) != 1:
+        do = do.contiguous()
+    _check_cuda(q, k, v, do)
+    b, sq, h, d = q.shape
+    _, sk, kv, _ = k.shape
+    if (tuple(do.shape) != (b, sq, h, d) or tuple(lse.shape) != (b, h, sq)
+            or tuple(v.shape) != (b, sk, kv, d) or h % kv):
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v "
+                         f"{tuple(v.shape)}, the cotangent "
+                         f"{tuple(do.shape)} and lse {tuple(lse.shape)} do "
+                         f"not pair")
+    if (not q.dtype == k.dtype == v.dtype == do.dtype
+            or q.dtype not in FLOAT_CODES or lse.dtype != torch.float32):
+        raise TypeError(f"q, k, v and the cotangent must share one dtype of "
+                        f"{tuple(FLOAT_CODES)} and lse be float32, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}, {do.dtype}, "
+                        f"{lse.dtype}")
+    if not all(t.device == q.device for t in (k, v, lse, do)):
+        raise ValueError("q, k, v, lse and the cotangent must be on one "
+                         "device")
+    lse = lse.contiguous()
+    dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, sk, kv, d), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    launch("flash_attention_backward", q.device, q.data_ptr(), k.data_ptr(),
+           v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+           dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, sq, sk, h, kv, d,
+           *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+           *do.stride()[:3], int(causal), int(window), float(scale),
+           FLOAT_CODES[q.dtype])
+    return dq, dk, dv
+
+
+def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, lse: torch.Tensor,
+                             do: torch.Tensor, *, causal: bool = True,
+                             window: int = 0,
+                             scale: Optional[float] = None):
+    """(dq, dk, dv) of :func:`flash_attention` at q, k, v for the
+    cotangent ``do``, from the forward's ``lse`` (b, h, sq): the backward
+    kernel for CUDA tensors, :func:`attention_backward_plain` for CPU
+    ones; under ``torch.func.vmap`` one call for every replica."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    return _call_backward(q, k, v, lse, do, bool(causal), int(window),
+                          float(scale))
+
+
+def _call_backward(q, k, v, lse, do, causal, window, scale):
+    """The backward Function where a ``torch.func`` transform wraps an
+    input (its ``vmap`` rule), the dispatcher directly otherwise."""
+    if any(map(torch._C._functorch.is_functorch_wrapped_tensor,
+               (q, k, v, lse, do))):
+        return _FlashBackward.apply(q, k, v, lse, do, causal, window, scale)
+    return _backward(q, k, v, lse, do, causal, window, scale)
+
+
+def _unfold(t: torch.Tensor, n: int) -> torch.Tensor:
+    """A folded ``(n*b, ...)`` result back to ``(n, b, ...)``."""
+    return t.reshape(n, -1, *t.shape[1:])
+
+
+class _FlashBackward(torch.autograd.Function):
+    """flash's gradient as a Function of its own, so that under
+    ``torch.func.vmap`` of ``grad`` (the fl round), where the backward
+    receives batched tensors, its ``vmap`` rule folds the replicas into the
+    batch: one kernel call."""
+
+    @staticmethod
+    def forward(q, k, v, lse, do, causal, window, scale):
+        return _backward(q, k, v, lse, do, causal, window, scale)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, lse, do, causal, window, scale):
+        n = info.batch_size
+        grads = _call_backward(*(fold_replicas(t, dim, n) for t, dim in
+                                 zip((q, k, v, lse, do), in_dims[:5])),
+                               causal, window, scale)
+        return tuple(_unfold(t, n) for t in grads), (0, 0, 0)
 
 
 class _Flash(torch.autograd.Function):
+    """(o, lse); lse is not differentiable."""
+
     @staticmethod
     def forward(q, k, v, causal, window, scale):
-        return _forward(q, k, v, causal, window, scale)
+        return _attend(q, k, v, causal, window, scale)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
         q, k, v, causal, window, scale = inputs
-        ctx.save_for_backward(q, k, v)
-        ctx.opts = dict(causal=causal, window=window, scale=scale)
+        lse = output[1]
+        ctx.mark_non_differentiable(lse)
+        ctx.save_for_backward(q, k, v, lse)
+        ctx.opts = (causal, window, scale)
 
     @staticmethod
-    def backward(ctx, g):
-        q, k, v = ctx.saved_tensors
-        _, vjp = torch.func.vjp(
-            lambda a, b, c: attention_plain(a, b, c, **ctx.opts), q, k, v)
-        return (*vjp(g), None, None, None)
+    def backward(ctx, g, _g_lse):
+        q, k, v, lse = ctx.saved_tensors
+        return (*_call_backward(q, k, v, lse, g, *ctx.opts), None, None,
+                None)
 
     @staticmethod
     def vmap(info, in_dims, q, k, v, causal, window, scale):
         n = info.batch_size
-        o = _Flash.apply(*(fold_replicas(t, dim, n) for t, dim in
-                           zip((q, k, v), in_dims[:3])),
-                         causal, window, scale)
-        return o.reshape(n, -1, *o.shape[1:]), 0
+        o, lse = _Flash.apply(*(fold_replicas(t, dim, n) for t, dim in
+                                zip((q, k, v), in_dims[:3])),
+                              causal, window, scale)
+        return (_unfold(o, n), _unfold(lse, n)), (0, 0)

@@ -3,7 +3,7 @@ qk-norm, causal + sliding-window masks, KV-cache decode.
 
 Training and prefill run the flash kernel
 (:mod:`repro_torch.kernels.flash_attention`, differentiable: its backward
-is the plain version's), where query and key positions are both
+is the flash backward kernel), where query and key positions are both
 ``arange(s)``.  Decode — one query
 against a cache with ``k_pos`` and ring slots — stays the plain
 :func:`_sdpa`, as the reference computes it outside any Pallas kernel.

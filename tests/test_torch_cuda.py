@@ -9,7 +9,10 @@ for bit and under ``vmap`` of ``grad``; flash in bfloat16 and float16
 within one ulp plus its float32 tolerance, twice bit for bit, strided and
 unaligned, on the route ``flash_route`` picks — d 128 on the Hopper
 kernel, which the mma route forced at the same shapes agrees with and
-which refuses what it does not take) — short mlp9 runs (single RSU under the
+which refuses what it does not take; flash's backward kernel in all
+three dtypes against its closed form and the plain vjp, twice bit for
+bit, strided, and one launch under ``vmap`` of ``grad``) — short mlp9
+runs (single RSU under the
 loop and under vmap with the launch counts each schedule implies, one
 multi-RSU scenario round on topk_int8, and a window of the parallel
 server schedule with its launch formula) on cuda against the same runs on
@@ -861,6 +864,119 @@ def test_flash_kernel_16bit_reads_strided_qkv_and_refuses_mixed(dev):
     assert LAUNCHES["flash_attention"] == n
 
 
+# flash's backward kernel (three launches a call, counted as one): every
+# head dim, GQA groups, windows that mask keys, sq != sk with rows that see
+# no key, and the bfloat16 archs' training shape (qwen3-14b) and gemma3's
+# bf16 d 256; (b, sq, sk, h, kv, d, causal, window)
+FLASH_BWD_CASES = [(2, 37, 37, 4, 2, 32, True, 0),
+                   (2, 100, 100, 4, 2, 128, True, 0),
+                   (1, 70, 70, 4, 1, 256, True, 0),
+                   (2, 200, 200, 4, 2, 64, True, 48),
+                   (2, 48, 80, 2, 2, 64, False, 0),
+                   (1, 64, 16, 2, 1, 64, False, 8),
+                   (2, 80, 48, 4, 2, 128, True, 0),
+                   (2, 1, 77, 4, 2, 64, False, 0),
+                   (1, 90, 90, 2, 1, 256, True, 40),
+                   (2, 150, 150, 6, 3, 32, False, 20),
+                   (8, 1024, 1024, 40, 8, 128, True, 0),
+                   (4, 1024, 1024, 8, 4, 256, True, 1024)]
+
+
+def _flash_bwd_within(a, b, tol=FLASH_TOL):
+    """A gradient within flash's float32 tolerance of the largest of ``b``
+    and, in 16 bits, one ulp of the dtype more (both sides round float32
+    math once)."""
+    cs = _chip_smoke()
+    bound = tol * max(float(b.float().abs().max()), 1.0)
+    if a.dtype != torch.float32:
+        bound = bound + cs._ulp(b)
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and bool(torch.isfinite(a).all())
+            and bool(((a.float() - b.float()).abs() <= bound).all()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal,window", FLASH_BWD_CASES)
+def test_flash_backward_kernel_matches_plain(dev, b, sq, sk, h, kv, d,
+                                             causal, window, dtype):
+    """The forward's lse within 1e-4 of the plain one (+inf exactly where
+    a row sees no key); the backward kernel against the closed form on the
+    kernel's lse and, below the training shapes, against the plain vjp;
+    two calls bit for bit, one launch each; rows with no key get dq 0."""
+    q = _randn((b, sq, h, d), dev, 2).to(dtype)
+    k = _randn((b, sk, kv, d), dev, 3).to(dtype)
+    v = _randn((b, sk, kv, d), dev, 4).to(dtype)
+    do = _randn((b, sq, h, d), dev, 5).to(dtype)
+    scale = d ** -0.5
+    _, lse = FA._attend(q, k, v, causal, window, scale)
+    _, lse_p = FA._plain_forward(q, k, v, causal, window, scale)
+    seen = torch.isfinite(lse_p)
+    assert torch.equal(seen, torch.isfinite(lse))
+    assert bool(((lse - lse_p).abs()[seen] <= 1e-4).all())
+    n = LAUNCHES["flash_attention_backward"]
+    got = FA.flash_attention_backward(q, k, v, lse, do, causal=causal,
+                                      window=window)
+    again = FA.flash_attention_backward(q, k, v, lse, do, causal=causal,
+                                        window=window)
+    assert LAUNCHES["flash_attention_backward"] == n + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = FA.attention_backward_plain(q, k, v, lse, do, causal=causal,
+                                       window=window, scale=scale)
+    assert all(_flash_bwd_within(a, w) for a, w in zip(got, want))
+    if sq * sk * h * b <= 2 ** 24:
+        _, vjp = torch.func.vjp(lambda x, y, z: FA.attention_plain(
+            x, y, z, causal=causal, window=window), q, k, v)
+        assert all(_flash_bwd_within(a, w) for a, w in zip(got, vjp(do)))
+    empty = ~FA._mask(sq, sk, causal, window, dev).any(-1)
+    assert bool((got[0][:, empty] == 0).all())
+
+
+def test_flash_backward_kernel_reads_strided_inputs(dev):
+    """q / k / v as views of one fused projection and a cotangent that is
+    a view with a contiguous trailing dim, each dtype, one of them
+    misaligned by one element (the kernel's plain-load staging): within
+    tolerance of the closed form; a non-contiguous trailing dim is copied
+    first; mixed dtypes raise before a launch."""
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        for odd in (False, True):
+            n_el = 2 * 50 * 8 * 64
+            base = _randn((n_el + 1,), dev, 6).to(dtype)
+            qkv = (base[1:] if odd else base[:-1]).view(2, 50, 8, 64)
+            q, k, v = qkv[:, :, :4], qkv[:, :, 4:6], qkv[:, :, 6:]
+            do = _randn((2, 50, 8, 64), dev, 7).to(dtype)[:, :, 2:6]
+            _, lse = FA._attend(q, k, v, True, 0, 0.125)
+            got = FA.flash_attention_backward(q, k, v, lse, do)
+            want = FA.attention_backward_plain(q, k, v, lse, do,
+                                               scale=0.125)
+            assert all(_flash_bwd_within(a, w) for a, w in zip(got, want))
+            t_do = do.transpose(2, 3).contiguous().transpose(2, 3)
+            assert t_do.stride(-1) != 1
+            got_t = FA.flash_attention_backward(q, k, v, lse, t_do)
+            assert all(torch.equal(a, b) for a, b in zip(got, got_t))
+    n = LAUNCHES["flash_attention_backward"]
+    with pytest.raises(TypeError, match="cotangent"):
+        FA.flash_attention_backward(q, k, v, lse, do.float())
+    assert LAUNCHES["flash_attention_backward"] == n
+
+
+def test_flash_backward_under_vmap_of_grad_is_one_launch(dev):
+    """The fl round's ``vmap`` of ``grad`` through flash: one forward and
+    one backward launch for both replicas, each replica's gradients those
+    of its own grad (the same kernels on a smaller batch)."""
+    args = [_randn((2, 2, 40, h, 64), dev, i).to(torch.bfloat16)
+            for i, h in enumerate((6, 2, 2))]
+    grad = torch.func.grad(lambda q, k, v: FA.flash_attention(
+        q, k, v).float().square().sum(), argnums=(0, 1, 2))
+    n, nf = LAUNCHES["flash_attention"], LAUNCHES["flash_attention_backward"]
+    got = torch.func.vmap(grad)(*args)
+    assert LAUNCHES["flash_attention"] == n + 1
+    assert LAUNCHES["flash_attention_backward"] == nf + 1
+    for r in range(2):
+        want = grad(*[a[r] for a in args])
+        assert all(_flash_bwd_within(a[r], w) for a, w in zip(got, want))
+
+
 @pytest.mark.parametrize("arch", ["qwen3-14b", "command-r-35b",
                                   "dbrx-132b"])
 def test_reduced_bf16_serving_on_cuda_matches_cpu(dev, arch):
@@ -1040,8 +1156,8 @@ def test_moe_grouped_path_on_cuda_matches_cpu(dev):
 
 
 # ------------------------------------------------------- LM autograd
-# flash and ssd's backward is the plain version's vjp on the same inputs;
-# rmsnorm's is the backward kernel.  With the loss sum(w * y) the
+# ssd's backward is the plain version's vjp on the same inputs; rmsnorm's
+# and flash's are their backward kernels.  With the loss sum(w * y) the
 # cotangent does not depend on the forward, so kernel and all-plain
 # gradients differ only by the order of the sums: held at the forward
 # tolerances above, relative to the largest gradient.
@@ -1077,10 +1193,13 @@ def test_lm_function_gradients_on_cuda_match_plain(dev, name):
     fn, plain, args, tol = _autograd_case(name, dev)
     w = _randn(tuple(plain(*args).shape), dev, 9)
     n, nb = LAUNCHES[name], LAUNCHES["rmsnorm_backward"]
+    nf = LAUNCHES["flash_attention_backward"]
     y_k, g_k = _grads(fn, args, w)
     assert LAUNCHES[name] == n + 1
-    # rmsnorm's backward launches its kernel; flash's and ssd's nothing
+    # rmsnorm's and flash's backward launch their kernels; ssd's nothing
     assert LAUNCHES["rmsnorm_backward"] == nb + (name == "rmsnorm")
+    assert LAUNCHES["flash_attention_backward"] == nf + (
+        name == "flash_attention")
     y_p, g_p = _grads(plain, args, w)
     torch.testing.assert_close(y_k, y_p, rtol=tol, atol=tol)
     assert all(bool(torch.isfinite(g).all()) for g in g_k)
@@ -1355,10 +1474,11 @@ def test_lm_function_vjp_of_vmap_on_cuda(dev, name, rule):
     vmapped Function against the per-replica vjps, with only activations
     carrying the replica axis (``fold``: one launch for both replicas) and
     with a parameter per replica too (``loop``: one launch each; rmsnorm's
-    backward kernel the same).  Both backward passes are the same
-    backward (the plain version's vjp, or rmsnorm's kernel), on the folded
-    batch or on one replica, so the gradients differ only in the order of
-    their sums: within the forward tolerance of the largest gradient."""
+    and flash's backward kernels the same).  Both backward passes are the
+    same backward (the plain version's vjp, or a backward kernel), on the
+    folded batch or on one replica, so the gradients differ only in the
+    order of their sums: within the forward tolerance of the largest
+    gradient."""
     fn, _, args, tol = _autograd_case(name, dev)
     vin = [a.reshape(2, a.shape[0] // 2, *a.shape[1:]) for a in args]
     dims = [0] * len(args)
@@ -1376,6 +1496,7 @@ def test_lm_function_vjp_of_vmap_on_cuda(dev, name, rule):
         return full
 
     n, nb = LAUNCHES[name], LAUNCHES["rmsnorm_backward"]
+    nf = LAUNCHES["flash_attention_backward"]
     out, vjp = torch.func.vjp(
         lambda *d: torch.func.vmap(fn, in_dims=tuple(dims))(
             *with_diff(vin, d)), *[vin[i] for i in diff])
@@ -1384,6 +1505,8 @@ def test_lm_function_vjp_of_vmap_on_cuda(dev, name, rule):
     calls = 1 if rule == "fold" else 2
     assert LAUNCHES[name] == n + calls
     assert LAUNCHES["rmsnorm_backward"] == nb + calls * (name == "rmsnorm")
+    assert LAUNCHES["flash_attention_backward"] == nf + calls * (
+        name == "flash_attention")
     for r in range(2):
         sl = [a if d is None else a[r] for a, d in zip(vin, dims)]
         _, vjp1 = torch.func.vjp(lambda *d: fn(*with_diff(sl, d)),
@@ -1465,6 +1588,8 @@ def test_reduced_lm_train_step_launches_follow_remat(dev, arch):
         assert counts["rmsnorm"] == fwd * 2 * 3 + 1
         assert counts["rmsnorm_backward"] == 2 * 3 + 1
         assert counts[mixer] == fwd * 3
+        assert counts["flash_attention_backward"] == 3 * (
+            mixer == "flash_attention")
 
 
 # ------------------------------------------ the fault and streaming planes

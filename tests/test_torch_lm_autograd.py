@@ -1,8 +1,9 @@
 """The LM kernels' autograd on the CPU: rmsnorm, flash_attention and
-ssd_chunk_scan are ``torch.autograd.Function``s.  flash and ssd's backward
-is ``torch.func.vjp`` of the plain version; rmsnorm's is a Function of its
-own (the backward kernel on the card, ``rmsnorm_backward_plain`` here)
-with a ``vmap`` rule.  Their gradients against plain autograd;
+ssd_chunk_scan are ``torch.autograd.Function``s.  ssd's backward is
+``torch.func.vjp`` of the plain version; rmsnorm's and flash's are
+Functions of their own (the backward kernels on the card,
+``rmsnorm_backward_plain`` and ``attention_backward_plain`` here) with a
+``vmap`` rule.  Their gradients against plain autograd;
 ``torch.func.grad``, ``vjp`` of ``vmap`` (``CohortEngine``'s vmap
 schedule) and ``vmap`` of ``grad`` (its fl round) against per-slice
 loops, with the vmapped axis on the activations only (folded into the
@@ -73,6 +74,10 @@ def test_rmsnorm_gradients_equal_plain_autograd():
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 5),
                                            (False, 0)])
 def test_flash_gradients_equal_plain_autograd(causal, window):
+    """The Function's backward is the closed form here (the backward
+    kernel's plain version, from the forward's lse): equal to it bit for
+    bit, and to autograd of the plain forward within float32
+    reassociation (TOL of each largest gradient)."""
     q = _randn(2, 11, 4, 32, seed=0).requires_grad_()
     k = _randn(2, 11, 2, 32, seed=1).requires_grad_()
     v = _randn(2, 11, 2, 32, seed=2).requires_grad_()
@@ -80,10 +85,18 @@ def test_flash_gradients_equal_plain_autograd(causal, window):
     got = torch.autograd.grad(
         (FA.flash_attention(q, k, v, causal=causal, window=window)
          * w).sum(), (q, k, v))
+    scale = 32 ** -0.5
+    _, lse = FA._plain_forward(q.detach(), k.detach(), v.detach(), causal,
+                               window, scale)
+    _close(got, FA.attention_backward_plain(
+        q.detach(), k.detach(), v.detach(), lse, w, causal=causal,
+        window=window, scale=scale), 0.0)
     want = torch.autograd.grad(
         (FA.attention_plain(q, k, v, causal=causal, window=window)
          * w).sum(), (q, k, v))
-    _close(got, want, 0.0)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=TOL * float(b.abs().max()))
 
 
 @pytest.mark.parametrize("use_state", [False, True])

@@ -348,10 +348,13 @@ def _flash_args(seed, b=2, s=37, h=4, kv=2, d=64):
 
 @pytest.mark.parametrize("window", [0, 16])
 def test_flash_function_trains_in_bf16(window):
-    """flash's Function on bfloat16 q / k / v (the plain version on the
-    CPU): its bfloat16 gradients equal plain autograd's bit for bit, its
-    ``vmap`` rule (two replicas folded into one call) the per-replica
-    calls, and the ``vjp`` of its ``vmap`` the per-replica ``vjp``s."""
+    """flash's Function on bfloat16 q / k / v (the plain versions on the
+    CPU): its bfloat16 gradients equal the backward kernel's plain version
+    (the closed form from the forward's lse) bit for bit and plain
+    autograd's within one ulp of bfloat16 plus 1e-6 of the largest (the
+    same float32 math in another order, rounded once), its ``vmap`` rule
+    (two replicas folded into one call) the per-replica calls, and the
+    ``vjp`` of its ``vmap`` the per-replica ``vjp``s."""
     from repro_torch.kernels import flash_attention as FA
     q, k, v = _flash_args(7 + window)
     w = torch.from_numpy(np.random.default_rng(1).normal(
@@ -367,8 +370,18 @@ def test_flash_function_trains_in_bf16(window):
     out_p, g_p = grads(lambda a, b, c: FA.attention_plain(a, b, c,
                                                           window=window))
     assert out_f.dtype == torch.bfloat16 and torch.equal(out_f, out_p)
+    scale = q.shape[-1] ** -0.5
+    _, lse = FA._plain_forward(q, k, v, True, window, scale)
+    closed = FA.attention_backward_plain(q, k, v, lse, w, window=window,
+                                         scale=scale)
     assert all(a.dtype == torch.bfloat16 and torch.equal(a, b)
-               for a, b in zip(g_f, g_p))
+               for a, b in zip(g_f, closed))
+    for a, b in zip(g_f, g_p):
+        ulp = torch.tensor([_bf16_ulp(x) for x in b.float().flatten()
+                            .tolist()]).reshape(b.shape)
+        err = (a.float() - b.float()).abs()
+        assert bool((err <= ulp + 1e-6 * float(b.float().abs().max()))
+                    .all()), float(err.max())
     split = [t.reshape(2, 1, *t.shape[1:]) for t in (q, k, v)]
 
     def fn(a, b, c):
