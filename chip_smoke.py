@@ -61,13 +61,17 @@ neither ``jax`` nor ``repro``.  In order it:
    ``flash_route`` picks: d 128 on the Hopper route, the rest on the mma
    route; the timed prefills also checked, untimed, forced onto the mma
    route, rows ``*_mma``; bound: the bytes, or q.k^T once and p.v twice at
-   989 TFLOP/s dense bf16 / f16; the build prints the Hopper kernel's
-   registers, spills and shared memory, and fails on a spill) and
-   flash's backward kernel (``FLASH_BWD_TRAIN``: the training shapes of
+   989 TFLOP/s dense bf16 / f16; the build prints the Hopper kernels'
+   registers, spills and shared memory, forward and backward, and fails
+   on a spill) and
+   flash's backward kernels (``FLASH_BWD_TRAIN``: the training shapes of
    phase 10g's archs in their dtype, timed; ``FLASH_BWD_EDGES`` in every
    dtype: every head dim, windows that mask keys, sq != sk with rows that
    see no key, one query, q / k / v as views of one fused projection,
-   aligned and misaligned by one element, a strided cotangent) from the
+   aligned and misaligned by one element, a strided cotangent; each on
+   the route ``flash_backward_route`` picks, 16-bit d 128 on the Hopper
+   kernels, and the timed Hopper rows timed again forced onto the mma
+   route, rows ``*_mma``) from the
    forward kernel's lse (within 1e-4 of the plain one, +inf exactly where
    a row sees no key) against its closed-form plain version and the plain
    vjp, each gradient within flash's tolerance of the largest (16-bit: one
@@ -199,7 +203,8 @@ neither ``jax`` nor ``repro``.  In order it:
     qk-norm rows and at dbrx's d 6144; the SSD scan at mamba2's training
     shape with x / B / C in bfloat16 and in float16, each gradient in its
     input's dtype; a 16-bit output or gradient one
-    ulp of it wider; each flash case on the route ``flash_route`` gives):
+    ulp of it wider; each flash case, and its backward, on the route
+    ``flash_route`` gives):
     gradients through the Function (kernel forward; rmsnorm's and flash's
     backward kernels, the plain vjp for ssd) against all-plain autograd,
     forward within phase 4b's tolerances and gradients within them of the
@@ -231,8 +236,9 @@ neither ``jax`` nor ``repro``.  In order it:
     and in float16 and smollm-360m whole in float16 at batch 8; smollm-360m
     whole in float32 under the "dots" remat policy;
     2 steps each (depth and batch cut as one card forces, printed on each
-    line; parameters in their dtype, moments float32; flash's launches
-    on the route ``flash_route`` gives); the launch counters zeroed just
+    line; parameters in their dtype, moments float32; flash's launches,
+    and its backward's, on the route ``flash_route`` gives: 16-bit d 128
+    on the Hopper kernels); the launch counters zeroed just
     before and read just after each: finite losses and grad norms, the
     launches the model implies per step (remat runs each period's forward
     twice; rmsnorm's backward kernel once a norm, qk-norm's rows included:
@@ -325,7 +331,8 @@ neither ``jax`` nor ``repro``.  In order it:
     city (64 vehicles, 2 x 2, page 4, topk_int8) card vs CPU within 1e-4
     of the largest parameter;
 11. prints the per-kernel JSON line (all eight kernels and the backward
-    kernels of rmsnorm and flash with their launches in phase 10g, the
+    kernels of rmsnorm and flash, flash's by route, with their launches
+    in phase 10g, the
     quant and LM
     kernels with their launches per training step, the LM kernels with
     their launches per served arch and their other timed shapes, flash
@@ -473,10 +480,11 @@ FLASH_BWD_REPLACES = ("none: jax.vjp of attention_ref "
                       "(src/repro/kernels/ref.py:11; flash_attention, "
                       "src/repro/kernels/flash_attention.py:94, has no "
                       "custom_vjp), the port's plain vjp")
-# the 16-bit backward kernel runs S and dP in each of its three passes and
-# splits the three products with a float32 left operand into hi / lo
-# halves: 24 d flops of 16-bit products a visible pair and head, against
-# the five products' 10 d
+# the 16-bit backward kernels run S and dP three times (mma: in each of
+# three passes; Hopper: twice in the dQ kernel, once in the dK / dV one)
+# and split the three products with a float32 left operand into hi / lo
+# halves: 24 d flops of 16-bit products a visible pair and head on either
+# route, against the five products' 10 d
 FLASH_BWD_SPLIT = 2.4
 # the kernel a timed call launches (a pattern of its name), or None where
 # the wrapper launches several (timed together); flash's names both routes'
@@ -488,6 +496,18 @@ LM_SYMBOL = {"rmsnorm": "rmsnorm_",
 HOPPER_NAME, HOPPER_SOURCE = ("flash_attention_hopper",
                               "src/repro_torch/kernels/csrc/flash_hopper.cu")
 HOPPER_MAIN = "qwen3_prefill_bf16"
+# flash's backward on the Hopper route (csrc/flash_hopper_bwd.cu: 16-bit
+# d 128), a kernel of its own in the JSON line, and its timed row; the mma
+# route's entry reports the same shape forced onto it, in the same call
+HOPPER_BWD_NAME, HOPPER_BWD_SOURCE = (
+    "flash_attention_backward_hopper",
+    "src/repro_torch/kernels/csrc/flash_hopper_bwd.cu")
+HOPPER_BWD_MAIN = "qwen3_train_bf16"
+# the Hopper kernels whose ptxas report the build prints, and fails on a
+# spill of
+HOPPER_KERNELS = ("flash_attention_hopper_kernel",
+                  "flash_bwd_hopper_dq_kernel",
+                  "flash_bwd_hopper_dkdv_kernel")
 # phase 8-10's served archs
 # (deepseek-v2-lite-16b after the float32 ones: its 62.8 GB of float32
 # weights take the card after every other arch's are freed; then the
@@ -561,21 +581,20 @@ FLASH16_CASES = (
 # phase 4b's backward cases: (label, (b, sq, sk, h, kv, d, causal,
 # window), dtype, timed).  Timed: the training shapes of the archs' steps
 # (phase 10g) in their dtype: qwen3-14b's and command-r-35b's (at batch 8,
-# as their plain backward was first timed), dbrx-132b's and gemma3-4b's local
-# and global layers in bfloat16, smollm in float16, and in float32
-# smollm, gemma3 (batch 4), recurrentgemma, internvl2 and musicgen.
-# Untimed, in every dtype: every head dim, windows that mask keys, sq !=
-# sk (rows that see no key), one query, q / k / v as views of one fused
-# projection (aligned, and misaligned by one element) with a strided
-# cotangent.
+# as their plain backward was first timed), dbrx-132b's and gemma3-4b's
+# global layer in bfloat16, smollm in float16, and in float32 smollm,
+# gemma3 (batch 4), recurrentgemma, internvl2 and musicgen.  Untimed, in
+# every dtype: every head dim, windows that mask keys, sq != sk (rows
+# that see no key), one query, q / k / v as views of one fused projection
+# (aligned, and misaligned by one element) with a strided cotangent, and
+# gemma3's local layer (its window of 1024 masks nothing at s 1024: the
+# global layer's work, timed apart until the Hopper backward's rows).
 FLASH_BWD_TRAIN = (
     ("qwen3_train", (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 40, 8, 128, True, 0),
      "bf16"),
     ("command_r_train", (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 64, 8, 128, True,
                          0), "bf16"),
     ("dbrx_train", (4, TRAIN_SEQ, TRAIN_SEQ, 48, 8, 128, True, 0), "bf16"),
-    ("gemma3_local_train", (4, TRAIN_SEQ, TRAIN_SEQ, 8, 4, 256, True, 1024),
-     "bf16"),
     ("gemma3_global_train", (4, TRAIN_SEQ, TRAIN_SEQ, 8, 4, 256, True, 0),
      "bf16"),
     ("smollm_train", (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 15, 5, 64, True, 0),
@@ -583,8 +602,6 @@ FLASH_BWD_TRAIN = (
     ("smollm_train", (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 15, 5, 64, True, 0),
      "f32"),
     ("gemma3_global_train", (4, TRAIN_SEQ, TRAIN_SEQ, 8, 4, 256, True, 0),
-     "f32"),
-    ("gemma3_local_train", (4, TRAIN_SEQ, TRAIN_SEQ, 8, 4, 256, True, 1024),
      "f32"),
     ("recurrentgemma_train", (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 10, 1, 256,
                               True, 2048), "f32"),
@@ -604,7 +621,9 @@ FLASH_BWD_EDGES = (
     ("d256_window40", (1, 90, 90, 2, 1, 256, True, 40)),
     ("d32_window20", (2, 150, 150, 6, 3, 32, False, 20)),
     ("strided_qkv", (2, 50, 50, 4, 2, 64, True, 0)),
-    ("strided_qkv_odd", (2, 50, 50, 4, 2, 64, True, 0)))
+    ("strided_qkv_odd", (2, 50, 50, 4, 2, 64, True, 0)),
+    ("gemma3_local_train", (4, TRAIN_SEQ, TRAIN_SEQ, 8, 4, 256, True,
+                            1024)))
 TEACHER_TOL = 1e-3              # phase 9: f32 through 24-48 layers, prefill
 #                                 (kernels) vs decode (plain) sum orders
 REDUCED_TOL = 2e-4              # phase 10: as the CPU parity tests
@@ -1394,30 +1413,39 @@ def build_kernels():
             print(f"build: {line.strip()}", flush=True)
     if lib.log:
         hopper = hopper_ptxas(lib.log)
-        smem = lib.lib.repro_flash_hopper_smem_bytes()
-        for dtype, info in hopper.items():
-            print(f"build: {HOPPER_NAME} {dtype} registers="
+        smem = {"flash_attention_hopper_kernel":
+                lib.lib.repro_flash_hopper_smem_bytes(),
+                "flash_bwd_hopper_dq_kernel":
+                lib.lib.repro_flash_hopper_bwd_smem_bytes(0),
+                "flash_bwd_hopper_dkdv_kernel":
+                lib.lib.repro_flash_hopper_bwd_smem_bytes(1)}
+        for (kernel, dtype), info in hopper.items():
+            print(f"build: {kernel} {dtype} registers="
                   f"{info['registers']} spill_stores={info['spill_stores']} "
                   f"spill_loads={info['spill_loads']} stack={info['stack']} "
-                  f"dynamic_smem_bytes={smem}", flush=True)
-        if len(hopper) != 2 or any(i["spill_stores"] or i["spill_loads"]
-                                   for i in hopper.values()):
-            raise AssertionError(f"{HOPPER_NAME}: ptxas reports {hopper} "
-                                 f"(both dtypes, no spills wanted)")
+                  f"dynamic_smem_bytes={smem[kernel]}", flush=True)
+        if len(hopper) != 2 * len(HOPPER_KERNELS) or any(
+                i["spill_stores"] or i["spill_loads"]
+                for i in hopper.values()):
+            raise AssertionError(f"Hopper kernels: ptxas reports {hopper} "
+                                 f"(each in both dtypes, no spills "
+                                 f"wanted)")
     return lib
 
 
 def hopper_ptxas(log):
-    """The Hopper flash kernel's ptxas -v report per dtype, from a build
-    log: {"bf16" | "f16": {registers, spill_stores, spill_loads,
-    stack}}."""
+    """The ptxas -v report of each Hopper flash kernel (HOPPER_KERNELS)
+    per dtype, from a build log: {(kernel, "bf16" | "f16"): {registers,
+    spill_stores, spill_loads, stack}}."""
     out, cur = {}, None
     for line in log.splitlines():
         if "Compiling entry function" in line:
             cur = None
-            if "flash_attention_hopper_kernel" in line:
-                cur = out.setdefault(
-                    "bf16" if "bfloat16" in line else "f16", {})
+            for kernel in HOPPER_KERNELS:
+                if kernel in line:
+                    cur = out.setdefault(
+                        (kernel, "bf16" if "bfloat16" in line else "f16"),
+                        {})
         elif cur is not None:
             m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
                           r"stores, (\d+) bytes spill loads", line)
@@ -1863,13 +1891,13 @@ def _flash_bwd_inputs(label, shape, dtype, seed):
     return q, k, v, _randn((b, sq, h, d), seed + 3).to(dtype)
 
 
-def _flash_bwd_close(q, k, v, lse, do, causal, window, run_k):
-    """The backward kernel's (dq, dk, dv) against the closed form (the
-    kernel's plain version, on the kernel's lse) and against the plain
+def _flash_bwd_close(q, k, v, lse, do, causal, window, run_k, route):
+    """The backward kernels' (dq, dk, dv) against the closed form (the
+    kernels' plain version, on the kernel's lse) and against the plain
     vjp of attention_plain, each gradient within LM_TOL of the largest
     (16-bit: one ulp more, :func:`_lm_within`), finite, of q's dtype; a
-    second call bit for bit; the forward kernel's lse within 1e-4 of the
-    plain one, +inf exactly where a row sees no key."""
+    second call bit for bit, on ``route``; the forward kernel's lse within
+    1e-4 of the plain one, +inf exactly where a row sees no key."""
     import torch
     from repro_torch.kernels import flash_attention as FA
     tol = LM_TOL["flash_attention_backward"]
@@ -1882,7 +1910,10 @@ def _flash_bwd_close(q, k, v, lse, do, causal, window, run_k):
                    for a, w in zip(got, want))
 
     def close(got, want):
+        before = dict(FA.BACKWARD_ROUTE_LAUNCHES)
         again = run_k()
+        took = [r for r, n in FA.BACKWARD_ROUTE_LAUNCHES.items()
+                if n != before[r]]
         _, lse_p = FA._plain_forward(q, k, v, causal, window,
                                      q.shape[-1] ** -0.5)
         seen = torch.isfinite(lse_p)
@@ -1891,7 +1922,8 @@ def _flash_bwd_close(q, k, v, lse, do, causal, window, run_k):
         del lse_p
         _, vjp = torch.func.vjp(lambda a, b, c: FA.attention_plain(
             a, b, c, causal=causal, window=window), q, k, v)
-        return (lse_ok and all(torch.equal(a, b) for a, b in zip(got, again))
+        return (took == [route] and lse_ok
+                and all(torch.equal(a, b) for a, b in zip(got, again))
                 and within(got, want) and within(got, vjp(do)))
     return close
 
@@ -1925,7 +1957,7 @@ def _rms_norm_backward_library(x, g, dy):
 # other timed rows go under "shapes")
 LM_MAIN = {"rmsnorm": "smollm_prefill_d960",
            "rmsnorm_backward": "smollm_train_d960",
-           "flash_attention_backward": "qwen3_train_bf16",
+           "flash_attention_backward": "qwen3_train_bf16_mma",
            "flash_attention": "smollm_prefill",
            "ssd_chunk_scan": "mamba2_prefill"}
 LM_ROW_KEYS = ("shape", "ms", "ms_flushed", "call_ms", "plain_ms",
@@ -2066,12 +2098,14 @@ def _lm_cases():
                     4 * d * b * h * _visible_pairs(sq, sk, causal, window),
                     _flash16_close(run_k, route or FA.flash_route(q, k, v)),
                     BF16_FLOPS_PER_S))
-    # flash's backward kernel at FLASH_BWD_TRAIN (timed, in the training
+    # flash's backward kernels at FLASH_BWD_TRAIN (timed, in the training
     # dtype) and FLASH_BWD_EDGES (in every dtype), from the forward
-    # kernel's lse and a fixed cotangent.  Bytes: q, k, v, dO and lse read,
-    # dq, dk, dv written once; operations: the five products, 10 d flops a
-    # visible pair and head (float32 at the float32 rate, its 3xTF32 and
-    # the 16-bit kernel's split products beside it)
+    # kernel's lse and a fixed cotangent, on the route
+    # flash_backward_route picks; a timed row on the Hopper route is also
+    # timed forced onto the mma route (its label + "_mma").  Bytes: q, k,
+    # v, dO and lse read, dq, dk, dv written once; operations: the five
+    # products, 10 d flops a visible pair and head (float32 at the float32
+    # rate, its 3xTF32 and the 16-bit kernels' split products beside it)
     for label, shape, dt, timed in (
             *((l, sh, dt, True) for l, sh, dt in FLASH_BWD_TRAIN),
             *((l, sh, dt, False) for l, sh in FLASH_BWD_EDGES
@@ -2081,18 +2115,29 @@ def _lm_cases():
                                         _dtype(RMS_DTYPES[dt][0]),
                                         len(cases))
         _, lse = FA._attend(q, k, v, causal, window, d ** -0.5)
-        run_k = (lambda a=(q, k, v, lse, do), c=causal, w=window:
-                 FA.flash_attention_backward(*a, causal=c, window=w))
-        cases.append((
-            "flash_attention_backward", f"{label}_{dt}", timed, run_k,
-            lambda a=(q, k, v, lse, do), c=causal, w=window:
-                FA.attention_backward_plain(*a, causal=c, window=w),
-            _sdpa_backward(q, k, v, do, causal, window) if timed else None,
-            q.element_size() * 2 * (q.numel() + k.numel() + v.numel())
-            + 4 * b * h * sq,
-            10 * d * b * h * _visible_pairs(sq, sk, causal, window),
-            _flash_bwd_close(q, k, v, lse, do, causal, window, run_k),
-            F32_FLOPS_PER_S if dt == "f32" else BF16_FLOPS_PER_S))
+        rule = FA.flash_backward_route(q, k, v, do)
+        for route in (rule, "mma") if timed and rule == "hopper" else (rule,):
+            # the public entry on the rule's route, the forced route beside
+            run_k = ((lambda a=(q, k, v, lse, do), c=causal, w=window:
+                      FA.flash_attention_backward(*a, causal=c, window=w))
+                     if route == rule else
+                     (lambda a=(q, k, v, lse, do), c=causal, w=window:
+                      FA._backward(*a, c, w, a[0].shape[-1] ** -0.5,
+                                   route="mma")))
+            cases.append((
+                "flash_attention_backward",
+                f"{label}_{dt}" + ("_mma" if route != rule else ""), timed,
+                run_k,
+                lambda a=(q, k, v, lse, do), c=causal, w=window:
+                    FA.attention_backward_plain(*a, causal=c, window=w),
+                _sdpa_backward(q, k, v, do, causal, window)
+                if timed and route == rule else None,
+                q.element_size() * 2 * (q.numel() + k.numel() + v.numel())
+                + 4 * b * h * sq,
+                10 * d * b * h * _visible_pairs(sq, sk, causal, window),
+                _flash_bwd_close(q, k, v, lse, do, causal, window, run_k,
+                                 route),
+                F32_FLOPS_PER_S if dt == "f32" else BF16_FLOPS_PER_S))
     # the SSD scan in float32 and, on one draw of a shape's inputs, with
     # x / B / C in bfloat16 and float16 (dt and A float32, as the model
     # gives them; at mamba2's prefill shape also with dt and A in x's
@@ -2137,10 +2182,12 @@ def check_lm_kernels():
     bad = []
     for (name, label, timed, run_k, run_p, run_lib, nbytes, flops, close,
          rate) in _lm_cases():
-        before = dict(FA.ROUTE_LAUNCHES)
+        routes = (FA.BACKWARD_ROUTE_LAUNCHES
+                  if name == "flash_attention_backward" else
+                  FA.ROUTE_LAUNCHES)
+        before = dict(routes)
         got, want = run_k(), run_p()
-        took = ",".join(r for r, n in FA.ROUTE_LAUNCHES.items()
-                        if n != before[r])
+        took = ",".join(r for r, n in routes.items() if n != before[r])
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
         torch.cuda.synchronize()
@@ -2150,9 +2197,9 @@ def check_lm_kernels():
         ok = close(got, want)
         row = {"shape": [list(a.shape) for a in got], "max_abs_err": err,
                "within_tol": ok}
-        if name == "flash_attention":
-            # the route the call took (16-bit: close checks it again);
-            # float32 has the mma route only
+        if name.startswith("flash_attention"):
+            # the route the call took (16-bit, and the backward: close
+            # checks it again); float32 has the mma route only
             row["route"] = took
             ok = row["within_tol"] = ok and (rate == BF16_FLOPS_PER_S
                                              or took == "mma")
@@ -2180,14 +2227,20 @@ def check_lm_kernels():
                 row["transient_gb"] = (torch.cuda.max_memory_allocated()
                                        - base) / 1e9
                 del grads
+            # a row forced onto the mma route shares its inputs, plain
+            # version and library call with the row before it: their times
+            # are taken once, in this run
+            twin = (out[name].get(label[:-len("_mma")])
+                    if label.endswith("_mma") else None)
             row.update(
                 # ssd, rmsnorm_backward: every kernel of one call (four /
                 # two behind one wrapper)
                 ms=_device_ms(run_k, iters, LM_SYMBOL.get(name)),
                 call_ms=_call_ms(run_k, iters),
-                plain_ms=_device_ms(run_p, 50 if name.startswith("rmsnorm")
-                                    else 5),
-                library_ms=(_device_ms(run_lib, iters) if run_lib
+                plain_ms=(twin["plain_ms"] if twin else _device_ms(
+                    run_p, 50 if name.startswith("rmsnorm") else 5)),
+                library_ms=(twin["library_ms"] if twin
+                            else _device_ms(run_lib, iters) if run_lib
                             else None),
                 bound_ms=max(bytes_ms, ops_ms),
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
@@ -3182,7 +3235,7 @@ def lm_autograd_on_card():
     (its gradients included).  A flash case must take the route
     ``flash_route`` gives its q / k / v: a bfloat16 one at head_dim 128
     the Hopper route, gemma3's bfloat16 d 256 and every float32 case the
-    mma route."""
+    mma route, and its backward the same route."""
     import torch
     from repro_torch.kernels import flash_attention as FA
     rows = []
@@ -3190,10 +3243,13 @@ def lm_autograd_on_card():
         tol = LM_TOL[name]
         w = _randn(tuple(fn(*args).shape), 90)
         before = dict(FA.ROUTE_LAUNCHES)
+        before_bwd = dict(FA.BACKWARD_ROUTE_LAUNCHES)
         with _Grew(name, f"{label} grad",
                    (1, int(name in BACKWARD_KERNELS))):
             y_k, g_k = _grads(fn, args, w)
         routes = [r for r, n in FA.ROUTE_LAUNCHES.items() if n != before[r]]
+        bwd_routes = [r for r, n in FA.BACKWARD_ROUTE_LAUNCHES.items()
+                      if n != before_bwd[r]]
         y_p, g_p = _grads(plain, args, w)
         fwd_err = float((y_k.float() - y_p.float()).abs().max())
         big = max(float(g.float().abs().max()) for g in g_p)
@@ -3202,14 +3258,15 @@ def lm_autograd_on_card():
         fwd_ok = y_k.dtype == y_p.dtype and _lm_within(y_k, y_p, tol)
         want_route = ([FA.flash_route(*args)]
                       if name == "flash_attention" else [])
-        ok = (fwd_ok and routes == want_route
+        ok = (fwd_ok and routes == want_route and bwd_routes == want_route
               and all(g.dtype == a.dtype for g, a in zip(g_k, args))
               and all(_lm_within(a, b, tol, big) for a, b in zip(g_k, g_p))
               and all(bool(torch.isfinite(g).all()) for g in g_k))
         row = {"kernel": name, "case": label, "dtype": str(args[0].dtype),
                "shape": list(args[0].shape), "fwd_err": fwd_err,
                "fwd_within_tol": fwd_ok, "grad_err": grad_err,
-               "max_grad": big, "tol": tol, "routes": routes}
+               "max_grad": big, "tol": tol, "routes": routes,
+               "backward_routes": bwd_routes}
         row.update(_vmap_checks(name, fn, args, tol))
         if name == "rmsnorm":
             row.update(_rms_func_routes(args, tol))
@@ -3289,10 +3346,10 @@ def train_path(arch, compress, steps, batch=TRAIN_BATCH, changes=None):
     (``changes`` may set it), its depth cut by ``changes`` (printed), under
     the remat policy ``changes["remat_policy"]`` (default None: full
     recompute; ``models.transformer.set_remat_policy``), the launch
-    counters zeroed just before and read just after.  flash's launches
-    must all take the route ``flash_route`` gives the run's q / k / v
-    (16-bit at head_dim 128: the Hopper route); the parameters stay in
-    their dtype, the moments float32."""
+    counters zeroed just before and read just after.  flash's launches,
+    and its backward's, must all take the route ``flash_route`` gives the
+    run's q / k / v (16-bit at head_dim 128: the Hopper routes); the
+    parameters stay in their dtype, the moments float32."""
     import dataclasses
 
     import torch
@@ -3309,6 +3366,7 @@ def train_path(arch, compress, steps, batch=TRAIN_BATCH, changes=None):
     torch.cuda.empty_cache()
     kernels.reset_launches()
     before = dict(FA.ROUTE_LAUNCHES)
+    before_bwd = dict(FA.BACKWARD_ROUTE_LAUNCHES)
     T.set_remat_policy(policy)
     try:
         res = TR.train(cfg, steps=steps, batch=batch, seq=TRAIN_SEQ,
@@ -3317,6 +3375,8 @@ def train_path(arch, compress, steps, batch=TRAIN_BATCH, changes=None):
         T.set_remat_policy(None)
     counts = kernels.launch_counts()
     routes = {r: n - before[r] for r, n in FA.ROUTE_LAUNCHES.items()}
+    bwd_routes = {r: n - before_bwd[r]
+                  for r, n in FA.BACKWARD_ROUTE_LAUNCHES.items()}
     want = dict.fromkeys(counts, 0)
     want.update(_train_launches(cfg, compress, steps))
     flash_route = ("hopper" if cfg.param_dtype in LOW_DTYPES
@@ -3352,6 +3412,7 @@ def train_path(arch, compress, steps, batch=TRAIN_BATCH, changes=None):
            "launches_per_step": {k: v // steps for k, v in counts.items()
                                  if v},
            "flash_routes": routes,
+           "flash_backward_routes": bwd_routes,
            "embed_first_moment_max": embed_moment,
            **{f"{k}_first_moment_min": v for k, v in layer_moments.items()}}
     print(f"train {arch} dtype={cfg.param_dtype} compress={compress} "
@@ -3367,7 +3428,7 @@ def train_path(arch, compress, steps, batch=TRAIN_BATCH, changes=None):
           f"moment_dtypes={moment_dtypes} "
           f"launches={counts} "
           f"launches_per_step={row['launches_per_step']} "
-          f"flash_routes={routes} "
+          f"flash_routes={routes} flash_backward_routes={bwd_routes} "
           f"embed_first_moment_max={embed_moment:g} "
           + " ".join(f"{k}_first_moment_min={v:g}"
                      for k, v in layer_moments.items()), flush=True)
@@ -3376,9 +3437,12 @@ def train_path(arch, compress, steps, batch=TRAIN_BATCH, changes=None):
     if counts != want:
         raise AssertionError(f"{arch} compress={compress}: launches "
                              f"{counts}, expected {want}")
-    if routes[flash_route] != counts["flash_attention"]:
+    if (routes[flash_route] != counts["flash_attention"]
+            or bwd_routes[flash_route]
+            != counts["flash_attention_backward"]):
         raise AssertionError(f"{arch}: flash launches by route {routes}, "
-                             f"all expected on {flash_route!r}")
+                             f"its backward's {bwd_routes}, all expected "
+                             f"on {flash_route!r}")
     if (dtypes != [cfg.param_dtype] or moment_dtypes != ["float32"]
             or f32_leaf_dtypes not in ([], ["float32"])):
         raise AssertionError(f"{arch}: parameters {dtypes}, float32 leaves "
@@ -4774,8 +4838,10 @@ def kernel_report(checks, launches, main_cuts, mm_checks, mm_launches,
     1) and paged streaming city run (``city_launches``).  The LM kernels'
     ``launches`` are phase 8's over every served arch, per arch under
     ``serving_launches``; their other timed shapes under ``shapes``.
-    rmsnorm's backward kernel, which serving never runs, has phase 10g's
-    launches over its runs (per run under ``train_launches``)."""
+    rmsnorm's and flash's backward kernels, which serving never runs,
+    have phase 10g's launches over its runs (per run under
+    ``train_launches``); flash's backward one entry a route (lm.cu's mma
+    kernels, and ``HOPPER_BWD_NAME``: 16-bit d 128)."""
     per_step = {}
     for run in training:
         label = _run_label(run)
@@ -4874,35 +4940,53 @@ def kernel_report(checks, launches, main_cuts, mm_checks, mm_launches,
                    for label, r in lm_checks["flash_attention"].items()
                    if "ms" in r and label != HOPPER_MAIN
                    and r["route"] == "hopper"}})
-    for name, replaces in (("rmsnorm_backward", RMS_BWD_REPLACES),
-                           ("flash_attention_backward",
-                            FLASH_BWD_REPLACES)):
-        out.append(_backward_entry(name, replaces, lm_checks, training,
-                                   per_step))
+    out.append(_backward_entry("rmsnorm_backward", RMS_BWD_REPLACES,
+                               lm_checks, training, per_step))
+    # flash's backward by route: lm.cu's mma kernels and the Hopper ones,
+    # each with its launches in phase 10g and its own rows
+    for route, entry, source, main in (
+            ("mma", "flash_attention_backward", LM_SOURCE,
+             LM_MAIN["flash_attention_backward"]),
+            ("hopper", HOPPER_BWD_NAME, HOPPER_BWD_SOURCE,
+             HOPPER_BWD_MAIN)):
+        out.append(_backward_entry(
+            "flash_attention_backward", FLASH_BWD_REPLACES, lm_checks,
+            training, per_step, route=route, entry=entry, source=source,
+            main=main))
     return {"kernels": out}
 
 
-def _backward_entry(name, replaces, lm_checks, training, per_step):
+def _backward_entry(name, replaces, lm_checks, training, per_step, *,
+                    route=None, entry=None, source=LM_SOURCE, main=None):
     """The JSON line's entry of a backward kernel, which serving never
     runs: its launches are phase 10g's over its runs (per run under
-    ``train_launches``)."""
-    row = lm_checks[name][LM_MAIN[name]]
+    ``train_launches``).  For flash's backward, ``route``'s launches and
+    the rows that ran on it, under the name ``entry``."""
+    main = main or LM_MAIN[name]
+    row = lm_checks[name][main]
+    rows = {label: r for label, r in lm_checks[name].items()
+            if route is None or r.get("route") == route}
+
+    def launches(t):
+        return (t["launches"][name] if route is None
+                else t["flash_backward_routes"][route])
+
     return {
-        "name": name, "route": "cuda", "source": LM_SOURCE,
+        "name": entry or name, "route": "cuda", "source": source,
         "replaces": replaces,
-        "launches": sum(t["launches"][name] for t in training),
-        "train_launches": {_run_label(t): t["launches"][name]
-                           for t in training},
-        "max_abs_err": max(r["max_abs_err"]
-                           for r in lm_checks[name].values()),
+        "launches": sum(launches(t) for t in training),
+        "train_launches": {_run_label(t): launches(t) for t in training},
+        "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
         "ms": row["ms"], "plain_ms": row["plain_ms"],
         "call_ms": row["call_ms"], "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"], "library_ms": row["library_ms"],
         "shape": row["shape"][0],
-        "train_launches_per_step": per_step.get(name, {}),
+        "train_launches_per_step": (
+            per_step.get(name, {}) if route is None else
+            {_run_label(t): launches(t) // t["steps"]
+             for t in training if launches(t)}),
         "shapes": {label: {key: r[key] for key in LM_ROW_KEYS if key in r}
-                   for label, r in lm_checks[name].items()
-                   if label != LM_MAIN[name]},
+                   for label, r in rows.items() if label != main},
         **({"bound_split_ms": row["bound_split_ms"]}
            if "bound_split_ms" in row else {})}
 

@@ -1,16 +1,20 @@
-"""Device time of each of the three passes of flash's backward kernel.
+"""Device time of each pass of flash's backward kernels.
 
     python3 scripts/flash_bwd_passes.py [--calls 10]
 
-``repro_flash_attention_backward`` launches three kernels a call: (a)
-``flash_bwd_rows_kernel<.., false>`` (D = rowsum(P o dP)), (b)
-``flash_bwd_kv_kernel`` (dK, dV) and (c) ``flash_bwd_rows_kernel<..,
-true>`` (dQ).  At each training shape of ``chip_smoke.py`` phase 4b
-(``FLASH_BWD_TRAIN``: q / k / v and the cotangent drawn on the card from
-a seed, the forward kernel's lse) this profiles ``--calls`` calls with
-``torch.profiler`` and prints each kernel's mean device ms a launch, their
-sum, and the share of the call each pass takes, beside the card's name
-and power limit (``nvidia-smi``).
+``repro_flash_attention_backward`` launches, on the ``"mma"`` route, three
+kernels a call: (a) ``flash_bwd_rows_kernel<.., false>`` (D = rowsum(P o
+dP)), (b) ``flash_bwd_kv_kernel`` (dK, dV) and (c)
+``flash_bwd_rows_kernel<.., true>`` (dQ); on the ``"hopper"`` route
+(16-bit d 128) two: ``flash_bwd_hopper_dq_kernel`` (D, then dQ) and
+``flash_bwd_hopper_dkdv_kernel`` (dK, dV).  At each training shape of
+``chip_smoke.py`` phase 4b (``FLASH_BWD_TRAIN``: q / k / v and the
+cotangent drawn on the card from a seed, the forward kernel's lse) this
+profiles ``--calls`` calls with ``torch.profiler`` on the route
+``flash_backward_route`` picks and, where that is the Hopper route, on
+the ``"mma"`` route too (label ``_mma``), and prints each kernel's mean
+device ms a launch, their sum, and the share of the call each pass
+takes, beside the card's name and power limit (``nvidia-smi``).
 
 Needs a CUDA card and nvcc; imports neither jax nor repro.
 """
@@ -35,9 +39,36 @@ def _cases():
     return module.FLASH_BWD_TRAIN, module.RMS_DTYPES
 
 
-def main() -> int:
+def _pass_name(key: str) -> str:
+    """A backward kernel's pass from its (mangled) name."""
+    if "hopper_dq_kernel" in key:
+        return "d_dq"
+    if "hopper_dkdv_kernel" in key:
+        return "dkdv"
+    if "rows_kernel" in key:
+        return "d" if "false" in key else "dq"
+    return "dkdv" if "kv_kernel" in key else key[:40]
+
+
+def _passes(call, calls: int) -> dict:
+    """Mean device ms a launch of each kernel over ``calls`` profiled
+    calls, after three warm-up calls."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+    return {_pass_name(e.key): e.self_device_time_total / e.count / 1e3
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def main() -> int:
+    import torch
     parser = argparse.ArgumentParser()
     parser.add_argument("--calls", type=int, default=10)
     args = parser.parse_args()
@@ -61,26 +92,17 @@ def main() -> int:
                 .to(dtype) for _ in range(2))
         scale = d ** -0.5
         _, lse = FA._attend(q, k, v, causal, window, scale)
-        for _ in range(3):
-            FA._backward(q, k, v, lse, do, causal, window, scale)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(args.calls):
-                FA._backward(q, k, v, lse, do, causal, window, scale)
-            torch.cuda.synchronize()
-        passes = {}
-        for e in prof.key_averages():
-            if e.device_type != torch.autograd.DeviceType.CUDA:
-                continue
-            name = ("d" if "rows_kernel" in e.key and "false" in e.key
-                    else "dq" if "rows_kernel" in e.key
-                    else "dkdv" if "kv_kernel" in e.key else e.key[:40])
-            passes[name] = e.self_device_time_total / e.count / 1e3
-        total = sum(passes.values())
-        print(f"{label}_{dt} shape={[b, sq, sk, h, kv, d]} causal={causal} "
-              f"window={window} total_ms={total:.6f} "
-              + " ".join(f"{k}_ms={v:.6f} ({100 * v / total:.1f} %)"
-                         for k, v in passes.items()), flush=True)
+        route = FA.flash_backward_route(q, k, v, do, scale)
+        for forced in (None, "mma") if route == "hopper" else (None,):
+            passes = _passes(
+                lambda: FA._backward(q, k, v, lse, do, causal, window,
+                                     scale, route=forced), args.calls)
+            total = sum(passes.values())
+            print(f"{label}_{dt}" + (f"_{forced}" if forced else "")
+                  + f" route={forced or route} shape={[b, sq, sk, h, kv, d]}"
+                  f" causal={causal} window={window} total_ms={total:.6f} "
+                  + " ".join(f"{k}_ms={v:.6f} ({100 * v / total:.1f} %)"
+                             for k, v in passes.items()), flush=True)
         del q, k, v, do, lse
         torch.cuda.empty_cache()
     return 0

@@ -1,14 +1,15 @@
 """Build and load the port's CUDA library (nvcc + ctypes).
 
 Every source in ``kernels/csrc/*.cu`` (the codec, ``codec.cu``, the LM
-lane, ``lm.cu``, and flash's Hopper route, ``flash_hopper.cu``) has a plain C
-interface, so each compiles in seconds with
+lane, ``lm.cu``, and flash's Hopper routes, ``flash_hopper.cu`` forward and
+``flash_hopper_bwd.cu`` backward, which share ``flash_hopper.cuh``) has a
+plain C interface, so each compiles in seconds with
 ``nvcc`` alone (no PyTorch headers).  The sources compile to objects in
 parallel, one ``nvcc`` each, all started together, and link into one shared
 library that ctypes loads.  The library is built at first use into
 ``build/kernels/`` at the repository root (listed in ``.gitignore``), named
-by a hash of every source and the flags, so an edited source rebuilds and a
-stale library is never loaded.
+by a hash of every source, header and the flags, so an edited source or
+header rebuilds and a stale library is never loaded.
 
 No ``--use_fast_math``: the codec is bit-exact against its plain version only
 with IEEE division and round-half-to-even, and the LM kernels' tolerances
@@ -55,11 +56,16 @@ SIGNATURES = {
     "repro_flash_attention_hopper": [*[_P] * 5, *[_I] * 6, *[_LL] * 9, _I,
                                      _I, _F, _I, _P],
     # its gradient: q, k, v, dO, lse, D (float32 scratch), dq, dk, dv, then
-    # b, sq, sk, h, kv, d, q / k / v / dO's strides, causal, window, scale
-    # and the dtype code
+    # b, sq, sk, h, kv, d, q / k / v / dO's strides, causal, window, scale,
+    # the dtype code and, for the dispatcher, the route (0 mma.sync, 1
+    # Hopper)
     "repro_flash_attention_backward": [*[_P] * 9, *[_I] * 6, *[_LL] * 12, _I,
-                                       _I, _F, _I, _P],
+                                       _I, _F, _I, _I, _P],
+    "repro_flash_attention_backward_hopper": [*[_P] * 9, *[_I] * 6,
+                                              *[_LL] * 12, _I, _I, _F, _I,
+                                              _P],
     "repro_flash_hopper_smem_bytes": [],
+    "repro_flash_hopper_bwd_smem_bytes": [_I],
     # ssd's last ints: the dtype codes of x / B / C / y, of dt and of A
     "repro_ssd_chunk_scan": [*[_P] * 8, *[_I] * 7, *[_LL] * 12, _I, _I, _I,
                              _P],
@@ -120,7 +126,7 @@ def load() -> KernelLibrary:
         return _LOADED
     srcs = sources()
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in srcs:
+    for src in (*srcs, *sorted(_CSRC.glob("*.cuh"))):
         digest.update(src.name.encode() + b"\0" + src.read_bytes())
     tag = digest.hexdigest()[:16]
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -9,8 +9,9 @@
 //   repro_ssd_chunk_scan   <- repro/kernels/ssd.py              _ssd_kernel
 // and two replace no TPU kernel, gradients the JAX package leaves to
 // autodiff: repro_rmsnorm_backward (two kernels), rmsnorm's, and
-// repro_flash_attention_backward (three kernels: D, dK / dV, dQ), flash
-// attention's, from the lse that repro_flash_attention writes.
+// repro_flash_attention_backward (three kernels: D, dK / dV, dQ; its
+// Hopper route for 16-bit d 128: flash_hopper_bwd.cu), flash attention's,
+// from the lse that repro_flash_attention writes.
 //
 // Arithmetic.  rmsnorm (both ways) computes in float32 on the CUDA cores,
 // from and to float32, bfloat16 or float16 tensors.  Flash attention, both
@@ -1293,8 +1294,11 @@ int launch_flash_d(const void* q, const void* k, const void* v, void* o,
 // never stored, and
 //   dV = P^T dO,  dP = dO V^T,  dS = P o (dP - D),  dK = scale dS^T Q,
 //   dQ = scale dS K,  D = rowsum(P o dP),
-// in float32, the gradients rounded once to the inputs' type.  D is the
-// softmax backward's sum over the visible keys, as the plain vjp forms it:
+// in float32, the gradients rounded once to the inputs' type.  This is the
+// "mma" route of repro_flash_attention_backward: float32, 16-bit at d 32 /
+// 64 / 256 and 16-bit views TMA cannot map; 16-bit d 128 that TMA can map
+// takes the "hopper" route (flash_hopper_bwd.cu) with the same arithmetic.
+// D is the softmax backward's sum over the visible keys, as the plain vjp forms it:
 // FlashAttention-2's rowsum(dO o O) is the same sum only for the unrounded
 // O, and from a 16-bit O it puts the gradients 10-20x flash's float32
 // tolerance off the plain vjp's.  Three launches a call, no atomics (the
@@ -2508,12 +2512,23 @@ int repro_flash_attention(const void* q, const void* k, const void* v,
   }
 }
 
+int repro_flash_attention_backward_hopper(
+    const void* q, const void* k, const void* v, const void* dout,
+    const float* lse, float* delta, void* dq, void* dk, void* dv, int b,
+    int sq, int sk, int h, int kv, int d, long long q_sb, long long q_ss,
+    long long q_sh, long long k_sb, long long k_ss, long long k_sh,
+    long long v_sb, long long v_ss, long long v_sh, long long o_sb,
+    long long o_ss, long long o_sh, int causal, int window, float scale,
+    int code, void* stream);
+
 // The gradient of repro_flash_attention: q and dout (b, sq, h, d), k and v
 // (b, sk, kv, d) read through their strides (the trailing dim contiguous),
 // lse the forward's (b, h, sq) float32, delta a (b, h, sq) float32 scratch
 // (D); dq (b, sq, h, d) and dk / dv (b, sk, kv, d) contiguous, all of one
-// dtype code (0 float32, 1 bfloat16, 2 float16).  Three launches: D, then
-// dk / dv, then dq.
+// dtype code (0 float32, 1 bfloat16, 2 float16).  route 1 is the Hopper
+// kernels (flash_hopper_bwd.cu: dq and D, then dk / dv), which refuse what
+// they do not take; route 0 the mma.sync kernels here, three launches: D,
+// then dk / dv, then dq.
 int repro_flash_attention_backward(const void* q, const void* k,
                                    const void* v, const void* dout,
                                    const float* lse, float* delta, void* dq,
@@ -2525,7 +2540,14 @@ int repro_flash_attention_backward(const void* q, const void* k,
                                    long long v_ss, long long v_sh,
                                    long long o_sb, long long o_ss,
                                    long long o_sh, int causal, int window,
-                                   float scale, int code, void* stream) {
+                                   float scale, int code, int route,
+                                   void* stream) {
+  if (route == 1)
+    return repro_flash_attention_backward_hopper(
+        q, k, v, dout, lse, delta, dq, dk, dv, b, sq, sk, h, kv, d, q_sb,
+        q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh,
+        causal, window, scale, code, stream);
+  if (route != 0) return (int)cudaErrorInvalidValue;
   if (b <= 0 || (sq <= 0 && sk <= 0)) return 0;
   if (kv <= 0 || h % kv != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;

@@ -51,14 +51,19 @@ each row's log-sum-exp ``lse`` (b, h, sq) in float32 (+inf for a row with
 no visible key); its backward is the backward kernel
 ``repro_flash_attention_backward`` (``kernels/csrc/lm.cu``), which replaces
 no TPU kernel (the JAX package's flash_attention has no custom_vjp; JAX
-differentiates ``attention_ref``): FlashAttention-2's backward from q, k, v,
-lse and the cotangent, three launches a call (D, dK / dV, dQ) counted as
-one, no atomics, with :func:`attention_backward_plain` its plain version
-for CPU tensors.  Its gradients come in q's dtype, from float32 math on the
-16-bit inputs as they are.  Bound on H100: operations, 10 d flops a
-visible pair and head for the five products (the kernels run nine, S and
-dP in each pass, and on 16-bit inputs split p and dS into hi / lo halves
-as the forward splits p).
+differentiates ``attention_ref``): the gradients from q, k, v, lse and the
+cotangent, no atomics, with :func:`attention_backward_plain` its plain
+version for CPU tensors.  :func:`flash_backward_route` picks its route
+before the launch (``BACKWARD_ROUTE_LAUNCHES`` counts them): ``"hopper"``
+(``kernels/csrc/flash_hopper_bwd.cu``) for 16-bit d 128 that TMA can map,
+FlashAttention-3's backward in two launches (dQ with D, then dK / dV: a
+TMA producer and two wgmma consumer warpgroups each); ``"mma"``
+(``lm.cu``) for the rest, FlashAttention-2's in three (D, dK / dV, dQ).
+Either call counts as one launch.  Its gradients come in q's dtype, from
+float32 math on the 16-bit inputs as they are.  Bound on H100:
+operations, 10 d flops a visible pair and head for the five products
+(either route runs S and dP three times, and on 16-bit inputs splits p
+and dS into hi / lo halves as the forward splits p: 24 d).
 The backward is a Function of its own (``_FlashBackward``) where a
 ``torch.func`` transform wraps its inputs: its ``vmap`` rule folds the
 replicas into the batch, so ``vmap`` of ``grad`` makes one kernel call.
@@ -79,9 +84,19 @@ from repro_torch.kernels.quant import FLOAT_CODES, launch
 
 HEAD_DIMS = (32, 64, 128, 256)   # 32: the reduced configs
 MASKED = -1e30
-ROUTES = {"mma": 0, "hopper": 1}   # the C dispatcher's route argument
-# kernel launches by route (LAUNCHES["flash_attention"] counts them all)
+ROUTES = {"mma": 0, "hopper": 1}   # the C dispatchers' route argument
+# kernel launches by route (LAUNCHES["flash_attention"] counts them all),
+# and the backward's (LAUNCHES["flash_attention_backward"])
 ROUTE_LAUNCHES = dict.fromkeys(ROUTES, 0)
+BACKWARD_ROUTE_LAUNCHES = dict.fromkeys(ROUTES, 0)
+
+
+def _tma_ok(*tensors: torch.Tensor) -> bool:
+    """Whether TMA can map every tensor: its ``data_ptr`` 16-byte aligned,
+    the batch, sequence and head strides multiples of 8 elements (16-bit),
+    the trailing stride 1."""
+    return all(t.data_ptr() % 16 == 0 and t.stride(-1) == 1
+               and all(s % 8 == 0 for s in t.stride()[:3]) for t in tensors)
 
 
 def flash_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -92,13 +107,25 @@ def flash_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     batch, sequence and head strides multiples of 8 elements, the trailing
     stride 1), with at least one key and a positive scale; ``"mma"``
     (``csrc/lm.cu``) for everything else."""
-    tensors = (q, k, v)
     ok = (q.dtype in (torch.bfloat16, torch.float16)
           and q.dtype == k.dtype == v.dtype and q.shape[-1] == 128
           and k.shape[1] > 0 and (scale is None or scale > 0)
-          and all(t.data_ptr() % 16 == 0 and t.stride(-1) == 1
-                  and all(s % 8 == 0 for s in t.stride()[:3])
-                  for t in tensors))
+          and _tma_ok(q, k, v))
+    return "hopper" if ok else "mma"
+
+
+def flash_backward_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         do: torch.Tensor,
+                         scale: Optional[float] = None) -> str:
+    """The backward kernels' route: ``"hopper"`` (``csrc/flash_hopper_bwd.cu``)
+    for bfloat16 or float16 q, k, v and cotangent ``do`` of one dtype at
+    head dim 128 that TMA can map (as :func:`flash_route`), with at least
+    one query and one key and a positive scale; ``"mma"`` (``csrc/lm.cu``)
+    for everything else."""
+    ok = (q.dtype in (torch.bfloat16, torch.float16)
+          and q.dtype == k.dtype == v.dtype == do.dtype
+          and q.shape[-1] == 128 and q.shape[1] > 0 and k.shape[1] > 0
+          and (scale is None or scale > 0) and _tma_ok(q, k, v, do))
     return "hopper" if ok else "mma"
 
 
@@ -250,10 +277,14 @@ def _forward(q, k, v, causal: bool, window: int, scale: float, *,
     return _attend(q, k, v, causal, window, scale, route=route)[0]
 
 
-def _backward(q, k, v, lse, do, causal: bool, window: int, scale: float):
+def _backward(q, k, v, lse, do, causal: bool, window: int, scale: float,
+              *, route: Optional[str] = None):
     """(dq, dk, dv): :func:`attention_backward_plain` for CPU tensors, the
-    backward kernel for CUDA ones (three launches, counted as one call);
-    the gradients contiguous, in q's dtype."""
+    backward kernels for CUDA ones (one call counted, whatever the
+    kernels it launches) on the route :func:`flash_backward_route` picks,
+    or on ``route`` (a test forcing ``"mma"`` at a shape the Hopper route
+    takes; the Hopper kernels refuse a shape they do not take, and the
+    call raises); the gradients contiguous, in q's dtype."""
     if q.device.type == "cpu":
         return attention_backward_plain(q, k, v, lse, do, causal=causal,
                                         window=window, scale=scale)
@@ -277,6 +308,9 @@ def _backward(q, k, v, lse, do, causal: bool, window: int, scale: float):
     if not all(t.device == q.device for t in (k, v, lse, do)):
         raise ValueError("q, k, v, lse and the cotangent must be on one "
                          "device")
+    route = route or flash_backward_route(q, k, v, do, scale)
+    if route not in ROUTES:
+        raise ValueError(f"route {route!r} not in {tuple(ROUTES)}")
     lse = lse.contiguous()
     dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, sk, kv, d), dtype=q.dtype, device=q.device)
@@ -287,7 +321,8 @@ def _backward(q, k, v, lse, do, causal: bool, window: int, scale: float):
            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, sq, sk, h, kv, d,
            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
            *do.stride()[:3], int(causal), int(window), float(scale),
-           FLOAT_CODES[q.dtype])
+           FLOAT_CODES[q.dtype], ROUTES[route])
+    BACKWARD_ROUTE_LAUNCHES[route] += 1
     return dq, dk, dv
 
 

@@ -9,9 +9,13 @@ for bit and under ``vmap`` of ``grad``; flash in bfloat16 and float16
 within one ulp plus its float32 tolerance, twice bit for bit, strided and
 unaligned, on the route ``flash_route`` picks — d 128 on the Hopper
 kernel, which the mma route forced at the same shapes agrees with and
-which refuses what it does not take; flash's backward kernel in all
+which refuses what it does not take; flash's backward kernels in all
 three dtypes against its closed form and the plain vjp, twice bit for
-bit, strided, and one launch under ``vmap`` of ``grad``) — short mlp9
+bit, strided, and one launch under ``vmap`` of ``grad``, on the route
+``flash_backward_route`` picks — 16-bit d 128 on the Hopper kernels,
+held with the mma route forced at the same inputs, one launch under
+``vmap`` of ``grad`` there too, and what they refuse going to the mma
+kernels, counted by route) — short mlp9
 runs (single RSU under the
 loop and under vmap with the launch counts each schedule implies, one
 multi-RSU scenario round on topk_int8, and a window of the parallel
@@ -972,6 +976,99 @@ def test_flash_backward_under_vmap_of_grad_is_one_launch(dev):
     got = torch.func.vmap(grad)(*args)
     assert LAUNCHES["flash_attention"] == n + 1
     assert LAUNCHES["flash_attention_backward"] == nf + 1
+    for r in range(2):
+        want = grad(*[a[r] for a in args])
+        assert all(_flash_bwd_within(a[r], w) for a, w in zip(got, want))
+
+
+def _bwd_routes(before):
+    """Backward launches by route since ``before``."""
+    return {r: n - before[r] for r, n in FA.BACKWARD_ROUTE_LAUNCHES.items()}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal,window",
+                         [c for c in FLASH_BWD_CASES if c[5] == 128])
+def test_flash_backward_hopper_route_matches_closed_form_and_mma(
+        dev, b, sq, sk, h, kv, d, causal, window, dtype):
+    """16-bit d 128 takes the Hopper backward (csrc/flash_hopper_bwd.cu):
+    its gradients within tolerance of the closed form, two calls bit for
+    bit, and the mma route forced at the same inputs within tolerance of
+    the same closed form; launches counted by route exactly."""
+    q = _randn((b, sq, h, d), dev, 12).to(dtype)
+    k = _randn((b, sk, kv, d), dev, 13).to(dtype)
+    v = _randn((b, sk, kv, d), dev, 14).to(dtype)
+    do = _randn((b, sq, h, d), dev, 15).to(dtype)
+    scale = d ** -0.5
+    _, lse = FA._attend(q, k, v, causal, window, scale)
+    assert FA.flash_backward_route(q, k, v, do, scale) == "hopper"
+    n, before = (LAUNCHES["flash_attention_backward"],
+                 dict(FA.BACKWARD_ROUTE_LAUNCHES))
+    got = FA.flash_attention_backward(q, k, v, lse, do, causal=causal,
+                                      window=window)
+    again = FA.flash_attention_backward(q, k, v, lse, do, causal=causal,
+                                        window=window)
+    mma = FA._backward(q, k, v, lse, do, causal, window, scale,
+                       route="mma")
+    assert _bwd_routes(before) == {"hopper": 2, "mma": 1}
+    assert LAUNCHES["flash_attention_backward"] == n + 3
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    want = FA.attention_backward_plain(q, k, v, lse, do, causal=causal,
+                                       window=window, scale=scale)
+    assert all(_flash_bwd_within(a, w) for a, w in zip(got, want))
+    assert all(_flash_bwd_within(m, w) for m, w in zip(mma, want))
+    empty = ~FA._mask(sq, sk, causal, window, dev).any(-1)
+    assert bool((got[0][:, empty] == 0).all())
+
+
+def test_flash_backward_refused_shapes_take_the_mma_route(dev):
+    """What the Hopper backward does not take goes to the mma kernels,
+    counted there (float32, 16-bit d 64, a misaligned view of a fused
+    projection, a cotangent with a head stride of 130), within tolerance
+    of the closed form; forcing the Hopper route on such inputs raises
+    before a launch, counting nothing."""
+    f32 = [_randn((2, 50, s, 128), dev, 20 + i) for i, s in
+           enumerate((4, 2, 2, 4))]
+    d64 = [_randn((2, 50, s, 64), dev, 30 + i).to(torch.bfloat16)
+           for i, s in enumerate((4, 2, 2, 4))]
+    flat = _randn((2 * 50 * 8 * 128 + 1,), dev, 40).to(torch.bfloat16)
+    qkv = flat[1:].view(2, 50, 8, 128)
+    odd = [qkv[:, :, :4], qkv[:, :, 4:6], qkv[:, :, 6:],
+           _randn((2, 50, 4, 128), dev, 41).to(torch.bfloat16)]
+    wide = _randn((2, 50, 4, 130), dev, 42).to(torch.bfloat16)
+    strided = [_randn((2, 50, s, 128), dev, 50 + i).to(torch.bfloat16)
+               for i, s in enumerate((4, 2, 2))] + [wide[..., :128]]
+    for q, k, v, do in (f32, d64, odd, strided):
+        scale = q.shape[-1] ** -0.5
+        assert FA.flash_backward_route(q, k, v, do, scale) == "mma"
+        _, lse = FA._attend(q, k, v, True, 0, scale)
+        n, before = (LAUNCHES["flash_attention_backward"],
+                     dict(FA.BACKWARD_ROUTE_LAUNCHES))
+        got = FA.flash_attention_backward(q, k, v, lse, do)
+        assert _bwd_routes(before) == {"hopper": 0, "mma": 1}
+        assert LAUNCHES["flash_attention_backward"] == n + 1
+        want = FA.attention_backward_plain(q, k, v, lse, do, scale=scale)
+        assert all(_flash_bwd_within(a, w) for a, w in zip(got, want))
+        with pytest.raises(RuntimeError, match="cudaError"):
+            FA._backward(q, k, v, lse, do, True, 0, scale, route="hopper")
+        assert _bwd_routes(before) == {"hopper": 0, "mma": 1}
+        assert LAUNCHES["flash_attention_backward"] == n + 1
+
+
+def test_flash_backward_under_vmap_of_grad_is_one_hopper_launch(dev):
+    """``vmap`` of ``grad`` through flash at d 128 in bfloat16: one
+    forward and one backward launch for both replicas, the backward on the
+    Hopper route, each replica's gradients those of its own grad."""
+    args = [_randn((2, 2, 40, h, 128), dev, 60 + i).to(torch.bfloat16)
+            for i, h in enumerate((6, 2, 2))]
+    grad = torch.func.grad(lambda q, k, v: FA.flash_attention(
+        q, k, v).float().square().sum(), argnums=(0, 1, 2))
+    n, nf = LAUNCHES["flash_attention"], LAUNCHES["flash_attention_backward"]
+    before = dict(FA.BACKWARD_ROUTE_LAUNCHES)
+    got = torch.func.vmap(grad)(*args)
+    assert LAUNCHES["flash_attention"] == n + 1
+    assert LAUNCHES["flash_attention_backward"] == nf + 1
+    assert _bwd_routes(before) == {"hopper": 1, "mma": 0}
     for r in range(2):
         want = grad(*[a[r] for a in args])
         assert all(_flash_bwd_within(a[r], w) for a, w in zip(got, want))
