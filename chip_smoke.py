@@ -58,20 +58,20 @@ neither ``jax`` nor ``repro``.  In order it:
    their d-128 variants; qwen3-14b's prefill, 40 heads over 8 at d 128,
    and command-r-35b's, 64 over 8; within one ulp of the working type plus
    flash's float32 tolerance, two calls bit for bit on the route
-   ``flash_route`` picks: d 128 on the Hopper route, the rest on the mma
-   route; the timed prefills also checked, untimed, forced onto the mma
-   route, rows ``*_mma``; bound: the bytes, or q.k^T once and p.v twice at
-   989 TFLOP/s dense bf16 / f16; the build prints the Hopper kernels'
-   registers, spills and shared memory, forward and backward, and fails
-   on a spill) and
+   ``flash_route`` picks: d 64 and 128 on the Hopper route, the rest on
+   the mma route; the timed prefills also checked forced onto the mma
+   route, rows ``*_mma``, timed at d 64 (smollm's); bound: the bytes, or
+   q.k^T once and p.v twice at 989 TFLOP/s dense bf16 / f16; the build
+   prints the Hopper kernels' registers, spills and shared memory,
+   forward and backward, at each head dim, and fails on a spill) and
    flash's backward kernels (``FLASH_BWD_TRAIN``: the training shapes of
    phase 10g's archs in their dtype, timed; ``FLASH_BWD_EDGES`` in every
    dtype: every head dim, windows that mask keys, sq != sk with rows that
    see no key, one query, q / k / v as views of one fused projection,
    aligned and misaligned by one element, a strided cotangent; each on
-   the route ``flash_backward_route`` picks, 16-bit d 128 on the Hopper
-   kernels, and the timed Hopper rows timed again forced onto the mma
-   route, rows ``*_mma``) from the
+   the route ``flash_backward_route`` picks, 16-bit d 128 and 256 on the
+   Hopper kernels, and the timed Hopper rows timed again forced onto the
+   mma route, rows ``*_mma``) from the
    forward kernel's lse (within 1e-4 of the plain one, +inf exactly where
    a row sees no key) against its closed-form plain version and the plain
    vjp, each gradient within flash's tolerance of the largest (16-bit: one
@@ -198,13 +198,14 @@ neither ``jax`` nor ``repro``.  In order it:
     internvl2's 14 heads over 2 and musicgen's MHA at d 64, rmsnorm over
     gemma3's qk-norm rows at batch 4 and over deepseek's 512-wide MLA
     latent (``kv_norm``); in bfloat16 flash at qwen3's, command-r's and
-    dbrx's training shapes (the Hopper route) and gemma3's local and
-    global layers (d 256, the mma route), rmsnorm at d 5120, over qwen3's
+    dbrx's training shapes (the Hopper routes) and gemma3's local and
+    global layers (d 256: the forward on the mma route, the backward on
+    the Hopper route), rmsnorm at d 5120, over qwen3's
     qk-norm rows and at dbrx's d 6144; the SSD scan at mamba2's training
     shape with x / B / C in bfloat16 and in float16, each gradient in its
     input's dtype; a 16-bit output or gradient one
-    ulp of it wider; each flash case, and its backward, on the route
-    ``flash_route`` gives):
+    ulp of it wider; each flash case on the route ``flash_route`` gives,
+    and its backward on the route ``flash_backward_route`` gives):
     gradients through the Function (kernel forward; rmsnorm's and flash's
     backward kernels, the plain vjp for ssd) against all-plain autograd,
     forward within phase 4b's tolerances and gradients within them of the
@@ -236,9 +237,12 @@ neither ``jax`` nor ``repro``.  In order it:
     and in float16 and smollm-360m whole in float16 at batch 8; smollm-360m
     whole in float32 under the "dots" remat policy;
     2 steps each (depth and batch cut as one card forces, printed on each
-    line; parameters in their dtype, moments float32; flash's launches,
-    and its backward's, on the route ``flash_route`` gives: 16-bit d 128
-    on the Hopper kernels); the launch counters zeroed just
+    line; parameters in their dtype, moments float32; flash's launches
+    on the route ``flash_route`` gives, 16-bit d 64 and 128 on the Hopper
+    kernel, and its backward's on the route ``flash_backward_route``
+    gives, 16-bit d 128 and 256 on the Hopper kernels: smollm f16's 64
+    forward calls a step and gemma3 bf16's 34 backward calls); the launch
+    counters zeroed just
     before and read just after each: finite losses and grad norms, the
     launches the model implies per step (remat runs each period's forward
     twice; rmsnorm's backward kernel once a norm, qk-norm's rows included:
@@ -503,11 +507,18 @@ HOPPER_BWD_NAME, HOPPER_BWD_SOURCE = (
     "flash_attention_backward_hopper",
     "src/repro_torch/kernels/csrc/flash_hopper_bwd.cu")
 HOPPER_BWD_MAIN = "qwen3_train_bf16"
+# the head dims the Hopper routes took on after d 128, each an entry of
+# its own in the JSON line with its timed row: the forward's d 64
+# (smollm-360m's f16 step) and the backward's d 256 (gemma3-4b's bf16 step)
+HOPPER_D64_NAME, HOPPER_D64_MAIN = ("flash_attention_hopper_d64",
+                                    "smollm_prefill_f16")
+HOPPER_BWD_D256_NAME, HOPPER_BWD_D256_MAIN = (
+    "flash_attention_backward_hopper_d256", "gemma3_global_train_bf16")
 # the Hopper kernels whose ptxas report the build prints, and fails on a
-# spill of
-HOPPER_KERNELS = ("flash_attention_hopper_kernel",
-                  "flash_bwd_hopper_dq_kernel",
-                  "flash_bwd_hopper_dkdv_kernel")
+# spill of, with the head dims each is instantiated at (in bf16 and f16)
+HOPPER_KERNELS = {"flash_attention_hopper_kernel": (64, 128),
+                  "flash_bwd_hopper_dq_kernel": (128, 256),
+                  "flash_bwd_hopper_dkdv_kernel": (128, 256)}
 # phase 8-10's served archs
 # (deepseek-v2-lite-16b after the float32 ones: its 62.8 GB of float32
 # weights take the card after every other arch's are freed; then the
@@ -546,14 +557,19 @@ TRAIN_BATCH, TRAIN_SEQ = 8, 1024   # phases 4b and 10f-10i
 # and the float32 edges (windows, MQA, ragged s, masked rows, one query),
 # the d-128 edges (the Hopper route's), and the bfloat16 archs' prefills at
 # d 128: qwen3-14b's 40 heads over 8, command-r-35b's 64 over 8.  A timed
-# row is also checked on the mma route (its label + "_mma"), untimed: PR 28
-# recorded both routes' times (PERF.md section 6, rows 6h-6j).
+# row is also checked on the mma route (its label + "_mma"), untimed where
+# PR 28 recorded both routes' times (PERF.md section 6, rows 6h-6j), timed
+# at the rows of FLASH16_MMA_TIMED.
 FLASH16_CASES = (
     # smollm-360m's shape, timed in float16: its f16 train step's forward
-    # (phase 10g, the mma route at d 64)
+    # (phase 10g, the Hopper route at d 64)
     ("smollm_prefill", (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 15, 5, 64,
                         True, 0), ("f16",)),
     ("d128_ragged", (1, 100, 100, 4, 2, 128, True, 0), ()),
+    # the d-64 Hopper route's ragged edges: s past a 128-row tile, sq != sk
+    # under a window
+    ("d64_ragged", (2, 1087, 1087, 15, 5, 64, True, 0), ()),
+    ("d64_window_sq_lt_sk", (2, 130, 260, 4, 2, 64, True, 100), ()),
     ("d256_mqa", (1, 70, 70, 4, 1, 256, True, 0), ()),
     ("d32_reduced", (2, 37, 37, 4, 2, 32, True, 0), ()),
     ("window48", (2, 200, 200, 4, 2, 64, True, 48), ()),
@@ -578,6 +594,9 @@ FLASH16_CASES = (
      ("bf16",)),
     ("dbrx_train", (4, SERVE_PROMPT, SERVE_PROMPT, 48, 8, 128, True, 0),
      ("bf16",)))
+# the timed FLASH16_CASES rows whose mma twin is timed too: the d-64 Hopper
+# route's (the kernel and the route it replaced, in one call)
+FLASH16_MMA_TIMED = ("smollm_prefill",)
 # phase 4b's backward cases: (label, (b, sq, sk, h, kv, d, causal,
 # window), dtype, timed).  Timed: the training shapes of the archs' steps
 # (phase 10g) in their dtype: qwen3-14b's and command-r-35b's (at batch 8,
@@ -586,9 +605,11 @@ FLASH16_CASES = (
 # gemma3 (batch 4), recurrentgemma, internvl2 and musicgen.  Untimed, in
 # every dtype: every head dim, windows that mask keys, sq != sk (rows
 # that see no key), one query, q / k / v as views of one fused projection
-# (aligned, and misaligned by one element) with a strided cotangent, and
-# gemma3's local layer (its window of 1024 masks nothing at s 1024: the
-# global layer's work, timed apart until the Hopper backward's rows).
+# (aligned, and misaligned by one element) with a strided cotangent, at
+# d 64 and 256, and gemma3's local layer (its window of 1024 masks nothing
+# at s 1024: the global layer's work, timed apart until the Hopper
+# backward's rows); the d-256 Hopper route's edges (sq > sk, non-causal
+# sq < sk, rows with no key, one query).
 FLASH_BWD_TRAIN = (
     ("qwen3_train", (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 40, 8, 128, True, 0),
      "bf16"),
@@ -622,6 +643,12 @@ FLASH_BWD_EDGES = (
     ("d32_window20", (2, 150, 150, 6, 3, 32, False, 20)),
     ("strided_qkv", (2, 50, 50, 4, 2, 64, True, 0)),
     ("strided_qkv_odd", (2, 50, 50, 4, 2, 64, True, 0)),
+    ("strided_qkv_d256", (2, 50, 50, 4, 2, 256, True, 0)),
+    ("strided_qkv_d256_odd", (2, 50, 50, 4, 2, 256, True, 0)),
+    ("d256_sq_gt_sk", (2, 80, 48, 4, 2, 256, True, 0)),
+    ("d256_noncausal_sq_lt_sk", (2, 48, 80, 2, 2, 256, False, 0)),
+    ("d256_masked_rows", (1, 64, 16, 2, 1, 256, False, 8)),
+    ("d256_sq1", (2, 1, 77, 4, 2, 256, False, 0)),
     ("gemma3_local_train", (4, TRAIN_SEQ, TRAIN_SEQ, 8, 4, 256, True,
                             1024)))
 TEACHER_TOL = 1e-3              # phase 9: f32 through 24-48 layers, prefill
@@ -1414,38 +1441,42 @@ def build_kernels():
     if lib.log:
         hopper = hopper_ptxas(lib.log)
         smem = {"flash_attention_hopper_kernel":
-                lib.lib.repro_flash_hopper_smem_bytes(),
+                lib.lib.repro_flash_hopper_smem_bytes,
                 "flash_bwd_hopper_dq_kernel":
-                lib.lib.repro_flash_hopper_bwd_smem_bytes(0),
+                lambda d: lib.lib.repro_flash_hopper_bwd_smem_bytes(0, d),
                 "flash_bwd_hopper_dkdv_kernel":
-                lib.lib.repro_flash_hopper_bwd_smem_bytes(1)}
-        for (kernel, dtype), info in hopper.items():
-            print(f"build: {kernel} {dtype} registers="
+                lambda d: lib.lib.repro_flash_hopper_bwd_smem_bytes(1, d)}
+        for (kernel, dtype, d), info in sorted(hopper.items()):
+            print(f"build: {kernel} {dtype} d{d} registers="
                   f"{info['registers']} spill_stores={info['spill_stores']} "
                   f"spill_loads={info['spill_loads']} stack={info['stack']} "
-                  f"dynamic_smem_bytes={smem[kernel]}", flush=True)
-        if len(hopper) != 2 * len(HOPPER_KERNELS) or any(
-                i["spill_stores"] or i["spill_loads"]
+                  f"dynamic_smem_bytes={smem[kernel](d)}", flush=True)
+        want = {(kernel, dt, d) for kernel, dims in HOPPER_KERNELS.items()
+                for dt in ("bf16", "f16") for d in dims}
+        if set(hopper) != want or any(
+                i.get("spill_stores", 1) or i.get("spill_loads", 1)
                 for i in hopper.values()):
             raise AssertionError(f"Hopper kernels: ptxas reports {hopper} "
-                                 f"(each in both dtypes, no spills "
+                                 f"(each of {sorted(want)}, no spills "
                                  f"wanted)")
     return lib
 
 
 def hopper_ptxas(log):
     """The ptxas -v report of each Hopper flash kernel (HOPPER_KERNELS)
-    per dtype, from a build log: {(kernel, "bf16" | "f16"): {registers,
+    per dtype and head dim (the mangled name's int template argument),
+    from a build log: {(kernel, "bf16" | "f16", d): {registers,
     spill_stores, spill_loads, stack}}."""
     out, cur = {}, None
     for line in log.splitlines():
         if "Compiling entry function" in line:
             cur = None
             for kernel in HOPPER_KERNELS:
-                if kernel in line:
+                m = re.search(kernel + r"I\w+?Li(\d+)E", line)
+                if m:
                     cur = out.setdefault(
-                        (kernel, "bf16" if "bfloat16" in line else "f16"),
-                        {})
+                        (kernel, "bf16" if "bfloat16" in line else "f16",
+                         int(m[1])), {})
         elif cur is not None:
             m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
                           r"stores, (\d+) bytes spill loads", line)
@@ -2079,7 +2110,8 @@ def _lm_cases():
             q, k, v = (t.to(_dtype(RMS_DTYPES[dt][0]))
                        for t in drawn[label])
             for route in (None, "mma") if dt in timed_dts else (None,):
-                timed = dt in timed_dts and route is None
+                timed = dt in timed_dts and (
+                    route is None or label in FLASH16_MMA_TIMED)
                 if route is None:
                     run_k = (lambda q=q, k=k, v=v, c=causal, w=window:
                              FA.flash_attention(q, k, v, causal=c, window=w))
@@ -2591,9 +2623,9 @@ def serve_path(arch, card=""):
                         if counts["flash_attention"] else {}):
         raise AssertionError(f"{arch}: flash launched on {flash_dtypes}, "
                              f"its weights are {cfg.param_dtype}")
-    # the bfloat16 archs' prefills (d 128) take the Hopper route, the
-    # float32 archs' the mma route
-    route = "hopper" if cfg.param_dtype in LOW_DTYPES else "mma"
+    # the forward's rule: the bfloat16 archs' prefills (d 128) take the
+    # Hopper route, the float32 archs' the mma route
+    route = flash_forward_route_of(cfg)
     if flash_routes != ({route: counts["flash_attention"]}
                         if counts["flash_attention"] else {}):
         raise AssertionError(f"{arch}: flash launched on routes "
@@ -3233,9 +3265,10 @@ def lm_autograd_on_card():
     kernels; the plain version's vjp, which recomputes the plain forward,
     for ssd) and the memory it takes beyond what was allocated before it
     (its gradients included).  A flash case must take the route
-    ``flash_route`` gives its q / k / v: a bfloat16 one at head_dim 128
+    ``flash_route`` gives its q / k / v (a bfloat16 one at head_dim 128
     the Hopper route, gemma3's bfloat16 d 256 and every float32 case the
-    mma route, and its backward the same route."""
+    mma route) and its backward the route ``flash_backward_route`` gives
+    them (bfloat16 at d 128 and gemma3's d 256 the Hopper route)."""
     import torch
     from repro_torch.kernels import flash_attention as FA
     rows = []
@@ -3256,9 +3289,13 @@ def lm_autograd_on_card():
         grad_err = max(float((a.float() - b.float()).abs().max())
                        for a, b in zip(g_k, g_p))
         fwd_ok = y_k.dtype == y_p.dtype and _lm_within(y_k, y_p, tol)
+        # each rule on the case's q / k / v (and a cotangent like q)
         want_route = ([FA.flash_route(*args)]
                       if name == "flash_attention" else [])
-        ok = (fwd_ok and routes == want_route and bwd_routes == want_route
+        want_bwd = ([FA.flash_backward_route(*args,
+                                             torch.empty_like(args[0]))]
+                    if name == "flash_attention" else [])
+        ok = (fwd_ok and routes == want_route and bwd_routes == want_bwd
               and all(g.dtype == a.dtype for g, a in zip(g_k, args))
               and all(_lm_within(a, b, tol, big) for a, b in zip(g_k, g_p))
               and all(bool(torch.isfinite(g).all()) for g in g_k))
@@ -3339,6 +3376,25 @@ def _train_launches(cfg, compress, steps, remat=True):
     return want
 
 
+def flash_forward_route_of(cfg):
+    """The route an arch's flash forward takes by ``flash_route``'s rule:
+    16-bit parameters at a head dim of HOPPER_FORWARD_DIMS (64, 128) on
+    the Hopper route, the rest on the mma route (the model's q / k / v are
+    views TMA can map)."""
+    from repro_torch.kernels import flash_attention as FA
+    return ("hopper" if cfg.param_dtype in LOW_DTYPES
+            and cfg.head_dim_ in FA.HOPPER_FORWARD_DIMS else "mma")
+
+
+def flash_backward_route_of(cfg):
+    """The route an arch's flash backward takes by
+    ``flash_backward_route``'s rule: 16-bit at HOPPER_BACKWARD_DIMS (128,
+    256) on the Hopper route, the rest on the mma route."""
+    from repro_torch.kernels import flash_attention as FA
+    return ("hopper" if cfg.param_dtype in LOW_DTYPES
+            and cfg.head_dim_ in FA.HOPPER_BACKWARD_DIMS else "mma")
+
+
 def train_path(arch, compress, steps, batch=TRAIN_BATCH, changes=None):
     """Phase 10g: ``launch.train.train`` at full width on the card (seq
     1024, adamw lr 3e-4, clip 1.0, remat, 4 clients, the default cut, the
@@ -3346,10 +3402,11 @@ def train_path(arch, compress, steps, batch=TRAIN_BATCH, changes=None):
     (``changes`` may set it), its depth cut by ``changes`` (printed), under
     the remat policy ``changes["remat_policy"]`` (default None: full
     recompute; ``models.transformer.set_remat_policy``), the launch
-    counters zeroed just before and read just after.  flash's launches,
-    and its backward's, must all take the route ``flash_route`` gives the
-    run's q / k / v (16-bit at head_dim 128: the Hopper routes); the
-    parameters stay in their dtype, the moments float32."""
+    counters zeroed just before and read just after.  flash's launches
+    must all take the route ``flash_route`` gives the run's q / k / v
+    (16-bit at head_dim 64 or 128: the Hopper route), its backward's the
+    route ``flash_backward_route`` gives (16-bit at 128 or 256: the Hopper
+    route); the parameters stay in their dtype, the moments float32."""
     import dataclasses
 
     import torch
@@ -3379,8 +3436,8 @@ def train_path(arch, compress, steps, batch=TRAIN_BATCH, changes=None):
                   for r, n in FA.BACKWARD_ROUTE_LAUNCHES.items()}
     want = dict.fromkeys(counts, 0)
     want.update(_train_launches(cfg, compress, steps))
-    flash_route = ("hopper" if cfg.param_dtype in LOW_DTYPES
-                   and cfg.head_dim_ == 128 else "mma")
+    fwd_route = flash_forward_route_of(cfg)
+    bwd_route = flash_backward_route_of(cfg)
     moments = res["state"]["opt"]["m"]
     # the MoE router and the SSM's A_log / D / dt_bias stay float32
     # whatever the parameters' dtype
@@ -3407,6 +3464,7 @@ def train_path(arch, compress, steps, batch=TRAIN_BATCH, changes=None):
            "losses": [m["loss"] for m in res["metrics"]],
            "grad_norms": [m["grad_norm"] for m in res["metrics"]],
            "step_s": res["step_s"],
+           "head_dim": cfg.head_dim_,
            "peak_mem_gb": res["peak_bytes"] / 1e9,
            "launches": counts,
            "launches_per_step": {k: v // steps for k, v in counts.items()
@@ -3437,12 +3495,12 @@ def train_path(arch, compress, steps, batch=TRAIN_BATCH, changes=None):
     if counts != want:
         raise AssertionError(f"{arch} compress={compress}: launches "
                              f"{counts}, expected {want}")
-    if (routes[flash_route] != counts["flash_attention"]
-            or bwd_routes[flash_route]
+    if (routes[fwd_route] != counts["flash_attention"]
+            or bwd_routes[bwd_route]
             != counts["flash_attention_backward"]):
         raise AssertionError(f"{arch}: flash launches by route {routes}, "
                              f"its backward's {bwd_routes}, all expected "
-                             f"on {flash_route!r}")
+                             f"on {fwd_route!r} / {bwd_route!r}")
     if (dtypes != [cfg.param_dtype] or moment_dtypes != ["float32"]
             or f32_leaf_dtypes not in ([], ["float32"])):
         raise AssertionError(f"{arch}: parameters {dtypes}, float32 leaves "
@@ -4841,7 +4899,10 @@ def kernel_report(checks, launches, main_cuts, mm_checks, mm_launches,
     rmsnorm's and flash's backward kernels, which serving never runs,
     have phase 10g's launches over its runs (per run under
     ``train_launches``); flash's backward one entry a route (lm.cu's mma
-    kernels, and ``HOPPER_BWD_NAME``: 16-bit d 128)."""
+    kernels, and ``HOPPER_BWD_NAME``: 16-bit d 128); the Hopper routes'
+    later head dims an entry each (``HOPPER_D64_NAME``: the forward at
+    16-bit d 64, whose launches are phase 10g's; ``HOPPER_BWD_D256_NAME``:
+    the backward at 16-bit d 256).  Fails if an entry took no launch."""
     per_step = {}
     for run in training:
         label = _run_label(run)
@@ -4919,55 +4980,79 @@ def kernel_report(checks, launches, main_cuts, mm_checks, mm_launches,
                        if "ms" in r and label != LM_MAIN[name]},
             **({"bound_tc_ms": row["bound_tc_ms"]} if "bound_tc_ms" in row
                else {})})
-    # flash's Hopper route: the bfloat16 archs' prefills
-    rows = {label: r for label, r in lm_checks["flash_attention"].items()
-            if r.get("route") == "hopper"}
-    row = rows[HOPPER_MAIN]
-    out.append({
-        "name": HOPPER_NAME, "route": "cuda", "source": HOPPER_SOURCE,
-        "replaces": LM_META["flash_attention"],
-        "launches": sum(flash_routes("hopper").values()),
-        "serving_launches": flash_routes("hopper"),
-        "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
-        "ms": row["ms"], "plain_ms": row["plain_ms"],
-        "call_ms": row["call_ms"], "bound_ms": row["bound_ms"],
-        "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-        "bound_split_ms": row["bound_split_ms"], "shape": row["shape"][0],
-        "train_launches_per_step": {
-            _run_label(t): t["flash_routes"]["hopper"] // t["steps"]
-            for t in training if t["flash_routes"]["hopper"]},
-        "shapes": {label: {key: r[key] for key in LM_ROW_KEYS if key in r}
-                   for label, r in lm_checks["flash_attention"].items()
-                   if "ms" in r and label != HOPPER_MAIN
-                   and r["route"] == "hopper"}})
+    # flash's Hopper route by head dim, an entry each: d 128 (the bfloat16
+    # archs' prefills and training steps) and d 64 (smollm f16's step)
+    for entry, dim, main in ((HOPPER_NAME, 128, HOPPER_MAIN),
+                             (HOPPER_D64_NAME, 64, HOPPER_D64_MAIN)):
+        rows = {label: r for label, r in lm_checks["flash_attention"].items()
+                if r.get("route") == "hopper" and r["shape"][0][-1] == dim}
+        row = rows[main]
+        serving_launches = flash_routes("hopper") if dim == 128 else {}
+        train = {_run_label(t): t["flash_routes"]["hopper"]
+                 for t in training if t["head_dim"] == dim
+                 and t["flash_routes"]["hopper"]}
+        out.append({
+            "name": entry, "route": "cuda", "source": HOPPER_SOURCE,
+            "replaces": LM_META["flash_attention"],
+            "launches": (sum(serving_launches.values()) if dim == 128
+                         else sum(train.values())),
+            "serving_launches": serving_launches,
+            "train_launches": train,
+            "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "call_ms": row["call_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "bound_split_ms": row["bound_split_ms"],
+            "shape": row["shape"][0],
+            "train_launches_per_step": {
+                _run_label(t): t["flash_routes"]["hopper"] // t["steps"]
+                for t in training if t["head_dim"] == dim
+                and t["flash_routes"]["hopper"]},
+            "shapes": {label: {key: r[key] for key in LM_ROW_KEYS
+                               if key in r}
+                       for label, r in rows.items()
+                       if "ms" in r and label != main}})
     out.append(_backward_entry("rmsnorm_backward", RMS_BWD_REPLACES,
                                lm_checks, training, per_step))
-    # flash's backward by route: lm.cu's mma kernels and the Hopper ones,
-    # each with its launches in phase 10g and its own rows
-    for route, entry, source, main in (
+    # flash's backward by route: lm.cu's mma kernels and the Hopper ones
+    # (d 128, and d 256 as an entry of its own), each with its launches in
+    # phase 10g and its own rows
+    for route, entry, source, main, dim in (
             ("mma", "flash_attention_backward", LM_SOURCE,
-             LM_MAIN["flash_attention_backward"]),
+             LM_MAIN["flash_attention_backward"], None),
             ("hopper", HOPPER_BWD_NAME, HOPPER_BWD_SOURCE,
-             HOPPER_BWD_MAIN)):
+             HOPPER_BWD_MAIN, 128),
+            ("hopper", HOPPER_BWD_D256_NAME, HOPPER_BWD_SOURCE,
+             HOPPER_BWD_D256_MAIN, 256)):
         out.append(_backward_entry(
             "flash_attention_backward", FLASH_BWD_REPLACES, lm_checks,
             training, per_step, route=route, entry=entry, source=source,
-            main=main))
+            main=main, dim=dim))
+    # every kernel of the path took a launch in this run
+    idle = [k["name"] for k in out if not k["launches"]]
+    if idle:
+        raise AssertionError(f"kernels launched no time on the main path: "
+                             f"{idle}")
     return {"kernels": out}
 
 
 def _backward_entry(name, replaces, lm_checks, training, per_step, *,
-                    route=None, entry=None, source=LM_SOURCE, main=None):
+                    route=None, entry=None, source=LM_SOURCE, main=None,
+                    dim=None):
     """The JSON line's entry of a backward kernel, which serving never
     runs: its launches are phase 10g's over its runs (per run under
     ``train_launches``).  For flash's backward, ``route``'s launches and
-    the rows that ran on it, under the name ``entry``."""
+    the rows that ran on it, under the name ``entry``; with ``dim``, only
+    those at that head dim."""
     main = main or LM_MAIN[name]
     row = lm_checks[name][main]
     rows = {label: r for label, r in lm_checks[name].items()
-            if route is None or r.get("route") == route}
+            if (route is None or r.get("route") == route)
+            and (dim is None or r["shape"][0][-1] == dim)}
 
     def launches(t):
+        if dim is not None and t["head_dim"] != dim:
+            return 0
         return (t["launches"][name] if route is None
                 else t["flash_backward_routes"][route])
 

@@ -6,15 +6,19 @@
 kernels a call: (a) ``flash_bwd_rows_kernel<.., false>`` (D = rowsum(P o
 dP)), (b) ``flash_bwd_kv_kernel`` (dK, dV) and (c)
 ``flash_bwd_rows_kernel<.., true>`` (dQ); on the ``"hopper"`` route
-(16-bit d 128) two: ``flash_bwd_hopper_dq_kernel`` (D, then dQ) and
-``flash_bwd_hopper_dkdv_kernel`` (dK, dV).  At each training shape of
+(16-bit d 128 and 256) two: ``flash_bwd_hopper_dq_kernel`` (D, then dQ)
+and ``flash_bwd_hopper_dkdv_kernel`` (dK, dV), each instantiated per head
+dim.  At each training shape of
 ``chip_smoke.py`` phase 4b (``FLASH_BWD_TRAIN``: q / k / v and the
 cotangent drawn on the card from a seed, the forward kernel's lse) this
 profiles ``--calls`` calls with ``torch.profiler`` on the route
 ``flash_backward_route`` picks and, where that is the Hopper route, on
-the ``"mma"`` route too (label ``_mma``), and prints each kernel's mean
-device ms a launch, their sum, and the share of the call each pass
-takes, beside the card's name and power limit (``nvidia-smi``).
+the ``"mma"`` route too (label ``_mma``): qwen3-14b's, command-r-35b's
+and dbrx-132b's at d 128 and gemma3-4b's global layer at d 256 in
+bfloat16 on both routes, the rest on the mma route.  It prints each
+kernel's mean device ms a launch, their sum, and the share of the call
+each pass takes, with the head dim, beside the card's name and power
+limit (``nvidia-smi``).
 
 Needs a CUDA card and nvcc; imports neither jax nor repro.
 """
@@ -99,7 +103,8 @@ def main() -> int:
                                      scale, route=forced), args.calls)
             total = sum(passes.values())
             print(f"{label}_{dt}" + (f"_{forced}" if forced else "")
-                  + f" route={forced or route} shape={[b, sq, sk, h, kv, d]}"
+                  + f" route={forced or route} d={d}"
+                  f" shape={[b, sq, sk, h, kv, d]}"
                   f" causal={causal} window={window} total_ms={total:.6f} "
                   + " ".join(f"{k}_ms={v:.6f} ({100 * v / total:.1f} %)"
                              for k, v in passes.items()), flush=True)

@@ -64,8 +64,10 @@ SIGNATURES = {
     "repro_flash_attention_backward_hopper": [*[_P] * 9, *[_I] * 6,
                                               *[_LL] * 12, _I, _I, _F, _I,
                                               _P],
-    "repro_flash_hopper_smem_bytes": [],
-    "repro_flash_hopper_bwd_smem_bytes": [_I],
+    # the dynamic shared memory of the Hopper kernels at a head dim: the
+    # forward's (d), the backward's (0 dQ or 1 dK / dV, d)
+    "repro_flash_hopper_smem_bytes": [_I],
+    "repro_flash_hopper_bwd_smem_bytes": [_I, _I],
     # ssd's last ints: the dtype codes of x / B / C / y, of dt and of A
     "repro_ssd_chunk_scan": [*[_P] * 8, *[_I] * 7, *[_LL] * 12, _I, _I, _I,
                              _P],

@@ -2,10 +2,13 @@
 // (flash_hopper.cu) and the backward (flash_hopper_bwd.cu).  On the device:
 // 16-bit packing and the hi / lo split of float32 values, mbarriers, TMA
 // loads of 4-D tensor maps, 128-byte-swizzle shared-memory descriptors and
-// the wgmma instructions (m64n128k16 with both operands in shared memory or
-// A in registers).  On the host: cuTensorMapEncodeTiled, reached through
-// cudaGetDriverEntryPoint, and the 4-D tensor map over a (b, s, heads, 128)
-// tensor read through its strides.
+// the wgmma instructions (m64n128k16 and m64n64k16, with both operands in
+// shared memory or A in registers), the operand descriptors of a tile laid
+// out as TMA boxes of 64 columns, p by ex2.approx.ftz and the masks by
+// per-row limits.  On the host: cuTensorMapEncodeTiled, reached through
+// cudaGetDriverEntryPoint, and the 4-D tensor map over a (b, s, heads, d)
+// tensor read through its strides (d 64, 128 or 256: one, two or four
+// boxes a row).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; cuTensorMapEncodeTiled is
@@ -20,7 +23,6 @@
 
 namespace {
 
-constexpr int FH_D = 128;             // head dim
 constexpr int FH_BOX = 64;            // columns a TMA box: 128 bytes
 constexpr int FH_ROW = FH_BOX * 2;    // bytes a swizzled row of a box
 constexpr float FH_LOG2E = 1.4426950408889634f;
@@ -157,9 +159,15 @@ __device__ __forceinline__ void pin(uint32_t (&a)[N][4]) {
   "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "   \
   "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "   \
   "%58, %59, %60, %61, %62, %63}"
+#define FH_D32                                                               \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "   \
+  "%30, %31}"
 #define FH_ACC8(d, i)                                                      \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),              \
       "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define FH_ACC32(d)                                                        \
+  FH_ACC8(d, 0), FH_ACC8(d, 8), FH_ACC8(d, 16), FH_ACC8(d, 24)
 #define FH_ACC64(d)                                                        \
   FH_ACC8(d, 0), FH_ACC8(d, 8), FH_ACC8(d, 16), FH_ACC8(d, 24),            \
       FH_ACC8(d, 32), FH_ACC8(d, 40), FH_ACC8(d, 48), FH_ACC8(d, 56)
@@ -170,12 +178,25 @@ __device__ __forceinline__ void pin(uint32_t (&a)[N][4]) {
                " " FH_D64 ", %64, %65, p, 1, 1, 0, 0;\n}\n"                \
                : FH_ACC64(d)                                               \
                : "l"(da), "l"(db), "r"(accumulate))
+#define FH_WGMMA_SS64(TY)                                                  \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                \
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY     \
+               " " FH_D32 ", %32, %33, p, 1, 1, 0, 0;\n}\n"                \
+               : FH_ACC32(d)                                               \
+               : "l"(da), "l"(db), "r"(accumulate))
 // A from registers, B MN-major in shared memory (transpose bit 1)
 #define FH_WGMMA_RS(TY)                                                    \
   asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                \
                "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY    \
                " " FH_D64 ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"  \
                : FH_ACC64(d)                                               \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),      \
+                 "r"(1))
+#define FH_WGMMA_RS64(TY)                                                  \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                \
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY     \
+               " " FH_D32 ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"  \
+               : FH_ACC32(d)                                               \
                : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),      \
                  "r"(1))
 
@@ -189,6 +210,16 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
     FH_WGMMA_SS("f16");
 }
 
+// d (64 x 64) (+)= A (64 x 16, shared) . B (16 x 64, shared)
+template <typename T>
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  if constexpr (std::is_same_v<T, __nv_bfloat16>)
+    FH_WGMMA_SS64("bf16");
+  else
+    FH_WGMMA_SS64("f16");
+}
+
 // d (64 x 128) += A (64 x 16, registers) . B (16 x 128, shared)
 template <typename T>
 __device__ __forceinline__ void wgmma_rs(float (&d)[64],
@@ -198,6 +229,74 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64],
     FH_WGMMA_RS("bf16");
   else
     FH_WGMMA_RS("f16");
+}
+
+// d (64 x 64) += A (64 x 16, registers) . B (16 x 64, shared)
+template <typename T>
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (std::is_same_v<T, __nv_bfloat16>)
+    FH_WGMMA_RS64("bf16");
+  else
+    FH_WGMMA_RS64("f16");
+}
+
+// A tile of ``rows`` rows by d columns lies as d / 64 TMA boxes of 64
+// columns, each rows * 128 bytes after the one before.  As a K-major
+// operand (the contraction over d), step kk of 16 columns starts 32 bytes
+// further inside the swizzle's 128-byte rows, or in the next box; SBO: 8
+// rows of 128 bytes
+__device__ __forceinline__ uint64_t kmajor(uint32_t base, int rows, int kk) {
+  return sw128_desc(base + (kk >> 2) * (rows * FH_ROW) + (kk & 3) * 32, 16,
+                    8 * FH_ROW);
+}
+
+// the same tile as the MN-major B operand of a contraction over its rows
+// (n = d, the transpose bit of 16-bit B): step kk of 16 rows; LBO: the
+// next box (64 columns on), SBO: 8 rows.  ``base`` may start at any box
+// (an N of 128 from box 2: columns 128-255)
+__device__ __forceinline__ uint64_t mnmajor(uint32_t base, int rows, int kk) {
+  return sw128_desc(base + kk * 16 * FH_ROW, rows * FH_ROW, 8 * FH_ROW);
+}
+
+// 2^x on the multi-function unit (ex2.approx: 2 ulp), a result below
+// 2^-126 flushed to 0, 2^-inf = 0: exp2f's handling of subnormal results
+// cost a fifth of the backward's dQ kernel time, and a flushed p moves no
+// output or gradient by more than 2^-126 of a term
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// column offsets past every tile: a row with no visible column
+constexpr int FH_NONE = 1 << 30;
+
+// -inf (p = 0) into the accumulator x (64 x N per warpgroup) where the
+// column offset 8j + (e & 1) of value 4j + e lies outside [lo, hi] of its
+// row (e >> 1): two compares with a constant a value
+template <int N>
+__device__ __forceinline__ void mask_acc(float (&x)[N], const int (&lo)[2],
+                                         const int (&hi)[2]) {
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = 8 * j + (e & 1), r = e >> 1;
+      if (col < lo[r] || col > hi[r]) x[4 * j + e] = -INFINITY;
+    }
+}
+
+// a tile of ``rows`` rows by BOXES x 64 columns into shared memory, one
+// TMA box of 64 columns after another, completing on ``bar``
+template <int BOXES>
+__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int rows, int row,
+                                         int head, int batch) {
+#pragma unroll
+  for (int x = 0; x < BOXES; ++x)
+    tma_load(dst + x * rows * FH_ROW, map, bar, x * FH_BOX, row, head, batch);
 }
 
 // ------------------------------------------------------------------ host
@@ -228,12 +327,13 @@ EncodeTiled encode_tiled() {
 
 // a 4-D map over (d, s, heads, b) of a 16-bit tensor read through its
 // element strides, boxes of 64 columns by ``rows``, 128-byte swizzle, rows
-// out of bounds zero-filled.  A dimension of extent 1 is never stepped, so
-// its stride is given as 16 bytes (TMA wants multiples of 16).
+// out of bounds zero-filled: a row of d columns is d / 64 boxes.  A
+// dimension of extent 1 is never stepped, so its stride is given as 16
+// bytes (TMA wants multiples of 16).
 bool make_map(CUtensorMap* map, EncodeTiled enc, CUtensorMapDataType type,
-              const void* ptr, int s, int heads, int b, long long ss,
+              const void* ptr, int d, int s, int heads, int b, long long ss,
               long long sh, long long sb, int rows) {
-  const cuuint64_t dims[4] = {(cuuint64_t)FH_D, (cuuint64_t)s,
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)s,
                               (cuuint64_t)heads, (cuuint64_t)b};
   const long long el[3] = {ss, sh, sb};
   cuuint64_t strides[3];

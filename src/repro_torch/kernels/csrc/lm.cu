@@ -10,7 +10,8 @@
 // and two replace no TPU kernel, gradients the JAX package leaves to
 // autodiff: repro_rmsnorm_backward (two kernels), rmsnorm's, and
 // repro_flash_attention_backward (three kernels: D, dK / dV, dQ; its
-// Hopper route for 16-bit d 128: flash_hopper_bwd.cu), flash attention's,
+// Hopper route for 16-bit d 128 and 256: flash_hopper_bwd.cu), flash
+// attention's,
 // from the lse that repro_flash_attention writes.
 //
 // Arithmetic.  rmsnorm (both ways) computes in float32 on the CUDA cores,
@@ -909,10 +910,11 @@ cudaError_t launch_rmsnorm_bwd(const T* x, const S* scale, const T* dy,
 // reference's), the arithmetic in float32 as the reference's, which
 // upcasts its q, k and v tiles and keeps p in float32 for p.v.
 // This is the "mma" route of repro_flash_attention: float32, 16-bit at
-// d 32 / 64 / 256, and 16-bit views TMA cannot map.  16-bit inputs at
-// d 128 that TMA can map (the bfloat16 archs' prefills) take the "hopper"
-// route, flash_hopper.cu (wgmma, TMA, warp-specialised), with the same
-// arithmetic; the Python wrapper's flash_route picks one before the launch.
+// d 32 / 256, and 16-bit views TMA cannot map.  16-bit inputs at d 64 or
+// 128 that TMA can map (the bfloat16 archs' prefills, a float16 smollm's
+// forward) take the "hopper" route, flash_hopper.cu (wgmma, TMA,
+// warp-specialised), with the same arithmetic; the Python wrapper's
+// flash_route picks one before the launch.
 // Bound: operations.  At the serving path's prefill (b 8, s 1024, 15 heads,
 // d 64) the causal triangle needs ~1.6e10 flops against ~84 MB of q/k/v/o.
 // Design: FlashAttention-2's warp layout on the tensor cores.  A block owns
@@ -1296,7 +1298,7 @@ int launch_flash_d(const void* q, const void* k, const void* v, void* o,
 //   dQ = scale dS K,  D = rowsum(P o dP),
 // in float32, the gradients rounded once to the inputs' type.  This is the
 // "mma" route of repro_flash_attention_backward: float32, 16-bit at d 32 /
-// 64 / 256 and 16-bit views TMA cannot map; 16-bit d 128 that TMA can map
+// 64 and 16-bit views TMA cannot map; 16-bit d 128 or 256 that TMA can map
 // takes the "hopper" route (flash_hopper_bwd.cu) with the same arithmetic.
 // D is the softmax backward's sum over the visible keys, as the plain vjp forms it:
 // FlashAttention-2's rowsum(dO o O) is the same sum only for the unrounded

@@ -14,10 +14,11 @@ and key positions both start at 0; a row with no visible key outputs 0.
 Routes.  :func:`flash_route` picks one before the launch and passes it to
 C; ``ROUTE_LAUNCHES`` counts launches per route (``LAUNCHES`` counts them
 all).  ``"hopper"`` (``kernels/csrc/flash_hopper.cu``) takes bfloat16 /
-float16 at d 128 that TMA can map, the bfloat16 archs' prefills:
-FlashAttention-3's shape, a TMA producer warpgroup and two wgmma consumer
-warpgroups.  ``"mma"`` (``kernels/csrc/lm.cu``) takes the rest: float32,
-16-bit d 32 / 64 / 256 and views TMA cannot map.  The Hopper kernel refuses
+float16 at d 64 or 128 (``HOPPER_FORWARD_DIMS``) that TMA can map, the
+bfloat16 archs' prefills and a float16 smollm's forward: FlashAttention-3's
+shape, a TMA producer warpgroup and wgmma consumer warpgroups.  ``"mma"``
+(``kernels/csrc/lm.cu``) takes the rest: float32, 16-bit d 32 / 256 and
+views TMA cannot map.  The Hopper kernel refuses
 what it does not take (the call raises); nothing falls back to the other
 route.
 
@@ -55,10 +56,13 @@ differentiates ``attention_ref``): the gradients from q, k, v, lse and the
 cotangent, no atomics, with :func:`attention_backward_plain` its plain
 version for CPU tensors.  :func:`flash_backward_route` picks its route
 before the launch (``BACKWARD_ROUTE_LAUNCHES`` counts them): ``"hopper"``
-(``kernels/csrc/flash_hopper_bwd.cu``) for 16-bit d 128 that TMA can map,
-FlashAttention-3's backward in two launches (dQ with D, then dK / dV: a
-TMA producer and two wgmma consumer warpgroups each); ``"mma"``
-(``lm.cu``) for the rest, FlashAttention-2's in three (D, dK / dV, dQ).
+(``kernels/csrc/flash_hopper_bwd.cu``) for 16-bit d 128 or 256
+(``HOPPER_BACKWARD_DIMS``) that TMA can map, FlashAttention-3's backward in
+two launches (dQ with D, then dK / dV: a TMA producer and two wgmma
+consumer warpgroups each); ``"mma"`` (``lm.cu``) for the rest,
+FlashAttention-2's in three (D, dK / dV, dQ).  The two rules differ: 16-bit
+d 64 runs its forward on the Hopper route and its backward on the mma
+route, 16-bit d 256 the other way round.
 Either call counts as one launch.  Its gradients come in q's dtype, from
 float32 math on the 16-bit inputs as they are.  Bound on H100:
 operations, 10 d flops a visible pair and head for the five products
@@ -85,6 +89,10 @@ from repro_torch.kernels.quant import FLOAT_CODES, launch
 HEAD_DIMS = (32, 64, 128, 256)   # 32: the reduced configs
 MASKED = -1e30
 ROUTES = {"mma": 0, "hopper": 1}   # the C dispatchers' route argument
+# the 16-bit head dims the Hopper kernels take: the forward's
+# (csrc/flash_hopper.cu) and the backward's (csrc/flash_hopper_bwd.cu)
+HOPPER_FORWARD_DIMS = (64, 128)
+HOPPER_BACKWARD_DIMS = (128, 256)
 # kernel launches by route (LAUNCHES["flash_attention"] counts them all),
 # and the backward's (LAUNCHES["flash_attention_backward"])
 ROUTE_LAUNCHES = dict.fromkeys(ROUTES, 0)
@@ -102,13 +110,15 @@ def _tma_ok(*tensors: torch.Tensor) -> bool:
 def flash_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 scale: Optional[float] = None) -> str:
     """The kernel route a CUDA call takes: ``"hopper"`` (wgmma / TMA,
-    ``csrc/flash_hopper.cu``) for bfloat16 or float16 q, k and v at head
-    dim 128 that TMA can map (every ``data_ptr`` 16-byte aligned, the
-    batch, sequence and head strides multiples of 8 elements, the trailing
-    stride 1), with at least one key and a positive scale; ``"mma"``
-    (``csrc/lm.cu``) for everything else."""
+    ``csrc/flash_hopper.cu``) for bfloat16 or float16 q, k and v at a head
+    dim of ``HOPPER_FORWARD_DIMS`` (64, 128) that TMA can map (every
+    ``data_ptr`` 16-byte aligned, the batch, sequence and head strides
+    multiples of 8 elements, the trailing stride 1), with at least one key
+    and a positive scale; ``"mma"`` (``csrc/lm.cu``) for everything
+    else."""
     ok = (q.dtype in (torch.bfloat16, torch.float16)
-          and q.dtype == k.dtype == v.dtype and q.shape[-1] == 128
+          and q.dtype == k.dtype == v.dtype
+          and q.shape[-1] in HOPPER_FORWARD_DIMS
           and k.shape[1] > 0 and (scale is None or scale > 0)
           and _tma_ok(q, k, v))
     return "hopper" if ok else "mma"
@@ -118,13 +128,16 @@ def flash_backward_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          do: torch.Tensor,
                          scale: Optional[float] = None) -> str:
     """The backward kernels' route: ``"hopper"`` (``csrc/flash_hopper_bwd.cu``)
-    for bfloat16 or float16 q, k, v and cotangent ``do`` of one dtype at
-    head dim 128 that TMA can map (as :func:`flash_route`), with at least
-    one query and one key and a positive scale; ``"mma"`` (``csrc/lm.cu``)
-    for everything else."""
+    for bfloat16 or float16 q, k, v and cotangent ``do`` of one dtype at a
+    head dim of ``HOPPER_BACKWARD_DIMS`` (128, 256) that TMA can map (as
+    :func:`flash_route`), with at least one query and one key and a
+    positive scale; ``"mma"`` (``csrc/lm.cu``) for everything else.  Not
+    the forward's rule: d 64 goes to the mma route here, d 256 to the
+    Hopper route."""
     ok = (q.dtype in (torch.bfloat16, torch.float16)
           and q.dtype == k.dtype == v.dtype == do.dtype
-          and q.shape[-1] == 128 and q.shape[1] > 0 and k.shape[1] > 0
+          and q.shape[-1] in HOPPER_BACKWARD_DIMS
+          and q.shape[1] > 0 and k.shape[1] > 0
           and (scale is None or scale > 0) and _tma_ok(q, k, v, do))
     return "hopper" if ok else "mma"
 

@@ -753,7 +753,7 @@ def test_flash_kernel_16bit_matches_plain(dev, b, sq, sk, h, kv, d, causal,
     got = FA.flash_attention(q, k, v, causal=causal, window=window)
     again = FA.flash_attention(q, k, v, causal=causal, window=window)
     assert LAUNCHES["flash_attention"] == n + 2
-    route = "hopper" if d == 128 else "mma"
+    route = "hopper" if d in (64, 128) else "mma"
     assert FA.ROUTE_LAUNCHES[route] == routes[route] + 2
     want = FA.attention_plain(q, k, v, causal=causal, window=window)
     assert got.dtype == dtype and torch.equal(got, again)
@@ -762,14 +762,17 @@ def test_flash_kernel_16bit_matches_plain(dev, b, sq, sk, h, kv, d, causal,
                  + FLASH_TOL * want.float().abs()).all()), float(err.max())
 
 
-# the Hopper route's shapes: FLASH16_CASES' d-128 rows and the d-128 edges
-# (window, non-causal with sq != sk, rows with no visible key, one query)
-HOPPER_CASES = [c for c in FLASH16_CASES if c[5] == 128] + [
+# the Hopper route's shapes: FLASH16_CASES' d-64 and d-128 rows (smollm's
+# prefill, windows, non-causal with sq != sk, rows with no visible key, one
+# query, scores scaled by 4) and the d-128 edges, then ragged s at both
+HOPPER_CASES = [c for c in FLASH16_CASES if c[5] in (64, 128)] + [
     (2, 200, 200, 4, 2, 128, True, 48, 1.0),
     (2, 48, 80, 2, 2, 128, False, 0, 1.0),
     (1, 64, 16, 2, 1, 128, False, 8, 1.0),
     (2, 1, 77, 4, 2, 128, False, 0, 1.0),
-    (8, 1087, 1087, 40, 8, 128, True, 0, 1.0)]
+    (8, 1087, 1087, 40, 8, 128, True, 0, 1.0),
+    (2, 1087, 1087, 15, 5, 64, True, 0, 1.0),
+    (2, 130, 260, 4, 2, 64, True, 100, 1.0)]
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
@@ -801,15 +804,20 @@ def test_flash_16bit_hopper_route_against_mma_route(dev, b, sq, sk, h, kv, d,
 
 
 def test_flash_hopper_route_refuses_what_it_does_not_take(dev):
-    """Forced onto the Hopper route, d 64, float32 and a misaligned view
-    raise before a launch: nothing falls back to the mma route."""
+    """Forced onto the Hopper route, d 256 and d 32 (16-bit d 64 takes
+    it since the d-64 forward was added), float32 and misaligned views at
+    d 128 and d 64 raise before a launch: nothing falls back to the mma
+    route."""
     bf = torch.bfloat16
-    q64 = _randn((1, 32, 2, 64), dev, 7).to(bf)
-    q32 = _randn((1, 32, 2, 128), dev, 8)
+    q256 = _randn((1, 32, 2, 256), dev, 7).to(bf)
+    q32 = _randn((1, 32, 2, 32), dev, 10).to(bf)
+    f32 = _randn((1, 32, 2, 128), dev, 8)
     odd = _randn((1 * 32 * 2 * 128 + 1,), dev, 9).to(bf)[1:].view(
         1, 32, 2, 128)
+    odd64 = _randn((1 * 32 * 2 * 64 + 1,), dev, 11).to(bf)[1:].view(
+        1, 32, 2, 64)
     n, routes = LAUNCHES["flash_attention"], dict(FA.ROUTE_LAUNCHES)
-    for t in (q64, q32, odd):
+    for t in (q256, q32, f32, odd, odd64):
         assert FA.flash_route(t, t, t) == "mma"
         with pytest.raises(RuntimeError, match="cudaError 1"):
             FA._forward(t, t, t, True, 0, t.shape[-1] ** -0.5,
@@ -823,15 +831,16 @@ def test_flash_16bit_strided_views_take_their_routes(dev):
     one element (the mma route): each within one ulp plus flash's float32
     tolerance of the plain version."""
     cs = _chip_smoke()
-    qkv = _randn((2, 50, 8, 128), dev, 5).to(torch.bfloat16)
-    odd = _randn((2 * 50 * 8 * 128 + 1,), dev, 6).to(torch.bfloat16)
-    odd = odd[1:].view(2, 50, 8, 128)
-    for t, route in ((qkv, "hopper"), (odd, "mma")):
-        q, k, v = t[:, :, :4], t[:, :, 4:6], t[:, :, 6:]
-        before = FA.ROUTE_LAUNCHES[route]
-        got = FA.flash_attention(q, k, v)
-        assert FA.ROUTE_LAUNCHES[route] == before + 1
-        assert cs.flash16_within(got, FA.attention_plain(q, k, v))
+    for d in (128, 64):
+        qkv = _randn((2, 50, 8, d), dev, 5).to(torch.bfloat16)
+        odd = _randn((2 * 50 * 8 * d + 1,), dev, 6).to(torch.bfloat16)
+        odd = odd[1:].view(2, 50, 8, d)
+        for t, route in ((qkv, "hopper"), (odd, "mma")):
+            q, k, v = t[:, :, :4], t[:, :, 4:6], t[:, :, 6:]
+            before = FA.ROUTE_LAUNCHES[route]
+            got = FA.flash_attention(q, k, v)
+            assert FA.ROUTE_LAUNCHES[route] == before + 1
+            assert cs.flash16_within(got, FA.attention_plain(q, k, v))
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
@@ -871,7 +880,9 @@ def test_flash_kernel_16bit_reads_strided_qkv_and_refuses_mixed(dev):
 # flash's backward kernel (three launches a call, counted as one): every
 # head dim, GQA groups, windows that mask keys, sq != sk with rows that see
 # no key, and the bfloat16 archs' training shape (qwen3-14b) and gemma3's
-# bf16 d 256; (b, sq, sk, h, kv, d, causal, window)
+# bf16 d 256 (local and global), then d 256's edges of the Hopper route
+# (sq > sk, non-causal sq < sk, rows with no key, one query);
+# (b, sq, sk, h, kv, d, causal, window)
 FLASH_BWD_CASES = [(2, 37, 37, 4, 2, 32, True, 0),
                    (2, 100, 100, 4, 2, 128, True, 0),
                    (1, 70, 70, 4, 1, 256, True, 0),
@@ -883,7 +894,13 @@ FLASH_BWD_CASES = [(2, 37, 37, 4, 2, 32, True, 0),
                    (1, 90, 90, 2, 1, 256, True, 40),
                    (2, 150, 150, 6, 3, 32, False, 20),
                    (8, 1024, 1024, 40, 8, 128, True, 0),
-                   (4, 1024, 1024, 8, 4, 256, True, 1024)]
+                   (4, 1024, 1024, 8, 4, 256, True, 1024),
+                   (4, 1024, 1024, 8, 4, 256, True, 0),
+                   (2, 80, 48, 4, 2, 256, True, 0),
+                   (2, 48, 80, 2, 2, 256, False, 0),
+                   (1, 64, 16, 2, 1, 256, False, 8),
+                   (2, 1, 77, 4, 2, 256, False, 0),
+                   (1, 200, 200, 4, 2, 256, True, 48)]
 
 
 def _flash_bwd_within(a, b, tol=FLASH_TOL):
@@ -988,10 +1005,11 @@ def _bwd_routes(before):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("b,sq,sk,h,kv,d,causal,window",
-                         [c for c in FLASH_BWD_CASES if c[5] == 128])
+                         [c for c in FLASH_BWD_CASES if c[5] in (128, 256)])
 def test_flash_backward_hopper_route_matches_closed_form_and_mma(
         dev, b, sq, sk, h, kv, d, causal, window, dtype):
-    """16-bit d 128 takes the Hopper backward (csrc/flash_hopper_bwd.cu):
+    """16-bit d 128 and 256 take the Hopper backward
+    (csrc/flash_hopper_bwd.cu):
     its gradients within tolerance of the closed form, two calls bit for
     bit, and the mma route forced at the same inputs within tolerance of
     the same closed form; launches counted by route exactly."""
@@ -1023,10 +1041,10 @@ def test_flash_backward_hopper_route_matches_closed_form_and_mma(
 
 def test_flash_backward_refused_shapes_take_the_mma_route(dev):
     """What the Hopper backward does not take goes to the mma kernels,
-    counted there (float32, 16-bit d 64, a misaligned view of a fused
-    projection, a cotangent with a head stride of 130), within tolerance
-    of the closed form; forcing the Hopper route on such inputs raises
-    before a launch, counting nothing."""
+    counted there (float32, 16-bit d 64, misaligned views of a fused
+    projection at d 128 and 256, a cotangent with a head stride of 130),
+    within tolerance of the closed form; forcing the Hopper route on such
+    inputs raises before a launch, counting nothing."""
     f32 = [_randn((2, 50, s, 128), dev, 20 + i) for i, s in
            enumerate((4, 2, 2, 4))]
     d64 = [_randn((2, 50, s, 64), dev, 30 + i).to(torch.bfloat16)
@@ -1038,7 +1056,11 @@ def test_flash_backward_refused_shapes_take_the_mma_route(dev):
     wide = _randn((2, 50, 4, 130), dev, 42).to(torch.bfloat16)
     strided = [_randn((2, 50, s, 128), dev, 50 + i).to(torch.bfloat16)
                for i, s in enumerate((4, 2, 2))] + [wide[..., :128]]
-    for q, k, v, do in (f32, d64, odd, strided):
+    flat256 = _randn((2 * 50 * 8 * 256 + 1,), dev, 43).to(torch.bfloat16)
+    qkv256 = flat256[1:].view(2, 50, 8, 256)
+    odd256 = [qkv256[:, :, :4], qkv256[:, :, 4:6], qkv256[:, :, 6:],
+              _randn((2, 50, 4, 256), dev, 44).to(torch.bfloat16)]
+    for q, k, v, do in (f32, d64, odd, strided, odd256):
         scale = q.shape[-1] ** -0.5
         assert FA.flash_backward_route(q, k, v, do, scale) == "mma"
         _, lse = FA._attend(q, k, v, True, 0, scale)
@@ -1069,6 +1091,27 @@ def test_flash_backward_under_vmap_of_grad_is_one_hopper_launch(dev):
     assert LAUNCHES["flash_attention"] == n + 1
     assert LAUNCHES["flash_attention_backward"] == nf + 1
     assert _bwd_routes(before) == {"hopper": 1, "mma": 0}
+    for r in range(2):
+        want = grad(*[a[r] for a in args])
+        assert all(_flash_bwd_within(a[r], w) for a, w in zip(got, want))
+
+
+def test_flash_backward_under_vmap_of_grad_is_one_hopper_launch_at_d256(dev):
+    """``vmap`` of ``grad`` through flash at d 256 in bfloat16 (gemma3's
+    head dim, 4 heads over 2, a window of 24): one forward launch on the
+    mma route and one backward launch on the Hopper route for both
+    replicas, each replica's gradients those of its own grad."""
+    args = [_randn((2, 2, 40, h, 256), dev, 70 + i).to(torch.bfloat16)
+            for i, h in enumerate((4, 2, 2))]
+    grad = torch.func.grad(lambda q, k, v: FA.flash_attention(
+        q, k, v, window=24).float().square().sum(), argnums=(0, 1, 2))
+    n, nf = LAUNCHES["flash_attention"], LAUNCHES["flash_attention_backward"]
+    before, fwd = dict(FA.BACKWARD_ROUTE_LAUNCHES), dict(FA.ROUTE_LAUNCHES)
+    got = torch.func.vmap(grad)(*args)
+    assert LAUNCHES["flash_attention"] == n + 1
+    assert LAUNCHES["flash_attention_backward"] == nf + 1
+    assert _bwd_routes(before) == {"hopper": 1, "mma": 0}
+    assert FA.ROUTE_LAUNCHES["mma"] == fwd["mma"] + 1
     for r in range(2):
         want = grad(*[a[r] for a in args])
         assert all(_flash_bwd_within(a[r], w) for a, w in zip(got, want))

@@ -133,8 +133,9 @@ def _kernel_16bit_emulated(q, k, v, causal, window, block_k=64,
     exp2(fma(s, c, -m c)) with c = scale * log2(e) in float32 (the fma
     emulated in float64, whose product of two float32 values is exact),
     alpha = exp2((m_old - m) c), the output rescaled first, then lo.v, then
-    hi.v added.  Returns the float32 output (before its one rounding to
-    T)."""
+    hi.v added (the kernel's p is ex2.approx.ftz: within 2 ulp of exp2,
+    a p below 2^-126 flushed to 0).  Returns the float32 output (before
+    its one rounding to T)."""
     b, sq, h, d = q.shape
     sk, kv = k.shape[1], k.shape[2]
     g, scale, dt = h // kv, d ** -0.5, q.dtype
@@ -230,13 +231,18 @@ def test_split_case_sees_p_low_half(dt):
     _within_one_ulp(cs.flash_hi_only(q, k, v), hi_only.to(tdt))
 
 
-# the Hopper route's shapes (d 128): EDGE_CASES' d-128 row, its window /
-# non-causal (sq != sk) / masked-rows / one-query variants, and 256 keys
-# over two 128-key tiles with 4 heads a kv head
+# the Hopper route's shapes (d 128, then d 64, which takes the route with
+# the same tiles and order): EDGE_CASES' d-128 row, its window / non-causal
+# (sq != sk) / masked-rows / one-query variants, and 256 keys over two
+# 128-key tiles with 4 heads a kv head; the same edges at d 64, and
+# smollm's 3 heads a kv head over a ragged 300 keys
 HOPPER_EDGE_CASES = [c for c in EDGE_CASES if c[5] == 128] + [
     (2, 200, 200, 4, 2, 128, True, 48), (2, 48, 80, 2, 2, 128, False, 0),
     (1, 64, 16, 2, 1, 128, False, 8), (2, 1, 77, 4, 2, 128, False, 0),
-    (1, 256, 256, 8, 2, 128, True, 0)]
+    (1, 256, 256, 8, 2, 128, True, 0),
+    (2, 200, 200, 4, 2, 64, True, 48), (2, 48, 80, 2, 2, 64, False, 0),
+    (1, 64, 16, 2, 1, 64, False, 8), (2, 1, 77, 4, 2, 64, False, 0),
+    (1, 300, 300, 6, 2, 64, True, 0)]
 
 
 @pytest.mark.parametrize("dt", list(TORCH_16))

@@ -2,16 +2,19 @@
 
 ``flash_route`` decides before a launch which CUDA kernel a call takes:
 ``"hopper"`` (``csrc/flash_hopper.cu``: wgmma / TMA) for bfloat16 or float16
-q, k and v at head dim 128 that TMA can map, ``"mma"`` (``csrc/lm.cu``) for
-everything else.  It is held here at every 16-bit flash case of
-chip_smoke.py's phase 4b (``FLASH16_CASES`` and the split case), the same
-shapes in float32, the bfloat16 archs' prefills through the model's own
-q / k / v projections (phase 8's s 1024 and phase 9's s 1023, on the full
-configs' head geometry at a small width), dbrx-132b-smoke's d 32, and
-q / k / v views: slices of one fused projection, a view misaligned by one
-element, head or sequence strides not a multiple of 8 elements, a
-non-contiguous trailing dim.  On the CPU the wrapper runs the plain version
-whatever the route and launches nothing."""
+q, k and v at head dim 64 or 128 that TMA can map, ``"mma"``
+(``csrc/lm.cu``) for everything else: float32, 16-bit d 32 and 256.  It is
+held here at every 16-bit flash case of chip_smoke.py's phase 4b
+(``FLASH16_CASES`` and the split case), the same shapes in float32, the
+bfloat16 archs' prefills through the model's own q / k / v projections
+(phase 8's s 1024 and phase 9's s 1023, on the full configs' head geometry
+at a small width), the 16-bit training layers of phase 10g (smollm-360m in
+float16 at d 64, gemma3-4b in bfloat16 at d 256, qwen3-14b at d 128) with
+the backward's rule beside the forward's, dbrx-132b-smoke's d 32, and
+q / k / v views at d 64 and 128: slices of one fused projection, a view
+misaligned by one element, head or sequence strides not a multiple of 8
+elements, a non-contiguous trailing dim.  On the CPU the wrapper runs the
+plain version whatever the route and launches nothing."""
 import functools
 import importlib.util
 from pathlib import Path
@@ -26,6 +29,9 @@ from repro_torch.models import attention as ATT
 
 DTYPES = {"bf16": torch.bfloat16, "f16": torch.float16}
 BF16_ARCHS = ("qwen3-14b", "command-r-35b", "dbrx-132b")
+# the forward's route of 16-bit q / k / v that TMA can map, by head dim:
+# d 64 on the Hopper route since its d-64 kernel, d 256 on the mma route
+FWD_ROUTE_16BIT = {32: "mma", 64: "hopper", 128: "hopper", 256: "mma"}
 
 
 @functools.lru_cache(maxsize=None)
@@ -54,11 +60,12 @@ def _phase4b_cases():
 @pytest.mark.parametrize("dt", [*DTYPES, "f32"])
 @pytest.mark.parametrize("label,shape", _phase4b_cases())
 def test_route_at_phase4b_flash_cases(label, shape, dt):
-    """16-bit at d 128 takes the Hopper route, every other 16-bit head dim
-    the mma route; float32 always the mma route."""
+    """16-bit at d 64 and 128 takes the Hopper route (smollm's prefill,
+    the d-64 edges, the d-128 edges and the bf16 archs' prefills), d 32
+    and 256 the mma route; float32 always the mma route."""
     dtype = DTYPES.get(dt, torch.float32)
     q, k, v = _empty(*shape, dtype)
-    want = "hopper" if dt != "f32" and shape[5] == 128 else "mma"
+    want = "mma" if dt == "f32" else FWD_ROUTE_16BIT[shape[5]]
     assert FA.flash_route(q, k, v) == want
 
 
@@ -90,6 +97,34 @@ def test_route_of_bf16_arch_prefills(arch, s):
     assert FA.flash_route(q, k, v) == "hopper"
 
 
+# phase 10g's 16-bit training layers at a small width: (arch, dtype, the
+# forward's route, the backward's route)
+TRAIN_16BIT = [("smollm-360m", torch.float16, "hopper", "mma"),
+               ("gemma3-4b", torch.bfloat16, "mma", "hopper"),
+               ("qwen3-14b", torch.bfloat16, "hopper", "hopper")]
+
+
+@pytest.mark.parametrize("arch,dtype,fwd,bwd", TRAIN_16BIT)
+def test_route_of_16bit_training_layers(arch, dtype, fwd, bwd):
+    """The model's own q / k / v (projections, qk-norm, rope) on the full
+    config's head geometry in the training dtype at a width of 64, batch
+    1, s 1024, and a cotangent of q's shape: smollm in float16 (d 64)
+    runs its forward on the Hopper route and its backward on the mma
+    route, gemma3 in bfloat16 (d 256) the other way round, qwen3 (d 128)
+    both on the Hopper route."""
+    import dataclasses
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, d_model=64, head_dim=full.head_dim_,
+                              param_dtype=str(dtype).split(".")[1])
+    p = ATT.init_attn(torch.Generator().manual_seed(0), cfg)
+    x = torch.randn((1, 1024, 64), generator=torch.Generator().manual_seed(1)
+                    ).to(dtype)
+    q, k, v = ATT._qkv(p, cfg, x, torch.arange(1024))
+    assert q.dtype == dtype and q.shape[-1] == full.head_dim_
+    assert FA.flash_route(q, k, v) == fwd
+    assert FA.flash_backward_route(q, k, v, torch.empty_like(q)) == bwd
+
+
 def test_route_of_dbrx_smoke():
     """dbrx-132b-smoke (phase 10) has d 32: the mma route."""
     cfg = get_config("dbrx-132b").reduced()
@@ -101,20 +136,23 @@ def test_route_of_dbrx_smoke():
 
 def test_route_of_strided_and_misaligned_views():
     """Slices of one fused projection (test_flash_kernel_reads_strided_qkv's
-    views, at d 64 in float32, and at d 128 in bfloat16), the same views
-    misaligned by one element, a sequence stride of 8 * 130 + 1 values, a
-    head stride of 130 and a trailing stride of 2."""
+    views, at d 64 in float32, and at d 64 and 128 in bfloat16 and
+    float16), the same views misaligned by one element, and at d 128 a
+    sequence stride of 8 * 130 + 1 values, a head stride of 130 and a
+    trailing stride of 2."""
     f32 = torch.zeros((2, 50, 8, 64))
     assert FA.flash_route(f32[:, :, :4], f32[:, :, 4:6], f32[:, :, 6:]) \
         == "mma"
-    for dtype in DTYPES.values():
-        qkv = torch.zeros((2, 50, 8, 128), dtype=dtype)
+    for dtype, d in ((dt, d) for dt in DTYPES.values() for d in (64, 128)):
+        qkv = torch.zeros((2, 50, 8, d), dtype=dtype)
         views = qkv[:, :, :4], qkv[:, :, 4:6], qkv[:, :, 6:]
         assert FA.flash_route(*views) == "hopper"
-        odd = torch.zeros(2 * 50 * 8 * 128 + 1, dtype=dtype)[1:].view(
-            2, 50, 8, 128)
+        odd = torch.zeros(2 * 50 * 8 * d + 1, dtype=dtype)[1:].view(
+            2, 50, 8, d)
         assert FA.flash_route(odd[:, :, :4], odd[:, :, 4:6],
                               odd[:, :, 6:]) == "mma"
+        if d == 64:
+            continue
         seq = torch.zeros((2, 50 * (8 * 130 + 1)), dtype=dtype).view(
             2, 50, 8 * 130 + 1)[..., :8 * 130].view(2, 50, 8, 130)
         assert seq.stride(1) % 8 and FA.flash_route(
